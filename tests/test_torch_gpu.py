@@ -1,0 +1,94 @@
+"""The port's CUDA kernels against their plain versions on the card, at small
+shapes (the full-width checks are in chip_smoke.py). Marked `gpu`; each test
+skips without a CUDA device. On the card:
+
+    python -m pytest -m gpu tests/test_torch_gpu.py
+
+Tolerances: integer-valued inputs are exact; bf16 attention outputs within
+2e-2 (one bf16 ulp of a prob, rounded against other running maxima); a
+whole tiny-model decode step within 5e-2 of the logit scale."""
+
+import dataclasses
+
+import pytest
+import torch
+
+from bitdistiller_tpu_torch.models import TINY_TEST, KVCache, forward, random_packed_params
+from bitdistiller_tpu_torch.ops import decode_attention as da
+from bitdistiller_tpu_torch.ops import quant_matmul as qm
+from bitdistiller_tpu_torch.quant.packing import PackedLinear, make_scale_combo, scales_from_combo
+from bitdistiller_tpu_torch.serve import Engine, SamplingParams
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: run on the card with pytest -m gpu")
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+@pytest.mark.parametrize("bits,m", [(2, 3), (2, 40), (4, 8), (4, 100)])
+def test_packed_matmul_kernels_exact_on_integers(gen, bits, m):
+    k, n, g, layers = 512, 320, 128, 3
+    qw = torch.randint(-(2**31), 2**31 - 1, (layers, k * bits // 32, n), dtype=torch.int32,
+                       device="cuda", generator=gen)
+    scales = torch.ones((layers, k // g, n), device="cuda")
+    szeros = torch.randint(0, 2**bits, (layers, k // g, n), device="cuda", generator=gen).float()
+    p = PackedLinear(qweight=qw, scales=scales, szeros=szeros, bias=None, bits=bits,
+                     group_size=g, in_features=k, out_features=n,
+                     combo=make_scale_combo(scales, szeros))
+    x = torch.randint(-4, 5, (m, k), device="cuda", generator=gen).bfloat16()
+    before = qm.qmm_decode.launches + qm.qmm_prefill.launches
+    got = qm.quant_matmul(x, p, 2)
+    lay = p.layer(2)
+    want = qm.quant_matmul_plain(x, lay.qweight, lay.scales, lay.szeros, bits, g)
+    assert torch.equal(got, want)
+    assert qm.qmm_decode.launches + qm.qmm_prefill.launches == before + 1
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+@pytest.mark.parametrize("hq,hkv,d,window", [(4, 4, 128, None), (8, 2, 64, None), (4, 2, 32, 9)])
+def test_decode_attention_kernel_matches_plain(gen, kv, hq, hkv, d, window):
+    b, t, layers = 3, 40, 2
+    q = torch.randn((b, 1, hq, d), device="cuda", generator=gen).bfloat16()
+    kn = torch.randn((b, 1, hkv, d), device="cuda", generator=gen).bfloat16()
+    vn = torch.randn((b, 1, hkv, d), device="cuda", generator=gen).bfloat16()
+    shape = (layers, b, hkv, t, d)
+    if kv == "int8":
+        ck = torch.randint(-127, 128, shape, dtype=torch.int8, device="cuda", generator=gen)
+        cv = torch.randint(-127, 128, shape, dtype=torch.int8, device="cuda", generator=gen)
+        ks = torch.rand(shape[:-1], device="cuda", generator=gen) * 0.02
+        vs = torch.rand(shape[:-1], device="cuda", generator=gen) * 0.02
+    else:
+        ck = torch.randn(shape, device="cuda", generator=gen).bfloat16()
+        cv = torch.randn(shape, device="cuda", generator=gen).bfloat16()
+        ks = vs = None
+    start = torch.tensor([0, 17, 39], dtype=torch.int32, device="cuda")
+    kw = dict(k_scale=ks, v_scale=vs, window=window)
+    got = da.flash_decode_stacked(q, ck, cv, 1, kn, vn, start, **kw)
+    want = da.decode_attention_plain(q, ck, cv, 1, kn, vn, start, **kw)
+    assert (got.float() - want.float()).abs().max().item() <= 2e-2
+
+
+def test_tiny_engine_runs_through_kernels(gen):
+    cfg = dataclasses.replace(TINY_TEST, num_heads=4, num_kv_heads=2)
+    params = random_packed_params(cfg, bits=2, group_size=128, device="cuda")
+    eng = Engine(params, cfg, max_slots=2, max_len=64, eos_token_id=None,
+                 sampling=SamplingParams(temperature=0.0), device="cuda")
+    before = da.flash_decode_stacked.launches
+    outs = eng.generate([[1, 2, 3], [4, 5], [7] * 20], max_new_tokens=6)
+    assert all(len(o) == 6 for o in outs)
+    assert da.flash_decode_stacked.launches - before == eng.decode_steps * cfg.num_layers
+    cache = KVCache.init(cfg, 2, 16, device="cuda")
+    ref = dict(params, layers=dict(params["layers"]))
+    for name, leaf in params["layers"].items():
+        if isinstance(leaf, PackedLinear):
+            s, sz = scales_from_combo(leaf.combo)
+            ref["layers"][name] = dataclasses.replace(leaf, scales=s, szeros=sz)
+    tok = torch.tensor([[5], [9]], device="cuda")
+    pos = torch.tensor([3, 0], device="cuda")
+    lk, _ = forward(params, cfg, tok, cache=cache, cache_pos=pos)
+    lp, _ = forward(ref, cfg, tok, cache=cache, cache_pos=pos, use_kernels=False)
+    assert (lk - lp).abs().max().item() <= 5e-2 * lp.abs().max().item()
