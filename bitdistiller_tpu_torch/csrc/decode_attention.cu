@@ -3,13 +3,18 @@
 // (bitdistiller_tpu_torch/ops/decode_attention.py).
 //
 // Replaces the TPU kernel bitdistiller_tpu/ops/decode_attention.py:_fd2_kernel
-// (:106, pallas_call at :314 in flash_decode_stacked). Same semantics: cache
+// (:106, pallas_call at :314 in flash_decode_stacked) and, called on one
+// layer's cache, the first-generation per-layer kernel
+// bitdistiller_tpu/experimental/flash_decode.py:_fd_kernel (:33, pallas_call
+// at :150 in flash_decode_attention). Same semantics: cache
 // rows t < start[b] are valid (and t < attn_len; with a window only
 // t > start - window), the fresh token at position `start` is folded in
 // last, softmax in f32. For an int8 cache the per-(head, token) f32 scales
 // multiply the score row and the prob row, so codes are never dequantized
 // into memory. The layer is a pointer offset into the stacked cache (the
-// caller passes ck[li].data_ptr(), a view): no layer is copied.
+// caller passes ck[li].data_ptr(), a view): no layer is copied. GQA rep
+// (query heads a kv head) is 1, 2, 4 or 8; at rep 8 and D = 128 the merge
+// buffer sm_acc is 32 KB of the 48 KB static shared memory.
 //
 // Bound on this card: bytes. Each valid K and V row (D elements of the cache
 // dtype, plus one f32 scale each for int8) must be read once from HBM at
@@ -246,9 +251,9 @@ cudaError_t launch_shape(int rep, int d, const void* q, const void* ck, const vo
   if (rep == REP && d == EPL * 32)                                                      \
     return launch<T, KV, REP, EPL>(q, ck, cv, ks, vs, kn, vn, start, out, B, Hkv, T_len, \
                                    t_lim, window, scale, stream);
-  BD_FD_CASE(1, 4) BD_FD_CASE(2, 4) BD_FD_CASE(4, 4)
-  BD_FD_CASE(1, 2) BD_FD_CASE(2, 2) BD_FD_CASE(4, 2)
-  BD_FD_CASE(1, 1) BD_FD_CASE(2, 1) BD_FD_CASE(4, 1)
+  BD_FD_CASE(1, 4) BD_FD_CASE(2, 4) BD_FD_CASE(4, 4) BD_FD_CASE(8, 4)
+  BD_FD_CASE(1, 2) BD_FD_CASE(2, 2) BD_FD_CASE(4, 2) BD_FD_CASE(8, 2)
+  BD_FD_CASE(1, 1) BD_FD_CASE(2, 1) BD_FD_CASE(4, 1) BD_FD_CASE(8, 1)
 #undef BD_FD_CASE
   return cudaErrorInvalidValue;
 }

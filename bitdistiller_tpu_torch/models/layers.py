@@ -14,7 +14,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..ops.quant_matmul import quant_matmul, quant_matmul_plain
+from ..ops.quant_matmul import quant_matmul, quant_matmul_a8_plain, quant_matmul_plain
 from ..quant.packing import PackedLinear
 
 # A "linear" param leaf is either
@@ -26,14 +26,20 @@ def linear(leaf, x: torch.Tensor, li: Optional[int] = None, *,
            use_kernels: bool = True) -> torch.Tensor:
     """Apply a linear layer; `li` picks layer li of a stacked leaf in place.
     `use_kernels=False` runs the plain packed matmul on any device (a
-    reference run on the card); otherwise the device decides."""
+    reference run on the card; A8-ordered words take the plain A8 version);
+    otherwise the device decides."""
     if isinstance(leaf, PackedLinear):
         if use_kernels:
             return quant_matmul(x, leaf, li)
         layer = leaf if li is None else leaf.layer(li)
+        x2 = x.reshape(-1, layer.in_features)
+        if layer.a8_order:
+            return quant_matmul_a8_plain(
+                x2, layer.qweight, layer.scales, layer.szeros, layer.bits,
+                layer.group_size, True, layer.bias,
+            ).reshape(*x.shape[:-1], layer.out_features)
         out = quant_matmul_plain(
-            x.reshape(-1, layer.in_features), layer.qweight, layer.scales,
-            layer.szeros, layer.bits, layer.group_size,
+            x2, layer.qweight, layer.scales, layer.szeros, layer.bits, layer.group_size,
         ).reshape(*x.shape[:-1], layer.out_features)
         if layer.bias is not None:
             out = out + layer.bias.to(out.dtype)

@@ -125,6 +125,7 @@ def _packed_from(fields: dict, device) -> PackedLinear:
         bits=int(fields["bits"]), group_size=int(fields["group_size"]),
         in_features=int(fields["in_features"]), out_features=int(fields["out_features"]),
         combo=make_scale_combo(scales, szeros) if combo is None else _tensor(combo, device),
+        a8_order=bool(fields.get("a8_order", False)),
     )
 
 
@@ -132,7 +133,8 @@ def params_from_numpy(tree, device="cuda"):
     """A JAX param tree as nested dicts of numpy arrays -> the port's params.
     A dict holding "qweight" is a PackedLinear: qweight, scales, szeros,
     optional bias and combo, and the meta fields bits, group_size,
-    in_features, out_features. Arrays keep their dtypes (bf16 included)."""
+    in_features, out_features and a8_order (False when absent: pair-layout
+    words). Arrays keep their dtypes (bf16 included)."""
     dev = resolve_device(device)
     if isinstance(tree, dict):
         if "qweight" in tree:

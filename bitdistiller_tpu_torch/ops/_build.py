@@ -3,8 +3,8 @@
 Each source in `csrc/` is compiled by nvcc, for sm_90a only, into its own
 shared library with a plain C interface, under `_build/` next to `csrc/`
 (listed in .gitignore). A library's file name carries a digest of its
-source and flags, so an edited source is rebuilt and an unchanged one is
-loaded as built. All missing libraries are compiled at once, one nvcc
+source, the shared headers (`csrc/*.cuh`) and the flags, so an edited
+source or header is rebuilt and an unchanged one is loaded as built. All missing libraries are compiled at once, one nvcc
 process a source. Nothing is built when a module is imported: the first
 kernel launch (or an explicit `build()`) does it. A failed build raises.
 """
@@ -22,7 +22,7 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("quant_matmul", "decode_attention")
+SOURCES = ("quant_matmul", "quant_matmul_a8", "fused_mlp", "decode_attention", "bw_probe")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -44,7 +44,8 @@ def nvcc_path() -> str:
 
 def _target(name: str) -> Path:
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

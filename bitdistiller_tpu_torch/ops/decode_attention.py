@@ -24,7 +24,7 @@ import torch
 from . import _build
 
 _NEG = -1e30
-KERNEL_REPS = (1, 2, 4)
+KERNEL_REPS = (1, 2, 4, 8)
 KERNEL_HEAD_DIMS = (32, 64, 128)
 
 
@@ -81,6 +81,55 @@ def _launcher():
     return fn
 
 
+def launch_layer(q, ck, cv, k_scale, v_scale, k_new, v_new, start, window, attn_len):
+    """Launch the kernel on ONE layer's cache ck/cv [B, Hkv, T, D] (a view of
+    a stacked cache, or a per-layer cache) and int8 scales [B, Hkv, T] or
+    None. Checks what the kernel takes and raises otherwise."""
+    b, s, hq, d = q.shape
+    cb, hkv, t, cd = ck.shape
+    quantized = k_scale is not None
+    tensors = [ck, cv, k_new, v_new, start] + ([k_scale, v_scale] if quantized else [])
+    if s != 1 or cb != b or cd != d or hq % hkv or cv.shape != ck.shape:
+        raise ValueError(f"shapes disagree: q {tuple(q.shape)}, cache {tuple(ck.shape)}")
+    if any(x.device != q.device for x in tensors):
+        raise ValueError("decode attention takes CUDA tensors on one device")
+    rep = hq // hkv
+    if rep not in KERNEL_REPS or d not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"kernel takes rep in {KERNEL_REPS}, D in {KERNEL_HEAD_DIMS}")
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"the decode attention kernel takes bfloat16 q, got {q.dtype}")
+    if ck.dtype != (torch.int8 if quantized else torch.bfloat16) or cv.dtype != ck.dtype:
+        raise ValueError(
+            f"the kernel takes a bfloat16 cache, or int8 with scales; got {ck.dtype}, "
+            f"scales given: {quantized}"
+        )
+    if k_new.dtype != q.dtype or v_new.dtype != q.dtype:
+        raise ValueError("fresh k/v must have q's dtype")
+    if not (ck.is_contiguous() and cv.is_contiguous()):
+        raise ValueError("the cache must be contiguous")
+    if quantized and not (k_scale.dtype == v_scale.dtype == torch.float32
+                          and k_scale.is_contiguous() and v_scale.is_contiguous()
+                          and k_scale.shape == v_scale.shape == (b, hkv, t)):
+        raise ValueError("int8 scales must be contiguous f32 [(L,) B, Hkv, T]")
+    q2 = q.reshape(b, hq, d).contiguous()
+    kn = k_new.reshape(b, hkv, d).contiguous()
+    vn = v_new.reshape(b, hkv, d).contiguous()
+    st = start.to(torch.int32).contiguous()
+    t_lim = t if attn_len is None or attn_len > t else attn_len
+    out = torch.empty_like(q2)
+    err = _launcher()(
+        q2.data_ptr(), ck.data_ptr(), cv.data_ptr(),
+        k_scale.data_ptr() if quantized else None,
+        v_scale.data_ptr() if quantized else None,
+        kn.data_ptr(), vn.data_ptr(), st.data_ptr(), out.data_ptr(),
+        int(quantized), b, hkv, rep, t, d, t_lim,
+        window or 0, 1.0 / math.sqrt(d),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(err, "bd_flash_decode")
+    return out.reshape(b, 1, hq, d)
+
+
 def flash_decode_stacked(
     q, ck, cv, li: int, k_new, v_new, start, *,
     k_scale=None, v_scale=None, window: Optional[int] = None,
@@ -96,50 +145,13 @@ def flash_decode_stacked(
         )
     if not q.is_cuda:
         raise ValueError(f"no decode attention for device {q.device}")
-    b, s, hq, d = q.shape
-    L, cb, hkv, t, cd = ck.shape
-    quantized = k_scale is not None
-    tensors = [ck, cv, k_new, v_new, start] + ([k_scale, v_scale] if quantized else [])
-    if s != 1 or cb != b or cd != d or hq % hkv:
-        raise ValueError(f"shapes disagree: q {tuple(q.shape)}, cache {tuple(ck.shape)}")
-    if any(x.device != q.device for x in tensors):
-        raise ValueError("decode attention takes CUDA tensors on one device")
-    rep = hq // hkv
-    if rep not in KERNEL_REPS or d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"kernel takes rep in {KERNEL_REPS}, D in {KERNEL_HEAD_DIMS}")
-    if q.dtype != torch.bfloat16:
-        raise ValueError(f"the decode attention kernel takes bfloat16 q, got {q.dtype}")
-    if ck.dtype != (torch.int8 if quantized else torch.bfloat16):
-        raise ValueError(
-            f"the kernel takes a bfloat16 cache, or int8 with scales; got {ck.dtype}, "
-            f"scales given: {quantized}"
-        )
-    if k_new.dtype != q.dtype or v_new.dtype != q.dtype:
-        raise ValueError("fresh k/v must have q's dtype")
-    if not (ck.is_contiguous() and cv.is_contiguous()):
-        raise ValueError("the stacked cache must be contiguous")
-    if quantized and not (k_scale.dtype == v_scale.dtype == torch.float32
-                          and k_scale.is_contiguous() and v_scale.is_contiguous()
-                          and k_scale.shape == (L, b, hkv, t)):
-        raise ValueError("int8 scales must be contiguous f32 [L, B, Hkv, T]")
-    q2 = q.reshape(b, hq, d).contiguous()
-    kn = k_new.reshape(b, hkv, d).contiguous()
-    vn = v_new.reshape(b, hkv, d).contiguous()
-    st = start.to(torch.int32).contiguous()
-    t_lim = t if attn_len is None or attn_len > t else attn_len
-    out = torch.empty_like(q2)
-    err = _launcher()(
-        q2.data_ptr(), ck[li].data_ptr(), cv[li].data_ptr(),
-        k_scale[li].data_ptr() if quantized else None,
-        v_scale[li].data_ptr() if quantized else None,
-        kn.data_ptr(), vn.data_ptr(), st.data_ptr(), out.data_ptr(),
-        int(quantized), b, hkv, rep, t, d, t_lim,
-        window or 0, 1.0 / math.sqrt(d),
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    _build.check(err, "bd_flash_decode")
+    if ck.ndim != 5:
+        raise ValueError(f"the stacked cache is [L, B, Hkv, T, D], got {tuple(ck.shape)}")
+    take = lambda a: None if a is None else a[li]
+    out = launch_layer(q, ck[li], cv[li], take(k_scale), take(v_scale), k_new, v_new, start,
+                       window, attn_len)
     flash_decode_stacked.launches += 1
-    return out.reshape(b, 1, hq, d)
+    return out
 
 
 flash_decode_stacked.launches = 0  # kernel launches (CUDA tensors)

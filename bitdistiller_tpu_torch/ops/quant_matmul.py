@@ -1,10 +1,18 @@
-"""Packed int2/int4 dequantize-matmul: plain PyTorch version and the wrapper
-of the hand-written CUDA kernels (csrc/quant_matmul.cu).
+"""Packed int2/int4 dequantize-matmul: plain PyTorch versions and the
+wrappers of the hand-written CUDA kernels (csrc/quant_matmul.cu for bf16
+activations, csrc/quant_matmul_a8.cu for the W{2,4}A8 path).
 
 One call serves a plain layer and layer `li` of a stacked [L, K/pack, N]
 weight: the wrapper passes `qweight[li]`, a view (base pointer plus layer
 stride), and never copies a layer. This replaces both TPU kernels of the
 JAX package, `_qmm_kernel` and `_qmm_kernel_stacked`.
+
+The W{2,4}A8 half (below) quantizes activations per token to int8 and
+multiplies them with the int codes in int32; it replaces the TPU kernel
+`_qmm_a8_kernel`. `BITDISTILLER_QMM_A8=1` (the JAX package's own switch)
+turns it on for serving: `maybe_repack_a8` then repacks every packed leaf
+once into the A8 byte order, and `quant_matmul` sends every packed matmul
+through it.
 
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
 launches a kernel or raises. There is no fallback from one to the other.
@@ -13,12 +21,15 @@ launches a kernel or raises. There is no fallback from one to the other.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
+import os
 from typing import Optional
 
+import numpy as np
 import torch
 
-from ..quant.packing import PackedLinear, unpack_codes
+from ..quant.packing import _U32, PackedLinear, _to_int32, unpack_codes
 from . import _build
 
 DECODE_MAX_M = 32  # rows up to which the decode kernel runs; above, the prefill kernel
@@ -28,11 +39,13 @@ KERNEL_GROUPS = (128,)
 
 def quant_matmul_plain(
     x: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor,
-    szeros: torch.Tensor, bits: int, group_size: int,
+    szeros: torch.Tensor, bits: int, group_size: int, a8_order: bool = False,
 ) -> torch.Tensor:
     """x [M, K] -> [M, N] in x's dtype. Mirrors the JAX package's
     `quant_matmul_xla`: f32 compute, grouped products, the scale/zero
-    correction applied to the per-group accumulator."""
+    correction applied to the per-group accumulator. Pair-layout words only."""
+    if a8_order:
+        raise ValueError("A8-ordered qweight cannot go through the pair-layout plain path")
     m, k = x.shape
     n = qweight.shape[-1]
     g = group_size
@@ -116,9 +129,14 @@ qmm_prefill.launches = 0
 
 def quant_matmul(x: torch.Tensor, p: PackedLinear, li: Optional[int] = None) -> torch.Tensor:
     """x [..., K] -> [..., N]. `li` selects layer li of a stacked PackedLinear
-    (read in place through views)."""
+    (read in place through views). The JAX package's dispatch, with "Pallas"
+    read as "CUDA tensor": A8-ordered words always go to the A8 matmul; with
+    BITDISTILLER_QMM_A8 on, a pair-layout int2/int4 leaf on the card does too
+    (through a per-call permutation of x); everything else is A16."""
     k, n = p.in_features, p.out_features
     xf = x.reshape(-1, k).contiguous()
+    if p.a8_order or (xf.is_cuda and p.bits in A8_BITS and a8_enabled()):
+        return quant_matmul_a8(x, p, li)
     if xf.device.type == "cpu":
         layer = p if li is None else p.layer(li)
         out = quant_matmul_plain(
@@ -134,4 +152,229 @@ def quant_matmul(x: torch.Tensor, p: PackedLinear, li: Optional[int] = None) -> 
         raise ValueError(f"no packed matmul for device {xf.device}")
     if p.bias is not None:
         out = out + (p.bias if li is None else p.bias[li]).to(out.dtype)
+    return out.reshape(*x.shape[:-1], n)
+
+
+# ---------------------------------------------------------------------------
+# W{2,4}A8: per-token int8 activations, int8 x int8 -> int32 group products.
+#
+# The A8 kernel extracts codes as int8 BYTES: (w >> bits*i) & 0x0m0m0m0m gives
+# four codes a word. Read from pair-layout words, that order is a fixed
+# permutation of k within each group (`_a8_perm`), folded into x per call;
+# `repack_linear_a8` instead writes the words in the extraction order once, so
+# that byte lane j of bit field i of word row r holds k = i*4R + 4r + j.
+#   out = sx_m * sum_g (s_g * (xi . q)_g - sz_g * sum(xi_g)),
+#   sx_m = max(max|x_m| / 127, 1e-8), xi = clip(round(x / sx), -127, 127).
+# ---------------------------------------------------------------------------
+
+A8_ENV = "BITDISTILLER_QMM_A8"  # the JAX package's switch; the port adds none
+A8_BITS = (2, 4)
+
+
+def a8_enabled() -> bool:
+    """The JAX package's truth rule for its switch: unset, "" and "0" are off."""
+    return os.environ.get(A8_ENV, "") not in ("", "0")
+
+
+def _a8_perm(bits: int, group_size: int) -> np.ndarray:
+    """kmap[p] = source k (pair layout) for extraction-order row p."""
+    pack = 32 // bits
+    half = pack // 2
+    r_words = group_size // pack
+    cpb = 8 // bits  # codes per byte
+    kmap = np.empty(group_size, np.int32)
+    for i in range(cpb):
+        for r in range(r_words):
+            for j in range(4):  # byte lanes of the int32 word
+                f = cpb * j + i  # bit-field index in the word
+                kmap[i * 4 * r_words + 4 * r + j] = (f % half) * 2 * r_words + 2 * r + f // half
+    return kmap
+
+
+def _a8_dims(k: int, bits: int, group_size: int) -> tuple[int, int, int, int]:
+    if bits not in A8_BITS:
+        raise ValueError(f"bits={bits}: the A8 byte order takes bits in {A8_BITS}")
+    pack = 32 // bits
+    g = group_size if group_size > 0 else k
+    if k % g or g % pack:
+        raise ValueError(f"K={k}, group_size={g}: groups must be whole words of {pack} codes")
+    return pack, g, g // pack, 8 // bits
+
+
+def _a8_shifts(bits: int, device) -> torch.Tensor:
+    """Shift of (bit field i, byte lane j), shaped [1, i, 1, j, 1]."""
+    cpb = 8 // bits
+    i = torch.arange(cpb, dtype=torch.int64, device=device)[:, None] * bits
+    j = torch.arange(4, dtype=torch.int64, device=device)[None, :] * 8
+    return (i + j)[None, :, None, :, None]
+
+
+def pack_codes_a8(q_kn: torch.Tensor, bits: int, group_size: int) -> torch.Tensor:
+    """Natural-order codes [K, N] -> int32 [K//pack, N] in the A8 extraction
+    order (bit-identical to the JAX package's `pack_codes_a8`)."""
+    k, n = q_kn.shape
+    pack, g, r, cpb = _a8_dims(k, bits, group_size)
+    q = q_kn.to(torch.int64).reshape(k // g, cpb, r, 4, n)
+    words = (q << _a8_shifts(bits, q.device)).sum(dim=(1, 3))
+    return _to_int32(words.reshape(k // pack, n))
+
+
+def unpack_codes_a8(qweight: torch.Tensor, bits: int, group_size: int) -> torch.Tensor:
+    """Inverse of `pack_codes_a8`: int32 [K//pack, N] -> codes [K, N]."""
+    kp, n = qweight.shape
+    k = kp * (32 // bits)
+    _, g, r, _ = _a8_dims(k, bits, group_size)
+    w = (qweight.to(torch.int64) & (_U32 - 1)).reshape(k // g, 1, r, 1, n)
+    codes = (w >> _a8_shifts(bits, w.device)) & ((1 << bits) - 1)
+    return codes.reshape(k, n).to(torch.int32)
+
+
+def repack_linear_a8(p: PackedLinear) -> PackedLinear:
+    """Pair layout -> A8 extraction order, once. A stacked [L, K/pack, N] leaf
+    is repacked one layer at a time (an all-layer int64 unpack of the 7B
+    gate_up would take about 23 GB). Scales, szeros and combo are order-
+    invariant within a group and stay. The result goes only through the A8
+    matmul (a8_order=True)."""
+    if p.a8_order:
+        return p
+    qw = p.qweight
+    if qw.ndim == 2:
+        new = pack_codes_a8(unpack_codes(qw, p.bits, p.group_size), p.bits, p.group_size)
+    else:
+        new = torch.empty_like(qw)
+        for li in range(qw.shape[0]):
+            codes = unpack_codes(qw[li], p.bits, p.group_size)
+            new[li] = pack_codes_a8(codes, p.bits, p.group_size)
+    return dataclasses.replace(p, qweight=new, a8_order=True)
+
+
+def maybe_repack_a8(params):
+    """With BITDISTILLER_QMM_A8 on, a copy of the param tree with every
+    PackedLinear repacked for the A8 matmul; otherwise `params` itself.
+    Call once at model load."""
+    if not a8_enabled():
+        return params
+
+    def walk(node):
+        if isinstance(node, PackedLinear):
+            return repack_linear_a8(node)
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        return node
+
+    return walk(params)
+
+
+def quantize_a8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-token symmetric int8 of x [M, K]: (xi as f32 integers, sx [M, 1]).
+    Divisions are true IEEE divisions by a tensor, as the CUDA prologue's."""
+    xf = x.to(torch.float32)
+    amax = xf.abs().amax(dim=1, keepdim=True)
+    sx = torch.clamp(amax / torch.full_like(amax, 127.0), min=1e-8)
+    return torch.clamp(torch.round(xf / sx), -127, 127), sx
+
+
+def quant_matmul_a8_plain(
+    x: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor, szeros: torch.Tensor,
+    bits: int, group_size: int, a8_order: bool, bias: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """x [M, K] -> [M, N] in x's dtype, as the A8 kernels compute it: x
+    quantized per token, int group products (exact in f32: every partial sum
+    is an integer below 2^24), then acc = acc + partial*s - xsum*sz group by
+    group in order, out = acc * sx (+ bias) rounded once to x's dtype. The dot
+    is permutation-invariant, so the codes are unpacked to natural order
+    rather than permuting x."""
+    m, k = x.shape
+    n = qweight.shape[-1]
+    _, g, _, _ = _a8_dims(k, bits, group_size)
+    xi, sx = quantize_a8(x)
+    codes = (unpack_codes_a8 if a8_order else unpack_codes)(qweight, bits, g)
+    xg = xi.reshape(m, k // g, g)
+    partial = torch.einsum("mgk,gkn->mgn", xg, codes.to(torch.float32).reshape(k // g, g, n))
+    xsum = xg.sum(dim=-1)
+    s, sz = scales.to(torch.float32), szeros.to(torch.float32)
+    acc = torch.zeros((m, n), dtype=torch.float32, device=x.device)
+    for gi in range(k // g):
+        acc = acc + partial[:, gi] * s[gi] - xsum[:, gi, None] * sz[gi]
+    out = acc * sx
+    if bias is not None:
+        out = out + bias.to(torch.float32)
+    return out.to(x.dtype)
+
+
+_KMAPS: dict = {}
+
+
+def _kmap(bits: int, group_size: int, device) -> torch.Tensor:
+    """`_a8_perm` as a device int32 tensor, made once a device."""
+    key = (bits, group_size, str(device))
+    if key not in _KMAPS:
+        _KMAPS[key] = torch.from_numpy(_a8_perm(bits, group_size)).to(device)
+    return _KMAPS[key]
+
+
+@functools.lru_cache(maxsize=None)
+def _a8_launcher():
+    fn = _build.load("quant_matmul_a8").bd_qmm_a8
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def qmm_a8(x, qweight, scales, szeros, bits: int, group_size: int, a8_order: bool,
+           bias=None) -> torch.Tensor:
+    """A8 kernel (any M): quantize x [M, K] per token (and permute it for
+    pair-layout words) and multiply with packed [K, N] on the card."""
+    if not (x.is_cuda and all(t.device == x.device for t in (qweight, scales, szeros))):
+        raise ValueError("the A8 matmul kernel takes CUDA tensors on one device")
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"the A8 matmul kernel takes bfloat16 x, got {x.dtype}")
+    if bits not in A8_BITS or group_size not in KERNEL_GROUPS:
+        raise ValueError(f"the A8 kernel takes bits in {A8_BITS}, groups {KERNEL_GROUPS}")
+    m, k = x.shape
+    n = qweight.shape[-1]
+    if (qweight.dtype != torch.int32 or qweight.shape != (k // (32 // bits), n)
+            or scales.shape != (k // group_size, n) or szeros.shape != scales.shape
+            or scales.dtype != torch.float32 or szeros.dtype != torch.float32):
+        raise ValueError(
+            f"shapes disagree: x {tuple(x.shape)}, qweight {tuple(qweight.shape)} "
+            f"{qweight.dtype}, scales {tuple(scales.shape)} {scales.dtype} at bits={bits}")
+    if not all(t.is_contiguous() for t in (x, qweight, scales, szeros)):
+        raise ValueError("the A8 kernel takes row-major contiguous x, qweight, scales, szeros")
+    if bias is not None:
+        bias = bias.to(torch.float32).contiguous()
+        if bias.shape != (n,) or bias.device != x.device:
+            raise ValueError(f"bias must be [{n}] on x's device")
+    kmap = None if a8_order else _kmap(bits, group_size, x.device)
+    xi = torch.empty((m, k), dtype=torch.int8, device=x.device)
+    sx = torch.empty((m,), dtype=torch.float32, device=x.device)
+    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    err = _a8_launcher()(
+        x.data_ptr(), qweight.data_ptr(), scales.data_ptr(), szeros.data_ptr(),
+        None if bias is None else bias.data_ptr(), None if kmap is None else kmap.data_ptr(),
+        xi.data_ptr(), sx.data_ptr(), out.data_ptr(), m, k, n, bits, group_size,
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _build.check(err, "bd_qmm_a8")
+    qmm_a8.launches += 1
+    return out
+
+
+qmm_a8.launches = 0
+
+
+def quant_matmul_a8(x: torch.Tensor, p: PackedLinear, li: Optional[int] = None) -> torch.Tensor:
+    """W{2,4}A8 matmul x [..., K] -> [..., N] (layer li of a stacked leaf, read
+    in place): the kernel on a CUDA tensor, the plain version on a CPU one."""
+    k, n = p.in_features, p.out_features
+    xf = x.reshape(-1, k).contiguous()
+    take = (lambda a: a) if li is None else (lambda a: None if a is None else a[li])
+    args = (xf, take(p.qweight), take(p.scales), take(p.szeros), p.bits, p.group_size,
+            p.a8_order, take(p.bias))
+    if xf.device.type == "cpu":
+        out = quant_matmul_a8_plain(*args)
+    elif xf.is_cuda:
+        out = qmm_a8(*args)
+    else:
+        raise ValueError(f"no A8 matmul for device {xf.device}")
     return out.reshape(*x.shape[:-1], n)

@@ -14,6 +14,9 @@ bit-field f = (k_local // 2R) + b * pack/2. One shift and mask of a word,
 i*2R + 2r and i*2R + 2r + 1, one in each 16-bit half — which is exactly a
 `__nv_bfloat162` after the exponent-bias OR (see csrc/quant_matmul.cu).
 
+`a8_order=True` marks words repacked into the A8 kernel's byte order
+(ops/quant_matmul.py: pack_codes_a8) instead of the pair layout.
+
 A stacked layer set carries a leading [L] axis on every array; `layer(li)`
 returns a view of one layer without copying.
 Dequant: w[k, n] = q[k, n] * scales[k//G, n] - szeros[k//G, n].
@@ -40,6 +43,10 @@ class PackedLinear:
     in_features: int
     out_features: int
     combo: Optional[torch.Tensor] = None  # int32 [(L,) K // G, N]
+    # True when qweight was repacked into the W{2,4}A8 kernel's byte
+    # extraction order (ops/quant_matmul.py: repack_linear_a8). Only the A8
+    # matmul reads such words; pair-layout readers raise.
+    a8_order: bool = False
 
     @property
     def pack(self) -> int:
@@ -150,6 +157,8 @@ def quantize_pack_linear(
 
 def dequantize_linear(p: PackedLinear, dtype=torch.float32) -> torch.Tensor:
     """Reconstruct the dense [K, N] weight of one (unstacked) layer."""
+    if p.a8_order:
+        raise ValueError("qweight is in A8 extraction order; pair-layout dequant would scramble k")
     q = unpack_codes(p.qweight, p.bits, p.group_size).to(torch.float32)
     g = p.group_size
     scales = torch.repeat_interleave(p.scales.to(torch.float32), g, dim=0)

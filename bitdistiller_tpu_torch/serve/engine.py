@@ -10,7 +10,9 @@
   * requests finish on EOS, a stop id, their token budget or the cache
     length.
 
-The KV cache is allocated once at `max_len`. Speculative decoding, the
+With BITDISTILLER_QMM_A8=1 the engine serves W{2,4}A8: its weights are
+repacked once at construction and every packed matmul quantizes its
+activations to int8. The KV cache is allocated once at `max_len`. Speculative decoding, the
 prompt cache, cache growth, pipelined rounds and sharding are not ported.
 """
 
@@ -26,6 +28,7 @@ from .._device import resolve_device
 from ..models import llama
 from ..models.config import ModelConfig
 from ..models.llama import KVCache, quantize_kv
+from ..ops.quant_matmul import maybe_repack_a8
 from .sampling import SamplingParams, sample_tokens, sample_tokens_batched
 
 
@@ -74,7 +77,9 @@ class Engine:
         device="cuda",
     ):
         self.device = resolve_device(device)
-        self.params = params
+        # BITDISTILLER_QMM_A8=1: every packed leaf is repacked once into the
+        # A8 kernel's byte order (as the JAX engine does at load)
+        self.params = maybe_repack_a8(params)
         self.cfg = cfg
         self.max_slots = max_slots
         self.max_len = max_len

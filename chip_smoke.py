@@ -7,7 +7,11 @@ Builds the port's CUDA kernels from csrc/ (nvcc, sm_90a), holds each kernel
 against its plain PyTorch version at the shapes of the packed int2-g128
 Llama-2-7B serving path, times kernel / plain version / one library call,
 then serves requests with the port's Engine on a random packed 7B model
-(all 32 layers) and checks that the decode path went through the kernels.
+(all 32 layers), first A16 (bf16 activations), then W2A8
+(BITDISTILLER_QMM_A8=1, set for that phase only), and checks that each
+decode path went through its kernels. The entry points outside the engine
+(the HBM probe, the fused MLP, the per-layer decode attention) each run a
+path of their own with their launch counts reset before and read after.
 Phases print one line each; any failure exits non-zero before the last
 line. The second-to-last line is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
@@ -18,12 +22,21 @@ Tolerances (kernel vs plain version on the same inputs):
   * bf16 activations, packed matmul: max|kernel - plain| <= 1e-2 * max|plain|
     (both round an f32 sum to bf16: one bf16 ulp is 2^-8 relative, and the
     f32 sums differ in order);
-  * decode attention: max abs error <= 2e-2 on O(1) outputs (the prob row is
-    rounded to bf16 against per-warp running maxima in the kernel and against
-    one global maximum in the plain version; one bf16 ulp of a prob);
+  * A8 matmul: integer-valued x with one 127 a row (per-token scale 1):
+    exact; bf16 x: max|kernel - plain| <= 1e-2 * max|plain| (as above);
+  * fused MLP: max|kernel - plain| <= 1e-2 * max|plain| (bf16 output, f32
+    sums in another order and tile grouping, mid rounded to bf16 after an
+    activation whose last f32 bit may differ);
+  * decode attention, stacked and per layer: max abs error <= 2e-2 on O(1)
+    outputs (the prob row is rounded to bf16 against per-warp running maxima
+    in the kernel and against one global maximum in the plain version; one
+    bf16 ulp of a prob);
+  * HBM probe: |kernel - plain| <= 1e-6 * (the same sum over |x|): f32 sums
+    of 2^30 elements in another order differ by about 1e-10 of it, while a
+    kernel that skipped 1% of the normal planes would be off by about 2e-6;
   * one whole decode step of the 7B model, kernels vs plain versions:
     max|logit error| <= 5e-2 * max|logit| (bf16 rounding differences of every
-    matmul output compound over 32 layers).
+    matmul output compound over 32 layers), A16 and A8 alike.
 """
 
 from __future__ import annotations
@@ -31,6 +44,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -39,6 +53,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from bitdistiller_tpu_torch.experimental import flash_decode as fd1
+from bitdistiller_tpu_torch.experimental import fused_mlp as fm
 from bitdistiller_tpu_torch.models import LLAMA2_7B, forward, random_packed_params
 from bitdistiller_tpu_torch.ops import _build
 from bitdistiller_tpu_torch.ops import decode_attention as da
@@ -49,10 +65,12 @@ from bitdistiller_tpu_torch.quant.packing import (
     make_scale_combo,
     scales_from_combo,
 )
+from bitdistiller_tpu_torch.scripts import bw_probe
 from bitdistiller_tpu_torch.serve import Engine, Request, SamplingParams
 
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (data sheet)
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores (data sheet)
+PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8 tensor cores (data sheet)
 OUT_DIR = Path(__file__).resolve().parent / "chiprun_out"
 DEV = "cuda"
 
@@ -64,9 +82,13 @@ SHAPES = {  # name: (K, N) of the fused 7B projections
     "gate_up": (4096, 2 * 11008),
     "down": (11008, 4096),
 }
+MLP = (4096, 11008, 4096)  # K, FFN, D of the 7B MLP
 MATMUL_TOL = 1e-2
+MLP_TOL = 1e-2
 ATTN_TOL = 2e-2
+PROBE_TOL = 1e-6
 LOGIT_TOL = 5e-2
+REQ_LENS = [64, 512, 200, 333, 128, 480, 96, 256, 400, 150, 64, 300]
 
 
 def say(msg: str) -> None:
@@ -108,8 +130,9 @@ def cuda_ms(fn, iters: int, reps: int = 5) -> float:
     return float(np.median(times))
 
 
-def bound_ms(nbytes: float, flops: float, bw: float = PEAK_BYTES_PER_S) -> tuple[float, str]:
-    tb, tf = nbytes / bw * 1e3, flops / PEAK_BF16_FLOPS * 1e3
+def bound_ms(nbytes: float, flops: float, peak_ops: float = PEAK_BF16_FLOPS,
+             bw: float = PEAK_BYTES_PER_S) -> tuple[float, str]:
+    tb, tf = nbytes / bw * 1e3, flops / peak_ops * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
@@ -189,27 +212,74 @@ def mixed_starts(b, t):
 
 
 def check_attention(gen, record):
+    """B3 (stacked, layer 1 of 2) on bf16 and int8 caches, and B6 (the
+    per-layer entry, bf16 only: the card takes a bf16 cache there) on the
+    same bf16 inputs; returns the worst bf16 MHA error of each."""
     cases = [
         dict(b=8, hq=32, hkv=32, t=2048, d=128, window=None, attn_len=None),
         dict(b=8, hq=32, hkv=8, t=2048, d=128, window=None, attn_len=None),  # GQA
+        dict(b=8, hq=32, hkv=4, t=2048, d=128, window=None, attn_len=None),  # GQA rep 8
         dict(b=8, hq=32, hkv=32, t=2048, d=128, window=256, attn_len=None),
         dict(b=4, hq=8, hkv=4, t=512, d=64, window=None, attn_len=384),
     ]
-    worst = 0.0
+    worst = {"stacked": 0.0, "per_layer": 0.0}
     for kv in ("bf16", "int8"):
         for c in cases:
             starts = mixed_starts(c["b"], (c["attn_len"] or c["t"]) - 1)
             q, ck, cv, kn, vn, st, ks, vs = attn_inputs(gen, c["b"], c["hq"], c["hkv"], c["t"],
                                                         c["d"], kv, starts)
-            kw = dict(k_scale=ks, v_scale=vs, window=c["window"], attn_len=c["attn_len"])
-            got = da.flash_decode_stacked(q, ck, cv, 1, kn, vn, st, **kw)
-            want = da.decode_attention_plain(q, ck, cv, 1, kn, vn, st, **kw)
-            err = (got.float() - want.float()).abs().max().item()
-            record.append(dict(kv=kv, **c, max_abs_err=err, ok=err <= ATTN_TOL))
-            if err > ATTN_TOL:
-                raise AssertionError(f"decode attention {kv} {c}: max|err|={err}")
-            if kv == "bf16" and c["hq"] == c["hkv"] and c["window"] is None:
-                worst = max(worst, err)
+            kw = dict(window=c["window"], attn_len=c["attn_len"])
+            want = da.decode_attention_plain(q, ck, cv, 1, kn, vn, st, k_scale=ks, v_scale=vs,
+                                             **kw)
+            runs = {"stacked": lambda: da.flash_decode_stacked(
+                q, ck, cv, 1, kn, vn, st, k_scale=ks, v_scale=vs, **kw)}
+            if kv == "bf16":  # the per-layer entry on layer 1 as its own cache
+                runs["per_layer"] = lambda: fd1.flash_decode_attention(
+                    q, ck[1], cv[1], kn, vn, st, **kw)
+            for entry, run in runs.items():
+                err = (run().float() - want.float()).abs().max().item()
+                record.append(dict(kv=kv, entry=entry, **c, max_abs_err=err,
+                                   ok=err <= ATTN_TOL))
+                if not err <= ATTN_TOL:  # NaN fails too
+                    raise AssertionError(f"decode attention {entry} {kv} {c}: max|err|={err}")
+                if kv == "bf16" and c["hq"] == c["hkv"] and c["window"] is None:
+                    worst[entry] = max(worst[entry], err)
+    return worst
+
+
+def check_a8(gen, record):
+    """B4 on layer 1 of a stack: int2 and int4, the four 7B shapes, M=8 and
+    256, pair-layout words (x permuted per call) and repacked ones."""
+    worst = 0.0
+    for bits in (2, 4):
+        for name, (k, n) in SHAPES.items():
+            for integer in (True, False):
+                pair = rand_stacked(gen, 2, k, n, bits, integer)
+                for w in (pair, qm.repack_linear_a8(pair)):
+                    lay = w.layer(1)
+                    for m in (8, 256):
+                        if integer:  # one 127 a row: the per-token scale is 1
+                            x = torch.randint(-3, 4, (m, k), device=DEV, generator=gen).float()
+                            x[:, 0] = 127.0
+                            x = x.bfloat16()
+                        else:
+                            x = torch.randn((m, k), device=DEV, generator=gen).bfloat16()
+                        got = qm.quant_matmul_a8(x, w, 1)
+                        want = qm.quant_matmul_a8_plain(x, lay.qweight, lay.scales, lay.szeros,
+                                                        bits, GROUP, w.a8_order)
+                        err = (got.float() - want.float()).abs().max().item()
+                        scale = want.float().abs().max().item()
+                        ok = err == 0.0 if integer else err <= MATMUL_TOL * scale
+                        record.append(dict(bits=bits, shape=name, m=m, integer=integer,
+                                           a8_order=w.a8_order, max_abs_err=err, ref_max=scale,
+                                           ok=ok))
+                        if not ok:
+                            raise AssertionError(
+                                f"A8 matmul {name} bits={bits} M={m} integer={integer} "
+                                f"a8_order={w.a8_order}: max|err|={err} vs max|ref|={scale}")
+                        if not integer and bits == BITS:
+                            worst = max(worst, err / scale)
+                del pair
     return worst
 
 
@@ -253,48 +323,215 @@ def time_matmuls(gen, m, bw, detail):
     return tot
 
 
-def time_attention(gen, bw, detail):
+def time_attention(gen, bw, detail, per_layer: bool):
+    """B3 on layer i % 2 of a stacked cache, or (per_layer) B6, the per-layer
+    entry, on two separate [B, Hkv, T, D] caches: the same work and the same
+    kernel. `ms` is the raw launcher (as for the matmuls), `wrapper_ms` the
+    entry point; the library yardstick is SDPA over the same layer's cache
+    with a row mask (it reads all T rows and does not fold the fresh token)."""
     b, hq, hkv, t, d = 8, 32, 32, 2048, 128
     starts = [2047, 1900, 1536, 1024, 700, 512, 300, 64]
     q, ck, cv, kn, vn, st, _, _ = attn_inputs(gen, b, hq, hkv, t, d, "bf16", starts, layers=2)
-    # the kernel through its raw launcher (as for the matmuls), then the wrapper
+    if per_layer:
+        caches = [(ck[i].clone(), cv[i].clone()) for i in range(2)]
+        del ck, cv
+        entry = lambda i: fd1.flash_decode_attention(q, *caches[i % 2], kn, vn, st)
+    else:
+        caches = [(ck[i], cv[i]) for i in range(2)]
+        entry = lambda i: da.flash_decode_stacked(q, ck, cv, i % 2, kn, vn, st)
     fn = da._launcher()
     out = torch.empty((b, hq, d), dtype=torch.bfloat16, device=DEV)
     stream = torch.cuda.current_stream().cuda_stream
-    args = [(q.data_ptr(), ck[li].data_ptr(), cv[li].data_ptr(), None, None, kn.data_ptr(),
-             vn.data_ptr(), st.data_ptr(), out.data_ptr(), 0, b, hkv, hq // hkv, t, d, t, 0,
-             1.0 / math.sqrt(d), stream) for li in range(2)]
+    args = [(q.data_ptr(), k.data_ptr(), v.data_ptr(), None, None, kn.data_ptr(), vn.data_ptr(),
+             st.data_ptr(), out.data_ptr(), 0, b, hkv, hq // hkv, t, d, t, 0,
+             1.0 / math.sqrt(d), stream) for k, v in caches]
     _build.check(fn(*args[0]), "raw launch")
     ms = cuda_ms(lambda i: fn(*args[i % 2]), 50)
-    wrapper = cuda_ms(lambda i: da.flash_decode_stacked(q, ck, cv, i % 2, kn, vn, st), 50)
-    plain = cuda_ms(lambda i: da.decode_attention_plain(q, ck, cv, 0, kn, vn, st), 3, reps=3)
-    # library yardstick: SDPA over the same layer's cache with a row mask
-    # (it reads all T rows and does not fold the fresh token)
+    wrapper = cuda_ms(entry, 50)
+    plain = cuda_ms(lambda i: da.decode_attention_plain(
+        q, caches[0][0][None], caches[0][1][None], 0, kn, vn, st), 3, reps=3)
     mask = (torch.arange(t, device=DEV)[None, :] < st[:, None])[:, None, None, :]
     qs = q.transpose(1, 2)
     lib = cuda_ms(lambda i: torch.nn.functional.scaled_dot_product_attention(
-        qs, ck[i % 2], cv[i % 2], attn_mask=mask), 20)
+        qs, *caches[i % 2], attn_mask=mask), 20)
     rows = sum(starts)
     nbytes = 2 * rows * hkv * d * 2 + 2 * b * hq * d * 2 + 2 * b * hkv * d * 2
-    flops = 4.0 * rows * hq * d
-    bnd, by = bound_ms(nbytes, flops)
-    rec = dict(b=b, hq=hq, hkv=hkv, t=t, d=d, starts=starts, ms=ms, wrapper_ms=wrapper,
-               plain_ms=plain,
-               library_ms=lib, bound_ms=bnd, bound_by=by, bound_measured_bw_ms=nbytes / bw * 1e3)
+    bnd, by = bound_ms(nbytes, 4.0 * rows * hq * d)
+    rec = dict(entry="flash_decode_attention" if per_layer else "flash_decode_stacked", b=b,
+               hq=hq, hkv=hkv, t=t, d=d, starts=starts, ms=ms, wrapper_ms=wrapper,
+               plain_ms=plain, library_ms=lib, bound_ms=bnd, bound_by=by,
+               bound_measured_bw_ms=nbytes / bw * 1e3)
     detail.append(rec)
     return rec
 
 
-def step_bytes(cfg, bits, rows_per_slot) -> float:
-    """HBM bytes one decode step must read: packed weights, combo words,
-    lm_head, and the valid KV rows (bench.py's model_bytes_per_step with the
-    KV term counted per slot)."""
+def time_a8(gen, m, detail):
+    """B4: one layer's four A8 matmuls at M rows, int2-g128 repacked, as
+    `time_matmuls` times B1/B2 (raw launcher over >100 MB of stacked layers;
+    the wrapper; the plain version and torch.matmul on a dequantized bf16
+    weight on layer 0). Bytes count the f32 scales and szeros (8 bytes a
+    group column); operations are int8 at 1,979 TOP/s."""
+    tot = dict(ms=0.0, wrapper_ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0, flops=0.0)
+    fn = qm._a8_launcher()
+    stream = torch.cuda.current_stream().cuda_stream
+    for name, (k, n) in SHAPES.items():
+        layer_bytes = k * n * BITS / 8 + (k // GROUP) * n * 8
+        layers = max(2, math.ceil(120e6 / layer_bytes))
+        pair = rand_stacked(gen, layers, k, n, BITS, integer=False)
+        p = qm.repack_linear_a8(pair)
+        x = torch.randn((m, k), device=DEV, generator=gen).bfloat16()
+        xi = torch.empty((m, k), dtype=torch.int8, device=DEV)
+        sx = torch.empty((m,), dtype=torch.float32, device=DEV)
+        out = torch.empty((m, n), dtype=torch.bfloat16, device=DEV)
+        args = [(x.data_ptr(), p.qweight[i].data_ptr(), p.scales[i].data_ptr(),
+                 p.szeros[i].data_ptr(), None, None, xi.data_ptr(), sx.data_ptr(),
+                 out.data_ptr(), m, k, n, BITS, GROUP, stream) for i in range(layers)]
+        _build.check(fn(*args[0]), "raw launch")
+        ms = cuda_ms(lambda i: fn(*args[i % layers]), 50)
+        wrapper = cuda_ms(lambda i: qm.quant_matmul_a8(x, p, i % layers), 50)
+        lay = p.layer(0)
+        plain = cuda_ms(lambda i: qm.quant_matmul_a8_plain(
+            x, lay.qweight, lay.scales, lay.szeros, BITS, GROUP, True), 3, reps=3)
+        w = dequantize_linear(pair.layer(0), torch.bfloat16)
+        lib = cuda_ms(lambda i: torch.matmul(x, w), 20)
+        nbytes = layer_bytes + m * k * 2 + m * n * 2
+        flops = 2.0 * m * k * n
+        b, by = bound_ms(nbytes, flops, PEAK_INT8_OPS)
+        detail.append(dict(kernel="qmm_a8", shape=name, m=m, k=k, n=n, ms=ms, wrapper_ms=wrapper,
+                           plain_ms=plain, library_ms=lib, bound_ms=b, bound_by=by))
+        for key, val in (("ms", ms), ("wrapper_ms", wrapper), ("plain_ms", plain),
+                         ("library_ms", lib), ("bytes", nbytes), ("flops", flops)):
+            tot[key] += val
+        del pair, p, w
+    return tot
+
+
+def mlp_stack(gen, layers):
+    """Random int2-g128 gate, up and down of the 7B MLP, stacked [L, ...]."""
+    k, f, d = MLP
+    return (rand_stacked(gen, layers, k, f, BITS, False), rand_stacked(gen, layers, k, f, BITS, False),
+            rand_stacked(gen, layers, f, d, BITS, False))
+
+
+def fused_mlp_phase(gen, detail):
+    """B5 at the 7B MLP widths (K=4096, FFN=11008, D=4096), int2, silu:
+    layer 1 of a 32-layer stack against the plain version at M=8 and 128;
+    the kernel's time (raw launcher cycling the 32 layers, 1.4 GB), the
+    plain version's and the library's three calls (torch.matmul on the
+    dequantized bf16 gate|up, silu*mul, torch.matmul on the bf16 down); then
+    its path: the MLP of one 7B decode step (M=8) through all 32 layers with
+    the launch count reset before and read after."""
+    k, f, d = MLP
+    L = CFG.num_layers
+    gate, up, down = mlp_stack(gen, L)
+    lay = lambda li: (gate.layer(li), up.layer(li), down.layer(li))
+    worst = 0.0
+    for m in (8, 128):
+        x = torch.randn((m, k), device=DEV, generator=gen).bfloat16()
+        got = fm.fused_mlp(x, *lay(1))
+        want = fm.fused_mlp_plain(x, *lay(1))
+        err = (got.float() - want.float()).abs().max().item()
+        scale = want.float().abs().max().item()
+        detail.append(dict(check="fused_mlp", m=m, max_abs_err=err, ref_max=scale))
+        if not err <= MLP_TOL * scale:  # NaN fails too
+            raise AssertionError(f"fused MLP M={m}: max|err|={err} vs max|ref|={scale}")
+        worst = max(worst, err / scale)
+    m = 8
+    x = torch.randn((m, k), device=DEV, generator=gen).bfloat16()
+    fn = fm._launcher()
+    partial = torch.empty((f // 128, m, d), dtype=torch.float32, device=DEV)
+    out = torch.empty((m, d), dtype=torch.bfloat16, device=DEV)
+    stream = torch.cuda.current_stream().cuda_stream
+    args = [(x.data_ptr(), *[a[li].data_ptr() for p in (gate, up, down)
+                             for a in (p.qweight, p.scales, p.szeros)],
+             partial.data_ptr(), out.data_ptr(), m, k, f, d, BITS, GROUP, 0, stream)
+            for li in range(L)]
+    _build.check(fn(*args[0]), "raw launch")
+    ms = cuda_ms(lambda i: fn(*args[i % L]), 64)
+    wrapper = cuda_ms(lambda i: fm.fused_mlp(x, *lay(i % L)), 64)
+    plain = cuda_ms(lambda i: fm.fused_mlp_plain(x, *lay(0)), 2, reps=3)
+    wgu = torch.cat([dequantize_linear(gate.layer(0), torch.bfloat16),
+                     dequantize_linear(up.layer(0), torch.bfloat16)], dim=1)
+    wd = dequantize_linear(down.layer(0), torch.bfloat16)
+
+    def library(i):
+        gu = torch.matmul(x, wgu)
+        return torch.matmul(torch.nn.functional.silu(gu[:, :f]) * gu[:, f:], wd)
+
+    lib = cuda_ms(library, 20)
+    nbytes = (2 * k * f + f * d) * BITS / 8 + (2 * (k // GROUP) * f + (f // GROUP) * d) * 8 \
+        + m * k * 2 + m * d * 2
+    flops = 2.0 * m * (2 * k * f + f * d)
+    bnd, by = bound_ms(nbytes, flops)
+    fm.fused_mlp.launches = 0
+    h = x
+    for li in range(L):  # an RMS norm before each MLP, as in the model (random
+        # weights without one grow the activations past bf16's range)
+        hf = h.float()
+        h = fm.fused_mlp((hf * torch.rsqrt(hf.pow(2).mean(-1, keepdim=True) + 1e-6)).bfloat16(),
+                         *lay(li))
+    torch.cuda.synchronize()
+    launches = fm.fused_mlp.launches
+    if launches < L:
+        raise AssertionError(f"fused MLP path: {launches} launches for {L} layers")
+    if not torch.isfinite(h).all():
+        raise AssertionError("fused MLP path: non-finite output")
+    rec = dict(m=m, ms=ms, wrapper_ms=wrapper, plain_ms=plain, library_ms=lib, bound_ms=bnd,
+               bound_by=by, bytes=nbytes, flops=flops, launches=launches, max_abs_err=worst)
+    detail.append(rec)
+    del gate, up, down, wgu, wd
+    return rec
+
+
+def probe_phase(record):
+    """B7 at its script's sizes (L=16: K and V planes of 2.15 GB each, 4.29
+    GB of bf16 a call): the kernel against its plain version on bf16 and
+    int8 planes, then its path, the chained timing run (launch count reset
+    before, read after), the plain version's and the library's time (two
+    torch.sum calls). Returns the measured bf16 read rate."""
+    layers = 16
+    k, v, k8, v8 = bw_probe.make_planes(layers)
+    nbytes = 2 * k.numel() * k.element_size()
+    for kind, a, b in (("bf16", k, v), ("int8", k8, v8)):
+        c0 = torch.full((1,), 0.5, device=DEV)
+        got = bw_probe.stream_sum(a, b, c0).item()
+        want = bw_probe.stream_sum_plain(a, b, c0).item()
+        mag = (torch.sum(a.abs(), dtype=torch.float32) + torch.sum(b.abs(), dtype=torch.float32)
+               ).item() * 1e-9 + 0.5e-6
+        err = abs(got - want)
+        record[f"check_{kind}"] = dict(got=got, want=want, abs_sum=mag, err=err)
+        if not err <= PROBE_TOL * mag:  # NaN fails too
+            raise AssertionError(f"stream sum {kind}: {got} vs plain {want} (|x| sum {mag})")
+    bw_probe.stream_sum.launches = 0
+    dt, _ = bw_probe.timed_chain(bw_probe.stream_sum, (k, v))
+    launches = bw_probe.stream_sum.launches
+    if launches < 1:
+        raise AssertionError("the probe path launched no stream kernel")
+    dt8, _ = bw_probe.timed_chain(bw_probe.stream_sum, (k8, v8))
+    plain, _ = bw_probe.timed_chain(bw_probe.stream_sum_plain, (k, v))
+    lib = cuda_ms(lambda i: (torch.sum(k, dtype=torch.float32),
+                             torch.sum(v, dtype=torch.float32)), 5, reps=3)
+    bnd, by = bound_ms(nbytes, float(nbytes // 2))
+    record.update(ms=dt * 1e3, int8_ms=dt8 * 1e3, plain_ms=plain * 1e3, library_ms=lib,
+                  bound_ms=bnd, bound_by=by, bytes=nbytes, launches=launches,
+                  bw=nbytes / dt, bw_int8=nbytes / 2 / dt8,
+                  max_abs_err=max(r["err"] / r["abs_sum"] for key, r in record.items()
+                                  if key.startswith("check_")))
+    del k, v, k8, v8
+    return record
+
+
+def step_bytes(cfg, bits, rows_per_slot, group_bytes: int = 4) -> float:
+    """HBM bytes one decode step must read: packed weights, the group
+    statistics (a 4-byte combo word a group column for A16, f32 scale and
+    szero, 8 bytes, for A8), lm_head, and the valid KV rows (bench.py's
+    model_bytes_per_step with the KV term counted per slot)."""
     d, dh = cfg.hidden_size, cfg.actual_head_dim
     per_layer = (d * cfg.num_heads * dh + 2 * d * cfg.num_kv_heads * dh
                  + cfg.num_heads * dh * d + 3 * d * cfg.intermediate_size)
     n_w = per_layer * cfg.num_layers
     kv = cfg.num_layers * sum(rows_per_slot) * cfg.num_kv_heads * dh * 2 * 2
-    return n_w * bits / 8 + n_w / 128 * 4 + d * cfg.vocab_size * 2 + kv
+    return n_w * bits / 8 + n_w / 128 * group_bytes + d * cfg.vocab_size * 2 + kv
 
 
 def device_busy_ms(step, n: int):
@@ -318,42 +555,76 @@ def device_busy_ms(step, n: int):
     return dict(busy_ms=sum(per.values()), top=top)
 
 
+COUNTERS = {"qmm_decode": qm.qmm_decode, "qmm_prefill": qm.qmm_prefill, "qmm_a8": qm.qmm_a8,
+            "flash_decode": da.flash_decode_stacked,
+            "flash_decode_attention": fd1.flash_decode_attention, "fused_mlp": fm.fused_mlp,
+            "stream_sum": bw_probe.stream_sum}
+
+
 def reset_counts():
-    qm.qmm_decode.launches = 0
-    qm.qmm_prefill.launches = 0
-    da.flash_decode_stacked.launches = 0
+    for fn in COUNTERS.values():
+        fn.launches = 0
 
 
-def end_to_end(bw, out):
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in COUNTERS.items()}
+
+
+def end_to_end(bw, out, a16_counts=None):
+    """12 requests through the port's Engine on a random packed int2-g128
+    7B (32 layers), then the steady decode step, its device idle share and
+    one step against the plain versions. Given the A16 run's counts, the A8
+    switch is set for this phase only (the Engine repacks the weights at
+    construction) and every packed matmul of the same schedule must go
+    through `qmm_a8`: as many launches as the A16 run's decode and prefill
+    launches together, and none of those. The A16 run also drives
+    the per-layer decode attention entry over the engine's 32 cache layers
+    (its own path, counts reset before and read after)."""
     cfg = CFG
+    a8 = a16_counts is not None
     params = random_packed_params(cfg, bits=BITS, group_size=GROUP, seed=0, device=DEV)
-    eng = Engine(params, cfg, max_slots=8, max_len=2048, eos_token_id=None,
-                 sampling=SamplingParams(temperature=0.0), device=DEV)
-    rng = np.random.default_rng(0)
-    lens = [64, 512, 200, 333, 128, 480, 96, 256, 400, 150, 64, 300]
-    reqs = [Request(prompt_tokens=rng.integers(3, cfg.vocab_size, n).tolist(), max_new_tokens=32)
-            for n in lens]
-    torch.cuda.synchronize()
-    reset_counts()
-    t0 = time.time()
-    done = eng.run(reqs)
-    torch.cuda.synchronize()
-    wall = time.time() - t0
-    counts = dict(qmm_decode=qm.qmm_decode.launches, qmm_prefill=qm.qmm_prefill.launches,
-                  flash_decode=da.flash_decode_stacked.launches)
+    saved = os.environ.get(qm.A8_ENV)
+    os.environ[qm.A8_ENV] = "1" if a8 else "0"
+    try:
+        eng = Engine(params, cfg, max_slots=8, max_len=2048, eos_token_id=None,
+                     sampling=SamplingParams(temperature=0.0), device=DEV)
+        rng = np.random.default_rng(0)
+        reqs = [Request(prompt_tokens=rng.integers(3, cfg.vocab_size, n).tolist(),
+                        max_new_tokens=32) for n in REQ_LENS]
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.time()
+        done = eng.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = read_counts()
+    finally:
+        if saved is None:
+            os.environ.pop(qm.A8_ENV, None)
+        else:
+            os.environ[qm.A8_ENV] = saved
+    params = eng.params  # the repacked tree under A8
     steps = eng.decode_steps
     L = cfg.num_layers
     if len(done) != len(reqs) or not all(r.finished and len(r.output_tokens) == 32 for r in reqs):
         raise AssertionError("not every request finished with 32 tokens")
-    if counts["qmm_decode"] < steps * L * 4 or counts["flash_decode"] < steps * L:
-        raise AssertionError(f"decode did not run through the kernels: {counts}, steps {steps}")
-    if counts["qmm_prefill"] < L * 4:
-        raise AssertionError(f"prefill did not run through the kernel: {counts}")
-    say(f"engine: {len(reqs)} requests, 8 slots, depth {L} of {CFG.num_layers} (no cut), "
-        f"{steps} decode steps, launches {counts}, wall {wall:.2f} s, "
+    if counts["flash_decode"] < steps * L:
+        raise AssertionError(f"decode attention did not run through the kernel: {counts}")
+    if a8:
+        a16_matmuls = a16_counts["qmm_decode"] + a16_counts["qmm_prefill"]
+        if (counts["qmm_a8"] != a16_matmuls or counts["qmm_a8"] < steps * L * 4 + L * 4
+                or counts["qmm_decode"] + counts["qmm_prefill"]):
+            raise AssertionError(f"A8 serving did not run every matmul through qmm_a8: {counts} "
+                                 f"(A16 run: {a16_matmuls} packed matmuls)")
+    elif counts["qmm_decode"] < steps * L * 4 or counts["qmm_prefill"] < L * 4 or counts["qmm_a8"]:
+        raise AssertionError(f"decode/prefill did not run through the kernels: {counts}")
+    tag = "A8" if a8 else "A16"
+    say(f"engine {tag}: {len(reqs)} requests, 8 slots, depth {L} of {CFG.num_layers} (no cut), "
+        f"{steps} decode steps, launches { {k: v for k, v in counts.items() if v} }, "
+        f"wall {wall:.2f} s, "
         f"{sum(len(r.output_tokens) for r in reqs) / wall:.1f} generated tok/s end to end")
 
-    # steady decode: all 8 slots at their final lengths, 16 timed steps
+    # steady decode: all 8 slots at their final lengths, 8 timed steps
     pos = torch.as_tensor(np.minimum(eng.lengths, 2047 - 17), dtype=torch.int32, device=DEV)
     tok = torch.randint(3, cfg.vocab_size, (8, 1), device=DEV)
 
@@ -364,23 +635,34 @@ def end_to_end(bw, out):
         ms_step = cuda_ms(step, 8, reps=3)
         busy = device_busy_ms(step, 4)
         rows = [int(p) + 4 for p in pos.tolist()]
-        nbytes = step_bytes(cfg, BITS, rows)
-        # one decode step, kernels vs plain versions, same state; the plain
-        # path reads the scales the kernel decodes from the combo words.
-        # Rows >= pos are not read by either call, so the second call sees
-        # the cache the first one saw.
+        nbytes = step_bytes(cfg, BITS, rows, group_bytes=8 if a8 else 4)
+        # one decode step, kernels vs plain versions, same state. A16: the
+        # plain path reads the scales the kernel decodes from the combo
+        # words; A8: both read the f32 scales. Rows >= pos are not read by
+        # either call, so the second call sees the cache the first one saw.
         ref_params = dict(params, layers=dict(params["layers"]))
         for name, leaf in params["layers"].items():
-            if isinstance(leaf, PackedLinear):
+            if isinstance(leaf, PackedLinear) and not a8:
                 s, sz = scales_from_combo(leaf.combo)
                 ref_params["layers"][name] = dataclasses.replace(leaf, scales=s, szeros=sz)
         lk, _ = forward(params, cfg, tok, cache=eng.cache, cache_pos=pos + 20)
         lp, _ = forward(ref_params, cfg, tok, cache=eng.cache, cache_pos=pos + 20,
                         use_kernels=False)
+        if not a8:  # the per-layer entry point's path: one step's attention, 32 layers
+            q = torch.randn((8, 1, cfg.num_heads, cfg.actual_head_dim), device=DEV).bfloat16()
+            kv_new = torch.randn((8, 1, cfg.num_kv_heads, cfg.actual_head_dim),
+                                 device=DEV).bfloat16()
+            fd1.flash_decode_attention.launches = 0
+            outs = [fd1.flash_decode_attention(q, eng.cache.k[li], eng.cache.v[li], kv_new,
+                                               kv_new, pos) for li in range(L)]
+            torch.cuda.synchronize()
+            out["per_layer_launches"] = fd1.flash_decode_attention.launches
+            if out["per_layer_launches"] < L or not all(torch.isfinite(o).all() for o in outs):
+                raise AssertionError("the per-layer decode attention path did not run its kernel")
     if busy is None:
         say("profiler: no device time recorded; device idle share not measured")
     else:
-        say(f"profiler: device busy {busy['busy_ms']:.3f} ms of a {ms_step:.3f} ms step "
+        say(f"profiler {tag}: device busy {busy['busy_ms']:.3f} ms of a {ms_step:.3f} ms step "
             f"(idle share {1 - busy['busy_ms'] / ms_step:.3f}); top: "
             + ", ".join(f"{k} {v:.3f} ms" for k, v in busy["top"]))
     if not torch.isfinite(lk).all():
@@ -388,21 +670,36 @@ def end_to_end(bw, out):
     err = (lk - lp).abs().max().item()
     ref = lp.abs().max().item()
     agree = (lk.argmax(-1) == lp.argmax(-1)).float().mean().item()
-    say(f"decode step vs plain path: max|dlogit| {err:.4g} of max|logit| {ref:.4g} "
+    say(f"decode step {tag} vs plain path: max|dlogit| {err:.4g} of max|logit| {ref:.4g} "
         f"(tol {LOGIT_TOL} relative), argmax agreement {agree:.3f}")
-    if err > LOGIT_TOL * ref:
+    if not err <= LOGIT_TOL * ref:  # NaN fails too
         raise AssertionError("decode step logits disagree with the plain path")
     out.update(
         requests=len(reqs), decode_steps=steps, launches=counts, wall_s=wall,
         decode_ms_per_step=ms_step, decode_tok_per_s=8 / ms_step * 1e3,
         step_bytes=nbytes, step_bound_ms=nbytes / PEAK_BYTES_PER_S * 1e3,
         step_bound_measured_bw_ms=nbytes / bw * 1e3,
+        idle_share=None if busy is None else 1 - busy["busy_ms"] / ms_step,
         logit_max_abs_err=err, logit_max=ref, argmax_agreement=agree, profile=busy,
     )
-    say(f"decode: {ms_step:.3f} ms/step, {8 / ms_step * 1e3:.1f} tok/s at batch 8, "
+    say(f"decode {tag}: {ms_step:.3f} ms/step, {8 / ms_step * 1e3:.1f} tok/s at batch 8, "
         f"{nbytes / 1e9:.3f} GB/step -> bound {nbytes / PEAK_BYTES_PER_S * 1e3:.3f} ms at "
-        f"3.35 TB/s, {nbytes / bw * 1e3:.3f} ms at the measured {bw / 1e9:.0f} GB/s")
+        f"3.35 TB/s, {nbytes / bw * 1e3:.3f} ms at the probe's {bw / 1e9:.0f} GB/s")
+    del eng, params, ref_params
     return counts
+
+
+def kernel_entry(name, src, replaces, launches, err, t, work, **extra):
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    return dict(name=name, route="cuda", source=f"bitdistiller_tpu_torch/csrc/{src}",
+                replaces=replaces, launches=launches, max_abs_err=err,
+                **{k: t[k] for k in keys}, work=work, **extra)
+
+
+def totals_entry(t, bw, peak_ops=PEAK_BF16_FLOPS):
+    """Bound of a summed row (one layer's four matmuls) from its bytes and ops."""
+    b, by = bound_ms(t["bytes"], t["flops"], peak_ops)
+    return dict(t, bound_ms=b, bound_by=by, bound_measured_bw_ms=t["bytes"] / bw * 1e3)
 
 
 def main() -> int:
@@ -430,11 +727,20 @@ def main() -> int:
         src = torch.empty(n, dtype=torch.uint8, device=DEV)
         dst = torch.empty_like(src)
         copy_ms = cuda_ms(lambda i: dst.copy_(src), 10)
-        bw = 2 * n / (copy_ms / 1e3)  # read + write
+        copy_bw = 2 * n / (copy_ms / 1e3)  # read + write
         del src, dst
+        reset_counts()
+        probe = probe_phase({})
+        bw = probe["bw"]
         summary.update(card=card, torch=torch.__version__, cuda=torch.version.cuda,
-                       measured_bw=bw)
-        say(f"device copy of 1 GiB: {copy_ms:.3f} ms -> {bw / 1e9:.1f} GB/s measured")
+                       copy_bw=copy_bw, measured_bw=bw, probe=probe)
+        say(f"device copy of 1 GiB: {copy_ms:.3f} ms -> {copy_bw / 1e9:.1f} GB/s (read + write, "
+            f"library yardstick)")
+        say(f"HBM probe (stream kernel, {probe['bytes'] / 1e9:.2f} GB of bf16 a call): "
+            f"{probe['ms']:.3f} ms -> {bw / 1e9:.1f} GB/s; int8 {probe['bw_int8'] / 1e9:.1f} GB/s; "
+            f"plain {probe['plain_ms']:.3f} ms, two torch.sum {probe['library_ms']:.3f} ms, "
+            f"bound {probe['bound_ms']:.3f} ms; {probe['launches']} launches; "
+            f"worst error {probe['max_abs_err']:.3g} of the |x| sum. bw = this rate from here on")
 
     with Phase("packed matmul vs plain"):
         summary["matmul_checks"] = []
@@ -442,17 +748,34 @@ def main() -> int:
         say(f"{len(summary['matmul_checks'])} cases; integer inputs exact; "
             f"worst bf16 relative error at int2 {mm_rel:.3g}")
 
-    with Phase("decode attention vs plain"):
+    with Phase("A8 matmul vs plain"):
+        summary["a8_checks"] = []
+        a8_rel = check_a8(gen, summary["a8_checks"])
+        say(f"{len(summary['a8_checks'])} cases (pair-layout and repacked words); integer inputs "
+            f"exact; worst bf16 relative error at int2 {a8_rel:.3g}")
+
+    with Phase("decode attention vs plain (stacked and per layer)"):
         summary["attention_checks"] = []
         at_err = check_attention(gen, summary["attention_checks"])
-        say(f"{len(summary['attention_checks'])} cases; worst bf16 MHA abs error {at_err:.3g}")
+        say(f"{len(summary['attention_checks'])} cases, GQA rep 8 included; worst bf16 MHA abs "
+            f"error {at_err['stacked']:.3g} stacked, {at_err['per_layer']:.3g} per layer")
+
+    with Phase("fused MLP vs plain, times and path"):
+        summary["fused_mlp"] = []
+        mlp = fused_mlp_phase(gen, summary["fused_mlp"])
+        say(f"7B MLP, M=8 and 128: worst relative error {mlp['max_abs_err']:.3g}; M=8 "
+            f"{mlp['ms']:.4f} ms (bound {mlp['bound_ms']:.4f}, plain {mlp['plain_ms']:.3f}, "
+            f"3 library calls {mlp['library_ms']:.4f}); path: {mlp['launches']} launches")
 
     with Phase("kernel times"):
         summary["matmul_times"] = []
         dec = time_matmuls(gen, 8, bw, summary["matmul_times"])
         pre = time_matmuls(gen, 256, bw, summary["matmul_times"])
+        a8_dec = time_a8(gen, 8, summary["matmul_times"])
+        a8_pre = time_a8(gen, 256, summary["matmul_times"])
         summary["attention_times"] = []
-        att = time_attention(gen, bw, summary["attention_times"])
+        att = time_attention(gen, bw, summary["attention_times"], per_layer=False)
+        att1 = time_attention(gen, bw, summary["attention_times"], per_layer=True)
         for r in summary["matmul_times"] + summary["attention_times"]:
             say(json.dumps({k: (round(v, 5) if isinstance(v, float) else v) for k, v in r.items()}))
 
@@ -460,29 +783,55 @@ def main() -> int:
         summary["e2e"] = {}
         counts = end_to_end(bw, summary["e2e"])
 
-    kernels = []
-    for name, t, rel, launches, src, replaces in (
-        ("qmm_decode", dec, mm_rel, counts["qmm_decode"], "bitdistiller_tpu_torch/csrc/quant_matmul.cu",
-         "bitdistiller_tpu/ops/quant_matmul.py:152"),
-        ("qmm_prefill", pre, mm_rel, counts["qmm_prefill"], "bitdistiller_tpu_torch/csrc/quant_matmul.cu",
-         "bitdistiller_tpu/ops/quant_matmul.py:107"),
-    ):
-        b, by = bound_ms(t["bytes"], t["flops"])
-        kernels.append(dict(
-            name=name, route="cuda", source=src, replaces=replaces, launches=launches,
-            max_abs_err=rel, ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=b, bound_by=by,
-            library_ms=t["library_ms"], bound_measured_bw_ms=t["bytes"] / bw * 1e3,
-            work=f"one layer's qkv+o+gate_up+down, M={8 if name == 'qmm_decode' else 256}, "
-                 "int2-g128, 7B widths; max_abs_err relative to max|plain|",
-        ))
-    kernels.append(dict(
-        name="flash_decode", route="cuda", source="bitdistiller_tpu_torch/csrc/decode_attention.cu",
-        replaces="bitdistiller_tpu/ops/decode_attention.py:106", launches=counts["flash_decode"],
-        max_abs_err=at_err, ms=att["ms"], plain_ms=att["plain_ms"], bound_ms=att["bound_ms"],
-        bound_by=att["bound_by"], library_ms=att["library_ms"],
-        bound_measured_bw_ms=att["bound_measured_bw_ms"],
-        work="B=8, Hq=Hkv=32, T=2048, D=128, bf16 cache, mixed starts",
-    ))
+    with Phase("end to end A8"):
+        summary["e2e_a8"] = {}
+        counts_a8 = end_to_end(bw, summary["e2e_a8"], a16_counts=counts)
+
+    dec, pre = totals_entry(dec, bw), totals_entry(pre, bw)
+    a8_dec = totals_entry(a8_dec, bw, PEAK_INT8_OPS)
+    a8_pre = totals_entry(a8_pre, bw, PEAK_INT8_OPS)
+    kernels = [
+        kernel_entry("qmm_decode", "quant_matmul.cu", "bitdistiller_tpu/ops/quant_matmul.py:152",
+                     counts["qmm_decode"], mm_rel, dec,
+                     "one layer's qkv+o+gate_up+down, M=8, int2-g128, 7B widths; max_abs_err "
+                     "relative to max|plain|; launches from the A16 engine run",
+                     bound_measured_bw_ms=dec["bound_measured_bw_ms"]),
+        kernel_entry("qmm_prefill", "quant_matmul.cu", "bitdistiller_tpu/ops/quant_matmul.py:107",
+                     counts["qmm_prefill"], mm_rel, pre,
+                     "the same four, M=256; launches from the A16 engine run",
+                     bound_measured_bw_ms=pre["bound_measured_bw_ms"]),
+        kernel_entry("flash_decode", "decode_attention.cu",
+                     "bitdistiller_tpu/ops/decode_attention.py:106", counts["flash_decode"],
+                     at_err["stacked"], att,
+                     "B=8, Hq=Hkv=32, T=2048, D=128, bf16 cache, mixed starts; launches from "
+                     "the A16 engine run", bound_measured_bw_ms=att["bound_measured_bw_ms"]),
+        kernel_entry("qmm_a8", "quant_matmul_a8.cu", "bitdistiller_tpu/ops/quant_matmul.py:721",
+                     counts_a8["qmm_a8"], a8_rel, a8_dec,
+                     "one layer's four A8 matmuls (quantize prologue included), M=8, int2-g128 "
+                     "repacked, 7B widths; max_abs_err relative to max|plain|; launches from the "
+                     "A8 engine run (every packed matmul, prefill and decode)",
+                     bound_measured_bw_ms=a8_dec["bound_measured_bw_ms"],
+                     m256={k: a8_pre[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                  "library_ms")}),
+        kernel_entry("fused_mlp", "fused_mlp.cu", "bitdistiller_tpu/experimental/fused_mlp.py:57",
+                     mlp["launches"], mlp["max_abs_err"], mlp,
+                     "7B MLP (K=4096, FFN=11008, D=4096), M=8, int2-g128, silu; library_ms is "
+                     "three calls (matmul, silu*mul, matmul on bf16 weights); launches from its "
+                     "path: one decode step's MLP through 32 layers (entry point, no model hook)",
+                     bound_measured_bw_ms=mlp["bytes"] / bw * 1e3),
+        kernel_entry("flash_decode_attention", "decode_attention.cu",
+                     "bitdistiller_tpu/experimental/flash_decode.py:33",
+                     summary["e2e"]["per_layer_launches"], at_err["per_layer"], att1,
+                     "B3's kernel on one layer's [B, Hkv, T, D] cache, same work as B3's row; "
+                     "launches from its path: the 32 layers of the A16 engine's cache "
+                     "(entry point)", bound_measured_bw_ms=att1["bound_measured_bw_ms"]),
+        kernel_entry("stream_sum", "bw_probe.cu", "scripts/bw_probe.py:100",
+                     probe["launches"], probe["max_abs_err"], probe,
+                     "K and V bf16 planes [16*8*32, 2048, 128], 4.29 GB a call, chained; "
+                     "max_abs_err relative to the |x| sum; library_ms is two torch.sum calls; "
+                     "launches from its path, the probe's timing run",
+                     bound_measured_bw_ms=probe["bytes"] / bw * 1e3),
+    ]
     summary["kernels"] = kernels
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(summary, indent=1))

@@ -4,19 +4,26 @@ skips without a CUDA device. On the card:
 
     python -m pytest -m gpu tests/test_torch_gpu.py
 
-Tolerances: integer-valued inputs are exact; bf16 attention outputs within
-2e-2 (one bf16 ulp of a prob, rounded against other running maxima); a
-whole tiny-model decode step within 5e-2 of the logit scale."""
+Tolerances: integer-valued inputs are exact (the A8 matmul too, with one
+127 a row so the per-token scale is 1); bf16 attention outputs within 2e-2
+(one bf16 ulp of a prob, rounded against other running maxima); the fused
+MLP within 1e-2 of max|plain| (bf16 outputs, f32 sums in another order, mid
+rounded to bf16 at another f32 rounding of the activation); the stream sum
+within 1e-5 relative (f32 sums in another order); a whole tiny-model decode
+step within 5e-2 of the logit scale."""
 
 import dataclasses
 
 import pytest
 import torch
 
+from bitdistiller_tpu_torch.experimental.flash_decode import flash_decode_attention
+from bitdistiller_tpu_torch.experimental.fused_mlp import fused_mlp, fused_mlp_plain
 from bitdistiller_tpu_torch.models import TINY_TEST, KVCache, forward, random_packed_params
 from bitdistiller_tpu_torch.ops import decode_attention as da
 from bitdistiller_tpu_torch.ops import quant_matmul as qm
 from bitdistiller_tpu_torch.quant.packing import PackedLinear, make_scale_combo, scales_from_combo
+from bitdistiller_tpu_torch.scripts import bw_probe
 from bitdistiller_tpu_torch.serve import Engine, SamplingParams
 
 pytestmark = pytest.mark.gpu
@@ -92,3 +99,90 @@ def test_tiny_engine_runs_through_kernels(gen):
     lk, _ = forward(params, cfg, tok, cache=cache, cache_pos=pos)
     lp, _ = forward(ref, cfg, tok, cache=cache, cache_pos=pos, use_kernels=False)
     assert (lk - lp).abs().max().item() <= 5e-2 * lp.abs().max().item()
+
+
+def _packed(gen, k, n, bits, layers=None, integer=True):
+    lead = () if layers is None else (layers,)
+    qw = torch.randint(-(2**31), 2**31 - 1, lead + (k * bits // 32, n), dtype=torch.int32,
+                       device="cuda", generator=gen)
+    if integer:
+        scales = torch.ones(lead + (k // 128, n), device="cuda")
+        szeros = torch.randint(0, 2**bits, lead + (k // 128, n), device="cuda",
+                               generator=gen).float()
+    else:
+        scales = torch.rand(lead + (k // 128, n), device="cuda", generator=gen) * 0.02 + 0.005
+        szeros = scales * torch.randint(0, 2**bits, lead + (k // 128, n), device="cuda",
+                                        generator=gen)
+    return PackedLinear(qweight=qw, scales=scales, szeros=szeros, bias=None, bits=bits,
+                        group_size=128, in_features=k, out_features=n,
+                        combo=make_scale_combo(scales, szeros))
+
+
+@pytest.mark.parametrize("repacked", [False, True])
+@pytest.mark.parametrize("bits,m", [(2, 3), (2, 40), (4, 8), (4, 100)])
+def test_a8_kernel_exact_on_integers(gen, bits, m, repacked, monkeypatch):
+    monkeypatch.setenv("BITDISTILLER_QMM_A8", "1")
+    p = _packed(gen, 512, 320, bits, layers=3)
+    if repacked:
+        p = qm.repack_linear_a8(p)
+    x = torch.randint(-5, 6, (m, 512), device="cuda", generator=gen).float()
+    x[:, 0] = 127.0
+    x = x.bfloat16()
+    before = (qm.qmm_a8.launches, qm.qmm_decode.launches + qm.qmm_prefill.launches)
+    got = qm.quant_matmul(x, p, 2)  # pair layout goes to A8 too: the switch is on
+    lay = p.layer(2)
+    want = qm.quant_matmul_a8_plain(x, lay.qweight, lay.scales, lay.szeros, bits, 128,
+                                    p.a8_order)
+    assert torch.equal(got, want)
+    assert (qm.qmm_a8.launches, qm.qmm_decode.launches + qm.qmm_prefill.launches) == (
+        before[0] + 1, before[1])
+
+
+@pytest.mark.parametrize("bits,m,act", [(2, 5, "silu"), (4, 40, "gelu")])
+def test_fused_mlp_kernel_matches_plain(gen, bits, m, act):
+    g, u = _packed(gen, 256, 384, bits, integer=False), _packed(gen, 256, 384, bits, integer=False)
+    d = _packed(gen, 384, 200, bits, integer=False)
+    x = torch.randn((m, 256), device="cuda", generator=gen).bfloat16()
+    before = fused_mlp.launches
+    got = fused_mlp(x, g, u, d, act)
+    assert fused_mlp.launches == before + 1
+    want = fused_mlp_plain(x, g, u, d, act)
+    assert (got.float() - want.float()).abs().max().item() <= 1e-2 * want.float().abs().max().item()
+
+
+@pytest.mark.parametrize("hq,hkv,d", [(4, 4, 128), (32, 4, 128), (16, 2, 64)])
+def test_flash_decode_attention_kernel_matches_plain(gen, hq, hkv, d):
+    b, t = 3, 48
+    q = torch.randn((b, 1, hq, d), device="cuda", generator=gen).bfloat16()
+    ck = torch.randn((b, hkv, t, d), device="cuda", generator=gen).bfloat16()
+    cv = torch.randn((b, hkv, t, d), device="cuda", generator=gen).bfloat16()
+    kn = torch.randn((b, 1, hkv, d), device="cuda", generator=gen).bfloat16()
+    vn = torch.randn((b, 1, hkv, d), device="cuda", generator=gen).bfloat16()
+    start = torch.tensor([0, 20, 48], dtype=torch.int32, device="cuda")
+    before = flash_decode_attention.launches
+    got = flash_decode_attention(q, ck, cv, kn, vn, start, window=30)
+    assert flash_decode_attention.launches == before + 1
+    want = da.decode_attention_plain(q, ck[None], cv[None], 0, kn, vn, start, window=30)
+    assert (got.float() - want.float()).abs().max().item() <= 2e-2
+    # the stacked entry on a stack of this one layer (the same kernel)
+    got_st = da.flash_decode_stacked(q, ck[None], cv[None], 0, kn, vn, start, window=30)
+    assert (got_st.float() - want.float()).abs().max().item() <= 2e-2
+    with pytest.raises(ValueError, match="bfloat16 cache"):  # the card takes bf16 only
+        flash_decode_attention(q, ck.float(), cv.float(), kn, vn, start)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+def test_stream_sum_kernel_matches_plain(gen, dtype):
+    shape = (3, 5, 64, 128)
+    if dtype == torch.int8:
+        k = torch.randint(-127, 128, shape, dtype=torch.int8, device="cuda", generator=gen)
+        v = torch.randint(-127, 128, shape, dtype=torch.int8, device="cuda", generator=gen)
+    else:
+        k = torch.rand(shape, device="cuda", generator=gen).bfloat16()
+        v = torch.rand(shape, device="cuda", generator=gen).bfloat16()
+    c = torch.full((1,), 3.0, device="cuda")
+    before = bw_probe.stream_sum.launches
+    got = bw_probe.stream_sum(k, v, c)
+    assert bw_probe.stream_sum.launches == before + 1
+    want = bw_probe.stream_sum_plain(k, v, c)
+    assert abs(got.item() - want.item()) <= 1e-5 * abs(want.item())

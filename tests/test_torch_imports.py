@@ -20,6 +20,8 @@ bad = sorted(m for m in sys.modules
              or m == "bitdistiller_tpu" or m.startswith("bitdistiller_tpu."))
 print(len(names), bad)
 assert len(names) >= 12, names
+for new in ("experimental.fused_mlp", "experimental.flash_decode", "scripts.bw_probe"):
+    assert "bitdistiller_tpu_torch." + new in names, names
 assert not bad, bad
 """
 

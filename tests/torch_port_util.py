@@ -19,6 +19,7 @@ def to_numpy_tree(tree):
             "bias": None if tree.bias is None else np.asarray(tree.bias),
             "bits": tree.bits, "group_size": tree.group_size,
             "in_features": tree.in_features, "out_features": tree.out_features,
+            "a8_order": tree.a8_order,
         }
         if tree.combo is not None:
             out["combo"] = np.asarray(tree.combo)
