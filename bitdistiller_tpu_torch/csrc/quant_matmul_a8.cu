@@ -10,7 +10,8 @@
 //   out[m, n] = bf16(sx[m] * sum_g (s[g,n] * (xi . q)_g - sz[g,n] * sum(xi_g))
 //                    (+ bias[n]))
 //
-// Two kernels, one call. quantize_rows: one block a row; the max, the IEEE
+// A call launches quantize_rows, then qmm_a8 (M <= 32) or group_sums and
+// qmm_a8_prefill (M > 32). quantize_rows: one block a row; the max, the IEEE
 // division and rintf (half to even) are those of the plain version, so
 // integer-valued rows quantize bit for bit alike (built without fast math).
 // For pair-layout words it also applies the per-group permutation kmap (the
@@ -28,13 +29,15 @@
 // (K*N*bits/8) and the f32 scales and szeros (8 bytes a group column, against
 // 4 for the A16 kernels' combo word) stream from HBM once, at 3.35 TB/s.
 // Prefill (large M) is bound by int8 tensor-core operations (1,979 TOP/s).
-// Design: as the A16 decode kernel, a block owns 32 columns and up to 32
-// rows (grid.y tiles larger M), its 8 warps split the K groups and are
-// reduced in shared memory in warp order, so the sum is deterministic and no
-// block carries state to another. This first version re-reads a block's
-// words for every 32 rows of M: wgmma tiles for prefill are later work.
+// Design, M <= 32: as the A16 decode kernel, a block owns 32 columns and up
+// to 32 rows, its 8 warps split the K groups and are reduced in shared
+// memory in warp order, so the sum is deterministic and no block carries
+// state to another. M > 32: s8 wgmma, the codes unpacked straight into its
+// register A fragments and xi staged in shared memory by TMA, on 128- or
+// 64-row tiles (see "Prefill" below).
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -206,6 +209,207 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ---------------------------------------------------------------------------
+// Prefill (M > 32): the A16 prefill kernel's design (quant_matmul.cu) with
+// int8 operands. The product is taken transposed, out^T = W^T xi^T: the
+// codes are the s8 wgmma A operand in registers, xi the B operand in
+// shared memory (BM x 128 int8, one 128-byte-swizzled atom a group):
+//   * one block per output tile of BM = 64 or 128 rows (the wgmma N) and 128
+//     columns (two warpgroups of 64, the wgmma M);
+//   * a ring of PF_STAGES stages, each filled by five TMA loads that one
+//     thread starts and that complete on the stage's mbarrier: the xi tile,
+//     the group's words (R x 136, padded as in the A16 kernel), its f32
+//     scales and szeros (128 each) and the block's int32 xi sums (BM);
+//   * A fragments straight from the words: in the A8 byte order one
+//     (w >> bits*i) & 0x0m0m0m0m is four consecutive k of a column, exactly
+//     a register of the m16n8k32 A layout (as the decode kernel's B);
+//   * part = xi_g . q_g is a fresh s32 wgmma accumulator a group (scale-d 0
+//     on its first k-step), folded in f32 registers as the TPU kernel does:
+//       acc += part * s - xsum * sz;  out = bf16(acc * sx[m] (+ bias[n])),
+//     xsum_g[m] = sum(xi) from group_sums_kernel, a pass over xi after the
+//     quantization.
+// ---------------------------------------------------------------------------
+
+constexpr int PF_BN = 128;        // output columns a block (two warpgroups of 64)
+constexpr int PF_STAGES = 4;      // ring depth: 4 stages of up to 26 KB
+constexpr int PF_WS = PF_BN + 8;  // word-tile row: 8 words of padding (read past N: zeros)
+
+// xsum[g, m] = sum over group g of xi[m, :], zero for M <= m < Mp; one warp
+// a (row, group)
+__global__ void __launch_bounds__(kThreads)
+    group_sums_kernel(const int8_t* __restrict__ xi, int* __restrict__ xsum, int M, int K,
+                      int Mp) {
+  const int ng = K / G;
+  const int item = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (item >= Mp * ng) return;
+  const int m = item / ng, g = item - m * ng;
+  int s = 0;
+  if (m < M) s = __dp4a(__ldg(reinterpret_cast<const int*>(xi + size_t(m) * K + g * G) + lane),
+                        static_cast<int>(kOnesS8x4), 0);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+  if (lane == 0) xsum[size_t(g) * Mp + m] = s;
+}
+
+template <int BITS, int BM>
+struct Prefill {
+  static constexpr int R = G * BITS / 32;  // word rows a group
+  static constexpr int X_BYTES = BM * G;
+  static constexpr int W_BYTES = R * PF_WS * 4;
+  static constexpr int S_OFF = X_BYTES + W_BYTES;  // scales, szeros, then xi sums
+  static constexpr int TX_BYTES = S_OFF + 2 * PF_BN * 4 + BM * 4;  // a stage's TMA bytes
+  static constexpr int STAGE = (TX_BYTES + 1023) / 1024 * 1024;
+  static constexpr int SMEM = PF_STAGES * STAGE + PF_STAGES * 8 + 1024;  // + mbarriers, alignment
+};
+
+template <int BITS, int BM>
+__global__ void __launch_bounds__(kThreads, 1)
+    qmm_a8_prefill_kernel(const __grid_constant__ CUtensorMap x_map,
+                          const __grid_constant__ CUtensorMap w_map,
+                          const __grid_constant__ CUtensorMap s_map,
+                          const __grid_constant__ CUtensorMap z_map,
+                          const __grid_constant__ CUtensorMap t_map, const float* __restrict__ sx,
+                          const float* __restrict__ bias, __nv_bfloat16* __restrict__ out, int M,
+                          int K, int N) {
+  using P = Prefill<BITS, BM>;
+  constexpr int NJ = BM / 8;    // 8-row blocks of xi: the accumulator's column blocks
+  constexpr int RT = P::R / 8;  // word-row octets a group (1 at int2, 2 at int4)
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
+                                             ~uintptr_t(1023));
+  const int tid = threadIdx.x;
+  const int q = tid & 3;
+  // this thread's accumulator rows: output columns nl and nl + 8 of the block
+  const int nl = 64 * (tid >> 7) + 16 * ((tid & 127) >> 5) + ((tid & 31) >> 2);
+  const int m0 = blockIdx.y * BM;
+  const int n0 = blockIdx.x * PF_BN;
+  const int ng = K / G;
+
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + PF_STAGES * P::STAGE);
+
+  auto load_stage = [&](int g) {  // one thread
+    uint8_t* st = smem + (g % PF_STAGES) * P::STAGE;
+    uint64_t* bar = full + g % PF_STAGES;
+    mbar_expect(bar, P::TX_BYTES);
+    tma_load(st, &x_map, g * G, m0, bar);
+    tma_load(st + P::X_BYTES, &w_map, n0, g * P::R, bar);
+    tma_load(st + P::S_OFF, &s_map, n0, g, bar);
+    tma_load(st + P::S_OFF + PF_BN * 4, &z_map, n0, g, bar);
+    tma_load(st + P::S_OFF + 2 * PF_BN * 4, &t_map, m0, g, bar);
+  };
+
+  if (tid == 0) {
+    for (int i = 0; i < PF_STAGES; ++i) mbar_init(full + i, 1);
+    fence_mbar_init();
+  }
+  __syncthreads();
+  if (tid == 0)
+    for (int g = 0; g < PF_STAGES - 1 && g < ng; ++g) load_stage(g);
+
+  float acc[BM / 2];
+  int part[BM / 2];
+#pragma unroll
+  for (int e = 0; e < BM / 2; ++e) {
+    acc[e] = 0.f;
+    part[e] = 0;
+  }
+
+  for (int g = 0; g < ng; ++g) {
+    const uint8_t* st = smem + (g % PF_STAGES) * P::STAGE;
+    mbar_wait(full + g % PF_STAGES, (g / PF_STAGES) & 1);
+    const uint32_t* ws = reinterpret_cast<const uint32_t*>(st + P::X_BYTES);
+    // words of rows nl, nl + 8 and word rows 8t + q, 8t + q + 4 (lanes: 4
+    // word rows x 8 columns, no bank conflict)
+    uint32_t w[2][2 * RT];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int u = 0; u < 2 * RT; ++u) w[h][u] = ws[(4 * u + q) * PF_WS + nl + 8 * h];
+    uint32_t a[G / 32][4];
+#pragma unroll
+    for (int kk = 0; kk < G / 32; ++kk) {  // k = 32kk + 4q (+16): bit field kk/RT of
+      const int sh = BITS * (kk / RT), t = kk % RT;  // word rows 8t + q (+4)
+      a[kk][0] = (w[0][2 * t] >> sh) & ByteMask<BITS>::kMask;
+      a[kk][1] = (w[1][2 * t] >> sh) & ByteMask<BITS>::kMask;
+      a[kk][2] = (w[0][2 * t + 1] >> sh) & ByteMask<BITS>::kMask;
+      a[kk][3] = (w[1][2 * t + 1] >> sh) & ByteMask<BITS>::kMask;
+    }
+    const uint32_t xa = smem_u32(st);
+    wgmma_fence();
+    fence_regs(part);
+#pragma unroll
+    for (int kk = 0; kk < G / 32; ++kk) wgmma_s8(part, a[kk], sw128_desc(xa + kk * 32), kk > 0);
+    wgmma_commit();
+
+    __syncthreads();  // every thread done with stage g-1: its slot takes group g+3
+    if (tid == 0 && g + PF_STAGES - 1 < ng) load_stage(g + PF_STAGES - 1);
+
+    const float* ss = reinterpret_cast<const float*>(st + P::S_OFF);
+    const int* xs = reinterpret_cast<const int*>(st + P::S_OFF + 2 * PF_BN * 4);
+    const float s[2] = {ss[nl], ss[nl + 8]};
+    const float sz[2] = {ss[PF_BN + nl], ss[PF_BN + nl + 8]};
+    wgmma_wait<0>();
+    fence_regs(part);
+#pragma unroll
+    for (int kk = 0; kk < G / 32; ++kk) fence_regs(a[kk]);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int2 xv = *reinterpret_cast<const int2*>(xs + 8 * j + 2 * q);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1;
+        const float xe = static_cast<float>((e & 1) ? xv.y : xv.x);
+        acc[4 * j + e] = acc[4 * j + e] + static_cast<float>(part[4 * j + e]) * s[h] - xe * sz[h];
+      }
+    }
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int n = n0 + nl + 8 * h;
+    if (n >= N) continue;
+    const float b = bias ? bias[n] : 0.f;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int m = m0 + 8 * j + 2 * q + c;
+        if (m >= M) continue;
+        float o = acc[4 * j + 2 * h + c] * sx[m];
+        if (bias) o += b;
+        out[size_t(m) * N + n] = __float2bfloat16(o);
+      }
+  }
+}
+
+template <int BITS, int BM>
+cudaError_t launch_prefill(const int8_t* xi, const float* sx, int* xsum, const void* qw,
+                           const void* scales, const void* szeros, const void* bias, void* out,
+                           int M, int K, int N, cudaStream_t stream) {
+  using P = Prefill<BITS, BM>;
+  const int Mp = (M + 3) / 4 * 4;
+  const int ng = K / G;
+  CUtensorMap xm, wm, sm, zm, tm;
+  if (!tensor_map(&xm, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, xi, M, K, BM, G, true) ||
+      !tensor_map(&wm, CU_TENSOR_MAP_DATA_TYPE_INT32, 4, qw, ng * P::R, N, P::R, PF_WS, false) ||
+      !tensor_map(&sm, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, scales, ng, N, 1, PF_BN, false) ||
+      !tensor_map(&zm, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, szeros, ng, N, 1, PF_BN, false) ||
+      !tensor_map(&tm, CU_TENSOR_MAP_DATA_TYPE_INT32, 4, xsum, ng, Mp, 1, BM, false))
+    return cudaErrorInvalidValue;
+  group_sums_kernel<<<(Mp * ng + kWarps - 1) / kWarps, kThreads, 0, stream>>>(xi, xsum, M, K, Mp);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  auto kernel = qmm_a8_prefill_kernel<BITS, BM>;
+  err = allow_smem(kernel, P::SMEM);
+  if (err != cudaSuccess) return err;
+  dim3 grid((N + PF_BN - 1) / PF_BN, (M + BM - 1) / BM);
+  kernel<<<grid, kThreads, P::SMEM, stream>>>(xm, wm, sm, zm, tm, sx,
+                                              static_cast<const float*>(bias),
+                                              static_cast<__nv_bfloat16*>(out), M, K, N);
+  return cudaGetLastError();
+}
+
 template <int BITS, int TILES>
 cudaError_t launch(const int8_t* xi, const float* sx, const void* qw, const void* scales,
                    const void* szeros, const void* bias, void* out, int M, int K, int N,
@@ -218,12 +422,21 @@ cudaError_t launch(const int8_t* xi, const float* sx, const void* qw, const void
   return cudaGetLastError();
 }
 
+// M <= 32: the decode kernel (TILES 1 or 2). Above: the prefill kernels,
+// tile_m output rows a block, 128 or 64 (for a short prefill, so that every
+// SM has a block); the wrapper chooses (ops/quant_matmul.py:
+// prefill_tile_m).
 template <int BITS>
-cudaError_t launch_mt(const int8_t* xi, const float* sx, const void* qw, const void* scales,
-                      const void* szeros, const void* bias, void* out, int M, int K, int N,
-                      cudaStream_t stream) {
+cudaError_t launch_mt(const int8_t* xi, const float* sx, int* xsum, const void* qw,
+                      const void* scales, const void* szeros, const void* bias, void* out, int M,
+                      int K, int N, int tile_m, cudaStream_t stream) {
   if (M <= 16) return launch<BITS, 1>(xi, sx, qw, scales, szeros, bias, out, M, K, N, stream);
-  return launch<BITS, 2>(xi, sx, qw, scales, szeros, bias, out, M, K, N, stream);
+  if (M <= 32) return launch<BITS, 2>(xi, sx, qw, scales, szeros, bias, out, M, K, N, stream);
+  if (tile_m == 128)
+    return launch_prefill<BITS, 128>(xi, sx, xsum, qw, scales, szeros, bias, out, M, K, N, stream);
+  if (tile_m == 64)
+    return launch_prefill<BITS, 64>(xi, sx, xsum, qw, scales, szeros, bias, out, M, K, N, stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -234,12 +447,15 @@ extern "C" {
 // stacked array to layer li), A8 order if kmap is null, else pair layout
 // with kmap [G] int32 its extraction permutation; scales, szeros [K/G, N]
 // f32; bias [N] f32 or null; xi [M, K] int8 and sx [M] f32 are scratch the
-// caller allocates; out [M, N] bf16. All row-major, contiguous. G = 128,
-// bits 2 or 4. Returns cudaGetLastError() after the launches (0 = launched).
+// caller allocates, and above 32 rows xsum, int32 scratch of K/G x
+// round_up(M, 4); out [M, N] bf16. All row-major, contiguous. G = 128, bits
+// 2 or 4; above 32 rows N a multiple of 4 and tile_m 64 or 128. Returns
+// cudaGetLastError() after the launches (0 = launched).
 int bd_qmm_a8(const void* x, const void* qweight, const void* scales, const void* szeros,
-              const void* bias, const void* kmap, void* xi, void* sx, void* out, int M, int K,
-              int N, int bits, int group, void* stream) {
+              const void* bias, const void* kmap, void* xi, void* sx, void* xsum, void* out,
+              int M, int K, int N, int bits, int group, int tile_m, void* stream) {
   if (M < 1 || group != G || K % G != 0 || (bits != 2 && bits != 4)) return cudaErrorInvalidValue;
+  if (M > 32 && (N % 4 != 0 || xsum == nullptr)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   quantize_rows_kernel<<<M, kThreads, 0, s>>>(static_cast<const __nv_bfloat16*>(x),
                                               static_cast<const int*>(kmap),
@@ -249,8 +465,10 @@ int bd_qmm_a8(const void* x, const void* qweight, const void* scales, const void
   if (err != cudaSuccess) return err;
   const int8_t* xq = static_cast<const int8_t*>(xi);
   const float* sq = static_cast<const float*>(sx);
-  if (bits == 2) return launch_mt<2>(xq, sq, qweight, scales, szeros, bias, out, M, K, N, s);
-  return launch_mt<4>(xq, sq, qweight, scales, szeros, bias, out, M, K, N, s);
+  int* xs = static_cast<int*>(xsum);
+  if (bits == 2)
+    return launch_mt<2>(xq, sq, xs, qweight, scales, szeros, bias, out, M, K, N, tile_m, s);
+  return launch_mt<4>(xq, sq, xs, qweight, scales, szeros, bias, out, M, K, N, tile_m, s);
 }
 
 }  // extern "C"

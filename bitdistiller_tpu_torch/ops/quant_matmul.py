@@ -14,6 +14,13 @@ turns it on for serving: `maybe_repack_a8` then repacks every packed leaf
 once into the A8 byte order, and `quant_matmul` sends every packed matmul
 through it.
 
+Up to DECODE_MAX_M rows a call runs a decode kernel; above, a prefill
+kernel (Hopper wgmma tiles fed by TMA, `prefill_tile_m` rows by 128
+columns), after a pass that sums x over each group into scratch the wrapper
+allocates. `qmm_prefill.launches` counts A16 prefill calls,
+`qmm_a8.launches` every A8 call and `qmm_a8.prefill_launches` the A8 calls
+above DECODE_MAX_M rows.
+
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
 launches a kernel or raises. There is no fallback from one to the other.
 """
@@ -35,6 +42,25 @@ from . import _build
 DECODE_MAX_M = 32  # rows up to which the decode kernel runs; above, the prefill kernel
 KERNEL_BITS = (2, 4)
 KERNEL_GROUPS = (128,)
+
+
+def prefill_tile_m(m: int, n: int, sms: int) -> int:
+    """Rows of the prefill kernels' output tile (A16 and A8; 128 columns
+    either way): 128 once the 128 x 128 tiles fill the card's `sms` SMs
+    twice over, else 64, so that a short prefill still has a block for
+    every SM."""
+    return 128 if -(-m // 128) * -(-n // 128) >= 2 * sms else 64
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _tile_m(x: torch.Tensor, n: int) -> int:
+    if n % 4:
+        raise ValueError(f"the prefill kernels take N a multiple of 4, got {n}")
+    return prefill_tile_m(x.shape[0], n, _sm_count(x.device.index or 0))
 
 
 def quant_matmul_plain(
@@ -63,7 +89,9 @@ def quant_matmul_plain(
 def _launcher(fn_name: str):
     lib = _build.load("quant_matmul")
     fn = getattr(lib, fn_name)
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    # prefill: + xsum scratch and the tile's rows
+    n_ptr, n_int = (5, 6) if fn_name == "bd_qmm_prefill" else (4, 5)
+    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -93,14 +121,24 @@ def _check_args(x, qweight, combo, bits, group_size):
         raise ValueError("the kernel takes row-major contiguous x, qweight and combo")
 
 
-def _launch(fn_name, x, qweight, combo, bits, group_size):
+def group_sums_scratch(m: int, k: int, dtype, device) -> torch.Tensor:
+    """The prefill kernels' scratch for x's group sums: [K/128, round_up(M, 4)]."""
+    return torch.empty((k // 128, -(-m // 4) * 4), dtype=dtype, device=device)
+
+
+def _launch(fn_name, x, qweight, combo, bits, group_size, prefill=False):
     _check_args(x, qweight, combo, bits, group_size)
     m, k = x.shape
     n = qweight.shape[-1]
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    if prefill:
+        xsum = group_sums_scratch(m, k, torch.float32, x.device)
+        ptrs, tile = (combo.data_ptr(), xsum.data_ptr()), (_tile_m(x, n),)
+    else:
+        ptrs, tile = (combo.data_ptr(),), ()
     err = _launcher(fn_name)(
-        x.data_ptr(), qweight.data_ptr(), combo.data_ptr(), out.data_ptr(),
-        m, k, n, bits, group_size,
+        x.data_ptr(), qweight.data_ptr(), *ptrs, out.data_ptr(),
+        m, k, n, bits, group_size, *tile,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(err, fn_name)
@@ -117,8 +155,9 @@ def qmm_decode(x, qweight, combo, bits: int, group_size: int) -> torch.Tensor:
 
 
 def qmm_prefill(x, qweight, combo, bits: int, group_size: int) -> torch.Tensor:
-    """Tiled prefill kernel (any M): x [M, K] @ packed [K, N] on the card."""
-    out = _launch("bd_qmm_prefill", x, qweight, combo, bits, group_size)
+    """Prefill kernel (wgmma tiles, any M; N a multiple of 4): x [M, K] @
+    packed [K, N] on the card."""
+    out = _launch("bd_qmm_prefill", x, qweight, combo, bits, group_size, prefill=True)
     qmm_prefill.launches += 1
     return out
 
@@ -316,15 +355,17 @@ def _kmap(bits: int, group_size: int, device) -> torch.Tensor:
 @functools.lru_cache(maxsize=None)
 def _a8_launcher():
     fn = _build.load("quant_matmul_a8").bd_qmm_a8
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def qmm_a8(x, qweight, scales, szeros, bits: int, group_size: int, a8_order: bool,
            bias=None) -> torch.Tensor:
-    """A8 kernel (any M): quantize x [M, K] per token (and permute it for
-    pair-layout words) and multiply with packed [K, N] on the card."""
+    """A8 kernels (any M): quantize x [M, K] per token (and permute it for
+    pair-layout words) and multiply with packed [K, N] on the card; above
+    DECODE_MAX_M rows through the prefill kernel (N a multiple of 4), counted
+    in `qmm_a8.prefill_launches` as well as `qmm_a8.launches`."""
     if not (x.is_cuda and all(t.device == x.device for t in (qweight, scales, szeros))):
         raise ValueError("the A8 matmul kernel takes CUDA tensors on one device")
     if x.dtype != torch.bfloat16:
@@ -345,22 +386,29 @@ def qmm_a8(x, qweight, scales, szeros, bits: int, group_size: int, a8_order: boo
         bias = bias.to(torch.float32).contiguous()
         if bias.shape != (n,) or bias.device != x.device:
             raise ValueError(f"bias must be [{n}] on x's device")
+    prefill = m > DECODE_MAX_M
+    tile = _tile_m(x, n) if prefill else 0
     kmap = None if a8_order else _kmap(bits, group_size, x.device)
     xi = torch.empty((m, k), dtype=torch.int8, device=x.device)
     sx = torch.empty((m,), dtype=torch.float32, device=x.device)
+    xsum = group_sums_scratch(m, k, torch.int32, x.device) if prefill else None
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     err = _a8_launcher()(
         x.data_ptr(), qweight.data_ptr(), scales.data_ptr(), szeros.data_ptr(),
         None if bias is None else bias.data_ptr(), None if kmap is None else kmap.data_ptr(),
-        xi.data_ptr(), sx.data_ptr(), out.data_ptr(), m, k, n, bits, group_size,
+        xi.data_ptr(), sx.data_ptr(), None if xsum is None else xsum.data_ptr(), out.data_ptr(),
+        m, k, n, bits, group_size, tile,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(err, "bd_qmm_a8")
     qmm_a8.launches += 1
+    if prefill:
+        qmm_a8.prefill_launches += 1
     return out
 
 
 qmm_a8.launches = 0
+qmm_a8.prefill_launches = 0
 
 
 def quant_matmul_a8(x: torch.Tensor, p: PackedLinear, li: Optional[int] = None) -> torch.Tensor:

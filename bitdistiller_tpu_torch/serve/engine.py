@@ -107,12 +107,14 @@ class Engine:
         self._slot_custom = np.zeros(max_slots, bool)
         self._active_dirty = True
         self.decode_steps = 0  # decode forwards run (each advances every slot)
+        self.prefills = 0  # batched prefill forwards run
 
     # -- device pieces ------------------------------------------------------
 
     @torch.inference_mode()
     def _prefill(self, tokens: torch.Tensor, last_idx: torch.Tensor):
         """[nb, S] prompts -> last-position logits [nb, V], KV [L, nb, S, H, D]."""
+        self.prefills += 1
         logits, kv = llama.forward(self.params, self.cfg, tokens, return_kv=True)
         last = logits[torch.arange(tokens.shape[0], device=tokens.device), last_idx]
         return last, kv

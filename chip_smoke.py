@@ -8,17 +8,21 @@ against its plain PyTorch version at the shapes of the packed int2-g128
 Llama-2-7B serving path, times kernel / plain version / one library call,
 then serves requests with the port's Engine on a random packed 7B model
 (all 32 layers), first A16 (bf16 activations), then W2A8
-(BITDISTILLER_QMM_A8=1, set for that phase only), and checks that each
-decode path went through its kernels. The entry points outside the engine
-(the HBM probe, the fused MLP, the per-layer decode attention) each run a
-path of their own with their launch counts reset before and read after.
+(BITDISTILLER_QMM_A8=1, set for that phase only), checks that each decode
+and prefill path went through its kernels, and times one engine-shaped
+prefill (8 prompts of 512 tokens) through each path. The entry points
+outside the engine (the HBM probe, the fused MLP, the per-layer decode
+attention) each run a path of their own with their launch counts reset
+before and read after.
 Phases print one line each; any failure exits non-zero before the last
 line. The second-to-last line is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 
 Tolerances (kernel vs plain version on the same inputs):
   * integer-valued activations and weights: exact (every product and partial
-    sum is an integer below 2^24 in f32, so summation order cannot matter);
+    sum is an integer below 2^24 in f32, so summation order cannot matter),
+    at M = 8, 33, 200, 256 and 4096 (the decode kernels up to 32 rows, the
+    wgmma prefill kernels above, ragged and whole tiles);
   * bf16 activations, packed matmul: max|kernel - plain| <= 1e-2 * max|plain|
     (both round an f32 sum to bf16: one bf16 ulp is 2^-8 relative, and the
     f32 sums differ in order);
@@ -88,6 +92,8 @@ MLP_TOL = 1e-2
 ATTN_TOL = 2e-2
 PROBE_TOL = 1e-6
 LOGIT_TOL = 5e-2
+CHECK_M = (8, 33, 200, 256, 4096)  # decode cap 32; 200 ragged against both prefill tiles
+PREFILL_M = 4096  # the engine's first prefill: 8 prompts in the 512 bucket
 REQ_LENS = [64, 512, 200, 333, 128, 480, 96, 256, 400, 150, 64, 300]
 
 
@@ -157,6 +163,13 @@ def rand_stacked(gen, layers, k, n, bits, integer):
                         combo=make_scale_combo(scales, szeros))
 
 
+def by_rows(fn, x, rows: int = 512):
+    """fn over x in row chunks: both plain matmuls treat rows independently,
+    and at M=4096 a whole call would hold [M, K/G, N] f32 partials (11.5 GB
+    for gate_up)."""
+    return torch.cat([fn(x[i:i + rows]) for i in range(0, x.shape[0], rows)])
+
+
 def plain_matmul(x, p: PackedLinear, li: int):
     lay = p.layer(li)
     return qm.quant_matmul_plain(x, lay.qweight, lay.scales, lay.szeros, lay.bits, lay.group_size)
@@ -168,13 +181,13 @@ def check_matmuls(gen, record):
         for name, (k, n) in SHAPES.items():
             for integer in (True, False):
                 p = rand_stacked(gen, 2, k, n, bits, integer)
-                for m in (8, 256):
+                for m in CHECK_M:
                     if integer:
                         x = torch.randint(-3, 4, (m, k), device=DEV, generator=gen).bfloat16()
                     else:
                         x = torch.randn((m, k), device=DEV, generator=gen).bfloat16()
                     got = qm.quant_matmul(x, p, 1)  # layer 1 of a stack, in place
-                    want = plain_matmul(x, p, 1)
+                    want = by_rows(lambda xr: plain_matmul(xr, p, 1), x)
                     err = (got.float() - want.float()).abs().max().item()
                     scale = want.float().abs().max().item()
                     ok = err == 0.0 if integer else err <= MATMUL_TOL * scale
@@ -248,8 +261,8 @@ def check_attention(gen, record):
 
 
 def check_a8(gen, record):
-    """B4 on layer 1 of a stack: int2 and int4, the four 7B shapes, M=8 and
-    256, pair-layout words (x permuted per call) and repacked ones."""
+    """B4 on layer 1 of a stack: int2 and int4, the four 7B shapes, M in
+    CHECK_M, pair-layout words (x permuted per call) and repacked ones."""
     worst = 0.0
     for bits in (2, 4):
         for name, (k, n) in SHAPES.items():
@@ -257,7 +270,7 @@ def check_a8(gen, record):
                 pair = rand_stacked(gen, 2, k, n, bits, integer)
                 for w in (pair, qm.repack_linear_a8(pair)):
                     lay = w.layer(1)
-                    for m in (8, 256):
+                    for m in CHECK_M:
                         if integer:  # one 127 a row: the per-token scale is 1
                             x = torch.randint(-3, 4, (m, k), device=DEV, generator=gen).float()
                             x[:, 0] = 127.0
@@ -265,8 +278,8 @@ def check_a8(gen, record):
                         else:
                             x = torch.randn((m, k), device=DEV, generator=gen).bfloat16()
                         got = qm.quant_matmul_a8(x, w, 1)
-                        want = qm.quant_matmul_a8_plain(x, lay.qweight, lay.scales, lay.szeros,
-                                                        bits, GROUP, w.a8_order)
+                        want = by_rows(lambda xr: qm.quant_matmul_a8_plain(
+                            xr, lay.qweight, lay.scales, lay.szeros, bits, GROUP, w.a8_order), x)
                         err = (got.float() - want.float()).abs().max().item()
                         scale = want.float().abs().max().item()
                         ok = err == 0.0 if integer else err <= MATMUL_TOL * scale
@@ -290,30 +303,40 @@ def time_matmuls(gen, m, bw, detail):
     through `quant_matmul`. Weights cycle through enough stacked layers
     (> 100 MB) that every call reads them from HBM, as the layer loop does;
     the plain version and the library call (torch.matmul on a dequantized
-    bf16 weight) run on layer 0."""
+    bf16 weight) run on layer 0. Above 32 rows the raw call is the prefill
+    kernels' (the x group sums, then the wgmma kernel) at the tile the
+    wrapper chooses."""
     tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0, flops=0.0)
-    fn = qm._launcher("bd_qmm_decode" if m <= qm.DECODE_MAX_M else "bd_qmm_prefill")
+    prefill = m > qm.DECODE_MAX_M
+    fn = qm._launcher("bd_qmm_prefill" if prefill else "bd_qmm_decode")
     stream = torch.cuda.current_stream().cuda_stream
+    plain_iters, plain_reps = (1, 2) if m >= PREFILL_M else (3, 3)
     for name, (k, n) in SHAPES.items():
         layer_bytes = k * n * BITS / 8 + (k // GROUP) * n * 4
         layers = max(2, math.ceil(120e6 / layer_bytes))
         p = rand_stacked(gen, layers, k, n, BITS, integer=False)
         x = torch.randn((m, k), device=DEV, generator=gen).bfloat16()
         out = torch.empty((m, n), dtype=torch.bfloat16, device=DEV)
-        args = [(x.data_ptr(), p.qweight[i].data_ptr(), p.combo[i].data_ptr(), out.data_ptr(),
-                 m, k, n, BITS, GROUP, stream) for i in range(layers)]
+        if prefill:
+            xsum = qm.group_sums_scratch(m, k, torch.float32, DEV)
+            extra, tile = (xsum.data_ptr(),), (qm._tile_m(x, n),)
+        else:
+            extra, tile = (), ()
+        args = [(x.data_ptr(), p.qweight[i].data_ptr(), p.combo[i].data_ptr(), *extra,
+                 out.data_ptr(), m, k, n, BITS, GROUP, *tile, stream) for i in range(layers)]
         _build.check(fn(*args[0]), "raw launch")
         ms = cuda_ms(lambda i: fn(*args[i % layers]), 50)
         wrapper = cuda_ms(lambda i: qm.quant_matmul(x, p, i % layers), 50)
-        plain = cuda_ms(lambda i: plain_matmul(x, p, 0), 3, reps=3)
+        plain = cuda_ms(lambda i: plain_matmul(x, p, 0), plain_iters, reps=plain_reps)
         w = dequantize_linear(p.layer(0), torch.bfloat16)
         lib = cuda_ms(lambda i: torch.matmul(x, w), 20)
         nbytes = layer_bytes + m * k * 2 + m * n * 2
         flops = 2.0 * m * k * n
         b, by = bound_ms(nbytes, flops)
-        detail.append(dict(shape=name, m=m, k=k, n=n, ms=ms, wrapper_ms=wrapper, plain_ms=plain,
-                           library_ms=lib, bound_ms=b, bound_by=by,
-                           bound_measured_bw_ms=nbytes / bw * 1e3))
+        detail.append(dict(kernel="qmm_prefill" if prefill else "qmm_decode", shape=name, m=m,
+                           k=k, n=n, tile_m=tile[0] if tile else None, ms=ms,
+                           wrapper_ms=wrapper, plain_ms=plain, library_ms=lib, bound_ms=b,
+                           bound_by=by, bound_measured_bw_ms=nbytes / bw * 1e3))
         tot["ms"] += ms
         tot["plain_ms"] += plain
         tot["library_ms"] += lib
@@ -370,10 +393,13 @@ def time_a8(gen, m, detail):
     `time_matmuls` times B1/B2 (raw launcher over >100 MB of stacked layers;
     the wrapper; the plain version and torch.matmul on a dequantized bf16
     weight on layer 0). Bytes count the f32 scales and szeros (8 bytes a
-    group column); operations are int8 at 1,979 TOP/s."""
+    group column); operations are int8 at 1,979 TOP/s. Above 32 rows the
+    call runs the prefill kernels (quantize, xi group sums, s8 wgmma)."""
     tot = dict(ms=0.0, wrapper_ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0, flops=0.0)
     fn = qm._a8_launcher()
     stream = torch.cuda.current_stream().cuda_stream
+    prefill = m > qm.DECODE_MAX_M
+    plain_iters, plain_reps = (1, 2) if m >= PREFILL_M else (3, 3)
     for name, (k, n) in SHAPES.items():
         layer_bytes = k * n * BITS / 8 + (k // GROUP) * n * 8
         layers = max(2, math.ceil(120e6 / layer_bytes))
@@ -382,23 +408,27 @@ def time_a8(gen, m, detail):
         x = torch.randn((m, k), device=DEV, generator=gen).bfloat16()
         xi = torch.empty((m, k), dtype=torch.int8, device=DEV)
         sx = torch.empty((m,), dtype=torch.float32, device=DEV)
+        xsum = qm.group_sums_scratch(m, k, torch.int32, DEV) if prefill else None
+        tile = qm._tile_m(x, n) if prefill else 0
         out = torch.empty((m, n), dtype=torch.bfloat16, device=DEV)
         args = [(x.data_ptr(), p.qweight[i].data_ptr(), p.scales[i].data_ptr(),
                  p.szeros[i].data_ptr(), None, None, xi.data_ptr(), sx.data_ptr(),
-                 out.data_ptr(), m, k, n, BITS, GROUP, stream) for i in range(layers)]
+                 None if xsum is None else xsum.data_ptr(), out.data_ptr(), m, k, n, BITS, GROUP,
+                 tile, stream) for i in range(layers)]
         _build.check(fn(*args[0]), "raw launch")
         ms = cuda_ms(lambda i: fn(*args[i % layers]), 50)
         wrapper = cuda_ms(lambda i: qm.quant_matmul_a8(x, p, i % layers), 50)
         lay = p.layer(0)
         plain = cuda_ms(lambda i: qm.quant_matmul_a8_plain(
-            x, lay.qweight, lay.scales, lay.szeros, BITS, GROUP, True), 3, reps=3)
+            x, lay.qweight, lay.scales, lay.szeros, BITS, GROUP, True), plain_iters, reps=plain_reps)
         w = dequantize_linear(pair.layer(0), torch.bfloat16)
         lib = cuda_ms(lambda i: torch.matmul(x, w), 20)
         nbytes = layer_bytes + m * k * 2 + m * n * 2
         flops = 2.0 * m * k * n
         b, by = bound_ms(nbytes, flops, PEAK_INT8_OPS)
-        detail.append(dict(kernel="qmm_a8", shape=name, m=m, k=k, n=n, ms=ms, wrapper_ms=wrapper,
-                           plain_ms=plain, library_ms=lib, bound_ms=b, bound_by=by))
+        detail.append(dict(kernel="qmm_a8", shape=name, m=m, k=k, n=n, tile_m=tile or None, ms=ms,
+                           wrapper_ms=wrapper, plain_ms=plain, library_ms=lib, bound_ms=b,
+                           bound_by=by))
         for key, val in (("ms", ms), ("wrapper_ms", wrapper), ("plain_ms", plain),
                          ("library_ms", lib), ("bytes", nbytes), ("flops", flops)):
             tot[key] += val
@@ -521,17 +551,22 @@ def probe_phase(record):
     return record
 
 
+def packed_weights(cfg) -> int:
+    """Weights of the packed projections (qkv, o, gate, up, down), all layers."""
+    d, dh = cfg.hidden_size, cfg.actual_head_dim
+    per_layer = (d * cfg.num_heads * dh + 2 * d * cfg.num_kv_heads * dh
+                 + cfg.num_heads * dh * d + 3 * d * cfg.intermediate_size)
+    return per_layer * cfg.num_layers
+
+
 def step_bytes(cfg, bits, rows_per_slot, group_bytes: int = 4) -> float:
     """HBM bytes one decode step must read: packed weights, the group
     statistics (a 4-byte combo word a group column for A16, f32 scale and
     szero, 8 bytes, for A8), lm_head, and the valid KV rows (bench.py's
     model_bytes_per_step with the KV term counted per slot)."""
-    d, dh = cfg.hidden_size, cfg.actual_head_dim
-    per_layer = (d * cfg.num_heads * dh + 2 * d * cfg.num_kv_heads * dh
-                 + cfg.num_heads * dh * d + 3 * d * cfg.intermediate_size)
-    n_w = per_layer * cfg.num_layers
-    kv = cfg.num_layers * sum(rows_per_slot) * cfg.num_kv_heads * dh * 2 * 2
-    return n_w * bits / 8 + n_w / 128 * group_bytes + d * cfg.vocab_size * 2 + kv
+    n_w = packed_weights(cfg)
+    kv = cfg.num_layers * sum(rows_per_slot) * cfg.num_kv_heads * cfg.actual_head_dim * 2 * 2
+    return n_w * bits / 8 + n_w / 128 * group_bytes + cfg.hidden_size * cfg.vocab_size * 2 + kv
 
 
 def device_busy_ms(step, n: int):
@@ -555,19 +590,55 @@ def device_busy_ms(step, n: int):
     return dict(busy_ms=sum(per.values()), top=top)
 
 
-COUNTERS = {"qmm_decode": qm.qmm_decode, "qmm_prefill": qm.qmm_prefill, "qmm_a8": qm.qmm_a8,
-            "flash_decode": da.flash_decode_stacked,
-            "flash_decode_attention": fd1.flash_decode_attention, "fused_mlp": fm.fused_mlp,
-            "stream_sum": bw_probe.stream_sum}
+COUNTERS = {  # name: (wrapper, its counter)
+    "qmm_decode": (qm.qmm_decode, "launches"), "qmm_prefill": (qm.qmm_prefill, "launches"),
+    "qmm_a8": (qm.qmm_a8, "launches"), "qmm_a8_prefill": (qm.qmm_a8, "prefill_launches"),
+    "flash_decode": (da.flash_decode_stacked, "launches"),
+    "flash_decode_attention": (fd1.flash_decode_attention, "launches"),
+    "fused_mlp": (fm.fused_mlp, "launches"), "stream_sum": (bw_probe.stream_sum, "launches")}
 
 
 def reset_counts():
-    for fn in COUNTERS.values():
-        fn.launches = 0
+    for fn, attr in COUNTERS.values():
+        setattr(fn, attr, 0)
 
 
 def read_counts() -> dict:
-    return {name: fn.launches for name, fn in COUNTERS.items()}
+    return {name: getattr(fn, attr) for name, (fn, attr) in COUNTERS.items()}
+
+
+def time_prefill(params, cfg, tag, a8, out):
+    """One engine-shaped prefill: 8 prompts in the 512 bucket through
+    forward(..., return_kv=True), all 32 layers, host clock around a
+    synchronize after a warm-up call; the launch counts are reset just
+    before the timed call and read just after, and every packed matmul of it
+    must go through a prefill kernel."""
+    b, s = 8, 512
+    tokens = torch.randint(3, cfg.vocab_size, (b, s), device=DEV)
+    L = cfg.num_layers
+    with torch.inference_mode():
+        forward(params, cfg, tokens, return_kv=True)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.time()
+        logits, kv = forward(params, cfg, tokens, return_kv=True)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = read_counts()
+    key, other = ("qmm_a8_prefill", "qmm_prefill") if a8 else ("qmm_prefill", "qmm_a8")
+    if counts[key] < 4 * L or counts["qmm_decode"] or counts[other]:
+        raise AssertionError(f"prefill {tag} did not run every matmul through {key}: {counts}")
+    if not torch.isfinite(logits).all() or kv.k.shape[:3] != (L, b, s):
+        raise AssertionError(f"prefill {tag}: non-finite logits or a KV of the wrong shape")
+    flops = 2.0 * b * s * packed_weights(cfg)
+    bound = flops / (PEAK_INT8_OPS if a8 else PEAK_BF16_FLOPS) * 1e3
+    out["prefill"] = dict(batch=b, seq=s, wall_ms=wall * 1e3, tok_per_s=b * s / wall,
+                          launches={k: v for k, v in counts.items() if v},
+                          matmul_bound_ms=bound)
+    say(f"prefill {tag}: {b} x {s} tokens through {L} layers in {wall * 1e3:.1f} ms "
+        f"({b * s / wall:.0f} tok/s); packed-matmul bound {bound:.1f} ms; launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    del logits, kv
 
 
 def end_to_end(bw, out, a16_counts=None):
@@ -605,22 +676,28 @@ def end_to_end(bw, out, a16_counts=None):
             os.environ[qm.A8_ENV] = saved
     params = eng.params  # the repacked tree under A8
     steps = eng.decode_steps
+    out["prefills"] = eng.prefills
     L = cfg.num_layers
     if len(done) != len(reqs) or not all(r.finished and len(r.output_tokens) == 32 for r in reqs):
         raise AssertionError("not every request finished with 32 tokens")
     if counts["flash_decode"] < steps * L:
         raise AssertionError(f"decode attention did not run through the kernel: {counts}")
+    prefill_matmuls = 4 * L * eng.prefills  # every prefill has M >= 64 rows
     if a8:
         a16_matmuls = a16_counts["qmm_decode"] + a16_counts["qmm_prefill"]
         if (counts["qmm_a8"] != a16_matmuls or counts["qmm_a8"] < steps * L * 4 + L * 4
+                or counts["qmm_a8_prefill"] != a16_counts["qmm_prefill"]
+                or counts["qmm_a8_prefill"] < prefill_matmuls
                 or counts["qmm_decode"] + counts["qmm_prefill"]):
             raise AssertionError(f"A8 serving did not run every matmul through qmm_a8: {counts} "
                                  f"(A16 run: {a16_matmuls} packed matmuls)")
-    elif counts["qmm_decode"] < steps * L * 4 or counts["qmm_prefill"] < L * 4 or counts["qmm_a8"]:
+    elif (counts["qmm_decode"] < steps * L * 4 or counts["qmm_prefill"] < prefill_matmuls
+          or eng.prefills < 1 or counts["qmm_a8"]):
         raise AssertionError(f"decode/prefill did not run through the kernels: {counts}")
     tag = "A8" if a8 else "A16"
     say(f"engine {tag}: {len(reqs)} requests, 8 slots, depth {L} of {CFG.num_layers} (no cut), "
-        f"{steps} decode steps, launches { {k: v for k, v in counts.items() if v} }, "
+        f"{eng.prefills} prefills, {steps} decode steps, "
+        f"launches { {k: v for k, v in counts.items() if v} }, "
         f"wall {wall:.2f} s, "
         f"{sum(len(r.output_tokens) for r in reqs) / wall:.1f} generated tok/s end to end")
 
@@ -674,6 +751,7 @@ def end_to_end(bw, out, a16_counts=None):
         f"(tol {LOGIT_TOL} relative), argmax agreement {agree:.3f}")
     if not err <= LOGIT_TOL * ref:  # NaN fails too
         raise AssertionError("decode step logits disagree with the plain path")
+    time_prefill(params, cfg, tag, a8, out)
     out.update(
         requests=len(reqs), decode_steps=steps, launches=counts, wall_s=wall,
         decode_ms_per_step=ms_step, decode_tok_per_s=8 / ms_step * 1e3,
@@ -771,8 +849,10 @@ def main() -> int:
         summary["matmul_times"] = []
         dec = time_matmuls(gen, 8, bw, summary["matmul_times"])
         pre = time_matmuls(gen, 256, bw, summary["matmul_times"])
+        pre4k = time_matmuls(gen, PREFILL_M, bw, summary["matmul_times"])
         a8_dec = time_a8(gen, 8, summary["matmul_times"])
         a8_pre = time_a8(gen, 256, summary["matmul_times"])
+        a8_pre4k = time_a8(gen, PREFILL_M, summary["matmul_times"])
         summary["attention_times"] = []
         att = time_attention(gen, bw, summary["attention_times"], per_layer=False)
         att1 = time_attention(gen, bw, summary["attention_times"], per_layer=True)
@@ -787,9 +867,11 @@ def main() -> int:
         summary["e2e_a8"] = {}
         counts_a8 = end_to_end(bw, summary["e2e_a8"], a16_counts=counts)
 
-    dec, pre = totals_entry(dec, bw), totals_entry(pre, bw)
+    dec, pre, pre4k = totals_entry(dec, bw), totals_entry(pre, bw), totals_entry(pre4k, bw)
     a8_dec = totals_entry(a8_dec, bw, PEAK_INT8_OPS)
     a8_pre = totals_entry(a8_pre, bw, PEAK_INT8_OPS)
+    a8_pre4k = totals_entry(a8_pre4k, bw, PEAK_INT8_OPS)
+    times = lambda t: {k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
     kernels = [
         kernel_entry("qmm_decode", "quant_matmul.cu", "bitdistiller_tpu/ops/quant_matmul.py:152",
                      counts["qmm_decode"], mm_rel, dec,
@@ -798,8 +880,9 @@ def main() -> int:
                      bound_measured_bw_ms=dec["bound_measured_bw_ms"]),
         kernel_entry("qmm_prefill", "quant_matmul.cu", "bitdistiller_tpu/ops/quant_matmul.py:107",
                      counts["qmm_prefill"], mm_rel, pre,
-                     "the same four, M=256; launches from the A16 engine run",
-                     bound_measured_bw_ms=pre["bound_measured_bw_ms"]),
+                     "the same four, M=256 (x group sums + wgmma kernel; m4096: the engine's "
+                     "first prefill shape); launches from the A16 engine run",
+                     bound_measured_bw_ms=pre["bound_measured_bw_ms"], m4096=times(pre4k)),
         kernel_entry("flash_decode", "decode_attention.cu",
                      "bitdistiller_tpu/ops/decode_attention.py:106", counts["flash_decode"],
                      at_err["stacked"], att,
@@ -811,8 +894,8 @@ def main() -> int:
                      "repacked, 7B widths; max_abs_err relative to max|plain|; launches from the "
                      "A8 engine run (every packed matmul, prefill and decode)",
                      bound_measured_bw_ms=a8_dec["bound_measured_bw_ms"],
-                     m256={k: a8_pre[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                                  "library_ms")}),
+                     m256=times(a8_pre), m4096=times(a8_pre4k),
+                     prefill_launches=counts_a8["qmm_a8_prefill"]),
         kernel_entry("fused_mlp", "fused_mlp.cu", "bitdistiller_tpu/experimental/fused_mlp.py:57",
                      mlp["launches"], mlp["max_abs_err"], mlp,
                      "7B MLP (K=4096, FFN=11008, D=4096), M=8, int2-g128, silu; library_ms is "

@@ -30,37 +30,37 @@ K, N = 256, 128
 LAYOUTS = [(2, 64), (2, 128), (4, 64), (4, 128)]
 
 
-def _layer(rng, bits, g, integer, layers=None):
+def _layer(rng, bits, g, integer, layers=None, k=K, n=N):
     lead = () if layers is None else (layers,)
-    codes = rng.integers(0, 2**bits, lead + (K, N)).astype(np.int32)
+    codes = rng.integers(0, 2**bits, lead + (k, n)).astype(np.int32)
     if integer:
-        scales = np.ones(lead + (K // g, N), np.float32)
-        szeros = rng.integers(0, 2**bits, lead + (K // g, N)).astype(np.float32)
+        scales = np.ones(lead + (k // g, n), np.float32)
+        szeros = rng.integers(0, 2**bits, lead + (k // g, n)).astype(np.float32)
     else:
-        scales = (rng.random(lead + (K // g, N)) * 0.05 + 0.01).astype(np.float32)
-        szeros = (scales * rng.integers(0, 2**bits, lead + (K // g, N))).astype(np.float32)
-    flat = codes.reshape(-1, K, N)
+        scales = (rng.random(lead + (k // g, n)) * 0.05 + 0.01).astype(np.float32)
+        szeros = (scales * rng.integers(0, 2**bits, lead + (k // g, n))).astype(np.float32)
+    flat = codes.reshape(-1, k, n)
     qw = np.stack([np.asarray(jpack(jnp.asarray(c), bits, g)) for c in flat])
     return codes, qw.reshape(lead + qw.shape[1:]), scales, szeros
 
 
-def _x(rng, m, integer):
+def _x(rng, m, integer, k=K):
     if integer:
-        x = rng.integers(-5, 6, (m, K)).astype(np.float32)
+        x = rng.integers(-5, 6, (m, k)).astype(np.float32)
         x[:, 0] = 127.0  # sx = 127 / 127 = 1: quantization is the identity
         return x
-    return rng.standard_normal((m, K)).astype(np.float32)
+    return rng.standard_normal((m, k)).astype(np.float32)
 
 
-def _jp(qw, scales, szeros, bits, g):
+def _jp(qw, scales, szeros, bits, g, k=K, n=N):
     return JP(qweight=jnp.asarray(qw), scales=jnp.asarray(scales), szeros=jnp.asarray(szeros),
-              bias=None, bits=bits, group_size=g, in_features=K, out_features=N)
+              bias=None, bits=bits, group_size=g, in_features=k, out_features=n)
 
 
-def _tp(qw, scales, szeros, bits, g, a8_order=False):
+def _tp(qw, scales, szeros, bits, g, a8_order=False, k=K, n=N):
     return TP(qweight=torch.from_numpy(np.array(qw)), scales=torch.from_numpy(scales),
               szeros=torch.from_numpy(szeros), bias=None, bits=bits, group_size=g,
-              in_features=K, out_features=N, a8_order=a8_order)
+              in_features=k, out_features=n, a8_order=a8_order)
 
 
 @pytest.mark.parametrize("bits,g", LAYOUTS)
@@ -101,6 +101,31 @@ def test_plain_a8_exact_on_integers_against_pallas(bits, g, repacked):
     np.testing.assert_array_equal(got, want)
     dense = x @ (codes * np.repeat(scales, g, 0) - np.repeat(szeros, g, 0))
     np.testing.assert_array_equal(got, dense)
+
+
+@pytest.mark.parametrize("integer", [True, False])
+@pytest.mark.parametrize("repacked", [False, True])
+@pytest.mark.parametrize("bits", [2, 4])
+@pytest.mark.parametrize("m", [33, 130])
+def test_plain_a8_against_pallas_at_prefill_edges(m, bits, repacked, integer):
+    """The plain A8 version, which the card holds the s8 wgmma prefill
+    kernel against, at that kernel's edges: M just above the decode cap and
+    ragged against 64- and 128-row tiles, 5 groups of 128, N = 320."""
+    k, n, g = 5 * 128, 320, 128
+    rng = np.random.default_rng(2000 + 10 * m + 2 * bits + repacked)
+    codes, qw, scales, szeros = _layer(rng, bits, g, integer, k=k, n=n)
+    x = _x(rng, m, integer, k)
+    jp, tp = _jp(qw, scales, szeros, bits, g, k, n), _tp(qw, scales, szeros, bits, g, k=k, n=n)
+    if repacked:
+        jp, tp = jq.repack_linear_a8(jp), tq.repack_linear_a8(tp)
+    want = np.asarray(jq.quant_matmul_a8(jnp.asarray(x), jp, interpret=True))
+    got = tq.quant_matmul_a8(torch.from_numpy(x), tp).numpy()
+    if integer:
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(
+            got, x @ (codes * np.repeat(scales, g, 0) - np.repeat(szeros, g, 0)))
+    else:
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * np.abs(want).max())
 
 
 @pytest.mark.parametrize("repacked", [False, True])

@@ -88,3 +88,22 @@ def test_engine_defaults_to_the_card():
         pytest.skip("a CUDA device is present; the default device is usable")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Engine({}, torch_cfg(CFG))
+
+
+def test_prefills_count_the_batched_prefill_forwards(models, monkeypatch):
+    """`Engine.prefills` (read by chip_smoke.py to expect 4 prefill matmuls a
+    layer a prefill) counts the forwards that return a prompt's KV."""
+    from bitdistiller_tpu_torch.serve import engine as engine_mod
+
+    _, tparams = models
+    calls = []
+    real = engine_mod.llama.forward
+
+    def spy(*args, **kw):
+        calls.append(kw.get("return_kv", False))
+        return real(*args, **kw)
+
+    monkeypatch.setattr(engine_mod.llama, "forward", spy)
+    eng = _port_engine(tparams, eos_token_id=None)
+    eng.generate(PROMPTS, max_new_tokens=4)
+    assert eng.prefills == sum(calls) >= 3  # five prompts through two slots

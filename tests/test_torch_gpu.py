@@ -138,6 +138,68 @@ def test_a8_kernel_exact_on_integers(gen, bits, m, repacked, monkeypatch):
         before[0] + 1, before[1])
 
 
+def _ints(gen, m, k, top=None):
+    x = torch.randint(-4, 5, (m, k), device="cuda", generator=gen).float()
+    if top is not None:
+        x[:, 0] = top
+    return x.bfloat16()
+
+
+@pytest.mark.parametrize("tile", [64, 128])
+@pytest.mark.parametrize("bits", [2, 4])
+@pytest.mark.parametrize("m", [33, 130, 256])
+def test_prefill_kernel_exact_on_integers(gen, bits, m, tile, monkeypatch):
+    """The wgmma prefill kernel at its edges, on both tile heights: M just
+    above the decode cap and ragged against both, 5 groups (no ring depth
+    divides it), N = 320 (ragged against 128 columns), layer 2 of a stack."""
+    monkeypatch.setattr(qm, "prefill_tile_m", lambda m, n, sms: tile)
+    p = _packed(gen, 5 * 128, 320, bits, layers=3)
+    x = _ints(gen, m, 5 * 128)
+    before = (qm.qmm_prefill.launches, qm.qmm_decode.launches)
+    got = qm.quant_matmul(x, p, 2)
+    lay = p.layer(2)
+    assert torch.equal(got, qm.quant_matmul_plain(x, lay.qweight, lay.scales, lay.szeros, bits, 128))
+    assert (qm.qmm_prefill.launches, qm.qmm_decode.launches) == (before[0] + 1, before[1])
+
+
+@pytest.mark.parametrize("tile", [64, 128])
+@pytest.mark.parametrize("repacked", [False, True])
+@pytest.mark.parametrize("bits", [2, 4])
+@pytest.mark.parametrize("m", [33, 130, 256])
+def test_a8_prefill_kernel_exact_on_integers(gen, bits, m, repacked, tile, monkeypatch):
+    """The s8 wgmma prefill kernel at the same edges; both counters move."""
+    monkeypatch.setattr(qm, "prefill_tile_m", lambda m, n, sms: tile)
+    p = _packed(gen, 5 * 128, 320, bits, layers=3)
+    if repacked:
+        p = qm.repack_linear_a8(p)
+    x = _ints(gen, m, 5 * 128, top=127.0)  # one 127 a row: the per-token scale is 1
+    before = (qm.qmm_a8.launches, qm.qmm_a8.prefill_launches)
+    got = qm.quant_matmul_a8(x, p, 2)
+    lay = p.layer(2)
+    want = qm.quant_matmul_a8_plain(x, lay.qweight, lay.scales, lay.szeros, bits, 128, p.a8_order)
+    assert torch.equal(got, want)
+    assert (qm.qmm_a8.launches, qm.qmm_a8.prefill_launches) == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize("a8", [False, True])
+def test_prefill_kernels_close_on_bf16(gen, a8):
+    """Random bf16 x and non-unit scales, with a bias on the A8 path: within
+    1e-2 of max|plain| (one bf16 rounding of f32 sums in another order)."""
+    p = _packed(gen, 5 * 128, 320, 2, layers=3, integer=False)
+    x = torch.randn((200, 5 * 128), device="cuda", generator=gen).bfloat16()
+    lay = p.layer(2)
+    if a8:
+        bias = torch.randn((320,), device="cuda", generator=gen)
+        got = qm.qmm_a8(x, lay.qweight, lay.scales, lay.szeros, 2, 128, False, bias)
+        want = qm.quant_matmul_a8_plain(x, lay.qweight, lay.scales, lay.szeros, 2, 128, False,
+                                        bias)
+    else:  # the plain version reads the scales the kernel decodes from the combo words
+        got = qm.quant_matmul(x, p, 2)
+        s, sz = scales_from_combo(lay.combo)
+        want = qm.quant_matmul_plain(x, lay.qweight, s, sz, 2, 128)
+    assert (got.float() - want.float()).abs().max().item() <= 1e-2 * want.float().abs().max().item()
+
+
 @pytest.mark.parametrize("bits,m,act", [(2, 5, "silu"), (4, 40, "gelu")])
 def test_fused_mlp_kernel_matches_plain(gen, bits, m, act):
     g, u = _packed(gen, 256, 384, bits, integer=False), _packed(gen, 256, 384, bits, integer=False)

@@ -32,28 +32,28 @@ def _bf16(a):
     return torch.from_numpy(a).bfloat16().float().numpy()
 
 
-def _layer(rng, bits, g, integer):
-    codes = rng.integers(0, 2**bits, (K, N)).astype(np.int32)
+def _layer(rng, bits, g, integer, k=K, n=N):
+    codes = rng.integers(0, 2**bits, (k, n)).astype(np.int32)
     if integer:
-        scales = np.ones((K // g, N), np.float32)
-        szeros = rng.integers(0, 2**bits, (K // g, N)).astype(np.float32)
+        scales = np.ones((k // g, n), np.float32)
+        szeros = rng.integers(0, 2**bits, (k // g, n)).astype(np.float32)
     else:
-        scales = _bf16((rng.random((K // g, N)) * 0.05 + 0.01).astype(np.float32))
-        szeros = _bf16((scales * rng.integers(0, 2**bits, (K // g, N))).astype(np.float32))
+        scales = _bf16((rng.random((k // g, n)) * 0.05 + 0.01).astype(np.float32))
+        szeros = _bf16((scales * rng.integers(0, 2**bits, (k // g, n))).astype(np.float32))
     qw = np.array(jpack(jnp.asarray(codes), bits, g))
     return codes, qw, scales, szeros
 
 
-def _x(rng, m, integer):
+def _x(rng, m, integer, k=K):
     if integer:
-        return rng.integers(-4, 5, (m, K)).astype(np.float32)
-    return _bf16(rng.standard_normal((m, K)).astype(np.float32))
+        return rng.integers(-4, 5, (m, k)).astype(np.float32)
+    return _bf16(rng.standard_normal((m, k)).astype(np.float32))
 
 
-def _jp(qw, scales, szeros, bits, g):
+def _jp(qw, scales, szeros, bits, g, k=K, n=N):
     s, z = jnp.asarray(scales), jnp.asarray(szeros)
     return JP(qweight=jnp.asarray(qw), scales=s, szeros=z, bias=None, bits=bits,
-              group_size=g, in_features=K, out_features=N, combo=jcombo(s, z))
+              group_size=g, in_features=k, out_features=n, combo=jcombo(s, z))
 
 
 @pytest.mark.parametrize("integer", [True, False])
@@ -77,6 +77,51 @@ def test_plain_matches_jax_xla_and_pallas(bits, g, m, integer):
     else:
         np.testing.assert_allclose(got, xla, rtol=1e-5, atol=1e-5)
         np.testing.assert_allclose(got, pallas, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("integer", [True, False])
+@pytest.mark.parametrize("bits", [2, 4])
+@pytest.mark.parametrize("m", [33, 130])
+def test_plain_matches_pallas_at_prefill_edges(m, bits, integer):
+    """The plain version, which the card holds the wgmma prefill kernel
+    against, at that kernel's edges: M just above the decode cap (32) and
+    ragged against 64- and 128-row tiles, 5 groups of 128 (no ring depth
+    divides it), N = 320 (ragged against 128 columns)."""
+    k, n, g = 5 * 128, 320, 128
+    rng = np.random.default_rng(1000 + 10 * m + bits)
+    codes, qw, scales, szeros = _layer(rng, bits, g, integer, k, n)
+    x = _x(rng, m, integer, k)
+    got = tq.quant_matmul_plain(
+        torch.from_numpy(x), torch.from_numpy(qw), torch.from_numpy(scales),
+        torch.from_numpy(szeros), bits, g,
+    ).numpy()
+    want = np.asarray(jq.quant_matmul_pallas(
+        jnp.asarray(x), _jp(qw, scales, szeros, bits, g, k, n), interpret=True))
+    if integer:
+        np.testing.assert_array_equal(got, want)
+        dense = x @ (codes.astype(np.float32) * np.repeat(scales, g, 0) - np.repeat(szeros, g, 0))
+        np.testing.assert_array_equal(got, dense)
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("m,n,sms,rows", [
+    (33, 4096, 132, 64), (256, 4096, 132, 64), (256, 12288, 132, 64),
+    (256, 22016, 132, 128), (4096, 4096, 132, 128), (2048, 320, 132, 64), (2048, 320, 8, 128),
+])
+def test_prefill_tile_rows(m, n, sms, rows):
+    """128-row tiles once the 128 x 128 grid fills the SMs twice over, else
+    64: the 7B shapes at M=256 take 64 rows but gate_up, every shape at the
+    engine's M=4096 takes 128."""
+    assert tq.prefill_tile_m(m, n, sms) == rows
+
+
+def test_group_sums_scratch_rows_are_whole_16_bytes():
+    """[K/128, round_up(M, 4)]: each group's row is a whole number of TMA's
+    16-byte units whatever M."""
+    for m, want in ((33, 36), (128, 128), (130, 132)):
+        t = tq.group_sums_scratch(m, 640, torch.float32, "cpu")
+        assert t.shape == (5, want) and t.stride(0) * t.element_size() % 16 == 0
 
 
 @pytest.mark.parametrize("integer", [True, False])
@@ -143,3 +188,15 @@ def test_cpu_tensor_never_reaches_the_kernel():
     out = tq.quant_matmul(torch.from_numpy(_x(rng, 5, True)).reshape(1, 5, K), p)
     assert out.shape == (1, 5, N)
     assert (tq.qmm_decode.launches, tq.qmm_prefill.launches) == before
+
+
+def test_prefill_ablation_patches_apply():
+    """scripts/prefill_ablation.py patches the prefill kernel's source by
+    text: every patch still applies, and each ablation differs from the
+    kernel and from the others."""
+    from bitdistiller_tpu_torch.ops import _build
+    from bitdistiller_tpu_torch.scripts import prefill_ablation
+
+    src = (_build.CSRC_DIR / "quant_matmul.cu").read_text()
+    texts = prefill_ablation.variants(src)
+    assert texts["kernel"] == src and len(set(texts.values())) == len(texts) == 5
