@@ -9,34 +9,47 @@
 // with Wg, Wu, Wd int2/int4 in the pair layout, f32 scales and szeros, x
 // and mid fed to the products as bf16, each group's correction
 // acc + partial*s - sum(x_g)*(sz + off*s) on an f32 accumulator (sum(x_g) in
-// f32 of the unrounded values), act silu or tanh-gelu, out rounded once.
+// f32 of the unrounded values: for the down product the f32 mid), act silu
+// or tanh-gelu, out rounded once.
 //
 // Bound on this card: bytes at decode widths. The three packed weights
 // ((2*K*F + F*D) * bits/8) and their f32 scales and szeros (8 bytes a group
-// column) stream from HBM once, at 3.35 TB/s. Design: one block per (ffn
-// tile of 128 = one group of Wd's rows, up to 32 rows of x). Its 8 warps
-// each compute 16 columns of gate AND the same 16 of up over all of K
-// (mma.sync.m16n8k16, bf16 in, f32 out, B fragments straight from the pair
-// layout as in quant_matmul.cu), so act(gate)*up is lane-local; the [rows,
-// 128] mid tile stays in shared memory and never reaches HBM. The block
-// then multiplies bf16(mid) by its 128 rows of Wd for all D columns and
-// writes an f32 partial [rows, D]. CUDA blocks cannot carry the TPU grid's
-// accumulator across ffn tiles, so a second kernel sums the partials in
-// ffn-tile order, one thread an output: deterministic, no atomics. That
-// costs 2 * F/128 * M * D * 4 bytes of HBM traffic beyond the bound (11 MB
-// at M=8 and 7B widths) and leaves F/128 blocks a 32-row chunk (86 at 7B),
-// fewer than the 132 SMs: both are later work.
+// column) stream from HBM once, at 3.35 TB/s. Design: two launches in one
+// call, both on the streaming plan of stream.cuh (a cluster of CTAs splits
+// the K groups of a column tile, a cp.async ring keeps several groups in
+// flight, the partial tiles are summed in rank order through distributed
+// shared memory), the second a programmatic dependent of the first:
+//   * gate/up: a cluster of C1 CTAs owns an ffn tile of 128 columns (one
+//     group of Wd's rows) and splits the K walk; warp w owns the tile's
+//     columns 16w .. 16w + 15 of both Wg and Wu and streams their words
+//     through a ring of its own. The products are taken transposed
+//     (mma.sync.m16n8k16, the warp's 16 columns as the A operand straight
+//     from the staged pair-layout words, 8 tokens of bf16 x as B; f32 out),
+//     so no row is padding at M = 8; sum(x_g) in f32 from the B registers. CTA
+//     rank r finishes rows r, r + C1, ... of the summed tile:
+//     mid = act(gate) * up, written as bf16 [M, F], and the f32 sum of the
+//     unrounded mid over the tile, msum [M, F/128], the down product's
+//     group sums;
+//   * down: mid @ Wd, a packed decode matmul over K = F (clusters of C2 CTAs
+//     split the F groups; the sum over F runs in group order inside a CTA,
+//     then in rank order). Its ring fills with Wd's words while the
+//     gate/up launch finishes; it waits for mid before it reads it.
+// So mid passes through L2: M * F * (2 + 4/128) bytes, 179 KB at M = 8 and
+// 7B widths, under 1% of the 42 MB of weights. (The JAX kernel keeps mid in
+// VMEM: a layout choice of the TPU, not part of the function.) No partial
+// planes, no float atomics: two calls on the same inputs give the same
+// bytes. A CTA takes 8, 16 or 32 token rows; M > 32 runs in chunks of 32
+// (grid z), each streaming the weights again.
 
 #include "common.cuh"
+#include "stream.cuh"
 
 namespace {
 
 using namespace bd;
 
 constexpr int G = 128;
-constexpr int FT = 128;     // ffn columns a block: one group of Wd's rows
-constexpr int MID_LD = FT + 4;  // padded rows: A-fragment loads hit 8 banks, not 1
-constexpr int NT = 4;       // down n-tiles a warp does at once
+constexpr int COLS = 128;  // columns a cluster; for gate/up the ffn tile, one group of Wd's rows
 constexpr int kSilu = 0;
 constexpr int kGeluTanh = 1;
 
@@ -50,255 +63,332 @@ __device__ __forceinline__ float act(float g) {
   }
 }
 
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
+// Shared-memory plan of one launch: NW weights (2: gate and up, 1: down) of
+// COLS = 128 columns, 8 * TOK token rows of x. Each warp streams its 16
+// columns of every weight through a ring of its own, STAGES deep.
+template <int BITS, int TOK, int NW>
+struct Mlp {
+  static constexpr int R = G * BITS / 32;  // word rows a group
+  static constexpr int WC = COLS / kWarps;  // columns a warp: one m16 tile
+  static constexpr int WLD = WC + 8;        // staged word row: 4 k quads x 8 columns hit 32 banks
+  static constexpr int WWORDS = R * WLD;           // a weight's staged words
+  static constexpr int WSTAGE = WWORDS + 2 * WC;   // then its scales and szeros (4 bytes each)
+  static constexpr int STAGES = NW == 2 ? 4 : 6;   // groups in flight a warp: STAGES - 1
+  static constexpr int MROWS = 8 * TOK;
+  static constexpr int RED = MROWS * NW * COLS * 4;  // the partial tile, over the drained rings
+  static constexpr int RINGS = kWarps * STAGES * NW * WSTAGE * 4;
+  static constexpr int RING = RINGS > RED ? RINGS : RED;
+  static constexpr int MIDF = NW == 2 ? MROWS * COLS * 4 : 0;  // gate/up: f32 mid, over the x slice
+  // x row: lanes' tokens land 4 banks apart
+  __host__ __device__ static int xld(int ngs_max) { return ngs_max * G + 8; }
+  __host__ __device__ static size_t xbytes(int ngs_max) {
+    const size_t b = size_t(MROWS) * xld(ngs_max) * 2;
+    return b > MIDF ? b : MIDF;
+  }
+  __host__ __device__ static size_t smem(int ngs_max) {
+    return RING + xbytes(ngs_max) + (NW == 1 ? size_t(MROWS) * ngs_max * 4 : 0);
+  }
+};
 
-template <int BITS, int TILES, int ACT>
-__global__ void __launch_bounds__(kThreads)
-    mlp_tile_kernel(const __nv_bfloat16* __restrict__ x, const uint32_t* __restrict__ gq,
-                    const float* __restrict__ gs, const float* __restrict__ gz,
-                    const uint32_t* __restrict__ uq, const float* __restrict__ us,
-                    const float* __restrict__ uz, const uint32_t* __restrict__ dq,
-                    const float* __restrict__ ds, const float* __restrict__ dz,
-                    float* __restrict__ partial, int M, int K, int F, int D) {
-  constexpr int PACK = 32 / BITS;
-  constexpr int R = G / PACK;  // words a column a group
-  constexpr int WPL = R / 4;   // words a lane a group and n-tile
-  constexpr int BPI = R / 8;   // k-blocks of 16 one extraction spans
-  constexpr int MROWS = 16 * TILES;
+// NW 2: x [M, K] against gate (q0, s0, z0) and up (q1, s1, z1) [K, N = F];
+// writes mid y [M, F] bf16 and its tile sums ysum [M, F/128] f32.
+// NW 1: x = mid [M, K = F] with its group sums xsum_g [M, F/128] against down
+// (q0, s0, z0) [F, N = D]; writes out y [M, D] bf16.
+// The product is taken transposed (out^T = W^T x^T): a warp's 16 columns are
+// the m16n8k16 A operand, whose registers are exactly the pair layout's
+// extractions for the lane's columns row and row + 8 (as the A16 prefill
+// kernel's), and 8 tokens of x the B operand, so no row is padding at M = 8.
+// Two CTAs an SM, but one for gate/up at 32 token rows (its 32 f32
+// accumulators and 32 partials a thread, with the words, spill at 128
+// registers).
+template <int BITS, int TOK, int NW, int ACT>
+__global__ void __launch_bounds__(kThreads, NW == 2 && TOK == 4 ? 1 : 2)
+    mlp_stream_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ xsum_g,
+                      const uint32_t* __restrict__ q0, const float* __restrict__ s0,
+                      const float* __restrict__ z0, const uint32_t* __restrict__ q1,
+                      const float* __restrict__ s1, const float* __restrict__ z1,
+                      __nv_bfloat16* __restrict__ y, float* __restrict__ ysum, int M, int K, int N,
+                      int ngs_max, int vec) {
+  using P = Mlp<BITS, TOK, NW>;
+  constexpr bool GATE_UP = NW == 2;
+  constexpr int MROWS = P::MROWS, WC = P::WC, STAGES = P::STAGES;
+  constexpr int WPL = P::R / 4;  // words a lane a group and column
+  constexpr int BPI = P::R / 8;  // k-blocks of 16 one extraction spans
   constexpr float kOff = Trick<BITS>::kOffset;
-  __shared__ float mid_s[MROWS][MID_LD];
-  __shared__ float msum[MROWS];
+  extern __shared__ __align__(16) uint8_t smem[];
+  if constexpr (GATE_UP) grid_dep_launch();  // the down launch may start filling its rings
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = gridDim.x, rank = blockIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int quad = lane & 3, row = lane >> 2;
+  const int n0 = blockIdx.y * COLS, m0 = blockIdx.z * MROWS;
+  const int ng = K / G, g0 = rank * ng / C, ngs = (rank + 1) * ng / C - g0;
+  const int k0 = g0 * G, kn = ngs * G;
+  const int xld = P::xld(ngs_max);
+  uint32_t* ring = reinterpret_cast<uint32_t*>(smem) + warp * STAGES * NW * P::WSTAGE;
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem + P::RING);
+  float* xsum_s = reinterpret_cast<float*>(smem + P::RING + P::xbytes(ngs_max));  // NW 1 only
+  const uint32_t* qsrc[2] = {q0, q1};
+  const float* ssrc[2] = {s0, s1};
+  const float* zsrc[2] = {z0, z1};
 
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int quad = lane & 3;
-  const int row = lane >> 2;
-  const int tile = blockIdx.x;
-  const int f0 = tile * FT;
-  const int m_base = blockIdx.y * MROWS;
-  const int ngk = K / G;
-
-  // ---- gate and up: warp w owns tile columns 16w .. 16w + 15 of both ----
-  float ga[TILES][2][4], ua[TILES][2][4];
+  auto issue = [&](int j) {  // group g0 + j of this warp's columns; always one commit group
+    if (j < ngs) {
+      uint32_t* st = ring + (j % STAGES) * NW * P::WSTAGE;
+      const int g = g0 + j, wn = n0 + warp * WC;
 #pragma unroll
-  for (int t = 0; t < TILES; ++t)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) ga[t][j][e] = ua[t][j][e] = 0.f;
-
-  for (int g = 0; g < ngk; ++g) {
-    uint32_t gw[2][WPL], uw[2][WPL];
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int n = f0 + 16 * warp + 8 * j + row;  // this lane's B column (F % 128 == 0)
-#pragma unroll
-      for (int q = 0; q < WPL; ++q) {
-        const size_t off = (size_t(g) * R + 4 * q + quad) * F + n;
-        gw[j][q] = __ldg(gq + off);
-        uw[j][q] = __ldg(uq + off);
+      for (int w = 0; w < NW; ++w) {
+        uint32_t* sw = st + w * P::WSTAGE;
+        warp_copy<WC>(sw, qsrc[w] + size_t(g) * P::R * N, P::R, P::WLD, wn, N, vec, lane);
+        warp_copy<WC>(sw + P::WWORDS, ssrc[w] + size_t(g) * N, 1, WC, wn, N, vec, lane);
+        warp_copy<WC>(sw + P::WWORDS + WC, zsrc[w] + size_t(g) * N, 1, WC, wn, N, vec, lane);
       }
     }
-    float pg[TILES][2][4], pu[TILES][2][4], xs[TILES][4];
+    cp_commit();
+  };
 #pragma unroll
-    for (int t = 0; t < TILES; ++t)
+  for (int j = 0; j < STAGES - 1; ++j) issue(j);
+
+  if constexpr (!GATE_UP) grid_dep_wait();  // mid and msum are the gate/up launch's
+  const int per = kn / 8;  // this CTA's x slice, past L1
+  pipelined<4>(
+      tid, MROWS * per, kThreads,
+      [&](int idx) {
+        const int r = idx / per;
+        return m0 + r < M ? __ldcg(reinterpret_cast<const uint4*>(x + size_t(m0 + r) * K + k0 +
+                                                                 (idx - r * per) * 8))
+                          : make_uint4(0u, 0u, 0u, 0u);
+      },
+      [&](int idx, uint4 v) {
+        const int r = idx / per;
+        *reinterpret_cast<uint4*>(xs + r * xld + (idx - r * per) * 8) = v;
+      });
+  if constexpr (!GATE_UP) {
+    for (int idx = tid; idx < MROWS * ngs; idx += kThreads) {
+      const int r = idx / ngs, j = idx - r * ngs;
+      xsum_s[r * ngs_max + j] = m0 + r < M ? __ldcg(xsum_g + size_t(m0 + r) * ng + g0 + j) : 0.f;
+    }
+  }
+  __syncthreads();  // the x slice (and the down launch's group sums) in shared memory
+
+  float acc[NW][TOK][4];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        xs[t][e] = 0.f;
+  for (int w = 0; w < NW; ++w)
 #pragma unroll
-        for (int j = 0; j < 2; ++j) pg[t][j][e] = pu[t][j][e] = 0.f;
-      }
+    for (int t = 0; t < TOK; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[w][t][e] = 0.f;
+
+  for (int j = 0; j < ngs; ++j) {
+    cp_wait<STAGES - 2>();  // this lane's copies of group j landed
+    __syncwarp();           // and the other lanes'; slot (j - 1) is free
+    issue(j + STAGES - 1);
+    const uint32_t* st = ring + (j % STAGES) * NW * P::WSTAGE;
+    uint32_t wd[NW][2][WPL];  // words of the lane's columns row and row + 8
+#pragma unroll
+    for (int w = 0; w < NW; ++w)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int q = 0; q < WPL; ++q)
+          wd[w][h][q] = st[w * P::WSTAGE + (4 * q + quad) * P::WLD + 8 * h + row];
+    float part[NW][TOK][4], xq[TOK];
+#pragma unroll
+    for (int t = 0; t < TOK; ++t) {
+      xq[t] = 0.f;
+#pragma unroll
+      for (int w = 0; w < NW; ++w)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[w][t][e] = 0.f;
+    }
 #pragma unroll
     for (int kb = 0; kb < G / 16; ++kb) {
       const int i = kb / BPI;
       const int q = 2 * (kb % BPI);
-      const int k = g * G + 16 * kb + 2 * quad;
+      uint32_t a[NW][4];
 #pragma unroll
-      for (int t = 0; t < TILES; ++t) {
-        const int m0 = m_base + 16 * t + row;
-        const __nv_bfloat16* x0 = x + size_t(m0) * K + k;
-        const __nv_bfloat16* x1 = x0 + size_t(8) * K;
-        const uint32_t a[4] = {load_pair(x0, m0 < M), load_pair(x1, m0 + 8 < M),
-                               load_pair(x0 + 8, m0 < M), load_pair(x1 + 8, m0 + 8 < M)};
+      for (int w = 0; w < NW; ++w) {
+        a[w][0] = extract_bits<BITS>(wd[w][0][q], i);
+        a[w][1] = extract_bits<BITS>(wd[w][1][q], i);
+        a[w][2] = extract_bits<BITS>(wd[w][0][q + 1], i);
+        a[w][3] = extract_bits<BITS>(wd[w][1][q + 1], i);
+      }
 #pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          mma_bf16(pg[t][j], a, extract_bits<BITS>(gw[j][q], i),
-                   extract_bits<BITS>(gw[j][q + 1], i));
-          mma_bf16(pu[t][j], a, extract_bits<BITS>(uw[j][q], i),
-                   extract_bits<BITS>(uw[j][q + 1], i));
+      for (int t = 0; t < TOK; ++t) {  // token row 8t + row, k = 16kb + 2quad (+8)
+        const __nv_bfloat16* xr = xs + (8 * t + row) * xld + j * G + 16 * kb + 2 * quad;
+        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(xr);
+        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(xr + 8);
+#pragma unroll
+        for (int w = 0; w < NW; ++w) mma_bf16(part[w][t], a[w], b0, b1);
+        if constexpr (GATE_UP) {  // f32 sum of the token's x over the group
+          const float2 u = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&b0));
+          const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&b1));
+          xq[t] += (u.x + u.y) + (v.x + v.y);
         }
-        mma_bf16(xs[t], a, kOnesBf16x2, kOnesBf16x2);  // sum_k x, any column
       }
     }
+    // the lane's accumulators: columns row, row + 8 (e >> 1) x tokens 8t + 2quad, + 1 (e & 1)
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const size_t sc = size_t(g) * F + f0 + 16 * warp + 8 * j + 2 * quad + c;
-        const float sg = __ldg(gs + sc), zg = __ldg(gz + sc) + kOff * sg;
-        const float su = __ldg(us + sc), zu = __ldg(uz + sc) + kOff * su;
-#pragma unroll
-        for (int t = 0; t < TILES; ++t)
-#pragma unroll
-          for (int e = c; e < 4; e += 2) {
-            ga[t][j][e] = ga[t][j][e] + pg[t][j][e] * sg - xs[t][e] * zg;
-            ua[t][j][e] = ua[t][j][e] + pu[t][j][e] * su - xs[t][e] * zu;
-          }
+    for (int t = 0; t < TOK; ++t) {
+      float xt[2];
+      if constexpr (GATE_UP) {
+        xq[t] += __shfl_xor_sync(0xffffffffu, xq[t], 1);  // sum of token 8t + row
+        xq[t] += __shfl_xor_sync(0xffffffffu, xq[t], 2);
+        xt[0] = __shfl_sync(0xffffffffu, xq[t], 8 * quad);
+        xt[1] = __shfl_sync(0xffffffffu, xq[t], 8 * quad + 4);
+      } else {  // the f32 mid's group sums, from the gate/up launch
+        xt[0] = xsum_s[(8 * t + 2 * quad) * ngs_max + j];
+        xt[1] = xsum_s[(8 * t + 2 * quad + 1) * ngs_max + j];
       }
+#pragma unroll
+      for (int w = 0; w < NW; ++w) {
+        const float* ss = reinterpret_cast<const float*>(st + w * P::WSTAGE + P::WWORDS);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int cl = 8 * (e >> 1) + row;
+          const float s = ss[cl], zc = ss[WC + cl] + kOff * s;
+          acc[w][t][e] = acc[w][t][e] + part[w][t][e] * s - xt[e & 1] * zc;
+        }
+      }
+    }
   }
 
-  // ---- mid = act(gate) * up, kept in shared memory ----
-#pragma unroll
-  for (int t = 0; t < TILES; ++t)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = 16 * t + row + ((e & 2) ? 8 : 0);
-        const int c = 16 * warp + 8 * j + 2 * quad + (e & 1);
-        mid_s[r][c] = act<ACT>(ga[t][j][e]) * ua[t][j][e];
-      }
+  // the partial tile over the drained rings, then the cluster's sum in rank order
+  cp_wait<0>();
   __syncthreads();
-  if (threadIdx.x < MROWS) {
-    float s = 0.f;
-    for (int c = 0; c < FT; ++c) s += mid_s[threadIdx.x][c];
-    msum[threadIdx.x] = s;  // sum of the f32 mid, as the TPU kernel's xsum
-  }
-  // A fragments of bf16(mid) for all 8 k-blocks of the tile
-  uint32_t af[TILES][G / 16][4];
+  float* red = reinterpret_cast<float*>(smem);  // [MROWS][NW * COLS]
 #pragma unroll
-  for (int t = 0; t < TILES; ++t)
+  for (int w = 0; w < NW; ++w)
 #pragma unroll
-    for (int kb = 0; kb < G / 16; ++kb) {
-      const int r0 = 16 * t + row;
-      const int c0 = 16 * kb + 2 * quad;
-      af[t][kb][0] = pack_bf16x2(mid_s[r0][c0], mid_s[r0][c0 + 1]);
-      af[t][kb][1] = pack_bf16x2(mid_s[r0 + 8][c0], mid_s[r0 + 8][c0 + 1]);
-      af[t][kb][2] = pack_bf16x2(mid_s[r0][c0 + 8], mid_s[r0][c0 + 9]);
-      af[t][kb][3] = pack_bf16x2(mid_s[r0 + 8][c0 + 8], mid_s[r0 + 8][c0 + 9]);
+    for (int t = 0; t < TOK; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        red[(8 * t + 2 * quad + (e & 1)) * (NW * COLS) + w * COLS + warp * WC + 8 * (e >> 1) +
+            row] = acc[w][t][e];
+  cluster.sync();
+  if constexpr (GATE_UP) {
+    float* midf = reinterpret_cast<float*>(xs);  // [MROWS][COLS]; the x slice is read no more
+    const int rows = rank < MROWS ? (MROWS - rank + C - 1) / C : 0;  // rows rank, rank + C, ...
+    for (int idx = tid; idx < rows * COLS; idx += kThreads) {
+      const int r = rank + C * (idx / COLS), c = idx % COLS;
+      float g[kMaxCluster], u[kMaxCluster];
+#pragma unroll
+      for (int q = 0; q < kMaxCluster; ++q)  // all loads in flight, then the sums in rank order
+        if (q < C) {
+          const float* pr = cluster.map_shared_rank(red, q) + r * 2 * COLS;
+          g[q] = pr[c];
+          u[q] = pr[COLS + c];
+        }
+      float gs = 0.f, us = 0.f;
+#pragma unroll
+      for (int q = 0; q < kMaxCluster; ++q)
+        if (q < C) gs += g[q], us += u[q];
+      const float mid = act<ACT>(gs) * us;
+      midf[r * COLS + c] = mid;
+      if (m0 + r < M) y[size_t(m0 + r) * N + n0 + c] = __float2bfloat16(mid);
     }
-  __syncthreads();  // msum is written
-  float xm[TILES][2];
+    __syncthreads();
+    for (int ri = warp; ri < rows; ri += kWarps) {  // f32 sum of mid over the tile, fixed order
+      const int r = rank + C * ri;
+      const float4 v = *reinterpret_cast<const float4*>(midf + r * COLS + 4 * lane);
+      float s = (v.x + v.y) + (v.z + v.w);
 #pragma unroll
-  for (int t = 0; t < TILES; ++t) {
-    xm[t][0] = msum[16 * t + row];
-    xm[t][1] = msum[16 * t + row + 8];
-  }
-
-  // ---- down: this tile's 128 rows of Wd (group `tile`) for all D columns ----
-  for (int chunk = warp; chunk * 8 * NT < D; chunk += kWarps) {
-    const int n0 = chunk * 8 * NT;
-    uint32_t dw[NT][WPL];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const int n = n0 + 8 * nt + row;
-#pragma unroll
-      for (int q = 0; q < WPL; ++q)
-        dw[nt][q] = n < D ? __ldg(dq + (size_t(tile) * R + 4 * q + quad) * D + n) : 0u;
+      for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+      if (lane == 0 && m0 + r < M) ysum[size_t(m0 + r) * (N / COLS) + blockIdx.y] = s;
     }
-    float pd[TILES][NT][4];
+  } else {
+    const int e0 = rank * MROWS * COLS / C, e1 = (rank + 1) * MROWS * COLS / C;
+    for (int idx = e0 + tid; idx < e1; idx += kThreads) {
+      const int r = idx / COLS, n = n0 + idx % COLS;
+      if (m0 + r < M && n < N) {
+        float part[kMaxCluster];
 #pragma unroll
-    for (int t = 0; t < TILES; ++t)
+        for (int q = 0; q < kMaxCluster; ++q)  // all loads in flight, then the sum in rank order
+          if (q < C) part[q] = cluster.map_shared_rank(red, q)[idx];
+        float sum = 0.f;
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) pd[t][nt][e] = 0.f;
-#pragma unroll
-    for (int kb = 0; kb < G / 16; ++kb) {
-      const int i = kb / BPI;
-      const int q = 2 * (kb % BPI);
-#pragma unroll
-      for (int t = 0; t < TILES; ++t)
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt)
-          mma_bf16(pd[t][nt], af[t][kb], extract_bits<BITS>(dw[nt][q], i),
-                   extract_bits<BITS>(dw[nt][q + 1], i));
-    }
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int n = n0 + 8 * nt + 2 * quad + c;
-        if (n >= D) continue;
-        const float s = __ldg(ds + size_t(tile) * D + n);
-        const float zc = __ldg(dz + size_t(tile) * D + n) + kOff * s;
-#pragma unroll
-        for (int t = 0; t < TILES; ++t)
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int m = m_base + 16 * t + row + 8 * h;
-            if (m < M)
-              partial[(size_t(tile) * M + m) * D + n] = pd[t][nt][2 * h + c] * s - xm[t][h] * zc;
-          }
+        for (int q = 0; q < kMaxCluster; ++q)
+          if (q < C) sum += part[q];
+        y[size_t(m0 + r) * N + n] = __float2bfloat16(sum);
       }
+    }
   }
+  cluster.sync();  // no CTA leaves while a peer still reads its shared memory
 }
 
-// out[m, n] = sum over ffn tiles, in tile order, of partial[tile, m, n]
-__global__ void __launch_bounds__(kThreads)
-    sum_tiles_kernel(const float* __restrict__ partial, __nv_bfloat16* __restrict__ out,
-                     int tiles, int MD) {
-  const int idx = blockIdx.x * kThreads + threadIdx.x;
-  if (idx >= MD) return;
-  float s = 0.f;
-  for (int f = 0; f < tiles; ++f) s += partial[size_t(f) * MD + idx];
-  out[idx] = from_f32<__nv_bfloat16>(s);
+struct MlpArgs {
+  const __nv_bfloat16* x;
+  const uint32_t *gq, *uq, *dq;
+  const float *gs, *gz, *us, *uz, *ds, *dz;
+  __nv_bfloat16* mid;
+  float* msum;
+  __nv_bfloat16* out;
+  int M, K, F, D;
+};
+
+template <int BITS, int TOK, int ACT>
+cudaError_t launch(const MlpArgs& a, int cluster1, int cluster2, cudaStream_t s) {
+  using P1 = Mlp<BITS, TOK, 2>;
+  using P2 = Mlp<BITS, TOK, 1>;
+  const int n1 = (a.K / G + cluster1 - 1) / cluster1, n2 = (a.F / G + cluster2 - 1) / cluster2;
+  const int rows = (a.M + P1::MROWS - 1) / P1::MROWS;  // row chunks (grid z)
+  const int vec1 = aligned16(a.gq) && aligned16(a.gs) && aligned16(a.gz) && aligned16(a.uq) &&
+                   aligned16(a.us) && aligned16(a.uz);  // F % 128 == 0
+  const int vec2 = a.D % 4 == 0 && aligned16(a.dq) && aligned16(a.ds) && aligned16(a.dz);
+  const cudaError_t err = launch_cluster(
+      mlp_stream_kernel<BITS, TOK, 2, ACT>, dim3(cluster1, a.F / COLS, rows), cluster1,
+      P1::smem(n1), false, s, a.x, nullptr, a.gq, a.gs, a.gz, a.uq, a.us, a.uz, a.mid, a.msum,
+      a.M, a.K, a.F, n1, vec1);
+  if (err != cudaSuccess) return err;
+  return launch_cluster(mlp_stream_kernel<BITS, TOK, 1, kSilu>,
+                        dim3(cluster2, (a.D + COLS - 1) / COLS, rows), cluster2, P2::smem(n2),
+                        true, s, a.mid, a.msum, a.dq, a.ds, a.dz, nullptr, nullptr, nullptr, a.out,
+                        nullptr, a.M, a.F, a.D, n2, vec2);
 }
 
-template <int BITS, int TILES, int ACT>
-cudaError_t launch(const void* const* w, const void* x, void* partial, int M, int K, int F,
-                   int D, cudaStream_t stream) {
-  dim3 grid(F / FT, (M + 16 * TILES - 1) / (16 * TILES));
-  mlp_tile_kernel<BITS, TILES, ACT><<<grid, kThreads, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const uint32_t*>(w[0]),
-      static_cast<const float*>(w[1]), static_cast<const float*>(w[2]),
-      static_cast<const uint32_t*>(w[3]), static_cast<const float*>(w[4]),
-      static_cast<const float*>(w[5]), static_cast<const uint32_t*>(w[6]),
-      static_cast<const float*>(w[7]), static_cast<const float*>(w[8]),
-      static_cast<float*>(partial), M, K, F, D);
-  return cudaGetLastError();
-}
-
+// 8, 16 or 32 token rows a CTA (above 32, chunks of 32 along grid z)
 template <int BITS, int ACT>
-cudaError_t launch_mt(const void* const* w, const void* x, void* partial, int M, int K, int F,
-                      int D, cudaStream_t stream) {
-  if (M <= 16) return launch<BITS, 1, ACT>(w, x, partial, M, K, F, D, stream);
-  return launch<BITS, 2, ACT>(w, x, partial, M, K, F, D, stream);
+cudaError_t launch_mt(const MlpArgs& a, int cluster1, int cluster2, cudaStream_t s) {
+  if (a.M <= 8) return launch<BITS, 1, ACT>(a, cluster1, cluster2, s);
+  if (a.M <= 16) return launch<BITS, 2, ACT>(a, cluster1, cluster2, s);
+  return launch<BITS, 4, ACT>(a, cluster1, cluster2, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// x [M, K] bf16; gate and up: qweight [K/pack, F] int32, scales and szeros
-// [K/G, F] f32; down: qweight [F/pack, D], scales and szeros [F/G, D];
-// partial [F/128, M, D] f32 scratch the caller allocates; out [M, D] bf16.
-// Pair layout, G = 128, bits 2 or 4, K and F multiples of 128; act 0 = silu,
-// 1 = tanh-gelu. Returns cudaGetLastError() after the launches.
+// x [M, K] bf16, 16-byte aligned; gate and up: qweight [K/pack, F] int32,
+// scales and szeros [K/G, F] f32; down: qweight [F/pack, D], scales and
+// szeros [F/G, D]; mid [M, F] bf16 and msum [M, F/128] f32 scratch the
+// caller allocates; out [M, D] bf16. Pair layout, G = 128, bits 2 or 4, K
+// and F multiples of 128; act 0 = silu, 1 = tanh-gelu. Clusters of cluster1
+// CTAs (1 .. min(8, K/G)) an ffn tile, of cluster2 CTAs (1 .. min(8, F/G))
+// a down tile (experimental/fused_mlp.py: mlp_plan). Returns 0 once both
+// launches are made, else the CUDA error (a cluster the card cannot hold
+// launches nothing).
 int bd_fused_mlp(const void* x, const void* gq, const void* gs, const void* gz, const void* uq,
                  const void* us, const void* uz, const void* dq, const void* ds, const void* dz,
-                 void* partial, void* out, int M, int K, int F, int D, int bits, int group,
-                 int act_kind, void* stream) {
-  if (M < 1 || group != G || K % G || F % FT || D < 1 || (bits != 2 && bits != 4) ||
-      (act_kind != kSilu && act_kind != kGeluTanh))
+                 void* mid, void* msum, void* out, int M, int K, int F, int D, int bits, int group,
+                 int act_kind, int cluster1, int cluster2, void* stream) {
+  if (M < 1 || group != G || K % G || F % COLS || D < 1 || (bits != 2 && bits != 4) ||
+      (act_kind != kSilu && act_kind != kGeluTanh) || !aligned16(x) || cluster1 < 1 ||
+      cluster1 > kMaxCluster || cluster1 > K / G || cluster2 < 1 || cluster2 > kMaxCluster ||
+      cluster2 > F / G)
     return cudaErrorInvalidValue;
+  const MlpArgs a{static_cast<const __nv_bfloat16*>(x), static_cast<const uint32_t*>(gq),
+                  static_cast<const uint32_t*>(uq), static_cast<const uint32_t*>(dq),
+                  static_cast<const float*>(gs), static_cast<const float*>(gz),
+                  static_cast<const float*>(us), static_cast<const float*>(uz),
+                  static_cast<const float*>(ds), static_cast<const float*>(dz),
+                  static_cast<__nv_bfloat16*>(mid), static_cast<float*>(msum),
+                  static_cast<__nv_bfloat16*>(out), M, K, F, D};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const void* w[9] = {gq, gs, gz, uq, us, uz, dq, ds, dz};
-  cudaError_t err;
   if (bits == 2)
-    err = act_kind == kSilu ? launch_mt<2, kSilu>(w, x, partial, M, K, F, D, s)
-                            : launch_mt<2, kGeluTanh>(w, x, partial, M, K, F, D, s);
-  else
-    err = act_kind == kSilu ? launch_mt<4, kSilu>(w, x, partial, M, K, F, D, s)
-                            : launch_mt<4, kGeluTanh>(w, x, partial, M, K, F, D, s);
-  if (err != cudaSuccess) return err;
-  const int md = M * D;
-  sum_tiles_kernel<<<(md + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-      static_cast<const float*>(partial), static_cast<__nv_bfloat16*>(out), F / FT, md);
-  return cudaGetLastError();
+    return act_kind == kSilu ? launch_mt<2, kSilu>(a, cluster1, cluster2, s)
+                             : launch_mt<2, kGeluTanh>(a, cluster1, cluster2, s);
+  return act_kind == kSilu ? launch_mt<4, kSilu>(a, cluster1, cluster2, s)
+                           : launch_mt<4, kGeluTanh>(a, cluster1, cluster2, s);
 }
 
 }  // extern "C"

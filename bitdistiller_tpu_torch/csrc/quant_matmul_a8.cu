@@ -10,42 +10,43 @@
 //   out[m, n] = bf16(sx[m] * sum_g (s[g,n] * (xi . q)_g - sz[g,n] * sum(xi_g))
 //                    (+ bias[n]))
 //
-// A call launches quantize_rows, then qmm_a8 (M <= 32) or group_sums and
-// qmm_a8_prefill (M > 32). quantize_rows: one block a row; the max, the IEEE
-// division and rintf (half to even) are those of the plain version, so
-// integer-valued rows quantize bit for bit alike (built without fast math).
-// For pair-layout words it also applies the per-group permutation kmap (the
-// JAX package's _a8_perm), so xi comes out in the words' extraction order.
+// A call launches quantize_rows, then qmm_a8_decode (M <= 32, as its
+// programmatic dependent) or group_sums and qmm_a8_prefill (M > 32). The
+// quantization's max, IEEE division and rintf (half to even) are those of the
+// plain version, so integer-valued rows quantize bit for bit alike (built
+// without fast math). For pair-layout words it also applies the per-group
+// permutation kmap (the JAX package's _a8_perm), so xi comes out in the
+// words' extraction order.
 //
-// qmm_a8: in the A8 byte order, byte lane j of bit field i of word row r
-// holds k = i*4R + 4r + j, so one extraction (w >> bits*i) & 0x0m0m0m0m is
-// four consecutive k as four signed bytes (codes are at most 15): exactly a
-// lane's B register of mma.sync.m16n8k32.s8 (k = 4*(lane%4) + 0..3 and
-// +16), and four consecutive int8 of xi are its A register. One mma takes a
-// k-block of 32 for 8 columns; a second against a B of 0x01 bytes gives the
-// group's sum(xi). The int32 group products turn f32 once a group.
+// In the A8 byte order, byte lane j of bit field i of word row r holds
+// k = i*4R + 4r + j, so one extraction (w >> bits*i) & 0x0m0m0m0m is four
+// consecutive k as four signed bytes (codes are at most 15): exactly a
+// register of the s8 m16n8k32 A layout (k = 4*(lane%4) + 0..3 and +16). Both
+// kernels take the product transposed, out^T = q^T xi^T: the codes are the
+// A operand straight from the words, xi the B operand. The int32 group
+// products turn f32 once a group.
 //
 // Bound on this card. Decode (small M) is bound by bytes: the packed words
 // (K*N*bits/8) and the f32 scales and szeros (8 bytes a group column, against
-// 4 for the A16 kernels' combo word) stream from HBM once, at 3.35 TB/s.
-// Prefill (large M) is bound by int8 tensor-core operations (1,979 TOP/s).
-// Design, M <= 32: as the A16 decode kernel, a block owns 32 columns and up
-// to 32 rows, its 8 warps split the K groups and are reduced in shared
-// memory in warp order, so the sum is deterministic and no block carries
-// state to another. M > 32: s8 wgmma, the codes unpacked straight into its
-// register A fragments and xi staged in shared memory by TMA, on 128- or
-// 64-row tiles (see "Prefill" below).
+// 4 for the A16 kernels' combo word) stream from HBM once, at 3.35 TB/s, so
+// the design keeps enough of them in flight: clusters that split K, a
+// cp.async ring several groups deep for every warp, two CTAs an SM (see
+// "Decode" below and stream.cuh). Every CTA also reads its K slice of xi
+// from L2: N / 256 * M * K bytes a call, 0.5 MB for o and 2.8 MB for gate_up
+// at M = 8, against 5 and 28 MB of weights from HBM. Prefill (large M) is
+// bound by int8 tensor-core operations (1,979 TOP/s): s8 wgmma, the codes
+// unpacked straight into its register A fragments and xi staged in shared
+// memory by TMA, on 128- or 64-row tiles (see "Prefill" below).
 
 #include "common.cuh"
 #include "hopper.cuh"
+#include "stream.cuh"
 
 namespace {
 
 using namespace bd;
 
 constexpr int G = 128;
-constexpr int NT = 4;  // n-tiles of 8 columns a block: an xi fragment serves 4 mma
-constexpr int COLS = 8 * NT;
 constexpr uint32_t kOnesS8x4 = 0x01010101u;
 
 template <int BITS>
@@ -69,144 +70,268 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ uint32_t load_s8x4(const int8_t* p, bool ok) {
-  return ok ? static_cast<uint32_t>(__ldg(reinterpret_cast<const int*>(p))) : 0u;
+__device__ __forceinline__ int8_t quantize(float v, float s) {
+  return static_cast<int8_t>(fminf(fmaxf(rintf(v / s), -127.f), 127.f));  // IEEE division
 }
 
+// Per-token quantization ahead of the decode and prefill kernels. Block
+// (m, part) stages row m in shared memory (16-byte loads, several in flight
+// a thread), takes its max and quantizes its `chunk` of the row (decode:
+// several parts a row, each reading the row from L2; prefill: one,
+// chunk = K). The max, the IEEE
+// division and rintf (half to even) are the plain version's, so
+// integer-valued rows quantize bit for bit alike (built without fast math).
+// For pair-layout words it also applies the per-group permutation kmap (the
+// JAX package's _a8_perm), so xi comes out in the words' extraction order.
+// A programmatic dependent may start at once: it waits (grid_dep_wait)
+// before it reads xi.
 __global__ void __launch_bounds__(kThreads)
     quantize_rows_kernel(const __nv_bfloat16* __restrict__ x, const int* __restrict__ kmap,
-                         int8_t* __restrict__ xi, float* __restrict__ sx, int K) {
+                         int8_t* __restrict__ xi, float* __restrict__ sx, int K, int chunk) {
+  grid_dep_launch();
+  extern __shared__ __align__(16) uint8_t qsm[];
+  const __nv_bfloat16* xs = reinterpret_cast<const __nv_bfloat16*>(qsm);
   __shared__ float red[kWarps];
   const int m = blockIdx.x;
-  const __nv_bfloat16* xr = x + size_t(m) * K;
+  const uint4* xr = reinterpret_cast<const uint4*>(x + size_t(m) * K);
   float mx = 0.f;
-  for (int k = threadIdx.x; k < K; k += kThreads) mx = fmaxf(mx, fabsf(to_f32(xr[k])));
+  pipelined<4>(threadIdx.x, K / 8, kThreads, [&](int i) { return __ldg(xr + i); },
+               [&](int i, uint4 v) {
+                 reinterpret_cast<uint4*>(qsm)[i] = v;
+                 const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+                 for (int e = 0; e < 4; ++e) {
+                   const float2 f = __bfloat1622float2(h[e]);
+                   mx = fmaxf(mx, fmaxf(fabsf(f.x), fabsf(f.y)));
+                 }
+               });
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
   if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = mx;
-  __syncthreads();
+  __syncthreads();  // the row and the warps' maxima in shared memory
   mx = red[0];
 #pragma unroll
   for (int w = 1; w < kWarps; ++w) mx = fmaxf(mx, red[w]);
-  const float s = fmaxf(mx / 127.0f, 1e-8f);  // IEEE division, as the plain version
-  if (threadIdx.x == 0) sx[m] = s;
-  for (int p = threadIdx.x; p < K; p += kThreads) {
-    const int src = kmap ? (p - p % G) + kmap[p % G] : p;
-    const float v = fminf(fmaxf(rintf(to_f32(xr[src]) / s), -127.f), 127.f);
-    xi[size_t(m) * K + p] = static_cast<int8_t>(v);
+  const float s = fmaxf(mx / 127.0f, 1e-8f);
+  if (blockIdx.y == 0 && threadIdx.x == 0) sx[m] = s;
+  const int p1 = min(K, (blockIdx.y + 1) * chunk);
+  for (int p = blockIdx.y * chunk + 4 * threadIdx.x; p < p1; p += 4 * kThreads) {  // 4 k a thread
+    uint32_t v = 0;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int k = p + e;
+      const int src = kmap ? k - k % G + __ldg(kmap + k % G) : k;
+      v |= uint32_t(uint8_t(quantize(to_f32(xs[src]), s))) << (8 * e);
+    }
+    *reinterpret_cast<uint32_t*>(xi + size_t(m) * K + p) = v;
   }
 }
 
-template <int BITS, int TILES>
-__global__ void __launch_bounds__(kThreads)
-    qmm_a8_kernel(const int8_t* __restrict__ xi, const float* __restrict__ sx,
-                  const uint32_t* __restrict__ qw, const float* __restrict__ scales,
-                  const float* __restrict__ szeros, const float* __restrict__ bias,
-                  __nv_bfloat16* __restrict__ out, int M, int K, int N) {
-  constexpr int PACK = 32 / BITS;
-  constexpr int R = G / PACK;  // words a column a group
-  constexpr int WPL = R / 4;   // words a lane a group and n-tile
-  constexpr int BPI = R / 8;   // k-blocks of 32 one extraction spans
-  constexpr int NV = 4 * TILES * NT;  // accumulator values a lane
-  __shared__ float red[kWarps][32][NV];
+constexpr int QUANT_CHUNK = 1024;  // decode: k a quantize block, 4 blocks a row at K = 4096
 
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int quad = lane & 3;  // k quad (A, B) and column pair (C) in a fragment
-  const int row = lane >> 2;  // row (A, C) and column (B) in a fragment
-  const int n0 = blockIdx.x * COLS;
-  const int m_base = blockIdx.y * 16 * TILES;
-  const int ng = K / G;
+// ---------------------------------------------------------------------------
+// Decode (M <= 32), the streaming plan of stream.cuh. A cluster of C CTAs
+// owns DEC_COLS = 256 output columns; CTA `rank` walks its share of the K
+// groups. Warp w owns 32 of the columns (two m16 tiles, so a word row is a
+// 128-byte line) over all of the CTA's groups and streams their words
+// through a DEC_STAGES-deep cp.async ring of its own (the group's R word
+// rows x 32 columns, their f32 scales and szeros),
+// DEC_STAGES - 1 groups in flight, so it folds them itself, with no barrier
+// and no reduction inside the CTA. The product is taken transposed,
+// out^T = q^T xi^T, so that 8 tokens fill the mma's n = 8 and no row is
+// padding at M = 8: in the A8 byte order one (w >> bits*i) & 0x0m0m0m0m is
+// four consecutive k of a column, a register of the m16n8k32 A layout (the
+// lane's columns 16mt + row and + 8, as the prefill kernel's), and four
+// consecutive int8 of a token's xi are a B register:
+//   part = q_g^T xi_g^T (mma.sync.m16n8k32.s8, B from the CTA's int8 xi
+//   slice in shared memory), xsum_g = sum(xi_g) by __dp4a on the same B
+//   registers, acc += part * s - xsum_g * sz.
+// The C partial tiles are summed in rank order through distributed shared
+// memory, each CTA finishing 1/C of the tile: out = bf16(sum * sx (+ bias)).
+// The quantization runs first, in quantize_rows_kernel; this kernel is its
+// programmatic dependent: it fills the rings with words (which do not depend
+// on x), then waits for xi and copies its K slice to shared memory.
+// ---------------------------------------------------------------------------
 
-  float acc[TILES][NT][4];
-#pragma unroll
-  for (int t = 0; t < TILES; ++t)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[t][nt][e] = 0.f;
+constexpr int DEC_COLS = 256;  // output columns a cluster: 32 a warp, two m16 tiles
+constexpr int DEC_STAGES = 4;  // a warp's ring: 3 groups in flight
 
-  for (int g = warp; g < ng; g += kWarps) {
-    uint32_t words[NT][WPL];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const int n = n0 + 8 * nt + row;  // this lane's B column
-#pragma unroll
-      for (int q = 0; q < WPL; ++q)
-        words[nt][q] = n < N ? __ldg(qw + (size_t(g) * R + 4 * q + quad) * N + n) : 0u;
+template <int BITS, int TOK>
+struct Dec {
+  static constexpr int R = G * BITS / 32;  // word rows a group
+  static constexpr int WC = DEC_COLS / kWarps;     // columns a warp
+  static constexpr int MT = WC / 16;               // m16 tiles a warp
+  static constexpr int WLD = WC + 8;               // staged word row: 4 k quads x 8 columns hit 32 banks
+  static constexpr int WSTAGE = R * WLD + 2 * WC;  // words, then scales and szeros (4 bytes each)
+  static constexpr int MROWS = 8 * TOK;            // token rows: TOK n-tiles of 8
+  static constexpr int RED = MROWS * DEC_COLS * 4;  // the partial tile, over the drained rings
+  static constexpr int RINGS = kWarps * DEC_STAGES * WSTAGE * 4;
+  static constexpr int RING = RINGS > RED ? RINGS : RED;
+  // xi row: lanes' tokens land 4 banks apart
+  __host__ __device__ static int xld(int ngs_max) { return ngs_max * G + 16; }
+  __host__ __device__ static size_t smem(int ngs_max) {
+    return RING + size_t(MROWS) * xld(ngs_max) + 32 * 4;
+  }
+};
+
+template <int BITS, int TOK>
+__global__ void __launch_bounds__(kThreads, 2)
+    qmm_a8_decode_kernel(const int8_t* __restrict__ xi_g, const float* __restrict__ sx_g,
+                         const uint32_t* __restrict__ qw, const float* __restrict__ scales,
+                         const float* __restrict__ szeros, const float* __restrict__ bias,
+                         __nv_bfloat16* __restrict__ out, int M, int K, int N, int ngs_max,
+                         int vec) {
+  using D = Dec<BITS, TOK>;
+  constexpr int MROWS = D::MROWS, WC = D::WC, MT = D::MT, COLS = DEC_COLS;
+  constexpr int WPL = D::R / 4;  // words a lane a group and column
+  constexpr int BPI = D::R / 8;  // k-blocks of 32 one extraction spans
+  extern __shared__ __align__(16) uint8_t smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = gridDim.x, rank = blockIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int quad = lane & 3, row = lane >> 2;
+  const int n0 = blockIdx.y * COLS;
+  const int ng = K / G, g0 = rank * ng / C, ngs = (rank + 1) * ng / C - g0;
+  const int k0 = g0 * G, kn = ngs * G;
+  const int xld = D::xld(ngs_max);
+  uint32_t* ring = reinterpret_cast<uint32_t*>(smem) + warp * DEC_STAGES * D::WSTAGE;
+  int8_t* xs = reinterpret_cast<int8_t*>(smem + D::RING);
+  float* sxs = reinterpret_cast<float*>(xs + MROWS * xld);
+
+  auto issue = [&](int j) {  // group g0 + j of this warp's columns; always one commit group
+    if (j < ngs) {
+      uint32_t* st = ring + (j % DEC_STAGES) * D::WSTAGE;
+      const int g = g0 + j, wn = n0 + warp * WC;
+      warp_copy<WC>(st, qw + size_t(g) * D::R * N, D::R, D::WLD, wn, N, vec, lane);
+      warp_copy<WC>(st + D::R * D::WLD, scales + size_t(g) * N, 1, WC, wn, N, vec, lane);
+      warp_copy<WC>(st + D::R * D::WLD + WC, szeros + size_t(g) * N, 1, WC, wn, N, vec, lane);
     }
-    int part[TILES][NT][4], xs[TILES][4];
+    cp_commit();
+  };
 #pragma unroll
-    for (int t = 0; t < TILES; ++t)
+  for (int j = 0; j < DEC_STAGES - 1; ++j) issue(j);
+
+  grid_dep_wait();  // xi and sx are quantize_rows_kernel's; read past L1
+  const int per = kn / 16;
+  pipelined<4>(
+      tid, MROWS * per, kThreads,
+      [&](int idx) {
+        const int r = idx / per;
+        return r < M ? __ldcg(reinterpret_cast<const uint4*>(xi_g + size_t(r) * K + k0 +
+                                                             (idx - r * per) * 16))
+                     : make_uint4(0u, 0u, 0u, 0u);
+      },
+      [&](int idx, uint4 v) {
+        const int r = idx / per;
+        *reinterpret_cast<uint4*>(xs + r * xld + (idx - r * per) * 16) = v;
+      });
+  if (tid < MROWS) sxs[tid] = tid < M ? __ldcg(sx_g + tid) : 0.f;
+  __syncthreads();  // xi and sx in shared memory
+
+  float acc[TOK][MT][4];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        xs[t][e] = 0;
+  for (int t = 0; t < TOK; ++t)
 #pragma unroll
-        for (int nt = 0; nt < NT; ++nt) part[t][nt][e] = 0;
-      }
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[t][mt][e] = 0.f;
+
+  for (int j = 0; j < ngs; ++j) {
+    cp_wait<DEC_STAGES - 2>();  // this lane's copies of group j landed
+    __syncwarp();               // and the other lanes'; slot (j - 1) is free
+    issue(j + DEC_STAGES - 1);
+    const uint32_t* ws = ring + (j % DEC_STAGES) * D::WSTAGE;
+    uint32_t w[MT][2][WPL];  // words of the lane's columns 16mt + row and 16mt + row + 8
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int q = 0; q < WPL; ++q)
+          w[mt][h][q] = ws[(4 * q + quad) * D::WLD + 16 * mt + 8 * h + row];
+    int part[TOK][MT][4], xq[TOK];
+#pragma unroll
+    for (int t = 0; t < TOK; ++t) {
+      xq[t] = 0;
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[t][mt][e] = 0;
+    }
 #pragma unroll
     for (int kb = 0; kb < G / 32; ++kb) {
-      const int i = kb / BPI;
+      const int sh = BITS * (kb / BPI);
       const int q = 2 * (kb % BPI);
-      const int k = g * G + 32 * kb + 4 * quad;
+      constexpr uint32_t mask = ByteMask<BITS>::kMask;
+      uint32_t a[MT][4];
 #pragma unroll
-      for (int t = 0; t < TILES; ++t) {
-        const int m0 = m_base + 16 * t + row;
-        const int8_t* x0 = xi + size_t(m0) * K + k;
-        const int8_t* x1 = x0 + size_t(8) * K;
-        const uint32_t a[4] = {load_s8x4(x0, m0 < M), load_s8x4(x1, m0 + 8 < M),
-                               load_s8x4(x0 + 16, m0 < M), load_s8x4(x1 + 16, m0 + 8 < M)};
+      for (int mt = 0; mt < MT; ++mt) {
+        a[mt][0] = (w[mt][0][q] >> sh) & mask;
+        a[mt][1] = (w[mt][1][q] >> sh) & mask;
+        a[mt][2] = (w[mt][0][q + 1] >> sh) & mask;
+        a[mt][3] = (w[mt][1][q + 1] >> sh) & mask;
+      }
 #pragma unroll
-        for (int nt = 0; nt < NT; ++nt)
-          mma_s8(part[t][nt], a, (words[nt][q] >> (BITS * i)) & ByteMask<BITS>::kMask,
-                 (words[nt][q + 1] >> (BITS * i)) & ByteMask<BITS>::kMask);
-        mma_s8(xs[t], a, kOnesS8x4, kOnesS8x4);  // sum(xi), any column
+      for (int t = 0; t < TOK; ++t) {  // token row 8t + row, k = 32kb + 4quad (+16)
+        const int8_t* xr = xs + (8 * t + row) * xld + j * G + 32 * kb + 4 * quad;
+        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(xr);
+        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(xr + 16);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) mma_s8(part[t][mt], a[mt], b0, b1);
+        xq[t] = __dp4a(static_cast<int>(b1), static_cast<int>(kOnesS8x4),
+                       __dp4a(static_cast<int>(b0), static_cast<int>(kOnesS8x4), xq[t]));
       }
     }
+    // the lane's accumulators: columns 16mt + row, + 8 (e >> 1) x tokens 8t + 2quad, + 1 (e & 1)
+    const float* ss = reinterpret_cast<const float*>(ws + D::R * D::WLD);
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      float s[2] = {0.f, 0.f}, sz[2] = {0.f, 0.f};
+    for (int t = 0; t < TOK; ++t) {
+      xq[t] += __shfl_xor_sync(0xffffffffu, xq[t], 1);  // sum(xi) of token 8t + row
+      xq[t] += __shfl_xor_sync(0xffffffffu, xq[t], 2);
+      const float xt[2] = {static_cast<float>(__shfl_sync(0xffffffffu, xq[t], 8 * quad)),
+                           static_cast<float>(__shfl_sync(0xffffffffu, xq[t], 8 * quad + 4))};
 #pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int n = n0 + 8 * nt + 2 * quad + c;  // this lane's C columns
-        if (n < N) {
-          s[c] = __ldg(scales + size_t(g) * N + n);
-          sz[c] = __ldg(szeros + size_t(g) * N + n);
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int cl = 16 * mt + 8 * (e >> 1) + row;
+          acc[t][mt][e] = acc[t][mt][e] + static_cast<float>(part[t][mt][e]) * ss[cl] -
+                          xt[e & 1] * ss[WC + cl];
         }
-      }
-#pragma unroll
-      for (int t = 0; t < TILES; ++t)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          acc[t][nt][e] = acc[t][nt][e] + static_cast<float>(part[t][nt][e]) * s[e & 1] -
-                          static_cast<float>(xs[t][e]) * sz[e & 1];
     }
   }
 
-#pragma unroll
-  for (int t = 0; t < TILES; ++t)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) red[warp][lane][(t * NT + nt) * 4 + e] = acc[t][nt][e];
+  // the partial tile over the drained rings, then the cluster's sum in rank order
+  cp_wait<0>();
   __syncthreads();
-  for (int idx = threadIdx.x; idx < 32 * NV; idx += kThreads) {
-    const int l = idx / NV;
-    const int v = idx - l * NV;
-    const int e = v & 3;
-    const int nt = (v / 4) % NT;
-    const int t = v / (4 * NT);
-    const int m = m_base + 16 * t + (l >> 2) + ((e & 2) ? 8 : 0);
-    const int n = n0 + 8 * nt + 2 * (l & 3) + (e & 1);
-    if (m < M && n < N) {
+  float* red = reinterpret_cast<float*>(smem);  // [MROWS][COLS]
+#pragma unroll
+  for (int t = 0; t < TOK; ++t)
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        red[(8 * t + 2 * quad + (e & 1)) * COLS + warp * WC + 16 * mt + 8 * (e >> 1) + row] =
+            acc[t][mt][e];
+  cluster.sync();
+  const int e0 = rank * MROWS * COLS / C, e1 = (rank + 1) * MROWS * COLS / C;
+  for (int idx = e0 + tid; idx < e1; idx += kThreads) {
+    const int r = idx / COLS, n = n0 + idx % COLS;
+    if (r < M && n < N) {
+      float part[kMaxCluster];
+#pragma unroll
+      for (int q = 0; q < kMaxCluster; ++q)  // all loads in flight, then the sum in rank order
+        if (q < C) part[q] = cluster.map_shared_rank(red, q)[idx];
       float sum = 0.f;
 #pragma unroll
-      for (int w = 0; w < kWarps; ++w) sum += red[w][l][v];
-      float o = sum * sx[m];
+      for (int q = 0; q < kMaxCluster; ++q)
+        if (q < C) sum += part[q];
+      float o = sum * sxs[r];
       if (bias) o += bias[n];
-      out[size_t(m) * N + n] = from_f32<__nv_bfloat16>(o);
+      out[size_t(r) * N + n] = from_f32<__nv_bfloat16>(o);
     }
   }
+  cluster.sync();  // no CTA leaves while a peer still reads its shared memory
 }
 
 // ---------------------------------------------------------------------------
@@ -222,7 +347,7 @@ __global__ void __launch_bounds__(kThreads)
 //     scales and szeros (128 each) and the block's int32 xi sums (BM);
 //   * A fragments straight from the words: in the A8 byte order one
 //     (w >> bits*i) & 0x0m0m0m0m is four consecutive k of a column, exactly
-//     a register of the m16n8k32 A layout (as the decode kernel's B);
+//     a register of the m16n8k32 A layout (as in the decode kernel);
 //   * part = xi_g . q_g is a fresh s32 wgmma accumulator a group (scale-d 0
 //     on its first k-step), folded in f32 registers as the TPU kernel does:
 //       acc += part * s - xsum * sz;  out = bf16(acc * sx[m] (+ bias[n])),
@@ -410,65 +535,89 @@ cudaError_t launch_prefill(const int8_t* xi, const float* sx, int* xsum, const v
   return cudaGetLastError();
 }
 
-template <int BITS, int TILES>
-cudaError_t launch(const int8_t* xi, const float* sx, const void* qw, const void* scales,
-                   const void* szeros, const void* bias, void* out, int M, int K, int N,
-                   cudaStream_t stream) {
-  dim3 grid((N + COLS - 1) / COLS, (M + 16 * TILES - 1) / (16 * TILES));
-  qmm_a8_kernel<BITS, TILES><<<grid, kThreads, 0, stream>>>(
-      xi, sx, static_cast<const uint32_t*>(qw), static_cast<const float*>(scales),
-      static_cast<const float*>(szeros), static_cast<const float*>(bias),
-      static_cast<__nv_bfloat16*>(out), M, K, N);
+struct A8Args {
+  const __nv_bfloat16* x;
+  const int* kmap;
+  int8_t* xi;
+  float* sx;
+  const uint32_t* qw;
+  const float* scales;
+  const float* szeros;
+  const float* bias;
+  __nv_bfloat16* out;
+  int M, K, N;
+};
+
+cudaError_t launch_quantize(const A8Args& a, int chunk, cudaStream_t stream) {
+  const size_t smem = size_t(a.K) * 2;  // the row
+  const cudaError_t err = allow_smem(quantize_rows_kernel, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(a.M, (a.K + chunk - 1) / chunk);
+  quantize_rows_kernel<<<grid, kThreads, smem, stream>>>(a.x, a.kmap, a.xi, a.sx, a.K, chunk);
   return cudaGetLastError();
 }
 
-// M <= 32: the decode kernel (TILES 1 or 2). Above: the prefill kernels,
-// tile_m output rows a block, 128 or 64 (for a short prefill, so that every
-// SM has a block); the wrapper chooses (ops/quant_matmul.py:
-// prefill_tile_m).
+template <int BITS, int TOK>
+cudaError_t launch_decode(const A8Args& a, int cluster, cudaStream_t stream) {
+  const int ngs_max = (a.K / G + cluster - 1) / cluster;
+  const int vec = a.N % 4 == 0 && aligned16(a.qw) && aligned16(a.scales) && aligned16(a.szeros);
+  const cudaError_t err = launch_quantize(a, QUANT_CHUNK, stream);
+  if (err != cudaSuccess) return err;
+  return launch_cluster(qmm_a8_decode_kernel<BITS, TOK>,
+                        dim3(cluster, (a.N + DEC_COLS - 1) / DEC_COLS, 1), cluster,
+                        Dec<BITS, TOK>::smem(ngs_max), true, stream, a.xi, a.sx, a.qw, a.scales,
+                        a.szeros, a.bias, a.out, a.M, a.K, a.N, ngs_max, vec);
+}
+
+// M <= 32: the decode kernel (8, 16 or 32 token rows), on clusters of
+// `cluster` CTAs. Above: the prefill kernels, tile_m output rows a block,
+// 128 or 64 (for a short prefill, so that every SM has a block). The
+// wrapper chooses both (ops/quant_matmul.py: decode_plan, prefill_tile_m).
 template <int BITS>
-cudaError_t launch_mt(const int8_t* xi, const float* sx, int* xsum, const void* qw,
-                      const void* scales, const void* szeros, const void* bias, void* out, int M,
-                      int K, int N, int tile_m, cudaStream_t stream) {
-  if (M <= 16) return launch<BITS, 1>(xi, sx, qw, scales, szeros, bias, out, M, K, N, stream);
-  if (M <= 32) return launch<BITS, 2>(xi, sx, qw, scales, szeros, bias, out, M, K, N, stream);
-  if (tile_m == 128)
-    return launch_prefill<BITS, 128>(xi, sx, xsum, qw, scales, szeros, bias, out, M, K, N, stream);
-  if (tile_m == 64)
-    return launch_prefill<BITS, 64>(xi, sx, xsum, qw, scales, szeros, bias, out, M, K, N, stream);
-  return cudaErrorInvalidValue;
+cudaError_t launch_mt(const A8Args& a, int* xsum, int tile_m, int cluster, cudaStream_t s) {
+  if (a.M <= 32) {
+    if (cluster < 1 || cluster > kMaxCluster || cluster > a.K / G) return cudaErrorInvalidValue;
+    if (a.M <= 8) return launch_decode<BITS, 1>(a, cluster, s);
+    if (a.M <= 16) return launch_decode<BITS, 2>(a, cluster, s);
+    return launch_decode<BITS, 4>(a, cluster, s);
+  }
+  if (tile_m != 64 && tile_m != 128) return cudaErrorInvalidValue;
+  const cudaError_t err = launch_quantize(a, a.K, s);
+  if (err != cudaSuccess) return err;
+  auto prefill = tile_m == 128 ? launch_prefill<BITS, 128> : launch_prefill<BITS, 64>;
+  return prefill(a.xi, a.sx, xsum, a.qw, a.scales, a.szeros, a.bias, a.out, a.M, a.K, a.N, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// x [M, K] bf16; qweight [K/pack, N] int32 (one layer: the caller offsets a
-// stacked array to layer li), A8 order if kmap is null, else pair layout
-// with kmap [G] int32 its extraction permutation; scales, szeros [K/G, N]
-// f32; bias [N] f32 or null; xi [M, K] int8 and sx [M] f32 are scratch the
-// caller allocates, and above 32 rows xsum, int32 scratch of K/G x
-// round_up(M, 4); out [M, N] bf16. All row-major, contiguous. G = 128, bits
-// 2 or 4; above 32 rows N a multiple of 4 and tile_m 64 or 128. Returns
-// cudaGetLastError() after the launches (0 = launched).
+// x [M, K] bf16, 16-byte aligned; qweight [K/pack, N] int32 (one layer: the
+// caller offsets a stacked array to layer li), A8 order if kmap is null,
+// else pair layout with kmap [G] int32 its extraction permutation; scales,
+// szeros [K/G, N] f32; bias [N] f32 or null; out [M, N] bf16. All
+// row-major, contiguous. G = 128, bits 2 or 4. Scratch the caller
+// allocates: xi [M, K] int8 and sx [M] f32, and above 32 rows xsum, int32 of
+// K/G x round_up(M, 4). M <= 32: clusters of 1 <= cluster <= min(8, K/G)
+// CTAs (decode_plan); a cluster the card cannot hold launches nothing and
+// returns its error. Above: N a multiple of 4 and tile_m 64 or 128. Returns
+// 0 once launched, else the CUDA error.
 int bd_qmm_a8(const void* x, const void* qweight, const void* scales, const void* szeros,
               const void* bias, const void* kmap, void* xi, void* sx, void* xsum, void* out,
-              int M, int K, int N, int bits, int group, int tile_m, void* stream) {
-  if (M < 1 || group != G || K % G != 0 || (bits != 2 && bits != 4)) return cudaErrorInvalidValue;
+              int M, int K, int N, int bits, int group, int tile_m, int cluster, void* stream) {
+  if (M < 1 || group != G || K % G != 0 || (bits != 2 && bits != 4) || !aligned16(x) ||
+      xi == nullptr || sx == nullptr)
+    return cudaErrorInvalidValue;
   if (M > 32 && (N % 4 != 0 || xsum == nullptr)) return cudaErrorInvalidValue;
+  const A8Args a{static_cast<const __nv_bfloat16*>(x), static_cast<const int*>(kmap),
+                 static_cast<int8_t*>(xi), static_cast<float*>(sx),
+                 static_cast<const uint32_t*>(qweight), static_cast<const float*>(scales),
+                 static_cast<const float*>(szeros), static_cast<const float*>(bias),
+                 static_cast<__nv_bfloat16*>(out), M, K, N};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  quantize_rows_kernel<<<M, kThreads, 0, s>>>(static_cast<const __nv_bfloat16*>(x),
-                                              static_cast<const int*>(kmap),
-                                              static_cast<int8_t*>(xi),
-                                              static_cast<float*>(sx), K);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const int8_t* xq = static_cast<const int8_t*>(xi);
-  const float* sq = static_cast<const float*>(sx);
   int* xs = static_cast<int*>(xsum);
-  if (bits == 2)
-    return launch_mt<2>(xq, sq, xs, qweight, scales, szeros, bias, out, M, K, N, tile_m, s);
-  return launch_mt<4>(xq, sq, xs, qweight, scales, szeros, bias, out, M, K, N, tile_m, s);
+  if (bits == 2) return launch_mt<2>(a, xs, tile_m, cluster, s);
+  return launch_mt<4>(a, xs, tile_m, cluster, s);
 }
 
 }  // extern "C"

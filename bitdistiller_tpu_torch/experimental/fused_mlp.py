@@ -13,6 +13,10 @@ branch and its fallback branch compute the same function.
 
 On a CPU tensor `fused_mlp` runs the plain version; on a CUDA tensor it
 launches the kernel or raises. No model calls it, as in the JAX package.
+On the card a call is two launches (gate/up, then down, chained by
+programmatic dependent launch) on the clusters `mlp_plan` sizes; mid passes
+between them through L2 as bf16 with its f32 sums over each group of 128
+ffn columns (see csrc/fused_mlp.cu).
 """
 
 from __future__ import annotations
@@ -24,11 +28,13 @@ import torch
 import torch.nn.functional as F
 
 from ..ops import _build
+from ..ops.quant_matmul import _aligned, _sm_count, decode_plan
 from ..quant.packing import PackedLinear, unpack_codes
 
 _OFFSET = {2: 4.0, 4: 16.0}  # the bf16 exponent-bias trick's code offset
 KERNEL_BITS = (2, 4)
 KERNEL_GROUP = 128
+KERNEL_COLS = 128  # output columns a cluster, both launches (csrc/fused_mlp.cu: COLS)
 
 
 def _act(gate: torch.Tensor, act: str) -> torch.Tensor:
@@ -97,12 +103,26 @@ def fused_mlp_plain(x, gate: PackedLinear, up: PackedLinear, down: PackedLinear,
     return acc.to(x.dtype)
 
 
+def mlp_plan(k: int, ffn: int, d: int, sms: int) -> tuple[int, int]:
+    """Cluster sizes of the kernel's two launches (`decode_plan` for both):
+    gate/up clusters split the K groups of each 128-column ffn tile, down
+    clusters the ffn groups of each 128-column output tile."""
+    return (decode_plan(ffn, k // KERNEL_GROUP, sms, cols=KERNEL_COLS),
+            decode_plan(d, ffn // KERNEL_GROUP, sms, cols=KERNEL_COLS))
+
+
 @functools.lru_cache(maxsize=None)
 def _launcher():
     fn = _build.load("fused_mlp").bd_fused_mlp
-    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def scratch(m: int, ffn: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's scratch: mid [M, FFN] bf16 and its group sums [M, FFN/128] f32."""
+    return (torch.empty((m, ffn), dtype=torch.bfloat16, device=device),
+            torch.empty((m, ffn // KERNEL_GROUP), dtype=torch.float32, device=device))
 
 
 def _launch(x, gate, up, down, act) -> torch.Tensor:
@@ -123,11 +143,13 @@ def _launch(x, gate, up, down, act) -> torch.Tensor:
     if not all(a.is_contiguous() for a in [x] + arrays) or any(
             p.scales.dtype != torch.float32 or p.szeros.dtype != torch.float32 for p in layers):
         raise ValueError("the kernel takes contiguous arrays and f32 scales and szeros")
-    partial = torch.empty((ffn // 128, m, d), dtype=torch.float32, device=x.device)
+    x = _aligned(x)
+    mid, msum = scratch(m, ffn, x.device)
     out = torch.empty((m, d), dtype=x.dtype, device=x.device)
     err = _launcher()(
-        x.data_ptr(), *[a.data_ptr() for a in arrays], partial.data_ptr(), out.data_ptr(),
-        m, k, ffn, d, gate.bits, gate.group_size, 0 if act == "silu" else 1,
+        x.data_ptr(), *[a.data_ptr() for a in arrays], mid.data_ptr(), msum.data_ptr(),
+        out.data_ptr(), m, k, ffn, d, gate.bits, gate.group_size, 0 if act == "silu" else 1,
+        *mlp_plan(k, ffn, d, _sm_count(x.device.index or 0)),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(err, "bd_fused_mlp")
@@ -138,8 +160,8 @@ def fused_mlp(x: torch.Tensor, gate: PackedLinear, up: PackedLinear, down: Packe
               act: str = "silu", *, block_f: int = 256) -> torch.Tensor:
     """x [..., K] -> [..., D] through the fused packed MLP. `block_f` is the
     JAX kernel's ffn tile, which sets the plain version's summation order;
-    the CUDA kernel tiles the ffn axis by 128 (one group of the down rows)
-    and sums the tiles in order."""
+    the CUDA kernel sums the down product over the ffn groups in order within
+    a CTA, then over the CTAs of a cluster in rank order."""
     _check_layers(gate, up, down)
     _block_f(block_f, gate.out_features, gate.group_size)
     xf = x.reshape(-1, gate.in_features).contiguous()
@@ -153,4 +175,4 @@ def fused_mlp(x: torch.Tensor, gate: PackedLinear, up: PackedLinear, down: Packe
     return out.reshape(*x.shape[:-1], down.out_features)
 
 
-fused_mlp.launches = 0  # kernel launches (CUDA tensors)
+fused_mlp.launches = 0  # calls that launched the kernels (CUDA tensors)

@@ -14,7 +14,8 @@ turns it on for serving: `maybe_repack_a8` then repacks every packed leaf
 once into the A8 byte order, and `quant_matmul` sends every packed matmul
 through it.
 
-Up to DECODE_MAX_M rows a call runs a decode kernel; above, a prefill
+Up to DECODE_MAX_M rows a call runs a decode kernel (the A8 one streams
+the words through clusters that split K, `decode_plan`); above, a prefill
 kernel (Hopper wgmma tiles fed by TMA, `prefill_tile_m` rows by 128
 columns), after a pass that sums x over each group into scratch the wrapper
 allocates. `qmm_prefill.launches` counts A16 prefill calls,
@@ -50,6 +51,21 @@ def prefill_tile_m(m: int, n: int, sms: int) -> int:
     twice over, else 64, so that a short prefill still has a block for
     every SM."""
     return 128 if -(-m // 128) * -(-n // 128) >= 2 * sms else 64
+
+
+MAX_CLUSTER = 8  # the largest portable thread block cluster
+A8_DECODE_COLS = 256  # output columns a cluster of the A8 decode kernel
+
+
+def decode_plan(n: int, groups: int, sms: int, cols: int = A8_DECODE_COLS) -> int:
+    """Cluster size of the streaming decode kernels (the A8 matmul at
+    M <= 32, both launches of the fused MLP): a cluster of CTAs owns `cols`
+    output columns and splits their `groups` K groups, at most one group a
+    CTA and MAX_CLUSTER CTAs a cluster. The smallest cluster that puts two
+    CTAs on each of the card's `sms` SMs, so that every SM holds two CTAs'
+    loads in flight, else the largest."""
+    tiles, cap = -(-n // cols), min(MAX_CLUSTER, groups)
+    return next((c for c in range(1, cap + 1) if tiles * c >= 2 * sms), cap)
 
 
 @functools.lru_cache(maxsize=None)
@@ -355,16 +371,23 @@ def _kmap(bits: int, group_size: int, device) -> torch.Tensor:
 @functools.lru_cache(maxsize=None)
 def _a8_launcher():
     fn = _build.load("quant_matmul_a8").bd_qmm_a8
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """x, or a copy of it, at a 16-byte aligned address (the kernels load x
+    16 bytes at a time)."""
+    return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
 def qmm_a8(x, qweight, scales, szeros, bits: int, group_size: int, a8_order: bool,
            bias=None) -> torch.Tensor:
     """A8 kernels (any M): quantize x [M, K] per token (and permute it for
-    pair-layout words) and multiply with packed [K, N] on the card; above
-    DECODE_MAX_M rows through the prefill kernel (N a multiple of 4), counted
+    pair-layout words) and multiply with packed [K, N] on the card: up to
+    DECODE_MAX_M rows the streaming decode kernel on `decode_plan`'s
+    clusters, above through the prefill kernel (N a multiple of 4), counted
     in `qmm_a8.prefill_launches` as well as `qmm_a8.launches`."""
     if not (x.is_cuda and all(t.device == x.device for t in (qweight, scales, szeros))):
         raise ValueError("the A8 matmul kernel takes CUDA tensors on one device")
@@ -386,18 +409,20 @@ def qmm_a8(x, qweight, scales, szeros, bits: int, group_size: int, a8_order: boo
         bias = bias.to(torch.float32).contiguous()
         if bias.shape != (n,) or bias.device != x.device:
             raise ValueError(f"bias must be [{n}] on x's device")
+    x = _aligned(x)
     prefill = m > DECODE_MAX_M
     tile = _tile_m(x, n) if prefill else 0
+    cluster = 0 if prefill else decode_plan(n, k // group_size, _sm_count(x.device.index or 0))
     kmap = None if a8_order else _kmap(bits, group_size, x.device)
     xi = torch.empty((m, k), dtype=torch.int8, device=x.device)
     sx = torch.empty((m,), dtype=torch.float32, device=x.device)
     xsum = group_sums_scratch(m, k, torch.int32, x.device) if prefill else None
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    ptr = lambda t: None if t is None else t.data_ptr()
     err = _a8_launcher()(
-        x.data_ptr(), qweight.data_ptr(), scales.data_ptr(), szeros.data_ptr(),
-        None if bias is None else bias.data_ptr(), None if kmap is None else kmap.data_ptr(),
-        xi.data_ptr(), sx.data_ptr(), None if xsum is None else xsum.data_ptr(), out.data_ptr(),
-        m, k, n, bits, group_size, tile,
+        x.data_ptr(), qweight.data_ptr(), scales.data_ptr(), szeros.data_ptr(), ptr(bias),
+        ptr(kmap), xi.data_ptr(), sx.data_ptr(), ptr(xsum), out.data_ptr(),
+        m, k, n, bits, group_size, tile, cluster,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(err, "bd_qmm_a8")

@@ -44,7 +44,7 @@ PROLOGUE = "    for (int g = 0; g < PF_STAGES - 1 && g < ng; ++g) load_stage(g);
 
 def _patch(src: str, old: str, new: str) -> str:
     if src.count(old) != 1:
-        raise RuntimeError(f"ablation patch does not apply to csrc/quant_matmul.cu: {old!r}")
+        raise RuntimeError(f"ablation patch does not apply to its kernel source: {old!r}")
     return src.replace(old, new)
 
 

@@ -27,10 +27,15 @@ Tolerances (kernel vs plain version on the same inputs):
     (both round an f32 sum to bf16: one bf16 ulp is 2^-8 relative, and the
     f32 sums differ in order);
   * A8 matmul: integer-valued x with one 127 a row (per-token scale 1):
-    exact; bf16 x: max|kernel - plain| <= 1e-2 * max|plain| (as above);
-  * fused MLP: max|kernel - plain| <= 1e-2 * max|plain| (bf16 output, f32
-    sums in another order and tile grouping, mid rounded to bf16 after an
-    activation whose last f32 bit may differ);
+    exact, at M = 1, 8, 16, 17 and 32 too (the streaming decode kernel's
+    one, two and four 8-token tiles); bf16 x: max|kernel - plain| <= 1e-2 *
+    max|plain| (as above);
+  * fused MLP, M = 1, 8, 33, 128: max|kernel - plain| <= 1e-2 * max|plain|
+    (bf16 output, f32 sums in another order and tile grouping, mid rounded
+    to bf16 after an activation whose last f32 bit may differ);
+  * the streaming decode kernels (A8 at M <= 32, the fused MLP): a second
+    call on the same inputs gives the same bytes (sums in a fixed order, no
+    atomics);
   * decode attention, stacked and per layer: max abs error <= 2e-2 on O(1)
     outputs (the prob row is rounded to bf16 against per-warp running maxima
     in the kernel and against one global maximum in the plain version; one
@@ -93,6 +98,8 @@ ATTN_TOL = 2e-2
 PROBE_TOL = 1e-6
 LOGIT_TOL = 5e-2
 CHECK_M = (8, 33, 200, 256, 4096)  # decode cap 32; 200 ragged against both prefill tiles
+A8_CHECK_M = (1, 8, 16, 17, 32) + CHECK_M[1:]  # the A8 decode kernel: 1, 2 and 4 token tiles
+MLP_CHECK_M = (1, 8, 33, 128)
 PREFILL_M = 4096  # the engine's first prefill: 8 prompts in the 512 bucket
 REQ_LENS = [64, 512, 200, 333, 128, 480, 96, 256, 400, 150, 64, 300]
 
@@ -262,7 +269,8 @@ def check_attention(gen, record):
 
 def check_a8(gen, record):
     """B4 on layer 1 of a stack: int2 and int4, the four 7B shapes, M in
-    CHECK_M, pair-layout words (x permuted per call) and repacked ones."""
+    A8_CHECK_M, pair-layout words (x permuted per call) and repacked ones;
+    at M = 8 on bf16 x a second call must give the same bytes."""
     worst = 0.0
     for bits in (2, 4):
         for name, (k, n) in SHAPES.items():
@@ -270,7 +278,7 @@ def check_a8(gen, record):
                 pair = rand_stacked(gen, 2, k, n, bits, integer)
                 for w in (pair, qm.repack_linear_a8(pair)):
                     lay = w.layer(1)
-                    for m in CHECK_M:
+                    for m in A8_CHECK_M:
                         if integer:  # one 127 a row: the per-token scale is 1
                             x = torch.randint(-3, 4, (m, k), device=DEV, generator=gen).float()
                             x[:, 0] = 127.0
@@ -278,6 +286,8 @@ def check_a8(gen, record):
                         else:
                             x = torch.randn((m, k), device=DEV, generator=gen).bfloat16()
                         got = qm.quant_matmul_a8(x, w, 1)
+                        if m == 8 and not integer and not torch.equal(got, qm.quant_matmul_a8(x, w, 1)):
+                            raise AssertionError(f"A8 matmul {name} bits={bits}: two calls differ")
                         want = by_rows(lambda xr: qm.quant_matmul_a8_plain(
                             xr, lay.qweight, lay.scales, lay.szeros, bits, GROUP, w.a8_order), x)
                         err = (got.float() - want.float()).abs().max().item()
@@ -393,8 +403,10 @@ def time_a8(gen, m, detail):
     `time_matmuls` times B1/B2 (raw launcher over >100 MB of stacked layers;
     the wrapper; the plain version and torch.matmul on a dequantized bf16
     weight on layer 0). Bytes count the f32 scales and szeros (8 bytes a
-    group column); operations are int8 at 1,979 TOP/s. Above 32 rows the
-    call runs the prefill kernels (quantize, xi group sums, s8 wgmma)."""
+    group column); operations are int8 at 1,979 TOP/s. Up to 32 rows the
+    call is the quantize kernel and the streaming decode kernel on
+    `decode_plan`'s clusters (two launches chained by PDL); above, the
+    prefill kernels (quantize, xi group sums, s8 wgmma)."""
     tot = dict(ms=0.0, wrapper_ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0, flops=0.0)
     fn = qm._a8_launcher()
     stream = torch.cuda.current_stream().cuda_stream
@@ -410,11 +422,12 @@ def time_a8(gen, m, detail):
         sx = torch.empty((m,), dtype=torch.float32, device=DEV)
         xsum = qm.group_sums_scratch(m, k, torch.int32, DEV) if prefill else None
         tile = qm._tile_m(x, n) if prefill else 0
+        cluster = 0 if prefill else qm.decode_plan(n, k // GROUP, qm._sm_count(0))
         out = torch.empty((m, n), dtype=torch.bfloat16, device=DEV)
         args = [(x.data_ptr(), p.qweight[i].data_ptr(), p.scales[i].data_ptr(),
                  p.szeros[i].data_ptr(), None, None, xi.data_ptr(), sx.data_ptr(),
                  None if xsum is None else xsum.data_ptr(), out.data_ptr(), m, k, n, BITS, GROUP,
-                 tile, stream) for i in range(layers)]
+                 tile, cluster, stream) for i in range(layers)]
         _build.check(fn(*args[0]), "raw launch")
         ms = cuda_ms(lambda i: fn(*args[i % layers]), 50)
         wrapper = cuda_ms(lambda i: qm.quant_matmul_a8(x, p, i % layers), 50)
@@ -426,9 +439,9 @@ def time_a8(gen, m, detail):
         nbytes = layer_bytes + m * k * 2 + m * n * 2
         flops = 2.0 * m * k * n
         b, by = bound_ms(nbytes, flops, PEAK_INT8_OPS)
-        detail.append(dict(kernel="qmm_a8", shape=name, m=m, k=k, n=n, tile_m=tile or None, ms=ms,
-                           wrapper_ms=wrapper, plain_ms=plain, library_ms=lib, bound_ms=b,
-                           bound_by=by))
+        detail.append(dict(kernel="qmm_a8", shape=name, m=m, k=k, n=n, tile_m=tile or None,
+                           cluster=cluster or None, ms=ms, wrapper_ms=wrapper,
+                           plain_ms=plain, library_ms=lib, bound_ms=b, bound_by=by))
         for key, val in (("ms", ms), ("wrapper_ms", wrapper), ("plain_ms", plain),
                          ("library_ms", lib), ("bytes", nbytes), ("flops", flops)):
             tot[key] += val
@@ -445,7 +458,9 @@ def mlp_stack(gen, layers):
 
 def fused_mlp_phase(gen, detail):
     """B5 at the 7B MLP widths (K=4096, FFN=11008, D=4096), int2, silu:
-    layer 1 of a 32-layer stack against the plain version at M=8 and 128;
+    layer 1 of a 32-layer stack against the plain version at M in
+    MLP_CHECK_M, and a second call on the same inputs must give the same
+    bytes;
     the kernel's time (raw launcher cycling the 32 layers, 1.4 GB), the
     plain version's and the library's three calls (torch.matmul on the
     dequantized bf16 gate|up, silu*mul, torch.matmul on the bf16 down); then
@@ -456,9 +471,11 @@ def fused_mlp_phase(gen, detail):
     gate, up, down = mlp_stack(gen, L)
     lay = lambda li: (gate.layer(li), up.layer(li), down.layer(li))
     worst = 0.0
-    for m in (8, 128):
+    for m in MLP_CHECK_M:
         x = torch.randn((m, k), device=DEV, generator=gen).bfloat16()
         got = fm.fused_mlp(x, *lay(1))
+        if not torch.equal(got, fm.fused_mlp(x, *lay(1))):
+            raise AssertionError(f"fused MLP M={m}: two calls on the same inputs differ")
         want = fm.fused_mlp_plain(x, *lay(1))
         err = (got.float() - want.float()).abs().max().item()
         scale = want.float().abs().max().item()
@@ -469,13 +486,14 @@ def fused_mlp_phase(gen, detail):
     m = 8
     x = torch.randn((m, k), device=DEV, generator=gen).bfloat16()
     fn = fm._launcher()
-    partial = torch.empty((f // 128, m, d), dtype=torch.float32, device=DEV)
+    mid, msum = fm.scratch(m, f, DEV)
     out = torch.empty((m, d), dtype=torch.bfloat16, device=DEV)
     stream = torch.cuda.current_stream().cuda_stream
+    plan = fm.mlp_plan(k, f, d, qm._sm_count(0))
     args = [(x.data_ptr(), *[a[li].data_ptr() for p in (gate, up, down)
                              for a in (p.qweight, p.scales, p.szeros)],
-             partial.data_ptr(), out.data_ptr(), m, k, f, d, BITS, GROUP, 0, stream)
-            for li in range(L)]
+             mid.data_ptr(), msum.data_ptr(), out.data_ptr(), m, k, f, d, BITS, GROUP, 0, *plan,
+             stream) for li in range(L)]
     _build.check(fn(*args[0]), "raw launch")
     ms = cuda_ms(lambda i: fn(*args[i % L]), 64)
     wrapper = cuda_ms(lambda i: fm.fused_mlp(x, *lay(i % L)), 64)
@@ -506,7 +524,7 @@ def fused_mlp_phase(gen, detail):
         raise AssertionError(f"fused MLP path: {launches} launches for {L} layers")
     if not torch.isfinite(h).all():
         raise AssertionError("fused MLP path: non-finite output")
-    rec = dict(m=m, ms=ms, wrapper_ms=wrapper, plain_ms=plain, library_ms=lib, bound_ms=bnd,
+    rec = dict(m=m, plan=plan, ms=ms, wrapper_ms=wrapper, plain_ms=plain, library_ms=lib, bound_ms=bnd,
                bound_by=by, bytes=nbytes, flops=flops, launches=launches, max_abs_err=worst)
     detail.append(rec)
     del gate, up, down, wgu, wd
@@ -586,7 +604,7 @@ def device_busy_ms(step, n: int):
             per[e.key[:48]] = per.get(e.key[:48], 0.0) + t / 1e3 / n
     if not per:
         return None
-    top = sorted(per.items(), key=lambda kv: -kv[1])[:6]
+    top = sorted(per.items(), key=lambda kv: -kv[1])[:8]
     return dict(busy_ms=sum(per.values()), top=top)
 
 
@@ -829,8 +847,9 @@ def main() -> int:
     with Phase("A8 matmul vs plain"):
         summary["a8_checks"] = []
         a8_rel = check_a8(gen, summary["a8_checks"])
-        say(f"{len(summary['a8_checks'])} cases (pair-layout and repacked words); integer inputs "
-            f"exact; worst bf16 relative error at int2 {a8_rel:.3g}")
+        say(f"{len(summary['a8_checks'])} cases (pair-layout and repacked words, M={A8_CHECK_M}); "
+            f"integer inputs exact; two calls equal at M=8; worst bf16 relative error at int2 "
+            f"{a8_rel:.3g}")
 
     with Phase("decode attention vs plain (stacked and per layer)"):
         summary["attention_checks"] = []
@@ -841,7 +860,8 @@ def main() -> int:
     with Phase("fused MLP vs plain, times and path"):
         summary["fused_mlp"] = []
         mlp = fused_mlp_phase(gen, summary["fused_mlp"])
-        say(f"7B MLP, M=8 and 128: worst relative error {mlp['max_abs_err']:.3g}; M=8 "
+        say(f"7B MLP, M={MLP_CHECK_M}: worst relative error {mlp['max_abs_err']:.3g}, two calls "
+            f"equal; plan {mlp['plan']}; M=8 "
             f"{mlp['ms']:.4f} ms (bound {mlp['bound_ms']:.4f}, plain {mlp['plain_ms']:.3f}, "
             f"3 library calls {mlp['library_ms']:.4f}); path: {mlp['launches']} launches")
 
@@ -890,15 +910,17 @@ def main() -> int:
                      "the A16 engine run", bound_measured_bw_ms=att["bound_measured_bw_ms"]),
         kernel_entry("qmm_a8", "quant_matmul_a8.cu", "bitdistiller_tpu/ops/quant_matmul.py:721",
                      counts_a8["qmm_a8"], a8_rel, a8_dec,
-                     "one layer's four A8 matmuls (quantize prologue included), M=8, int2-g128 "
-                     "repacked, 7B widths; max_abs_err relative to max|plain|; launches from the "
-                     "A8 engine run (every packed matmul, prefill and decode)",
+                     "one layer's four A8 matmuls (quantization included), M=8, int2-g128 "
+                     "repacked, 7B widths, quantize + streaming decode kernel (PDL); "
+                     "max_abs_err relative to max|plain|; "
+                     "launches from the A8 engine run (every packed matmul, prefill and decode)",
                      bound_measured_bw_ms=a8_dec["bound_measured_bw_ms"],
                      m256=times(a8_pre), m4096=times(a8_pre4k),
                      prefill_launches=counts_a8["qmm_a8_prefill"]),
         kernel_entry("fused_mlp", "fused_mlp.cu", "bitdistiller_tpu/experimental/fused_mlp.py:57",
                      mlp["launches"], mlp["max_abs_err"], mlp,
-                     "7B MLP (K=4096, FFN=11008, D=4096), M=8, int2-g128, silu; library_ms is "
+                     "7B MLP (K=4096, FFN=11008, D=4096), M=8, int2-g128, silu, two launches "
+                     "(gate/up, down) chained by PDL; library_ms is "
                      "three calls (matmul, silu*mul, matmul on bf16 weights); launches from its "
                      "path: one decode step's MLP through 32 layers (entry point, no model hook)",
                      bound_measured_bw_ms=mlp["bytes"] / bw * 1e3),

@@ -106,11 +106,14 @@ def test_plain_a8_exact_on_integers_against_pallas(bits, g, repacked):
 @pytest.mark.parametrize("integer", [True, False])
 @pytest.mark.parametrize("repacked", [False, True])
 @pytest.mark.parametrize("bits", [2, 4])
-@pytest.mark.parametrize("m", [33, 130])
+@pytest.mark.parametrize("m", [1, 8, 32, 33, 130])
 def test_plain_a8_against_pallas_at_prefill_edges(m, bits, repacked, integer):
-    """The plain A8 version, which the card holds the s8 wgmma prefill
-    kernel against, at that kernel's edges: M just above the decode cap and
-    ragged against 64- and 128-row tiles, 5 groups of 128, N = 320."""
+    """The plain A8 version, which the card holds the A8 kernels against, at
+    their edges: 5 groups of 128 (a decode cluster's K split has a
+    remainder), N = 320; M = 1, 8 and 32 on the decode kernel (one and two
+    16-row fragments, masked rows), 33 and 130 on the s8 wgmma prefill
+    kernel (just above the decode cap, ragged against 64- and 128-row
+    tiles)."""
     k, n, g = 5 * 128, 320, 128
     rng = np.random.default_rng(2000 + 10 * m + 2 * bits + repacked)
     codes, qw, scales, szeros = _layer(rng, bits, g, integer, k=k, n=n)
@@ -228,3 +231,43 @@ def test_pack_codes_a8_round_trips_natural_codes():
     a8 = tq.pack_codes_a8(codes, 2, 128)
     assert not torch.equal(pair, a8)
     assert torch.equal(tq.unpack_codes_a8(a8, 2, 128), codes)
+
+
+PLANS_7B = {(12288, 4096): 6, (4096, 4096): 8, (22016, 4096): 4, (4096, 11008): 8}  # on 132 SMs
+
+
+@pytest.mark.parametrize("n,k", sorted(PLANS_7B))
+def test_decode_plan_puts_two_ctas_an_sm_at_7b_shapes(n, k):
+    """qkv, o, gate_up and down of the 7B: the smallest cluster that puts
+    2 x 132 CTAs of 256 columns on the card, or the largest (8) where none
+    does (o and down, 16 tiles: 128 CTAs); never more CTAs in a cluster than
+    K groups (86 for down: a remainder)."""
+    cluster = tq.decode_plan(n, k // 128, 132)
+    assert cluster == PLANS_7B[(n, k)]
+    tiles = -(-n // tq.A8_DECODE_COLS)
+    assert cluster == tq.MAX_CLUSTER or tiles * cluster >= 2 * 132 > tiles * (cluster - 1)
+    assert cluster <= min(tq.MAX_CLUSTER, k // 128)
+
+
+@pytest.mark.parametrize("n,groups,sms,want", [
+    (320, 5, 132, 5),     # odd group count: the cluster stops at 5, short of 2 x SMs
+    (4096, 1, 132, 1),    # one group: no K split
+    (4096, 86, 8, 1),     # a small card: 16 tiles fill it alone
+    (4096, 3, 132, 3),    # 3 groups: 48 CTAs, the most there can be
+    (100, 86, 132, 8),    # N short of one tile: one cluster of the largest size
+])
+def test_decode_plan_at_odd_group_counts(n, groups, sms, want):
+    assert tq.decode_plan(n, groups, sms) == want
+
+
+def test_decode_ablation_patches_apply():
+    """scripts/decode_ablation.py patches the A8 decode kernel's source by
+    text: every patch still applies, once, and each variant differs from the
+    kernel."""
+    from bitdistiller_tpu_torch.ops import _build
+    from bitdistiller_tpu_torch.scripts import decode_ablation
+
+    src = (_build.CSRC_DIR / "quant_matmul_a8.cu").read_text()
+    texts = decode_ablation.variants(src)
+    assert texts["kernel"] == src
+    assert len(set(texts.values())) == len(texts)

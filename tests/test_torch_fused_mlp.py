@@ -106,3 +106,29 @@ def test_cpu_runs_the_plain_version_and_checks_shapes():
     assert torch.equal(out, tfm.fused_mlp_plain(torch.from_numpy(x), g, u, d))
     with pytest.raises(ValueError, match="widths"):
         tfm.fused_mlp(torch.from_numpy(x), g, u, g)
+
+
+@pytest.mark.parametrize("m", [1, 33])
+@pytest.mark.parametrize("bits", [2, 4])
+def test_plain_matches_jax_at_an_odd_group_count(bits, m):
+    """FFN = 640, 5 groups of 128: the JAX entry halves block_f to 128 (five
+    ffn tiles), and the card's down launch splits 5 groups over its cluster
+    with a remainder. The plain version, which the card holds the kernel
+    against, agrees with JAX there."""
+    rng = np.random.default_rng(100 + 10 * bits + m)
+    layers = [_layer(rng, K, 640, bits), _layer(rng, K, 640, bits), _layer(rng, 640, D, bits)]
+    jl, tl = [j for j, _ in layers], [t for _, t in layers]
+    x = rng.standard_normal((m, K)).astype(np.float32)
+    want = np.asarray(jax_fused_mlp(jnp.asarray(x), *jl, "silu", interpret=True))
+    got = tfm.fused_mlp(torch.from_numpy(x), *tl, "silu").numpy()
+    assert got.shape == (m, D)
+    _assert_close(got, want, x, jl, "silu")
+
+
+@pytest.mark.parametrize("k,ffn,d,sms,want", [
+    (4096, 11008, 4096, 132, (4, 8)),  # 7B: 86 ffn tiles x 4; down as the 7B down matmul
+    (256, 640, 256, 132, (2, 5)),      # the tests' widths: clusters capped by the groups
+    (4096, 11008, 4096, 8, (1, 1)),    # a small card
+])
+def test_mlp_plan_sizes_both_launches(k, ffn, d, sms, want):
+    assert tfm.mlp_plan(k, ffn, d, sms) == want

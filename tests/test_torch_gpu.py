@@ -5,7 +5,8 @@ skips without a CUDA device. On the card:
     python -m pytest -m gpu tests/test_torch_gpu.py
 
 Tolerances: integer-valued inputs are exact (the A8 matmul too, with one
-127 a row so the per-token scale is 1); bf16 attention outputs within 2e-2
+127 a row so the per-token scale is 1); the streaming decode kernels (A8
+at M <= 32, both fused-MLP launches) give the same bytes on two calls; bf16 attention outputs within 2e-2
 (one bf16 ulp of a prob, rounded against other running maxima); the fused
 MLP within 1e-2 of max|plain| (bf16 outputs, f32 sums in another order, mid
 rounded to bf16 at another f32 rounding of the activation); the stream sum
@@ -248,3 +249,72 @@ def test_stream_sum_kernel_matches_plain(gen, dtype):
     assert bw_probe.stream_sum.launches == before + 1
     want = bw_probe.stream_sum_plain(k, v, c)
     assert abs(got.item() - want.item()) <= 1e-5 * abs(want.item())
+
+
+@pytest.mark.parametrize("repacked", [False, True])
+@pytest.mark.parametrize("bits", [2, 4])
+@pytest.mark.parametrize("m", [1, 17, 32])
+def test_a8_decode_exact_on_integers_at_the_down_shape(gen, m, bits, repacked):
+    """The streaming A8 decode kernel at K = 11008 (86 groups: the
+    cluster's K split has a remainder), N = 4096, layer 1 of a stack, token
+    rows masked in one and four 8-row tiles."""
+    p = _packed(gen, 11008, 4096, bits, layers=2)
+    if repacked:
+        p = qm.repack_linear_a8(p)
+    x = _ints(gen, m, 11008, top=127.0)  # one 127 a row: the per-token scale is 1
+    before = (qm.qmm_a8.launches, qm.qmm_a8.prefill_launches)
+    got = qm.quant_matmul_a8(x, p, 1)
+    lay = p.layer(1)
+    want = qm.quant_matmul_a8_plain(x, lay.qweight, lay.scales, lay.szeros, bits, 128, p.a8_order)
+    assert torch.equal(got, want)
+    assert (qm.qmm_a8.launches, qm.qmm_a8.prefill_launches) == (before[0] + 1, before[1])
+
+
+@pytest.mark.parametrize("k,n", [(11008, 4096), (4096, 320)])
+def test_a8_decode_is_deterministic(gen, k, n):
+    """Two calls on the same bf16 inputs give the same bytes (the cluster
+    sums in rank order, no atomics), within 1e-2 of max|plain|."""
+    p = _packed(gen, k, n, 2, integer=False)
+    x = torch.randn((8, k), device="cuda", generator=gen).bfloat16()
+    bias = torch.randn((n,), device="cuda", generator=gen)
+    args = (x, p.qweight, p.scales, p.szeros, 2, 128, False, bias)
+    a, b = qm.qmm_a8(*args), qm.qmm_a8(*args)
+    assert torch.equal(a, b)
+    want = qm.quant_matmul_a8_plain(*args)
+    assert (a.float() - want.float()).abs().max().item() <= 1e-2 * want.float().abs().max().item()
+
+
+@pytest.mark.parametrize("act", ["silu", "gelu"])
+@pytest.mark.parametrize("bits", [2, 4])
+@pytest.mark.parametrize("m", [1, 33])
+def test_fused_mlp_streaming_kernel_matches_plain(gen, m, bits, act):
+    """Both launches at an odd group count (FFN = 640: 5 groups, split over
+    the down clusters with a remainder; K = 512), one and three 16-row
+    fragments; bit-identical across two calls."""
+    g, u = _packed(gen, 512, 640, bits, integer=False), _packed(gen, 512, 640, bits, integer=False)
+    d = _packed(gen, 640, 320, bits, integer=False)
+    x = torch.randn((m, 512), device="cuda", generator=gen).bfloat16()
+    before = fused_mlp.launches
+    got = fused_mlp(x, g, u, d, act)
+    assert fused_mlp.launches == before + 1
+    assert torch.equal(got, fused_mlp(x, g, u, d, act))
+    want = fused_mlp_plain(x, g, u, d, act)
+    assert (got.float() - want.float()).abs().max().item() <= 1e-2 * want.float().abs().max().item()
+
+
+@pytest.mark.parametrize("cluster,m", [(16, 8), (1, 32)])
+def test_cluster_launch_raises_on_a_size_the_card_cannot_hold(gen, cluster, m, monkeypatch):
+    """A cluster of 16 (above the portable 8) and one CTA holding all of
+    K = 11008 at 32 rows (352 KB of xi, above the 227 KB a block can have:
+    the launcher's shared-memory and occupancy checks refuse it) raise and
+    launch nothing; the next call on a good plan is right."""
+    p = _packed(gen, 11008, 4096, 2)
+    x = _ints(gen, m, 11008, top=127.0)
+    want = qm.quant_matmul_a8_plain(x, p.qweight, p.scales, p.szeros, 2, 128, False)
+    with monkeypatch.context() as mp:
+        mp.setattr(qm, "decode_plan", lambda n, groups, sms: cluster)
+        before = qm.qmm_a8.launches
+        with pytest.raises(RuntimeError, match="cudaError"):
+            qm.qmm_a8(x, p.qweight, p.scales, p.szeros, 2, 128, False)
+        assert qm.qmm_a8.launches == before
+    assert torch.equal(qm.qmm_a8(x, p.qweight, p.scales, p.szeros, 2, 128, False), want)
