@@ -1,6 +1,7 @@
-// Helpers shared by the port's packed-weight kernels (quant_matmul.cu,
-// quant_matmul_a8.cu, fused_mlp.cu): the bf16 exponent-bias unpack of the
-// pair layout, the combo-word decode and the tensor-core mma wrappers.
+// Helpers shared by the port's kernels (quant_matmul.cu, quant_matmul_a8.cu,
+// fused_mlp.cu, decode_attention.cu): the block shape, bf16 conversions, the
+// bf16 exponent-bias unpack of the pair layout, the combo-word decode and the
+// tensor-core mma wrapper.
 // Everything here is inline device code; including it adds no symbol.
 
 #pragma once
@@ -40,30 +41,25 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);  // round to nearest even, as XLA's convert
 }
 
-// Extraction i of a pair-layout word: (off + code) of rows i*2R + 2r (x) and
-// i*2R + 2r + 1 (y).
-template <int BITS>
-__device__ __forceinline__ float2 extract_pair(uint32_t w, int i) {
-  const uint32_t t =
-      (((w >> (BITS * i)) & Trick<BITS>::kMask) << Trick<BITS>::kShift) | Trick<BITS>::kExp;
-  const __nv_bfloat162 pair =
-      __halves2bfloat162(__ushort_as_bfloat16(static_cast<unsigned short>(t & 0xFFFFu)),
-                         __ushort_as_bfloat16(static_cast<unsigned short>(t >> 16)));
-  return __bfloat1622float2(pair);
-}
-
-// bf16x2 bit pattern of (off + code) for the two k of extraction i of w
+// bf16x2 bit pattern of (off + code) for the two k of extraction i of w,
+// ((w >> BITS*i) & kMask) << kShift | kExp, as one shift and one three-input
+// LOP3 (a & b) | c with both constants in registers: written plainly it
+// compiles to a shift and two LOP3s, since a LOP3 takes one immediate.
 template <int BITS>
 __device__ __forceinline__ uint32_t extract_bits(uint32_t w, int i) {
-  return (((w >> (BITS * i)) & Trick<BITS>::kMask) << Trick<BITS>::kShift) | Trick<BITS>::kExp;
+  const int sh = BITS * i - Trick<BITS>::kShift;
+  const uint32_t t = sh >= 0 ? w >> sh : w << -sh;
+  uint32_t d;
+  asm("lop3.b32 %0, %1, %2, %3, 0xEA;\n"
+      : "=r"(d)
+      : "r"(t), "r"(Trick<BITS>::kMask << Trick<BITS>::kShift), "r"(Trick<BITS>::kExp));
+  return d;
 }
 
 __device__ __forceinline__ void decode_combo(uint32_t c, float& s, float& sz) {
   s = __uint_as_float(c << 16);
   sz = __uint_as_float(c & 0xFFFF0000u);
 }
-
-constexpr uint32_t kOnesBf16x2 = 0x3F803F80u;
 
 // D += A (16 x 16, row) * B (16 x 8, col); bf16 inputs, f32 accumulators.
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
@@ -73,10 +69,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t load_pair(const __nv_bfloat16* p, bool ok) {
-  return ok ? __ldg(reinterpret_cast<const unsigned int*>(p)) : 0u;
 }
 
 template <typename Kernel>

@@ -19,153 +19,271 @@
 //
 // Bound on this card. Decode (M <= 32) is bound by bytes: the packed weight
 // (K*N*bits/8) plus the combo words (K/G*N*4) must stream from HBM once, at
-// 3.35 TB/s; x is a few KB. Design: the dot products run on the tensor cores
-// (mma.sync m16n8k16, bf16 in, f32 accumulate), because on CUDA cores the
-// unpack-and-FMA work (about 26 instructions a code pair a column at M=8)
-// kept the first versions at 15x the byte bound. The pair layout makes the
-// B fragment free: one extraction of a word is exactly a lane's bf16x2 B
-// register. A block owns 32 columns and its 8 warps split the K groups, so
-// every warp has its own stream of word loads and no barrier until the final
-// shared-memory reduction; a block carries no state to another block. x
-// (at most 32 x 11008 bf16) is read through L1 rather than staged in shared
-// memory: every block reads all of it, it stays cached, and staging cost a
-// barrier a chunk. Prefill (large M) is bound by operations on the tensor
+// 3.35 TB/s; x is a few KB. Design: the streaming plan of stream.cuh, as
+// the A8 decode kernel and the fused MLP use it (see "Decode" below):
+// clusters that split K so that every SM holds two CTAs, a cp.async ring
+// several groups deep for every warp, the dot products on the tensor cores
+// (mma.sync m16n8k16, bf16 in, f32 accumulate; on CUDA cores the
+// unpack-and-FMA work kept the first versions at 15x the byte bound) with
+// the product transposed, so that the pair layout's extractions are the A
+// fragments and 8 tokens fill the mma's n. Every CTA reads its K slice of x
+// from L2 once. Prefill (large M) is bound by operations on the tensor
 // cores (989 TFLOP/s bf16). Design: Hopper's warpgroup MMA (wgmma), the
 // codes unpacked straight into its register A fragments and x staged in
 // shared memory by TMA, on 128- or 64-row tiles (see "Prefill" below).
 
 #include "common.cuh"
 #include "hopper.cuh"
+#include "stream.cuh"
 
 namespace {
 
 using namespace bd;
 
 // ---------------------------------------------------------------------------
-// Decode: M <= 16 * TILES rows. One block per 32 columns (4 n-tiles of 8,
-// so a warp reads an x fragment once for 4 mma); its 8 warps split
-// the K groups (warp w takes groups w, w + 8, ...) and are reduced in shared
-// memory at the end. A warp computes a group with mma.sync.m16n8k16 (bf16
-// inputs, f32 accumulators), one mma per k-block of 16:
-//   A (16 x 16, rows m, k)  x, read through L1 as bf16 pairs;
-//   B (16 x 8,  k, cols n)  off + codes, straight from the pair layout: lane
-//                           l holds column l/4 of the n-tile and k pairs
-//                           2(l%4) and 2(l%4) + 8 of the block, which one
-//                           extraction of words r = l%4 + 4q yields as bf16x2
-//                           registers;
-//   a second mma against a B of ones gives sum_k x[m, k] in the same layout.
+// Decode (M <= 32), the streaming plan of stream.cuh. A cluster of C CTAs
+// owns COLS = 8 * WC output columns (WC = 16 or 32 a warp: one or two m16
+// tiles; the wrapper chooses, ops/quant_matmul.py: a16_decode_plan); CTA
+// `rank` walks K groups [rank*ng/C, (rank+1)*ng/C). Warp w owns WC of the
+// columns over all of the CTA's groups and streams their packed words and
+// combo words through a DEC_STAGES-deep cp.async ring of its own,
+// DEC_STAGES - 1 groups in flight, waiting on its own copies only: no block
+// barrier in the K loop. The product is taken transposed, out^T = W^T x^T:
+//   A (16 x 16)  off + codes of the lane's columns 16mt + row and + 8, exactly
+//                the pair layout's extractions of the staged words (as the
+//                prefill kernel's A fragments);
+//   B (16 x 8)   8 tokens of bf16 x, from the CTA's x slice staged in shared
+//                memory (past L1, once), so no row is padding at M = 8;
+//   sum(x_g)     in f32, once a CTA from its x slice (not in every warp),
+//                no second mma;
+//   fold         acc += part * s - sum(x_g) * (sz + off * s), s and sz
+//                decoded from the staged combo word (4 bytes a group column).
+// The C partial tiles are summed in rank order through distributed shared
+// memory, each CTA finishing 1/C of the tile: deterministic, no atomics.
 // ---------------------------------------------------------------------------
 
-constexpr int DEC_NT = 4;  // n-tiles of 8 columns a block: x is read once for all
-constexpr int DEC_COLS = 8 * DEC_NT;
+constexpr int DEC_G = 128;
+constexpr int DEC_STAGES = 4;     // a warp's ring: 3 groups in flight
+constexpr bool DEC_PDL = true;    // a programmatic dependent: rings fill as the kernel before ends
 
-template <typename T, int BITS, int TILES>
-__global__ void __launch_bounds__(kThreads)
-    qmm_decode_kernel(const __nv_bfloat16* __restrict__ x, const uint32_t* __restrict__ qw,
-                      const uint32_t* __restrict__ combo, T* __restrict__ out, int M, int K,
-                      int N) {
-  constexpr int G = 128;
-  constexpr int PACK = 32 / BITS;
-  constexpr int R = G / PACK;  // words a column a group
-  constexpr int WPL = R / 4;   // words a lane a group and n-tile
-  constexpr int BPI = R / 8;   // k-blocks of 16 one extraction spans
-  constexpr int NV = 4 * TILES * DEC_NT;  // accumulator values a lane
-  __shared__ float red[kWarps][32][NV];
-
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int quad = lane & 3;  // k pair (A, B) and column pair (C) in a fragment
-  const int row = lane >> 2;  // row (A, C) and column (B) in a fragment
-  const int n0 = blockIdx.x * DEC_COLS;
-  const int ng = K / G;
-
-  float acc[TILES][DEC_NT][4];
-#pragma unroll
-  for (int t = 0; t < TILES; ++t)
-#pragma unroll
-    for (int nt = 0; nt < DEC_NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[t][nt][e] = 0.f;
-
-  for (int g = warp; g < ng; g += kWarps) {
-    uint32_t words[DEC_NT][WPL];
-#pragma unroll
-    for (int nt = 0; nt < DEC_NT; ++nt) {
-      const int n = n0 + 8 * nt + row;  // this lane's B column
-#pragma unroll
-      for (int q = 0; q < WPL; ++q)
-        words[nt][q] = n < N ? __ldg(qw + (size_t(g) * R + 4 * q + quad) * N + n) : 0u;
-    }
-    float part[TILES][DEC_NT][4], xs[TILES][4];
-#pragma unroll
-    for (int t = 0; t < TILES; ++t)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        xs[t][e] = 0.f;
-#pragma unroll
-        for (int nt = 0; nt < DEC_NT; ++nt) part[t][nt][e] = 0.f;
-      }
-#pragma unroll
-    for (int j = 0; j < G / 16; ++j) {
-      const int i = j / BPI;
-      const int q = 2 * (j % BPI);
-      const int k = g * G + 16 * j + 2 * quad;
-#pragma unroll
-      for (int t = 0; t < TILES; ++t) {
-        const int m0 = 16 * t + row;
-        const __nv_bfloat16* x0 = x + size_t(m0) * K + k;
-        const __nv_bfloat16* x1 = x0 + size_t(8) * K;
-        const uint32_t a[4] = {load_pair(x0, m0 < M), load_pair(x1, m0 + 8 < M),
-                               load_pair(x0 + 8, m0 < M), load_pair(x1 + 8, m0 + 8 < M)};
-#pragma unroll
-        for (int nt = 0; nt < DEC_NT; ++nt)
-          mma_bf16(part[t][nt], a, extract_bits<BITS>(words[nt][q], i),
-                   extract_bits<BITS>(words[nt][q + 1], i));
-        mma_bf16(xs[t], a, kOnesBf16x2, kOnesBf16x2);  // sum_k x, any column
-      }
-    }
-#pragma unroll
-    for (int nt = 0; nt < DEC_NT; ++nt) {
-      float s[2] = {0.f, 0.f}, zc[2] = {0.f, 0.f};
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int n = n0 + 8 * nt + 2 * quad + c;  // this lane's C columns
-        if (n < N) {
-          float sz;
-          decode_combo(__ldg(combo + size_t(g) * N + n), s[c], sz);
-          zc[c] = sz + Trick<BITS>::kOffset * s[c];  // the +off of the codes
-        }
-      }
-#pragma unroll
-      for (int t = 0; t < TILES; ++t)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          acc[t][nt][e] = acc[t][nt][e] + part[t][nt][e] * s[e & 1] - xs[t][e] * zc[e & 1];
-    }
+template <int BITS, int TOK, int WC>
+struct Dec {
+  static constexpr int R = DEC_G * BITS / 32;     // word rows a group
+  static constexpr int MT = WC / 16;              // m16 tiles a warp
+  static constexpr int COLS = kWarps * WC;        // output columns a cluster
+  static constexpr int WLD = WC + 8;              // staged word row: fragment reads hit 32 banks
+  static constexpr int WSTAGE = R * WLD + WC;     // words, then combo words
+  static constexpr int MROWS = 8 * TOK;           // token rows: TOK n-tiles of 8
+  static constexpr int RED = MROWS * COLS * 4;    // the partial tile, over the drained rings
+  static constexpr int RINGS = kWarps * DEC_STAGES * WSTAGE * 4;
+  static constexpr int RING = RINGS > RED ? RINGS : RED;
+  // x row: lanes' tokens land 4 banks apart
+  __host__ __device__ static int xld(int ngs_max) { return ngs_max * DEC_G + 8; }
+  __host__ __device__ static size_t xbytes(int ngs_max) {
+    return size_t(MROWS) * xld(ngs_max) * 2;
   }
+  // the ring, the x slice, then its group sums [MROWS][ngs_max] f32
+  __host__ __device__ static size_t smem(int ngs_max) {
+    return RING + xbytes(ngs_max) + size_t(MROWS) * ngs_max * 4;
+  }
+};
 
+// Two CTAs an SM, but one at 32 token rows and 32 columns a warp (its 32
+// accumulators and 32 partials a thread, with the words, spill at 128
+// registers).
+template <int BITS, int TOK, int WC>
+__global__ void __launch_bounds__(kThreads, TOK == 4 && WC == 32 ? 1 : 2)
+    qmm_decode_stream_kernel(const __nv_bfloat16* __restrict__ x, const uint32_t* __restrict__ qw,
+                             const uint32_t* __restrict__ combo, __nv_bfloat16* __restrict__ out,
+                             int M, int K, int N, int ngs_max, int vec) {
+  using D = Dec<BITS, TOK, WC>;
+  constexpr int MROWS = D::MROWS, MT = D::MT, COLS = D::COLS;
+  constexpr int WPL = D::R / 4;  // words a lane a group and column
+  constexpr int BPI = D::R / 8;  // k-blocks of 16 one extraction spans
+  constexpr float kOff = Trick<BITS>::kOffset;
+  extern __shared__ __align__(16) uint8_t smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = gridDim.x, rank = blockIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int quad = lane & 3, row = lane >> 2;
+  const int n0 = blockIdx.y * COLS;
+  const int ng = K / DEC_G, g0 = rank * ng / C, ngs = (rank + 1) * ng / C - g0;
+  const int k0 = g0 * DEC_G, kn = ngs * DEC_G;
+  const int xld = D::xld(ngs_max);
+  uint32_t* ring = reinterpret_cast<uint32_t*>(smem) + warp * DEC_STAGES * D::WSTAGE;
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem + D::RING);
+  float* xsum_s = reinterpret_cast<float*>(smem + D::RING + D::xbytes(ngs_max));
+
+  // the lane's pieces of a group, 4 columns each: word piece lane + 32k (row
+  // r, column c of the warp's R x WC), combo piece lane (lanes < WC/4); the
+  // offsets and the columns' bounds do not change from group to group
+  constexpr int C4 = WC / 4, PW = D::R * C4 / 32;
+  const int wn = n0 + warp * WC, cc = (lane % C4) * 4;
+  const int c_ok = min(max(N - wn - cc, 0), 4);  // columns of a piece below N
+  int w_src[PW], w_dst[PW], w_ok[PW];
 #pragma unroll
-  for (int t = 0; t < TILES; ++t)
+  for (int k = 0; k < PW; ++k) {
+    const int i = lane + 32 * k, r = i / C4, c = (i % C4) * 4;
+    w_src[k] = r * N + wn + c;
+    w_dst[k] = r * D::WLD + c;
+    w_ok[k] = min(max(N - wn - c, 0), 4);
+  }
+  auto piece = [&](uint32_t* dst, const uint32_t* src, const uint32_t* any, int ok) {
+    if (vec) {
+      cp_async16(dst, ok ? src : any, ok * 4);
+    } else {
 #pragma unroll
-    for (int nt = 0; nt < DEC_NT; ++nt)
+      for (int e = 0; e < 4; ++e) cp_async4(dst + e, e < ok ? src + e : any, e < ok ? 4 : 0);
+    }
+  };
+  auto issue = [&](int j) {  // group g0 + j of this warp's columns; always one commit group
+    if (j < ngs) {
+      uint32_t* st = ring + (j % DEC_STAGES) * D::WSTAGE;
+      const uint32_t* src = qw + size_t(g0 + j) * D::R * N;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) red[warp][lane][(t * DEC_NT + nt) * 4 + e] = acc[t][nt][e];
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < 32 * NV; idx += kThreads) {
-    const int l = idx / NV;
-    const int v = idx - l * NV;
-    const int e = v & 3;
-    const int nt = (v / 4) % DEC_NT;
-    const int t = v / (4 * DEC_NT);
-    const int m = 16 * t + (l >> 2) + ((e & 2) ? 8 : 0);
-    const int n = n0 + 8 * nt + 2 * (l & 3) + (e & 1);
-    if (m < M && n < N) {
+      for (int k = 0; k < PW; ++k) piece(st + w_dst[k], src + w_src[k], qw, w_ok[k]);
+      if (lane < C4)
+        piece(st + D::R * D::WLD + cc, combo + size_t(g0 + j) * N + wn + cc, combo, c_ok);
+    }
+    cp_commit();
+  };
+#pragma unroll
+  for (int j = 0; j < DEC_STAGES - 1; ++j) issue(j);
+
+  grid_dep_wait();  // x is the previous kernel's (a no-op unless launched with PDL)
+  // this CTA's x slice, 16 bytes a load (4 in flight a thread), past L1, and
+  // its group sums: a group of a row is 16 consecutive loads, so 16
+  // consecutive lanes, summed by 4 shuffles
+  const int per = kn / 8, total = MROWS * per;  // total: a multiple of 16
+  for (int base = 0; base < total; base += 4 * kThreads) {
+    uint4 v[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int idx = base + u * kThreads + tid, r = idx / per;
+      const uint4* src = reinterpret_cast<const uint4*>(x + size_t(r) * K + k0) + (idx - r * per);
+      v[u] = idx < total && r < M ? __ldcg(src) : make_uint4(0u, 0u, 0u, 0u);
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int idx = base + u * kThreads + tid, r = idx / per, c = idx - r * per;
+      if (idx < total) *reinterpret_cast<uint4*>(xs + r * xld + c * 8) = v[u];
+      const uint32_t w[4] = {v[u].x, v[u].y, v[u].z, v[u].w};
       float sum = 0.f;
 #pragma unroll
-      for (int w = 0; w < kWarps; ++w) sum += red[w][l][v];
-      out[size_t(m) * N + n] = from_f32<T>(sum);
+      for (int e = 0; e < 4; ++e) {
+        const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[e]));
+        sum += f.x + f.y;
+      }
+#pragma unroll
+      for (int off = 1; off < 16; off <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      if (idx < total && c % 16 == 0) xsum_s[r * ngs_max + c / 16] = sum;
     }
   }
+  __syncthreads();  // the x slice and its group sums in shared memory
+
+  float acc[TOK][MT][4];
+#pragma unroll
+  for (int t = 0; t < TOK; ++t)
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[t][mt][e] = 0.f;
+
+  for (int j = 0; j < ngs; ++j) {
+    cp_wait<DEC_STAGES - 2>();  // this lane's copies of group j landed
+    __syncwarp();               // and the other lanes'; slot (j - 1) is free
+    issue(j + DEC_STAGES - 1);
+    const uint32_t* ws = ring + (j % DEC_STAGES) * D::WSTAGE;
+    uint32_t w[MT][2][WPL];  // words of the lane's columns 16mt + row and 16mt + row + 8
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int q = 0; q < WPL; ++q)
+          w[mt][h][q] = ws[(4 * q + quad) * D::WLD + 16 * mt + 8 * h + row];
+    float part[TOK][MT][4];
+#pragma unroll
+    for (int t = 0; t < TOK; ++t) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[t][mt][e] = 0.f;
+    }
+#pragma unroll
+    for (int kb = 0; kb < DEC_G / 16; ++kb) {
+      const int i = kb / BPI;
+      const int q = 2 * (kb % BPI);
+      uint32_t a[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        a[mt][0] = extract_bits<BITS>(w[mt][0][q], i);
+        a[mt][1] = extract_bits<BITS>(w[mt][1][q], i);
+        a[mt][2] = extract_bits<BITS>(w[mt][0][q + 1], i);
+        a[mt][3] = extract_bits<BITS>(w[mt][1][q + 1], i);
+      }
+#pragma unroll
+      for (int t = 0; t < TOK; ++t) {  // token row 8t + row, k = 16kb + 2quad (+8)
+        const __nv_bfloat16* xr = xs + (8 * t + row) * xld + j * DEC_G + 16 * kb + 2 * quad;
+        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(xr);
+        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(xr + 8);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) mma_bf16(part[t][mt], a[mt], b0, b1);
+      }
+    }
+    // the lane's accumulators: columns 16mt + row, + 8 (e >> 1) x tokens 8t + 2quad, + 1 (e & 1)
+    const uint32_t* cs = ws + D::R * D::WLD;
+    float s[MT][2], zc[MT][2];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float sz;
+        decode_combo(cs[16 * mt + 8 * h + row], s[mt][h], sz);
+        zc[mt][h] = sz + kOff * s[mt][h];  // the +off of the codes
+      }
+#pragma unroll
+    for (int t = 0; t < TOK; ++t) {
+      const float* xq = xsum_s + (8 * t + 2 * quad) * ngs_max + j;  // sum(x_g) of the tokens
+      const float xt[2] = {xq[0], xq[ngs_max]};
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[t][mt][e] = acc[t][mt][e] + part[t][mt][e] * s[mt][e >> 1] -
+                          xt[e & 1] * zc[mt][e >> 1];
+    }
+  }
+
+  // the partial tile over the drained rings, then the cluster's sum in rank order
+  cp_wait<0>();
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(smem);  // [MROWS][COLS]
+#pragma unroll
+  for (int t = 0; t < TOK; ++t)
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        red[(8 * t + 2 * quad + (e & 1)) * COLS + warp * WC + 16 * mt + 8 * (e >> 1) + row] =
+            acc[t][mt][e];
+  cluster.sync();
+  const int e0 = rank * MROWS * COLS / C, e1 = (rank + 1) * MROWS * COLS / C;
+  for (int idx = e0 + tid; idx < e1; idx += kThreads) {
+    const int r = idx / COLS, n = n0 + idx % COLS;
+    if (r < M && n < N) {
+      float part[kMaxCluster];
+#pragma unroll
+      for (int q = 0; q < kMaxCluster; ++q)  // all loads in flight, then the sum in rank order
+        if (q < C) part[q] = cluster.map_shared_rank(red, q)[idx];
+      float sum = 0.f;
+#pragma unroll
+      for (int q = 0; q < kMaxCluster; ++q)
+        if (q < C) sum += part[q];
+      out[size_t(r) * N + n] = __float2bfloat16(sum);
+    }
+  }
+  cluster.sync();  // no CTA leaves while a peer still reads its shared memory
 }
 
 // ---------------------------------------------------------------------------
@@ -183,7 +301,7 @@ __global__ void __launch_bounds__(kThreads)
 //     group g computes;
 //   * A fragments straight from the words: under the pair layout one
 //     extraction is the bf16x2 (off + q) of two consecutive k of a column,
-//     exactly a register of the m16n8k16 A layout (as the decode kernel's B);
+//     exactly a register of the m16n8k16 A layout (as in the decode kernel);
 //   * part = x_g . (off + q)_g is a fresh f32 wgmma accumulator a group
 //     (scale-d 0 on its first k-step), folded in registers:
 //       acc += part * s - xsum * (sz + off * s),
@@ -384,45 +502,51 @@ cudaError_t launch_prefill_tm(const void* x, const void* qw, const void* combo, 
   return cudaErrorInvalidValue;
 }
 
-template <typename T, int BITS, int TILES>
+template <int BITS, int TOK, int WC>
 cudaError_t launch_decode(const void* x, const void* qw, const void* combo, void* out, int M,
-                          int K, int N, cudaStream_t stream) {
-  dim3 grid((N + DEC_COLS - 1) / DEC_COLS);
-  qmm_decode_kernel<T, BITS, TILES><<<grid, kThreads, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const uint32_t*>(qw),
-      static_cast<const uint32_t*>(combo), static_cast<T*>(out), M, K, N);
-  return cudaGetLastError();
+                          int K, int N, int cluster, cudaStream_t stream) {
+  using D = Dec<BITS, TOK, WC>;
+  const int ngs_max = (K / DEC_G + cluster - 1) / cluster;
+  const int vec = N % 4 == 0 && aligned16(qw) && aligned16(combo);
+  return launch_cluster(qmm_decode_stream_kernel<BITS, TOK, WC>,
+                        dim3(cluster, (N + D::COLS - 1) / D::COLS, 1), cluster, D::smem(ngs_max),
+                        DEC_PDL, stream, static_cast<const __nv_bfloat16*>(x),
+                        static_cast<const uint32_t*>(qw), static_cast<const uint32_t*>(combo),
+                        static_cast<__nv_bfloat16*>(out), M, K, N, ngs_max, vec);
 }
 
-template <typename T, int BITS, int G>
-cudaError_t launch_decode_mt(const void* x, const void* qw, const void* combo, void* out,
-                             int M, int K, int N, cudaStream_t stream) {
-  if (M <= 16) return launch_decode<T, BITS, 1>(x, qw, combo, out, M, K, N, stream);
-  return launch_decode<T, BITS, 2>(x, qw, combo, out, M, K, N, stream);
+// 8, 16 or 32 token rows a CTA
+template <int BITS, int WC>
+cudaError_t launch_decode_mt(const void* x, const void* qw, const void* combo, void* out, int M,
+                             int K, int N, int cluster, cudaStream_t s) {
+  if (M <= 8) return launch_decode<BITS, 1, WC>(x, qw, combo, out, M, K, N, cluster, s);
+  if (M <= 16) return launch_decode<BITS, 2, WC>(x, qw, combo, out, M, K, N, cluster, s);
+  return launch_decode<BITS, 4, WC>(x, qw, combo, out, M, K, N, cluster, s);
 }
-
-// x and out are bfloat16; the wrapper raises for other dtypes
-// and groups are 128 wide (the serving path's int2-g128 / int4-g128)
-#define BD_DISPATCH(LAUNCH, ...)                                                    \
-  do {                                                                              \
-    if (group != 128) return cudaErrorInvalidValue;                                 \
-    if (bits == 2) return LAUNCH<__nv_bfloat16, 2, 128>(__VA_ARGS__);                 \
-    if (bits == 4) return LAUNCH<__nv_bfloat16, 4, 128>(__VA_ARGS__);                 \
-    return cudaErrorInvalidValue;                                                   \
-  } while (0)
 
 }  // namespace
 
 extern "C" {
 
-// x [M, K], qweight [K/pack, N] (one layer: the caller offsets a stacked
-// array to layer li), combo [K/G, N], out [M, N]; all row-major, contiguous.
-// Returns cudaGetLastError() after the launch (0 = launched).
+// x [M, K] bf16, 16-byte aligned; qweight [K/pack, N] int32 (one layer: the
+// caller offsets a stacked array to layer li), combo [K/G, N] int32, out
+// [M, N] bf16; all row-major, contiguous; G = 128, bits 2 or 4, M <= 32.
+// Clusters of 1 <= cluster <= min(8, K/G) CTAs, warp_cols (16 or 32)
+// columns a warp (ops/quant_matmul.py: a16_decode_plan); a cluster the card
+// cannot hold launches nothing and returns its error. Returns 0 once
+// launched, else the CUDA error.
 int bd_qmm_decode(const void* x, const void* qweight, const void* combo, void* out, int M,
-                  int K, int N, int bits, int group, void* stream) {
-  if (M < 1 || M > 32 || K % group != 0) return cudaErrorInvalidValue;
+                  int K, int N, int bits, int group, int cluster, int warp_cols, void* stream) {
+  if (M < 1 || M > 32 || N < 1 || group != DEC_G || K % DEC_G != 0 || (bits != 2 && bits != 4) ||
+      !aligned16(x) || cluster < 1 || cluster > kMaxCluster || cluster > K / DEC_G ||
+      (warp_cols != 16 && warp_cols != 32))
+    return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  BD_DISPATCH(launch_decode_mt, x, qweight, combo, out, M, K, N, s);
+  if (bits == 2)
+    return warp_cols == 16 ? launch_decode_mt<2, 16>(x, qweight, combo, out, M, K, N, cluster, s)
+                           : launch_decode_mt<2, 32>(x, qweight, combo, out, M, K, N, cluster, s);
+  return warp_cols == 16 ? launch_decode_mt<4, 16>(x, qweight, combo, out, M, K, N, cluster, s)
+                         : launch_decode_mt<4, 32>(x, qweight, combo, out, M, K, N, cluster, s);
 }
 
 // The same for the prefill kernels (any M; the wrapper sends M > 32), with

@@ -8,6 +8,8 @@ head-major cache [L, B, Hkv, T, D] (bf16, or int8 codes with raw f32 scales
 t < attn_len; with a window only t > start - window); the fresh k/v of the
 token at position `start` is folded in last. Softmax in f32.
 
+On the card each (slot, kv head)'s valid rows are split over a thread block
+cluster of `attention_plan` CTAs, merged in rank order inside the kernel.
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
 launches the kernel or raises.
 """
@@ -22,10 +24,20 @@ from typing import Optional
 import torch
 
 from . import _build
+from .quant_matmul import MAX_CLUSTER, _sm_count
 
 _NEG = -1e30
 KERNEL_REPS = (1, 2, 4, 8)
 KERNEL_HEAD_DIMS = (32, 64, 128)
+
+
+def attention_plan(b: int, hkv: int, sms: int) -> int:
+    """Cluster size C of the decode attention kernel: the valid rows of each
+    of the b * hkv (slot, kv head) pairs are split into C contiguous runs,
+    one a CTA. The largest C, at most MAX_CLUSTER, whose b * hkv * C CTAs
+    all fit on the card's `sms` SMs at once, two an SM: a second wave would
+    pay every CTA's fixed latency (start, merges, cluster barriers) again."""
+    return max(1, min(MAX_CLUSTER, 2 * sms // (b * hkv)))
 
 
 def decode_attention_plain(
@@ -76,7 +88,8 @@ def decode_attention_plain(
 @functools.lru_cache(maxsize=None)
 def _launcher():
     fn = _build.load("decode_attention").bd_flash_decode
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -107,6 +120,8 @@ def launch_layer(q, ck, cv, k_scale, v_scale, k_new, v_new, start, window, attn_
         raise ValueError("fresh k/v must have q's dtype")
     if not (ck.is_contiguous() and cv.is_contiguous()):
         raise ValueError("the cache must be contiguous")
+    if ck.data_ptr() % 16 or cv.data_ptr() % 16:
+        raise ValueError("the kernel copies cache rows 16 bytes at a time: align the cache")
     if quantized and not (k_scale.dtype == v_scale.dtype == torch.float32
                           and k_scale.is_contiguous() and v_scale.is_contiguous()
                           and k_scale.shape == v_scale.shape == (b, hkv, t)):
@@ -123,7 +138,7 @@ def launch_layer(q, ck, cv, k_scale, v_scale, k_new, v_new, start, window, attn_
         v_scale.data_ptr() if quantized else None,
         kn.data_ptr(), vn.data_ptr(), st.data_ptr(), out.data_ptr(),
         int(quantized), b, hkv, rep, t, d, t_lim,
-        window or 0, 1.0 / math.sqrt(d),
+        window or 0, 1.0 / math.sqrt(d), attention_plan(b, hkv, _sm_count(q.device.index or 0)),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(err, "bd_flash_decode")

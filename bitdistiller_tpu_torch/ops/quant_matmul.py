@@ -14,9 +14,9 @@ turns it on for serving: `maybe_repack_a8` then repacks every packed leaf
 once into the A8 byte order, and `quant_matmul` sends every packed matmul
 through it.
 
-Up to DECODE_MAX_M rows a call runs a decode kernel (the A8 one streams
-the words through clusters that split K, `decode_plan`); above, a prefill
-kernel (Hopper wgmma tiles fed by TMA, `prefill_tile_m` rows by 128
+Up to DECODE_MAX_M rows a call runs a decode kernel (A16 and A8 alike
+stream the words through clusters that split K, `decode_plan`); above, a
+prefill kernel (Hopper wgmma tiles fed by TMA, `prefill_tile_m` rows by 128
 columns), after a pass that sums x over each group into scratch the wrapper
 allocates. `qmm_prefill.launches` counts A16 prefill calls,
 `qmm_a8.launches` every A8 call and `qmm_a8.prefill_launches` the A8 calls
@@ -55,17 +55,31 @@ def prefill_tile_m(m: int, n: int, sms: int) -> int:
 
 MAX_CLUSTER = 8  # the largest portable thread block cluster
 A8_DECODE_COLS = 256  # output columns a cluster of the A8 decode kernel
+A16_WARP_COLS = (32, 16)  # columns a warp of the A16 decode kernel, in order of preference
 
 
 def decode_plan(n: int, groups: int, sms: int, cols: int = A8_DECODE_COLS) -> int:
-    """Cluster size of the streaming decode kernels (the A8 matmul at
-    M <= 32, both launches of the fused MLP): a cluster of CTAs owns `cols`
-    output columns and splits their `groups` K groups, at most one group a
-    CTA and MAX_CLUSTER CTAs a cluster. The smallest cluster that puts two
-    CTAs on each of the card's `sms` SMs, so that every SM holds two CTAs'
-    loads in flight, else the largest."""
+    """Cluster size of the streaming decode kernels (the A16 and A8 matmuls
+    at M <= 32, both launches of the fused MLP): a cluster of CTAs owns
+    `cols` output columns and splits their `groups` K groups, at most one
+    group a CTA and MAX_CLUSTER CTAs a cluster. The smallest cluster that
+    puts two CTAs on each of the card's `sms` SMs, so that every SM holds
+    two CTAs' loads in flight, else the largest."""
     tiles, cap = -(-n // cols), min(MAX_CLUSTER, groups)
     return next((c for c in range(1, cap + 1) if tiles * c >= 2 * sms), cap)
+
+
+def a16_decode_plan(n: int, groups: int, sms: int) -> tuple[int, int]:
+    """(cluster size, columns a warp) of the A16 decode kernel, whose 8
+    warps own 8 * warp_cols output columns a cluster: 32 columns a warp (a
+    word row is a 128-byte line) where `decode_plan`'s clusters of 256
+    columns put two CTAs on every SM, else 16 (twice the clusters: o and
+    down of the 7B, N = 4096), on `decode_plan`'s cluster for that tile."""
+    for wc in A16_WARP_COLS:
+        cluster = decode_plan(n, groups, sms, cols=8 * wc)
+        if -(-n // (8 * wc)) * cluster >= 2 * sms:
+            break
+    return cluster, wc
 
 
 @functools.lru_cache(maxsize=None)
@@ -105,8 +119,8 @@ def quant_matmul_plain(
 def _launcher(fn_name: str):
     lib = _build.load("quant_matmul")
     fn = getattr(lib, fn_name)
-    # prefill: + xsum scratch and the tile's rows
-    n_ptr, n_int = (5, 6) if fn_name == "bd_qmm_prefill" else (4, 5)
+    # decode: + cluster and columns a warp; prefill: + xsum scratch and the tile's rows
+    n_ptr, n_int = (5, 6) if fn_name == "bd_qmm_prefill" else (4, 7)
     fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -137,35 +151,34 @@ def _check_args(x, qweight, combo, bits, group_size):
         raise ValueError("the kernel takes row-major contiguous x, qweight and combo")
 
 
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """x, or a copy of it, at a 16-byte aligned address (the kernels load x
+    16 bytes at a time)."""
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
 def group_sums_scratch(m: int, k: int, dtype, device) -> torch.Tensor:
     """The prefill kernels' scratch for x's group sums: [K/128, round_up(M, 4)]."""
     return torch.empty((k // 128, -(-m // 4) * 4), dtype=dtype, device=device)
 
 
-def _launch(fn_name, x, qweight, combo, bits, group_size, prefill=False):
+def qmm_decode(x, qweight, combo, bits: int, group_size: int) -> torch.Tensor:
+    """Decode kernel (M <= 32): x [M, K] @ packed [K, N] on the card, on
+    `a16_decode_plan`'s clusters."""
     _check_args(x, qweight, combo, bits, group_size)
     m, k = x.shape
     n = qweight.shape[-1]
+    if m > DECODE_MAX_M:
+        raise ValueError(f"decode kernel takes M <= {DECODE_MAX_M}, got {m}")
+    x = _aligned(x)
+    cluster, warp_cols = a16_decode_plan(n, k // group_size, _sm_count(x.device.index or 0))
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    if prefill:
-        xsum = group_sums_scratch(m, k, torch.float32, x.device)
-        ptrs, tile = (combo.data_ptr(), xsum.data_ptr()), (_tile_m(x, n),)
-    else:
-        ptrs, tile = (combo.data_ptr(),), ()
-    err = _launcher(fn_name)(
-        x.data_ptr(), qweight.data_ptr(), *ptrs, out.data_ptr(),
-        m, k, n, bits, group_size, *tile,
+    err = _launcher("bd_qmm_decode")(
+        x.data_ptr(), qweight.data_ptr(), combo.data_ptr(), out.data_ptr(),
+        m, k, n, bits, group_size, cluster, warp_cols,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
-    _build.check(err, fn_name)
-    return out
-
-
-def qmm_decode(x, qweight, combo, bits: int, group_size: int) -> torch.Tensor:
-    """Decode kernel (M <= 32): x [M, K] @ packed [K, N] on the card."""
-    if x.shape[0] > DECODE_MAX_M:
-        raise ValueError(f"decode kernel takes M <= {DECODE_MAX_M}, got {x.shape[0]}")
-    out = _launch("bd_qmm_decode", x, qweight, combo, bits, group_size)
+    _build.check(err, "bd_qmm_decode")
     qmm_decode.launches += 1
     return out
 
@@ -173,7 +186,17 @@ def qmm_decode(x, qweight, combo, bits: int, group_size: int) -> torch.Tensor:
 def qmm_prefill(x, qweight, combo, bits: int, group_size: int) -> torch.Tensor:
     """Prefill kernel (wgmma tiles, any M; N a multiple of 4): x [M, K] @
     packed [K, N] on the card."""
-    out = _launch("bd_qmm_prefill", x, qweight, combo, bits, group_size, prefill=True)
+    _check_args(x, qweight, combo, bits, group_size)
+    m, k = x.shape
+    n = qweight.shape[-1]
+    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    xsum = group_sums_scratch(m, k, torch.float32, x.device)
+    err = _launcher("bd_qmm_prefill")(
+        x.data_ptr(), qweight.data_ptr(), combo.data_ptr(), xsum.data_ptr(), out.data_ptr(),
+        m, k, n, bits, group_size, _tile_m(x, n),
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _build.check(err, "bd_qmm_prefill")
     qmm_prefill.launches += 1
     return out
 
@@ -374,12 +397,6 @@ def _a8_launcher():
     fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
-
-
-def _aligned(x: torch.Tensor) -> torch.Tensor:
-    """x, or a copy of it, at a 16-byte aligned address (the kernels load x
-    16 bytes at a time)."""
-    return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
 def qmm_a8(x, qweight, scales, szeros, bits: int, group_size: int, a8_order: bool,

@@ -21,25 +21,27 @@ line. The second-to-last line is the kernels' JSON record; the last line is
 Tolerances (kernel vs plain version on the same inputs):
   * integer-valued activations and weights: exact (every product and partial
     sum is an integer below 2^24 in f32, so summation order cannot matter),
-    at M = 8, 33, 200, 256 and 4096 (the decode kernels up to 32 rows, the
+    at M = 1, 8, 16, 17, 32, 33, 200, 256 and 4096 (the streaming decode
+    kernels' one, two and four 8-token tiles up to 32 rows, ragged too; the
     wgmma prefill kernels above, ragged and whole tiles);
   * bf16 activations, packed matmul: max|kernel - plain| <= 1e-2 * max|plain|
     (both round an f32 sum to bf16: one bf16 ulp is 2^-8 relative, and the
     f32 sums differ in order);
   * A8 matmul: integer-valued x with one 127 a row (per-token scale 1):
-    exact, at M = 1, 8, 16, 17 and 32 too (the streaming decode kernel's
-    one, two and four 8-token tiles); bf16 x: max|kernel - plain| <= 1e-2 *
-    max|plain| (as above);
+    exact, at the same M; bf16 x: max|kernel - plain| <= 1e-2 * max|plain|
+    (as above);
   * fused MLP, M = 1, 8, 33, 128: max|kernel - plain| <= 1e-2 * max|plain|
     (bf16 output, f32 sums in another order and tile grouping, mid rounded
     to bf16 after an activation whose last f32 bit may differ);
-  * the streaming decode kernels (A8 at M <= 32, the fused MLP): a second
-    call on the same inputs gives the same bytes (sums in a fixed order, no
-    atomics);
+  * the streaming decode kernels (A16 and A8 at M <= 32, the fused MLP) and
+    the decode attention: a second call on the same inputs gives the same
+    bytes (sums and merges in a fixed order, no atomics);
   * decode attention, stacked and per layer: max abs error <= 2e-2 on O(1)
     outputs (the prob row is rounded to bf16 against per-warp running maxima
     in the kernel and against one global maximum in the plain version; one
-    bf16 ulp of a prob);
+    bf16 ulp of a prob), on the cases the cluster split creates too (fewer
+    rows than CTAs, one long slot beside empty ones, a window across a CTA
+    boundary);
   * HBM probe: |kernel - plain| <= 1e-6 * (the same sum over |x|): f32 sums
     of 2^30 elements in another order differ by about 1e-10 of it, while a
     kernel that skipped 1% of the normal planes would be off by about 2e-6;
@@ -97,11 +99,14 @@ MLP_TOL = 1e-2
 ATTN_TOL = 2e-2
 PROBE_TOL = 1e-6
 LOGIT_TOL = 5e-2
-CHECK_M = (8, 33, 200, 256, 4096)  # decode cap 32; 200 ragged against both prefill tiles
-A8_CHECK_M = (1, 8, 16, 17, 32) + CHECK_M[1:]  # the A8 decode kernel: 1, 2 and 4 token tiles
+# decode kernels up to 32 rows (1, 2 and 4 token tiles, 17 ragged); 200 ragged
+# against both prefill tiles
+CHECK_M = (1, 8, 16, 17, 32, 33, 200, 256, 4096)
 MLP_CHECK_M = (1, 8, 33, 128)
 PREFILL_M = 4096  # the engine's first prefill: 8 prompts in the 512 bucket
 REQ_LENS = [64, 512, 200, 333, 128, 480, 96, 256, 400, 150, 64, 300]
+TABLE_STARTS = [2047, 1900, 1536, 1024, 700, 512, 300, 64]  # long, skewed: 8083 rows
+PATH_STARTS = [n + 32 for n in REQ_LENS[-8:]]  # the steady decode step's slots: 2130 rows
 
 
 def say(msg: str) -> None:
@@ -183,6 +188,8 @@ def plain_matmul(x, p: PackedLinear, li: int):
 
 
 def check_matmuls(gen, record):
+    """B1/B2 on layer 1 of a stack: int2 and int4, the four 7B shapes, M in
+    CHECK_M; at M = 8 on bf16 x a second call must give the same bytes."""
     worst = 0.0
     for bits in (2, 4):
         for name, (k, n) in SHAPES.items():
@@ -194,6 +201,8 @@ def check_matmuls(gen, record):
                     else:
                         x = torch.randn((m, k), device=DEV, generator=gen).bfloat16()
                     got = qm.quant_matmul(x, p, 1)  # layer 1 of a stack, in place
+                    if m == 8 and not integer and not torch.equal(got, qm.quant_matmul(x, p, 1)):
+                        raise AssertionError(f"packed matmul {name} bits={bits}: two calls differ")
                     want = by_rows(lambda xr: plain_matmul(xr, p, 1), x)
                     err = (got.float() - want.float()).abs().max().item()
                     scale = want.float().abs().max().item()
@@ -234,18 +243,31 @@ def mixed_starts(b, t):
 def check_attention(gen, record):
     """B3 (stacked, layer 1 of 2) on bf16 and int8 caches, and B6 (the
     per-layer entry, bf16 only: the card takes a bf16 cache there) on the
-    same bf16 inputs; returns the worst bf16 MHA error of each."""
+    same bf16 inputs; the stacked call twice, which must give the same
+    bytes. Besides mixed starts, the cases the split over a cluster creates
+    where `attention_plan` splits (GQA rep 8 at batch 8, and batch 1: clusters
+    of 8; the 7B at batch 8 runs one CTA a pair): every slot with fewer rows
+    than CTAs, one long slot beside empty ones, a window across CTA
+    boundaries, attn_len < T. Returns the worst bf16 MHA error of each entry."""
+    mha = dict(b=8, hq=32, hkv=32, t=2048, d=128, window=None, attn_len=None)
+    rep8 = dict(mha, hkv=4)
     cases = [
-        dict(b=8, hq=32, hkv=32, t=2048, d=128, window=None, attn_len=None),
-        dict(b=8, hq=32, hkv=8, t=2048, d=128, window=None, attn_len=None),  # GQA
-        dict(b=8, hq=32, hkv=4, t=2048, d=128, window=None, attn_len=None),  # GQA rep 8
-        dict(b=8, hq=32, hkv=32, t=2048, d=128, window=256, attn_len=None),
+        mha,
+        dict(mha, hkv=8),  # GQA
+        rep8,  # GQA rep 8
+        dict(mha, window=256),
         dict(b=4, hq=8, hkv=4, t=512, d=64, window=None, attn_len=384),
+        dict(mha, starts=[0, 1, 2, 3, 4, 5, 6, 7]),  # tiny slots, one CTA each
+        dict(rep8, starts=[0, 1, 2, 3, 5, 7, 8, 9]),  # fewer rows than CTAs
+        dict(rep8, starts=[2047, 0, 0, 0, 0, 0, 0, 0]),  # one long slot
+        dict(mha, b=1, starts=[2047]),
+        dict(rep8, window=300, starts=[1000, 2047, 1500, 301, 299, 5, 700, 1200]),
     ]
     worst = {"stacked": 0.0, "per_layer": 0.0}
     for kv in ("bf16", "int8"):
         for c in cases:
-            starts = mixed_starts(c["b"], (c["attn_len"] or c["t"]) - 1)
+            c = dict(c)
+            starts = c.pop("starts", None) or mixed_starts(c["b"], (c["attn_len"] or c["t"]) - 1)
             q, ck, cv, kn, vn, st, ks, vs = attn_inputs(gen, c["b"], c["hq"], c["hkv"], c["t"],
                                                         c["d"], kv, starts)
             kw = dict(window=c["window"], attn_len=c["attn_len"])
@@ -257,8 +279,11 @@ def check_attention(gen, record):
                 runs["per_layer"] = lambda: fd1.flash_decode_attention(
                     q, ck[1], cv[1], kn, vn, st, **kw)
             for entry, run in runs.items():
-                err = (run().float() - want.float()).abs().max().item()
-                record.append(dict(kv=kv, entry=entry, **c, max_abs_err=err,
+                got = run()
+                if entry == "stacked" and not torch.equal(got, run()):
+                    raise AssertionError(f"decode attention {kv} {c}: two calls differ")
+                err = (got.float() - want.float()).abs().max().item()
+                record.append(dict(kv=kv, entry=entry, **c, starts=starts, max_abs_err=err,
                                    ok=err <= ATTN_TOL))
                 if not err <= ATTN_TOL:  # NaN fails too
                     raise AssertionError(f"decode attention {entry} {kv} {c}: max|err|={err}")
@@ -269,7 +294,7 @@ def check_attention(gen, record):
 
 def check_a8(gen, record):
     """B4 on layer 1 of a stack: int2 and int4, the four 7B shapes, M in
-    A8_CHECK_M, pair-layout words (x permuted per call) and repacked ones;
+    CHECK_M, pair-layout words (x permuted per call) and repacked ones;
     at M = 8 on bf16 x a second call must give the same bytes."""
     worst = 0.0
     for bits in (2, 4):
@@ -278,7 +303,7 @@ def check_a8(gen, record):
                 pair = rand_stacked(gen, 2, k, n, bits, integer)
                 for w in (pair, qm.repack_linear_a8(pair)):
                     lay = w.layer(1)
-                    for m in A8_CHECK_M:
+                    for m in CHECK_M:
                         if integer:  # one 127 a row: the per-token scale is 1
                             x = torch.randint(-3, 4, (m, k), device=DEV, generator=gen).float()
                             x[:, 0] = 127.0
@@ -313,9 +338,10 @@ def time_matmuls(gen, m, bw, detail):
     through `quant_matmul`. Weights cycle through enough stacked layers
     (> 100 MB) that every call reads them from HBM, as the layer loop does;
     the plain version and the library call (torch.matmul on a dequantized
-    bf16 weight) run on layer 0. Above 32 rows the raw call is the prefill
-    kernels' (the x group sums, then the wgmma kernel) at the tile the
-    wrapper chooses."""
+    bf16 weight) run on layer 0. Up to 32 rows the raw call is the streaming
+    decode kernel on `a16_decode_plan`'s cluster and columns a warp; above,
+    the prefill kernels' (the x group sums, then the wgmma kernel) at the
+    tile the wrapper chooses."""
     tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0, flops=0.0)
     prefill = m > qm.DECODE_MAX_M
     fn = qm._launcher("bd_qmm_prefill" if prefill else "bd_qmm_decode")
@@ -329,11 +355,11 @@ def time_matmuls(gen, m, bw, detail):
         out = torch.empty((m, n), dtype=torch.bfloat16, device=DEV)
         if prefill:
             xsum = qm.group_sums_scratch(m, k, torch.float32, DEV)
-            extra, tile = (xsum.data_ptr(),), (qm._tile_m(x, n),)
+            extra, plan = (xsum.data_ptr(),), (qm._tile_m(x, n),)
         else:
-            extra, tile = (), ()
+            extra, plan = (), qm.a16_decode_plan(n, k // GROUP, qm._sm_count(0))
         args = [(x.data_ptr(), p.qweight[i].data_ptr(), p.combo[i].data_ptr(), *extra,
-                 out.data_ptr(), m, k, n, BITS, GROUP, *tile, stream) for i in range(layers)]
+                 out.data_ptr(), m, k, n, BITS, GROUP, *plan, stream) for i in range(layers)]
         _build.check(fn(*args[0]), "raw launch")
         ms = cuda_ms(lambda i: fn(*args[i % layers]), 50)
         wrapper = cuda_ms(lambda i: qm.quant_matmul(x, p, i % layers), 50)
@@ -344,7 +370,9 @@ def time_matmuls(gen, m, bw, detail):
         flops = 2.0 * m * k * n
         b, by = bound_ms(nbytes, flops)
         detail.append(dict(kernel="qmm_prefill" if prefill else "qmm_decode", shape=name, m=m,
-                           k=k, n=n, tile_m=tile[0] if tile else None, ms=ms,
+                           k=k, n=n, tile_m=plan[0] if prefill else None,
+                           cluster=None if prefill else plan[0],
+                           warp_cols=None if prefill else plan[1], ms=ms,
                            wrapper_ms=wrapper, plain_ms=plain, library_ms=lib, bound_ms=b,
                            bound_by=by, bound_measured_bw_ms=nbytes / bw * 1e3))
         tot["ms"] += ms
@@ -356,14 +384,16 @@ def time_matmuls(gen, m, bw, detail):
     return tot
 
 
-def time_attention(gen, bw, detail, per_layer: bool):
+def time_attention(gen, bw, detail, per_layer: bool, starts=TABLE_STARTS):
     """B3 on layer i % 2 of a stacked cache, or (per_layer) B6, the per-layer
     entry, on two separate [B, Hkv, T, D] caches: the same work and the same
-    kernel. `ms` is the raw launcher (as for the matmuls), `wrapper_ms` the
-    entry point; the library yardstick is SDPA over the same layer's cache
-    with a row mask (it reads all T rows and does not fold the fresh token)."""
+    kernel, 7B heads, batch 8, T = 2048, the slots at `starts` (the table's
+    long skewed work, or the steady decode step's lengths). `ms` is the raw
+    launcher on `attention_plan`'s clusters (as for the matmuls),
+    `wrapper_ms` the entry point; the library yardstick is SDPA over the same
+    layer's cache with a row mask (it reads all T rows and does not fold the
+    fresh token)."""
     b, hq, hkv, t, d = 8, 32, 32, 2048, 128
-    starts = [2047, 1900, 1536, 1024, 700, 512, 300, 64]
     q, ck, cv, kn, vn, st, _, _ = attn_inputs(gen, b, hq, hkv, t, d, "bf16", starts, layers=2)
     if per_layer:
         caches = [(ck[i].clone(), cv[i].clone()) for i in range(2)]
@@ -375,9 +405,10 @@ def time_attention(gen, bw, detail, per_layer: bool):
     fn = da._launcher()
     out = torch.empty((b, hq, d), dtype=torch.bfloat16, device=DEV)
     stream = torch.cuda.current_stream().cuda_stream
+    cluster = da.attention_plan(b, hkv, qm._sm_count(0))
     args = [(q.data_ptr(), k.data_ptr(), v.data_ptr(), None, None, kn.data_ptr(), vn.data_ptr(),
              st.data_ptr(), out.data_ptr(), 0, b, hkv, hq // hkv, t, d, t, 0,
-             1.0 / math.sqrt(d), stream) for k, v in caches]
+             1.0 / math.sqrt(d), cluster, stream) for k, v in caches]
     _build.check(fn(*args[0]), "raw launch")
     ms = cuda_ms(lambda i: fn(*args[i % 2]), 50)
     wrapper = cuda_ms(entry, 50)
@@ -391,7 +422,8 @@ def time_attention(gen, bw, detail, per_layer: bool):
     nbytes = 2 * rows * hkv * d * 2 + 2 * b * hq * d * 2 + 2 * b * hkv * d * 2
     bnd, by = bound_ms(nbytes, 4.0 * rows * hq * d)
     rec = dict(entry="flash_decode_attention" if per_layer else "flash_decode_stacked", b=b,
-               hq=hq, hkv=hkv, t=t, d=d, starts=starts, ms=ms, wrapper_ms=wrapper,
+               hq=hq, hkv=hkv, t=t, d=d, starts=starts, rows=rows, cluster=cluster, ms=ms,
+               wrapper_ms=wrapper,
                plain_ms=plain, library_ms=lib, bound_ms=bnd, bound_by=by,
                bound_measured_bw_ms=nbytes / bw * 1e3)
     detail.append(rec)
@@ -847,7 +879,7 @@ def main() -> int:
     with Phase("A8 matmul vs plain"):
         summary["a8_checks"] = []
         a8_rel = check_a8(gen, summary["a8_checks"])
-        say(f"{len(summary['a8_checks'])} cases (pair-layout and repacked words, M={A8_CHECK_M}); "
+        say(f"{len(summary['a8_checks'])} cases (pair-layout and repacked words, M={CHECK_M}); "
             f"integer inputs exact; two calls equal at M=8; worst bf16 relative error at int2 "
             f"{a8_rel:.3g}")
 
@@ -876,6 +908,8 @@ def main() -> int:
         summary["attention_times"] = []
         att = time_attention(gen, bw, summary["attention_times"], per_layer=False)
         att1 = time_attention(gen, bw, summary["attention_times"], per_layer=True)
+        att_path = time_attention(gen, bw, summary["attention_times"], per_layer=False,
+                                  starts=PATH_STARTS)
         for r in summary["matmul_times"] + summary["attention_times"]:
             say(json.dumps({k: (round(v, 5) if isinstance(v, float) else v) for k, v in r.items()}))
 
@@ -895,8 +929,9 @@ def main() -> int:
     kernels = [
         kernel_entry("qmm_decode", "quant_matmul.cu", "bitdistiller_tpu/ops/quant_matmul.py:152",
                      counts["qmm_decode"], mm_rel, dec,
-                     "one layer's qkv+o+gate_up+down, M=8, int2-g128, 7B widths; max_abs_err "
-                     "relative to max|plain|; launches from the A16 engine run",
+                     "one layer's qkv+o+gate_up+down, M=8, int2-g128, 7B widths, streaming "
+                     "kernel on clusters; max_abs_err relative to max|plain|; launches from the "
+                     "A16 engine run",
                      bound_measured_bw_ms=dec["bound_measured_bw_ms"]),
         kernel_entry("qmm_prefill", "quant_matmul.cu", "bitdistiller_tpu/ops/quant_matmul.py:107",
                      counts["qmm_prefill"], mm_rel, pre,
@@ -906,8 +941,10 @@ def main() -> int:
         kernel_entry("flash_decode", "decode_attention.cu",
                      "bitdistiller_tpu/ops/decode_attention.py:106", counts["flash_decode"],
                      at_err["stacked"], att,
-                     "B=8, Hq=Hkv=32, T=2048, D=128, bf16 cache, mixed starts; launches from "
-                     "the A16 engine run", bound_measured_bw_ms=att["bound_measured_bw_ms"]),
+                     "B=8, Hq=Hkv=32, T=2048, D=128, bf16 cache, rows split over clusters; the "
+                     "table's long skewed starts (8083 rows; path: the steady decode step's "
+                     "2130 rows); launches from the A16 engine run",
+                     bound_measured_bw_ms=att["bound_measured_bw_ms"], path=times(att_path)),
         kernel_entry("qmm_a8", "quant_matmul_a8.cu", "bitdistiller_tpu/ops/quant_matmul.py:721",
                      counts_a8["qmm_a8"], a8_rel, a8_dec,
                      "one layer's four A8 matmuls (quantization included), M=8, int2-g128 "

@@ -5,8 +5,9 @@ skips without a CUDA device. On the card:
     python -m pytest -m gpu tests/test_torch_gpu.py
 
 Tolerances: integer-valued inputs are exact (the A8 matmul too, with one
-127 a row so the per-token scale is 1); the streaming decode kernels (A8
-at M <= 32, both fused-MLP launches) give the same bytes on two calls; bf16 attention outputs within 2e-2
+127 a row so the per-token scale is 1); the streaming decode kernels (A16
+and A8 at M <= 32, both fused-MLP launches) and the cluster decode
+attention give the same bytes on two calls; bf16 attention outputs within 2e-2
 (one bf16 ulp of a prob, rounded against other running maxima); the fused
 MLP within 1e-2 of max|plain| (bf16 outputs, f32 sums in another order, mid
 rounded to bf16 at another f32 rounding of the activation); the stream sum
@@ -318,3 +319,106 @@ def test_cluster_launch_raises_on_a_size_the_card_cannot_hold(gen, cluster, m, m
             qm.qmm_a8(x, p.qweight, p.scales, p.szeros, 2, 128, False)
         assert qm.qmm_a8.launches == before
     assert torch.equal(qm.qmm_a8(x, p.qweight, p.scales, p.szeros, 2, 128, False), want)
+
+
+@pytest.mark.parametrize("warp_cols", [16, 32])
+@pytest.mark.parametrize("bits", [2, 4])
+@pytest.mark.parametrize("m", [1, 17, 32])
+def test_a16_decode_exact_on_integers_at_the_down_shape(gen, m, bits, warp_cols, monkeypatch):
+    """The streaming A16 decode kernel at K = 11008 (86 groups: the
+    cluster's K split has a remainder), N = 4096, layer 1 of a stack, token
+    rows masked in one and four 8-row tiles, on both column tiles a warp."""
+    monkeypatch.setattr(qm, "a16_decode_plan", lambda n, groups, sms: (
+        qm.decode_plan(n, groups, sms, cols=8 * warp_cols), warp_cols))
+    p = _packed(gen, 11008, 4096, bits, layers=2)
+    x = _ints(gen, m, 11008)
+    before = (qm.qmm_decode.launches, qm.qmm_prefill.launches)
+    got = qm.quant_matmul(x, p, 1)
+    lay = p.layer(1)
+    assert torch.equal(got, qm.quant_matmul_plain(x, lay.qweight, lay.scales, lay.szeros, bits, 128))
+    assert (qm.qmm_decode.launches, qm.qmm_prefill.launches) == (before[0] + 1, before[1])
+
+
+@pytest.mark.parametrize("k,n", [(11008, 4096), (4096, 320)])
+def test_a16_decode_is_deterministic(gen, k, n):
+    """Two calls on the same bf16 inputs give the same bytes (the cluster
+    sums in rank order, no atomics), within 1e-2 of max|plain| (the plain
+    version reads the scales the kernel decodes from the combo words)."""
+    p = _packed(gen, k, n, 2, integer=False)
+    x = torch.randn((8, k), device="cuda", generator=gen).bfloat16()
+    a, b = (qm.qmm_decode(x, p.qweight, p.combo, 2, 128) for _ in range(2))
+    assert torch.equal(a, b)
+    s, sz = scales_from_combo(p.combo)
+    want = qm.quant_matmul_plain(x, p.qweight, s, sz, 2, 128)
+    assert (a.float() - want.float()).abs().max().item() <= 1e-2 * want.float().abs().max().item()
+
+
+@pytest.mark.parametrize("cluster,m", [(16, 8), (1, 32)])
+def test_a16_decode_raises_on_a_cluster_the_card_cannot_hold(gen, cluster, m, monkeypatch):
+    """A cluster of 16 (above the portable 8) and one CTA holding all of
+    K = 11008 at 32 rows (a 705 KB x slice) raise and launch nothing; the
+    next call on the chosen plan is exact."""
+    p = _packed(gen, 11008, 4096, 2)
+    x = _ints(gen, m, 11008)
+    want = qm.quant_matmul_plain(x, p.qweight, p.scales, p.szeros, 2, 128)
+    with monkeypatch.context() as mp:
+        mp.setattr(qm, "a16_decode_plan", lambda n, groups, sms: (cluster, 32))
+        before = qm.qmm_decode.launches
+        with pytest.raises(RuntimeError, match="cudaError"):
+            qm.qmm_decode(x, p.qweight, p.combo, 2, 128)
+        assert qm.qmm_decode.launches == before
+    assert torch.equal(qm.qmm_decode(x, p.qweight, p.combo, 2, 128), want)
+
+
+SPLIT_CASES = {  # name: (b, hq, hkv, t, d, starts, window, attn_len)
+    "fewer_rows_than_ctas": (8, 8, 8, 64, 128, [0, 1, 2, 3, 4, 5, 6, 7], None, None),
+    "one_long_slot": (4, 4, 4, 512, 128, [0, 511, 0, 0], None, None),
+    "window_across_ctas": (3, 8, 2, 300, 64, [290, 37, 150], 100, None),
+    "attn_len": (3, 4, 2, 256, 32, [100, 200, 0], None, 160),
+    "rep8": (2, 32, 4, 200, 128, [199, 70], None, None),
+}
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 3, 8])
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+@pytest.mark.parametrize("case", sorted(SPLIT_CASES))
+def test_decode_attention_split_over_a_cluster(gen, case, kv, cluster, monkeypatch):
+    """The kernel's rows split over C CTAs: fewer valid rows than CTAs
+    (empty runs), one long slot beside empty ones, a window that crosses a
+    run boundary, attn_len < T, rep 8; within 2e-2 of the plain version, and
+    two calls give the same bytes (the cluster merges in rank order)."""
+    b, hq, hkv, t, d, starts, window, attn_len = SPLIT_CASES[case]
+    monkeypatch.setattr(da, "attention_plan", lambda b, hkv, sms: cluster)
+    shape = (2, b, hkv, t, d)
+    q = torch.randn((b, 1, hq, d), device="cuda", generator=gen).bfloat16()
+    kn = torch.randn((b, 1, hkv, d), device="cuda", generator=gen).bfloat16()
+    vn = torch.randn((b, 1, hkv, d), device="cuda", generator=gen).bfloat16()
+    if kv == "int8":
+        ck = torch.randint(-127, 128, shape, dtype=torch.int8, device="cuda", generator=gen)
+        cv = torch.randint(-127, 128, shape, dtype=torch.int8, device="cuda", generator=gen)
+        ks = torch.rand(shape[:-1], device="cuda", generator=gen) * 0.02
+        vs = torch.rand(shape[:-1], device="cuda", generator=gen) * 0.02
+    else:
+        ck = torch.randn(shape, device="cuda", generator=gen).bfloat16()
+        cv = torch.randn(shape, device="cuda", generator=gen).bfloat16()
+        ks = vs = None
+    start = torch.tensor(starts, dtype=torch.int32, device="cuda")
+    kw = dict(k_scale=ks, v_scale=vs, window=window, attn_len=attn_len)
+    got = da.flash_decode_stacked(q, ck, cv, 1, kn, vn, start, **kw)
+    assert torch.equal(got, da.flash_decode_stacked(q, ck, cv, 1, kn, vn, start, **kw))
+    want = da.decode_attention_plain(q, ck, cv, 1, kn, vn, start, **kw)
+    assert (got.float() - want.float()).abs().max().item() <= 2e-2
+
+
+def test_decode_attention_raises_on_a_cluster_the_card_cannot_hold(gen, monkeypatch):
+    """A cluster of 16 CTAs (above the portable 8) raises and launches
+    nothing."""
+    q = torch.randn((2, 1, 4, 64), device="cuda", generator=gen).bfloat16()
+    ck = torch.randn((1, 2, 4, 32, 64), device="cuda", generator=gen).bfloat16()
+    kn = torch.randn((2, 1, 4, 64), device="cuda", generator=gen).bfloat16()
+    start = torch.tensor([5, 31], dtype=torch.int32, device="cuda")
+    monkeypatch.setattr(da, "attention_plan", lambda b, hkv, sms: 16)
+    before = da.flash_decode_stacked.launches
+    with pytest.raises(RuntimeError, match="cudaError"):
+        da.flash_decode_stacked(q, ck, ck, 0, kn, kn, start)
+    assert da.flash_decode_stacked.launches == before

@@ -200,3 +200,86 @@ def test_prefill_ablation_patches_apply():
     src = (_build.CSRC_DIR / "quant_matmul.cu").read_text()
     texts = prefill_ablation.variants(src)
     assert texts["kernel"] == src and len(set(texts.values())) == len(texts) == 5
+
+
+@pytest.mark.parametrize("integer", [True, False])
+@pytest.mark.parametrize("bits", [2, 4])
+@pytest.mark.parametrize("m", [1, 16, 17, 32])
+def test_plain_matches_pallas_at_decode_tiles(m, bits, integer):
+    """The plain version, which the card holds the streaming decode kernel
+    against, at that kernel's token tiles: one row, 16 (two 8-token tiles),
+    17 (ragged against four) and 32 (the decode cap); 5 groups of 128 (a
+    cluster's K split with a remainder), N = 320 (ragged against 128- and
+    256-column tiles)."""
+    k, n, g = 5 * 128, 320, 128
+    rng = np.random.default_rng(2000 + 10 * m + bits)
+    codes, qw, scales, szeros = _layer(rng, bits, g, integer, k, n)
+    x = _x(rng, m, integer, k)
+    got = tq.quant_matmul_plain(
+        torch.from_numpy(x), torch.from_numpy(qw), torch.from_numpy(scales),
+        torch.from_numpy(szeros), bits, g,
+    ).numpy()
+    want = np.asarray(jq.quant_matmul_pallas(
+        jnp.asarray(x), _jp(qw, scales, szeros, bits, g, k, n), interpret=True))
+    if integer:
+        np.testing.assert_array_equal(got, want)
+        dense = x @ (codes.astype(np.float32) * np.repeat(scales, g, 0) - np.repeat(szeros, g, 0))
+        np.testing.assert_array_equal(got, dense)
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+
+
+A16_PLANS_7B = {  # (N, K): (cluster, columns a warp) on 132 SMs
+    (12288, 4096): (6, 32), (4096, 4096): (8, 16), (22016, 4096): (4, 32), (4096, 11008): (8, 16)}
+
+
+@pytest.mark.parametrize("n,k", sorted(A16_PLANS_7B))
+def test_a16_decode_plan_at_7b_shapes(n, k):
+    """qkv and gate_up take 32 columns a warp (256 a cluster) on the
+    smallest cluster that puts 2 x 132 CTAs on the card; o and down (N =
+    4096: 16 such tiles, 128 CTAs at the largest cluster) take 16 columns a
+    warp, 32 tiles of 8 CTAs; never more CTAs in a cluster than K groups."""
+    cluster, warp_cols = tq.a16_decode_plan(n, k // 128, 132)
+    assert (cluster, warp_cols) == A16_PLANS_7B[(n, k)]
+    assert warp_cols in tq.A16_WARP_COLS
+    assert cluster == tq.decode_plan(n, k // 128, 132, cols=8 * warp_cols)
+    assert cluster <= min(tq.MAX_CLUSTER, k // 128)
+
+
+@pytest.mark.parametrize("n,groups,sms,want", [
+    (320, 5, 132, (5, 16)),     # odd group count: no plan fills the card; 16 columns a warp
+    (4096, 1, 132, (1, 16)),    # one group: no K split
+    (4096, 86, 8, (1, 32)),     # a small card: 16 tiles of 256 fill it alone
+    (4096, 3, 132, (3, 16)),    # 3 groups: 96 CTAs at most
+    (100, 86, 132, (8, 16)),    # N short of one tile: one cluster of the largest size
+])
+def test_a16_decode_plan_at_odd_group_counts(n, groups, sms, want):
+    assert tq.a16_decode_plan(n, groups, sms) == want
+
+
+def test_decode_ablation_a16_patches_apply():
+    """scripts/decode_ablation.py patches the A16 decode kernel's source by
+    text: every patch still applies, once, and each variant differs from the
+    kernel and from the others."""
+    from bitdistiller_tpu_torch.ops import _build
+    from bitdistiller_tpu_torch.scripts import decode_ablation
+
+    src = (_build.CSRC_DIR / "quant_matmul.cu").read_text()
+    texts = decode_ablation.a16_variants(src)
+    assert texts["kernel"] == src
+    assert len(set(texts.values())) == len(texts)
+
+
+@pytest.mark.parametrize("kernel", ["a16", "attention"])
+def test_decode_timeline_patches_apply(kernel):
+    """scripts/decode_timeline.py stamps the A16 decode kernel and the decode
+    attention by text patches: each still applies, once, and adds the stamp
+    array and its reader."""
+    from bitdistiller_tpu_torch.ops import _build
+    from bitdistiller_tpu_torch.scripts import decode_timeline
+
+    name, make = {"a16": ("quant_matmul.cu", decode_timeline.a16_source),
+                  "attention": ("decode_attention.cu", decode_timeline.attention_source)}[kernel]
+    src = (_build.CSRC_DIR / name).read_text()
+    text = make(src)
+    assert "stamp(0, 0);" in text and "stamp(6, 0);" in text and "bd_ts_copy" in text
