@@ -18,6 +18,13 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def on_card(t: torch.Tensor) -> bool:
+    """True for a tensor on the card: the one test by which every kernel
+    wrapper chooses its kernel (a CUDA tensor) over its plain version (a CPU
+    tensor)."""
+    return t.is_cuda
+
+
 _DTYPES = {
     "bfloat16": torch.bfloat16,
     "float32": torch.float32,

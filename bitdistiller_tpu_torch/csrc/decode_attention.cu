@@ -13,7 +13,8 @@
 // multiply the score row and the prob row, so codes are never dequantized
 // into memory. The layer is a pointer offset into the stacked cache (the
 // caller passes ck[li].data_ptr(), a view): no layer is copied. GQA rep
-// (query heads a kv head) is 1, 2, 4 or 8, D 32, 64 or 128.
+// (query heads a kv head) is 1, 2, 4 or 8, D 32, 64, 128 or 256 (a row on at
+// most 32 lanes); q, the fresh k/v and the output are bf16 or f32.
 //
 // Bound on this card: bytes. Each valid K and V row (D elements of the cache
 // dtype, plus one f32 scale each for int8) must be read once from HBM at
@@ -113,7 +114,9 @@ __device__ __forceinline__ float group_sum(float v) {
 template <typename KV, int REP, int D>
 struct Fd {
   static constexpr bool kQuant = sizeof(KV) == 1;
-  static constexpr int EPL = REP == 1 ? 16 : REP == 2 ? 8 : 4;
+  // at most 32 lanes a row: D = 256 takes 8 elements a lane at rep >= 2
+  static constexpr int EPL_REP = REP == 1 ? 16 : REP == 2 ? 8 : 4;
+  static constexpr int EPL = EPL_REP > D / 32 ? EPL_REP : D / 32;
   static constexpr int LPR = D / EPL;                   // lanes a row: 2 .. 32
   static constexpr int RPW = 32 / LPR;                  // rows a warp at once
   static constexpr int STEPS = RPW >= 4 ? 1 : 4 / RPW;  // steps a run: at least 4 rows a run
@@ -131,15 +134,16 @@ struct Fd {
   static_assert(LPR >= 1 && LPR <= 32 && EPL % VEC == 0, "a row spans whole lanes");
 };
 
-// KV: cache dtype (bf16, or int8 with f32 scales); q, fresh k/v and out are
-// bf16. Two CTAs an SM (a 64 KB ring each at D = 128), one at rep 8.
-template <typename KV, int REP, int D>
+// KV: cache dtype (bf16, or int8 with f32 scales); QT: the dtype of q, the
+// fresh k/v and out (bf16, or f32). Two CTAs an SM (a 64 KB ring each at
+// D = 128), one at rep 8.
+template <typename KV, int REP, int D, typename QT>
 __global__ void __launch_bounds__(kThreads, REP == 8 ? 1 : 2)
-    fd_kernel(const __nv_bfloat16* __restrict__ q, const KV* __restrict__ ck,
+    fd_kernel(const QT* __restrict__ q, const KV* __restrict__ ck,
               const KV* __restrict__ cv, const float* __restrict__ ks,
-              const float* __restrict__ vs, const __nv_bfloat16* __restrict__ kn,
-              const __nv_bfloat16* __restrict__ vn, const int* __restrict__ start,
-              __nv_bfloat16* __restrict__ out, int Hkv, int T_len, int t_lim, int window,
+              const float* __restrict__ vs, const QT* __restrict__ kn,
+              const QT* __restrict__ vn, const int* __restrict__ start,
+              QT* __restrict__ out, int Hkv, int T_len, int t_lim, int window,
               float scale) {
   using P = Fd<KV, REP, D>;
   constexpr bool kQuant = P::kQuant;
@@ -364,7 +368,7 @@ __global__ void __launch_bounds__(kThreads, REP == 8 ? 1 : 2)
     const float alpha = exp2f(mx - mf);
     const float pn = exp2f(sn - mf);
     out[(plane * REP) * D + threadIdx.x + o * kThreads] =
-        from_f32<__nv_bfloat16>((a * alpha + pn * vnr[o]) / (lsum * alpha + pn));
+        from_f32<QT>((a * alpha + pn * vnr[o]) / (lsum * alpha + pn));
   };
 
   // the CTA's state, its warps merged in order; with one CTA a cluster it is
@@ -430,34 +434,46 @@ __global__ void __launch_bounds__(kThreads, REP == 8 ? 1 : 2)
   cluster.sync();  // no CTA leaves while rank 0 still reads its shared memory
 }
 
-template <typename KV, int REP, int D>
+template <typename KV, int REP, int D, typename QT>
 cudaError_t launch(const void* q, const void* ck, const void* cv, const void* ks, const void* vs,
                    const void* kn, const void* vn, const void* start, void* out, int B, int Hkv,
                    int T_len, int t_lim, int window, float scale, int cluster,
                    cudaStream_t stream) {
   return launch_cluster(
-      fd_kernel<KV, REP, D>, dim3(cluster, Hkv, B), cluster, Fd<KV, REP, D>::SMEM, false, stream,
-      static_cast<const __nv_bfloat16*>(q), static_cast<const KV*>(ck), static_cast<const KV*>(cv),
-      static_cast<const float*>(ks), static_cast<const float*>(vs),
-      static_cast<const __nv_bfloat16*>(kn), static_cast<const __nv_bfloat16*>(vn),
-      static_cast<const int*>(start), static_cast<__nv_bfloat16*>(out), Hkv, T_len, t_lim, window,
-      scale);
+      fd_kernel<KV, REP, D, QT>, dim3(cluster, Hkv, B), cluster, Fd<KV, REP, D>::SMEM, false,
+      stream, static_cast<const QT*>(q), static_cast<const KV*>(ck), static_cast<const KV*>(cv),
+      static_cast<const float*>(ks), static_cast<const float*>(vs), static_cast<const QT*>(kn),
+      static_cast<const QT*>(vn), static_cast<const int*>(start), static_cast<QT*>(out), Hkv,
+      T_len, t_lim, window, scale);
 }
 
-template <typename KV>
+template <typename KV, typename QT>
 cudaError_t launch_shape(int rep, int d, const void* q, const void* ck, const void* cv,
                          const void* ks, const void* vs, const void* kn, const void* vn,
                          const void* start, void* out, int B, int Hkv, int T_len, int t_lim,
                          int window, float scale, int cluster, cudaStream_t stream) {
-#define BD_FD_CASE(REP, D)                                                                \
-  if (rep == REP && d == D)                                                               \
-    return launch<KV, REP, D>(q, ck, cv, ks, vs, kn, vn, start, out, B, Hkv, T_len, t_lim,   \
-                              window, scale, cluster, stream);
+#define BD_FD_CASE(REP, D)                                                                   \
+  if (rep == REP && d == D)                                                                  \
+    return launch<KV, REP, D, QT>(q, ck, cv, ks, vs, kn, vn, start, out, B, Hkv, T_len, t_lim, \
+                                  window, scale, cluster, stream);
+  BD_FD_CASE(1, 256) BD_FD_CASE(2, 256) BD_FD_CASE(4, 256) BD_FD_CASE(8, 256)
   BD_FD_CASE(1, 128) BD_FD_CASE(2, 128) BD_FD_CASE(4, 128) BD_FD_CASE(8, 128)
   BD_FD_CASE(1, 64) BD_FD_CASE(2, 64) BD_FD_CASE(4, 64) BD_FD_CASE(8, 64)
   BD_FD_CASE(1, 32) BD_FD_CASE(2, 32) BD_FD_CASE(4, 32) BD_FD_CASE(8, 32)
 #undef BD_FD_CASE
   return cudaErrorInvalidValue;
+}
+
+template <typename QT>
+cudaError_t launch_kv(int int8_cache, int rep, int d, const void* q, const void* ck,
+                      const void* cv, const void* ks, const void* vs, const void* kn,
+                      const void* vn, const void* start, void* out, int B, int Hkv, int T_len,
+                      int t_lim, int window, float scale, int cluster, cudaStream_t s) {
+  if (int8_cache)
+    return launch_shape<int8_t, QT>(rep, d, q, ck, cv, ks, vs, kn, vn, start, out, B, Hkv,
+                                    T_len, t_lim, window, scale, cluster, s);
+  return launch_shape<__nv_bfloat16, QT>(rep, d, q, ck, cv, ks, vs, kn, vn, start, out, B, Hkv,
+                                         T_len, t_lim, window, scale, cluster, s);
 }
 
 }  // namespace
@@ -468,24 +484,25 @@ extern "C" {
 // 16-byte aligned; ks/vs: layer li of the [L, B, Hkv, T] f32 scales (int8
 // cache) or null; kn/vn [B, Hkv, D]; start [B] int32; out [B, Hkv*rep, D].
 // window <= 0 means none; t_lim bounds the rows read (attn_len, or T).
-// q, kn, vn and out are bfloat16; int8_cache = 0 for a bfloat16 cache, 1 for
-// int8 codes with scales. Clusters of 1 <= cluster <= 8 CTAs a (slot, kv
-// head) (ops/decode_attention.py: attention_plan); a cluster the card cannot
-// hold launches nothing and returns its error. Returns 0 once launched,
-// else the CUDA error.
+// q, kn, vn and out are bfloat16 (q_f32 = 0) or float32 (1); int8_cache =
+// 0 for a bfloat16 cache, 1 for int8 codes with scales. rep 1, 2, 4 or 8; D
+// 32, 64, 128 or 256. Clusters of 1 <= cluster <= 8 CTAs a (slot, kv head)
+// (ops/decode_attention.py: attention_plan); a cluster the card cannot hold
+// launches nothing and returns its error. Returns 0 once launched, else the
+// CUDA error.
 int bd_flash_decode(const void* q, const void* ck, const void* cv, const void* ks,
                     const void* vs, const void* kn, const void* vn, const void* start,
                     void* out, int int8_cache, int B, int Hkv, int rep, int T_len, int D,
-                    int t_lim, int window, float scale, int cluster, void* stream) {
+                    int t_lim, int window, float scale, int cluster, int q_f32, void* stream) {
   if (cluster < 1 || cluster > kMaxCluster || !aligned16(ck) || !aligned16(cv) ||
       (int8_cache && (ks == nullptr || vs == nullptr)))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (int8_cache)
-    return launch_shape<int8_t>(rep, D, q, ck, cv, ks, vs, kn, vn, start, out, B, Hkv, T_len,
-                                t_lim, window, scale, cluster, s);
-  return launch_shape<__nv_bfloat16>(rep, D, q, ck, cv, ks, vs, kn, vn, start, out, B, Hkv, T_len,
-                                     t_lim, window, scale, cluster, s);
+  if (q_f32)
+    return launch_kv<float>(int8_cache, rep, D, q, ck, cv, ks, vs, kn, vn, start, out, B, Hkv,
+                            T_len, t_lim, window, scale, cluster, s);
+  return launch_kv<__nv_bfloat16>(int8_cache, rep, D, q, ck, cv, ks, vs, kn, vn, start, out, B,
+                                  Hkv, T_len, t_lim, window, scale, cluster, s);
 }
 
 }  // extern "C"

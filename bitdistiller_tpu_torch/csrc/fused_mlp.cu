@@ -48,7 +48,7 @@ namespace {
 
 using namespace bd;
 
-constexpr int G = 128;
+constexpr int G = 128;  // K step: 128 / g groups (g = 32, 64), or one (g >= 128)
 constexpr int COLS = 128;  // columns a cluster; for gate/up the ffn tile, one group of Wd's rows
 constexpr int kSilu = 0;
 constexpr int kGeluTanh = 1;
@@ -66,13 +66,15 @@ __device__ __forceinline__ float act(float g) {
 // Shared-memory plan of one launch: NW weights (2: gate and up, 1: down) of
 // COLS = 128 columns, 8 * TOK token rows of x. Each warp streams its 16
 // columns of every weight through a ring of its own, STAGES deep.
-template <int BITS, int TOK, int NW>
+template <int BITS, int TOK, int NW, int GG>
 struct Mlp {
-  static constexpr int R = G * BITS / 32;  // word rows a group
+  using Map = StepMap<BITS, GG, 2>;
+  static constexpr int SUB = Map::SUB;      // groups (scale rows) a step of 128
+  static constexpr int R = G * BITS / 32;  // word rows a step
   static constexpr int WC = COLS / kWarps;  // columns a warp: one m16 tile
   static constexpr int WLD = WC + 8;        // staged word row: 4 k quads x 8 columns hit 32 banks
   static constexpr int WWORDS = R * WLD;           // a weight's staged words
-  static constexpr int WSTAGE = WWORDS + 2 * WC;   // then its scales and szeros (4 bytes each)
+  static constexpr int WSTAGE = WWORDS + 2 * SUB * WC;  // then its scales and szeros rows
   static constexpr int STAGES = NW == 2 ? 4 : 6;   // groups in flight a warp: STAGES - 1
   static constexpr int MROWS = 8 * TOK;
   static constexpr int RED = MROWS * NW * COLS * 4;  // the partial tile, over the drained rings
@@ -85,8 +87,9 @@ struct Mlp {
     const size_t b = size_t(MROWS) * xld(ngs_max) * 2;
     return b > MIDF ? b : MIDF;
   }
-  __host__ __device__ static size_t smem(int ngs_max) {
-    return RING + xbytes(ngs_max) + (NW == 1 ? size_t(MROWS) * ngs_max * 4 : 0);
+  // + the fold groups' sums: down's, or gate/up's of f32 x
+  __host__ __device__ static size_t smem(int ngs_max, bool sums) {
+    return RING + xbytes(ngs_max) + (sums ? size_t(MROWS) * ngs_max * SUB * 4 : 0);
   }
 };
 
@@ -101,19 +104,26 @@ struct Mlp {
 // Two CTAs an SM, but one for gate/up at 32 token rows (its 32 f32
 // accumulators and 32 partials a thread, with the words, spill at 128
 // registers).
-template <int BITS, int TOK, int NW, int ACT>
+// GG: the group when it is 32, 64 or 128; 128 also for g = gdiv * 128 (the
+// scale row of step j is j / gdiv, and x is read through kmap, the step
+// order of period g). x is bf16, or for gate/up with x_f32 f32 rounded to
+// bf16 as it is staged (out then f32). ysum / xsum_g hold one f32 sum a
+// fold group of F / FG (FG = min(g, 128)).
+template <int BITS, int TOK, int NW, int ACT, int GG>
 __global__ void __launch_bounds__(kThreads, NW == 2 && TOK == 4 ? 1 : 2)
-    mlp_stream_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ xsum_g,
+    mlp_stream_kernel(const void* __restrict__ x, const float* __restrict__ xsum_g,
                       const uint32_t* __restrict__ q0, const float* __restrict__ s0,
                       const float* __restrict__ z0, const uint32_t* __restrict__ q1,
                       const float* __restrict__ s1, const float* __restrict__ z1,
-                      __nv_bfloat16* __restrict__ y, float* __restrict__ ysum, int M, int K, int N,
-                      int ngs_max, int vec) {
-  using P = Mlp<BITS, TOK, NW>;
+                      void* __restrict__ y, float* __restrict__ ysum,
+                      const int* __restrict__ kmap, int M, int K, int N, int ngs_max, int vec,
+                      int gdiv, int x_f32) {
+  using P = Mlp<BITS, TOK, NW, GG>;
+  using Map = typename P::Map;
   constexpr bool GATE_UP = NW == 2;
-  constexpr int MROWS = P::MROWS, WC = P::WC, STAGES = P::STAGES;
-  constexpr int WPL = P::R / 4;  // words a lane a group and column
-  constexpr int BPI = P::R / 8;  // k-blocks of 16 one extraction spans
+  constexpr int MROWS = P::MROWS, WC = P::WC, STAGES = P::STAGES, SUB = P::SUB;
+  constexpr int NWD = Map::NW;  // words a lane holds a step and column
+  constexpr int FG = G / SUB;   // k a fold group
   constexpr float kOff = Trick<BITS>::kOffset;
   extern __shared__ __align__(16) uint8_t smem[];
   if constexpr (GATE_UP) grid_dep_launch();  // the down launch may start filling its rings
@@ -124,24 +134,27 @@ __global__ void __launch_bounds__(kThreads, NW == 2 && TOK == 4 ? 1 : 2)
   const int n0 = blockIdx.y * COLS, m0 = blockIdx.z * MROWS;
   const int ng = K / G, g0 = rank * ng / C, ngs = (rank + 1) * ng / C - g0;
   const int k0 = g0 * G, kn = ngs * G;
-  const int xld = P::xld(ngs_max);
+  const int xld = P::xld(ngs_max), xsld = ngs_max * SUB;
   uint32_t* ring = reinterpret_cast<uint32_t*>(smem) + warp * STAGES * NW * P::WSTAGE;
   __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem + P::RING);
-  float* xsum_s = reinterpret_cast<float*>(smem + P::RING + P::xbytes(ngs_max));  // NW 1 only
+  // the fold groups' f32 sums of x: down's from the gate/up launch, gate/up's
+  // of f32 x from x itself (the unrounded values, as the plain version)
+  float* xsum_s = reinterpret_cast<float*>(smem + P::RING + P::xbytes(ngs_max));
   const uint32_t* qsrc[2] = {q0, q1};
   const float* ssrc[2] = {s0, s1};
   const float* zsrc[2] = {z0, z1};
 
-  auto issue = [&](int j) {  // group g0 + j of this warp's columns; always one commit group
+  auto issue = [&](int j) {  // step g0 + j of this warp's columns; always one commit group
     if (j < ngs) {
       uint32_t* st = ring + (j % STAGES) * NW * P::WSTAGE;
-      const int g = g0 + j, wn = n0 + warp * WC;
+      const int g = g0 + j, wn = n0 + warp * WC, srow = step_row(g, SUB, gdiv);
 #pragma unroll
       for (int w = 0; w < NW; ++w) {
         uint32_t* sw = st + w * P::WSTAGE;
         warp_copy<WC>(sw, qsrc[w] + size_t(g) * P::R * N, P::R, P::WLD, wn, N, vec, lane);
-        warp_copy<WC>(sw + P::WWORDS, ssrc[w] + size_t(g) * N, 1, WC, wn, N, vec, lane);
-        warp_copy<WC>(sw + P::WWORDS + WC, zsrc[w] + size_t(g) * N, 1, WC, wn, N, vec, lane);
+        warp_copy<WC>(sw + P::WWORDS, ssrc[w] + size_t(srow) * N, SUB, WC, wn, N, vec, lane);
+        warp_copy<WC>(sw + P::WWORDS + SUB * WC, zsrc[w] + size_t(srow) * N, SUB, WC, wn, N, vec,
+                      lane);
       }
     }
     cp_commit();
@@ -151,22 +164,37 @@ __global__ void __launch_bounds__(kThreads, NW == 2 && TOK == 4 ? 1 : 2)
 
   if constexpr (!GATE_UP) grid_dep_wait();  // mid and msum are the gate/up launch's
   const int per = kn / 8;  // this CTA's x slice, past L1
+  const int xf = GATE_UP && x_f32, Pk = gdiv * G;
   pipelined<4>(
       tid, MROWS * per, kThreads,
       [&](int idx) {
         const int r = idx / per;
-        return m0 + r < M ? __ldcg(reinterpret_cast<const uint4*>(x + size_t(m0 + r) * K + k0 +
-                                                                 (idx - r * per) * 8))
+        return m0 + r < M ? load8_bf16(x, size_t(m0 + r) * K +
+                                              src_k(k0 + (idx - r * per) * 8, kmap, Pk), xf)
                           : make_uint4(0u, 0u, 0u, 0u);
       },
       [&](int idx, uint4 v) {
         const int r = idx / per;
         *reinterpret_cast<uint4*>(xs + r * xld + (idx - r * per) * 8) = v;
       });
+  if (xf) {  // gate/up with f32 x: a warp a (row, fold group)
+    for (int idx = warp; idx < MROWS * ngs * SUB; idx += kWarps) {
+      const int r = idx / (ngs * SUB), j = idx - r * (ngs * SUB);
+      float sum = 0.f;
+      if (m0 + r < M)
+        for (int e = lane; e < FG; e += 32)
+          sum += static_cast<const float*>(x)[size_t(m0 + r) * K + src_k(k0 + j * FG + e, kmap, Pk)];
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      if (lane == 0) xsum_s[r * xsld + j] = sum;
+    }
+  }
   if constexpr (!GATE_UP) {
-    for (int idx = tid; idx < MROWS * ngs; idx += kThreads) {
-      const int r = idx / ngs, j = idx - r * ngs;
-      xsum_s[r * ngs_max + j] = m0 + r < M ? __ldcg(xsum_g + size_t(m0 + r) * ng + g0 + j) : 0.f;
+    const int nf = ng * SUB;  // fold groups of the row
+    for (int idx = tid; idx < MROWS * ngs * SUB; idx += kThreads) {
+      const int r = idx / (ngs * SUB), j = idx - r * (ngs * SUB);
+      xsum_s[r * xsld + j] =
+          m0 + r < M ? __ldcg(xsum_g + size_t(m0 + r) * nf + g0 * SUB + j) : 0.f;
     }
   }
   __syncthreads();  // the x slice (and the down launch's group sums) in shared memory
@@ -179,19 +207,20 @@ __global__ void __launch_bounds__(kThreads, NW == 2 && TOK == 4 ? 1 : 2)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[w][t][e] = 0.f;
 
+  const int pre = Map::preshift(quad);
   for (int j = 0; j < ngs; ++j) {
-    cp_wait<STAGES - 2>();  // this lane's copies of group j landed
+    cp_wait<STAGES - 2>();  // this lane's copies of step j landed
     __syncwarp();           // and the other lanes'; slot (j - 1) is free
     issue(j + STAGES - 1);
     const uint32_t* st = ring + (j % STAGES) * NW * P::WSTAGE;
-    uint32_t wd[NW][2][WPL];  // words of the lane's columns row and row + 8
+    uint32_t wd[NW][2][NWD];  // words of the lane's columns row and row + 8
 #pragma unroll
     for (int w = 0; w < NW; ++w)
 #pragma unroll
       for (int h = 0; h < 2; ++h)
 #pragma unroll
-        for (int q = 0; q < WPL; ++q)
-          wd[w][h][q] = st[w * P::WSTAGE + (4 * q + quad) * P::WLD + 8 * h + row];
+        for (int u = 0; u < NWD; ++u)
+          wd[w][h][u] = st[w * P::WSTAGE + Map::row(u, quad) * P::WLD + 8 * h + row] >> pre;
     float part[NW][TOK][4], xq[TOK];
 #pragma unroll
     for (int t = 0; t < TOK; ++t) {
@@ -203,15 +232,15 @@ __global__ void __launch_bounds__(kThreads, NW == 2 && TOK == 4 ? 1 : 2)
     }
 #pragma unroll
     for (int kb = 0; kb < G / 16; ++kb) {
-      const int i = kb / BPI;
-      const int q = 2 * (kb % BPI);
+      const int u0 = Map::word(kb, 0), u1 = Map::word(kb, 1);
+      const int i0 = Map::field(kb, 0), i1 = Map::field(kb, 1);
       uint32_t a[NW][4];
 #pragma unroll
       for (int w = 0; w < NW; ++w) {
-        a[w][0] = extract_bits<BITS>(wd[w][0][q], i);
-        a[w][1] = extract_bits<BITS>(wd[w][1][q], i);
-        a[w][2] = extract_bits<BITS>(wd[w][0][q + 1], i);
-        a[w][3] = extract_bits<BITS>(wd[w][1][q + 1], i);
+        a[w][0] = extract_bits<BITS>(wd[w][0][u0], i0);
+        a[w][1] = extract_bits<BITS>(wd[w][1][u0], i0);
+        a[w][2] = extract_bits<BITS>(wd[w][0][u1], i1);
+        a[w][3] = extract_bits<BITS>(wd[w][1][u1], i1);
       }
 #pragma unroll
       for (int t = 0; t < TOK; ++t) {  // token row 8t + row, k = 16kb + 2quad (+8)
@@ -226,28 +255,34 @@ __global__ void __launch_bounds__(kThreads, NW == 2 && TOK == 4 ? 1 : 2)
           xq[t] += (u.x + u.y) + (v.x + v.y);
         }
       }
-    }
-    // the lane's accumulators: columns row, row + 8 (e >> 1) x tokens 8t + 2quad, + 1 (e & 1)
+      if (Map::group_end(kb)) {
+        // fold group gs of the step: the lane's accumulators are columns
+        // row, row + 8 (e >> 1) x tokens 8t + 2quad, + 1 (e & 1)
+        const int gs = kb / Map::KB;
 #pragma unroll
-    for (int t = 0; t < TOK; ++t) {
-      float xt[2];
-      if constexpr (GATE_UP) {
-        xq[t] += __shfl_xor_sync(0xffffffffu, xq[t], 1);  // sum of token 8t + row
-        xq[t] += __shfl_xor_sync(0xffffffffu, xq[t], 2);
-        xt[0] = __shfl_sync(0xffffffffu, xq[t], 8 * quad);
-        xt[1] = __shfl_sync(0xffffffffu, xq[t], 8 * quad + 4);
-      } else {  // the f32 mid's group sums, from the gate/up launch
-        xt[0] = xsum_s[(8 * t + 2 * quad) * ngs_max + j];
-        xt[1] = xsum_s[(8 * t + 2 * quad + 1) * ngs_max + j];
-      }
+        for (int t = 0; t < TOK; ++t) {
+          float xt[2];
+          if (GATE_UP && !xf) {
+            float xg = xq[t] + __shfl_xor_sync(0xffffffffu, xq[t], 1);  // sum of token 8t + row
+            xg += __shfl_xor_sync(0xffffffffu, xg, 2);
+            xt[0] = __shfl_sync(0xffffffffu, xg, 8 * quad);
+            xt[1] = __shfl_sync(0xffffffffu, xg, 8 * quad + 4);
+            xq[t] = 0.f;
+          } else {  // from xsum_s: the f32 mid's (down), or f32 x's (gate/up)
+            xt[0] = xsum_s[(8 * t + 2 * quad) * xsld + j * SUB + gs];
+            xt[1] = xsum_s[(8 * t + 2 * quad + 1) * xsld + j * SUB + gs];
+          }
 #pragma unroll
-      for (int w = 0; w < NW; ++w) {
-        const float* ss = reinterpret_cast<const float*>(st + w * P::WSTAGE + P::WWORDS);
+          for (int w = 0; w < NW; ++w) {
+            const float* ss = reinterpret_cast<const float*>(st + w * P::WSTAGE + P::WWORDS);
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int cl = 8 * (e >> 1) + row;
-          const float s = ss[cl], zc = ss[WC + cl] + kOff * s;
-          acc[w][t][e] = acc[w][t][e] + part[w][t][e] * s - xt[e & 1] * zc;
+            for (int e = 0; e < 4; ++e) {
+              const int cl = gs * WC + 8 * (e >> 1) + row;
+              const float s = ss[cl], zc = ss[SUB * WC + cl] + kOff * s;
+              acc[w][t][e] = acc[w][t][e] + part[w][t][e] * s - xt[e & 1] * zc;
+              part[w][t][e] = 0.f;
+            }
+          }
         }
       }
     }
@@ -285,16 +320,19 @@ __global__ void __launch_bounds__(kThreads, NW == 2 && TOK == 4 ? 1 : 2)
         if (q < C) gs += g[q], us += u[q];
       const float mid = act<ACT>(gs) * us;
       midf[r * COLS + c] = mid;
-      if (m0 + r < M) y[size_t(m0 + r) * N + n0 + c] = __float2bfloat16(mid);
+      if (m0 + r < M)
+        static_cast<__nv_bfloat16*>(y)[size_t(m0 + r) * N + n0 + c] = __float2bfloat16(mid);
     }
     __syncthreads();
-    for (int ri = warp; ri < rows; ri += kWarps) {  // f32 sum of mid over the tile, fixed order
+    // f32 sums of mid over the tile's fold groups (FG / 4 lanes each), fixed order
+    for (int ri = warp; ri < rows; ri += kWarps) {
       const int r = rank + C * ri;
       const float4 v = *reinterpret_cast<const float4*>(midf + r * COLS + 4 * lane);
       float s = (v.x + v.y) + (v.z + v.w);
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-      if (lane == 0 && m0 + r < M) ysum[size_t(m0 + r) * (N / COLS) + blockIdx.y] = s;
+      for (int off = FG / 8; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+      if (lane % (FG / 4) == 0 && m0 + r < M)
+        ysum[size_t(m0 + r) * (N / FG) + blockIdx.y * SUB + lane / (FG / 4)] = s;
     }
   } else {
     const int e0 = rank * MROWS * COLS / C, e1 = (rank + 1) * MROWS * COLS / C;
@@ -309,7 +347,7 @@ __global__ void __launch_bounds__(kThreads, NW == 2 && TOK == 4 ? 1 : 2)
 #pragma unroll
         for (int q = 0; q < kMaxCluster; ++q)
           if (q < C) sum += part[q];
-        y[size_t(m0 + r) * N + n] = __float2bfloat16(sum);
+        store_out(y, size_t(m0 + r) * N + n, sum, x_f32);
       }
     }
   }
@@ -317,78 +355,95 @@ __global__ void __launch_bounds__(kThreads, NW == 2 && TOK == 4 ? 1 : 2)
 }
 
 struct MlpArgs {
-  const __nv_bfloat16* x;
+  const void* x;
   const uint32_t *gq, *uq, *dq;
   const float *gs, *gz, *us, *uz, *ds, *dz;
+  const int *kmap_k, *kmap_f;  // step order of x (period g, K) and of mid (F), for g > 128
   __nv_bfloat16* mid;
   float* msum;
-  __nv_bfloat16* out;
-  int M, K, F, D;
+  void* out;
+  int M, K, F, D, g, x_f32;
 };
 
-template <int BITS, int TOK, int ACT>
+template <int BITS, int TOK, int ACT, int GG>
 cudaError_t launch(const MlpArgs& a, int cluster1, int cluster2, cudaStream_t s) {
-  using P1 = Mlp<BITS, TOK, 2>;
-  using P2 = Mlp<BITS, TOK, 1>;
+  using P1 = Mlp<BITS, TOK, 2, GG>;
+  using P2 = Mlp<BITS, TOK, 1, GG>;
   const int n1 = (a.K / G + cluster1 - 1) / cluster1, n2 = (a.F / G + cluster2 - 1) / cluster2;
   const int rows = (a.M + P1::MROWS - 1) / P1::MROWS;  // row chunks (grid z)
+  const int gdiv = GG == 128 ? a.g / G : 1;
   const int vec1 = aligned16(a.gq) && aligned16(a.gs) && aligned16(a.gz) && aligned16(a.uq) &&
                    aligned16(a.us) && aligned16(a.uz);  // F % 128 == 0
   const int vec2 = a.D % 4 == 0 && aligned16(a.dq) && aligned16(a.ds) && aligned16(a.dz);
   const cudaError_t err = launch_cluster(
-      mlp_stream_kernel<BITS, TOK, 2, ACT>, dim3(cluster1, a.F / COLS, rows), cluster1,
-      P1::smem(n1), false, s, a.x, nullptr, a.gq, a.gs, a.gz, a.uq, a.us, a.uz, a.mid, a.msum,
-      a.M, a.K, a.F, n1, vec1);
+      mlp_stream_kernel<BITS, TOK, 2, ACT, GG>, dim3(cluster1, a.F / COLS, rows), cluster1,
+      P1::smem(n1, a.x_f32), false, s, a.x, nullptr, a.gq, a.gs, a.gz, a.uq, a.us, a.uz,
+      static_cast<void*>(a.mid), a.msum, a.kmap_k, a.M, a.K, a.F, n1, vec1, gdiv, a.x_f32);
   if (err != cudaSuccess) return err;
-  return launch_cluster(mlp_stream_kernel<BITS, TOK, 1, kSilu>,
-                        dim3(cluster2, (a.D + COLS - 1) / COLS, rows), cluster2, P2::smem(n2),
-                        true, s, a.mid, a.msum, a.dq, a.ds, a.dz, nullptr, nullptr, nullptr, a.out,
-                        nullptr, a.M, a.F, a.D, n2, vec2);
+  return launch_cluster(mlp_stream_kernel<BITS, TOK, 1, kSilu, GG>,
+                        dim3(cluster2, (a.D + COLS - 1) / COLS, rows), cluster2, P2::smem(n2, true),
+                        true, s, static_cast<const void*>(a.mid), a.msum, a.dq, a.ds, a.dz,
+                        nullptr, nullptr, nullptr, a.out, nullptr, a.kmap_f, a.M, a.F, a.D, n2,
+                        vec2, gdiv, a.x_f32);
 }
 
 // 8, 16 or 32 token rows a CTA (above 32, chunks of 32 along grid z)
-template <int BITS, int ACT>
+template <int BITS, int ACT, int GG>
 cudaError_t launch_mt(const MlpArgs& a, int cluster1, int cluster2, cudaStream_t s) {
-  if (a.M <= 8) return launch<BITS, 1, ACT>(a, cluster1, cluster2, s);
-  if (a.M <= 16) return launch<BITS, 2, ACT>(a, cluster1, cluster2, s);
-  return launch<BITS, 4, ACT>(a, cluster1, cluster2, s);
+  if (a.M <= 8) return launch<BITS, 1, ACT, GG>(a, cluster1, cluster2, s);
+  if (a.M <= 16) return launch<BITS, 2, ACT, GG>(a, cluster1, cluster2, s);
+  return launch<BITS, 4, ACT, GG>(a, cluster1, cluster2, s);
+}
+
+template <int BITS, int ACT>
+cudaError_t launch_g(const MlpArgs& a, int cluster1, int cluster2, cudaStream_t s) {
+  if (a.g == 32) return launch_mt<BITS, ACT, 32>(a, cluster1, cluster2, s);
+  if (a.g == 64) return launch_mt<BITS, ACT, 64>(a, cluster1, cluster2, s);
+  return launch_mt<BITS, ACT, 128>(a, cluster1, cluster2, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// x [M, K] bf16, 16-byte aligned; gate and up: qweight [K/pack, F] int32,
-// scales and szeros [K/G, F] f32; down: qweight [F/pack, D], scales and
-// szeros [F/G, D]; mid [M, F] bf16 and msum [M, F/128] f32 scratch the
-// caller allocates; out [M, D] bf16. Pair layout, G = 128, bits 2 or 4, K
-// and F multiples of 128; act 0 = silu, 1 = tanh-gelu. Clusters of cluster1
-// CTAs (1 .. min(8, K/G)) an ffn tile, of cluster2 CTAs (1 .. min(8, F/G))
-// a down tile (experimental/fused_mlp.py: mlp_plan). Returns 0 once both
-// launches are made, else the CUDA error (a cluster the card cannot hold
-// launches nothing).
+// x [M, K] bf16 (x_f32 = 0) or f32 (1), 16-byte aligned; gate and up:
+// qweight [K/pack, F] int32, scales and szeros [K/g, F] f32; down: qweight
+// [F/pack, D], scales and szeros [F/g, D]; mid [M, F] bf16 and msum
+// [M, F / min(g, 128)] f32 scratch the caller allocates; out [M, D] in x's
+// dtype. Pair layout, bits 2 or 4, K and F multiples of 128; g 32, 64, or a
+// multiple of 128 dividing K and F, with kmap_k and kmap_f [g] int32 (the
+// step order, ops/quant_matmul.py: step_kmap) above 128, else null; act 0 =
+// silu, 1 = tanh-gelu. Clusters of cluster1 CTAs (1 .. min(8, K/128)) an ffn
+// tile, of cluster2 CTAs (1 .. min(8, F/128)) a down tile
+// (experimental/fused_mlp.py: mlp_plan). Returns 0 once both launches are
+// made, else the CUDA error (a cluster the card cannot hold launches
+// nothing).
 int bd_fused_mlp(const void* x, const void* gq, const void* gs, const void* gz, const void* uq,
                  const void* us, const void* uz, const void* dq, const void* ds, const void* dz,
-                 void* mid, void* msum, void* out, int M, int K, int F, int D, int bits, int group,
-                 int act_kind, int cluster1, int cluster2, void* stream) {
-  if (M < 1 || group != G || K % G || F % COLS || D < 1 || (bits != 2 && bits != 4) ||
-      (act_kind != kSilu && act_kind != kGeluTanh) || !aligned16(x) || cluster1 < 1 ||
-      cluster1 > kMaxCluster || cluster1 > K / G || cluster2 < 1 || cluster2 > kMaxCluster ||
-      cluster2 > F / G)
+                 const void* kmap_k, const void* kmap_f, void* mid, void* msum, void* out, int M,
+                 int K, int F, int D, int bits, int group, int act_kind, int cluster1,
+                 int cluster2, int x_f32, void* stream) {
+  const bool big = group > G;
+  const bool g_ok = group == 32 || group == 64 || group == G ||
+                    (big && group % G == 0 && K % group == 0 && F % group == 0 && kmap_k && kmap_f);
+  if (M < 1 || !g_ok || (!big && (kmap_k || kmap_f)) || K % G || F % COLS || D < 1 ||
+      (bits != 2 && bits != 4) || (act_kind != kSilu && act_kind != kGeluTanh) ||
+      !aligned16(x) || cluster1 < 1 || cluster1 > kMaxCluster || cluster1 > K / G ||
+      cluster2 < 1 || cluster2 > kMaxCluster || cluster2 > F / G)
     return cudaErrorInvalidValue;
-  const MlpArgs a{static_cast<const __nv_bfloat16*>(x), static_cast<const uint32_t*>(gq),
-                  static_cast<const uint32_t*>(uq), static_cast<const uint32_t*>(dq),
-                  static_cast<const float*>(gs), static_cast<const float*>(gz),
-                  static_cast<const float*>(us), static_cast<const float*>(uz),
-                  static_cast<const float*>(ds), static_cast<const float*>(dz),
-                  static_cast<__nv_bfloat16*>(mid), static_cast<float*>(msum),
-                  static_cast<__nv_bfloat16*>(out), M, K, F, D};
+  const MlpArgs a{x, static_cast<const uint32_t*>(gq), static_cast<const uint32_t*>(uq),
+                  static_cast<const uint32_t*>(dq), static_cast<const float*>(gs),
+                  static_cast<const float*>(gz), static_cast<const float*>(us),
+                  static_cast<const float*>(uz), static_cast<const float*>(ds),
+                  static_cast<const float*>(dz), static_cast<const int*>(kmap_k),
+                  static_cast<const int*>(kmap_f), static_cast<__nv_bfloat16*>(mid),
+                  static_cast<float*>(msum), out, M, K, F, D, group, x_f32};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bits == 2)
-    return act_kind == kSilu ? launch_mt<2, kSilu>(a, cluster1, cluster2, s)
-                             : launch_mt<2, kGeluTanh>(a, cluster1, cluster2, s);
-  return act_kind == kSilu ? launch_mt<4, kSilu>(a, cluster1, cluster2, s)
-                           : launch_mt<4, kGeluTanh>(a, cluster1, cluster2, s);
+    return act_kind == kSilu ? launch_g<2, kSilu>(a, cluster1, cluster2, s)
+                             : launch_g<2, kGeluTanh>(a, cluster1, cluster2, s);
+  return act_kind == kSilu ? launch_g<4, kSilu>(a, cluster1, cluster2, s)
+                           : launch_g<4, kGeluTanh>(a, cluster1, cluster2, s);
 }
 
 }  // extern "C"

@@ -32,6 +32,8 @@
 // codes unpacked straight into its register A fragments and x staged in
 // shared memory by TMA, on 128- or 64-row tiles (see "Prefill" below).
 
+#include <type_traits>
+
 #include "common.cuh"
 #include "hopper.cuh"
 #include "stream.cuh"
@@ -44,7 +46,7 @@ using namespace bd;
 // Decode (M <= 32), the streaming plan of stream.cuh. A cluster of C CTAs
 // owns COLS = 8 * WC output columns (WC = 16 or 32 a warp: one or two m16
 // tiles; the wrapper chooses, ops/quant_matmul.py: a16_decode_plan); CTA
-// `rank` walks K groups [rank*ng/C, (rank+1)*ng/C). Warp w owns WC of the
+// `rank` walks K steps of 128 [rank*ng/C, (rank+1)*ng/C). Warp w owns WC of the
 // columns over all of the CTA's groups and streams their packed words and
 // combo words through a DEC_STAGES-deep cp.async ring of its own,
 // DEC_STAGES - 1 groups in flight, waiting on its own copies only: no block
@@ -58,21 +60,27 @@ using namespace bd;
 //                no second mma;
 //   fold         acc += part * s - sum(x_g) * (sz + off * s), s and sz
 //                decoded from the staged combo word (4 bytes a group column).
+// A step of 128 k holds 128/g groups at g = 32 and 64 (each folds at its end;
+// common.cuh: StepMap says which word and field a lane reads), one at 128;
+// a group of g > 128 is g/128 steps whose x the staging reads in step order
+// (kmap). f32 x is rounded to bf16 as it is staged; out takes x's dtype.
 // The C partial tiles are summed in rank order through distributed shared
 // memory, each CTA finishing 1/C of the tile: deterministic, no atomics.
 // ---------------------------------------------------------------------------
 
-constexpr int DEC_G = 128;
+constexpr int DEC_G = 128;         // K step of the kernels: 128 / G groups, or 1 / (g / 128)
 constexpr int DEC_STAGES = 4;     // a warp's ring: 3 groups in flight
 constexpr bool DEC_PDL = true;    // a programmatic dependent: rings fill as the kernel before ends
 
-template <int BITS, int TOK, int WC>
+template <int BITS, int TOK, int WC, int G>
 struct Dec {
-  static constexpr int R = DEC_G * BITS / 32;     // word rows a group
+  using Map = StepMap<BITS, G, 2>;
+  static constexpr int R = DEC_G * BITS / 32;     // word rows a step
+  static constexpr int SUB = Map::SUB;            // groups (combo rows) a step
   static constexpr int MT = WC / 16;              // m16 tiles a warp
   static constexpr int COLS = kWarps * WC;        // output columns a cluster
   static constexpr int WLD = WC + 8;              // staged word row: fragment reads hit 32 banks
-  static constexpr int WSTAGE = R * WLD + WC;     // words, then combo words
+  static constexpr int WSTAGE = R * WLD + SUB * WC;  // words, then combo words
   static constexpr int MROWS = 8 * TOK;           // token rows: TOK n-tiles of 8
   static constexpr int RED = MROWS * COLS * 4;    // the partial tile, over the drained rings
   static constexpr int RINGS = kWarps * DEC_STAGES * WSTAGE * 4;
@@ -82,24 +90,30 @@ struct Dec {
   __host__ __device__ static size_t xbytes(int ngs_max) {
     return size_t(MROWS) * xld(ngs_max) * 2;
   }
-  // the ring, the x slice, then its group sums [MROWS][ngs_max] f32
+  // the ring, the x slice, then its group sums [MROWS][ngs_max * SUB] f32
   __host__ __device__ static size_t smem(int ngs_max) {
-    return RING + xbytes(ngs_max) + size_t(MROWS) * ngs_max * 4;
+    return RING + xbytes(ngs_max) + size_t(MROWS) * ngs_max * SUB * 4;
   }
 };
 
 // Two CTAs an SM, but one at 32 token rows and 32 columns a warp (its 32
 // accumulators and 32 partials a thread, with the words, spill at 128
 // registers).
-template <int BITS, int TOK, int WC>
+// G: the group when it is 32, 64 or 128; 128 also for g = gdiv * 128 (the
+// combo row of step j is j / gdiv, and x is read through kmap, the step
+// order of ops/quant_matmul.py: step_kmap, period g). x is bf16 or, with
+// x_f32, f32 rounded to bf16 as it is staged; out takes x's dtype.
+template <int BITS, int TOK, int WC, int G>
 __global__ void __launch_bounds__(kThreads, TOK == 4 && WC == 32 ? 1 : 2)
-    qmm_decode_stream_kernel(const __nv_bfloat16* __restrict__ x, const uint32_t* __restrict__ qw,
-                             const uint32_t* __restrict__ combo, __nv_bfloat16* __restrict__ out,
-                             int M, int K, int N, int ngs_max, int vec) {
-  using D = Dec<BITS, TOK, WC>;
-  constexpr int MROWS = D::MROWS, MT = D::MT, COLS = D::COLS;
-  constexpr int WPL = D::R / 4;  // words a lane a group and column
-  constexpr int BPI = D::R / 8;  // k-blocks of 16 one extraction spans
+    qmm_decode_stream_kernel(const void* __restrict__ x, const uint32_t* __restrict__ qw,
+                             const uint32_t* __restrict__ combo, void* __restrict__ out,
+                             const int* __restrict__ kmap, int M, int K, int N, int ngs_max,
+                             int vec, int gdiv, int x_f32) {
+  using D = Dec<BITS, TOK, WC, G>;
+  using Map = typename D::Map;
+  constexpr int MROWS = D::MROWS, MT = D::MT, COLS = D::COLS, SUB = D::SUB;
+  constexpr int NW = Map::NW;           // words a lane holds a step and column
+  constexpr int FG = DEC_G / SUB;       // k a fold (a group, or a step)
   constexpr float kOff = Trick<BITS>::kOffset;
   extern __shared__ __align__(16) uint8_t smem[];
   cg::cluster_group cluster = cg::this_cluster();
@@ -109,16 +123,17 @@ __global__ void __launch_bounds__(kThreads, TOK == 4 && WC == 32 ? 1 : 2)
   const int n0 = blockIdx.y * COLS;
   const int ng = K / DEC_G, g0 = rank * ng / C, ngs = (rank + 1) * ng / C - g0;
   const int k0 = g0 * DEC_G, kn = ngs * DEC_G;
-  const int xld = D::xld(ngs_max);
+  const int xld = D::xld(ngs_max), xsld = ngs_max * SUB;
   uint32_t* ring = reinterpret_cast<uint32_t*>(smem) + warp * DEC_STAGES * D::WSTAGE;
   __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem + D::RING);
   float* xsum_s = reinterpret_cast<float*>(smem + D::RING + D::xbytes(ngs_max));
 
-  // the lane's pieces of a group, 4 columns each: word piece lane + 32k (row
-  // r, column c of the warp's R x WC), combo piece lane (lanes < WC/4); the
-  // offsets and the columns' bounds do not change from group to group
+  // the lane's pieces of a step, 4 columns each: word piece lane + 32k (row
+  // r, column c of the warp's R x WC), combo piece lane (lanes < SUB * WC/4:
+  // combo row lane / (WC/4)); the offsets and the columns' bounds do not
+  // change from step to step
   constexpr int C4 = WC / 4, PW = D::R * C4 / 32;
-  const int wn = n0 + warp * WC, cc = (lane % C4) * 4;
+  const int wn = n0 + warp * WC, cs_row = lane / C4, cc = (lane % C4) * 4;
   const int c_ok = min(max(N - wn - cc, 0), 4);  // columns of a piece below N
   int w_src[PW], w_dst[PW], w_ok[PW];
 #pragma unroll
@@ -136,14 +151,16 @@ __global__ void __launch_bounds__(kThreads, TOK == 4 && WC == 32 ? 1 : 2)
       for (int e = 0; e < 4; ++e) cp_async4(dst + e, e < ok ? src + e : any, e < ok ? 4 : 0);
     }
   };
-  auto issue = [&](int j) {  // group g0 + j of this warp's columns; always one commit group
+  auto issue = [&](int j) {  // step g0 + j of this warp's columns; always one commit group
     if (j < ngs) {
       uint32_t* st = ring + (j % DEC_STAGES) * D::WSTAGE;
       const uint32_t* src = qw + size_t(g0 + j) * D::R * N;
 #pragma unroll
       for (int k = 0; k < PW; ++k) piece(st + w_dst[k], src + w_src[k], qw, w_ok[k]);
-      if (lane < C4)
-        piece(st + D::R * D::WLD + cc, combo + size_t(g0 + j) * N + wn + cc, combo, c_ok);
+      const int crow = step_row(g0 + j, SUB, gdiv) + cs_row;
+      if (lane < SUB * C4)
+        piece(st + D::R * D::WLD + cs_row * WC + cc, combo + size_t(crow) * N + wn + cc, combo,
+              c_ok);
     }
     cp_commit();
   };
@@ -151,17 +168,19 @@ __global__ void __launch_bounds__(kThreads, TOK == 4 && WC == 32 ? 1 : 2)
   for (int j = 0; j < DEC_STAGES - 1; ++j) issue(j);
 
   grid_dep_wait();  // x is the previous kernel's (a no-op unless launched with PDL)
-  // this CTA's x slice, 16 bytes a load (4 in flight a thread), past L1, and
-  // its group sums: a group of a row is 16 consecutive loads, so 16
-  // consecutive lanes, summed by 4 shuffles
+  // this CTA's x slice, 16 bytes of bf16 a load (4 in flight a thread), past
+  // L1, and its group sums: a fold group of a row is FG / 8 consecutive
+  // loads, so as many consecutive lanes, summed by shuffles
   const int per = kn / 8, total = MROWS * per;  // total: a multiple of 16
+  const int P = gdiv * DEC_G;                   // kmap's period
   for (int base = 0; base < total; base += 4 * kThreads) {
     uint4 v[4];
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
       const int idx = base + u * kThreads + tid, r = idx / per;
-      const uint4* src = reinterpret_cast<const uint4*>(x + size_t(r) * K + k0) + (idx - r * per);
-      v[u] = idx < total && r < M ? __ldcg(src) : make_uint4(0u, 0u, 0u, 0u);
+      v[u] = idx < total && r < M
+                 ? load8_bf16(x, size_t(r) * K + src_k(k0 + (idx - r * per) * 8, kmap, P), x_f32)
+                 : make_uint4(0u, 0u, 0u, 0u);
     }
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
@@ -175,8 +194,8 @@ __global__ void __launch_bounds__(kThreads, TOK == 4 && WC == 32 ? 1 : 2)
         sum += f.x + f.y;
       }
 #pragma unroll
-      for (int off = 1; off < 16; off <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      if (idx < total && c % 16 == 0) xsum_s[r * ngs_max + c / 16] = sum;
+      for (int off = 1; off < FG / 8; off <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      if (idx < total && c % (FG / 8) == 0) xsum_s[r * xsld + c / (FG / 8)] = sum;
     }
   }
   __syncthreads();  // the x slice and its group sums in shared memory
@@ -189,38 +208,39 @@ __global__ void __launch_bounds__(kThreads, TOK == 4 && WC == 32 ? 1 : 2)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[t][mt][e] = 0.f;
 
+  const int pre = Map::preshift(quad);
   for (int j = 0; j < ngs; ++j) {
-    cp_wait<DEC_STAGES - 2>();  // this lane's copies of group j landed
+    cp_wait<DEC_STAGES - 2>();  // this lane's copies of step j landed
     __syncwarp();               // and the other lanes'; slot (j - 1) is free
     issue(j + DEC_STAGES - 1);
     const uint32_t* ws = ring + (j % DEC_STAGES) * D::WSTAGE;
-    uint32_t w[MT][2][WPL];  // words of the lane's columns 16mt + row and 16mt + row + 8
+    uint32_t w[MT][2][NW];  // words of the lane's columns 16mt + row and 16mt + row + 8
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
       for (int h = 0; h < 2; ++h)
 #pragma unroll
-        for (int q = 0; q < WPL; ++q)
-          w[mt][h][q] = ws[(4 * q + quad) * D::WLD + 16 * mt + 8 * h + row];
+        for (int u = 0; u < NW; ++u)
+          w[mt][h][u] = ws[Map::row(u, quad) * D::WLD + 16 * mt + 8 * h + row] >> pre;
     float part[TOK][MT][4];
 #pragma unroll
-    for (int t = 0; t < TOK; ++t) {
+    for (int t = 0; t < TOK; ++t)
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
         for (int e = 0; e < 4; ++e) part[t][mt][e] = 0.f;
-    }
+    const uint32_t* cs = ws + D::R * D::WLD;
 #pragma unroll
     for (int kb = 0; kb < DEC_G / 16; ++kb) {
-      const int i = kb / BPI;
-      const int q = 2 * (kb % BPI);
+      const int u0 = Map::word(kb, 0), u1 = Map::word(kb, 1);
+      const int i0 = Map::field(kb, 0), i1 = Map::field(kb, 1);
       uint32_t a[MT][4];
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) {
-        a[mt][0] = extract_bits<BITS>(w[mt][0][q], i);
-        a[mt][1] = extract_bits<BITS>(w[mt][1][q], i);
-        a[mt][2] = extract_bits<BITS>(w[mt][0][q + 1], i);
-        a[mt][3] = extract_bits<BITS>(w[mt][1][q + 1], i);
+        a[mt][0] = extract_bits<BITS>(w[mt][0][u0], i0);
+        a[mt][1] = extract_bits<BITS>(w[mt][1][u0], i0);
+        a[mt][2] = extract_bits<BITS>(w[mt][0][u1], i1);
+        a[mt][3] = extract_bits<BITS>(w[mt][1][u1], i1);
       }
 #pragma unroll
       for (int t = 0; t < TOK; ++t) {  // token row 8t + row, k = 16kb + 2quad (+8)
@@ -230,28 +250,33 @@ __global__ void __launch_bounds__(kThreads, TOK == 4 && WC == 32 ? 1 : 2)
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) mma_bf16(part[t][mt], a[mt], b0, b1);
       }
-    }
-    // the lane's accumulators: columns 16mt + row, + 8 (e >> 1) x tokens 8t + 2quad, + 1 (e & 1)
-    const uint32_t* cs = ws + D::R * D::WLD;
-    float s[MT][2], zc[MT][2];
+      if (Map::group_end(kb)) {
+        // fold group gs of the step: the lane's accumulators are columns
+        // 16mt + row, + 8 (e >> 1) x tokens 8t + 2quad, + 1 (e & 1)
+        const int gs = kb / Map::KB;
+        float s[MT][2], zc[MT][2];
 #pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
+        for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float sz;
-        decode_combo(cs[16 * mt + 8 * h + row], s[mt][h], sz);
-        zc[mt][h] = sz + kOff * s[mt][h];  // the +off of the codes
+          for (int h = 0; h < 2; ++h) {
+            float sz;
+            decode_combo(cs[gs * WC + 16 * mt + 8 * h + row], s[mt][h], sz);
+            zc[mt][h] = sz + kOff * s[mt][h];  // the +off of the codes
+          }
+#pragma unroll
+        for (int t = 0; t < TOK; ++t) {
+          const float* xq = xsum_s + (8 * t + 2 * quad) * xsld + j * SUB + gs;
+          const float xt[2] = {xq[0], xq[xsld]};
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              acc[t][mt][e] = acc[t][mt][e] + part[t][mt][e] * s[mt][e >> 1] -
+                              xt[e & 1] * zc[mt][e >> 1];
+              part[t][mt][e] = 0.f;
+            }
+        }
       }
-#pragma unroll
-    for (int t = 0; t < TOK; ++t) {
-      const float* xq = xsum_s + (8 * t + 2 * quad) * ngs_max + j;  // sum(x_g) of the tokens
-      const float xt[2] = {xq[0], xq[ngs_max]};
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          acc[t][mt][e] = acc[t][mt][e] + part[t][mt][e] * s[mt][e >> 1] -
-                          xt[e & 1] * zc[mt][e >> 1];
     }
   }
 
@@ -280,7 +305,7 @@ __global__ void __launch_bounds__(kThreads, TOK == 4 && WC == 32 ? 1 : 2)
 #pragma unroll
       for (int q = 0; q < kMaxCluster; ++q)
         if (q < C) sum += part[q];
-      out[size_t(r) * N + n] = __float2bfloat16(sum);
+      store_out(out, size_t(r) * N + n, sum, x_f32);
     }
   }
   cluster.sync();  // no CTA leaves while a peer still reads its shared memory
@@ -292,7 +317,7 @@ __global__ void __launch_bounds__(kThreads, TOK == 4 && WC == 32 ? 1 : 2)
 // the B operand, read by the tensor cores from shared memory as it came:
 //   * one block per output tile of BM = 64 or 128 rows (the wgmma N) and 128
 //     columns: two warpgroups of 64 columns each (the wgmma M);
-//   * K is walked one group (128) a step through a ring of PF_STAGES stages,
+//   * K is walked one step of 128 at a time through a ring of PF_STAGES stages,
 //     each filled by five TMA loads that one thread starts and that complete
 //     on the stage's mbarrier: the x tile (BM x 128 bf16, two 64-k atoms,
 //     128-byte swizzle), the group's packed words (R x 136: 8 columns of
@@ -305,61 +330,92 @@ __global__ void __launch_bounds__(kThreads, TOK == 4 && WC == 32 ? 1 : 2)
 //   * part = x_g . (off + q)_g is a fresh f32 wgmma accumulator a group
 //     (scale-d 0 on its first k-step), folded in registers:
 //       acc += part * s - xsum * (sz + off * s),
-//     xsum_g[m] from group_sums_kernel, one pass over x before the matmul.
+//     xsum_g[m] from prefill_prep_kernel, one pass over x before the matmul;
+//   * groups of 32 and 64 (C1): the step's 128 k hold 128 / g groups, each a
+//     commit of its own k-steps folded at its end (slower: the wgmma waits a
+//     group); a group of g > 128 is g / 128 steps read in the order of
+//     step_kmap, through the prep pass's bf16 copy of x, which also holds f32
+//     x rounded to bf16 (the output then in f32).
 // Shared memory carries x alone: 2 x BM x 32 bytes of wgmma reads a k-step,
 // half of what the codes as a second shared operand would add (an earlier
 // version unpacked them into a shared bf16 tile and ran 1.6x slower). No
 // split-K: a block writes its own tile, so the result is deterministic.
 // ---------------------------------------------------------------------------
 
-constexpr int PF_G = 128;
+constexpr int PF_G = 128;         // K step: 128 / G groups, or 1 / (g / 128)
 constexpr int PF_BN = 128;        // output columns a block (two warpgroups of 64)
 constexpr int PF_STAGES = 4;      // ring depth: 4 stages of up to 42 KB
 constexpr int PF_WS = PF_BN + 8;  // word-tile row: 8 words of padding (read past N: zeros)
 
-// xsum[g, m] = sum over group g of x[m, :] in f32, zero for M <= m < Mp; one
-// warp a (row, group)
+// One pass over x ahead of the prefill kernels, one warp a (row, fold group
+// of FG = min(g, 128) k): xsum[fg, m] = the f32 sum of the fold group's x as
+// the kernel multiplies it (rounded to bf16), zero for M <= m < Mp; and, for
+// f32 x or a kmap (g > 128), the bf16 copy xb[m, k] = bf16(x[m, src_k(k)])
+// that the kernel's TMA then reads in place of x.
 __global__ void __launch_bounds__(kThreads)
-    group_sums_kernel(const __nv_bfloat16* __restrict__ x, float* __restrict__ xsum, int M,
-                      int K, int Mp) {
-  const int ng = K / PF_G;
+    prefill_prep_kernel(const void* __restrict__ x, const int* __restrict__ kmap,
+                        __nv_bfloat16* __restrict__ xb, float* __restrict__ xsum, int M, int K,
+                        int Mp, int FG, int P, int x_f32) {
+  const int nf = K / FG;
   const int item = blockIdx.x * kWarps + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
-  if (item >= Mp * ng) return;
-  const int m = item / ng, g = item - m * ng;
+  if (item >= Mp * nf) return;
+  const int m = item / nf, fg = item - m * nf;
   float s = 0.f;
-  if (m < M) {
-    const uint2 v = __ldg(reinterpret_cast<const uint2*>(x + size_t(m) * K + g * PF_G) + lane);
-    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
-    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
-    s = (a.x + a.y) + (b.x + b.y);
+  if (m < M && !x_f32 && !xb) {  // bf16 x read in place: FG / 32 consecutive k a lane
+    const __nv_bfloat16* xr = static_cast<const __nv_bfloat16*>(x) + size_t(m) * K + fg * FG;
+    if (FG == 128) {
+      const uint2 v = __ldg(reinterpret_cast<const uint2*>(xr) + lane);
+      const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
+      const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
+      s = (a.x + a.y) + (b.x + b.y);
+    } else if (FG == 64) {
+      const uint32_t v = __ldg(reinterpret_cast<const unsigned int*>(xr) + lane);
+      const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+      s = a.x + a.y;
+    } else {
+      s = __bfloat162float(xr[lane]);
+    }
+  } else if (m < M) {
+    for (int e = lane; e < FG; e += 32) {
+      const int k = fg * FG + e, src = src_k(k, kmap, P);
+      const float v = x_f32 ? round_to_bf16(static_cast<const float*>(x)[size_t(m) * K + src])
+                            : __bfloat162float(static_cast<const __nv_bfloat16*>(x)[size_t(m) * K + src]);
+      if (xb) xb[size_t(m) * K + k] = __float2bfloat16(v);
+      s += v;
+    }
   }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-  if (lane == 0) xsum[size_t(g) * Mp + m] = s;
+  if (lane == 0) xsum[size_t(fg) * Mp + m] = s;
 }
 
-template <int BITS, int BM>
+template <int BITS, int BM, int G>
 struct Prefill {
-  static constexpr int R = PF_G * BITS / 32;  // word rows a group
+  using Map = StepMap<BITS, G, 2>;
+  static constexpr int SUB = Map::SUB;         // groups a step
+  static constexpr int R = PF_G * BITS / 32;  // word rows a step
   static constexpr int X_BYTES = BM * PF_G * 2;
   static constexpr int W_BYTES = R * PF_WS * 4;
-  static constexpr int C_OFF = X_BYTES + W_BYTES;  // combo words, then x sums
-  static constexpr int TX_BYTES = C_OFF + PF_BN * 4 + BM * 4;  // a stage's TMA bytes
+  static constexpr int C_OFF = X_BYTES + W_BYTES;  // combo words [SUB][PF_BN], then x sums [SUB][BM]
+  static constexpr int TX_BYTES = C_OFF + SUB * PF_BN * 4 + SUB * BM * 4;  // a stage's TMA bytes
   static constexpr int STAGE = (TX_BYTES + 1023) / 1024 * 1024;
   static constexpr int SMEM = PF_STAGES * STAGE + PF_STAGES * 8 + 1024;  // + mbarriers, alignment
 };
 
-template <int BITS, int BM>
+// G as in the decode kernel (gdiv: combo row of step g is g / gdiv); out is
+// bf16 or, with out_f32, f32.
+template <int BITS, int BM, int G>
 __global__ void __launch_bounds__(kThreads, 1)
     qmm_prefill_kernel(const __grid_constant__ CUtensorMap x_map,
                        const __grid_constant__ CUtensorMap w_map,
                        const __grid_constant__ CUtensorMap c_map,
-                       const __grid_constant__ CUtensorMap s_map, __nv_bfloat16* __restrict__ out,
-                       int M, int K, int N) {
-  using P = Prefill<BITS, BM>;
+                       const __grid_constant__ CUtensorMap s_map, void* __restrict__ out,
+                       int M, int K, int N, int gdiv, int out_f32) {
+  using P = Prefill<BITS, BM, G>;
+  using Map = typename P::Map;
   constexpr int NJ = BM / 8;    // 8-row blocks of x: the accumulator's column blocks
-  constexpr int RT = P::R / 8;  // word-row octets a group (1 at int2, 2 at int4)
+  constexpr int NW = Map::NW, SUB = P::SUB;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
                                              ~uintptr_t(1023));
@@ -380,8 +436,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     tma_load(st, &x_map, g * PF_G, m0, bar);
     tma_load(st + BM * 128, &x_map, g * PF_G + 64, m0, bar);
     tma_load(st + P::X_BYTES, &w_map, n0, g * P::R, bar);
-    tma_load(st + P::C_OFF, &c_map, n0, g, bar);
-    tma_load(st + P::C_OFF + PF_BN * 4, &s_map, m0, g, bar);
+    tma_load(st + P::C_OFF, &c_map, n0, step_row(g, SUB, gdiv), bar);
+    tma_load(st + P::C_OFF + SUB * PF_BN * 4, &s_map, m0, g * SUB, bar);
   };
 
   if (tid == 0) {
@@ -396,170 +452,233 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
   for (int e = 0; e < BM / 2; ++e) acc[e] = part[e] = 0.f;
 
+  const int pre = Map::preshift(q);
   for (int g = 0; g < ng; ++g) {
     const uint8_t* st = smem + (g % PF_STAGES) * P::STAGE;
     mbar_wait(full + g % PF_STAGES, (g / PF_STAGES) & 1);
     const uint32_t* ws = reinterpret_cast<const uint32_t*>(st + P::X_BYTES);
-    // words of rows nl, nl + 8 and word rows 8t + q, 8t + q + 4 (lanes: 4
-    // word rows x 8 columns, no bank conflict)
-    uint32_t w[2][2 * RT];
+    // words of columns nl, nl + 8 and the step's word rows Map::row(u, q)
+    // (lanes: 4 word rows x 8 columns, no bank conflict)
+    uint32_t w[2][NW];
 #pragma unroll
     for (int h = 0; h < 2; ++h)
 #pragma unroll
-      for (int u = 0; u < 2 * RT; ++u) w[h][u] = ws[(4 * u + q) * PF_WS + nl + 8 * h];
+      for (int u = 0; u < NW; ++u) w[h][u] = ws[Map::row(u, q) * PF_WS + nl + 8 * h] >> pre;
     uint32_t a[PF_G / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < PF_G / 16; ++kk) {  // k = 16kk + 2q (+8): extraction kk/RT of
-      const int i = kk / RT, t = kk % RT;       // word rows 8t + q (+4)
-      a[kk][0] = extract_bits<BITS>(w[0][2 * t], i);
-      a[kk][1] = extract_bits<BITS>(w[1][2 * t], i);
-      a[kk][2] = extract_bits<BITS>(w[0][2 * t + 1], i);
-      a[kk][3] = extract_bits<BITS>(w[1][2 * t + 1], i);
+    for (int kk = 0; kk < PF_G / 16; ++kk) {  // k = 16kk + 2q (+8)
+      const int u0 = Map::word(kk, 0), u1 = Map::word(kk, 1);
+      const int i0 = Map::field(kk, 0), i1 = Map::field(kk, 1);
+      a[kk][0] = extract_bits<BITS>(w[0][u0], i0);
+      a[kk][1] = extract_bits<BITS>(w[1][u0], i0);
+      a[kk][2] = extract_bits<BITS>(w[0][u1], i1);
+      a[kk][3] = extract_bits<BITS>(w[1][u1], i1);
     }
     const uint32_t xa = smem_u32(st);
-    wgmma_fence();
-    fence_regs(part);
-#pragma unroll
-    for (int kk = 0; kk < PF_G / 16; ++kk)  // atom kk/4, byte 32(kk%4) of its rows
-      wgmma_bf16(part, a[kk], sw128_desc(xa + (kk >> 2) * (BM * 128) + (kk & 3) * 32), kk > 0);
-    wgmma_commit();
-
-    __syncthreads();  // every thread done with stage g-1: its slot takes group g+3
-    if (tid == 0 && g + PF_STAGES - 1 < ng) load_stage(g + PF_STAGES - 1);
-
     const uint32_t* cs = reinterpret_cast<const uint32_t*>(st + P::C_OFF);
-    const float* xs = reinterpret_cast<const float*>(st + P::C_OFF + PF_BN * 4);
-    float s[2], zc[2];
+    const float* xs = reinterpret_cast<const float*>(st + P::C_OFF + SUB * PF_BN * 4);
+#pragma unroll
+    for (int gs = 0; gs < SUB; ++gs) {  // a fresh accumulator a group of the step
+      wgmma_fence();
+      fence_regs(part);
+#pragma unroll
+      for (int kk = gs * Map::KB; kk < (gs + 1) * Map::KB; ++kk)  // atom kk/4, byte 32(kk%4)
+        wgmma_bf16(part, a[kk], sw128_desc(xa + (kk >> 2) * (BM * 128) + (kk & 3) * 32),
+                   kk > gs * Map::KB);
+      wgmma_commit();
+      if (gs == 0) {
+        __syncthreads();  // every thread done with stage g-1: its slot takes step g+3
+        if (tid == 0 && g + PF_STAGES - 1 < ng) load_stage(g + PF_STAGES - 1);
+      }
+      float s[2], zc[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float sz;
+        decode_combo(cs[gs * PF_BN + nl + 8 * h], s[h], sz);
+        zc[h] = sz + Trick<BITS>::kOffset * s[h];
+      }
+      wgmma_wait<0>();
+      fence_regs(part);
+#pragma unroll
+      for (int kk = 0; kk < PF_G / 16; ++kk) fence_regs(a[kk]);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const float2 xv = *reinterpret_cast<const float2*>(xs + gs * BM + 8 * j + 2 * q);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = e >> 1;
+          const float xe = (e & 1) ? xv.y : xv.x;
+          acc[4 * j + e] = acc[4 * j + e] + part[4 * j + e] * s[h] - xe * zc[h];
+        }
+      }
+    }
+  }
+
+  // the tile in out's dtype, the dtype test hoisted out of the stores
+  auto store = [&](auto* o) {
+    using T = std::remove_pointer_t<decltype(o)>;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      float sz;
-      decode_combo(cs[nl + 8 * h], s[h], sz);
-      zc[h] = sz + Trick<BITS>::kOffset * s[h];
+      const int n = n0 + nl + 8 * h;
+      if (n >= N) continue;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int m = m0 + 8 * j + 2 * q + c;
+          if (m < M) o[size_t(m) * N + n] = from_f32<T>(acc[4 * j + 2 * h + c]);
+        }
     }
-    wgmma_wait<0>();
-    fence_regs(part);
-#pragma unroll
-    for (int kk = 0; kk < PF_G / 16; ++kk) fence_regs(a[kk]);
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const float2 xv = *reinterpret_cast<const float2*>(xs + 8 * j + 2 * q);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int h = e >> 1;
-        const float xe = (e & 1) ? xv.y : xv.x;
-        acc[4 * j + e] = acc[4 * j + e] + part[4 * j + e] * s[h] - xe * zc[h];
-      }
-    }
-  }
-
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int n = n0 + nl + 8 * h;
-    if (n >= N) continue;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int m = m0 + 8 * j + 2 * q + c;
-        if (m < M) out[size_t(m) * N + n] = __float2bfloat16(acc[4 * j + 2 * h + c]);
-      }
-  }
+  };
+  if (out_f32)
+    store(static_cast<float*>(out));
+  else
+    store(static_cast<__nv_bfloat16*>(out));
 }
 
-template <int BITS, int BM>
-cudaError_t launch_prefill(const void* x, const void* qw, const void* combo, void* xsum,
-                           void* out, int M, int K, int N, cudaStream_t stream) {
-  using P = Prefill<BITS, BM>;
-  const int Mp = (M + 3) / 4 * 4;
-  const int ng = K / PF_G;
+struct PfArgs {
+  const void* x;      // the caller's x (bf16 or f32)
+  const int* kmap;    // step order for g > 128, else null
+  void* xb;           // bf16 copy scratch [M, K] for f32 x or a kmap, else null
+  const void* qw;
+  const void* combo;
+  void* xsum;         // f32 [K / FG, round_up(M, 4)]
+  void* out;
+  int M, K, N, g, x_f32;
+};
+
+template <int BITS, int BM, int G>
+cudaError_t launch_prefill(const PfArgs& a, cudaStream_t stream) {
+  using P = Prefill<BITS, BM, G>;
+  const int Mp = (a.M + 3) / 4 * 4;
+  const int ng = a.K / PF_G, FG = PF_G / P::SUB, gdiv = G == 128 ? a.g / PF_G : 1;
+  const void* xt = a.xb ? a.xb : a.x;  // what TMA reads: bf16
   CUtensorMap xm, wm, cm, sm;
-  if (!tensor_map(&xm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, M, K, BM, 64, true) ||
-      !tensor_map(&wm, CU_TENSOR_MAP_DATA_TYPE_INT32, 4, qw, ng * P::R, N, P::R, PF_WS, false) ||
-      !tensor_map(&cm, CU_TENSOR_MAP_DATA_TYPE_INT32, 4, combo, ng, N, 1, PF_BN, false) ||
-      !tensor_map(&sm, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, xsum, ng, Mp, 1, BM, false))
+  if (!tensor_map(&xm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, xt, a.M, a.K, BM, 64, true) ||
+      !tensor_map(&wm, CU_TENSOR_MAP_DATA_TYPE_INT32, 4, a.qw, ng * P::R, a.N, P::R, PF_WS,
+                  false) ||
+      !tensor_map(&cm, CU_TENSOR_MAP_DATA_TYPE_INT32, 4, a.combo, a.K / a.g, a.N, P::SUB, PF_BN,
+                  false) ||
+      !tensor_map(&sm, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, a.xsum, a.K / FG, Mp, P::SUB, BM, false))
     return cudaErrorInvalidValue;
-  group_sums_kernel<<<(Mp * ng + kWarps - 1) / kWarps, kThreads, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<float*>(xsum), M, K, Mp);
+  prefill_prep_kernel<<<(Mp * (a.K / FG) + kWarps - 1) / kWarps, kThreads, 0, stream>>>(
+      a.x, a.kmap, static_cast<__nv_bfloat16*>(a.xb), static_cast<float*>(a.xsum), a.M, a.K, Mp,
+      FG, a.g, a.x_f32);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  auto kernel = qmm_prefill_kernel<BITS, BM>;
+  auto kernel = qmm_prefill_kernel<BITS, BM, G>;
   err = allow_smem(kernel, P::SMEM);
   if (err != cudaSuccess) return err;
-  dim3 grid((N + PF_BN - 1) / PF_BN, (M + BM - 1) / BM);
-  kernel<<<grid, kThreads, P::SMEM, stream>>>(xm, wm, cm, sm, static_cast<__nv_bfloat16*>(out),
-                                              M, K, N);
+  dim3 grid((a.N + PF_BN - 1) / PF_BN, (a.M + BM - 1) / BM);
+  kernel<<<grid, kThreads, P::SMEM, stream>>>(xm, wm, cm, sm, a.out, a.M, a.K, a.N, gdiv,
+                                              a.x_f32);
   return cudaGetLastError();
 }
 
 // tile_m: output rows a block, 128 or 64 (for a short prefill, so that
 // every SM has a block); the wrapper chooses (ops/quant_matmul.py:
 // prefill_tile_m).
-template <int BITS>
-cudaError_t launch_prefill_tm(const void* x, const void* qw, const void* combo, void* xsum,
-                              void* out, int M, int K, int N, int tile_m, cudaStream_t stream) {
-  if (tile_m == 128) return launch_prefill<BITS, 128>(x, qw, combo, xsum, out, M, K, N, stream);
-  if (tile_m == 64) return launch_prefill<BITS, 64>(x, qw, combo, xsum, out, M, K, N, stream);
+template <int BITS, int G>
+cudaError_t launch_prefill_tm(const PfArgs& a, int tile_m, cudaStream_t stream) {
+  if (tile_m == 128) return launch_prefill<BITS, 128, G>(a, stream);
+  if (tile_m == 64) return launch_prefill<BITS, 64, G>(a, stream);
   return cudaErrorInvalidValue;
 }
 
-template <int BITS, int TOK, int WC>
-cudaError_t launch_decode(const void* x, const void* qw, const void* combo, void* out, int M,
-                          int K, int N, int cluster, cudaStream_t stream) {
-  using D = Dec<BITS, TOK, WC>;
-  const int ngs_max = (K / DEC_G + cluster - 1) / cluster;
-  const int vec = N % 4 == 0 && aligned16(qw) && aligned16(combo);
-  return launch_cluster(qmm_decode_stream_kernel<BITS, TOK, WC>,
-                        dim3(cluster, (N + D::COLS - 1) / D::COLS, 1), cluster, D::smem(ngs_max),
-                        DEC_PDL, stream, static_cast<const __nv_bfloat16*>(x),
-                        static_cast<const uint32_t*>(qw), static_cast<const uint32_t*>(combo),
-                        static_cast<__nv_bfloat16*>(out), M, K, N, ngs_max, vec);
+template <int BITS>
+cudaError_t launch_prefill_g(const PfArgs& a, int tile_m, cudaStream_t stream) {
+  if (a.g == 32) return launch_prefill_tm<BITS, 32>(a, tile_m, stream);
+  if (a.g == 64) return launch_prefill_tm<BITS, 64>(a, tile_m, stream);
+  return launch_prefill_tm<BITS, 128>(a, tile_m, stream);
+}
+
+struct DecArgs {
+  const void* x;
+  const void* qw;
+  const void* combo;
+  void* out;
+  const int* kmap;
+  int M, K, N, g, x_f32;
+};
+
+template <int BITS, int TOK, int WC, int G>
+cudaError_t launch_decode(const DecArgs& a, int cluster, cudaStream_t stream) {
+  using D = Dec<BITS, TOK, WC, G>;
+  const int ngs_max = (a.K / DEC_G + cluster - 1) / cluster;
+  const int vec = a.N % 4 == 0 && aligned16(a.qw) && aligned16(a.combo);
+  const int gdiv = G == 128 ? a.g / DEC_G : 1;
+  return launch_cluster(qmm_decode_stream_kernel<BITS, TOK, WC, G>,
+                        dim3(cluster, (a.N + D::COLS - 1) / D::COLS, 1), cluster,
+                        D::smem(ngs_max), DEC_PDL, stream, a.x,
+                        static_cast<const uint32_t*>(a.qw), static_cast<const uint32_t*>(a.combo),
+                        a.out, a.kmap, a.M, a.K, a.N, ngs_max, vec, gdiv, a.x_f32);
 }
 
 // 8, 16 or 32 token rows a CTA
+template <int BITS, int WC, int G>
+cudaError_t launch_decode_mt(const DecArgs& a, int cluster, cudaStream_t s) {
+  if (a.M <= 8) return launch_decode<BITS, 1, WC, G>(a, cluster, s);
+  if (a.M <= 16) return launch_decode<BITS, 2, WC, G>(a, cluster, s);
+  return launch_decode<BITS, 4, WC, G>(a, cluster, s);
+}
+
 template <int BITS, int WC>
-cudaError_t launch_decode_mt(const void* x, const void* qw, const void* combo, void* out, int M,
-                             int K, int N, int cluster, cudaStream_t s) {
-  if (M <= 8) return launch_decode<BITS, 1, WC>(x, qw, combo, out, M, K, N, cluster, s);
-  if (M <= 16) return launch_decode<BITS, 2, WC>(x, qw, combo, out, M, K, N, cluster, s);
-  return launch_decode<BITS, 4, WC>(x, qw, combo, out, M, K, N, cluster, s);
+cudaError_t launch_decode_g(const DecArgs& a, int cluster, cudaStream_t s) {
+  if (a.g == 32) return launch_decode_mt<BITS, WC, 32>(a, cluster, s);
+  if (a.g == 64) return launch_decode_mt<BITS, WC, 64>(a, cluster, s);
+  return launch_decode_mt<BITS, WC, 128>(a, cluster, s);
+}
+
+// g: 32, 64, or a multiple of 128 that divides K (kmap given above 128)
+bool group_ok(int g, int K, const void* kmap) {
+  if (g == 32 || g == 64) return K % 128 == 0 && kmap == nullptr;
+  return g >= 128 && g % 128 == 0 && K % g == 0 && (g == 128) == (kmap == nullptr);
 }
 
 }  // namespace
 
 extern "C" {
 
-// x [M, K] bf16, 16-byte aligned; qweight [K/pack, N] int32 (one layer: the
-// caller offsets a stacked array to layer li), combo [K/G, N] int32, out
-// [M, N] bf16; all row-major, contiguous; G = 128, bits 2 or 4, M <= 32.
-// Clusters of 1 <= cluster <= min(8, K/G) CTAs, warp_cols (16 or 32)
-// columns a warp (ops/quant_matmul.py: a16_decode_plan); a cluster the card
-// cannot hold launches nothing and returns its error. Returns 0 once
-// launched, else the CUDA error.
-int bd_qmm_decode(const void* x, const void* qweight, const void* combo, void* out, int M,
-                  int K, int N, int bits, int group, int cluster, int warp_cols, void* stream) {
-  if (M < 1 || M > 32 || N < 1 || group != DEC_G || K % DEC_G != 0 || (bits != 2 && bits != 4) ||
+// x [M, K] bf16 (x_f32 = 0) or f32 (1), 16-byte aligned; qweight [K/pack, N]
+// int32 (one layer: the caller offsets a stacked array to layer li), combo
+// [K/g, N] int32, out [M, N] in x's dtype; all row-major, contiguous. bits 2
+// or 4; g 32, 64, or a multiple of 128 dividing K (K a multiple of 128),
+// above 128 with kmap [g] int32 (ops/quant_matmul.py: step_kmap), else
+// kmap null. M <= 32. Clusters of 1 <= cluster <= min(8, K/128) CTAs,
+// warp_cols (16 or 32) columns a warp (ops/quant_matmul.py:
+// a16_decode_plan); a cluster the card cannot hold launches nothing and
+// returns its error. Returns 0 once launched, else the CUDA error.
+int bd_qmm_decode(const void* x, const void* qweight, const void* combo, const void* kmap,
+                  void* out, int M, int K, int N, int bits, int group, int cluster, int warp_cols,
+                  int x_f32, void* stream) {
+  if (M < 1 || M > 32 || N < 1 || !group_ok(group, K, kmap) || (bits != 2 && bits != 4) ||
       !aligned16(x) || cluster < 1 || cluster > kMaxCluster || cluster > K / DEC_G ||
       (warp_cols != 16 && warp_cols != 32))
     return cudaErrorInvalidValue;
+  const DecArgs a{x, qweight, combo, out, static_cast<const int*>(kmap), M, K, N, group, x_f32};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bits == 2)
-    return warp_cols == 16 ? launch_decode_mt<2, 16>(x, qweight, combo, out, M, K, N, cluster, s)
-                           : launch_decode_mt<2, 32>(x, qweight, combo, out, M, K, N, cluster, s);
-  return warp_cols == 16 ? launch_decode_mt<4, 16>(x, qweight, combo, out, M, K, N, cluster, s)
-                         : launch_decode_mt<4, 32>(x, qweight, combo, out, M, K, N, cluster, s);
+    return warp_cols == 16 ? launch_decode_g<2, 16>(a, cluster, s)
+                           : launch_decode_g<2, 32>(a, cluster, s);
+  return warp_cols == 16 ? launch_decode_g<4, 16>(a, cluster, s)
+                         : launch_decode_g<4, 32>(a, cluster, s);
 }
 
 // The same for the prefill kernels (any M; the wrapper sends M > 32), with
 // N a multiple of 4 and x, qweight, combo 16-byte aligned (TMA), tile_m 64
-// or 128, and xsum f32 scratch of K/G x round_up(M, 4) that the caller
-// allocates.
-int bd_qmm_prefill(const void* x, const void* qweight, const void* combo, void* xsum, void* out,
-                   int M, int K, int N, int bits, int group, int tile_m, void* stream) {
-  if (M < 1 || group != PF_G || K % PF_G != 0 || N % 4 != 0) return cudaErrorInvalidValue;
+// or 128. Scratch the caller allocates: xsum f32 [K / min(g, 128),
+// round_up(M, 4)], and xb bf16 [M, K] for f32 x or a kmap (null otherwise).
+int bd_qmm_prefill(const void* x, const void* qweight, const void* combo, const void* kmap,
+                   void* xb, void* xsum, void* out, int M, int K, int N, int bits, int group,
+                   int tile_m, int x_f32, void* stream) {
+  if (M < 1 || !group_ok(group, K, kmap) || N % 4 != 0 || (bits != 2 && bits != 4) ||
+      ((x_f32 || kmap) && xb == nullptr))
+    return cudaErrorInvalidValue;
+  const PfArgs a{x, static_cast<const int*>(kmap), xb, qweight, combo, xsum, out,
+                 M, K, N, group, x_f32};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bits == 2) return launch_prefill_tm<2>(x, qweight, combo, xsum, out, M, K, N, tile_m, s);
-  if (bits == 4) return launch_prefill_tm<4>(x, qweight, combo, xsum, out, M, K, N, tile_m, s);
-  return cudaErrorInvalidValue;
+  if (bits == 2) return launch_prefill_g<2>(a, tile_m, s);
+  return launch_prefill_g<4>(a, tile_m, s);
 }
 
 }  // extern "C"

@@ -38,6 +38,8 @@
 // unpacked straight into its register A fragments and xi staged in shared
 // memory by TMA, on 128- or 64-row tiles (see "Prefill" below).
 
+#include <type_traits>
+
 #include "common.cuh"
 #include "hopper.cuh"
 #include "stream.cuh"
@@ -46,7 +48,7 @@ namespace {
 
 using namespace bd;
 
-constexpr int G = 128;
+constexpr int G = 128;  // K step: 128 / g groups (g = 32, 64), or one (g >= 128)
 constexpr uint32_t kOnesS8x4 = 0x01010101u;
 
 template <int BITS>
@@ -85,23 +87,33 @@ __device__ __forceinline__ int8_t quantize(float v, float s) {
 // JAX package's _a8_perm), so xi comes out in the words' extraction order.
 // A programmatic dependent may start at once: it waits (grid_dep_wait)
 // before it reads xi.
+// XT: x's dtype (bf16, or f32 quantized as it is: the plain version's
+// x.to(f32)); kmap of period P (the group) or null.
+template <typename XT>
 __global__ void __launch_bounds__(kThreads)
-    quantize_rows_kernel(const __nv_bfloat16* __restrict__ x, const int* __restrict__ kmap,
-                         int8_t* __restrict__ xi, float* __restrict__ sx, int K, int chunk) {
+    quantize_rows_kernel(const XT* __restrict__ x, const int* __restrict__ kmap,
+                         int8_t* __restrict__ xi, float* __restrict__ sx, int K, int chunk,
+                         int P) {
   grid_dep_launch();
   extern __shared__ __align__(16) uint8_t qsm[];
-  const __nv_bfloat16* xs = reinterpret_cast<const __nv_bfloat16*>(qsm);
+  const XT* xs = reinterpret_cast<const XT*>(qsm);
   __shared__ float red[kWarps];
+  constexpr int EV = 16 / int(sizeof(XT));  // elements a 16-byte load
   const int m = blockIdx.x;
   const uint4* xr = reinterpret_cast<const uint4*>(x + size_t(m) * K);
   float mx = 0.f;
-  pipelined<4>(threadIdx.x, K / 8, kThreads, [&](int i) { return __ldg(xr + i); },
+  pipelined<4>(threadIdx.x, K / EV, kThreads, [&](int i) { return __ldg(xr + i); },
                [&](int i, uint4 v) {
                  reinterpret_cast<uint4*>(qsm)[i] = v;
-                 const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+                 const uint32_t w[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
                  for (int e = 0; e < 4; ++e) {
-                   const float2 f = __bfloat1622float2(h[e]);
+                   float2 f;  // the word's two bf16, or one f32
+                   if constexpr (sizeof(XT) == 2) {
+                     f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[e]));
+                   } else {
+                     f = make_float2(__uint_as_float(w[e]), 0.f);
+                   }
                    mx = fmaxf(mx, fmaxf(fabsf(f.x), fabsf(f.y)));
                  }
                });
@@ -118,11 +130,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int p = blockIdx.y * chunk + 4 * threadIdx.x; p < p1; p += 4 * kThreads) {  // 4 k a thread
     uint32_t v = 0;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int k = p + e;
-      const int src = kmap ? k - k % G + __ldg(kmap + k % G) : k;
-      v |= uint32_t(uint8_t(quantize(to_f32(xs[src]), s))) << (8 * e);
-    }
+    for (int e = 0; e < 4; ++e)
+      v |= uint32_t(uint8_t(quantize(float(xs[src_k(p + e, kmap, P)]), s))) << (8 * e);
     *reinterpret_cast<uint32_t*>(xi + size_t(m) * K + p) = v;
   }
 }
@@ -156,13 +165,15 @@ constexpr int QUANT_CHUNK = 1024;  // decode: k a quantize block, 4 blocks a row
 constexpr int DEC_COLS = 256;  // output columns a cluster: 32 a warp, two m16 tiles
 constexpr int DEC_STAGES = 4;  // a warp's ring: 3 groups in flight
 
-template <int BITS, int TOK>
+template <int BITS, int TOK, int GG>
 struct Dec {
-  static constexpr int R = G * BITS / 32;  // word rows a group
+  using Map = StepMap<BITS, GG, 4>;
+  static constexpr int SUB = Map::SUB;             // groups (scale rows) a step
+  static constexpr int R = G * BITS / 32;          // word rows a step
   static constexpr int WC = DEC_COLS / kWarps;     // columns a warp
   static constexpr int MT = WC / 16;               // m16 tiles a warp
   static constexpr int WLD = WC + 8;               // staged word row: 4 k quads x 8 columns hit 32 banks
-  static constexpr int WSTAGE = R * WLD + 2 * WC;  // words, then scales and szeros (4 bytes each)
+  static constexpr int WSTAGE = R * WLD + 2 * SUB * WC;  // words, then scales and szeros rows
   static constexpr int MROWS = 8 * TOK;            // token rows: TOK n-tiles of 8
   static constexpr int RED = MROWS * DEC_COLS * 4;  // the partial tile, over the drained rings
   static constexpr int RINGS = kWarps * DEC_STAGES * WSTAGE * 4;
@@ -174,17 +185,20 @@ struct Dec {
   }
 };
 
-template <int BITS, int TOK>
+// GG: the group when it is 32, 64 or 128; 128 also for g = gdiv * 128 (the
+// scale row of step j is j / gdiv; xi arrives in step order). out: bf16, or
+// f32 with out_f32.
+template <int BITS, int TOK, int GG>
 __global__ void __launch_bounds__(kThreads, 2)
     qmm_a8_decode_kernel(const int8_t* __restrict__ xi_g, const float* __restrict__ sx_g,
                          const uint32_t* __restrict__ qw, const float* __restrict__ scales,
                          const float* __restrict__ szeros, const float* __restrict__ bias,
-                         __nv_bfloat16* __restrict__ out, int M, int K, int N, int ngs_max,
-                         int vec) {
-  using D = Dec<BITS, TOK>;
-  constexpr int MROWS = D::MROWS, WC = D::WC, MT = D::MT, COLS = DEC_COLS;
-  constexpr int WPL = D::R / 4;  // words a lane a group and column
-  constexpr int BPI = D::R / 8;  // k-blocks of 32 one extraction spans
+                         void* __restrict__ out, int M, int K, int N, int ngs_max, int vec,
+                         int gdiv, int out_f32) {
+  using D = Dec<BITS, TOK, GG>;
+  using Map = typename D::Map;
+  constexpr int MROWS = D::MROWS, WC = D::WC, MT = D::MT, COLS = DEC_COLS, SUB = D::SUB;
+  constexpr int NW = Map::NW;  // words a lane holds a step and column
   extern __shared__ __align__(16) uint8_t smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int C = gridDim.x, rank = blockIdx.x;
@@ -198,13 +212,14 @@ __global__ void __launch_bounds__(kThreads, 2)
   int8_t* xs = reinterpret_cast<int8_t*>(smem + D::RING);
   float* sxs = reinterpret_cast<float*>(xs + MROWS * xld);
 
-  auto issue = [&](int j) {  // group g0 + j of this warp's columns; always one commit group
+  auto issue = [&](int j) {  // step g0 + j of this warp's columns; always one commit group
     if (j < ngs) {
       uint32_t* st = ring + (j % DEC_STAGES) * D::WSTAGE;
-      const int g = g0 + j, wn = n0 + warp * WC;
+      const int g = g0 + j, wn = n0 + warp * WC, srow = step_row(g, SUB, gdiv);
       warp_copy<WC>(st, qw + size_t(g) * D::R * N, D::R, D::WLD, wn, N, vec, lane);
-      warp_copy<WC>(st + D::R * D::WLD, scales + size_t(g) * N, 1, WC, wn, N, vec, lane);
-      warp_copy<WC>(st + D::R * D::WLD + WC, szeros + size_t(g) * N, 1, WC, wn, N, vec, lane);
+      warp_copy<WC>(st + D::R * D::WLD, scales + size_t(srow) * N, SUB, WC, wn, N, vec, lane);
+      warp_copy<WC>(st + D::R * D::WLD + SUB * WC, szeros + size_t(srow) * N, SUB, WC, wn, N,
+                    vec, lane);
     }
     cp_commit();
   };
@@ -236,19 +251,20 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[t][mt][e] = 0.f;
 
+  const int pre = Map::preshift(quad);
   for (int j = 0; j < ngs; ++j) {
-    cp_wait<DEC_STAGES - 2>();  // this lane's copies of group j landed
+    cp_wait<DEC_STAGES - 2>();  // this lane's copies of step j landed
     __syncwarp();               // and the other lanes'; slot (j - 1) is free
     issue(j + DEC_STAGES - 1);
     const uint32_t* ws = ring + (j % DEC_STAGES) * D::WSTAGE;
-    uint32_t w[MT][2][WPL];  // words of the lane's columns 16mt + row and 16mt + row + 8
+    uint32_t w[MT][2][NW];  // words of the lane's columns 16mt + row and 16mt + row + 8
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
       for (int h = 0; h < 2; ++h)
 #pragma unroll
-        for (int q = 0; q < WPL; ++q)
-          w[mt][h][q] = ws[(4 * q + quad) * D::WLD + 16 * mt + 8 * h + row];
+        for (int u = 0; u < NW; ++u)
+          w[mt][h][u] = ws[Map::row(u, quad) * D::WLD + 16 * mt + 8 * h + row] >> pre;
     int part[TOK][MT][4], xq[TOK];
 #pragma unroll
     for (int t = 0; t < TOK; ++t) {
@@ -258,18 +274,19 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
         for (int e = 0; e < 4; ++e) part[t][mt][e] = 0;
     }
+    const float* ss = reinterpret_cast<const float*>(ws + D::R * D::WLD);
 #pragma unroll
     for (int kb = 0; kb < G / 32; ++kb) {
-      const int sh = BITS * (kb / BPI);
-      const int q = 2 * (kb % BPI);
+      const int u0 = Map::word(kb, 0), u1 = Map::word(kb, 1);
+      const int sh0 = BITS * Map::field(kb, 0), sh1 = BITS * Map::field(kb, 1);
       constexpr uint32_t mask = ByteMask<BITS>::kMask;
       uint32_t a[MT][4];
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) {
-        a[mt][0] = (w[mt][0][q] >> sh) & mask;
-        a[mt][1] = (w[mt][1][q] >> sh) & mask;
-        a[mt][2] = (w[mt][0][q + 1] >> sh) & mask;
-        a[mt][3] = (w[mt][1][q + 1] >> sh) & mask;
+        a[mt][0] = (w[mt][0][u0] >> sh0) & mask;
+        a[mt][1] = (w[mt][1][u0] >> sh0) & mask;
+        a[mt][2] = (w[mt][0][u1] >> sh1) & mask;
+        a[mt][3] = (w[mt][1][u1] >> sh1) & mask;
       }
 #pragma unroll
       for (int t = 0; t < TOK; ++t) {  // token row 8t + row, k = 32kb + 4quad (+16)
@@ -281,23 +298,28 @@ __global__ void __launch_bounds__(kThreads, 2)
         xq[t] = __dp4a(static_cast<int>(b1), static_cast<int>(kOnesS8x4),
                        __dp4a(static_cast<int>(b0), static_cast<int>(kOnesS8x4), xq[t]));
       }
-    }
-    // the lane's accumulators: columns 16mt + row, + 8 (e >> 1) x tokens 8t + 2quad, + 1 (e & 1)
-    const float* ss = reinterpret_cast<const float*>(ws + D::R * D::WLD);
+      if (Map::group_end(kb)) {
+        // fold group gs of the step: the lane's accumulators are columns
+        // 16mt + row, + 8 (e >> 1) x tokens 8t + 2quad, + 1 (e & 1)
+        const float* sg = ss + (kb / Map::KB) * WC;
 #pragma unroll
-    for (int t = 0; t < TOK; ++t) {
-      xq[t] += __shfl_xor_sync(0xffffffffu, xq[t], 1);  // sum(xi) of token 8t + row
-      xq[t] += __shfl_xor_sync(0xffffffffu, xq[t], 2);
-      const float xt[2] = {static_cast<float>(__shfl_sync(0xffffffffu, xq[t], 8 * quad)),
-                           static_cast<float>(__shfl_sync(0xffffffffu, xq[t], 8 * quad + 4))};
+        for (int t = 0; t < TOK; ++t) {
+          int xsum = xq[t] + __shfl_xor_sync(0xffffffffu, xq[t], 1);  // sum(xi) of token 8t + row
+          xsum += __shfl_xor_sync(0xffffffffu, xsum, 2);
+          const float xt[2] = {static_cast<float>(__shfl_sync(0xffffffffu, xsum, 8 * quad)),
+                               static_cast<float>(__shfl_sync(0xffffffffu, xsum, 8 * quad + 4))};
 #pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
+          for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int cl = 16 * mt + 8 * (e >> 1) + row;
-          acc[t][mt][e] = acc[t][mt][e] + static_cast<float>(part[t][mt][e]) * ss[cl] -
-                          xt[e & 1] * ss[WC + cl];
+            for (int e = 0; e < 4; ++e) {
+              const int cl = 16 * mt + 8 * (e >> 1) + row;
+              acc[t][mt][e] = acc[t][mt][e] + static_cast<float>(part[t][mt][e]) * sg[cl] -
+                              xt[e & 1] * sg[SUB * WC + cl];
+              part[t][mt][e] = 0;
+            }
+          xq[t] = 0;
         }
+      }
     }
   }
 
@@ -328,7 +350,7 @@ __global__ void __launch_bounds__(kThreads, 2)
         if (q < C) sum += part[q];
       float o = sum * sxs[r];
       if (bias) o += bias[n];
-      out[size_t(r) * N + n] = from_f32<__nv_bfloat16>(o);
+      store_out(out, size_t(r) * N + n, o, out_f32);
     }
   }
   cluster.sync();  // no CTA leaves while a peer still reads its shared memory
@@ -359,47 +381,51 @@ constexpr int PF_BN = 128;        // output columns a block (two warpgroups of 6
 constexpr int PF_STAGES = 4;      // ring depth: 4 stages of up to 26 KB
 constexpr int PF_WS = PF_BN + 8;  // word-tile row: 8 words of padding (read past N: zeros)
 
-// xsum[g, m] = sum over group g of xi[m, :], zero for M <= m < Mp; one warp
-// a (row, group)
+// xsum[fg, m] = sum over fold group fg (FG = min(g, 128) k) of xi[m, :],
+// zero for M <= m < Mp; one warp a (row, fold group)
 __global__ void __launch_bounds__(kThreads)
     group_sums_kernel(const int8_t* __restrict__ xi, int* __restrict__ xsum, int M, int K,
-                      int Mp) {
-  const int ng = K / G;
+                      int Mp, int FG) {
+  const int nf = K / FG;
   const int item = blockIdx.x * kWarps + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
-  if (item >= Mp * ng) return;
-  const int m = item / ng, g = item - m * ng;
+  if (item >= Mp * nf) return;
+  const int m = item / nf, fg = item - m * nf;
   int s = 0;
-  if (m < M) s = __dp4a(__ldg(reinterpret_cast<const int*>(xi + size_t(m) * K + g * G) + lane),
-                        static_cast<int>(kOnesS8x4), 0);
+  if (m < M && 4 * lane < FG)
+    s = __dp4a(__ldg(reinterpret_cast<const int*>(xi + size_t(m) * K + fg * FG) + lane),
+               static_cast<int>(kOnesS8x4), 0);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-  if (lane == 0) xsum[size_t(g) * Mp + m] = s;
+  if (lane == 0) xsum[size_t(fg) * Mp + m] = s;
 }
 
-template <int BITS, int BM>
+template <int BITS, int BM, int GG>
 struct Prefill {
-  static constexpr int R = G * BITS / 32;  // word rows a group
+  using Map = StepMap<BITS, GG, 4>;
+  static constexpr int SUB = Map::SUB;     // groups a step
+  static constexpr int R = G * BITS / 32;  // word rows a step
   static constexpr int X_BYTES = BM * G;
   static constexpr int W_BYTES = R * PF_WS * 4;
-  static constexpr int S_OFF = X_BYTES + W_BYTES;  // scales, szeros, then xi sums
-  static constexpr int TX_BYTES = S_OFF + 2 * PF_BN * 4 + BM * 4;  // a stage's TMA bytes
+  static constexpr int S_OFF = X_BYTES + W_BYTES;  // scales, szeros [SUB][PF_BN], then xi sums [SUB][BM]
+  static constexpr int TX_BYTES = S_OFF + 2 * SUB * PF_BN * 4 + SUB * BM * 4;  // a stage's TMA bytes
   static constexpr int STAGE = (TX_BYTES + 1023) / 1024 * 1024;
   static constexpr int SMEM = PF_STAGES * STAGE + PF_STAGES * 8 + 1024;  // + mbarriers, alignment
 };
 
-template <int BITS, int BM>
+template <int BITS, int BM, int GG>
 __global__ void __launch_bounds__(kThreads, 1)
     qmm_a8_prefill_kernel(const __grid_constant__ CUtensorMap x_map,
                           const __grid_constant__ CUtensorMap w_map,
                           const __grid_constant__ CUtensorMap s_map,
                           const __grid_constant__ CUtensorMap z_map,
                           const __grid_constant__ CUtensorMap t_map, const float* __restrict__ sx,
-                          const float* __restrict__ bias, __nv_bfloat16* __restrict__ out, int M,
-                          int K, int N) {
-  using P = Prefill<BITS, BM>;
+                          const float* __restrict__ bias, void* __restrict__ out, int M,
+                          int K, int N, int gdiv, int out_f32) {
+  using P = Prefill<BITS, BM, GG>;
+  using Map = typename P::Map;
   constexpr int NJ = BM / 8;    // 8-row blocks of xi: the accumulator's column blocks
-  constexpr int RT = P::R / 8;  // word-row octets a group (1 at int2, 2 at int4)
+  constexpr int NW = Map::NW, SUB = P::SUB;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
                                              ~uintptr_t(1023));
@@ -416,12 +442,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   auto load_stage = [&](int g) {  // one thread
     uint8_t* st = smem + (g % PF_STAGES) * P::STAGE;
     uint64_t* bar = full + g % PF_STAGES;
+    const int srow = step_row(g, SUB, gdiv);
     mbar_expect(bar, P::TX_BYTES);
     tma_load(st, &x_map, g * G, m0, bar);
     tma_load(st + P::X_BYTES, &w_map, n0, g * P::R, bar);
-    tma_load(st + P::S_OFF, &s_map, n0, g, bar);
-    tma_load(st + P::S_OFF + PF_BN * 4, &z_map, n0, g, bar);
-    tma_load(st + P::S_OFF + 2 * PF_BN * 4, &t_map, m0, g, bar);
+    tma_load(st + P::S_OFF, &s_map, n0, srow, bar);
+    tma_load(st + P::S_OFF + SUB * PF_BN * 4, &z_map, n0, srow, bar);
+    tma_load(st + P::S_OFF + 2 * SUB * PF_BN * 4, &t_map, m0, g * SUB, bar);
   };
 
   if (tid == 0) {
@@ -440,103 +467,89 @@ __global__ void __launch_bounds__(kThreads, 1)
     part[e] = 0;
   }
 
+  const int pre = Map::preshift(q);
   for (int g = 0; g < ng; ++g) {
     const uint8_t* st = smem + (g % PF_STAGES) * P::STAGE;
     mbar_wait(full + g % PF_STAGES, (g / PF_STAGES) & 1);
     const uint32_t* ws = reinterpret_cast<const uint32_t*>(st + P::X_BYTES);
-    // words of rows nl, nl + 8 and word rows 8t + q, 8t + q + 4 (lanes: 4
-    // word rows x 8 columns, no bank conflict)
-    uint32_t w[2][2 * RT];
+    // words of columns nl, nl + 8 and the step's word rows Map::row(u, q)
+    uint32_t w[2][NW];
 #pragma unroll
     for (int h = 0; h < 2; ++h)
 #pragma unroll
-      for (int u = 0; u < 2 * RT; ++u) w[h][u] = ws[(4 * u + q) * PF_WS + nl + 8 * h];
+      for (int u = 0; u < NW; ++u) w[h][u] = ws[Map::row(u, q) * PF_WS + nl + 8 * h] >> pre;
     uint32_t a[G / 32][4];
 #pragma unroll
-    for (int kk = 0; kk < G / 32; ++kk) {  // k = 32kk + 4q (+16): bit field kk/RT of
-      const int sh = BITS * (kk / RT), t = kk % RT;  // word rows 8t + q (+4)
-      a[kk][0] = (w[0][2 * t] >> sh) & ByteMask<BITS>::kMask;
-      a[kk][1] = (w[1][2 * t] >> sh) & ByteMask<BITS>::kMask;
-      a[kk][2] = (w[0][2 * t + 1] >> sh) & ByteMask<BITS>::kMask;
-      a[kk][3] = (w[1][2 * t + 1] >> sh) & ByteMask<BITS>::kMask;
+    for (int kk = 0; kk < G / 32; ++kk) {  // k = 32kk + 4q (+16)
+      const int u0 = Map::word(kk, 0), u1 = Map::word(kk, 1);
+      const int sh0 = BITS * Map::field(kk, 0), sh1 = BITS * Map::field(kk, 1);
+      a[kk][0] = (w[0][u0] >> sh0) & ByteMask<BITS>::kMask;
+      a[kk][1] = (w[1][u0] >> sh0) & ByteMask<BITS>::kMask;
+      a[kk][2] = (w[0][u1] >> sh1) & ByteMask<BITS>::kMask;
+      a[kk][3] = (w[1][u1] >> sh1) & ByteMask<BITS>::kMask;
     }
     const uint32_t xa = smem_u32(st);
-    wgmma_fence();
-    fence_regs(part);
-#pragma unroll
-    for (int kk = 0; kk < G / 32; ++kk) wgmma_s8(part, a[kk], sw128_desc(xa + kk * 32), kk > 0);
-    wgmma_commit();
-
-    __syncthreads();  // every thread done with stage g-1: its slot takes group g+3
-    if (tid == 0 && g + PF_STAGES - 1 < ng) load_stage(g + PF_STAGES - 1);
-
     const float* ss = reinterpret_cast<const float*>(st + P::S_OFF);
-    const int* xs = reinterpret_cast<const int*>(st + P::S_OFF + 2 * PF_BN * 4);
-    const float s[2] = {ss[nl], ss[nl + 8]};
-    const float sz[2] = {ss[PF_BN + nl], ss[PF_BN + nl + 8]};
-    wgmma_wait<0>();
-    fence_regs(part);
+    const int* xs = reinterpret_cast<const int*>(st + P::S_OFF + 2 * SUB * PF_BN * 4);
 #pragma unroll
-    for (int kk = 0; kk < G / 32; ++kk) fence_regs(a[kk]);
+    for (int gs = 0; gs < SUB; ++gs) {  // a fresh accumulator a group of the step
+      wgmma_fence();
+      fence_regs(part);
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int2 xv = *reinterpret_cast<const int2*>(xs + 8 * j + 2 * q);
+      for (int kk = gs * Map::KB; kk < (gs + 1) * Map::KB; ++kk)
+        wgmma_s8(part, a[kk], sw128_desc(xa + kk * 32), kk > gs * Map::KB);
+      wgmma_commit();
+      if (gs == 0) {
+        __syncthreads();  // every thread done with stage g-1: its slot takes step g+3
+        if (tid == 0 && g + PF_STAGES - 1 < ng) load_stage(g + PF_STAGES - 1);
+      }
+      const float s[2] = {ss[gs * PF_BN + nl], ss[gs * PF_BN + nl + 8]};
+      const float sz[2] = {ss[(SUB + gs) * PF_BN + nl], ss[(SUB + gs) * PF_BN + nl + 8]};
+      wgmma_wait<0>();
+      fence_regs(part);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int h = e >> 1;
-        const float xe = static_cast<float>((e & 1) ? xv.y : xv.x);
-        acc[4 * j + e] = acc[4 * j + e] + static_cast<float>(part[4 * j + e]) * s[h] - xe * sz[h];
+      for (int kk = 0; kk < G / 32; ++kk) fence_regs(a[kk]);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int2 xv = *reinterpret_cast<const int2*>(xs + gs * BM + 8 * j + 2 * q);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = e >> 1;
+          const float xe = static_cast<float>((e & 1) ? xv.y : xv.x);
+          acc[4 * j + e] = acc[4 * j + e] + static_cast<float>(part[4 * j + e]) * s[h] - xe * sz[h];
+        }
       }
     }
   }
 
+  // the tile in out's dtype, the dtype test hoisted out of the stores
+  auto store = [&](auto* y) {
+    using T = std::remove_pointer_t<decltype(y)>;
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int n = n0 + nl + 8 * h;
-    if (n >= N) continue;
-    const float b = bias ? bias[n] : 0.f;
+    for (int h = 0; h < 2; ++h) {
+      const int n = n0 + nl + 8 * h;
+      if (n >= N) continue;
+      const float b = bias ? bias[n] : 0.f;
 #pragma unroll
-    for (int j = 0; j < NJ; ++j)
+      for (int j = 0; j < NJ; ++j)
 #pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int m = m0 + 8 * j + 2 * q + c;
-        if (m >= M) continue;
-        float o = acc[4 * j + 2 * h + c] * sx[m];
-        if (bias) o += b;
-        out[size_t(m) * N + n] = __float2bfloat16(o);
-      }
-  }
-}
-
-template <int BITS, int BM>
-cudaError_t launch_prefill(const int8_t* xi, const float* sx, int* xsum, const void* qw,
-                           const void* scales, const void* szeros, const void* bias, void* out,
-                           int M, int K, int N, cudaStream_t stream) {
-  using P = Prefill<BITS, BM>;
-  const int Mp = (M + 3) / 4 * 4;
-  const int ng = K / G;
-  CUtensorMap xm, wm, sm, zm, tm;
-  if (!tensor_map(&xm, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, xi, M, K, BM, G, true) ||
-      !tensor_map(&wm, CU_TENSOR_MAP_DATA_TYPE_INT32, 4, qw, ng * P::R, N, P::R, PF_WS, false) ||
-      !tensor_map(&sm, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, scales, ng, N, 1, PF_BN, false) ||
-      !tensor_map(&zm, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, szeros, ng, N, 1, PF_BN, false) ||
-      !tensor_map(&tm, CU_TENSOR_MAP_DATA_TYPE_INT32, 4, xsum, ng, Mp, 1, BM, false))
-    return cudaErrorInvalidValue;
-  group_sums_kernel<<<(Mp * ng + kWarps - 1) / kWarps, kThreads, 0, stream>>>(xi, xsum, M, K, Mp);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  auto kernel = qmm_a8_prefill_kernel<BITS, BM>;
-  err = allow_smem(kernel, P::SMEM);
-  if (err != cudaSuccess) return err;
-  dim3 grid((N + PF_BN - 1) / PF_BN, (M + BM - 1) / BM);
-  kernel<<<grid, kThreads, P::SMEM, stream>>>(xm, wm, sm, zm, tm, sx,
-                                              static_cast<const float*>(bias),
-                                              static_cast<__nv_bfloat16*>(out), M, K, N);
-  return cudaGetLastError();
+        for (int c = 0; c < 2; ++c) {
+          const int m = m0 + 8 * j + 2 * q + c;
+          if (m >= M) continue;
+          float o = acc[4 * j + 2 * h + c] * sx[m];
+          if (bias) o += b;
+          y[size_t(m) * N + n] = from_f32<T>(o);
+        }
+    }
+  };
+  if (out_f32)
+    store(static_cast<float*>(out));
+  else
+    store(static_cast<__nv_bfloat16*>(out));
 }
 
 struct A8Args {
-  const __nv_bfloat16* x;
+  const void* x;
   const int* kmap;
   int8_t* xi;
   float* sx;
@@ -544,80 +557,128 @@ struct A8Args {
   const float* scales;
   const float* szeros;
   const float* bias;
-  __nv_bfloat16* out;
-  int M, K, N;
+  void* out;
+  int M, K, N, g, x_f32;
 };
 
-cudaError_t launch_quantize(const A8Args& a, int chunk, cudaStream_t stream) {
-  const size_t smem = size_t(a.K) * 2;  // the row
-  const cudaError_t err = allow_smem(quantize_rows_kernel, smem);
+template <int BITS, int BM, int GG>
+cudaError_t launch_prefill(const A8Args& a, int* xsum, cudaStream_t stream) {
+  using P = Prefill<BITS, BM, GG>;
+  const int Mp = (a.M + 3) / 4 * 4;
+  const int ng = a.K / G, FG = G / P::SUB, gdiv = GG == 128 ? a.g / G : 1;
+  CUtensorMap xm, wm, sm, zm, tm;
+  if (!tensor_map(&xm, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, a.xi, a.M, a.K, BM, G, true) ||
+      !tensor_map(&wm, CU_TENSOR_MAP_DATA_TYPE_INT32, 4, a.qw, ng * P::R, a.N, P::R, PF_WS,
+                  false) ||
+      !tensor_map(&sm, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, a.scales, a.K / a.g, a.N, P::SUB,
+                  PF_BN, false) ||
+      !tensor_map(&zm, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, a.szeros, a.K / a.g, a.N, P::SUB,
+                  PF_BN, false) ||
+      !tensor_map(&tm, CU_TENSOR_MAP_DATA_TYPE_INT32, 4, xsum, a.K / FG, Mp, P::SUB, BM, false))
+    return cudaErrorInvalidValue;
+  group_sums_kernel<<<(Mp * (a.K / FG) + kWarps - 1) / kWarps, kThreads, 0, stream>>>(
+      a.xi, xsum, a.M, a.K, Mp, FG);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  dim3 grid(a.M, (a.K + chunk - 1) / chunk);
-  quantize_rows_kernel<<<grid, kThreads, smem, stream>>>(a.x, a.kmap, a.xi, a.sx, a.K, chunk);
+  auto kernel = qmm_a8_prefill_kernel<BITS, BM, GG>;
+  err = allow_smem(kernel, P::SMEM);
+  if (err != cudaSuccess) return err;
+  dim3 grid((a.N + PF_BN - 1) / PF_BN, (a.M + BM - 1) / BM);
+  kernel<<<grid, kThreads, P::SMEM, stream>>>(xm, wm, sm, zm, tm, a.sx, a.bias, a.out, a.M, a.K,
+                                              a.N, gdiv, a.x_f32);
   return cudaGetLastError();
 }
 
-template <int BITS, int TOK>
+template <typename XT>
+cudaError_t launch_quantize_t(const A8Args& a, int chunk, cudaStream_t stream) {
+  const size_t smem = size_t(a.K) * sizeof(XT);  // the row
+  const cudaError_t err = allow_smem(quantize_rows_kernel<XT>, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(a.M, (a.K + chunk - 1) / chunk);
+  quantize_rows_kernel<XT><<<grid, kThreads, smem, stream>>>(static_cast<const XT*>(a.x), a.kmap,
+                                                             a.xi, a.sx, a.K, chunk, a.g);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_quantize(const A8Args& a, int chunk, cudaStream_t stream) {
+  return a.x_f32 ? launch_quantize_t<float>(a, chunk, stream)
+                 : launch_quantize_t<__nv_bfloat16>(a, chunk, stream);
+}
+
+template <int BITS, int TOK, int GG>
 cudaError_t launch_decode(const A8Args& a, int cluster, cudaStream_t stream) {
   const int ngs_max = (a.K / G + cluster - 1) / cluster;
   const int vec = a.N % 4 == 0 && aligned16(a.qw) && aligned16(a.scales) && aligned16(a.szeros);
+  const int gdiv = GG == 128 ? a.g / G : 1;
   const cudaError_t err = launch_quantize(a, QUANT_CHUNK, stream);
   if (err != cudaSuccess) return err;
-  return launch_cluster(qmm_a8_decode_kernel<BITS, TOK>,
+  return launch_cluster(qmm_a8_decode_kernel<BITS, TOK, GG>,
                         dim3(cluster, (a.N + DEC_COLS - 1) / DEC_COLS, 1), cluster,
-                        Dec<BITS, TOK>::smem(ngs_max), true, stream, a.xi, a.sx, a.qw, a.scales,
-                        a.szeros, a.bias, a.out, a.M, a.K, a.N, ngs_max, vec);
+                        Dec<BITS, TOK, GG>::smem(ngs_max), true, stream, a.xi, a.sx, a.qw,
+                        a.scales, a.szeros, a.bias, a.out, a.M, a.K, a.N, ngs_max, vec, gdiv,
+                        a.x_f32);
 }
 
 // M <= 32: the decode kernel (8, 16 or 32 token rows), on clusters of
 // `cluster` CTAs. Above: the prefill kernels, tile_m output rows a block,
 // 128 or 64 (for a short prefill, so that every SM has a block). The
 // wrapper chooses both (ops/quant_matmul.py: decode_plan, prefill_tile_m).
-template <int BITS>
+template <int BITS, int GG>
 cudaError_t launch_mt(const A8Args& a, int* xsum, int tile_m, int cluster, cudaStream_t s) {
   if (a.M <= 32) {
     if (cluster < 1 || cluster > kMaxCluster || cluster > a.K / G) return cudaErrorInvalidValue;
-    if (a.M <= 8) return launch_decode<BITS, 1>(a, cluster, s);
-    if (a.M <= 16) return launch_decode<BITS, 2>(a, cluster, s);
-    return launch_decode<BITS, 4>(a, cluster, s);
+    if (a.M <= 8) return launch_decode<BITS, 1, GG>(a, cluster, s);
+    if (a.M <= 16) return launch_decode<BITS, 2, GG>(a, cluster, s);
+    return launch_decode<BITS, 4, GG>(a, cluster, s);
   }
   if (tile_m != 64 && tile_m != 128) return cudaErrorInvalidValue;
   const cudaError_t err = launch_quantize(a, a.K, s);
   if (err != cudaSuccess) return err;
-  auto prefill = tile_m == 128 ? launch_prefill<BITS, 128> : launch_prefill<BITS, 64>;
-  return prefill(a.xi, a.sx, xsum, a.qw, a.scales, a.szeros, a.bias, a.out, a.M, a.K, a.N, s);
+  return tile_m == 128 ? launch_prefill<BITS, 128, GG>(a, xsum, s)
+                       : launch_prefill<BITS, 64, GG>(a, xsum, s);
+}
+
+template <int BITS>
+cudaError_t launch_g(const A8Args& a, int* xsum, int tile_m, int cluster, cudaStream_t s) {
+  if (a.g == 32) return launch_mt<BITS, 32>(a, xsum, tile_m, cluster, s);
+  if (a.g == 64) return launch_mt<BITS, 64>(a, xsum, tile_m, cluster, s);
+  return launch_mt<BITS, 128>(a, xsum, tile_m, cluster, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// x [M, K] bf16, 16-byte aligned; qweight [K/pack, N] int32 (one layer: the
-// caller offsets a stacked array to layer li), A8 order if kmap is null,
-// else pair layout with kmap [G] int32 its extraction permutation; scales,
-// szeros [K/G, N] f32; bias [N] f32 or null; out [M, N] bf16. All
-// row-major, contiguous. G = 128, bits 2 or 4. Scratch the caller
-// allocates: xi [M, K] int8 and sx [M] f32, and above 32 rows xsum, int32 of
-// K/G x round_up(M, 4). M <= 32: clusters of 1 <= cluster <= min(8, K/G)
-// CTAs (decode_plan); a cluster the card cannot hold launches nothing and
-// returns its error. Above: N a multiple of 4 and tile_m 64 or 128. Returns
-// 0 once launched, else the CUDA error.
+// x [M, K] bf16 (x_f32 = 0) or f32 (1), 16-byte aligned; qweight [K/pack, N]
+// int32 (one layer: the caller offsets a stacked array to layer li); kmap
+// [g] int32 or null: the kernel position -> source k of x within a group
+// (pair-layout words: the JAX package's _a8_perm composed, for g > 128, with
+// the step order; A8-ordered words: null up to g = 128, the step order
+// above; ops/quant_matmul.py: a8_kmap); scales, szeros [K/g, N] f32; bias
+// [N] f32 or null; out [M, N] in x's dtype. All row-major, contiguous. g 32,
+// 64, or a multiple of 128 dividing K (K a multiple of 128); bits 2 or 4.
+// Scratch the caller allocates: xi [M, K] int8 and sx [M] f32, and above 32
+// rows xsum, int32 of K / min(g, 128) x round_up(M, 4). M <= 32: clusters
+// of 1 <= cluster <= min(8, K/128) CTAs (decode_plan); a cluster the card
+// cannot hold launches nothing and returns its error. Above: N a multiple
+// of 4 and tile_m 64 or 128. Returns 0 once launched, else the CUDA error.
 int bd_qmm_a8(const void* x, const void* qweight, const void* scales, const void* szeros,
               const void* bias, const void* kmap, void* xi, void* sx, void* xsum, void* out,
-              int M, int K, int N, int bits, int group, int tile_m, int cluster, void* stream) {
-  if (M < 1 || group != G || K % G != 0 || (bits != 2 && bits != 4) || !aligned16(x) ||
-      xi == nullptr || sx == nullptr)
+              int M, int K, int N, int bits, int group, int tile_m, int cluster, int x_f32,
+              void* stream) {
+  const bool g_ok = group == 32 || group == 64 || (group >= G && group % G == 0);
+  if (M < 1 || !g_ok || K % G != 0 || K % group != 0 || (bits != 2 && bits != 4) ||
+      !aligned16(x) || xi == nullptr || sx == nullptr)
     return cudaErrorInvalidValue;
   if (M > 32 && (N % 4 != 0 || xsum == nullptr)) return cudaErrorInvalidValue;
-  const A8Args a{static_cast<const __nv_bfloat16*>(x), static_cast<const int*>(kmap),
-                 static_cast<int8_t*>(xi), static_cast<float*>(sx),
-                 static_cast<const uint32_t*>(qweight), static_cast<const float*>(scales),
-                 static_cast<const float*>(szeros), static_cast<const float*>(bias),
-                 static_cast<__nv_bfloat16*>(out), M, K, N};
+  const A8Args a{x, static_cast<const int*>(kmap), static_cast<int8_t*>(xi),
+                 static_cast<float*>(sx), static_cast<const uint32_t*>(qweight),
+                 static_cast<const float*>(scales), static_cast<const float*>(szeros),
+                 static_cast<const float*>(bias), out, M, K, N, group, x_f32};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int* xs = static_cast<int*>(xsum);
-  if (bits == 2) return launch_mt<2>(a, xs, tile_m, cluster, s);
-  return launch_mt<4>(a, xs, tile_m, cluster, s);
+  if (bits == 2) return launch_g<2>(a, xs, tile_m, cluster, s);
+  return launch_g<4>(a, xs, tile_m, cluster, s);
 }
 
 }  // extern "C"

@@ -7,7 +7,7 @@
 //
 // The decode kernels share one plan: a cluster of C CTAs owns a tile of
 // output columns, CTA `rank` (= blockIdx.x; the grid's x extent is the
-// cluster) walks K groups [rank*ng/C, (rank+1)*ng/C), and the C partial
+// cluster) walks K steps [rank*ng/C, (rank+1)*ng/C), and the C partial
 // tiles are summed in rank order by the cluster itself: deterministic, no
 // atomics, no second pass. Inside a CTA each warp owns COLS/8 of the
 // columns and streams their words through a ring of its own, several

@@ -1,0 +1,749 @@
+// Causal flash attention for training, forward and backward, for Hopper
+// (sm_90a), plain C interface for ctypes
+// (bitdistiller_tpu_torch/ops/train_attention.py).
+//
+// Replaces the TPU kernels that bitdistiller_tpu/models/layers.py:
+// flash_train_attention (:341) reaches through JAX's stock Pallas TPU flash
+// attention (jax/experimental/pallas/ops/tpu/flash_attention.py): the
+// forward _flash_attention_kernel (:331, pallas_call at :758), the backward
+// _flash_attention_dkv_kernel (:796, :1121) and _flash_attention_dq_kernel
+// (:1146, :1456). The function, not the TPU blocks:
+//
+//   s[i, j] = q_i . k_j / sqrt(D)   where j <= i and seg[j] == seg[i], else
+//                                   the finite mask value -0.7 * FLT_MAX
+//   o_i = softmax_j(s[i, :]) v,     lse_i = log sum_j exp(s[i, j])
+//
+// with GQA (query head h reads kv head h / rep) and segment ids (1 real, 0
+// pad; none given: one segment). The backward recomputes p = exp(s - lse)
+// and takes di = rowsum(o * do) from the caller (plain PyTorch, as JAX
+// computes it outside Pallas):
+//   dv_j = sum_i p_ij do_i,   ds_ij = p_ij (do_i . v_j - di_i),
+//   dk_j = scale * sum_i ds_ij q_i,   dq_i = scale * sum_j ds_ij k_j.
+// q, o, do [B, S, Hq, D]; k, v, dk, dv [B, S, Hkv, D]; lse [B, Hq, S] f32;
+// di [B, S, Hq] f32. Any S, any D that is a multiple of 16 up to 256: rows
+// past S and columns past D are zero-filled in shared memory and never
+// written, so no padded copy is made.
+//
+// Bound on this card: operations. The causal forward is 2 * B * Hq * S^2 * D
+// multiply-adds' worth of flops (two products over half the score matrix),
+// the backward about 2.5x that, against 989 TFLOP/s of bf16 tensor cores;
+// the bytes (q, k, v, o once) are a few MB. Design, bf16: mma.sync.m16n8k16
+// (bf16 in, f32 accumulate) on 64-row tiles, four warps of 16 rows a CTA;
+// K and V tiles (64 rows) through shared memory by cp.async, double
+// buffered in the forward; an online softmax in f32 (exp2 of log2-scaled
+// scores); tiles above the diagonal skipped. The probabilities and ds enter
+// their products rounded to bf16, as in the TPU kernel. The dkv kernel owns
+// a (batch, kv head, key tile) and loops over the rep query heads of its kv
+// head and the query tiles on or below the diagonal, so the sum over the
+// rep heads happens in its registers: no atomics, deterministic. f32 inputs
+// run on CUDA cores (one warp a row), so that no dtype JAX computes raises.
+// Simple first: wgmma and TMA are later work.
+
+#include <float.h>
+
+#include "common.cuh"
+#include "stream.cuh"
+
+namespace {
+
+using namespace bd;
+
+constexpr float kMaskValue = -0.7f * FLT_MAX;  // flash_attention.py: DEFAULT_MASK_VALUE
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr int BM = 64;  // query rows a CTA (four warps of 16)
+constexpr int BN = 64;  // key rows a tile
+constexpr int kTWarps = 4;
+constexpr int kTThreads = kTWarps * 32;
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t pack_pair(__nv_bfloat16 lo, __nv_bfloat16 hi) {
+  return uint32_t(*reinterpret_cast<const uint16_t*>(&lo)) |
+         (uint32_t(*reinterpret_cast<const uint16_t*>(&hi)) << 16);
+}
+
+template <int DT>
+struct Tile {
+  static constexpr int LD = DT + 8;  // bf16 a shared row: 16 bytes of padding
+  static constexpr int ELEMS = BN * LD;
+  static constexpr size_t BYTES = size_t(ELEMS) * 2;
+};
+
+// rows [r0, r0 + 64) of head h of a [B, S, H, D] bf16 tensor into a shared
+// tile (Tile<DT>::LD a row); rows past S and columns past D are zeros
+template <int DT>
+__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src, int b,
+                                          int r0, int S, int H, int h, int D) {
+  constexpr int CPR = DT / 8;  // 16-byte pieces a row
+  for (int i = threadIdx.x; i < BN * CPR; i += blockDim.x) {
+    const int r = i / CPR, c = i - r * CPR, row = r0 + r;
+    const bool ok = row < S && c * 8 < D;
+    const __nv_bfloat16* s = ok ? src + ((size_t(b) * S + row) * H + h) * D + c * 8 : src;
+    cp_async16(dst + r * Tile<DT>::LD + c * 8, s, ok ? 16 : 0);
+  }
+}
+
+// segment ids of rows [r0, r0 + 64) into shared memory; -1 past S (masked)
+__device__ __forceinline__ void load_seg(int* dst, const int* seg, int b, int r0, int S) {
+  for (int i = threadIdx.x; i < BN; i += blockDim.x) {
+    const int row = r0 + i;
+    dst[i] = row < S ? (seg ? seg[size_t(b) * S + row] : 1) : -1;
+  }
+}
+
+// A fragment (16 x 16, rows r0 .. r0 + 15, columns 16kb ..) of a shared tile
+template <int DT>
+__device__ __forceinline__ void a_frag(uint32_t (&a)[4], const __nv_bfloat16* t, int r0, int kb,
+                                       int lane) {
+  constexpr int LD = Tile<DT>::LD;
+  const int r = r0 + (lane >> 2), c = 16 * kb + 2 * (lane & 3);
+  a[0] = *reinterpret_cast<const uint32_t*>(t + r * LD + c);
+  a[1] = *reinterpret_cast<const uint32_t*>(t + (r + 8) * LD + c);
+  a[2] = *reinterpret_cast<const uint32_t*>(t + r * LD + c + 8);
+  a[3] = *reinterpret_cast<const uint32_t*>(t + (r + 8) * LD + c + 8);
+}
+
+// B fragment (16 x 8) whose k runs along a shared row: B[k][n] = t[n0 + n][16kb + k]
+template <int DT>
+__device__ __forceinline__ void b_frag_row(uint32_t& b0, uint32_t& b1, const __nv_bfloat16* t,
+                                           int n0, int kb, int lane) {
+  constexpr int LD = Tile<DT>::LD;
+  const __nv_bfloat16* p = t + (n0 + (lane >> 2)) * LD + 16 * kb + 2 * (lane & 3);
+  b0 = *reinterpret_cast<const uint32_t*>(p);
+  b1 = *reinterpret_cast<const uint32_t*>(p + 8);
+}
+
+// B fragment (16 x 8) whose k runs down a shared column: B[k][n] = t[16kb + k][n0 + n]
+template <int DT>
+__device__ __forceinline__ void b_frag_col(uint32_t& b0, uint32_t& b1, const __nv_bfloat16* t,
+                                           int n0, int kb, int lane) {
+  constexpr int LD = Tile<DT>::LD;
+  const int k = 16 * kb + 2 * (lane & 3), n = n0 + (lane >> 2);
+  b0 = pack_pair(t[k * LD + n], t[(k + 1) * LD + n]);
+  b1 = pack_pair(t[(k + 8) * LD + n], t[(k + 9) * LD + n]);
+}
+
+// acc[n-tile][4] (16 rows x 64 columns) rounded to bf16 as the A operand of
+// the next product, over k = its 64 columns: A fragment kb
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&x)[8][4], int kb) {
+  a[0] = pack_bf16(x[2 * kb][0], x[2 * kb][1]);
+  a[1] = pack_bf16(x[2 * kb][2], x[2 * kb][3]);
+  a[2] = pack_bf16(x[2 * kb + 1][0], x[2 * kb + 1][1]);
+  a[3] = pack_bf16(x[2 * kb + 1][2], x[2 * kb + 1][3]);
+}
+
+// x[8][4] = rows r0 .. r0 + 15 of tile A times the 64 rows of tile B,
+// transposed: x[nt][e] = A[r][:D] . B[8nt + c][:D]
+template <int DT>
+__device__ __forceinline__ void rows_dot_rows(float (&x)[8][4], const __nv_bfloat16* A, int r0,
+                                              const __nv_bfloat16* Bt, int D, int lane) {
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[nt][e] = 0.f;
+#pragma unroll
+  for (int kb = 0; kb < DT / 16; ++kb) {
+    if (16 * kb >= D) break;
+    uint32_t a[4];
+    a_frag<DT>(a, A, r0, kb, lane);
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      uint32_t b0, b1;
+      b_frag_row<DT>(b0, b1, Bt, 8 * nt, kb, lane);
+      mma_bf16(x[nt], a, b0, b1);
+    }
+  }
+}
+
+// acc[DT/8][4] += X (16 x 64, in registers) times tile T (64 rows x D)
+template <int DT>
+__device__ __forceinline__ void acc_times_tile(float (&acc)[DT / 8][4], const float (&x)[8][4],
+                                               const __nv_bfloat16* T, int D, int lane) {
+#pragma unroll
+  for (int kb = 0; kb < 4; ++kb) {
+    uint32_t a[4];
+    acc_to_a(a, x, kb);
+#pragma unroll
+    for (int nd = 0; nd < DT / 8; ++nd) {
+      if (8 * nd >= D) break;
+      uint32_t b0, b1;
+      b_frag_col<DT>(b0, b1, T, 8 * nd, kb, lane);
+      mma_bf16(acc[nd], a, b0, b1);
+    }
+  }
+}
+
+// rows r (e < 2) and r + 8 (e >= 2) of a 16-row accumulator, columns 8nd + 2quad (+1),
+// scaled and written to head h of a [B, S, H, D] bf16 tensor
+template <int DT>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* dst, const float (&acc)[DT / 8][4],
+                                           int b, int row0, int S, int H, int h, int D,
+                                           const float (&mul)[2], int lane) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = row0 + (lane >> 2) + 8 * half;
+    if (row >= S) continue;
+    __nv_bfloat16* o = dst + ((size_t(b) * S + row) * H + h) * D;
+#pragma unroll
+    for (int nd = 0; nd < DT / 8; ++nd) {
+      const int c = 8 * nd + 2 * (lane & 3);
+      if (c >= D) break;
+      *reinterpret_cast<uint32_t*>(o + c) =
+          pack_bf16(acc[nd][2 * half] * mul[half], acc[nd][2 * half + 1] * mul[half]);
+    }
+  }
+}
+
+template <int DT>
+constexpr size_t fwd_smem() {
+  return 5 * Tile<DT>::BYTES + 2 * BN * 4;  // Q, two K and two V tiles, two seg rows
+}
+
+// One CTA a (query tile, query head, batch); warp w owns rows q0 + 16w ..
+template <int DT>
+__global__ void __launch_bounds__(kTThreads)
+    train_attn_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                          const __nv_bfloat16* __restrict__ v, const int* __restrict__ seg,
+                          __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int S, int Hq,
+                          int Hkv, int D, float scale) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* Ks = Qs + Tile<DT>::ELEMS;      // [2] tiles
+  __nv_bfloat16* Vs = Ks + 2 * Tile<DT>::ELEMS;  // [2] tiles
+  int* segk = reinterpret_cast<int*>(Vs + 2 * Tile<DT>::ELEMS);  // [2][BN]
+  const int b = blockIdx.z, h = blockIdx.y, qt = blockIdx.x, q0 = qt * BM;
+  const int hk = h / (Hq / Hkv);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, quad = lane & 3;
+  const float qs = scale * kLog2e;
+
+  load_tile<DT>(Qs, q, b, q0, S, Hq, h, D);
+  load_tile<DT>(Ks, k, b, 0, S, Hkv, hk, D);
+  load_tile<DT>(Vs, v, b, 0, S, Hkv, hk, D);
+  load_seg(segk, seg, b, 0, S);
+  cp_commit();
+  int rows[2], segq[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    rows[half] = q0 + 16 * warp + (lane >> 2) + 8 * half;
+    segq[half] = rows[half] < S ? (seg ? seg[size_t(b) * S + rows[half]] : 1) : -2;
+  }
+
+  float m[2] = {kMaskValue, kMaskValue}, l[2] = {0.f, 0.f};
+  float acc[DT / 8][4];
+#pragma unroll
+  for (int nd = 0; nd < DT / 8; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nd][e] = 0.f;
+
+  const int ntiles = qt + 1;  // key tiles on or below the diagonal
+  for (int t = 0; t < ntiles; ++t) {
+    cp_wait<0>();
+    __syncthreads();  // tile t landed; every warp is done with tile t - 1's buffers
+    if (t + 1 < ntiles) {
+      const int nb = (t + 1) & 1;
+      load_tile<DT>(Ks + nb * Tile<DT>::ELEMS, k, b, (t + 1) * BN, S, Hkv, hk, D);
+      load_tile<DT>(Vs + nb * Tile<DT>::ELEMS, v, b, (t + 1) * BN, S, Hkv, hk, D);
+      load_seg(segk + nb * BN, seg, b, (t + 1) * BN, S);
+    }
+    cp_commit();
+    const __nv_bfloat16* Kt = Ks + (t & 1) * Tile<DT>::ELEMS;
+    const __nv_bfloat16* Vt = Vs + (t & 1) * Tile<DT>::ELEMS;
+    const int* sk = segk + (t & 1) * BN;
+    float s[8][4];
+    rows_dot_rows<DT>(s, Qs, 16 * warp, Kt, D, lane);
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int half = e >> 1, key = t * BN + 8 * nt + 2 * quad + (e & 1);
+        const bool ok = key <= rows[half] && sk[key - t * BN] == segq[half];
+        s[nt][e] = ok ? s[nt][e] * qs : kMaskValue;
+        mx[half] = fmaxf(mx[half], s[nt][e]);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      mx[half] = fmaxf(mx[half], __shfl_xor_sync(0xffffffffu, mx[half], 1));
+      mx[half] = fmaxf(mx[half], __shfl_xor_sync(0xffffffffu, mx[half], 2));
+      alpha[half] = exp2f(m[half] - mx[half]);
+      m[half] = mx[half];
+      l[half] *= alpha[half];
+    }
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int half = e >> 1;
+        const float p = s[nt][e] == kMaskValue ? 0.f : exp2f(s[nt][e] - m[half]);
+        s[nt][e] = p;
+        l[half] += p;
+      }
+#pragma unroll
+    for (int nd = 0; nd < DT / 8; ++nd)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nd][e] *= alpha[e >> 1];
+    acc_times_tile<DT>(acc, s, Vt, D, lane);
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    l[half] += __shfl_xor_sync(0xffffffffu, l[half], 1);
+    l[half] += __shfl_xor_sync(0xffffffffu, l[half], 2);
+    inv[half] = 1.f / l[half];
+    if (quad == 0 && rows[half] < S)
+      lse[(size_t(b) * Hq + h) * S + rows[half]] = (m[half] + log2f(l[half])) * kLn2;
+  }
+  store_rows<DT>(out, acc, b, q0 + 16 * warp, S, Hq, h, D, inv, lane);
+}
+
+template <int DT>
+constexpr size_t bwd_smem() {
+  return 4 * Tile<DT>::BYTES + 4 * BN * 4;  // four tiles; lse, di and two seg rows
+}
+
+// dkv: one CTA a (key tile, kv head, batch); warp w owns keys k0 + 16w ..;
+// it walks the rep query heads and the query tiles on or below the diagonal.
+// DO_V / DO_K: which of dv and dk this pass accumulates (D = 256 takes two
+// passes, so that one 16 x 256 accumulator a thread is live at a time).
+template <int DT, bool DO_V, bool DO_K>
+__device__ __forceinline__ void dkv_pass(float (&dv)[DT / 8][4], float (&dk)[DT / 8][4],
+                                         const __nv_bfloat16* q, const __nv_bfloat16* dout,
+                                         const float* lse, const float* di, const int* seg,
+                                         __nv_bfloat16* Ks, __nv_bfloat16* Vs, __nv_bfloat16* Qs,
+                                         __nv_bfloat16* Os, float* lse_s, float* di_s, int* segq_s,
+                                         const int* segk_s, int b, int kt, int hk, int S, int Hq,
+                                         int Hkv, int D, float scale) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, quad = lane & 3;
+  const int rep = Hq / Hkv, nqt = (S + BM - 1) / BM;
+  const float qs = scale * kLog2e;
+  int keys[2], segk[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    keys[half] = kt * BN + 16 * warp + (lane >> 2) + 8 * half;
+    segk[half] = segk_s[keys[half] - kt * BN];
+  }
+  for (int r = 0; r < rep; ++r) {
+    const int h = hk * rep + r;
+    for (int qt = kt; qt < nqt; ++qt) {
+      const int q0 = qt * BM;
+      __syncthreads();  // every warp done with the previous query tile
+      load_tile<DT>(Qs, q, b, q0, S, Hq, h, D);
+      load_tile<DT>(Os, dout, b, q0, S, Hq, h, D);
+      cp_commit();
+      for (int i = threadIdx.x; i < BM; i += blockDim.x) {
+        const int row = q0 + i;
+        lse_s[i] = row < S ? lse[(size_t(b) * Hq + h) * S + row] * kLog2e : 0.f;
+        di_s[i] = row < S ? di[(size_t(b) * S + row) * Hq + h] : 0.f;
+        segq_s[i] = row < S ? (seg ? seg[size_t(b) * S + row] : 1) : -3;  // keys past S: -1
+      }
+      cp_wait<0>();
+      __syncthreads();
+      float p[8][4];
+      rows_dot_rows<DT>(p, Ks, 16 * warp, Qs, D, lane);  // s^T: keys x queries
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int half = e >> 1, c = 8 * nt + 2 * quad + (e & 1), query = q0 + c;
+          const bool ok = keys[half] <= query && segq_s[c] == segk[half];
+          p[nt][e] = ok ? exp2f(p[nt][e] * qs - lse_s[c]) : 0.f;
+        }
+      if constexpr (DO_V) acc_times_tile<DT>(dv, p, Os, D, lane);
+      if constexpr (DO_K) {
+        float ds[8][4];
+        rows_dot_rows<DT>(ds, Vs, 16 * warp, Os, D, lane);  // dp^T = v do^T
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int c = 8 * nt + 2 * quad + (e & 1);
+            ds[nt][e] = p[nt][e] * (ds[nt][e] - di_s[c]);
+          }
+        acc_times_tile<DT>(dk, ds, Qs, D, lane);
+      }
+    }
+  }
+}
+
+template <int DT>
+__global__ void __launch_bounds__(kTThreads)
+    train_attn_dkv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                          const __nv_bfloat16* __restrict__ v, const int* __restrict__ seg,
+                          const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
+                          const float* __restrict__ di, __nv_bfloat16* __restrict__ dk,
+                          __nv_bfloat16* __restrict__ dv, int S, int Hq, int Hkv, int D,
+                          float scale) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* Vs = Ks + Tile<DT>::ELEMS;
+  __nv_bfloat16* Qs = Vs + Tile<DT>::ELEMS;
+  __nv_bfloat16* Os = Qs + Tile<DT>::ELEMS;  // do
+  float* lse_s = reinterpret_cast<float*>(Os + Tile<DT>::ELEMS);
+  float* di_s = lse_s + BM;
+  int* segq_s = reinterpret_cast<int*>(di_s + BM);
+  int* segk_s = segq_s + BM;
+  const int b = blockIdx.z, hk = blockIdx.y, kt = blockIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  load_tile<DT>(Ks, k, b, kt * BN, S, Hkv, hk, D);
+  load_tile<DT>(Vs, v, b, kt * BN, S, Hkv, hk, D);
+  cp_commit();
+  load_seg(segk_s, seg, b, kt * BN, S);
+  cp_wait<0>();
+  __syncthreads();
+  const float one[2] = {1.f, 1.f}, sc[2] = {scale, scale};
+  float acc[DT / 8][4], acc2[DT / 8][4];
+  auto zero = [](float (&a)[DT / 8][4]) {
+#pragma unroll
+    for (int nd = 0; nd < DT / 8; ++nd)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) a[nd][e] = 0.f;
+  };
+  if constexpr (DT <= 128) {  // one pass, both accumulators
+    zero(acc);
+    zero(acc2);
+    dkv_pass<DT, true, true>(acc, acc2, q, dout, lse, di, seg, Ks, Vs, Qs, Os, lse_s, di_s,
+                             segq_s, segk_s, b, kt, hk, S, Hq, Hkv, D, scale);
+    store_rows<DT>(dv, acc, b, kt * BN + 16 * warp, S, Hkv, hk, D, one, lane);
+    store_rows<DT>(dk, acc2, b, kt * BN + 16 * warp, S, Hkv, hk, D, sc, lane);
+  } else {  // dv, then dk
+    zero(acc);
+    dkv_pass<DT, true, false>(acc, acc2, q, dout, lse, di, seg, Ks, Vs, Qs, Os, lse_s, di_s,
+                              segq_s, segk_s, b, kt, hk, S, Hq, Hkv, D, scale);
+    store_rows<DT>(dv, acc, b, kt * BN + 16 * warp, S, Hkv, hk, D, one, lane);
+    zero(acc);
+    dkv_pass<DT, false, true>(acc2, acc, q, dout, lse, di, seg, Ks, Vs, Qs, Os, lse_s, di_s,
+                              segq_s, segk_s, b, kt, hk, S, Hq, Hkv, D, scale);
+    store_rows<DT>(dk, acc, b, kt * BN + 16 * warp, S, Hkv, hk, D, sc, lane);
+  }
+}
+
+// dq: one CTA a (query tile, query head, batch); warp w owns rows q0 + 16w ..
+template <int DT>
+__global__ void __launch_bounds__(kTThreads)
+    train_attn_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                         const __nv_bfloat16* __restrict__ v, const int* __restrict__ seg,
+                         const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
+                         const float* __restrict__ di, __nv_bfloat16* __restrict__ dq, int S,
+                         int Hq, int Hkv, int D, float scale) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* Os = Qs + Tile<DT>::ELEMS;  // do
+  __nv_bfloat16* Ks = Os + Tile<DT>::ELEMS;
+  __nv_bfloat16* Vs = Ks + Tile<DT>::ELEMS;
+  int* segk_s = reinterpret_cast<int*>(Vs + Tile<DT>::ELEMS);
+  const int b = blockIdx.z, h = blockIdx.y, qt = blockIdx.x, q0 = qt * BM;
+  const int hk = h / (Hq / Hkv);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, quad = lane & 3;
+  const float qs = scale * kLog2e;
+  load_tile<DT>(Qs, q, b, q0, S, Hq, h, D);
+  load_tile<DT>(Os, dout, b, q0, S, Hq, h, D);
+  cp_commit();
+  int rows[2], segq[2];
+  float lse2[2], dii[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = q0 + 16 * warp + (lane >> 2) + 8 * half;
+    rows[half] = row;
+    const bool in = row < S;
+    segq[half] = in ? (seg ? seg[size_t(b) * S + row] : 1) : -2;
+    lse2[half] = in ? lse[(size_t(b) * Hq + h) * S + row] * kLog2e : 0.f;
+    dii[half] = in ? di[(size_t(b) * S + row) * Hq + h] : 0.f;
+  }
+  float acc[DT / 8][4];
+#pragma unroll
+  for (int nd = 0; nd < DT / 8; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nd][e] = 0.f;
+  for (int t = 0; t <= qt; ++t) {
+    __syncthreads();  // every warp done with the previous key tile
+    load_tile<DT>(Ks, k, b, t * BN, S, Hkv, hk, D);
+    load_tile<DT>(Vs, v, b, t * BN, S, Hkv, hk, D);
+    cp_commit();
+    load_seg(segk_s, seg, b, t * BN, S);
+    cp_wait<0>();
+    __syncthreads();
+    float p[8][4], ds[8][4];
+    rows_dot_rows<DT>(p, Qs, 16 * warp, Ks, D, lane);
+    rows_dot_rows<DT>(ds, Os, 16 * warp, Vs, D, lane);  // dp = do v^T
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int half = e >> 1, c = 8 * nt + 2 * quad + (e & 1), key = t * BN + c;
+        const bool ok = key <= rows[half] && segk_s[c] == segq[half];
+        const float pp = ok ? exp2f(p[nt][e] * qs - lse2[half]) : 0.f;
+        ds[nt][e] = pp * (ds[nt][e] - dii[half]);
+      }
+    acc_times_tile<DT>(acc, ds, Ks, D, lane);
+  }
+  const float sc[2] = {scale, scale};
+  store_rows<DT>(dq, acc, b, q0 + 16 * warp, S, Hq, h, D, sc, lane);
+}
+
+// ---- f32 inputs: CUDA cores, one warp a row ---------------------------------
+
+constexpr int F32_ROWS = 8;  // rows (warps) a CTA
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// the lane's elements c = lane + 32i (i < DT/32) of a row
+template <int DT>
+__device__ __forceinline__ void load_row(float (&x)[DT / 32], const float* p, int D, int lane) {
+#pragma unroll
+  for (int i = 0; i < DT / 32; ++i) {
+    const int c = lane + 32 * i;
+    x[i] = c < D ? p[c] : 0.f;
+  }
+}
+
+template <int DT>
+__device__ __forceinline__ float row_dot(const float (&x)[DT / 32], const float* p, int D,
+                                         int lane) {
+  float d = 0.f;
+#pragma unroll
+  for (int i = 0; i < DT / 32; ++i) {
+    const int c = lane + 32 * i;
+    if (c < D) d = fmaf(x[i], p[c], d);
+  }
+  return warp_sum(d);
+}
+
+template <int DT>
+__global__ void __launch_bounds__(F32_ROWS * 32)
+    train_attn_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                              const float* __restrict__ v, const int* __restrict__ seg,
+                              float* __restrict__ out, float* __restrict__ lse, int S, int Hq,
+                              int Hkv, int D, float scale) {
+  const int b = blockIdx.z, h = blockIdx.y, lane = threadIdx.x & 31;
+  const int i = blockIdx.x * F32_ROWS + (threadIdx.x >> 5);
+  if (i >= S) return;
+  const int hk = h / (Hq / Hkv), si = seg ? seg[size_t(b) * S + i] : 1;
+  float qr[DT / 32], acc[DT / 32];
+  load_row<DT>(qr, q + ((size_t(b) * S + i) * Hq + h) * D, D, lane);
+#pragma unroll
+  for (int c = 0; c < DT / 32; ++c) acc[c] = 0.f;
+  float m = kMaskValue, l = 0.f;
+  for (int j = 0; j <= i; ++j) {
+    if (seg && seg[size_t(b) * S + j] != si) continue;
+    const size_t kv = ((size_t(b) * S + j) * Hkv + hk) * D;
+    const float s = row_dot<DT>(qr, k + kv, D, lane) * scale;
+    const float mn = fmaxf(m, s), alpha = expf(m - mn), p = expf(s - mn);
+    l = l * alpha + p;
+#pragma unroll
+    for (int c = 0; c < DT / 32; ++c) {
+      const int col = lane + 32 * c;
+      acc[c] = acc[c] * alpha + (col < D ? p * v[kv + col] : 0.f);
+    }
+    m = mn;
+  }
+  float* o = out + ((size_t(b) * S + i) * Hq + h) * D;
+#pragma unroll
+  for (int c = 0; c < DT / 32; ++c)
+    if (lane + 32 * c < D) o[lane + 32 * c] = acc[c] / l;
+  if (lane == 0) lse[(size_t(b) * Hq + h) * S + i] = m + logf(l);
+}
+
+template <int DT>
+__global__ void __launch_bounds__(F32_ROWS * 32)
+    train_attn_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                             const float* __restrict__ v, const int* __restrict__ seg,
+                             const float* __restrict__ dout, const float* __restrict__ lse,
+                             const float* __restrict__ di, float* __restrict__ dq, int S, int Hq,
+                             int Hkv, int D, float scale) {
+  const int b = blockIdx.z, h = blockIdx.y, lane = threadIdx.x & 31;
+  const int i = blockIdx.x * F32_ROWS + (threadIdx.x >> 5);
+  if (i >= S) return;
+  const int hk = h / (Hq / Hkv), si = seg ? seg[size_t(b) * S + i] : 1;
+  const size_t qi = ((size_t(b) * S + i) * Hq + h) * D;
+  float qr[DT / 32], dor[DT / 32], acc[DT / 32];
+  load_row<DT>(qr, q + qi, D, lane);
+  load_row<DT>(dor, dout + qi, D, lane);
+#pragma unroll
+  for (int c = 0; c < DT / 32; ++c) acc[c] = 0.f;
+  const float li = lse[(size_t(b) * Hq + h) * S + i], dii = di[(size_t(b) * S + i) * Hq + h];
+  for (int j = 0; j <= i; ++j) {
+    if (seg && seg[size_t(b) * S + j] != si) continue;
+    const size_t kv = ((size_t(b) * S + j) * Hkv + hk) * D;
+    const float p = expf(row_dot<DT>(qr, k + kv, D, lane) * scale - li);
+    const float ds = p * (row_dot<DT>(dor, v + kv, D, lane) - dii);
+#pragma unroll
+    for (int c = 0; c < DT / 32; ++c) {
+      const int col = lane + 32 * c;
+      if (col < D) acc[c] = fmaf(ds, k[kv + col], acc[c]);
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < DT / 32; ++c)
+    if (lane + 32 * c < D) dq[qi + lane + 32 * c] = acc[c] * scale;
+}
+
+// one warp a (key row, kv head): the rep query heads and the rows at or below it
+template <int DT>
+__global__ void __launch_bounds__(F32_ROWS * 32)
+    train_attn_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                              const float* __restrict__ v, const int* __restrict__ seg,
+                              const float* __restrict__ dout, const float* __restrict__ lse,
+                              const float* __restrict__ di, float* __restrict__ dk,
+                              float* __restrict__ dv, int S, int Hq, int Hkv, int D, float scale) {
+  const int b = blockIdx.z, hk = blockIdx.y, lane = threadIdx.x & 31;
+  const int j = blockIdx.x * F32_ROWS + (threadIdx.x >> 5);
+  if (j >= S) return;
+  const int rep = Hq / Hkv, sj = seg ? seg[size_t(b) * S + j] : 1;
+  const size_t kv = ((size_t(b) * S + j) * Hkv + hk) * D;
+  float kr[DT / 32], vr[DT / 32], ak[DT / 32], av[DT / 32];
+  load_row<DT>(kr, k + kv, D, lane);
+  load_row<DT>(vr, v + kv, D, lane);
+#pragma unroll
+  for (int c = 0; c < DT / 32; ++c) ak[c] = av[c] = 0.f;
+  for (int r = 0; r < rep; ++r) {
+    const int h = hk * rep + r;
+    for (int i = j; i < S; ++i) {
+      if (seg && seg[size_t(b) * S + i] != sj) continue;
+      const size_t qi = ((size_t(b) * S + i) * Hq + h) * D;
+      const float p = expf(row_dot<DT>(kr, q + qi, D, lane) * scale -
+                           lse[(size_t(b) * Hq + h) * S + i]);
+      const float ds = p * (row_dot<DT>(vr, dout + qi, D, lane) - di[(size_t(b) * S + i) * Hq + h]);
+#pragma unroll
+      for (int c = 0; c < DT / 32; ++c) {
+        const int col = lane + 32 * c;
+        if (col < D) {
+          av[c] = fmaf(p, dout[qi + col], av[c]);
+          ak[c] = fmaf(ds, q[qi + col], ak[c]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < DT / 32; ++c)
+    if (lane + 32 * c < D) {
+      dv[kv + lane + 32 * c] = av[c];
+      dk[kv + lane + 32 * c] = ak[c] * scale;
+    }
+}
+
+// ---- launch ------------------------------------------------------------------
+
+struct Args {
+  const void *q, *k, *v, *seg, *dout, *lse_in, *di;
+  void *o0, *o1, *lse_out;
+  int B, S, Hq, Hkv, D;
+  float scale;
+};
+
+enum Which { kFwd = 0, kDkv = 1, kDq = 2 };
+
+template <int DT>
+cudaError_t launch_bf16(Which w, const Args& a, cudaStream_t s) {
+  using bf = __nv_bfloat16;
+  const int nq = (a.S + BM - 1) / BM;
+  const auto* q = static_cast<const bf*>(a.q);
+  const auto* k = static_cast<const bf*>(a.k);
+  const auto* v = static_cast<const bf*>(a.v);
+  const auto* seg = static_cast<const int*>(a.seg);
+  cudaError_t err;
+  if (w == kFwd) {
+    auto kern = train_attn_fwd_kernel<DT>;
+    if ((err = allow_smem(kern, fwd_smem<DT>())) != cudaSuccess) return err;
+    kern<<<dim3(nq, a.Hq, a.B), kTThreads, fwd_smem<DT>(), s>>>(
+        q, k, v, seg, static_cast<bf*>(a.o0), static_cast<float*>(a.lse_out), a.S, a.Hq, a.Hkv,
+        a.D, a.scale);
+  } else if (w == kDkv) {
+    auto kern = train_attn_dkv_kernel<DT>;
+    if ((err = allow_smem(kern, bwd_smem<DT>())) != cudaSuccess) return err;
+    kern<<<dim3(nq, a.Hkv, a.B), kTThreads, bwd_smem<DT>(), s>>>(
+        q, k, v, seg, static_cast<const bf*>(a.dout), static_cast<const float*>(a.lse_in),
+        static_cast<const float*>(a.di), static_cast<bf*>(a.o0), static_cast<bf*>(a.o1), a.S,
+        a.Hq, a.Hkv, a.D, a.scale);
+  } else {
+    auto kern = train_attn_dq_kernel<DT>;
+    if ((err = allow_smem(kern, bwd_smem<DT>())) != cudaSuccess) return err;
+    kern<<<dim3(nq, a.Hq, a.B), kTThreads, bwd_smem<DT>(), s>>>(
+        q, k, v, seg, static_cast<const bf*>(a.dout), static_cast<const float*>(a.lse_in),
+        static_cast<const float*>(a.di), static_cast<bf*>(a.o0), a.S, a.Hq, a.Hkv, a.D, a.scale);
+  }
+  return cudaGetLastError();
+}
+
+template <int DT>
+cudaError_t launch_f32(Which w, const Args& a, cudaStream_t s) {
+  const int nr = (a.S + F32_ROWS - 1) / F32_ROWS;
+  const auto* q = static_cast<const float*>(a.q);
+  const auto* k = static_cast<const float*>(a.k);
+  const auto* v = static_cast<const float*>(a.v);
+  const auto* seg = static_cast<const int*>(a.seg);
+  if (w == kFwd)
+    train_attn_fwd_f32_kernel<DT><<<dim3(nr, a.Hq, a.B), F32_ROWS * 32, 0, s>>>(
+        q, k, v, seg, static_cast<float*>(a.o0), static_cast<float*>(a.lse_out), a.S, a.Hq,
+        a.Hkv, a.D, a.scale);
+  else if (w == kDkv)
+    train_attn_dkv_f32_kernel<DT><<<dim3(nr, a.Hkv, a.B), F32_ROWS * 32, 0, s>>>(
+        q, k, v, seg, static_cast<const float*>(a.dout), static_cast<const float*>(a.lse_in),
+        static_cast<const float*>(a.di), static_cast<float*>(a.o0), static_cast<float*>(a.o1),
+        a.S, a.Hq, a.Hkv, a.D, a.scale);
+  else
+    train_attn_dq_f32_kernel<DT><<<dim3(nr, a.Hq, a.B), F32_ROWS * 32, 0, s>>>(
+        q, k, v, seg, static_cast<const float*>(a.dout), static_cast<const float*>(a.lse_in),
+        static_cast<const float*>(a.di), static_cast<float*>(a.o0), a.S, a.Hq, a.Hkv, a.D,
+        a.scale);
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch(Which w, const Args& a, int f32, void* stream) {
+  if (a.B < 1 || a.S < 1 || a.Hkv < 1 || a.Hq % a.Hkv || a.D < 16 || a.D > 256 || a.D % 16)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (f32) {
+    if (a.D <= 64) return launch_f32<64>(w, a, s);
+    if (a.D <= 128) return launch_f32<128>(w, a, s);
+    return launch_f32<256>(w, a, s);
+  }
+  if (a.D <= 64) return launch_bf16<64>(w, a, s);
+  if (a.D <= 128) return launch_bf16<128>(w, a, s);
+  return launch_bf16<256>(w, a, s);
+}
+
+}  // namespace
+
+extern "C" {
+
+// All tensors contiguous, on one device: q, out [B, S, Hq, D] and k, v
+// [B, S, Hkv, D] of one dtype (f32 = 0: bfloat16, 16-byte aligned; 1:
+// float32); seg [B, S] int32 or null; lse [B, Hq, S] f32. D a multiple of 16
+// up to 256, Hq a multiple of Hkv. Each returns 0 once launched, else the
+// CUDA error.
+int bd_train_attn_fwd(const void* q, const void* k, const void* v, const void* seg, void* out,
+                      void* lse, int B, int S, int Hq, int Hkv, int D, float scale, int f32,
+                      void* stream) {
+  const Args a{q, k, v, seg, nullptr, nullptr, nullptr, out, nullptr, lse,
+               B, S, Hq, Hkv, D, scale};
+  return dispatch(kFwd, a, f32, stream);
+}
+
+// dout [B, S, Hq, D], lse [B, Hq, S] f32 (the forward's), di [B, S, Hq] f32
+// (rowsum(o * dout)); writes dk, dv [B, S, Hkv, D] in the inputs' dtype.
+int bd_train_attn_dkv(const void* q, const void* k, const void* v, const void* seg,
+                      const void* dout, const void* lse, const void* di, void* dk, void* dv,
+                      int B, int S, int Hq, int Hkv, int D, float scale, int f32, void* stream) {
+  const Args a{q, k, v, seg, dout, lse, di, dk, dv, nullptr, B, S, Hq, Hkv, D, scale};
+  return dispatch(kDkv, a, f32, stream);
+}
+
+// The same inputs; writes dq [B, S, Hq, D] in the inputs' dtype.
+int bd_train_attn_dq(const void* q, const void* k, const void* v, const void* seg,
+                     const void* dout, const void* lse, const void* di, void* dq, int B, int S,
+                     int Hq, int Hkv, int D, float scale, int f32, void* stream) {
+  const Args a{q, k, v, seg, dout, lse, di, dq, nullptr, nullptr, B, S, Hq, Hkv, D, scale};
+  return dispatch(kDq, a, f32, stream);
+}
+
+}  // extern "C"

@@ -15,8 +15,11 @@ On a CPU tensor `fused_mlp` runs the plain version; on a CUDA tensor it
 launches the kernel or raises. No model calls it, as in the JAX package.
 On the card a call is two launches (gate/up, then down, chained by
 programmatic dependent launch) on the clusters `mlp_plan` sizes; mid passes
-between them through L2 as bf16 with its f32 sums over each group of 128
-ffn columns (see csrc/fused_mlp.cu).
+between them through L2 as bf16 with its f32 sums over each group of
+min(g, 128) ffn columns (see csrc/fused_mlp.cu). Groups of 32, 64, 128 and
+multiples of 128 (per-channel included) run in the kernel, as in the packed
+matmuls (ops/quant_matmul.py: kernel_group_ok, step_kmap); f32 x is rounded
+to bf16 as the kernel stages it, and the output takes x's dtype.
 """
 
 from __future__ import annotations
@@ -27,13 +30,22 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from .. import _device
 from ..ops import _build
-from ..ops.quant_matmul import _aligned, _sm_count, decode_plan
+from ..ops.quant_matmul import (
+    KERNEL_DTYPES,
+    KERNEL_STEP,
+    _aligned,
+    _ptr,
+    _sm_count,
+    _step_kmap,
+    decode_plan,
+    kernel_group_ok,
+)
 from ..quant.packing import PackedLinear, unpack_codes
 
 _OFFSET = {2: 4.0, 4: 16.0}  # the bf16 exponent-bias trick's code offset
 KERNEL_BITS = (2, 4)
-KERNEL_GROUP = 128
 KERNEL_COLS = 128  # output columns a cluster, both launches (csrc/fused_mlp.cu: COLS)
 
 
@@ -105,24 +117,26 @@ def fused_mlp_plain(x, gate: PackedLinear, up: PackedLinear, down: PackedLinear,
 
 def mlp_plan(k: int, ffn: int, d: int, sms: int) -> tuple[int, int]:
     """Cluster sizes of the kernel's two launches (`decode_plan` for both):
-    gate/up clusters split the K groups of each 128-column ffn tile, down
-    clusters the ffn groups of each 128-column output tile."""
-    return (decode_plan(ffn, k // KERNEL_GROUP, sms, cols=KERNEL_COLS),
-            decode_plan(d, ffn // KERNEL_GROUP, sms, cols=KERNEL_COLS))
+    gate/up clusters split the K steps (128 k) of each 128-column ffn tile,
+    down clusters the ffn steps of each 128-column output tile."""
+    return (decode_plan(ffn, k // KERNEL_STEP, sms, cols=KERNEL_COLS),
+            decode_plan(d, ffn // KERNEL_STEP, sms, cols=KERNEL_COLS))
 
 
 @functools.lru_cache(maxsize=None)
 def _launcher():
     fn = _build.load("fused_mlp").bd_fused_mlp
-    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def scratch(m: int, ffn: int, device) -> tuple[torch.Tensor, torch.Tensor]:
-    """The kernel's scratch: mid [M, FFN] bf16 and its group sums [M, FFN/128] f32."""
+def scratch(m: int, ffn: int, device, group_size: int = 128) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's scratch: mid [M, FFN] bf16 and its group sums
+    [M, FFN / min(g, 128)] f32."""
     return (torch.empty((m, ffn), dtype=torch.bfloat16, device=device),
-            torch.empty((m, ffn // KERNEL_GROUP), dtype=torch.float32, device=device))
+            torch.empty((m, ffn // min(group_size, KERNEL_STEP)), dtype=torch.float32,
+                        device=device))
 
 
 def _launch(x, gate, up, down, act) -> torch.Tensor:
@@ -130,26 +144,29 @@ def _launch(x, gate, up, down, act) -> torch.Tensor:
     arrays = [a for p in layers for a in (p.qweight, p.scales, p.szeros)]
     if not all(a.device == x.device for a in arrays):
         raise ValueError("the fused MLP kernel takes CUDA tensors on one device")
-    if x.dtype != torch.bfloat16:
-        raise ValueError(f"the fused MLP kernel takes bfloat16 x, got {x.dtype}")
-    if gate.bits not in KERNEL_BITS or gate.group_size != KERNEL_GROUP:
-        raise ValueError(f"the kernel takes bits in {KERNEL_BITS}, group {KERNEL_GROUP}")
+    if x.dtype not in KERNEL_DTYPES:
+        raise ValueError(f"the fused MLP kernel takes x in {KERNEL_DTYPES}, got {x.dtype}")
     m, k = x.shape
     ffn, d = gate.out_features, down.out_features
-    if k % KERNEL_GROUP or ffn % 128:
-        raise ValueError(f"the kernel takes K and FFN in multiples of 128, got {k}, {ffn}")
+    g = gate.group_size
+    if gate.bits not in KERNEL_BITS or not (kernel_group_ok(g, k) and kernel_group_ok(g, ffn)):
+        raise ValueError(f"the kernel takes bits in {KERNEL_BITS} and a group of 32, 64 or a "
+                         f"multiple of 128 dividing K and FFN; got {gate.bits}, {g}")
+    if ffn % KERNEL_COLS:
+        raise ValueError(f"the kernel takes FFN in multiples of {KERNEL_COLS}, got {ffn}")
     if any(p.bias is not None for p in layers):
         raise ValueError("the fused MLP has no bias (nor has the JAX kernel)")
     if not all(a.is_contiguous() for a in [x] + arrays) or any(
             p.scales.dtype != torch.float32 or p.szeros.dtype != torch.float32 for p in layers):
         raise ValueError("the kernel takes contiguous arrays and f32 scales and szeros")
     x = _aligned(x)
-    mid, msum = scratch(m, ffn, x.device)
+    mid, msum = scratch(m, ffn, x.device, g)
+    kmap = _step_kmap(gate.bits, g, x.device)
     out = torch.empty((m, d), dtype=x.dtype, device=x.device)
     err = _launcher()(
-        x.data_ptr(), *[a.data_ptr() for a in arrays], mid.data_ptr(), msum.data_ptr(),
-        out.data_ptr(), m, k, ffn, d, gate.bits, gate.group_size, 0 if act == "silu" else 1,
-        *mlp_plan(k, ffn, d, _sm_count(x.device.index or 0)),
+        x.data_ptr(), *[a.data_ptr() for a in arrays], _ptr(kmap), _ptr(kmap), mid.data_ptr(),
+        msum.data_ptr(), out.data_ptr(), m, k, ffn, d, gate.bits, g, 0 if act == "silu" else 1,
+        *mlp_plan(k, ffn, d, _sm_count(x.device.index or 0)), int(x.dtype == torch.float32),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(err, "bd_fused_mlp")
@@ -165,11 +182,11 @@ def fused_mlp(x: torch.Tensor, gate: PackedLinear, up: PackedLinear, down: Packe
     _check_layers(gate, up, down)
     _block_f(block_f, gate.out_features, gate.group_size)
     xf = x.reshape(-1, gate.in_features).contiguous()
-    if xf.device.type == "cpu":
-        out = fused_mlp_plain(xf, gate, up, down, act, block_f=block_f)
-    elif xf.is_cuda:
+    if _device.on_card(xf):
         out = _launch(xf, gate, up, down, act)
         fused_mlp.launches += 1
+    elif xf.device.type == "cpu":
+        out = fused_mlp_plain(xf, gate, up, down, act, block_f=block_f)
     else:
         raise ValueError(f"no fused MLP for device {xf.device}")
     return out.reshape(*x.shape[:-1], down.out_features)

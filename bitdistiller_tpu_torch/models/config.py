@@ -74,6 +74,16 @@ TINY_TEST = ModelConfig(
     max_position_embeddings=512,
 )
 
+TINYLLAMA_1B = ModelConfig(
+    vocab_size=32000,
+    hidden_size=2048,
+    intermediate_size=5632,
+    num_layers=22,
+    num_heads=32,
+    num_kv_heads=4,
+    max_position_embeddings=2048,
+)
+
 LLAMA2_7B = ModelConfig(
     vocab_size=32000,
     hidden_size=4096,

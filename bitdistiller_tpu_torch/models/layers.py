@@ -1,6 +1,9 @@
-"""Decoder building blocks for the Llama family: linear dispatch, RMSNorm,
-rotate-half RoPE, and the two attentions the JAX package leaves to XLA
-(written here as plain einsum + softmax).
+"""Decoder building blocks for the Llama family: linear dispatch (with the
+training forward's weight quantizer), RMSNorm, rotate-half RoPE, the two
+attentions the JAX package leaves to XLA (written here as plain einsum +
+softmax; the causal one with the training padding mask), and the training
+flash attention (`flash_train_attention`, ops/train_attention.py: B8's
+kernels on the card, the plain version on the CPU).
 
 Numerics follow the JAX package's `models/layers.py`: f32 RMSNorm
 accumulation, f32 attention scores and softmax.
@@ -15,6 +18,7 @@ import numpy as np
 import torch
 
 from ..ops.quant_matmul import quant_matmul, quant_matmul_a8_plain, quant_matmul_plain
+from ..ops.train_attention import flash_train_attention  # noqa: F401  (re-exported)
 from ..quant.packing import PackedLinear
 
 # A "linear" param leaf is either
@@ -23,11 +27,13 @@ from ..quant.packing import PackedLinear
 
 
 def linear(leaf, x: torch.Tensor, li: Optional[int] = None, *,
-           use_kernels: bool = True) -> torch.Tensor:
+           use_kernels: bool = True, quantizer=None) -> torch.Tensor:
     """Apply a linear layer; `li` picks layer li of a stacked leaf in place.
     `use_kernels=False` runs the plain packed matmul on any device (a
     reference run on the card; A8-ordered words take the plain A8 version);
-    otherwise the device decides."""
+    otherwise the device decides. A dense weight goes through `quantizer`
+    (the training forward's fake quantizer) in its OWN dtype, then takes x's
+    dtype, as the JAX package's linear does."""
     if isinstance(leaf, PackedLinear):
         if use_kernels:
             return quant_matmul(x, leaf, li)
@@ -45,6 +51,8 @@ def linear(leaf, x: torch.Tensor, li: Optional[int] = None, *,
             out = out + layer.bias.to(out.dtype)
         return out
     w = leaf["w"] if li is None else leaf["w"][li]
+    if quantizer is not None:
+        w = quantizer(w)
     out = x @ w.to(x.dtype)
     b = leaf.get("b")
     if b is not None:
@@ -122,15 +130,21 @@ def causal_attention(
     q: torch.Tensor,  # [B, S, Hq, D]
     k: torch.Tensor,  # [B, S, Hkv, D]
     v: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,  # [B, 1, S, S] bool, or None = causal
 ) -> torch.Tensor:
-    """Causal GQA scaled-dot-product attention; f32 scores and softmax."""
+    """Causal GQA scaled-dot-product attention; f32 scores and softmax. With
+    `mask` (the training padding mask: causal and key is real) the mask
+    replaces the causal rule."""
     b, s, hq, d = q.shape
     hkv = k.shape[2]
     rep = hq // hkv
     qg = q.reshape(b, s, hkv, rep, d).to(torch.float32)
     scores = torch.einsum("bshrd,bthd->bhrst", qg, k.to(torch.float32)) / math.sqrt(d)
-    pos = torch.arange(s, device=q.device)
-    scores = torch.where(pos[None, :] <= pos[:, None], scores, -math.inf)
+    if mask is None:
+        pos = torch.arange(s, device=q.device)
+        scores = torch.where(pos[None, :] <= pos[:, None], scores, -math.inf)
+    else:
+        scores = torch.where(mask[:, :, None], scores, -math.inf)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhrst,bthd->bshrd", probs.to(v.dtype), v)
     return out.reshape(b, s, hq, d)

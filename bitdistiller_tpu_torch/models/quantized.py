@@ -5,7 +5,8 @@ Every decoder linear becomes a stacked `PackedLinear` (int32 pair-layout
 codes, group scales/zeros and their combo words); embeddings, norms and the
 lm_head stay dense. `load_packed_checkpoint` reads the JAX package's
 artifact (`packed.npz` + `quant_config.json`) byte for byte, and
-`params_from_numpy` takes a JAX param tree handed over as numpy arrays.
+`params_from_numpy` takes a JAX param tree (dense or packed) handed over as
+numpy arrays, and `train_state_from_numpy` a JAX TrainState.
 """
 
 from __future__ import annotations
@@ -176,3 +177,56 @@ def load_packed_checkpoint(path, device="cuda"):
             node = node.setdefault(p, {})
         node[parts[-1]] = _packed_from(fields, dev)
     return tree, cfg
+
+
+def _scalar(x) -> int:
+    return int(np.asarray(x))
+
+
+def _opt_state_from_numpy(node, device):
+    """An optax state of the JAX package's optimizer (numpy leaves, its
+    NamedTuple structure) -> the port's (train/trainer.py). Read by field
+    names: MasterAccumState (master, acc, count, inner), MasterWeightsState
+    (master, inner), MultiStepsState (mini_step, gradient_step,
+    inner_opt_state, acc_grads), and the chain(clip, adamw) tuple, whose
+    ScaleByAdamState (count, mu, nu) and ScaleByScheduleState (count) are
+    found by their fields."""
+    from ..train import trainer as tr
+
+    tree = lambda t: params_from_numpy(t, device)
+    fields = getattr(node, "_fields", ())
+    if "master" in fields and "acc" in fields:
+        return tr.MasterAccumState(tree(node.master), tree(node.acc), _scalar(node.count),
+                                   _opt_state_from_numpy(node.inner, device))
+    if "master" in fields:
+        return tr.MasterWeightsState(tree(node.master), _opt_state_from_numpy(node.inner, device))
+    if "mini_step" in fields:
+        return tr.MultiStepsState(_scalar(node.mini_step), _scalar(node.gradient_step),
+                                  _opt_state_from_numpy(node.inner_opt_state, device),
+                                  tree(node.acc_grads))
+    adam, sched = None, None
+    stack = [node]
+    while stack:  # the chain's nested tuples
+        n = stack.pop()
+        f = getattr(n, "_fields", ())
+        if "mu" in f and "nu" in f:
+            adam = n
+        elif f == ("count",):
+            sched = n
+        elif isinstance(n, (tuple, list)):
+            stack.extend(n)
+    if adam is None or sched is None:
+        raise ValueError("not the JAX package's chain(clip_by_global_norm, adamw) state")
+    return tr.AdamWState(_scalar(adam.count), tree(adam.mu), tree(adam.nu), _scalar(sched.count))
+
+
+def train_state_from_numpy(params, opt_state, step, device="cuda"):
+    """A JAX TrainState handed over as numpy (params: the latent tree;
+    opt_state: its optax state with numpy leaves; step) -> the port's
+    TrainState: latents, f32 master, Adam moments, accumulators, counts and
+    the step, so that one port step and one JAX step start from one state."""
+    from ..train.trainer import TrainState
+
+    dev = resolve_device(device)
+    return TrainState(params=params_from_numpy(params, dev),
+                      opt_state=_opt_state_from_numpy(opt_state, dev), step=_scalar(step))

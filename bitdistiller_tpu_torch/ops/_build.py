@@ -22,7 +22,10 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("quant_matmul", "quant_matmul_a8", "fused_mlp", "decode_attention", "bw_probe")
+SOURCES = (
+    "quant_matmul", "quant_matmul_a8", "fused_mlp", "decode_attention", "bw_probe",
+    "train_attention",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",

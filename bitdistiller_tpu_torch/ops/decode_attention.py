@@ -2,8 +2,8 @@
 wrapper of the hand-written CUDA kernel (csrc/decode_attention.cu), which
 replaces the JAX package's Pallas `_fd2_kernel`.
 
-S=1 GQA attention of q [B, 1, Hq, D] over layer `li` of the stacked
-head-major cache [L, B, Hkv, T, D] (bf16, or int8 codes with raw f32 scales
+S=1 GQA attention of q [B, 1, Hq, D] (bf16 or f32; D 32, 64, 128 or 256)
+over layer `li` of the stacked head-major cache [L, B, Hkv, T, D] (bf16, or int8 codes with raw f32 scales
 [L, B, Hkv, T]), read in place. Cache rows t < start[b] are valid (and
 t < attn_len; with a window only t > start - window); the fresh k/v of the
 token at position `start` is folded in last. Softmax in f32.
@@ -23,12 +23,14 @@ from typing import Optional
 
 import torch
 
+from .. import _device
 from . import _build
 from .quant_matmul import MAX_CLUSTER, _sm_count
 
 _NEG = -1e30
 KERNEL_REPS = (1, 2, 4, 8)
-KERNEL_HEAD_DIMS = (32, 64, 128)
+KERNEL_HEAD_DIMS = (32, 64, 128, 256)
+KERNEL_Q_DTYPES = (torch.bfloat16, torch.float32)
 
 
 def attention_plan(b: int, hkv: int, sms: int) -> int:
@@ -89,7 +91,7 @@ def decode_attention_plain(
 def _launcher():
     fn = _build.load("decode_attention").bd_flash_decode
     fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -109,8 +111,8 @@ def launch_layer(q, ck, cv, k_scale, v_scale, k_new, v_new, start, window, attn_
     rep = hq // hkv
     if rep not in KERNEL_REPS or d not in KERNEL_HEAD_DIMS:
         raise ValueError(f"kernel takes rep in {KERNEL_REPS}, D in {KERNEL_HEAD_DIMS}")
-    if q.dtype != torch.bfloat16:
-        raise ValueError(f"the decode attention kernel takes bfloat16 q, got {q.dtype}")
+    if q.dtype not in KERNEL_Q_DTYPES:
+        raise ValueError(f"the decode attention kernel takes q in {KERNEL_Q_DTYPES}, got {q.dtype}")
     if ck.dtype != (torch.int8 if quantized else torch.bfloat16) or cv.dtype != ck.dtype:
         raise ValueError(
             f"the kernel takes a bfloat16 cache, or int8 with scales; got {ck.dtype}, "
@@ -139,7 +141,7 @@ def launch_layer(q, ck, cv, k_scale, v_scale, k_new, v_new, start, window, attn_
         kn.data_ptr(), vn.data_ptr(), st.data_ptr(), out.data_ptr(),
         int(quantized), b, hkv, rep, t, d, t_lim,
         window or 0, 1.0 / math.sqrt(d), attention_plan(b, hkv, _sm_count(q.device.index or 0)),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        int(q.dtype == torch.float32), torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(err, "bd_flash_decode")
     return out.reshape(b, 1, hq, d)
@@ -152,14 +154,14 @@ def flash_decode_stacked(
 ) -> torch.Tensor:
     """Returns [B, 1, Hq, D]. The kernel reads only the valid rows of layer
     `li`, at ck[li].data_ptr() (a view of the stacked cache)."""
-    if q.device.type == "cpu":
+    if not _device.on_card(q):
+        if q.device.type != "cpu":
+            raise ValueError(f"no decode attention for device {q.device}")
         flash_decode_stacked.plain_calls += 1
         return decode_attention_plain(
             q, ck, cv, li, k_new, v_new, start, k_scale=k_scale, v_scale=v_scale,
             window=window, attn_len=attn_len,
         )
-    if not q.is_cuda:
-        raise ValueError(f"no decode attention for device {q.device}")
     if ck.ndim != 5:
         raise ValueError(f"the stacked cache is [L, B, Hkv, T, D], got {tuple(ck.shape)}")
     take = lambda a: None if a is None else a[li]

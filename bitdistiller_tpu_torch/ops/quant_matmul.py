@@ -18,9 +18,18 @@ Up to DECODE_MAX_M rows a call runs a decode kernel (A16 and A8 alike
 stream the words through clusters that split K, `decode_plan`); above, a
 prefill kernel (Hopper wgmma tiles fed by TMA, `prefill_tile_m` rows by 128
 columns), after a pass that sums x over each group into scratch the wrapper
-allocates. `qmm_prefill.launches` counts A16 prefill calls,
-`qmm_a8.launches` every A8 call and `qmm_a8.prefill_launches` the A8 calls
-above DECODE_MAX_M rows.
+allocates.
+
+Every kernel walks K in steps of KERNEL_STEP = 128 k: a step holds 128 / g
+groups at g = 32 and 64, one at 128, and a group of g > 128 (a multiple of
+128, per-channel g = K included) is g / 128 steps whose activations the
+kernel reads in the order of `step_kmap` (the pair layout of a g-group,
+walked as if it were g / 128 groups of 128). The plans count K in these
+steps. x may be bf16 or f32: the kernels round f32 x to bf16 as they stage
+it (the A8 kernels quantize it as it is) and write the output in x's dtype.
+
+`qmm_prefill.launches` counts A16 prefill calls, `qmm_a8.launches` every A8
+call and `qmm_a8.prefill_launches` the A8 calls above DECODE_MAX_M rows.
 
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
 launches a kernel or raises. There is no fallback from one to the other.
@@ -37,12 +46,39 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import _device
 from ..quant.packing import _U32, PackedLinear, _to_int32, unpack_codes
 from . import _build
 
 DECODE_MAX_M = 32  # rows up to which the decode kernel runs; above, the prefill kernel
 KERNEL_BITS = (2, 4)
-KERNEL_GROUPS = (128,)
+KERNEL_STEP = 128  # k a step of every packed kernel
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def kernel_group_ok(group_size: int, k: int) -> bool:
+    """The group sizes the packed kernels take: 32, 64, 128, or a multiple of
+    128 dividing K (per-channel included), with K a multiple of 128."""
+    if k % KERNEL_STEP:
+        return False
+    return group_size in (32, 64) or (group_size % KERNEL_STEP == 0 and k % group_size == 0)
+
+
+def step_kmap(bits: int, group_size: int) -> np.ndarray:
+    """For a group g > 128 in the pair layout: kmap[k'] = the k within the
+    group whose code the kernels find at position k' when they read the
+    group's words as g / 128 groups of 128 (word row w, pair field i, half
+    b: k' = (w // RS) * 128 + 2 * RS * i + 2 * (w % RS) + b against
+    k = 2 * R * i + 2 * w + b, R = g / pack and RS = 128 / pack rows)."""
+    pack = 32 // bits
+    r, rs = group_size // pack, KERNEL_STEP // pack
+    w = np.arange(r)[:, None, None]
+    i = np.arange(pack // 2)[None, :, None]
+    b = np.arange(2)[None, None, :]
+    kprime = (w // rs) * KERNEL_STEP + i * 2 * rs + 2 * (w % rs) + b
+    kmap = np.empty(group_size, np.int32)
+    kmap[kprime.ravel()] = (i * 2 * r + 2 * w + b).ravel()
+    return kmap
 
 
 def prefill_tile_m(m: int, n: int, sms: int) -> int:
@@ -119,27 +155,32 @@ def quant_matmul_plain(
 def _launcher(fn_name: str):
     lib = _build.load("quant_matmul")
     fn = getattr(lib, fn_name)
-    # decode: + cluster and columns a warp; prefill: + xsum scratch and the tile's rows
-    n_ptr, n_int = (5, 6) if fn_name == "bd_qmm_prefill" else (4, 7)
+    # decode: + cluster and columns a warp; prefill: + bf16 copy and xsum scratch, tile rows
+    n_ptr, n_int = (7, 7) if fn_name == "bd_qmm_prefill" else (5, 8)
     fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
 def _check_args(x, qweight, combo, bits, group_size):
-    if not (x.is_cuda and qweight.device == x.device):
+    if not (_device.on_card(x) and qweight.device == x.device):
         raise ValueError("the packed matmul kernel takes CUDA tensors on one device")
-    if x.dtype != torch.bfloat16:
-        raise ValueError(f"the packed matmul kernel takes bfloat16 x, got {x.dtype}")
+    if x.dtype not in KERNEL_DTYPES:
+        raise ValueError(f"the packed matmul kernel takes x in {KERNEL_DTYPES}, got {x.dtype}")
     if combo is None:
         raise ValueError("the packed layer has no combo words (make_scale_combo)")
     if qweight.dtype != torch.int32 or combo.dtype != torch.int32:
         raise ValueError("qweight and combo must be int32")
     if bits not in KERNEL_BITS:
         raise ValueError(f"bits={bits}: the packed matmul kernel takes bits in {KERNEL_BITS}")
-    if group_size not in KERNEL_GROUPS:
-        raise ValueError(f"group_size={group_size}: the kernel takes {KERNEL_GROUPS}")
     m, k = x.shape
+    if not kernel_group_ok(group_size, k):
+        raise ValueError(f"group_size={group_size}, K={k}: the kernel takes 32, 64 or a "
+                         f"multiple of 128 dividing K, with K a multiple of 128")
     n = qweight.shape[-1]
     if qweight.shape != (k // (32 // bits), n) or combo.shape != (k // group_size, n):
         raise ValueError(
@@ -157,9 +198,29 @@ def _aligned(x: torch.Tensor) -> torch.Tensor:
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
-def group_sums_scratch(m: int, k: int, dtype, device) -> torch.Tensor:
-    """The prefill kernels' scratch for x's group sums: [K/128, round_up(M, 4)]."""
-    return torch.empty((k // 128, -(-m // 4) * 4), dtype=dtype, device=device)
+def group_sums_scratch(m: int, k: int, dtype, device, group_size: int = 128) -> torch.Tensor:
+    """The prefill kernels' scratch for x's group sums: [K / min(g, 128),
+    round_up(M, 4)] (one sum a group, or a step of a larger group)."""
+    fold = min(group_size, KERNEL_STEP)
+    return torch.empty((k // fold, -(-m // 4) * 4), dtype=dtype, device=device)
+
+
+_KMAPS: dict = {}
+
+
+def _device_table(key, make, device) -> Optional[torch.Tensor]:
+    """A kmap table as a device int32 tensor, made once a device (None: no table)."""
+    key = key + (str(device),)
+    if key not in _KMAPS:
+        table = make()
+        _KMAPS[key] = None if table is None else torch.from_numpy(table).to(device)
+    return _KMAPS[key]
+
+
+def _step_kmap(bits: int, group_size: int, device) -> Optional[torch.Tensor]:
+    if group_size <= KERNEL_STEP:
+        return None
+    return _device_table(("step", bits, group_size), lambda: step_kmap(bits, group_size), device)
 
 
 def qmm_decode(x, qweight, combo, bits: int, group_size: int) -> torch.Tensor:
@@ -171,11 +232,12 @@ def qmm_decode(x, qweight, combo, bits: int, group_size: int) -> torch.Tensor:
     if m > DECODE_MAX_M:
         raise ValueError(f"decode kernel takes M <= {DECODE_MAX_M}, got {m}")
     x = _aligned(x)
-    cluster, warp_cols = a16_decode_plan(n, k // group_size, _sm_count(x.device.index or 0))
+    cluster, warp_cols = a16_decode_plan(n, k // KERNEL_STEP, _sm_count(x.device.index or 0))
+    kmap = _step_kmap(bits, group_size, x.device)
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     err = _launcher("bd_qmm_decode")(
-        x.data_ptr(), qweight.data_ptr(), combo.data_ptr(), out.data_ptr(),
-        m, k, n, bits, group_size, cluster, warp_cols,
+        x.data_ptr(), qweight.data_ptr(), combo.data_ptr(), _ptr(kmap), out.data_ptr(),
+        m, k, n, bits, group_size, cluster, warp_cols, int(x.dtype == torch.float32),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(err, "bd_qmm_decode")
@@ -190,10 +252,14 @@ def qmm_prefill(x, qweight, combo, bits: int, group_size: int) -> torch.Tensor:
     m, k = x.shape
     n = qweight.shape[-1]
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    xsum = group_sums_scratch(m, k, torch.float32, x.device)
+    xsum = group_sums_scratch(m, k, torch.float32, x.device, group_size)
+    kmap = _step_kmap(bits, group_size, x.device)
+    f32 = x.dtype == torch.float32
+    # the bf16 copy of x (rounded, in step order) that TMA reads instead of x
+    xb = torch.empty((m, k), dtype=torch.bfloat16, device=x.device) if f32 or kmap is not None else None
     err = _launcher("bd_qmm_prefill")(
-        x.data_ptr(), qweight.data_ptr(), combo.data_ptr(), xsum.data_ptr(), out.data_ptr(),
-        m, k, n, bits, group_size, _tile_m(x, n),
+        x.data_ptr(), qweight.data_ptr(), combo.data_ptr(), _ptr(kmap), _ptr(xb),
+        xsum.data_ptr(), out.data_ptr(), m, k, n, bits, group_size, _tile_m(x, n), int(f32),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(err, "bd_qmm_prefill")
@@ -213,19 +279,19 @@ def quant_matmul(x: torch.Tensor, p: PackedLinear, li: Optional[int] = None) -> 
     (through a per-call permutation of x); everything else is A16."""
     k, n = p.in_features, p.out_features
     xf = x.reshape(-1, k).contiguous()
-    if p.a8_order or (xf.is_cuda and p.bits in A8_BITS and a8_enabled()):
+    if p.a8_order or (_device.on_card(xf) and p.bits in A8_BITS and a8_enabled()):
         return quant_matmul_a8(x, p, li)
-    if xf.device.type == "cpu":
-        layer = p if li is None else p.layer(li)
-        out = quant_matmul_plain(
-            xf, layer.qweight, layer.scales, layer.szeros, layer.bits, layer.group_size
-        )
-    elif xf.is_cuda:
+    if _device.on_card(xf):
         # index only what the kernel reads: this runs 4 times a layer a step
         qweight = p.qweight if li is None else p.qweight[li]
         combo = p.combo if li is None or p.combo is None else p.combo[li]
         launch = qmm_decode if xf.shape[0] <= DECODE_MAX_M else qmm_prefill
         out = launch(xf, qweight, combo, p.bits, p.group_size)
+    elif xf.device.type == "cpu":
+        layer = p if li is None else p.layer(li)
+        out = quant_matmul_plain(
+            xf, layer.qweight, layer.scales, layer.szeros, layer.bits, layer.group_size
+        )
     else:
         raise ValueError(f"no packed matmul for device {xf.device}")
     if p.bias is not None:
@@ -380,21 +446,41 @@ def quant_matmul_a8_plain(
     return out.to(x.dtype)
 
 
-_KMAPS: dict = {}
+def a8_kmap(bits: int, group_size: int, a8_order: bool) -> Optional[np.ndarray]:
+    """The A8 kernels' kmap of one group: kmap[k'] = the k of x whose code
+    the kernel finds at position k' (the quantization kernel permutes x to
+    match). Pair-layout words: `_a8_perm`; A8-ordered words: None. Above
+    128 the group is read as g / 128 steps of 128 in the A8 byte order
+    (word row w, bit field i, byte lane j: k' = (w // RS) * 128 + 4 * RS * i
+    + 4 * (w % RS) + j), composed with where the group's own layout keeps
+    that code."""
+    if group_size <= KERNEL_STEP:
+        return None if a8_order else _a8_perm(bits, group_size)
+    pack, cpb = 32 // bits, 8 // bits
+    r, rs = group_size // pack, KERNEL_STEP // pack
+    w = np.arange(r)[:, None, None]
+    i = np.arange(cpb)[None, :, None]
+    j = np.arange(4)[None, None, :]
+    kprime = (w // rs) * KERNEL_STEP + i * 4 * rs + 4 * (w % rs) + j
+    if a8_order:
+        k = i * 4 * r + 4 * w + j
+    else:
+        f = cpb * j + i  # the bit field of the word the extraction reads
+        k = (f % (pack // 2)) * 2 * r + 2 * w + f // (pack // 2)
+    kmap = np.empty(group_size, np.int32)
+    kmap[kprime.ravel()] = np.broadcast_to(k, kprime.shape).ravel()
+    return kmap
 
 
-def _kmap(bits: int, group_size: int, device) -> torch.Tensor:
-    """`_a8_perm` as a device int32 tensor, made once a device."""
-    key = (bits, group_size, str(device))
-    if key not in _KMAPS:
-        _KMAPS[key] = torch.from_numpy(_a8_perm(bits, group_size)).to(device)
-    return _KMAPS[key]
+def _kmap(bits: int, group_size: int, a8_order: bool, device) -> Optional[torch.Tensor]:
+    return _device_table(("a8", bits, group_size, a8_order),
+                         lambda: a8_kmap(bits, group_size, a8_order), device)
 
 
 @functools.lru_cache(maxsize=None)
 def _a8_launcher():
     fn = _build.load("quant_matmul_a8").bd_qmm_a8
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -406,13 +492,14 @@ def qmm_a8(x, qweight, scales, szeros, bits: int, group_size: int, a8_order: boo
     DECODE_MAX_M rows the streaming decode kernel on `decode_plan`'s
     clusters, above through the prefill kernel (N a multiple of 4), counted
     in `qmm_a8.prefill_launches` as well as `qmm_a8.launches`."""
-    if not (x.is_cuda and all(t.device == x.device for t in (qweight, scales, szeros))):
+    if not (_device.on_card(x) and all(t.device == x.device for t in (qweight, scales, szeros))):
         raise ValueError("the A8 matmul kernel takes CUDA tensors on one device")
-    if x.dtype != torch.bfloat16:
-        raise ValueError(f"the A8 matmul kernel takes bfloat16 x, got {x.dtype}")
-    if bits not in A8_BITS or group_size not in KERNEL_GROUPS:
-        raise ValueError(f"the A8 kernel takes bits in {A8_BITS}, groups {KERNEL_GROUPS}")
+    if x.dtype not in KERNEL_DTYPES:
+        raise ValueError(f"the A8 matmul kernel takes x in {KERNEL_DTYPES}, got {x.dtype}")
     m, k = x.shape
+    if bits not in A8_BITS or not kernel_group_ok(group_size, k):
+        raise ValueError(f"the A8 kernel takes bits in {A8_BITS} and group 32, 64 or a "
+                         f"multiple of 128 dividing K = {k}; got {bits}, {group_size}")
     n = qweight.shape[-1]
     if (qweight.dtype != torch.int32 or qweight.shape != (k // (32 // bits), n)
             or scales.shape != (k // group_size, n) or szeros.shape != scales.shape
@@ -429,17 +516,16 @@ def qmm_a8(x, qweight, scales, szeros, bits: int, group_size: int, a8_order: boo
     x = _aligned(x)
     prefill = m > DECODE_MAX_M
     tile = _tile_m(x, n) if prefill else 0
-    cluster = 0 if prefill else decode_plan(n, k // group_size, _sm_count(x.device.index or 0))
-    kmap = None if a8_order else _kmap(bits, group_size, x.device)
+    cluster = 0 if prefill else decode_plan(n, k // KERNEL_STEP, _sm_count(x.device.index or 0))
+    kmap = _kmap(bits, group_size, a8_order, x.device)
     xi = torch.empty((m, k), dtype=torch.int8, device=x.device)
     sx = torch.empty((m,), dtype=torch.float32, device=x.device)
-    xsum = group_sums_scratch(m, k, torch.int32, x.device) if prefill else None
+    xsum = group_sums_scratch(m, k, torch.int32, x.device, group_size) if prefill else None
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    ptr = lambda t: None if t is None else t.data_ptr()
     err = _a8_launcher()(
-        x.data_ptr(), qweight.data_ptr(), scales.data_ptr(), szeros.data_ptr(), ptr(bias),
-        ptr(kmap), xi.data_ptr(), sx.data_ptr(), ptr(xsum), out.data_ptr(),
-        m, k, n, bits, group_size, tile, cluster,
+        x.data_ptr(), qweight.data_ptr(), scales.data_ptr(), szeros.data_ptr(), _ptr(bias),
+        _ptr(kmap), xi.data_ptr(), sx.data_ptr(), _ptr(xsum), out.data_ptr(),
+        m, k, n, bits, group_size, tile, cluster, int(x.dtype == torch.float32),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(err, "bd_qmm_a8")
@@ -461,10 +547,10 @@ def quant_matmul_a8(x: torch.Tensor, p: PackedLinear, li: Optional[int] = None) 
     take = (lambda a: a) if li is None else (lambda a: None if a is None else a[li])
     args = (xf, take(p.qweight), take(p.scales), take(p.szeros), p.bits, p.group_size,
             p.a8_order, take(p.bias))
-    if xf.device.type == "cpu":
-        out = quant_matmul_a8_plain(*args)
-    elif xf.is_cuda:
+    if _device.on_card(xf):
         out = qmm_a8(*args)
+    elif xf.device.type == "cpu":
+        out = quant_matmul_a8_plain(*args)
     else:
         raise ValueError(f"no A8 matmul for device {xf.device}")
     return out.reshape(*x.shape[:-1], n)

@@ -1,0 +1,177 @@
+"""Causal flash attention for training (forward and backward): the plain
+PyTorch version and the wrappers of the hand-written CUDA kernels
+(csrc/train_attention.cu), which replace the stock Pallas TPU flash
+attention that the JAX package's `models/layers.py:flash_train_attention`
+calls (its forward, dkv and dq kernels).
+
+The function is JAX's `flash_train_attention`: q [B, S, Hq, D], k and v
+[B, S, Hkv, D] (GQA: query head h reads kv head h // rep), causal, with
+segment ids from the padding mask (1 real, 0 pad: a query attends to keys at
+or before it with its own segment id), the finite mask value
+-0.7 * f32max, sm_scale = 1/sqrt(D), softmax in f32, the output in q's dtype.
+Pad rows' outputs are garbage in both packages and sit under label -100.
+
+On a CPU tensor `flash_train_attention` runs the plain version (autograd
+differentiates it); on a CUDA tensor it runs `TrainAttention`, a
+torch.autograd.Function whose forward launches `train_attn_fwd` and whose
+backward launches `train_attn_bwd_dkv` and `train_attn_bwd_dq`, or raises.
+It saves q, k, v, o and the f32 log-sum-exp, so it is safe under
+torch.utils.checkpoint (a recompute launches the forward again).
+`di = rowsum(o * do)` in f32 stays a plain op, as JAX computes it outside
+Pallas. bf16 runs on the tensor cores; f32 on CUDA cores.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .. import _device
+from . import _build
+
+MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)  # flash_attention.py: DEFAULT_MASK_VALUE
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
+MAX_HEAD_DIM = 256
+
+
+def _allowed(s: int, attn_mask: Optional[torch.Tensor], device) -> torch.Tensor:
+    """[B or 1, 1, 1, S, S] bool: causal, and the same segment id."""
+    pos = torch.arange(s, device=device)
+    allow = (pos[None, :] <= pos[:, None])[None, None, None]
+    if attn_mask is not None:
+        seg = attn_mask.to(torch.int32)
+        allow = allow & (seg[:, :, None] == seg[:, None, :])[:, None, None]
+    return allow
+
+
+def flash_train_attention_plain(q, k, v, attn_mask=None) -> torch.Tensor:
+    """The same function in plain PyTorch, differentiable by autograd: f32
+    scores and softmax over [B, Hkv, rep, S, S]."""
+    b, s, hq, d = q.shape
+    hkv = k.shape[2]
+    qg = q.reshape(b, s, hkv, hq // hkv, d).to(torch.float32)
+    scores = torch.einsum("bshrd,bthd->bhrst", qg, k.to(torch.float32)) * (1.0 / math.sqrt(d))
+    scores = torch.where(_allowed(s, attn_mask, q.device), scores, MASK_VALUE)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhrst,bthd->bshrd", probs, v.to(torch.float32))
+    return out.reshape(b, s, hq, d).to(q.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _launcher(name: str):
+    fn = getattr(_build.load("train_attention"), name)
+    n_ptr = {"bd_train_attn_fwd": 6, "bd_train_attn_dkv": 9, "bd_train_attn_dq": 8}[name]
+    fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 5
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(q, k, v, seg) -> None:
+    b, s, hq, d = q.shape
+    if k.shape != v.shape or k.shape[:2] != (b, s) or k.shape[3] != d or hq % k.shape[2]:
+        raise ValueError(f"shapes disagree: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}")
+    if d % 16 or d > MAX_HEAD_DIM:
+        raise ValueError(f"the kernels take D a multiple of 16 up to {MAX_HEAD_DIM}, got {d}")
+    if q.dtype not in KERNEL_DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"the kernels take q, k, v of one dtype in {KERNEL_DTYPES}")
+    if not (_device.on_card(q) and k.device == q.device and v.device == q.device):
+        raise ValueError("the training attention kernels take CUDA tensors on one device")
+    if seg is not None and (seg.shape != (b, s) or seg.device != q.device):
+        raise ValueError(f"the padding mask must be [{b}, {s}] on q's device")
+
+
+def _dims(q, k):
+    b, s, hq, d = q.shape
+    return [b, s, hq, k.shape[2], d]
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def train_attn_fwd(q, k, v, seg) -> tuple[torch.Tensor, torch.Tensor]:
+    """Forward kernel: (o [B, S, Hq, D] in q's dtype, lse [B, Hq, S] f32)."""
+    out = torch.empty_like(q)
+    lse = torch.empty((q.shape[0], q.shape[2], q.shape[1]), dtype=torch.float32, device=q.device)
+    err = _launcher("bd_train_attn_fwd")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(seg), out.data_ptr(), lse.data_ptr(),
+        *_dims(q, k), 1.0 / math.sqrt(q.shape[3]), int(q.dtype == torch.float32),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(err, "bd_train_attn_fwd")
+    train_attn_fwd.launches += 1
+    return out, lse
+
+
+def train_attn_bwd_dkv(q, k, v, seg, dout, lse, di) -> tuple[torch.Tensor, torch.Tensor]:
+    """dk, dv [B, S, Hkv, D], summed over the rep query heads in the kernel."""
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    err = _launcher("bd_train_attn_dkv")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(seg), dout.data_ptr(), lse.data_ptr(),
+        di.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        *_dims(q, k), 1.0 / math.sqrt(q.shape[3]), int(q.dtype == torch.float32),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(err, "bd_train_attn_dkv")
+    train_attn_bwd_dkv.launches += 1
+    return dk, dv
+
+
+def train_attn_bwd_dq(q, k, v, seg, dout, lse, di) -> torch.Tensor:
+    """dq [B, S, Hq, D]."""
+    dq = torch.empty_like(q)
+    err = _launcher("bd_train_attn_dq")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(seg), dout.data_ptr(), lse.data_ptr(),
+        di.data_ptr(), dq.data_ptr(),
+        *_dims(q, k), 1.0 / math.sqrt(q.shape[3]), int(q.dtype == torch.float32),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(err, "bd_train_attn_dq")
+    train_attn_bwd_dq.launches += 1
+    return dq
+
+
+train_attn_fwd.launches = 0
+train_attn_bwd_dkv.launches = 0
+train_attn_bwd_dq.launches = 0
+
+
+class TrainAttention(torch.autograd.Function):
+    """The kernels as an autograd Function: forward saves q, k, v, the
+    segment ids, o and the log-sum-exp; backward launches dkv and dq."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, seg):
+        out, lse = train_attn_fwd(q, k, v, seg)
+        ctx.save_for_backward(q, k, v, seg, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, seg, out, lse = ctx.saved_tensors
+        dout = dout.contiguous()
+        di = (out.to(torch.float32) * dout.to(torch.float32)).sum(dim=-1).contiguous()
+        dk, dv = train_attn_bwd_dkv(q, k, v, seg, dout, lse, di)
+        dq = train_attn_bwd_dq(q, k, v, seg, dout, lse, di)
+        return dq, dk, dv, None
+
+
+def flash_train_attention(q, k, v, attn_mask=None) -> torch.Tensor:
+    """q [B, S, Hq, D], k, v [B, S, Hkv, D], attn_mask [B, S] (1 = real) or
+    None -> [B, S, Hq, D]. CPU tensors: the plain version; CUDA tensors: the
+    kernels (any S; D a multiple of 16 up to 256; bf16 or f32)."""
+    if not _device.on_card(q):
+        if q.device.type != "cpu":
+            raise ValueError(f"no training attention for device {q.device}")
+        return flash_train_attention_plain(q, k, v, attn_mask)
+    seg = None if attn_mask is None else attn_mask.to(torch.int32).contiguous()
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    _check(q, k, v, seg)
+    return TrainAttention.apply(q, k, v, seg)

@@ -90,7 +90,7 @@ A16_NO_MMA = ("        for (int mt = 0; mt < MT; ++mt)\n"
 A16_PDL = "constexpr bool DEC_PDL = true;"
 A16_X_COPY = "  for (int base = 0; base < total; base += 4 * kThreads) {"
 FD_STAGES = "constexpr int FD_STAGES = 4;"
-FD_EPL = "static constexpr int EPL = REP == 1 ? 16 :"
+FD_EPL = "static constexpr int EPL_REP = REP == 1 ? 16 :"
 FD_LOADS = "    if (jr < runs) {\n      uint8_t* sl = ring + (jr % FD_STAGES) * P::SLOT;\n"
 FD_LOOP = "  for (int jr = 0; jr < runs; ++jr) {\n"
 FD_BOUNDS = "__launch_bounds__(kThreads, REP == 8 ? 1 : 2)"
@@ -163,12 +163,12 @@ def _matmuls(fns, gen, stream, sms, a8: bool) -> None:
             cluster = qm.decode_plan(n, k // 128, sms)
             args = [(x.data_ptr(), qw[i].data_ptr(), s[i].data_ptr(), s[i].data_ptr(), None, None,
                      xi.data_ptr(), sx.data_ptr(), None, out.data_ptr(), m, k, n, bits, 128, 0,
-                     cluster, stream) for i in range(layers)]
+                     cluster, 0, stream) for i in range(layers)]
         else:
             combo = make_scale_combo(s, s)
             plan = qm.a16_decode_plan(n, k // 128, sms)
-            args = [(x.data_ptr(), qw[i].data_ptr(), combo[i].data_ptr(), out.data_ptr(), m, k, n,
-                     bits, 128, *plan, stream) for i in range(layers)]
+            args = [(x.data_ptr(), qw[i].data_ptr(), combo[i].data_ptr(), None, out.data_ptr(), m,
+                     k, n, bits, 128, *plan, 0, stream) for i in range(layers)]
         for name, row in times.items():
             fn = fns[name]
             _build.check(fn(*args[0]), name)
@@ -190,7 +190,7 @@ def _attention(fns, gen, stream, sms) -> None:
         st = torch.tensor(starts, dtype=torch.int32, device="cuda")
         args = [(q.data_ptr(), ck[i].data_ptr(), cv[i].data_ptr(), None, None, q.data_ptr(),
                  q.data_ptr(), st.data_ptr(), out.data_ptr(), 0, b, h, 1, t, d, t, 0, d ** -0.5,
-                 cluster, stream) for i in range(2)]
+                 cluster, 0, stream) for i in range(2)]
         for name, row in times.items():
             fn = fns[name]
             _build.check(fn(*args[0]), name)
@@ -201,10 +201,10 @@ def _attention(fns, gen, stream, sms) -> None:
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNELS = {  # name: (source, its variants, C function, its argtypes)
-    "a16": ("quant_matmul.cu", a16_variants, "bd_qmm_decode", [_P] * 4 + [_I] * 7 + [_P]),
-    "a8": ("quant_matmul_a8.cu", variants, "bd_qmm_a8", [_P] * 10 + [_I] * 7 + [_P]),
+    "a16": ("quant_matmul.cu", a16_variants, "bd_qmm_decode", [_P] * 5 + [_I] * 8 + [_P]),
+    "a8": ("quant_matmul_a8.cu", variants, "bd_qmm_a8", [_P] * 10 + [_I] * 8 + [_P]),
     "attention": ("decode_attention.cu", attention_variants, "bd_flash_decode",
-                  [_P] * 9 + [_I] * 8 + [ctypes.c_float, _I, _P]),
+                  [_P] * 9 + [_I] * 8 + [ctypes.c_float, _I, _I, _P]),
 }
 
 

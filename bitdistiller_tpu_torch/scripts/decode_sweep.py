@@ -80,7 +80,7 @@ def sweep_a8(gen, sms, stream):
             out = torch.empty((M, n), dtype=torch.bfloat16, device="cuda")
             args = [(x.data_ptr(), qw[i].data_ptr(), scales[i].data_ptr(), szeros[i].data_ptr(),
                      None, None, xi.data_ptr(), sx.data_ptr(), None, out.data_ptr(), M, k, n, 2,
-                     128, 0, cluster, stream) for i in range(layers)]
+                     128, 0, cluster, 0, stream) for i in range(layers)]
             _build.check(fn(*args[0]), f"qmm_a8 {name} cluster {cluster}")
             torch.cuda.synchronize()
             outs[cluster] = out.clone()
@@ -105,8 +105,8 @@ def sweep_a16(gen, sms, stream):
         outs, row = {}, []
         for plan in [(c, wc) for wc in qm.A16_WARP_COLS for c in CLUSTERS if c <= k // 128]:
             out = torch.empty((M, n), dtype=torch.bfloat16, device="cuda")
-            args = [(x.data_ptr(), qw[i].data_ptr(), combo[i].data_ptr(), out.data_ptr(), M, k, n,
-                     2, 128, *plan, stream) for i in range(layers)]
+            args = [(x.data_ptr(), qw[i].data_ptr(), combo[i].data_ptr(), None, out.data_ptr(), M,
+                     k, n, 2, 128, *plan, 0, stream) for i in range(layers)]
             _build.check(fn(*args[0]), f"qmm_decode {name} plan {plan}")
             torch.cuda.synchronize()
             outs[plan] = out.clone()
@@ -135,7 +135,7 @@ def sweep_attention(gen, sms, stream):
             out = torch.empty_like(q)
             args = [(q.data_ptr(), ck[i].data_ptr(), cv[i].data_ptr(), None, None, kn.data_ptr(),
                      kn.data_ptr(), st.data_ptr(), out.data_ptr(), 0, b, h, 1, t, d, t, 0,
-                     d ** -0.5, c, stream) for i in range(2)]
+                     d ** -0.5, c, 0, stream) for i in range(2)]
             _build.check(fn(*args[0]), f"decode attention cluster {c}")
             torch.cuda.synchronize()
             if ref is None:
@@ -165,8 +165,8 @@ def sweep_mlp(gen, sms, stream):
     for plan in [chosen] + [p for p in plans if p != chosen]:
         out = torch.empty((M, d), dtype=torch.bfloat16, device="cuda")
         args = [(x.data_ptr(), *[a[li].data_ptr() for w in (gate, up, down) for a in w],
-                 mid.data_ptr(), msum.data_ptr(), out.data_ptr(), M, k, f, d, 2, 128, 0, *plan,
-                 stream) for li in range(layers)]
+                 None, None, mid.data_ptr(), msum.data_ptr(), out.data_ptr(), M, k, f, d, 2, 128,
+                 0, *plan, 0, stream) for li in range(layers)]
         _build.check(fn(*args[0]), f"fused_mlp {plan}")
         torch.cuda.synchronize()
         if ref is None:

@@ -70,8 +70,8 @@ extern "C" int bd_ts_copy(void* dst) { return cudaMemcpyFromSymbol(dst, g_ts, si
 def a16_source(src: str) -> str:
     """csrc/quant_matmul.cu with stamps 0..7 in the decode kernel."""
     src = _patch(src, HEAD, HEAD + STAMP)
-    src = _patch(src, "  const int xld = D::xld(ngs_max);\n  uint32_t* ring",
-                 "  const int xld = D::xld(ngs_max);\n  stamp(0, 0);\n  uint32_t* ring")
+    xld = "  const int xld = D::xld(ngs_max), xsld = ngs_max * SUB;\n"
+    src = _patch(src, xld + "  uint32_t* ring", xld + "  stamp(0, 0);\n  uint32_t* ring")
     src = _patch(src, "  for (int j = 0; j < DEC_STAGES - 1; ++j) issue(j);\n\n  grid_dep_wait();",
                  "  for (int j = 0; j < DEC_STAGES - 1; ++j) issue(j);\n  stamp(1, ngs);\n\n"
                  "  grid_dep_wait();\n  stamp(2, 0);")
@@ -83,7 +83,7 @@ def a16_source(src: str) -> str:
     first = ("  cluster.sync();\n"
              "  const int e0 = rank * MROWS * COLS / C, e1 = (rank + 1) * MROWS * COLS / C;\n")
     src = _patch(src, first, first.replace("  cluster.sync();\n", "  cluster.sync();\n  stamp(5, 0);\n"))
-    last = ("      out[size_t(r) * N + n] = __float2bfloat16(sum);\n    }\n  }\n"
+    last = ("      store_out(out, size_t(r) * N + n, sum, x_f32);\n    }\n  }\n"
             "  cluster.sync();  // no CTA leaves while a peer still reads its shared memory\n")
     return _patch(src, last, last + "  stamp(6, 0);\n") + COPY
 
@@ -135,7 +135,7 @@ def _load(name: str, text: str, fn_name: str, argtypes):
 def run_a16(gen, stream, sms) -> None:
     src = a16_source((_build.CSRC_DIR / "quant_matmul.cu").read_text())
     lib, fn = _load("a16_timeline", src, "bd_qmm_decode",
-                    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+                    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
     m = 8
     for name, (k, n) in {"qkv": (4096, 12288), "down": (11008, 4096)}.items():
         layers = max(2, math.ceil(120e6 / (k * n / 4 + k // 128 * n * 4)))
@@ -149,8 +149,8 @@ def run_a16(gen, stream, sms) -> None:
         for plan in (chosen, *[p for p in ((4, 32), (8, 32)) if p != chosen]):
             for i in range(8):  # the last call's stamps stay
                 _build.check(fn(x.data_ptr(), qw[i % layers].data_ptr(),
-                                combo[i % layers].data_ptr(), out.data_ptr(), m, k, n, 2, 128,
-                                *plan, stream), "a16 timeline")
+                                combo[i % layers].data_ptr(), None, out.data_ptr(), m, k, n, 2,
+                                128, *plan, 0, stream), "a16 timeline")
             torch.cuda.synchronize()
             ts = _read(lib, -(-n // (8 * plan[1])) * plan[0])
             _report(f"a16 {name} (cluster, columns a warp) {plan}{'*' if plan == chosen else ''}",
@@ -163,7 +163,7 @@ def run_attention(gen, stream, sms) -> None:
     src = attention_source((_build.CSRC_DIR / "decode_attention.cu").read_text())
     lib, fn = _load("attention_timeline", src, "bd_flash_decode",
                     [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
-                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                    + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     b, h, t, d = 8, 32, 2048, 128
     ck = torch.randn((2, b, h, t, d), device="cuda", generator=gen).bfloat16()
     cv = torch.randn((2, b, h, t, d), device="cuda", generator=gen).bfloat16()
@@ -175,7 +175,7 @@ def run_attention(gen, stream, sms) -> None:
             for i in range(6):  # the last call's stamps stay
                 _build.check(fn(q.data_ptr(), ck[i % 2].data_ptr(), cv[i % 2].data_ptr(), None,
                                 None, q.data_ptr(), q.data_ptr(), st.data_ptr(), out.data_ptr(),
-                                0, b, h, 1, t, d, t, 0, d ** -0.5, c, stream),
+                                0, b, h, 1, t, d, t, 0, d ** -0.5, c, 0, stream),
                              "attention timeline")
             torch.cuda.synchronize()
             _report(f"attention {label} ({sum(starts)} rows), cluster {c}", _read(lib, b * h * c),

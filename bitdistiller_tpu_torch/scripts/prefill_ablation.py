@@ -33,12 +33,12 @@ from ..quant.packing import make_scale_combo
 SHAPES = {"qkv": (4096, 12288), "o": (4096, 4096), "gate_up": (4096, 22016),
           "down": (11008, 4096)}
 FOLD = "acc[4 * j + e] = acc[4 * j + e] + part[4 * j + e] * s[h] - xe * zc[h];"
-WGMMA = ("      wgmma_bf16(part, a[kk], sw128_desc(xa + (kk >> 2) * (BM * 128) + (kk & 3) * 32),"
-         " kk > 0);\n")
-NO_WGMMA = "      part[kk] += __uint_as_float(a[kk][0] ^ a[kk][1] ^ a[kk][2] ^ a[kk][3] ^ xa);\n"
+WGMMA = ("        wgmma_bf16(part, a[kk], sw128_desc(xa + (kk >> 2) * (BM * 128) + (kk & 3) * 32),\n"
+         "                   kk > gs * Map::KB);\n")
+NO_WGMMA = "        part[kk] += __uint_as_float(a[kk][0] ^ a[kk][1] ^ a[kk][2] ^ a[kk][3] ^ xa);\n"
 WAIT = ("    const uint8_t* st = smem + (g % PF_STAGES) * P::STAGE;\n"
         "    mbar_wait(full + g % PF_STAGES, (g / PF_STAGES) & 1);\n")
-LOAD = "    if (tid == 0 && g + PF_STAGES - 1 < ng) load_stage(g + PF_STAGES - 1);\n"
+LOAD = "        if (tid == 0 && g + PF_STAGES - 1 < ng) load_stage(g + PF_STAGES - 1);\n"
 PROLOGUE = "    for (int g = 0; g < PF_STAGES - 1 && g < ng; ++g) load_stage(g);\n"
 
 
@@ -104,7 +104,7 @@ def main() -> int:
     fns = {}
     for name, lib in libs.items():
         fn = lib.bd_qmm_prefill
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         fns[name] = fn
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -125,8 +125,9 @@ def main() -> int:
             out = torch.empty((m, n), dtype=torch.bfloat16, device="cuda")
             tile = qm.prefill_tile_m(m, n, torch.cuda.get_device_properties(0).multi_processor_count)
             for name, fn in fns.items():
-                args = [(x.data_ptr(), qw[i].data_ptr(), combo[i].data_ptr(), xsum.data_ptr(),
-                         out.data_ptr(), m, k, n, bits, 128, tile, stream) for i in range(layers)]
+                args = [(x.data_ptr(), qw[i].data_ptr(), combo[i].data_ptr(), None, None,
+                         xsum.data_ptr(), out.data_ptr(), m, k, n, bits, 128, tile, 0, stream)
+                        for i in range(layers)]
                 _build.check(fn(*args[0]), name)
                 total[name] += cuda_ms(lambda i: fn(*args[i % layers]))
         print(f"M={m}: " + ", ".join(f"{name} {ms:.4f}" for name, ms in total.items()), flush=True)

@@ -13,7 +13,16 @@ and prefill path went through its kernels, and times one engine-shaped
 prefill (8 prompts of 512 tokens) through each path. The entry points
 outside the engine (the HBM probe, the fused MLP, the per-layer decode
 attention) each run a path of their own with their launch counts reset
-before and read after.
+before and read after. Then the training slice: `c1` (the packed kernels
+at g32, g64 and per-channel, f32 activations, decode attention at D = 256
+and with f32 q, each through its kernel; g64 times beside g128's),
+`train_attention` (B8's forward and gradients against the plain version at
+TinyLlama's and 7B's shapes, padded and ragged, and their times beside
+SDPA's), `train` (run_training at the full width and depth of
+TinyLlama-1.1B: int2-asym STE at g64, CAKLD, 2 x 1024 tokens a micro-step,
+grad_accum 2, two optimizer cycles, student and teacher through B8) and
+`serve_trained` (the trained student packed at int2-g64 and served through
+the Engine on B1/B2/B3).
 Phases print one line each; any failure exits non-zero before the last
 line. The second-to-last line is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
@@ -47,7 +56,21 @@ Tolerances (kernel vs plain version on the same inputs):
     kernel that skipped 1% of the normal planes would be off by about 2e-6;
   * one whole decode step of the 7B model, kernels vs plain versions:
     max|logit error| <= 5e-2 * max|logit| (bf16 rounding differences of every
-    matmul output compound over 32 layers), A16 and A8 alike.
+    matmul output compound over 32 layers), A16 and A8 alike; the same for
+    the trained TinyLlama student packed at int2-g64;
+  * C1: integer-valued x (bf16 or f32: the kernels round f32 x to bf16,
+    which keeps small integers exact), exact, A16 and A8 at g32, g64 and
+    per-channel, M = 8 and 256; the fused MLP within MLP_TOL (f32 x: its
+    group sums of the unrounded x, as the plain version); decode attention
+    at D = 256 and with f32 q within ATTN_TOL;
+  * B8 in bf16: the output and each of dq, dk, dv within 2e-2 of the
+    plain version's max (p and ds enter their products rounded to bf16, the
+    plain version keeps f32; pad rows compared under the mask); in f32 within
+    1e-4 (f32 sums in another order);
+  * the first KD micro-step of TinyLlama through B8 against the same step
+    with the plain attention: loss within 2e-2 and gradient norm within 5e-2
+    relative (22 bf16 layers; bf16 probabilities in B8, f32 in the plain
+    softmax); every training loss finite.
 """
 
 from __future__ import annotations
@@ -56,9 +79,12 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -66,10 +92,18 @@ import torch
 
 from bitdistiller_tpu_torch.experimental import flash_decode as fd1
 from bitdistiller_tpu_torch.experimental import fused_mlp as fm
-from bitdistiller_tpu_torch.models import LLAMA2_7B, forward, random_packed_params
+from bitdistiller_tpu_torch.models import (
+    LLAMA2_7B,
+    TINYLLAMA_1B,
+    forward,
+    init_params,
+    pack_model,
+    random_packed_params,
+)
 from bitdistiller_tpu_torch.ops import _build
 from bitdistiller_tpu_torch.ops import decode_attention as da
 from bitdistiller_tpu_torch.ops import quant_matmul as qm
+from bitdistiller_tpu_torch.ops import train_attention as ta
 from bitdistiller_tpu_torch.quant.packing import (
     PackedLinear,
     dequantize_linear,
@@ -78,6 +112,8 @@ from bitdistiller_tpu_torch.quant.packing import (
 )
 from bitdistiller_tpu_torch.scripts import bw_probe
 from bitdistiller_tpu_torch.serve import Engine, Request, SamplingParams
+from bitdistiller_tpu_torch.train import trainer as tr
+from bitdistiller_tpu_torch.train.pipeline import run_training
 
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (data sheet)
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores (data sheet)
@@ -154,14 +190,16 @@ def bound_ms(nbytes: float, flops: float, peak_ops: float = PEAK_BF16_FLOPS,
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
-def rand_stacked(gen, layers, k, n, bits, integer):
-    """A stacked PackedLinear with random codes. Integer case: scales 1 and
-    integer szeros; else bf16-exact scales, so the plain version (f32 scales)
-    and the kernel (combo words) read the same weights."""
+def rand_stacked(gen, layers, k, n, bits, integer, group=GROUP):
+    """A stacked PackedLinear with random codes (group -1: one group of K).
+    Integer case: scales 1 and integer szeros; else bf16-exact scales, so the
+    plain version (f32 scales) and the kernel (combo words) read the same
+    weights."""
     pack = 32 // bits
     qw = torch.randint(-(2**31), 2**31 - 1, (layers, k // pack, n), dtype=torch.int32,
                        device=DEV, generator=gen)
-    ng = k // GROUP
+    group = k if group < 1 else group
+    ng = k // group
     if integer:
         scales = torch.ones((layers, ng, n), device=DEV)
         szeros = torch.full((layers, ng, n), float(2 ** (bits - 1)), device=DEV)
@@ -171,7 +209,7 @@ def rand_stacked(gen, layers, k, n, bits, integer):
         zeros = torch.randint(0, 2**bits, (layers, ng, n), device=DEV, generator=gen).float()
         szeros = (scales * zeros).bfloat16().float()
     return PackedLinear(qweight=qw, scales=scales, szeros=szeros, bias=None, bits=bits,
-                        group_size=GROUP, in_features=k, out_features=n,
+                        group_size=group, in_features=k, out_features=n,
                         combo=make_scale_combo(scales, szeros))
 
 
@@ -331,8 +369,9 @@ def check_a8(gen, record):
     return worst
 
 
-def time_matmuls(gen, m, bw, detail):
-    """One layer's four packed matmuls at M rows, int2-g128. The kernel is
+def time_matmuls(gen, m, bw, detail, group=GROUP):
+    """One layer's four packed matmuls at M rows, int2 at `group` (128 for the
+    table's rows). The kernel is
     timed through its raw ctypes launcher (a few us of host time a call, so
     the card, not Python, sets the pace); `wrapper_ms` is the same work
     through `quant_matmul`. Weights cycle through enough stacked layers
@@ -348,18 +387,18 @@ def time_matmuls(gen, m, bw, detail):
     stream = torch.cuda.current_stream().cuda_stream
     plain_iters, plain_reps = (1, 2) if m >= PREFILL_M else (3, 3)
     for name, (k, n) in SHAPES.items():
-        layer_bytes = k * n * BITS / 8 + (k // GROUP) * n * 4
+        layer_bytes = k * n * BITS / 8 + (k // group) * n * 4
         layers = max(2, math.ceil(120e6 / layer_bytes))
-        p = rand_stacked(gen, layers, k, n, BITS, integer=False)
+        p = rand_stacked(gen, layers, k, n, BITS, integer=False, group=group)
         x = torch.randn((m, k), device=DEV, generator=gen).bfloat16()
         out = torch.empty((m, n), dtype=torch.bfloat16, device=DEV)
         if prefill:
-            xsum = qm.group_sums_scratch(m, k, torch.float32, DEV)
-            extra, plan = (xsum.data_ptr(),), (qm._tile_m(x, n),)
+            xsum = qm.group_sums_scratch(m, k, torch.float32, DEV, group)
+            extra, plan = (None, xsum.data_ptr()), (qm._tile_m(x, n),)
         else:
-            extra, plan = (), qm.a16_decode_plan(n, k // GROUP, qm._sm_count(0))
-        args = [(x.data_ptr(), p.qweight[i].data_ptr(), p.combo[i].data_ptr(), *extra,
-                 out.data_ptr(), m, k, n, BITS, GROUP, *plan, stream) for i in range(layers)]
+            extra, plan = (), qm.a16_decode_plan(n, k // qm.KERNEL_STEP, qm._sm_count(0))
+        args = [(x.data_ptr(), p.qweight[i].data_ptr(), p.combo[i].data_ptr(), None, *extra,
+                 out.data_ptr(), m, k, n, BITS, group, *plan, 0, stream) for i in range(layers)]
         _build.check(fn(*args[0]), "raw launch")
         ms = cuda_ms(lambda i: fn(*args[i % layers]), 50)
         wrapper = cuda_ms(lambda i: qm.quant_matmul(x, p, i % layers), 50)
@@ -370,7 +409,7 @@ def time_matmuls(gen, m, bw, detail):
         flops = 2.0 * m * k * n
         b, by = bound_ms(nbytes, flops)
         detail.append(dict(kernel="qmm_prefill" if prefill else "qmm_decode", shape=name, m=m,
-                           k=k, n=n, tile_m=plan[0] if prefill else None,
+                           k=k, n=n, group=group, tile_m=plan[0] if prefill else None,
                            cluster=None if prefill else plan[0],
                            warp_cols=None if prefill else plan[1], ms=ms,
                            wrapper_ms=wrapper, plain_ms=plain, library_ms=lib, bound_ms=b,
@@ -408,7 +447,7 @@ def time_attention(gen, bw, detail, per_layer: bool, starts=TABLE_STARTS):
     cluster = da.attention_plan(b, hkv, qm._sm_count(0))
     args = [(q.data_ptr(), k.data_ptr(), v.data_ptr(), None, None, kn.data_ptr(), vn.data_ptr(),
              st.data_ptr(), out.data_ptr(), 0, b, hkv, hq // hkv, t, d, t, 0,
-             1.0 / math.sqrt(d), cluster, stream) for k, v in caches]
+             1.0 / math.sqrt(d), cluster, 0, stream) for k, v in caches]
     _build.check(fn(*args[0]), "raw launch")
     ms = cuda_ms(lambda i: fn(*args[i % 2]), 50)
     wrapper = cuda_ms(entry, 50)
@@ -430,8 +469,8 @@ def time_attention(gen, bw, detail, per_layer: bool, starts=TABLE_STARTS):
     return rec
 
 
-def time_a8(gen, m, detail):
-    """B4: one layer's four A8 matmuls at M rows, int2-g128 repacked, as
+def time_a8(gen, m, detail, group=GROUP):
+    """B4: one layer's four A8 matmuls at M rows, int2 at `group` repacked, as
     `time_matmuls` times B1/B2 (raw launcher over >100 MB of stacked layers;
     the wrapper; the plain version and torch.matmul on a dequantized bf16
     weight on layer 0). Bytes count the f32 scales and szeros (8 bytes a
@@ -445,33 +484,34 @@ def time_a8(gen, m, detail):
     prefill = m > qm.DECODE_MAX_M
     plain_iters, plain_reps = (1, 2) if m >= PREFILL_M else (3, 3)
     for name, (k, n) in SHAPES.items():
-        layer_bytes = k * n * BITS / 8 + (k // GROUP) * n * 8
+        layer_bytes = k * n * BITS / 8 + (k // group) * n * 8
         layers = max(2, math.ceil(120e6 / layer_bytes))
-        pair = rand_stacked(gen, layers, k, n, BITS, integer=False)
+        pair = rand_stacked(gen, layers, k, n, BITS, integer=False, group=group)
         p = qm.repack_linear_a8(pair)
         x = torch.randn((m, k), device=DEV, generator=gen).bfloat16()
         xi = torch.empty((m, k), dtype=torch.int8, device=DEV)
         sx = torch.empty((m,), dtype=torch.float32, device=DEV)
-        xsum = qm.group_sums_scratch(m, k, torch.int32, DEV) if prefill else None
+        xsum = qm.group_sums_scratch(m, k, torch.int32, DEV, group) if prefill else None
         tile = qm._tile_m(x, n) if prefill else 0
-        cluster = 0 if prefill else qm.decode_plan(n, k // GROUP, qm._sm_count(0))
+        cluster = 0 if prefill else qm.decode_plan(n, k // qm.KERNEL_STEP, qm._sm_count(0))
         out = torch.empty((m, n), dtype=torch.bfloat16, device=DEV)
         args = [(x.data_ptr(), p.qweight[i].data_ptr(), p.scales[i].data_ptr(),
                  p.szeros[i].data_ptr(), None, None, xi.data_ptr(), sx.data_ptr(),
-                 None if xsum is None else xsum.data_ptr(), out.data_ptr(), m, k, n, BITS, GROUP,
-                 tile, cluster, stream) for i in range(layers)]
+                 None if xsum is None else xsum.data_ptr(), out.data_ptr(), m, k, n, BITS, group,
+                 tile, cluster, 0, stream) for i in range(layers)]
         _build.check(fn(*args[0]), "raw launch")
         ms = cuda_ms(lambda i: fn(*args[i % layers]), 50)
         wrapper = cuda_ms(lambda i: qm.quant_matmul_a8(x, p, i % layers), 50)
         lay = p.layer(0)
         plain = cuda_ms(lambda i: qm.quant_matmul_a8_plain(
-            x, lay.qweight, lay.scales, lay.szeros, BITS, GROUP, True), plain_iters, reps=plain_reps)
+            x, lay.qweight, lay.scales, lay.szeros, BITS, group, True), plain_iters, reps=plain_reps)
         w = dequantize_linear(pair.layer(0), torch.bfloat16)
         lib = cuda_ms(lambda i: torch.matmul(x, w), 20)
         nbytes = layer_bytes + m * k * 2 + m * n * 2
         flops = 2.0 * m * k * n
         b, by = bound_ms(nbytes, flops, PEAK_INT8_OPS)
-        detail.append(dict(kernel="qmm_a8", shape=name, m=m, k=k, n=n, tile_m=tile or None,
+        detail.append(dict(kernel="qmm_a8", shape=name, m=m, k=k, n=n, group=group,
+                           tile_m=tile or None,
                            cluster=cluster or None, ms=ms, wrapper_ms=wrapper,
                            plain_ms=plain, library_ms=lib, bound_ms=b, bound_by=by))
         for key, val in (("ms", ms), ("wrapper_ms", wrapper), ("plain_ms", plain),
@@ -524,8 +564,8 @@ def fused_mlp_phase(gen, detail):
     plan = fm.mlp_plan(k, f, d, qm._sm_count(0))
     args = [(x.data_ptr(), *[a[li].data_ptr() for p in (gate, up, down)
                              for a in (p.qweight, p.scales, p.szeros)],
-             mid.data_ptr(), msum.data_ptr(), out.data_ptr(), m, k, f, d, BITS, GROUP, 0, *plan,
-             stream) for li in range(L)]
+             None, None, mid.data_ptr(), msum.data_ptr(), out.data_ptr(), m, k, f, d, BITS, GROUP,
+             0, *plan, 0, stream) for li in range(L)]
     _build.check(fn(*args[0]), "raw launch")
     ms = cuda_ms(lambda i: fn(*args[i % L]), 64)
     wrapper = cuda_ms(lambda i: fm.fused_mlp(x, *lay(i % L)), 64)
@@ -645,7 +685,10 @@ COUNTERS = {  # name: (wrapper, its counter)
     "qmm_a8": (qm.qmm_a8, "launches"), "qmm_a8_prefill": (qm.qmm_a8, "prefill_launches"),
     "flash_decode": (da.flash_decode_stacked, "launches"),
     "flash_decode_attention": (fd1.flash_decode_attention, "launches"),
-    "fused_mlp": (fm.fused_mlp, "launches"), "stream_sum": (bw_probe.stream_sum, "launches")}
+    "fused_mlp": (fm.fused_mlp, "launches"), "stream_sum": (bw_probe.stream_sum, "launches"),
+    "train_attn_fwd": (ta.train_attn_fwd, "launches"),
+    "train_attn_bwd_dkv": (ta.train_attn_bwd_dkv, "launches"),
+    "train_attn_bwd_dq": (ta.train_attn_bwd_dq, "launches")}
 
 
 def reset_counts():
@@ -817,6 +860,429 @@ def end_to_end(bw, out, a16_counts=None):
     return counts
 
 
+# ---- C1: the packed kernels at every group size, f32 activations ----------------
+
+C1_GROUPS = (32, 64, -1)  # -1: per-channel, one group of K
+C1_M = (8, 256)
+C1_SQUARE_MLP = (4096, 4096, 4096)  # per-channel fused MLP: K = FFN = D
+
+
+def _ints(gen, m, k, dtype, top=None):
+    x = torch.randint(-3, 4, (m, k), device=DEV, generator=gen).float()
+    if top is not None:  # one 127 a row: the A8 per-token scale is 1
+        x[:, 0] = top
+    return x.to(dtype)
+
+
+def check_c1(gen, record):
+    """The cases C1 repaired, each through its kernel (launch counters) and
+    against its plain version: A16 decode and prefill and A8 (pair-layout
+    and repacked words) at g32, g64 and per-channel on the 7B o and down
+    shapes, M = 8 and 256, bf16 and f32 x, exact on integers; the fused MLP
+    at the same groups (7B widths; per-channel on a square MLP, K = FFN = D
+    = 4096, since the three layers share one group) within MLP_TOL, bf16 and
+    f32 x; decode attention at D = 256 and with f32 q within ATTN_TOL."""
+    for group in C1_GROUPS:
+        for name in ("o", "down"):
+            k, n = SHAPES[name]
+            p = rand_stacked(gen, 2, k, n, BITS, integer=True, group=group)
+            p8 = qm.repack_linear_a8(p)
+            for m in C1_M:
+                for dtype in (torch.bfloat16, torch.float32):
+                    x = _ints(gen, m, k, dtype)
+                    reset_counts()
+                    got = qm.quant_matmul(x, p, 1)
+                    counts = read_counts()
+                    key = "qmm_decode" if m <= qm.DECODE_MAX_M else "qmm_prefill"
+                    want = plain_matmul(x, p, 1)
+                    ok = counts[key] == 1 and got.dtype == dtype and torch.equal(got, want)
+                    record.append(dict(kernel=key, group=p.group_size, shape=name, m=m,
+                                       dtype=str(dtype), ok=ok))
+                    if not ok:
+                        raise AssertionError(f"C1 A16 g{p.group_size} {name} M={m} {dtype}: "
+                                             f"counts {counts}, exact {torch.equal(got, want)}")
+                    x8 = _ints(gen, m, k, dtype, top=127.0)
+                    for w in (p, p8):
+                        reset_counts()
+                        got = qm.quant_matmul_a8(x8, w, 1)
+                        counts = read_counts()
+                        lay = w.layer(1)
+                        want = qm.quant_matmul_a8_plain(x8, lay.qweight, lay.scales, lay.szeros,
+                                                        BITS, lay.group_size, w.a8_order)
+                        ok = counts["qmm_a8"] == 1 and torch.equal(got, want)
+                        record.append(dict(kernel="qmm_a8", group=p.group_size, shape=name, m=m,
+                                           dtype=str(dtype), a8_order=w.a8_order, ok=ok))
+                        if not ok:
+                            raise AssertionError(f"C1 A8 g{p.group_size} {name} M={m} {dtype} "
+                                                 f"a8_order={w.a8_order}: counts {counts}")
+            del p, p8
+    for group in C1_GROUPS:
+        k, f, d = MLP if group > 0 else C1_SQUARE_MLP
+        g, u, dn = (rand_stacked(gen, 1, a, b, BITS, False, group=group).layer(0)
+                    for a, b in ((k, f), (k, f), (f, d)))
+        for m in (8, 33, 256):  # the kernel runs M > 32 in chunks of 32 token rows
+            for dtype in (torch.bfloat16, torch.float32):
+                x = torch.randn((m, k), device=DEV, generator=gen).to(dtype)
+                reset_counts()
+                got = fm.fused_mlp(x, g, u, dn, block_f=f)
+                counts = read_counts()
+                want = fm.fused_mlp_plain(x, g, u, dn, block_f=f)
+                err = (got.float() - want.float()).abs().max().item()
+                scale = want.float().abs().max().item()
+                ok = counts["fused_mlp"] == 1 and got.dtype == dtype and err <= MLP_TOL * scale
+                record.append(dict(kernel="fused_mlp", group=g.group_size, m=m, dtype=str(dtype),
+                                   max_abs_err=err, ref_max=scale, ok=ok))
+                if not ok:
+                    raise AssertionError(f"C1 fused MLP g{g.group_size} M={m} {dtype}: "
+                                         f"err {err} of {scale}, counts {counts}")
+    for hq, hkv, d, qdt in ((8, 8, 256, torch.bfloat16), (32, 4, 256, torch.bfloat16),
+                            (32, 4, 256, torch.float32), (32, 32, 128, torch.float32),
+                            (32, 4, 64, torch.float32)):
+        q, ck, cv, kn, vn, st, _, _ = attn_inputs(gen, 8, hq, hkv, 1024, d, "bf16",
+                                                  mixed_starts(8, 1023))
+        q, kn, vn = q.to(qdt), kn.to(qdt), vn.to(qdt)
+        reset_counts()
+        got = da.flash_decode_stacked(q, ck, cv, 1, kn, vn, st)
+        counts = read_counts()
+        want = da.decode_attention_plain(q, ck, cv, 1, kn, vn, st)
+        err = (got.float() - want.float()).abs().max().item()
+        ok = counts["flash_decode"] == 1 and got.dtype == qdt and err <= ATTN_TOL
+        record.append(dict(kernel="flash_decode", hq=hq, hkv=hkv, d=d, q_dtype=str(qdt),
+                           max_abs_err=err, ok=ok))
+        if not ok:
+            raise AssertionError(f"C1 decode attention D={d} {qdt}: err {err}, counts {counts}")
+    return len(record)
+
+
+# ---- B8: the training flash attention --------------------------------------------
+
+TRAIN_ATTN_TOL = 2e-2  # bf16: p and ds enter their products in bf16, the plain version f32
+TRAIN_ATTN_TOL_F32 = 1e-4
+TA_CASES = {  # name: (B, S, Hq, Hkv, D, padded row length or None, dtype)
+    "tinyllama": (2, 1024, 32, 4, 64, 900, torch.bfloat16),
+    "llama2_7b": (1, 2048, 32, 32, 128, None, torch.bfloat16),
+    "ragged": (2, 1000, 8, 2, 64, 700, torch.bfloat16),
+    "f32": (1, 300, 8, 2, 64, 250, torch.float32),
+}
+
+
+def _ta_inputs(gen, b, s, hq, hkv, d, pad, dtype):
+    q = torch.randn((b, s, hq, d), device=DEV, generator=gen).to(dtype)
+    k = torch.randn((b, s, hkv, d), device=DEV, generator=gen).to(dtype)
+    v = torch.randn((b, s, hkv, d), device=DEV, generator=gen).to(dtype)
+    do = torch.randn((b, s, hq, d), device=DEV, generator=gen).to(dtype)
+    mask = None
+    if pad is not None:
+        mask = torch.ones((b, s), dtype=torch.int32, device=DEV)
+        mask[0, pad:] = 0
+    return q, k, v, do, mask
+
+
+def _ta_run(fn, q, k, v, do, mask):
+    q, k, v = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    out = fn(q, k, v, mask)
+    out.backward(do)
+    return out.detach(), q.grad, k.grad, v.grad
+
+
+def train_attention_phase(gen, record):
+    """B8's forward and its three gradients against
+    flash_train_attention_plain at TA_CASES (pad rows compared under the
+    mask: garbage in both), then its times at TinyLlama's and 7B's shapes:
+    the forward, dkv and dq kernels one by one through their wrappers, the
+    plain version's forward and forward+backward, and SDPA
+    (scaled_dot_product_attention(is_causal=True, enable_gqa=True), the
+    unpadded yardstick) forward and forward+backward. Bounds: causal
+    operations over PEAK_BF16_FLOPS, B*Hq*S^2*D flops a product of half the
+    score matrix: 2 products forward, 4 in dkv (the s recompute, dp, dv,
+    dk), 3 in dq (s, dp, dq)."""
+    worst = {}
+    for name, case in TA_CASES.items():
+        q, k, v, do, mask = _ta_inputs(gen, *case)
+        got = _ta_run(ta.flash_train_attention, q, k, v, do, mask)
+        want = _ta_run(ta.flash_train_attention_plain, q, k, v, do, mask)
+        tol = TRAIN_ATTN_TOL_F32 if case[-1] == torch.float32 else TRAIN_ATTN_TOL
+        errs = {}
+        for tname, g, w in zip(("out", "dq", "dk", "dv"), got, want):
+            g, w = g.float(), w.float()
+            if mask is not None and tname in ("out", "dq"):
+                keep = mask.bool()[..., None, None]
+                g, w = g * keep, w * keep
+            errs[tname] = (g - w).abs().max().item() / w.abs().max().item()
+        ok = all(e <= tol for e in errs.values())
+        record.append(dict(case=name, shape=case[:6], dtype=str(case[-1]), rel_err=errs, tol=tol,
+                           ok=ok))
+        if not ok:
+            raise AssertionError(f"train attention {name}: relative errors {errs} (tol {tol})")
+        worst[name] = max(errs.values())
+        del q, k, v, do, got, want
+    times = {}
+    for name in ("tinyllama", "llama2_7b"):
+        b, s, hq, hkv, d, pad, dtype = TA_CASES[name]
+        q, k, v, do, mask = _ta_inputs(gen, b, s, hq, hkv, d, None, dtype)
+        seg = None
+        out, lse = ta.train_attn_fwd(q, k, v, seg)
+        di = (out.float() * do.float()).sum(-1).contiguous()
+        fwd = cuda_ms(lambda i: ta.train_attn_fwd(q, k, v, seg), 10)
+        dkv = cuda_ms(lambda i: ta.train_attn_bwd_dkv(q, k, v, seg, do, lse, di), 10)
+        dq = cuda_ms(lambda i: ta.train_attn_bwd_dq(q, k, v, seg, do, lse, di), 10)
+        fb = cuda_ms(lambda i: _ta_run(ta.flash_train_attention, q, k, v, do, None), 5)
+        plain_f = cuda_ms(lambda i: ta.flash_train_attention_plain(q, k, v), 2, reps=3)
+        plain_fb = cuda_ms(lambda i: _ta_run(ta.flash_train_attention_plain, q, k, v, do, None),
+                           2, reps=3)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        sdpa = lambda a, bb, c: torch.nn.functional.scaled_dot_product_attention(
+            a, bb, c, is_causal=True, enable_gqa=True)
+        lib_f = cuda_ms(lambda i: sdpa(qt, kt, vt), 10)
+
+        def lib_fb(i):
+            a, bb, c = (t.detach().requires_grad_(True) for t in (qt, kt, vt))
+            sdpa(a, bb, c).backward(do.transpose(1, 2))
+
+        lib_fb_ms = cuda_ms(lib_fb, 5)
+        unit = float(b) * hq * s * s * d  # flops of one causal product
+        times[name] = dict(
+            shape=(b, s, hq, hkv, d), fwd_ms=fwd, dkv_ms=dkv, dq_ms=dq, fwd_bwd_ms=fb,
+            plain_fwd_ms=plain_f, plain_fwd_bwd_ms=plain_fb, plain_bwd_ms=plain_fb - plain_f,
+            sdpa_fwd_ms=lib_f, sdpa_fwd_bwd_ms=lib_fb_ms, sdpa_bwd_ms=lib_fb_ms - lib_f,
+            fwd_bound_ms=2 * unit / PEAK_BF16_FLOPS * 1e3,
+            dkv_bound_ms=4 * unit / PEAK_BF16_FLOPS * 1e3,
+            dq_bound_ms=3 * unit / PEAK_BF16_FLOPS * 1e3)
+        del q, k, v, do, out, lse, di
+    return worst, times
+
+
+# ---- the training path: KD-QAT on TinyLlama-1.1B --------------------------------
+
+# The first micro-step through B8 against the plain attention, relative; about
+# 10x the largest readings of sound runs on the H100 (PERF.md): loss 2.1e-5,
+# global gradient norm 1.9e-4 (22 bf16 layers, bf16 p and ds against f32).
+TRAIN_LOSS_TOL = 5e-4
+TRAIN_GNORM_TOL = 2e-3
+# The gradient norms of the q, k and v projections of the first and the last
+# layer, which B8's backward kernels move directly: about 10x the largest
+# reading, 1.8e-3 (the last layer's k).
+TRAIN_ATTN_GRAD_TOL = 2e-2
+
+
+class ByteTok:
+    """Byte-level tokenizer (ids 3..252), as the JAX package's tests' FakeTok."""
+
+    eos_token = "</s>"
+    eos_token_id = 2
+    pad_token = "</s>"
+    pad_token_id = 0
+
+    def encode(self, s):
+        return [(ord(c) % 250) + 3 for c in s]
+
+    def decode(self, ids, **kw):
+        return "".join(chr((i - 3) % 26 + 97) for i in ids)
+
+
+def write_teacher_jsonl(path: Path, n: int = 10, seed: int = 0) -> None:
+    """n synthetic [[prompt, reply]] lines, from a seed: all but one longer
+    than 1024 tokens (a full 2 x 1024 micro-batch), one of 900 (a padded row)."""
+    rng = np.random.default_rng(seed)
+    words = ["alpha", "beta", "gamma", "delta", "kernel", "tensor", "group", "scale", "bits",
+             "teacher", "student", "quant", "cache", "token", "layer", "norm"]
+    with open(path, "w") as f:
+        for i in range(n):
+            length = 900 if i == 3 else 1400
+            text = " ".join(rng.choice(words, size=length // 4))
+            prompt, reply = text[: length // 3], text[length // 3: length - 4]
+            f.write(json.dumps([[f"Q{i}: {prompt}", f" A: {reply}"]]) + "\n")
+
+
+def train_args(data, out, **kw):
+    """The JAX package's `train` CLI namespace for the smoke's run."""
+    base = dict(
+        model_name_or_path="(injected)", data_path=str(data), output_dir=str(out), bits=2,
+        q_group_size=64, quant_type="int2-asym", clip=None, train_kd=True,
+        kd_loss_type="cakld", cakld_steps=2, learning_rate=8e-6, num_train_epochs=1,
+        per_device_train_batch_size=2, gradient_accumulation_steps=2, model_max_length=1024,
+        max_train_samples=None, lr_scheduler_type="constant", warmup_ratio=0.0, save_steps=0,
+        eval_steps=0, logging_steps=1, seed=0, dp=None, tp=1, resume=False,
+        param_dtype="bfloat16", remat_policy="full", teacher_flash=True, device=DEV)
+    base.update(kw)
+    return types.SimpleNamespace(**base)
+
+
+def first_step_check(params, cfg, data, rec):
+    """The first micro-step's loss, global gradient norm and the gradient
+    norms of the first and the last layer's q, k and v projections through B8
+    (student and teacher flash) against the same step with the plain
+    attention (flash off), from the same latents; no optimizer state is made.
+    Then one flash micro-step (forward and backward, no optimizer) under
+    torch.profiler: where its device time goes."""
+    from bitdistiller_tpu_torch.train.data import Collator, SupervisedDataset, data_loader
+
+    ds = SupervisedDataset.from_jsonl(str(data), ByteTok.eos_token, None, "train", 0)
+    batch = tr.to_device(next(data_loader(ds, Collator(ByteTok(), 1024), 2, shuffle=True,
+                                          seed=0)), DEV)
+    last = cfg.num_layers - 1
+    proj = [(li, name) for li in (0, last) for name in ("q", "k", "v")]
+
+    def micro_step(flash):
+        os.environ["BITDISTILLER_TRAIN_FLASH"] = "1" if flash else "0"
+        tc = tr.TrainConfig(q_group_size=64, teacher_flash=flash)
+        latent = tr._with_grad(tr.tree_map(lambda x: x.detach().clone(), params))
+        loss = tr._kd_or_ce_loss(cfg, tc, latent, batch, 0.5, params,
+                                 quantizer=tr.make_quantizer(tc), student_remat="full")
+        return loss, tr._grads(loss, latent)
+
+    out = {}
+    for flash in (True, False):
+        loss, grads = micro_step(flash)
+        attn = {f"{name}{li}": grads["layers"][name]["w"][li].float().norm().item()
+                for li, name in proj}
+        out[flash] = (loss.item(), tr.global_norm(tr.tree_leaves(grads)).item(), attn)
+        del grads, loss
+        torch.cuda.empty_cache()
+    (lf, gf, af), (lp, gp, ap) = out[True], out[False]
+    attn_err = {k: abs(af[k] - ap[k]) / ap[k] for k in af}
+    rec.update(first_step=dict(flash_loss=lf, plain_loss=lp, flash_grad_norm=gf,
+                               plain_grad_norm=gp, flash_attn_grad_norms=af,
+                               plain_attn_grad_norms=ap, attn_grad_rel_err=attn_err,
+                               loss_rel_err=abs(lf - lp) / abs(lp),
+                               grad_norm_rel_err=abs(gf - gp) / gp,
+                               tokens=int(batch["attention_mask"].sum())))
+    worst = max(attn_err, key=attn_err.get)
+    say(f"train first micro-step: loss {lf:.5f} (B8) vs {lp:.5f} (plain attention), grad norm "
+        f"{gf:.5f} vs {gp:.5f}; q/k/v grad norms of layers 0 and {last}: worst {worst} "
+        f"{af[worst]:.5f} vs {ap[worst]:.5f} ({attn_err[worst]:.3g}); tol {TRAIN_LOSS_TOL} / "
+        f"{TRAIN_GNORM_TOL} / {TRAIN_ATTN_GRAD_TOL} relative")
+    if not (abs(lf - lp) <= TRAIN_LOSS_TOL * abs(lp) and abs(gf - gp) <= TRAIN_GNORM_TOL * gp
+            and attn_err[worst] <= TRAIN_ATTN_GRAD_TOL):
+        raise AssertionError("the first micro-step through B8 disagrees with the plain attention")
+    busy = device_busy_ms(lambda i: micro_step(True), 1)
+    os.environ.pop("BITDISTILLER_TRAIN_FLASH", None)
+    torch.cuda.empty_cache()
+    return busy
+
+
+def train_phase(rec):
+    """run_training at the full width and depth of TinyLlama-1.1B (random
+    bf16 weights from seed 0): int2-asym STE at g64, CAKLD with beta from
+    estimate_cakld_beta, micro-batch 2 x 1024, grad_accum 2, two optimizer
+    cycles, student and teacher through B8 (BITDISTILLER_TRAIN_FLASH=1 and
+    teacher_flash, for this phase only), remat "full". The counts are reset
+    just before run_training and read just after. Each cycle's wall time
+    comes from the run's own metrics.jsonl (a micro-step's loss is read back
+    before the next starts, so its seconds_per_step ends on a synchronised
+    step); the second cycle, past the first launches, gives ms a cycle and
+    tokens/s. Returns the final state and the config."""
+    cfg = TINYLLAMA_1B
+    params = init_params(cfg, seed=0, dtype=torch.bfloat16, device=DEV)
+    tmp = Path(tempfile.mkdtemp(prefix="bd_train_"))
+    saved = os.environ.get("BITDISTILLER_TRAIN_FLASH")
+    try:
+        data = tmp / "teacher.jsonl"
+        write_teacher_jsonl(data)
+        busy = first_step_check(params, cfg, data, rec)
+        os.environ["BITDISTILLER_TRAIN_FLASH"] = "1"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.time()
+        summary = run_training(train_args(data, tmp / "out"), tokenizer=ByteTok(),
+                               model=(params, cfg))
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        metrics = [json.loads(line) for line in open(tmp / "out" / "metrics.jsonl")]
+    finally:
+        if saved is None:
+            os.environ.pop("BITDISTILLER_TRAIN_FLASH", None)
+        else:
+            os.environ["BITDISTILLER_TRAIN_FLASH"] = saved
+        shutil.rmtree(tmp, ignore_errors=True)
+    losses = [m["loss"] for m in metrics]
+    if len(losses) != 4 or not all(math.isfinite(x) for x in losses) or summary["steps"] != 4:
+        raise AssertionError(f"training: {summary['steps']} micro-steps, losses {losses}")
+    need = ("train_attn_fwd", "train_attn_bwd_dkv", "train_attn_bwd_dq")
+    if not all(counts[k] > 0 for k in need):
+        raise AssertionError(f"training did not run through B8's kernels: {counts}")
+    ends = [m["step"] * m["seconds_per_step"] for m in metrics]  # since the loop began
+    micro_ms = [(b - a) * 1e3 for a, b in zip([0.0] + ends, ends)]
+    cycle_ms = [micro_ms[0] + micro_ms[1], micro_ms[2] + micro_ms[3]]
+    tokens = 2 * 2 * 1024  # a cycle: grad_accum 2 x micro-batch 2 x 1024 positions
+    rec.update(config="TINYLLAMA_1B", layers=cfg.num_layers, micro_batch=[2, 1024],
+               grad_accum=2, cycles=2, beta=summary["beta"], losses=losses,
+               grad_norms=[m["grad_norm"] for m in metrics], launches=counts, wall_s=wall,
+               micro_step_ms=micro_ms, cycle_ms=cycle_ms,
+               tokens_per_s=tokens / cycle_ms[1] * 1e3, max_memory_allocated=peak,
+               profile=busy)
+    say(f"train TinyLlama-1.1B ({cfg.num_layers} layers, int2-asym g64 STE, CAKLD beta "
+        f"{summary['beta']:.4f}): losses {[round(x, 4) for x in losses]}, launches "
+        f"{ {k: counts[k] for k in need} }, run {wall:.1f} s; micro-steps "
+        f"{[round(x, 1) for x in micro_ms]} ms, cycles {[round(x, 1) for x in cycle_ms]} ms; "
+        f"the second cycle (2 x 2 x 1024 positions) -> {tokens / cycle_ms[1] * 1e3:.0f} "
+        f"tokens/s; peak memory {peak / 2**30:.2f} GiB")
+    if busy is not None:
+        say(f"profiler train: device busy {busy['busy_ms']:.1f} ms in one flash micro-step "
+            f"(forward and backward, no optimizer; the run's second cycle took "
+            f"{micro_ms[2]:.1f} + {micro_ms[3]:.1f} ms); top: "
+            + ", ".join(f"{k} {v:.2f} ms" for k, v in busy["top"]))
+    master = tr.master_params(summary["state"])
+    del params, summary
+    return master, cfg
+
+
+def serve_trained_phase(master, cfg, rec):
+    """pack_model the trained student's f32 master at int2-g64, serve 4
+    prompts through the Engine on the kernels (counts reset before, read
+    after: the g64 prefill and decode go through B1 and B2), then hold one
+    decode step's logits against use_kernels=False on the same cache."""
+    packed = pack_model(master, cfg, bits=2, group_size=64)
+    packed = {k: (v.to(torch.bfloat16) if isinstance(v, torch.Tensor) else v)
+              for k, v in packed.items()}
+    packed["layers"] = {k: (v.to(torch.bfloat16) if isinstance(v, torch.Tensor) else v)
+                        for k, v in packed["layers"].items()}
+    if "lm_head" in packed:
+        packed["lm_head"] = {"w": packed["lm_head"]["w"].to(torch.bfloat16)}
+    del master
+    torch.cuda.empty_cache()
+    eng = Engine(packed, cfg, max_slots=4, max_len=512, eos_token_id=None,
+                 sampling=SamplingParams(temperature=0.0), device=DEV)
+    rng = np.random.default_rng(1)
+    reqs = [Request(prompt_tokens=rng.integers(3, 253, n).tolist(), max_new_tokens=16)
+            for n in (40, 120, 64, 200)]
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.time()
+    done = eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = read_counts()
+    if len(done) != 4 or not all(r.finished and len(r.output_tokens) == 16 for r in reqs):
+        raise AssertionError("serve_trained: not every request finished with 16 tokens")
+    if counts["qmm_decode"] < 1 or counts["qmm_prefill"] < 1 or counts["flash_decode"] < 1:
+        raise AssertionError(f"serve_trained: g64 decode/prefill not through the kernels: {counts}")
+    pos = torch.as_tensor(np.minimum(eng.lengths, 480), dtype=torch.int32, device=DEV)
+    tok = torch.randint(3, 253, (4, 1), device=DEV)
+    ref = dict(packed, layers=dict(packed["layers"]))
+    for name, leaf in packed["layers"].items():
+        if isinstance(leaf, PackedLinear):
+            s, sz = scales_from_combo(leaf.combo)
+            ref["layers"][name] = dataclasses.replace(leaf, scales=s, szeros=sz)
+    with torch.inference_mode():
+        lk, _ = forward(packed, cfg, tok, cache=eng.cache, cache_pos=pos + 4)
+        lp, _ = forward(ref, cfg, tok, cache=eng.cache, cache_pos=pos + 4, use_kernels=False)
+    err = (lk - lp).abs().max().item()
+    scale = lp.abs().max().item()
+    rec.update(requests=4, group_size=64, launches=counts, wall_s=wall,
+               logit_max_abs_err=err, logit_max=scale)
+    say(f"serve_trained: 4 requests on the packed int2-g64 student, launches "
+        f"{ {k: v for k, v in counts.items() if v} }, {wall:.2f} s; decode step vs plain "
+        f"max|dlogit| {err:.4g} of {scale:.4g} (tol {LOGIT_TOL} relative)")
+    if not (torch.isfinite(lk).all() and err <= LOGIT_TOL * scale):
+        raise AssertionError("serve_trained: decode logits disagree with the plain path")
+    del eng, packed, ref
+    return counts
+
+
 def kernel_entry(name, src, replaces, launches, err, t, work, **extra):
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     return dict(name=name, route="cuda", source=f"bitdistiller_tpu_torch/csrc/{src}",
@@ -921,6 +1387,39 @@ def main() -> int:
         summary["e2e_a8"] = {}
         counts_a8 = end_to_end(bw, summary["e2e_a8"], a16_counts=counts)
 
+    with Phase("c1"):
+        summary["c1_checks"] = []
+        n_c1 = check_c1(gen, summary["c1_checks"])
+        summary["c1_times"] = []
+        dec64 = totals_entry(time_matmuls(gen, 8, bw, summary["c1_times"], group=64), bw)
+        pre64 = totals_entry(time_matmuls(gen, 256, bw, summary["c1_times"], group=64), bw)
+        a8_64 = totals_entry(time_a8(gen, 8, summary["c1_times"], group=64), bw, PEAK_INT8_OPS)
+        say(f"C1: {n_c1} cases through their kernels (A16, A8, fused MLP at g32, g64, "
+            f"per-channel, bf16 and f32 x; decode attention at D = 256 and f32 q); g64 at the "
+            f"table's work: qmm_decode M=8 {dec64['ms']:.4f} ms, qmm_prefill M=256 "
+            f"{pre64['ms']:.4f} ms, qmm_a8 M=8 {a8_64['ms']:.4f} ms")
+
+    with Phase("train_attention"):
+        summary["train_attention_checks"] = []
+        ta_err, ta_times = train_attention_phase(gen, summary["train_attention_checks"])
+        summary["train_attention_times"] = ta_times
+        for name, t in ta_times.items():
+            say(f"train attention {name} {t['shape']}: fwd {t['fwd_ms']:.3f} ms (bound "
+                f"{t['fwd_bound_ms']:.3f}, plain {t['plain_fwd_ms']:.3f}, SDPA "
+                f"{t['sdpa_fwd_ms']:.3f}); dkv {t['dkv_ms']:.3f} (bound {t['dkv_bound_ms']:.3f}), "
+                f"dq {t['dq_ms']:.3f} (bound {t['dq_bound_ms']:.3f}); fwd+bwd {t['fwd_bwd_ms']:.3f} "
+                f"(plain {t['plain_fwd_bwd_ms']:.3f}, SDPA {t['sdpa_fwd_bwd_ms']:.3f})")
+        say(f"train attention checks: worst relative error {ta_err}")
+
+    with Phase("train"):
+        summary["train"] = {}
+        master, tcfg = train_phase(summary["train"])
+
+    with Phase("serve_trained"):
+        summary["serve_trained"] = {}
+        serve_trained_phase(master, tcfg, summary["serve_trained"])
+        del master
+
     dec, pre, pre4k = totals_entry(dec, bw), totals_entry(pre, bw), totals_entry(pre4k, bw)
     a8_dec = totals_entry(a8_dec, bw, PEAK_INT8_OPS)
     a8_pre = totals_entry(a8_pre, bw, PEAK_INT8_OPS)
@@ -932,12 +1431,13 @@ def main() -> int:
                      "one layer's qkv+o+gate_up+down, M=8, int2-g128, 7B widths, streaming "
                      "kernel on clusters; max_abs_err relative to max|plain|; launches from the "
                      "A16 engine run",
-                     bound_measured_bw_ms=dec["bound_measured_bw_ms"]),
+                     bound_measured_bw_ms=dec["bound_measured_bw_ms"], g64=times(dec64)),
         kernel_entry("qmm_prefill", "quant_matmul.cu", "bitdistiller_tpu/ops/quant_matmul.py:107",
                      counts["qmm_prefill"], mm_rel, pre,
                      "the same four, M=256 (x group sums + wgmma kernel; m4096: the engine's "
                      "first prefill shape); launches from the A16 engine run",
-                     bound_measured_bw_ms=pre["bound_measured_bw_ms"], m4096=times(pre4k)),
+                     bound_measured_bw_ms=pre["bound_measured_bw_ms"], m4096=times(pre4k),
+                     g64=times(pre64)),
         kernel_entry("flash_decode", "decode_attention.cu",
                      "bitdistiller_tpu/ops/decode_attention.py:106", counts["flash_decode"],
                      at_err["stacked"], att,
@@ -953,7 +1453,7 @@ def main() -> int:
                      "launches from the A8 engine run (every packed matmul, prefill and decode)",
                      bound_measured_bw_ms=a8_dec["bound_measured_bw_ms"],
                      m256=times(a8_pre), m4096=times(a8_pre4k),
-                     prefill_launches=counts_a8["qmm_a8_prefill"]),
+                     prefill_launches=counts_a8["qmm_a8_prefill"], g64=times(a8_64)),
         kernel_entry("fused_mlp", "fused_mlp.cu", "bitdistiller_tpu/experimental/fused_mlp.py:57",
                      mlp["launches"], mlp["max_abs_err"], mlp,
                      "7B MLP (K=4096, FFN=11008, D=4096), M=8, int2-g128, silu, two launches "
@@ -974,6 +1474,31 @@ def main() -> int:
                      "launches from its path, the probe's timing run",
                      bound_measured_bw_ms=probe["bytes"] / bw * 1e3),
     ]
+    tl, t7 = ta_times["tinyllama"], ta_times["llama2_7b"]
+    ta_err_max = max(ta_err.values())
+    b8 = lambda kind, t, plain, lib: dict(ms=t[f"{kind}_ms"], plain_ms=t[plain],
+                                          bound_ms=t[f"{kind}_bound_ms"], bound_by="operations",
+                                          library_ms=t[lib])
+    b8_work = ("TinyLlama-1.1B attention, B=2, S=1024, Hq=32, Hkv=4, D=64, bf16, causal "
+               "(llama2_7b: B=1, S=2048, Hq=Hkv=32, D=128); max_abs_err is the worst "
+               "relative error over the forward and the three gradients of the checked cases; "
+               "launches from the train phase (4 micro-steps of run_training)")
+    for kind, name, line, plain, lib in (
+            ("fwd", "train_attn_fwd", ":758 (_flash_attention_kernel :331)", "plain_fwd_ms",
+             "sdpa_fwd_ms"),
+            ("dkv", "train_attn_bwd_dkv", ":1121 (_flash_attention_dkv_kernel :796)",
+             "plain_bwd_ms", "sdpa_bwd_ms"),
+            ("dq", "train_attn_bwd_dq", ":1456 (_flash_attention_dq_kernel :1146)",
+             "plain_bwd_ms", "sdpa_bwd_ms")):
+        kernels.append(dict(
+            name=name, route="cuda", source="bitdistiller_tpu_torch/csrc/train_attention.cu",
+            replaces="jax/experimental/pallas/ops/tpu/flash_attention.py" + line
+            + ", reached from bitdistiller_tpu/models/layers.py:341",
+            launches=summary["train"]["launches"][name], max_abs_err=ta_err_max,
+            **b8(kind, tl, plain, lib), work=b8_work
+            + ("; plain_ms and library_ms are the whole backward (dq, dk, dv together)"
+               if kind != "fwd" else ""),
+            llama2_7b=b8(kind, t7, plain, lib)))
     summary["kernels"] = kernels
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(summary, indent=1))

@@ -14,7 +14,7 @@ def test_model_config_fields_equal():
     assert tf == jf
 
 
-@pytest.mark.parametrize("name", ["TINY_TEST", "LLAMA2_7B"])
+@pytest.mark.parametrize("name", ["TINY_TEST", "TINYLLAMA_1B", "LLAMA2_7B"])
 def test_presets_field_equal(name):
     j = getattr(jax_config, name)
     t = getattr(torch_config, name)

@@ -1,0 +1,255 @@
+"""The training-path kernels on the card: B8's causal flash attention
+(forward, dkv, dq) against `flash_train_attention_plain`, and the packed
+kernels at the cases the C1 repair added (group sizes 32, 64 and
+per-channel, f32 activations, decode attention at D = 256 and with f32 q)
+against their plain versions. Marked `gpu`; each test skips without a CUDA
+device. On the card:
+
+    python -m pytest -m gpu tests/test_torch_gpu_train.py
+
+Tolerances: B8 in bf16, outputs and gradients within 2e-2 of max|plain| per
+tensor (p and ds enter their products rounded to bf16, the plain version
+keeps f32; one bf16 ulp is 2^-8 relative); B8 in f32 within 1e-4 of
+max|plain| (f32 sums in another order). Packed matmuls with integer-valued
+inputs: exact (every partial sum is an integer below 2^24 in f32), f32 x
+included (the kernels round x to bf16, which keeps small integers exact);
+f32 x with random values within 1e-2 of max|plain| (x rounded to bf16 in the
+kernel, f32 in the plain version). Decode attention within 2e-2 (as the
+existing bf16 cases)."""
+
+import pytest
+import torch
+
+from bitdistiller_tpu_torch.experimental.fused_mlp import fused_mlp, fused_mlp_plain
+from bitdistiller_tpu_torch.ops import decode_attention as da
+from bitdistiller_tpu_torch.ops import quant_matmul as qm
+from bitdistiller_tpu_torch.ops import train_attention as ta
+from bitdistiller_tpu_torch.quant.packing import PackedLinear, make_scale_combo, scales_from_combo
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: run on the card with pytest -m gpu")
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+def _attention_case(gen, b, s, hq, hkv, d, dtype, pad_to=None):
+    q = torch.randn((b, s, hq, d), device="cuda", generator=gen).to(dtype)
+    k = torch.randn((b, s, hkv, d), device="cuda", generator=gen).to(dtype)
+    v = torch.randn((b, s, hkv, d), device="cuda", generator=gen).to(dtype)
+    do = torch.randn((b, s, hq, d), device="cuda", generator=gen).to(dtype)
+    mask = None
+    if pad_to is not None:
+        mask = torch.ones((b, s), dtype=torch.int32, device="cuda")
+        mask[0, pad_to:] = 0
+    return q, k, v, do, mask
+
+
+def _fwd_bwd(fn, q, k, v, do, mask):
+    q, k, v = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    out = fn(q, k, v, mask)
+    out.backward(do)
+    return out.detach(), q.grad, k.grad, v.grad
+
+
+def _rel(got, want, mask=None):
+    got, want = got.float(), want.float()
+    if mask is not None:  # pad rows' outputs are garbage in both: compare real rows
+        keep = mask.bool()[..., None, None]
+        got, want = got * keep, want * keep
+    return ((got - want).abs().max() / want.abs().max().clamp_min(1e-6)).item()
+
+
+@pytest.mark.parametrize("b,s,hq,hkv,d,pad_to", [
+    (1, 64, 2, 2, 64, None),     # one tile
+    (2, 200, 4, 2, 64, 150),     # ragged S, GQA rep 2, a padded row
+    (1, 130, 8, 1, 128, None),   # MQA, rep 8, D = 128
+    (1, 96, 2, 2, 80, None),     # D not a power of two
+    (1, 70, 4, 4, 256, 33),      # D = 256 (the two-pass dkv)
+])
+def test_train_attention_bf16_matches_plain(gen, b, s, hq, hkv, d, pad_to):
+    q, k, v, do, mask = _attention_case(gen, b, s, hq, hkv, d, torch.bfloat16, pad_to)
+    launches = (ta.train_attn_fwd.launches, ta.train_attn_bwd_dkv.launches,
+                ta.train_attn_bwd_dq.launches)
+    got = _fwd_bwd(ta.flash_train_attention, q, k, v, do, mask)
+    want = _fwd_bwd(ta.flash_train_attention_plain, q, k, v, do, mask)
+    assert (ta.train_attn_fwd.launches, ta.train_attn_bwd_dkv.launches,
+            ta.train_attn_bwd_dq.launches) == tuple(n + 1 for n in launches)
+    # the output and dq of real rows; dk/dv sum over real query rows only
+    assert _rel(got[0], want[0], mask) < 2e-2
+    assert _rel(got[1], want[1], mask) < 2e-2
+    assert _rel(got[2], want[2]) < 2e-2
+    assert _rel(got[3], want[3]) < 2e-2
+
+
+@pytest.mark.parametrize("d", [32, 144])
+def test_train_attention_f32_matches_plain(gen, d):
+    q, k, v, do, mask = _attention_case(gen, 2, 75, 4, 2, d, torch.float32, pad_to=60)
+    got = _fwd_bwd(ta.flash_train_attention, q, k, v, do, mask)
+    want = _fwd_bwd(ta.flash_train_attention_plain, q, k, v, do, mask)
+    assert _rel(got[0], want[0], mask) < 1e-4
+    assert _rel(got[1], want[1], mask) < 1e-4
+    assert _rel(got[2], want[2]) < 1e-4
+    assert _rel(got[3], want[3]) < 1e-4
+
+
+def test_train_attention_is_deterministic(gen):
+    q, k, v, do, mask = _attention_case(gen, 1, 300, 8, 2, 64, torch.bfloat16, pad_to=280)
+    a = _fwd_bwd(ta.flash_train_attention, q, k, v, do, mask)
+    c = _fwd_bwd(ta.flash_train_attention, q, k, v, do, mask)
+    assert all(torch.equal(x, y) for x, y in zip(a, c))
+
+
+def test_train_attention_under_checkpoint_relaunches_the_forward(gen):
+    q, k, v, do, mask = _attention_case(gen, 1, 64, 2, 2, 64, torch.bfloat16)
+    q.requires_grad_(True)
+    before = ta.train_attn_fwd.launches
+    out = torch.utils.checkpoint.checkpoint(
+        ta.flash_train_attention, q, k, v, mask, use_reentrant=False)
+    out.backward(do)
+    assert ta.train_attn_fwd.launches == before + 2
+
+
+# ---- C1: the packed kernels at every group size, f32 activations ---------------
+
+C1_GROUPS = [32, 64, 256, -1]  # -1: one group of K (per-channel)
+
+
+def _packed_g(gen, k, n, bits, group, layers=2, integer=True):
+    g = k if group < 1 else group
+    qw = torch.randint(-(2**31), 2**31 - 1, (layers, k * bits // 32, n), dtype=torch.int32,
+                       device="cuda", generator=gen)
+    if integer:
+        scales = torch.ones((layers, k // g, n), device="cuda")
+        szeros = torch.randint(0, 2**bits, (layers, k // g, n), device="cuda",
+                               generator=gen).float()
+    else:
+        scales = (torch.rand((layers, k // g, n), device="cuda", generator=gen) * 0.02
+                  + 0.005).bfloat16().float()
+        szeros = (scales * torch.randint(0, 2**bits, (layers, k // g, n), device="cuda",
+                                         generator=gen).float()).bfloat16().float()
+    return PackedLinear(qweight=qw, scales=scales, szeros=szeros, bias=None, bits=bits,
+                        group_size=g, in_features=k, out_features=n,
+                        combo=make_scale_combo(scales, szeros))
+
+
+def _xints(gen, m, k, dtype, top=None):
+    x = torch.randint(-4, 5, (m, k), device="cuda", generator=gen).float()
+    if top is not None:
+        x[:, 0] = top
+    return x.to(dtype)
+
+
+def _tile(monkeypatch, tile):
+    """Force the prefill kernels' tile height (None: a decode M, no tile)."""
+    if tile is not None:
+        monkeypatch.setattr(qm, "prefill_tile_m", lambda m_, n, sms: tile)
+
+
+# decode M (one, two, four token tiles) and prefill M on both tile heights
+A16_CASES = [(2, 8, None), (2, 12, None), (4, 8, None), (4, 17, None),
+             (2, 100, 64), (2, 100, 128), (4, 40, 64), (4, 40, 128)]
+A8_CASES = [(2, 8, None), (4, 12, None), (2, 100, 64), (2, 100, 128), (4, 40, 64),
+            (4, 40, 128)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("group", C1_GROUPS)
+@pytest.mark.parametrize("bits,m,tile", A16_CASES)
+def test_a16_kernels_exact_on_integers_at_every_group(gen, monkeypatch, bits, m, tile, group,
+                                                      dtype):
+    _tile(monkeypatch, tile)
+    k = 512
+    p = _packed_g(gen, k, 320, bits, group)
+    x = _xints(gen, m, k, dtype)
+    before = qm.qmm_decode.launches + qm.qmm_prefill.launches
+    got = qm.quant_matmul(x, p, 1)
+    lay = p.layer(1)
+    want = qm.quant_matmul_plain(x, lay.qweight, lay.scales, lay.szeros, bits, lay.group_size)
+    assert got.dtype == dtype
+    assert torch.equal(got, want)
+    assert qm.qmm_decode.launches + qm.qmm_prefill.launches == before + 1
+
+
+@pytest.mark.parametrize("repacked", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("group", C1_GROUPS)
+@pytest.mark.parametrize("bits,m,tile", A8_CASES)
+def test_a8_kernels_exact_on_integers_at_every_group(gen, monkeypatch, bits, m, tile, group,
+                                                     dtype, repacked):
+    _tile(monkeypatch, tile)
+    k = 512
+    p = _packed_g(gen, k, 320, bits, group)
+    if repacked:
+        p = qm.repack_linear_a8(p)
+    x = _xints(gen, m, k, dtype, top=127.0)  # one 127 a row: the per-token scale is 1
+    before = qm.qmm_a8.launches
+    got = qm.quant_matmul_a8(x, p, 1)
+    lay = p.layer(1)
+    want = qm.quant_matmul_a8_plain(x, lay.qweight, lay.scales, lay.szeros, bits,
+                                    lay.group_size, p.a8_order)
+    assert got.dtype == dtype
+    assert torch.equal(got, want)
+    assert qm.qmm_a8.launches == before + 1
+
+
+@pytest.mark.parametrize("group", C1_GROUPS)
+@pytest.mark.parametrize("m", [8, 100])
+def test_a16_kernels_close_on_random_f32_x(gen, m, group):
+    """f32 x is rounded to bf16 in the kernel, kept f32 by the plain version."""
+    p = _packed_g(gen, 512, 320, 2, group, integer=False)
+    x = torch.randn((m, 512), device="cuda", generator=gen)
+    got = qm.quant_matmul(x, p, 1)
+    lay = p.layer(1)
+    s, sz = scales_from_combo(lay.combo)
+    want = qm.quant_matmul_plain(x, lay.qweight, s, sz, 2, lay.group_size)
+    assert got.dtype == torch.float32
+    assert (got - want).abs().max().item() <= 1e-2 * want.abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("group", C1_GROUPS)
+@pytest.mark.parametrize("bits,m", [(2, 8), (4, 40)])
+def test_fused_mlp_kernel_matches_plain_at_every_group(gen, bits, m, group, dtype):
+    # the three layers share one group: per-channel takes a square MLP (K = FFN)
+    f = 512 if group > 0 else 256
+    g = _packed_g(gen, 256, f, bits, group, layers=1, integer=False).layer(0)
+    u = _packed_g(gen, 256, f, bits, group, layers=1, integer=False).layer(0)
+    d = _packed_g(gen, f, 200, bits, group, layers=1, integer=False).layer(0)
+    x = torch.randn((m, 256), device="cuda", generator=gen).to(dtype)
+    before = fused_mlp.launches
+    got = fused_mlp(x, g, u, d, "silu", block_f=f)
+    assert fused_mlp.launches == before + 1
+    want = fused_mlp_plain(x, g, u, d, "silu", block_f=f)
+    assert got.dtype == dtype
+    assert (got.float() - want.float()).abs().max().item() <= 1e-2 * want.float().abs().max().item()
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+@pytest.mark.parametrize("qdtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hq,hkv,d", [(4, 4, 256), (8, 2, 256), (16, 2, 256), (8, 1, 128)])
+def test_decode_attention_kernel_at_d256_and_f32_q(gen, hq, hkv, d, qdtype, kv):
+    b, t, layers = 3, 40, 2
+    q = torch.randn((b, 1, hq, d), device="cuda", generator=gen).to(qdtype)
+    kn = torch.randn((b, 1, hkv, d), device="cuda", generator=gen).to(qdtype)
+    vn = torch.randn((b, 1, hkv, d), device="cuda", generator=gen).to(qdtype)
+    shape = (layers, b, hkv, t, d)
+    if kv == "int8":
+        ck = torch.randint(-127, 128, shape, dtype=torch.int8, device="cuda", generator=gen)
+        cv = torch.randint(-127, 128, shape, dtype=torch.int8, device="cuda", generator=gen)
+        ks = torch.rand(shape[:-1], device="cuda", generator=gen) * 0.02
+        vs = torch.rand(shape[:-1], device="cuda", generator=gen) * 0.02
+    else:
+        ck = torch.randn(shape, device="cuda", generator=gen).bfloat16()
+        cv = torch.randn(shape, device="cuda", generator=gen).bfloat16()
+        ks = vs = None
+    start = torch.tensor([0, 17, 39], dtype=torch.int32, device="cuda")
+    before = da.flash_decode_stacked.launches
+    got = da.flash_decode_stacked(q, ck, cv, 1, kn, vn, start, k_scale=ks, v_scale=vs)
+    want = da.decode_attention_plain(q, ck, cv, 1, kn, vn, start, k_scale=ks, v_scale=vs)
+    assert da.flash_decode_stacked.launches == before + 1
+    assert got.dtype == qdtype
+    assert (got.float() - want.float()).abs().max().item() <= 2e-2

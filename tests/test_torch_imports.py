@@ -20,7 +20,9 @@ bad = sorted(m for m in sys.modules
              or m == "bitdistiller_tpu" or m.startswith("bitdistiller_tpu."))
 print(len(names), bad)
 assert len(names) >= 12, names
-for new in ("experimental.fused_mlp", "experimental.flash_decode", "scripts.bw_probe"):
+for new in ("experimental.fused_mlp", "experimental.flash_decode", "scripts.bw_probe",
+            "ops.train_attention", "quant.core", "quant.autoclip", "train.losses",
+            "train.trainer", "train.data", "train.memory", "train.pipeline"):
     assert "bitdistiller_tpu_torch." + new in names, names
 assert not bad, bad
 """
