@@ -1,8 +1,10 @@
 // Hopper (sm_90a) building blocks of the port's prefill kernels
-// (quant_matmul.cu, quant_matmul_a8.cu): 2-D tensor maps and TMA loads that
-// complete on a shared-memory mbarrier, the shared-memory matrix descriptor
-// of a 128-byte-swizzled K-major tile, and warpgroup MMA (wgmma) at the
-// widths the kernels use. Inline code only; including it adds no symbol.
+// (quant_matmul.cu, quant_matmul_a8.cu) and of B8's training attention
+// (train_attention.cu): 2-D and 4-D tensor maps and TMA loads that complete
+// on a shared-memory mbarrier, the shared-memory matrix descriptors of a
+// 128-byte-swizzled K-major tile and of an MN-major (transposed) one,
+// warpgroup MMA (wgmma) at the widths and operand sources the kernels use,
+// named and cluster barriers. Inline code only; including it adds no symbol.
 // The tensor-map encoder, cuTensorMapEncodeTiled, is looked up at run time
 // through the CUDA runtime, so nothing links libcuda.
 //
@@ -238,6 +240,125 @@ __device__ __forceinline__ void wgmma_s8(int (&d)[64], const uint32_t (&a)[4],
         "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
         "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// ---- B8's training attention (train_attention.cu) -----------------------------
+
+// Map of a [B, S, H, D] bf16 array as a 4-D tensor (D innermost), loaded in
+// boxes of `rows` rows of one (batch, head) by 64 columns, 128-byte
+// swizzled: box (c0, h, r0, b) holds rows r0 .. r0 + rows - 1 of head h of
+// batch b, columns c0 .. c0 + 63. Rows past S and columns past D are zeros,
+// so a box never reads another batch's rows or another head's columns.
+inline bool tensor_map_bshd(CUtensorMap* map, const void* base, uint64_t B, uint64_t S,
+                            uint64_t H, uint64_t D, uint32_t rows) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {D, H, S, B};
+  const cuuint64_t strides[3] = {D * 2, H * D * 2, S * H * D * 2};
+  const cuuint32_t box[4] = {64, 1, rows, 1};
+  const cuuint32_t steps[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
+            steps, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, int c3, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
+// one plain arrival (release: this thread's shared-memory writes before it
+// are visible to the threads that wait on the phase)
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// Descriptor of an MN-major (transposed) 128-byte-swizzled operand, as TMA
+// writes a box of 64 columns: K runs down the rows (128 bytes each), 8-row
+// atoms 1024 bytes apart (stride offset), the N dimension along the row;
+// `lbo` is the byte distance between 64-column blocks (leading offset),
+// read only by an instruction wider than 64 in N. A k-step of 16 rows adds
+// 2048 bytes to the start address.
+__device__ __forceinline__ uint64_t mn_desc(uint32_t saddr, uint32_t lbo) {
+  return static_cast<uint64_t>((saddr & 0x3FFFF) >> 4) | (uint64_t((lbo & 0x3FFFF) >> 4) << 16) |
+         (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
+}
+
+#define BD_D32                                                                                   \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                     \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define BD_O32(d)                                                                                \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),            \
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),    \
+      "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),              \
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),              \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+#define BD_W32(d)                                                                                \
+  "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]),            \
+      "=f"(d[7]), "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]),    \
+      "=f"(d[14]), "=f"(d[15]), "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]),              \
+      "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]), "=f"(d[24]), "=f"(d[25]),              \
+      "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31])
+
+// D (64 x 64, f32) (+)= A (64 x 16) * B (16 x 64), both bf16 in shared
+// memory, K-major, by descriptor; D layout as wgmma_bf16's. ACC false: D is
+// written, not read (a fresh accumulator: no instruction before it may
+// define D, so the compiler need not serialise the wgmmas around it).
+template <bool ACC>
+__device__ __forceinline__ void wgmma_ss_bf16(float (&d)[32], uint64_t da, uint64_t db) {
+  if constexpr (ACC)
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " BD_D32
+        ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : BD_O32(d)
+        : "l"(da), "l"(db), "r"(1));
+  else
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " BD_D32
+        ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : BD_W32(d)
+        : "l"(da), "l"(db), "r"(0));
+}
+
+// D (64 x 64, f32) += A (64 x 16, bf16, registers, wgmma_bf16's layout) *
+// B (16 x 64, bf16, MN-major in shared memory: mn_desc).
+__device__ __forceinline__ void wgmma_bf16_tb(float (&d)[32], const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " BD_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : BD_O32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+#undef BD_D32
+#undef BD_O32
+#undef BD_W32
+
+// Named barrier over the first `threads` threads of the block (id 1..15).
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Arrives at named barrier `id` without waiting (its other `threads` minus
+// these wait in named_sync); shared-memory writes before it are visible to
+// them after.
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Every thread of every CTA of the cluster arrives, then waits; shared
+// memory written before is visible to the cluster's threads after.
+__device__ __forceinline__ void cluster_barrier() {
+  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
 }
 
 }  // namespace bd

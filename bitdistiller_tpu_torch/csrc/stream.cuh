@@ -115,8 +115,9 @@ __device__ __forceinline__ void grid_dep_launch() {
 // ---- host: cluster launch ---------------------------------------------------
 
 // Launches `kernel` on `grid` with clusters of `cluster` CTAs along x (grid.x
-// == cluster) and `smem` bytes of dynamic shared memory; with `pdl` as a
-// programmatic dependent of the stream's previous kernel. Refuses (returns an
+// == cluster), blocks of `block` threads and `smem` bytes of dynamic shared
+// memory; with `pdl` as a programmatic dependent of the stream's previous
+// kernel. Refuses (returns an
 // error, launches nothing) when the card cannot hold one such cluster:
 // cudaOccupancyMaxActiveClusters of 0, or its own error for a size it does
 // not take. The answer is cached per (kernel, cluster, smem), under a lock
@@ -125,15 +126,15 @@ __device__ __forceinline__ void grid_dep_launch() {
 // so far), so a cached size stays launchable. Clears the error state on
 // failure, so a later cudaGetLastError() does not see it.
 template <typename... KArgs, typename... Args>
-cudaError_t launch_cluster(void (*kernel)(KArgs...), dim3 grid, int cluster, size_t smem, bool pdl,
-                           cudaStream_t stream, Args... args) {
+cudaError_t launch_cluster_block(void (*kernel)(KArgs...), dim3 grid, int block, int cluster,
+                                 size_t smem, bool pdl, cudaStream_t stream, Args... args) {
   static std::map<std::tuple<const void*, int, size_t>, cudaError_t> fits;
   static std::map<const void*, size_t> limit;
   const void* fn = reinterpret_cast<const void*>(kernel);
   const auto key = std::make_tuple(fn, cluster, smem);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;
-  cfg.blockDim = dim3(kThreads);
+  cfg.blockDim = dim3(block);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[2];
@@ -167,6 +168,13 @@ cudaError_t launch_cluster(void (*kernel)(KArgs...), dim3 grid, int cluster, siz
   cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, static_cast<KArgs>(args)...);
   if (err != cudaSuccess) cudaGetLastError();
   return err;
+}
+
+// launch_cluster_block with the decode kernels' kThreads a block
+template <typename... KArgs, typename... Args>
+cudaError_t launch_cluster(void (*kernel)(KArgs...), dim3 grid, int cluster, size_t smem, bool pdl,
+                           cudaStream_t stream, Args... args) {
+  return launch_cluster_block(kernel, grid, kThreads, cluster, smem, pdl, stream, args...);
 }
 
 inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }

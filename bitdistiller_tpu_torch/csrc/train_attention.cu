@@ -27,19 +27,48 @@
 // Bound on this card: operations. The causal forward is 2 * B * Hq * S^2 * D
 // multiply-adds' worth of flops (two products over half the score matrix),
 // the backward about 2.5x that, against 989 TFLOP/s of bf16 tensor cores;
-// the bytes (q, k, v, o once) are a few MB. Design, bf16: mma.sync.m16n8k16
-// (bf16 in, f32 accumulate) on 64-row tiles, four warps of 16 rows a CTA;
-// K and V tiles (64 rows) through shared memory by cp.async, double
-// buffered in the forward; an online softmax in f32 (exp2 of log2-scaled
-// scores); tiles above the diagonal skipped. The probabilities and ds enter
-// their products rounded to bf16, as in the TPU kernel. The dkv kernel owns
-// a (batch, kv head, key tile) and loops over the rep query heads of its kv
-// head and the query tiles on or below the diagonal, so the sum over the
-// rep heads happens in its registers: no atomics, deterministic. f32 inputs
-// run on CUDA cores (one warp a row), so that no dtype JAX computes raises.
-// Simple first: wgmma and TMA are later work.
+// the bytes (q, k, v, o once) are a few MB.
+//
+// Design, bf16 forward (any D) and dkv (D <= 128): warp-specialised CTAs
+// whose consumer warpgroups (128 threads) compute and whose one producer
+// warp keeps a ring of shared-memory stages full by TMA (4-D tensor maps
+// over [B, S, H, D], so a box reads rows past S and columns past D as zeros,
+// never a neighbour's), with full and empty mbarriers. Every product is a
+// warpgroup MMA (wgmma): the score products read both operands from the
+// 128-byte-swizzled K-major tiles TMA wrote; the products of a probability
+// (or ds) tile read it from registers, rounded to bf16 in the accumulator's
+// own layout, against the MN-major (transposed) tile of V, dO or Q.
+// Registers bound the layout: with 9 or more warps a CTA, ptxas gives each
+// thread at most 168 (setmaxnreg over a producer warpgroup did not change
+// what it allocated), so no warpgroup holds more than one 64 x D f32
+// accumulator beside its 64 x 64 tiles.
+//   * forward: a CTA is one consumer warpgroup owning 64 query rows of one
+//     (batch, query head) and the producer warp, 3, 2 or 1 CTAs an SM at
+//     D = 64, 128, 256; it walks the key tiles of 64 rows on or below the
+//     diagonal through 4 stages (2 above D = 64) with an online softmax in
+//     f32 (exp2 of log2-scaled scores), masking only where a tile crosses
+//     the diagonal or S or holds another segment than the row (a padded
+//     row's tiles); query tiles are launched longest first.
+//   * dkv: a thread block cluster of C = min(rep, 8) CTAs owns 64 key rows
+//     of one (batch, kv head); CTA c walks query heads c, c + C, ... of the
+//     kv head (ops/train_attention.py: dkv_plan, dkv_walk) and for each the
+//     64-row query tiles on or below the diagonal, streaming Q, dO, lse and
+//     di through a ring of 3 stages. Its two consumer warpgroups split the
+//     four products over the same keys (p and dv; dp, ds and dk), p handed
+//     over in shared memory. The C partial dk and dv tiles are summed in
+//     rank order through distributed shared memory: no atomics,
+//     deterministic.
+//   * dkv at D > 128: the mma.sync kernel below, one CTA a (key tile, kv
+//     head, batch) walking all rep heads, dv then dk in two passes; chosen
+//     by D in the launcher.
+// dq: mma.sync.m16n8k16 on 64-row tiles of four warps, K and V tiles by
+// cp.async. f32 inputs run on CUDA cores (one warp a row), so that no dtype
+// JAX computes raises.
 
 #include <float.h>
+#include <limits.h>
+
+#include <algorithm>
 
 #include "common.cuh"
 #include "stream.cuh"
@@ -199,118 +228,14 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* dst, const float (&acc
 }
 
 template <int DT>
-constexpr size_t fwd_smem() {
-  return 5 * Tile<DT>::BYTES + 2 * BN * 4;  // Q, two K and two V tiles, two seg rows
-}
-
-// One CTA a (query tile, query head, batch); warp w owns rows q0 + 16w ..
-template <int DT>
-__global__ void __launch_bounds__(kTThreads)
-    train_attn_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                          const __nv_bfloat16* __restrict__ v, const int* __restrict__ seg,
-                          __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int S, int Hq,
-                          int Hkv, int D, float scale) {
-  extern __shared__ __align__(16) uint8_t smem[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Ks = Qs + Tile<DT>::ELEMS;      // [2] tiles
-  __nv_bfloat16* Vs = Ks + 2 * Tile<DT>::ELEMS;  // [2] tiles
-  int* segk = reinterpret_cast<int*>(Vs + 2 * Tile<DT>::ELEMS);  // [2][BN]
-  const int b = blockIdx.z, h = blockIdx.y, qt = blockIdx.x, q0 = qt * BM;
-  const int hk = h / (Hq / Hkv);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, quad = lane & 3;
-  const float qs = scale * kLog2e;
-
-  load_tile<DT>(Qs, q, b, q0, S, Hq, h, D);
-  load_tile<DT>(Ks, k, b, 0, S, Hkv, hk, D);
-  load_tile<DT>(Vs, v, b, 0, S, Hkv, hk, D);
-  load_seg(segk, seg, b, 0, S);
-  cp_commit();
-  int rows[2], segq[2];
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    rows[half] = q0 + 16 * warp + (lane >> 2) + 8 * half;
-    segq[half] = rows[half] < S ? (seg ? seg[size_t(b) * S + rows[half]] : 1) : -2;
-  }
-
-  float m[2] = {kMaskValue, kMaskValue}, l[2] = {0.f, 0.f};
-  float acc[DT / 8][4];
-#pragma unroll
-  for (int nd = 0; nd < DT / 8; ++nd)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nd][e] = 0.f;
-
-  const int ntiles = qt + 1;  // key tiles on or below the diagonal
-  for (int t = 0; t < ntiles; ++t) {
-    cp_wait<0>();
-    __syncthreads();  // tile t landed; every warp is done with tile t - 1's buffers
-    if (t + 1 < ntiles) {
-      const int nb = (t + 1) & 1;
-      load_tile<DT>(Ks + nb * Tile<DT>::ELEMS, k, b, (t + 1) * BN, S, Hkv, hk, D);
-      load_tile<DT>(Vs + nb * Tile<DT>::ELEMS, v, b, (t + 1) * BN, S, Hkv, hk, D);
-      load_seg(segk + nb * BN, seg, b, (t + 1) * BN, S);
-    }
-    cp_commit();
-    const __nv_bfloat16* Kt = Ks + (t & 1) * Tile<DT>::ELEMS;
-    const __nv_bfloat16* Vt = Vs + (t & 1) * Tile<DT>::ELEMS;
-    const int* sk = segk + (t & 1) * BN;
-    float s[8][4];
-    rows_dot_rows<DT>(s, Qs, 16 * warp, Kt, D, lane);
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int half = e >> 1, key = t * BN + 8 * nt + 2 * quad + (e & 1);
-        const bool ok = key <= rows[half] && sk[key - t * BN] == segq[half];
-        s[nt][e] = ok ? s[nt][e] * qs : kMaskValue;
-        mx[half] = fmaxf(mx[half], s[nt][e]);
-      }
-    float alpha[2];
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      mx[half] = fmaxf(mx[half], __shfl_xor_sync(0xffffffffu, mx[half], 1));
-      mx[half] = fmaxf(mx[half], __shfl_xor_sync(0xffffffffu, mx[half], 2));
-      alpha[half] = exp2f(m[half] - mx[half]);
-      m[half] = mx[half];
-      l[half] *= alpha[half];
-    }
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int half = e >> 1;
-        const float p = s[nt][e] == kMaskValue ? 0.f : exp2f(s[nt][e] - m[half]);
-        s[nt][e] = p;
-        l[half] += p;
-      }
-#pragma unroll
-    for (int nd = 0; nd < DT / 8; ++nd)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[nd][e] *= alpha[e >> 1];
-    acc_times_tile<DT>(acc, s, Vt, D, lane);
-  }
-
-  float inv[2];
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    l[half] += __shfl_xor_sync(0xffffffffu, l[half], 1);
-    l[half] += __shfl_xor_sync(0xffffffffu, l[half], 2);
-    inv[half] = 1.f / l[half];
-    if (quad == 0 && rows[half] < S)
-      lse[(size_t(b) * Hq + h) * S + rows[half]] = (m[half] + log2f(l[half])) * kLn2;
-  }
-  store_rows<DT>(out, acc, b, q0 + 16 * warp, S, Hq, h, D, inv, lane);
-}
-
-template <int DT>
 constexpr size_t bwd_smem() {
   return 4 * Tile<DT>::BYTES + 4 * BN * 4;  // four tiles; lse, di and two seg rows
 }
 
-// dkv: one CTA a (key tile, kv head, batch); warp w owns keys k0 + 16w ..;
-// it walks the rep query heads and the query tiles on or below the diagonal.
-// DO_V / DO_K: which of dv and dk this pass accumulates (D = 256 takes two
-// passes, so that one 16 x 256 accumulator a thread is live at a time).
+// dkv at D > 128: one CTA a (key tile, kv head, batch); warp w owns keys
+// k0 + 16w ..; it walks the rep query heads and the query tiles on or below
+// the diagonal. DO_V / DO_K: which of dv and dk this pass accumulates (two
+// passes, so that one 16 x D accumulator a thread is live at a time).
 template <int DT, bool DO_V, bool DO_K>
 __device__ __forceinline__ void dkv_pass(float (&dv)[DT / 8][4], float (&dk)[DT / 8][4],
                                          const __nv_bfloat16* q, const __nv_bfloat16* dout,
@@ -404,23 +329,15 @@ __global__ void __launch_bounds__(kTThreads)
 #pragma unroll
       for (int e = 0; e < 4; ++e) a[nd][e] = 0.f;
   };
-  if constexpr (DT <= 128) {  // one pass, both accumulators
-    zero(acc);
-    zero(acc2);
-    dkv_pass<DT, true, true>(acc, acc2, q, dout, lse, di, seg, Ks, Vs, Qs, Os, lse_s, di_s,
-                             segq_s, segk_s, b, kt, hk, S, Hq, Hkv, D, scale);
-    store_rows<DT>(dv, acc, b, kt * BN + 16 * warp, S, Hkv, hk, D, one, lane);
-    store_rows<DT>(dk, acc2, b, kt * BN + 16 * warp, S, Hkv, hk, D, sc, lane);
-  } else {  // dv, then dk
-    zero(acc);
-    dkv_pass<DT, true, false>(acc, acc2, q, dout, lse, di, seg, Ks, Vs, Qs, Os, lse_s, di_s,
-                              segq_s, segk_s, b, kt, hk, S, Hq, Hkv, D, scale);
-    store_rows<DT>(dv, acc, b, kt * BN + 16 * warp, S, Hkv, hk, D, one, lane);
-    zero(acc);
-    dkv_pass<DT, false, true>(acc2, acc, q, dout, lse, di, seg, Ks, Vs, Qs, Os, lse_s, di_s,
-                              segq_s, segk_s, b, kt, hk, S, Hq, Hkv, D, scale);
-    store_rows<DT>(dk, acc, b, kt * BN + 16 * warp, S, Hkv, hk, D, sc, lane);
-  }
+  // dv, then dk
+  zero(acc);
+  dkv_pass<DT, true, false>(acc, acc2, q, dout, lse, di, seg, Ks, Vs, Qs, Os, lse_s, di_s,
+                            segq_s, segk_s, b, kt, hk, S, Hq, Hkv, D, scale);
+  store_rows<DT>(dv, acc, b, kt * BN + 16 * warp, S, Hkv, hk, D, one, lane);
+  zero(acc);
+  dkv_pass<DT, false, true>(acc2, acc, q, dout, lse, di, seg, Ks, Vs, Qs, Os, lse_s, di_s,
+                            segq_s, segk_s, b, kt, hk, S, Hq, Hkv, D, scale);
+  store_rows<DT>(dk, acc, b, kt * BN + 16 * warp, S, Hkv, hk, D, sc, lane);
 }
 
 // dq: one CTA a (query tile, query head, batch); warp w owns rows q0 + 16w ..
@@ -484,6 +401,487 @@ __global__ void __launch_bounds__(kTThreads)
   }
   const float sc[2] = {scale, scale};
   store_rows<DT>(dq, acc, b, q0 + 16 * warp, S, Hq, h, D, sc, lane);
+}
+
+// ---- bf16 forward and dkv (D <= 128): wgmma fed by a TMA ring -----------------
+
+constexpr int kWg = 128;        // threads a warpgroup
+constexpr int kBoxRow = 128;    // bytes of a box row: 64 bf16 columns
+constexpr int TQ = 64;          // query rows of a forward CTA, of a dkv ring stage
+constexpr int TK = 64;          // key rows of a forward ring stage, of a dkv CTA
+constexpr int kFullCount = 33;  // the producer warp's lanes + lane 0's expect_tx
+constexpr int kMixed = -4;      // a tile's segment id when its rows hold more than one
+
+// 2^x by the MUFU unit alone (exp2f adds range handling around it: a fifth
+// of the forward's time at D = 64); subnormal results flush to zero
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
+}
+
+// bf16 A fragment k-block kb (columns 16kb ..) of a 64 x 64 accumulator
+__device__ __forceinline__ void acc_a_frag(uint32_t (&a)[4], const float (&x)[32], int kb) {
+  a[0] = pack_bf16(x[8 * kb], x[8 * kb + 1]);
+  a[1] = pack_bf16(x[8 * kb + 2], x[8 * kb + 3]);
+  a[2] = pack_bf16(x[8 * kb + 4], x[8 * kb + 5]);
+  a[3] = pack_bf16(x[8 * kb + 6], x[8 * kb + 7]);
+}
+
+// x (64 x 64) = the rows of tile A (at a, 64-row boxes) times those of tile
+// B (at bt), over k < D: both K-major and swizzled, as TMA wrote them
+template <int DT>
+__device__ __forceinline__ void rows_by_rows(float (&x)[32], uint32_t a, uint32_t bt, int D) {
+#pragma unroll
+  for (int kk = 0; kk < DT / 16; ++kk) {
+    if (16 * kk >= D) break;
+    const uint32_t off = (kk >> 2) * 64 * kBoxRow + (kk & 3) * 32;
+    if (kk == 0)
+      wgmma_ss_bf16<false>(x, sw128_desc(a + off), sw128_desc(bt + off));
+    else
+      wgmma_ss_bf16<true>(x, sw128_desc(a + off), sw128_desc(bt + off));
+  }
+}
+
+// acc (64 x DT) += p (64 x 64, bf16 A fragments) times tile T (at t: 64
+// rows, its columns the N dimension: the MN-major operand)
+template <int DT>
+__device__ __forceinline__ void frags_by_tile(float (&acc)[DT / 64][32], const uint32_t (&p)[4][4],
+                                              uint32_t t, int D) {
+#pragma unroll
+  for (int kb = 0; kb < 4; ++kb)
+#pragma unroll
+    for (int c = 0; c < DT / 64; ++c) {
+      if (64 * c >= D) break;
+      wgmma_bf16_tb(acc[c], p[kb], mn_desc(t + c * 64 * kBoxRow + kb * 16 * kBoxRow, 64 * kBoxRow));
+    }
+}
+
+template <int DT>
+struct Fwd {
+  static constexpr int ST = DT <= 64 ? 4 : 2;  // ring stages
+  static constexpr int THREADS = kWg + 32;     // one consumer warpgroup, one producer warp
+  // CTAs an SM (registers a thread: 128, 168, 255), as shared memory allows
+  static constexpr int MIN_BLOCKS = DT <= 64 ? 3 : DT <= 128 ? 2 : 1;
+  static constexpr int TILE = DT / 64 * 64 * kBoxRow;  // a 64-row tile of Q, K or V
+  static constexpr int SEG = (1 + 2 * ST) * TILE;     // Q, then stage st's K and V
+  // keys' segment ids [ST][TK], the tile's one [ST]; then the mbarriers, 8-byte aligned
+  static constexpr int BAR = (SEG + ST * (TK + 1) * 4 + 7) / 8 * 8;
+  static constexpr int SMEM = BAR + (2 * ST + 1) * 8 + 1024;  // full, empty, q; alignment
+};
+
+// One CTA a (query head, batch, query tile of 64 rows, the longest first):
+// a consumer warpgroup and a producer warp.
+template <int DT>
+__global__ void __launch_bounds__(Fwd<DT>::THREADS, Fwd<DT>::MIN_BLOCKS)
+    train_attn_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
+                          const __grid_constant__ CUtensorMap k_map,
+                          const __grid_constant__ CUtensorMap v_map, const int* __restrict__ seg,
+                          __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int S, int Hq,
+                          int Hkv, int D, float scale) {
+  using F = Fwd<DT>;
+  constexpr int ST = F::ST;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  int* segs = reinterpret_cast<int*>(smem + F::SEG);
+  int* tsegs = segs + ST * TK;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + F::BAR);
+  uint64_t* empty = full + ST;
+  uint64_t* qbar = empty + ST;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * TQ;
+  const int hk = h / (Hq / Hkv), nb = (D + 63) / 64;
+  const int nkt = min(q0, S - 1) / TK + 1;  // key tiles on or below the diagonal
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int i = 0; i < ST; ++i) {
+      mbar_init(full + i, kFullCount);
+      mbar_init(empty + i, 4);  // lane 0 of each consumer warp
+    }
+    mbar_init(qbar, 1);
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (tid >= kWg) {  // the producer warp
+    const int lane = tid & 31;
+    if (lane == 0) {
+      mbar_expect(qbar, nb * TQ * kBoxRow);
+      for (int c = 0; c < nb; ++c) tma_load_4d(smem + c * TQ * kBoxRow, &q_map, 64 * c, h, q0, b, qbar);
+    }
+    for (int t = 0; t < nkt; ++t) {
+      const int st = t % ST, k0 = t * TK;
+      if (t >= ST) mbar_wait(empty + st, (t / ST - 1) & 1);
+      uint8_t* kt = smem + (1 + 2 * st) * F::TILE;
+      if (lane == 0) {
+        mbar_expect(full + st, 2 * nb * TK * kBoxRow);
+        for (int c = 0; c < nb; ++c) {
+          tma_load_4d(kt + c * TK * kBoxRow, &k_map, 64 * c, hk, k0, b, full + st);
+          tma_load_4d(kt + F::TILE + c * TK * kBoxRow, &v_map, 64 * c, hk, k0, b, full + st);
+        }
+      }
+      int lo = INT_MAX, hi = INT_MIN;
+      for (int i = lane; i < TK; i += 32) {
+        const int key = k0 + i;
+        const int v = key < S ? (seg ? seg[size_t(b) * S + key] : 1) : -1;
+        segs[st * TK + i] = v;
+        lo = min(lo, v);
+        hi = max(hi, v);
+      }
+      lo = __reduce_min_sync(0xffffffffu, lo);
+      hi = __reduce_max_sync(0xffffffffu, hi);
+      if (lane == 0) tsegs[st] = lo == hi ? lo : kMixed;
+      mbar_arrive(full + st);
+    }
+    return;
+  }
+
+  const int warp = tid >> 5, lane = tid & 31, quad = lane & 3;
+  const float qs = scale * kLog2e;
+  int rows[2], segq[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    rows[half] = q0 + 16 * warp + (lane >> 2) + 8 * half;
+    segq[half] = rows[half] < S ? (seg ? seg[size_t(b) * S + rows[half]] : 1) : -2;
+  }
+  float m[2] = {kMaskValue, kMaskValue}, l[2] = {0.f, 0.f};
+  float o[DT / 64][32];
+#pragma unroll
+  for (int c = 0; c < DT / 64; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[c][i] = 0.f;
+  const uint32_t qa = smem_u32(smem);
+  mbar_wait(qbar, 0);
+
+  for (int t = 0; t < nkt; ++t) {
+    const int st = t % ST, k0 = t * TK;
+    mbar_wait(full + st, (t / ST) & 1);
+    const uint32_t ka = smem_u32(smem + (1 + 2 * st) * F::TILE), va = ka + F::TILE;
+    float s[32];
+    wgmma_fence();
+    rows_by_rows<DT>(s, qa, ka, D);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+
+    const int* sk = segs + st * TK;
+    // this thread's rows need the per-element test unless the tile is at or
+    // below the diagonal, inside S, and of their one segment
+    const int ts = tsegs[st];
+    const bool mask = k0 + TK - 1 > q0 || k0 + TK > S || ts != segq[0] || ts != segq[1];
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int half = (i >> 1) & 1, kc = 8 * (i >> 2) + 2 * quad + (i & 1);
+      float x = s[i] * qs;
+      if (mask && !(k0 + kc <= rows[half] && sk[kc] == segq[half])) x = kMaskValue;
+      s[i] = x;
+      mx[half] = fmaxf(mx[half], x);
+    }
+    float alpha[2];
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      mx[half] = fmaxf(mx[half], __shfl_xor_sync(0xffffffffu, mx[half], 1));
+      mx[half] = fmaxf(mx[half], __shfl_xor_sync(0xffffffffu, mx[half], 2));
+      alpha[half] = ex2(m[half] - mx[half]);
+      m[half] = mx[half];
+      l[half] *= alpha[half];
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int half = (i >> 1) & 1;
+      const float p = s[i] == kMaskValue ? 0.f : ex2(s[i] - m[half]);
+      s[i] = p;
+      l[half] += p;
+    }
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int kb = 0; kb < 4; ++kb) acc_a_frag(pa[kb], s, kb);
+#pragma unroll
+    for (int c = 0; c < DT / 64; ++c)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[c][i] *= alpha[(i >> 1) & 1];
+
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < DT / 64; ++c) fence_regs(o[c]);
+    frags_by_tile<DT>(o, pa, va, D);
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int c = 0; c < DT / 64; ++c) fence_regs(o[c]);
+#pragma unroll
+    for (int kb = 0; kb < 4; ++kb) fence_regs(pa[kb]);
+    if (lane == 0) mbar_arrive(empty + st);  // this warp is done with the stage
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    l[half] += __shfl_xor_sync(0xffffffffu, l[half], 1);
+    l[half] += __shfl_xor_sync(0xffffffffu, l[half], 2);
+    inv[half] = 1.f / l[half];
+    if (quad == 0 && rows[half] < S)
+      lse[(size_t(b) * Hq + h) * S + rows[half]] = (m[half] + log2f(l[half])) * kLn2;
+  }
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    if (rows[half] >= S) continue;
+    __nv_bfloat16* po = out + ((size_t(b) * S + rows[half]) * Hq + h) * D;
+#pragma unroll
+    for (int c = 0; c < DT / 64; ++c)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = 64 * c + 8 * j + 2 * quad;
+        if (col < D)
+          *reinterpret_cast<uint32_t*>(po + col) = pack_bf16(o[c][4 * j + 2 * half] * inv[half],
+                                                             o[c][4 * j + 2 * half + 1] * inv[half]);
+      }
+  }
+}
+
+template <int DT>
+struct DkvWs {
+  static constexpr int ST = 3;  // ring stages
+  static constexpr int TILE = DT / 64 * 64 * kBoxRow;  // a 64-row tile of K, V, Q or dO
+  // K at 0, V at TILE, stage st's Q at (2 + 2st) TILE and dO after it
+  static constexpr int XCH = (2 + 2 * ST) * TILE;  // p, warpgroup 0 -> 1: [2][32][kWg] f32
+  static constexpr int SCAL = XCH + 2 * 32 * kWg * 4;  // [ST][3][TQ]: lse2, di, seg
+  // then the query tile's one segment id [ST]; then full, empty, kv, 8-byte aligned
+  static constexpr int BAR = (SCAL + ST * (3 * TQ + 1) * 4 + 7) / 8 * 8;
+  static constexpr int SMEM = BAR + (2 * ST + 1) * 8 + 1024;
+  static constexpr int PAIRS = DT / 4 * kWg;  // f32 pairs of one 64 x DT partial tile
+  static_assert(2 * PAIRS * 8 <= XCH, "the partial tiles overlay the tiles");
+};
+
+// The cluster's C partial dv and dk tiles (float2 pairs in register order:
+// pair pr of thread t of warpgroup w at w * PAIRS + pr * 128 + t), summed in
+// rank order: CTA `rank` sums its 1/C of the pairs over ranks 0 .. C-1 and
+// writes them (dk times scale).
+template <int DT>
+__device__ __forceinline__ void cluster_sum_store(const float2* red, __nv_bfloat16* dv,
+                                                  __nv_bfloat16* dk, int b, int k0, int S,
+                                                  int Hkv, int hk, int D, float scale, int C,
+                                                  int rank) {
+  cg::cluster_group cluster = cg::this_cluster();
+  constexpr int NP = DkvWs<DT>::PAIRS;
+  const int per = (2 * NP + C - 1) / C, lo = rank * per, hi = min(2 * NP, lo + per);
+  for (int p = lo + int(threadIdx.x); p < hi; p += 2 * kWg) {
+    float2 acc = make_float2(0.f, 0.f);
+    for (int r = 0; r < C; ++r) {
+      const float2 v = cluster.map_shared_rank(red, r)[p];
+      acc.x += v.x;
+      acc.y += v.y;
+    }
+    const int w = p / NP, rem = p - w * NP, pr = rem / kWg, t = rem % kWg;
+    const int c = pr >> 4, j = (pr & 15) >> 1, half = pr & 1, ln = t & 31;
+    const int key = k0 + 16 * (t >> 5) + (ln >> 2) + 8 * half;
+    const int col = 64 * c + 8 * j + 2 * (ln & 3);
+    const float mul = w ? scale : 1.f;
+    if (key < S && col < D)
+      *reinterpret_cast<uint32_t*>((w ? dk : dv) + ((size_t(b) * S + key) * Hkv + hk) * D + col) =
+          pack_bf16(acc.x * mul, acc.y * mul);
+  }
+}
+
+// dkv, D <= 128: a cluster of C CTAs a (key tile of 64 rows, kv head,
+// batch), the grid (C, key tiles x Hkv, B) with the key tile slowest (the
+// longest walks first). CTA `rank` walks query heads hk * rep + rank, + C,
+// ... and for each the query tiles from the diagonal to the end
+// (ops/train_attention.py: dkv_walk). Both consumer warpgroups own the
+// CTA's 64 keys and split the four products: warpgroup 0 takes s^T = k q^T,
+// p and dv += p^T do; warpgroup 1 takes dp^T = v do^T, ds = p (dp - di)
+// (p handed over in shared memory, f32, double buffered between named
+// barriers) and dk += ds^T q. Each holds one 64 x D accumulator.
+template <int DT>
+__global__ void __launch_bounds__(2 * kWg + 32, 1)
+    train_attn_dkv_ws_kernel(const __grid_constant__ CUtensorMap q_map,
+                             const __grid_constant__ CUtensorMap k_map,
+                             const __grid_constant__ CUtensorMap v_map,
+                             const __grid_constant__ CUtensorMap do_map, const int* __restrict__ seg,
+                             const float* __restrict__ lse, const float* __restrict__ di,
+                             __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int S,
+                             int Hq, int Hkv, int D, float scale) {
+  using P = DkvWs<DT>;
+  constexpr int ST = P::ST;
+  constexpr int kPFull = 2, kPEmpty = 4;  // named barriers of the p hand-over, a slot each
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  float* xch = reinterpret_cast<float*>(smem + P::XCH);
+  float* scal = reinterpret_cast<float*>(smem + P::SCAL);
+  int* qsegs = reinterpret_cast<int*>(scal + ST * 3 * TQ);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + P::BAR);
+  uint64_t* empty = full + ST;
+  uint64_t* kvbar = empty + ST;
+  const int C = gridDim.x, rank = blockIdx.x;
+  const int kt = blockIdx.y / Hkv, hk = blockIdx.y - kt * Hkv, b = blockIdx.z, k0 = kt * TK;
+  const int rep = Hq / Hkv, nb = (D + 63) / 64;
+  const int qt0 = k0 / TQ, nqs = (S + TQ - 1) / TQ - qt0;  // query tiles a head
+  const int steps = (rep - rank + C - 1) / C * nqs;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int i = 0; i < ST; ++i) {
+      mbar_init(full + i, kFullCount);
+      mbar_init(empty + i, 8);  // lane 0 of each consumer warp
+    }
+    mbar_init(kvbar, 1);
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (tid >= 2 * kWg) {  // the producer warp
+    const int lane = tid & 31;
+    if (lane == 0) {
+      mbar_expect(kvbar, 2 * nb * TK * kBoxRow);
+      for (int c = 0; c < nb; ++c) {
+        tma_load_4d(smem + c * TK * kBoxRow, &k_map, 64 * c, hk, k0, b, kvbar);
+        tma_load_4d(smem + P::TILE + c * TK * kBoxRow, &v_map, 64 * c, hk, k0, b, kvbar);
+      }
+    }
+    for (int i = 0; i < steps; ++i) {
+      const int st = i % ST;
+      const int h = hk * rep + rank + C * (i / nqs), q0 = (qt0 + i % nqs) * TQ;
+      if (i >= ST) mbar_wait(empty + st, (i / ST - 1) & 1);
+      uint8_t* qt = smem + (2 + 2 * st) * P::TILE;
+      if (lane == 0) {
+        mbar_expect(full + st, 2 * nb * TQ * kBoxRow);
+        for (int c = 0; c < nb; ++c) {
+          tma_load_4d(qt + c * TQ * kBoxRow, &q_map, 64 * c, h, q0, b, full + st);
+          tma_load_4d(qt + P::TILE + c * TQ * kBoxRow, &do_map, 64 * c, h, q0, b, full + st);
+        }
+      }
+      float* sc = scal + st * 3 * TQ;
+      int lo = INT_MAX, hi = INT_MIN;
+      for (int j = lane; j < TQ; j += 32) {
+        const int row = q0 + j;
+        const bool in = row < S;
+        sc[j] = in ? lse[(size_t(b) * Hq + h) * S + row] * kLog2e : 0.f;
+        sc[TQ + j] = in ? di[(size_t(b) * S + row) * Hq + h] : 0.f;
+        const int v = in ? (seg ? seg[size_t(b) * S + row] : 1) : -3;
+        reinterpret_cast<int*>(sc)[2 * TQ + j] = v;
+        lo = min(lo, v);
+        hi = max(hi, v);
+      }
+      lo = __reduce_min_sync(0xffffffffu, lo);
+      hi = __reduce_max_sync(0xffffffffu, hi);
+      if (lane == 0) qsegs[st] = lo == hi ? lo : kMixed;
+      mbar_arrive(full + st);
+    }
+    if (C > 1)  // the consumers' two cluster barriers
+      for (int i = 0; i < 2; ++i) cluster_barrier();
+    return;
+  }
+
+  const int wg = tid >> 7, t128 = tid & (kWg - 1), warp = t128 >> 5, lane = tid & 31;
+  const int quad = lane & 3;
+  const float qs = scale * kLog2e;
+  int keys[2], segk[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    keys[half] = k0 + 16 * warp + (lane >> 2) + 8 * half;
+    segk[half] = keys[half] < S ? (seg ? seg[size_t(b) * S + keys[half]] : 1) : -1;
+  }
+  float acc[DT / 64][32];  // warpgroup 0: dv; 1: dk
+#pragma unroll
+  for (int c = 0; c < DT / 64; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[c][i] = 0.f;
+  const uint32_t ka = smem_u32(smem), va = ka + P::TILE;
+  mbar_wait(kvbar, 0);
+
+  for (int i = 0; i < steps; ++i) {
+    const int st = i % ST, q0 = (qt0 + i % nqs) * TQ, slot = i & 1;
+    float* xs = xch + slot * 32 * kWg + t128;
+    mbar_wait(full + st, (i / ST) & 1);
+    const uint32_t qa = smem_u32(smem + (2 + 2 * st) * P::TILE), oa = qa + P::TILE;
+    const float* sc = scal + st * 3 * TQ;
+    float x[32];
+    uint32_t fa[4][4];
+    wgmma_fence();
+    if (wg == 0) {
+      rows_by_rows<DT>(x, ka, qa, D);  // s^T: keys x queries
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(x);
+      const int* sq = reinterpret_cast<const int*>(sc) + 2 * TQ;
+      const int ts = qsegs[st];  // as in the forward, keys and query rows swapped
+      const bool mask = q0 < k0 + TK - 1 || q0 + TQ > S || ts != segk[0] || ts != segk[1];
+#pragma unroll
+      for (int r = 0; r < 32; ++r) {
+        const int half = (r >> 1) & 1, c = 8 * (r >> 2) + 2 * quad + (r & 1);
+        float p = ex2(x[r] * qs - sc[c]);
+        if (mask && !(keys[half] <= q0 + c && sq[c] == segk[half])) p = 0.f;
+        x[r] = p;
+      }
+      if (i >= 2) named_sync(kPEmpty + slot, 2 * kWg);  // warpgroup 1 has read step i - 2's p
+#pragma unroll
+      for (int r = 0; r < 32; ++r) xs[r * kWg] = x[r];
+      named_arrive(kPFull + slot, 2 * kWg);
+    } else {
+      rows_by_rows<DT>(x, va, oa, D);  // dp^T = v do^T
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(x);
+      named_sync(kPFull + slot, 2 * kWg);
+#pragma unroll
+      for (int r = 0; r < 32; ++r) {
+        const int c = 8 * (r >> 2) + 2 * quad + (r & 1);
+        x[r] = xs[r * kWg] * (x[r] - sc[TQ + c]);  // ds
+      }
+      if (i + 2 < steps) named_arrive(kPEmpty + slot, 2 * kWg);
+    }
+#pragma unroll
+    for (int kb = 0; kb < 4; ++kb) acc_a_frag(fa[kb], x, kb);
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < DT / 64; ++c) fence_regs(acc[c]);
+    frags_by_tile<DT>(acc, fa, wg == 0 ? oa : qa, D);  // dv += p^T do, dk += ds^T q
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int c = 0; c < DT / 64; ++c) fence_regs(acc[c]);
+#pragma unroll
+    for (int kb = 0; kb < 4; ++kb) fence_regs(fa[kb]);
+    if (lane == 0) mbar_arrive(empty + st);  // this warp is done with the stage
+  }
+
+  if (C == 1) {  // no peer: straight from the registers
+    __nv_bfloat16* dst = wg == 0 ? dv : dk;
+    const float mul = wg == 0 ? 1.f : scale;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      if (keys[half] >= S) continue;
+      __nv_bfloat16* row = dst + ((size_t(b) * S + keys[half]) * Hkv + hk) * D;
+#pragma unroll
+      for (int c = 0; c < DT / 64; ++c)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int col = 64 * c + 8 * j + 2 * quad;
+          if (col < D)
+            *reinterpret_cast<uint32_t*>(row + col) =
+                pack_bf16(acc[c][4 * j + 2 * half] * mul, acc[c][4 * j + 2 * half + 1] * mul);
+        }
+    }
+    return;
+  }
+  // the partial tiles overlay K, V and the ring, which both warpgroups are done with
+  float2* red = reinterpret_cast<float2*>(smem);
+  named_sync(1, 2 * kWg);
+#pragma unroll
+  for (int c = 0; c < DT / 64; ++c)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+        red[wg * P::PAIRS + (c * 16 + 2 * j + half) * kWg + t128] =
+            make_float2(acc[c][4 * j + 2 * half], acc[c][4 * j + 2 * half + 1]);
+  cluster_barrier();
+  cluster_sum_store<DT>(red, dv, dk, b, k0, S, Hkv, hk, D, scale, C, rank);
+  cluster_barrier();  // no CTA leaves while a peer still reads its shared memory
 }
 
 // ---- f32 inputs: CUDA cores, one warp a row ---------------------------------
@@ -638,6 +1036,7 @@ struct Args {
   void *o0, *o1, *lse_out;
   int B, S, Hq, Hkv, D;
   float scale;
+  int cluster;  // dkv at D <= 128: CTAs a cluster (ops/train_attention.py: dkv_plan)
 };
 
 enum Which { kFwd = 0, kDkv = 1, kDq = 2 };
@@ -652,18 +1051,39 @@ cudaError_t launch_bf16(Which w, const Args& a, cudaStream_t s) {
   const auto* seg = static_cast<const int*>(a.seg);
   cudaError_t err;
   if (w == kFwd) {
+    using F = Fwd<DT>;
+    CUtensorMap qm, km, vm;
+    if (!tensor_map_bshd(&qm, q, a.B, a.S, a.Hq, a.D, TQ) ||
+        !tensor_map_bshd(&km, k, a.B, a.S, a.Hkv, a.D, TK) ||
+        !tensor_map_bshd(&vm, v, a.B, a.S, a.Hkv, a.D, TK))
+      return cudaErrorInvalidValue;
     auto kern = train_attn_fwd_kernel<DT>;
-    if ((err = allow_smem(kern, fwd_smem<DT>())) != cudaSuccess) return err;
-    kern<<<dim3(nq, a.Hq, a.B), kTThreads, fwd_smem<DT>(), s>>>(
-        q, k, v, seg, static_cast<bf*>(a.o0), static_cast<float*>(a.lse_out), a.S, a.Hq, a.Hkv,
+    if ((err = allow_smem(kern, F::SMEM)) != cudaSuccess) return err;
+    kern<<<dim3(a.Hq, a.B, (a.S + TQ - 1) / TQ), F::THREADS, F::SMEM, s>>>(
+        qm, km, vm, seg, static_cast<bf*>(a.o0), static_cast<float*>(a.lse_out), a.S, a.Hq, a.Hkv,
         a.D, a.scale);
   } else if (w == kDkv) {
-    auto kern = train_attn_dkv_kernel<DT>;
-    if ((err = allow_smem(kern, bwd_smem<DT>())) != cudaSuccess) return err;
-    kern<<<dim3(nq, a.Hkv, a.B), kTThreads, bwd_smem<DT>(), s>>>(
-        q, k, v, seg, static_cast<const bf*>(a.dout), static_cast<const float*>(a.lse_in),
-        static_cast<const float*>(a.di), static_cast<bf*>(a.o0), static_cast<bf*>(a.o1), a.S,
-        a.Hq, a.Hkv, a.D, a.scale);
+    if constexpr (DT <= 128) {  // the wgmma kernel on clusters
+      using P = DkvWs<DT>;
+      CUtensorMap qm, km, vm, om;
+      if (!tensor_map_bshd(&qm, q, a.B, a.S, a.Hq, a.D, TQ) ||
+          !tensor_map_bshd(&km, k, a.B, a.S, a.Hkv, a.D, TK) ||
+          !tensor_map_bshd(&vm, v, a.B, a.S, a.Hkv, a.D, TK) ||
+          !tensor_map_bshd(&om, a.dout, a.B, a.S, a.Hq, a.D, TQ))
+        return cudaErrorInvalidValue;
+      return launch_cluster_block(
+          train_attn_dkv_ws_kernel<DT>, dim3(a.cluster, (a.S + TK - 1) / TK * a.Hkv, a.B),
+          2 * kWg + 32, a.cluster, P::SMEM, false, s, qm, km, vm, om, seg,
+          static_cast<const float*>(a.lse_in), static_cast<const float*>(a.di),
+          static_cast<bf*>(a.o0), static_cast<bf*>(a.o1), a.S, a.Hq, a.Hkv, a.D, a.scale);
+    } else {  // D > 128: the two-pass mma.sync kernel, one CTA a key tile
+      auto kern = train_attn_dkv_kernel<DT>;
+      if ((err = allow_smem(kern, bwd_smem<DT>())) != cudaSuccess) return err;
+      kern<<<dim3(nq, a.Hkv, a.B), kTThreads, bwd_smem<DT>(), s>>>(
+          q, k, v, seg, static_cast<const bf*>(a.dout), static_cast<const float*>(a.lse_in),
+          static_cast<const float*>(a.di), static_cast<bf*>(a.o0), static_cast<bf*>(a.o1), a.S,
+          a.Hq, a.Hkv, a.D, a.scale);
+    }
   } else {
     auto kern = train_attn_dq_kernel<DT>;
     if ((err = allow_smem(kern, bwd_smem<DT>())) != cudaSuccess) return err;
@@ -707,6 +1127,9 @@ cudaError_t dispatch(Which w, const Args& a, int f32, void* stream) {
     if (a.D <= 128) return launch_f32<128>(w, a, s);
     return launch_f32<256>(w, a, s);
   }
+  // dkv's cluster: min(rep, 8) CTAs at D <= 128 (the wgmma kernel), 1 above
+  if (w == kDkv && a.cluster != (a.D <= 128 ? std::min(a.Hq / a.Hkv, kMaxCluster) : 1))
+    return cudaErrorInvalidValue;
   if (a.D <= 64) return launch_bf16<64>(w, a, s);
   if (a.D <= 128) return launch_bf16<128>(w, a, s);
   return launch_bf16<256>(w, a, s);
@@ -725,16 +1148,19 @@ int bd_train_attn_fwd(const void* q, const void* k, const void* v, const void* s
                       void* lse, int B, int S, int Hq, int Hkv, int D, float scale, int f32,
                       void* stream) {
   const Args a{q, k, v, seg, nullptr, nullptr, nullptr, out, nullptr, lse,
-               B, S, Hq, Hkv, D, scale};
+               B, S, Hq, Hkv, D, scale, 1};
   return dispatch(kFwd, a, f32, stream);
 }
 
 // dout [B, S, Hq, D], lse [B, Hq, S] f32 (the forward's), di [B, S, Hq] f32
 // (rowsum(o * dout)); writes dk, dv [B, S, Hkv, D] in the inputs' dtype.
+// cluster: bf16 at D <= 128, min(Hq / Hkv, 8) (dkv_plan); else 1. A cluster
+// the card cannot hold launches nothing and returns the error.
 int bd_train_attn_dkv(const void* q, const void* k, const void* v, const void* seg,
                       const void* dout, const void* lse, const void* di, void* dk, void* dv,
-                      int B, int S, int Hq, int Hkv, int D, float scale, int f32, void* stream) {
-  const Args a{q, k, v, seg, dout, lse, di, dk, dv, nullptr, B, S, Hq, Hkv, D, scale};
+                      int B, int S, int Hq, int Hkv, int D, float scale, int cluster, int f32,
+                      void* stream) {
+  const Args a{q, k, v, seg, dout, lse, di, dk, dv, nullptr, B, S, Hq, Hkv, D, scale, cluster};
   return dispatch(kDkv, a, f32, stream);
 }
 
@@ -742,7 +1168,7 @@ int bd_train_attn_dkv(const void* q, const void* k, const void* v, const void* s
 int bd_train_attn_dq(const void* q, const void* k, const void* v, const void* seg,
                      const void* dout, const void* lse, const void* di, void* dq, int B, int S,
                      int Hq, int Hkv, int D, float scale, int f32, void* stream) {
-  const Args a{q, k, v, seg, dout, lse, di, dq, nullptr, nullptr, B, S, Hq, Hkv, D, scale};
+  const Args a{q, k, v, seg, dout, lse, di, dq, nullptr, nullptr, B, S, Hq, Hkv, D, scale, 1};
   return dispatch(kDq, a, f32, stream);
 }
 

@@ -18,7 +18,12 @@ backward launches `train_attn_bwd_dkv` and `train_attn_bwd_dq`, or raises.
 It saves q, k, v, o and the f32 log-sum-exp, so it is safe under
 torch.utils.checkpoint (a recompute launches the forward again).
 `di = rowsum(o * do)` in f32 stays a plain op, as JAX computes it outside
-Pallas. bf16 runs on the tensor cores; f32 on CUDA cores.
+Pallas. bf16 runs on the tensor cores (wgmma fed by TMA for the forward and,
+at D <= 128, dkv); f32 on CUDA cores.
+
+dkv's work is split by `dkv_plan` (the kernel by D, the cluster size, the
+grid) and `dkv_walk` (what each CTA of a cluster walks); the launch follows
+them.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
@@ -33,10 +39,55 @@ import torch
 
 from .. import _device
 from . import _build
+from .quant_matmul import MAX_CLUSTER
 
 MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)  # flash_attention.py: DEFAULT_MASK_VALUE
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 MAX_HEAD_DIM = 256
+DKV_WGMMA_MAX_HEAD_DIM = 128  # above: two 64 x D f32 accumulators a thread do not fit
+DKV_KEY_TILE = 64     # the wgmma dkv kernel: key rows a CTA
+DKV_QUERY_TILE = 64   # ... query rows a ring stage
+DKV_TWO_PASS_TILE = 64  # the two-pass kernel (D > 128): key rows a CTA
+
+
+@dataclass(frozen=True)
+class DkvPlan:
+    """How the bf16 dkv kernel covers [B, S, Hkv] key rows: `kernel` is
+    "wgmma" (D <= 128: a cluster of `cluster` CTAs a key tile of 64 rows,
+    splitting the rep query heads) or "two_pass" (D > 128: one CTA a key
+    tile of 64 rows walking every head, dv then dk); `grid` as launched,
+    x first (x is the cluster)."""
+
+    kernel: str
+    cluster: int
+    grid: tuple[int, int, int]
+
+    @property
+    def ctas(self) -> int:
+        return self.grid[0] * self.grid[1] * self.grid[2]
+
+
+def dkv_plan(b: int, s: int, hq: int, hkv: int, d: int) -> DkvPlan:
+    """The dkv launch at these shapes, chosen by D alone: D <= 128 takes the
+    wgmma kernel on clusters of C = min(rep, MAX_CLUSTER) CTAs, the grid
+    (C, key tiles x Hkv, B) with the key tile slowest, so the longest walks
+    (key tile 0) start first. C depends on rep only, never on the card, so
+    the same inputs give the same bits on every card."""
+    rep = hq // hkv
+    if d > DKV_WGMMA_MAX_HEAD_DIM:
+        return DkvPlan("two_pass", 1, (-(-s // DKV_TWO_PASS_TILE), hkv, b))
+    c = min(rep, MAX_CLUSTER)
+    return DkvPlan("wgmma", c, (c, -(-s // DKV_KEY_TILE) * hkv, b))
+
+
+def dkv_walk(s: int, rep: int, cluster: int, rank: int, key_tile: int) -> list[tuple[int, int]]:
+    """(query head within the kv head, query tile) in the order CTA `rank` of
+    a cluster walks them for key tile `key_tile`: heads rank, rank + C, ...
+    and for each the query tiles of DKV_QUERY_TILE rows from the diagonal to
+    the end (tiles above it see no key of the tile)."""
+    first = key_tile * DKV_KEY_TILE // DKV_QUERY_TILE
+    nq = -(-s // DKV_QUERY_TILE)
+    return [(r, qt) for r in range(rank, rep, cluster) for qt in range(first, nq)]
 
 
 def _allowed(s: int, attn_mask: Optional[torch.Tensor], device) -> torch.Tensor:
@@ -66,8 +117,9 @@ def flash_train_attention_plain(q, k, v, attn_mask=None) -> torch.Tensor:
 def _launcher(name: str):
     fn = getattr(_build.load("train_attention"), name)
     n_ptr = {"bd_train_attn_fwd": 6, "bd_train_attn_dkv": 9, "bd_train_attn_dq": 8}[name]
+    n_tail = 2 if name == "bd_train_attn_dkv" else 1  # (dkv's cluster,) f32
     fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 5
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                   + [ctypes.c_float] + [ctypes.c_int] * n_tail + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -111,16 +163,22 @@ def train_attn_fwd(q, k, v, seg) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def train_attn_bwd_dkv(q, k, v, seg, dout, lse, di) -> tuple[torch.Tensor, torch.Tensor]:
-    """dk, dv [B, S, Hkv, D], summed over the rep query heads in the kernel."""
+    """dk, dv [B, S, Hkv, D], summed over the rep query heads in the kernel
+    (bf16: by the cluster of `dkv_plan`, in rank order; the plan of the last
+    launch stays in `train_attn_bwd_dkv.plan`)."""
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    f32 = q.dtype == torch.float32
+    plan = None if f32 else dkv_plan(*_dims(q, k))
+    cluster = 1 if f32 else plan.cluster
     err = _launcher("bd_train_attn_dkv")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(seg), dout.data_ptr(), lse.data_ptr(),
         di.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        *_dims(q, k), 1.0 / math.sqrt(q.shape[3]), int(q.dtype == torch.float32),
+        *_dims(q, k), 1.0 / math.sqrt(q.shape[3]), cluster, int(f32),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(err, "bd_train_attn_dkv")
     train_attn_bwd_dkv.launches += 1
+    train_attn_bwd_dkv.plan = plan
     return dk, dv
 
 
@@ -140,6 +198,7 @@ def train_attn_bwd_dq(q, k, v, seg, dout, lse, di) -> torch.Tensor:
 
 train_attn_fwd.launches = 0
 train_attn_bwd_dkv.launches = 0
+train_attn_bwd_dkv.plan = None  # the DkvPlan of the last bf16 launch (None: f32)
 train_attn_bwd_dq.launches = 0
 
 

@@ -17,8 +17,9 @@ before and read after. Then the training slice: `c1` (the packed kernels
 at g32, g64 and per-channel, f32 activations, decode attention at D = 256
 and with f32 q, each through its kernel; g64 times beside g128's),
 `train_attention` (B8's forward and gradients against the plain version at
-TinyLlama's and 7B's shapes, padded and ragged, and their times beside
-SDPA's), `train` (run_training at the full width and depth of
+TinyLlama's and 7B's shapes, padded and ragged, MQA with 71 heads, D = 256
+and f32, and their times beside SDPA's at TinyLlama's, 7B's and the f32
+case's shapes, with the dkv plan), `train` (run_training at the full width and depth of
 TinyLlama-1.1B: int2-asym STE at g64, CAKLD, 2 x 1024 tokens a micro-step,
 grad_accum 2, two optimizer cycles, student and teacher through B8) and
 `serve_trained` (the trained student packed at int2-g64 and served through
@@ -118,6 +119,7 @@ from bitdistiller_tpu_torch.train.pipeline import run_training
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (data sheet)
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores (data sheet)
 PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8 tensor cores (data sheet)
+PEAK_F32_FLOPS = 67e12  # H100 SXM float32 on CUDA cores (data sheet)
 OUT_DIR = Path(__file__).resolve().parent / "chiprun_out"
 DEV = "cuda"
 
@@ -677,7 +679,8 @@ def device_busy_ms(step, n: int):
     if not per:
         return None
     top = sorted(per.items(), key=lambda kv: -kv[1])[:8]
-    return dict(busy_ms=sum(per.values()), top=top)
+    b8 = {k: v for k, v in per.items() if "train_attn" in k}  # B8's kernels, ms a step
+    return dict(busy_ms=sum(per.values()), top=top, b8=b8, b8_ms=sum(b8.values()))
 
 
 COUNTERS = {  # name: (wrapper, its counter)
@@ -963,6 +966,8 @@ TA_CASES = {  # name: (B, S, Hq, Hkv, D, padded row length or None, dtype)
     "llama2_7b": (1, 2048, 32, 32, 128, None, torch.bfloat16),
     "ragged": (2, 1000, 8, 2, 64, 700, torch.bfloat16),
     "f32": (1, 300, 8, 2, 64, 250, torch.float32),
+    "mqa71": (1, 1000, 71, 1, 64, 900, torch.bfloat16),  # FALCON_7B's heads: 71 % 8 != 0
+    "d256": (1, 1000, 16, 16, 256, 900, torch.bfloat16),  # the two-pass dkv (D > 128)
 }
 
 
@@ -995,7 +1000,9 @@ def train_attention_phase(gen, record):
     unpadded yardstick) forward and forward+backward. Bounds: causal
     operations over PEAK_BF16_FLOPS, B*Hq*S^2*D flops a product of half the
     score matrix: 2 products forward, 4 in dkv (the s recompute, dp, dv,
-    dk), 3 in dq (s, dp, dq)."""
+    dk), 3 in dq (s, dp, dq); the f32 case's over PEAK_F32_FLOPS (CUDA
+    cores), beside SDPA in f32. Each time row carries the dkv plan (kernel,
+    cluster, CTAs)."""
     worst = {}
     for name, case in TA_CASES.items():
         q, k, v, do, mask = _ta_inputs(gen, *case)
@@ -1017,8 +1024,10 @@ def train_attention_phase(gen, record):
         worst[name] = max(errs.values())
         del q, k, v, do, got, want
     times = {}
-    for name in ("tinyllama", "llama2_7b"):
+    for name in ("tinyllama", "llama2_7b", "f32"):
         b, s, hq, hkv, d, pad, dtype = TA_CASES[name]
+        peak = PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
+        plan = ta.dkv_plan(b, s, hq, hkv, d)
         q, k, v, do, mask = _ta_inputs(gen, b, s, hq, hkv, d, None, dtype)
         seg = None
         out, lse = ta.train_attn_fwd(q, k, v, seg)
@@ -1045,9 +1054,11 @@ def train_attention_phase(gen, record):
             shape=(b, s, hq, hkv, d), fwd_ms=fwd, dkv_ms=dkv, dq_ms=dq, fwd_bwd_ms=fb,
             plain_fwd_ms=plain_f, plain_fwd_bwd_ms=plain_fb, plain_bwd_ms=plain_fb - plain_f,
             sdpa_fwd_ms=lib_f, sdpa_fwd_bwd_ms=lib_fb_ms, sdpa_bwd_ms=lib_fb_ms - lib_f,
-            fwd_bound_ms=2 * unit / PEAK_BF16_FLOPS * 1e3,
-            dkv_bound_ms=4 * unit / PEAK_BF16_FLOPS * 1e3,
-            dq_bound_ms=3 * unit / PEAK_BF16_FLOPS * 1e3)
+            fwd_bound_ms=2 * unit / peak * 1e3, dkv_bound_ms=4 * unit / peak * 1e3,
+            dq_bound_ms=3 * unit / peak * 1e3,
+            dkv_plan=dict(kernel=plan.kernel if dtype == torch.bfloat16 else "f32",
+                          cluster=plan.cluster if dtype == torch.bfloat16 else 1,
+                          ctas=plan.ctas if dtype == torch.bfloat16 else None))
         del q, k, v, do, out, lse, di
     return worst, times
 
@@ -1221,6 +1232,8 @@ def train_phase(rec):
         f"the second cycle (2 x 2 x 1024 positions) -> {tokens / cycle_ms[1] * 1e3:.0f} "
         f"tokens/s; peak memory {peak / 2**30:.2f} GiB")
     if busy is not None:
+        say(f"profiler train: B8 {busy['b8_ms']:.2f} ms in one flash micro-step: "
+            + ", ".join(f"{k} {v:.2f} ms" for k, v in busy["b8"].items()))
         say(f"profiler train: device busy {busy['busy_ms']:.1f} ms in one flash micro-step "
             f"(forward and backward, no optimizer; the run's second cycle took "
             f"{micro_ms[2]:.1f} + {micro_ms[3]:.1f} ms); top: "
@@ -1408,7 +1421,8 @@ def main() -> int:
                 f"{t['fwd_bound_ms']:.3f}, plain {t['plain_fwd_ms']:.3f}, SDPA "
                 f"{t['sdpa_fwd_ms']:.3f}); dkv {t['dkv_ms']:.3f} (bound {t['dkv_bound_ms']:.3f}), "
                 f"dq {t['dq_ms']:.3f} (bound {t['dq_bound_ms']:.3f}); fwd+bwd {t['fwd_bwd_ms']:.3f} "
-                f"(plain {t['plain_fwd_bwd_ms']:.3f}, SDPA {t['sdpa_fwd_bwd_ms']:.3f})")
+                f"(plain {t['plain_fwd_bwd_ms']:.3f}, SDPA {t['sdpa_fwd_bwd_ms']:.3f}); dkv plan "
+                f"{t['dkv_plan']}")
         say(f"train attention checks: worst relative error {ta_err}")
 
     with Phase("train"):
@@ -1498,7 +1512,9 @@ def main() -> int:
             **b8(kind, tl, plain, lib), work=b8_work
             + ("; plain_ms and library_ms are the whole backward (dq, dk, dv together)"
                if kind != "fwd" else ""),
-            llama2_7b=b8(kind, t7, plain, lib)))
+            llama2_7b=b8(kind, t7, plain, lib),
+            f32=dict(b8(kind, ta_times["f32"], plain, lib), bound_by="operations (f32 CUDA cores)"),
+            **({"plan": tl["dkv_plan"], "llama2_7b_plan": t7["dkv_plan"]} if kind == "dkv" else {})))
     summary["kernels"] = kernels
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(summary, indent=1))

@@ -7,6 +7,9 @@ device. On the card:
 
     python -m pytest -m gpu tests/test_torch_gpu_train.py
 
+B8's bf16 cases cover the dkv plan's cluster sizes (1, 2, 7, 8 with 71 % 8
+!= 0) and its dispatch on D (the two-pass kernel at D = 256).
+
 Tolerances: B8 in bf16, outputs and gradients within 2e-2 of max|plain| per
 tensor (p and ds enter their products rounded to bf16, the plain version
 keeps f32; one bf16 ulp is 2^-8 relative); B8 in f32 within 1e-4 of
@@ -69,6 +72,10 @@ def _rel(got, want, mask=None):
     (1, 130, 8, 1, 128, None),   # MQA, rep 8, D = 128
     (1, 96, 2, 2, 80, None),     # D not a power of two
     (1, 70, 4, 4, 256, 33),      # D = 256 (the two-pass dkv)
+    (1, 256, 14, 2, 64, None),   # rep 7: a cluster of 7
+    (1, 130, 71, 1, 64, 100),    # MQA rep 71 (FALCON_7B's): clusters of 8, 71 % 8 != 0, padded
+    (2, 256, 8, 2, 64, None),    # S an exact multiple of 128
+    (1, 129, 4, 2, 64, 100),     # S = 129: one row past a 128 boundary
 ])
 def test_train_attention_bf16_matches_plain(gen, b, s, hq, hkv, d, pad_to):
     q, k, v, do, mask = _attention_case(gen, b, s, hq, hkv, d, torch.bfloat16, pad_to)
@@ -78,6 +85,11 @@ def test_train_attention_bf16_matches_plain(gen, b, s, hq, hkv, d, pad_to):
     want = _fwd_bwd(ta.flash_train_attention_plain, q, k, v, do, mask)
     assert (ta.train_attn_fwd.launches, ta.train_attn_bwd_dkv.launches,
             ta.train_attn_bwd_dq.launches) == tuple(n + 1 for n in launches)
+    # dkv went through the kernel its plan names: wgmma on clusters up to D = 128
+    plan = ta.train_attn_bwd_dkv.plan
+    assert plan == ta.dkv_plan(b, s, hq, hkv, d)
+    assert (plan.kernel, plan.cluster) == (("wgmma", min(hq // hkv, 8)) if d <= 128
+                                           else ("two_pass", 1))
     # the output and dq of real rows; dk/dv sum over real query rows only
     assert _rel(got[0], want[0], mask) < 2e-2
     assert _rel(got[1], want[1], mask) < 2e-2
@@ -99,6 +111,17 @@ def test_train_attention_f32_matches_plain(gen, d):
 def test_train_attention_is_deterministic(gen):
     q, k, v, do, mask = _attention_case(gen, 1, 300, 8, 2, 64, torch.bfloat16, pad_to=280)
     a = _fwd_bwd(ta.flash_train_attention, q, k, v, do, mask)
+    c = _fwd_bwd(ta.flash_train_attention, q, k, v, do, mask)
+    assert all(torch.equal(x, y) for x, y in zip(a, c))
+
+
+@pytest.mark.parametrize("hq,hkv", [(16, 2), (71, 1), (12, 1)])
+def test_train_attention_is_deterministic_across_cluster_splits(gen, hq, hkv):
+    """Clusters of 8 over rep 8 (one head a CTA), rep 71 and rep 12 (C does
+    not divide rep: CTAs walk 9 or 8, 2 or 1 heads); bit for bit."""
+    q, k, v, do, mask = _attention_case(gen, 1, 200, hq, hkv, 64, torch.bfloat16, pad_to=170)
+    a = _fwd_bwd(ta.flash_train_attention, q, k, v, do, mask)
+    assert ta.train_attn_bwd_dkv.plan.cluster == 8
     c = _fwd_bwd(ta.flash_train_attention, q, k, v, do, mask)
     assert all(torch.equal(x, y) for x, y in zip(a, c))
 
