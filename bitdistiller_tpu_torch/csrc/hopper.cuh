@@ -327,6 +327,31 @@ __device__ __forceinline__ void wgmma_ss_bf16(float (&d)[32], uint64_t da, uint6
         : "l"(da), "l"(db), "r"(0));
 }
 
+// wgmma_ss_bf16 on the operands OFF16 * 16 bytes past those of descriptors
+// da and db. The sums are made inside the instruction's asm block, so only
+// the two base descriptors live in registers between products. A shared
+// address fits the descriptor's 14-bit field in 16-byte units with room to
+// spare, so the sum does not carry out of it.
+template <bool ACC, int OFF16>
+__device__ __forceinline__ void wgmma_ss_bf16_at(float (&d)[32], uint64_t da, uint64_t db) {
+  if constexpr (ACC)
+    asm volatile(
+        "{\n.reg .pred p;\n.reg .b64 a, b;\nsetp.ne.b32 p, %34, 0;\n"
+        "add.s64 a, %32, %35;\nadd.s64 b, %33, %35;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " BD_D32
+        ", a, b, p, 1, 1, 0, 0;\n}\n"
+        : BD_O32(d)
+        : "l"(da), "l"(db), "r"(1), "n"(OFF16));
+  else
+    asm volatile(
+        "{\n.reg .pred p;\n.reg .b64 a, b;\nsetp.ne.b32 p, %34, 0;\n"
+        "add.s64 a, %32, %35;\nadd.s64 b, %33, %35;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " BD_D32
+        ", a, b, p, 1, 1, 0, 0;\n}\n"
+        : BD_W32(d)
+        : "l"(da), "l"(db), "r"(0), "n"(OFF16));
+}
+
 // D (64 x 64, f32) += A (64 x 16, bf16, registers, wgmma_bf16's layout) *
 // B (16 x 64, bf16, MN-major in shared memory: mn_desc).
 __device__ __forceinline__ void wgmma_bf16_tb(float (&d)[32], const uint32_t (&a)[4],

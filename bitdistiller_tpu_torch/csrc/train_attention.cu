@@ -29,7 +29,7 @@
 // the backward about 2.5x that, against 989 TFLOP/s of bf16 tensor cores;
 // the bytes (q, k, v, o once) are a few MB.
 //
-// Design, bf16 forward (any D) and dkv (D <= 128): warp-specialised CTAs
+// Design, bf16 forward and dq (any D) and dkv (D <= 128): warp-specialised CTAs
 // whose consumer warpgroups (128 threads) compute and whose one producer
 // warp keeps a ring of shared-memory stages full by TMA (4-D tensor maps
 // over [B, S, H, D], so a box reads rows past S and columns past D as zeros,
@@ -37,11 +37,11 @@
 // warpgroup MMA (wgmma): the score products read both operands from the
 // 128-byte-swizzled K-major tiles TMA wrote; the products of a probability
 // (or ds) tile read it from registers, rounded to bf16 in the accumulator's
-// own layout, against the MN-major (transposed) tile of V, dO or Q.
-// Registers bound the layout: with 9 or more warps a CTA, ptxas gives each
-// thread at most 168 (setmaxnreg over a producer warpgroup did not change
-// what it allocated), so no warpgroup holds more than one 64 x D f32
-// accumulator beside its 64 x 64 tiles.
+// own layout, against the MN-major (transposed) tile of V, dO, Q or K.
+// Registers bound the layout: with 9 or more warps a CTA, or two CTAs of 5
+// an SM, ptxas gives each thread at most 168 (setmaxnreg over a producer
+// warpgroup did not change what it allocated), so no warpgroup holds more
+// than one 64 x D f32 accumulator beside its 64 x 64 tiles.
 //   * forward: a CTA is one consumer warpgroup owning 64 query rows of one
 //     (batch, query head) and the producer warp, 3, 2 or 1 CTAs an SM at
 //     D = 64, 128, 256; it walks the key tiles of 64 rows on or below the
@@ -49,6 +49,16 @@
 //     f32 (exp2 of log2-scaled scores), masking only where a tile crosses
 //     the diagonal or S or holds another segment than the row (a padded
 //     row's tiles); query tiles are launched longest first.
+//   * dq: the forward's CTA (one consumer warpgroup of 64 query rows, one
+//     producer warp, longest tiles first, 2, 2 or 1 CTAs an SM at D = 64,
+//     128, 256 through 4, 2 and 2 stages), Q and dO resident; per key tile
+//     s = Q K^T and dp = dO V^T issued together, p and ds = p (dp - di) in
+//     registers (the same masking rule), then dq += ds K with K, already in
+//     the stage, as the MN-major operand. Its products run over every
+//     64-column box of a tile (all loaded; past D they are zeros) with no
+//     test of D between the wgmmas: with one, ptxas waited after every
+//     wgmma (scripts/kernel_sass.py counts the waits). The CTA owns its
+//     rows' dq: no atomics, deterministic.
 //   * dkv: a thread block cluster of C = min(rep, 8) CTAs owns 64 key rows
 //     of one (batch, kv head); CTA c walks query heads c, c + C, ... of the
 //     kv head (ops/train_attention.py: dkv_plan, dkv_walk) and for each the
@@ -58,12 +68,11 @@
 //     over in shared memory. The C partial dk and dv tiles are summed in
 //     rank order through distributed shared memory: no atomics,
 //     deterministic.
-//   * dkv at D > 128: the mma.sync kernel below, one CTA a (key tile, kv
-//     head, batch) walking all rep heads, dv then dk in two passes; chosen
-//     by D in the launcher.
-// dq: mma.sync.m16n8k16 on 64-row tiles of four warps, K and V tiles by
-// cp.async. f32 inputs run on CUDA cores (one warp a row), so that no dtype
-// JAX computes raises.
+// Two kinds of kernel remain off wgmma: dkv at D > 128, the mma.sync.m16n8k16
+// kernel below (one CTA of four warps a (key tile, kv head, batch) walking
+// all rep heads, dv then dk in two passes, tiles by cp.async; chosen by D in
+// the launcher), and the f32 kernels on CUDA cores (one warp a row), so
+// that no dtype JAX computes raises.
 
 #include <float.h>
 #include <limits.h>
@@ -340,70 +349,7 @@ __global__ void __launch_bounds__(kTThreads)
   store_rows<DT>(dk, acc, b, kt * BN + 16 * warp, S, Hkv, hk, D, sc, lane);
 }
 
-// dq: one CTA a (query tile, query head, batch); warp w owns rows q0 + 16w ..
-template <int DT>
-__global__ void __launch_bounds__(kTThreads)
-    train_attn_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                         const __nv_bfloat16* __restrict__ v, const int* __restrict__ seg,
-                         const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
-                         const float* __restrict__ di, __nv_bfloat16* __restrict__ dq, int S,
-                         int Hq, int Hkv, int D, float scale) {
-  extern __shared__ __align__(16) uint8_t smem[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Os = Qs + Tile<DT>::ELEMS;  // do
-  __nv_bfloat16* Ks = Os + Tile<DT>::ELEMS;
-  __nv_bfloat16* Vs = Ks + Tile<DT>::ELEMS;
-  int* segk_s = reinterpret_cast<int*>(Vs + Tile<DT>::ELEMS);
-  const int b = blockIdx.z, h = blockIdx.y, qt = blockIdx.x, q0 = qt * BM;
-  const int hk = h / (Hq / Hkv);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, quad = lane & 3;
-  const float qs = scale * kLog2e;
-  load_tile<DT>(Qs, q, b, q0, S, Hq, h, D);
-  load_tile<DT>(Os, dout, b, q0, S, Hq, h, D);
-  cp_commit();
-  int rows[2], segq[2];
-  float lse2[2], dii[2];
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = q0 + 16 * warp + (lane >> 2) + 8 * half;
-    rows[half] = row;
-    const bool in = row < S;
-    segq[half] = in ? (seg ? seg[size_t(b) * S + row] : 1) : -2;
-    lse2[half] = in ? lse[(size_t(b) * Hq + h) * S + row] * kLog2e : 0.f;
-    dii[half] = in ? di[(size_t(b) * S + row) * Hq + h] : 0.f;
-  }
-  float acc[DT / 8][4];
-#pragma unroll
-  for (int nd = 0; nd < DT / 8; ++nd)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nd][e] = 0.f;
-  for (int t = 0; t <= qt; ++t) {
-    __syncthreads();  // every warp done with the previous key tile
-    load_tile<DT>(Ks, k, b, t * BN, S, Hkv, hk, D);
-    load_tile<DT>(Vs, v, b, t * BN, S, Hkv, hk, D);
-    cp_commit();
-    load_seg(segk_s, seg, b, t * BN, S);
-    cp_wait<0>();
-    __syncthreads();
-    float p[8][4], ds[8][4];
-    rows_dot_rows<DT>(p, Qs, 16 * warp, Ks, D, lane);
-    rows_dot_rows<DT>(ds, Os, 16 * warp, Vs, D, lane);  // dp = do v^T
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int half = e >> 1, c = 8 * nt + 2 * quad + (e & 1), key = t * BN + c;
-        const bool ok = key <= rows[half] && segk_s[c] == segq[half];
-        const float pp = ok ? exp2f(p[nt][e] * qs - lse2[half]) : 0.f;
-        ds[nt][e] = pp * (ds[nt][e] - dii[half]);
-      }
-    acc_times_tile<DT>(acc, ds, Ks, D, lane);
-  }
-  const float sc[2] = {scale, scale};
-  store_rows<DT>(dq, acc, b, q0 + 16 * warp, S, Hq, h, D, sc, lane);
-}
-
-// ---- bf16 forward and dkv (D <= 128): wgmma fed by a TMA ring -----------------
+// ---- bf16 forward, dq and dkv (D <= 128): wgmma fed by a TMA ring -------------
 
 constexpr int kWg = 128;        // threads a warpgroup
 constexpr int kBoxRow = 128;    // bytes of a box row: 64 bf16 columns
@@ -640,6 +586,197 @@ __global__ void __launch_bounds__(Fwd<DT>::THREADS, Fwd<DT>::MIN_BLOCKS)
         if (col < D)
           *reinterpret_cast<uint32_t*>(po + col) = pack_bf16(o[c][4 * j + 2 * half] * inv[half],
                                                              o[c][4 * j + 2 * half + 1] * inv[half]);
+      }
+  }
+}
+
+// x (64 x 64) = the rows of tile A (descriptor da) times those of tile B
+// (db) over all DT columns, both K-major and swizzled as TMA wrote them: the
+// dq kernel's score products. No test of D between the wgmmas (with one,
+// ptxas waited after each): the kernel loads every box of a tile, so
+// columns past D are zeros and add nothing.
+template <int DT, int KK = 0>
+__device__ __forceinline__ void tiles_by_tiles(float (&x)[32], uint64_t da, uint64_t db) {
+  if constexpr (KK < DT / 16) {
+    wgmma_ss_bf16_at<KK != 0, ((KK >> 2) * 64 * kBoxRow + (KK & 3) * 32) / 16>(x, da, db);
+    tiles_by_tiles<DT, KK + 1>(x, da, db);
+  }
+}
+
+template <int DT>
+struct DqWs {
+  static constexpr int ST = DT <= 64 ? 4 : 2;  // ring stages
+  static constexpr int THREADS = kWg + 32;     // one consumer warpgroup, one producer warp
+  // CTAs an SM, as shared memory allows; registers a thread: 168 at two (ten
+  // warps an SM), 255 at one
+  static constexpr int MIN_BLOCKS = DT <= 128 ? 2 : 1;
+  static constexpr int TILE = DT / 64 * 64 * kBoxRow;  // a 64-row tile of Q, dO, K or V
+  static constexpr int SEG = (2 + 2 * ST) * TILE;     // Q, dO, then stage st's K and V
+  // keys' segment ids [ST][TK], the tile's one [ST]; then the mbarriers, 8-byte aligned
+  static constexpr int BAR = (SEG + ST * (TK + 1) * 4 + 7) / 8 * 8;
+  static constexpr int SMEM = BAR + (2 * ST + 1) * 8 + 1024;  // full, empty, q; alignment
+  static_assert(MIN_BLOCKS * (SMEM + 1024) <= 233472, "shared memory of an SM");
+};
+
+// dq: one CTA a (query head, batch, query tile of 64 rows, the longest
+// first), as the forward: a consumer warpgroup that owns the tile's rows and
+// their 64 x D f32 accumulator, and a producer warp that loads Q and dO once
+// and streams the key tiles on or below the diagonal (K, V and the keys'
+// segment ids) through the ring. For each key tile: s = Q K^T and
+// dp = dO V^T issued together (shared x shared, K-major), then in registers
+// p = 2^(s scale log2e - lse log2e) (0 where masked) and ds = p (dp - di),
+// then dq += ds K with ds rounded to bf16 A fragments against K as the
+// MN-major operand (the forward's p V with K for V). Each CTA writes only
+// its own rows: no atomics, the same bits on every run.
+template <int DT>
+__global__ void __launch_bounds__(DqWs<DT>::THREADS, DqWs<DT>::MIN_BLOCKS)
+    train_attn_dq_ws_kernel(const __grid_constant__ CUtensorMap q_map,
+                            const __grid_constant__ CUtensorMap k_map,
+                            const __grid_constant__ CUtensorMap v_map,
+                            const __grid_constant__ CUtensorMap do_map, const int* __restrict__ seg,
+                            const float* __restrict__ lse, const float* __restrict__ di,
+                            __nv_bfloat16* __restrict__ dq, int S, int Hq, int Hkv, int D,
+                            float scale) {
+  using P = DqWs<DT>;
+  constexpr int ST = P::ST;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  int* segs = reinterpret_cast<int*>(smem + P::SEG);
+  int* tsegs = segs + ST * TK;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + P::BAR);
+  uint64_t* empty = full + ST;
+  uint64_t* qbar = empty + ST;
+  constexpr int NB = DT / 64;  // boxes a tile, all loaded: those past D are zeros
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * TQ;
+  const int hk = h / (Hq / Hkv);
+  const int nkt = q0 / TK + 1;  // key tiles on or below the diagonal
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int i = 0; i < ST; ++i) {
+      mbar_init(full + i, kFullCount);
+      mbar_init(empty + i, 4);  // lane 0 of each consumer warp
+    }
+    mbar_init(qbar, 1);
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (tid >= kWg) {  // the producer warp
+    const int lane = tid & 31;
+    if (lane == 0) {
+      mbar_expect(qbar, 2 * NB * TQ * kBoxRow);
+      for (int c = 0; c < NB; ++c) {
+        tma_load_4d(smem + c * TQ * kBoxRow, &q_map, 64 * c, h, q0, b, qbar);
+        tma_load_4d(smem + P::TILE + c * TQ * kBoxRow, &do_map, 64 * c, h, q0, b, qbar);
+      }
+    }
+    for (int t = 0; t < nkt; ++t) {
+      const int st = t % ST, k0 = t * TK;
+      if (t >= ST) mbar_wait(empty + st, (t / ST - 1) & 1);
+      uint8_t* kt = smem + (2 + 2 * st) * P::TILE;
+      if (lane == 0) {
+        mbar_expect(full + st, 2 * NB * TK * kBoxRow);
+        for (int c = 0; c < NB; ++c) {
+          tma_load_4d(kt + c * TK * kBoxRow, &k_map, 64 * c, hk, k0, b, full + st);
+          tma_load_4d(kt + P::TILE + c * TK * kBoxRow, &v_map, 64 * c, hk, k0, b, full + st);
+        }
+      }
+      int lo = INT_MAX, hi = INT_MIN;
+      for (int i = lane; i < TK; i += 32) {
+        const int key = k0 + i;
+        const int v = key < S ? (seg ? seg[size_t(b) * S + key] : 1) : -1;
+        segs[st * TK + i] = v;
+        lo = min(lo, v);
+        hi = max(hi, v);
+      }
+      lo = __reduce_min_sync(0xffffffffu, lo);
+      hi = __reduce_max_sync(0xffffffffu, hi);
+      if (lane == 0) tsegs[st] = lo == hi ? lo : kMixed;
+      mbar_arrive(full + st);
+    }
+    return;
+  }
+
+  const int warp = tid >> 5, lane = tid & 31, quad = lane & 3;
+  const float qs = scale * kLog2e;
+  int rows[2], segq[2];
+  float lse2[2], dii[2];  // rows past S: 0, never stored
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = q0 + 16 * warp + (lane >> 2) + 8 * half;
+    const bool in = row < S;
+    rows[half] = row;
+    segq[half] = in ? (seg ? seg[size_t(b) * S + row] : 1) : -2;
+    lse2[half] = in ? lse[(size_t(b) * Hq + h) * S + row] * kLog2e : 0.f;
+    dii[half] = in ? di[(size_t(b) * S + row) * Hq + h] : 0.f;
+  }
+  float acc[NB][32];
+#pragma unroll
+  for (int c = 0; c < NB; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[c][i] = 0.f;
+  const uint64_t qd = sw128_desc(smem_u32(smem)), od = sw128_desc(smem_u32(smem + P::TILE));
+  mbar_wait(qbar, 0);
+
+  for (int t = 0; t < nkt; ++t) {
+    const int st = t % ST, k0 = t * TK;
+    mbar_wait(full + st, (t / ST) & 1);
+    const uint32_t ka = smem_u32(smem + (2 + 2 * st) * P::TILE);
+    float s[32], dp[32];
+    wgmma_fence();
+    tiles_by_tiles<DT>(s, qd, sw128_desc(ka));
+    tiles_by_tiles<DT>(dp, od, sw128_desc(ka + P::TILE));  // dp = do v^T
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+
+    const int* sk = segs + st * TK;
+    // the per-element test only where the tile crosses the diagonal or S or
+    // holds another segment than this thread's rows, as in the forward
+    const int ts = tsegs[st];
+    const bool mask = k0 + TK - 1 > q0 || k0 + TK > S || ts != segq[0] || ts != segq[1];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int half = (i >> 1) & 1, kc = 8 * (i >> 2) + 2 * quad + (i & 1);
+      float p = ex2(s[i] * qs - lse2[half]);
+      if (mask && !(k0 + kc <= rows[half] && sk[kc] == segq[half])) p = 0.f;
+      s[i] = p * (dp[i] - dii[half]);  // ds
+    }
+    uint32_t da[4][4];
+#pragma unroll
+    for (int kb = 0; kb < 4; ++kb) acc_a_frag(da[kb], s, kb);
+
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < NB; ++c) fence_regs(acc[c]);
+#pragma unroll
+    for (int kb = 0; kb < 4; ++kb)  // dq += ds k, every box (no test of D, as above)
+#pragma unroll
+      for (int c = 0; c < NB; ++c)
+        wgmma_bf16_tb(acc[c], da[kb], mn_desc(ka + (c * 64 + kb * 16) * kBoxRow, 64 * kBoxRow));
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int c = 0; c < NB; ++c) fence_regs(acc[c]);
+#pragma unroll
+    for (int kb = 0; kb < 4; ++kb) fence_regs(da[kb]);
+    if (lane == 0) mbar_arrive(empty + st);  // this warp is done with the stage
+  }
+
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    if (rows[half] >= S) continue;
+    __nv_bfloat16* pq = dq + ((size_t(b) * S + rows[half]) * Hq + h) * D;
+#pragma unroll
+    for (int c = 0; c < NB; ++c)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = 64 * c + 8 * j + 2 * quad;
+        if (col < D)
+          *reinterpret_cast<uint32_t*>(pq + col) = pack_bf16(acc[c][4 * j + 2 * half] * scale,
+                                                             acc[c][4 * j + 2 * half + 1] * scale);
       }
   }
 }
@@ -1084,12 +1221,19 @@ cudaError_t launch_bf16(Which w, const Args& a, cudaStream_t s) {
           static_cast<const float*>(a.di), static_cast<bf*>(a.o0), static_cast<bf*>(a.o1), a.S,
           a.Hq, a.Hkv, a.D, a.scale);
     }
-  } else {
-    auto kern = train_attn_dq_kernel<DT>;
-    if ((err = allow_smem(kern, bwd_smem<DT>())) != cudaSuccess) return err;
-    kern<<<dim3(nq, a.Hq, a.B), kTThreads, bwd_smem<DT>(), s>>>(
-        q, k, v, seg, static_cast<const bf*>(a.dout), static_cast<const float*>(a.lse_in),
-        static_cast<const float*>(a.di), static_cast<bf*>(a.o0), a.S, a.Hq, a.Hkv, a.D, a.scale);
+  } else {  // dq: the wgmma kernel at every D
+    using P = DqWs<DT>;
+    CUtensorMap qm, km, vm, om;
+    if (!tensor_map_bshd(&qm, q, a.B, a.S, a.Hq, a.D, TQ) ||
+        !tensor_map_bshd(&km, k, a.B, a.S, a.Hkv, a.D, TK) ||
+        !tensor_map_bshd(&vm, v, a.B, a.S, a.Hkv, a.D, TK) ||
+        !tensor_map_bshd(&om, a.dout, a.B, a.S, a.Hq, a.D, TQ))
+      return cudaErrorInvalidValue;
+    auto kern = train_attn_dq_ws_kernel<DT>;
+    if ((err = allow_smem(kern, P::SMEM)) != cudaSuccess) return err;
+    kern<<<dim3(a.Hq, a.B, (a.S + TQ - 1) / TQ), P::THREADS, P::SMEM, s>>>(
+        qm, km, vm, om, seg, static_cast<const float*>(a.lse_in), static_cast<const float*>(a.di),
+        static_cast<bf*>(a.o0), a.S, a.Hq, a.Hkv, a.D, a.scale);
   }
   return cudaGetLastError();
 }

@@ -18,8 +18,11 @@ backward launches `train_attn_bwd_dkv` and `train_attn_bwd_dq`, or raises.
 It saves q, k, v, o and the f32 log-sum-exp, so it is safe under
 torch.utils.checkpoint (a recompute launches the forward again).
 `di = rowsum(o * do)` in f32 stays a plain op, as JAX computes it outside
-Pallas. bf16 runs on the tensor cores (wgmma fed by TMA for the forward and,
-at D <= 128, dkv); f32 on CUDA cores.
+Pallas. bf16 runs on the tensor cores: the forward and dq at every D, and
+dkv at D <= 128, are wgmma kernels fed by a TMA ring; dkv above D = 128 is a
+two-pass mma.sync kernel. f32 runs on CUDA cores. `train_attn_bwd_dq_plain`
+is dq alone in plain PyTorch from the kernel's own inputs (lse, di), what
+the dq kernel is held to on the card.
 
 dkv's work is split by `dkv_plan` (the kernel by D, the cluster size, the
 grid) and `dkv_walk` (what each CTA of a cluster walks); the launch follows
@@ -113,6 +116,27 @@ def flash_train_attention_plain(q, k, v, attn_mask=None) -> torch.Tensor:
     return out.reshape(b, s, hq, d).to(q.dtype)
 
 
+def train_attn_bwd_dq_plain(q, k, v, seg, dout, lse, di) -> torch.Tensor:
+    """dq alone, from the dq kernel's inputs, in f32: p = exp(s - lse) where
+    allowed (else 0), ds = p (dout . v - di), dq = scale * ds k; seg [B, S]
+    (the padding mask) or None, lse [B, Hq, S], di [B, S, Hq]. Returns dq
+    [B, S, Hq, D] in q's dtype."""
+    b, s, hq, d = q.shape
+    hkv = k.shape[2]
+    rep = hq // hkv
+    scale = 1.0 / math.sqrt(d)
+    k32 = k.to(torch.float32)
+    qg = q.reshape(b, s, hkv, rep, d).to(torch.float32)
+    dog = dout.reshape(b, s, hkv, rep, d).to(torch.float32)
+    scores = torch.einsum("bshrd,bthd->bhrst", qg, k32) * scale
+    lse_g = lse.to(torch.float32).reshape(b, hkv, rep, s, 1)
+    p = torch.where(_allowed(s, seg, q.device), torch.exp(scores - lse_g), 0.0)
+    dp = torch.einsum("bshrd,bthd->bhrst", dog, v.to(torch.float32))
+    di_g = di.to(torch.float32).reshape(b, s, hkv, rep).permute(0, 2, 3, 1)[..., None]
+    dq = torch.einsum("bhrst,bthd->bshrd", p * (dp - di_g), k32) * scale
+    return dq.reshape(b, s, hq, d).to(q.dtype)
+
+
 @functools.lru_cache(maxsize=None)
 def _launcher(name: str):
     fn = getattr(_build.load("train_attention"), name)
@@ -183,7 +207,8 @@ def train_attn_bwd_dkv(q, k, v, seg, dout, lse, di) -> tuple[torch.Tensor, torch
 
 
 def train_attn_bwd_dq(q, k, v, seg, dout, lse, di) -> torch.Tensor:
-    """dq [B, S, Hq, D]."""
+    """dq [B, S, Hq, D] (bf16: one CTA a (query head, batch, 64-row query
+    tile) owns its rows, so the result is the same bits on every run)."""
     dq = torch.empty_like(q)
     err = _launcher("bd_train_attn_dq")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(seg), dout.data_ptr(), lse.data_ptr(),

@@ -993,7 +993,10 @@ def _ta_run(fn, q, k, v, do, mask):
 def train_attention_phase(gen, record):
     """B8's forward and its three gradients against
     flash_train_attention_plain at TA_CASES (pad rows compared under the
-    mask: garbage in both), then its times at TinyLlama's and 7B's shapes:
+    mask: garbage in both), and the dq kernel by itself ("dq_alone") against
+    train_attn_bwd_dq_plain and against autograd's dq of the plain version,
+    on the kernel forward's lse and di; then its times at TinyLlama's, 7B's
+    and the D = 256 case's shapes (and the f32 case's):
     the forward, dkv and dq kernels one by one through their wrappers, the
     plain version's forward and forward+backward, and SDPA
     (scaled_dot_product_attention(is_causal=True, enable_gqa=True), the
@@ -1001,8 +1004,8 @@ def train_attention_phase(gen, record):
     operations over PEAK_BF16_FLOPS, B*Hq*S^2*D flops a product of half the
     score matrix: 2 products forward, 4 in dkv (the s recompute, dp, dv,
     dk), 3 in dq (s, dp, dq); the f32 case's over PEAK_F32_FLOPS (CUDA
-    cores), beside SDPA in f32. Each time row carries the dkv plan (kernel,
-    cluster, CTAs)."""
+    cores), beside SDPA in f32. bwd_ms is dkv_ms + dq_ms, beside SDPA's
+    backward. Each time row carries the dkv plan (kernel, cluster, CTAs)."""
     worst = {}
     for name, case in TA_CASES.items():
         q, k, v, do, mask = _ta_inputs(gen, *case)
@@ -1016,15 +1019,24 @@ def train_attention_phase(gen, record):
                 keep = mask.bool()[..., None, None]
                 g, w = g * keep, w * keep
             errs[tname] = (g - w).abs().max().item() / w.abs().max().item()
+        seg = None if mask is None else mask.to(torch.int32).contiguous()
+        out, lse = ta.train_attn_fwd(q, k, v, seg)
+        di = (out.float() * do.float()).sum(-1).contiguous()
+        dq = ta.train_attn_bwd_dq(q, k, v, seg, do, lse, di).float()
+        keep = 1 if mask is None else mask.bool()[..., None, None]
+        for tname, w in (("dq_alone", ta.train_attn_bwd_dq_plain(q, k, v, seg, do, lse, di)),
+                         ("dq_alone_autograd", want[1])):
+            w = w.float() * keep
+            errs[tname] = (dq * keep - w).abs().max().item() / w.abs().max().item()
         ok = all(e <= tol for e in errs.values())
         record.append(dict(case=name, shape=case[:6], dtype=str(case[-1]), rel_err=errs, tol=tol,
                            ok=ok))
         if not ok:
             raise AssertionError(f"train attention {name}: relative errors {errs} (tol {tol})")
         worst[name] = max(errs.values())
-        del q, k, v, do, got, want
+        del q, k, v, do, got, want, out, lse, di, dq
     times = {}
-    for name in ("tinyllama", "llama2_7b", "f32"):
+    for name in ("tinyllama", "llama2_7b", "d256", "f32"):
         b, s, hq, hkv, d, pad, dtype = TA_CASES[name]
         peak = PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
         plan = ta.dkv_plan(b, s, hq, hkv, d)
@@ -1051,7 +1063,8 @@ def train_attention_phase(gen, record):
         lib_fb_ms = cuda_ms(lib_fb, 5)
         unit = float(b) * hq * s * s * d  # flops of one causal product
         times[name] = dict(
-            shape=(b, s, hq, hkv, d), fwd_ms=fwd, dkv_ms=dkv, dq_ms=dq, fwd_bwd_ms=fb,
+            shape=(b, s, hq, hkv, d), fwd_ms=fwd, dkv_ms=dkv, dq_ms=dq, bwd_ms=dkv + dq,
+            fwd_bwd_ms=fb,
             plain_fwd_ms=plain_f, plain_fwd_bwd_ms=plain_fb, plain_bwd_ms=plain_fb - plain_f,
             sdpa_fwd_ms=lib_f, sdpa_fwd_bwd_ms=lib_fb_ms, sdpa_bwd_ms=lib_fb_ms - lib_f,
             fwd_bound_ms=2 * unit / peak * 1e3, dkv_bound_ms=4 * unit / peak * 1e3,
@@ -1420,7 +1433,8 @@ def main() -> int:
             say(f"train attention {name} {t['shape']}: fwd {t['fwd_ms']:.3f} ms (bound "
                 f"{t['fwd_bound_ms']:.3f}, plain {t['plain_fwd_ms']:.3f}, SDPA "
                 f"{t['sdpa_fwd_ms']:.3f}); dkv {t['dkv_ms']:.3f} (bound {t['dkv_bound_ms']:.3f}), "
-                f"dq {t['dq_ms']:.3f} (bound {t['dq_bound_ms']:.3f}); fwd+bwd {t['fwd_bwd_ms']:.3f} "
+                f"dq {t['dq_ms']:.3f} (bound {t['dq_bound_ms']:.3f}); bwd {t['bwd_ms']:.3f} (SDPA "
+                f"{t['sdpa_bwd_ms']:.3f}); fwd+bwd {t['fwd_bwd_ms']:.3f} "
                 f"(plain {t['plain_fwd_bwd_ms']:.3f}, SDPA {t['sdpa_fwd_bwd_ms']:.3f}); dkv plan "
                 f"{t['dkv_plan']}")
         say(f"train attention checks: worst relative error {ta_err}")
@@ -1490,12 +1504,16 @@ def main() -> int:
     ]
     tl, t7 = ta_times["tinyllama"], ta_times["llama2_7b"]
     ta_err_max = max(ta_err.values())
-    b8 = lambda kind, t, plain, lib: dict(ms=t[f"{kind}_ms"], plain_ms=t[plain],
-                                          bound_ms=t[f"{kind}_bound_ms"], bound_by="operations",
-                                          library_ms=t[lib])
+
+    def b8(kind, t, plain, lib):  # bwd_ms (dkv + dq) beside library_ms, SDPA's backward
+        return dict(ms=t[f"{kind}_ms"], plain_ms=t[plain], bound_ms=t[f"{kind}_bound_ms"],
+                    bound_by="operations", library_ms=t[lib],
+                    **({"bwd_ms": t["bwd_ms"]} if kind != "fwd" else {}))
+
     b8_work = ("TinyLlama-1.1B attention, B=2, S=1024, Hq=32, Hkv=4, D=64, bf16, causal "
-               "(llama2_7b: B=1, S=2048, Hq=Hkv=32, D=128); max_abs_err is the worst "
-               "relative error over the forward and the three gradients of the checked cases; "
+               "(llama2_7b: B=1, S=2048, Hq=Hkv=32, D=128; d256: B=1, S=1000, Hq=Hkv=16, "
+               "D=256, dkv by the two-pass kernel); max_abs_err is the worst relative error "
+               "over the forward, the three gradients and dq alone of the checked cases; "
                "launches from the train phase (4 micro-steps of run_training)")
     for kind, name, line, plain, lib in (
             ("fwd", "train_attn_fwd", ":758 (_flash_attention_kernel :331)", "plain_fwd_ms",
@@ -1512,9 +1530,10 @@ def main() -> int:
             **b8(kind, tl, plain, lib), work=b8_work
             + ("; plain_ms and library_ms are the whole backward (dq, dk, dv together)"
                if kind != "fwd" else ""),
-            llama2_7b=b8(kind, t7, plain, lib),
+            llama2_7b=b8(kind, t7, plain, lib), d256=b8(kind, ta_times["d256"], plain, lib),
             f32=dict(b8(kind, ta_times["f32"], plain, lib), bound_by="operations (f32 CUDA cores)"),
-            **({"plan": tl["dkv_plan"], "llama2_7b_plan": t7["dkv_plan"]} if kind == "dkv" else {})))
+            **({"plan": tl["dkv_plan"], "llama2_7b_plan": t7["dkv_plan"],
+                "d256_plan": ta_times["d256"]["dkv_plan"]} if kind == "dkv" else {})))
     summary["kernels"] = kernels
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(summary, indent=1))

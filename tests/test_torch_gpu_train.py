@@ -8,7 +8,10 @@ device. On the card:
     python -m pytest -m gpu tests/test_torch_gpu_train.py
 
 B8's bf16 cases cover the dkv plan's cluster sizes (1, 2, 7, 8 with 71 % 8
-!= 0) and its dispatch on D (the two-pass kernel at D = 256).
+!= 0) and its dispatch on D (the two-pass kernel at D = 256). The dq kernel
+is also held by itself against `train_attn_bwd_dq_plain` on the forward
+kernel's lse and di (D = 64, 80, 128, 256; rep 1, 8, 71; S = 64, 129, 1000;
+padded), and its two calls must give the same bits.
 
 Tolerances: B8 in bf16, outputs and gradients within 2e-2 of max|plain| per
 tensor (p and ds enter their products rounded to bf16, the plain version
@@ -124,6 +127,26 @@ def test_train_attention_is_deterministic_across_cluster_splits(gen, hq, hkv):
     assert ta.train_attn_bwd_dkv.plan.cluster == 8
     c = _fwd_bwd(ta.flash_train_attention, q, k, v, do, mask)
     assert all(torch.equal(x, y) for x, y in zip(a, c))
+
+
+@pytest.mark.parametrize("s", [64, 129, 1000])
+@pytest.mark.parametrize("rep", [1, 8, 71])
+@pytest.mark.parametrize("d", [64, 80, 128, 256])
+def test_train_attention_dq_kernel_alone_matches_plain(gen, d, rep, s):
+    """The dq kernel on identical inputs to its plain version; rep 1 runs two
+    batches (batch 0 padded), rep 8 two kv heads, rep 71 one (FALCON_7B)."""
+    b, hkv = (2, 2) if rep == 1 else (1, 2) if rep == 8 else (1, 1)
+    q, k, v, do, mask = _attention_case(gen, b, s, rep * hkv, hkv, d, torch.bfloat16,
+                                        pad_to=s - s // 4)
+    out, lse = ta.train_attn_fwd(q, k, v, mask)
+    di = (out.float() * do.float()).sum(-1).contiguous()
+    before = ta.train_attn_bwd_dq.launches
+    got = ta.train_attn_bwd_dq(q, k, v, mask, do, lse, di)
+    assert ta.train_attn_bwd_dq.launches == before + 1
+    want = ta.train_attn_bwd_dq_plain(q, k, v, mask, do, lse, di)
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    assert _rel(got, want, mask) < 2e-2
+    assert torch.equal(got, ta.train_attn_bwd_dq(q, k, v, mask, do, lse, di))
 
 
 def test_train_attention_under_checkpoint_relaunches_the_forward(gen):
