@@ -364,9 +364,69 @@ __device__ __forceinline__ void wgmma_bf16_tb(float (&d)[32], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// D (64 x 64, f32) += A (64 x 16, bf16, K-major and swizzled in shared
+// memory: sw128_desc) * B (16 x 64, bf16, MN-major: mn_desc), on the
+// operands OFFA16 * 16 and OFFB16 * 16 bytes past those of descriptors da
+// and db (summed inside the asm block, as wgmma_ss_bf16_at).
+template <int OFFA16, int OFFB16>
+__device__ __forceinline__ void wgmma_ss_tb_at(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .b64 a, b;\nsetp.ne.b32 p, %34, 0;\n"
+      "add.s64 a, %32, %35;\nadd.s64 b, %33, %36;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " BD_D32
+      ", a, b, p, 1, 1, 0, 1;\n}\n"
+      : BD_O32(d)
+      : "l"(da), "l"(db), "r"(1), "n"(OFFA16), "n"(OFFB16));
+}
+
 #undef BD_D32
 #undef BD_O32
 #undef BD_W32
+
+#define BD_D16                                                                                   \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+#define BD_O16(d)                                                                                \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),            \
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),    \
+      "+f"(d[14]), "+f"(d[15])
+#define BD_W16(d)                                                                                \
+  "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]),            \
+      "=f"(d[7]), "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]),    \
+      "=f"(d[14]), "=f"(d[15])
+
+// wgmma_ss_bf16_at at N = 32: D (64 x 32, f32) (+)= A (64 x 16) * B (16 x
+// 32), both K-major and swizzled in shared memory; d[4j .. 4j+3] as
+// wgmma_bf16's layout for j < 4.
+template <bool ACC, int OFF16>
+__device__ __forceinline__ void wgmma_ss_n32_at(float (&d)[16], uint64_t da, uint64_t db) {
+  if constexpr (ACC)
+    asm volatile(
+        "{\n.reg .pred p;\n.reg .b64 a, b;\nsetp.ne.b32 p, %18, 0;\n"
+        "add.s64 a, %16, %19;\nadd.s64 b, %17, %19;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " BD_D16
+        ", a, b, p, 1, 1, 0, 0;\n}\n"
+        : BD_O16(d)
+        : "l"(da), "l"(db), "r"(1), "n"(OFF16));
+  else
+    asm volatile(
+        "{\n.reg .pred p;\n.reg .b64 a, b;\nsetp.ne.b32 p, %18, 0;\n"
+        "add.s64 a, %16, %19;\nadd.s64 b, %17, %19;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " BD_D16
+        ", a, b, p, 1, 1, 0, 0;\n}\n"
+        : BD_W16(d)
+        : "l"(da), "l"(db), "r"(0), "n"(OFF16));
+}
+
+#undef BD_D16
+#undef BD_O16
+#undef BD_W16
+
+// Makes this thread's shared-memory writes by ordinary stores visible to
+// the async proxy (a wgmma that reads them through a descriptor, once a
+// barrier has ordered the threads).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
 
 // Named barrier over the first `threads` threads of the block (id 1..15).
 __device__ __forceinline__ void named_sync(int id, int threads) {

@@ -29,19 +29,20 @@
 // the backward about 2.5x that, against 989 TFLOP/s of bf16 tensor cores;
 // the bytes (q, k, v, o once) are a few MB.
 //
-// Design, bf16 forward and dq (any D) and dkv (D <= 128): warp-specialised CTAs
-// whose consumer warpgroups (128 threads) compute and whose one producer
-// warp keeps a ring of shared-memory stages full by TMA (4-D tensor maps
-// over [B, S, H, D], so a box reads rows past S and columns past D as zeros,
+// Design, bf16 (every kernel at every D): warp-specialised CTAs whose
+// consumer warpgroups (128 threads) compute and whose one producer warp
+// keeps a ring of shared-memory stages full by TMA (4-D tensor maps over
+// [B, S, H, D], so a box reads rows past S and columns past D as zeros,
 // never a neighbour's), with full and empty mbarriers. Every product is a
 // warpgroup MMA (wgmma): the score products read both operands from the
 // 128-byte-swizzled K-major tiles TMA wrote; the products of a probability
 // (or ds) tile read it from registers, rounded to bf16 in the accumulator's
-// own layout, against the MN-major (transposed) tile of V, dO, Q or K.
+// own layout, or from a swizzled shared slot, against the MN-major
+// (transposed) tile of V, dO, Q or K. No kernel has an mma.sync.
 // Registers bound the layout: with 9 or more warps a CTA, or two CTAs of 5
 // an SM, ptxas gives each thread at most 168 (setmaxnreg over a producer
 // warpgroup did not change what it allocated), so no warpgroup holds more
-// than one 64 x D f32 accumulator beside its 64 x 64 tiles.
+// than one 64 x 128 f32 accumulator beside its score tiles.
 //   * forward: a CTA is one consumer warpgroup owning 64 query rows of one
 //     (batch, query head) and the producer warp, 3, 2 or 1 CTAs an SM at
 //     D = 64, 128, 256; it walks the key tiles of 64 rows on or below the
@@ -63,16 +64,17 @@
 //     of one (batch, kv head); CTA c walks query heads c, c + C, ... of the
 //     kv head (ops/train_attention.py: dkv_plan, dkv_walk) and for each the
 //     64-row query tiles on or below the diagonal, streaming Q, dO, lse and
-//     di through a ring of 3 stages. Its two consumer warpgroups split the
-//     four products over the same keys (p and dv; dp, ds and dk), p handed
-//     over in shared memory. The C partial dk and dv tiles are summed in
-//     rank order through distributed shared memory: no atomics,
-//     deterministic.
-// Two kinds of kernel remain off wgmma: dkv at D > 128, the mma.sync.m16n8k16
-// kernel below (one CTA of four warps a (key tile, kv head, batch) walking
-// all rep heads, dv then dk in two passes, tiles by cp.async; chosen by D in
-// the launcher), and the f32 kernels on CUDA cores (one warp a row), so
-// that no dtype JAX computes raises.
+//     di through a ring. Up to D = 128 (3 stages) its two consumer
+//     warpgroups split the four products over the same keys (p and dv; dp,
+//     ds and dk), p handed over in shared memory. Above (the wide kernel,
+//     2 stages of 64 KB) a warpgroup owns half of D's columns and the CTA
+//     walks twice, dv then dk: each warpgroup scores 32 of a stage's 64
+//     queries and hands its p (ds) to the other through a swizzled bf16
+//     slot that both read as the A operand. The C partial dk and dv tiles
+//     are summed in rank order through distributed shared memory: no
+//     atomics, deterministic.
+// f32 inputs run on CUDA cores (one warp a row), so that no dtype JAX
+// computes raises.
 
 #include <float.h>
 #include <limits.h>
@@ -89,271 +91,17 @@ using namespace bd;
 constexpr float kMaskValue = -0.7f * FLT_MAX;  // flash_attention.py: DEFAULT_MASK_VALUE
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
-constexpr int BM = 64;  // query rows a CTA (four warps of 16)
-constexpr int BN = 64;  // key rows a tile
-constexpr int kTWarps = 4;
-constexpr int kTThreads = kTWarps * 32;
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t pack_pair(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return uint32_t(*reinterpret_cast<const uint16_t*>(&lo)) |
-         (uint32_t(*reinterpret_cast<const uint16_t*>(&hi)) << 16);
-}
-
-template <int DT>
-struct Tile {
-  static constexpr int LD = DT + 8;  // bf16 a shared row: 16 bytes of padding
-  static constexpr int ELEMS = BN * LD;
-  static constexpr size_t BYTES = size_t(ELEMS) * 2;
-};
-
-// rows [r0, r0 + 64) of head h of a [B, S, H, D] bf16 tensor into a shared
-// tile (Tile<DT>::LD a row); rows past S and columns past D are zeros
-template <int DT>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src, int b,
-                                          int r0, int S, int H, int h, int D) {
-  constexpr int CPR = DT / 8;  // 16-byte pieces a row
-  for (int i = threadIdx.x; i < BN * CPR; i += blockDim.x) {
-    const int r = i / CPR, c = i - r * CPR, row = r0 + r;
-    const bool ok = row < S && c * 8 < D;
-    const __nv_bfloat16* s = ok ? src + ((size_t(b) * S + row) * H + h) * D + c * 8 : src;
-    cp_async16(dst + r * Tile<DT>::LD + c * 8, s, ok ? 16 : 0);
-  }
-}
-
-// segment ids of rows [r0, r0 + 64) into shared memory; -1 past S (masked)
-__device__ __forceinline__ void load_seg(int* dst, const int* seg, int b, int r0, int S) {
-  for (int i = threadIdx.x; i < BN; i += blockDim.x) {
-    const int row = r0 + i;
-    dst[i] = row < S ? (seg ? seg[size_t(b) * S + row] : 1) : -1;
-  }
-}
-
-// A fragment (16 x 16, rows r0 .. r0 + 15, columns 16kb ..) of a shared tile
-template <int DT>
-__device__ __forceinline__ void a_frag(uint32_t (&a)[4], const __nv_bfloat16* t, int r0, int kb,
-                                       int lane) {
-  constexpr int LD = Tile<DT>::LD;
-  const int r = r0 + (lane >> 2), c = 16 * kb + 2 * (lane & 3);
-  a[0] = *reinterpret_cast<const uint32_t*>(t + r * LD + c);
-  a[1] = *reinterpret_cast<const uint32_t*>(t + (r + 8) * LD + c);
-  a[2] = *reinterpret_cast<const uint32_t*>(t + r * LD + c + 8);
-  a[3] = *reinterpret_cast<const uint32_t*>(t + (r + 8) * LD + c + 8);
-}
-
-// B fragment (16 x 8) whose k runs along a shared row: B[k][n] = t[n0 + n][16kb + k]
-template <int DT>
-__device__ __forceinline__ void b_frag_row(uint32_t& b0, uint32_t& b1, const __nv_bfloat16* t,
-                                           int n0, int kb, int lane) {
-  constexpr int LD = Tile<DT>::LD;
-  const __nv_bfloat16* p = t + (n0 + (lane >> 2)) * LD + 16 * kb + 2 * (lane & 3);
-  b0 = *reinterpret_cast<const uint32_t*>(p);
-  b1 = *reinterpret_cast<const uint32_t*>(p + 8);
-}
-
-// B fragment (16 x 8) whose k runs down a shared column: B[k][n] = t[16kb + k][n0 + n]
-template <int DT>
-__device__ __forceinline__ void b_frag_col(uint32_t& b0, uint32_t& b1, const __nv_bfloat16* t,
-                                           int n0, int kb, int lane) {
-  constexpr int LD = Tile<DT>::LD;
-  const int k = 16 * kb + 2 * (lane & 3), n = n0 + (lane >> 2);
-  b0 = pack_pair(t[k * LD + n], t[(k + 1) * LD + n]);
-  b1 = pack_pair(t[(k + 8) * LD + n], t[(k + 9) * LD + n]);
-}
-
-// acc[n-tile][4] (16 rows x 64 columns) rounded to bf16 as the A operand of
-// the next product, over k = its 64 columns: A fragment kb
-__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&x)[8][4], int kb) {
-  a[0] = pack_bf16(x[2 * kb][0], x[2 * kb][1]);
-  a[1] = pack_bf16(x[2 * kb][2], x[2 * kb][3]);
-  a[2] = pack_bf16(x[2 * kb + 1][0], x[2 * kb + 1][1]);
-  a[3] = pack_bf16(x[2 * kb + 1][2], x[2 * kb + 1][3]);
-}
-
-// x[8][4] = rows r0 .. r0 + 15 of tile A times the 64 rows of tile B,
-// transposed: x[nt][e] = A[r][:D] . B[8nt + c][:D]
-template <int DT>
-__device__ __forceinline__ void rows_dot_rows(float (&x)[8][4], const __nv_bfloat16* A, int r0,
-                                              const __nv_bfloat16* Bt, int D, int lane) {
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) x[nt][e] = 0.f;
-#pragma unroll
-  for (int kb = 0; kb < DT / 16; ++kb) {
-    if (16 * kb >= D) break;
-    uint32_t a[4];
-    a_frag<DT>(a, A, r0, kb, lane);
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      uint32_t b0, b1;
-      b_frag_row<DT>(b0, b1, Bt, 8 * nt, kb, lane);
-      mma_bf16(x[nt], a, b0, b1);
-    }
-  }
-}
-
-// acc[DT/8][4] += X (16 x 64, in registers) times tile T (64 rows x D)
-template <int DT>
-__device__ __forceinline__ void acc_times_tile(float (&acc)[DT / 8][4], const float (&x)[8][4],
-                                               const __nv_bfloat16* T, int D, int lane) {
-#pragma unroll
-  for (int kb = 0; kb < 4; ++kb) {
-    uint32_t a[4];
-    acc_to_a(a, x, kb);
-#pragma unroll
-    for (int nd = 0; nd < DT / 8; ++nd) {
-      if (8 * nd >= D) break;
-      uint32_t b0, b1;
-      b_frag_col<DT>(b0, b1, T, 8 * nd, kb, lane);
-      mma_bf16(acc[nd], a, b0, b1);
-    }
-  }
-}
-
-// rows r (e < 2) and r + 8 (e >= 2) of a 16-row accumulator, columns 8nd + 2quad (+1),
-// scaled and written to head h of a [B, S, H, D] bf16 tensor
-template <int DT>
-__device__ __forceinline__ void store_rows(__nv_bfloat16* dst, const float (&acc)[DT / 8][4],
-                                           int b, int row0, int S, int H, int h, int D,
-                                           const float (&mul)[2], int lane) {
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = row0 + (lane >> 2) + 8 * half;
-    if (row >= S) continue;
-    __nv_bfloat16* o = dst + ((size_t(b) * S + row) * H + h) * D;
-#pragma unroll
-    for (int nd = 0; nd < DT / 8; ++nd) {
-      const int c = 8 * nd + 2 * (lane & 3);
-      if (c >= D) break;
-      *reinterpret_cast<uint32_t*>(o + c) =
-          pack_bf16(acc[nd][2 * half] * mul[half], acc[nd][2 * half + 1] * mul[half]);
-    }
-  }
-}
-
-template <int DT>
-constexpr size_t bwd_smem() {
-  return 4 * Tile<DT>::BYTES + 4 * BN * 4;  // four tiles; lse, di and two seg rows
-}
-
-// dkv at D > 128: one CTA a (key tile, kv head, batch); warp w owns keys
-// k0 + 16w ..; it walks the rep query heads and the query tiles on or below
-// the diagonal. DO_V / DO_K: which of dv and dk this pass accumulates (two
-// passes, so that one 16 x D accumulator a thread is live at a time).
-template <int DT, bool DO_V, bool DO_K>
-__device__ __forceinline__ void dkv_pass(float (&dv)[DT / 8][4], float (&dk)[DT / 8][4],
-                                         const __nv_bfloat16* q, const __nv_bfloat16* dout,
-                                         const float* lse, const float* di, const int* seg,
-                                         __nv_bfloat16* Ks, __nv_bfloat16* Vs, __nv_bfloat16* Qs,
-                                         __nv_bfloat16* Os, float* lse_s, float* di_s, int* segq_s,
-                                         const int* segk_s, int b, int kt, int hk, int S, int Hq,
-                                         int Hkv, int D, float scale) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, quad = lane & 3;
-  const int rep = Hq / Hkv, nqt = (S + BM - 1) / BM;
-  const float qs = scale * kLog2e;
-  int keys[2], segk[2];
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    keys[half] = kt * BN + 16 * warp + (lane >> 2) + 8 * half;
-    segk[half] = segk_s[keys[half] - kt * BN];
-  }
-  for (int r = 0; r < rep; ++r) {
-    const int h = hk * rep + r;
-    for (int qt = kt; qt < nqt; ++qt) {
-      const int q0 = qt * BM;
-      __syncthreads();  // every warp done with the previous query tile
-      load_tile<DT>(Qs, q, b, q0, S, Hq, h, D);
-      load_tile<DT>(Os, dout, b, q0, S, Hq, h, D);
-      cp_commit();
-      for (int i = threadIdx.x; i < BM; i += blockDim.x) {
-        const int row = q0 + i;
-        lse_s[i] = row < S ? lse[(size_t(b) * Hq + h) * S + row] * kLog2e : 0.f;
-        di_s[i] = row < S ? di[(size_t(b) * S + row) * Hq + h] : 0.f;
-        segq_s[i] = row < S ? (seg ? seg[size_t(b) * S + row] : 1) : -3;  // keys past S: -1
-      }
-      cp_wait<0>();
-      __syncthreads();
-      float p[8][4];
-      rows_dot_rows<DT>(p, Ks, 16 * warp, Qs, D, lane);  // s^T: keys x queries
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int half = e >> 1, c = 8 * nt + 2 * quad + (e & 1), query = q0 + c;
-          const bool ok = keys[half] <= query && segq_s[c] == segk[half];
-          p[nt][e] = ok ? exp2f(p[nt][e] * qs - lse_s[c]) : 0.f;
-        }
-      if constexpr (DO_V) acc_times_tile<DT>(dv, p, Os, D, lane);
-      if constexpr (DO_K) {
-        float ds[8][4];
-        rows_dot_rows<DT>(ds, Vs, 16 * warp, Os, D, lane);  // dp^T = v do^T
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int c = 8 * nt + 2 * quad + (e & 1);
-            ds[nt][e] = p[nt][e] * (ds[nt][e] - di_s[c]);
-          }
-        acc_times_tile<DT>(dk, ds, Qs, D, lane);
-      }
-    }
-  }
-}
-
-template <int DT>
-__global__ void __launch_bounds__(kTThreads)
-    train_attn_dkv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                          const __nv_bfloat16* __restrict__ v, const int* __restrict__ seg,
-                          const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
-                          const float* __restrict__ di, __nv_bfloat16* __restrict__ dk,
-                          __nv_bfloat16* __restrict__ dv, int S, int Hq, int Hkv, int D,
-                          float scale) {
-  extern __shared__ __align__(16) uint8_t smem[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Vs = Ks + Tile<DT>::ELEMS;
-  __nv_bfloat16* Qs = Vs + Tile<DT>::ELEMS;
-  __nv_bfloat16* Os = Qs + Tile<DT>::ELEMS;  // do
-  float* lse_s = reinterpret_cast<float*>(Os + Tile<DT>::ELEMS);
-  float* di_s = lse_s + BM;
-  int* segq_s = reinterpret_cast<int*>(di_s + BM);
-  int* segk_s = segq_s + BM;
-  const int b = blockIdx.z, hk = blockIdx.y, kt = blockIdx.x;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  load_tile<DT>(Ks, k, b, kt * BN, S, Hkv, hk, D);
-  load_tile<DT>(Vs, v, b, kt * BN, S, Hkv, hk, D);
-  cp_commit();
-  load_seg(segk_s, seg, b, kt * BN, S);
-  cp_wait<0>();
-  __syncthreads();
-  const float one[2] = {1.f, 1.f}, sc[2] = {scale, scale};
-  float acc[DT / 8][4], acc2[DT / 8][4];
-  auto zero = [](float (&a)[DT / 8][4]) {
-#pragma unroll
-    for (int nd = 0; nd < DT / 8; ++nd)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) a[nd][e] = 0.f;
-  };
-  // dv, then dk
-  zero(acc);
-  dkv_pass<DT, true, false>(acc, acc2, q, dout, lse, di, seg, Ks, Vs, Qs, Os, lse_s, di_s,
-                            segq_s, segk_s, b, kt, hk, S, Hq, Hkv, D, scale);
-  store_rows<DT>(dv, acc, b, kt * BN + 16 * warp, S, Hkv, hk, D, one, lane);
-  zero(acc);
-  dkv_pass<DT, false, true>(acc2, acc, q, dout, lse, di, seg, Ks, Vs, Qs, Os, lse_s, di_s,
-                            segq_s, segk_s, b, kt, hk, S, Hq, Hkv, D, scale);
-  store_rows<DT>(dk, acc, b, kt * BN + 16 * warp, S, Hkv, hk, D, sc, lane);
-}
-
-// ---- bf16 forward, dq and dkv (D <= 128): wgmma fed by a TMA ring -------------
+// ---- bf16 forward, dq and dkv: wgmma fed by a TMA ring ------------------------
 
 constexpr int kWg = 128;        // threads a warpgroup
 constexpr int kBoxRow = 128;    // bytes of a box row: 64 bf16 columns
-constexpr int TQ = 64;          // query rows of a forward CTA, of a dkv ring stage
+constexpr int TQ = 64;          // query rows of a forward or dq CTA, of a dkv ring stage
 constexpr int TK = 64;          // key rows of a forward ring stage, of a dkv CTA
 constexpr int kFullCount = 33;  // the producer warp's lanes + lane 0's expect_tx
 constexpr int kMixed = -4;      // a tile's segment id when its rows hold more than one
@@ -1021,6 +769,292 @@ __global__ void __launch_bounds__(2 * kWg + 32, 1)
   cluster_barrier();  // no CTA leaves while a peer still reads its shared memory
 }
 
+// ---- bf16 dkv above D = 128: two walks, D's columns split ---------------------
+
+struct DkvWide {
+  static constexpr int DT = 256;
+  static constexpr int NB = DT / 64;         // boxes a tile, all loaded: those past D are zeros
+  static constexpr int ST = 2;               // ring stages
+  static constexpr int TILE = NB * 64 * kBoxRow;  // a 64-row tile of K, V, Q or dO: 32 KB
+  // K at 0, V at TILE, stage st's Q at (2 + 2st) TILE and dO after it
+  static constexpr int SLOT = TK * kBoxRow;  // p or ds, keys x queries, bf16, swizzled: 8 KB
+  static constexpr int XCH = (2 + 2 * ST) * TILE;  // two slots
+  static constexpr int SCAL = XCH + 2 * SLOT;      // [ST][3][TQ]: lse2, di, seg
+  // then the query tile's one segment id [ST]; then full, empty, kv, 8-byte aligned
+  static constexpr int BAR = (SCAL + ST * (3 * TQ + 1) * 4 + 7) / 8 * 8;
+  static constexpr int SMEM = BAR + (2 * ST + 1) * 8 + 1024;
+  static constexpr int HALF = DT / 8 * kWg;  // f32 pairs of a warpgroup's 64 x DT/2 partial tile
+  static_assert(2 * HALF * 8 <= ST * 2 * TILE, "a walk's partial tiles overlay the ring");
+  static_assert(SMEM + 1024 <= 233472, "shared memory of an SM");
+};
+
+// x (64 keys x 32 queries) = the rows of tile A (descriptor da: K or V, 64
+// rows) times 32 rows of tile B (db: Q or dO), over all DT columns, both
+// K-major and swizzled; no test of D between the wgmmas (columns past D are
+// zeros).
+template <int KK = 0>
+__device__ __forceinline__ void keys_by_queries(float (&x)[16], uint64_t da, uint64_t db) {
+  if constexpr (KK < DkvWide::DT / 16) {
+    wgmma_ss_n32_at<KK != 0, ((KK >> 2) * 64 * kBoxRow + (KK & 3) * 32) / 16>(x, da, db);
+    keys_by_queries<KK + 1>(x, da, db);
+  }
+}
+
+// acc (64 keys x 128 columns, two 64-column halves) += the slot (64 keys x 64
+// queries, descriptor xd: the A operand, K-major) times 128 columns of a Q
+// or dO tile (bd: its first box, the MN-major operand)
+template <int KB = 0>
+__device__ __forceinline__ void slot_by_tile(float (&acc)[2][32], uint64_t xd, uint64_t bd) {
+  if constexpr (KB < TQ / 16) {
+    wgmma_ss_tb_at<KB * 32 / 16, KB * 16 * kBoxRow / 16>(acc[0], xd, bd);
+    wgmma_ss_tb_at<KB * 32 / 16, (64 * kBoxRow + KB * 16 * kBoxRow) / 16>(acc[1], xd, bd);
+    slot_by_tile<KB + 1>(acc, xd, bd);
+  }
+}
+
+// One walk of the wide dkv kernel's consumers over its `steps` ring stages
+// (i0 the ring index of the first): per stage, this warpgroup's 32 query
+// columns of s^T = k q^T (and, for dk, of dp^T = v do^T), then p (ds =
+// p (dp - di)) rounded to bf16 into the stage's slot; after a named barrier
+// over both warpgroups the slot holds all 64 queries, and each warpgroup
+// adds its 128 columns of p^T do (ds^T q) to acc.
+template <bool DK>
+__device__ __forceinline__ void dkv_wide_walk(float (&acc)[2][32], uint8_t* smem,
+                                              const float* scal, const int* qsegs,
+                                              uint64_t* full, uint64_t* empty, int i0,
+                                              int steps, int nqs, int qt0, int k0, int S,
+                                              const int (&keys)[2], const int (&segk)[2],
+                                              float qs) {
+  using P = DkvWide;
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid & (kWg - 1)) >> 5, lane = tid & 31;
+  const int quad = lane & 3;
+  const uint64_t kd = sw128_desc(smem_u32(smem)), vd = sw128_desc(smem_u32(smem + P::TILE));
+#pragma unroll
+  for (int c = 0; c < 2; ++c)
+#pragma unroll
+    for (int r = 0; r < 32; ++r) acc[c][r] = 0.f;
+  for (int j = 0; j < steps; ++j) {
+    const int i = i0 + j, st = i % P::ST, q0 = (qt0 + j % nqs) * TQ;
+    mbar_wait(full + st, (i / P::ST) & 1);
+    const uint32_t qa = smem_u32(smem + (2 + 2 * st) * P::TILE), oa = qa + P::TILE;
+    const float* sc = scal + st * 3 * TQ;
+    float x[16], y[16];
+    wgmma_fence();
+    keys_by_queries(x, kd, sw128_desc(qa + 32 * wg * kBoxRow));    // s^T
+    if constexpr (DK) keys_by_queries(y, vd, sw128_desc(oa + 32 * wg * kBoxRow));  // dp^T
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(x);
+    if constexpr (DK) fence_regs(y);
+    const int* sq = reinterpret_cast<const int*>(sc) + 2 * TQ;
+    const int ts = qsegs[st];  // as in the forward, keys and query rows swapped
+    const bool mask = q0 < k0 + TK - 1 || q0 + TQ > S || ts != segk[0] || ts != segk[1];
+    uint8_t* slot = smem + P::XCH + (i & 1) * P::SLOT;
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        float v[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int r = 4 * jj + 2 * half + e, c = 32 * wg + 8 * jj + 2 * quad + e;
+          float p = ex2(x[r] * qs - sc[c]);
+          if (mask && !(keys[half] <= q0 + c && sq[c] == segk[half])) p = 0.f;
+          if constexpr (DK) p *= y[r] - sc[TQ + c];
+          v[e] = p;
+        }
+        // (key row, query column c) at row * 128 + ((2c / 16) ^ (row % 8)) * 16 + 2c % 16
+        const int row = 16 * warp + (lane >> 2) + 8 * half;
+        *reinterpret_cast<uint32_t*>(slot + row * kBoxRow + (((4 * wg + jj) ^ (row & 7)) << 4) +
+                                     4 * quad) = pack_bf16(v[0], v[1]);
+      }
+    fence_proxy_async();
+    // both halves in the slot; the slot of stage i - 2 read by both (each
+    // warpgroup waited for its products of i - 2 before this barrier of i - 1)
+    named_sync(1, 2 * kWg);
+    wgmma_fence();
+    fence_regs(acc[0]);
+    fence_regs(acc[1]);
+    slot_by_tile(acc, sw128_desc(smem_u32(slot)),
+                 mn_desc((DK ? qa : oa) + 2 * wg * 64 * kBoxRow, 64 * kBoxRow));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc[0]);
+    fence_regs(acc[1]);
+    if (lane == 0) mbar_arrive(empty + st);  // this warp is done with the stage
+  }
+}
+
+// A walk's dv (dk) tile: warpgroup wg holds columns 128 wg + 64 c + 8 j +
+// 2 quad (+1) of keys k0 + 16 warp + lane / 4 (+8). With no peer (C = 1)
+// it goes straight from the registers; else the C partial tiles (float2
+// pairs in register order, overlaying the ring: pair pr of thread t of
+// warpgroup w at w * HALF + pr * 128 + t) are summed in rank order through
+// distributed shared memory, CTA `rank` summing and writing 1/C of them.
+__device__ __forceinline__ void dkv_wide_store(const float (&acc)[2][32], uint8_t* smem,
+                                               __nv_bfloat16* dst, float mul, int b, int k0,
+                                               int S, int Hkv, int hk, int D, int C, int rank) {
+  using P = DkvWide;
+  const int tid = threadIdx.x, wg = tid >> 7, t128 = tid & (kWg - 1), lane = tid & 31;
+  if (C == 1) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int key = k0 + 16 * (t128 >> 5) + (lane >> 2) + 8 * half;
+      if (key >= S) continue;
+      __nv_bfloat16* row = dst + ((size_t(b) * S + key) * Hkv + hk) * D;
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int col = 128 * wg + 64 * c + 8 * j + 2 * (lane & 3);
+          if (col < D)
+            *reinterpret_cast<uint32_t*>(row + col) =
+                pack_bf16(acc[c][4 * j + 2 * half] * mul, acc[c][4 * j + 2 * half + 1] * mul);
+        }
+    }
+    return;
+  }
+  float2* red = reinterpret_cast<float2*>(smem + 2 * P::TILE);
+  named_sync(1, 2 * kWg);  // both warpgroups are done with the ring
+#pragma unroll
+  for (int c = 0; c < 2; ++c)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+        red[wg * P::HALF + (c * 16 + 2 * j + half) * kWg + t128] =
+            make_float2(acc[c][4 * j + 2 * half], acc[c][4 * j + 2 * half + 1]);
+  cluster_barrier();
+  cg::cluster_group cluster = cg::this_cluster();
+  const int per = (2 * P::HALF + C - 1) / C, lo = rank * per, hi = min(2 * P::HALF, lo + per);
+  for (int p = lo + tid; p < hi; p += 2 * kWg) {
+    float2 s = make_float2(0.f, 0.f);
+    for (int r = 0; r < C; ++r) {
+      const float2 v = cluster.map_shared_rank(red, r)[p];
+      s.x += v.x;
+      s.y += v.y;
+    }
+    const int w = p / P::HALF, rem = p - w * P::HALF, pr = rem / kWg, t = rem % kWg;
+    const int c = pr >> 4, j = (pr & 15) >> 1, half = pr & 1, ln = t & 31;
+    const int key = k0 + 16 * (t >> 5) + (ln >> 2) + 8 * half;
+    const int col = 128 * w + 64 * c + 8 * j + 2 * (ln & 3);
+    if (key < S && col < D)
+      *reinterpret_cast<uint32_t*>(dst + ((size_t(b) * S + key) * Hkv + hk) * D + col) =
+          pack_bf16(s.x * mul, s.y * mul);
+  }
+  cluster_barrier();  // no CTA reuses or leaves its tile while a peer still reads it
+}
+
+// dkv, 128 < D <= 256 (the DT = 256 tiles; columns past D arrive as zeros):
+// the grid and clusters of train_attn_dkv_ws_kernel (dkv_plan), the same
+// walk over query heads and tiles (dkv_walk), K and V resident, Q, dO, lse,
+// di and the query rows' segment ids streamed through a ring of 2 stages by
+// the producer warp. A 64 x D f32 accumulator a warpgroup does not fit
+// beside the score tiles (ptxas caps a thread at 168 registers at 9 warps),
+// so the two consumer warpgroups split D's columns, 128 each, and the
+// kernel walks twice: dv += p^T do, then dk += ds^T q, each warpgroup
+// computing the scores of 32 of the stage's 64 queries (s^T; in the second
+// walk dp^T too) and handing p (ds) to the other through a shared slot.
+// Five products for the four of one walk, no spill. With a cluster, dv's
+// partial tiles are summed after the first walk (the producer holds the
+// second walk's loads until the ring is free again), dk's after the second.
+__global__ void __launch_bounds__(2 * kWg + 32, 1)
+    train_attn_dkv_wide_kernel(const __grid_constant__ CUtensorMap q_map,
+                               const __grid_constant__ CUtensorMap k_map,
+                               const __grid_constant__ CUtensorMap v_map,
+                               const __grid_constant__ CUtensorMap do_map,
+                               const int* __restrict__ seg, const float* __restrict__ lse,
+                               const float* __restrict__ di, __nv_bfloat16* __restrict__ dk,
+                               __nv_bfloat16* __restrict__ dv, int S, int Hq, int Hkv, int D,
+                               float scale) {
+  using P = DkvWide;
+  constexpr int ST = P::ST, NB = P::NB;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  float* scal = reinterpret_cast<float*>(smem + P::SCAL);
+  int* qsegs = reinterpret_cast<int*>(scal + ST * 3 * TQ);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + P::BAR);
+  uint64_t* empty = full + ST;
+  uint64_t* kvbar = empty + ST;
+  const int C = gridDim.x, rank = blockIdx.x;
+  const int kt = blockIdx.y / Hkv, hk = blockIdx.y - kt * Hkv, b = blockIdx.z, k0 = kt * TK;
+  const int rep = Hq / Hkv;
+  const int qt0 = k0 / TQ, nqs = (S + TQ - 1) / TQ - qt0;  // query tiles a head
+  const int steps = (rep - rank + C - 1) / C * nqs;          // ring stages a walk
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int i = 0; i < ST; ++i) {
+      mbar_init(full + i, kFullCount);
+      mbar_init(empty + i, 8);  // lane 0 of each consumer warp
+    }
+    mbar_init(kvbar, 1);
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (tid >= 2 * kWg) {  // the producer warp: both walks' stages, in order
+    const int lane = tid & 31;
+    if (lane == 0) {
+      mbar_expect(kvbar, 2 * NB * TK * kBoxRow);
+      for (int c = 0; c < NB; ++c) {
+        tma_load_4d(smem + c * TK * kBoxRow, &k_map, 64 * c, hk, k0, b, kvbar);
+        tma_load_4d(smem + P::TILE + c * TK * kBoxRow, &v_map, 64 * c, hk, k0, b, kvbar);
+      }
+    }
+    for (int i = 0; i < 2 * steps; ++i) {
+      if (i == steps && C > 1)  // the consumers' two cluster barriers around dv's sum
+        for (int n = 0; n < 2; ++n) cluster_barrier();
+      const int st = i % ST, j = i < steps ? i : i - steps;
+      const int h = hk * rep + rank + C * (j / nqs), q0 = (qt0 + j % nqs) * TQ;
+      if (i >= ST) mbar_wait(empty + st, (i / ST - 1) & 1);
+      uint8_t* qt = smem + (2 + 2 * st) * P::TILE;
+      if (lane == 0) {
+        mbar_expect(full + st, 2 * NB * TQ * kBoxRow);
+        for (int c = 0; c < NB; ++c) {
+          tma_load_4d(qt + c * TQ * kBoxRow, &q_map, 64 * c, h, q0, b, full + st);
+          tma_load_4d(qt + P::TILE + c * TQ * kBoxRow, &do_map, 64 * c, h, q0, b, full + st);
+        }
+      }
+      float* sc = scal + st * 3 * TQ;
+      int lo = INT_MAX, hi = INT_MIN;
+      for (int r = lane; r < TQ; r += 32) {
+        const int row = q0 + r;
+        const bool in = row < S;
+        sc[r] = in ? lse[(size_t(b) * Hq + h) * S + row] * kLog2e : 0.f;
+        sc[TQ + r] = in ? di[(size_t(b) * S + row) * Hq + h] : 0.f;
+        const int v = in ? (seg ? seg[size_t(b) * S + row] : 1) : -3;
+        reinterpret_cast<int*>(sc)[2 * TQ + r] = v;
+        lo = min(lo, v);
+        hi = max(hi, v);
+      }
+      lo = __reduce_min_sync(0xffffffffu, lo);
+      hi = __reduce_max_sync(0xffffffffu, hi);
+      if (lane == 0) qsegs[st] = lo == hi ? lo : kMixed;
+      mbar_arrive(full + st);
+    }
+    if (C > 1)  // the consumers' two around dk's sum
+      for (int n = 0; n < 2; ++n) cluster_barrier();
+    return;
+  }
+
+  const int warp = (tid & (kWg - 1)) >> 5, lane = tid & 31;
+  int keys[2], segk[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    keys[half] = k0 + 16 * warp + (lane >> 2) + 8 * half;
+    segk[half] = keys[half] < S ? (seg ? seg[size_t(b) * S + keys[half]] : 1) : -1;
+  }
+  const float qs = scale * kLog2e;
+  float acc[2][32];
+  mbar_wait(kvbar, 0);
+  dkv_wide_walk<false>(acc, smem, scal, qsegs, full, empty, 0, steps, nqs, qt0, k0, S, keys,
+                       segk, qs);
+  dkv_wide_store(acc, smem, dv, 1.f, b, k0, S, Hkv, hk, D, C, rank);
+  dkv_wide_walk<true>(acc, smem, scal, qsegs, full, empty, steps, steps, nqs, qt0, k0, S, keys,
+                      segk, qs);
+  dkv_wide_store(acc, smem, dk, scale, b, k0, S, Hkv, hk, D, C, rank);
+}
+
 // ---- f32 inputs: CUDA cores, one warp a row ---------------------------------
 
 constexpr int F32_ROWS = 8;  // rows (warps) a CTA
@@ -1173,7 +1207,7 @@ struct Args {
   void *o0, *o1, *lse_out;
   int B, S, Hq, Hkv, D;
   float scale;
-  int cluster;  // dkv at D <= 128: CTAs a cluster (ops/train_attention.py: dkv_plan)
+  int cluster;  // bf16 dkv: CTAs a cluster (ops/train_attention.py: dkv_plan)
 };
 
 enum Which { kFwd = 0, kDkv = 1, kDq = 2 };
@@ -1181,54 +1215,37 @@ enum Which { kFwd = 0, kDkv = 1, kDq = 2 };
 template <int DT>
 cudaError_t launch_bf16(Which w, const Args& a, cudaStream_t s) {
   using bf = __nv_bfloat16;
-  const int nq = (a.S + BM - 1) / BM;
-  const auto* q = static_cast<const bf*>(a.q);
-  const auto* k = static_cast<const bf*>(a.k);
-  const auto* v = static_cast<const bf*>(a.v);
   const auto* seg = static_cast<const int*>(a.seg);
+  CUtensorMap qm, km, vm, om;  // 64-row boxes of q, k, v and (backward) dout
+  if (!tensor_map_bshd(&qm, a.q, a.B, a.S, a.Hq, a.D, TQ) ||
+      !tensor_map_bshd(&km, a.k, a.B, a.S, a.Hkv, a.D, TK) ||
+      !tensor_map_bshd(&vm, a.v, a.B, a.S, a.Hkv, a.D, TK) ||
+      (w != kFwd && !tensor_map_bshd(&om, a.dout, a.B, a.S, a.Hq, a.D, TQ)))
+    return cudaErrorInvalidValue;
   cudaError_t err;
   if (w == kFwd) {
     using F = Fwd<DT>;
-    CUtensorMap qm, km, vm;
-    if (!tensor_map_bshd(&qm, q, a.B, a.S, a.Hq, a.D, TQ) ||
-        !tensor_map_bshd(&km, k, a.B, a.S, a.Hkv, a.D, TK) ||
-        !tensor_map_bshd(&vm, v, a.B, a.S, a.Hkv, a.D, TK))
-      return cudaErrorInvalidValue;
     auto kern = train_attn_fwd_kernel<DT>;
     if ((err = allow_smem(kern, F::SMEM)) != cudaSuccess) return err;
     kern<<<dim3(a.Hq, a.B, (a.S + TQ - 1) / TQ), F::THREADS, F::SMEM, s>>>(
         qm, km, vm, seg, static_cast<bf*>(a.o0), static_cast<float*>(a.lse_out), a.S, a.Hq, a.Hkv,
         a.D, a.scale);
-  } else if (w == kDkv) {
-    if constexpr (DT <= 128) {  // the wgmma kernel on clusters
-      using P = DkvWs<DT>;
-      CUtensorMap qm, km, vm, om;
-      if (!tensor_map_bshd(&qm, q, a.B, a.S, a.Hq, a.D, TQ) ||
-          !tensor_map_bshd(&km, k, a.B, a.S, a.Hkv, a.D, TK) ||
-          !tensor_map_bshd(&vm, v, a.B, a.S, a.Hkv, a.D, TK) ||
-          !tensor_map_bshd(&om, a.dout, a.B, a.S, a.Hq, a.D, TQ))
-        return cudaErrorInvalidValue;
-      return launch_cluster_block(
-          train_attn_dkv_ws_kernel<DT>, dim3(a.cluster, (a.S + TK - 1) / TK * a.Hkv, a.B),
-          2 * kWg + 32, a.cluster, P::SMEM, false, s, qm, km, vm, om, seg,
-          static_cast<const float*>(a.lse_in), static_cast<const float*>(a.di),
-          static_cast<bf*>(a.o0), static_cast<bf*>(a.o1), a.S, a.Hq, a.Hkv, a.D, a.scale);
-    } else {  // D > 128: the two-pass mma.sync kernel, one CTA a key tile
-      auto kern = train_attn_dkv_kernel<DT>;
-      if ((err = allow_smem(kern, bwd_smem<DT>())) != cudaSuccess) return err;
-      kern<<<dim3(nq, a.Hkv, a.B), kTThreads, bwd_smem<DT>(), s>>>(
-          q, k, v, seg, static_cast<const bf*>(a.dout), static_cast<const float*>(a.lse_in),
-          static_cast<const float*>(a.di), static_cast<bf*>(a.o0), static_cast<bf*>(a.o1), a.S,
-          a.Hq, a.Hkv, a.D, a.scale);
-    }
-  } else {  // dq: the wgmma kernel at every D
+  } else if (w == kDkv) {  // on clusters of a.cluster CTAs, the grid of dkv_plan
+    const dim3 grid(a.cluster, (a.S + TK - 1) / TK * a.Hkv, a.B);
+    const auto* lse = static_cast<const float*>(a.lse_in);
+    const auto* di = static_cast<const float*>(a.di);
+    if constexpr (DT <= 128)
+      return launch_cluster_block(train_attn_dkv_ws_kernel<DT>, grid, 2 * kWg + 32, a.cluster,
+                                  DkvWs<DT>::SMEM, false, s, qm, km, vm, om, seg, lse, di,
+                                  static_cast<bf*>(a.o0), static_cast<bf*>(a.o1), a.S, a.Hq,
+                                  a.Hkv, a.D, a.scale);
+    else  // 128 < D <= 256: two walks, D's columns split between the warpgroups
+      return launch_cluster_block(train_attn_dkv_wide_kernel, grid, 2 * kWg + 32, a.cluster,
+                                  DkvWide::SMEM, false, s, qm, km, vm, om, seg, lse, di,
+                                  static_cast<bf*>(a.o0), static_cast<bf*>(a.o1), a.S, a.Hq,
+                                  a.Hkv, a.D, a.scale);
+  } else {  // dq
     using P = DqWs<DT>;
-    CUtensorMap qm, km, vm, om;
-    if (!tensor_map_bshd(&qm, q, a.B, a.S, a.Hq, a.D, TQ) ||
-        !tensor_map_bshd(&km, k, a.B, a.S, a.Hkv, a.D, TK) ||
-        !tensor_map_bshd(&vm, v, a.B, a.S, a.Hkv, a.D, TK) ||
-        !tensor_map_bshd(&om, a.dout, a.B, a.S, a.Hq, a.D, TQ))
-      return cudaErrorInvalidValue;
     auto kern = train_attn_dq_ws_kernel<DT>;
     if ((err = allow_smem(kern, P::SMEM)) != cudaSuccess) return err;
     kern<<<dim3(a.Hq, a.B, (a.S + TQ - 1) / TQ), P::THREADS, P::SMEM, s>>>(
@@ -1271,9 +1288,8 @@ cudaError_t dispatch(Which w, const Args& a, int f32, void* stream) {
     if (a.D <= 128) return launch_f32<128>(w, a, s);
     return launch_f32<256>(w, a, s);
   }
-  // dkv's cluster: min(rep, 8) CTAs at D <= 128 (the wgmma kernel), 1 above
-  if (w == kDkv && a.cluster != (a.D <= 128 ? std::min(a.Hq / a.Hkv, kMaxCluster) : 1))
-    return cudaErrorInvalidValue;
+  // dkv's cluster: min(rep, 8) CTAs at every D (ops/train_attention.py: dkv_plan)
+  if (w == kDkv && a.cluster != std::min(a.Hq / a.Hkv, kMaxCluster)) return cudaErrorInvalidValue;
   if (a.D <= 64) return launch_bf16<64>(w, a, s);
   if (a.D <= 128) return launch_bf16<128>(w, a, s);
   return launch_bf16<256>(w, a, s);
@@ -1298,8 +1314,8 @@ int bd_train_attn_fwd(const void* q, const void* k, const void* v, const void* s
 
 // dout [B, S, Hq, D], lse [B, Hq, S] f32 (the forward's), di [B, S, Hq] f32
 // (rowsum(o * dout)); writes dk, dv [B, S, Hkv, D] in the inputs' dtype.
-// cluster: bf16 at D <= 128, min(Hq / Hkv, 8) (dkv_plan); else 1. A cluster
-// the card cannot hold launches nothing and returns the error.
+// cluster: bf16, min(Hq / Hkv, 8) (dkv_plan); f32, 1. A cluster the card
+// cannot hold launches nothing and returns the error.
 int bd_train_attn_dkv(const void* q, const void* k, const void* v, const void* seg,
                       const void* dout, const void* lse, const void* di, void* dk, void* dv,
                       int B, int S, int Hq, int Hkv, int D, float scale, int cluster, int f32,

@@ -18,9 +18,10 @@ backward launches `train_attn_bwd_dkv` and `train_attn_bwd_dq`, or raises.
 It saves q, k, v, o and the f32 log-sum-exp, so it is safe under
 torch.utils.checkpoint (a recompute launches the forward again).
 `di = rowsum(o * do)` in f32 stays a plain op, as JAX computes it outside
-Pallas. bf16 runs on the tensor cores: the forward and dq at every D, and
-dkv at D <= 128, are wgmma kernels fed by a TMA ring; dkv above D = 128 is a
-two-pass mma.sync kernel. f32 runs on CUDA cores. `train_attn_bwd_dq_plain`
+Pallas. bf16 runs on the tensor cores: the forward, dq and dkv are wgmma
+kernels fed by a TMA ring at every D (dkv above D = 128 by its wide kernel,
+which walks twice with D's columns split between its warpgroups). f32 runs
+on CUDA cores. `train_attn_bwd_dq_plain`
 is dq alone in plain PyTorch from the kernel's own inputs (lse, di), what
 the dq kernel is held to on the card.
 
@@ -47,19 +48,22 @@ from .quant_matmul import MAX_CLUSTER
 MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)  # flash_attention.py: DEFAULT_MASK_VALUE
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 MAX_HEAD_DIM = 256
-DKV_WGMMA_MAX_HEAD_DIM = 128  # above: two 64 x D f32 accumulators a thread do not fit
-DKV_KEY_TILE = 64     # the wgmma dkv kernel: key rows a CTA
+# above: a 64 x D f32 accumulator a warpgroup does not fit beside its score
+# tiles, so the wide kernel splits D between the warpgroups and walks twice
+DKV_WGMMA_MAX_HEAD_DIM = 128
+DKV_KEY_TILE = 64     # both dkv kernels: key rows a CTA
 DKV_QUERY_TILE = 64   # ... query rows a ring stage
-DKV_TWO_PASS_TILE = 64  # the two-pass kernel (D > 128): key rows a CTA
 
 
 @dataclass(frozen=True)
 class DkvPlan:
-    """How the bf16 dkv kernel covers [B, S, Hkv] key rows: `kernel` is
-    "wgmma" (D <= 128: a cluster of `cluster` CTAs a key tile of 64 rows,
-    splitting the rep query heads) or "two_pass" (D > 128: one CTA a key
-    tile of 64 rows walking every head, dv then dk); `grid` as launched,
-    x first (x is the cluster)."""
+    """How the bf16 dkv kernel covers [B, S, Hkv] key rows: a cluster of
+    `cluster` CTAs a key tile of 64 rows, splitting the rep query heads;
+    `kernel` is "wgmma" (D <= 128: `train_attn_dkv_ws_kernel`, its two
+    warpgroups splitting the products of one walk) or "wgmma_wide"
+    (128 < D <= 256: `train_attn_dkv_wide_kernel`, its warpgroups splitting
+    D's columns over two walks, dv then dk); `grid` as launched, x first (x
+    is the cluster)."""
 
     kernel: str
     cluster: int
@@ -71,23 +75,22 @@ class DkvPlan:
 
 
 def dkv_plan(b: int, s: int, hq: int, hkv: int, d: int) -> DkvPlan:
-    """The dkv launch at these shapes, chosen by D alone: D <= 128 takes the
-    wgmma kernel on clusters of C = min(rep, MAX_CLUSTER) CTAs, the grid
-    (C, key tiles x Hkv, B) with the key tile slowest, so the longest walks
-    (key tile 0) start first. C depends on rep only, never on the card, so
-    the same inputs give the same bits on every card."""
-    rep = hq // hkv
-    if d > DKV_WGMMA_MAX_HEAD_DIM:
-        return DkvPlan("two_pass", 1, (-(-s // DKV_TWO_PASS_TILE), hkv, b))
-    c = min(rep, MAX_CLUSTER)
-    return DkvPlan("wgmma", c, (c, -(-s // DKV_KEY_TILE) * hkv, b))
+    """The dkv launch at these shapes: the kernel by D alone, on clusters of
+    C = min(rep, MAX_CLUSTER) CTAs at every D, the grid (C, key tiles x Hkv,
+    B) with the key tile slowest, so the longest walks (key tile 0) start
+    first. C depends on rep only, never on the card, so the same inputs give
+    the same bits on every card."""
+    c = min(hq // hkv, MAX_CLUSTER)
+    kernel = "wgmma" if d <= DKV_WGMMA_MAX_HEAD_DIM else "wgmma_wide"
+    return DkvPlan(kernel, c, (c, -(-s // DKV_KEY_TILE) * hkv, b))
 
 
 def dkv_walk(s: int, rep: int, cluster: int, rank: int, key_tile: int) -> list[tuple[int, int]]:
     """(query head within the kv head, query tile) in the order CTA `rank` of
     a cluster walks them for key tile `key_tile`: heads rank, rank + C, ...
     and for each the query tiles of DKV_QUERY_TILE rows from the diagonal to
-    the end (tiles above it see no key of the tile)."""
+    the end (tiles above it see no key of the tile). The wide kernel walks
+    this list twice, dv then dk."""
     first = key_tile * DKV_KEY_TILE // DKV_QUERY_TILE
     nq = -(-s // DKV_QUERY_TILE)
     return [(r, qt) for r in range(rank, rep, cluster) for qt in range(first, nq)]

@@ -1,6 +1,7 @@
 """What ptxas made of a CUDA source of the port, kernel by kernel: registers
 a thread and spill bytes (`nvcc -Xptxas -v`), and in the SASS (`cuobjdump
--sass`) the warpgroup MMAs (HGMMA), the waits for them (WARPGROUP.DEPBAR)
+-sass`) the warpgroup MMAs (HGMMA), the waits for them (WARPGROUP.DEPBAR),
+the warp-level MMAs (HMMA: mma.sync, which no bf16 B8 kernel should hold)
 and the local-memory stores and loads (STL, LDL).
 
     python -m bitdistiller_tpu_torch.scripts.kernel_sass [train_attention ...]
@@ -22,7 +23,8 @@ from pathlib import Path
 
 from ..ops import _build
 
-COUNTED = {"hgmma": "HGMMA", "wgmma_waits": "WARPGROUP.DEPBAR", "stl": "STL", "ldl": "LDL"}
+COUNTED = {"hgmma": "HGMMA", "wgmma_waits": "WARPGROUP.DEPBAR", "hmma": "HMMA", "stl": "STL",
+           "ldl": "LDL"}
 _ENTRY = re.compile(r"Compiling entry function '([^']+)'")
 _SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 _REGS = re.compile(r"Used (\d+) registers")
@@ -48,7 +50,7 @@ def parse_ptxas(text: str) -> dict[str, dict]:
 
 
 def parse_sass(text: str) -> dict[str, dict]:
-    """{mangled kernel: {hgmma, wgmma_waits, stl, ldl}}: instruction counts
+    """{mangled kernel: {hgmma, wgmma_waits, hmma, stl, ldl}}: instruction counts
     in the cuobjdump -sass listing of each function."""
     out: dict[str, dict] = {}
     cur = None
@@ -75,8 +77,8 @@ def _demangle(names: list[str], tools: Path) -> dict[str, str]:
     if res.returncode or len(plain) != len(names):
         return {n: n for n in names}
     # drop the anonymous namespace, the casts of template arguments and the
-    # parameter list: "train_attn_fwd_kernel<64>"
-    return {n: re.sub(r"^.*::(?=\w+<)|\(.*$", "", p.replace("(int)", ""))
+    # parameter list: "train_attn_fwd_kernel<64>", "train_attn_dkv_wide_kernel"
+    return {n: re.sub(r"^.*?::(?=\w+(?:<|\())|\(.*$", "", p.replace("(int)", ""))
             for n, p in zip(names, plain)}
 
 

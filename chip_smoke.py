@@ -18,12 +18,16 @@ at g32, g64 and per-channel, f32 activations, decode attention at D = 256
 and with f32 q, each through its kernel; g64 times beside g128's),
 `train_attention` (B8's forward and gradients against the plain version at
 TinyLlama's and 7B's shapes, padded and ragged, MQA with 71 heads, D = 256
-and f32, and their times beside SDPA's at TinyLlama's, 7B's and the f32
+with 16 heads and at Gemma-2B's 8 query heads over 1 kv head, and f32, and
+their times beside SDPA's at TinyLlama's, 7B's, both D = 256 and the f32
 case's shapes, with the dkv plan), `train` (run_training at the full width and depth of
 TinyLlama-1.1B: int2-asym STE at g64, CAKLD, 2 x 1024 tokens a micro-step,
 grad_accum 2, two optimizer cycles, student and teacher through B8) and
 `serve_trained` (the trained student packed at int2-g64 and served through
-the Engine on B1/B2/B3).
+the Engine on B1/B2/B3). Beside the build, scripts/kernel_sass.py reads
+what ptxas made of csrc/train_attention.cu; the `sass` phase prints it and
+fails unless every bf16 B8 kernel issues HGMMA, holds no HMMA (mma.sync)
+and spills nothing.
 Phases print one line each; any failure exits non-zero before the last
 line. The second-to-last line is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
@@ -967,7 +971,10 @@ TA_CASES = {  # name: (B, S, Hq, Hkv, D, padded row length or None, dtype)
     "ragged": (2, 1000, 8, 2, 64, 700, torch.bfloat16),
     "f32": (1, 300, 8, 2, 64, 250, torch.float32),
     "mqa71": (1, 1000, 71, 1, 64, 900, torch.bfloat16),  # FALCON_7B's heads: 71 % 8 != 0
-    "d256": (1, 1000, 16, 16, 256, 900, torch.bfloat16),  # the two-pass dkv (D > 128)
+    "d256": (1, 1000, 16, 16, 256, 900, torch.bfloat16),  # the wide dkv (D > 128), MHA
+    # Gemma-2B's attention widths (8 query heads over 1 kv head, head_dim 256) at
+    # the train phase's 2 x 1024 micro-batch: the wide dkv on clusters of 8
+    "d256_mqa": (2, 1024, 8, 1, 256, 900, torch.bfloat16),
 }
 
 
@@ -996,7 +1003,7 @@ def train_attention_phase(gen, record):
     mask: garbage in both), and the dq kernel by itself ("dq_alone") against
     train_attn_bwd_dq_plain and against autograd's dq of the plain version,
     on the kernel forward's lse and di; then its times at TinyLlama's, 7B's
-    and the D = 256 case's shapes (and the f32 case's):
+    and the two D = 256 cases' shapes (and the f32 case's):
     the forward, dkv and dq kernels one by one through their wrappers, the
     plain version's forward and forward+backward, and SDPA
     (scaled_dot_product_attention(is_causal=True, enable_gqa=True), the
@@ -1036,7 +1043,7 @@ def train_attention_phase(gen, record):
         worst[name] = max(errs.values())
         del q, k, v, do, got, want, out, lse, di, dq
     times = {}
-    for name in ("tinyllama", "llama2_7b", "d256", "f32"):
+    for name in ("tinyllama", "llama2_7b", "d256", "d256_mqa", "f32"):
         b, s, hq, hkv, d, pad, dtype = TA_CASES[name]
         peak = PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
         plan = ta.dkv_plan(b, s, hq, hkv, d)
@@ -1309,6 +1316,25 @@ def serve_trained_phase(master, cfg, rec):
     return counts
 
 
+def sass_phase(rc: int, out: str, err: str) -> dict:
+    """What ptxas made of the bf16 B8 kernels (scripts/kernel_sass.py's rows:
+    registers, spill bytes, HGMMA, wgmma waits, HMMA, local stores and
+    loads); fails unless each issues HGMMA, holds no HMMA and spills
+    nothing."""
+    if rc:
+        raise RuntimeError(f"kernel_sass exited {rc}:\n{err[-2000:]}")
+    rows = {r["kernel"]: r for r in map(json.loads, out.splitlines())}
+    b8 = {k: {f: r.get(f) for f in ("registers", "spill_stores", "hgmma", "wgmma_waits", "hmma")}
+          for k, r in rows.items() if k.startswith("train_attn_") and "f32" not in k}
+    for k, r in sorted(b8.items()):
+        say(f"sass {k}: {r}")
+    bad = [k for k, r in b8.items() if not r["hgmma"] or r["hmma"] or r["spill_stores"]
+           or rows[k]["spill_loads"] or rows[k]["stl"] or rows[k]["ldl"]]
+    if "train_attn_dkv_wide_kernel" not in b8 or bad:
+        raise AssertionError(f"bf16 B8 kernels off wgmma, on mma.sync or spilling: {bad}")
+    return b8
+
+
 def kernel_entry(name, src, replaces, launches, err, t, work, **extra):
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     return dict(name=name, route="cuda", source=f"bitdistiller_tpu_torch/csrc/{src}",
@@ -1333,9 +1359,18 @@ def main() -> int:
 
     with Phase("build"):
         t0 = time.time()
-        libs = _build.build()
+        sass = subprocess.Popen(  # its own nvcc of train_attention.cu, beside the build's
+            [sys.executable, "-m", "bitdistiller_tpu_torch.scripts.kernel_sass", "train_attention"],
+            cwd=OUT_DIR.parent, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        try:
+            libs = _build.build()
+        finally:
+            sass_out, sass_err = sass.communicate()
         summary["build_s"] = time.time() - t0
         say(f"built {sorted(libs)} in {summary['build_s']:.1f} s")
+
+    with Phase("sass"):
+        summary["sass"] = b8_sass = sass_phase(sass.returncode, sass_out, sass_err)
 
     with Phase("card"):
         card = subprocess.run(
@@ -1512,16 +1547,19 @@ def main() -> int:
 
     b8_work = ("TinyLlama-1.1B attention, B=2, S=1024, Hq=32, Hkv=4, D=64, bf16, causal "
                "(llama2_7b: B=1, S=2048, Hq=Hkv=32, D=128; d256: B=1, S=1000, Hq=Hkv=16, "
-               "D=256, dkv by the two-pass kernel); max_abs_err is the worst relative error "
+               "D=256; d256_mqa: Gemma-2B's heads, B=2, S=1024, Hq=8, Hkv=1, D=256; dkv "
+               "above D=128 by train_attn_dkv_wide_kernel); max_abs_err is the worst relative error "
                "over the forward, the three gradients and dq alone of the checked cases; "
                "launches from the train phase (4 micro-steps of run_training)")
-    for kind, name, line, plain, lib in (
+    tm = ta_times["d256_mqa"]
+    for kind, name, line, plain, lib, cu in (
             ("fwd", "train_attn_fwd", ":758 (_flash_attention_kernel :331)", "plain_fwd_ms",
-             "sdpa_fwd_ms"),
+             "sdpa_fwd_ms", ("train_attn_fwd_kernel",)),
             ("dkv", "train_attn_bwd_dkv", ":1121 (_flash_attention_dkv_kernel :796)",
-             "plain_bwd_ms", "sdpa_bwd_ms"),
+             "plain_bwd_ms", "sdpa_bwd_ms", ("train_attn_dkv_ws_kernel",
+                                              "train_attn_dkv_wide_kernel")),
             ("dq", "train_attn_bwd_dq", ":1456 (_flash_attention_dq_kernel :1146)",
-             "plain_bwd_ms", "sdpa_bwd_ms")):
+             "plain_bwd_ms", "sdpa_bwd_ms", ("train_attn_dq_ws_kernel",))):
         kernels.append(dict(
             name=name, route="cuda", source="bitdistiller_tpu_torch/csrc/train_attention.cu",
             replaces="jax/experimental/pallas/ops/tpu/flash_attention.py" + line
@@ -1531,9 +1569,12 @@ def main() -> int:
             + ("; plain_ms and library_ms are the whole backward (dq, dk, dv together)"
                if kind != "fwd" else ""),
             llama2_7b=b8(kind, t7, plain, lib), d256=b8(kind, ta_times["d256"], plain, lib),
+            d256_mqa=b8(kind, tm, plain, lib),
             f32=dict(b8(kind, ta_times["f32"], plain, lib), bound_by="operations (f32 CUDA cores)"),
+            sass={k: r for k, r in b8_sass.items() if k.startswith(cu)},
             **({"plan": tl["dkv_plan"], "llama2_7b_plan": t7["dkv_plan"],
-                "d256_plan": ta_times["d256"]["dkv_plan"]} if kind == "dkv" else {})))
+                "d256_plan": ta_times["d256"]["dkv_plan"], "d256_mqa_plan": tm["dkv_plan"],
+                "d256_kernel": "train_attn_dkv_wide_kernel"} if kind == "dkv" else {})))
     summary["kernels"] = kernels
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(summary, indent=1))

@@ -8,7 +8,8 @@ device. On the card:
     python -m pytest -m gpu tests/test_torch_gpu_train.py
 
 B8's bf16 cases cover the dkv plan's cluster sizes (1, 2, 7, 8 with 71 % 8
-!= 0) and its dispatch on D (the two-pass kernel at D = 256). The dq kernel
+!= 0) and its dispatch on D (the wide kernel above D = 128: D = 160, 192,
+256, MHA and rep 2 and 8; two calls at D = 256 give the same bits). The dq kernel
 is also held by itself against `train_attn_bwd_dq_plain` on the forward
 kernel's lse and di (D = 64, 80, 128, 256; rep 1, 8, 71; S = 64, 129, 1000;
 padded), and its two calls must give the same bits.
@@ -74,11 +75,14 @@ def _rel(got, want, mask=None):
     (2, 200, 4, 2, 64, 150),     # ragged S, GQA rep 2, a padded row
     (1, 130, 8, 1, 128, None),   # MQA, rep 8, D = 128
     (1, 96, 2, 2, 80, None),     # D not a power of two
-    (1, 70, 4, 4, 256, 33),      # D = 256 (the two-pass dkv)
+    (1, 70, 4, 4, 256, 33),      # D = 256 (the wide dkv)
     (1, 256, 14, 2, 64, None),   # rep 7: a cluster of 7
     (1, 130, 71, 1, 64, 100),    # MQA rep 71 (FALCON_7B's): clusters of 8, 71 % 8 != 0, padded
     (2, 256, 8, 2, 64, None),    # S an exact multiple of 128
     (1, 129, 4, 2, 64, 100),     # S = 129: one row past a 128 boundary
+    (1, 200, 2, 2, 160, 150),    # D = 160: the wide dkv with a box wholly past D, padded
+    (2, 129, 4, 2, 192, None),   # D = 192, rep 2: a cluster of 2
+    (1, 300, 8, 1, 256, 250),    # D = 256, MQA rep 8 (Gemma-2B's heads): a cluster of 8
 ])
 def test_train_attention_bf16_matches_plain(gen, b, s, hq, hkv, d, pad_to):
     q, k, v, do, mask = _attention_case(gen, b, s, hq, hkv, d, torch.bfloat16, pad_to)
@@ -88,11 +92,12 @@ def test_train_attention_bf16_matches_plain(gen, b, s, hq, hkv, d, pad_to):
     want = _fwd_bwd(ta.flash_train_attention_plain, q, k, v, do, mask)
     assert (ta.train_attn_fwd.launches, ta.train_attn_bwd_dkv.launches,
             ta.train_attn_bwd_dq.launches) == tuple(n + 1 for n in launches)
-    # dkv went through the kernel its plan names: wgmma on clusters up to D = 128
+    # dkv went through the kernel its plan names, on clusters of min(rep, 8):
+    # wgmma up to D = 128, the wide kernel above
     plan = ta.train_attn_bwd_dkv.plan
     assert plan == ta.dkv_plan(b, s, hq, hkv, d)
-    assert (plan.kernel, plan.cluster) == (("wgmma", min(hq // hkv, 8)) if d <= 128
-                                           else ("two_pass", 1))
+    assert (plan.kernel, plan.cluster) == ("wgmma" if d <= 128 else "wgmma_wide",
+                                           min(hq // hkv, 8))
     # the output and dq of real rows; dk/dv sum over real query rows only
     assert _rel(got[0], want[0], mask) < 2e-2
     assert _rel(got[1], want[1], mask) < 2e-2
@@ -125,6 +130,17 @@ def test_train_attention_is_deterministic_across_cluster_splits(gen, hq, hkv):
     q, k, v, do, mask = _attention_case(gen, 1, 200, hq, hkv, 64, torch.bfloat16, pad_to=170)
     a = _fwd_bwd(ta.flash_train_attention, q, k, v, do, mask)
     assert ta.train_attn_bwd_dkv.plan.cluster == 8
+    c = _fwd_bwd(ta.flash_train_attention, q, k, v, do, mask)
+    assert all(torch.equal(x, y) for x, y in zip(a, c))
+
+
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (8, 1), (24, 2)])
+def test_train_attention_is_deterministic_at_d256(gen, hq, hkv):
+    """The wide dkv kernel at D = 256: no cluster (MHA), a cluster of 8 over
+    rep 8, and rep 12 (C = 8 does not divide it); bit for bit."""
+    q, k, v, do, mask = _attention_case(gen, 1, 200, hq, hkv, 256, torch.bfloat16, pad_to=170)
+    a = _fwd_bwd(ta.flash_train_attention, q, k, v, do, mask)
+    assert ta.train_attn_bwd_dkv.plan.kernel == "wgmma_wide"
     c = _fwd_bwd(ta.flash_train_attention, q, k, v, do, mask)
     assert all(torch.equal(x, y) for x, y in zip(a, c))
 

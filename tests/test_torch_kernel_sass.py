@@ -29,6 +29,7 @@ SASS = """\
         /*0050*/                   STL.64 [R1+0x8], R26 ;                      /* 0x0000 */
         /*0060*/               @P1 LDL.LU.64 R26, [R1+0x8] ;                   /* 0x0000 */
         /*0070*/                   LDGSTS.E.BYPASS.128 [R3], desc[UR4][R4.64] ; /* 0x0000 */
+        /*0080*/                   HMMA.16816.F32.BF16 R40, R8, R12, R40 ;     /* 0x0000 */
 \t\tFunction : _Z3barv
         /*0000*/                   EXIT ;                                      /* 0x000fea0003800000 */
 """
@@ -44,5 +45,6 @@ def test_parse_ptxas_reads_registers_and_spills_a_kernel():
 
 def test_parse_sass_counts_wgmmas_waits_and_local_memory_a_kernel():
     got = ks.parse_sass(SASS)
-    assert got["_Z3fooILi64EEvPf"] == {"hgmma": 2, "wgmma_waits": 1, "stl": 1, "ldl": 1}
-    assert got["_Z3barv"] == {"hgmma": 0, "wgmma_waits": 0, "stl": 0, "ldl": 0}
+    assert got["_Z3fooILi64EEvPf"] == {"hgmma": 2, "wgmma_waits": 1, "hmma": 1, "stl": 1,
+                                       "ldl": 1}
+    assert got["_Z3barv"] == {"hgmma": 0, "wgmma_waits": 0, "hmma": 0, "stl": 0, "ldl": 0}

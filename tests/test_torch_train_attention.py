@@ -3,7 +3,9 @@ the card) against the JAX package's `flash_train_attention`, run as
 tests/test_train_flash_attention.py runs it on the CPU: the stock Pallas TPU
 flash kernel under pltpu.force_tpu_interpret_mode(), wrapping trace,
 lowering and run. Value and dq/dk/dv, MHA and GQA (rep 2 and 4), padded and
-unpadded, S = 256 and a ragged S, D = 64 and 128, f32 inputs.
+unpadded, S = 256 and a ragged S, D = 64 and 128, and above 128, the D the
+wide dkv kernel serves: 256 and 160 (which JAX zero-pads to 256); f32
+inputs.
 
 Tolerance: 1e-4 of max|JAX| per tensor (both f32; the Pallas kernel sums
 block by block with an online softmax, the plain version in one pass).
@@ -56,6 +58,8 @@ def _torch(fn, q, k, v, do, mask):
     (2, 256, 4, 2, 128, True),   # GQA rep 2, padded, D = 128
     (1, 200, 4, 1, 64, True),    # rep 4, ragged S, padded
     (2, 200, 2, 2, 128, False),  # ragged S, unpadded, D = 128
+    (1, 130, 4, 2, 256, True),   # D = 256, GQA rep 2, padded, ragged S
+    (1, 130, 2, 2, 160, False),  # D = 160 (JAX pads it to 256), MHA, unpadded
 ])
 def test_plain_matches_jax_flash_value_and_grads(b, s, hq, hkv, d, padded):
     case = _case(b, s, hq, hkv, d, padded)

@@ -1,5 +1,6 @@
-"""B8's dkv plan on the CPU: `dkv_plan` (which kernel by D, the cluster size
-C = min(rep, 8), the grid) and `dkv_walk` (what CTA `rank` of a cluster
+"""B8's dkv plan on the CPU: `dkv_plan` (which kernel by D: "wgmma" up to
+D = 128, "wgmma_wide" above; the cluster size C = min(rep, 8) at every D;
+the grid) and `dkv_walk` (what CTA `rank` of a cluster
 walks for a key tile), which the CUDA launch of
 csrc/train_attention.cu follows. Every (key tile, query head, query tile)
 on or below the diagonal is walked exactly once, by one rank; the wrapper
@@ -56,12 +57,12 @@ def test_dkv_ctas_at_tinyllama_and_llama2_7b():
 
 
 @pytest.mark.parametrize("d,kernel", [(16, "wgmma"), (64, "wgmma"), (80, "wgmma"),
-                                      (128, "wgmma"), (144, "two_pass"), (256, "two_pass")])
+                                      (128, "wgmma"), (144, "wgmma_wide"), (256, "wgmma_wide")])
 def test_dkv_kernel_is_chosen_by_head_dim(d, kernel):
     plan = ta.dkv_plan(1, 200, 8, 2, d)
     assert plan.kernel == kernel
-    if kernel == "two_pass":  # one CTA a 64-row key tile and kv head, every rep head
-        assert plan.cluster == 1 and plan.grid == (_ceil(200, 64), 2, 1)
+    # both kernels: clusters of min(rep, 8) CTAs a 64-row key tile and kv head
+    assert plan.cluster == 4 and plan.grid == (4, _ceil(200, 64) * 2, 1)
 
 
 class _Stream:
@@ -70,7 +71,9 @@ class _Stream:
 
 @pytest.mark.parametrize("hq,hkv,d,dtype,cluster", [
     (71, 1, 64, torch.bfloat16, 8), (14, 2, 80, torch.bfloat16, 7),
-    (4, 4, 256, torch.bfloat16, 1), (8, 2, 64, torch.float32, 1)])
+    (4, 4, 256, torch.bfloat16, 1), (8, 2, 64, torch.float32, 1),
+    (8, 1, 256, torch.bfloat16, 8),   # Gemma-2B's attention heads: MQA, rep 8, D 256
+    (4, 2, 192, torch.bfloat16, 2)])  # D 192, rep 2
 def test_dkv_wrapper_hands_the_kernel_the_plans_cluster(monkeypatch, hq, hkv, d, dtype, cluster):
     log = []
 
@@ -95,4 +98,7 @@ def test_dkv_wrapper_hands_the_kernel_the_plans_cluster(monkeypatch, hq, hkv, d,
     assert args[9:14] == (b, s, hq, hkv, d)
     assert args[-3:-1] == (cluster, int(dtype == torch.float32))
     if dtype == torch.bfloat16:
-        assert cluster == ta.dkv_plan(b, s, hq, hkv, d).cluster
+        plan = ta.dkv_plan(b, s, hq, hkv, d)
+        assert cluster == plan.cluster and ta.train_attn_bwd_dkv.plan == plan
+        assert plan.kernel == ("wgmma" if d <= 128 else "wgmma_wide")
+        assert plan.grid == (cluster, _ceil(s, TILE) * hkv, b)
