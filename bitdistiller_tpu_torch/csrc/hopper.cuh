@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks of the port's prefill kernels
 // (quant_matmul.cu, quant_matmul_a8.cu) and of B8's training attention
-// (train_attention.cu): 2-D and 4-D tensor maps and TMA loads that complete
-// on a shared-memory mbarrier, the shared-memory matrix descriptors of a
-// 128-byte-swizzled K-major tile and of an MN-major (transposed) one,
-// warpgroup MMA (wgmma) at the widths and operand sources the kernels use,
+// (train_attention.cu): 2-D and 4-D tensor maps (bf16 and f32) and TMA
+// loads that complete on a shared-memory mbarrier, the shared-memory matrix
+// descriptors of a 128-byte-swizzled K-major tile and of an MN-major
+// (transposed) one, warpgroup MMA (wgmma) at the widths and operand sources
+// the kernels use (bf16, s8, and tf32 with the hi/lo split of 3xTF32),
 // named and cluster barriers. Inline code only; including it adds no symbol.
 // The tensor-map encoder, cuTensorMapEncodeTiled, is looked up at run time
 // through the CUDA runtime, so nothing links libcuda.
@@ -262,6 +263,21 @@ inline bool tensor_map_bshd(CUtensorMap* map, const void* base, uint64_t B, uint
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// The same map over a [B, S, H, D] f32 array: boxes of `rows` rows by 32
+// columns (128 bytes, the swizzle's span), so a D = 64 row is two boxes.
+inline bool tensor_map_bshd_f32(CUtensorMap* map, const void* base, uint64_t B, uint64_t S,
+                                uint64_t H, uint64_t D, uint32_t rows) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {D, H, S, B};
+  const cuuint64_t strides[3] = {D * 4, H * D * 4, S * H * D * 4};
+  const cuuint32_t box[4] = {32, 1, rows, 1};
+  const cuuint32_t steps[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<void*>(base), dims, strides, box,
+            steps, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, int c0, int c1,
                                             int c2, int c3, uint64_t* bar) {
   asm volatile(
@@ -379,6 +395,51 @@ __device__ __forceinline__ void wgmma_ss_tb_at(float (&d)[32], uint64_t da, uint
       : "l"(da), "l"(db), "r"(1), "n"(OFFA16), "n"(OFFB16));
 }
 
+// ---- f32 on the tensor cores: 3xTF32 ------------------------------------------
+//
+// x = hi + lo, hi = x rounded to tf32 and lo = x - hi (exact in f32), and a
+// product a b taken as hi hi + hi lo + lo hi (lo lo, about 2^-22 relative,
+// dropped): three tf32 wgmmas into one f32 accumulator keep about f32's
+// accuracy, where one keeps about 2^-11. tf32 wgmma reads both operands
+// K-major; it has no transposed form.
+
+// hi = x rounded to tf32 (nearest, ties away: cvt.rna), lo = x - hi rounded
+// the same way; the low 13 bits of both are cleared, so the tensor core reads
+// the values meant whether it truncates its f32 inputs or rounds them.
+__device__ __forceinline__ void tf32_split(float x, uint32_t& hi, uint32_t& lo) {
+  uint32_t h, l;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(h) : "f"(x));
+  h &= 0xffffe000u;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(l) : "f"(x - __uint_as_float(h)));
+  hi = h;
+  lo = l & 0xffffe000u;
+}
+
+// D (64 x 64, f32) (+)= A (64 x 8, tf32, registers) * B (8 x 64, tf32,
+// K-major and 128-byte swizzled in shared memory: sw128_desc, on the operand
+// OFF16 * 16 bytes past descriptor db, summed inside the asm block as
+// wgmma_ss_bf16_at). A, for warp w of the warpgroup and lane l (row = 16w +
+// l/4, q = l%4), as mma.sync m16n8k8's tf32 layout: a[0] = (row, k q),
+// a[1] = (row + 8, q), a[2] = (row, q + 4), a[3] = (row + 8, q + 4); D as
+// wgmma_bf16's. ACC false: D is written, not read.
+template <bool ACC, int OFF16>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (ACC)
+    asm volatile(
+        "{\n.reg .pred p;\n.reg .b64 b;\nsetp.ne.b32 p, %37, 0;\nadd.s64 b, %36, %38;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " BD_D32
+        ", {%32, %33, %34, %35}, b, p, 1, 1;\n}\n"
+        : BD_O32(d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(OFF16));
+  else
+    asm volatile(
+        "{\n.reg .pred p;\n.reg .b64 b;\nsetp.ne.b32 p, %37, 0;\nadd.s64 b, %36, %38;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " BD_D32
+        ", {%32, %33, %34, %35}, b, p, 1, 1;\n}\n"
+        : BD_W32(d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(0), "n"(OFF16));
+}
+
 #undef BD_D32
 #undef BD_O32
 #undef BD_W32
@@ -415,6 +476,26 @@ __device__ __forceinline__ void wgmma_ss_n32_at(float (&d)[16], uint64_t da, uin
         ", a, b, p, 1, 1, 0, 0;\n}\n"
         : BD_W16(d)
         : "l"(da), "l"(db), "r"(0), "n"(OFF16));
+}
+
+// wgmma_tf32 at N = 32: D (64 x 32, f32) (+)= A (64 x 8, tf32, registers) *
+// B (8 x 32, tf32, K-major and swizzled in shared memory)
+template <bool ACC, int OFF16>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[16], const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (ACC)
+    asm volatile(
+        "{\n.reg .pred p;\n.reg .b64 b;\nsetp.ne.b32 p, %21, 0;\nadd.s64 b, %20, %22;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 " BD_D16
+        ", {%16, %17, %18, %19}, b, p, 1, 1;\n}\n"
+        : BD_O16(d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(OFF16));
+  else
+    asm volatile(
+        "{\n.reg .pred p;\n.reg .b64 b;\nsetp.ne.b32 p, %21, 0;\nadd.s64 b, %20, %22;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 " BD_D16
+        ", {%16, %17, %18, %19}, b, p, 1, 1;\n}\n"
+        : BD_W16(d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(0), "n"(OFF16));
 }
 
 #undef BD_D16

@@ -73,13 +73,17 @@
 //     slot that both read as the A operand. The C partial dk and dv tiles
 //     are summed in rank order through distributed shared memory: no
 //     atomics, deterministic.
-// f32 inputs run on CUDA cores (one warp a row), so that no dtype JAX
-// computes raises.
+// f32 (JAX's compute dtype float32, `--dtype float32`): dkv and dq at
+// D <= 128 are 3xTF32 wgmma kernels fed by a TMA ring (see their section:
+// every A from registers, the products over rows taken transposed), bound
+// by operations at 495 / 3 = 165 TFLOP/s; the forward, and dkv and dq above
+// D = 128, run on CUDA cores (one warp a row).
 
 #include <float.h>
 #include <limits.h>
 
 #include <algorithm>
+#include <type_traits>
 
 #include "common.cuh"
 #include "stream.cuh"
@@ -1055,7 +1059,607 @@ __global__ void __launch_bounds__(2 * kWg + 32, 1)
   dkv_wide_store(acc, smem, dk, scale, b, k0, S, Hkv, hk, D, C, rank);
 }
 
-// ---- f32 inputs: CUDA cores, one warp a row ---------------------------------
+// ---- f32 dkv and dq at D <= 128: 3xTF32 wgmma fed by a TMA ring ---------------
+//
+// tf32 wgmma reads both operands K-major, so no product can read a tile
+// transposed as the bf16 kernels read V, dO, Q and K. Here every product takes
+// A from registers, gathered with ld.shared in whatever order it needs, split
+// into hi and lo there (hopper.cuh: tf32_split), and B from shared memory as
+// hi and lo planes, K-major:
+//   * the score products contract over D, and D is contiguous, so the
+//     streamed operand (dkv: Q and dO; dq: K and V) is B as TMA lands it,
+//     split in place (hi over the raw tile, lo beside it) once a stage;
+//     the resident operand (dkv: K, V; dq: Q, dO) stays raw and is A;
+//   * the products over rows are taken transposed: dv^T = dO^T p,
+//     dk^T = Q^T ds (dkv), dq^T = K^T ds^T (dq): A gathered from the stage's
+//     planes by column, B the p or ds tile written from the score
+//     accumulator into hi and lo planes in the swizzle TMA uses, rows of TS
+//     f32 (128 bytes);
+//   * the accumulators hold the results transposed (D's columns as rows);
+//     the epilogue writes them through shared memory as [row][D] tiles.
+// Every product is three wgmmas (hi hi, hi lo, lo hi). f32 tiles are twice
+// bf16's and each B needs its lo plane, so stages are TS = 32 rows and
+// one consumer warpgroup does all the products, its gathers, splits and
+// exponentials in series with them. At D <= 64 two CTAs share an SM (one
+// ring stage, 97 or 81 KB of shared memory, 168 registers a thread), so one
+// CTA's elementwise work overlaps the other's products (faster than one
+// CTA with a deeper ring, which only hides the loads). At D = 128
+// the resident raw tiles (64 KB) and a stage (64 KB) allow one CTA an SM
+// (up to 227 KB, 255 registers).
+
+constexpr int TS = 32;  // rows of a tf32 ring stage: queries (dkv) or keys (dq); a p/ds row
+static_assert(TS == 32, "the producer warp reads a stage's scalars a row a lane");
+
+template <int I, int N, typename F>
+__device__ __forceinline__ void static_for(F&& f) {
+  if constexpr (I < N) {
+    f(std::integral_constant<int, I>());
+    static_for<I + 1, N>(f);
+  }
+}
+
+struct Frag {  // a 64 x 8 A operand: hi and lo tf32
+  uint32_t hi[4], lo[4];
+};
+
+__device__ __forceinline__ void fence_frag(Frag& f) {
+  fence_regs(f.hi);
+  fence_regs(f.lo);
+}
+
+// An R-row f32 tile in boxes of 32 columns, 128-byte swizzled as TMA writes
+// it, holds element (row, col) at float (col / 32) * 32 R + 32 row +
+// 4 (((col / 4) % 8) ^ (row % 8)) + col % 4. The gathers below address it
+// as a per-thread base XOR a constant: the thread's row (or column) fixes
+// the bits above and below the 16-byte chunk, the constant flips chunk bits
+// only, so ptxas keeps a few bases across the stage loop instead of one
+// address an element.
+
+// Thread base (floats) of row_frag: rows r0, r0 + 8 of a tile, k-column q
+__device__ __forceinline__ int row_base(int r0, int q) { return r0 * 32 + ((r0 & 7) << 2) + q; }
+
+// The A fragment of k-step KK of rows r0, r0 + 8 (base rb = row_base) of a
+// raw R-row f32 tile t (K columns), split: element (r, 8 KK + q (+4)) in
+// chunk (2 (KK % 4) (+1)) ^ (r % 8) of its row
+template <int R, int KK>
+__device__ __forceinline__ void row_frag(Frag& f, const float* t, int rb) {
+  constexpr int BOX = (KK >> 2) * R * 32, X = (2 * (KK & 3)) << 2;
+  tf32_split(t[(rb ^ X) + BOX], f.hi[0], f.lo[0]);
+  tf32_split(t[(rb ^ X) + BOX + 256], f.hi[1], f.lo[1]);
+  tf32_split(t[(rb ^ (X + 4)) + BOX], f.hi[2], f.lo[2]);
+  tf32_split(t[(rb ^ (X + 4)) + BOX + 256], f.hi[3], f.lo[3]);
+}
+
+// Thread base (floats) of col_frag for A rows m0 = 64 mt + r0, r0 = 16 w +
+// l/4 (l the lane), q = l % 4, in an R-row plane: column m0 % 64 at row q
+template <int R>
+__device__ __forceinline__ int col_base(int r0, int q) {
+  const int w = r0 >> 4, g = r0 & 7;
+  return (w >> 1) * R * 32 + q * 32 + ((((w & 1) << 2 | g >> 2) ^ q) << 2) + (g & 3);
+}
+
+// The A fragment of k-step KK of the transpose of split planes th, tl (R
+// rows: A's K dimension runs down the rows; its M rows m0, m0 + 8 =
+// 64 MT + r0 (+8) are columns; base cb = col_base): element (m, k) at row
+// k = 8 KK + q (+4), column m; +8 columns and +4 rows flip chunk bits 1, 2
+template <int R, int MT, int KK>
+__device__ __forceinline__ void col_frag(Frag& f, const float* th, const float* tl, int cb) {
+  constexpr int C0 = MT * 2 * R * 32 + KK * 256;
+  const int i[4] = {cb + C0, (cb ^ 8) + C0, (cb ^ 16) + C0 + 128, (cb ^ 24) + C0 + 128};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    f.hi[j] = __float_as_uint(th[i[j]]);
+    f.lo[j] = __float_as_uint(tl[i[j]]);
+  }
+}
+
+// d (+)= A * B in 3xTF32: B's hi and lo planes by descriptors bh, bl
+template <bool ACC, int OFF16, int N>
+__device__ __forceinline__ void mma3(float (&d)[N], const Frag& a, uint64_t bh, uint64_t bl) {
+  wgmma_tf32<ACC, OFF16>(d, a.hi, bh);
+  wgmma_tf32<true, OFF16>(d, a.hi, bl);
+  wgmma_tf32<true, OFF16>(d, a.lo, bh);
+}
+
+// hi (in place) and lo planes of the N f32 at t, by the warpgroup: the
+// swizzle is a permutation inside 1024-byte atoms, so the planes keep the
+// raw tile's layout
+template <int N>
+__device__ __forceinline__ void split_plane(float* t, float* lo, int t128) {
+  static_assert(N % (4 * kWg) == 0, "a float4 a thread a pass");
+#pragma unroll
+  for (int j = 0; j < N / (4 * kWg); ++j) {
+    const int i = 4 * (t128 + j * kWg);
+    const float4 x = *reinterpret_cast<const float4*>(t + i);
+    uint4 h, l;
+    tf32_split(x.x, h.x, l.x);
+    tf32_split(x.y, h.y, l.y);
+    tf32_split(x.z, h.z, l.z);
+    tf32_split(x.w, h.w, l.w);
+    *reinterpret_cast<uint4*>(t + i) = h;
+    *reinterpret_cast<uint4*>(lo + i) = l;
+  }
+}
+
+// x, y (64 x TS) = rows of raw tiles a1, a2 (64 rows; rb: row_base of this
+// thread's) times the rows of the split TS-row planes of descriptors
+// b1h/b1l, b2h/b2l, over DT columns (zeros past D): the score products, in chunks of KC
+// k-steps, each chunk's A fragments gathered and split, then its 6 KC
+// wgmmas issued and waited for (registers: 16 KC for the fragments).
+template <int DT, int KC>
+__device__ __forceinline__ void scores_tf32(float (&x)[16], float (&y)[16], const float* a1,
+                                            const float* a2, uint64_t b1h, uint64_t b1l,
+                                            uint64_t b2h, uint64_t b2l, int rb) {
+  static_for<0, DT / 8 / KC>([&](auto cc) {
+    constexpr int K0 = decltype(cc)::value * KC;
+    Frag f1[KC], f2[KC];
+    static_for<0, KC>([&](auto jj) {
+      constexpr int J = decltype(jj)::value;
+      row_frag<64, K0 + J>(f1[J], a1, rb);
+      row_frag<64, K0 + J>(f2[J], a2, rb);
+    });
+    wgmma_fence();
+    if constexpr (K0 > 0) {
+      fence_regs(x);
+      fence_regs(y);
+    }
+    static_for<0, KC>([&](auto jj) {
+      constexpr int J = decltype(jj)::value, K = K0 + J;
+      constexpr int OFF = ((K >> 2) * TS * 128 + (K & 3) * 32) / 16;
+      mma3<K != 0, OFF>(x, f1[J], b1h, b1l);
+      mma3<K != 0, OFF>(y, f2[J], b2h, b2l);
+    });
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(x);
+    fence_regs(y);
+#pragma unroll
+    for (int j = 0; j < KC; ++j) {
+      fence_frag(f1[j]);
+      fence_frag(f2[j]);
+    }
+  });
+}
+
+// d1 (64 x 64) += the transpose of split planes t1h/t1l (TS rows: the K
+// dimension; columns 64 M1 .. 64 M1 + 63: the M rows) times the 64 x TS
+// tile of descriptors b1h/b1l (64 rows of TS f32: one box); with TWO, d2 the
+// same from t2h/t2l, columns 64 M2 .., b2h/b2l in the same wgmma group.
+// cb: col_base<TS>.
+template <int M1, int M2, bool TWO>
+__device__ __forceinline__ void tcols_tf32(float (&d1)[32], float (&d2)[32], const float* t1h,
+                                           const float* t1l, const float* t2h, const float* t2l,
+                                           uint64_t b1h, uint64_t b1l, uint64_t b2h, uint64_t b2l,
+                                           int cb) {
+  Frag f1[TS / 8], f2[TS / 8];
+  static_for<0, TS / 8>([&](auto kk) {
+    constexpr int K = decltype(kk)::value;
+    col_frag<TS, M1, K>(f1[K], t1h, t1l, cb);
+    if constexpr (TWO) col_frag<TS, M2, K>(f2[K], t2h, t2l, cb);
+  });
+  wgmma_fence();
+  fence_regs(d1);
+  if constexpr (TWO) fence_regs(d2);
+  static_for<0, TS / 8>([&](auto kk) {
+    constexpr int K = decltype(kk)::value;
+    mma3<true, K * 32 / 16>(d1, f1[K], b1h, b1l);
+    if constexpr (TWO) mma3<true, K * 32 / 16>(d2, f2[K], b2h, b2l);
+  });
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(d1);
+  if constexpr (TWO) fence_regs(d2);
+#pragma unroll
+  for (int kk = 0; kk < TS / 8; ++kk) {
+    fence_frag(f1[kk]);
+    if constexpr (TWO) fence_frag(f2[kk]);
+  }
+}
+
+// v (64 x TS, the score accumulator's layout) into the hi and lo planes at
+// h, l: 64 rows of TS f32 (one box), swizzled; the pair (r, 8j + 2q) in
+// chunk (2j + q / 2) ^ (r % 8)
+__device__ __forceinline__ void store_split(float* h, float* l, const float (&v)[16], int r0,
+                                            int q) {
+  const int sb = r0 * 32 + (((q >> 1) ^ (r0 & 7)) << 2) + 2 * (q & 1);
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int i = (sb ^ (j << 3)) + 256 * half;
+      uint2 hv, lv;
+      tf32_split(v[4 * j + 2 * half], hv.x, lv.x);
+      tf32_split(v[4 * j + 2 * half + 1], hv.y, lv.y);
+      *reinterpret_cast<uint2*>(h + i) = hv;
+      *reinterpret_cast<uint2*>(l + i) = lv;
+    }
+}
+
+// acc (DT/64 tiles of 64 x 64: D's columns 64 mt + 16 w + l/4 (+8) as rows,
+// 64 rows of the output as columns) into out[row][d] (row stride DT + 4
+// floats: the warp's four row pairs land in distinct banks)
+template <int DT>
+__device__ __forceinline__ void acc_to_rows(float* out, const float (&acc)[DT / 64][32], int warp,
+                                            int lane) {
+#pragma unroll
+  for (int mt = 0; mt < DT / 64; ++mt)
+#pragma unroll
+    for (int r = 0; r < 32; ++r) {
+      const int d = 64 * mt + 16 * warp + (lane >> 2) + 8 * ((r >> 1) & 1);
+      const int row = 8 * (r >> 2) + 2 * (lane & 3) + (r & 1);
+      out[row * (DT + 4) + d] = acc[mt][r];
+    }
+}
+
+template <int DT>
+struct DkvTf32 {
+  static constexpr int ST = DT <= 64 ? 1 : 2;     // ring stages
+  static constexpr int KC = 2;                    // k-steps a chunk of the score products
+  static constexpr int MIN_BLOCKS = DT <= 64 ? 2 : 1;  // CTAs an SM (registers: 168, 255)
+  static constexpr int TILE = 64 * DT * 4;        // K or V: 64 keys
+  static constexpr int PLANE = TS * DT * 4;       // a stage's Q or dO, hi or lo
+  static constexpr int SLOT = 64 * TS * 4;        // p or ds (keys x queries), hi or lo
+  // K at 0, V at TILE; stage st's Q hi, Q lo, dO hi, dO lo at 2 TILE + (4 st + i) PLANE
+  static constexpr int XCH = 2 * TILE + 4 * ST * PLANE;  // p hi, p lo, ds hi, ds lo
+  static constexpr int SCAL = XCH + 4 * SLOT;            // [ST][3][TS]: lse2, di, seg
+  // then the query stage's one segment id [ST]; then full, empty, kv, 8-byte aligned
+  static constexpr int BAR = (SCAL + ST * (3 * TS + 1) * 4 + 7) / 8 * 8;
+  static constexpr int SMEM = BAR + (2 * ST + 1) * 8 + 1024;
+  static constexpr int OUT = 64 * (DT + 4);  // floats of a [key][D] partial tile, padded rows
+  static_assert(2 * OUT * 4 <= XCH, "the partial tiles overlay K, V and the ring");
+  static_assert(MIN_BLOCKS * (SMEM + 1024) <= 233472, "shared memory of an SM");
+};
+
+// dkv, f32, D <= 128: the grid and clusters of train_attn_dkv_ws_kernel
+// (dkv_plan: C = min(rep, 8) CTAs a (key tile of 64 rows, kv head, batch),
+// the key tile slowest), CTA `rank` walking query heads rank, rank + C, ...
+// and for each the query stages of TS rows from the diagonal to the end
+// (dkv_walk with query tiles of TS). A producer warp loads raw K and V once
+// and streams Q, dO, lse, di and the rows' segment ids through ST stages;
+// one consumer warpgroup owns the 64 keys: per stage it splits Q and dO in
+// place, takes s^T = K Q^T and dp^T = V dO^T (K and V gathered and split as
+// A), p and ds = p (dp - di) into the hi/lo slots, then dv^T += dO^T p and
+// dk^T += Q^T ds. The C partial tiles are summed in rank order through
+// distributed shared memory ([key][D] rows, coalesced): no atomics, the same
+// bits on every run.
+template <int DT>
+__global__ void __launch_bounds__(kWg + 32, DkvTf32<DT>::MIN_BLOCKS)
+    train_attn_dkv_tf32_kernel(const __grid_constant__ CUtensorMap q_map,
+                               const __grid_constant__ CUtensorMap k_map,
+                               const __grid_constant__ CUtensorMap v_map,
+                               const __grid_constant__ CUtensorMap do_map,
+                               const int* __restrict__ seg, const float* __restrict__ lse,
+                               const float* __restrict__ di, float* __restrict__ dk,
+                               float* __restrict__ dv, int S, int Hq, int Hkv, int D,
+                               float scale) {
+  using P = DkvTf32<DT>;
+  constexpr int ST = P::ST, NB = DT / 32;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  float* scal = reinterpret_cast<float*>(smem + P::SCAL);
+  int* qsegs = reinterpret_cast<int*>(scal + ST * 3 * TS);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + P::BAR);
+  uint64_t* empty = full + ST;
+  uint64_t* kvbar = empty + ST;
+  const int C = gridDim.x, rank = blockIdx.x;
+  const int kt = blockIdx.y / Hkv, hk = blockIdx.y - kt * Hkv, b = blockIdx.z, k0 = kt * TK;
+  const int rep = Hq / Hkv;
+  const int qs0 = k0 / TS, nqs = (S + TS - 1) / TS - qs0;  // query stages a head
+  const int steps = (rep - rank + C - 1) / C * nqs;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int i = 0; i < ST; ++i) {
+      mbar_init(full + i, kFullCount);
+      mbar_init(empty + i, 4);  // lane 0 of each consumer warp
+    }
+    mbar_init(kvbar, 1);
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (tid >= kWg) {  // the producer warp
+    const int lane = tid & 31;
+    if (lane == 0) {
+      mbar_expect(kvbar, 2 * P::TILE);
+      for (int c = 0; c < NB; ++c) {
+        tma_load_4d(smem + c * TK * kBoxRow, &k_map, 32 * c, hk, k0, b, kvbar);
+        tma_load_4d(smem + P::TILE + c * TK * kBoxRow, &v_map, 32 * c, hk, k0, b, kvbar);
+      }
+    }
+    for (int i = 0; i < steps; ++i) {
+      const int st = i % ST;
+      const int h = hk * rep + rank + C * (i / nqs), q0 = (qs0 + i % nqs) * TS;
+      if (i >= ST) mbar_wait(empty + st, (i / ST - 1) & 1);
+      uint8_t* qt = smem + 2 * P::TILE + 4 * st * P::PLANE;
+      if (lane == 0) {
+        mbar_expect(full + st, 2 * P::PLANE);
+        for (int c = 0; c < NB; ++c) {
+          tma_load_4d(qt + c * TS * kBoxRow, &q_map, 32 * c, h, q0, b, full + st);
+          tma_load_4d(qt + 2 * P::PLANE + c * TS * kBoxRow, &do_map, 32 * c, h, q0, b, full + st);
+        }
+      }
+      float* sc = scal + st * 3 * TS;
+      const int row = q0 + lane;  // TS == 32: a row a lane
+      const bool in = row < S;
+      sc[lane] = in ? lse[(size_t(b) * Hq + h) * S + row] * kLog2e : 0.f;
+      sc[TS + lane] = in ? di[(size_t(b) * S + row) * Hq + h] : 0.f;
+      const int v = in ? (seg ? seg[size_t(b) * S + row] : 1) : -3;
+      reinterpret_cast<int*>(sc)[2 * TS + lane] = v;
+      const int lo = __reduce_min_sync(0xffffffffu, v), hi = __reduce_max_sync(0xffffffffu, v);
+      if (lane == 0) qsegs[st] = lo == hi ? lo : kMixed;
+      mbar_arrive(full + st);
+    }
+    if (C > 1)  // the consumers' two cluster barriers
+      for (int i = 0; i < 2; ++i) cluster_barrier();
+    return;
+  }
+
+  const int warp = tid >> 5, lane = tid & 31, quad = lane & 3, r0 = 16 * warp + (lane >> 2);
+  const int rb = row_base(r0, quad), cb = col_base<TS>(r0, quad);
+  const float qs = scale * kLog2e;
+  int keys[2], segk[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    keys[half] = k0 + r0 + 8 * half;
+    segk[half] = keys[half] < S ? (seg ? seg[size_t(b) * S + keys[half]] : 1) : -1;
+  }
+  float dva[DT / 64][32], dka[DT / 64][32];  // dv^T, dk^T: D's columns x 64 keys
+#pragma unroll
+  for (int mt = 0; mt < DT / 64; ++mt)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dva[mt][i] = dka[mt][i] = 0.f;
+  const float* kr = reinterpret_cast<const float*>(smem);
+  const float* vr = reinterpret_cast<const float*>(smem + P::TILE);
+  float* ph = reinterpret_cast<float*>(smem + P::XCH);  // p hi, p lo, ds hi, ds lo
+  float* pl = ph + P::SLOT / 4;
+  float* dsh = pl + P::SLOT / 4;
+  float* dsl = dsh + P::SLOT / 4;
+  const uint32_t pa = smem_u32(ph);
+  const uint64_t phd = sw128_desc(pa), pld = sw128_desc(pa + P::SLOT);
+  const uint64_t dshd = sw128_desc(pa + 2 * P::SLOT), dsld = sw128_desc(pa + 3 * P::SLOT);
+  mbar_wait(kvbar, 0);
+
+  for (int i = 0; i < steps; ++i) {
+    const int st = i % ST, q0 = (qs0 + i % nqs) * TS;
+    mbar_wait(full + st, (i / ST) & 1);
+    float* qh = reinterpret_cast<float*>(smem + 2 * P::TILE + 4 * st * P::PLANE);
+    float* ql = qh + P::PLANE / 4;
+    float* oh = ql + P::PLANE / 4;
+    float* ol = oh + P::PLANE / 4;
+    split_plane<TS * DT>(qh, ql, tid);
+    split_plane<TS * DT>(oh, ol, tid);
+    fence_proxy_async();
+    named_sync(1, kWg);
+    const uint32_t qa = smem_u32(qh);
+    float x[16], y[16];  // s^T, dp^T: 64 keys x TS queries
+    scores_tf32<DT, P::KC>(x, y, kr, vr, sw128_desc(qa), sw128_desc(qa + P::PLANE),
+                           sw128_desc(qa + 2 * P::PLANE), sw128_desc(qa + 3 * P::PLANE), rb);
+    const float* sc = scal + st * 3 * TS;
+    const int* sq = reinterpret_cast<const int*>(sc) + 2 * TS;
+    const int ts = qsegs[st];  // as in the forward, keys and query rows swapped
+    const bool mask = q0 < k0 + TK - 1 || q0 + TS > S || ts != segk[0] || ts != segk[1];
+#pragma unroll
+    for (int r = 0; r < 16; ++r) {
+      const int half = (r >> 1) & 1, c = 8 * (r >> 2) + 2 * quad + (r & 1);
+      float p = ex2(x[r] * qs - sc[c]);
+      if (mask && !(keys[half] <= q0 + c && sq[c] == segk[half])) p = 0.f;
+      x[r] = p;
+      y[r] = p * (y[r] - sc[TS + c]);  // ds
+    }
+    store_split(ph, pl, x, r0, quad);
+    store_split(dsh, dsl, y, r0, quad);
+    fence_proxy_async();
+    named_sync(1, kWg);
+    static_for<0, DT / 64>([&](auto m) {  // dv^T += dO^T p, dk^T += Q^T ds
+      constexpr int MT = decltype(m)::value;
+      tcols_tf32<MT, MT, true>(dva[MT], dka[MT], oh, ol, qh, ql, phd, pld, dshd, dsld, cb);
+    });
+    if (lane == 0) mbar_arrive(empty + st);  // this warp is done with the stage
+  }
+
+  // [key][D] partial tiles, dv then dk, over K, V and the ring (every stage
+  // consumed; the named barrier: every warp is done with them)
+  float* red = reinterpret_cast<float*>(smem);
+  named_sync(1, kWg);
+  acc_to_rows<DT>(red, dva, warp, lane);
+  acc_to_rows<DT>(red + P::OUT, dka, warp, lane);
+  if (C > 1)
+    cluster_barrier();
+  else
+    named_sync(1, kWg);
+  // CTA `rank` sums its 1/C of the 2 x 64 rows' float4s over ranks 0 .. C-1
+  cg::cluster_group cluster = cg::this_cluster();
+  constexpr int N4 = 2 * 64 * DT / 4;
+  const int per = (N4 + C - 1) / C, lo = rank * per, hi = min(N4, lo + per);
+  for (int n = lo + tid; n < hi; n += kWg) {
+    const int rr = n / (DT / 4), col = 4 * (n - rr * (DT / 4)), w = rr >> 6, key = k0 + (rr & 63);
+    const int at = w * P::OUT + (rr & 63) * (DT + 4) + col;
+    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int r = 0; r < C; ++r) {
+      const float4 v =
+          *reinterpret_cast<const float4*>((C > 1 ? cluster.map_shared_rank(red, r) : red) + at);
+      s.x += v.x;
+      s.y += v.y;
+      s.z += v.z;
+      s.w += v.w;
+    }
+    if (key < S && col < D) {
+      const float mul = w ? scale : 1.f;
+      *reinterpret_cast<float4*>((w ? dk : dv) + ((size_t(b) * S + key) * Hkv + hk) * D + col) =
+          make_float4(s.x * mul, s.y * mul, s.z * mul, s.w * mul);
+    }
+  }
+  if (C > 1) cluster_barrier();  // no CTA leaves while a peer still reads its shared memory
+}
+
+template <int DT>
+struct DqTf32 {
+  static constexpr int ST = DT <= 64 ? 1 : 2;  // ring stages
+  static constexpr int KC = DT <= 64 ? 2 : 4;  // k-steps a chunk of the score products
+  static constexpr int MIN_BLOCKS = DT <= 64 ? 2 : 1;  // CTAs an SM (registers: 168, 255)
+  static constexpr int TILE = 64 * DT * 4;     // Q or dO: 64 query rows
+  static constexpr int PLANE = TS * DT * 4;    // a stage's K or V, hi or lo
+  static constexpr int SLOT = 64 * TS * 4;     // ds (queries x keys), hi or lo
+  // Q at 0, dO at TILE; stage st's K hi, K lo, V hi, V lo at 2 TILE + (4 st + i) PLANE
+  static constexpr int XCH = 2 * TILE + 4 * ST * PLANE;  // ds hi, ds lo
+  static constexpr int SEG = XCH + 2 * SLOT;  // keys' segment ids [ST][TS], the stage's one [ST]
+  static constexpr int BAR = (SEG + ST * (TS + 1) * 4 + 7) / 8 * 8;
+  static constexpr int SMEM = BAR + (2 * ST + 1) * 8 + 1024;  // full, empty, q; alignment
+  static constexpr int OUT = 64 * (DT + 4);  // floats of the [query][D] tile, padded rows
+  static_assert(OUT * 4 <= XCH, "the dq tile overlays Q, dO and the ring");
+  static_assert(MIN_BLOCKS * (SMEM + 1024) <= 233472, "shared memory of an SM");
+};
+
+// dq, f32, D <= 128: one CTA a (query head, batch, query tile of 64 rows, the
+// longest first), as train_attn_dq_ws_kernel: a producer warp loads raw Q
+// and dO once and streams the key stages (TS rows) on or below the diagonal,
+// K, V and the keys' segment ids, through ST stages; one consumer warpgroup
+// owns the 64 rows: per stage it splits K and V in place, takes s = Q K^T
+// and dp = dO V^T (Q and dO gathered and split as A), ds = p (dp - di) into
+// the hi/lo slots, then dq^T += K^T ds^T. The CTA writes only its own rows:
+// no atomics, the same bits on every run.
+template <int DT>
+__global__ void __launch_bounds__(kWg + 32, DqTf32<DT>::MIN_BLOCKS)
+    train_attn_dq_tf32_kernel(const __grid_constant__ CUtensorMap q_map,
+                              const __grid_constant__ CUtensorMap k_map,
+                              const __grid_constant__ CUtensorMap v_map,
+                              const __grid_constant__ CUtensorMap do_map,
+                              const int* __restrict__ seg, const float* __restrict__ lse,
+                              const float* __restrict__ di, float* __restrict__ dq, int S, int Hq,
+                              int Hkv, int D, float scale) {
+  using P = DqTf32<DT>;
+  constexpr int ST = P::ST, NB = DT / 32;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  int* segs = reinterpret_cast<int*>(smem + P::SEG);
+  int* tsegs = segs + ST * TS;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + P::BAR);
+  uint64_t* empty = full + ST;
+  uint64_t* qbar = empty + ST;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * TQ;
+  const int hk = h / (Hq / Hkv);
+  const int nks = min(q0 / TS + TQ / TS, (S + TS - 1) / TS);  // key stages on or below the diagonal
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int i = 0; i < ST; ++i) {
+      mbar_init(full + i, kFullCount);
+      mbar_init(empty + i, 4);  // lane 0 of each consumer warp
+    }
+    mbar_init(qbar, 1);
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (tid >= kWg) {  // the producer warp
+    const int lane = tid & 31;
+    if (lane == 0) {
+      mbar_expect(qbar, 2 * P::TILE);
+      for (int c = 0; c < NB; ++c) {
+        tma_load_4d(smem + c * TQ * kBoxRow, &q_map, 32 * c, h, q0, b, qbar);
+        tma_load_4d(smem + P::TILE + c * TQ * kBoxRow, &do_map, 32 * c, h, q0, b, qbar);
+      }
+    }
+    for (int t = 0; t < nks; ++t) {
+      const int st = t % ST, k0 = t * TS;
+      if (t >= ST) mbar_wait(empty + st, (t / ST - 1) & 1);
+      uint8_t* kt = smem + 2 * P::TILE + 4 * st * P::PLANE;
+      if (lane == 0) {
+        mbar_expect(full + st, 2 * P::PLANE);
+        for (int c = 0; c < NB; ++c) {
+          tma_load_4d(kt + c * TS * kBoxRow, &k_map, 32 * c, hk, k0, b, full + st);
+          tma_load_4d(kt + 2 * P::PLANE + c * TS * kBoxRow, &v_map, 32 * c, hk, k0, b, full + st);
+        }
+      }
+      const int key = k0 + lane;  // TS == 32: a key a lane
+      const int v = key < S ? (seg ? seg[size_t(b) * S + key] : 1) : -1;
+      segs[st * TS + lane] = v;
+      const int lo = __reduce_min_sync(0xffffffffu, v), hi = __reduce_max_sync(0xffffffffu, v);
+      if (lane == 0) tsegs[st] = lo == hi ? lo : kMixed;
+      mbar_arrive(full + st);
+    }
+    return;
+  }
+
+  const int warp = tid >> 5, lane = tid & 31, quad = lane & 3, r0 = 16 * warp + (lane >> 2);
+  const int rb = row_base(r0, quad), cb = col_base<TS>(r0, quad);
+  const float qs = scale * kLog2e;
+  int rows[2], segq[2];
+  float lse2[2], dii[2];  // rows past S: 0, never stored
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = q0 + r0 + 8 * half;
+    const bool in = row < S;
+    rows[half] = row;
+    segq[half] = in ? (seg ? seg[size_t(b) * S + row] : 1) : -2;
+    lse2[half] = in ? lse[(size_t(b) * Hq + h) * S + row] * kLog2e : 0.f;
+    dii[half] = in ? di[(size_t(b) * S + row) * Hq + h] : 0.f;
+  }
+  float acc[DT / 64][32];  // dq^T: D's columns x 64 query rows
+#pragma unroll
+  for (int mt = 0; mt < DT / 64; ++mt)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[mt][i] = 0.f;
+  const float* qr = reinterpret_cast<const float*>(smem);
+  const float* dor = reinterpret_cast<const float*>(smem + P::TILE);
+  float* dsh = reinterpret_cast<float*>(smem + P::XCH);
+  float* dsl = dsh + P::SLOT / 4;
+  const uint64_t dshd = sw128_desc(smem_u32(dsh)), dsld = sw128_desc(smem_u32(dsl));
+  mbar_wait(qbar, 0);
+
+  for (int t = 0; t < nks; ++t) {
+    const int st = t % ST, k0 = t * TS;
+    mbar_wait(full + st, (t / ST) & 1);
+    float* kh = reinterpret_cast<float*>(smem + 2 * P::TILE + 4 * st * P::PLANE);
+    float* kl = kh + P::PLANE / 4;
+    float* vh = kl + P::PLANE / 4;
+    float* vl = vh + P::PLANE / 4;
+    split_plane<TS * DT>(kh, kl, tid);
+    split_plane<TS * DT>(vh, vl, tid);
+    fence_proxy_async();
+    named_sync(1, kWg);
+    const uint32_t ka = smem_u32(kh);
+    float s[16], dp[16];  // 64 query rows x TS keys
+    scores_tf32<DT, P::KC>(s, dp, qr, dor, sw128_desc(ka), sw128_desc(ka + P::PLANE),
+                           sw128_desc(ka + 2 * P::PLANE), sw128_desc(ka + 3 * P::PLANE), rb);
+    const int* sk = segs + st * TS;
+    // the per-element test only where the stage crosses the diagonal or S or
+    // holds another segment than this thread's rows, as in the forward
+    const int ts = tsegs[st];
+    const bool mask = k0 + TS - 1 > q0 || k0 + TS > S || ts != segq[0] || ts != segq[1];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int half = (i >> 1) & 1, kc = 8 * (i >> 2) + 2 * quad + (i & 1);
+      float p = ex2(s[i] * qs - lse2[half]);
+      if (mask && !(k0 + kc <= rows[half] && sk[kc] == segq[half])) p = 0.f;
+      s[i] = p * (dp[i] - dii[half]);  // ds
+    }
+    store_split(dsh, dsl, s, r0, quad);
+    fence_proxy_async();
+    named_sync(1, kWg);
+    // dq^T += K^T ds^T, both of D's 64-column tiles in one group at DT = 128
+    tcols_tf32<0, 1, (DT > 64)>(acc[0], acc[DT / 64 - 1], kh, kl, kh, kl, dshd, dsld, dshd, dsld,
+                                cb);
+    if (lane == 0) mbar_arrive(empty + st);  // this warp is done with the stage
+  }
+
+  // the [query][D] tile over Q, dO and the ring (every stage consumed; the
+  // named barrier: every warp is done with them), then coalesced rows
+  float* out = reinterpret_cast<float*>(smem);
+  named_sync(1, kWg);
+  acc_to_rows<DT>(out, acc, warp, lane);
+  named_sync(1, kWg);
+  for (int n = tid; n < 64 * DT / 4; n += kWg) {
+    const int row = n / (DT / 4), col = 4 * (n - row * (DT / 4));
+    if (q0 + row >= S || col >= D) continue;
+    const float4 v = *reinterpret_cast<const float4*>(out + row * (DT + 4) + col);
+    *reinterpret_cast<float4*>(dq + ((size_t(b) * S + q0 + row) * Hq + h) * D + col) =
+        make_float4(v.x * scale, v.y * scale, v.z * scale, v.w * scale);
+  }
+}
+
+// ---- f32 inputs on CUDA cores, one warp a row: the forward, and dkv and dq
+// above D = 128 ---------------------------------------------------------------
 
 constexpr int F32_ROWS = 8;  // rows (warps) a CTA
 
@@ -1207,7 +1811,7 @@ struct Args {
   void *o0, *o1, *lse_out;
   int B, S, Hq, Hkv, D;
   float scale;
-  int cluster;  // bf16 dkv: CTAs a cluster (ops/train_attention.py: dkv_plan)
+  int cluster;  // dkv: CTAs a cluster (ops/train_attention.py: dkv_plan)
 };
 
 enum Which { kFwd = 0, kDkv = 1, kDq = 2 };
@@ -1256,6 +1860,34 @@ cudaError_t launch_bf16(Which w, const Args& a, cudaStream_t s) {
 }
 
 template <int DT>
+cudaError_t launch_tf32(Which w, const Args& a, cudaStream_t s) {
+  // dkv: 64-row boxes of k, v (resident), TS-row boxes of q, dout (streamed);
+  // dq the other way round
+  const uint32_t rq = w == kDkv ? TS : TQ, rk = w == kDkv ? TK : TS;
+  CUtensorMap qm, km, vm, om;
+  if (!tensor_map_bshd_f32(&qm, a.q, a.B, a.S, a.Hq, a.D, rq) ||
+      !tensor_map_bshd_f32(&km, a.k, a.B, a.S, a.Hkv, a.D, rk) ||
+      !tensor_map_bshd_f32(&vm, a.v, a.B, a.S, a.Hkv, a.D, rk) ||
+      !tensor_map_bshd_f32(&om, a.dout, a.B, a.S, a.Hq, a.D, rq))
+    return cudaErrorInvalidValue;
+  const auto* seg = static_cast<const int*>(a.seg);
+  const auto* lse = static_cast<const float*>(a.lse_in);
+  const auto* di = static_cast<const float*>(a.di);
+  if (w == kDkv)  // on clusters of a.cluster CTAs, the grid of dkv_plan
+    return launch_cluster_block(train_attn_dkv_tf32_kernel<DT>,
+                                dim3(a.cluster, (a.S + TK - 1) / TK * a.Hkv, a.B), kWg + 32,
+                                a.cluster, DkvTf32<DT>::SMEM, false, s, qm, km, vm, om, seg, lse,
+                                di, static_cast<float*>(a.o0), static_cast<float*>(a.o1), a.S,
+                                a.Hq, a.Hkv, a.D, a.scale);
+  auto kern = train_attn_dq_tf32_kernel<DT>;
+  cudaError_t err = allow_smem(kern, DqTf32<DT>::SMEM);
+  if (err != cudaSuccess) return err;
+  kern<<<dim3(a.Hq, a.B, (a.S + TQ - 1) / TQ), kWg + 32, DqTf32<DT>::SMEM, s>>>(
+      qm, km, vm, om, seg, lse, di, static_cast<float*>(a.o0), a.S, a.Hq, a.Hkv, a.D, a.scale);
+  return cudaGetLastError();
+}
+
+template <int DT>
 cudaError_t launch_f32(Which w, const Args& a, cudaStream_t s) {
   const int nr = (a.S + F32_ROWS - 1) / F32_ROWS;
   const auto* q = static_cast<const float*>(a.q);
@@ -1266,6 +1898,8 @@ cudaError_t launch_f32(Which w, const Args& a, cudaStream_t s) {
     train_attn_fwd_f32_kernel<DT><<<dim3(nr, a.Hq, a.B), F32_ROWS * 32, 0, s>>>(
         q, k, v, seg, static_cast<float*>(a.o0), static_cast<float*>(a.lse_out), a.S, a.Hq,
         a.Hkv, a.D, a.scale);
+  else if constexpr (DT <= 128)  // dkv and dq up to D = 128 are the 3xTF32 kernels'
+    return cudaErrorInvalidValue;
   else if (w == kDkv)
     train_attn_dkv_f32_kernel<DT><<<dim3(nr, a.Hkv, a.B), F32_ROWS * 32, 0, s>>>(
         q, k, v, seg, static_cast<const float*>(a.dout), static_cast<const float*>(a.lse_in),
@@ -1283,13 +1917,17 @@ cudaError_t dispatch(Which w, const Args& a, int f32, void* stream) {
   if (a.B < 1 || a.S < 1 || a.Hkv < 1 || a.Hq % a.Hkv || a.D < 16 || a.D > 256 || a.D % 16)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (f32) {
+  // dkv's cluster (ops/train_attention.py: dkv_plan): min(rep, 8) CTAs on the
+  // tensor cores, 1 on the CUDA cores (f32 above D = 128)
+  const bool cores = f32 && (w == kFwd || a.D > 128);
+  if (w == kDkv && a.cluster != (cores ? 1 : std::min(a.Hq / a.Hkv, kMaxCluster)))
+    return cudaErrorInvalidValue;
+  if (cores) {
     if (a.D <= 64) return launch_f32<64>(w, a, s);
     if (a.D <= 128) return launch_f32<128>(w, a, s);
     return launch_f32<256>(w, a, s);
   }
-  // dkv's cluster: min(rep, 8) CTAs at every D (ops/train_attention.py: dkv_plan)
-  if (w == kDkv && a.cluster != std::min(a.Hq / a.Hkv, kMaxCluster)) return cudaErrorInvalidValue;
+  if (f32) return a.D <= 64 ? launch_tf32<64>(w, a, s) : launch_tf32<128>(w, a, s);
   if (a.D <= 64) return launch_bf16<64>(w, a, s);
   if (a.D <= 128) return launch_bf16<128>(w, a, s);
   return launch_bf16<256>(w, a, s);
@@ -1314,8 +1952,8 @@ int bd_train_attn_fwd(const void* q, const void* k, const void* v, const void* s
 
 // dout [B, S, Hq, D], lse [B, Hq, S] f32 (the forward's), di [B, S, Hq] f32
 // (rowsum(o * dout)); writes dk, dv [B, S, Hkv, D] in the inputs' dtype.
-// cluster: bf16, min(Hq / Hkv, 8) (dkv_plan); f32, 1. A cluster the card
-// cannot hold launches nothing and returns the error.
+// cluster: min(Hq / Hkv, 8), or 1 for f32 above D = 128 (dkv_plan). A
+// cluster the card cannot hold launches nothing and returns the error.
 int bd_train_attn_dkv(const void* q, const void* k, const void* v, const void* seg,
                       const void* dout, const void* lse, const void* di, void* dk, void* dv,
                       int B, int S, int Hq, int Hkv, int D, float scale, int cluster, int f32,

@@ -20,14 +20,17 @@ torch.utils.checkpoint (a recompute launches the forward again).
 `di = rowsum(o * do)` in f32 stays a plain op, as JAX computes it outside
 Pallas. bf16 runs on the tensor cores: the forward, dq and dkv are wgmma
 kernels fed by a TMA ring at every D (dkv above D = 128 by its wide kernel,
-which walks twice with D's columns split between its warpgroups). f32 runs
-on CUDA cores. `train_attn_bwd_dq_plain`
+which walks twice with D's columns split between its warpgroups). f32 dkv
+and dq at D <= 128 run on the tensor cores too, as 3xTF32 (each operand
+split into tf32 hi and lo, three products: `tf32x3_matmul` is its plain
+emulation, which only the tests use); the f32 forward, and f32 dkv and dq
+above D = 128, run on CUDA cores. `train_attn_bwd_dq_plain`
 is dq alone in plain PyTorch from the kernel's own inputs (lse, di), what
 the dq kernel is held to on the card.
 
-dkv's work is split by `dkv_plan` (the kernel by D, the cluster size, the
-grid) and `dkv_walk` (what each CTA of a cluster walks); the launch follows
-them.
+dkv's work is split by `dkv_plan` (the kernel by dtype and D, the cluster
+size, the grid) and `dkv_walk` (what each CTA of a cluster walks); the
+launch follows them.
 """
 
 from __future__ import annotations
@@ -51,48 +54,60 @@ MAX_HEAD_DIM = 256
 # above: a 64 x D f32 accumulator a warpgroup does not fit beside its score
 # tiles, so the wide kernel splits D between the warpgroups and walks twice
 DKV_WGMMA_MAX_HEAD_DIM = 128
-DKV_KEY_TILE = 64     # both dkv kernels: key rows a CTA
-DKV_QUERY_TILE = 64   # ... query rows a ring stage
+DKV_KEY_TILE = 64     # the dkv kernels on the tensor cores: key rows a CTA
+DKV_QUERY_TILE = 64   # ... query rows a ring stage (bf16)
+DKV_TF32_QUERY_TILE = 32  # ... and of the 3xTF32 kernel (f32 tiles: twice bf16's, plus lo planes)
+F32_ROWS = 8          # the CUDA-core kernels: rows (one a warp) a CTA
 
 
 @dataclass(frozen=True)
 class DkvPlan:
-    """How the bf16 dkv kernel covers [B, S, Hkv] key rows: a cluster of
-    `cluster` CTAs a key tile of 64 rows, splitting the rep query heads;
-    `kernel` is "wgmma" (D <= 128: `train_attn_dkv_ws_kernel`, its two
-    warpgroups splitting the products of one walk) or "wgmma_wide"
-    (128 < D <= 256: `train_attn_dkv_wide_kernel`, its warpgroups splitting
-    D's columns over two walks, dv then dk); `grid` as launched, x first (x
-    is the cluster)."""
+    """How the dkv kernel covers [B, S, Hkv] key rows. On the tensor cores a
+    cluster of `cluster` CTAs a key tile of 64 rows, splitting the rep query
+    heads; `kernel` is, for bf16, "wgmma" (D <= 128:
+    `train_attn_dkv_ws_kernel`, its two warpgroups splitting the products of
+    one walk) or "wgmma_wide" (128 < D <= 256: `train_attn_dkv_wide_kernel`,
+    its warpgroups splitting D's columns over two walks, dv then dk), and for
+    f32 "tf32x3" (D <= 128: `train_attn_dkv_tf32_kernel`, one warpgroup, query
+    stages of `query_tile` rows). `grid` as launched, x first (x is the
+    cluster). f32 above D = 128: "f32_cores" (`train_attn_dkv_f32_kernel`,
+    one warp a key row, F32_ROWS a CTA, no cluster: grid (row blocks, Hkv,
+    B))."""
 
     kernel: str
     cluster: int
     grid: tuple[int, int, int]
+    query_tile: int = DKV_QUERY_TILE
 
     @property
     def ctas(self) -> int:
         return self.grid[0] * self.grid[1] * self.grid[2]
 
 
-def dkv_plan(b: int, s: int, hq: int, hkv: int, d: int) -> DkvPlan:
-    """The dkv launch at these shapes: the kernel by D alone, on clusters of
-    C = min(rep, MAX_CLUSTER) CTAs at every D, the grid (C, key tiles x Hkv,
-    B) with the key tile slowest, so the longest walks (key tile 0) start
-    first. C depends on rep only, never on the card, so the same inputs give
-    the same bits on every card."""
+def dkv_plan(b: int, s: int, hq: int, hkv: int, d: int, dtype=torch.bfloat16) -> DkvPlan:
+    """The dkv launch at these shapes: the kernel by dtype and D, on clusters
+    of C = min(rep, MAX_CLUSTER) CTAs on the tensor cores, the grid (C, key
+    tiles x Hkv, B) with the key tile slowest, so the longest walks (key
+    tile 0) start first. C depends on rep only, never on the card, so the
+    same inputs give the same bits on every card."""
+    if dtype == torch.float32 and d > DKV_WGMMA_MAX_HEAD_DIM:
+        return DkvPlan("f32_cores", 1, (-(-s // F32_ROWS), hkv, b))
     c = min(hq // hkv, MAX_CLUSTER)
-    kernel = "wgmma" if d <= DKV_WGMMA_MAX_HEAD_DIM else "wgmma_wide"
-    return DkvPlan(kernel, c, (c, -(-s // DKV_KEY_TILE) * hkv, b))
+    grid = (c, -(-s // DKV_KEY_TILE) * hkv, b)
+    if dtype == torch.float32:
+        return DkvPlan("tf32x3", c, grid, DKV_TF32_QUERY_TILE)
+    return DkvPlan("wgmma" if d <= DKV_WGMMA_MAX_HEAD_DIM else "wgmma_wide", c, grid)
 
 
-def dkv_walk(s: int, rep: int, cluster: int, rank: int, key_tile: int) -> list[tuple[int, int]]:
+def dkv_walk(s: int, rep: int, cluster: int, rank: int, key_tile: int,
+             query_tile: int = DKV_QUERY_TILE) -> list[tuple[int, int]]:
     """(query head within the kv head, query tile) in the order CTA `rank` of
     a cluster walks them for key tile `key_tile`: heads rank, rank + C, ...
-    and for each the query tiles of DKV_QUERY_TILE rows from the diagonal to
-    the end (tiles above it see no key of the tile). The wide kernel walks
-    this list twice, dv then dk."""
-    first = key_tile * DKV_KEY_TILE // DKV_QUERY_TILE
-    nq = -(-s // DKV_QUERY_TILE)
+    and for each the query tiles of `query_tile` rows (the plan's) from the
+    diagonal to the end (tiles above it see no key of the tile). The wide
+    kernel walks this list twice, dv then dk."""
+    first = key_tile * DKV_KEY_TILE // query_tile
+    nq = -(-s // query_tile)
     return [(r, qt) for r in range(rank, rep, cluster) for qt in range(first, nq)]
 
 
@@ -138,6 +153,54 @@ def train_attn_bwd_dq_plain(q, k, v, seg, dout, lse, di) -> torch.Tensor:
     di_g = di.to(torch.float32).reshape(b, s, hkv, rep).permute(0, 2, 3, 1)[..., None]
     dq = torch.einsum("bhrst,bthd->bshrd", p * (dp - di_g), k32) * scale
     return dq.reshape(b, s, hq, d).to(q.dtype)
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 x rounded to tf32 as the kernels' cvt.rna.tf32.f32 rounds it: to
+    nearest on the bit pattern, ties away from zero, the low 13 bits
+    cleared."""
+    bits = x.to(torch.float32).contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32x3_matmul(a: torch.Tensor, b: torch.Tensor, passes: int = 3) -> torch.Tensor:
+    """a @ b as the 3xTF32 kernels take it: each operand split into hi =
+    tf32(x) and lo = tf32(x - hi), and hi hi + hi lo + lo hi summed in f32
+    (lo lo dropped); passes=1 takes hi hi alone (plain TF32). Only the tests
+    use it, to show that three passes hold the f32 bar and one does not."""
+    if passes not in (1, 3):
+        raise ValueError(f"passes is 1 or 3, got {passes}")
+    ah, bh = tf32_round(a), tf32_round(b)
+    out = ah @ bh
+    if passes == 3:
+        out = out + ah @ tf32_round(b - bh) + tf32_round(a - ah) @ bh
+    return out
+
+
+def train_attn_bwd_tf32x3_emulated(q, k, v, seg, dout, lse, di, passes: int = 3):
+    """dq, dk, dv from the backward kernels' inputs (as
+    train_attn_bwd_dq_plain) with every product taken by `tf32x3_matmul`,
+    as the f32 kernels at D <= 128 take them: s = q k^T, dp = do v^T, p in
+    f32, ds = p (dp - di), dv = p^T do, dk = scale ds^T q, dq = scale ds k
+    (p and ds split too). f32 [B, S, H, D] results."""
+    b, s, hq, d = q.shape
+    hkv = k.shape[2]
+    rep = hq // hkv
+    scale = 1.0 / math.sqrt(d)
+    mm = functools.partial(tf32x3_matmul, passes=passes)
+    heads = lambda x, r: x.to(torch.float32).reshape(b, s, hkv, r, d).permute(0, 2, 3, 1, 4)
+    qg, og = heads(q, rep), heads(dout, rep)  # [B, Hkv, rep, S, D]
+    kg, vg = heads(k, 1), heads(v, 1)         # [B, Hkv, 1, S, D]
+    lse_g = lse.to(torch.float32).reshape(b, hkv, rep, s, 1)
+    di_g = di.to(torch.float32).reshape(b, s, hkv, rep).permute(0, 2, 3, 1)[..., None]
+    p = torch.where(_allowed(s, seg, q.device),
+                    torch.exp(mm(qg, kg.transpose(-1, -2)) * scale - lse_g), 0.0)
+    ds = p * (mm(og, vg.transpose(-1, -2)) - di_g)
+    dv = mm(p.transpose(-1, -2), og).sum(2)
+    dk = mm(ds.transpose(-1, -2), qg).sum(2) * scale
+    dq = mm(ds, kg) * scale
+    back = lambda x: x.permute(0, 3, 1, 2, 4).reshape(b, s, -1, d)
+    return back(dq), back(dk[:, :, None]), back(dv[:, :, None])
 
 
 @functools.lru_cache(maxsize=None)
@@ -191,16 +254,14 @@ def train_attn_fwd(q, k, v, seg) -> tuple[torch.Tensor, torch.Tensor]:
 
 def train_attn_bwd_dkv(q, k, v, seg, dout, lse, di) -> tuple[torch.Tensor, torch.Tensor]:
     """dk, dv [B, S, Hkv, D], summed over the rep query heads in the kernel
-    (bf16: by the cluster of `dkv_plan`, in rank order; the plan of the last
-    launch stays in `train_attn_bwd_dkv.plan`)."""
+    (on the tensor cores by the cluster of `dkv_plan`, in rank order; the
+    plan of the last launch stays in `train_attn_bwd_dkv.plan`)."""
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    f32 = q.dtype == torch.float32
-    plan = None if f32 else dkv_plan(*_dims(q, k))
-    cluster = 1 if f32 else plan.cluster
+    plan = dkv_plan(*_dims(q, k), dtype=q.dtype)
     err = _launcher("bd_train_attn_dkv")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(seg), dout.data_ptr(), lse.data_ptr(),
         di.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        *_dims(q, k), 1.0 / math.sqrt(q.shape[3]), cluster, int(f32),
+        *_dims(q, k), 1.0 / math.sqrt(q.shape[3]), plan.cluster, int(q.dtype == torch.float32),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(err, "bd_train_attn_dkv")
@@ -210,8 +271,9 @@ def train_attn_bwd_dkv(q, k, v, seg, dout, lse, di) -> tuple[torch.Tensor, torch
 
 
 def train_attn_bwd_dq(q, k, v, seg, dout, lse, di) -> torch.Tensor:
-    """dq [B, S, Hq, D] (bf16: one CTA a (query head, batch, 64-row query
-    tile) owns its rows, so the result is the same bits on every run)."""
+    """dq [B, S, Hq, D] (on the tensor cores one CTA a (query head, batch,
+    64-row query tile) owns its rows, so the result is the same bits on every
+    run)."""
     dq = torch.empty_like(q)
     err = _launcher("bd_train_attn_dq")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(seg), dout.data_ptr(), lse.data_ptr(),
@@ -226,7 +288,7 @@ def train_attn_bwd_dq(q, k, v, seg, dout, lse, di) -> torch.Tensor:
 
 train_attn_fwd.launches = 0
 train_attn_bwd_dkv.launches = 0
-train_attn_bwd_dkv.plan = None  # the DkvPlan of the last bf16 launch (None: f32)
+train_attn_bwd_dkv.plan = None  # the DkvPlan of the last launch
 train_attn_bwd_dq.launches = 0
 
 

@@ -1,8 +1,9 @@
 """What ptxas made of a CUDA source of the port, kernel by kernel: registers
 a thread and spill bytes (`nvcc -Xptxas -v`), and in the SASS (`cuobjdump
 -sass`) the warpgroup MMAs (HGMMA), the waits for them (WARPGROUP.DEPBAR),
-the warp-level MMAs (HMMA: mma.sync, which no bf16 B8 kernel should hold)
-and the local-memory stores and loads (STL, LDL).
+the warp-level MMAs (HMMA: mma.sync, which no B8 tensor-core kernel, bf16
+or f32 3xTF32, should hold) and the local-memory stores and loads (STL,
+LDL).
 
     python -m bitdistiller_tpu_torch.scripts.kernel_sass [train_attention ...]
 

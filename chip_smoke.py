@@ -124,6 +124,7 @@ PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (data sheet)
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores (data sheet)
 PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8 tensor cores (data sheet)
 PEAK_F32_FLOPS = 67e12  # H100 SXM float32 on CUDA cores (data sheet)
+PEAK_TF32X3_FLOPS = 495e12 / 3  # f32 as 3xTF32: three dense TF32 products (data sheet 495) a product
 OUT_DIR = Path(__file__).resolve().parent / "chiprun_out"
 DEV = "cuda"
 
@@ -970,6 +971,9 @@ TA_CASES = {  # name: (B, S, Hq, Hkv, D, padded row length or None, dtype)
     "llama2_7b": (1, 2048, 32, 32, 128, None, torch.bfloat16),
     "ragged": (2, 1000, 8, 2, 64, 700, torch.bfloat16),
     "f32": (1, 300, 8, 2, 64, 250, torch.float32),
+    # the two models' attention in f32 (cfg.dtype float32, the CLI's --dtype float32)
+    "tinyllama_f32": (2, 1024, 32, 4, 64, 900, torch.float32),
+    "llama2_7b_f32": (1, 2048, 32, 32, 128, None, torch.float32),
     "mqa71": (1, 1000, 71, 1, 64, 900, torch.bfloat16),  # FALCON_7B's heads: 71 % 8 != 0
     "d256": (1, 1000, 16, 16, 256, 900, torch.bfloat16),  # the wide dkv (D > 128), MHA
     # Gemma-2B's attention widths (8 query heads over 1 kv head, head_dim 256) at
@@ -997,22 +1001,43 @@ def _ta_run(fn, q, k, v, do, mask):
     return out.detach(), q.grad, k.grad, v.grad
 
 
+def device_ms(fn, n: int, tries: int = 3):
+    """Device time of one call of fn, not paced by the host as a CUDA-event
+    time of a host-bound call is: the kernels' self device time in a
+    torch.profiler trace of n calls (device_busy_ms), over n. A trace that
+    records no device time is taken again (with twice the calls, up to
+    `tries` traces; seen on the H100 machine after earlier traces in the
+    same process); None, said, if none does."""
+    fn(0)
+    torch.cuda.synchronize()
+    for t in range(tries):
+        got = device_busy_ms(fn, n << t)
+        if got is not None:
+            return got["busy_ms"]
+    say(f"  profiler: no device time in {tries} traces; device time not measured")
+    return None
+
+
 def train_attention_phase(gen, record):
     """B8's forward and its three gradients against
     flash_train_attention_plain at TA_CASES (pad rows compared under the
     mask: garbage in both), and the dq kernel by itself ("dq_alone") against
     train_attn_bwd_dq_plain and against autograd's dq of the plain version,
     on the kernel forward's lse and di; then its times at TinyLlama's, 7B's
-    and the two D = 256 cases' shapes (and the f32 case's):
+    and the two D = 256 cases' shapes, and in f32 at the f32 case's and the
+    two models':
     the forward, dkv and dq kernels one by one through their wrappers, the
     plain version's forward and forward+backward, and SDPA
     (scaled_dot_product_attention(is_causal=True, enable_gqa=True), the
     unpadded yardstick) forward and forward+backward. Bounds: causal
     operations over PEAK_BF16_FLOPS, B*Hq*S^2*D flops a product of half the
     score matrix: 2 products forward, 4 in dkv (the s recompute, dp, dv,
-    dk), 3 in dq (s, dp, dq); the f32 case's over PEAK_F32_FLOPS (CUDA
-    cores), beside SDPA in f32. bwd_ms is dkv_ms + dq_ms, beside SDPA's
-    backward. Each time row carries the dkv plan (kernel, cluster, CTAs)."""
+    dk), 3 in dq (s, dp, dq); the f32 cases' (f32, and the two models'
+    attention in f32) over PEAK_TF32X3_FLOPS, with the CUDA-core figure at
+    PEAK_F32_FLOPS beside, against SDPA in f32. bwd_ms is dkv_ms + dq_ms,
+    beside SDPA's backward. Every kernel and SDPA time is also read as device
+    time from a profiler trace of the timed calls (device_ms). Each time row
+    carries the dkv plan (kernel, cluster, CTAs)."""
     worst = {}
     for name, case in TA_CASES.items():
         q, k, v, do, mask = _ta_inputs(gen, *case)
@@ -1043,17 +1068,20 @@ def train_attention_phase(gen, record):
         worst[name] = max(errs.values())
         del q, k, v, do, got, want, out, lse, di, dq
     times = {}
-    for name in ("tinyllama", "llama2_7b", "d256", "d256_mqa", "f32"):
+    for name in ("tinyllama", "llama2_7b", "d256", "d256_mqa", "f32", "tinyllama_f32",
+                 "llama2_7b_f32"):
         b, s, hq, hkv, d, pad, dtype = TA_CASES[name]
-        peak = PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
-        plan = ta.dkv_plan(b, s, hq, hkv, d)
+        f32 = dtype == torch.float32
+        peak = PEAK_TF32X3_FLOPS if f32 else PEAK_BF16_FLOPS
+        plan = ta.dkv_plan(b, s, hq, hkv, d, dtype)
         q, k, v, do, mask = _ta_inputs(gen, b, s, hq, hkv, d, None, dtype)
         seg = None
         out, lse = ta.train_attn_fwd(q, k, v, seg)
         di = (out.float() * do.float()).sum(-1).contiguous()
-        fwd = cuda_ms(lambda i: ta.train_attn_fwd(q, k, v, seg), 10)
-        dkv = cuda_ms(lambda i: ta.train_attn_bwd_dkv(q, k, v, seg, do, lse, di), 10)
-        dq = cuda_ms(lambda i: ta.train_attn_bwd_dq(q, k, v, seg, do, lse, di), 10)
+        fwd_fn = lambda i: ta.train_attn_fwd(q, k, v, seg)
+        dkv_fn = lambda i: ta.train_attn_bwd_dkv(q, k, v, seg, do, lse, di)
+        dq_fn = lambda i: ta.train_attn_bwd_dq(q, k, v, seg, do, lse, di)
+        fwd, dkv, dq = (cuda_ms(fn, 10) for fn in (fwd_fn, dkv_fn, dq_fn))
         fb = cuda_ms(lambda i: _ta_run(ta.flash_train_attention, q, k, v, do, None), 5)
         plain_f = cuda_ms(lambda i: ta.flash_train_attention_plain(q, k, v), 2, reps=3)
         plain_fb = cuda_ms(lambda i: _ta_run(ta.flash_train_attention_plain, q, k, v, do, None),
@@ -1061,24 +1089,37 @@ def train_attention_phase(gen, record):
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         sdpa = lambda a, bb, c: torch.nn.functional.scaled_dot_product_attention(
             a, bb, c, is_causal=True, enable_gqa=True)
-        lib_f = cuda_ms(lambda i: sdpa(qt, kt, vt), 10)
+        lib_f_fn = lambda i: sdpa(qt, kt, vt)
 
         def lib_fb(i):
             a, bb, c = (t.detach().requires_grad_(True) for t in (qt, kt, vt))
             sdpa(a, bb, c).backward(do.transpose(1, 2))
 
+        lib_f = cuda_ms(lib_f_fn, 10)
         lib_fb_ms = cuda_ms(lib_fb, 5)
+        # the same calls by device time (profiler): SDPA's backward is its
+        # forward+backward less its forward
+        dev = {key: device_ms(fn, 5) for key, fn in (
+            ("fwd", fwd_fn), ("dkv", dkv_fn), ("dq", dq_fn), ("sdpa_fwd", lib_f_fn),
+            ("sdpa_fwd_bwd", lib_fb))}
+        known = lambda a, c: dev[a] is not None and dev[c] is not None
+        dev["sdpa_bwd"] = (dev["sdpa_fwd_bwd"] - dev["sdpa_fwd"]
+                           if known("sdpa_fwd_bwd", "sdpa_fwd") else None)
+        dev["bwd"] = dev["dkv"] + dev["dq"] if known("dkv", "dq") else None
         unit = float(b) * hq * s * s * d  # flops of one causal product
         times[name] = dict(
-            shape=(b, s, hq, hkv, d), fwd_ms=fwd, dkv_ms=dkv, dq_ms=dq, bwd_ms=dkv + dq,
-            fwd_bwd_ms=fb,
+            shape=(b, s, hq, hkv, d), dtype=str(dtype), fwd_ms=fwd, dkv_ms=dkv, dq_ms=dq,
+            bwd_ms=dkv + dq, fwd_bwd_ms=fb,
             plain_fwd_ms=plain_f, plain_fwd_bwd_ms=plain_fb, plain_bwd_ms=plain_fb - plain_f,
             sdpa_fwd_ms=lib_f, sdpa_fwd_bwd_ms=lib_fb_ms, sdpa_bwd_ms=lib_fb_ms - lib_f,
+            device_ms=dev,
             fwd_bound_ms=2 * unit / peak * 1e3, dkv_bound_ms=4 * unit / peak * 1e3,
             dq_bound_ms=3 * unit / peak * 1e3,
-            dkv_plan=dict(kernel=plan.kernel if dtype == torch.bfloat16 else "f32",
-                          cluster=plan.cluster if dtype == torch.bfloat16 else 1,
-                          ctas=plan.ctas if dtype == torch.bfloat16 else None))
+            dkv_plan=dict(kernel=plan.kernel, cluster=plan.cluster, ctas=plan.ctas))
+        if f32:  # beside the 3xTF32 bounds: the same operations on the CUDA cores
+            times[name].update(
+                {f"{kind}_cores_bound_ms": n * unit / PEAK_F32_FLOPS * 1e3
+                 for kind, n in (("fwd", 2), ("dkv", 4), ("dq", 3))})
         del q, k, v, do, out, lse, di
     return worst, times
 
@@ -1316,22 +1357,29 @@ def serve_trained_phase(master, cfg, rec):
     return counts
 
 
+TF32_KERNELS = ("train_attn_dkv_tf32_kernel<64>", "train_attn_dkv_tf32_kernel<128>",
+                "train_attn_dq_tf32_kernel<64>", "train_attn_dq_tf32_kernel<128>")
+
+
 def sass_phase(rc: int, out: str, err: str) -> dict:
-    """What ptxas made of the bf16 B8 kernels (scripts/kernel_sass.py's rows:
-    registers, spill bytes, HGMMA, wgmma waits, HMMA, local stores and
-    loads); fails unless each issues HGMMA, holds no HMMA and spills
-    nothing."""
+    """What ptxas made of B8's tensor-core kernels, bf16 and the f32
+    3xTF32 ones (scripts/kernel_sass.py's rows: registers, spill bytes,
+    HGMMA, wgmma waits, HMMA, local stores and loads; the f32 CUDA-core
+    kernels, `*_f32_kernel`, left out); fails unless each issues HGMMA,
+    holds no HMMA and spills nothing."""
     if rc:
         raise RuntimeError(f"kernel_sass exited {rc}:\n{err[-2000:]}")
     rows = {r["kernel"]: r for r in map(json.loads, out.splitlines())}
     b8 = {k: {f: r.get(f) for f in ("registers", "spill_stores", "hgmma", "wgmma_waits", "hmma")}
-          for k, r in rows.items() if k.startswith("train_attn_") and "f32" not in k}
+          for k, r in rows.items() if k.startswith("train_attn_") and "_f32_kernel" not in k}
     for k, r in sorted(b8.items()):
         say(f"sass {k}: {r}")
     bad = [k for k, r in b8.items() if not r["hgmma"] or r["hmma"] or r["spill_stores"]
            or rows[k]["spill_loads"] or rows[k]["stl"] or rows[k]["ldl"]]
-    if "train_attn_dkv_wide_kernel" not in b8 or bad:
-        raise AssertionError(f"bf16 B8 kernels off wgmma, on mma.sync or spilling: {bad}")
+    missing = [k for k in ("train_attn_dkv_wide_kernel",) + TF32_KERNELS if k not in b8]
+    if missing or bad:
+        raise AssertionError(f"B8 tensor-core kernels missing {missing}, or off wgmma, on "
+                             f"mma.sync or spilling: {bad}")
     return b8
 
 
@@ -1465,13 +1513,20 @@ def main() -> int:
         ta_err, ta_times = train_attention_phase(gen, summary["train_attention_checks"])
         summary["train_attention_times"] = ta_times
         for name, t in ta_times.items():
-            say(f"train attention {name} {t['shape']}: fwd {t['fwd_ms']:.3f} ms (bound "
-                f"{t['fwd_bound_ms']:.3f}, plain {t['plain_fwd_ms']:.3f}, SDPA "
-                f"{t['sdpa_fwd_ms']:.3f}); dkv {t['dkv_ms']:.3f} (bound {t['dkv_bound_ms']:.3f}), "
-                f"dq {t['dq_ms']:.3f} (bound {t['dq_bound_ms']:.3f}); bwd {t['bwd_ms']:.3f} (SDPA "
-                f"{t['sdpa_bwd_ms']:.3f}); fwd+bwd {t['fwd_bwd_ms']:.3f} "
-                f"(plain {t['plain_fwd_bwd_ms']:.3f}, SDPA {t['sdpa_fwd_bwd_ms']:.3f}); dkv plan "
+            dev = t["device_ms"]
+            say(f"train attention {name} {t['shape']} {t['dtype']}: fwd {t['fwd_ms']:.4f} ms "
+                f"(bound {t['fwd_bound_ms']:.4f}, plain {t['plain_fwd_ms']:.3f}, SDPA "
+                f"{t['sdpa_fwd_ms']:.4f}); dkv {t['dkv_ms']:.4f} (bound {t['dkv_bound_ms']:.4f}), "
+                f"dq {t['dq_ms']:.4f} (bound {t['dq_bound_ms']:.4f}); bwd {t['bwd_ms']:.4f} (SDPA "
+                f"{t['sdpa_bwd_ms']:.4f}); fwd+bwd {t['fwd_bwd_ms']:.4f} "
+                f"(plain {t['plain_fwd_bwd_ms']:.3f}, SDPA {t['sdpa_fwd_bwd_ms']:.4f}); dkv plan "
                 f"{t['dkv_plan']}")
+            say("  device time (profiler): " + ", ".join(
+                    f"{k} {v:.4f}" if v is not None else f"{k} not measured"
+                    for k, v in dev.items())
+                + (f"; CUDA-core bounds fwd {t['fwd_cores_bound_ms']:.4f}, dkv "
+                   f"{t['dkv_cores_bound_ms']:.4f}, dq {t['dq_cores_bound_ms']:.4f}"
+                   if "fwd_cores_bound_ms" in t else ""))
         say(f"train attention checks: worst relative error {ta_err}")
 
     with Phase("train"):
@@ -1541,25 +1596,38 @@ def main() -> int:
     ta_err_max = max(ta_err.values())
 
     def b8(kind, t, plain, lib):  # bwd_ms (dkv + dq) beside library_ms, SDPA's backward
-        return dict(ms=t[f"{kind}_ms"], plain_ms=t[plain], bound_ms=t[f"{kind}_bound_ms"],
-                    bound_by="operations", library_ms=t[lib],
-                    **({"bwd_ms": t["bwd_ms"]} if kind != "fwd" else {}))
+        dev = t["device_ms"]
+        row = dict(ms=t[f"{kind}_ms"], plain_ms=t[plain], bound_ms=t[f"{kind}_bound_ms"],
+                   bound_by="operations", library_ms=t[lib], device_ms=dev[kind],
+                   library_device_ms=dev[lib[:-3]])
+        if kind != "fwd":
+            row.update(bwd_ms=t["bwd_ms"], bwd_device_ms=dev["bwd"])
+        if f"{kind}_cores_bound_ms" in t:
+            row.update(bound_by="operations (f32 as 3xTF32, 165 TFLOP/s)",
+                       cores_bound_ms=t[f"{kind}_cores_bound_ms"])
+        return row
 
     b8_work = ("TinyLlama-1.1B attention, B=2, S=1024, Hq=32, Hkv=4, D=64, bf16, causal "
                "(llama2_7b: B=1, S=2048, Hq=Hkv=32, D=128; d256: B=1, S=1000, Hq=Hkv=16, "
                "D=256; d256_mqa: Gemma-2B's heads, B=2, S=1024, Hq=8, Hkv=1, D=256; dkv "
-               "above D=128 by train_attn_dkv_wide_kernel); max_abs_err is the worst relative error "
-               "over the forward, the three gradients and dq alone of the checked cases; "
-               "launches from the train phase (4 micro-steps of run_training)")
+               "above D=128 by train_attn_dkv_wide_kernel; f32: B=1, S=300, Hq=8, Hkv=2, "
+               "D=64, and tinyllama_f32, llama2_7b_f32 at the two models' shapes in f32, dkv "
+               "and dq by the 3xTF32 kernels, the forward on CUDA cores); max_abs_err is the "
+               "worst relative error over the forward, the three gradients and dq alone of the "
+               "checked cases; device_ms and library_device_ms: the kernel's and SDPA's "
+               "device time (profiler); launches from the train phase (4 micro-steps of "
+               "run_training)")
     tm = ta_times["d256_mqa"]
     for kind, name, line, plain, lib, cu in (
             ("fwd", "train_attn_fwd", ":758 (_flash_attention_kernel :331)", "plain_fwd_ms",
              "sdpa_fwd_ms", ("train_attn_fwd_kernel",)),
             ("dkv", "train_attn_bwd_dkv", ":1121 (_flash_attention_dkv_kernel :796)",
              "plain_bwd_ms", "sdpa_bwd_ms", ("train_attn_dkv_ws_kernel",
-                                              "train_attn_dkv_wide_kernel")),
+                                              "train_attn_dkv_wide_kernel",
+                                              "train_attn_dkv_tf32_kernel")),
             ("dq", "train_attn_bwd_dq", ":1456 (_flash_attention_dq_kernel :1146)",
-             "plain_bwd_ms", "sdpa_bwd_ms", ("train_attn_dq_ws_kernel",))):
+             "plain_bwd_ms", "sdpa_bwd_ms", ("train_attn_dq_ws_kernel",
+                                             "train_attn_dq_tf32_kernel"))):
         kernels.append(dict(
             name=name, route="cuda", source="bitdistiller_tpu_torch/csrc/train_attention.cu",
             replaces="jax/experimental/pallas/ops/tpu/flash_attention.py" + line
@@ -1570,11 +1638,15 @@ def main() -> int:
                if kind != "fwd" else ""),
             llama2_7b=b8(kind, t7, plain, lib), d256=b8(kind, ta_times["d256"], plain, lib),
             d256_mqa=b8(kind, tm, plain, lib),
-            f32=dict(b8(kind, ta_times["f32"], plain, lib), bound_by="operations (f32 CUDA cores)"),
+            **{c: b8(kind, ta_times[c], plain, lib)
+               for c in ("f32", "tinyllama_f32", "llama2_7b_f32")},
             sass={k: r for k, r in b8_sass.items() if k.startswith(cu)},
             **({"plan": tl["dkv_plan"], "llama2_7b_plan": t7["dkv_plan"],
                 "d256_plan": ta_times["d256"]["dkv_plan"], "d256_mqa_plan": tm["dkv_plan"],
-                "d256_kernel": "train_attn_dkv_wide_kernel"} if kind == "dkv" else {})))
+                "d256_kernel": "train_attn_dkv_wide_kernel",
+                **{f"{c}_plan": ta_times[c]["dkv_plan"]
+                   for c in ("f32", "tinyllama_f32", "llama2_7b_f32")}}
+               if kind == "dkv" else {})))
     summary["kernels"] = kernels
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(summary, indent=1))

@@ -12,7 +12,10 @@ B8's bf16 cases cover the dkv plan's cluster sizes (1, 2, 7, 8 with 71 % 8
 256, MHA and rep 2 and 8; two calls at D = 256 give the same bits). The dq kernel
 is also held by itself against `train_attn_bwd_dq_plain` on the forward
 kernel's lse and di (D = 64, 80, 128, 256; rep 1, 8, 71; S = 64, 129, 1000;
-padded), and its two calls must give the same bits.
+padded), and its two calls must give the same bits. B8 in f32: dkv and dq at
+D <= 128 on the 3xTF32 kernels (D = 32, 64, 128; rep 1, 4, 8; S = 75 and
+1000, padded; two calls at D = 64 give the same bits), above on the CUDA
+cores (D = 144).
 
 Tolerances: B8 in bf16, outputs and gradients within 2e-2 of max|plain| per
 tensor (p and ds enter their products rounded to bf16, the plain version
@@ -110,10 +113,42 @@ def test_train_attention_f32_matches_plain(gen, d):
     q, k, v, do, mask = _attention_case(gen, 2, 75, 4, 2, d, torch.float32, pad_to=60)
     got = _fwd_bwd(ta.flash_train_attention, q, k, v, do, mask)
     want = _fwd_bwd(ta.flash_train_attention_plain, q, k, v, do, mask)
+    # dkv (and dq) on 3xTF32 up to D = 128, on the CUDA cores above
+    assert ta.train_attn_bwd_dkv.plan.kernel == ("tf32x3" if d <= 128 else "f32_cores")
     assert _rel(got[0], want[0], mask) < 1e-4
     assert _rel(got[1], want[1], mask) < 1e-4
     assert _rel(got[2], want[2]) < 1e-4
     assert _rel(got[3], want[3]) < 1e-4
+
+
+@pytest.mark.parametrize("s", [75, 1000])
+@pytest.mark.parametrize("rep", [1, 4, 8])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_train_attention_f32_tf32x3_matches_plain(gen, d, rep, s):
+    """The 3xTF32 dkv and dq: rep 1 over two kv heads and two batches (batch
+    0 padded), rep 4 and 8 (clusters of 4 and 8) over one kv head; ragged S."""
+    b, hkv = (2, 2) if rep == 1 else (1, 1)
+    q, k, v, do, mask = _attention_case(gen, b, s, rep * hkv, hkv, d, torch.float32,
+                                        pad_to=s - s // 4)
+    launches = (ta.train_attn_bwd_dkv.launches, ta.train_attn_bwd_dq.launches)
+    got = _fwd_bwd(ta.flash_train_attention, q, k, v, do, mask)
+    assert (ta.train_attn_bwd_dkv.launches, ta.train_attn_bwd_dq.launches) == tuple(
+        n + 1 for n in launches)
+    plan = ta.train_attn_bwd_dkv.plan
+    assert (plan.kernel, plan.cluster) == ("tf32x3", min(rep, 8))
+    want = _fwd_bwd(ta.flash_train_attention_plain, q, k, v, do, mask)
+    assert _rel(got[1], want[1], mask) < 1e-4
+    assert _rel(got[2], want[2]) < 1e-4
+    assert _rel(got[3], want[3]) < 1e-4
+
+
+def test_train_attention_f32_is_deterministic(gen):
+    """The 3xTF32 kernels at D = 64, clusters of 8 (rep 8), padded: bit for bit."""
+    q, k, v, do, mask = _attention_case(gen, 1, 300, 16, 2, 64, torch.float32, pad_to=280)
+    a = _fwd_bwd(ta.flash_train_attention, q, k, v, do, mask)
+    assert ta.train_attn_bwd_dkv.plan == ta.dkv_plan(1, 300, 16, 2, 64, torch.float32)
+    c = _fwd_bwd(ta.flash_train_attention, q, k, v, do, mask)
+    assert all(torch.equal(x, y) for x, y in zip(a, c))
 
 
 def test_train_attention_is_deterministic(gen):

@@ -1,10 +1,11 @@
-"""B8's dkv plan on the CPU: `dkv_plan` (which kernel by D: "wgmma" up to
-D = 128, "wgmma_wide" above; the cluster size C = min(rep, 8) at every D;
-the grid) and `dkv_walk` (what CTA `rank` of a cluster
-walks for a key tile), which the CUDA launch of
-csrc/train_attention.cu follows. Every (key tile, query head, query tile)
-on or below the diagonal is walked exactly once, by one rank; the wrapper
-hands the kernel the plan's cluster. No kernel launches here: the dispatch
+"""B8's dkv plan on the CPU: `dkv_plan` (which kernel by dtype and D: bf16
+"wgmma" up to D = 128, "wgmma_wide" above; f32 "tf32x3" up to D = 128,
+"f32_cores" above; the cluster size C = min(rep, 8) on the tensor cores,
+1 on the CUDA cores; the grid) and `dkv_walk` (what CTA `rank` of a cluster
+walks for a key tile, in the plan's query tiles: 64 rows, 32 for tf32x3),
+which the CUDA launch of csrc/train_attention.cu follows. Every (key tile,
+query head, query tile) on or below the diagonal is walked exactly once, by
+one rank; the wrapper hands the kernel the plan's cluster. No kernel launches here: the dispatch
 test replaces the launcher with a recording stub, as
 tests/test_torch_c1_dispatch.py does."""
 
@@ -21,18 +22,24 @@ def _ceil(a, b):
     return -(-a // b)
 
 
-@pytest.mark.parametrize("s,rep", [(64, 1), (130, 2), (129, 4), (256, 7), (1024, 8), (130, 71),
-                                   (2048, 1)])
-def test_dkv_walk_covers_each_pair_once_on_or_below_the_diagonal(s, rep):
-    plan = ta.dkv_plan(1, s, rep, 1, 64)
-    nq = _ceil(s, ta.DKV_QUERY_TILE)
+WALKS = [(64, 1), (130, 2), (129, 4), (256, 7), (1024, 8), (130, 71), (2048, 1)]
+
+
+@pytest.mark.parametrize("s,rep,dtype", [pytest.param(s, rep, torch.bfloat16, id=f"{s}-{rep}")
+                                         for s, rep in WALKS]
+                         + [pytest.param(s, rep, torch.float32, id=f"{s}-{rep}-f32")
+                            for s, rep in WALKS])
+def test_dkv_walk_covers_each_pair_once_on_or_below_the_diagonal(s, rep, dtype):
+    plan = ta.dkv_plan(1, s, rep, 1, 64, dtype)
+    qtile = plan.query_tile
+    nq = _ceil(s, qtile)
     for kt in range(_ceil(s, TILE)):
         walked = [(rank, pair) for rank in range(plan.cluster)
-                  for pair in ta.dkv_walk(s, rep, plan.cluster, rank, kt)]
+                  for pair in ta.dkv_walk(s, rep, plan.cluster, rank, kt, qtile)]
         pairs = [pair for _, pair in walked]
         # query tiles whose last row reaches the key tile's first key
         want = {(r, qt) for r in range(rep) for qt in range(nq)
-                if (qt + 1) * ta.DKV_QUERY_TILE - 1 >= kt * TILE}
+                if (qt + 1) * qtile - 1 >= kt * TILE}
         assert len(pairs) == len(set(pairs)) and set(pairs) == want
         owner = {}
         for rank, (r, _) in walked:  # a head belongs to one rank
@@ -42,9 +49,10 @@ def test_dkv_walk_covers_each_pair_once_on_or_below_the_diagonal(s, rep):
 @pytest.mark.parametrize("rep,c", [(1, 1), (2, 2), (7, 7), (8, 8), (71, 8)])
 def test_dkv_cluster_is_min_of_rep_and_8(rep, c):
     for b, hkv, d in ((1, 1, 64), (2, 2, 128)):
-        plan = ta.dkv_plan(b, 300, rep * hkv, hkv, d)
-        assert plan.kernel == "wgmma" and plan.cluster == c
-        assert plan.grid == (c, _ceil(300, TILE) * hkv, b)
+        for dtype, kernel in ((torch.bfloat16, "wgmma"), (torch.float32, "tf32x3")):
+            plan = ta.dkv_plan(b, 300, rep * hkv, hkv, d, dtype)
+            assert plan.kernel == kernel and plan.cluster == c
+            assert plan.grid == (c, _ceil(300, TILE) * hkv, b)
 
 
 def test_dkv_ctas_at_tinyllama_and_llama2_7b():
@@ -56,13 +64,23 @@ def test_dkv_ctas_at_tinyllama_and_llama2_7b():
     assert len(ta.dkv_walk(2048, 1, 1, 0, 0)) == 32
 
 
-@pytest.mark.parametrize("d,kernel", [(16, "wgmma"), (64, "wgmma"), (80, "wgmma"),
-                                      (128, "wgmma"), (144, "wgmma_wide"), (256, "wgmma_wide")])
-def test_dkv_kernel_is_chosen_by_head_dim(d, kernel):
-    plan = ta.dkv_plan(1, 200, 8, 2, d)
+@pytest.mark.parametrize("d,kernel,dtype", [
+    pytest.param(d, kernel, dtype, id=f"{d}-{kernel}") for d, kernel, dtype in (
+        (16, "wgmma", torch.bfloat16), (64, "wgmma", torch.bfloat16),
+        (80, "wgmma", torch.bfloat16), (128, "wgmma", torch.bfloat16),
+        (144, "wgmma_wide", torch.bfloat16), (256, "wgmma_wide", torch.bfloat16),
+        (16, "tf32x3", torch.float32), (64, "tf32x3", torch.float32),
+        (128, "tf32x3", torch.float32), (144, "f32_cores", torch.float32),
+        (256, "f32_cores", torch.float32))])
+def test_dkv_kernel_is_chosen_by_head_dim(d, kernel, dtype):
+    plan = ta.dkv_plan(1, 200, 8, 2, d, dtype)
     assert plan.kernel == kernel
-    # both kernels: clusters of min(rep, 8) CTAs a 64-row key tile and kv head
+    if kernel == "f32_cores":  # one warp a key row, F32_ROWS a CTA, no cluster
+        assert plan.cluster == 1 and plan.grid == (_ceil(200, ta.F32_ROWS), 2, 1)
+        return
+    # the tensor-core kernels: clusters of min(rep, 8) CTAs a 64-row key tile and kv head
     assert plan.cluster == 4 and plan.grid == (4, _ceil(200, 64) * 2, 1)
+    assert plan.query_tile == (32 if kernel == "tf32x3" else 64)
 
 
 class _Stream:
@@ -71,9 +89,11 @@ class _Stream:
 
 @pytest.mark.parametrize("hq,hkv,d,dtype,cluster", [
     (71, 1, 64, torch.bfloat16, 8), (14, 2, 80, torch.bfloat16, 7),
-    (4, 4, 256, torch.bfloat16, 1), (8, 2, 64, torch.float32, 1),
+    (4, 4, 256, torch.bfloat16, 1), (8, 2, 64, torch.float32, 4),
     (8, 1, 256, torch.bfloat16, 8),   # Gemma-2B's attention heads: MQA, rep 8, D 256
-    (4, 2, 192, torch.bfloat16, 2)])  # D 192, rep 2
+    (4, 2, 192, torch.bfloat16, 2),   # D 192, rep 2
+    (32, 4, 128, torch.float32, 8),   # f32 on clusters of 8 (tf32x3)
+    (8, 2, 144, torch.float32, 1)])   # f32 above D 128: the CUDA cores, no cluster
 def test_dkv_wrapper_hands_the_kernel_the_plans_cluster(monkeypatch, hq, hkv, d, dtype, cluster):
     log = []
 
@@ -97,8 +117,11 @@ def test_dkv_wrapper_hands_the_kernel_the_plans_cluster(monkeypatch, hq, hkv, d,
     assert name == "bd_train_attn_dkv" and ta.train_attn_bwd_dkv.launches == before + 1
     assert args[9:14] == (b, s, hq, hkv, d)
     assert args[-3:-1] == (cluster, int(dtype == torch.float32))
+    plan = ta.dkv_plan(b, s, hq, hkv, d, dtype)
+    assert cluster == plan.cluster and ta.train_attn_bwd_dkv.plan == plan
     if dtype == torch.bfloat16:
-        plan = ta.dkv_plan(b, s, hq, hkv, d)
-        assert cluster == plan.cluster and ta.train_attn_bwd_dkv.plan == plan
         assert plan.kernel == ("wgmma" if d <= 128 else "wgmma_wide")
+    else:
+        assert plan.kernel == ("tf32x3" if d <= 128 else "f32_cores")
+    if plan.kernel != "f32_cores":
         assert plan.grid == (cluster, _ceil(s, TILE) * hkv, b)
