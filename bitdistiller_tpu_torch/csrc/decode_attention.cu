@@ -13,8 +13,10 @@
 // multiply the score row and the prob row, so codes are never dequantized
 // into memory. The layer is a pointer offset into the stacked cache (the
 // caller passes ck[li].data_ptr(), a view): no layer is copied. GQA rep
-// (query heads a kv head) is 1, 2, 4 or 8, D 32, 64, 128 or 256 (a row on at
-// most 32 lanes); q, the fresh k/v and the output are bf16 or f32.
+// (query heads a kv head) 1, 2, 4 or 8 at D 32, 64, 128 or 256 (a row on at
+// most 32 lanes) has an instance of its own; any other rep and D up to 512
+// take the general route (below); q, the fresh k/v and the output are bf16
+// or f32.
 //
 // Bound on this card: bytes. Each valid K and V row (D elements of the cache
 // dtype, plus one f32 scale each for int8) must be read once from HBM at
@@ -44,6 +46,20 @@
 //     (a cluster of one finishes alone, with no cluster barrier), folds the
 //     fresh token last and normalises: deterministic, no atomics, no partial
 //     planes in HBM. An empty run contributes m = -1e30, l = 0.
+// The general route (GEN): the same kernel on a head tile of REP = RT = 2
+// query heads (1 at rep 1; tiles of 2 beat 1, 4 and 8 on the H100, PERF.md)
+// and a width template D = DT in {32, .., 512}, the least at or above D,
+// with the real rep and D taken at run time (ops/decode_attention.py:
+// decode_tile mirrors the choice). The grid walks ceil(rep / RT) tiles a kv
+// head (rep 71: 36 tiles of 2, each reading the kv head's rows once more,
+// from L2);
+// heads past rep are masked, and columns at or past D are zero in q, in the
+// fresh k/v and in the ring (zeroed once), so they add nothing and are never
+// stored. A cache row whose bytes are not whole 16-byte pieces (D * the
+// element size not a multiple of 16) is copied by element, synchronously,
+// in place of cp.async: the cache is read where it lies, never padded.
+
+#include <type_traits>
 
 #include "common.cuh"
 #include "stream.cuh"
@@ -119,11 +135,14 @@ struct Fd {
   static constexpr int EPL = EPL_REP > D / 32 ? EPL_REP : D / 32;
   static constexpr int LPR = D / EPL;                   // lanes a row: 2 .. 32
   static constexpr int RPW = 32 / LPR;                  // rows a warp at once
-  static constexpr int STEPS = RPW >= 4 ? 1 : 4 / RPW;  // steps a run: at least 4 rows a run
+  static constexpr int ROW = D * int(sizeof(KV));       // 32 .. 1024 bytes, whole 16-byte pieces
+  static constexpr int STEPS_4 = RPW >= 4 ? 1 : 4 / RPW;  // steps a run: at least 4 rows a run,
+  static constexpr int STEPS_CAP = 2048 / (RPW * ROW) > 0 ? 2048 / (RPW * ROW) : 1;
+  static constexpr int STEPS =  // ... but above D = 256 at most 2 KB of K rows a run (the rings)
+      D > 256 && STEPS_CAP < STEPS_4 ? STEPS_CAP : STEPS_4;
   static constexpr int ROWS = RPW * STEPS;              // rows a run
   static constexpr int VEC = int(16 / sizeof(KV)) < EPL ? int(16 / sizeof(KV)) : EPL;
   static constexpr int NV = EPL / VEC;
-  static constexpr int ROW = D * int(sizeof(KV));       // 32 .. 256 bytes, whole 16-byte pieces
   static constexpr int CH = ROW / 16;
   static constexpr int PIECES = 2 * ROWS * CH;          // 16-byte copies a run
   static constexpr int PPL = (PIECES + 31) / 32;        // ... a lane
@@ -136,15 +155,17 @@ struct Fd {
 
 // KV: cache dtype (bf16, or int8 with f32 scales); QT: the dtype of q, the
 // fresh k/v and out (bf16, or f32). Two CTAs an SM (a 64 KB ring each at
-// D = 128), one at rep 8.
-template <typename KV, int REP, int D, typename QT>
-__global__ void __launch_bounds__(kThreads, REP == 8 ? 1 : 2)
+// D = 128), one at rep 8 and above D = 256. GEN: the general route, with
+// the real head dim d_rt <= D and rep rep_rt, grid.y = Hkv * tiles (head
+// tiles of REP); otherwise d_rt, rep_rt and tiles are not read.
+template <typename KV, int REP, int D, typename QT, bool GEN>
+__global__ void __launch_bounds__(kThreads, REP == 8 || D > 256 ? 1 : 2)
     fd_kernel(const QT* __restrict__ q, const KV* __restrict__ ck,
               const KV* __restrict__ cv, const float* __restrict__ ks,
               const float* __restrict__ vs, const QT* __restrict__ kn,
               const QT* __restrict__ vn, const int* __restrict__ start,
               QT* __restrict__ out, int Hkv, int T_len, int t_lim, int window,
-              float scale) {
+              float scale, int d_rt, int rep_rt, int tiles) {
   using P = Fd<KV, REP, D>;
   constexpr bool kQuant = P::kQuant;
   constexpr int EPL = P::EPL, LPR = P::LPR, RPW = P::RPW, STEPS = P::STEPS, ROWS = P::ROWS;
@@ -154,20 +175,28 @@ __global__ void __launch_bounds__(kThreads, REP == 8 ? 1 : 2)
   __shared__ float cta_m[REP], cta_l[REP], s_new[REP];
   cg::cluster_group cluster = cg::this_cluster();
   const int C = gridDim.x, rank = blockIdx.x;
-  const int h = blockIdx.y, b = blockIdx.z;
+  const int b = blockIdx.z;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int grp = lane / LPR, j = lane % LPR;  // the lane's row of a step, its place in the row
   const float qs = scale * kLog2e;             // scores in log2 units: exp2 below
+  // the real head dim and rep; the kv head, and the tile's first head and
+  // its heads (GEN: of head tile blockIdx.y % tiles)
+  const int dd = GEN ? d_rt : D, rr = GEN ? rep_rt : REP;
+  const int h = GEN ? blockIdx.y / tiles : blockIdx.y;
+  const int r0 = GEN ? (blockIdx.y - h * tiles) * REP : 0;
+  const int nr = GEN ? min(REP, rr - r0) : REP;
   const size_t plane = size_t(b) * Hkv + h;
-  const size_t q0 = (plane * REP) * D;         // query head h*REP + r
+  const size_t qh0 = plane * rr + r0;  // query head row of the tile's head r: qh0 + r
+  const int rowg = dd * int(sizeof(KV));  // a cache row's bytes
+  const bool by16 = !GEN || rowg % 16 == 0;  // else copied by element
 
   const int st = start[b];  // first: the copies wait for it
   const int t_hi = min(st, t_lim);
   const int t_lo = window > 0 ? max(0, st - window + 1) : 0;
   const int n = max(t_hi - t_lo, 0);
   const int lo = t_lo + rank * n / C, hi = t_lo + (rank + 1) * n / C;  // this CTA's run
-  const uint8_t* kp = reinterpret_cast<const uint8_t*>(ck + plane * T_len * D);
-  const uint8_t* vp = reinterpret_cast<const uint8_t*>(cv + plane * T_len * D);
+  const uint8_t* kp = reinterpret_cast<const uint8_t*>(ck + plane * T_len * dd);
+  const uint8_t* vp = reinterpret_cast<const uint8_t*>(cv + plane * T_len * dd);
   const float* ksp = kQuant ? ks + plane * T_len : nullptr;
   const float* vsp = kQuant ? vs + plane * T_len : nullptr;
   uint8_t* ring = smem + warp * FD_STAGES * P::SLOT;
@@ -182,21 +211,30 @@ __global__ void __launch_bounds__(kThreads, REP == 8 ? 1 : 2)
   for (int k = 0; k < P::PPL; ++k) {
     const int i = lane + 32 * k, u = (i / CH) % ROWS, c = i % CH;
     p_v[k] = i / (ROWS * CH) == 1;
-    p_row[k] = i < P::PIECES ? u : ROWS;  // ROWS: no piece
-    p_src[k] = u * P::ROW + c * 16;
+    p_row[k] = i < P::PIECES && c < rowg / 16 ? u : ROWS;  // ROWS: no piece
+    p_src[k] = u * rowg + c * 16;
     p_dst[k] = ((p_v[k] ? ROWS : 0) + u) * P::ROW + c * 16;
   }
   auto issue = [&](int jr) {  // run jr of this warp; always one commit group
     if (jr < runs) {
       uint8_t* sl = ring + (jr % FD_STAGES) * P::SLOT;
       const int t0 = first + jr * STEP;
-      const size_t base = size_t(t0) * P::ROW;
+      if (by16) {
+        const size_t base = size_t(t0) * rowg;
 #pragma unroll
-      for (int k = 0; k < P::PPL; ++k) {
-        if (p_row[k] < ROWS) {
-          const bool ok = t0 + p_row[k] < hi;  // rows past the run: zeros, masked below
-          const uint8_t* src = (p_v[k] ? vp : kp) + base + p_src[k];
-          cp_async16(sl + p_dst[k], ok ? src : kp, ok ? 16 : 0);
+        for (int k = 0; k < P::PPL; ++k) {
+          if (p_row[k] < ROWS) {
+            const bool ok = t0 + p_row[k] < hi;  // rows past the run: zeros, masked below
+            const uint8_t* src = (p_v[k] ? vp : kp) + base + p_src[k];
+            cp_async16(sl + p_dst[k], ok ? src : kp, ok ? 16 : 0);
+          }
+        }
+      } else {  // GEN, rows of dd elements that are not whole 16-byte pieces
+        using Raw = std::conditional_t<sizeof(KV) == 1, uint8_t, uint16_t>;
+        for (int i = lane; i < 2 * ROWS * dd; i += 32) {
+          const int kv = i / (ROWS * dd), e = i - kv * ROWS * dd, u = e / dd, c = e - u * dd;
+          const Raw* src = reinterpret_cast<const Raw*>(kv ? vp : kp) + size_t(t0 + u) * dd + c;
+          reinterpret_cast<Raw*>(sl + (kv * ROWS + u) * P::ROW)[c] = t0 + u < hi ? *src : Raw(0);
         }
       }
       if constexpr (kQuant) {
@@ -210,6 +248,14 @@ __global__ void __launch_bounds__(kThreads, REP == 8 ? 1 : 2)
     }
     cp_commit();
   };
+  if (GEN && dd < D) {  // columns dd .. D of every row of the warp's ring, zeroed once
+    const int tb = (D - dd) * int(sizeof(KV));
+    for (int i = lane; i < FD_STAGES * 2 * ROWS * tb; i += 32) {
+      const int rw = i / tb, sl = rw / (2 * ROWS);
+      ring[sl * P::SLOT + (rw - sl * 2 * ROWS) * P::ROW + rowg + (i - rw * tb)] = 0;
+    }
+    __syncwarp();
+  }
 #pragma unroll
   for (int jr = 0; jr < FD_STAGES - 1; ++jr) issue(jr);
 
@@ -222,20 +268,25 @@ __global__ void __launch_bounds__(kThreads, REP == 8 ? 1 : 2)
 #pragma unroll
     for (int c = 0; c < NV; ++c)
 #pragma unroll
-      for (int i = 0; i < VEC; ++i)
-        qr[r][c * VEC + i] = to_f32(q[q0 + size_t(r) * D + (c * LPR + j) * VEC + i]);
+      for (int i = 0; i < VEC; ++i) {
+        const int col = (c * LPR + j) * VEC + i;
+        qr[r][c * VEC + i] =
+            !GEN || (r < nr && col < dd) ? to_f32(q[(qh0 + r) * dd + col]) : 0.f;
+      }
   constexpr int OUTS = (REP * D + kThreads - 1) / kThreads;  // outputs a thread
   float knr[EPL], vnr[OUTS];
   if (rank == 0) {
 #pragma unroll
     for (int c = 0; c < NV; ++c)
 #pragma unroll
-      for (int i = 0; i < VEC; ++i)
-        knr[c * VEC + i] = to_f32(kn[plane * D + (c * LPR + j) * VEC + i]);
+      for (int i = 0; i < VEC; ++i) {
+        const int col = (c * LPR + j) * VEC + i;
+        knr[c * VEC + i] = !GEN || col < dd ? to_f32(kn[plane * dd + col]) : 0.f;
+      }
 #pragma unroll
     for (int o = 0; o < OUTS; ++o) {
-      const int idx = threadIdx.x + o * kThreads;
-      vnr[o] = idx < REP * D ? to_f32(vn[plane * D + idx % D]) : 0.f;
+      const int idx = threadIdx.x + o * kThreads, col = idx % D;
+      vnr[o] = idx < REP * D && (!GEN || col < dd) ? to_f32(vn[plane * dd + col]) : 0.f;
     }
   }
 
@@ -367,8 +418,9 @@ __global__ void __launch_bounds__(kThreads, REP == 8 ? 1 : 2)
     const float mf = fmaxf(mx, sn);
     const float alpha = exp2f(mx - mf);
     const float pn = exp2f(sn - mf);
-    out[(plane * REP) * D + threadIdx.x + o * kThreads] =
-        from_f32<QT>((a * alpha + pn * vnr[o]) / (lsum * alpha + pn));
+    const int col = threadIdx.x + o * kThreads - r * D;
+    if (GEN && (r >= nr || col >= dd)) return;  // a head past rep, a column past D
+    out[(qh0 + r) * dd + col] = from_f32<QT>((a * alpha + pn * vnr[o]) / (lsum * alpha + pn));
   };
 
   // the CTA's state, its warps merged in order; with one CTA a cluster it is
@@ -434,46 +486,49 @@ __global__ void __launch_bounds__(kThreads, REP == 8 ? 1 : 2)
   cluster.sync();  // no CTA leaves while rank 0 still reads its shared memory
 }
 
-template <typename KV, int REP, int D, typename QT>
-cudaError_t launch(const void* q, const void* ck, const void* cv, const void* ks, const void* vs,
-                   const void* kn, const void* vn, const void* start, void* out, int B, int Hkv,
-                   int T_len, int t_lim, int window, float scale, int cluster,
-                   cudaStream_t stream) {
+struct FdArgs {
+  const void *q, *ck, *cv, *ks, *vs, *kn, *vn, *start;
+  void* out;
+  int B, Hkv, rep, T_len, D, t_lim, window;
+  float scale;
+  int cluster;
+};
+
+template <typename KV, int REP, int D, typename QT, bool GEN>
+cudaError_t launch(const FdArgs& a, cudaStream_t stream) {
+  const int tiles = GEN ? (a.rep + REP - 1) / REP : 1;
   return launch_cluster(
-      fd_kernel<KV, REP, D, QT>, dim3(cluster, Hkv, B), cluster, Fd<KV, REP, D>::SMEM, false,
-      stream, static_cast<const QT*>(q), static_cast<const KV*>(ck), static_cast<const KV*>(cv),
-      static_cast<const float*>(ks), static_cast<const float*>(vs), static_cast<const QT*>(kn),
-      static_cast<const QT*>(vn), static_cast<const int*>(start), static_cast<QT*>(out), Hkv,
-      T_len, t_lim, window, scale);
+      fd_kernel<KV, REP, D, QT, GEN>, dim3(a.cluster, a.Hkv * tiles, a.B), a.cluster,
+      Fd<KV, REP, D>::SMEM, false, stream, static_cast<const QT*>(a.q),
+      static_cast<const KV*>(a.ck), static_cast<const KV*>(a.cv), static_cast<const float*>(a.ks),
+      static_cast<const float*>(a.vs), static_cast<const QT*>(a.kn),
+      static_cast<const QT*>(a.vn), static_cast<const int*>(a.start), static_cast<QT*>(a.out),
+      a.Hkv, a.T_len, a.t_lim, a.window, a.scale, a.D, a.rep, tiles);
 }
 
 template <typename KV, typename QT>
-cudaError_t launch_shape(int rep, int d, const void* q, const void* ck, const void* cv,
-                         const void* ks, const void* vs, const void* kn, const void* vn,
-                         const void* start, void* out, int B, int Hkv, int T_len, int t_lim,
-                         int window, float scale, int cluster, cudaStream_t stream) {
-#define BD_FD_CASE(REP, D)                                                                   \
-  if (rep == REP && d == D)                                                                  \
-    return launch<KV, REP, D, QT>(q, ck, cv, ks, vs, kn, vn, start, out, B, Hkv, T_len, t_lim, \
-                                  window, scale, cluster, stream);
+cudaError_t launch_shape(const FdArgs& a, cudaStream_t stream) {
+  const int rep = a.rep, d = a.D;
+#define BD_FD_CASE(REP, D) \
+  if (rep == REP && d == D) return launch<KV, REP, D, QT, false>(a, stream);
   BD_FD_CASE(1, 256) BD_FD_CASE(2, 256) BD_FD_CASE(4, 256) BD_FD_CASE(8, 256)
   BD_FD_CASE(1, 128) BD_FD_CASE(2, 128) BD_FD_CASE(4, 128) BD_FD_CASE(8, 128)
   BD_FD_CASE(1, 64) BD_FD_CASE(2, 64) BD_FD_CASE(4, 64) BD_FD_CASE(8, 64)
   BD_FD_CASE(1, 32) BD_FD_CASE(2, 32) BD_FD_CASE(4, 32) BD_FD_CASE(8, 32)
 #undef BD_FD_CASE
+  // the general route: head tiles of 2 (1 at rep 1), the least width >= d
+#define BD_FD_GEN(DT)                                                   \
+  if (d <= DT) return rep == 1 ? launch<KV, 1, DT, QT, true>(a, stream) \
+                               : launch<KV, 2, DT, QT, true>(a, stream);
+  BD_FD_GEN(32) BD_FD_GEN(64) BD_FD_GEN(128) BD_FD_GEN(256) BD_FD_GEN(512)
+#undef BD_FD_GEN
   return cudaErrorInvalidValue;
 }
 
 template <typename QT>
-cudaError_t launch_kv(int int8_cache, int rep, int d, const void* q, const void* ck,
-                      const void* cv, const void* ks, const void* vs, const void* kn,
-                      const void* vn, const void* start, void* out, int B, int Hkv, int T_len,
-                      int t_lim, int window, float scale, int cluster, cudaStream_t s) {
-  if (int8_cache)
-    return launch_shape<int8_t, QT>(rep, d, q, ck, cv, ks, vs, kn, vn, start, out, B, Hkv,
-                                    T_len, t_lim, window, scale, cluster, s);
-  return launch_shape<__nv_bfloat16, QT>(rep, d, q, ck, cv, ks, vs, kn, vn, start, out, B, Hkv,
-                                         T_len, t_lim, window, scale, cluster, s);
+cudaError_t launch_kv(int int8_cache, const FdArgs& a, cudaStream_t s) {
+  if (int8_cache) return launch_shape<int8_t, QT>(a, s);
+  return launch_shape<__nv_bfloat16, QT>(a, s);
 }
 
 }  // namespace
@@ -485,24 +540,28 @@ extern "C" {
 // cache) or null; kn/vn [B, Hkv, D]; start [B] int32; out [B, Hkv*rep, D].
 // window <= 0 means none; t_lim bounds the rows read (attn_len, or T).
 // q, kn, vn and out are bfloat16 (q_f32 = 0) or float32 (1); int8_cache =
-// 0 for a bfloat16 cache, 1 for int8 codes with scales. rep 1, 2, 4 or 8; D
-// 32, 64, 128 or 256. Clusters of 1 <= cluster <= 8 CTAs a (slot, kv head)
-// (ops/decode_attention.py: attention_plan); a cluster the card cannot hold
-// launches nothing and returns its error. Returns 0 once launched, else the
-// CUDA error.
+// 0 for a bfloat16 cache, 1 for int8 codes with scales. Rep 1, 2, 4 or 8
+// at D 32, 64, 128 or 256 run an instance of their own; any other rep and
+// D <= 512 the general route, whose grid holds ceil(rep / 2) head tiles a
+// kv head (1 at rep 1). scale: 1/sqrt(D). Clusters of 1 <= cluster <= 8
+// CTAs a (slot, kv head, head tile) (attention_plan); a cluster the card
+// cannot hold launches nothing and returns its error. The cache is 16-byte
+// aligned where a row is whole 16-byte pieces. Returns 0 once launched,
+// else the CUDA error.
 int bd_flash_decode(const void* q, const void* ck, const void* cv, const void* ks,
                     const void* vs, const void* kn, const void* vn, const void* start,
                     void* out, int int8_cache, int B, int Hkv, int rep, int T_len, int D,
                     int t_lim, int window, float scale, int cluster, int q_f32, void* stream) {
-  if (cluster < 1 || cluster > kMaxCluster || !aligned16(ck) || !aligned16(cv) ||
+  const bool by16 = D * (int8_cache ? 1 : 2) % 16 == 0;
+  if (cluster < 1 || cluster > kMaxCluster || rep < 1 || D < 1 ||
+      (by16 && (!aligned16(ck) || !aligned16(cv))) ||
       (int8_cache && (ks == nullptr || vs == nullptr)))
     return cudaErrorInvalidValue;
+  const FdArgs a{q, ck, cv, ks, vs, kn, vn, start, out, B, Hkv, rep, T_len, D, t_lim,
+                 window, scale, cluster};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (q_f32)
-    return launch_kv<float>(int8_cache, rep, D, q, ck, cv, ks, vs, kn, vn, start, out, B, Hkv,
-                            T_len, t_lim, window, scale, cluster, s);
-  return launch_kv<__nv_bfloat16>(int8_cache, rep, D, q, ck, cv, ks, vs, kn, vn, start, out, B,
-                                  Hkv, T_len, t_lim, window, scale, cluster, s);
+  if (q_f32) return launch_kv<float>(int8_cache, a, s);
+  return launch_kv<__nv_bfloat16>(int8_cache, a, s);
 }
 
 }  // extern "C"

@@ -39,7 +39,10 @@
 // VMEM: a layout choice of the TPU, not part of the function.) No partial
 // planes, no float atomics: two calls on the same inputs give the same
 // bytes. A CTA takes 8, 16 or 32 token rows; M > 32 runs in chunks of 32
-// (grid z), each streaming the weights again.
+// (grid z), each streaming the weights again. At g = 32 and 64 K may be 64
+// mod 128 (Falcon-7B's hidden size 4544): gate/up's last K step is then a
+// half step, its word and scale rows past K zero-filled and never read, its
+// x past K staged as zeros.
 
 #include "common.cuh"
 #include "stream.cuh"
@@ -132,7 +135,9 @@ __global__ void __launch_bounds__(kThreads, NW == 2 && TOK == 4 ? 1 : 2)
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int quad = lane & 3, row = lane >> 2;
   const int n0 = blockIdx.y * COLS, m0 = blockIdx.z * MROWS;
-  const int ng = K / G, g0 = rank * ng / C, ngs = (rank + 1) * ng / C - g0;
+  // steps of K; at g = 32, 64 the last may be a half step (K = 64 mod 128)
+  const int ng = GG < G ? (K + G - 1) / G : K / G;
+  const int g0 = rank * ng / C, ngs = (rank + 1) * ng / C - g0;
   const int k0 = g0 * G, kn = ngs * G;
   const int xld = P::xld(ngs_max), xsld = ngs_max * SUB;
   uint32_t* ring = reinterpret_cast<uint32_t*>(smem) + warp * STAGES * NW * P::WSTAGE;
@@ -148,13 +153,28 @@ __global__ void __launch_bounds__(kThreads, NW == 2 && TOK == 4 ? 1 : 2)
     if (j < ngs) {
       uint32_t* st = ring + (j % STAGES) * NW * P::WSTAGE;
       const int g = g0 + j, wn = n0 + warp * WC, srow = step_row(g, SUB, gdiv);
+      if (GG == G || K % G == 0 || g != ng - 1) {
 #pragma unroll
-      for (int w = 0; w < NW; ++w) {
-        uint32_t* sw = st + w * P::WSTAGE;
-        warp_copy<WC>(sw, qsrc[w] + size_t(g) * P::R * N, P::R, P::WLD, wn, N, vec, lane);
-        warp_copy<WC>(sw + P::WWORDS, ssrc[w] + size_t(srow) * N, SUB, WC, wn, N, vec, lane);
-        warp_copy<WC>(sw + P::WWORDS + SUB * WC, zsrc[w] + size_t(srow) * N, SUB, WC, wn, N, vec,
-                      lane);
+        for (int w = 0; w < NW; ++w) {
+          uint32_t* sw = st + w * P::WSTAGE;
+          warp_copy<WC>(sw, qsrc[w] + size_t(g) * P::R * N, P::R, P::WLD, wn, N, vec, lane);
+          warp_copy<WC>(sw + P::WWORDS, ssrc[w] + size_t(srow) * N, SUB, WC, wn, N, vec, lane);
+          warp_copy<WC>(sw + P::WWORDS + SUB * WC, zsrc[w] + size_t(srow) * N, SUB, WC, wn, N,
+                        vec, lane);
+        }
+      } else {  // K = 64 mod 128: a half last step, its upper half zeros (past K, never read)
+        constexpr int R2 = P::R / 2, S2 = SUB / 2;
+#pragma unroll
+        for (int w = 0; w < NW; ++w) {
+          uint32_t* sw = st + w * P::WSTAGE;
+          warp_copy<WC>(sw, qsrc[w] + size_t(g) * P::R * N, R2, P::WLD, wn, N, vec, lane);
+          warp_copy<WC>(sw + P::WWORDS, ssrc[w] + size_t(srow) * N, S2, WC, wn, N, vec, lane);
+          warp_copy<WC>(sw + P::WWORDS + SUB * WC, zsrc[w] + size_t(srow) * N, S2, WC, wn, N,
+                        vec, lane);
+          warp_zero<WC>(sw + R2 * P::WLD, P::R - R2, P::WLD, lane);
+          warp_zero<WC>(sw + P::WWORDS + S2 * WC, SUB - S2, WC, lane);
+          warp_zero<WC>(sw + P::WWORDS + (SUB + S2) * WC, SUB - S2, WC, lane);
+        }
       }
     }
     cp_commit();
@@ -169,9 +189,11 @@ __global__ void __launch_bounds__(kThreads, NW == 2 && TOK == 4 ? 1 : 2)
       tid, MROWS * per, kThreads,
       [&](int idx) {
         const int r = idx / per;
-        return m0 + r < M ? load8_bf16(x, size_t(m0 + r) * K +
-                                              src_k(k0 + (idx - r * per) * 8, kmap, Pk), xf)
-                          : make_uint4(0u, 0u, 0u, 0u);
+        // x past K (a half last step): zeros
+        return m0 + r < M && (GG == G || k0 + (idx - r * per) * 8 < K)
+                   ? load8_bf16(x, size_t(m0 + r) * K +
+                                       src_k(k0 + (idx - r * per) * 8, kmap, Pk), xf)
+                   : make_uint4(0u, 0u, 0u, 0u);
       },
       [&](int idx, uint4 v) {
         const int r = idx / per;
@@ -181,7 +203,7 @@ __global__ void __launch_bounds__(kThreads, NW == 2 && TOK == 4 ? 1 : 2)
     for (int idx = warp; idx < MROWS * ngs * SUB; idx += kWarps) {
       const int r = idx / (ngs * SUB), j = idx - r * (ngs * SUB);
       float sum = 0.f;
-      if (m0 + r < M)
+      if (m0 + r < M && (GG == G || k0 + j * FG < K))  // a fold group past K: 0
         for (int e = lane; e < FG; e += 32)
           sum += static_cast<const float*>(x)[size_t(m0 + r) * K + src_k(k0 + j * FG + e, kmap, Pk)];
 #pragma unroll
@@ -369,7 +391,8 @@ template <int BITS, int TOK, int ACT, int GG>
 cudaError_t launch(const MlpArgs& a, int cluster1, int cluster2, cudaStream_t s) {
   using P1 = Mlp<BITS, TOK, 2, GG>;
   using P2 = Mlp<BITS, TOK, 1, GG>;
-  const int n1 = (a.K / G + cluster1 - 1) / cluster1, n2 = (a.F / G + cluster2 - 1) / cluster2;
+  const int n1 = ((a.K + G - 1) / G + cluster1 - 1) / cluster1;
+  const int n2 = (a.F / G + cluster2 - 1) / cluster2;
   const int rows = (a.M + P1::MROWS - 1) / P1::MROWS;  // row chunks (grid z)
   const int gdiv = GG == 128 ? a.g / G : 1;
   const int vec1 = aligned16(a.gq) && aligned16(a.gs) && aligned16(a.gz) && aligned16(a.uq) &&
@@ -410,10 +433,11 @@ extern "C" {
 // qweight [K/pack, F] int32, scales and szeros [K/g, F] f32; down: qweight
 // [F/pack, D], scales and szeros [F/g, D]; mid [M, F] bf16 and msum
 // [M, F / min(g, 128)] f32 scratch the caller allocates; out [M, D] in x's
-// dtype. Pair layout, bits 2 or 4, K and F multiples of 128; g 32, 64, or a
-// multiple of 128 dividing K and F, with kmap_k and kmap_f [g] int32 (the
-// step order, ops/quant_matmul.py: step_kmap) above 128, else null; act 0 =
-// silu, 1 = tanh-gelu. Clusters of cluster1 CTAs (1 .. min(8, K/128)) an ffn
+// dtype. Pair layout, bits 2 or 4, F a multiple of 128; g 32 or 64 with K
+// a multiple of 64, or a multiple of 128 dividing K and F, with kmap_k and
+// kmap_f [g] int32 (the step order, ops/quant_matmul.py: step_kmap) above
+// 128, else null; act 0 = silu, 1 = tanh-gelu. Clusters of cluster1 CTAs
+// (1 .. min(8, ceil(K/128))) an ffn
 // tile, of cluster2 CTAs (1 .. min(8, F/128)) a down tile
 // (experimental/fused_mlp.py: mlp_plan). Returns 0 once both launches are
 // made, else the CUDA error (a cluster the card cannot hold launches
@@ -426,9 +450,10 @@ int bd_fused_mlp(const void* x, const void* gq, const void* gs, const void* gz, 
   const bool big = group > G;
   const bool g_ok = group == 32 || group == 64 || group == G ||
                     (big && group % G == 0 && K % group == 0 && F % group == 0 && kmap_k && kmap_f);
-  if (M < 1 || !g_ok || (!big && (kmap_k || kmap_f)) || K % G || F % COLS || D < 1 ||
-      (bits != 2 && bits != 4) || (act_kind != kSilu && act_kind != kGeluTanh) ||
-      !aligned16(x) || cluster1 < 1 || cluster1 > kMaxCluster || cluster1 > K / G ||
+  if (M < 1 || !g_ok || (!big && (kmap_k || kmap_f)) || K % (group < G ? 64 : G) ||
+      F % COLS || D < 1 || (bits != 2 && bits != 4) ||
+      (act_kind != kSilu && act_kind != kGeluTanh) || !aligned16(x) || cluster1 < 1 ||
+      cluster1 > kMaxCluster || cluster1 > (K + G - 1) / G ||
       cluster2 < 1 || cluster2 > kMaxCluster || cluster2 > F / G)
     return cudaErrorInvalidValue;
   const MlpArgs a{x, static_cast<const uint32_t*>(gq), static_cast<const uint32_t*>(uq),

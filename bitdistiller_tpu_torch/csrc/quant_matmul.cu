@@ -63,7 +63,11 @@ using namespace bd;
 // A step of 128 k holds 128/g groups at g = 32 and 64 (each folds at its end;
 // common.cuh: StepMap says which word and field a lane reads), one at 128;
 // a group of g > 128 is g/128 steps whose x the staging reads in step order
-// (kmap). f32 x is rounded to bf16 as it is staged; out takes x's dtype.
+// (kmap). At g = 32 and 64 K may end half way through a step (K = 64 mod
+// 128, as Falcon-7B's 4544): the last step is a half step, its word rows
+// and combo rows past K zero-filled by the copies (never read) and its x
+// past K staged as zeros, so the missing half adds nothing. f32 x is
+// rounded to bf16 as it is staged; out takes x's dtype.
 // The C partial tiles are summed in rank order through distributed shared
 // memory, each CTA finishing 1/C of the tile: deterministic, no atomics.
 // ---------------------------------------------------------------------------
@@ -121,7 +125,9 @@ __global__ void __launch_bounds__(kThreads, TOK == 4 && WC == 32 ? 1 : 2)
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int quad = lane & 3, row = lane >> 2;
   const int n0 = blockIdx.y * COLS;
-  const int ng = K / DEC_G, g0 = rank * ng / C, ngs = (rank + 1) * ng / C - g0;
+  // steps of K; at g = 32, 64 the last may be a half step (K = 64 mod 128)
+  const int ng = G < DEC_G ? (K + DEC_G - 1) / DEC_G : K / DEC_G;
+  const int g0 = rank * ng / C, ngs = (rank + 1) * ng / C - g0;
   const int k0 = g0 * DEC_G, kn = ngs * DEC_G;
   const int xld = D::xld(ngs_max), xsld = ngs_max * SUB;
   uint32_t* ring = reinterpret_cast<uint32_t*>(smem) + warp * DEC_STAGES * D::WSTAGE;
@@ -155,12 +161,18 @@ __global__ void __launch_bounds__(kThreads, TOK == 4 && WC == 32 ? 1 : 2)
     if (j < ngs) {
       uint32_t* st = ring + (j % DEC_STAGES) * D::WSTAGE;
       const uint32_t* src = qw + size_t(g0 + j) * D::R * N;
+      // K = 64 mod 128: a half last step, whose upper half of word rows (a
+      // piece lane + 32k of row >= R/2) and combo rows is zeros (past K,
+      // never read)
+      const bool half = G < DEC_G && K % DEC_G != 0 && g0 + j == ng - 1;
 #pragma unroll
-      for (int k = 0; k < PW; ++k) piece(st + w_dst[k], src + w_src[k], qw, w_ok[k]);
+      for (int k = 0; k < PW; ++k)
+        piece(st + w_dst[k], src + w_src[k], qw,
+              half && lane + 32 * k >= D::R / 2 * C4 ? 0 : w_ok[k]);
       const int crow = step_row(g0 + j, SUB, gdiv) + cs_row;
       if (lane < SUB * C4)
         piece(st + D::R * D::WLD + cs_row * WC + cc, combo + size_t(crow) * N + wn + cc, combo,
-              c_ok);
+              half && cs_row >= SUB / 2 ? 0 : c_ok);
     }
     cp_commit();
   };
@@ -178,7 +190,8 @@ __global__ void __launch_bounds__(kThreads, TOK == 4 && WC == 32 ? 1 : 2)
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
       const int idx = base + u * kThreads + tid, r = idx / per;
-      v[u] = idx < total && r < M
+      // x past K (a half last step): zeros
+      v[u] = idx < total && r < M && (G == DEC_G || k0 + (idx - r * per) * 8 < K)
                  ? load8_bf16(x, size_t(r) * K + src_k(k0 + (idx - r * per) * 8, kmap, P), x_f32)
                  : make_uint4(0u, 0u, 0u, 0u);
     }
@@ -333,7 +346,9 @@ __global__ void __launch_bounds__(kThreads, TOK == 4 && WC == 32 ? 1 : 2)
 //     xsum_g[m] from prefill_prep_kernel, one pass over x before the matmul;
 //   * groups of 32 and 64 (C1): the step's 128 k hold 128 / g groups, each a
 //     commit of its own k-steps folded at its end (slower: the wgmma waits a
-//     group); a group of g > 128 is g / 128 steps read in the order of
+//     group); at K = 64 mod 128 the last step is a half step whose x, word
+//     rows, combo rows and x sums past K TMA fills with zeros (the maps end
+//     at K); a group of g > 128 is g / 128 steps read in the order of
 //     step_kmap, through the prep pass's bf16 copy of x, which also holds f32
 //     x rounded to bf16 (the output then in f32).
 // Shared memory carries x alone: 2 x BM x 32 bytes of wgmma reads a k-step,
@@ -425,14 +440,14 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int nl = 64 * (tid >> 7) + 16 * ((tid & 127) >> 5) + ((tid & 31) >> 2);
   const int m0 = blockIdx.y * BM;
   const int n0 = blockIdx.x * PF_BN;
-  const int ng = K / PF_G;
+  const int ng = (K + PF_G - 1) / PF_G;
 
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + PF_STAGES * P::STAGE);
 
   auto load_stage = [&](int g) {  // one thread
     uint8_t* st = smem + (g % PF_STAGES) * P::STAGE;
     uint64_t* bar = full + g % PF_STAGES;
-    mbar_expect(bar, P::TX_BYTES);
+    mbar_expect(bar, P::TX_BYTES);  // a box's bytes, zeros past the map included
     tma_load(st, &x_map, g * PF_G, m0, bar);
     tma_load(st + BM * 128, &x_map, g * PF_G + 64, m0, bar);
     tma_load(st + P::X_BYTES, &w_map, n0, g * P::R, bar);
@@ -551,11 +566,11 @@ template <int BITS, int BM, int G>
 cudaError_t launch_prefill(const PfArgs& a, cudaStream_t stream) {
   using P = Prefill<BITS, BM, G>;
   const int Mp = (a.M + 3) / 4 * 4;
-  const int ng = a.K / PF_G, FG = PF_G / P::SUB, gdiv = G == 128 ? a.g / PF_G : 1;
+  const int FG = PF_G / P::SUB, gdiv = G == 128 ? a.g / PF_G : 1;
   const void* xt = a.xb ? a.xb : a.x;  // what TMA reads: bf16
-  CUtensorMap xm, wm, cm, sm;
+  CUtensorMap xm, wm, cm, sm;  // each ends at K: a half last step reads zeros past it
   if (!tensor_map(&xm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, xt, a.M, a.K, BM, 64, true) ||
-      !tensor_map(&wm, CU_TENSOR_MAP_DATA_TYPE_INT32, 4, a.qw, ng * P::R, a.N, P::R, PF_WS,
+      !tensor_map(&wm, CU_TENSOR_MAP_DATA_TYPE_INT32, 4, a.qw, a.K * BITS / 32, a.N, P::R, PF_WS,
                   false) ||
       !tensor_map(&cm, CU_TENSOR_MAP_DATA_TYPE_INT32, 4, a.combo, a.K / a.g, a.N, P::SUB, PF_BN,
                   false) ||
@@ -604,7 +619,7 @@ struct DecArgs {
 template <int BITS, int TOK, int WC, int G>
 cudaError_t launch_decode(const DecArgs& a, int cluster, cudaStream_t stream) {
   using D = Dec<BITS, TOK, WC, G>;
-  const int ngs_max = (a.K / DEC_G + cluster - 1) / cluster;
+  const int ngs_max = ((a.K + DEC_G - 1) / DEC_G + cluster - 1) / cluster;
   const int vec = a.N % 4 == 0 && aligned16(a.qw) && aligned16(a.combo);
   const int gdiv = G == 128 ? a.g / DEC_G : 1;
   return launch_cluster(qmm_decode_stream_kernel<BITS, TOK, WC, G>,
@@ -629,9 +644,10 @@ cudaError_t launch_decode_g(const DecArgs& a, int cluster, cudaStream_t s) {
   return launch_decode_mt<BITS, WC, 128>(a, cluster, s);
 }
 
-// g: 32, 64, or a multiple of 128 that divides K (kmap given above 128)
+// g: 32 or 64 with K a multiple of 64 (K = 64 mod 128: a half last step),
+// or a multiple of 128 that divides K (kmap given above 128)
 bool group_ok(int g, int K, const void* kmap) {
-  if (g == 32 || g == 64) return K % 128 == 0 && kmap == nullptr;
+  if (g == 32 || g == 64) return K % 64 == 0 && kmap == nullptr;
   return g >= 128 && g % 128 == 0 && K % g == 0 && (g == 128) == (kmap == nullptr);
 }
 
@@ -642,9 +658,9 @@ extern "C" {
 // x [M, K] bf16 (x_f32 = 0) or f32 (1), 16-byte aligned; qweight [K/pack, N]
 // int32 (one layer: the caller offsets a stacked array to layer li), combo
 // [K/g, N] int32, out [M, N] in x's dtype; all row-major, contiguous. bits 2
-// or 4; g 32, 64, or a multiple of 128 dividing K (K a multiple of 128),
+// or 4; g 32 or 64 (K a multiple of 64), or a multiple of 128 dividing K,
 // above 128 with kmap [g] int32 (ops/quant_matmul.py: step_kmap), else
-// kmap null. M <= 32. Clusters of 1 <= cluster <= min(8, K/128) CTAs,
+// kmap null. M <= 32. Clusters of 1 <= cluster <= min(8, ceil(K/128)) CTAs,
 // warp_cols (16 or 32) columns a warp (ops/quant_matmul.py:
 // a16_decode_plan); a cluster the card cannot hold launches nothing and
 // returns its error. Returns 0 once launched, else the CUDA error.
@@ -652,7 +668,7 @@ int bd_qmm_decode(const void* x, const void* qweight, const void* combo, const v
                   void* out, int M, int K, int N, int bits, int group, int cluster, int warp_cols,
                   int x_f32, void* stream) {
   if (M < 1 || M > 32 || N < 1 || !group_ok(group, K, kmap) || (bits != 2 && bits != 4) ||
-      !aligned16(x) || cluster < 1 || cluster > kMaxCluster || cluster > K / DEC_G ||
+      !aligned16(x) || cluster < 1 || cluster > kMaxCluster || cluster > (K + DEC_G - 1) / DEC_G ||
       (warp_cols != 16 && warp_cols != 32))
     return cudaErrorInvalidValue;
   const DecArgs a{x, qweight, combo, out, static_cast<const int*>(kmap), M, K, N, group, x_f32};

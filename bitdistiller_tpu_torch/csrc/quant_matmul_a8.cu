@@ -17,6 +17,10 @@
 // without fast math). For pair-layout words it also applies the per-group
 // permutation kmap (the JAX package's _a8_perm), so xi comes out in the
 // words' extraction order.
+// At g = 32 and 64 K may be 64 mod 128 (Falcon-7B's 4544): the last K step
+// of 128 is then a half step, its word and scale rows past K zero-filled
+// and never read, its xi past K staged as zeros (the quantization never
+// sees them: xi stays [M, K]).
 //
 // In the A8 byte order, byte lane j of bit field i of word row r holds
 // k = i*4R + 4r + j, so one extraction (w >> bits*i) & 0x0m0m0m0m is four
@@ -205,7 +209,9 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int quad = lane & 3, row = lane >> 2;
   const int n0 = blockIdx.y * COLS;
-  const int ng = K / G, g0 = rank * ng / C, ngs = (rank + 1) * ng / C - g0;
+  // steps of K; at g = 32, 64 the last may be a half step (K = 64 mod 128)
+  const int ng = GG < G ? (K + G - 1) / G : K / G;
+  const int g0 = rank * ng / C, ngs = (rank + 1) * ng / C - g0;
   const int k0 = g0 * G, kn = ngs * G;
   const int xld = D::xld(ngs_max);
   uint32_t* ring = reinterpret_cast<uint32_t*>(smem) + warp * DEC_STAGES * D::WSTAGE;
@@ -216,10 +222,21 @@ __global__ void __launch_bounds__(kThreads, 2)
     if (j < ngs) {
       uint32_t* st = ring + (j % DEC_STAGES) * D::WSTAGE;
       const int g = g0 + j, wn = n0 + warp * WC, srow = step_row(g, SUB, gdiv);
-      warp_copy<WC>(st, qw + size_t(g) * D::R * N, D::R, D::WLD, wn, N, vec, lane);
-      warp_copy<WC>(st + D::R * D::WLD, scales + size_t(srow) * N, SUB, WC, wn, N, vec, lane);
-      warp_copy<WC>(st + D::R * D::WLD + SUB * WC, szeros + size_t(srow) * N, SUB, WC, wn, N,
-                    vec, lane);
+      // the first r word rows and s scale rows of the step
+      auto copy = [&](int r, int s) {
+        warp_copy<WC>(st, qw + size_t(g) * D::R * N, r, D::WLD, wn, N, vec, lane);
+        warp_copy<WC>(st + D::R * D::WLD, scales + size_t(srow) * N, s, WC, wn, N, vec, lane);
+        warp_copy<WC>(st + D::R * D::WLD + SUB * WC, szeros + size_t(srow) * N, s, WC, wn, N,
+                      vec, lane);
+      };
+      if (GG == G || K % G == 0 || g != ng - 1) {
+        copy(D::R, SUB);
+      } else {  // K = 64 mod 128: a half last step, its upper half zeros (past K, never read)
+        copy(D::R / 2, SUB / 2);
+        warp_zero<WC>(st + D::R / 2 * D::WLD, D::R / 2, D::WLD, lane);
+        warp_zero<WC>(st + D::R * D::WLD + SUB / 2 * WC, SUB / 2, WC, lane);
+        warp_zero<WC>(st + D::R * D::WLD + (SUB + SUB / 2) * WC, SUB / 2, WC, lane);
+      }
     }
     cp_commit();
   };
@@ -232,9 +249,11 @@ __global__ void __launch_bounds__(kThreads, 2)
       tid, MROWS * per, kThreads,
       [&](int idx) {
         const int r = idx / per;
-        return r < M ? __ldcg(reinterpret_cast<const uint4*>(xi_g + size_t(r) * K + k0 +
-                                                             (idx - r * per) * 16))
-                     : make_uint4(0u, 0u, 0u, 0u);
+        // xi past K (a half last step): zeros
+        return r < M && (GG == G || k0 + (idx - r * per) * 16 < K)
+                   ? __ldcg(reinterpret_cast<const uint4*>(xi_g + size_t(r) * K + k0 +
+                                                           (idx - r * per) * 16))
+                   : make_uint4(0u, 0u, 0u, 0u);
       },
       [&](int idx, uint4 v) {
         const int r = idx / per;
@@ -435,7 +454,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int nl = 64 * (tid >> 7) + 16 * ((tid & 127) >> 5) + ((tid & 31) >> 2);
   const int m0 = blockIdx.y * BM;
   const int n0 = blockIdx.x * PF_BN;
-  const int ng = K / G;
+  const int ng = (K + G - 1) / G;  // a half last step at K = 64 mod 128: the maps end at K
 
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + PF_STAGES * P::STAGE);
 
@@ -565,10 +584,10 @@ template <int BITS, int BM, int GG>
 cudaError_t launch_prefill(const A8Args& a, int* xsum, cudaStream_t stream) {
   using P = Prefill<BITS, BM, GG>;
   const int Mp = (a.M + 3) / 4 * 4;
-  const int ng = a.K / G, FG = G / P::SUB, gdiv = GG == 128 ? a.g / G : 1;
-  CUtensorMap xm, wm, sm, zm, tm;
+  const int FG = G / P::SUB, gdiv = GG == 128 ? a.g / G : 1;
+  CUtensorMap xm, wm, sm, zm, tm;  // each ends at K: a half last step reads zeros past it
   if (!tensor_map(&xm, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, a.xi, a.M, a.K, BM, G, true) ||
-      !tensor_map(&wm, CU_TENSOR_MAP_DATA_TYPE_INT32, 4, a.qw, ng * P::R, a.N, P::R, PF_WS,
+      !tensor_map(&wm, CU_TENSOR_MAP_DATA_TYPE_INT32, 4, a.qw, a.K * BITS / 32, a.N, P::R, PF_WS,
                   false) ||
       !tensor_map(&sm, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, a.scales, a.K / a.g, a.N, P::SUB,
                   PF_BN, false) ||
@@ -607,7 +626,7 @@ cudaError_t launch_quantize(const A8Args& a, int chunk, cudaStream_t stream) {
 
 template <int BITS, int TOK, int GG>
 cudaError_t launch_decode(const A8Args& a, int cluster, cudaStream_t stream) {
-  const int ngs_max = (a.K / G + cluster - 1) / cluster;
+  const int ngs_max = ((a.K + G - 1) / G + cluster - 1) / cluster;
   const int vec = a.N % 4 == 0 && aligned16(a.qw) && aligned16(a.scales) && aligned16(a.szeros);
   const int gdiv = GG == 128 ? a.g / G : 1;
   const cudaError_t err = launch_quantize(a, QUANT_CHUNK, stream);
@@ -626,7 +645,8 @@ cudaError_t launch_decode(const A8Args& a, int cluster, cudaStream_t stream) {
 template <int BITS, int GG>
 cudaError_t launch_mt(const A8Args& a, int* xsum, int tile_m, int cluster, cudaStream_t s) {
   if (a.M <= 32) {
-    if (cluster < 1 || cluster > kMaxCluster || cluster > a.K / G) return cudaErrorInvalidValue;
+    if (cluster < 1 || cluster > kMaxCluster || cluster > (a.K + G - 1) / G)
+      return cudaErrorInvalidValue;
     if (a.M <= 8) return launch_decode<BITS, 1, GG>(a, cluster, s);
     if (a.M <= 16) return launch_decode<BITS, 2, GG>(a, cluster, s);
     return launch_decode<BITS, 4, GG>(a, cluster, s);
@@ -655,11 +675,11 @@ extern "C" {
 // (pair-layout words: the JAX package's _a8_perm composed, for g > 128, with
 // the step order; A8-ordered words: null up to g = 128, the step order
 // above; ops/quant_matmul.py: a8_kmap); scales, szeros [K/g, N] f32; bias
-// [N] f32 or null; out [M, N] in x's dtype. All row-major, contiguous. g 32,
-// 64, or a multiple of 128 dividing K (K a multiple of 128); bits 2 or 4.
+// [N] f32 or null; out [M, N] in x's dtype. All row-major, contiguous. g 32
+// or 64 (K a multiple of 64), or a multiple of 128 dividing K; bits 2 or 4.
 // Scratch the caller allocates: xi [M, K] int8 and sx [M] f32, and above 32
 // rows xsum, int32 of K / min(g, 128) x round_up(M, 4). M <= 32: clusters
-// of 1 <= cluster <= min(8, K/128) CTAs (decode_plan); a cluster the card
+// of 1 <= cluster <= min(8, ceil(K/128)) CTAs (decode_plan); a cluster the card
 // cannot hold launches nothing and returns its error. Above: N a multiple
 // of 4 and tile_m 64 or 128. Returns 0 once launched, else the CUDA error.
 int bd_qmm_a8(const void* x, const void* qweight, const void* scales, const void* szeros,
@@ -667,7 +687,7 @@ int bd_qmm_a8(const void* x, const void* qweight, const void* scales, const void
               int M, int K, int N, int bits, int group, int tile_m, int cluster, int x_f32,
               void* stream) {
   const bool g_ok = group == 32 || group == 64 || (group >= G && group % G == 0);
-  if (M < 1 || !g_ok || K % G != 0 || K % group != 0 || (bits != 2 && bits != 4) ||
+  if (M < 1 || !g_ok || K % 64 != 0 || K % group != 0 || (bits != 2 && bits != 4) ||
       !aligned16(x) || xi == nullptr || sx == nullptr)
     return cudaErrorInvalidValue;
   if (M > 32 && (N % 4 != 0 || xsum == nullptr)) return cudaErrorInvalidValue;

@@ -80,6 +80,19 @@ __device__ __forceinline__ void warp_copy(uint32_t* dst, const void* src, int ro
   }
 }
 
+// Zeros in rows [0, rows) x WC columns at dst, a row every ld elements (16-
+// byte aligned): the half of a K step past K (K = 64 mod 128) that no copy
+// reads. Plain shared stores, which the warp's lanes see after the
+// __syncwarp that precedes every read of a ring slot, as they see the copies.
+template <int WC>
+__device__ __forceinline__ void warp_zero(uint32_t* dst, int rows, int ld, int lane) {
+  constexpr int C4 = WC / 4;
+  for (int i = lane; i < rows * C4; i += 32) {
+    const int r = i / C4, c = (i - r * C4) * 4;
+    *reinterpret_cast<uint4*>(dst + r * ld + c) = make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
 // for (i = first; i < total; i += step) use(i, load(i)), with the loads of
 // U iterations issued before the first of their uses: U loads in flight a
 // thread instead of one (a prologue that copies from L2 waits about one

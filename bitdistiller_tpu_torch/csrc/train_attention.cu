@@ -20,9 +20,10 @@
 //   dv_j = sum_i p_ij do_i,   ds_ij = p_ij (do_i . v_j - di_i),
 //   dk_j = scale * sum_i ds_ij q_i,   dq_i = scale * sum_j ds_ij k_j.
 // q, o, do [B, S, Hq, D]; k, v, dk, dv [B, S, Hkv, D]; lse [B, Hq, S] f32;
-// di [B, S, Hq] f32. Any S, any D that is a multiple of 16 up to 256: rows
-// past S and columns past D are zero-filled in shared memory and never
-// written, so no padded copy is made.
+// di [B, S, Hq] f32. Any S, any D that is a multiple of 16 (the wrapper pads
+// any other D with zero columns and passes the real D's scale): rows past S
+// and columns past D are zero-filled in shared memory and never written, so
+// the kernels make no padded copy.
 //
 // Bound on this card: operations. The causal forward is 2 * B * Hq * S^2 * D
 // multiply-adds' worth of flops (two products over half the score matrix),
@@ -73,11 +74,14 @@
 //     slot that both read as the A operand. The C partial dk and dv tiles
 //     are summed in rank order through distributed shared memory: no
 //     atomics, deterministic.
-// f32 (JAX's compute dtype float32, `--dtype float32`): dkv and dq at
-// D <= 128 are 3xTF32 wgmma kernels fed by a TMA ring (see their section:
-// every A from registers, the products over rows taken transposed), bound
-// by operations at 495 / 3 = 165 TFLOP/s; the forward, and dkv and dq above
-// D = 128, run on CUDA cores (one warp a row).
+// f32 (JAX's compute dtype float32, `--dtype float32`): the forward, dkv
+// and dq at D <= 128 are 3xTF32 wgmma kernels fed by a TMA ring (see their
+// section: every A from registers, the products over rows taken
+// transposed), bound by operations at 495 / 3 = 165 TFLOP/s; above D = 128
+// they run on CUDA cores (one warp a row), and so do both dtypes above
+// D = 256: the same kernels, with the CTAs splitting D's output columns into
+// slices of WIDE_COLS, each slice recomputing the scores, so no register
+// array grows with D.
 
 #include <float.h>
 #include <limits.h>
@@ -1059,7 +1063,7 @@ __global__ void __launch_bounds__(2 * kWg + 32, 1)
   dkv_wide_store(acc, smem, dk, scale, b, k0, S, Hkv, hk, D, C, rank);
 }
 
-// ---- f32 dkv and dq at D <= 128: 3xTF32 wgmma fed by a TMA ring ---------------
+// ---- f32 forward, dkv and dq at D <= 128: 3xTF32 wgmma fed by a TMA ring ------
 //
 // tf32 wgmma reads both operands K-major, so no product can read a tile
 // transposed as the bf16 kernels read V, dO, Q and K. Here every product takes
@@ -1067,11 +1071,13 @@ __global__ void __launch_bounds__(2 * kWg + 32, 1)
 // into hi and lo there (hopper.cuh: tf32_split), and B from shared memory as
 // hi and lo planes, K-major:
 //   * the score products contract over D, and D is contiguous, so the
-//     streamed operand (dkv: Q and dO; dq: K and V) is B as TMA lands it,
-//     split in place (hi over the raw tile, lo beside it) once a stage;
-//     the resident operand (dkv: K, V; dq: Q, dO) stays raw and is A;
+//     streamed operand (dkv: Q and dO; dq and the forward: K and V) is B as
+//     TMA lands it, split in place (hi over the raw tile, lo beside it) once
+//     a stage; the resident operand (dkv: K, V; dq: Q, dO; the forward: Q)
+//     stays raw and is A;
 //   * the products over rows are taken transposed: dv^T = dO^T p,
-//     dk^T = Q^T ds (dkv), dq^T = K^T ds^T (dq): A gathered from the stage's
+//     dk^T = Q^T ds (dkv), dq^T = K^T ds^T (dq), o^T = V^T p^T (the
+//     forward): A gathered from the stage's
 //     planes by column, B the p or ds tile written from the score
 //     accumulator into hi and lo planes in the swizzle TMA uses, rows of TS
 //     f32 (128 bytes);
@@ -1186,7 +1192,9 @@ __device__ __forceinline__ void split_plane(float* t, float* lo, int t128) {
 // b1h/b1l, b2h/b2l, over DT columns (zeros past D): the score products, in chunks of KC
 // k-steps, each chunk's A fragments gathered and split, then its 6 KC
 // wgmmas issued and waited for (registers: 16 KC for the fragments).
-template <int DT, int KC>
+// With TWO false only x (the forward's one score product; y, a2 and b2 are
+// not read).
+template <int DT, int KC, bool TWO = true>
 __device__ __forceinline__ void scores_tf32(float (&x)[16], float (&y)[16], const float* a1,
                                             const float* a2, uint64_t b1h, uint64_t b1l,
                                             uint64_t b2h, uint64_t b2l, int rb) {
@@ -1196,27 +1204,27 @@ __device__ __forceinline__ void scores_tf32(float (&x)[16], float (&y)[16], cons
     static_for<0, KC>([&](auto jj) {
       constexpr int J = decltype(jj)::value;
       row_frag<64, K0 + J>(f1[J], a1, rb);
-      row_frag<64, K0 + J>(f2[J], a2, rb);
+      if constexpr (TWO) row_frag<64, K0 + J>(f2[J], a2, rb);
     });
     wgmma_fence();
     if constexpr (K0 > 0) {
       fence_regs(x);
-      fence_regs(y);
+      if constexpr (TWO) fence_regs(y);
     }
     static_for<0, KC>([&](auto jj) {
       constexpr int J = decltype(jj)::value, K = K0 + J;
       constexpr int OFF = ((K >> 2) * TS * 128 + (K & 3) * 32) / 16;
       mma3<K != 0, OFF>(x, f1[J], b1h, b1l);
-      mma3<K != 0, OFF>(y, f2[J], b2h, b2l);
+      if constexpr (TWO) mma3<K != 0, OFF>(y, f2[J], b2h, b2l);
     });
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(x);
-    fence_regs(y);
+    if constexpr (TWO) fence_regs(y);
 #pragma unroll
     for (int j = 0; j < KC; ++j) {
       fence_frag(f1[j]);
-      fence_frag(f2[j]);
+      if constexpr (TWO) fence_frag(f2[j]);
     }
   });
 }
@@ -1658,10 +1666,229 @@ __global__ void __launch_bounds__(kWg + 32, DqTf32<DT>::MIN_BLOCKS)
   }
 }
 
-// ---- f32 inputs on CUDA cores, one warp a row: the forward, and dkv and dq
-// above D = 128 ---------------------------------------------------------------
+template <int DT>
+struct FwdTf32 {
+  static constexpr int ST = 2;                 // ring stages
+  static constexpr int KC = DT <= 64 ? 2 : 4;  // k-steps a chunk of the score product
+  static constexpr int MIN_BLOCKS = DT <= 64 ? 2 : 1;  // CTAs an SM
+  static constexpr int TILE = 64 * DT * 4;     // Q: 64 query rows
+  static constexpr int PLANE = TS * DT * 4;    // a stage's K or V, hi or lo
+  static constexpr int SLOT = 64 * TS * 4;     // p (queries x keys), hi or lo
+  // Q at 0; stage st's K hi, K lo, V hi, V lo at TILE + (4 st + i) PLANE
+  static constexpr int XCH = TILE + 4 * ST * PLANE;  // p hi, p lo
+  static constexpr int FAC = XCH + 2 * SLOT;  // the rows' factors [64]: alpha a stage, then 1/l
+  static constexpr int SEG = FAC + 64 * 4;    // keys' segment ids [ST][TS], the stage's one [ST]
+  static constexpr int BAR = (SEG + ST * (TS + 1) * 4 + 7) / 8 * 8;
+  static constexpr int SMEM = BAR + (2 * ST + 1) * 8 + 1024;  // full, empty, q; alignment
+  static constexpr int OUT = 64 * (DT + 4);  // floats of the [query][D] tile, padded rows
+  static_assert(OUT * 4 <= XCH, "the o tile overlays Q and the ring");
+  static_assert(MIN_BLOCKS * (SMEM + 1024) <= 233472, "shared memory of an SM");
+};
 
-constexpr int F32_ROWS = 8;  // rows (warps) a CTA
+// The forward, f32, D <= 128: one CTA a (query head, batch, query tile of 64
+// rows, the longest first), the dq kernel's shape: a producer warp loads raw
+// Q once and streams the key stages (TS rows) on or below the diagonal, K,
+// V and the keys' segment ids, through ST stages; one consumer warpgroup
+// owns the 64 rows: per stage it splits K and V in place, takes s = Q K^T
+// (Q gathered and split as A), runs the online softmax on the register
+// scores (masking only a stage that crosses the diagonal or S or holds
+// another segment than a row), writes p into the hi/lo slots, then
+// o^T += V^T p^T (V^T gathered from the stage's planes by column). o^T holds
+// the query rows as wgmma's N index, so each stage's rescale factor, one a
+// row, goes through a 64-float row of shared memory, written beside p
+// before the barrier the product needs anyway (one pass; a two-pass design
+// would take the score product twice). The epilogue writes o (times 1/l,
+// the same row) and the f32 lse as the CUDA-core kernel did, rows past S
+// never stored: no atomics, the same bits on every run.
+template <int DT>
+__global__ void __launch_bounds__(kWg + 32, FwdTf32<DT>::MIN_BLOCKS)
+    train_attn_fwd_tf32_kernel(const __grid_constant__ CUtensorMap q_map,
+                               const __grid_constant__ CUtensorMap k_map,
+                               const __grid_constant__ CUtensorMap v_map,
+                               const int* __restrict__ seg, float* __restrict__ o,
+                               float* __restrict__ lse, int S, int Hq, int Hkv, int D,
+                               float scale) {
+  using P = FwdTf32<DT>;
+  constexpr int ST = P::ST, NB = DT / 32;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  float* fac = reinterpret_cast<float*>(smem + P::FAC);
+  int* segs = reinterpret_cast<int*>(smem + P::SEG);
+  int* tsegs = segs + ST * TS;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + P::BAR);
+  uint64_t* empty = full + ST;
+  uint64_t* qbar = empty + ST;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * TQ;
+  const int hk = h / (Hq / Hkv);
+  const int nks = min(q0 / TS + TQ / TS, (S + TS - 1) / TS);  // key stages on or below the diagonal
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int i = 0; i < ST; ++i) {
+      mbar_init(full + i, kFullCount);
+      mbar_init(empty + i, 4);  // lane 0 of each consumer warp
+    }
+    mbar_init(qbar, 1);
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (tid >= kWg) {  // the producer warp
+    const int lane = tid & 31;
+    if (lane == 0) {
+      mbar_expect(qbar, P::TILE);
+      for (int c = 0; c < NB; ++c)
+        tma_load_4d(smem + c * TQ * kBoxRow, &q_map, 32 * c, h, q0, b, qbar);
+    }
+    for (int t = 0; t < nks; ++t) {
+      const int st = t % ST, k0 = t * TS;
+      if (t >= ST) mbar_wait(empty + st, (t / ST - 1) & 1);
+      uint8_t* kt = smem + P::TILE + 4 * st * P::PLANE;
+      if (lane == 0) {
+        mbar_expect(full + st, 2 * P::PLANE);
+        for (int c = 0; c < NB; ++c) {
+          tma_load_4d(kt + c * TS * kBoxRow, &k_map, 32 * c, hk, k0, b, full + st);
+          tma_load_4d(kt + 2 * P::PLANE + c * TS * kBoxRow, &v_map, 32 * c, hk, k0, b, full + st);
+        }
+      }
+      const int key = k0 + lane;  // TS == 32: a key a lane
+      const int v = key < S ? (seg ? seg[size_t(b) * S + key] : 1) : -1;
+      segs[st * TS + lane] = v;
+      const int lo = __reduce_min_sync(0xffffffffu, v), hi = __reduce_max_sync(0xffffffffu, v);
+      if (lane == 0) tsegs[st] = lo == hi ? lo : kMixed;
+      mbar_arrive(full + st);
+    }
+    return;
+  }
+
+  const int warp = tid >> 5, lane = tid & 31, quad = lane & 3, r0 = 16 * warp + (lane >> 2);
+  const int rb = row_base(r0, quad), cb = col_base<TS>(r0, quad);
+  const float qs = scale * kLog2e;
+  int rows[2], segq[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    rows[half] = q0 + r0 + 8 * half;
+    segq[half] = rows[half] < S ? (seg ? seg[size_t(b) * S + rows[half]] : 1) : -2;
+  }
+  float m[2] = {kMaskValue, kMaskValue}, l[2] = {0.f, 0.f};  // log2 units
+  float acc[DT / 64][32];  // o^T: D's columns x 64 query rows
+#pragma unroll
+  for (int mt = 0; mt < DT / 64; ++mt)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[mt][i] = 0.f;
+  const float* qr = reinterpret_cast<const float*>(smem);
+  float* ph = reinterpret_cast<float*>(smem + P::XCH);
+  float* pl = ph + P::SLOT / 4;
+  const uint64_t phd = sw128_desc(smem_u32(ph)), pld = sw128_desc(smem_u32(pl));
+  mbar_wait(qbar, 0);
+
+  for (int t = 0; t < nks; ++t) {
+    const int st = t % ST, k0 = t * TS;
+    mbar_wait(full + st, (t / ST) & 1);
+    float* kh = reinterpret_cast<float*>(smem + P::TILE + 4 * st * P::PLANE);
+    float* kl = kh + P::PLANE / 4;
+    float* vh = kl + P::PLANE / 4;
+    float* vl = vh + P::PLANE / 4;
+    split_plane<TS * DT>(kh, kl, tid);
+    split_plane<TS * DT>(vh, vl, tid);
+    fence_proxy_async();
+    named_sync(1, kWg);
+    const uint32_t ka = smem_u32(kh);
+    float s[16];  // 64 query rows x TS keys
+    scores_tf32<DT, P::KC, false>(s, s, qr, qr, sw128_desc(ka), sw128_desc(ka + P::PLANE), 0, 0,
+                                  rb);
+    const int* sk = segs + st * TS;
+    const int ts = tsegs[st];
+    const bool mask = k0 + TS - 1 > q0 || k0 + TS > S || ts != segq[0] || ts != segq[1];
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int half = (i >> 1) & 1, kc = 8 * (i >> 2) + 2 * quad + (i & 1);
+      float x = s[i] * qs;
+      if (mask && !(k0 + kc <= rows[half] && sk[kc] == segq[half])) x = kMaskValue;
+      s[i] = x;
+      mx[half] = fmaxf(mx[half], x);
+    }
+    float alpha[2];
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      mx[half] = fmaxf(mx[half], __shfl_xor_sync(0xffffffffu, mx[half], 1));
+      mx[half] = fmaxf(mx[half], __shfl_xor_sync(0xffffffffu, mx[half], 2));
+      alpha[half] = ex2(m[half] - mx[half]);
+      m[half] = mx[half];
+      l[half] *= alpha[half];
+    }
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int half = (i >> 1) & 1;
+      const float p = s[i] == kMaskValue ? 0.f : ex2(s[i] - m[half]);
+      s[i] = p;
+      l[half] += p;
+    }
+    store_split(ph, pl, s, r0, quad);
+    if (quad == 0) {
+      fac[r0] = alpha[0];
+      fac[r0 + 8] = alpha[1];
+    }
+    fence_proxy_async();
+    named_sync(1, kWg);
+    // o^T's columns are query rows 8 (r / 4) + 2 quad + r % 2: rescale them
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 f = *reinterpret_cast<const float2*>(fac + 8 * j + 2 * quad);
+#pragma unroll
+      for (int mt = 0; mt < DT / 64; ++mt) {
+        acc[mt][4 * j] *= f.x;
+        acc[mt][4 * j + 1] *= f.y;
+        acc[mt][4 * j + 2] *= f.x;
+        acc[mt][4 * j + 3] *= f.y;
+      }
+    }
+    // o^T += V^T p^T, both of D's 64-column tiles in one group at DT = 128
+    tcols_tf32<0, 1, (DT > 64)>(acc[0], acc[DT / 64 - 1], vh, vl, vh, vl, phd, pld, phd, pld, cb);
+    if (lane == 0) mbar_arrive(empty + st);  // this warp is done with the stage
+  }
+
+  // the [query][D] tile over Q and the ring (every stage consumed; the
+  // named barrier: every warp is done with them and with fac), 1/l a row in
+  // fac, then coalesced rows
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    l[half] += __shfl_xor_sync(0xffffffffu, l[half], 1);
+    l[half] += __shfl_xor_sync(0xffffffffu, l[half], 2);
+    if (quad == 0 && rows[half] < S)
+      lse[(size_t(b) * Hq + h) * S + rows[half]] = (m[half] + log2f(l[half])) * kLn2;
+  }
+  float* out = reinterpret_cast<float*>(smem);
+  named_sync(1, kWg);
+  if (quad == 0) {
+    fac[r0] = 1.f / l[0];
+    fac[r0 + 8] = 1.f / l[1];
+  }
+  acc_to_rows<DT>(out, acc, warp, lane);
+  named_sync(1, kWg);
+  for (int n = tid; n < 64 * DT / 4; n += kWg) {
+    const int row = n / (DT / 4), col = 4 * (n - row * (DT / 4));
+    if (q0 + row >= S || col >= D) continue;
+    const float4 v = *reinterpret_cast<const float4*>(out + row * (DT + 4) + col);
+    const float f = fac[row];
+    *reinterpret_cast<float4*>(o + ((size_t(b) * S + q0 + row) * Hq + h) * D + col) =
+        make_float4(v.x * f, v.y * f, v.z * f, v.w * f);
+  }
+}
+
+// ---- CUDA cores, one warp a row: f32 above D = 128, both dtypes above 256 ----
+//
+// F32_ROWS rows (warps) a CTA. D's output columns are split into slices of
+// WIDE_COLS, one a CTA along grid z (b * slices + slice), each slice
+// recomputing the row's scores, so no register array grows with D. RES
+// (D <= WIDE_COLS, one slice): the warp's own row operands sit in
+// registers; else the row dots loop over D, reading them from memory.
+// f32 arithmetic; bf16 inputs widened as read, outputs rounded once.
+
+constexpr int F32_ROWS = 8;      // rows (warps) a CTA
+constexpr int WIDE_COLS = 256;   // output columns a CTA
+constexpr int WIDE_PER = WIDE_COLS / 32;
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -1669,139 +1896,165 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// the lane's elements c = lane + 32i (i < DT/32) of a row
-template <int DT>
-__device__ __forceinline__ void load_row(float (&x)[DT / 32], const float* p, int D, int lane) {
+// a row the warp dots with other rows: the lane's elements c = lane + 32i
+// in registers (RES), or where it lies
+template <typename T, bool RES>
+struct CoreRow {
+  float x[RES ? WIDE_PER : 1];
+  const T* p;
+  __device__ __forceinline__ CoreRow(const T* src, int D, int lane) : p(src) {
+    if constexpr (RES) {
 #pragma unroll
-  for (int i = 0; i < DT / 32; ++i) {
-    const int c = lane + 32 * i;
-    x[i] = c < D ? p[c] : 0.f;
+      for (int i = 0; i < WIDE_PER; ++i) {
+        const int c = lane + 32 * i;
+        x[i] = c < D ? to_f32(src[c]) : 0.f;
+      }
+    }
   }
+  __device__ __forceinline__ float dot(const T* o, int D, int lane) const {
+    float d = 0.f;
+    if constexpr (RES) {
+#pragma unroll
+      for (int i = 0; i < WIDE_PER; ++i) {
+        const int c = lane + 32 * i;
+        if (c < D) d = fmaf(x[i], to_f32(o[c]), d);
+      }
+    } else {
+      for (int c = lane; c < D; c += 32) d = fmaf(to_f32(p[c]), to_f32(o[c]), d);
+    }
+    return warp_sum(d);
+  }
+};
+
+// grid z: the batch row b and the first column c0 of the CTA's slice
+template <bool RES>
+__device__ __forceinline__ void core_slice(int D, int& b, int& c0) {
+  const int nsl = RES ? 1 : (D + WIDE_COLS - 1) / WIDE_COLS;
+  b = blockIdx.z / nsl;
+  c0 = RES ? 0 : (blockIdx.z - b * nsl) * WIDE_COLS;
 }
 
-template <int DT>
-__device__ __forceinline__ float row_dot(const float (&x)[DT / 32], const float* p, int D,
-                                         int lane) {
-  float d = 0.f;
-#pragma unroll
-  for (int i = 0; i < DT / 32; ++i) {
-    const int c = lane + 32 * i;
-    if (c < D) d = fmaf(x[i], p[c], d);
-  }
-  return warp_sum(d);
-}
-
-template <int DT>
+template <typename T, bool RES>
 __global__ void __launch_bounds__(F32_ROWS * 32)
-    train_attn_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                              const float* __restrict__ v, const int* __restrict__ seg,
-                              float* __restrict__ out, float* __restrict__ lse, int S, int Hq,
-                              int Hkv, int D, float scale) {
-  const int b = blockIdx.z, h = blockIdx.y, lane = threadIdx.x & 31;
+    train_attn_fwd_cores_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                                const T* __restrict__ v, const int* __restrict__ seg,
+                                T* __restrict__ out, float* __restrict__ lse, int S, int Hq,
+                                int Hkv, int D, float scale) {
+  int b, c0;
+  core_slice<RES>(D, b, c0);
+  const int h = blockIdx.y, lane = threadIdx.x & 31;
   const int i = blockIdx.x * F32_ROWS + (threadIdx.x >> 5);
   if (i >= S) return;
   const int hk = h / (Hq / Hkv), si = seg ? seg[size_t(b) * S + i] : 1;
-  float qr[DT / 32], acc[DT / 32];
-  load_row<DT>(qr, q + ((size_t(b) * S + i) * Hq + h) * D, D, lane);
+  const CoreRow<T, RES> qr(q + ((size_t(b) * S + i) * Hq + h) * D, D, lane);
+  float acc[WIDE_PER];
 #pragma unroll
-  for (int c = 0; c < DT / 32; ++c) acc[c] = 0.f;
+  for (int c = 0; c < WIDE_PER; ++c) acc[c] = 0.f;
   float m = kMaskValue, l = 0.f;
   for (int j = 0; j <= i; ++j) {
     if (seg && seg[size_t(b) * S + j] != si) continue;
     const size_t kv = ((size_t(b) * S + j) * Hkv + hk) * D;
-    const float s = row_dot<DT>(qr, k + kv, D, lane) * scale;
+    const float s = qr.dot(k + kv, D, lane) * scale;
     const float mn = fmaxf(m, s), alpha = expf(m - mn), p = expf(s - mn);
     l = l * alpha + p;
 #pragma unroll
-    for (int c = 0; c < DT / 32; ++c) {
-      const int col = lane + 32 * c;
-      acc[c] = acc[c] * alpha + (col < D ? p * v[kv + col] : 0.f);
+    for (int c = 0; c < WIDE_PER; ++c) {
+      const int col = c0 + lane + 32 * c;
+      acc[c] = acc[c] * alpha + (col < D ? p * to_f32(v[kv + col]) : 0.f);
     }
     m = mn;
   }
-  float* o = out + ((size_t(b) * S + i) * Hq + h) * D;
+  T* o = out + ((size_t(b) * S + i) * Hq + h) * D;
 #pragma unroll
-  for (int c = 0; c < DT / 32; ++c)
-    if (lane + 32 * c < D) o[lane + 32 * c] = acc[c] / l;
-  if (lane == 0) lse[(size_t(b) * Hq + h) * S + i] = m + logf(l);
+  for (int c = 0; c < WIDE_PER; ++c) {
+    const int col = c0 + lane + 32 * c;
+    if (col < D) o[col] = from_f32<T>(acc[c] / l);
+  }
+  if (c0 == 0 && lane == 0) lse[(size_t(b) * Hq + h) * S + i] = m + logf(l);
 }
 
-template <int DT>
+template <typename T, bool RES>
 __global__ void __launch_bounds__(F32_ROWS * 32)
-    train_attn_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                             const float* __restrict__ v, const int* __restrict__ seg,
-                             const float* __restrict__ dout, const float* __restrict__ lse,
-                             const float* __restrict__ di, float* __restrict__ dq, int S, int Hq,
-                             int Hkv, int D, float scale) {
-  const int b = blockIdx.z, h = blockIdx.y, lane = threadIdx.x & 31;
+    train_attn_dq_cores_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                               const T* __restrict__ v, const int* __restrict__ seg,
+                               const T* __restrict__ dout, const float* __restrict__ lse,
+                               const float* __restrict__ di, T* __restrict__ dq, int S, int Hq,
+                               int Hkv, int D, float scale) {
+  int b, c0;
+  core_slice<RES>(D, b, c0);
+  const int h = blockIdx.y, lane = threadIdx.x & 31;
   const int i = blockIdx.x * F32_ROWS + (threadIdx.x >> 5);
   if (i >= S) return;
   const int hk = h / (Hq / Hkv), si = seg ? seg[size_t(b) * S + i] : 1;
   const size_t qi = ((size_t(b) * S + i) * Hq + h) * D;
-  float qr[DT / 32], dor[DT / 32], acc[DT / 32];
-  load_row<DT>(qr, q + qi, D, lane);
-  load_row<DT>(dor, dout + qi, D, lane);
+  const CoreRow<T, RES> qr(q + qi, D, lane), dor(dout + qi, D, lane);
+  float acc[WIDE_PER];
 #pragma unroll
-  for (int c = 0; c < DT / 32; ++c) acc[c] = 0.f;
+  for (int c = 0; c < WIDE_PER; ++c) acc[c] = 0.f;
   const float li = lse[(size_t(b) * Hq + h) * S + i], dii = di[(size_t(b) * S + i) * Hq + h];
   for (int j = 0; j <= i; ++j) {
     if (seg && seg[size_t(b) * S + j] != si) continue;
     const size_t kv = ((size_t(b) * S + j) * Hkv + hk) * D;
-    const float p = expf(row_dot<DT>(qr, k + kv, D, lane) * scale - li);
-    const float ds = p * (row_dot<DT>(dor, v + kv, D, lane) - dii);
+    const float p = expf(qr.dot(k + kv, D, lane) * scale - li);
+    const float ds = p * (dor.dot(v + kv, D, lane) - dii);
 #pragma unroll
-    for (int c = 0; c < DT / 32; ++c) {
-      const int col = lane + 32 * c;
-      if (col < D) acc[c] = fmaf(ds, k[kv + col], acc[c]);
+    for (int c = 0; c < WIDE_PER; ++c) {
+      const int col = c0 + lane + 32 * c;
+      if (col < D) acc[c] = fmaf(ds, to_f32(k[kv + col]), acc[c]);
     }
   }
 #pragma unroll
-  for (int c = 0; c < DT / 32; ++c)
-    if (lane + 32 * c < D) dq[qi + lane + 32 * c] = acc[c] * scale;
+  for (int c = 0; c < WIDE_PER; ++c) {
+    const int col = c0 + lane + 32 * c;
+    if (col < D) dq[qi + col] = from_f32<T>(acc[c] * scale);
+  }
 }
 
-// one warp a (key row, kv head): the rep query heads and the rows at or below it
-template <int DT>
+// one warp a (key row, kv head, column slice): the rep query heads and the
+// rows at or below it
+template <typename T, bool RES>
 __global__ void __launch_bounds__(F32_ROWS * 32)
-    train_attn_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                              const float* __restrict__ v, const int* __restrict__ seg,
-                              const float* __restrict__ dout, const float* __restrict__ lse,
-                              const float* __restrict__ di, float* __restrict__ dk,
-                              float* __restrict__ dv, int S, int Hq, int Hkv, int D, float scale) {
-  const int b = blockIdx.z, hk = blockIdx.y, lane = threadIdx.x & 31;
+    train_attn_dkv_cores_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                                const T* __restrict__ v, const int* __restrict__ seg,
+                                const T* __restrict__ dout, const float* __restrict__ lse,
+                                const float* __restrict__ di, T* __restrict__ dk,
+                                T* __restrict__ dv, int S, int Hq, int Hkv, int D, float scale) {
+  int b, c0;
+  core_slice<RES>(D, b, c0);
+  const int hk = blockIdx.y, lane = threadIdx.x & 31;
   const int j = blockIdx.x * F32_ROWS + (threadIdx.x >> 5);
   if (j >= S) return;
   const int rep = Hq / Hkv, sj = seg ? seg[size_t(b) * S + j] : 1;
   const size_t kv = ((size_t(b) * S + j) * Hkv + hk) * D;
-  float kr[DT / 32], vr[DT / 32], ak[DT / 32], av[DT / 32];
-  load_row<DT>(kr, k + kv, D, lane);
-  load_row<DT>(vr, v + kv, D, lane);
+  const CoreRow<T, RES> kr(k + kv, D, lane), vr(v + kv, D, lane);
+  float ak[WIDE_PER], av[WIDE_PER];
 #pragma unroll
-  for (int c = 0; c < DT / 32; ++c) ak[c] = av[c] = 0.f;
+  for (int c = 0; c < WIDE_PER; ++c) ak[c] = av[c] = 0.f;
   for (int r = 0; r < rep; ++r) {
     const int h = hk * rep + r;
     for (int i = j; i < S; ++i) {
       if (seg && seg[size_t(b) * S + i] != sj) continue;
       const size_t qi = ((size_t(b) * S + i) * Hq + h) * D;
-      const float p = expf(row_dot<DT>(kr, q + qi, D, lane) * scale -
-                           lse[(size_t(b) * Hq + h) * S + i]);
-      const float ds = p * (row_dot<DT>(vr, dout + qi, D, lane) - di[(size_t(b) * S + i) * Hq + h]);
+      const float p = expf(kr.dot(q + qi, D, lane) * scale - lse[(size_t(b) * Hq + h) * S + i]);
+      const float ds = p * (vr.dot(dout + qi, D, lane) - di[(size_t(b) * S + i) * Hq + h]);
 #pragma unroll
-      for (int c = 0; c < DT / 32; ++c) {
-        const int col = lane + 32 * c;
+      for (int c = 0; c < WIDE_PER; ++c) {
+        const int col = c0 + lane + 32 * c;
         if (col < D) {
-          av[c] = fmaf(p, dout[qi + col], av[c]);
-          ak[c] = fmaf(ds, q[qi + col], ak[c]);
+          av[c] = fmaf(p, to_f32(dout[qi + col]), av[c]);
+          ak[c] = fmaf(ds, to_f32(q[qi + col]), ak[c]);
         }
       }
     }
   }
 #pragma unroll
-  for (int c = 0; c < DT / 32; ++c)
-    if (lane + 32 * c < D) {
-      dv[kv + lane + 32 * c] = av[c];
-      dk[kv + lane + 32 * c] = ak[c] * scale;
+  for (int c = 0; c < WIDE_PER; ++c) {
+    const int col = c0 + lane + 32 * c;
+    if (col < D) {
+      dv[kv + col] = from_f32<T>(av[c]);
+      dk[kv + col] = from_f32<T>(ak[c] * scale);
     }
+  }
 }
 
 // ---- launch ------------------------------------------------------------------
@@ -1862,15 +2115,24 @@ cudaError_t launch_bf16(Which w, const Args& a, cudaStream_t s) {
 template <int DT>
 cudaError_t launch_tf32(Which w, const Args& a, cudaStream_t s) {
   // dkv: 64-row boxes of k, v (resident), TS-row boxes of q, dout (streamed);
-  // dq the other way round
+  // the forward and dq the other way round (the forward has no dout)
   const uint32_t rq = w == kDkv ? TS : TQ, rk = w == kDkv ? TK : TS;
   CUtensorMap qm, km, vm, om;
   if (!tensor_map_bshd_f32(&qm, a.q, a.B, a.S, a.Hq, a.D, rq) ||
       !tensor_map_bshd_f32(&km, a.k, a.B, a.S, a.Hkv, a.D, rk) ||
       !tensor_map_bshd_f32(&vm, a.v, a.B, a.S, a.Hkv, a.D, rk) ||
-      !tensor_map_bshd_f32(&om, a.dout, a.B, a.S, a.Hq, a.D, rq))
+      (w != kFwd && !tensor_map_bshd_f32(&om, a.dout, a.B, a.S, a.Hq, a.D, rq)))
     return cudaErrorInvalidValue;
   const auto* seg = static_cast<const int*>(a.seg);
+  if (w == kFwd) {
+    auto kern = train_attn_fwd_tf32_kernel<DT>;
+    cudaError_t err = allow_smem(kern, FwdTf32<DT>::SMEM);
+    if (err != cudaSuccess) return err;
+    kern<<<dim3(a.Hq, a.B, (a.S + TQ - 1) / TQ), kWg + 32, FwdTf32<DT>::SMEM, s>>>(
+        qm, km, vm, seg, static_cast<float*>(a.o0), static_cast<float*>(a.lse_out), a.S, a.Hq,
+        a.Hkv, a.D, a.scale);
+    return cudaGetLastError();
+  }
   const auto* lse = static_cast<const float*>(a.lse_in);
   const auto* di = static_cast<const float*>(a.di);
   if (w == kDkv)  // on clusters of a.cluster CTAs, the grid of dkv_plan
@@ -1887,46 +2149,45 @@ cudaError_t launch_tf32(Which w, const Args& a, cudaStream_t s) {
   return cudaGetLastError();
 }
 
-template <int DT>
-cudaError_t launch_f32(Which w, const Args& a, cudaStream_t s) {
-  const int nr = (a.S + F32_ROWS - 1) / F32_ROWS;
-  const auto* q = static_cast<const float*>(a.q);
-  const auto* k = static_cast<const float*>(a.k);
-  const auto* v = static_cast<const float*>(a.v);
+// the CUDA-core kernels: f32 at 128 < D <= 256 (RES; up to 128 the 3xTF32
+// kernels run), both dtypes above D = 256
+template <typename T, bool RES>
+cudaError_t launch_cores(Which w, const Args& a, cudaStream_t s) {
+  const dim3 grid((a.S + F32_ROWS - 1) / F32_ROWS, w == kDkv ? a.Hkv : a.Hq,
+                  a.B * ((a.D + WIDE_COLS - 1) / WIDE_COLS));
+  const auto* q = static_cast<const T*>(a.q);
+  const auto* k = static_cast<const T*>(a.k);
+  const auto* v = static_cast<const T*>(a.v);
   const auto* seg = static_cast<const int*>(a.seg);
+  const auto* dout = static_cast<const T*>(a.dout);
+  const auto* lse = static_cast<const float*>(a.lse_in);
+  const auto* di = static_cast<const float*>(a.di);
   if (w == kFwd)
-    train_attn_fwd_f32_kernel<DT><<<dim3(nr, a.Hq, a.B), F32_ROWS * 32, 0, s>>>(
-        q, k, v, seg, static_cast<float*>(a.o0), static_cast<float*>(a.lse_out), a.S, a.Hq,
-        a.Hkv, a.D, a.scale);
-  else if constexpr (DT <= 128)  // dkv and dq up to D = 128 are the 3xTF32 kernels'
-    return cudaErrorInvalidValue;
+    train_attn_fwd_cores_kernel<T, RES><<<grid, F32_ROWS * 32, 0, s>>>(
+        q, k, v, seg, static_cast<T*>(a.o0), static_cast<float*>(a.lse_out), a.S, a.Hq, a.Hkv,
+        a.D, a.scale);
   else if (w == kDkv)
-    train_attn_dkv_f32_kernel<DT><<<dim3(nr, a.Hkv, a.B), F32_ROWS * 32, 0, s>>>(
-        q, k, v, seg, static_cast<const float*>(a.dout), static_cast<const float*>(a.lse_in),
-        static_cast<const float*>(a.di), static_cast<float*>(a.o0), static_cast<float*>(a.o1),
-        a.S, a.Hq, a.Hkv, a.D, a.scale);
+    train_attn_dkv_cores_kernel<T, RES><<<grid, F32_ROWS * 32, 0, s>>>(
+        q, k, v, seg, dout, lse, di, static_cast<T*>(a.o0), static_cast<T*>(a.o1), a.S, a.Hq,
+        a.Hkv, a.D, a.scale);
   else
-    train_attn_dq_f32_kernel<DT><<<dim3(nr, a.Hq, a.B), F32_ROWS * 32, 0, s>>>(
-        q, k, v, seg, static_cast<const float*>(a.dout), static_cast<const float*>(a.lse_in),
-        static_cast<const float*>(a.di), static_cast<float*>(a.o0), a.S, a.Hq, a.Hkv, a.D,
-        a.scale);
+    train_attn_dq_cores_kernel<T, RES><<<grid, F32_ROWS * 32, 0, s>>>(
+        q, k, v, seg, dout, lse, di, static_cast<T*>(a.o0), a.S, a.Hq, a.Hkv, a.D, a.scale);
   return cudaGetLastError();
 }
 
 cudaError_t dispatch(Which w, const Args& a, int f32, void* stream) {
-  if (a.B < 1 || a.S < 1 || a.Hkv < 1 || a.Hq % a.Hkv || a.D < 16 || a.D > 256 || a.D % 16)
+  if (a.B < 1 || a.S < 1 || a.Hkv < 1 || a.Hq % a.Hkv || a.D < 16 || a.D % 16)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // dkv's cluster (ops/train_attention.py: dkv_plan): min(rep, 8) CTAs on the
-  // tensor cores, 1 on the CUDA cores (f32 above D = 128)
-  const bool cores = f32 && (w == kFwd || a.D > 128);
+  // tensor cores, 1 on the CUDA cores (f32 above D = 128, both dtypes above 256)
+  const bool wide = a.D > 256, cores = wide || (f32 && a.D > 128);
   if (w == kDkv && a.cluster != (cores ? 1 : std::min(a.Hq / a.Hkv, kMaxCluster)))
     return cudaErrorInvalidValue;
-  if (cores) {
-    if (a.D <= 64) return launch_f32<64>(w, a, s);
-    if (a.D <= 128) return launch_f32<128>(w, a, s);
-    return launch_f32<256>(w, a, s);
-  }
+  if (wide)
+    return f32 ? launch_cores<float, false>(w, a, s) : launch_cores<__nv_bfloat16, false>(w, a, s);
+  if (cores) return launch_cores<float, true>(w, a, s);
   if (f32) return a.D <= 64 ? launch_tf32<64>(w, a, s) : launch_tf32<128>(w, a, s);
   if (a.D <= 64) return launch_bf16<64>(w, a, s);
   if (a.D <= 128) return launch_bf16<128>(w, a, s);
@@ -1939,9 +2200,10 @@ extern "C" {
 
 // All tensors contiguous, on one device: q, out [B, S, Hq, D] and k, v
 // [B, S, Hkv, D] of one dtype (f32 = 0: bfloat16, 16-byte aligned; 1:
-// float32); seg [B, S] int32 or null; lse [B, Hq, S] f32. D a multiple of 16
-// up to 256, Hq a multiple of Hkv. Each returns 0 once launched, else the
-// CUDA error.
+// float32); seg [B, S] int32 or null; lse [B, Hq, S] f32. D a multiple of
+// 16 (above 256: the CUDA-core kernels), Hq a multiple of Hkv; scale
+// the real D's 1/sqrt(D) (the wrapper pads other D). Each returns 0 once
+// launched, else the CUDA error.
 int bd_train_attn_fwd(const void* q, const void* k, const void* v, const void* seg, void* out,
                       void* lse, int B, int S, int Hq, int Hkv, int D, float scale, int f32,
                       void* stream) {
@@ -1952,7 +2214,8 @@ int bd_train_attn_fwd(const void* q, const void* k, const void* v, const void* s
 
 // dout [B, S, Hq, D], lse [B, Hq, S] f32 (the forward's), di [B, S, Hq] f32
 // (rowsum(o * dout)); writes dk, dv [B, S, Hkv, D] in the inputs' dtype.
-// cluster: min(Hq / Hkv, 8), or 1 for f32 above D = 128 (dkv_plan). A
+// cluster: min(Hq / Hkv, 8), or 1 for f32 above D = 128 and above D = 256
+// (dkv_plan). A
 // cluster the card cannot hold launches nothing and returns the error.
 int bd_train_attn_dkv(const void* q, const void* k, const void* v, const void* seg,
                       const void* dout, const void* lse, const void* di, void* dk, void* dv,

@@ -41,6 +41,7 @@ from ..ops.quant_matmul import (
     _step_kmap,
     decode_plan,
     kernel_group_ok,
+    kernel_steps,
 )
 from ..quant.packing import PackedLinear, unpack_codes
 
@@ -119,8 +120,8 @@ def mlp_plan(k: int, ffn: int, d: int, sms: int) -> tuple[int, int]:
     """Cluster sizes of the kernel's two launches (`decode_plan` for both):
     gate/up clusters split the K steps (128 k) of each 128-column ffn tile,
     down clusters the ffn steps of each 128-column output tile."""
-    return (decode_plan(ffn, k // KERNEL_STEP, sms, cols=KERNEL_COLS),
-            decode_plan(d, ffn // KERNEL_STEP, sms, cols=KERNEL_COLS))
+    return (decode_plan(ffn, kernel_steps(k), sms, cols=KERNEL_COLS),
+            decode_plan(d, kernel_steps(ffn), sms, cols=KERNEL_COLS))
 
 
 @functools.lru_cache(maxsize=None)
@@ -150,8 +151,9 @@ def _launch(x, gate, up, down, act) -> torch.Tensor:
     ffn, d = gate.out_features, down.out_features
     g = gate.group_size
     if gate.bits not in KERNEL_BITS or not (kernel_group_ok(g, k) and kernel_group_ok(g, ffn)):
-        raise ValueError(f"the kernel takes bits in {KERNEL_BITS} and a group of 32, 64 or a "
-                         f"multiple of 128 dividing K and FFN; got {gate.bits}, {g}")
+        raise ValueError(f"the kernel takes bits in {KERNEL_BITS} and a group of 32 or 64 (K "
+                         f"a multiple of 64) or a multiple of 128 dividing K and FFN; got "
+                         f"{gate.bits}, {g}")
     if ffn % KERNEL_COLS:
         raise ValueError(f"the kernel takes FFN in multiples of {KERNEL_COLS}, got {ffn}")
     if any(p.bias is not None for p in layers):

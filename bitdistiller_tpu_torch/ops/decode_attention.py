@@ -2,14 +2,18 @@
 wrapper of the hand-written CUDA kernel (csrc/decode_attention.cu), which
 replaces the JAX package's Pallas `_fd2_kernel`.
 
-S=1 GQA attention of q [B, 1, Hq, D] (bf16 or f32; D 32, 64, 128 or 256)
-over layer `li` of the stacked head-major cache [L, B, Hkv, T, D] (bf16, or int8 codes with raw f32 scales
-[L, B, Hkv, T]), read in place. Cache rows t < start[b] are valid (and
-t < attn_len; with a window only t > start - window); the fresh k/v of the
-token at position `start` is folded in last. Softmax in f32.
+S=1 GQA attention of q [B, 1, Hq, D] (bf16 or f32; any GQA rep, D up to
+512) over layer `li` of the stacked head-major cache [L, B, Hkv, T, D]
+(bf16, or int8 codes with raw f32 scales [L, B, Hkv, T]), read in place.
+Cache rows t < start[b] are valid (and t < attn_len; with a window only
+t > start - window); the fresh k/v of the token at position `start` is
+folded in last. Softmax in f32.
 
 On the card each (slot, kv head)'s valid rows are split over a thread block
 cluster of `attention_plan` CTAs, merged in rank order inside the kernel.
+Rep 1, 2, 4 or 8 at D 32, 64, 128 or 256 run instances of their own; any
+other rep and D the kernel's general route (`decode_tile`: head tiles of 2
+query heads, a width template at or above D).
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
 launches the kernel or raises.
 """
@@ -28,9 +32,35 @@ from . import _build
 from .quant_matmul import MAX_CLUSTER, _sm_count
 
 _NEG = -1e30
-KERNEL_REPS = (1, 2, 4, 8)
+KERNEL_REPS = (1, 2, 4, 8)  # with KERNEL_HEAD_DIMS: an instance of their own
 KERNEL_HEAD_DIMS = (32, 64, 128, 256)
+GENERAL_HEAD_DIMS = (32, 64, 128, 256, 512)  # the general route's width templates
 KERNEL_Q_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def decode_tile(rep: int, d: int) -> Optional[tuple[int, int]]:
+    """(head tile RT, width DT) of the kernel's general route for GQA rep
+    `rep` and head dim `d`, or None where an instance of their own exists.
+    DT is the least width template at or above D (columns past D are
+    masked). RT is 2 query heads (1 at rep 1): the grid walks ceil(rep / 2)
+    tiles a kv head (rep 3: a tile of 2 and one of 2 with a head masked;
+    rep 71: 36 tiles). The kernel makes the same choice
+    (csrc/decode_attention.cu: launch_shape); this mirror sizes the plan.
+    On the H100 at batch 8 over long slots, tiles of 2 beat tiles of 1, 4
+    and 8 at rep 3, 5, 7 and 71 (PERF.md): more, lighter CTAs, each kv row
+    read from L2 once a tile."""
+    if rep in KERNEL_REPS and d in KERNEL_HEAD_DIMS:
+        return None
+    if rep < 1 or not 1 <= d <= GENERAL_HEAD_DIMS[-1]:
+        raise ValueError(f"the decode attention kernel takes D up to {GENERAL_HEAD_DIMS[-1]}, "
+                         f"got rep {rep}, D {d}")
+    return min(rep, 2), next(w for w in GENERAL_HEAD_DIMS if w >= d)
+
+
+def head_tiles(rep: int, d: int) -> int:
+    """Head tiles a kv head of the kernel's grid: 1, or ceil(rep / RT)."""
+    tile = decode_tile(rep, d)
+    return 1 if tile is None else -(-rep // tile[0])
 
 
 def attention_plan(b: int, hkv: int, sms: int) -> int:
@@ -38,7 +68,9 @@ def attention_plan(b: int, hkv: int, sms: int) -> int:
     of the b * hkv (slot, kv head) pairs are split into C contiguous runs,
     one a CTA. The largest C, at most MAX_CLUSTER, whose b * hkv * C CTAs
     all fit on the card's `sms` SMs at once, two an SM: a second wave would
-    pay every CTA's fixed latency (start, merges, cluster barriers) again."""
+    pay every CTA's fixed latency (start, merges, cluster barriers) again.
+    On the general route hkv counts the kv heads' head tiles
+    (hkv * `head_tiles`): each tile is a CTA row of its own."""
     return max(1, min(MAX_CLUSTER, 2 * sms // (b * hkv)))
 
 
@@ -109,8 +141,7 @@ def launch_layer(q, ck, cv, k_scale, v_scale, k_new, v_new, start, window, attn_
     if any(x.device != q.device for x in tensors):
         raise ValueError("decode attention takes CUDA tensors on one device")
     rep = hq // hkv
-    if rep not in KERNEL_REPS or d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"kernel takes rep in {KERNEL_REPS}, D in {KERNEL_HEAD_DIMS}")
+    tiles = head_tiles(rep, d)  # raises above the largest width template
     if q.dtype not in KERNEL_Q_DTYPES:
         raise ValueError(f"the decode attention kernel takes q in {KERNEL_Q_DTYPES}, got {q.dtype}")
     if ck.dtype != (torch.int8 if quantized else torch.bfloat16) or cv.dtype != ck.dtype:
@@ -122,7 +153,7 @@ def launch_layer(q, ck, cv, k_scale, v_scale, k_new, v_new, start, window, attn_
         raise ValueError("fresh k/v must have q's dtype")
     if not (ck.is_contiguous() and cv.is_contiguous()):
         raise ValueError("the cache must be contiguous")
-    if ck.data_ptr() % 16 or cv.data_ptr() % 16:
+    if (d * ck.element_size()) % 16 == 0 and (ck.data_ptr() % 16 or cv.data_ptr() % 16):
         raise ValueError("the kernel copies cache rows 16 bytes at a time: align the cache")
     if quantized and not (k_scale.dtype == v_scale.dtype == torch.float32
                           and k_scale.is_contiguous() and v_scale.is_contiguous()
@@ -140,8 +171,10 @@ def launch_layer(q, ck, cv, k_scale, v_scale, k_new, v_new, start, window, attn_
         v_scale.data_ptr() if quantized else None,
         kn.data_ptr(), vn.data_ptr(), st.data_ptr(), out.data_ptr(),
         int(quantized), b, hkv, rep, t, d, t_lim,
-        window or 0, 1.0 / math.sqrt(d), attention_plan(b, hkv, _sm_count(q.device.index or 0)),
-        int(q.dtype == torch.float32), torch.cuda.current_stream(q.device).cuda_stream,
+        window or 0, 1.0 / math.sqrt(d),
+        attention_plan(b, hkv * tiles, _sm_count(q.device.index or 0)),
+        int(q.dtype == torch.float32),
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(err, "bd_flash_decode")
     return out.reshape(b, 1, hq, d)

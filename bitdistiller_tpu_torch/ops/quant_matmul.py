@@ -25,8 +25,11 @@ groups at g = 32 and 64, one at 128, and a group of g > 128 (a multiple of
 128, per-channel g = K included) is g / 128 steps whose activations the
 kernel reads in the order of `step_kmap` (the pair layout of a g-group,
 walked as if it were g / 128 groups of 128). The plans count K in these
-steps. x may be bf16 or f32: the kernels round f32 x to bf16 as they stage
-it (the A8 kernels quantize it as it is) and write the output in x's dtype.
+steps, `kernel_steps`: at g = 32 and 64 K may be 64 mod 128 (Falcon-7B's
+hidden size 4544), and the last step is then a half step, whose missing
+half the kernels stage as zeros without reading past K. x may be bf16 or
+f32: the kernels round f32 x to bf16 as they stage it (the A8 kernels
+quantize it as it is) and write the output in x's dtype.
 
 `qmm_prefill.launches` counts A16 prefill calls, `qmm_a8.launches` every A8
 call and `qmm_a8.prefill_launches` the A8 calls above DECODE_MAX_M rows.
@@ -57,11 +60,18 @@ KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
 
 def kernel_group_ok(group_size: int, k: int) -> bool:
-    """The group sizes the packed kernels take: 32, 64, 128, or a multiple of
-    128 dividing K (per-channel included), with K a multiple of 128."""
-    if k % KERNEL_STEP:
-        return False
-    return group_size in (32, 64) or (group_size % KERNEL_STEP == 0 and k % group_size == 0)
+    """The group sizes the packed kernels take: 32 or 64 with K a multiple of
+    64 (K = 64 mod 128: a half last step), or 128, or a multiple of 128
+    dividing K (per-channel included)."""
+    if group_size in (32, 64):
+        return k % 64 == 0
+    return group_size % KERNEL_STEP == 0 and k % group_size == 0
+
+
+def kernel_steps(k: int) -> int:
+    """K steps of KERNEL_STEP k the packed kernels walk (a half last step
+    counts)."""
+    return -(-k // KERNEL_STEP)
 
 
 def step_kmap(bits: int, group_size: int) -> np.ndarray:
@@ -179,8 +189,8 @@ def _check_args(x, qweight, combo, bits, group_size):
         raise ValueError(f"bits={bits}: the packed matmul kernel takes bits in {KERNEL_BITS}")
     m, k = x.shape
     if not kernel_group_ok(group_size, k):
-        raise ValueError(f"group_size={group_size}, K={k}: the kernel takes 32, 64 or a "
-                         f"multiple of 128 dividing K, with K a multiple of 128")
+        raise ValueError(f"group_size={group_size}, K={k}: the kernel takes 32 or 64 (K a "
+                         f"multiple of 64) or a multiple of 128 dividing K")
     n = qweight.shape[-1]
     if qweight.shape != (k // (32 // bits), n) or combo.shape != (k // group_size, n):
         raise ValueError(
@@ -232,7 +242,7 @@ def qmm_decode(x, qweight, combo, bits: int, group_size: int) -> torch.Tensor:
     if m > DECODE_MAX_M:
         raise ValueError(f"decode kernel takes M <= {DECODE_MAX_M}, got {m}")
     x = _aligned(x)
-    cluster, warp_cols = a16_decode_plan(n, k // KERNEL_STEP, _sm_count(x.device.index or 0))
+    cluster, warp_cols = a16_decode_plan(n, kernel_steps(k), _sm_count(x.device.index or 0))
     kmap = _step_kmap(bits, group_size, x.device)
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     err = _launcher("bd_qmm_decode")(
@@ -498,8 +508,9 @@ def qmm_a8(x, qweight, scales, szeros, bits: int, group_size: int, a8_order: boo
         raise ValueError(f"the A8 matmul kernel takes x in {KERNEL_DTYPES}, got {x.dtype}")
     m, k = x.shape
     if bits not in A8_BITS or not kernel_group_ok(group_size, k):
-        raise ValueError(f"the A8 kernel takes bits in {A8_BITS} and group 32, 64 or a "
-                         f"multiple of 128 dividing K = {k}; got {bits}, {group_size}")
+        raise ValueError(f"the A8 kernel takes bits in {A8_BITS} and group 32 or 64 (K a "
+                         f"multiple of 64) or a multiple of 128 dividing K = {k}; got {bits}, "
+                         f"{group_size}")
     n = qweight.shape[-1]
     if (qweight.dtype != torch.int32 or qweight.shape != (k // (32 // bits), n)
             or scales.shape != (k // group_size, n) or szeros.shape != scales.shape
@@ -516,7 +527,7 @@ def qmm_a8(x, qweight, scales, szeros, bits: int, group_size: int, a8_order: boo
     x = _aligned(x)
     prefill = m > DECODE_MAX_M
     tile = _tile_m(x, n) if prefill else 0
-    cluster = 0 if prefill else decode_plan(n, k // KERNEL_STEP, _sm_count(x.device.index or 0))
+    cluster = 0 if prefill else decode_plan(n, kernel_steps(k), _sm_count(x.device.index or 0))
     kmap = _kmap(bits, group_size, a8_order, x.device)
     xi = torch.empty((m, k), dtype=torch.int8, device=x.device)
     sx = torch.empty((m,), dtype=torch.float32, device=x.device)

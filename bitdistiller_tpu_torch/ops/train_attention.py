@@ -10,6 +10,10 @@ segment ids from the padding mask (1 real, 0 pad: a query attends to keys at
 or before it with its own segment id), the finite mask value
 -0.7 * f32max, sm_scale = 1/sqrt(D), softmax in f32, the output in q's dtype.
 Pad rows' outputs are garbage in both packages and sit under label -100.
+Any D: JAX pads D to a multiple of 128 and scales by the real D; here
+`flash_train_attention` pads q, k and v with zero columns to a multiple of
+16 (KERNEL_HEAD_STEP), hands every kernel and plain version the real D's
+scale, and slices the result back (autograd slices the gradients).
 
 On a CPU tensor `flash_train_attention` runs the plain version (autograd
 differentiates it); on a CUDA tensor it runs `TrainAttention`, a
@@ -23,8 +27,11 @@ kernels fed by a TMA ring at every D (dkv above D = 128 by its wide kernel,
 which walks twice with D's columns split between its warpgroups). f32 dkv
 and dq at D <= 128 run on the tensor cores too, as 3xTF32 (each operand
 split into tf32 hi and lo, three products: `tf32x3_matmul` is its plain
-emulation, which only the tests use); the f32 forward, and f32 dkv and dq
-above D = 128, run on CUDA cores. `train_attn_bwd_dq_plain`
+emulation, which only the tests use), and so does the f32 forward
+(`train_attn_fwd_tf32x3_emulated` is its emulation); f32 above D = 128
+and both dtypes above D = 256 run the CUDA-core kernels (one warp a row;
+above D = 256 the CTAs split D's output columns into slices of WIDE_COLS,
+each slice recomputing the scores). `train_attn_bwd_dq_plain`
 is dq alone in plain PyTorch from the kernel's own inputs (lse, di), what
 the dq kernel is held to on the card.
 
@@ -50,7 +57,9 @@ from .quant_matmul import MAX_CLUSTER
 
 MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)  # flash_attention.py: DEFAULT_MASK_VALUE
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
-MAX_HEAD_DIM = 256
+KERNEL_HEAD_STEP = 16  # the kernels take D a multiple of this; other D is padded to one
+MAX_HEAD_DIM = 256  # above: the CUDA-core kernels, both dtypes
+WIDE_COLS = 256  # the CUDA-core kernels: output columns a CTA (above, slices)
 # above: a 64 x D f32 accumulator a warpgroup does not fit beside its score
 # tiles, so the wide kernel splits D between the warpgroups and walks twice
 DKV_WGMMA_MAX_HEAD_DIM = 128
@@ -58,6 +67,8 @@ DKV_KEY_TILE = 64     # the dkv kernels on the tensor cores: key rows a CTA
 DKV_QUERY_TILE = 64   # ... query rows a ring stage (bf16)
 DKV_TF32_QUERY_TILE = 32  # ... and of the 3xTF32 kernel (f32 tiles: twice bf16's, plus lo planes)
 F32_ROWS = 8          # the CUDA-core kernels: rows (one a warp) a CTA
+FWD_TF32_QUERY_TILE = 64  # the f32 forward at D <= 128: query rows a CTA ...
+FWD_TF32_KEY_STAGE = 32   # ... and key rows a ring stage
 
 
 @dataclass(frozen=True)
@@ -70,9 +81,11 @@ class DkvPlan:
     its warpgroups splitting D's columns over two walks, dv then dk), and for
     f32 "tf32x3" (D <= 128: `train_attn_dkv_tf32_kernel`, one warpgroup, query
     stages of `query_tile` rows). `grid` as launched, x first (x is the
-    cluster). f32 above D = 128: "f32_cores" (`train_attn_dkv_f32_kernel`,
-    one warp a key row, F32_ROWS a CTA, no cluster: grid (row blocks, Hkv,
-    B))."""
+    cluster). f32 above D = 128: "f32_cores" (`train_attn_dkv_cores_kernel`,
+    one warp a key row, its k and v rows in registers, F32_ROWS a CTA, no
+    cluster: grid (row blocks, Hkv, B)). Both dtypes above D = 256:
+    "cores_wide" (the same kernel, its row dots reading k and v from
+    memory, with B x ceil(D / WIDE_COLS) column slices along z)."""
 
     kernel: str
     cluster: int
@@ -90,6 +103,8 @@ def dkv_plan(b: int, s: int, hq: int, hkv: int, d: int, dtype=torch.bfloat16) ->
     tiles x Hkv, B) with the key tile slowest, so the longest walks (key
     tile 0) start first. C depends on rep only, never on the card, so the
     same inputs give the same bits on every card."""
+    if d > MAX_HEAD_DIM:
+        return DkvPlan("cores_wide", 1, (-(-s // F32_ROWS), hkv, b * -(-d // WIDE_COLS)))
     if dtype == torch.float32 and d > DKV_WGMMA_MAX_HEAD_DIM:
         return DkvPlan("f32_cores", 1, (-(-s // F32_ROWS), hkv, b))
     c = min(hq // hkv, MAX_CLUSTER)
@@ -111,6 +126,60 @@ def dkv_walk(s: int, rep: int, cluster: int, rank: int, key_tile: int,
     return [(r, qt) for r in range(rank, rep, cluster) for qt in range(first, nq)]
 
 
+@dataclass(frozen=True)
+class FwdPlan:
+    """How the forward kernel covers [B, S, Hq] query rows. "wgmma" (bf16,
+    D <= 256) and "tf32x3" (f32, D <= 128: `train_attn_fwd_tf32_kernel`):
+    one CTA a (query head, batch, query tile of 64 rows), a consumer
+    warpgroup and a producer warp, grid (Hq, B, query tiles); "tf32x3"
+    streams key stages of FWD_TF32_KEY_STAGE rows through `stages` ring
+    stages in `smem` bytes of shared memory, `ctas_per_sm` CTAs an SM.
+    "f32_cores" (f32, 128 < D <= 256) and "cores_wide" (D > 256):
+    `train_attn_fwd_cores_kernel`, one warp a query row, F32_ROWS a CTA,
+    grid (row blocks, Hq, B x column slices)."""
+
+    kernel: str
+    grid: tuple[int, int, int]
+    stages: int = 0
+    smem: int = 0
+    ctas_per_sm: int = 0
+
+    @property
+    def ctas(self) -> int:
+        return self.grid[0] * self.grid[1] * self.grid[2]
+
+
+def fwd_tf32_smem(d: int) -> tuple[int, int, int]:
+    """(stages, shared memory bytes, CTAs an SM) of `train_attn_fwd_tf32_kernel`
+    at head dim d <= 128, as csrc/train_attention.cu's FwdTf32 lays it out:
+    the raw Q tile (64 x DT f32), a stage's K and V as hi and lo planes (4 x
+    32 x DT f32), the p slot's hi and lo planes (2 x 64 x 32 f32), the rows'
+    factors (64 f32), the keys' segment ids and the stage's one, the
+    mbarriers, and 1024 bytes of alignment; DT = 64 or 128."""
+    dt, ts = (64 if d <= 64 else 128), FWD_TF32_KEY_STAGE
+    stages, ctas = 2, (2 if dt <= 64 else 1)
+    tile, plane, slot = 64 * dt * 4, ts * dt * 4, 64 * ts * 4
+    seg = tile + 4 * stages * plane + 2 * slot + 64 * 4  # Q, the ring, p, the factors
+    bar = -(-(seg + stages * (ts + 1) * 4) // 8) * 8
+    return stages, bar + (2 * stages + 1) * 8 + 1024, ctas
+
+
+@functools.lru_cache(maxsize=None)
+def fwd_plan(b: int, s: int, hq: int, hkv: int, d: int, dtype=torch.bfloat16) -> FwdPlan:
+    """The forward launch at these shapes: the kernel by dtype and D, and its
+    grid (query tiles launched longest first on the tensor cores). Cached:
+    the wrapper records it on every launch, and a training step launches the
+    forward once a layer."""
+    if d > MAX_HEAD_DIM:
+        return FwdPlan("cores_wide", (-(-s // F32_ROWS), hq, b * -(-d // WIDE_COLS)))
+    if dtype == torch.float32 and d > DKV_WGMMA_MAX_HEAD_DIM:
+        return FwdPlan("f32_cores", (-(-s // F32_ROWS), hq, b))
+    grid = (hq, b, -(-s // FWD_TF32_QUERY_TILE))
+    if dtype == torch.float32:
+        return FwdPlan("tf32x3", grid, *fwd_tf32_smem(d))
+    return FwdPlan("wgmma", grid)
+
+
 def _allowed(s: int, attn_mask: Optional[torch.Tensor], device) -> torch.Tensor:
     """[B or 1, 1, 1, S, S] bool: causal, and the same segment id."""
     pos = torch.arange(s, device=device)
@@ -121,20 +190,25 @@ def _allowed(s: int, attn_mask: Optional[torch.Tensor], device) -> torch.Tensor:
     return allow
 
 
-def flash_train_attention_plain(q, k, v, attn_mask=None) -> torch.Tensor:
+def _scale(d: int, scale: Optional[float]) -> float:
+    return 1.0 / math.sqrt(d) if scale is None else scale
+
+
+def flash_train_attention_plain(q, k, v, attn_mask=None, *, scale=None) -> torch.Tensor:
     """The same function in plain PyTorch, differentiable by autograd: f32
-    scores and softmax over [B, Hkv, rep, S, S]."""
+    scores and softmax over [B, Hkv, rep, S, S]; `scale` defaults to
+    1/sqrt(D) (a padded call passes the real D's)."""
     b, s, hq, d = q.shape
     hkv = k.shape[2]
     qg = q.reshape(b, s, hkv, hq // hkv, d).to(torch.float32)
-    scores = torch.einsum("bshrd,bthd->bhrst", qg, k.to(torch.float32)) * (1.0 / math.sqrt(d))
+    scores = torch.einsum("bshrd,bthd->bhrst", qg, k.to(torch.float32)) * _scale(d, scale)
     scores = torch.where(_allowed(s, attn_mask, q.device), scores, MASK_VALUE)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhrst,bthd->bshrd", probs, v.to(torch.float32))
     return out.reshape(b, s, hq, d).to(q.dtype)
 
 
-def train_attn_bwd_dq_plain(q, k, v, seg, dout, lse, di) -> torch.Tensor:
+def train_attn_bwd_dq_plain(q, k, v, seg, dout, lse, di, *, scale=None) -> torch.Tensor:
     """dq alone, from the dq kernel's inputs, in f32: p = exp(s - lse) where
     allowed (else 0), ds = p (dout . v - di), dq = scale * ds k; seg [B, S]
     (the padding mask) or None, lse [B, Hq, S], di [B, S, Hq]. Returns dq
@@ -142,7 +216,7 @@ def train_attn_bwd_dq_plain(q, k, v, seg, dout, lse, di) -> torch.Tensor:
     b, s, hq, d = q.shape
     hkv = k.shape[2]
     rep = hq // hkv
-    scale = 1.0 / math.sqrt(d)
+    scale = _scale(d, scale)
     k32 = k.to(torch.float32)
     qg = q.reshape(b, s, hkv, rep, d).to(torch.float32)
     dog = dout.reshape(b, s, hkv, rep, d).to(torch.float32)
@@ -177,7 +251,30 @@ def tf32x3_matmul(a: torch.Tensor, b: torch.Tensor, passes: int = 3) -> torch.Te
     return out
 
 
-def train_attn_bwd_tf32x3_emulated(q, k, v, seg, dout, lse, di, passes: int = 3):
+def train_attn_fwd_tf32x3_emulated(q, k, v, seg, passes: int = 3, *, scale=None):
+    """(o [B, S, Hq, D], lse [B, Hq, S]) of the forward with both products
+    taken by `tf32x3_matmul`, as `train_attn_fwd_tf32_kernel` takes them: s
+    = q k^T (q and k split), the softmax in f32 over the allowed keys, o =
+    p v / l (p and v split). f32 results; seg as train_attn_bwd_dq_plain's.
+    The kernel's online softmax rescales its sum once a key stage: the same
+    function, summed in another order."""
+    b, s, hq, d = q.shape
+    hkv = k.shape[2]
+    rep = hq // hkv
+    mm = functools.partial(tf32x3_matmul, passes=passes)
+    heads = lambda x, r: x.to(torch.float32).reshape(b, s, hkv, r, d).permute(0, 2, 3, 1, 4)
+    qg, kg, vg = heads(q, rep), heads(k, 1), heads(v, 1)
+    allowed = _allowed(s, seg, q.device)
+    sc = torch.where(allowed, mm(qg, kg.transpose(-1, -2)) * _scale(d, scale), -torch.inf)
+    m = sc.amax(dim=-1, keepdim=True)
+    p = torch.where(allowed, torch.exp(sc - m), 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    o = mm(p, vg) / l
+    lse = (m + torch.log(l)).reshape(b, hq, s)
+    return o.permute(0, 3, 1, 2, 4).reshape(b, s, hq, d), lse
+
+
+def train_attn_bwd_tf32x3_emulated(q, k, v, seg, dout, lse, di, passes: int = 3, *, scale=None):
     """dq, dk, dv from the backward kernels' inputs (as
     train_attn_bwd_dq_plain) with every product taken by `tf32x3_matmul`,
     as the f32 kernels at D <= 128 take them: s = q k^T, dp = do v^T, p in
@@ -186,7 +283,7 @@ def train_attn_bwd_tf32x3_emulated(q, k, v, seg, dout, lse, di, passes: int = 3)
     b, s, hq, d = q.shape
     hkv = k.shape[2]
     rep = hq // hkv
-    scale = 1.0 / math.sqrt(d)
+    scale = _scale(d, scale)
     mm = functools.partial(tf32x3_matmul, passes=passes)
     heads = lambda x, r: x.to(torch.float32).reshape(b, s, hkv, r, d).permute(0, 2, 3, 1, 4)
     qg, og = heads(q, rep), heads(dout, rep)  # [B, Hkv, rep, S, D]
@@ -219,8 +316,9 @@ def _check(q, k, v, seg) -> None:
     if k.shape != v.shape or k.shape[:2] != (b, s) or k.shape[3] != d or hq % k.shape[2]:
         raise ValueError(f"shapes disagree: q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)}")
-    if d % 16 or d > MAX_HEAD_DIM:
-        raise ValueError(f"the kernels take D a multiple of 16 up to {MAX_HEAD_DIM}, got {d}")
+    if d % KERNEL_HEAD_STEP or d < KERNEL_HEAD_STEP:
+        raise ValueError(f"the kernels take D a multiple of {KERNEL_HEAD_STEP}, got {d} "
+                         f"(flash_train_attention pads it)")
     if q.dtype not in KERNEL_DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"the kernels take q, k, v of one dtype in {KERNEL_DTYPES}")
     if not (_device.on_card(q) and k.device == q.device and v.device == q.device):
@@ -238,13 +336,18 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def train_attn_fwd(q, k, v, seg) -> tuple[torch.Tensor, torch.Tensor]:
-    """Forward kernel: (o [B, S, Hq, D] in q's dtype, lse [B, Hq, S] f32)."""
+def train_attn_fwd(q, k, v, seg, scale=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Forward kernel: (o [B, S, Hq, D] in q's dtype, lse [B, Hq, S] f32), on
+    the kernel of `fwd_plan` (the plan of the last launch stays in
+    `train_attn_fwd.plan`). `scale`: 1/sqrt(D) unless given (the real D's
+    for a padded call)."""
     out = torch.empty_like(q)
     lse = torch.empty((q.shape[0], q.shape[2], q.shape[1]), dtype=torch.float32, device=q.device)
+    dims = _dims(q, k)
+    train_attn_fwd.plan = fwd_plan(*dims, dtype=q.dtype)
     err = _launcher("bd_train_attn_fwd")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(seg), out.data_ptr(), lse.data_ptr(),
-        *_dims(q, k), 1.0 / math.sqrt(q.shape[3]), int(q.dtype == torch.float32),
+        *dims, _scale(dims[4], scale), int(q.dtype == torch.float32),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(err, "bd_train_attn_fwd")
@@ -252,7 +355,8 @@ def train_attn_fwd(q, k, v, seg) -> tuple[torch.Tensor, torch.Tensor]:
     return out, lse
 
 
-def train_attn_bwd_dkv(q, k, v, seg, dout, lse, di) -> tuple[torch.Tensor, torch.Tensor]:
+def train_attn_bwd_dkv(q, k, v, seg, dout, lse, di,
+                       scale=None) -> tuple[torch.Tensor, torch.Tensor]:
     """dk, dv [B, S, Hkv, D], summed over the rep query heads in the kernel
     (on the tensor cores by the cluster of `dkv_plan`, in rank order; the
     plan of the last launch stays in `train_attn_bwd_dkv.plan`)."""
@@ -261,7 +365,7 @@ def train_attn_bwd_dkv(q, k, v, seg, dout, lse, di) -> tuple[torch.Tensor, torch
     err = _launcher("bd_train_attn_dkv")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(seg), dout.data_ptr(), lse.data_ptr(),
         di.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        *_dims(q, k), 1.0 / math.sqrt(q.shape[3]), plan.cluster, int(q.dtype == torch.float32),
+        *_dims(q, k), _scale(q.shape[3], scale), plan.cluster, int(q.dtype == torch.float32),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(err, "bd_train_attn_dkv")
@@ -270,7 +374,7 @@ def train_attn_bwd_dkv(q, k, v, seg, dout, lse, di) -> tuple[torch.Tensor, torch
     return dk, dv
 
 
-def train_attn_bwd_dq(q, k, v, seg, dout, lse, di) -> torch.Tensor:
+def train_attn_bwd_dq(q, k, v, seg, dout, lse, di, scale=None) -> torch.Tensor:
     """dq [B, S, Hq, D] (on the tensor cores one CTA a (query head, batch,
     64-row query tile) owns its rows, so the result is the same bits on every
     run)."""
@@ -278,7 +382,7 @@ def train_attn_bwd_dq(q, k, v, seg, dout, lse, di) -> torch.Tensor:
     err = _launcher("bd_train_attn_dq")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(seg), dout.data_ptr(), lse.data_ptr(),
         di.data_ptr(), dq.data_ptr(),
-        *_dims(q, k), 1.0 / math.sqrt(q.shape[3]), int(q.dtype == torch.float32),
+        *_dims(q, k), _scale(q.shape[3], scale), int(q.dtype == torch.float32),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(err, "bd_train_attn_dq")
@@ -287,6 +391,7 @@ def train_attn_bwd_dq(q, k, v, seg, dout, lse, di) -> torch.Tensor:
 
 
 train_attn_fwd.launches = 0
+train_attn_fwd.plan = None  # the FwdPlan of the last launch
 train_attn_bwd_dkv.launches = 0
 train_attn_bwd_dkv.plan = None  # the DkvPlan of the last launch
 train_attn_bwd_dq.launches = 0
@@ -294,12 +399,14 @@ train_attn_bwd_dq.launches = 0
 
 class TrainAttention(torch.autograd.Function):
     """The kernels as an autograd Function: forward saves q, k, v, the
-    segment ids, o and the log-sum-exp; backward launches dkv and dq."""
+    segment ids, o and the log-sum-exp; backward launches dkv and dq, all
+    three at `scale`."""
 
     @staticmethod
-    def forward(ctx, q, k, v, seg):
-        out, lse = train_attn_fwd(q, k, v, seg)
+    def forward(ctx, q, k, v, seg, scale):
+        out, lse = train_attn_fwd(q, k, v, seg, scale)
         ctx.save_for_backward(q, k, v, seg, out, lse)
+        ctx.scale = scale
         return out
 
     @staticmethod
@@ -307,20 +414,34 @@ class TrainAttention(torch.autograd.Function):
         q, k, v, seg, out, lse = ctx.saved_tensors
         dout = dout.contiguous()
         di = (out.to(torch.float32) * dout.to(torch.float32)).sum(dim=-1).contiguous()
-        dk, dv = train_attn_bwd_dkv(q, k, v, seg, dout, lse, di)
-        dq = train_attn_bwd_dq(q, k, v, seg, dout, lse, di)
-        return dq, dk, dv, None
+        dk, dv = train_attn_bwd_dkv(q, k, v, seg, dout, lse, di, ctx.scale)
+        dq = train_attn_bwd_dq(q, k, v, seg, dout, lse, di, ctx.scale)
+        return dq, dk, dv, None, None
+
+
+def padded_head_dim(d: int) -> int:
+    """D rounded up to a multiple of KERNEL_HEAD_STEP: the width the kernels
+    (and, on the CPU, the plain version) run at."""
+    return -(-d // KERNEL_HEAD_STEP) * KERNEL_HEAD_STEP
 
 
 def flash_train_attention(q, k, v, attn_mask=None) -> torch.Tensor:
     """q [B, S, Hq, D], k, v [B, S, Hkv, D], attn_mask [B, S] (1 = real) or
     None -> [B, S, Hq, D]. CPU tensors: the plain version; CUDA tensors: the
-    kernels (any S; D a multiple of 16 up to 256; bf16 or f32)."""
+    kernels (any S and D; bf16 or f32). A D that is not a multiple of 16 is
+    padded with zero columns (which add nothing to a score and give zero
+    output columns) and scaled by the real D, on both routes."""
+    d = q.shape[3]
+    scale, dp = 1.0 / math.sqrt(d), padded_head_dim(d)
+    if dp != d:
+        q, k, v = (torch.nn.functional.pad(t, (0, dp - d)) for t in (q, k, v))
     if not _device.on_card(q):
         if q.device.type != "cpu":
             raise ValueError(f"no training attention for device {q.device}")
-        return flash_train_attention_plain(q, k, v, attn_mask)
-    seg = None if attn_mask is None else attn_mask.to(torch.int32).contiguous()
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    _check(q, k, v, seg)
-    return TrainAttention.apply(q, k, v, seg)
+        out = flash_train_attention_plain(q, k, v, attn_mask, scale=scale)
+    else:
+        seg = None if attn_mask is None else attn_mask.to(torch.int32).contiguous()
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        _check(q, k, v, seg)
+        out = TrainAttention.apply(q, k, v, seg, scale)
+    return out if dp == d else out[..., :d]

@@ -93,7 +93,7 @@ FD_STAGES = "constexpr int FD_STAGES = 4;"
 FD_EPL = "static constexpr int EPL_REP = REP == 1 ? 16 :"
 FD_LOADS = "    if (jr < runs) {\n      uint8_t* sl = ring + (jr % FD_STAGES) * P::SLOT;\n"
 FD_LOOP = "  for (int jr = 0; jr < runs; ++jr) {\n"
-FD_BOUNDS = "__launch_bounds__(kThreads, REP == 8 ? 1 : 2)"
+FD_BOUNDS = "__launch_bounds__(kThreads, REP == 8 || D > 256 ? 1 : 2)"
 
 
 def variants(src: str) -> dict[str, str]:

@@ -79,7 +79,7 @@ def _demangle(names: list[str], tools: Path) -> dict[str, str]:
         return {n: n for n in names}
     # drop the anonymous namespace, the casts of template arguments and the
     # parameter list: "train_attn_fwd_kernel<64>", "train_attn_dkv_wide_kernel"
-    return {n: re.sub(r"^.*?::(?=\w+(?:<|\())|\(.*$", "", p.replace("(int)", ""))
+    return {n: re.sub(r"^.*?::(?=\w+(?:<|\())|\(.*$", "", re.sub(r"\((?:int|bool)\)", "", p))
             for n, p in zip(names, plain)}
 
 

@@ -24,10 +24,16 @@ case's shapes, with the dkv plan), `train` (run_training at the full width and d
 TinyLlama-1.1B: int2-asym STE at g64, CAKLD, 2 x 1024 tokens a micro-step,
 grad_accum 2, two optimizer cycles, student and teacher through B8) and
 `serve_trained` (the trained student packed at int2-g64 and served through
-the Engine on B1/B2/B3). Beside the build, scripts/kernel_sass.py reads
-what ptxas made of csrc/train_attention.cu; the `sass` phase prints it and
-fails unless every bf16 B8 kernel issues HGMMA, holds no HMMA (mma.sync)
-and spills nothing.
+the Engine on B1/B2/B3). Between c1 and train_attention, `c6` runs the shapes
+the JAX package computes and earlier slices refused: the decode attention
+at any GQA rep and head dim (Falcon-7B's 71 heads over 1, rep 3, 5, 7, D =
+72, 80, 96, 320), the packed matmuls and fused MLP at Falcon-7B's K = 4544
+(64 mod 128) at g64 and g32, B8 at D = 72, 80, 300, 320, and a 2-layer model
+at Falcon-7B's widths through the Engine, each through its kernel. Beside
+the build, scripts/kernel_sass.py reads what ptxas made of
+csrc/train_attention.cu; the `sass` phase prints it and fails unless every
+B8 tensor-core kernel (bf16, and the 3xTF32 forward, dkv and dq) issues
+HGMMA, holds no HMMA (mma.sync) and spills nothing.
 Phases print one line each; any failure exits non-zero before the last
 line. The second-to-last line is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
@@ -68,6 +74,10 @@ Tolerances (kernel vs plain version on the same inputs):
     per-channel, M = 8 and 256; the fused MLP within MLP_TOL (f32 x: its
     group sums of the unrounded x, as the plain version); decode attention
     at D = 256 and with f32 q within ATTN_TOL;
+  * C6: the packed matmuls exact on integers (A16, A8 on pair-layout and
+    repacked words), the fused MLP within MLP_TOL, the decode attention
+    within ATTN_TOL (two calls equal), B8 as below, the 2-layer model's
+    logits within LOGIT_TOL;
   * B8 in bf16: the output and each of dq, dk, dv within 2e-2 of the
     plain version's max (p and ds enter their products rounded to bf16, the
     plain version keeps f32; pad rows compared under the mask); in f32 within
@@ -376,7 +386,7 @@ def check_a8(gen, record):
     return worst
 
 
-def time_matmuls(gen, m, bw, detail, group=GROUP):
+def time_matmuls(gen, m, bw, detail, group=GROUP, shapes=SHAPES):
     """One layer's four packed matmuls at M rows, int2 at `group` (128 for the
     table's rows). The kernel is
     timed through its raw ctypes launcher (a few us of host time a call, so
@@ -387,13 +397,14 @@ def time_matmuls(gen, m, bw, detail, group=GROUP):
     bf16 weight) run on layer 0. Up to 32 rows the raw call is the streaming
     decode kernel on `a16_decode_plan`'s cluster and columns a warp; above,
     the prefill kernels' (the x group sums, then the wgmma kernel) at the
-    tile the wrapper chooses."""
+    tile the wrapper chooses. `shapes`: {name: (K, N)}, the 7B's four unless
+    given."""
     tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0, flops=0.0)
     prefill = m > qm.DECODE_MAX_M
     fn = qm._launcher("bd_qmm_prefill" if prefill else "bd_qmm_decode")
     stream = torch.cuda.current_stream().cuda_stream
     plain_iters, plain_reps = (1, 2) if m >= PREFILL_M else (3, 3)
-    for name, (k, n) in SHAPES.items():
+    for name, (k, n) in shapes.items():
         layer_bytes = k * n * BITS / 8 + (k // group) * n * 4
         layers = max(2, math.ceil(120e6 / layer_bytes))
         p = rand_stacked(gen, layers, k, n, BITS, integer=False, group=group)
@@ -403,7 +414,7 @@ def time_matmuls(gen, m, bw, detail, group=GROUP):
             xsum = qm.group_sums_scratch(m, k, torch.float32, DEV, group)
             extra, plan = (None, xsum.data_ptr()), (qm._tile_m(x, n),)
         else:
-            extra, plan = (), qm.a16_decode_plan(n, k // qm.KERNEL_STEP, qm._sm_count(0))
+            extra, plan = (), qm.a16_decode_plan(n, qm.kernel_steps(k), qm._sm_count(0))
         args = [(x.data_ptr(), p.qweight[i].data_ptr(), p.combo[i].data_ptr(), None, *extra,
                  out.data_ptr(), m, k, n, BITS, group, *plan, 0, stream) for i in range(layers)]
         _build.check(fn(*args[0]), "raw launch")
@@ -476,7 +487,7 @@ def time_attention(gen, bw, detail, per_layer: bool, starts=TABLE_STARTS):
     return rec
 
 
-def time_a8(gen, m, detail, group=GROUP):
+def time_a8(gen, m, detail, group=GROUP, shapes=SHAPES):
     """B4: one layer's four A8 matmuls at M rows, int2 at `group` repacked, as
     `time_matmuls` times B1/B2 (raw launcher over >100 MB of stacked layers;
     the wrapper; the plain version and torch.matmul on a dequantized bf16
@@ -484,13 +495,14 @@ def time_a8(gen, m, detail, group=GROUP):
     group column); operations are int8 at 1,979 TOP/s. Up to 32 rows the
     call is the quantize kernel and the streaming decode kernel on
     `decode_plan`'s clusters (two launches chained by PDL); above, the
-    prefill kernels (quantize, xi group sums, s8 wgmma)."""
+    prefill kernels (quantize, xi group sums, s8 wgmma). `shapes` as
+    time_matmuls'."""
     tot = dict(ms=0.0, wrapper_ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0, flops=0.0)
     fn = qm._a8_launcher()
     stream = torch.cuda.current_stream().cuda_stream
     prefill = m > qm.DECODE_MAX_M
     plain_iters, plain_reps = (1, 2) if m >= PREFILL_M else (3, 3)
-    for name, (k, n) in SHAPES.items():
+    for name, (k, n) in shapes.items():
         layer_bytes = k * n * BITS / 8 + (k // group) * n * 8
         layers = max(2, math.ceil(120e6 / layer_bytes))
         pair = rand_stacked(gen, layers, k, n, BITS, integer=False, group=group)
@@ -500,7 +512,7 @@ def time_a8(gen, m, detail, group=GROUP):
         sx = torch.empty((m,), dtype=torch.float32, device=DEV)
         xsum = qm.group_sums_scratch(m, k, torch.int32, DEV, group) if prefill else None
         tile = qm._tile_m(x, n) if prefill else 0
-        cluster = 0 if prefill else qm.decode_plan(n, k // qm.KERNEL_STEP, qm._sm_count(0))
+        cluster = 0 if prefill else qm.decode_plan(n, qm.kernel_steps(k), qm._sm_count(0))
         out = torch.empty((m, n), dtype=torch.bfloat16, device=DEV)
         args = [(x.data_ptr(), p.qweight[i].data_ptr(), p.scales[i].data_ptr(),
                  p.szeros[i].data_ptr(), None, None, xi.data_ptr(), sx.data_ptr(),
@@ -962,6 +974,291 @@ def check_c1(gen, record):
     return len(record)
 
 
+# ---- C6: the shapes the JAX package computes and earlier slices refused ------------
+
+# Falcon-7B's widths (FALCON_7B in the JAX package's config): hidden 4544 (K = 64
+# mod 128), 71 query heads over 1 kv head of D = 64, FFN 4 x 4544
+FALCON = dict(hidden=4544, heads=71, kv_heads=1, ffn=18176)
+C6_ATTN = [  # name: (B, Hq, Hkv, T, D, cache)
+    ("falcon7b", 8, 71, 1, 2048, 64, "bf16"), ("falcon7b_int8", 8, 71, 1, 2048, 64, "int8"),
+    ("rep3", 8, 24, 8, 2048, 128, "bf16"),  # Llama-3.2-3B's heads
+    ("rep5", 8, 40, 8, 2048, 128, "bf16"),
+    ("rep7", 8, 56, 8, 2048, 128, "bf16"),  # Yi-34B's heads
+    ("d72", 8, 32, 8, 2048, 72, "bf16"), ("d72_int8", 8, 32, 8, 2048, 72, "int8"),  # by element
+    ("d80", 8, 32, 8, 2048, 80, "bf16"), ("d96", 8, 32, 8, 2048, 96, "bf16"),
+    ("d320", 8, 32, 8, 2048, 320, "bf16"),
+    ("rep8_d128", 8, 32, 4, 2048, 128, "bf16"),  # control: an instance of its own
+]
+C6_MATMULS = {  # name: (K, N) of Falcon-7B's projections; down (K = FFN) is the control
+    "qkv": (4544, 4672), "dense": (4544, 4544), "gate_up": (4544, 2 * 18176),
+    "down": (18176, 4544),
+}
+C6_GROUPS = (64, 32)
+C6_TA = {  # name: (B, S, Hq, Hkv, D, padded row length or None)
+    "d72": (1, 600, 8, 2, 72, 500), "d80": (1, 600, 8, 2, 80, 500),
+    "d300": (1, 600, 8, 2, 300, 500), "d320": (1, 600, 8, 2, 320, 500),
+}
+C6_LAYERS = 2  # the whole-model check's depth (full width)
+
+
+def _attn_row(gen, b, hq, hkv, t, d, kv):
+    """One C6 attention case on the table's long skewed starts: the kernel
+    against its plain version (two calls equal), its time through the raw
+    launcher on layers 0 and 1 in turn (as `time_attention`; `wrapper_ms`
+    the entry point), the plain version's, SDPA's (bf16 cache) and the byte
+    bound."""
+    starts = TABLE_STARTS[:b]
+    q, ck, cv, kn, vn, st, ks, vs = attn_inputs(gen, b, hq, hkv, t, d, kv, starts)
+    run = lambda i: da.flash_decode_stacked(q, ck, cv, i % 2, kn, vn, st, k_scale=ks,
+                                            v_scale=vs)
+    reset_counts()
+    got = run(1)
+    counts = read_counts()
+    want = da.decode_attention_plain(q, ck, cv, 1, kn, vn, st, k_scale=ks, v_scale=vs)
+    err = (got.float() - want.float()).abs().max().item()
+    ok = counts["flash_decode"] == 1 and torch.equal(got, run(1)) and err <= ATTN_TOL
+    rep, fn = hq // hkv, da._launcher()
+    out = torch.empty((b, hq, d), dtype=torch.bfloat16, device=DEV)
+    stream = torch.cuda.current_stream().cuda_stream
+    cluster = da.attention_plan(b, hkv * da.head_tiles(rep, d), qm._sm_count(0))
+    ptr = lambda a, i: None if a is None else a[i].data_ptr()
+    args = [(q.data_ptr(), ck[i].data_ptr(), cv[i].data_ptr(), ptr(ks, i), ptr(vs, i),
+             kn.data_ptr(), vn.data_ptr(), st.data_ptr(), out.data_ptr(), int(kv == "int8"), b,
+             hkv, rep, t, d, t, 0, 1.0 / math.sqrt(d), cluster, 0, stream) for i in range(2)]
+    _build.check(fn(*args[0]), "raw launch")
+    ms = cuda_ms(lambda i: fn(*args[i % 2]), 50)
+    wrapper = cuda_ms(run, 50)
+    plain = cuda_ms(lambda i: da.decode_attention_plain(q, ck, cv, 1, kn, vn, st, k_scale=ks,
+                                                        v_scale=vs), 3, reps=3)
+    lib = None
+    if kv == "bf16":
+        mask = (torch.arange(t, device=DEV)[None, :] < st[:, None])[:, None, None, :]
+        qs = q.transpose(1, 2)
+        lib = cuda_ms(lambda i: torch.nn.functional.scaled_dot_product_attention(
+            qs, ck[1], cv[1], attn_mask=mask, enable_gqa=True), 20)
+    rows, elt = sum(starts), (1 if kv == "int8" else 2)
+    row_bytes = d * elt + (4 if kv == "int8" else 0)  # + its f32 scale
+    nbytes = 2 * rows * hkv * row_bytes + 4 * b * hq * d + 4 * b * hkv * d
+    bnd, by = bound_ms(nbytes, 4.0 * rows * hq * d)
+    return ok, dict(b=b, hq=hq, hkv=hkv, t=t, d=d, kv=kv, tile=da.decode_tile(rep, d),
+                    cluster=cluster, rows=rows, max_abs_err=err,
+                    launches=counts["flash_decode"], ms=ms, wrapper_ms=wrapper, plain_ms=plain,
+                    library_ms=lib, bound_ms=bnd, bound_by=by)
+
+
+def _mm_case(gen, k, n, group, m, a8):
+    """One C6 packed matmul (layer 1 of a 2-layer stack, integer inputs)
+    against its plain version, exact: A16 through quant_matmul, or A8 on
+    pair-layout and repacked words; returns (ok, launches of its kernel)."""
+    p = rand_stacked(gen, 2, k, n, BITS, integer=True, group=group)
+    x = _ints(gen, m, k, torch.bfloat16, top=127.0 if a8 else None)
+    ok, launches = True, 0
+    for w in ((p, qm.repack_linear_a8(p)) if a8 else (p,)):
+        reset_counts()
+        got = (qm.quant_matmul_a8 if a8 else qm.quant_matmul)(x, w, 1)
+        counts = read_counts()
+        key = "qmm_a8" if a8 else ("qmm_decode" if m <= qm.DECODE_MAX_M else "qmm_prefill")
+        lay = w.layer(1)
+        if a8:
+            want = by_rows(lambda xr: qm.quant_matmul_a8_plain(
+                xr, lay.qweight, lay.scales, lay.szeros, BITS, group, w.a8_order), x, 32)
+        else:
+            want = by_rows(lambda xr: plain_matmul(xr, p, 1), x, 32)
+        ok = ok and counts[key] == 1 and torch.equal(got, want)
+        launches += counts[key]
+    return ok, launches
+
+
+def _c6_model(out):
+    """A Llama-family model at Falcon-7B's widths (hidden 4544, 71 heads over
+    1 kv head, FFN 18176; C6_LAYERS layers: full width, reduced depth),
+    int2-g64, random weights from seed 0, through the Engine with 8 slots:
+    every prefill and decode matmul at K = 4544 (a half last step) and the
+    decode attention at rep 71 through the kernels (counts reset just
+    before, read just after), then one decode step's logits from the kernels
+    against the plain path, within LOGIT_TOL."""
+    cfg = dataclasses.replace(LLAMA2_7B, hidden_size=FALCON["hidden"],
+                              intermediate_size=FALCON["ffn"], num_heads=FALCON["heads"],
+                              num_kv_heads=FALCON["kv_heads"], num_layers=C6_LAYERS)
+    params = random_packed_params(cfg, bits=BITS, group_size=64, seed=0, device=DEV)
+    eng = Engine(params, cfg, max_slots=8, max_len=1024, eos_token_id=None,
+                 sampling=SamplingParams(temperature=0.0), device=DEV)
+    rng = np.random.default_rng(0)
+    reqs = [Request(prompt_tokens=rng.integers(3, cfg.vocab_size, n).tolist(), max_new_tokens=16)
+            for n in REQ_LENS[:8]]
+    torch.cuda.synchronize()
+    reset_counts()
+    eng.run(reqs)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    L = cfg.num_layers
+    if not all(r.finished and len(r.output_tokens) == 16 for r in reqs):
+        raise AssertionError("C6 model: not every request finished with 16 tokens")
+    steps = eng.decode_steps
+    if (counts["flash_decode"] < steps * L or counts["qmm_decode"] < steps * L * 4
+            or counts["qmm_prefill"] < 4 * L * eng.prefills or eng.prefills < 1):
+        raise AssertionError(f"C6 model: decode/prefill did not run through the kernels: {counts}")
+    pos = torch.as_tensor(np.minimum(eng.lengths, 1000), dtype=torch.int32, device=DEV)
+    tok = torch.randint(3, cfg.vocab_size, (8, 1), device=DEV)
+    ref_params = dict(params, layers=dict(params["layers"]))
+    for name, leaf in params["layers"].items():
+        if isinstance(leaf, PackedLinear):
+            s, sz = scales_from_combo(leaf.combo)
+            ref_params["layers"][name] = dataclasses.replace(leaf, scales=s, szeros=sz)
+    with torch.inference_mode():
+        lk, _ = forward(params, cfg, tok, cache=eng.cache, cache_pos=pos)
+        lp, _ = forward(ref_params, cfg, tok, cache=eng.cache, cache_pos=pos, use_kernels=False)
+    err, ref = (lk - lp).abs().max().item(), lp.abs().max().item()
+    out.update(layers=L, depth_of=32, prefills=eng.prefills, decode_steps=steps,
+               launches=counts, logit_max_abs_err=err, logit_max=ref,
+               argmax_agreement=(lk.argmax(-1) == lp.argmax(-1)).float().mean().item())
+    if not torch.isfinite(lk).all() or not err <= LOGIT_TOL * ref:  # NaN fails too
+        raise AssertionError(f"C6 model: logits disagree with the plain path ({err} of {ref})")
+    del eng, params, ref_params
+
+
+def c6_phase(gen, bw, rec):
+    """The shapes C6 repaired, each through its kernel (launch counters) and
+    against its plain version on the card, with times beside the bounds:
+    B3 at Falcon-7B's heads (rep 71, D = 64; bf16 and int8 caches), rep 3, 5
+    and 7 at D = 128, D = 72 (bf16, and int8 by element), 80, 96 and 320, and
+    rep 8 at D = 128 as the control; B1/B2 and B4 at Falcon-7B's K = 4544
+    (g64 and g32, M = 8 and 256, qkv, dense and gate_up; down at K = 18176
+    the control), exact on integers; B5 at K = 4544, FFN = 18176; B8 at D =
+    72, 80, 300 and 320, bf16 and f32, forward and the three gradients; then
+    the whole model (`_c6_model`)."""
+    rec["attention"] = {}
+    for name, *case in C6_ATTN:
+        ok, row = _attn_row(gen, *case)
+        rec["attention"][name] = row
+        say(f"c6 attention {name}: tile {row['tile']} err {row['max_abs_err']:.3g}, "
+            f"{row['ms']:.4f} ms (bound {row['bound_ms']:.4f}, plain {row['plain_ms']:.3f}, "
+            f"SDPA {row['library_ms']})")
+        if not ok:
+            raise AssertionError(f"C6 decode attention {name}: {row}")
+    rec["matmul_checks"] = []
+    for group in C6_GROUPS:
+        for name, (k, n) in C6_MATMULS.items():
+            for m in C1_M:
+                for a8 in (False, True):
+                    ok, launches = _mm_case(gen, k, n, group, m, a8)
+                    rec["matmul_checks"].append(dict(shape=name, k=k, n=n, group=group, m=m,
+                                                     a8=a8, launches=launches, ok=ok))
+                    if not ok:
+                        raise AssertionError(f"C6 matmul {name} g{group} M={m} a8={a8}: inexact "
+                                             f"or not through its kernel")
+    rec["matmul_times"] = []  # through the raw launchers, as the table's rows
+    time_matmuls(gen, 8, bw, rec["matmul_times"], group=64, shapes=C6_MATMULS)
+    time_matmuls(gen, 256, bw, rec["matmul_times"], group=64, shapes=C6_MATMULS)
+    time_a8(gen, 8, rec["matmul_times"], group=64, shapes=C6_MATMULS)
+    for t in rec["matmul_times"]:
+        say(f"c6 {t['kernel']} {t['shape']} K={t['k']} N={t['n']} M={t['m']} g64: "
+            f"{t['ms']:.4f} ms (wrapper {t['wrapper_ms']:.4f}, bound {t['bound_ms']:.4f}, "
+            f"plain {t['plain_ms']:.3f}, matmul {t['library_ms']:.4f})")
+    k, f = FALCON["hidden"], FALCON["ffn"]
+    rec["mlp"] = {}
+    for group in C6_GROUPS:
+        g, u, dn = (rand_stacked(gen, 1, a, b, BITS, False, group=group).layer(0)
+                    for a, b in ((k, f), (k, f), (f, k)))
+        for m in (8, 33):
+            x = torch.randn((m, k), device=DEV, generator=gen).bfloat16()
+            reset_counts()
+            got = fm.fused_mlp(x, g, u, dn, block_f=f)
+            counts = read_counts()
+            want = fm.fused_mlp_plain(x, g, u, dn, block_f=f)
+            err = (got.float() - want.float()).abs().max().item()
+            scale = want.float().abs().max().item()
+            row = dict(group=group, m=m, max_abs_err=err / scale, launches=counts["fused_mlp"])
+            if m == 8 and group == 64:
+                stats = (2 * (k // group) * f + (f // group) * k) * 8  # f32 scales, szeros
+                nbytes = (2 * k * f + f * k) * BITS / 8 + stats + 2 * m * k * 2
+                b, by = bound_ms(nbytes, 2.0 * m * 3 * k * f)
+                wg, wu, wd = (dequantize_linear(t, torch.bfloat16) for t in (g, u, dn))
+                row.update(
+                    ms=cuda_ms(lambda i: fm.fused_mlp(x, g, u, dn, block_f=f), 20),
+                    plain_ms=cuda_ms(lambda i: fm.fused_mlp_plain(x, g, u, dn, block_f=f), 1,
+                                     reps=2),
+                    library_ms=cuda_ms(lambda i: torch.matmul(
+                        torch.nn.functional.silu(x @ wg) * (x @ wu), wd), 20),
+                    bound_ms=b, bound_by=by)
+                del wg, wu, wd
+            rec["mlp"][f"g{group}_m{m}"] = row
+            if not (counts["fused_mlp"] == 1 and err <= MLP_TOL * scale):
+                raise AssertionError(f"C6 fused MLP g{group} M={m}: {row}")
+        del g, u, dn
+    say(f"c6 fused MLP K={k} FFN={f}: {rec['mlp']}")
+    rec["train_attention"] = {}
+    for name, (b, s, hq, hkv, d, pad) in C6_TA.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            q, kk, v, do, mask = _ta_inputs(gen, b, s, hq, hkv, d, pad, dtype)
+            reset_counts()
+            got = _ta_run(ta.flash_train_attention, q, kk, v, do, mask)
+            counts = read_counts()
+            want = _ta_run(ta.flash_train_attention_plain, q, kk, v, do, mask)
+            tol = TRAIN_ATTN_TOL_F32 if dtype == torch.float32 else TRAIN_ATTN_TOL
+            errs = {}
+            for tname, g, w in zip(("out", "dq", "dk", "dv"), got, want):
+                g, w = g.float(), w.float()
+                if tname in ("out", "dq"):
+                    keep = mask.bool()[..., None, None]
+                    g, w = g * keep, w * keep
+                errs[tname] = (g - w).abs().max().item() / w.abs().max().item()
+            launched = [counts[c] for c in ("train_attn_fwd", "train_attn_bwd_dkv",
+                                            "train_attn_bwd_dq")]
+            dp = ta.padded_head_dim(d)
+            qp, kp, vp, dop = (torch.nn.functional.pad(t, (0, dp - d)) for t in (q, kk, v, do))
+            sc = 1.0 / math.sqrt(d)
+            out, lse = ta.train_attn_fwd(qp, kp, vp, None, sc)
+            di = (out.float() * dop.float()).sum(-1).contiguous()
+            peak = PEAK_TF32X3_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
+            unit = float(b) * hq * s * s * d
+            row = dict(shape=(b, s, hq, hkv, d), padded_d=dp, dtype=str(dtype), rel_err=errs,
+                       launches=launched, fwd_plan=ta.fwd_plan(b, s, hq, hkv, dp, dtype).kernel,
+                       dkv_plan=ta.dkv_plan(b, s, hq, hkv, dp, dtype).kernel,
+                       fwd_ms=cuda_ms(lambda i: ta.train_attn_fwd(qp, kp, vp, None, sc), 5),
+                       dkv_ms=cuda_ms(lambda i: ta.train_attn_bwd_dkv(qp, kp, vp, None, dop, lse,
+                                                                      di, sc), 5),
+                       dq_ms=cuda_ms(lambda i: ta.train_attn_bwd_dq(qp, kp, vp, None, dop, lse,
+                                                                    di, sc), 5),
+                       fwd_bound_ms=2 * unit / peak * 1e3, dkv_bound_ms=4 * unit / peak * 1e3,
+                       dq_bound_ms=3 * unit / peak * 1e3)
+            row["device_ms"] = {kind: device_ms(fn, 5) for kind, fn in (
+                ("fwd", lambda i: ta.train_attn_fwd(qp, kp, vp, None, sc)),
+                ("dkv", lambda i: ta.train_attn_bwd_dkv(qp, kp, vp, None, dop, lse, di, sc)),
+                ("dq", lambda i: ta.train_attn_bwd_dq(qp, kp, vp, None, dop, lse, di, sc)))}
+            # SDPA on the same padded inputs, the real D's scale and the timed calls'
+            # mask (causal, no segments): its forward, and fwd+bwd less fwd
+            qt, kt, vt = (t.transpose(1, 2) for t in (qp, kp, vp))
+            sdpa = lambda a, bb, c: torch.nn.functional.scaled_dot_product_attention(
+                a, bb, c, is_causal=True, enable_gqa=True, scale=sc)
+
+            def lib_fb(i):
+                a, bb, c = (t.detach().requires_grad_(True) for t in (qt, kt, vt))
+                sdpa(a, bb, c).backward(dop.transpose(1, 2))
+
+            row["sdpa_fwd_ms"] = cuda_ms(lambda i: sdpa(qt, kt, vt), 5)
+            row["sdpa_fwd_bwd_ms"] = cuda_ms(lib_fb, 5)
+            row["sdpa_bwd_ms"] = row["sdpa_fwd_bwd_ms"] - row["sdpa_fwd_ms"]
+            rec["train_attention"][f"{name}_{'f32' if dtype == torch.float32 else 'bf16'}"] = row
+            say(f"c6 train attention {name} {dtype}: errs {errs}, plans {row['fwd_plan']}/"
+                f"{row['dkv_plan']}, fwd {row['fwd_ms']:.4f} dkv {row['dkv_ms']:.4f} dq "
+                f"{row['dq_ms']:.4f} ms (bounds {row['fwd_bound_ms']:.4f}, "
+                f"{row['dkv_bound_ms']:.4f}, {row['dq_bound_ms']:.4f}); SDPA fwd "
+                f"{row['sdpa_fwd_ms']:.4f}, bwd {row['sdpa_bwd_ms']:.4f}; device time "
+                f"{row['device_ms']}")
+            if launched != [1, 1, 1] or not all(e <= tol for e in errs.values()):
+                raise AssertionError(f"C6 train attention {name} {dtype}: {row}")
+            del q, kk, v, do, got, want, qp, kp, vp, dop, out, lse, di, qt, kt, vt
+    rec["model"] = {}
+    _c6_model(rec["model"])
+    mo = rec["model"]
+    say(f"c6 model at Falcon-7B's widths, {mo['layers']} of 32 layers, int2-g64: "
+        f"{mo['prefills']} prefills, {mo['decode_steps']} decode steps, launches "
+        f"{ {k: v for k, v in mo['launches'].items() if v} }; one step's logits vs plain "
+        f"{mo['logit_max_abs_err']:.4g} of {mo['logit_max']:.4g}, argmax agreement "
+        f"{mo['argmax_agreement']:.3f}")
+
+
 # ---- B8: the training flash attention --------------------------------------------
 
 TRAIN_ATTN_TOL = 2e-2  # bf16: p and ds enter their products in bf16, the plain version f32
@@ -979,6 +1276,8 @@ TA_CASES = {  # name: (B, S, Hq, Hkv, D, padded row length or None, dtype)
     # Gemma-2B's attention widths (8 query heads over 1 kv head, head_dim 256) at
     # the train phase's 2 x 1024 micro-batch: the wide dkv on clusters of 8
     "d256_mqa": (2, 1024, 8, 1, 256, 900, torch.bfloat16),
+    # the same in f32: the CUDA-core forward, dkv and dq (above D = 128)
+    "d256_f32": (2, 1024, 8, 1, 256, 900, torch.float32),
 }
 
 
@@ -1024,8 +1323,8 @@ def train_attention_phase(gen, record):
     mask: garbage in both), and the dq kernel by itself ("dq_alone") against
     train_attn_bwd_dq_plain and against autograd's dq of the plain version,
     on the kernel forward's lse and di; then its times at TinyLlama's, 7B's
-    and the two D = 256 cases' shapes, and in f32 at the f32 case's and the
-    two models':
+    and the two D = 256 cases' shapes, and in f32 at the f32 case's, the
+    two models' and Gemma-2B's heads (`d256_f32`: the CUDA-core kernels):
     the forward, dkv and dq kernels one by one through their wrappers, the
     plain version's forward and forward+backward, and SDPA
     (scaled_dot_product_attention(is_causal=True, enable_gqa=True), the
@@ -1069,7 +1368,7 @@ def train_attention_phase(gen, record):
         del q, k, v, do, got, want, out, lse, di, dq
     times = {}
     for name in ("tinyllama", "llama2_7b", "d256", "d256_mqa", "f32", "tinyllama_f32",
-                 "llama2_7b_f32"):
+                 "llama2_7b_f32", "d256_f32"):
         b, s, hq, hkv, d, pad, dtype = TA_CASES[name]
         f32 = dtype == torch.float32
         peak = PEAK_TF32X3_FLOPS if f32 else PEAK_BF16_FLOPS
@@ -1357,21 +1656,23 @@ def serve_trained_phase(master, cfg, rec):
     return counts
 
 
-TF32_KERNELS = ("train_attn_dkv_tf32_kernel<64>", "train_attn_dkv_tf32_kernel<128>",
+TF32_KERNELS = ("train_attn_fwd_tf32_kernel<64>", "train_attn_fwd_tf32_kernel<128>",
+                "train_attn_dkv_tf32_kernel<64>", "train_attn_dkv_tf32_kernel<128>",
                 "train_attn_dq_tf32_kernel<64>", "train_attn_dq_tf32_kernel<128>")
 
 
 def sass_phase(rc: int, out: str, err: str) -> dict:
     """What ptxas made of B8's tensor-core kernels, bf16 and the f32
     3xTF32 ones (scripts/kernel_sass.py's rows: registers, spill bytes,
-    HGMMA, wgmma waits, HMMA, local stores and loads; the f32 CUDA-core
-    kernels, `*_f32_kernel`, left out); fails unless each issues HGMMA,
-    holds no HMMA and spills nothing."""
+    HGMMA, wgmma waits, HMMA, local stores and loads; the CUDA-core kernels,
+    `*_cores_kernel`, left out); fails unless each issues
+    HGMMA, holds no HMMA and spills nothing."""
     if rc:
         raise RuntimeError(f"kernel_sass exited {rc}:\n{err[-2000:]}")
     rows = {r["kernel"]: r for r in map(json.loads, out.splitlines())}
     b8 = {k: {f: r.get(f) for f in ("registers", "spill_stores", "hgmma", "wgmma_waits", "hmma")}
-          for k, r in rows.items() if k.startswith("train_attn_") and "_f32_kernel" not in k}
+          for k, r in rows.items()
+          if k.startswith("train_attn_") and "_cores_kernel" not in k}
     for k, r in sorted(b8.items()):
         say(f"sass {k}: {r}")
     bad = [k for k, r in b8.items() if not r["hgmma"] or r["hmma"] or r["spill_stores"]
@@ -1508,6 +1809,10 @@ def main() -> int:
             f"table's work: qmm_decode M=8 {dec64['ms']:.4f} ms, qmm_prefill M=256 "
             f"{pre64['ms']:.4f} ms, qmm_a8 M=8 {a8_64['ms']:.4f} ms")
 
+    with Phase("c6"):
+        summary["c6"] = {}
+        c6_phase(gen, bw, summary["c6"])
+
     with Phase("train_attention"):
         summary["train_attention_checks"] = []
         ta_err, ta_times = train_attention_phase(gen, summary["train_attention_checks"])
@@ -1543,26 +1848,36 @@ def main() -> int:
     a8_pre = totals_entry(a8_pre, bw, PEAK_INT8_OPS)
     a8_pre4k = totals_entry(a8_pre4k, bw, PEAK_INT8_OPS)
     times = lambda t: {k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+    c6 = summary["c6"]
+    c6_model = c6["model"]["launches"]  # this slice's own path: the Falcon-width model
+
+    def c6_mm(kind):  # Falcon-7B's projections at K = 4544 (down: the control), g64
+        return dict({r["shape"]: times(r) for r in c6["matmul_times"] if r["kernel"] == kind},
+                    path_launches=c6_model[kind])
+
     kernels = [
         kernel_entry("qmm_decode", "quant_matmul.cu", "bitdistiller_tpu/ops/quant_matmul.py:152",
                      counts["qmm_decode"], mm_rel, dec,
                      "one layer's qkv+o+gate_up+down, M=8, int2-g128, 7B widths, streaming "
                      "kernel on clusters; max_abs_err relative to max|plain|; launches from the "
                      "A16 engine run",
-                     bound_measured_bw_ms=dec["bound_measured_bw_ms"], g64=times(dec64)),
+                     bound_measured_bw_ms=dec["bound_measured_bw_ms"], g64=times(dec64),
+                     c6=c6_mm("qmm_decode")),
         kernel_entry("qmm_prefill", "quant_matmul.cu", "bitdistiller_tpu/ops/quant_matmul.py:107",
                      counts["qmm_prefill"], mm_rel, pre,
                      "the same four, M=256 (x group sums + wgmma kernel; m4096: the engine's "
                      "first prefill shape); launches from the A16 engine run",
                      bound_measured_bw_ms=pre["bound_measured_bw_ms"], m4096=times(pre4k),
-                     g64=times(pre64)),
+                     g64=times(pre64), c6=c6_mm("qmm_prefill")),
         kernel_entry("flash_decode", "decode_attention.cu",
                      "bitdistiller_tpu/ops/decode_attention.py:106", counts["flash_decode"],
                      at_err["stacked"], att,
                      "B=8, Hq=Hkv=32, T=2048, D=128, bf16 cache, rows split over clusters; the "
                      "table's long skewed starts (8083 rows; path: the steady decode step's "
                      "2130 rows); launches from the A16 engine run",
-                     bound_measured_bw_ms=att["bound_measured_bw_ms"], path=times(att_path)),
+                     bound_measured_bw_ms=att["bound_measured_bw_ms"], path=times(att_path),
+                     c6=dict({name: times(r) for name, r in c6["attention"].items()},
+                             path_launches=c6_model["flash_decode"])),
         kernel_entry("qmm_a8", "quant_matmul_a8.cu", "bitdistiller_tpu/ops/quant_matmul.py:721",
                      counts_a8["qmm_a8"], a8_rel, a8_dec,
                      "one layer's four A8 matmuls (quantization included), M=8, int2-g128 "
@@ -1571,14 +1886,16 @@ def main() -> int:
                      "launches from the A8 engine run (every packed matmul, prefill and decode)",
                      bound_measured_bw_ms=a8_dec["bound_measured_bw_ms"],
                      m256=times(a8_pre), m4096=times(a8_pre4k),
-                     prefill_launches=counts_a8["qmm_a8_prefill"], g64=times(a8_64)),
+                     prefill_launches=counts_a8["qmm_a8_prefill"], g64=times(a8_64),
+                     c6=c6_mm("qmm_a8")),
         kernel_entry("fused_mlp", "fused_mlp.cu", "bitdistiller_tpu/experimental/fused_mlp.py:57",
                      mlp["launches"], mlp["max_abs_err"], mlp,
                      "7B MLP (K=4096, FFN=11008, D=4096), M=8, int2-g128, silu, two launches "
                      "(gate/up, down) chained by PDL; library_ms is "
                      "three calls (matmul, silu*mul, matmul on bf16 weights); launches from its "
                      "path: one decode step's MLP through 32 layers (entry point, no model hook)",
-                     bound_measured_bw_ms=mlp["bytes"] / bw * 1e3),
+                     bound_measured_bw_ms=mlp["bytes"] / bw * 1e3,
+                     c6=times(c6["mlp"]["g64_m8"])),
         kernel_entry("flash_decode_attention", "decode_attention.cu",
                      "bitdistiller_tpu/experimental/flash_decode.py:33",
                      summary["e2e"]["per_layer_launches"], at_err["per_layer"], att1,
@@ -1611,8 +1928,11 @@ def main() -> int:
                "(llama2_7b: B=1, S=2048, Hq=Hkv=32, D=128; d256: B=1, S=1000, Hq=Hkv=16, "
                "D=256; d256_mqa: Gemma-2B's heads, B=2, S=1024, Hq=8, Hkv=1, D=256; dkv "
                "above D=128 by train_attn_dkv_wide_kernel; f32: B=1, S=300, Hq=8, Hkv=2, "
-               "D=64, and tinyllama_f32, llama2_7b_f32 at the two models' shapes in f32, dkv "
-               "and dq by the 3xTF32 kernels, the forward on CUDA cores); max_abs_err is the "
+               "D=64, and tinyllama_f32, llama2_7b_f32 at the two models' shapes in f32, "
+               "forward, dkv and dq by the 3xTF32 kernels; d256_f32: d256_mqa in f32, the "
+               "CUDA-core kernels; c6: D=72, 80, 300, 320 padded to a multiple of 16, above "
+               "D=256 the CUDA-core kernels on 256-column slices; their library_ms is SDPA on "
+               "the same padded inputs at the real D's scale, causal); max_abs_err is the "
                "worst relative error over the forward, the three gradients and dq alone of the "
                "checked cases; device_ms and library_device_ms: the kernel's and SDPA's "
                "device time (profiler); launches from the train phase (4 micro-steps of "
@@ -1620,7 +1940,7 @@ def main() -> int:
     tm = ta_times["d256_mqa"]
     for kind, name, line, plain, lib, cu in (
             ("fwd", "train_attn_fwd", ":758 (_flash_attention_kernel :331)", "plain_fwd_ms",
-             "sdpa_fwd_ms", ("train_attn_fwd_kernel",)),
+             "sdpa_fwd_ms", ("train_attn_fwd_kernel", "train_attn_fwd_tf32_kernel")),
             ("dkv", "train_attn_bwd_dkv", ":1121 (_flash_attention_dkv_kernel :796)",
              "plain_bwd_ms", "sdpa_bwd_ms", ("train_attn_dkv_ws_kernel",
                                               "train_attn_dkv_wide_kernel",
@@ -1639,13 +1959,18 @@ def main() -> int:
             llama2_7b=b8(kind, t7, plain, lib), d256=b8(kind, ta_times["d256"], plain, lib),
             d256_mqa=b8(kind, tm, plain, lib),
             **{c: b8(kind, ta_times[c], plain, lib)
-               for c in ("f32", "tinyllama_f32", "llama2_7b_f32")},
+               for c in ("f32", "tinyllama_f32", "llama2_7b_f32", "d256_f32")},
+            c6={c: dict({key: r[key] for key in (f"{kind}_ms", f"{kind}_bound_ms", "dkv_plan",
+                                                 "fwd_plan", "rel_err", "launches")},
+                        device_ms=r["device_ms"][kind],
+                        library_ms=r["sdpa_fwd_ms" if kind == "fwd" else "sdpa_bwd_ms"])
+                for c, r in summary["c6"]["train_attention"].items()},
             sass={k: r for k, r in b8_sass.items() if k.startswith(cu)},
             **({"plan": tl["dkv_plan"], "llama2_7b_plan": t7["dkv_plan"],
                 "d256_plan": ta_times["d256"]["dkv_plan"], "d256_mqa_plan": tm["dkv_plan"],
                 "d256_kernel": "train_attn_dkv_wide_kernel",
                 **{f"{c}_plan": ta_times[c]["dkv_plan"]
-                   for c in ("f32", "tinyllama_f32", "llama2_7b_f32")}}
+                   for c in ("f32", "tinyllama_f32", "llama2_7b_f32", "d256_f32")}}
                if kind == "dkv" else {})))
     summary["kernels"] = kernels
     OUT_DIR.mkdir(exist_ok=True)

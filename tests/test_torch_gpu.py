@@ -422,3 +422,48 @@ def test_decode_attention_raises_on_a_cluster_the_card_cannot_hold(gen, monkeypa
     with pytest.raises(RuntimeError, match="cudaError"):
         da.flash_decode_stacked(q, ck, ck, 0, kn, kn, start)
     assert da.flash_decode_stacked.launches == before
+
+
+# ---- C6: the decode attention at any GQA rep and head dim -------------------------
+
+
+@pytest.mark.parametrize("qdtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+@pytest.mark.parametrize("b,hq,hkv,d,window", [
+    (8, 71, 1, 64, None),   # Falcon-7B's heads: 36 head tiles of 2
+    (3, 24, 8, 128, None),  # rep 3 (Llama-3.2-3B): tiles of 2, one head masked
+    (3, 10, 2, 128, 9),     # rep 5, a window
+    (3, 56, 8, 128, None),  # rep 7 (Yi-34B)
+    (3, 16, 4, 72, None),   # D = 72: int8 rows of 72 bytes copied by element
+    (3, 16, 4, 80, None),   # D = 80 on the width 128
+    (3, 16, 4, 96, 9),
+    (3, 16, 4, 320, None),  # D = 320: tiles of 2 at the width 512
+    (3, 6, 6, 40, None),    # rep 1, D = 40
+    (3, 12, 4, 100, None),  # D = 100: bf16 rows of 200 bytes (and int8 of 100) by element
+])
+def test_decode_attention_general_route_matches_plain(gen, b, hq, hkv, d, window, kv, qdtype):
+    t, layers = 300, 2
+    q = torch.randn((b, 1, hq, d), device="cuda", generator=gen).to(qdtype)
+    kn = torch.randn((b, 1, hkv, d), device="cuda", generator=gen).to(qdtype)
+    vn = torch.randn((b, 1, hkv, d), device="cuda", generator=gen).to(qdtype)
+    shape = (layers, b, hkv, t, d)
+    if kv == "int8":
+        ck = torch.randint(-127, 128, shape, dtype=torch.int8, device="cuda", generator=gen)
+        cv = torch.randint(-127, 128, shape, dtype=torch.int8, device="cuda", generator=gen)
+        ks = torch.rand(shape[:-1], device="cuda", generator=gen) * 0.02
+        vs = torch.rand(shape[:-1], device="cuda", generator=gen) * 0.02
+    else:
+        ck = torch.randn(shape, device="cuda", generator=gen).bfloat16()
+        cv = torch.randn(shape, device="cuda", generator=gen).bfloat16()
+        ks = vs = None
+    start = torch.tensor([0, 17, 299, 150, 64, 3, 250, 100][:b], dtype=torch.int32,
+                         device="cuda")
+    kw = dict(k_scale=ks, v_scale=vs, window=window)
+    before = da.flash_decode_stacked.launches
+    got = da.flash_decode_stacked(q, ck, cv, 1, kn, vn, start, **kw)
+    assert da.flash_decode_stacked.launches == before + 1
+    assert da.decode_tile(hq // hkv, d) is not None  # the general route
+    want = da.decode_attention_plain(q, ck, cv, 1, kn, vn, start, **kw)
+    assert got.dtype == qdtype
+    assert (got.float() - want.float()).abs().max().item() <= 2e-2
+    assert torch.equal(got, da.flash_decode_stacked(q, ck, cv, 1, kn, vn, start, **kw))

@@ -350,3 +350,97 @@ def test_decode_attention_kernel_at_d256_and_f32_q(gen, hq, hkv, d, qdtype, kv):
     assert da.flash_decode_stacked.launches == before + 1
     assert got.dtype == qdtype
     assert (got.float() - want.float()).abs().max().item() <= 2e-2
+
+
+# ---- the 3xTF32 forward and the C6 shapes ----------------------------------------
+
+
+@pytest.mark.parametrize("b,s,hq,hkv,d,pad_to", [
+    (1, 300, 8, 2, 64, 250),      # chip_smoke.py's `f32` case
+    (2, 1024, 32, 4, 64, 900),    # TinyLlama's attention in f32
+    (1, 2048, 32, 32, 128, None),  # Llama-2-7B's attention in f32
+    (1, 200, 4, 2, 16, 150),      # D = 16, padded
+    (2, 129, 8, 1, 48, 100),      # D = 48, MQA rep 8, padded
+    (1, 333, 4, 4, 128, 300),     # D = 128, padded
+])
+def test_train_attention_f32_forward_kernel_matches_plain(gen, b, s, hq, hkv, d, pad_to):
+    """The f32 forward on the 3xTF32 kernel: o and lse against the plain
+    version (lse from the plain scores), and two calls bit for bit."""
+    q, k, v, _, mask = _attention_case(gen, b, s, hq, hkv, d, torch.float32, pad_to)
+    seg = None if mask is None else mask.contiguous()
+    before = ta.train_attn_fwd.launches
+    out, lse = ta.train_attn_fwd(q, k, v, seg)
+    assert ta.train_attn_fwd.launches == before + 1
+    assert ta.train_attn_fwd.plan.kernel == "tf32x3"
+    want = ta.flash_train_attention_plain(q, k, v, mask)
+    assert _rel(out, want, mask) < 1e-4
+    qg = q.reshape(b, s, hkv, hq // hkv, d)
+    scores = torch.einsum("bshrd,bthd->bhrst", qg, k) / d ** 0.5
+    scores = torch.where(ta._allowed(s, mask, "cuda"), scores, ta.MASK_VALUE)
+    want_lse = torch.logsumexp(scores, -1).reshape(b, hq, s)
+    keep = torch.ones((b, s), device="cuda") if mask is None else mask.float()
+    assert ((lse - want_lse).abs() * keep[:, None, :]).max().item() < 1e-4
+    out2, lse2 = ta.train_attn_fwd(q, k, v, seg)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [72, 80, 300, 320])
+def test_train_attention_any_head_dim_matches_plain(gen, d, dtype):
+    """C6: D not a multiple of 16 (72, 300) padded by the wrapper at the real
+    D's scale; above D = 256 (300, 320) the CUDA-core kernels on column
+    slices; forward and the three gradients, each kernel launched once."""
+    q, k, v, do, mask = _attention_case(gen, 1, 300, 8, 2, d, dtype, pad_to=250)
+    launches = (ta.train_attn_fwd.launches, ta.train_attn_bwd_dkv.launches,
+                ta.train_attn_bwd_dq.launches)
+    got = _fwd_bwd(ta.flash_train_attention, q, k, v, do, mask)
+    assert (ta.train_attn_fwd.launches, ta.train_attn_bwd_dkv.launches,
+            ta.train_attn_bwd_dq.launches) == tuple(n + 1 for n in launches)
+    dp = ta.padded_head_dim(d)
+    assert ta.train_attn_bwd_dkv.plan == ta.dkv_plan(1, 300, 8, 2, dp, dtype)
+    want = _fwd_bwd(ta.flash_train_attention_plain, q, k, v, do, mask)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    assert all(g.shape == w.shape for g, w in zip(got, want))
+    assert _rel(got[0], want[0], mask) < tol
+    assert _rel(got[1], want[1], mask) < tol
+    assert _rel(got[2], want[2]) < tol
+    assert _rel(got[3], want[3]) < tol
+
+
+@pytest.mark.parametrize("a8", [False, True])
+@pytest.mark.parametrize("m,tile", [(8, None), (17, None), (100, 64), (256, 128)])
+@pytest.mark.parametrize("group", [64, 32])
+def test_packed_kernels_exact_at_k_64_mod_128(gen, monkeypatch, group, m, tile, a8):
+    """C6: K = 4544 (Falcon-7B's hidden size, 64 mod 128): the half last
+    step, A16 and A8 (pair-layout and repacked words), exact on integers."""
+    _tile(monkeypatch, tile)
+    k, n = 4544, 320
+    p = _packed_g(gen, k, n, 2, group)
+    for w in ((p, qm.repack_linear_a8(p)) if a8 else (p,)):
+        x = _xints(gen, m, k, torch.bfloat16, top=127.0 if a8 else None)
+        before = (qm.qmm_a8.launches, qm.qmm_decode.launches + qm.qmm_prefill.launches)
+        got = (qm.quant_matmul_a8 if a8 else qm.quant_matmul)(x, w, 1)
+        lay = w.layer(1)
+        if a8:
+            want = qm.quant_matmul_a8_plain(x, lay.qweight, lay.scales, lay.szeros, 2, group,
+                                            w.a8_order)
+            assert qm.qmm_a8.launches == before[0] + 1
+        else:
+            want = qm.quant_matmul_plain(x, lay.qweight, lay.scales, lay.szeros, 2, group)
+            assert qm.qmm_decode.launches + qm.qmm_prefill.launches == before[1] + 1
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("m", [8, 40])
+@pytest.mark.parametrize("group", [64, 32])
+def test_fused_mlp_kernel_at_k_64_mod_128(gen, group, m):
+    k, f = 4544, 512
+    g = _packed_g(gen, k, f, 2, group, layers=1, integer=False).layer(0)
+    u = _packed_g(gen, k, f, 2, group, layers=1, integer=False).layer(0)
+    d = _packed_g(gen, f, 320, 2, group, layers=1, integer=False).layer(0)
+    x = torch.randn((m, k), device="cuda", generator=gen).bfloat16()
+    before = fused_mlp.launches
+    got = fused_mlp(x, g, u, d, "silu", block_f=f)
+    assert fused_mlp.launches == before + 1
+    want = fused_mlp_plain(x, g, u, d, "silu", block_f=f)
+    assert (got.float() - want.float()).abs().max().item() <= 1e-2 * want.float().abs().max().item()
