@@ -5,7 +5,8 @@
 // descriptors of a 128-byte-swizzled K-major tile and of an MN-major
 // (transposed) one, warpgroup MMA (wgmma) at the widths and operand sources
 // the kernels use (bf16, s8, and tf32 with the hi/lo split of 3xTF32),
-// named and cluster barriers. Inline code only; including it adds no symbol.
+// named and cluster barriers, and mbarrier arrivals and waits across the
+// CTAs of a cluster. Inline code only; including it adds no symbol.
 // The tensor-map encoder, cuTensorMapEncodeTiled, is looked up at run time
 // through the CUDA runtime, so nothing links libcuda.
 //
@@ -525,6 +526,36 @@ __device__ __forceinline__ void named_arrive(int id, int threads) {
 // memory written before is visible to the cluster's threads after.
 __device__ __forceinline__ void cluster_barrier() {
   asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// ---- distributed shared memory: mbarriers between the CTAs of a cluster ------
+
+// One arrival on the mbarrier at bar's offset in CTA `rank` of the cluster,
+// releasing this thread's earlier memory accesses (its stores into that
+// CTA's shared memory among them) at cluster scope.
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar, uint32_t rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(smem_u32(bar)),
+               "r"(rank));
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(remote)
+               : "memory");
+}
+
+// mbar_wait with acquire at cluster scope: what the arrivals of another CTA
+// released is visible after it. Traps as mbar_wait does.
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  for (uint32_t polls = 0;; ++polls) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (polls > (1u << 30)) __trap();
+  }
 }
 
 }  // namespace bd

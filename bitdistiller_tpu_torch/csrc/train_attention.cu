@@ -77,11 +77,13 @@
 // f32 (JAX's compute dtype float32, `--dtype float32`): the forward, dkv
 // and dq at D <= 128 are 3xTF32 wgmma kernels fed by a TMA ring (see their
 // section: every A from registers, the products over rows taken
-// transposed), bound by operations at 495 / 3 = 165 TFLOP/s; above D = 128
-// they run on CUDA cores (one warp a row), and so do both dtypes above
-// D = 256: the same kernels, with the CTAs splitting D's output columns into
-// slices of WIDE_COLS, each slice recomputing the scores, so no register
-// array grows with D.
+// transposed), bound by operations at 495 / 3 = 165 TFLOP/s; at 128 < D <=
+// 256 the forward and dkv are the same kernels on CTA pairs that split D's
+// columns and swap partial scores through distributed shared memory, and dq
+// runs on CUDA cores (one warp a row), as both dtypes do above D = 256: the
+// same kernels, with the CTAs splitting D's output columns into slices of
+// WIDE_COLS, each slice recomputing the scores, so no register array grows
+// with D.
 
 #include <float.h>
 #include <limits.h>
@@ -1063,7 +1065,7 @@ __global__ void __launch_bounds__(2 * kWg + 32, 1)
   dkv_wide_store(acc, smem, dk, scale, b, k0, S, Hkv, hk, D, C, rank);
 }
 
-// ---- f32 forward, dkv and dq at D <= 128: 3xTF32 wgmma fed by a TMA ring ------
+// ---- f32 forward, dkv and dq: 3xTF32 wgmma fed by a TMA ring ---------------------
 //
 // tf32 wgmma reads both operands K-major, so no product can read a tile
 // transposed as the bf16 kernels read V, dO, Q and K. Here every product takes
@@ -1091,7 +1093,9 @@ __global__ void __launch_bounds__(2 * kWg + 32, 1)
 // CTA's elementwise work overlaps the other's products (faster than one
 // CTA with a deeper ring, which only hides the loads). At D = 128
 // the resident raw tiles (64 KB) and a stage (64 KB) allow one CTA an SM
-// (up to 227 KB, 255 registers).
+// (up to 227 KB, 255 registers). At 128 < D <= 256 neither tiles nor
+// accumulators of the D = 128 layout fit twice in a CTA, so two CTAs of a
+// cluster split D (the forward and dkv: see pair_sum).
 
 constexpr int TS = 32;  // rows of a tf32 ring stage: queries (dkv) or keys (dq); a p/ds row
 static_assert(TS == 32, "the producer warp reads a stage's scalars a row a lane");
@@ -1264,12 +1268,18 @@ __device__ __forceinline__ void tcols_tf32(float (&d1)[32], float (&d2)[32], con
   }
 }
 
+// Thread base (floats) of store_split and the pair's exchange: the pair
+// (r0, 2q) of a 64 x TS plane, swizzled
+__device__ __forceinline__ int split_base(int r0, int q) {
+  return r0 * 32 + (((q >> 1) ^ (r0 & 7)) << 2) + 2 * (q & 1);
+}
+
 // v (64 x TS, the score accumulator's layout) into the hi and lo planes at
 // h, l: 64 rows of TS f32 (one box), swizzled; the pair (r, 8j + 2q) in
 // chunk (2j + q / 2) ^ (r % 8)
 __device__ __forceinline__ void store_split(float* h, float* l, const float (&v)[16], int r0,
                                             int q) {
-  const int sb = r0 * 32 + (((q >> 1) ^ (r0 & 7)) << 2) + 2 * (q & 1);
+  const int sb = split_base(r0, q);
 #pragma unroll
   for (int j = 0; j < 4; ++j)
 #pragma unroll
@@ -1281,6 +1291,66 @@ __device__ __forceinline__ void store_split(float* h, float* l, const float (&v)
       *reinterpret_cast<uint2*>(h + i) = hv;
       *reinterpret_cast<uint2*>(l + i) = lv;
     }
+}
+
+// A CTA pair splitting D (f32, 128 < D <= 256: the forward and dkv). CTA
+// `half` of a cluster pair owns D's columns 128 half .. 128 half + 127 and
+// takes the score products over them only: a partial 64 x TS tile (two in
+// dkv, s^T and dp^T). Once a stage the two swap partials through
+// distributed shared memory and each adds the other's to its own (own +
+// peer in both: IEEE addition commutes, so both hold the same bits, and the
+// same p, ds and lse follow with no second exchange). A partial lands in the
+// peer's p hi slot (forward) or ds hi and lo slots (dkv), at the positions
+// that the peer's thread of the same index then overwrites with store_split:
+// each thread reads its own positions only, so no thread waits for another
+// between the sum and the stores. Two mbarriers a CTA: xready (the peer's
+// partial has landed: an arrival a peer thread, released at cluster scope
+// after its stores) and xfree (the peer's product of the stage before no
+// longer reads the slots this CTA writes next: an arrival a peer warp).
+
+// v into the 64 x TS plane t in store_split's positions (sb: split_base)
+__device__ __forceinline__ void put_partial(float* t, const float (&v)[16], int sb) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int half = 0; half < 2; ++half)
+      *reinterpret_cast<float2*>(t + (sb ^ (j << 3)) + 256 * half) =
+          make_float2(v[4 * j + 2 * half], v[4 * j + 2 * half + 1]);
+}
+
+// v += the plane t, read where put_partial writes
+__device__ __forceinline__ void add_partial(float (&v)[16], const float* t, int sb) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const float2 p = *reinterpret_cast<const float2*>(t + (sb ^ (j << 3)) + 256 * half);
+      v[4 * j + 2 * half] += p.x;
+      v[4 * j + 2 * half + 1] += p.y;
+    }
+}
+
+// Stage t's exchange: x (and y, with TWO) into the peer's planes xs (ys),
+// once the peer is done with stage t - 1; then, once the peer's have
+// landed in this CTA's own, x (y) += them.
+template <bool TWO>
+__device__ __forceinline__ void pair_sum(float (&x)[16], float (&y)[16], float* xs, float* ys,
+                                         uint64_t* xready, uint64_t* xfree, int t, int sb) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const unsigned peer = cluster.block_rank() ^ 1u;
+  if (t > 0) mbar_wait_cluster(xfree, (t - 1) & 1);
+  put_partial(cluster.map_shared_rank(xs, peer), x, sb);
+  if constexpr (TWO) put_partial(cluster.map_shared_rank(ys, peer), y, sb);
+  mbar_arrive_cluster(xready, peer);
+  mbar_wait_cluster(xready, t & 1);
+  add_partial(x, xs, sb);
+  if constexpr (TWO) add_partial(y, ys, sb);
+}
+
+// After a stage's product (its wgmmas waited for): lane 0 tells the peer
+// that this warp no longer reads the planes the peer writes next
+__device__ __forceinline__ void pair_free(uint64_t* xfree, int lane) {
+  if (lane == 0) mbar_arrive_cluster(xfree, cg::this_cluster().block_rank() ^ 1u);
 }
 
 // acc (DT/64 tiles of 64 x 64: D's columns 64 mt + 16 w + l/4 (+8) as rows,
@@ -1299,7 +1369,7 @@ __device__ __forceinline__ void acc_to_rows(float* out, const float (&acc)[DT / 
     }
 }
 
-template <int DT>
+template <int DT, bool PAIR = false>
 struct DkvTf32 {
   static constexpr int ST = DT <= 64 ? 1 : 2;     // ring stages
   static constexpr int KC = 2;                    // k-steps a chunk of the score products
@@ -1310,9 +1380,10 @@ struct DkvTf32 {
   // K at 0, V at TILE; stage st's Q hi, Q lo, dO hi, dO lo at 2 TILE + (4 st + i) PLANE
   static constexpr int XCH = 2 * TILE + 4 * ST * PLANE;  // p hi, p lo, ds hi, ds lo
   static constexpr int SCAL = XCH + 4 * SLOT;            // [ST][3][TS]: lse2, di, seg
-  // then the query stage's one segment id [ST]; then full, empty, kv, 8-byte aligned
+  // then the query stage's one segment id [ST]; then full, empty, kv (and a
+  // pair's xready, xfree), 8-byte aligned
   static constexpr int BAR = (SCAL + ST * (3 * TS + 1) * 4 + 7) / 8 * 8;
-  static constexpr int SMEM = BAR + (2 * ST + 1) * 8 + 1024;
+  static constexpr int SMEM = BAR + (2 * ST + 1 + (PAIR ? 2 : 0)) * 8 + 1024;
   static constexpr int OUT = 64 * (DT + 4);  // floats of a [key][D] partial tile, padded rows
   static_assert(2 * OUT * 4 <= XCH, "the partial tiles overlay K, V and the ring");
   static_assert(MIN_BLOCKS * (SMEM + 1024) <= 233472, "shared memory of an SM");
@@ -1330,18 +1401,19 @@ struct DkvTf32 {
 // dk^T += Q^T ds. The C partial tiles are summed in rank order through
 // distributed shared memory ([key][D] rows, coalesced): no atomics, the same
 // bits on every run.
-template <int DT>
-__global__ void __launch_bounds__(kWg + 32, DkvTf32<DT>::MIN_BLOCKS)
-    train_attn_dkv_tf32_kernel(const __grid_constant__ CUtensorMap q_map,
-                               const __grid_constant__ CUtensorMap k_map,
-                               const __grid_constant__ CUtensorMap v_map,
-                               const __grid_constant__ CUtensorMap do_map,
-                               const int* __restrict__ seg, const float* __restrict__ lse,
-                               const float* __restrict__ di, float* __restrict__ dk,
-                               float* __restrict__ dv, int S, int Hq, int Hkv, int D,
-                               float scale) {
-  using P = DkvTf32<DT>;
-  constexpr int ST = P::ST, NB = DT / 32;
+// PAIR (128 < D <= 256, DT = 128): clusters of 2C CTAs, C = min(rep, 4);
+// CTA 2 rank + side walks rank's heads over D's columns 128 side .. 128 side
+// + 127 beside its pair partner (pair_sum after the score products), and
+// the C partial tiles of one side are summed in rank order.
+template <int DT, bool PAIR>
+__device__ __forceinline__ void dkv_tf32(const CUtensorMap& q_map, const CUtensorMap& k_map,
+                                         const CUtensorMap& v_map, const CUtensorMap& do_map,
+                                         const int* __restrict__ seg, const float* __restrict__ lse,
+                                         const float* __restrict__ di, float* __restrict__ dk,
+                                         float* __restrict__ dv, int S, int Hq, int Hkv, int D,
+                                         float scale) {
+  using P = DkvTf32<DT, PAIR>;
+  constexpr int ST = P::ST, NB = DT / 32, P2 = PAIR ? 2 : 1;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align1024(smem_raw);
   float* scal = reinterpret_cast<float*>(smem + P::SCAL);
@@ -1349,7 +1421,10 @@ __global__ void __launch_bounds__(kWg + 32, DkvTf32<DT>::MIN_BLOCKS)
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + P::BAR);
   uint64_t* empty = full + ST;
   uint64_t* kvbar = empty + ST;
-  const int C = gridDim.x, rank = blockIdx.x;
+  uint64_t* xready = kvbar + 1;  // PAIR only
+  uint64_t* xfree = xready + 1;
+  const int C = gridDim.x / P2, rank = blockIdx.x / P2;
+  const int side = PAIR ? blockIdx.x & 1 : 0, c0 = DT * side;  // D's columns of this CTA
   const int kt = blockIdx.y / Hkv, hk = blockIdx.y - kt * Hkv, b = blockIdx.z, k0 = kt * TK;
   const int rep = Hq / Hkv;
   const int qs0 = k0 / TS, nqs = (S + TS - 1) / TS - qs0;  // query stages a head
@@ -1361,17 +1436,24 @@ __global__ void __launch_bounds__(kWg + 32, DkvTf32<DT>::MIN_BLOCKS)
       mbar_init(empty + i, 4);  // lane 0 of each consumer warp
     }
     mbar_init(kvbar, 1);
+    if constexpr (PAIR) {
+      mbar_init(xready, kWg);  // every consumer thread of the peer
+      mbar_init(xfree, 4);     // lane 0 of each consumer warp of the peer
+    }
     fence_mbar_init();
   }
-  __syncthreads();
+  if constexpr (PAIR)
+    cluster_barrier();  // the peer's mbarriers are set before its first arrival
+  else
+    __syncthreads();
 
   if (tid >= kWg) {  // the producer warp
     const int lane = tid & 31;
     if (lane == 0) {
       mbar_expect(kvbar, 2 * P::TILE);
       for (int c = 0; c < NB; ++c) {
-        tma_load_4d(smem + c * TK * kBoxRow, &k_map, 32 * c, hk, k0, b, kvbar);
-        tma_load_4d(smem + P::TILE + c * TK * kBoxRow, &v_map, 32 * c, hk, k0, b, kvbar);
+        tma_load_4d(smem + c * TK * kBoxRow, &k_map, c0 + 32 * c, hk, k0, b, kvbar);
+        tma_load_4d(smem + P::TILE + c * TK * kBoxRow, &v_map, c0 + 32 * c, hk, k0, b, kvbar);
       }
     }
     for (int i = 0; i < steps; ++i) {
@@ -1382,8 +1464,9 @@ __global__ void __launch_bounds__(kWg + 32, DkvTf32<DT>::MIN_BLOCKS)
       if (lane == 0) {
         mbar_expect(full + st, 2 * P::PLANE);
         for (int c = 0; c < NB; ++c) {
-          tma_load_4d(qt + c * TS * kBoxRow, &q_map, 32 * c, h, q0, b, full + st);
-          tma_load_4d(qt + 2 * P::PLANE + c * TS * kBoxRow, &do_map, 32 * c, h, q0, b, full + st);
+          tma_load_4d(qt + c * TS * kBoxRow, &q_map, c0 + 32 * c, h, q0, b, full + st);
+          tma_load_4d(qt + 2 * P::PLANE + c * TS * kBoxRow, &do_map, c0 + 32 * c, h, q0, b,
+                      full + st);
         }
       }
       float* sc = scal + st * 3 * TS;
@@ -1397,7 +1480,7 @@ __global__ void __launch_bounds__(kWg + 32, DkvTf32<DT>::MIN_BLOCKS)
       if (lane == 0) qsegs[st] = lo == hi ? lo : kMixed;
       mbar_arrive(full + st);
     }
-    if (C > 1)  // the consumers' two cluster barriers
+    if (PAIR || C > 1)  // the consumers' two cluster barriers
       for (int i = 0; i < 2; ++i) cluster_barrier();
     return;
   }
@@ -1442,6 +1525,8 @@ __global__ void __launch_bounds__(kWg + 32, DkvTf32<DT>::MIN_BLOCKS)
     float x[16], y[16];  // s^T, dp^T: 64 keys x TS queries
     scores_tf32<DT, P::KC>(x, y, kr, vr, sw128_desc(qa), sw128_desc(qa + P::PLANE),
                            sw128_desc(qa + 2 * P::PLANE), sw128_desc(qa + 3 * P::PLANE), rb);
+    // the partials of s^T and dp^T land in the ds slots (written below)
+    if constexpr (PAIR) pair_sum<true>(x, y, dsh, dsl, xready, xfree, i, split_base(r0, quad));
     const float* sc = scal + st * 3 * TS;
     const int* sq = reinterpret_cast<const int*>(sc) + 2 * TS;
     const int ts = qsegs[st];  // as in the forward, keys and query rows swapped
@@ -1463,6 +1548,8 @@ __global__ void __launch_bounds__(kWg + 32, DkvTf32<DT>::MIN_BLOCKS)
       tcols_tf32<MT, MT, true>(dva[MT], dka[MT], oh, ol, qh, ql, phd, pld, dshd, dsld, cb);
     });
     if (lane == 0) mbar_arrive(empty + st);  // this warp is done with the stage
+    if constexpr (PAIR)
+      if (i + 1 < steps) pair_free(xfree, lane);
   }
 
   // [key][D] partial tiles, dv then dk, over K, V and the ring (every stage
@@ -1471,11 +1558,12 @@ __global__ void __launch_bounds__(kWg + 32, DkvTf32<DT>::MIN_BLOCKS)
   named_sync(1, kWg);
   acc_to_rows<DT>(red, dva, warp, lane);
   acc_to_rows<DT>(red + P::OUT, dka, warp, lane);
-  if (C > 1)
+  if (PAIR || C > 1)
     cluster_barrier();
   else
     named_sync(1, kWg);
   // CTA `rank` sums its 1/C of the 2 x 64 rows' float4s over ranks 0 .. C-1
+  // (of its side, for a pair)
   cg::cluster_group cluster = cg::this_cluster();
   constexpr int N4 = 2 * 64 * DT / 4;
   const int per = (N4 + C - 1) / C, lo = rank * per, hi = min(N4, lo + per);
@@ -1484,20 +1572,46 @@ __global__ void __launch_bounds__(kWg + 32, DkvTf32<DT>::MIN_BLOCKS)
     const int at = w * P::OUT + (rr & 63) * (DT + 4) + col;
     float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
     for (int r = 0; r < C; ++r) {
-      const float4 v =
-          *reinterpret_cast<const float4*>((C > 1 ? cluster.map_shared_rank(red, r) : red) + at);
+      const float4 v = *reinterpret_cast<const float4*>(
+          (PAIR || C > 1 ? cluster.map_shared_rank(red, r * P2 + side) : red) + at);
       s.x += v.x;
       s.y += v.y;
       s.z += v.z;
       s.w += v.w;
     }
-    if (key < S && col < D) {
+    if (key < S && c0 + col < D) {
       const float mul = w ? scale : 1.f;
-      *reinterpret_cast<float4*>((w ? dk : dv) + ((size_t(b) * S + key) * Hkv + hk) * D + col) =
-          make_float4(s.x * mul, s.y * mul, s.z * mul, s.w * mul);
+      *reinterpret_cast<float4*>((w ? dk : dv) + ((size_t(b) * S + key) * Hkv + hk) * D + c0 +
+                                 col) = make_float4(s.x * mul, s.y * mul, s.z * mul, s.w * mul);
     }
   }
-  if (C > 1) cluster_barrier();  // no CTA leaves while a peer still reads its shared memory
+  if (PAIR || C > 1) cluster_barrier();  // no CTA leaves while a peer still reads its shared memory
+}
+
+template <int DT>
+__global__ void __launch_bounds__(kWg + 32, DkvTf32<DT>::MIN_BLOCKS)
+    train_attn_dkv_tf32_kernel(const __grid_constant__ CUtensorMap q_map,
+                               const __grid_constant__ CUtensorMap k_map,
+                               const __grid_constant__ CUtensorMap v_map,
+                               const __grid_constant__ CUtensorMap do_map,
+                               const int* __restrict__ seg, const float* __restrict__ lse,
+                               const float* __restrict__ di, float* __restrict__ dk,
+                               float* __restrict__ dv, int S, int Hq, int Hkv, int D,
+                               float scale) {
+  dkv_tf32<DT, false>(q_map, k_map, v_map, do_map, seg, lse, di, dk, dv, S, Hq, Hkv, D, scale);
+}
+
+// dkv, f32, 128 < D <= 256: dkv_tf32's pair (on clusters of 2 min(rep, 4))
+__global__ void __launch_bounds__(kWg + 32, 1)
+    train_attn_dkv_tf32_pair_kernel(const __grid_constant__ CUtensorMap q_map,
+                                    const __grid_constant__ CUtensorMap k_map,
+                                    const __grid_constant__ CUtensorMap v_map,
+                                    const __grid_constant__ CUtensorMap do_map,
+                                    const int* __restrict__ seg, const float* __restrict__ lse,
+                                    const float* __restrict__ di, float* __restrict__ dk,
+                                    float* __restrict__ dv, int S, int Hq, int Hkv, int D,
+                                    float scale) {
+  dkv_tf32<128, true>(q_map, k_map, v_map, do_map, seg, lse, di, dk, dv, S, Hq, Hkv, D, scale);
 }
 
 template <int DT>
@@ -1666,7 +1780,7 @@ __global__ void __launch_bounds__(kWg + 32, DqTf32<DT>::MIN_BLOCKS)
   }
 }
 
-template <int DT>
+template <int DT, bool PAIR = false>
 struct FwdTf32 {
   static constexpr int ST = 2;                 // ring stages
   static constexpr int KC = DT <= 64 ? 2 : 4;  // k-steps a chunk of the score product
@@ -1679,7 +1793,8 @@ struct FwdTf32 {
   static constexpr int FAC = XCH + 2 * SLOT;  // the rows' factors [64]: alpha a stage, then 1/l
   static constexpr int SEG = FAC + 64 * 4;    // keys' segment ids [ST][TS], the stage's one [ST]
   static constexpr int BAR = (SEG + ST * (TS + 1) * 4 + 7) / 8 * 8;
-  static constexpr int SMEM = BAR + (2 * ST + 1) * 8 + 1024;  // full, empty, q; alignment
+  // full, empty, q (and a pair's xready, xfree); alignment
+  static constexpr int SMEM = BAR + (2 * ST + 1 + (PAIR ? 2 : 0)) * 8 + 1024;
   static constexpr int OUT = 64 * (DT + 4);  // floats of the [query][D] tile, padded rows
   static_assert(OUT * 4 <= XCH, "the o tile overlays Q and the ring");
   static_assert(MIN_BLOCKS * (SMEM + 1024) <= 233472, "shared memory of an SM");
@@ -1700,15 +1815,16 @@ struct FwdTf32 {
 // would take the score product twice). The epilogue writes o (times 1/l,
 // the same row) and the f32 lse as the CUDA-core kernel did, rows past S
 // never stored: no atomics, the same bits on every run.
-template <int DT>
-__global__ void __launch_bounds__(kWg + 32, FwdTf32<DT>::MIN_BLOCKS)
-    train_attn_fwd_tf32_kernel(const __grid_constant__ CUtensorMap q_map,
-                               const __grid_constant__ CUtensorMap k_map,
-                               const __grid_constant__ CUtensorMap v_map,
-                               const int* __restrict__ seg, float* __restrict__ o,
-                               float* __restrict__ lse, int S, int Hq, int Hkv, int D,
-                               float scale) {
-  using P = FwdTf32<DT>;
+// PAIR (128 < D <= 256, DT = 128): CTA side = blockIdx.x % 2 of a cluster
+// pair, grid (2 Hq, B, query tiles), owns D's columns 128 side .. 128 side
+// + 127: its Q, K and V boxes, its score partial (pair_sum, into the p hi
+// slot) and its columns of o; side 0 writes the lse.
+template <int DT, bool PAIR>
+__device__ __forceinline__ void fwd_tf32(const CUtensorMap& q_map, const CUtensorMap& k_map,
+                                         const CUtensorMap& v_map, const int* __restrict__ seg,
+                                         float* __restrict__ o, float* __restrict__ lse, int S,
+                                         int Hq, int Hkv, int D, float scale) {
+  using P = FwdTf32<DT, PAIR>;
   constexpr int ST = P::ST, NB = DT / 32;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align1024(smem_raw);
@@ -1718,7 +1834,10 @@ __global__ void __launch_bounds__(kWg + 32, FwdTf32<DT>::MIN_BLOCKS)
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + P::BAR);
   uint64_t* empty = full + ST;
   uint64_t* qbar = empty + ST;
-  const int h = blockIdx.x, b = blockIdx.y;
+  uint64_t* xready = qbar + 1;  // PAIR only
+  uint64_t* xfree = xready + 1;
+  const int side = PAIR ? blockIdx.x & 1 : 0, c0 = DT * side;  // D's columns of this CTA
+  const int h = PAIR ? blockIdx.x >> 1 : blockIdx.x, b = blockIdx.y;
   const int q0 = (gridDim.z - 1 - blockIdx.z) * TQ;
   const int hk = h / (Hq / Hkv);
   const int nks = min(q0 / TS + TQ / TS, (S + TS - 1) / TS);  // key stages on or below the diagonal
@@ -1729,16 +1848,23 @@ __global__ void __launch_bounds__(kWg + 32, FwdTf32<DT>::MIN_BLOCKS)
       mbar_init(empty + i, 4);  // lane 0 of each consumer warp
     }
     mbar_init(qbar, 1);
+    if constexpr (PAIR) {
+      mbar_init(xready, kWg);  // every consumer thread of the peer
+      mbar_init(xfree, 4);     // lane 0 of each consumer warp of the peer
+    }
     fence_mbar_init();
   }
-  __syncthreads();
+  if constexpr (PAIR)
+    cluster_barrier();  // the peer's mbarriers are set before its first arrival
+  else
+    __syncthreads();
 
   if (tid >= kWg) {  // the producer warp
     const int lane = tid & 31;
     if (lane == 0) {
       mbar_expect(qbar, P::TILE);
       for (int c = 0; c < NB; ++c)
-        tma_load_4d(smem + c * TQ * kBoxRow, &q_map, 32 * c, h, q0, b, qbar);
+        tma_load_4d(smem + c * TQ * kBoxRow, &q_map, c0 + 32 * c, h, q0, b, qbar);
     }
     for (int t = 0; t < nks; ++t) {
       const int st = t % ST, k0 = t * TS;
@@ -1747,8 +1873,9 @@ __global__ void __launch_bounds__(kWg + 32, FwdTf32<DT>::MIN_BLOCKS)
       if (lane == 0) {
         mbar_expect(full + st, 2 * P::PLANE);
         for (int c = 0; c < NB; ++c) {
-          tma_load_4d(kt + c * TS * kBoxRow, &k_map, 32 * c, hk, k0, b, full + st);
-          tma_load_4d(kt + 2 * P::PLANE + c * TS * kBoxRow, &v_map, 32 * c, hk, k0, b, full + st);
+          tma_load_4d(kt + c * TS * kBoxRow, &k_map, c0 + 32 * c, hk, k0, b, full + st);
+          tma_load_4d(kt + 2 * P::PLANE + c * TS * kBoxRow, &v_map, c0 + 32 * c, hk, k0, b,
+                      full + st);
         }
       }
       const int key = k0 + lane;  // TS == 32: a key a lane
@@ -1797,6 +1924,8 @@ __global__ void __launch_bounds__(kWg + 32, FwdTf32<DT>::MIN_BLOCKS)
     float s[16];  // 64 query rows x TS keys
     scores_tf32<DT, P::KC, false>(s, s, qr, qr, sw128_desc(ka), sw128_desc(ka + P::PLANE), 0, 0,
                                   rb);
+    // the peer's partial scores land in the p hi slot (written below)
+    if constexpr (PAIR) pair_sum<false>(s, s, ph, ph, xready, xfree, t, split_base(r0, quad));
     const int* sk = segs + st * TS;
     const int ts = tsegs[st];
     const bool mask = k0 + TS - 1 > q0 || k0 + TS > S || ts != segq[0] || ts != segq[1];
@@ -1847,6 +1976,8 @@ __global__ void __launch_bounds__(kWg + 32, FwdTf32<DT>::MIN_BLOCKS)
     // o^T += V^T p^T, both of D's 64-column tiles in one group at DT = 128
     tcols_tf32<0, 1, (DT > 64)>(acc[0], acc[DT / 64 - 1], vh, vl, vh, vl, phd, pld, phd, pld, cb);
     if (lane == 0) mbar_arrive(empty + st);  // this warp is done with the stage
+    if constexpr (PAIR)
+      if (t + 1 < nks) pair_free(xfree, lane);
   }
 
   // the [query][D] tile over Q and the ring (every stage consumed; the
@@ -1856,7 +1987,7 @@ __global__ void __launch_bounds__(kWg + 32, FwdTf32<DT>::MIN_BLOCKS)
   for (int half = 0; half < 2; ++half) {
     l[half] += __shfl_xor_sync(0xffffffffu, l[half], 1);
     l[half] += __shfl_xor_sync(0xffffffffu, l[half], 2);
-    if (quad == 0 && rows[half] < S)
+    if (quad == 0 && rows[half] < S && side == 0)
       lse[(size_t(b) * Hq + h) * S + rows[half]] = (m[half] + log2f(l[half])) * kLn2;
   }
   float* out = reinterpret_cast<float*>(smem);
@@ -1869,21 +2000,43 @@ __global__ void __launch_bounds__(kWg + 32, FwdTf32<DT>::MIN_BLOCKS)
   named_sync(1, kWg);
   for (int n = tid; n < 64 * DT / 4; n += kWg) {
     const int row = n / (DT / 4), col = 4 * (n - row * (DT / 4));
-    if (q0 + row >= S || col >= D) continue;
+    if (q0 + row >= S || c0 + col >= D) continue;
     const float4 v = *reinterpret_cast<const float4*>(out + row * (DT + 4) + col);
     const float f = fac[row];
-    *reinterpret_cast<float4*>(o + ((size_t(b) * S + q0 + row) * Hq + h) * D + col) =
+    *reinterpret_cast<float4*>(o + ((size_t(b) * S + q0 + row) * Hq + h) * D + c0 + col) =
         make_float4(v.x * f, v.y * f, v.z * f, v.w * f);
   }
 }
 
-// ---- CUDA cores, one warp a row: f32 above D = 128, both dtypes above 256 ----
+template <int DT>
+__global__ void __launch_bounds__(kWg + 32, FwdTf32<DT>::MIN_BLOCKS)
+    train_attn_fwd_tf32_kernel(const __grid_constant__ CUtensorMap q_map,
+                               const __grid_constant__ CUtensorMap k_map,
+                               const __grid_constant__ CUtensorMap v_map,
+                               const int* __restrict__ seg, float* __restrict__ o,
+                               float* __restrict__ lse, int S, int Hq, int Hkv, int D,
+                               float scale) {
+  fwd_tf32<DT, false>(q_map, k_map, v_map, seg, o, lse, S, Hq, Hkv, D, scale);
+}
+
+// The forward, f32, 128 < D <= 256: fwd_tf32's pair (on clusters of 2)
+__global__ void __launch_bounds__(kWg + 32, 1)
+    train_attn_fwd_tf32_pair_kernel(const __grid_constant__ CUtensorMap q_map,
+                                    const __grid_constant__ CUtensorMap k_map,
+                                    const __grid_constant__ CUtensorMap v_map,
+                                    const int* __restrict__ seg, float* __restrict__ o,
+                                    float* __restrict__ lse, int S, int Hq, int Hkv, int D,
+                                    float scale) {
+  fwd_tf32<128, true>(q_map, k_map, v_map, seg, o, lse, S, Hq, Hkv, D, scale);
+}
+
+// ---- CUDA cores, one warp a row: f32 dq at 128 < D <= 256, above 256 all ----
 //
 // F32_ROWS rows (warps) a CTA. D's output columns are split into slices of
 // WIDE_COLS, one a CTA along grid z (b * slices + slice), each slice
-// recomputing the row's scores, so no register array grows with D. RES
-// (D <= WIDE_COLS, one slice): the warp's own row operands sit in
-// registers; else the row dots loop over D, reading them from memory.
+// recomputing the row's scores, so no register array grows with D; the row
+// dots loop over D, reading the rows from memory. dq's RES instance (f32,
+// 128 < D <= 256, one slice) keeps the warp's own row operands in registers.
 // f32 arithmetic; bf16 inputs widened as read, outputs rounded once.
 
 constexpr int F32_ROWS = 8;      // rows (warps) a CTA
@@ -1934,19 +2087,19 @@ __device__ __forceinline__ void core_slice(int D, int& b, int& c0) {
   c0 = RES ? 0 : (blockIdx.z - b * nsl) * WIDE_COLS;
 }
 
-template <typename T, bool RES>
+template <typename T>
 __global__ void __launch_bounds__(F32_ROWS * 32)
     train_attn_fwd_cores_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                 const T* __restrict__ v, const int* __restrict__ seg,
                                 T* __restrict__ out, float* __restrict__ lse, int S, int Hq,
                                 int Hkv, int D, float scale) {
   int b, c0;
-  core_slice<RES>(D, b, c0);
+  core_slice<false>(D, b, c0);
   const int h = blockIdx.y, lane = threadIdx.x & 31;
   const int i = blockIdx.x * F32_ROWS + (threadIdx.x >> 5);
   if (i >= S) return;
   const int hk = h / (Hq / Hkv), si = seg ? seg[size_t(b) * S + i] : 1;
-  const CoreRow<T, RES> qr(q + ((size_t(b) * S + i) * Hq + h) * D, D, lane);
+  const CoreRow<T, false> qr(q + ((size_t(b) * S + i) * Hq + h) * D, D, lane);
   float acc[WIDE_PER];
 #pragma unroll
   for (int c = 0; c < WIDE_PER; ++c) acc[c] = 0.f;
@@ -2012,7 +2165,7 @@ __global__ void __launch_bounds__(F32_ROWS * 32)
 
 // one warp a (key row, kv head, column slice): the rep query heads and the
 // rows at or below it
-template <typename T, bool RES>
+template <typename T>
 __global__ void __launch_bounds__(F32_ROWS * 32)
     train_attn_dkv_cores_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                 const T* __restrict__ v, const int* __restrict__ seg,
@@ -2020,13 +2173,13 @@ __global__ void __launch_bounds__(F32_ROWS * 32)
                                 const float* __restrict__ di, T* __restrict__ dk,
                                 T* __restrict__ dv, int S, int Hq, int Hkv, int D, float scale) {
   int b, c0;
-  core_slice<RES>(D, b, c0);
+  core_slice<false>(D, b, c0);
   const int hk = blockIdx.y, lane = threadIdx.x & 31;
   const int j = blockIdx.x * F32_ROWS + (threadIdx.x >> 5);
   if (j >= S) return;
   const int rep = Hq / Hkv, sj = seg ? seg[size_t(b) * S + j] : 1;
   const size_t kv = ((size_t(b) * S + j) * Hkv + hk) * D;
-  const CoreRow<T, RES> kr(k + kv, D, lane), vr(v + kv, D, lane);
+  const CoreRow<T, false> kr(k + kv, D, lane), vr(v + kv, D, lane);
   float ak[WIDE_PER], av[WIDE_PER];
 #pragma unroll
   for (int c = 0; c < WIDE_PER; ++c) ak[c] = av[c] = 0.f;
@@ -2112,7 +2265,8 @@ cudaError_t launch_bf16(Which w, const Args& a, cudaStream_t s) {
   return cudaGetLastError();
 }
 
-template <int DT>
+// PAIR: the forward and dkv at 128 < D <= 256 (DT = 128), on CTA pairs
+template <int DT, bool PAIR = false>
 cudaError_t launch_tf32(Which w, const Args& a, cudaStream_t s) {
   // dkv: 64-row boxes of k, v (resident), TS-row boxes of q, dout (streamed);
   // the forward and dq the other way round (the forward has no dout)
@@ -2124,33 +2278,45 @@ cudaError_t launch_tf32(Which w, const Args& a, cudaStream_t s) {
       (w != kFwd && !tensor_map_bshd_f32(&om, a.dout, a.B, a.S, a.Hq, a.D, rq)))
     return cudaErrorInvalidValue;
   const auto* seg = static_cast<const int*>(a.seg);
+  const dim3 fgrid(a.Hq, a.B, (a.S + TQ - 1) / TQ);
   if (w == kFwd) {
+    auto* o = static_cast<float*>(a.o0);
+    auto* lse = static_cast<float*>(a.lse_out);
+    if constexpr (PAIR)  // clusters of 2 along x: the two CTAs of a query head
+      return launch_cluster_block(train_attn_fwd_tf32_pair_kernel,
+                                  dim3(2 * fgrid.x, fgrid.y, fgrid.z), kWg + 32, 2,
+                                  FwdTf32<DT, true>::SMEM, false, s, qm, km, vm, seg, o, lse, a.S,
+                                  a.Hq, a.Hkv, a.D, a.scale);
     auto kern = train_attn_fwd_tf32_kernel<DT>;
     cudaError_t err = allow_smem(kern, FwdTf32<DT>::SMEM);
     if (err != cudaSuccess) return err;
-    kern<<<dim3(a.Hq, a.B, (a.S + TQ - 1) / TQ), kWg + 32, FwdTf32<DT>::SMEM, s>>>(
-        qm, km, vm, seg, static_cast<float*>(a.o0), static_cast<float*>(a.lse_out), a.S, a.Hq,
-        a.Hkv, a.D, a.scale);
+    kern<<<fgrid, kWg + 32, FwdTf32<DT>::SMEM, s>>>(qm, km, vm, seg, o, lse, a.S, a.Hq, a.Hkv,
+                                                   a.D, a.scale);
     return cudaGetLastError();
   }
   const auto* lse = static_cast<const float*>(a.lse_in);
   const auto* di = static_cast<const float*>(a.di);
-  if (w == kDkv)  // on clusters of a.cluster CTAs, the grid of dkv_plan
-    return launch_cluster_block(train_attn_dkv_tf32_kernel<DT>,
-                                dim3(a.cluster, (a.S + TK - 1) / TK * a.Hkv, a.B), kWg + 32,
-                                a.cluster, DkvTf32<DT>::SMEM, false, s, qm, km, vm, om, seg, lse,
-                                di, static_cast<float*>(a.o0), static_cast<float*>(a.o1), a.S,
-                                a.Hq, a.Hkv, a.D, a.scale);
+  if (w == kDkv) {  // on clusters of a.cluster CTAs, the grid of dkv_plan
+    auto kern = train_attn_dkv_tf32_kernel<DT>;
+    if constexpr (PAIR) kern = train_attn_dkv_tf32_pair_kernel;
+    return launch_cluster_block(kern, dim3(a.cluster, (a.S + TK - 1) / TK * a.Hkv, a.B),
+                                kWg + 32, a.cluster, DkvTf32<DT, PAIR>::SMEM, false, s, qm, km,
+                                vm, om, seg, lse, di, static_cast<float*>(a.o0),
+                                static_cast<float*>(a.o1), a.S, a.Hq, a.Hkv, a.D, a.scale);
+  }
+  if constexpr (PAIR) return cudaErrorInvalidValue;  // dq: the CUDA cores
   auto kern = train_attn_dq_tf32_kernel<DT>;
   cudaError_t err = allow_smem(kern, DqTf32<DT>::SMEM);
   if (err != cudaSuccess) return err;
-  kern<<<dim3(a.Hq, a.B, (a.S + TQ - 1) / TQ), kWg + 32, DqTf32<DT>::SMEM, s>>>(
-      qm, km, vm, om, seg, lse, di, static_cast<float*>(a.o0), a.S, a.Hq, a.Hkv, a.D, a.scale);
+  kern<<<fgrid, kWg + 32, DqTf32<DT>::SMEM, s>>>(qm, km, vm, om, seg, lse, di,
+                                                  static_cast<float*>(a.o0), a.S, a.Hq, a.Hkv,
+                                                  a.D, a.scale);
   return cudaGetLastError();
 }
 
-// the CUDA-core kernels: f32 at 128 < D <= 256 (RES; up to 128 the 3xTF32
-// kernels run), both dtypes above D = 256
+// the CUDA-core kernels: f32 dq at 128 < D <= 256 (RES; the forward and dkv
+// there are the 3xTF32 pair, and up to 128 all three are 3xTF32), both
+// dtypes above D = 256
 template <typename T, bool RES>
 cudaError_t launch_cores(Which w, const Args& a, cudaStream_t s) {
   const dim3 grid((a.S + F32_ROWS - 1) / F32_ROWS, w == kDkv ? a.Hkv : a.Hq,
@@ -2162,17 +2328,19 @@ cudaError_t launch_cores(Which w, const Args& a, cudaStream_t s) {
   const auto* dout = static_cast<const T*>(a.dout);
   const auto* lse = static_cast<const float*>(a.lse_in);
   const auto* di = static_cast<const float*>(a.di);
-  if (w == kFwd)
-    train_attn_fwd_cores_kernel<T, RES><<<grid, F32_ROWS * 32, 0, s>>>(
-        q, k, v, seg, static_cast<T*>(a.o0), static_cast<float*>(a.lse_out), a.S, a.Hq, a.Hkv,
-        a.D, a.scale);
-  else if (w == kDkv)
-    train_attn_dkv_cores_kernel<T, RES><<<grid, F32_ROWS * 32, 0, s>>>(
-        q, k, v, seg, dout, lse, di, static_cast<T*>(a.o0), static_cast<T*>(a.o1), a.S, a.Hq,
-        a.Hkv, a.D, a.scale);
-  else
+  if (w == kDq)
     train_attn_dq_cores_kernel<T, RES><<<grid, F32_ROWS * 32, 0, s>>>(
         q, k, v, seg, dout, lse, di, static_cast<T*>(a.o0), a.S, a.Hq, a.Hkv, a.D, a.scale);
+  else if constexpr (RES)  // dq only: the forward and dkv there are the CTA pairs
+    return cudaErrorInvalidValue;
+  else if (w == kFwd)
+    train_attn_fwd_cores_kernel<T><<<grid, F32_ROWS * 32, 0, s>>>(
+        q, k, v, seg, static_cast<T*>(a.o0), static_cast<float*>(a.lse_out), a.S, a.Hq, a.Hkv,
+        a.D, a.scale);
+  else
+    train_attn_dkv_cores_kernel<T><<<grid, F32_ROWS * 32, 0, s>>>(
+        q, k, v, seg, dout, lse, di, static_cast<T*>(a.o0), static_cast<T*>(a.o1), a.S, a.Hq,
+        a.Hkv, a.D, a.scale);
   return cudaGetLastError();
 }
 
@@ -2181,13 +2349,16 @@ cudaError_t dispatch(Which w, const Args& a, int f32, void* stream) {
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // dkv's cluster (ops/train_attention.py: dkv_plan): min(rep, 8) CTAs on the
-  // tensor cores, 1 on the CUDA cores (f32 above D = 128, both dtypes above 256)
-  const bool wide = a.D > 256, cores = wide || (f32 && a.D > 128);
-  if (w == kDkv && a.cluster != (cores ? 1 : std::min(a.Hq / a.Hkv, kMaxCluster)))
-    return cudaErrorInvalidValue;
+  // tensor cores, 2 min(rep, 4) for f32 at 128 < D <= 256 (CTA pairs
+  // splitting D), 1 on the CUDA cores (both dtypes above D = 256)
+  const int rep = a.Hq / a.Hkv;
+  const bool wide = a.D > 256, pair = !wide && f32 && a.D > 128;
+  const int cluster = wide ? 1 : pair ? 2 * std::min(rep, kMaxCluster / 2)
+                                      : std::min(rep, kMaxCluster);
+  if (w == kDkv && a.cluster != cluster) return cudaErrorInvalidValue;
   if (wide)
     return f32 ? launch_cores<float, false>(w, a, s) : launch_cores<__nv_bfloat16, false>(w, a, s);
-  if (cores) return launch_cores<float, true>(w, a, s);
+  if (pair) return w == kDq ? launch_cores<float, true>(w, a, s) : launch_tf32<128, true>(w, a, s);
   if (f32) return a.D <= 64 ? launch_tf32<64>(w, a, s) : launch_tf32<128>(w, a, s);
   if (a.D <= 64) return launch_bf16<64>(w, a, s);
   if (a.D <= 128) return launch_bf16<128>(w, a, s);
@@ -2214,9 +2385,9 @@ int bd_train_attn_fwd(const void* q, const void* k, const void* v, const void* s
 
 // dout [B, S, Hq, D], lse [B, Hq, S] f32 (the forward's), di [B, S, Hq] f32
 // (rowsum(o * dout)); writes dk, dv [B, S, Hkv, D] in the inputs' dtype.
-// cluster: min(Hq / Hkv, 8), or 1 for f32 above D = 128 and above D = 256
-// (dkv_plan). A
-// cluster the card cannot hold launches nothing and returns the error.
+// cluster: min(Hq / Hkv, 8); for f32 at 128 < D <= 256, 2 min(Hq / Hkv, 4);
+// above D = 256, 1 (dkv_plan). A cluster the card cannot hold launches
+// nothing and returns the error.
 int bd_train_attn_dkv(const void* q, const void* k, const void* v, const void* seg,
                       const void* dout, const void* lse, const void* di, void* dk, void* dv,
                       int B, int S, int Hq, int Hkv, int D, float scale, int cluster, int f32,

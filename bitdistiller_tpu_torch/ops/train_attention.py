@@ -28,10 +28,13 @@ which walks twice with D's columns split between its warpgroups). f32 dkv
 and dq at D <= 128 run on the tensor cores too, as 3xTF32 (each operand
 split into tf32 hi and lo, three products: `tf32x3_matmul` is its plain
 emulation, which only the tests use), and so does the f32 forward
-(`train_attn_fwd_tf32x3_emulated` is its emulation); f32 above D = 128
-and both dtypes above D = 256 run the CUDA-core kernels (one warp a row;
-above D = 256 the CTAs split D's output columns into slices of WIDE_COLS,
-each slice recomputing the scores). `train_attn_bwd_dq_plain`
+(`train_attn_fwd_tf32x3_emulated` is its emulation). At 128 < D <= 256
+the f32 forward and dkv are the same kernels on CTA pairs: each CTA of a
+cluster pair owns PAIR_COLS of D's columns, takes the score products over
+them and adds its peer's partial (the emulations sum two such halves).
+f32 dq there and both dtypes above D = 256 run the CUDA-core kernels (one
+warp a row; above D = 256 the CTAs split D's output columns into slices of
+WIDE_COLS, each slice recomputing the scores). `train_attn_bwd_dq_plain`
 is dq alone in plain PyTorch from the kernel's own inputs (lse, di), what
 the dq kernel is held to on the card.
 
@@ -66,6 +69,7 @@ DKV_WGMMA_MAX_HEAD_DIM = 128
 DKV_KEY_TILE = 64     # the dkv kernels on the tensor cores: key rows a CTA
 DKV_QUERY_TILE = 64   # ... query rows a ring stage (bf16)
 DKV_TF32_QUERY_TILE = 32  # ... and of the 3xTF32 kernel (f32 tiles: twice bf16's, plus lo planes)
+PAIR_COLS = 128  # f32 at 128 < D <= 256: D's columns each CTA of a pair owns
 F32_ROWS = 8          # the CUDA-core kernels: rows (one a warp) a CTA
 FWD_TF32_QUERY_TILE = 64  # the f32 forward at D <= 128: query rows a CTA ...
 FWD_TF32_KEY_STAGE = 32   # ... and key rows a ring stage
@@ -80,38 +84,71 @@ class DkvPlan:
     one walk) or "wgmma_wide" (128 < D <= 256: `train_attn_dkv_wide_kernel`,
     its warpgroups splitting D's columns over two walks, dv then dk), and for
     f32 "tf32x3" (D <= 128: `train_attn_dkv_tf32_kernel`, one warpgroup, query
-    stages of `query_tile` rows). `grid` as launched, x first (x is the
-    cluster). f32 above D = 128: "f32_cores" (`train_attn_dkv_cores_kernel`,
-    one warp a key row, its k and v rows in registers, F32_ROWS a CTA, no
-    cluster: grid (row blocks, Hkv, B)). Both dtypes above D = 256:
-    "cores_wide" (the same kernel, its row dots reading k and v from
-    memory, with B x ceil(D / WIDE_COLS) column slices along z)."""
+    stages of `query_tile` rows, `smem` bytes of shared memory) or
+    "tf32x3_pair" (128 < D <= 256: `train_attn_dkv_tf32_pair_kernel`, the
+    same on CTA pairs, each owning PAIR_COLS of D's columns: clusters of
+    2 min(rep, 4), so within the portable 8, CTA 2 r + side walking head
+    rank r's heads over its side's columns). `grid` as launched, x first (x
+    is the cluster). Both dtypes above D = 256: "cores_wide"
+    (`train_attn_dkv_cores_kernel`, one warp a key row, F32_ROWS a CTA, no
+    cluster, its row dots reading k and v from memory: grid (row blocks,
+    Hkv, B x ceil(D / WIDE_COLS) column slices))."""
 
     kernel: str
     cluster: int
     grid: tuple[int, int, int]
     query_tile: int = DKV_QUERY_TILE
+    smem: int = 0
 
     @property
     def ctas(self) -> int:
         return self.grid[0] * self.grid[1] * self.grid[2]
+
+    @property
+    def head_ranks(self) -> int:
+        """The CTAs of a cluster that split the query heads (dkv_walk's C):
+        a pair's two CTAs walk the same heads."""
+        return self.cluster // 2 if self.kernel == "tf32x3_pair" else self.cluster
 
 
 def dkv_plan(b: int, s: int, hq: int, hkv: int, d: int, dtype=torch.bfloat16) -> DkvPlan:
     """The dkv launch at these shapes: the kernel by dtype and D, on clusters
     of C = min(rep, MAX_CLUSTER) CTAs on the tensor cores, the grid (C, key
     tiles x Hkv, B) with the key tile slowest, so the longest walks (key
-    tile 0) start first. C depends on rep only, never on the card, so the
-    same inputs give the same bits on every card."""
+    tile 0) start first. f32 at 128 < D <= 256: C = 2 min(rep, 4), pairs of
+    CTAs splitting D within the portable cluster of 8 (at rep 8 as many CTAs
+    as the D = 128 kernel's clusters of 8, each head rank walking two heads;
+    a cluster of 16 would need the non-portable size). C depends on rep
+    only, never on the card, so the same inputs give the same bits on every
+    card."""
     if d > MAX_HEAD_DIM:
         return DkvPlan("cores_wide", 1, (-(-s // F32_ROWS), hkv, b * -(-d // WIDE_COLS)))
+    rep, key_tiles = hq // hkv, -(-s // DKV_KEY_TILE) * hkv
     if dtype == torch.float32 and d > DKV_WGMMA_MAX_HEAD_DIM:
-        return DkvPlan("f32_cores", 1, (-(-s // F32_ROWS), hkv, b))
-    c = min(hq // hkv, MAX_CLUSTER)
-    grid = (c, -(-s // DKV_KEY_TILE) * hkv, b)
+        c = 2 * min(rep, MAX_CLUSTER // 2)
+        return DkvPlan("tf32x3_pair", c, (c, key_tiles, b), DKV_TF32_QUERY_TILE,
+                       dkv_tf32_smem(d))
+    c = min(rep, MAX_CLUSTER)
+    grid = (c, key_tiles, b)
     if dtype == torch.float32:
-        return DkvPlan("tf32x3", c, grid, DKV_TF32_QUERY_TILE)
+        return DkvPlan("tf32x3", c, grid, DKV_TF32_QUERY_TILE, dkv_tf32_smem(d))
     return DkvPlan("wgmma" if d <= DKV_WGMMA_MAX_HEAD_DIM else "wgmma_wide", c, grid)
+
+
+def dkv_tf32_smem(d: int) -> int:
+    """Shared memory bytes of `train_attn_dkv_tf32_kernel` at head dim d <=
+    128, and of the pair's CTA above (DT = PAIR_COLS), as
+    csrc/train_attention.cu's DkvTf32 lays it out: raw K and V (2 x 64 x DT
+    f32), the ring's stages of Q and dO as hi and lo planes (4 x 32 x DT f32
+    a stage; one stage at DT = 64, two at 128), the p and ds slots' hi and lo
+    planes (4 x 64 x 32 f32, where a pair's partials land), a stage's lse,
+    di and segment ids and its one segment id, the mbarriers (full, empty,
+    kv; a pair's xready and xfree), and 1024 bytes of alignment."""
+    dt, ts = (64 if d <= 64 else PAIR_COLS), DKV_TF32_QUERY_TILE
+    stages = 1 if dt <= 64 else 2
+    scal = 2 * DKV_KEY_TILE * dt * 4 + 4 * stages * ts * dt * 4 + 4 * DKV_KEY_TILE * ts * 4
+    bar = -(-(scal + stages * (3 * ts + 1) * 4) // 8) * 8
+    return bar + (2 * stages + 1 + 2 * (d > PAIR_COLS)) * 8 + 1024
 
 
 def dkv_walk(s: int, rep: int, cluster: int, rank: int, key_tile: int,
@@ -134,15 +171,18 @@ class FwdPlan:
     warpgroup and a producer warp, grid (Hq, B, query tiles); "tf32x3"
     streams key stages of FWD_TF32_KEY_STAGE rows through `stages` ring
     stages in `smem` bytes of shared memory, `ctas_per_sm` CTAs an SM.
-    "f32_cores" (f32, 128 < D <= 256) and "cores_wide" (D > 256):
-    `train_attn_fwd_cores_kernel`, one warp a query row, F32_ROWS a CTA,
-    grid (row blocks, Hq, B x column slices)."""
+    "tf32x3_pair" (f32, 128 < D <= 256: `train_attn_fwd_tf32_pair_kernel`):
+    the same on clusters of `cluster` = 2 CTAs along x, each owning
+    PAIR_COLS of D's columns, grid (2 Hq, B, query tiles). "cores_wide"
+    (D > 256): `train_attn_fwd_cores_kernel`, one warp a query row,
+    F32_ROWS a CTA, grid (row blocks, Hq, B x column slices)."""
 
     kernel: str
     grid: tuple[int, int, int]
     stages: int = 0
     smem: int = 0
     ctas_per_sm: int = 0
+    cluster: int = 1
 
     @property
     def ctas(self) -> int:
@@ -151,17 +191,19 @@ class FwdPlan:
 
 def fwd_tf32_smem(d: int) -> tuple[int, int, int]:
     """(stages, shared memory bytes, CTAs an SM) of `train_attn_fwd_tf32_kernel`
-    at head dim d <= 128, as csrc/train_attention.cu's FwdTf32 lays it out:
-    the raw Q tile (64 x DT f32), a stage's K and V as hi and lo planes (4 x
-    32 x DT f32), the p slot's hi and lo planes (2 x 64 x 32 f32), the rows'
-    factors (64 f32), the keys' segment ids and the stage's one, the
-    mbarriers, and 1024 bytes of alignment; DT = 64 or 128."""
-    dt, ts = (64 if d <= 64 else 128), FWD_TF32_KEY_STAGE
+    at head dim d <= 128, and of the pair's CTA above (DT = PAIR_COLS), as
+    csrc/train_attention.cu's FwdTf32 lays it out: the raw Q tile (64 x DT
+    f32), a stage's K and V as hi and lo planes (4 x 32 x DT f32), the p
+    slot's hi and lo planes (2 x 64 x 32 f32, where a pair's partial lands),
+    the rows' factors (64 f32), the keys' segment ids and the stage's one,
+    the mbarriers (full, empty, q; a pair's xready and xfree), and 1024 bytes
+    of alignment; DT = 64 or 128."""
+    dt, ts = (64 if d <= 64 else PAIR_COLS), FWD_TF32_KEY_STAGE
     stages, ctas = 2, (2 if dt <= 64 else 1)
     tile, plane, slot = 64 * dt * 4, ts * dt * 4, 64 * ts * 4
     seg = tile + 4 * stages * plane + 2 * slot + 64 * 4  # Q, the ring, p, the factors
     bar = -(-(seg + stages * (ts + 1) * 4) // 8) * 8
-    return stages, bar + (2 * stages + 1) * 8 + 1024, ctas
+    return stages, bar + (2 * stages + 1 + 2 * (d > PAIR_COLS)) * 8 + 1024, ctas
 
 
 @functools.lru_cache(maxsize=None)
@@ -172,9 +214,9 @@ def fwd_plan(b: int, s: int, hq: int, hkv: int, d: int, dtype=torch.bfloat16) ->
     forward once a layer."""
     if d > MAX_HEAD_DIM:
         return FwdPlan("cores_wide", (-(-s // F32_ROWS), hq, b * -(-d // WIDE_COLS)))
-    if dtype == torch.float32 and d > DKV_WGMMA_MAX_HEAD_DIM:
-        return FwdPlan("f32_cores", (-(-s // F32_ROWS), hq, b))
     grid = (hq, b, -(-s // FWD_TF32_QUERY_TILE))
+    if dtype == torch.float32 and d > PAIR_COLS:
+        return FwdPlan("tf32x3_pair", (2 * hq, b, grid[2]), *fwd_tf32_smem(d), cluster=2)
     if dtype == torch.float32:
         return FwdPlan("tf32x3", grid, *fwd_tf32_smem(d))
     return FwdPlan("wgmma", grid)
@@ -251,13 +293,25 @@ def tf32x3_matmul(a: torch.Tensor, b: torch.Tensor, passes: int = 3) -> torch.Te
     return out
 
 
+def _scores_tf32x3(a, b, mm):
+    """a b^T over D (the last dim) as the kernels take the score products:
+    by `mm`, and above D = PAIR_COLS as a CTA pair does, the products over
+    each CTA's PAIR_COLS columns summed."""
+    if a.shape[-1] <= PAIR_COLS:
+        return mm(a, b.transpose(-1, -2))
+    lo, hi = (mm(a[..., c], b[..., c].transpose(-1, -2))
+              for c in (slice(0, PAIR_COLS), slice(PAIR_COLS, None)))
+    return lo + hi
+
+
 def train_attn_fwd_tf32x3_emulated(q, k, v, seg, passes: int = 3, *, scale=None):
     """(o [B, S, Hq, D], lse [B, Hq, S]) of the forward with both products
     taken by `tf32x3_matmul`, as `train_attn_fwd_tf32_kernel` takes them: s
-    = q k^T (q and k split), the softmax in f32 over the allowed keys, o =
-    p v / l (p and v split). f32 results; seg as train_attn_bwd_dq_plain's.
-    The kernel's online softmax rescales its sum once a key stage: the same
-    function, summed in another order."""
+    = q k^T (q and k split; above D = PAIR_COLS in the pair's two halves,
+    summed), the softmax in f32 over the allowed keys, o = p v / l (p and v
+    split). f32 results; seg as train_attn_bwd_dq_plain's. The kernel's
+    online softmax rescales its sum once a key stage: the same function,
+    summed in another order."""
     b, s, hq, d = q.shape
     hkv = k.shape[2]
     rep = hq // hkv
@@ -265,7 +319,7 @@ def train_attn_fwd_tf32x3_emulated(q, k, v, seg, passes: int = 3, *, scale=None)
     heads = lambda x, r: x.to(torch.float32).reshape(b, s, hkv, r, d).permute(0, 2, 3, 1, 4)
     qg, kg, vg = heads(q, rep), heads(k, 1), heads(v, 1)
     allowed = _allowed(s, seg, q.device)
-    sc = torch.where(allowed, mm(qg, kg.transpose(-1, -2)) * _scale(d, scale), -torch.inf)
+    sc = torch.where(allowed, _scores_tf32x3(qg, kg, mm) * _scale(d, scale), -torch.inf)
     m = sc.amax(dim=-1, keepdim=True)
     p = torch.where(allowed, torch.exp(sc - m), 0.0)
     l = p.sum(dim=-1, keepdim=True)
@@ -277,7 +331,8 @@ def train_attn_fwd_tf32x3_emulated(q, k, v, seg, passes: int = 3, *, scale=None)
 def train_attn_bwd_tf32x3_emulated(q, k, v, seg, dout, lse, di, passes: int = 3, *, scale=None):
     """dq, dk, dv from the backward kernels' inputs (as
     train_attn_bwd_dq_plain) with every product taken by `tf32x3_matmul`,
-    as the f32 kernels at D <= 128 take them: s = q k^T, dp = do v^T, p in
+    as the f32 kernels take them: s = q k^T, dp = do v^T (above D =
+    PAIR_COLS in the pair's two halves, summed, as dkv takes them), p in
     f32, ds = p (dp - di), dv = p^T do, dk = scale ds^T q, dq = scale ds k
     (p and ds split too). f32 [B, S, H, D] results."""
     b, s, hq, d = q.shape
@@ -291,8 +346,8 @@ def train_attn_bwd_tf32x3_emulated(q, k, v, seg, dout, lse, di, passes: int = 3,
     lse_g = lse.to(torch.float32).reshape(b, hkv, rep, s, 1)
     di_g = di.to(torch.float32).reshape(b, s, hkv, rep).permute(0, 2, 3, 1)[..., None]
     p = torch.where(_allowed(s, seg, q.device),
-                    torch.exp(mm(qg, kg.transpose(-1, -2)) * scale - lse_g), 0.0)
-    ds = p * (mm(og, vg.transpose(-1, -2)) - di_g)
+                    torch.exp(_scores_tf32x3(qg, kg, mm) * scale - lse_g), 0.0)
+    ds = p * (_scores_tf32x3(og, vg, mm) - di_g)
     dv = mm(p.transpose(-1, -2), og).sum(2)
     dk = mm(ds.transpose(-1, -2), qg).sum(2) * scale
     dq = mm(ds, kg) * scale

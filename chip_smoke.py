@@ -1125,8 +1125,8 @@ def c6_phase(gen, bw, rec):
     rep 8 at D = 128 as the control; B1/B2 and B4 at Falcon-7B's K = 4544
     (g64 and g32, M = 8 and 256, qkv, dense and gate_up; down at K = 18176
     the control), exact on integers; B5 at K = 4544, FFN = 18176; B8 at D =
-    72, 80, 300 and 320, bf16 and f32, forward and the three gradients; then
-    the whole model (`_c6_model`)."""
+    72, 80, 300 and 320, bf16 and f32, forward and the three gradients (timed
+    beside SDPA and the plain version); then the whole model (`_c6_model`)."""
     rec["attention"] = {}
     for name, *case in C6_ATTN:
         ok, row = _attn_row(gen, *case)
@@ -1239,12 +1239,18 @@ def c6_phase(gen, bw, rec):
             row["sdpa_fwd_ms"] = cuda_ms(lambda i: sdpa(qt, kt, vt), 5)
             row["sdpa_fwd_bwd_ms"] = cuda_ms(lib_fb, 5)
             row["sdpa_bwd_ms"] = row["sdpa_fwd_bwd_ms"] - row["sdpa_fwd_ms"]
+            # the plain version on the same inputs: its forward, and fwd+bwd less fwd
+            plain = lambda a, bb, c, m: ta.flash_train_attention_plain(a, bb, c, m, scale=sc)
+            row["plain_fwd_ms"] = cuda_ms(lambda i: plain(qp, kp, vp, None), 2, reps=3)
+            row["plain_bwd_ms"] = cuda_ms(lambda i: _ta_run(plain, qp, kp, vp, dop, None), 2,
+                                          reps=3) - row["plain_fwd_ms"]
             rec["train_attention"][f"{name}_{'f32' if dtype == torch.float32 else 'bf16'}"] = row
             say(f"c6 train attention {name} {dtype}: errs {errs}, plans {row['fwd_plan']}/"
                 f"{row['dkv_plan']}, fwd {row['fwd_ms']:.4f} dkv {row['dkv_ms']:.4f} dq "
                 f"{row['dq_ms']:.4f} ms (bounds {row['fwd_bound_ms']:.4f}, "
                 f"{row['dkv_bound_ms']:.4f}, {row['dq_bound_ms']:.4f}); SDPA fwd "
-                f"{row['sdpa_fwd_ms']:.4f}, bwd {row['sdpa_bwd_ms']:.4f}; device time "
+                f"{row['sdpa_fwd_ms']:.4f}, bwd {row['sdpa_bwd_ms']:.4f}; plain fwd "
+                f"{row['plain_fwd_ms']:.4f}, bwd {row['plain_bwd_ms']:.4f}; device time "
                 f"{row['device_ms']}")
             if launched != [1, 1, 1] or not all(e <= tol for e in errs.values()):
                 raise AssertionError(f"C6 train attention {name} {dtype}: {row}")
@@ -1276,7 +1282,8 @@ TA_CASES = {  # name: (B, S, Hq, Hkv, D, padded row length or None, dtype)
     # Gemma-2B's attention widths (8 query heads over 1 kv head, head_dim 256) at
     # the train phase's 2 x 1024 micro-batch: the wide dkv on clusters of 8
     "d256_mqa": (2, 1024, 8, 1, 256, 900, torch.bfloat16),
-    # the same in f32: the CUDA-core forward, dkv and dq (above D = 128)
+    # the same in f32: the forward and dkv on 3xTF32 CTA pairs splitting D,
+    # dq on the CUDA cores (above D = 128)
     "d256_f32": (2, 1024, 8, 1, 256, 900, torch.float32),
 }
 
@@ -1324,7 +1331,8 @@ def train_attention_phase(gen, record):
     train_attn_bwd_dq_plain and against autograd's dq of the plain version,
     on the kernel forward's lse and di; then its times at TinyLlama's, 7B's
     and the two D = 256 cases' shapes, and in f32 at the f32 case's, the
-    two models' and Gemma-2B's heads (`d256_f32`: the CUDA-core kernels):
+    two models' and Gemma-2B's heads (`d256_f32`: the forward and dkv on the
+    3xTF32 CTA pairs, dq on the CUDA cores):
     the forward, dkv and dq kernels one by one through their wrappers, the
     plain version's forward and forward+backward, and SDPA
     (scaled_dot_product_attention(is_causal=True, enable_gqa=True), the
@@ -1658,7 +1666,8 @@ def serve_trained_phase(master, cfg, rec):
 
 TF32_KERNELS = ("train_attn_fwd_tf32_kernel<64>", "train_attn_fwd_tf32_kernel<128>",
                 "train_attn_dkv_tf32_kernel<64>", "train_attn_dkv_tf32_kernel<128>",
-                "train_attn_dq_tf32_kernel<64>", "train_attn_dq_tf32_kernel<128>")
+                "train_attn_dq_tf32_kernel<64>", "train_attn_dq_tf32_kernel<128>",
+                "train_attn_fwd_tf32_pair_kernel", "train_attn_dkv_tf32_pair_kernel")
 
 
 def sass_phase(rc: int, out: str, err: str) -> dict:
@@ -1930,8 +1939,9 @@ def main() -> int:
                "above D=128 by train_attn_dkv_wide_kernel; f32: B=1, S=300, Hq=8, Hkv=2, "
                "D=64, and tinyllama_f32, llama2_7b_f32 at the two models' shapes in f32, "
                "forward, dkv and dq by the 3xTF32 kernels; d256_f32: d256_mqa in f32, the "
-               "CUDA-core kernels; c6: D=72, 80, 300, 320 padded to a multiple of 16, above "
-               "D=256 the CUDA-core kernels on 256-column slices; their library_ms is SDPA on "
+               "forward and dkv by the 3xTF32 CTA pairs, dq on the CUDA cores; c6: D=72, 80, "
+               "300, 320 padded to a multiple of 16, above D=256 the CUDA-core kernels on "
+               "256-column slices; their library_ms is SDPA and plain_ms the plain version on "
                "the same padded inputs at the real D's scale, causal); max_abs_err is the "
                "worst relative error over the forward, the three gradients and dq alone of the "
                "checked cases; device_ms and library_device_ms: the kernel's and SDPA's "
@@ -1940,11 +1950,13 @@ def main() -> int:
     tm = ta_times["d256_mqa"]
     for kind, name, line, plain, lib, cu in (
             ("fwd", "train_attn_fwd", ":758 (_flash_attention_kernel :331)", "plain_fwd_ms",
-             "sdpa_fwd_ms", ("train_attn_fwd_kernel", "train_attn_fwd_tf32_kernel")),
+             "sdpa_fwd_ms", ("train_attn_fwd_kernel", "train_attn_fwd_tf32_kernel",
+                             "train_attn_fwd_tf32_pair_kernel")),
             ("dkv", "train_attn_bwd_dkv", ":1121 (_flash_attention_dkv_kernel :796)",
              "plain_bwd_ms", "sdpa_bwd_ms", ("train_attn_dkv_ws_kernel",
                                               "train_attn_dkv_wide_kernel",
-                                              "train_attn_dkv_tf32_kernel")),
+                                              "train_attn_dkv_tf32_kernel",
+                                              "train_attn_dkv_tf32_pair_kernel")),
             ("dq", "train_attn_bwd_dq", ":1456 (_flash_attention_dq_kernel :1146)",
              "plain_bwd_ms", "sdpa_bwd_ms", ("train_attn_dq_ws_kernel",
                                              "train_attn_dq_tf32_kernel"))):
@@ -1963,7 +1975,8 @@ def main() -> int:
             c6={c: dict({key: r[key] for key in (f"{kind}_ms", f"{kind}_bound_ms", "dkv_plan",
                                                  "fwd_plan", "rel_err", "launches")},
                         device_ms=r["device_ms"][kind],
-                        library_ms=r["sdpa_fwd_ms" if kind == "fwd" else "sdpa_bwd_ms"])
+                        library_ms=r["sdpa_fwd_ms" if kind == "fwd" else "sdpa_bwd_ms"],
+                        plain_ms=r["plain_fwd_ms" if kind == "fwd" else "plain_bwd_ms"])
                 for c, r in summary["c6"]["train_attention"].items()},
             sass={k: r for k, r in b8_sass.items() if k.startswith(cu)},
             **({"plan": tl["dkv_plan"], "llama2_7b_plan": t7["dkv_plan"],

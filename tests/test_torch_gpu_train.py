@@ -14,8 +14,11 @@ is also held by itself against `train_attn_bwd_dq_plain` on the forward
 kernel's lse and di (D = 64, 80, 128, 256; rep 1, 8, 71; S = 64, 129, 1000;
 padded), and its two calls must give the same bits. B8 in f32: dkv and dq at
 D <= 128 on the 3xTF32 kernels (D = 32, 64, 128; rep 1, 4, 8; S = 75 and
-1000, padded; two calls at D = 64 give the same bits), above on the CUDA
-cores (D = 144).
+1000, padded; two calls at D = 64 give the same bits); at 128 < D <= 256 the
+forward and dkv on the 3xTF32 CTA pairs, dq on the CUDA cores (D = 144,
+192, 256; rep 1, 2, 8; S = 129 and 1000, padded; two calls at D = 256 give
+the same bits over the pair alone, clusters of 8 and a head split that C
+does not divide).
 
 Tolerances: B8 in bf16, outputs and gradients within 2e-2 of max|plain| per
 tensor (p and ds enter their products rounded to bf16, the plain version
@@ -113,8 +116,8 @@ def test_train_attention_f32_matches_plain(gen, d):
     q, k, v, do, mask = _attention_case(gen, 2, 75, 4, 2, d, torch.float32, pad_to=60)
     got = _fwd_bwd(ta.flash_train_attention, q, k, v, do, mask)
     want = _fwd_bwd(ta.flash_train_attention_plain, q, k, v, do, mask)
-    # dkv (and dq) on 3xTF32 up to D = 128, on the CUDA cores above
-    assert ta.train_attn_bwd_dkv.plan.kernel == ("tf32x3" if d <= 128 else "f32_cores")
+    # dkv on 3xTF32 up to D = 128, on the 3xTF32 CTA pairs above
+    assert ta.train_attn_bwd_dkv.plan.kernel == ("tf32x3" if d <= 128 else "tf32x3_pair")
     assert _rel(got[0], want[0], mask) < 1e-4
     assert _rel(got[1], want[1], mask) < 1e-4
     assert _rel(got[2], want[2]) < 1e-4
@@ -147,6 +150,47 @@ def test_train_attention_f32_is_deterministic(gen):
     q, k, v, do, mask = _attention_case(gen, 1, 300, 16, 2, 64, torch.float32, pad_to=280)
     a = _fwd_bwd(ta.flash_train_attention, q, k, v, do, mask)
     assert ta.train_attn_bwd_dkv.plan == ta.dkv_plan(1, 300, 16, 2, 64, torch.float32)
+    c = _fwd_bwd(ta.flash_train_attention, q, k, v, do, mask)
+    assert all(torch.equal(x, y) for x, y in zip(a, c))
+
+
+@pytest.mark.parametrize("s", [129, 1000])
+@pytest.mark.parametrize("rep", [1, 2, 8])
+@pytest.mark.parametrize("d", [144, 192, 256])
+def test_train_attention_f32_pair_matches_plain(gen, d, rep, s):
+    """The f32 forward and dkv at 128 < D <= 256 on the 3xTF32 CTA pairs
+    (clusters of 2 and of 2 min(rep, 4)), dq on the CUDA cores: the output
+    and the three gradients; rep 1 over two kv heads and two batches (batch
+    0 padded), rep 2 and 8 over one kv head; D = 144 leaves the second CTA's
+    columns mostly zeros."""
+    b, hkv = (2, 2) if rep == 1 else (1, 1)
+    q, k, v, do, mask = _attention_case(gen, b, s, rep * hkv, hkv, d, torch.float32,
+                                        pad_to=s - s // 4)
+    launches = (ta.train_attn_fwd.launches, ta.train_attn_bwd_dkv.launches,
+                ta.train_attn_bwd_dq.launches)
+    got = _fwd_bwd(ta.flash_train_attention, q, k, v, do, mask)
+    assert (ta.train_attn_fwd.launches, ta.train_attn_bwd_dkv.launches,
+            ta.train_attn_bwd_dq.launches) == tuple(n + 1 for n in launches)
+    fplan, plan = ta.train_attn_fwd.plan, ta.train_attn_bwd_dkv.plan
+    assert (fplan.kernel, fplan.cluster, fplan.grid) == ("tf32x3_pair", 2,
+                                                         (2 * rep * hkv, b, -(-s // 64)))
+    assert (plan.kernel, plan.cluster) == ("tf32x3_pair", 2 * min(rep, 4))
+    want = _fwd_bwd(ta.flash_train_attention_plain, q, k, v, do, mask)
+    assert _rel(got[0], want[0], mask) < 1e-4
+    assert _rel(got[1], want[1], mask) < 1e-4
+    assert _rel(got[2], want[2]) < 1e-4
+    assert _rel(got[3], want[3]) < 1e-4
+
+
+@pytest.mark.parametrize("hq,hkv", [(2, 2), (8, 1), (12, 1)])
+def test_train_attention_f32_pair_is_deterministic(gen, hq, hkv):
+    """The pairs at D = 256: the pair alone (rep 1), clusters of 8 over rep
+    8 (two heads a head rank) and rep 12 (C = 4 of 12: three); bit for
+    bit, forward and the three gradients."""
+    q, k, v, do, mask = _attention_case(gen, 1, 300, hq, hkv, 256, torch.float32, pad_to=280)
+    a = _fwd_bwd(ta.flash_train_attention, q, k, v, do, mask)
+    plan = ta.train_attn_bwd_dkv.plan
+    assert (plan.kernel, plan.cluster) == ("tf32x3_pair", 2 * min(hq // hkv, 4))
     c = _fwd_bwd(ta.flash_train_attention, q, k, v, do, mask)
     assert all(torch.equal(x, y) for x, y in zip(a, c))
 
@@ -362,16 +406,19 @@ def test_decode_attention_kernel_at_d256_and_f32_q(gen, hq, hkv, d, qdtype, kv):
     (1, 200, 4, 2, 16, 150),      # D = 16, padded
     (2, 129, 8, 1, 48, 100),      # D = 48, MQA rep 8, padded
     (1, 333, 4, 4, 128, 300),     # D = 128, padded
+    (2, 1024, 8, 1, 256, 900),    # Gemma-2B's heads in f32: the CTA pairs
+    (1, 333, 4, 2, 144, 300),     # D = 144, padded: the pairs, the second CTA mostly zeros
 ])
 def test_train_attention_f32_forward_kernel_matches_plain(gen, b, s, hq, hkv, d, pad_to):
-    """The f32 forward on the 3xTF32 kernel: o and lse against the plain
-    version (lse from the plain scores), and two calls bit for bit."""
+    """The f32 forward on the 3xTF32 kernel (on CTA pairs above D = 128): o
+    and lse against the plain version (lse from the plain scores), and two
+    calls bit for bit."""
     q, k, v, _, mask = _attention_case(gen, b, s, hq, hkv, d, torch.float32, pad_to)
     seg = None if mask is None else mask.contiguous()
     before = ta.train_attn_fwd.launches
     out, lse = ta.train_attn_fwd(q, k, v, seg)
     assert ta.train_attn_fwd.launches == before + 1
-    assert ta.train_attn_fwd.plan.kernel == "tf32x3"
+    assert ta.train_attn_fwd.plan.kernel == ("tf32x3" if d <= 128 else "tf32x3_pair")
     want = ta.flash_train_attention_plain(q, k, v, mask)
     assert _rel(out, want, mask) < 1e-4
     qg = q.reshape(b, s, hkv, hq // hkv, d)

@@ -1,14 +1,15 @@
-"""B8's f32 forward at D <= 128 on the CPU: the arithmetic of
+"""B8's f32 forward on the CPU: the arithmetic of
 `train_attn_fwd_tf32_kernel` (both products, s = q k^T and o = p v, in
-3xTF32: `tf32x3_matmul`), emulated in plain PyTorch by
+3xTF32: `tf32x3_matmul`; above D = 128 s as the CTA pair takes it, two
+128-column halves summed), emulated in plain PyTorch by
 `train_attn_fwd_tf32x3_emulated`, against the port's plain f32 forward and
 the JAX package's f32 flash forward (the stock Pallas TPU flash kernel
 under pltpu.force_tpu_interpret_mode(), as tests/test_torch_train_attention.py
-runs it). D = 64 and 128, rep 1 and 8, padded, a ragged S. Then the
-dispatch rule (`fwd_plan`: f32 at D <= 128 on the new kernel, above on the
-CUDA cores, above 256 on the same on column slices; bf16 on the wgmma
-kernel) and the launch plan's CTAs and shared memory, which the wrapper
-hands the CUDA launch (a recording stub here, as
+runs it). D = 64, 128, 144 and 256, rep 1 and 8, padded, a ragged S. Then
+the dispatch rule (`fwd_plan`: f32 at D <= 128 on the kernel, at 128 < D
+<= 256 on its CTA pairs, above 256 on the CUDA cores on column slices;
+bf16 on the wgmma kernel) and the launch plan's CTAs and shared memory,
+which the wrapper hands the CUDA launch (a recording stub here, as
 tests/test_torch_train_attention_plan.py does for dkv).
 
 Tolerance: 1e-4 of max|plain| per tensor, the bar the kernel is held to on
@@ -35,6 +36,10 @@ CASES = [  # b, s, hq, hkv, d
     (1, 130, 8, 1, 64),   # MQA, rep 8
     (2, 100, 2, 2, 128),  # rep 1, D = 128
     (1, 100, 8, 1, 128),  # rep 8, D = 128
+    (2, 100, 2, 2, 144),  # the CTA pair: rep 1, the second half mostly zero columns
+    (1, 100, 8, 1, 144),  # ... rep 8
+    (2, 100, 2, 2, 256),  # ... rep 1, D = 256
+    (1, 100, 8, 1, 256),  # ... rep 8 (Gemma-2B's heads)
 ]
 TOL = 1e-4
 
@@ -107,26 +112,28 @@ def test_forward_dispatch_rule(d, dtype):
     elif dtype == torch.bfloat16:
         want = "wgmma"
     else:
-        want = "tf32x3" if d <= 128 else "f32_cores"
+        want = "tf32x3" if d <= 128 else "tf32x3_pair"
     assert plan.kernel == want
+    assert plan.cluster == (2 if want == "tf32x3_pair" else 1)
     if want in ("wgmma", "tf32x3"):  # a CTA a (query head, batch, 64-row query tile)
         assert plan.grid == (8, 2, 5)
-    elif want == "f32_cores":  # a warp a query row, 8 a CTA
-        assert plan.grid == (-(-300 // ta.F32_ROWS), 8, 2)
-    else:  # ... and D's output columns in slices of 256
+    elif want == "tf32x3_pair":  # ... and a pair of them, on clusters of 2 along x
+        assert plan.grid == (16, 2, 5)
+    else:  # a warp a query row, 8 a CTA, and D's output columns in slices of 256
         assert plan.grid == (-(-300 // ta.F32_ROWS), 8, 2 * -(-d // ta.WIDE_COLS))
 
 
 @pytest.mark.parametrize("d,smem,ctas", [(16, 99888, 2), (64, 99888, 2), (80, 181808, 1),
-                                         (128, 181808, 1)])
+                                         (128, 181808, 1), (144, 181824, 1), (256, 181824, 1)])
 def test_tf32_forward_launch_plan(d, smem, ctas):
     """Q (64 x DT f32), two stages of K and V as hi and lo planes, the p
-    slot's planes, the rows' factors, segment ids and mbarriers: two CTAs an
-    SM at DT = 64, one at 128, within the SM's 228 KB (1 KB reserved a
-    CTA)."""
+    slot's planes, the rows' factors, segment ids and mbarriers (a pair's
+    two more): two CTAs an SM at DT = 64, one at 128 and for each CTA of a
+    pair (DT = 128 too), within the SM's 228 KB (1 KB reserved a CTA)."""
     plan = ta.fwd_plan(2, 1024, 32, 4, d, torch.float32)
     assert (plan.stages, plan.smem, plan.ctas_per_sm) == (2, smem, ctas)
-    assert plan.grid == (32, 2, 16) and plan.ctas == 1024
+    pairs = 2 if d > 128 else 1
+    assert plan.grid == (32 * pairs, 2, 16) and plan.ctas == 1024 * pairs
     assert ctas * (plan.smem + 1024) <= 233472 < (ctas + 1) * (plan.smem + 1024)
     assert plan.smem <= 232448  # a block's limit
 
@@ -135,7 +142,7 @@ class _Stream:
     cuda_stream = 0
 
 
-@pytest.mark.parametrize("d", [64, 128, 144])
+@pytest.mark.parametrize("d", [64, 128, 144, 256])
 def test_wrapper_launches_the_plans_kernel(monkeypatch, d):
     log = []
 
@@ -153,7 +160,7 @@ def test_wrapper_launches_the_plans_kernel(monkeypatch, d):
     out, lse = ta.train_attn_fwd(q, q[:, :, :2], q[:, :, :2], None)
     assert ta.train_attn_fwd.launches == before + 1
     assert ta.train_attn_fwd.plan == ta.fwd_plan(1, 70, 4, 2, d, torch.float32)
-    assert ta.train_attn_fwd.plan.kernel == ("tf32x3" if d <= 128 else "f32_cores")
+    assert ta.train_attn_fwd.plan.kernel == ("tf32x3" if d <= 128 else "tf32x3_pair")
     name, args = log[-1]
     assert name == "bd_train_attn_fwd" and args[6:11] == (1, 70, 4, 2, d) and args[-2] == 1
     assert args[11] == pytest.approx(1 / math.sqrt(d))

@@ -1,11 +1,14 @@
 """B8's dkv plan on the CPU: `dkv_plan` (which kernel by dtype and D: bf16
 "wgmma" up to D = 128, "wgmma_wide" above; f32 "tf32x3" up to D = 128,
-"f32_cores" above; the cluster size C = min(rep, 8) on the tensor cores,
-1 on the CUDA cores; the grid) and `dkv_walk` (what CTA `rank` of a cluster
-walks for a key tile, in the plan's query tiles: 64 rows, 32 for tf32x3),
-which the CUDA launch of csrc/train_attention.cu follows. Every (key tile,
-query head, query tile) on or below the diagonal is walked exactly once, by
-one rank; the wrapper hands the kernel the plan's cluster. No kernel launches here: the dispatch
+"tf32x3_pair" above; the cluster size C = min(rep, 8) on the tensor cores,
+2 min(rep, 4) for the pairs, 1 on the CUDA cores above D = 256; the grid)
+and `dkv_walk` (what CTA `rank` of a cluster walks for a key tile, in the
+plan's query tiles: 64 rows, 32 for the tf32 kernels; a pair's two CTAs
+walk their head rank's list), which the CUDA launch of
+csrc/train_attention.cu follows. Every (key tile, query head, query tile)
+on or below the diagonal is walked exactly once, by one head rank; the
+wrapper hands the kernel the plan's cluster; the pair's shared memory, from
+the .cu layout, fits a block. No kernel launches here: the dispatch
 test replaces the launcher with a recording stub, as
 tests/test_torch_c1_dispatch.py does."""
 
@@ -25,17 +28,18 @@ def _ceil(a, b):
 WALKS = [(64, 1), (130, 2), (129, 4), (256, 7), (1024, 8), (130, 71), (2048, 1)]
 
 
-@pytest.mark.parametrize("s,rep,dtype", [pytest.param(s, rep, torch.bfloat16, id=f"{s}-{rep}")
-                                         for s, rep in WALKS]
-                         + [pytest.param(s, rep, torch.float32, id=f"{s}-{rep}-f32")
-                            for s, rep in WALKS])
-def test_dkv_walk_covers_each_pair_once_on_or_below_the_diagonal(s, rep, dtype):
-    plan = ta.dkv_plan(1, s, rep, 1, 64, dtype)
-    qtile = plan.query_tile
+@pytest.mark.parametrize("s,rep,dtype,d", [
+    pytest.param(s, rep, torch.bfloat16, 64, id=f"{s}-{rep}") for s, rep in WALKS]
+    + [pytest.param(s, rep, torch.float32, 64, id=f"{s}-{rep}-f32") for s, rep in WALKS]
+    + [pytest.param(s, rep, torch.float32, 256, id=f"{s}-{rep}-f32-pair") for s, rep in WALKS])
+def test_dkv_walk_covers_each_pair_once_on_or_below_the_diagonal(s, rep, dtype, d):
+    plan = ta.dkv_plan(1, s, rep, 1, d, dtype)
+    qtile, ranks = plan.query_tile, plan.head_ranks
+    assert plan.cluster == (2 * ranks if d > 128 else ranks)
     nq = _ceil(s, qtile)
     for kt in range(_ceil(s, TILE)):
-        walked = [(rank, pair) for rank in range(plan.cluster)
-                  for pair in ta.dkv_walk(s, rep, plan.cluster, rank, kt, qtile)]
+        walked = [(rank, pair) for rank in range(ranks)
+                  for pair in ta.dkv_walk(s, rep, ranks, rank, kt, qtile)]
         pairs = [pair for _, pair in walked]
         # query tiles whose last row reaches the key tile's first key
         want = {(r, qt) for r in range(rep) for qt in range(nq)
@@ -70,17 +74,20 @@ def test_dkv_ctas_at_tinyllama_and_llama2_7b():
         (80, "wgmma", torch.bfloat16), (128, "wgmma", torch.bfloat16),
         (144, "wgmma_wide", torch.bfloat16), (256, "wgmma_wide", torch.bfloat16),
         (16, "tf32x3", torch.float32), (64, "tf32x3", torch.float32),
-        (128, "tf32x3", torch.float32), (144, "f32_cores", torch.float32),
-        (256, "f32_cores", torch.float32))])
+        (128, "tf32x3", torch.float32), (144, "tf32x3_pair", torch.float32),
+        (256, "tf32x3_pair", torch.float32), (320, "cores_wide", torch.float32))])
 def test_dkv_kernel_is_chosen_by_head_dim(d, kernel, dtype):
     plan = ta.dkv_plan(1, 200, 8, 2, d, dtype)
     assert plan.kernel == kernel
-    if kernel == "f32_cores":  # one warp a key row, F32_ROWS a CTA, no cluster
-        assert plan.cluster == 1 and plan.grid == (_ceil(200, ta.F32_ROWS), 2, 1)
+    if kernel == "cores_wide":  # one warp a key row, F32_ROWS a CTA, no cluster, 2 slices
+        assert plan.cluster == 1 and plan.grid == (_ceil(200, ta.F32_ROWS), 2, 2)
         return
-    # the tensor-core kernels: clusters of min(rep, 8) CTAs a 64-row key tile and kv head
-    assert plan.cluster == 4 and plan.grid == (4, _ceil(200, 64) * 2, 1)
-    assert plan.query_tile == (32 if kernel == "tf32x3" else 64)
+    # the tensor-core kernels: clusters of min(rep, 8) CTAs a 64-row key tile and kv
+    # head; the pairs 2 min(rep, 4) (rep 4: 8 CTAs, each head rank's two walking one head)
+    c = 8 if kernel == "tf32x3_pair" else 4
+    assert plan.cluster == c and plan.grid == (c, _ceil(200, 64) * 2, 1)
+    assert plan.head_ranks == 4
+    assert plan.query_tile == (32 if kernel.startswith("tf32x3") else 64)
 
 
 class _Stream:
@@ -93,7 +100,10 @@ class _Stream:
     (8, 1, 256, torch.bfloat16, 8),   # Gemma-2B's attention heads: MQA, rep 8, D 256
     (4, 2, 192, torch.bfloat16, 2),   # D 192, rep 2
     (32, 4, 128, torch.float32, 8),   # f32 on clusters of 8 (tf32x3)
-    (8, 2, 144, torch.float32, 1)])   # f32 above D 128: the CUDA cores, no cluster
+    (8, 2, 144, torch.float32, 8),    # f32 above D 128: pairs of CTAs, 2 min(rep, 4)
+    (2, 2, 256, torch.float32, 2),    # ... MHA: the pair alone
+    (12, 4, 192, torch.float32, 6),   # ... rep 3: three pairs
+    (8, 2, 320, torch.float32, 1)])   # above D 256: the CUDA cores, no cluster
 def test_dkv_wrapper_hands_the_kernel_the_plans_cluster(monkeypatch, hq, hkv, d, dtype, cluster):
     log = []
 
@@ -122,6 +132,36 @@ def test_dkv_wrapper_hands_the_kernel_the_plans_cluster(monkeypatch, hq, hkv, d,
     if dtype == torch.bfloat16:
         assert plan.kernel == ("wgmma" if d <= 128 else "wgmma_wide")
     else:
-        assert plan.kernel == ("tf32x3" if d <= 128 else "f32_cores")
-    if plan.kernel != "f32_cores":
+        assert plan.kernel == ("tf32x3" if d <= 128 else "tf32x3_pair" if d <= 256
+                               else "cores_wide")
+    if plan.kernel != "cores_wide":
         assert plan.grid == (cluster, _ceil(s, TILE) * hkv, b)
+
+
+@pytest.mark.parametrize("d,smem", [(64, 99744), (128, 231216), (144, 231232), (256, 231232)])
+def test_tf32_dkv_shared_memory_fits(d, smem):
+    """`dkv_tf32_smem`, csrc/train_attention.cu's DkvTf32 layout in Python:
+    two CTAs an SM at DT = 64, one at 128; a pair's CTA (DT = 128) adds only
+    its two mbarriers, its partials landing in the ds slots, and stays
+    within a block's 232,448 bytes and the SM's 233,472 (1 KB a CTA)."""
+    plan = ta.dkv_plan(2, 1024, 8, 1, d, torch.float32)
+    assert plan.smem == ta.dkv_tf32_smem(d) == smem
+    ctas = 2 if d <= 64 else 1
+    assert plan.smem <= 232448
+    assert ctas * (plan.smem + 1024) <= 233472 < (ctas + 1) * (plan.smem + 1024)
+    fwd = ta.fwd_plan(2, 1024, 8, 1, d, torch.float32)
+    assert fwd.smem <= 232448 and fwd.ctas_per_sm * (fwd.smem + 1024) <= 233472
+
+
+def test_pair_ctas_at_gemma_2b_heads_in_f32():
+    """d256_f32 (B 2, S 1024, 8 query heads over 1, D 256): dkv on 256 CTAs
+    in clusters of 8 (four head ranks of two heads, each a pair), as many
+    as the D = 128 kernel's clusters of 8 give; the forward on 512 CTAs in
+    pairs."""
+    dkv = ta.dkv_plan(2, 1024, 8, 1, 256, torch.float32)
+    assert (dkv.kernel, dkv.cluster, dkv.grid, dkv.ctas, dkv.head_ranks) == (
+        "tf32x3_pair", 8, (8, 16, 2), 256, 4)
+    assert dkv.ctas == ta.dkv_plan(2, 1024, 8, 1, 128, torch.float32).ctas
+    assert len(ta.dkv_walk(1024, 8, 4, 0, 0, 32)) == 2 * 32  # two heads, 32 query stages
+    fwd = ta.fwd_plan(2, 1024, 8, 1, 256, torch.float32)
+    assert (fwd.kernel, fwd.cluster, fwd.grid, fwd.ctas) == ("tf32x3_pair", 2, (16, 2, 16), 512)

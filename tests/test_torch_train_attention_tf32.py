@@ -1,11 +1,12 @@
-"""The arithmetic of B8's f32 backward kernels at D <= 128 on the CPU:
-3xTF32 (`tf32x3_matmul`: each operand split into hi = tf32(x) and lo =
+"""The arithmetic of B8's f32 backward kernels on the CPU: 3xTF32
+(`tf32x3_matmul`: each operand split into hi = tf32(x) and lo =
 tf32(x - hi), three products hi hi + hi lo + lo hi in f32), emulated in
-plain PyTorch by `train_attn_bwd_tf32x3_emulated`, against the JAX
-package's f32 flash gradients, run as tests/test_torch_train_attention.py
-runs them (the stock Pallas TPU flash kernel under
-pltpu.force_tpu_interpret_mode()). D = 64 and 128, rep 1 and 8, padded, a
-ragged S.
+plain PyTorch by `train_attn_bwd_tf32x3_emulated` (above D = 128 the score
+products as the dkv kernel's CTA pair takes them: two 128-column halves,
+each in 3xTF32, summed), against the JAX package's f32 flash gradients,
+run as tests/test_torch_train_attention.py runs them (the stock Pallas TPU
+flash kernel under pltpu.force_tpu_interpret_mode()). D = 64, 128, 144
+and 256, rep 1 and 8, padded, a ragged S.
 
 Tolerance: 1e-4 of max|JAX| per gradient, the bar the kernels are held to
 on the card (chip_smoke.py: TRAIN_ATTN_TOL_F32). One pass (plain TF32,
@@ -31,6 +32,10 @@ CASES = [  # b, s, hq, hkv, d
     (1, 130, 8, 1, 64),   # MQA, rep 8
     (2, 100, 2, 2, 128),  # rep 1, D = 128
     (1, 100, 8, 1, 128),  # rep 8, D = 128
+    (2, 100, 2, 2, 144),  # the CTA pair: rep 1, the second half mostly zero columns
+    (1, 100, 8, 1, 144),  # ... rep 8
+    (2, 100, 2, 2, 256),  # ... rep 1, D = 256
+    (1, 100, 8, 1, 256),  # ... rep 8 (Gemma-2B's heads)
 ]
 TOL = 1e-4
 
