@@ -77,13 +77,18 @@
 // f32 (JAX's compute dtype float32, `--dtype float32`): the forward, dkv
 // and dq at D <= 128 are 3xTF32 wgmma kernels fed by a TMA ring (see their
 // section: every A from registers, the products over rows taken
-// transposed), bound by operations at 495 / 3 = 165 TFLOP/s; at 128 < D <=
-// 256 the forward and dkv are the same kernels on CTA pairs that split D's
-// columns and swap partial scores through distributed shared memory, and dq
-// runs on CUDA cores (one warp a row), as both dtypes do above D = 256: the
-// same kernels, with the CTAs splitting D's output columns into slices of
-// WIDE_COLS, each slice recomputing the scores, so no register array grows
-// with D.
+// transposed), bound by operations at 495 / 3 = 165 TFLOP/s. Above, the
+// same kernels run on clusters that split D's columns into ns = ceil(D /
+// 128) CTAs, each taking the score products over its 128 columns: the
+// forward in pairs (128 < D <= 256) that push their partial scores into
+// each other's shared memory (pair_sum), dkv and dq in splits of 2 to 8
+// CTAs (128 < D <= 1024) that each pull the ns partials in rank order
+// (split_sum). bf16 dkv and dq at 256 < D <= 1024 run the f32 split on f32
+// copies that the wrapper makes (a bf16 value is exact in tf32).
+// The rest runs on CUDA cores (one warp a row, the CTAs splitting D's
+// output columns into slices of WIDE_COLS, each slice recomputing the
+// scores, so no register array grows with D): the forward above D = 256 in
+// both dtypes, dkv and dq above D = 1024.
 
 #include <float.h>
 #include <limits.h>
@@ -1093,12 +1098,19 @@ __global__ void __launch_bounds__(2 * kWg + 32, 1)
 // CTA's elementwise work overlaps the other's products (faster than one
 // CTA with a deeper ring, which only hides the loads). At D = 128
 // the resident raw tiles (64 KB) and a stage (64 KB) allow one CTA an SM
-// (up to 227 KB, 255 registers). At 128 < D <= 256 neither tiles nor
-// accumulators of the D = 128 layout fit twice in a CTA, so two CTAs of a
-// cluster split D (the forward and dkv: see pair_sum).
+// (up to 227 KB, 255 registers). Above D = 128 neither tiles nor
+// accumulators of the D = 128 layout fit twice in a CTA, so the CTAs of a
+// cluster split D, 128 columns each (see pair_sum and split_sum).
 
 constexpr int TS = 32;  // rows of a tf32 ring stage: queries (dkv) or keys (dq); a p/ds row
 static_assert(TS == 32, "the producer warp reads a stage's scalars a row a lane");
+constexpr int kSplitCols = 128;  // D's columns of a CTA of a split (DT = 128)
+constexpr int kMaxSplit = 8;     // CTAs a split: D <= 1024
+
+// CTAs splitting D's columns (1 below kSplitCols)
+__host__ __device__ __forceinline__ int split_ctas(int D) {
+  return D <= kSplitCols ? 1 : (D + kSplitCols - 1) / kSplitCols;
+}
 
 template <int I, int N, typename F>
 __device__ __forceinline__ void static_for(F&& f) {
@@ -1293,14 +1305,13 @@ __device__ __forceinline__ void store_split(float* h, float* l, const float (&v)
     }
 }
 
-// A CTA pair splitting D (f32, 128 < D <= 256: the forward and dkv). CTA
-// `half` of a cluster pair owns D's columns 128 half .. 128 half + 127 and
-// takes the score products over them only: a partial 64 x TS tile (two in
-// dkv, s^T and dp^T). Once a stage the two swap partials through
-// distributed shared memory and each adds the other's to its own (own +
-// peer in both: IEEE addition commutes, so both hold the same bits, and the
-// same p, ds and lse follow with no second exchange). A partial lands in the
-// peer's p hi slot (forward) or ds hi and lo slots (dkv), at the positions
+// A CTA pair splitting D (f32, 128 < D <= 256: the forward). CTA `half` of
+// a cluster pair owns D's columns 128 half .. 128 half + 127 and takes the
+// score product over them only: a partial 64 x TS tile. Once a stage the two
+// swap partials through distributed shared memory and each adds the
+// other's to its own (own + peer in both: IEEE addition commutes, so both
+// hold the same bits, and the same p and lse follow with no second
+// exchange). A partial lands in the peer's p hi slot, at the positions
 // that the peer's thread of the same index then overwrites with store_split:
 // each thread reads its own positions only, so no thread waits for another
 // between the sum and the stores. Two mbarriers a CTA: xready (the peer's
@@ -1330,27 +1341,98 @@ __device__ __forceinline__ void add_partial(float (&v)[16], const float* t, int 
     }
 }
 
-// Stage t's exchange: x (and y, with TWO) into the peer's planes xs (ys),
-// once the peer is done with stage t - 1; then, once the peer's have
-// landed in this CTA's own, x (y) += them.
-template <bool TWO>
-__device__ __forceinline__ void pair_sum(float (&x)[16], float (&y)[16], float* xs, float* ys,
-                                         uint64_t* xready, uint64_t* xfree, int t, int sb) {
+// Stage t's exchange: x into the peer's plane xs, once the peer is done
+// with stage t - 1; then, once the peer's has landed in this CTA's own,
+// x += it.
+__device__ __forceinline__ void pair_sum(float (&x)[16], float* xs, uint64_t* xready,
+                                         uint64_t* xfree, int t, int sb) {
   cg::cluster_group cluster = cg::this_cluster();
   const unsigned peer = cluster.block_rank() ^ 1u;
   if (t > 0) mbar_wait_cluster(xfree, (t - 1) & 1);
   put_partial(cluster.map_shared_rank(xs, peer), x, sb);
-  if constexpr (TWO) put_partial(cluster.map_shared_rank(ys, peer), y, sb);
   mbar_arrive_cluster(xready, peer);
   mbar_wait_cluster(xready, t & 1);
   add_partial(x, xs, sb);
-  if constexpr (TWO) add_partial(y, ys, sb);
 }
 
 // After a stage's product (its wgmmas waited for): lane 0 tells the peer
 // that this warp no longer reads the planes the peer writes next
 __device__ __forceinline__ void pair_free(uint64_t* xfree, int lane) {
   if (lane == 0) mbar_arrive_cluster(xfree, cg::this_cluster().block_rank() ^ 1u);
+}
+
+// A split of ns CTAs (f32, 128 < D <= 1024: dkv and dq), cluster ranks
+// base .. base + ns - 1; column rank `side` owns D's columns 128 side ..
+// 128 side + 127. A push as the forward's pair_sum would need ns - 1
+// landing slots where the ds slots hold one, so each CTA pulls (at ns = 2
+// too, where the pull is no slower than the push): it leaves its partials
+// in its own ds hi and lo slots (16 KB: thread t's 16 floats of x, then of
+// y, as float4s at i kWg + t, so that a warp reads 512 contiguous bytes an
+// instruction), and every CTA reads the ns partials in rank order,
+// ((p0 + p1) + p2) + ..., so all hold the same bits. Two mbarriers a CTA,
+// each counting an arrival a warp (after a __syncwarp, lane r arrives on
+// rank r, so the releases at cluster scope go out together): xready, from
+// each warp of the ns - 1 peers (their partials are in place), and xfree,
+// from each warp of all ns CTAs, this one's too (split_free: every warp of
+// the split has read this CTA's partials). Only then may a warp overwrite
+// its rows of the slots with ds: in the layout above, warp w's rows of ds
+// are float4 chunk w of every thread's partial, which the CTA's other warps
+// read as well. Both are waited for in every stage, so after a CTA's last
+// split_free no peer reads its shared memory or arrives on it any more.
+
+// The arrival of this warp on the barrier at bar's offset in every CTA of
+// the split (SELF) or in every peer
+template <bool SELF>
+__device__ __forceinline__ void split_arrive(uint64_t* bar, int base, int side, int ns, int lane) {
+  __syncwarp();
+  if (lane < ns && (SELF || lane != side)) mbar_arrive_cluster(bar, base + lane);
+}
+
+// x and y (+)= the partials at p, thread tid's (split_sum's layout)
+template <bool ADD>
+__device__ __forceinline__ void add_split(float (&x)[16], float (&y)[16], const float4* p,
+                                          int tid) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const float4 v = p[i * kWg + tid];
+    float* d = i < 4 ? x + 4 * i : y + 4 * (i - 4);
+    d[0] = ADD ? d[0] + v.x : v.x;
+    d[1] = ADD ? d[1] + v.y : v.y;
+    d[2] = ADD ? d[2] + v.z : v.z;
+    d[3] = ADD ? d[3] + v.w : v.w;
+  }
+}
+
+// Stage t's sum: x and y into this CTA's slots at xs (16 KB), then the ns
+// CTAs' partials in rank order into x and y
+__device__ __forceinline__ void split_sum(float (&x)[16], float (&y)[16], float* xs,
+                                          uint64_t* xready, int t, int base, int side, int ns,
+                                          int lane, int tid) {
+  cg::cluster_group cluster = cg::this_cluster();
+  float4* own = reinterpret_cast<float4*>(xs);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    own[i * kWg + tid] = make_float4(x[4 * i], x[4 * i + 1], x[4 * i + 2], x[4 * i + 3]);
+    own[(4 + i) * kWg + tid] = make_float4(y[4 * i], y[4 * i + 1], y[4 * i + 2], y[4 * i + 3]);
+  }
+  split_arrive<false>(xready, base, side, ns, lane);
+  mbar_wait_cluster(xready, t & 1);
+  for (int r = 0; r < ns; ++r) {
+    const float4* p = r == side ? own : cluster.map_shared_rank(own, base + r);
+    if (r == 0)
+      add_split<false>(x, y, p, tid);
+    else
+      add_split<true>(x, y, p, tid);
+  }
+}
+
+// After the sums' values have been used (so the warp's reads are done):
+// tell every CTA of the split, this one included, and wait until every warp
+// of the split has read this CTA's partials
+__device__ __forceinline__ void split_free(uint64_t* xfree, int t, int base, int side, int ns,
+                                           int lane) {
+  split_arrive<true>(xfree, base, side, ns, lane);
+  mbar_wait_cluster(xfree, t & 1);
 }
 
 // acc (DT/64 tiles of 64 x 64: D's columns 64 mt + 16 w + l/4 (+8) as rows,
@@ -1369,7 +1451,7 @@ __device__ __forceinline__ void acc_to_rows(float* out, const float (&acc)[DT / 
     }
 }
 
-template <int DT, bool PAIR = false>
+template <int DT, bool SPLIT = false>
 struct DkvTf32 {
   static constexpr int ST = DT <= 64 ? 1 : 2;     // ring stages
   static constexpr int KC = 2;                    // k-steps a chunk of the score products
@@ -1381,9 +1463,9 @@ struct DkvTf32 {
   static constexpr int XCH = 2 * TILE + 4 * ST * PLANE;  // p hi, p lo, ds hi, ds lo
   static constexpr int SCAL = XCH + 4 * SLOT;            // [ST][3][TS]: lse2, di, seg
   // then the query stage's one segment id [ST]; then full, empty, kv (and a
-  // pair's xready, xfree), 8-byte aligned
+  // split's xready, xfree), 8-byte aligned
   static constexpr int BAR = (SCAL + ST * (3 * TS + 1) * 4 + 7) / 8 * 8;
-  static constexpr int SMEM = BAR + (2 * ST + 1 + (PAIR ? 2 : 0)) * 8 + 1024;
+  static constexpr int SMEM = BAR + (2 * ST + 1 + (SPLIT ? 2 : 0)) * 8 + 1024;
   static constexpr int OUT = 64 * (DT + 4);  // floats of a [key][D] partial tile, padded rows
   static_assert(2 * OUT * 4 <= XCH, "the partial tiles overlay K, V and the ring");
   static_assert(MIN_BLOCKS * (SMEM + 1024) <= 233472, "shared memory of an SM");
@@ -1401,19 +1483,22 @@ struct DkvTf32 {
 // dk^T += Q^T ds. The C partial tiles are summed in rank order through
 // distributed shared memory ([key][D] rows, coalesced): no atomics, the same
 // bits on every run.
-// PAIR (128 < D <= 256, DT = 128): clusters of 2C CTAs, C = min(rep, 4);
-// CTA 2 rank + side walks rank's heads over D's columns 128 side .. 128 side
-// + 127 beside its pair partner (pair_sum after the score products), and
-// the C partial tiles of one side are summed in rank order.
-template <int DT, bool PAIR>
+// SPLIT (128 < D <= 1024, DT = 128): clusters of ns C CTAs, ns =
+// split_ctas(D), C = min(rep, 8 / ns); CTA ns rank + side walks head rank
+// `rank`'s heads over D's columns 128 side .. 128 side + 127 beside the
+// other column ranks of its head rank (split_sum after the score
+// products), and the C partial tiles of one column rank are summed in rank
+// order.
+template <int DT, bool SPLIT>
 __device__ __forceinline__ void dkv_tf32(const CUtensorMap& q_map, const CUtensorMap& k_map,
                                          const CUtensorMap& v_map, const CUtensorMap& do_map,
                                          const int* __restrict__ seg, const float* __restrict__ lse,
                                          const float* __restrict__ di, float* __restrict__ dk,
                                          float* __restrict__ dv, int S, int Hq, int Hkv, int D,
                                          float scale) {
-  using P = DkvTf32<DT, PAIR>;
-  constexpr int ST = P::ST, NB = DT / 32, P2 = PAIR ? 2 : 1;
+  using P = DkvTf32<DT, SPLIT>;
+  constexpr int ST = P::ST, NB = DT / 32;
+  const int ns = SPLIT ? split_ctas(D) : 1;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align1024(smem_raw);
   float* scal = reinterpret_cast<float*>(smem + P::SCAL);
@@ -1421,10 +1506,10 @@ __device__ __forceinline__ void dkv_tf32(const CUtensorMap& q_map, const CUtenso
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + P::BAR);
   uint64_t* empty = full + ST;
   uint64_t* kvbar = empty + ST;
-  uint64_t* xready = kvbar + 1;  // PAIR only
+  uint64_t* xready = kvbar + 1;  // a split's only
   uint64_t* xfree = xready + 1;
-  const int C = gridDim.x / P2, rank = blockIdx.x / P2;
-  const int side = PAIR ? blockIdx.x & 1 : 0, c0 = DT * side;  // D's columns of this CTA
+  const int C = gridDim.x / ns, rank = blockIdx.x / ns;
+  const int side = blockIdx.x - ns * rank, c0 = DT * side;  // D's columns of this CTA
   const int kt = blockIdx.y / Hkv, hk = blockIdx.y - kt * Hkv, b = blockIdx.z, k0 = kt * TK;
   const int rep = Hq / Hkv;
   const int qs0 = k0 / TS, nqs = (S + TS - 1) / TS - qs0;  // query stages a head
@@ -1436,14 +1521,14 @@ __device__ __forceinline__ void dkv_tf32(const CUtensorMap& q_map, const CUtenso
       mbar_init(empty + i, 4);  // lane 0 of each consumer warp
     }
     mbar_init(kvbar, 1);
-    if constexpr (PAIR) {
-      mbar_init(xready, kWg);  // every consumer thread of the peer
-      mbar_init(xfree, 4);     // lane 0 of each consumer warp of the peer
+    if constexpr (SPLIT) {
+      mbar_init(xready, 4 * (ns - 1));  // each consumer warp of each peer
+      mbar_init(xfree, 4 * ns);         // ... and of this CTA
     }
     fence_mbar_init();
   }
-  if constexpr (PAIR)
-    cluster_barrier();  // the peer's mbarriers are set before its first arrival
+  if constexpr (SPLIT)
+    cluster_barrier();  // the peers' mbarriers are set before their first arrival
   else
     __syncthreads();
 
@@ -1480,7 +1565,7 @@ __device__ __forceinline__ void dkv_tf32(const CUtensorMap& q_map, const CUtenso
       if (lane == 0) qsegs[st] = lo == hi ? lo : kMixed;
       mbar_arrive(full + st);
     }
-    if (PAIR || C > 1)  // the consumers' two cluster barriers
+    if (SPLIT || C > 1)  // the consumers' two cluster barriers
       for (int i = 0; i < 2; ++i) cluster_barrier();
     return;
   }
@@ -1525,8 +1610,8 @@ __device__ __forceinline__ void dkv_tf32(const CUtensorMap& q_map, const CUtenso
     float x[16], y[16];  // s^T, dp^T: 64 keys x TS queries
     scores_tf32<DT, P::KC>(x, y, kr, vr, sw128_desc(qa), sw128_desc(qa + P::PLANE),
                            sw128_desc(qa + 2 * P::PLANE), sw128_desc(qa + 3 * P::PLANE), rb);
-    // the partials of s^T and dp^T land in the ds slots (written below)
-    if constexpr (PAIR) pair_sum<true>(x, y, dsh, dsl, xready, xfree, i, split_base(r0, quad));
+    // the partials of s^T and dp^T in the ds slots (written below)
+    if constexpr (SPLIT) split_sum(x, y, dsh, xready, i, ns * rank, side, ns, lane, tid);
     const float* sc = scal + st * 3 * TS;
     const int* sq = reinterpret_cast<const int*>(sc) + 2 * TS;
     const int ts = qsegs[st];  // as in the forward, keys and query rows swapped
@@ -1540,6 +1625,7 @@ __device__ __forceinline__ void dkv_tf32(const CUtensorMap& q_map, const CUtenso
       y[r] = p * (y[r] - sc[TS + c]);  // ds
     }
     store_split(ph, pl, x, r0, quad);
+    if constexpr (SPLIT) split_free(xfree, i, ns * rank, side, ns, lane);
     store_split(dsh, dsl, y, r0, quad);
     fence_proxy_async();
     named_sync(1, kWg);
@@ -1548,8 +1634,6 @@ __device__ __forceinline__ void dkv_tf32(const CUtensorMap& q_map, const CUtenso
       tcols_tf32<MT, MT, true>(dva[MT], dka[MT], oh, ol, qh, ql, phd, pld, dshd, dsld, cb);
     });
     if (lane == 0) mbar_arrive(empty + st);  // this warp is done with the stage
-    if constexpr (PAIR)
-      if (i + 1 < steps) pair_free(xfree, lane);
   }
 
   // [key][D] partial tiles, dv then dk, over K, V and the ring (every stage
@@ -1558,12 +1642,12 @@ __device__ __forceinline__ void dkv_tf32(const CUtensorMap& q_map, const CUtenso
   named_sync(1, kWg);
   acc_to_rows<DT>(red, dva, warp, lane);
   acc_to_rows<DT>(red + P::OUT, dka, warp, lane);
-  if (PAIR || C > 1)
+  if (SPLIT || C > 1)
     cluster_barrier();
   else
     named_sync(1, kWg);
   // CTA `rank` sums its 1/C of the 2 x 64 rows' float4s over ranks 0 .. C-1
-  // (of its side, for a pair)
+  // (of its column rank, for a split)
   cg::cluster_group cluster = cg::this_cluster();
   constexpr int N4 = 2 * 64 * DT / 4;
   const int per = (N4 + C - 1) / C, lo = rank * per, hi = min(N4, lo + per);
@@ -1573,7 +1657,7 @@ __device__ __forceinline__ void dkv_tf32(const CUtensorMap& q_map, const CUtenso
     float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
     for (int r = 0; r < C; ++r) {
       const float4 v = *reinterpret_cast<const float4*>(
-          (PAIR || C > 1 ? cluster.map_shared_rank(red, r * P2 + side) : red) + at);
+          (SPLIT || C > 1 ? cluster.map_shared_rank(red, r * ns + side) : red) + at);
       s.x += v.x;
       s.y += v.y;
       s.z += v.z;
@@ -1585,7 +1669,8 @@ __device__ __forceinline__ void dkv_tf32(const CUtensorMap& q_map, const CUtenso
                                  col) = make_float4(s.x * mul, s.y * mul, s.z * mul, s.w * mul);
     }
   }
-  if (PAIR || C > 1) cluster_barrier();  // no CTA leaves while a peer still reads its shared memory
+  if (SPLIT || C > 1)
+    cluster_barrier();  // no CTA leaves while a peer still reads its shared memory
 }
 
 template <int DT>
@@ -1601,20 +1686,20 @@ __global__ void __launch_bounds__(kWg + 32, DkvTf32<DT>::MIN_BLOCKS)
   dkv_tf32<DT, false>(q_map, k_map, v_map, do_map, seg, lse, di, dk, dv, S, Hq, Hkv, D, scale);
 }
 
-// dkv, f32, 128 < D <= 256: dkv_tf32's pair (on clusters of 2 min(rep, 4))
+// dkv, f32, 128 < D <= 1024: dkv_tf32's split (on clusters of ns min(rep, 8 / ns))
 __global__ void __launch_bounds__(kWg + 32, 1)
-    train_attn_dkv_tf32_pair_kernel(const __grid_constant__ CUtensorMap q_map,
-                                    const __grid_constant__ CUtensorMap k_map,
-                                    const __grid_constant__ CUtensorMap v_map,
-                                    const __grid_constant__ CUtensorMap do_map,
-                                    const int* __restrict__ seg, const float* __restrict__ lse,
-                                    const float* __restrict__ di, float* __restrict__ dk,
-                                    float* __restrict__ dv, int S, int Hq, int Hkv, int D,
-                                    float scale) {
+    train_attn_dkv_tf32_split_kernel(const __grid_constant__ CUtensorMap q_map,
+                                     const __grid_constant__ CUtensorMap k_map,
+                                     const __grid_constant__ CUtensorMap v_map,
+                                     const __grid_constant__ CUtensorMap do_map,
+                                     const int* __restrict__ seg, const float* __restrict__ lse,
+                                     const float* __restrict__ di, float* __restrict__ dk,
+                                     float* __restrict__ dv, int S, int Hq, int Hkv, int D,
+                                     float scale) {
   dkv_tf32<128, true>(q_map, k_map, v_map, do_map, seg, lse, di, dk, dv, S, Hq, Hkv, D, scale);
 }
 
-template <int DT>
+template <int DT, bool SPLIT = false>
 struct DqTf32 {
   static constexpr int ST = DT <= 64 ? 1 : 2;  // ring stages
   static constexpr int KC = DT <= 64 ? 2 : 4;  // k-steps a chunk of the score products
@@ -1626,7 +1711,8 @@ struct DqTf32 {
   static constexpr int XCH = 2 * TILE + 4 * ST * PLANE;  // ds hi, ds lo
   static constexpr int SEG = XCH + 2 * SLOT;  // keys' segment ids [ST][TS], the stage's one [ST]
   static constexpr int BAR = (SEG + ST * (TS + 1) * 4 + 7) / 8 * 8;
-  static constexpr int SMEM = BAR + (2 * ST + 1) * 8 + 1024;  // full, empty, q; alignment
+  // full, empty, q (and a split's xready, xfree); alignment
+  static constexpr int SMEM = BAR + (2 * ST + 1 + (SPLIT ? 2 : 0)) * 8 + 1024;
   static constexpr int OUT = 64 * (DT + 4);  // floats of the [query][D] tile, padded rows
   static_assert(OUT * 4 <= XCH, "the dq tile overlays Q, dO and the ring");
   static_assert(MIN_BLOCKS * (SMEM + 1024) <= 233472, "shared memory of an SM");
@@ -1640,16 +1726,18 @@ struct DqTf32 {
 // and dp = dO V^T (Q and dO gathered and split as A), ds = p (dp - di) into
 // the hi/lo slots, then dq^T += K^T ds^T. The CTA writes only its own rows:
 // no atomics, the same bits on every run.
-template <int DT>
-__global__ void __launch_bounds__(kWg + 32, DqTf32<DT>::MIN_BLOCKS)
-    train_attn_dq_tf32_kernel(const __grid_constant__ CUtensorMap q_map,
-                              const __grid_constant__ CUtensorMap k_map,
-                              const __grid_constant__ CUtensorMap v_map,
-                              const __grid_constant__ CUtensorMap do_map,
-                              const int* __restrict__ seg, const float* __restrict__ lse,
-                              const float* __restrict__ di, float* __restrict__ dq, int S, int Hq,
-                              int Hkv, int D, float scale) {
-  using P = DqTf32<DT>;
+// SPLIT (128 < D <= 1024, DT = 128): grid (ns Hq, B, query tiles) on
+// clusters of ns = split_ctas(D) along x; CTA side = blockIdx.x % ns owns
+// D's columns 128 side .. 128 side + 127 of Q, dO, K and V, takes its
+// partial s and dp (split_sum, after which p and ds are the same bits in
+// every CTA) and accumulates dq for its own columns.
+template <int DT, bool SPLIT>
+__device__ __forceinline__ void dq_tf32(const CUtensorMap& q_map, const CUtensorMap& k_map,
+                                        const CUtensorMap& v_map, const CUtensorMap& do_map,
+                                        const int* __restrict__ seg, const float* __restrict__ lse,
+                                        const float* __restrict__ di, float* __restrict__ dq, int S,
+                                        int Hq, int Hkv, int D, float scale) {
+  using P = DqTf32<DT, SPLIT>;
   constexpr int ST = P::ST, NB = DT / 32;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align1024(smem_raw);
@@ -1658,7 +1746,11 @@ __global__ void __launch_bounds__(kWg + 32, DqTf32<DT>::MIN_BLOCKS)
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + P::BAR);
   uint64_t* empty = full + ST;
   uint64_t* qbar = empty + ST;
-  const int h = blockIdx.x, b = blockIdx.y;
+  uint64_t* xready = qbar + 1;  // a split's only
+  uint64_t* xfree = xready + 1;
+  const int ns = SPLIT ? split_ctas(D) : 1;
+  const int h = blockIdx.x / ns, side = blockIdx.x - ns * h, c0 = DT * side;  // D's columns
+  const int b = blockIdx.y;
   const int q0 = (gridDim.z - 1 - blockIdx.z) * TQ;
   const int hk = h / (Hq / Hkv);
   const int nks = min(q0 / TS + TQ / TS, (S + TS - 1) / TS);  // key stages on or below the diagonal
@@ -1669,17 +1761,24 @@ __global__ void __launch_bounds__(kWg + 32, DqTf32<DT>::MIN_BLOCKS)
       mbar_init(empty + i, 4);  // lane 0 of each consumer warp
     }
     mbar_init(qbar, 1);
+    if constexpr (SPLIT) {
+      mbar_init(xready, 4 * (ns - 1));  // each consumer warp of each peer
+      mbar_init(xfree, 4 * ns);         // ... and of this CTA
+    }
     fence_mbar_init();
   }
-  __syncthreads();
+  if constexpr (SPLIT)
+    cluster_barrier();  // the peers' mbarriers are set before their first arrival
+  else
+    __syncthreads();
 
   if (tid >= kWg) {  // the producer warp
     const int lane = tid & 31;
     if (lane == 0) {
       mbar_expect(qbar, 2 * P::TILE);
       for (int c = 0; c < NB; ++c) {
-        tma_load_4d(smem + c * TQ * kBoxRow, &q_map, 32 * c, h, q0, b, qbar);
-        tma_load_4d(smem + P::TILE + c * TQ * kBoxRow, &do_map, 32 * c, h, q0, b, qbar);
+        tma_load_4d(smem + c * TQ * kBoxRow, &q_map, c0 + 32 * c, h, q0, b, qbar);
+        tma_load_4d(smem + P::TILE + c * TQ * kBoxRow, &do_map, c0 + 32 * c, h, q0, b, qbar);
       }
     }
     for (int t = 0; t < nks; ++t) {
@@ -1689,8 +1788,9 @@ __global__ void __launch_bounds__(kWg + 32, DqTf32<DT>::MIN_BLOCKS)
       if (lane == 0) {
         mbar_expect(full + st, 2 * P::PLANE);
         for (int c = 0; c < NB; ++c) {
-          tma_load_4d(kt + c * TS * kBoxRow, &k_map, 32 * c, hk, k0, b, full + st);
-          tma_load_4d(kt + 2 * P::PLANE + c * TS * kBoxRow, &v_map, 32 * c, hk, k0, b, full + st);
+          tma_load_4d(kt + c * TS * kBoxRow, &k_map, c0 + 32 * c, hk, k0, b, full + st);
+          tma_load_4d(kt + 2 * P::PLANE + c * TS * kBoxRow, &v_map, c0 + 32 * c, hk, k0, b,
+                      full + st);
         }
       }
       const int key = k0 + lane;  // TS == 32: a key a lane
@@ -1744,6 +1844,8 @@ __global__ void __launch_bounds__(kWg + 32, DqTf32<DT>::MIN_BLOCKS)
     float s[16], dp[16];  // 64 query rows x TS keys
     scores_tf32<DT, P::KC>(s, dp, qr, dor, sw128_desc(ka), sw128_desc(ka + P::PLANE),
                            sw128_desc(ka + 2 * P::PLANE), sw128_desc(ka + 3 * P::PLANE), rb);
+    // the partials of s and dp in the ds slots (written below)
+    if constexpr (SPLIT) split_sum(s, dp, dsh, xready, t, 0, side, ns, lane, tid);
     const int* sk = segs + st * TS;
     // the per-element test only where the stage crosses the diagonal or S or
     // holds another segment than this thread's rows, as in the forward
@@ -1756,6 +1858,7 @@ __global__ void __launch_bounds__(kWg + 32, DqTf32<DT>::MIN_BLOCKS)
       if (mask && !(k0 + kc <= rows[half] && sk[kc] == segq[half])) p = 0.f;
       s[i] = p * (dp[i] - dii[half]);  // ds
     }
+    if constexpr (SPLIT) split_free(xfree, t, 0, side, ns, lane);
     store_split(dsh, dsl, s, r0, quad);
     fence_proxy_async();
     named_sync(1, kWg);
@@ -1773,11 +1876,35 @@ __global__ void __launch_bounds__(kWg + 32, DqTf32<DT>::MIN_BLOCKS)
   named_sync(1, kWg);
   for (int n = tid; n < 64 * DT / 4; n += kWg) {
     const int row = n / (DT / 4), col = 4 * (n - row * (DT / 4));
-    if (q0 + row >= S || col >= D) continue;
+    if (q0 + row >= S || c0 + col >= D) continue;
     const float4 v = *reinterpret_cast<const float4*>(out + row * (DT + 4) + col);
-    *reinterpret_cast<float4*>(dq + ((size_t(b) * S + q0 + row) * Hq + h) * D + col) =
+    *reinterpret_cast<float4*>(dq + ((size_t(b) * S + q0 + row) * Hq + h) * D + c0 + col) =
         make_float4(v.x * scale, v.y * scale, v.z * scale, v.w * scale);
   }
+}
+
+template <int DT>
+__global__ void __launch_bounds__(kWg + 32, DqTf32<DT>::MIN_BLOCKS)
+    train_attn_dq_tf32_kernel(const __grid_constant__ CUtensorMap q_map,
+                              const __grid_constant__ CUtensorMap k_map,
+                              const __grid_constant__ CUtensorMap v_map,
+                              const __grid_constant__ CUtensorMap do_map,
+                              const int* __restrict__ seg, const float* __restrict__ lse,
+                              const float* __restrict__ di, float* __restrict__ dq, int S, int Hq,
+                              int Hkv, int D, float scale) {
+  dq_tf32<DT, false>(q_map, k_map, v_map, do_map, seg, lse, di, dq, S, Hq, Hkv, D, scale);
+}
+
+// dq, f32, 128 < D <= 1024: dq_tf32's split (on clusters of split_ctas(D))
+__global__ void __launch_bounds__(kWg + 32, 1)
+    train_attn_dq_tf32_split_kernel(const __grid_constant__ CUtensorMap q_map,
+                                    const __grid_constant__ CUtensorMap k_map,
+                                    const __grid_constant__ CUtensorMap v_map,
+                                    const __grid_constant__ CUtensorMap do_map,
+                                    const int* __restrict__ seg, const float* __restrict__ lse,
+                                    const float* __restrict__ di, float* __restrict__ dq, int S,
+                                    int Hq, int Hkv, int D, float scale) {
+  dq_tf32<128, true>(q_map, k_map, v_map, do_map, seg, lse, di, dq, S, Hq, Hkv, D, scale);
 }
 
 template <int DT, bool PAIR = false>
@@ -1925,7 +2052,7 @@ __device__ __forceinline__ void fwd_tf32(const CUtensorMap& q_map, const CUtenso
     scores_tf32<DT, P::KC, false>(s, s, qr, qr, sw128_desc(ka), sw128_desc(ka + P::PLANE), 0, 0,
                                   rb);
     // the peer's partial scores land in the p hi slot (written below)
-    if constexpr (PAIR) pair_sum<false>(s, s, ph, ph, xready, xfree, t, split_base(r0, quad));
+    if constexpr (PAIR) pair_sum(s, ph, xready, xfree, t, split_base(r0, quad));
     const int* sk = segs + st * TS;
     const int ts = tsegs[st];
     const bool mask = k0 + TS - 1 > q0 || k0 + TS > S || ts != segq[0] || ts != segq[1];
@@ -2030,14 +2157,13 @@ __global__ void __launch_bounds__(kWg + 32, 1)
   fwd_tf32<128, true>(q_map, k_map, v_map, seg, o, lse, S, Hq, Hkv, D, scale);
 }
 
-// ---- CUDA cores, one warp a row: f32 dq at 128 < D <= 256, above 256 all ----
+// ---- CUDA cores, one warp a row: the forward above D = 256, dkv and dq above 1024 ----
 //
 // F32_ROWS rows (warps) a CTA. D's output columns are split into slices of
 // WIDE_COLS, one a CTA along grid z (b * slices + slice), each slice
 // recomputing the row's scores, so no register array grows with D; the row
-// dots loop over D, reading the rows from memory. dq's RES instance (f32,
-// 128 < D <= 256, one slice) keeps the warp's own row operands in registers.
-// f32 arithmetic; bf16 inputs widened as read, outputs rounded once.
+// dots loop over D, reading the rows from memory. f32 arithmetic; bf16
+// inputs widened as read, outputs rounded once.
 
 constexpr int F32_ROWS = 8;      // rows (warps) a CTA
 constexpr int WIDE_COLS = 256;   // output columns a CTA
@@ -2049,42 +2175,19 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// a row the warp dots with other rows: the lane's elements c = lane + 32i
-// in registers (RES), or where it lies
-template <typename T, bool RES>
-struct CoreRow {
-  float x[RES ? WIDE_PER : 1];
-  const T* p;
-  __device__ __forceinline__ CoreRow(const T* src, int D, int lane) : p(src) {
-    if constexpr (RES) {
-#pragma unroll
-      for (int i = 0; i < WIDE_PER; ++i) {
-        const int c = lane + 32 * i;
-        x[i] = c < D ? to_f32(src[c]) : 0.f;
-      }
-    }
-  }
-  __device__ __forceinline__ float dot(const T* o, int D, int lane) const {
-    float d = 0.f;
-    if constexpr (RES) {
-#pragma unroll
-      for (int i = 0; i < WIDE_PER; ++i) {
-        const int c = lane + 32 * i;
-        if (c < D) d = fmaf(x[i], to_f32(o[c]), d);
-      }
-    } else {
-      for (int c = lane; c < D; c += 32) d = fmaf(to_f32(p[c]), to_f32(o[c]), d);
-    }
-    return warp_sum(d);
-  }
-};
+// the dot of rows a and b (D elements) by the warp, the lane taking c = lane + 32i
+template <typename T>
+__device__ __forceinline__ float row_dot(const T* a, const T* b, int D, int lane) {
+  float d = 0.f;
+  for (int c = lane; c < D; c += 32) d = fmaf(to_f32(a[c]), to_f32(b[c]), d);
+  return warp_sum(d);
+}
 
 // grid z: the batch row b and the first column c0 of the CTA's slice
-template <bool RES>
 __device__ __forceinline__ void core_slice(int D, int& b, int& c0) {
-  const int nsl = RES ? 1 : (D + WIDE_COLS - 1) / WIDE_COLS;
+  const int nsl = (D + WIDE_COLS - 1) / WIDE_COLS;
   b = blockIdx.z / nsl;
-  c0 = RES ? 0 : (blockIdx.z - b * nsl) * WIDE_COLS;
+  c0 = (blockIdx.z - b * nsl) * WIDE_COLS;
 }
 
 template <typename T>
@@ -2094,12 +2197,12 @@ __global__ void __launch_bounds__(F32_ROWS * 32)
                                 T* __restrict__ out, float* __restrict__ lse, int S, int Hq,
                                 int Hkv, int D, float scale) {
   int b, c0;
-  core_slice<false>(D, b, c0);
+  core_slice(D, b, c0);
   const int h = blockIdx.y, lane = threadIdx.x & 31;
   const int i = blockIdx.x * F32_ROWS + (threadIdx.x >> 5);
   if (i >= S) return;
   const int hk = h / (Hq / Hkv), si = seg ? seg[size_t(b) * S + i] : 1;
-  const CoreRow<T, false> qr(q + ((size_t(b) * S + i) * Hq + h) * D, D, lane);
+  const T* qr = q + ((size_t(b) * S + i) * Hq + h) * D;
   float acc[WIDE_PER];
 #pragma unroll
   for (int c = 0; c < WIDE_PER; ++c) acc[c] = 0.f;
@@ -2107,7 +2210,7 @@ __global__ void __launch_bounds__(F32_ROWS * 32)
   for (int j = 0; j <= i; ++j) {
     if (seg && seg[size_t(b) * S + j] != si) continue;
     const size_t kv = ((size_t(b) * S + j) * Hkv + hk) * D;
-    const float s = qr.dot(k + kv, D, lane) * scale;
+    const float s = row_dot(qr, k + kv, D, lane) * scale;
     const float mn = fmaxf(m, s), alpha = expf(m - mn), p = expf(s - mn);
     l = l * alpha + p;
 #pragma unroll
@@ -2126,7 +2229,7 @@ __global__ void __launch_bounds__(F32_ROWS * 32)
   if (c0 == 0 && lane == 0) lse[(size_t(b) * Hq + h) * S + i] = m + logf(l);
 }
 
-template <typename T, bool RES>
+template <typename T>
 __global__ void __launch_bounds__(F32_ROWS * 32)
     train_attn_dq_cores_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                const T* __restrict__ v, const int* __restrict__ seg,
@@ -2134,13 +2237,13 @@ __global__ void __launch_bounds__(F32_ROWS * 32)
                                const float* __restrict__ di, T* __restrict__ dq, int S, int Hq,
                                int Hkv, int D, float scale) {
   int b, c0;
-  core_slice<RES>(D, b, c0);
+  core_slice(D, b, c0);
   const int h = blockIdx.y, lane = threadIdx.x & 31;
   const int i = blockIdx.x * F32_ROWS + (threadIdx.x >> 5);
   if (i >= S) return;
   const int hk = h / (Hq / Hkv), si = seg ? seg[size_t(b) * S + i] : 1;
   const size_t qi = ((size_t(b) * S + i) * Hq + h) * D;
-  const CoreRow<T, RES> qr(q + qi, D, lane), dor(dout + qi, D, lane);
+  const T *qr = q + qi, *dor = dout + qi;
   float acc[WIDE_PER];
 #pragma unroll
   for (int c = 0; c < WIDE_PER; ++c) acc[c] = 0.f;
@@ -2148,8 +2251,8 @@ __global__ void __launch_bounds__(F32_ROWS * 32)
   for (int j = 0; j <= i; ++j) {
     if (seg && seg[size_t(b) * S + j] != si) continue;
     const size_t kv = ((size_t(b) * S + j) * Hkv + hk) * D;
-    const float p = expf(qr.dot(k + kv, D, lane) * scale - li);
-    const float ds = p * (dor.dot(v + kv, D, lane) - dii);
+    const float p = expf(row_dot(qr, k + kv, D, lane) * scale - li);
+    const float ds = p * (row_dot(dor, v + kv, D, lane) - dii);
 #pragma unroll
     for (int c = 0; c < WIDE_PER; ++c) {
       const int col = c0 + lane + 32 * c;
@@ -2173,13 +2276,13 @@ __global__ void __launch_bounds__(F32_ROWS * 32)
                                 const float* __restrict__ di, T* __restrict__ dk,
                                 T* __restrict__ dv, int S, int Hq, int Hkv, int D, float scale) {
   int b, c0;
-  core_slice<false>(D, b, c0);
+  core_slice(D, b, c0);
   const int hk = blockIdx.y, lane = threadIdx.x & 31;
   const int j = blockIdx.x * F32_ROWS + (threadIdx.x >> 5);
   if (j >= S) return;
   const int rep = Hq / Hkv, sj = seg ? seg[size_t(b) * S + j] : 1;
   const size_t kv = ((size_t(b) * S + j) * Hkv + hk) * D;
-  const CoreRow<T, false> kr(k + kv, D, lane), vr(v + kv, D, lane);
+  const T *kr = k + kv, *vr = v + kv;
   float ak[WIDE_PER], av[WIDE_PER];
 #pragma unroll
   for (int c = 0; c < WIDE_PER; ++c) ak[c] = av[c] = 0.f;
@@ -2188,8 +2291,9 @@ __global__ void __launch_bounds__(F32_ROWS * 32)
     for (int i = j; i < S; ++i) {
       if (seg && seg[size_t(b) * S + i] != sj) continue;
       const size_t qi = ((size_t(b) * S + i) * Hq + h) * D;
-      const float p = expf(kr.dot(q + qi, D, lane) * scale - lse[(size_t(b) * Hq + h) * S + i]);
-      const float ds = p * (vr.dot(dout + qi, D, lane) - di[(size_t(b) * S + i) * Hq + h]);
+      const float li = lse[(size_t(b) * Hq + h) * S + i];
+      const float p = expf(row_dot(kr, q + qi, D, lane) * scale - li);
+      const float ds = p * (row_dot(vr, dout + qi, D, lane) - di[(size_t(b) * S + i) * Hq + h]);
 #pragma unroll
       for (int c = 0; c < WIDE_PER; ++c) {
         const int col = c0 + lane + 32 * c;
@@ -2217,7 +2321,7 @@ struct Args {
   void *o0, *o1, *lse_out;
   int B, S, Hq, Hkv, D;
   float scale;
-  int cluster;  // dkv: CTAs a cluster (ops/train_attention.py: dkv_plan)
+  int cluster;  // dkv, dq: CTAs a cluster (ops/train_attention.py: dkv_plan, dq_plan)
 };
 
 enum Which { kFwd = 0, kDkv = 1, kDq = 2 };
@@ -2265,8 +2369,9 @@ cudaError_t launch_bf16(Which w, const Args& a, cudaStream_t s) {
   return cudaGetLastError();
 }
 
-// PAIR: the forward and dkv at 128 < D <= 256 (DT = 128), on CTA pairs
-template <int DT, bool PAIR = false>
+// SPLIT: the clusters above D = 128 (DT = 128) that split D's columns: the
+// forward's pairs (D <= 256), dkv's and dq's splits (D <= 1024)
+template <int DT, bool SPLIT = false>
 cudaError_t launch_tf32(Which w, const Args& a, cudaStream_t s) {
   // dkv: 64-row boxes of k, v (resident), TS-row boxes of q, dout (streamed);
   // the forward and dq the other way round (the forward has no dout)
@@ -2282,7 +2387,7 @@ cudaError_t launch_tf32(Which w, const Args& a, cudaStream_t s) {
   if (w == kFwd) {
     auto* o = static_cast<float*>(a.o0);
     auto* lse = static_cast<float*>(a.lse_out);
-    if constexpr (PAIR)  // clusters of 2 along x: the two CTAs of a query head
+    if constexpr (SPLIT)  // clusters of 2 along x: the two CTAs of a query head
       return launch_cluster_block(train_attn_fwd_tf32_pair_kernel,
                                   dim3(2 * fgrid.x, fgrid.y, fgrid.z), kWg + 32, 2,
                                   FwdTf32<DT, true>::SMEM, false, s, qm, km, vm, seg, o, lse, a.S,
@@ -2298,26 +2403,29 @@ cudaError_t launch_tf32(Which w, const Args& a, cudaStream_t s) {
   const auto* di = static_cast<const float*>(a.di);
   if (w == kDkv) {  // on clusters of a.cluster CTAs, the grid of dkv_plan
     auto kern = train_attn_dkv_tf32_kernel<DT>;
-    if constexpr (PAIR) kern = train_attn_dkv_tf32_pair_kernel;
+    if constexpr (SPLIT) kern = train_attn_dkv_tf32_split_kernel;
     return launch_cluster_block(kern, dim3(a.cluster, (a.S + TK - 1) / TK * a.Hkv, a.B),
-                                kWg + 32, a.cluster, DkvTf32<DT, PAIR>::SMEM, false, s, qm, km,
+                                kWg + 32, a.cluster, DkvTf32<DT, SPLIT>::SMEM, false, s, qm, km,
                                 vm, om, seg, lse, di, static_cast<float*>(a.o0),
                                 static_cast<float*>(a.o1), a.S, a.Hq, a.Hkv, a.D, a.scale);
   }
-  if constexpr (PAIR) return cudaErrorInvalidValue;  // dq: the CUDA cores
+  auto* dq = static_cast<float*>(a.o0);
+  if constexpr (SPLIT)  // clusters of a.cluster = ns along x: the CTAs of a query head
+    return launch_cluster_block(train_attn_dq_tf32_split_kernel,
+                                dim3(a.cluster * fgrid.x, fgrid.y, fgrid.z), kWg + 32,
+                                a.cluster, DqTf32<DT, true>::SMEM, false, s, qm, km, vm, om, seg,
+                                lse, di, dq, a.S, a.Hq, a.Hkv, a.D, a.scale);
   auto kern = train_attn_dq_tf32_kernel<DT>;
   cudaError_t err = allow_smem(kern, DqTf32<DT>::SMEM);
   if (err != cudaSuccess) return err;
-  kern<<<fgrid, kWg + 32, DqTf32<DT>::SMEM, s>>>(qm, km, vm, om, seg, lse, di,
-                                                  static_cast<float*>(a.o0), a.S, a.Hq, a.Hkv,
-                                                  a.D, a.scale);
+  kern<<<fgrid, kWg + 32, DqTf32<DT>::SMEM, s>>>(qm, km, vm, om, seg, lse, di, dq, a.S, a.Hq,
+                                                  a.Hkv, a.D, a.scale);
   return cudaGetLastError();
 }
 
-// the CUDA-core kernels: f32 dq at 128 < D <= 256 (RES; the forward and dkv
-// there are the 3xTF32 pair, and up to 128 all three are 3xTF32), both
-// dtypes above D = 256
-template <typename T, bool RES>
+// the CUDA-core kernels: the forward above D = 256, dkv and dq above 1024
+// (both dtypes)
+template <typename T>
 cudaError_t launch_cores(Which w, const Args& a, cudaStream_t s) {
   const dim3 grid((a.S + F32_ROWS - 1) / F32_ROWS, w == kDkv ? a.Hkv : a.Hq,
                   a.B * ((a.D + WIDE_COLS - 1) / WIDE_COLS));
@@ -2329,10 +2437,8 @@ cudaError_t launch_cores(Which w, const Args& a, cudaStream_t s) {
   const auto* lse = static_cast<const float*>(a.lse_in);
   const auto* di = static_cast<const float*>(a.di);
   if (w == kDq)
-    train_attn_dq_cores_kernel<T, RES><<<grid, F32_ROWS * 32, 0, s>>>(
+    train_attn_dq_cores_kernel<T><<<grid, F32_ROWS * 32, 0, s>>>(
         q, k, v, seg, dout, lse, di, static_cast<T*>(a.o0), a.S, a.Hq, a.Hkv, a.D, a.scale);
-  else if constexpr (RES)  // dq only: the forward and dkv there are the CTA pairs
-    return cudaErrorInvalidValue;
   else if (w == kFwd)
     train_attn_fwd_cores_kernel<T><<<grid, F32_ROWS * 32, 0, s>>>(
         q, k, v, seg, static_cast<T*>(a.o0), static_cast<float*>(a.lse_out), a.S, a.Hq, a.Hkv,
@@ -2344,21 +2450,27 @@ cudaError_t launch_cores(Which w, const Args& a, cudaStream_t s) {
   return cudaGetLastError();
 }
 
+// The route (ops/train_attention.py: fwd_plan, dkv_plan, dq_plan). bf16: the
+// wgmma kernels up to D = 256. f32: 3xTF32 up to 128; above, the same
+// kernels on ns = split_ctas(D) CTAs a cluster splitting D's columns: the
+// forward in pairs up to 256, dkv and dq in splits up to 1024. bf16 dkv and
+// dq at 256 < D <= 1024 are the f32 splits on f32 copies, which the wrapper
+// makes: refused here. The CUDA cores above (the forward above 256, dkv and
+// dq above 1024, both dtypes). The clusters that dkv and dq take: dkv ns
+// min(rep, 8 / ns) CTAs (ns = 1 for bf16: min(rep, 8)), dq ns, 1 on the
+// CUDA cores; any other is refused.
 cudaError_t dispatch(Which w, const Args& a, int f32, void* stream) {
   if (a.B < 1 || a.S < 1 || a.Hkv < 1 || a.Hq % a.Hkv || a.D < 16 || a.D % 16)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // dkv's cluster (ops/train_attention.py: dkv_plan): min(rep, 8) CTAs on the
-  // tensor cores, 2 min(rep, 4) for f32 at 128 < D <= 256 (CTA pairs
-  // splitting D), 1 on the CUDA cores (both dtypes above D = 256)
-  const int rep = a.Hq / a.Hkv;
-  const bool wide = a.D > 256, pair = !wide && f32 && a.D > 128;
-  const int cluster = wide ? 1 : pair ? 2 * std::min(rep, kMaxCluster / 2)
-                                      : std::min(rep, kMaxCluster);
-  if (w == kDkv && a.cluster != cluster) return cudaErrorInvalidValue;
-  if (wide)
-    return f32 ? launch_cores<float, false>(w, a, s) : launch_cores<__nv_bfloat16, false>(w, a, s);
-  if (pair) return w == kDq ? launch_cores<float, true>(w, a, s) : launch_tf32<128, true>(w, a, s);
+  const int rep = a.Hq / a.Hkv, ns = f32 ? split_ctas(a.D) : 1;
+  const bool cores = a.D > (w == kFwd ? 256 : kSplitCols * kMaxSplit);
+  if (!f32 && !cores && a.D > 256) return cudaErrorInvalidValue;  // bf16 dkv, dq: widened
+  const int cluster = cores ? 1 : w == kDkv ? ns * std::min(rep, kMaxCluster / ns) : ns;
+  if (w != kFwd && a.cluster != cluster) return cudaErrorInvalidValue;
+  if (cores)
+    return f32 ? launch_cores<float>(w, a, s) : launch_cores<__nv_bfloat16>(w, a, s);
+  if (ns > 1) return launch_tf32<128, true>(w, a, s);
   if (f32) return a.D <= 64 ? launch_tf32<64>(w, a, s) : launch_tf32<128>(w, a, s);
   if (a.D <= 64) return launch_bf16<64>(w, a, s);
   if (a.D <= 128) return launch_bf16<128>(w, a, s);
@@ -2385,9 +2497,10 @@ int bd_train_attn_fwd(const void* q, const void* k, const void* v, const void* s
 
 // dout [B, S, Hq, D], lse [B, Hq, S] f32 (the forward's), di [B, S, Hq] f32
 // (rowsum(o * dout)); writes dk, dv [B, S, Hkv, D] in the inputs' dtype.
-// cluster: min(Hq / Hkv, 8); for f32 at 128 < D <= 256, 2 min(Hq / Hkv, 4);
-// above D = 256, 1 (dkv_plan). A cluster the card cannot hold launches
-// nothing and returns the error.
+// bf16 at 256 < D <= 1024 is refused (the wrapper passes f32 copies there).
+// cluster: ns min(Hq / Hkv, 8 / ns), ns = ceil(D / 128) for f32 above D =
+// 128, else 1; above D = 1024, 1 (dkv_plan). A cluster the card cannot hold
+// launches nothing and returns the error.
 int bd_train_attn_dkv(const void* q, const void* k, const void* v, const void* seg,
                       const void* dout, const void* lse, const void* di, void* dk, void* dv,
                       int B, int S, int Hq, int Hkv, int D, float scale, int cluster, int f32,
@@ -2396,11 +2509,12 @@ int bd_train_attn_dkv(const void* q, const void* k, const void* v, const void* s
   return dispatch(kDkv, a, f32, stream);
 }
 
-// The same inputs; writes dq [B, S, Hq, D] in the inputs' dtype.
+// The same inputs; writes dq [B, S, Hq, D] in the inputs' dtype. cluster:
+// ns for f32 at 128 < D <= 1024, else 1 (dq_plan).
 int bd_train_attn_dq(const void* q, const void* k, const void* v, const void* seg,
                      const void* dout, const void* lse, const void* di, void* dq, int B, int S,
-                     int Hq, int Hkv, int D, float scale, int f32, void* stream) {
-  const Args a{q, k, v, seg, dout, lse, di, dq, nullptr, nullptr, B, S, Hq, Hkv, D, scale, 1};
+                     int Hq, int Hkv, int D, float scale, int cluster, int f32, void* stream) {
+  const Args a{q, k, v, seg, dout, lse, di, dq, nullptr, nullptr, B, S, Hq, Hkv, D, scale, cluster};
   return dispatch(kDq, a, f32, stream);
 }
 

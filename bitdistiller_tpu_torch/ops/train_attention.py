@@ -22,25 +22,39 @@ backward launches `train_attn_bwd_dkv` and `train_attn_bwd_dq`, or raises.
 It saves q, k, v, o and the f32 log-sum-exp, so it is safe under
 torch.utils.checkpoint (a recompute launches the forward again).
 `di = rowsum(o * do)` in f32 stays a plain op, as JAX computes it outside
-Pallas. bf16 runs on the tensor cores: the forward, dq and dkv are wgmma
-kernels fed by a TMA ring at every D (dkv above D = 128 by its wide kernel,
-which walks twice with D's columns split between its warpgroups). f32 dkv
-and dq at D <= 128 run on the tensor cores too, as 3xTF32 (each operand
-split into tf32 hi and lo, three products: `tf32x3_matmul` is its plain
-emulation, which only the tests use), and so does the f32 forward
-(`train_attn_fwd_tf32x3_emulated` is its emulation). At 128 < D <= 256
-the f32 forward and dkv are the same kernels on CTA pairs: each CTA of a
-cluster pair owns PAIR_COLS of D's columns, takes the score products over
-them and adds its peer's partial (the emulations sum two such halves).
-f32 dq there and both dtypes above D = 256 run the CUDA-core kernels (one
-warp a row; above D = 256 the CTAs split D's output columns into slices of
-WIDE_COLS, each slice recomputing the scores). `train_attn_bwd_dq_plain`
-is dq alone in plain PyTorch from the kernel's own inputs (lse, di), what
-the dq kernel is held to on the card.
+Pallas. The route by dtype and D:
 
-dkv's work is split by `dkv_plan` (the kernel by dtype and D, the cluster
-size, the grid) and `dkv_walk` (what each CTA of a cluster walks); the
-launch follows them.
+- bf16 up to D = 256: the forward, dq and dkv are wgmma kernels fed by a
+  TMA ring (dkv above D = 128 by its wide kernel, which walks twice with
+  D's columns split between its warpgroups).
+- f32 up to D = 128: the three are 3xTF32 wgmma kernels (each operand
+  split into tf32 hi and lo, three products: `tf32x3_matmul` is its plain
+  emulation, `train_attn_bwd_tf32x3_emulated` and
+  `train_attn_fwd_tf32x3_emulated` the kernels', which only the tests use).
+- f32 above D = 128: the same kernels on clusters whose ns = ceil(D /
+  SPLIT_COLS) CTAs split D's columns, each taking the score products over
+  its SPLIT_COLS columns and summing the ns partials in rank order (the
+  emulations sum such chunks in that order): the forward in pairs (ns = 2,
+  D <= 256) that push their partials into each other; dkv and dq in splits
+  of 2 to MAX_CLUSTER CTAs (D <= SPLIT_MAX_HEAD_DIM = 1024) that pull them.
+- bf16 dkv and dq at 256 < D <= 1024: the f32 splits, on f32 copies of q,
+  k, v and dout that `TrainAttention.backward` makes once, the gradients
+  rounded to bf16 once. A bf16 value is exact in f32 and in tf32 (8
+  significand bits against 11), so the products lose nothing: dkv and dq
+  compute in f32 on the bf16 inputs and round once, as the plain version
+  does and as the CUDA-core kernels there did before.
+- The CUDA-core kernels (one warp a row, the CTAs splitting D's output
+  columns into slices of WIDE_COLS, each slice recomputing the scores):
+  the forward above D = 256, dkv and dq above 1024, both dtypes. No model
+  of either package has such a head dim.
+
+`train_attn_bwd_dq_plain` is dq alone in plain PyTorch from the kernel's
+own inputs (lse, di), what the dq kernel is held to on the card.
+
+The launches follow `fwd_plan`, `dkv_plan` and `dq_plan` (the kernel by
+dtype and D, the cluster size, the grid) and `dkv_walk` (what each CTA of
+a dkv cluster walks); csrc/train_attention.cu's `dispatch` refuses a
+cluster that is not the plan's.
 """
 
 from __future__ import annotations
@@ -61,7 +75,7 @@ from .quant_matmul import MAX_CLUSTER
 MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)  # flash_attention.py: DEFAULT_MASK_VALUE
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 KERNEL_HEAD_STEP = 16  # the kernels take D a multiple of this; other D is padded to one
-MAX_HEAD_DIM = 256  # above: the CUDA-core kernels, both dtypes
+MAX_HEAD_DIM = 256  # above: the forward on CUDA cores, bf16 dkv and dq widened to f32
 WIDE_COLS = 256  # the CUDA-core kernels: output columns a CTA (above, slices)
 # above: a 64 x D f32 accumulator a warpgroup does not fit beside its score
 # tiles, so the wide kernel splits D between the warpgroups and walks twice
@@ -69,27 +83,52 @@ DKV_WGMMA_MAX_HEAD_DIM = 128
 DKV_KEY_TILE = 64     # the dkv kernels on the tensor cores: key rows a CTA
 DKV_QUERY_TILE = 64   # ... query rows a ring stage (bf16)
 DKV_TF32_QUERY_TILE = 32  # ... and of the 3xTF32 kernel (f32 tiles: twice bf16's, plus lo planes)
-PAIR_COLS = 128  # f32 at 128 < D <= 256: D's columns each CTA of a pair owns
+SPLIT_COLS = 128  # f32 above D = 128: D's columns each CTA of a split (a pair at ns = 2) owns
+SPLIT_MAX_HEAD_DIM = SPLIT_COLS * MAX_CLUSTER  # above: dkv and dq on CUDA cores, both dtypes
 F32_ROWS = 8          # the CUDA-core kernels: rows (one a warp) a CTA
 FWD_TF32_QUERY_TILE = 64  # the f32 forward at D <= 128: query rows a CTA ...
 FWD_TF32_KEY_STAGE = 32   # ... and key rows a ring stage
+DQ_QUERY_TILE = 64        # the dq kernels on the tensor cores: query rows a CTA ...
+DQ_TF32_KEY_STAGE = 32    # ... and key rows a ring stage of the 3xTF32 kernels
+
+
+def split_ctas(d: int) -> int:
+    """CTAs of a cluster that split D's columns, SPLIT_COLS each, on the f32
+    tensor-core kernels: 1 up to SPLIT_COLS, a pair up to 256, then up to
+    MAX_CLUSTER (csrc/train_attention.cu: split_ctas)."""
+    return 1 if d <= SPLIT_COLS else -(-d // SPLIT_COLS)
+
+
+def _takes_tf32(d: int, dtype) -> bool:
+    """dkv and dq on the 3xTF32 kernels: f32 up to SPLIT_MAX_HEAD_DIM, and
+    bf16 above MAX_HEAD_DIM (on f32 copies, `widened`)."""
+    return d <= SPLIT_MAX_HEAD_DIM and (dtype == torch.float32 or d > MAX_HEAD_DIM)
+
+
+def widened(dtype, d: int) -> bool:
+    """bf16 dkv and dq at MAX_HEAD_DIM < D <= SPLIT_MAX_HEAD_DIM: the f32
+    split kernels on f32 copies of their inputs, the gradients rounded to
+    bf16 once."""
+    return dtype == torch.bfloat16 and MAX_HEAD_DIM < d <= SPLIT_MAX_HEAD_DIM
 
 
 @dataclass(frozen=True)
 class DkvPlan:
     """How the dkv kernel covers [B, S, Hkv] key rows. On the tensor cores a
     cluster of `cluster` CTAs a key tile of 64 rows, splitting the rep query
-    heads; `kernel` is, for bf16, "wgmma" (D <= 128:
+    heads; `kernel` is, for bf16 up to D = 256, "wgmma" (D <= 128:
     `train_attn_dkv_ws_kernel`, its two warpgroups splitting the products of
     one walk) or "wgmma_wide" (128 < D <= 256: `train_attn_dkv_wide_kernel`,
     its warpgroups splitting D's columns over two walks, dv then dk), and for
-    f32 "tf32x3" (D <= 128: `train_attn_dkv_tf32_kernel`, one warpgroup, query
-    stages of `query_tile` rows, `smem` bytes of shared memory) or
-    "tf32x3_pair" (128 < D <= 256: `train_attn_dkv_tf32_pair_kernel`, the
-    same on CTA pairs, each owning PAIR_COLS of D's columns: clusters of
-    2 min(rep, 4), so within the portable 8, CTA 2 r + side walking head
-    rank r's heads over its side's columns). `grid` as launched, x first (x
-    is the cluster). Both dtypes above D = 256: "cores_wide"
+    f32 (and widened bf16 above D = 256) "tf32x3" (D <= 128:
+    `train_attn_dkv_tf32_kernel`, one warpgroup, query stages of
+    `query_tile` rows, `smem` bytes of shared memory) or "tf32x3_split"
+    (128 < D <= 1024, `train_attn_dkv_tf32_split_kernel`): the same body on
+    clusters of ns C CTAs, `columns` = ns = split_ctas(D) column ranks each
+    owning SPLIT_COLS of D's columns times C = min(rep, MAX_CLUSTER // ns)
+    head ranks (within the portable 8), CTA ns r + side walking head rank
+    r's heads over its side's columns. `grid` as launched, x first (x is
+    the cluster). Both dtypes above D = 1024: "cores_wide"
     (`train_attn_dkv_cores_kernel`, one warp a key row, F32_ROWS a CTA, no
     cluster, its row dots reading k and v from memory: grid (row blocks,
     Hkv, B x ceil(D / WIDE_COLS) column slices))."""
@@ -99,6 +138,7 @@ class DkvPlan:
     grid: tuple[int, int, int]
     query_tile: int = DKV_QUERY_TILE
     smem: int = 0
+    columns: int = 1
 
     @property
     def ctas(self) -> int:
@@ -107,48 +147,100 @@ class DkvPlan:
     @property
     def head_ranks(self) -> int:
         """The CTAs of a cluster that split the query heads (dkv_walk's C):
-        a pair's two CTAs walk the same heads."""
-        return self.cluster // 2 if self.kernel == "tf32x3_pair" else self.cluster
+        the column ranks of a split walk the same heads."""
+        return self.cluster // self.columns
 
 
 def dkv_plan(b: int, s: int, hq: int, hkv: int, d: int, dtype=torch.bfloat16) -> DkvPlan:
     """The dkv launch at these shapes: the kernel by dtype and D, on clusters
     of C = min(rep, MAX_CLUSTER) CTAs on the tensor cores, the grid (C, key
     tiles x Hkv, B) with the key tile slowest, so the longest walks (key
-    tile 0) start first. f32 at 128 < D <= 256: C = 2 min(rep, 4), pairs of
-    CTAs splitting D within the portable cluster of 8 (at rep 8 as many CTAs
-    as the D = 128 kernel's clusters of 8, each head rank walking two heads;
-    a cluster of 16 would need the non-portable size). C depends on rep
-    only, never on the card, so the same inputs give the same bits on every
-    card."""
-    if d > MAX_HEAD_DIM:
+    tile 0) start first. f32 above D = 128 (bf16 above 256, widened): ns
+    min(rep, 8 // ns) CTAs, ns = split_ctas(d) column ranks splitting D
+    within the portable cluster of 8 (at rep 8 and ns = 2 as many CTAs as
+    the D = 128 kernel's clusters of 8, each head rank walking two heads;
+    a larger cluster would need the non-portable size). The cluster depends
+    on rep and D only, never on the card, so the same inputs give the same
+    bits on every card."""
+    if d > SPLIT_MAX_HEAD_DIM:
         return DkvPlan("cores_wide", 1, (-(-s // F32_ROWS), hkv, b * -(-d // WIDE_COLS)))
     rep, key_tiles = hq // hkv, -(-s // DKV_KEY_TILE) * hkv
-    if dtype == torch.float32 and d > DKV_WGMMA_MAX_HEAD_DIM:
-        c = 2 * min(rep, MAX_CLUSTER // 2)
-        return DkvPlan("tf32x3_pair", c, (c, key_tiles, b), DKV_TF32_QUERY_TILE,
-                       dkv_tf32_smem(d))
+    if _takes_tf32(d, dtype):
+        ns = split_ctas(d)
+        c = ns * min(rep, MAX_CLUSTER // ns)
+        return DkvPlan("tf32x3" if ns == 1 else "tf32x3_split", c, (c, key_tiles, b),
+                       DKV_TF32_QUERY_TILE, dkv_tf32_smem(d), ns)
     c = min(rep, MAX_CLUSTER)
-    grid = (c, key_tiles, b)
-    if dtype == torch.float32:
-        return DkvPlan("tf32x3", c, grid, DKV_TF32_QUERY_TILE, dkv_tf32_smem(d))
-    return DkvPlan("wgmma" if d <= DKV_WGMMA_MAX_HEAD_DIM else "wgmma_wide", c, grid)
+    return DkvPlan("wgmma" if d <= DKV_WGMMA_MAX_HEAD_DIM else "wgmma_wide", c, (c, key_tiles, b))
 
 
 def dkv_tf32_smem(d: int) -> int:
     """Shared memory bytes of `train_attn_dkv_tf32_kernel` at head dim d <=
-    128, and of the pair's CTA above (DT = PAIR_COLS), as
+    128, and of a split's CTA above (DT = SPLIT_COLS), as
     csrc/train_attention.cu's DkvTf32 lays it out: raw K and V (2 x 64 x DT
     f32), the ring's stages of Q and dO as hi and lo planes (4 x 32 x DT f32
     a stage; one stage at DT = 64, two at 128), the p and ds slots' hi and lo
-    planes (4 x 64 x 32 f32, where a pair's partials land), a stage's lse,
+    planes (4 x 64 x 32 f32, where a split's partials land), a stage's lse,
     di and segment ids and its one segment id, the mbarriers (full, empty,
-    kv; a pair's xready and xfree), and 1024 bytes of alignment."""
-    dt, ts = (64 if d <= 64 else PAIR_COLS), DKV_TF32_QUERY_TILE
+    kv; a split's xready and xfree), and 1024 bytes of alignment."""
+    dt, ts = (64 if d <= 64 else SPLIT_COLS), DKV_TF32_QUERY_TILE
     stages = 1 if dt <= 64 else 2
     scal = 2 * DKV_KEY_TILE * dt * 4 + 4 * stages * ts * dt * 4 + 4 * DKV_KEY_TILE * ts * 4
     bar = -(-(scal + stages * (3 * ts + 1) * 4) // 8) * 8
-    return bar + (2 * stages + 1 + 2 * (d > PAIR_COLS)) * 8 + 1024
+    return bar + (2 * stages + 1 + 2 * (d > SPLIT_COLS)) * 8 + 1024
+
+
+@dataclass(frozen=True)
+class DqPlan:
+    """How the dq kernel covers [B, S, Hq] query rows: "wgmma" (bf16 up to
+    D = 256: `train_attn_dq_ws_kernel`) and "tf32x3" (f32 up to 128:
+    `train_attn_dq_tf32_kernel`) one CTA a (query head, batch, query tile of
+    64 rows), grid (Hq, B, query tiles); "tf32x3_split" (f32 at 128 < D <=
+    1024, widened bf16 above 256: `train_attn_dq_tf32_split_kernel`): the
+    same body on clusters of `cluster` = ns = split_ctas(D) CTAs along x, each
+    owning SPLIT_COLS of D's columns, grid (ns Hq, B, query tiles), `smem`
+    bytes a CTA; "cores_wide" (above D = 1024): `train_attn_dq_cores_kernel`,
+    one warp a query row, F32_ROWS a CTA, grid (row blocks, Hq, B x column
+    slices)."""
+
+    kernel: str
+    grid: tuple[int, int, int]
+    cluster: int = 1
+    smem: int = 0
+
+    @property
+    def ctas(self) -> int:
+        return self.grid[0] * self.grid[1] * self.grid[2]
+
+
+def dq_plan(b: int, s: int, hq: int, hkv: int, d: int, dtype=torch.bfloat16) -> DqPlan:
+    """The dq launch at these shapes: the kernel by dtype and D, its
+    cluster and grid (query tiles launched longest first on the tensor
+    cores)."""
+    if d > SPLIT_MAX_HEAD_DIM:
+        return DqPlan("cores_wide", (-(-s // F32_ROWS), hq, b * -(-d // WIDE_COLS)))
+    tiles = -(-s // DQ_QUERY_TILE)
+    if _takes_tf32(d, dtype):
+        ns = split_ctas(d)
+        return DqPlan("tf32x3" if ns == 1 else "tf32x3_split", (ns * hq, b, tiles), ns,
+                      dq_tf32_smem(d))
+    return DqPlan("wgmma", (hq, b, tiles))
+
+
+def dq_tf32_smem(d: int) -> int:
+    """Shared memory bytes of `train_attn_dq_tf32_kernel` at head dim d <=
+    128, and of a split's CTA above (DT = SPLIT_COLS), as
+    csrc/train_attention.cu's DqTf32 lays it out: raw Q and dO (2 x 64 x DT
+    f32), the ring's stages of K and V as hi and lo planes (4 x 32 x DT f32
+    a stage; one stage at DT = 64, two at 128), the ds slot's hi and lo
+    planes (2 x 64 x 32 f32, where a split's partials land), a stage's
+    segment ids and its one segment id, the mbarriers (full, empty, q; a
+    split's xready and xfree), and 1024 bytes of alignment."""
+    dt, ts = (64 if d <= 64 else SPLIT_COLS), DQ_TF32_KEY_STAGE
+    stages = 1 if dt <= 64 else 2
+    seg = 2 * DQ_QUERY_TILE * dt * 4 + 4 * stages * ts * dt * 4 + 2 * DQ_QUERY_TILE * ts * 4
+    bar = -(-(seg + stages * (ts + 1) * 4) // 8) * 8
+    return bar + (2 * stages + 1 + 2 * (d > SPLIT_COLS)) * 8 + 1024
 
 
 def dkv_walk(s: int, rep: int, cluster: int, rank: int, key_tile: int,
@@ -173,7 +265,7 @@ class FwdPlan:
     stages in `smem` bytes of shared memory, `ctas_per_sm` CTAs an SM.
     "tf32x3_pair" (f32, 128 < D <= 256: `train_attn_fwd_tf32_pair_kernel`):
     the same on clusters of `cluster` = 2 CTAs along x, each owning
-    PAIR_COLS of D's columns, grid (2 Hq, B, query tiles). "cores_wide"
+    SPLIT_COLS of D's columns, grid (2 Hq, B, query tiles). "cores_wide"
     (D > 256): `train_attn_fwd_cores_kernel`, one warp a query row,
     F32_ROWS a CTA, grid (row blocks, Hq, B x column slices)."""
 
@@ -191,19 +283,19 @@ class FwdPlan:
 
 def fwd_tf32_smem(d: int) -> tuple[int, int, int]:
     """(stages, shared memory bytes, CTAs an SM) of `train_attn_fwd_tf32_kernel`
-    at head dim d <= 128, and of the pair's CTA above (DT = PAIR_COLS), as
+    at head dim d <= 128, and of the pair's CTA above (DT = SPLIT_COLS), as
     csrc/train_attention.cu's FwdTf32 lays it out: the raw Q tile (64 x DT
     f32), a stage's K and V as hi and lo planes (4 x 32 x DT f32), the p
     slot's hi and lo planes (2 x 64 x 32 f32, where a pair's partial lands),
     the rows' factors (64 f32), the keys' segment ids and the stage's one,
     the mbarriers (full, empty, q; a pair's xready and xfree), and 1024 bytes
     of alignment; DT = 64 or 128."""
-    dt, ts = (64 if d <= 64 else PAIR_COLS), FWD_TF32_KEY_STAGE
+    dt, ts = (64 if d <= 64 else SPLIT_COLS), FWD_TF32_KEY_STAGE
     stages, ctas = 2, (2 if dt <= 64 else 1)
     tile, plane, slot = 64 * dt * 4, ts * dt * 4, 64 * ts * 4
     seg = tile + 4 * stages * plane + 2 * slot + 64 * 4  # Q, the ring, p, the factors
     bar = -(-(seg + stages * (ts + 1) * 4) // 8) * 8
-    return stages, bar + (2 * stages + 1 + 2 * (d > PAIR_COLS)) * 8 + 1024, ctas
+    return stages, bar + (2 * stages + 1 + 2 * (d > SPLIT_COLS)) * 8 + 1024, ctas
 
 
 @functools.lru_cache(maxsize=None)
@@ -215,7 +307,7 @@ def fwd_plan(b: int, s: int, hq: int, hkv: int, d: int, dtype=torch.bfloat16) ->
     if d > MAX_HEAD_DIM:
         return FwdPlan("cores_wide", (-(-s // F32_ROWS), hq, b * -(-d // WIDE_COLS)))
     grid = (hq, b, -(-s // FWD_TF32_QUERY_TILE))
-    if dtype == torch.float32 and d > PAIR_COLS:
+    if dtype == torch.float32 and d > SPLIT_COLS:
         return FwdPlan("tf32x3_pair", (2 * hq, b, grid[2]), *fwd_tf32_smem(d), cluster=2)
     if dtype == torch.float32:
         return FwdPlan("tf32x3", grid, *fwd_tf32_smem(d))
@@ -295,19 +387,24 @@ def tf32x3_matmul(a: torch.Tensor, b: torch.Tensor, passes: int = 3) -> torch.Te
 
 def _scores_tf32x3(a, b, mm):
     """a b^T over D (the last dim) as the kernels take the score products:
-    by `mm`, and above D = PAIR_COLS as a CTA pair does, the products over
-    each CTA's PAIR_COLS columns summed."""
-    if a.shape[-1] <= PAIR_COLS:
+    by `mm`, and above D = SPLIT_COLS as a split's CTAs do, the products over
+    each CTA's SPLIT_COLS columns summed in rank order, ((p0 + p1) + p2) +
+    ..."""
+    d = a.shape[-1]
+    if d <= SPLIT_COLS:
         return mm(a, b.transpose(-1, -2))
-    lo, hi = (mm(a[..., c], b[..., c].transpose(-1, -2))
-              for c in (slice(0, PAIR_COLS), slice(PAIR_COLS, None)))
-    return lo + hi
+    out = None
+    for c0 in range(0, d, SPLIT_COLS):
+        c = slice(c0, c0 + SPLIT_COLS)
+        part = mm(a[..., c], b[..., c].transpose(-1, -2))
+        out = part if out is None else out + part
+    return out
 
 
 def train_attn_fwd_tf32x3_emulated(q, k, v, seg, passes: int = 3, *, scale=None):
     """(o [B, S, Hq, D], lse [B, Hq, S]) of the forward with both products
     taken by `tf32x3_matmul`, as `train_attn_fwd_tf32_kernel` takes them: s
-    = q k^T (q and k split; above D = PAIR_COLS in the pair's two halves,
+    = q k^T (q and k split; above D = SPLIT_COLS in the pair's two halves,
     summed), the softmax in f32 over the allowed keys, o = p v / l (p and v
     split). f32 results; seg as train_attn_bwd_dq_plain's. The kernel's
     online softmax rescales its sum once a key stage: the same function,
@@ -332,9 +429,10 @@ def train_attn_bwd_tf32x3_emulated(q, k, v, seg, dout, lse, di, passes: int = 3,
     """dq, dk, dv from the backward kernels' inputs (as
     train_attn_bwd_dq_plain) with every product taken by `tf32x3_matmul`,
     as the f32 kernels take them: s = q k^T, dp = do v^T (above D =
-    PAIR_COLS in the pair's two halves, summed, as dkv takes them), p in
-    f32, ds = p (dp - di), dv = p^T do, dk = scale ds^T q, dq = scale ds k
-    (p and ds split too). f32 [B, S, H, D] results."""
+    SPLIT_COLS in a split's ceil(D / SPLIT_COLS) chunks, summed in rank
+    order, as dkv and dq take them), p in f32, ds = p (dp - di), dv = p^T
+    do, dk = scale ds^T q, dq = scale ds k (p and ds split too). f32 [B, S,
+    H, D] results."""
     b, s, hq, d = q.shape
     hkv = k.shape[2]
     rep = hq // hkv
@@ -359,7 +457,7 @@ def train_attn_bwd_tf32x3_emulated(q, k, v, seg, dout, lse, di, passes: int = 3,
 def _launcher(name: str):
     fn = getattr(_build.load("train_attention"), name)
     n_ptr = {"bd_train_attn_fwd": 6, "bd_train_attn_dkv": 9, "bd_train_attn_dq": 8}[name]
-    n_tail = 2 if name == "bd_train_attn_dkv" else 1  # (dkv's cluster,) f32
+    n_tail = 1 if name == "bd_train_attn_fwd" else 2  # (the backward's cluster,) f32
     fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 5
                    + [ctypes.c_float] + [ctypes.c_int] * n_tail + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -410,11 +508,23 @@ def train_attn_fwd(q, k, v, seg, scale=None) -> tuple[torch.Tensor, torch.Tensor
     return out, lse
 
 
+def _kernel_inputs(q, k, v, dout):
+    """q, k, v and dout as the dkv and dq kernels take them: f32 copies where
+    `widened` (bf16 at MAX_HEAD_DIM < D <= SPLIT_MAX_HEAD_DIM, the f32 split
+    kernels' route), else the tensors themselves."""
+    if widened(q.dtype, q.shape[3]):
+        return tuple(t.to(torch.float32) for t in (q, k, v, dout))
+    return q, k, v, dout
+
+
 def train_attn_bwd_dkv(q, k, v, seg, dout, lse, di,
                        scale=None) -> tuple[torch.Tensor, torch.Tensor]:
     """dk, dv [B, S, Hkv, D], summed over the rep query heads in the kernel
     (on the tensor cores by the cluster of `dkv_plan`, in rank order; the
-    plan of the last launch stays in `train_attn_bwd_dkv.plan`)."""
+    plan of the last launch stays in `train_attn_bwd_dkv.plan`). bf16 where
+    `widened`: the f32 kernel on f32 copies, the result rounded to bf16."""
+    dtype = q.dtype
+    q, k, v, dout = _kernel_inputs(q, k, v, dout)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     plan = dkv_plan(*_dims(q, k), dtype=q.dtype)
     err = _launcher("bd_train_attn_dkv")(
@@ -426,23 +536,29 @@ def train_attn_bwd_dkv(q, k, v, seg, dout, lse, di,
     _build.check(err, "bd_train_attn_dkv")
     train_attn_bwd_dkv.launches += 1
     train_attn_bwd_dkv.plan = plan
-    return dk, dv
+    return dk.to(dtype), dv.to(dtype)
 
 
 def train_attn_bwd_dq(q, k, v, seg, dout, lse, di, scale=None) -> torch.Tensor:
-    """dq [B, S, Hq, D] (on the tensor cores one CTA a (query head, batch,
-    64-row query tile) owns its rows, so the result is the same bits on every
-    run)."""
+    """dq [B, S, Hq, D] (on the tensor cores one CTA, or one cluster of
+    `dq_plan`'s split, a (query head, batch, 64-row query tile) owns its
+    rows, so the result is the same bits on every run; the plan of the last
+    launch stays in `train_attn_bwd_dq.plan`). bf16 where `widened`: the f32
+    kernel on f32 copies, the result rounded to bf16."""
+    dtype = q.dtype
+    q, k, v, dout = _kernel_inputs(q, k, v, dout)
     dq = torch.empty_like(q)
+    plan = dq_plan(*_dims(q, k), dtype=q.dtype)
     err = _launcher("bd_train_attn_dq")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(seg), dout.data_ptr(), lse.data_ptr(),
         di.data_ptr(), dq.data_ptr(),
-        *_dims(q, k), _scale(q.shape[3], scale), int(q.dtype == torch.float32),
+        *_dims(q, k), _scale(q.shape[3], scale), plan.cluster, int(q.dtype == torch.float32),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(err, "bd_train_attn_dq")
     train_attn_bwd_dq.launches += 1
-    return dq
+    train_attn_bwd_dq.plan = plan
+    return dq.to(dtype)
 
 
 train_attn_fwd.launches = 0
@@ -450,12 +566,14 @@ train_attn_fwd.plan = None  # the FwdPlan of the last launch
 train_attn_bwd_dkv.launches = 0
 train_attn_bwd_dkv.plan = None  # the DkvPlan of the last launch
 train_attn_bwd_dq.launches = 0
+train_attn_bwd_dq.plan = None  # the DqPlan of the last launch
 
 
 class TrainAttention(torch.autograd.Function):
     """The kernels as an autograd Function: forward saves q, k, v, the
     segment ids, o and the log-sum-exp; backward launches dkv and dq, all
-    three at `scale`."""
+    three at `scale` (bf16 where `widened`: on f32 copies made once for
+    both, the gradients rounded to bf16 once)."""
 
     @staticmethod
     def forward(ctx, q, k, v, seg, scale):
@@ -469,9 +587,11 @@ class TrainAttention(torch.autograd.Function):
         q, k, v, seg, out, lse = ctx.saved_tensors
         dout = dout.contiguous()
         di = (out.to(torch.float32) * dout.to(torch.float32)).sum(dim=-1).contiguous()
+        dtype = q.dtype
+        q, k, v, dout = _kernel_inputs(q, k, v, dout)  # once for both
         dk, dv = train_attn_bwd_dkv(q, k, v, seg, dout, lse, di, ctx.scale)
         dq = train_attn_bwd_dq(q, k, v, seg, dout, lse, di, ctx.scale)
-        return dq, dk, dv, None, None
+        return dq.to(dtype), dk.to(dtype), dv.to(dtype), None, None
 
 
 def padded_head_dim(d: int) -> int:

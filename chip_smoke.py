@@ -28,12 +28,13 @@ the Engine on B1/B2/B3). Between c1 and train_attention, `c6` runs the shapes
 the JAX package computes and earlier slices refused: the decode attention
 at any GQA rep and head dim (Falcon-7B's 71 heads over 1, rep 3, 5, 7, D =
 72, 80, 96, 320), the packed matmuls and fused MLP at Falcon-7B's K = 4544
-(64 mod 128) at g64 and g32, B8 at D = 72, 80, 300, 320, and a 2-layer model
+(64 mod 128) at g64 and g32, B8 at D = 72, 80, 300, 320, 1040, and a 2-layer model
 at Falcon-7B's widths through the Engine, each through its kernel. Beside
 the build, scripts/kernel_sass.py reads what ptxas made of
 csrc/train_attention.cu; the `sass` phase prints it and fails unless every
-B8 tensor-core kernel (bf16, and the 3xTF32 forward, dkv and dq) issues
-HGMMA, holds no HMMA (mma.sync) and spills nothing.
+B8 tensor-core kernel (bf16, and the 3xTF32 forward, dkv and dq, alone, the
+forward on CTA pairs, dkv and dq on splits above D = 128) issues HGMMA,
+holds no HMMA (mma.sync) and spills nothing.
 Phases print one line each; any failure exits non-zero before the last
 line. The second-to-last line is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
@@ -997,6 +998,7 @@ C6_GROUPS = (64, 32)
 C6_TA = {  # name: (B, S, Hq, Hkv, D, padded row length or None)
     "d72": (1, 600, 8, 2, 72, 500), "d80": (1, 600, 8, 2, 80, 500),
     "d300": (1, 600, 8, 2, 300, 500), "d320": (1, 600, 8, 2, 320, 500),
+    "d1040": (1, 100, 8, 4, 1040, 80),  # past the splits: all three on the CUDA cores
 }
 C6_LAYERS = 2  # the whole-model check's depth (full width)
 
@@ -1125,8 +1127,9 @@ def c6_phase(gen, bw, rec):
     rep 8 at D = 128 as the control; B1/B2 and B4 at Falcon-7B's K = 4544
     (g64 and g32, M = 8 and 256, qkv, dense and gate_up; down at K = 18176
     the control), exact on integers; B5 at K = 4544, FFN = 18176; B8 at D =
-    72, 80, 300 and 320, bf16 and f32, forward and the three gradients (timed
-    beside SDPA and the plain version); then the whole model (`_c6_model`)."""
+    72, 80, 300, 320 and 1040 (the CUDA-core dkv and dq), bf16 and f32,
+    forward and the three gradients (timed beside SDPA and the plain
+    version); then the whole model (`_c6_model`)."""
     rec["attention"] = {}
     for name, *case in C6_ATTN:
         ok, row = _attn_row(gen, *case)
@@ -1215,6 +1218,7 @@ def c6_phase(gen, bw, rec):
             row = dict(shape=(b, s, hq, hkv, d), padded_d=dp, dtype=str(dtype), rel_err=errs,
                        launches=launched, fwd_plan=ta.fwd_plan(b, s, hq, hkv, dp, dtype).kernel,
                        dkv_plan=ta.dkv_plan(b, s, hq, hkv, dp, dtype).kernel,
+                       dq_plan=ta.dq_plan(b, s, hq, hkv, dp, dtype).kernel,
                        fwd_ms=cuda_ms(lambda i: ta.train_attn_fwd(qp, kp, vp, None, sc), 5),
                        dkv_ms=cuda_ms(lambda i: ta.train_attn_bwd_dkv(qp, kp, vp, None, dop, lse,
                                                                       di, sc), 5),
@@ -1246,7 +1250,8 @@ def c6_phase(gen, bw, rec):
                                           reps=3) - row["plain_fwd_ms"]
             rec["train_attention"][f"{name}_{'f32' if dtype == torch.float32 else 'bf16'}"] = row
             say(f"c6 train attention {name} {dtype}: errs {errs}, plans {row['fwd_plan']}/"
-                f"{row['dkv_plan']}, fwd {row['fwd_ms']:.4f} dkv {row['dkv_ms']:.4f} dq "
+                f"{row['dkv_plan']}/{row['dq_plan']}, fwd {row['fwd_ms']:.4f} dkv "
+                f"{row['dkv_ms']:.4f} dq "
                 f"{row['dq_ms']:.4f} ms (bounds {row['fwd_bound_ms']:.4f}, "
                 f"{row['dkv_bound_ms']:.4f}, {row['dq_bound_ms']:.4f}); SDPA fwd "
                 f"{row['sdpa_fwd_ms']:.4f}, bwd {row['sdpa_bwd_ms']:.4f}; plain fwd "
@@ -1282,9 +1287,12 @@ TA_CASES = {  # name: (B, S, Hq, Hkv, D, padded row length or None, dtype)
     # Gemma-2B's attention widths (8 query heads over 1 kv head, head_dim 256) at
     # the train phase's 2 x 1024 micro-batch: the wide dkv on clusters of 8
     "d256_mqa": (2, 1024, 8, 1, 256, 900, torch.bfloat16),
-    # the same in f32: the forward and dkv on 3xTF32 CTA pairs splitting D,
-    # dq on the CUDA cores (above D = 128)
+    # the same in f32: the forward on 3xTF32 CTA pairs splitting D, dkv and dq
+    # on 3xTF32 splits of 2 CTAs
     "d256_f32": (2, 1024, 8, 1, 256, 900, torch.float32),
+    # D = 512 in f32 (no preset has it): dkv and dq on 3xTF32 splits of 4 CTAs
+    # (dkv clusters of 8 at rep 4), the forward on the CUDA cores
+    "d512_f32": (1, 1024, 8, 2, 512, 900, torch.float32),
 }
 
 
@@ -1331,8 +1339,10 @@ def train_attention_phase(gen, record):
     train_attn_bwd_dq_plain and against autograd's dq of the plain version,
     on the kernel forward's lse and di; then its times at TinyLlama's, 7B's
     and the two D = 256 cases' shapes, and in f32 at the f32 case's, the
-    two models' and Gemma-2B's heads (`d256_f32`: the forward and dkv on the
-    3xTF32 CTA pairs, dq on the CUDA cores):
+    two models' and Gemma-2B's heads (`d256_f32`: the forward on the 3xTF32
+    CTA pairs, dkv and dq on the 3xTF32 splits of 2 CTAs) and at D = 512
+    (`d512_f32`: dkv and dq on the splits of 4 CTAs, the forward on the CUDA
+    cores):
     the forward, dkv and dq kernels one by one through their wrappers, the
     plain version's forward and forward+backward, and SDPA
     (scaled_dot_product_attention(is_causal=True, enable_gqa=True), the
@@ -1344,7 +1354,7 @@ def train_attention_phase(gen, record):
     PEAK_F32_FLOPS beside, against SDPA in f32. bwd_ms is dkv_ms + dq_ms,
     beside SDPA's backward. Every kernel and SDPA time is also read as device
     time from a profiler trace of the timed calls (device_ms). Each time row
-    carries the dkv plan (kernel, cluster, CTAs)."""
+    carries the dkv and dq plans (kernel, cluster, CTAs)."""
     worst = {}
     for name, case in TA_CASES.items():
         q, k, v, do, mask = _ta_inputs(gen, *case)
@@ -1376,11 +1386,11 @@ def train_attention_phase(gen, record):
         del q, k, v, do, got, want, out, lse, di, dq
     times = {}
     for name in ("tinyllama", "llama2_7b", "d256", "d256_mqa", "f32", "tinyllama_f32",
-                 "llama2_7b_f32", "d256_f32"):
+                 "llama2_7b_f32", "d256_f32", "d512_f32"):
         b, s, hq, hkv, d, pad, dtype = TA_CASES[name]
         f32 = dtype == torch.float32
         peak = PEAK_TF32X3_FLOPS if f32 else PEAK_BF16_FLOPS
-        plan = ta.dkv_plan(b, s, hq, hkv, d, dtype)
+        plan, qplan = ta.dkv_plan(b, s, hq, hkv, d, dtype), ta.dq_plan(b, s, hq, hkv, d, dtype)
         q, k, v, do, mask = _ta_inputs(gen, b, s, hq, hkv, d, None, dtype)
         seg = None
         out, lse = ta.train_attn_fwd(q, k, v, seg)
@@ -1422,7 +1432,8 @@ def train_attention_phase(gen, record):
             device_ms=dev,
             fwd_bound_ms=2 * unit / peak * 1e3, dkv_bound_ms=4 * unit / peak * 1e3,
             dq_bound_ms=3 * unit / peak * 1e3,
-            dkv_plan=dict(kernel=plan.kernel, cluster=plan.cluster, ctas=plan.ctas))
+            dkv_plan=dict(kernel=plan.kernel, cluster=plan.cluster, ctas=plan.ctas),
+            dq_plan=dict(kernel=qplan.kernel, cluster=qplan.cluster, ctas=qplan.ctas))
         if f32:  # beside the 3xTF32 bounds: the same operations on the CUDA cores
             times[name].update(
                 {f"{kind}_cores_bound_ms": n * unit / PEAK_F32_FLOPS * 1e3
@@ -1667,7 +1678,8 @@ def serve_trained_phase(master, cfg, rec):
 TF32_KERNELS = ("train_attn_fwd_tf32_kernel<64>", "train_attn_fwd_tf32_kernel<128>",
                 "train_attn_dkv_tf32_kernel<64>", "train_attn_dkv_tf32_kernel<128>",
                 "train_attn_dq_tf32_kernel<64>", "train_attn_dq_tf32_kernel<128>",
-                "train_attn_fwd_tf32_pair_kernel", "train_attn_dkv_tf32_pair_kernel")
+                "train_attn_fwd_tf32_pair_kernel", "train_attn_dkv_tf32_split_kernel",
+                "train_attn_dq_tf32_split_kernel")
 
 
 def sass_phase(rc: int, out: str, err: str) -> dict:
@@ -1834,7 +1846,7 @@ def main() -> int:
                 f"dq {t['dq_ms']:.4f} (bound {t['dq_bound_ms']:.4f}); bwd {t['bwd_ms']:.4f} (SDPA "
                 f"{t['sdpa_bwd_ms']:.4f}); fwd+bwd {t['fwd_bwd_ms']:.4f} "
                 f"(plain {t['plain_fwd_bwd_ms']:.3f}, SDPA {t['sdpa_fwd_bwd_ms']:.4f}); dkv plan "
-                f"{t['dkv_plan']}")
+                f"{t['dkv_plan']}, dq plan {t['dq_plan']}")
             say("  device time (profiler): " + ", ".join(
                     f"{k} {v:.4f}" if v is not None else f"{k} not measured"
                     for k, v in dev.items())
@@ -1939,9 +1951,13 @@ def main() -> int:
                "above D=128 by train_attn_dkv_wide_kernel; f32: B=1, S=300, Hq=8, Hkv=2, "
                "D=64, and tinyllama_f32, llama2_7b_f32 at the two models' shapes in f32, "
                "forward, dkv and dq by the 3xTF32 kernels; d256_f32: d256_mqa in f32, the "
-               "forward and dkv by the 3xTF32 CTA pairs, dq on the CUDA cores; c6: D=72, 80, "
-               "300, 320 padded to a multiple of 16, above D=256 the CUDA-core kernels on "
-               "256-column slices; their library_ms is SDPA and plain_ms the plain version on "
+               "forward by the 3xTF32 CTA pairs, dkv and dq by the 3xTF32 splits of 2 "
+               "CTAs; d512_f32: B=1, S=1024, Hq=8, Hkv=2, D=512, dkv and dq by the 3xTF32 "
+               "splits of 4 CTAs, the forward on the CUDA cores; c6: D=72, 80, 300, 320 "
+               "padded to a multiple of 16, above D=256 the forward on the CUDA cores on "
+               "256-column slices and dkv and dq by the 3xTF32 splits of 3 CTAs (bf16 on f32 "
+               "copies), and D=1040 (B=1, S=100, Hq=8, Hkv=4) with dkv and dq on the CUDA "
+               "cores too; their library_ms is SDPA and plain_ms the plain version on "
                "the same padded inputs at the real D's scale, causal); max_abs_err is the "
                "worst relative error over the forward, the three gradients and dq alone of the "
                "checked cases; device_ms and library_device_ms: the kernel's and SDPA's "
@@ -1956,10 +1972,11 @@ def main() -> int:
              "plain_bwd_ms", "sdpa_bwd_ms", ("train_attn_dkv_ws_kernel",
                                               "train_attn_dkv_wide_kernel",
                                               "train_attn_dkv_tf32_kernel",
-                                              "train_attn_dkv_tf32_pair_kernel")),
+                                              "train_attn_dkv_tf32_split_kernel")),
             ("dq", "train_attn_bwd_dq", ":1456 (_flash_attention_dq_kernel :1146)",
              "plain_bwd_ms", "sdpa_bwd_ms", ("train_attn_dq_ws_kernel",
-                                             "train_attn_dq_tf32_kernel"))):
+                                             "train_attn_dq_tf32_kernel",
+                                             "train_attn_dq_tf32_split_kernel"))):
         kernels.append(dict(
             name=name, route="cuda", source="bitdistiller_tpu_torch/csrc/train_attention.cu",
             replaces="jax/experimental/pallas/ops/tpu/flash_attention.py" + line
@@ -1971,9 +1988,9 @@ def main() -> int:
             llama2_7b=b8(kind, t7, plain, lib), d256=b8(kind, ta_times["d256"], plain, lib),
             d256_mqa=b8(kind, tm, plain, lib),
             **{c: b8(kind, ta_times[c], plain, lib)
-               for c in ("f32", "tinyllama_f32", "llama2_7b_f32", "d256_f32")},
+               for c in ("f32", "tinyllama_f32", "llama2_7b_f32", "d256_f32", "d512_f32")},
             c6={c: dict({key: r[key] for key in (f"{kind}_ms", f"{kind}_bound_ms", "dkv_plan",
-                                                 "fwd_plan", "rel_err", "launches")},
+                                                 "dq_plan", "fwd_plan", "rel_err", "launches")},
                         device_ms=r["device_ms"][kind],
                         library_ms=r["sdpa_fwd_ms" if kind == "fwd" else "sdpa_bwd_ms"],
                         plain_ms=r["plain_fwd_ms" if kind == "fwd" else "plain_bwd_ms"])
@@ -1983,8 +2000,10 @@ def main() -> int:
                 "d256_plan": ta_times["d256"]["dkv_plan"], "d256_mqa_plan": tm["dkv_plan"],
                 "d256_kernel": "train_attn_dkv_wide_kernel",
                 **{f"{c}_plan": ta_times[c]["dkv_plan"]
-                   for c in ("f32", "tinyllama_f32", "llama2_7b_f32", "d256_f32")}}
-               if kind == "dkv" else {})))
+                   for c in ("f32", "tinyllama_f32", "llama2_7b_f32", "d256_f32", "d512_f32")}}
+               if kind == "dkv" else {f"{c}_plan": ta_times[c]["dq_plan"]
+                                      for c in ("d256_f32", "d512_f32")} if kind == "dq"
+               else {})))
     summary["kernels"] = kernels
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(summary, indent=1))

@@ -12,13 +12,20 @@ B8's bf16 cases cover the dkv plan's cluster sizes (1, 2, 7, 8 with 71 % 8
 256, MHA and rep 2 and 8; two calls at D = 256 give the same bits). The dq kernel
 is also held by itself against `train_attn_bwd_dq_plain` on the forward
 kernel's lse and di (D = 64, 80, 128, 256; rep 1, 8, 71; S = 64, 129, 1000;
-padded), and its two calls must give the same bits. B8 in f32: dkv and dq at
-D <= 128 on the 3xTF32 kernels (D = 32, 64, 128; rep 1, 4, 8; S = 75 and
-1000, padded; two calls at D = 64 give the same bits); at 128 < D <= 256 the
-forward and dkv on the 3xTF32 CTA pairs, dq on the CUDA cores (D = 144,
-192, 256; rep 1, 2, 8; S = 129 and 1000, padded; two calls at D = 256 give
-the same bits over the pair alone, clusters of 8 and a head split that C
-does not divide).
+padded, and D = 192 and 320), and its two calls must give the same bits.
+B8 in f32: dkv and dq at D <= 128 on the 3xTF32 kernels (D = 32, 64, 128;
+rep 1, 4, 8; S = 75 and 1000, padded; two calls at D = 64 give the same
+bits); at 128 < D <= 256 the forward on the 3xTF32 CTA pairs, dkv and dq
+on the 3xTF32 splits of 2 CTAs (D = 144, 192, 256; rep 1, 2, 8; S = 129
+and 1000, padded; two calls at D = 256 give the same bits over the pair
+alone, clusters of 8 and a head split that C does not divide); at 256 < D
+<= 1024 dkv and dq on the splits of ceil(D / 128) CTAs, bf16 on f32
+copies (D = 272, 320, 384, 512,
+1024, both dtypes, rep 2 and 8, a padded tail and a ragged S, two calls
+bit-equal), and the f32 dq alone at D = 144 to 512. Above D = 1024 (D =
+1040, both dtypes) the CUDA-core forward, dkv and dq. The plans' clusters
+against the C dispatch rule: the raw launchers take each plan's cluster
+and refuse any other, at every D the tests take.
 
 Tolerances: B8 in bf16, outputs and gradients within 2e-2 of max|plain| per
 tensor (p and ds enter their products rounded to bf16, the plain version
@@ -117,7 +124,7 @@ def test_train_attention_f32_matches_plain(gen, d):
     got = _fwd_bwd(ta.flash_train_attention, q, k, v, do, mask)
     want = _fwd_bwd(ta.flash_train_attention_plain, q, k, v, do, mask)
     # dkv on 3xTF32 up to D = 128, on the 3xTF32 CTA pairs above
-    assert ta.train_attn_bwd_dkv.plan.kernel == ("tf32x3" if d <= 128 else "tf32x3_pair")
+    assert ta.train_attn_bwd_dkv.plan.kernel == ("tf32x3" if d <= 128 else "tf32x3_split")
     assert _rel(got[0], want[0], mask) < 1e-4
     assert _rel(got[1], want[1], mask) < 1e-4
     assert _rel(got[2], want[2]) < 1e-4
@@ -158,11 +165,11 @@ def test_train_attention_f32_is_deterministic(gen):
 @pytest.mark.parametrize("rep", [1, 2, 8])
 @pytest.mark.parametrize("d", [144, 192, 256])
 def test_train_attention_f32_pair_matches_plain(gen, d, rep, s):
-    """The f32 forward and dkv at 128 < D <= 256 on the 3xTF32 CTA pairs
-    (clusters of 2 and of 2 min(rep, 4)), dq on the CUDA cores: the output
-    and the three gradients; rep 1 over two kv heads and two batches (batch
-    0 padded), rep 2 and 8 over one kv head; D = 144 leaves the second CTA's
-    columns mostly zeros."""
+    """The f32 forward at 128 < D <= 256 on the 3xTF32 CTA pairs (clusters of
+    2), dkv and dq on the 3xTF32 splits of 2 CTAs (clusters of 2 min(rep, 4)
+    and of 2): the output and the three gradients; rep 1 over two kv heads
+    and two batches (batch 0 padded), rep 2 and 8 over one kv head; D = 144
+    leaves the second CTA's columns mostly zeros."""
     b, hkv = (2, 2) if rep == 1 else (1, 1)
     q, k, v, do, mask = _attention_case(gen, b, s, rep * hkv, hkv, d, torch.float32,
                                         pad_to=s - s // 4)
@@ -174,7 +181,10 @@ def test_train_attention_f32_pair_matches_plain(gen, d, rep, s):
     fplan, plan = ta.train_attn_fwd.plan, ta.train_attn_bwd_dkv.plan
     assert (fplan.kernel, fplan.cluster, fplan.grid) == ("tf32x3_pair", 2,
                                                          (2 * rep * hkv, b, -(-s // 64)))
-    assert (plan.kernel, plan.cluster) == ("tf32x3_pair", 2 * min(rep, 4))
+    assert (plan.kernel, plan.cluster) == ("tf32x3_split", 2 * min(rep, 4))
+    qplan = ta.train_attn_bwd_dq.plan
+    assert (qplan.kernel, qplan.cluster, qplan.grid) == ("tf32x3_split", 2,
+                                                         (2 * rep * hkv, b, -(-s // 64)))
     want = _fwd_bwd(ta.flash_train_attention_plain, q, k, v, do, mask)
     assert _rel(got[0], want[0], mask) < 1e-4
     assert _rel(got[1], want[1], mask) < 1e-4
@@ -190,7 +200,7 @@ def test_train_attention_f32_pair_is_deterministic(gen, hq, hkv):
     q, k, v, do, mask = _attention_case(gen, 1, 300, hq, hkv, 256, torch.float32, pad_to=280)
     a = _fwd_bwd(ta.flash_train_attention, q, k, v, do, mask)
     plan = ta.train_attn_bwd_dkv.plan
-    assert (plan.kernel, plan.cluster) == ("tf32x3_pair", 2 * min(hq // hkv, 4))
+    assert (plan.kernel, plan.cluster) == ("tf32x3_split", 2 * min(hq // hkv, 4))
     c = _fwd_bwd(ta.flash_train_attention, q, k, v, do, mask)
     assert all(torch.equal(x, y) for x, y in zip(a, c))
 
@@ -226,10 +236,11 @@ def test_train_attention_is_deterministic_at_d256(gen, hq, hkv):
 
 @pytest.mark.parametrize("s", [64, 129, 1000])
 @pytest.mark.parametrize("rep", [1, 8, 71])
-@pytest.mark.parametrize("d", [64, 80, 128, 256])
+@pytest.mark.parametrize("d", [64, 80, 128, 256, 192, 320])
 def test_train_attention_dq_kernel_alone_matches_plain(gen, d, rep, s):
     """The dq kernel on identical inputs to its plain version; rep 1 runs two
-    batches (batch 0 padded), rep 8 two kv heads, rep 71 one (FALCON_7B)."""
+    batches (batch 0 padded), rep 8 two kv heads, rep 71 one (FALCON_7B).
+    D = 320: the f32 split on f32 copies, rounded to bf16."""
     b, hkv = (2, 2) if rep == 1 else (1, 2) if rep == 8 else (1, 1)
     q, k, v, do, mask = _attention_case(gen, b, s, rep * hkv, hkv, d, torch.bfloat16,
                                         pad_to=s - s // 4)
@@ -242,6 +253,118 @@ def test_train_attention_dq_kernel_alone_matches_plain(gen, d, rep, s):
     assert got.shape == want.shape and got.dtype == torch.bfloat16
     assert _rel(got, want, mask) < 2e-2
     assert torch.equal(got, ta.train_attn_bwd_dq(q, k, v, mask, do, lse, di))
+    assert ta.train_attn_bwd_dq.plan.kernel == ("tf32x3_split" if d > 256 else "wgmma")
+
+
+@pytest.mark.parametrize("s", [129, 1000])
+@pytest.mark.parametrize("rep", [1, 8])
+@pytest.mark.parametrize("d", [144, 192, 256, 320, 512])
+def test_train_attention_f32_dq_kernel_alone_matches_plain(gen, d, rep, s):
+    """The f32 dq on the splits (D <= 256: 2 CTAs, 320: 3, 512: 4) alone, on
+    the forward kernel's lse and di, within 1e-4; rep 1 over
+    two batches (batch 0 padded), rep 8 over two kv heads; two calls
+    bit-equal."""
+    b, hkv = (2, 2) if rep == 1 else (1, 2)
+    q, k, v, do, mask = _attention_case(gen, b, s, rep * hkv, hkv, d, torch.float32,
+                                        pad_to=s - s // 4)
+    out, lse = ta.train_attn_fwd(q, k, v, mask)
+    di = (out * do).sum(-1).contiguous()
+    got = ta.train_attn_bwd_dq(q, k, v, mask, do, lse, di)
+    plan = ta.train_attn_bwd_dq.plan
+    ns = -(-d // 128)
+    assert (plan.kernel, plan.cluster) == ("tf32x3_split", ns)
+    want = ta.train_attn_bwd_dq_plain(q, k, v, mask, do, lse, di)
+    assert _rel(got, want, mask) < 1e-4
+    assert torch.equal(got, ta.train_attn_bwd_dq(q, k, v, mask, do, lse, di))
+
+
+@pytest.mark.parametrize("hq,hkv", [(4, 2), (8, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [272, 320, 384, 512, 1024])
+def test_train_attention_split_matches_plain(gen, d, dtype, hq, hkv):
+    """dkv and dq at 256 < D <= 1024 on the 3xTF32 splits of ns = ceil(D /
+    128) CTAs (dkv clusters of ns min(rep, 8 // ns), dq clusters of ns; bf16
+    on f32 copies, rounded once), the forward on the CUDA cores: the output
+    and the three gradients at S = 300 (ragged) with a padded tail (segment
+    ids), rep 2 and 8; D = 272 leaves the third CTA 16 real columns; two
+    calls bit-equal."""
+    b, s = 2, 300
+    q, k, v, do, mask = _attention_case(gen, b, s, hq, hkv, d, dtype, pad_to=260)
+    launches = (ta.train_attn_fwd.launches, ta.train_attn_bwd_dkv.launches,
+                ta.train_attn_bwd_dq.launches)
+    got = _fwd_bwd(ta.flash_train_attention, q, k, v, do, mask)
+    assert (ta.train_attn_fwd.launches, ta.train_attn_bwd_dkv.launches,
+            ta.train_attn_bwd_dq.launches) == tuple(n + 1 for n in launches)
+    ns, rep = -(-d // 128), hq // hkv
+    kernel = "tf32x3_split"
+    plan, qplan = ta.train_attn_bwd_dkv.plan, ta.train_attn_bwd_dq.plan
+    assert (plan.kernel, plan.cluster, plan.columns) == (kernel, ns * min(rep, 8 // ns), ns)
+    assert (qplan.kernel, qplan.cluster, qplan.grid) == (kernel, ns, (ns * hq, b, 5))
+    assert ta.train_attn_fwd.plan.kernel == "cores_wide"
+    want = _fwd_bwd(ta.flash_train_attention_plain, q, k, v, do, mask)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    assert all(g.dtype == dtype and g.shape == w.shape for g, w in zip(got, want))
+    assert _rel(got[0], want[0], mask) < tol
+    assert _rel(got[1], want[1], mask) < tol
+    assert _rel(got[2], want[2]) < tol
+    assert _rel(got[3], want[3]) < tol
+    again = _fwd_bwd(ta.flash_train_attention, q, k, v, do, mask)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_train_attention_above_1024_matches_plain(gen, dtype):
+    """D = 1040 (past the splits): the forward, dkv and dq on the CUDA-core
+    kernels, 256-column slices; the output and the three gradients against
+    the plain version at a short ragged S with a padded tail, rep 2; two
+    calls bit-equal."""
+    b, s, hq, hkv, d = 1, 100, 8, 4, 1040
+    q, k, v, do, mask = _attention_case(gen, b, s, hq, hkv, d, dtype, pad_to=80)
+    launches = (ta.train_attn_fwd.launches, ta.train_attn_bwd_dkv.launches,
+                ta.train_attn_bwd_dq.launches)
+    got = _fwd_bwd(ta.flash_train_attention, q, k, v, do, mask)
+    assert (ta.train_attn_fwd.launches, ta.train_attn_bwd_dkv.launches,
+            ta.train_attn_bwd_dq.launches) == tuple(n + 1 for n in launches)
+    assert (ta.train_attn_fwd.plan.kernel, ta.train_attn_bwd_dkv.plan.kernel,
+            ta.train_attn_bwd_dq.plan.kernel) == ("cores_wide",) * 3
+    want = _fwd_bwd(ta.flash_train_attention_plain, q, k, v, do, mask)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    assert all(g.dtype == dtype and g.shape == w.shape for g, w in zip(got, want))
+    assert _rel(got[0], want[0], mask) < tol
+    assert _rel(got[1], want[1], mask) < tol
+    assert _rel(got[2], want[2]) < tol
+    assert _rel(got[3], want[3]) < tol
+    again = _fwd_bwd(ta.flash_train_attention, q, k, v, do, mask)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 64, 128, 144, 256, 272, 320, 384, 512, 1024, 1040])
+def test_train_attention_plans_match_the_dispatch_rule(gen, d, dtype):
+    """The raw dkv and dq launchers at every D the tests take: the plan's
+    cluster launches (0), one more or one less is refused before any launch
+    (csrc/train_attention.cu: dispatch); bf16 at 256 < D <= 1024 is refused
+    whatever the cluster (the wrapper passes f32 copies there)."""
+    b, s, hq, hkv = 1, 100, 8, 2
+    q, k, v, do, _ = _attention_case(gen, b, s, hq, hkv, d, dtype)
+    lse = torch.zeros((b, hq, s), device="cuda")
+    di = torch.zeros((b, s, hq), device="cuda")
+    dk, dv, dq = torch.empty_like(k), torch.empty_like(v), torch.empty_like(q)
+    f32, sc = int(dtype == torch.float32), d ** -0.5
+    stream = torch.cuda.current_stream().cuda_stream
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), None, do.data_ptr(), lse.data_ptr(),
+            di.data_ptr())
+    launch = {
+        "dkv": lambda c: ta._launcher("bd_train_attn_dkv")(
+            *ptrs, dk.data_ptr(), dv.data_ptr(), b, s, hq, hkv, d, sc, c, f32, stream),
+        "dq": lambda c: ta._launcher("bd_train_attn_dq")(
+            *ptrs, dq.data_ptr(), b, s, hq, hkv, d, sc, c, f32, stream)}
+    plans = {"dkv": ta.dkv_plan(b, s, hq, hkv, d, dtype), "dq": ta.dq_plan(b, s, hq, hkv, d, dtype)}
+    for kind, plan in plans.items():
+        for c in (plan.cluster - 1, plan.cluster + 1):
+            assert launch[kind](c) != 0, (kind, c)
+        assert (launch[kind](plan.cluster) == 0) == (not ta.widened(dtype, d)), kind
+    torch.cuda.synchronize()
 
 
 def test_train_attention_under_checkpoint_relaunches_the_forward(gen):
@@ -435,8 +558,9 @@ def test_train_attention_f32_forward_kernel_matches_plain(gen, b, s, hq, hkv, d,
 @pytest.mark.parametrize("d", [72, 80, 300, 320])
 def test_train_attention_any_head_dim_matches_plain(gen, d, dtype):
     """C6: D not a multiple of 16 (72, 300) padded by the wrapper at the real
-    D's scale; above D = 256 (300, 320) the CUDA-core kernels on column
-    slices; forward and the three gradients, each kernel launched once."""
+    D's scale; above D = 256 (300, 320) the forward on the CUDA-core kernel
+    on column slices, dkv and dq on the 3xTF32 splits of 3 CTAs (bf16 on f32
+    copies); forward and the three gradients, each kernel launched once."""
     q, k, v, do, mask = _attention_case(gen, 1, 300, 8, 2, d, dtype, pad_to=250)
     launches = (ta.train_attn_fwd.launches, ta.train_attn_bwd_dkv.launches,
                 ta.train_attn_bwd_dq.launches)

@@ -1,16 +1,18 @@
-"""B8's dkv plan on the CPU: `dkv_plan` (which kernel by dtype and D: bf16
-"wgmma" up to D = 128, "wgmma_wide" above; f32 "tf32x3" up to D = 128,
-"tf32x3_pair" above; the cluster size C = min(rep, 8) on the tensor cores,
-2 min(rep, 4) for the pairs, 1 on the CUDA cores above D = 256; the grid)
-and `dkv_walk` (what CTA `rank` of a cluster walks for a key tile, in the
-plan's query tiles: 64 rows, 32 for the tf32 kernels; a pair's two CTAs
-walk their head rank's list), which the CUDA launch of
-csrc/train_attention.cu follows. Every (key tile, query head, query tile)
-on or below the diagonal is walked exactly once, by one head rank; the
-wrapper hands the kernel the plan's cluster; the pair's shared memory, from
-the .cu layout, fits a block. No kernel launches here: the dispatch
-test replaces the launcher with a recording stub, as
-tests/test_torch_c1_dispatch.py does."""
+"""B8's dkv and dq plans on the CPU: `dkv_plan` (which kernel by dtype and
+D: bf16 "wgmma" up to D = 128, "wgmma_wide" up to 256; f32 "tf32x3" up to
+D = 128, "tf32x3_split" up to 1024, bf16 above 256 on f32 copies; the cluster size C = min(rep, 8) on the tensor cores,
+ns min(rep, 8 // ns) for the splits of ns = ceil(D / 128) CTAs, 1 on the
+CUDA cores above D = 1024; the grid), `dq_plan` (the same kernels for dq,
+on clusters of ns along x) and `dkv_walk` (what CTA `rank` of a cluster
+walks for a key tile, in the plan's query tiles: 64 rows, 32 for the tf32
+kernels; a split's column ranks walk their head rank's list), which the
+CUDA launch of csrc/train_attention.cu follows and whose cluster its
+`dispatch` checks. Every (key tile, query head, query tile) on or below the
+diagonal is walked exactly once, by one head rank; the wrapper hands the
+kernel the plan's cluster; the split CTA's shared memory, from the .cu
+layout, fits a block. No kernel launches here: the dispatch test replaces
+the launcher with a recording stub, as tests/test_torch_c1_dispatch.py
+does."""
 
 import pytest
 import torch
@@ -31,11 +33,12 @@ WALKS = [(64, 1), (130, 2), (129, 4), (256, 7), (1024, 8), (130, 71), (2048, 1)]
 @pytest.mark.parametrize("s,rep,dtype,d", [
     pytest.param(s, rep, torch.bfloat16, 64, id=f"{s}-{rep}") for s, rep in WALKS]
     + [pytest.param(s, rep, torch.float32, 64, id=f"{s}-{rep}-f32") for s, rep in WALKS]
-    + [pytest.param(s, rep, torch.float32, 256, id=f"{s}-{rep}-f32-pair") for s, rep in WALKS])
+    + [pytest.param(s, rep, torch.float32, 256, id=f"{s}-{rep}-f32-pair") for s, rep in WALKS]
+    + [pytest.param(s, rep, torch.float32, 384, id=f"{s}-{rep}-f32-split") for s, rep in WALKS])
 def test_dkv_walk_covers_each_pair_once_on_or_below_the_diagonal(s, rep, dtype, d):
     plan = ta.dkv_plan(1, s, rep, 1, d, dtype)
     qtile, ranks = plan.query_tile, plan.head_ranks
-    assert plan.cluster == (2 * ranks if d > 128 else ranks)
+    assert plan.cluster == (ta.split_ctas(d) if dtype == torch.float32 else 1) * ranks
     nq = _ceil(s, qtile)
     for kt in range(_ceil(s, TILE)):
         walked = [(rank, pair) for rank in range(ranks)
@@ -74,19 +77,23 @@ def test_dkv_ctas_at_tinyllama_and_llama2_7b():
         (80, "wgmma", torch.bfloat16), (128, "wgmma", torch.bfloat16),
         (144, "wgmma_wide", torch.bfloat16), (256, "wgmma_wide", torch.bfloat16),
         (16, "tf32x3", torch.float32), (64, "tf32x3", torch.float32),
-        (128, "tf32x3", torch.float32), (144, "tf32x3_pair", torch.float32),
-        (256, "tf32x3_pair", torch.float32), (320, "cores_wide", torch.float32))])
+        (128, "tf32x3", torch.float32), (144, "tf32x3_split", torch.float32),
+        (256, "tf32x3_split", torch.float32), (320, "tf32x3_split", torch.float32),
+        (320, "tf32x3_split", torch.bfloat16), (1040, "cores_wide", torch.float32),
+        (1040, "cores_wide", torch.bfloat16))])
 def test_dkv_kernel_is_chosen_by_head_dim(d, kernel, dtype):
     plan = ta.dkv_plan(1, 200, 8, 2, d, dtype)
     assert plan.kernel == kernel
-    if kernel == "cores_wide":  # one warp a key row, F32_ROWS a CTA, no cluster, 2 slices
-        assert plan.cluster == 1 and plan.grid == (_ceil(200, ta.F32_ROWS), 2, 2)
+    if kernel == "cores_wide":  # one warp a key row, F32_ROWS a CTA, no cluster, 5 slices
+        assert plan.cluster == 1 and plan.grid == (_ceil(200, ta.F32_ROWS), 2, 5)
         return
     # the tensor-core kernels: clusters of min(rep, 8) CTAs a 64-row key tile and kv
-    # head; the pairs 2 min(rep, 4) (rep 4: 8 CTAs, each head rank's two walking one head)
-    c = 8 if kernel == "tf32x3_pair" else 4
+    # head; the splits ns min(rep, 8 // ns) (rep 4: a pair 8 CTAs, each head rank's
+    # two walking one head; D = 320, ns = 3: 6 CTAs, two head ranks of three)
+    ns = ta.split_ctas(d) if kernel.startswith("tf32x3") else 1
+    c = ns * min(4, 8 // ns)
     assert plan.cluster == c and plan.grid == (c, _ceil(200, 64) * 2, 1)
-    assert plan.head_ranks == 4
+    assert plan.columns == ns and plan.head_ranks == min(4, 8 // ns)
     assert plan.query_tile == (32 if kernel.startswith("tf32x3") else 64)
 
 
@@ -103,7 +110,9 @@ class _Stream:
     (8, 2, 144, torch.float32, 8),    # f32 above D 128: pairs of CTAs, 2 min(rep, 4)
     (2, 2, 256, torch.float32, 2),    # ... MHA: the pair alone
     (12, 4, 192, torch.float32, 6),   # ... rep 3: three pairs
-    (8, 2, 320, torch.float32, 1)])   # above D 256: the CUDA cores, no cluster
+    (8, 2, 320, torch.float32, 6),    # above D 256: splits of 3 CTAs, two head ranks
+    (8, 8, 1024, torch.float32, 8),   # ... of 8, MHA
+    (8, 2, 1040, torch.float32, 1)])  # above D 1024: the CUDA cores, no cluster
 def test_dkv_wrapper_hands_the_kernel_the_plans_cluster(monkeypatch, hq, hkv, d, dtype, cluster):
     log = []
 
@@ -132,7 +141,7 @@ def test_dkv_wrapper_hands_the_kernel_the_plans_cluster(monkeypatch, hq, hkv, d,
     if dtype == torch.bfloat16:
         assert plan.kernel == ("wgmma" if d <= 128 else "wgmma_wide")
     else:
-        assert plan.kernel == ("tf32x3" if d <= 128 else "tf32x3_pair" if d <= 256
+        assert plan.kernel == ("tf32x3" if d <= 128 else "tf32x3_split" if d <= 1024
                                else "cores_wide")
     if plan.kernel != "cores_wide":
         assert plan.grid == (cluster, _ceil(s, TILE) * hkv, b)
@@ -160,8 +169,133 @@ def test_pair_ctas_at_gemma_2b_heads_in_f32():
     pairs."""
     dkv = ta.dkv_plan(2, 1024, 8, 1, 256, torch.float32)
     assert (dkv.kernel, dkv.cluster, dkv.grid, dkv.ctas, dkv.head_ranks) == (
-        "tf32x3_pair", 8, (8, 16, 2), 256, 4)
+        "tf32x3_split", 8, (8, 16, 2), 256, 4)
     assert dkv.ctas == ta.dkv_plan(2, 1024, 8, 1, 128, torch.float32).ctas
     assert len(ta.dkv_walk(1024, 8, 4, 0, 0, 32)) == 2 * 32  # two heads, 32 query stages
     fwd = ta.fwd_plan(2, 1024, 8, 1, 256, torch.float32)
     assert (fwd.kernel, fwd.cluster, fwd.grid, fwd.ctas) == ("tf32x3_pair", 2, (16, 2, 16), 512)
+
+
+SPLITS = [  # d, ns: the split of D's columns into ns CTAs of 128 (a pair at ns = 2)
+    (144, 2), (256, 2), (272, 3), (320, 3), (512, 4), (1024, 8)]
+
+
+@pytest.mark.parametrize("rep", [1, 2, 3, 8])
+@pytest.mark.parametrize("d,ns", SPLITS)
+def test_split_plans_by_head_dim(d, ns, rep):
+    """f32 above D = 128 (bf16 above 256, widened to f32): dkv and dq on the
+    3xTF32 kernels split over ns = ceil(D / 128) CTAs; dkv clusters of ns
+    min(rep, 8 // ns) (head ranks times column ranks, within the portable 8),
+    dq clusters of ns along x over a grid of ns Hq."""
+    b, s, hkv = 2, 300, 2
+    hq = rep * hkv
+    kernel = "tf32x3_split"
+    for dtype in (torch.float32, torch.bfloat16) if d > 256 else (torch.float32,):
+        dkv = ta.dkv_plan(b, s, hq, hkv, d, dtype)
+        c = ns * min(rep, 8 // ns)
+        assert (dkv.kernel, dkv.columns, dkv.cluster, dkv.grid) == (
+            kernel, ns, c, (c, _ceil(s, TILE) * hkv, b))
+        assert dkv.head_ranks == min(rep, 8 // ns) and dkv.cluster <= ta.MAX_CLUSTER
+        assert dkv.smem == ta.dkv_tf32_smem(d) and dkv.query_tile == 32
+        dq = ta.dq_plan(b, s, hq, hkv, d, dtype)
+        assert (dq.kernel, dq.cluster, dq.grid) == (kernel, ns, (ns * hq, b, _ceil(s, 64)))
+        assert dq.smem == ta.dq_tf32_smem(d)
+    assert ta.widened(torch.bfloat16, d) == (d > 256)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_above_1024_dkv_and_dq_stay_on_the_cuda_cores(dtype):
+    """D = 1040 (ns would be 9, past the portable cluster): the CUDA-core
+    kernels, one warp a row, 256-column slices, no cluster."""
+    d, s = 1040, 300
+    dkv, dq = ta.dkv_plan(2, s, 8, 2, d, dtype), ta.dq_plan(2, s, 8, 2, d, dtype)
+    assert (dkv.kernel, dkv.cluster, dkv.grid) == ("cores_wide", 1, (_ceil(s, 8), 2, 2 * 5))
+    assert (dq.kernel, dq.cluster, dq.grid) == ("cores_wide", 1, (_ceil(s, 8), 8, 2 * 5))
+    assert not ta.widened(dtype, d)
+    assert ta.fwd_plan(2, s, 8, 2, d, dtype).kernel == "cores_wide"
+
+
+@pytest.mark.parametrize("d", [16, 64, 128, 256])
+def test_dq_plan_up_to_d256(d):
+    """One CTA a (query head, batch, 64-row tile), bf16 up to D = 256 and f32
+    up to 128; f32 above 128 a split of 2 along x."""
+    for dtype, kernel in ((torch.bfloat16, "wgmma"), (torch.float32, "tf32x3")):
+        if d > 128 and dtype == torch.float32:
+            kernel = "tf32x3_split"
+        plan = ta.dq_plan(1, 130, 8, 2, d, dtype)
+        ns = 2 if kernel == "tf32x3_split" else 1
+        assert (plan.kernel, plan.cluster, plan.grid) == (kernel, ns, (ns * 8, 1, 3))
+
+
+@pytest.mark.parametrize("d,smem", [(64, 83104), (128, 214320), (144, 214336), (256, 214336),
+                                    (320, 214336), (1024, 214336)])
+def test_tf32_dq_shared_memory_fits(d, smem):
+    """`dq_tf32_smem`, csrc/train_attention.cu's DqTf32 layout in Python:
+    two CTAs an SM at DT = 64, one at 128; a split's CTA (DT = 128, any ns)
+    adds only its two mbarriers, its partials landing in the ds slots. The
+    dkv split CTA is the pair's (231,232 bytes). Both within a block's
+    232,448 bytes and the SM's 233,472 (1 KB a CTA)."""
+    assert ta.dq_tf32_smem(d) == smem
+    ctas = 2 if d <= 64 else 1
+    assert ctas * (smem + 1024) <= 233472 < (ctas + 1) * (smem + 1024)
+    assert ta.dq_plan(1, 64, 2, 1, d, torch.float32).smem == smem
+    if d > 128:
+        assert ta.dkv_tf32_smem(d) == 231232 <= 232448
+
+
+@pytest.mark.parametrize("hq,hkv,d,dtype,cluster", [
+    (8, 2, 64, torch.float32, 1), (8, 2, 64, torch.bfloat16, 1), (8, 2, 256, torch.bfloat16, 1),
+    (8, 2, 144, torch.float32, 2), (8, 2, 320, torch.float32, 3), (4, 4, 1024, torch.float32, 8),
+    (8, 2, 1040, torch.float32, 1)])
+def test_dq_wrapper_hands_the_kernel_the_plans_cluster(monkeypatch, hq, hkv, d, dtype, cluster):
+    log = _stub(monkeypatch)
+    b, s = 1, 130
+    q = torch.zeros((b, s, hq, d), dtype=dtype)
+    k = torch.zeros((b, s, hkv, d), dtype=dtype)
+    before = ta.train_attn_bwd_dq.launches
+    dq = ta.train_attn_bwd_dq(q, k, k, None, q, torch.zeros((b, hq, s)), torch.zeros((b, s, hq)))
+    (name, args), = log
+    assert name == "bd_train_attn_dq" and ta.train_attn_bwd_dq.launches == before + 1
+    assert args[8:13] == (b, s, hq, hkv, d)
+    assert args[-3:-1] == (cluster, int(dtype == torch.float32))
+    plan = ta.train_attn_bwd_dq.plan
+    assert plan == ta.dq_plan(b, s, hq, hkv, d, dtype) and plan.cluster == cluster
+    assert dq.shape == q.shape and dq.dtype == dtype
+
+
+def test_bf16_above_256_reaches_the_split_kernels_with_f32_inputs(monkeypatch):
+    """bf16 at D = 320 through the autograd Function: the forward on the
+    bf16 CUDA-core kernel; dkv and dq launched with the f32 flag on the same
+    f32 copies of q, k, v and dout (made once in the backward, not the bf16
+    tensors), on the split plans; the gradients come back in bf16."""
+    log = _stub(monkeypatch)
+    b, s, hq, hkv, d = 1, 100, 8, 2, 320
+    q = torch.zeros((b, s, hq, d), dtype=torch.bfloat16, requires_grad=True)
+    k = torch.zeros((b, s, hkv, d), dtype=torch.bfloat16, requires_grad=True)
+    v = torch.zeros((b, s, hkv, d), dtype=torch.bfloat16, requires_grad=True)
+    out = ta.flash_train_attention(q, k, v, torch.ones((b, s), dtype=torch.int32))
+    out.backward(torch.zeros_like(out))
+    (fname, fargs), (kname, kargs), (qname, qargs) = log
+    assert (fname, kname, qname) == ("bd_train_attn_fwd", "bd_train_attn_dkv", "bd_train_attn_dq")
+    assert fargs[-2] == 0 and ta.train_attn_fwd.plan.kernel == "cores_wide"
+    assert kargs[-3:-1] == (6, 1) and qargs[-3:-1] == (3, 1)  # the plans' clusters, f32
+    assert kargs[:3] == qargs[:3] and kargs[4] == qargs[4]  # one copy of q, k, v, dout
+    assert kargs[0] != fargs[0] and kargs[1] != fargs[1]  # not the bf16 tensors
+    assert ta.train_attn_bwd_dkv.plan.kernel == ta.train_attn_bwd_dq.plan.kernel == "tf32x3_split"
+    for t in (q, k, v):
+        assert t.grad.dtype == torch.bfloat16 and t.grad.shape == t.shape
+
+
+def _stub(monkeypatch):
+    log = []
+
+    def stub(name):
+        def launch(*args):
+            log.append((name, args))
+            return 0
+        return launch
+
+    monkeypatch.setattr(_device, "on_card", lambda t: True)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda *a, **k: _Stream())
+    monkeypatch.setattr(ta, "_launcher", stub)
+    return log

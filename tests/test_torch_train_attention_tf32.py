@@ -2,11 +2,12 @@
 (`tf32x3_matmul`: each operand split into hi = tf32(x) and lo =
 tf32(x - hi), three products hi hi + hi lo + lo hi in f32), emulated in
 plain PyTorch by `train_attn_bwd_tf32x3_emulated` (above D = 128 the score
-products as the dkv kernel's CTA pair takes them: two 128-column halves,
-each in 3xTF32, summed), against the JAX package's f32 flash gradients,
-run as tests/test_torch_train_attention.py runs them (the stock Pallas TPU
-flash kernel under pltpu.force_tpu_interpret_mode()). D = 64, 128, 144
-and 256, rep 1 and 8, padded, a ragged S.
+products as the kernels' splits take them: ceil(D / 128) chunks of 128
+columns, each in 3xTF32, summed in rank order), against the JAX package's
+f32 flash gradients, run as tests/test_torch_train_attention.py runs them
+(the stock Pallas TPU flash kernel under pltpu.force_tpu_interpret_mode()).
+D = 64, 128, 144 and 256 (a pair), 272, 320 (splits of 3) and 512 (of 4),
+rep 1, 2, 4 and 8, padded, a ragged S.
 
 Tolerance: 1e-4 of max|JAX| per gradient, the bar the kernels are held to
 on the card (chip_smoke.py: TRAIN_ATTN_TOL_F32). One pass (plain TF32,
@@ -36,6 +37,9 @@ CASES = [  # b, s, hq, hkv, d
     (1, 100, 8, 1, 144),  # ... rep 8
     (2, 100, 2, 2, 256),  # ... rep 1, D = 256
     (1, 100, 8, 1, 256),  # ... rep 8 (Gemma-2B's heads)
+    (1, 100, 8, 2, 272),  # a split of 3: the third CTA's columns mostly zeros, rep 4
+    (1, 100, 8, 1, 320),  # ... of 3, rep 8
+    (1, 64, 4, 2, 512),   # ... of 4, rep 2
 ]
 TOL = 1e-4
 
