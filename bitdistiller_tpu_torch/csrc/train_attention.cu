@@ -77,18 +77,18 @@
 // f32 (JAX's compute dtype float32, `--dtype float32`): the forward, dkv
 // and dq at D <= 128 are 3xTF32 wgmma kernels fed by a TMA ring (see their
 // section: every A from registers, the products over rows taken
-// transposed), bound by operations at 495 / 3 = 165 TFLOP/s. Above, the
-// same kernels run on clusters that split D's columns into ns = ceil(D /
-// 128) CTAs, each taking the score products over its 128 columns: the
-// forward in pairs (128 < D <= 256) that push their partial scores into
-// each other's shared memory (pair_sum), dkv and dq in splits of 2 to 8
-// CTAs (128 < D <= 1024) that each pull the ns partials in rank order
-// (split_sum). bf16 dkv and dq at 256 < D <= 1024 run the f32 split on f32
-// copies that the wrapper makes (a bf16 value is exact in tf32).
-// The rest runs on CUDA cores (one warp a row, the CTAs splitting D's
-// output columns into slices of WIDE_COLS, each slice recomputing the
-// scores, so no register array grows with D): the forward above D = 256 in
-// both dtypes, dkv and dq above D = 1024.
+// transposed), bound by operations at 495 / 3 = 165 TFLOP/s. Above, up to
+// D = 1024, the same three kernels run on clusters that split D's columns
+// into ns = ceil(D / 128) CTAs (2 to 8), each taking the score products
+// over its 128 columns, leaving its partial scores in its own shared memory
+// and pulling the ns partials in rank order (split_sum, one protocol for
+// the three). bf16 at 256 < D <= 1024 runs the f32 splits on f32 copies
+// that the wrapper makes (a bf16 value is exact in tf32), the outputs
+// rounded to bf16 once.
+// Above D = 1024 (ns would pass the portable cluster of 8) the three run on
+// CUDA cores (one warp a row, the CTAs splitting D's output columns into
+// slices of WIDE_COLS, each slice recomputing the scores, so no register
+// array grows with D), both dtypes.
 
 #include <float.h>
 #include <limits.h>
@@ -1100,7 +1100,7 @@ __global__ void __launch_bounds__(2 * kWg + 32, 1)
 // the resident raw tiles (64 KB) and a stage (64 KB) allow one CTA an SM
 // (up to 227 KB, 255 registers). Above D = 128 neither tiles nor
 // accumulators of the D = 128 layout fit twice in a CTA, so the CTAs of a
-// cluster split D, 128 columns each (see pair_sum and split_sum).
+// cluster split D, 128 columns each (see split_sum).
 
 constexpr int TS = 32;  // rows of a tf32 ring stage: queries (dkv) or keys (dq); a p/ds row
 static_assert(TS == 32, "the producer warp reads a stage's scalars a row a lane");
@@ -1280,18 +1280,12 @@ __device__ __forceinline__ void tcols_tf32(float (&d1)[32], float (&d2)[32], con
   }
 }
 
-// Thread base (floats) of store_split and the pair's exchange: the pair
-// (r0, 2q) of a 64 x TS plane, swizzled
-__device__ __forceinline__ int split_base(int r0, int q) {
-  return r0 * 32 + (((q >> 1) ^ (r0 & 7)) << 2) + 2 * (q & 1);
-}
-
 // v (64 x TS, the score accumulator's layout) into the hi and lo planes at
 // h, l: 64 rows of TS f32 (one box), swizzled; the pair (r, 8j + 2q) in
 // chunk (2j + q / 2) ^ (r % 8)
 __device__ __forceinline__ void store_split(float* h, float* l, const float (&v)[16], int r0,
                                             int q) {
-  const int sb = split_base(r0, q);
+  const int sb = r0 * 32 + (((q >> 1) ^ (r0 & 7)) << 2) + 2 * (q & 1);  // the pair (r0, 2q)
 #pragma unroll
   for (int j = 0; j < 4; ++j)
 #pragma unroll
@@ -1305,80 +1299,31 @@ __device__ __forceinline__ void store_split(float* h, float* l, const float (&v)
     }
 }
 
-// A CTA pair splitting D (f32, 128 < D <= 256: the forward). CTA `half` of
-// a cluster pair owns D's columns 128 half .. 128 half + 127 and takes the
-// score product over them only: a partial 64 x TS tile. Once a stage the two
-// swap partials through distributed shared memory and each adds the
-// other's to its own (own + peer in both: IEEE addition commutes, so both
-// hold the same bits, and the same p and lse follow with no second
-// exchange). A partial lands in the peer's p hi slot, at the positions
-// that the peer's thread of the same index then overwrites with store_split:
-// each thread reads its own positions only, so no thread waits for another
-// between the sum and the stores. Two mbarriers a CTA: xready (the peer's
-// partial has landed: an arrival a peer thread, released at cluster scope
-// after its stores) and xfree (the peer's product of the stage before no
-// longer reads the slots this CTA writes next: an arrival a peer warp).
-
-// v into the 64 x TS plane t in store_split's positions (sb: split_base)
-__device__ __forceinline__ void put_partial(float* t, const float (&v)[16], int sb) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int half = 0; half < 2; ++half)
-      *reinterpret_cast<float2*>(t + (sb ^ (j << 3)) + 256 * half) =
-          make_float2(v[4 * j + 2 * half], v[4 * j + 2 * half + 1]);
-}
-
-// v += the plane t, read where put_partial writes
-__device__ __forceinline__ void add_partial(float (&v)[16], const float* t, int sb) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const float2 p = *reinterpret_cast<const float2*>(t + (sb ^ (j << 3)) + 256 * half);
-      v[4 * j + 2 * half] += p.x;
-      v[4 * j + 2 * half + 1] += p.y;
-    }
-}
-
-// Stage t's exchange: x into the peer's plane xs, once the peer is done
-// with stage t - 1; then, once the peer's has landed in this CTA's own,
-// x += it.
-__device__ __forceinline__ void pair_sum(float (&x)[16], float* xs, uint64_t* xready,
-                                         uint64_t* xfree, int t, int sb) {
-  cg::cluster_group cluster = cg::this_cluster();
-  const unsigned peer = cluster.block_rank() ^ 1u;
-  if (t > 0) mbar_wait_cluster(xfree, (t - 1) & 1);
-  put_partial(cluster.map_shared_rank(xs, peer), x, sb);
-  mbar_arrive_cluster(xready, peer);
-  mbar_wait_cluster(xready, t & 1);
-  add_partial(x, xs, sb);
-}
-
-// After a stage's product (its wgmmas waited for): lane 0 tells the peer
-// that this warp no longer reads the planes the peer writes next
-__device__ __forceinline__ void pair_free(uint64_t* xfree, int lane) {
-  if (lane == 0) mbar_arrive_cluster(xfree, cg::this_cluster().block_rank() ^ 1u);
-}
-
-// A split of ns CTAs (f32, 128 < D <= 1024: dkv and dq), cluster ranks
-// base .. base + ns - 1; column rank `side` owns D's columns 128 side ..
-// 128 side + 127. A push as the forward's pair_sum would need ns - 1
-// landing slots where the ds slots hold one, so each CTA pulls (at ns = 2
-// too, where the pull is no slower than the push): it leaves its partials
-// in its own ds hi and lo slots (16 KB: thread t's 16 floats of x, then of
-// y, as float4s at i kWg + t, so that a warp reads 512 contiguous bytes an
-// instruction), and every CTA reads the ns partials in rank order,
-// ((p0 + p1) + p2) + ..., so all hold the same bits. Two mbarriers a CTA,
-// each counting an arrival a warp (after a __syncwarp, lane r arrives on
-// rank r, so the releases at cluster scope go out together): xready, from
-// each warp of the ns - 1 peers (their partials are in place), and xfree,
-// from each warp of all ns CTAs, this one's too (split_free: every warp of
-// the split has read this CTA's partials). Only then may a warp overwrite
-// its rows of the slots with ds: in the layout above, warp w's rows of ds
-// are float4 chunk w of every thread's partial, which the CTA's other warps
+// A split of ns CTAs (f32, 128 < D <= 1024: the forward, dkv and dq),
+// cluster ranks base .. base + ns - 1; column rank `side` owns D's columns
+// 128 side .. 128 side + 127 and takes the score products over them only:
+// NT partial 64 x TS tiles a stage (the forward s; dkv s^T and dp^T, dq s
+// and dp). Each CTA pulls: it leaves its partials in its own p (ds) slots
+// (thread t's 16 floats of a tile as float4s at i kWg + t, so that a warp
+// reads 512 contiguous bytes an instruction; NT 8 KB, within the hi slot at
+// NT = 1, the hi and lo slots at 2), and every CTA reads the ns partials in
+// rank order, ((p0 + p1) + p2) + ..., so all hold the same bits and the
+// same p, ds, m, l and lse follow with no second exchange. (A push would
+// need ns - 1 landing slots where the slots hold one; at ns = 2 the pull
+// was measured no slower than the push.) Two mbarriers a CTA, each counting
+// an arrival a warp (after a __syncwarp, lane r arrives on rank r, so the
+// releases at cluster scope go out together): xready, from each warp of the
+// ns - 1 peers (their partials are in place), and xfree, from each warp of
+// all ns CTAs, this one's too (split_free: every warp of the split has read
+// this CTA's partials). Only then may a warp overwrite its rows of the
+// slots with p or ds: in the layout above, warp w's rows of p (ds) are
+// float4 chunk w of every thread's partial, which the CTA's other warps
 // read as well. Both are waited for in every stage, so after a CTA's last
 // split_free no peer reads its shared memory or arrives on it any more.
+// The next stage's partial lands in the slots that this CTA's own product
+// of the stage (o^T += V^T p^T, dv^T += dO^T p, dq^T += K^T ds^T, ...)
+// reads: the named barrier after that stage's split_plane covers it, every
+// warp being past the product's wgmma_wait by then.
 
 // The arrival of this warp on the barrier at bar's offset in every CTA of
 // the split (SELF) or in every peer
@@ -1388,12 +1333,12 @@ __device__ __forceinline__ void split_arrive(uint64_t* bar, int base, int side, 
   if (lane < ns && (SELF || lane != side)) mbar_arrive_cluster(bar, base + lane);
 }
 
-// x and y (+)= the partials at p, thread tid's (split_sum's layout)
-template <bool ADD>
+// x (and y, NT = 2) (+)= the partials at p, thread tid's (split_sum's layout)
+template <bool ADD, int NT>
 __device__ __forceinline__ void add_split(float (&x)[16], float (&y)[16], const float4* p,
                                           int tid) {
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
+  for (int i = 0; i < 4 * NT; ++i) {
     const float4 v = p[i * kWg + tid];
     float* d = i < 4 ? x + 4 * i : y + 4 * (i - 4);
     d[0] = ADD ? d[0] + v.x : v.x;
@@ -1403,26 +1348,29 @@ __device__ __forceinline__ void add_split(float (&x)[16], float (&y)[16], const 
   }
 }
 
-// Stage t's sum: x and y into this CTA's slots at xs (16 KB), then the ns
-// CTAs' partials in rank order into x and y
+// Stage t's sum: x (and y, NT = 2) into this CTA's slots at xs (NT 8 KB),
+// then the ns CTAs' partials in rank order into x (and y)
+template <int NT>
 __device__ __forceinline__ void split_sum(float (&x)[16], float (&y)[16], float* xs,
                                           uint64_t* xready, int t, int base, int side, int ns,
                                           int lane, int tid) {
+  static_assert(NT == 1 || NT == 2, "one or two partial tiles");
   cg::cluster_group cluster = cg::this_cluster();
   float4* own = reinterpret_cast<float4*>(xs);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     own[i * kWg + tid] = make_float4(x[4 * i], x[4 * i + 1], x[4 * i + 2], x[4 * i + 3]);
-    own[(4 + i) * kWg + tid] = make_float4(y[4 * i], y[4 * i + 1], y[4 * i + 2], y[4 * i + 3]);
+    if constexpr (NT == 2)
+      own[(4 + i) * kWg + tid] = make_float4(y[4 * i], y[4 * i + 1], y[4 * i + 2], y[4 * i + 3]);
   }
   split_arrive<false>(xready, base, side, ns, lane);
   mbar_wait_cluster(xready, t & 1);
   for (int r = 0; r < ns; ++r) {
     const float4* p = r == side ? own : cluster.map_shared_rank(own, base + r);
     if (r == 0)
-      add_split<false>(x, y, p, tid);
+      add_split<false, NT>(x, y, p, tid);
     else
-      add_split<true>(x, y, p, tid);
+      add_split<true, NT>(x, y, p, tid);
   }
 }
 
@@ -1611,7 +1559,7 @@ __device__ __forceinline__ void dkv_tf32(const CUtensorMap& q_map, const CUtenso
     scores_tf32<DT, P::KC>(x, y, kr, vr, sw128_desc(qa), sw128_desc(qa + P::PLANE),
                            sw128_desc(qa + 2 * P::PLANE), sw128_desc(qa + 3 * P::PLANE), rb);
     // the partials of s^T and dp^T in the ds slots (written below)
-    if constexpr (SPLIT) split_sum(x, y, dsh, xready, i, ns * rank, side, ns, lane, tid);
+    if constexpr (SPLIT) split_sum<2>(x, y, dsh, xready, i, ns * rank, side, ns, lane, tid);
     const float* sc = scal + st * 3 * TS;
     const int* sq = reinterpret_cast<const int*>(sc) + 2 * TS;
     const int ts = qsegs[st];  // as in the forward, keys and query rows swapped
@@ -1845,7 +1793,7 @@ __device__ __forceinline__ void dq_tf32(const CUtensorMap& q_map, const CUtensor
     scores_tf32<DT, P::KC>(s, dp, qr, dor, sw128_desc(ka), sw128_desc(ka + P::PLANE),
                            sw128_desc(ka + 2 * P::PLANE), sw128_desc(ka + 3 * P::PLANE), rb);
     // the partials of s and dp in the ds slots (written below)
-    if constexpr (SPLIT) split_sum(s, dp, dsh, xready, t, 0, side, ns, lane, tid);
+    if constexpr (SPLIT) split_sum<2>(s, dp, dsh, xready, t, 0, side, ns, lane, tid);
     const int* sk = segs + st * TS;
     // the per-element test only where the stage crosses the diagonal or S or
     // holds another segment than this thread's rows, as in the forward
@@ -1907,7 +1855,7 @@ __global__ void __launch_bounds__(kWg + 32, 1)
   dq_tf32<128, true>(q_map, k_map, v_map, do_map, seg, lse, di, dq, S, Hq, Hkv, D, scale);
 }
 
-template <int DT, bool PAIR = false>
+template <int DT, bool SPLIT = false>
 struct FwdTf32 {
   static constexpr int ST = 2;                 // ring stages
   static constexpr int KC = DT <= 64 ? 2 : 4;  // k-steps a chunk of the score product
@@ -1920,10 +1868,11 @@ struct FwdTf32 {
   static constexpr int FAC = XCH + 2 * SLOT;  // the rows' factors [64]: alpha a stage, then 1/l
   static constexpr int SEG = FAC + 64 * 4;    // keys' segment ids [ST][TS], the stage's one [ST]
   static constexpr int BAR = (SEG + ST * (TS + 1) * 4 + 7) / 8 * 8;
-  // full, empty, q (and a pair's xready, xfree); alignment
-  static constexpr int SMEM = BAR + (2 * ST + 1 + (PAIR ? 2 : 0)) * 8 + 1024;
+  // full, empty, q (and a split's xready, xfree); alignment
+  static constexpr int SMEM = BAR + (2 * ST + 1 + (SPLIT ? 2 : 0)) * 8 + 1024;
   static constexpr int OUT = 64 * (DT + 4);  // floats of the [query][D] tile, padded rows
   static_assert(OUT * 4 <= XCH, "the o tile overlays Q and the ring");
+  static_assert(SLOT == 16 * 4 * kWg, "a split's partial scores fill the p hi slot");
   static_assert(MIN_BLOCKS * (SMEM + 1024) <= 233472, "shared memory of an SM");
 };
 
@@ -1942,16 +1891,18 @@ struct FwdTf32 {
 // would take the score product twice). The epilogue writes o (times 1/l,
 // the same row) and the f32 lse as the CUDA-core kernel did, rows past S
 // never stored: no atomics, the same bits on every run.
-// PAIR (128 < D <= 256, DT = 128): CTA side = blockIdx.x % 2 of a cluster
-// pair, grid (2 Hq, B, query tiles), owns D's columns 128 side .. 128 side
-// + 127: its Q, K and V boxes, its score partial (pair_sum, into the p hi
-// slot) and its columns of o; side 0 writes the lse.
-template <int DT, bool PAIR>
+// SPLIT (128 < D <= 1024, DT = 128): grid (ns Hq, B, query tiles) on
+// clusters of ns = split_ctas(D) along x; CTA side = blockIdx.x % ns owns
+// D's columns 128 side .. 128 side + 127: its Q, K and V boxes, its partial
+// s (split_sum into the p hi slot, after which s, m, l and p are the same
+// bits in every CTA; split_free before p overwrites the slot) and its
+// columns of o; side 0 writes the lse.
+template <int DT, bool SPLIT>
 __device__ __forceinline__ void fwd_tf32(const CUtensorMap& q_map, const CUtensorMap& k_map,
                                          const CUtensorMap& v_map, const int* __restrict__ seg,
                                          float* __restrict__ o, float* __restrict__ lse, int S,
                                          int Hq, int Hkv, int D, float scale) {
-  using P = FwdTf32<DT, PAIR>;
+  using P = FwdTf32<DT, SPLIT>;
   constexpr int ST = P::ST, NB = DT / 32;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align1024(smem_raw);
@@ -1961,10 +1912,11 @@ __device__ __forceinline__ void fwd_tf32(const CUtensorMap& q_map, const CUtenso
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + P::BAR);
   uint64_t* empty = full + ST;
   uint64_t* qbar = empty + ST;
-  uint64_t* xready = qbar + 1;  // PAIR only
+  uint64_t* xready = qbar + 1;  // a split's only
   uint64_t* xfree = xready + 1;
-  const int side = PAIR ? blockIdx.x & 1 : 0, c0 = DT * side;  // D's columns of this CTA
-  const int h = PAIR ? blockIdx.x >> 1 : blockIdx.x, b = blockIdx.y;
+  const int ns = SPLIT ? split_ctas(D) : 1;
+  const int h = blockIdx.x / ns, side = blockIdx.x - ns * h, c0 = DT * side;  // D's columns
+  const int b = blockIdx.y;
   const int q0 = (gridDim.z - 1 - blockIdx.z) * TQ;
   const int hk = h / (Hq / Hkv);
   const int nks = min(q0 / TS + TQ / TS, (S + TS - 1) / TS);  // key stages on or below the diagonal
@@ -1975,14 +1927,14 @@ __device__ __forceinline__ void fwd_tf32(const CUtensorMap& q_map, const CUtenso
       mbar_init(empty + i, 4);  // lane 0 of each consumer warp
     }
     mbar_init(qbar, 1);
-    if constexpr (PAIR) {
-      mbar_init(xready, kWg);  // every consumer thread of the peer
-      mbar_init(xfree, 4);     // lane 0 of each consumer warp of the peer
+    if constexpr (SPLIT) {
+      mbar_init(xready, 4 * (ns - 1));  // each consumer warp of each peer
+      mbar_init(xfree, 4 * ns);         // ... and of this CTA
     }
     fence_mbar_init();
   }
-  if constexpr (PAIR)
-    cluster_barrier();  // the peer's mbarriers are set before its first arrival
+  if constexpr (SPLIT)
+    cluster_barrier();  // the peers' mbarriers are set before their first arrival
   else
     __syncthreads();
 
@@ -2051,8 +2003,8 @@ __device__ __forceinline__ void fwd_tf32(const CUtensorMap& q_map, const CUtenso
     float s[16];  // 64 query rows x TS keys
     scores_tf32<DT, P::KC, false>(s, s, qr, qr, sw128_desc(ka), sw128_desc(ka + P::PLANE), 0, 0,
                                   rb);
-    // the peer's partial scores land in the p hi slot (written below)
-    if constexpr (PAIR) pair_sum(s, ph, xready, xfree, t, split_base(r0, quad));
+    // the partial scores in the p hi slot (written below)
+    if constexpr (SPLIT) split_sum<1>(s, s, ph, xready, t, 0, side, ns, lane, tid);
     const int* sk = segs + st * TS;
     const int ts = tsegs[st];
     const bool mask = k0 + TS - 1 > q0 || k0 + TS > S || ts != segq[0] || ts != segq[1];
@@ -2081,6 +2033,7 @@ __device__ __forceinline__ void fwd_tf32(const CUtensorMap& q_map, const CUtenso
       s[i] = p;
       l[half] += p;
     }
+    if constexpr (SPLIT) split_free(xfree, t, 0, side, ns, lane);
     store_split(ph, pl, s, r0, quad);
     if (quad == 0) {
       fac[r0] = alpha[0];
@@ -2103,8 +2056,6 @@ __device__ __forceinline__ void fwd_tf32(const CUtensorMap& q_map, const CUtenso
     // o^T += V^T p^T, both of D's 64-column tiles in one group at DT = 128
     tcols_tf32<0, 1, (DT > 64)>(acc[0], acc[DT / 64 - 1], vh, vl, vh, vl, phd, pld, phd, pld, cb);
     if (lane == 0) mbar_arrive(empty + st);  // this warp is done with the stage
-    if constexpr (PAIR)
-      if (t + 1 < nks) pair_free(xfree, lane);
   }
 
   // the [query][D] tile over Q and the ring (every stage consumed; the
@@ -2146,18 +2097,18 @@ __global__ void __launch_bounds__(kWg + 32, FwdTf32<DT>::MIN_BLOCKS)
   fwd_tf32<DT, false>(q_map, k_map, v_map, seg, o, lse, S, Hq, Hkv, D, scale);
 }
 
-// The forward, f32, 128 < D <= 256: fwd_tf32's pair (on clusters of 2)
+// The forward, f32, 128 < D <= 1024: fwd_tf32's split (on clusters of split_ctas(D))
 __global__ void __launch_bounds__(kWg + 32, 1)
-    train_attn_fwd_tf32_pair_kernel(const __grid_constant__ CUtensorMap q_map,
-                                    const __grid_constant__ CUtensorMap k_map,
-                                    const __grid_constant__ CUtensorMap v_map,
-                                    const int* __restrict__ seg, float* __restrict__ o,
-                                    float* __restrict__ lse, int S, int Hq, int Hkv, int D,
-                                    float scale) {
+    train_attn_fwd_tf32_split_kernel(const __grid_constant__ CUtensorMap q_map,
+                                     const __grid_constant__ CUtensorMap k_map,
+                                     const __grid_constant__ CUtensorMap v_map,
+                                     const int* __restrict__ seg, float* __restrict__ o,
+                                     float* __restrict__ lse, int S, int Hq, int Hkv, int D,
+                                     float scale) {
   fwd_tf32<128, true>(q_map, k_map, v_map, seg, o, lse, S, Hq, Hkv, D, scale);
 }
 
-// ---- CUDA cores, one warp a row: the forward above D = 256, dkv and dq above 1024 ----
+// ---- CUDA cores, one warp a row: the forward, dkv and dq above D = 1024 ----------
 //
 // F32_ROWS rows (warps) a CTA. D's output columns are split into slices of
 // WIDE_COLS, one a CTA along grid z (b * slices + slice), each slice
@@ -2321,7 +2272,7 @@ struct Args {
   void *o0, *o1, *lse_out;
   int B, S, Hq, Hkv, D;
   float scale;
-  int cluster;  // dkv, dq: CTAs a cluster (ops/train_attention.py: dkv_plan, dq_plan)
+  int cluster;  // CTAs a cluster (ops/train_attention.py: fwd_plan, dkv_plan, dq_plan)
 };
 
 enum Which { kFwd = 0, kDkv = 1, kDq = 2 };
@@ -2369,8 +2320,9 @@ cudaError_t launch_bf16(Which w, const Args& a, cudaStream_t s) {
   return cudaGetLastError();
 }
 
-// SPLIT: the clusters above D = 128 (DT = 128) that split D's columns: the
-// forward's pairs (D <= 256), dkv's and dq's splits (D <= 1024)
+// SPLIT: the clusters above D = 128 (DT = 128, D <= 1024) that split D's
+// columns, a.cluster CTAs a cluster (dkv: ns head-rank splits; the forward
+// and dq: ns along x, the CTAs of a query head)
 template <int DT, bool SPLIT = false>
 cudaError_t launch_tf32(Which w, const Args& a, cudaStream_t s) {
   // dkv: 64-row boxes of k, v (resident), TS-row boxes of q, dout (streamed);
@@ -2387,11 +2339,11 @@ cudaError_t launch_tf32(Which w, const Args& a, cudaStream_t s) {
   if (w == kFwd) {
     auto* o = static_cast<float*>(a.o0);
     auto* lse = static_cast<float*>(a.lse_out);
-    if constexpr (SPLIT)  // clusters of 2 along x: the two CTAs of a query head
-      return launch_cluster_block(train_attn_fwd_tf32_pair_kernel,
-                                  dim3(2 * fgrid.x, fgrid.y, fgrid.z), kWg + 32, 2,
-                                  FwdTf32<DT, true>::SMEM, false, s, qm, km, vm, seg, o, lse, a.S,
-                                  a.Hq, a.Hkv, a.D, a.scale);
+    if constexpr (SPLIT)
+      return launch_cluster_block(train_attn_fwd_tf32_split_kernel,
+                                  dim3(a.cluster * fgrid.x, fgrid.y, fgrid.z), kWg + 32,
+                                  a.cluster, FwdTf32<DT, true>::SMEM, false, s, qm, km, vm, seg, o,
+                                  lse, a.S, a.Hq, a.Hkv, a.D, a.scale);
     auto kern = train_attn_fwd_tf32_kernel<DT>;
     cudaError_t err = allow_smem(kern, FwdTf32<DT>::SMEM);
     if (err != cudaSuccess) return err;
@@ -2410,7 +2362,7 @@ cudaError_t launch_tf32(Which w, const Args& a, cudaStream_t s) {
                                 static_cast<float*>(a.o1), a.S, a.Hq, a.Hkv, a.D, a.scale);
   }
   auto* dq = static_cast<float*>(a.o0);
-  if constexpr (SPLIT)  // clusters of a.cluster = ns along x: the CTAs of a query head
+  if constexpr (SPLIT)
     return launch_cluster_block(train_attn_dq_tf32_split_kernel,
                                 dim3(a.cluster * fgrid.x, fgrid.y, fgrid.z), kWg + 32,
                                 a.cluster, DqTf32<DT, true>::SMEM, false, s, qm, km, vm, om, seg,
@@ -2423,8 +2375,7 @@ cudaError_t launch_tf32(Which w, const Args& a, cudaStream_t s) {
   return cudaGetLastError();
 }
 
-// the CUDA-core kernels: the forward above D = 256, dkv and dq above 1024
-// (both dtypes)
+// the CUDA-core kernels: the three above D = 1024 (both dtypes)
 template <typename T>
 cudaError_t launch_cores(Which w, const Args& a, cudaStream_t s) {
   const dim3 grid((a.S + F32_ROWS - 1) / F32_ROWS, w == kDkv ? a.Hkv : a.Hq,
@@ -2452,22 +2403,20 @@ cudaError_t launch_cores(Which w, const Args& a, cudaStream_t s) {
 
 // The route (ops/train_attention.py: fwd_plan, dkv_plan, dq_plan). bf16: the
 // wgmma kernels up to D = 256. f32: 3xTF32 up to 128; above, the same
-// kernels on ns = split_ctas(D) CTAs a cluster splitting D's columns: the
-// forward in pairs up to 256, dkv and dq in splits up to 1024. bf16 dkv and
-// dq at 256 < D <= 1024 are the f32 splits on f32 copies, which the wrapper
-// makes: refused here. The CUDA cores above (the forward above 256, dkv and
-// dq above 1024, both dtypes). The clusters that dkv and dq take: dkv ns
-// min(rep, 8 / ns) CTAs (ns = 1 for bf16: min(rep, 8)), dq ns, 1 on the
-// CUDA cores; any other is refused.
+// kernels on splits of ns = split_ctas(D) CTAs a cluster up to 1024. bf16
+// at 256 < D <= 1024 is the f32 splits on f32 copies, which the wrapper
+// makes: refused here. The CUDA cores above 1024, both dtypes. The clusters
+// each takes: dkv ns min(rep, 8 / ns) CTAs (ns = 1 for bf16: min(rep, 8)),
+// the forward and dq ns, 1 on the CUDA cores; any other is refused.
 cudaError_t dispatch(Which w, const Args& a, int f32, void* stream) {
   if (a.B < 1 || a.S < 1 || a.Hkv < 1 || a.Hq % a.Hkv || a.D < 16 || a.D % 16)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int rep = a.Hq / a.Hkv, ns = f32 ? split_ctas(a.D) : 1;
-  const bool cores = a.D > (w == kFwd ? 256 : kSplitCols * kMaxSplit);
-  if (!f32 && !cores && a.D > 256) return cudaErrorInvalidValue;  // bf16 dkv, dq: widened
+  const bool cores = a.D > kSplitCols * kMaxSplit;
+  if (!f32 && !cores && a.D > 256) return cudaErrorInvalidValue;  // bf16 there: widened
   const int cluster = cores ? 1 : w == kDkv ? ns * std::min(rep, kMaxCluster / ns) : ns;
-  if (w != kFwd && a.cluster != cluster) return cudaErrorInvalidValue;
+  if (a.cluster != cluster) return cudaErrorInvalidValue;
   if (cores)
     return f32 ? launch_cores<float>(w, a, s) : launch_cores<__nv_bfloat16>(w, a, s);
   if (ns > 1) return launch_tf32<128, true>(w, a, s);
@@ -2484,23 +2433,25 @@ extern "C" {
 // All tensors contiguous, on one device: q, out [B, S, Hq, D] and k, v
 // [B, S, Hkv, D] of one dtype (f32 = 0: bfloat16, 16-byte aligned; 1:
 // float32); seg [B, S] int32 or null; lse [B, Hq, S] f32. D a multiple of
-// 16 (above 256: the CUDA-core kernels), Hq a multiple of Hkv; scale
+// 16 (above 1024: the CUDA-core kernels), Hq a multiple of Hkv; scale
 // the real D's 1/sqrt(D) (the wrapper pads other D). Each returns 0 once
-// launched, else the CUDA error.
+// launched, else the CUDA error. bf16 at 256 < D <= 1024 is refused (the
+// wrapper passes f32 copies there). cluster: ns = ceil(D / 128) for f32 at
+// 128 < D <= 1024, else 1 (fwd_plan).
 int bd_train_attn_fwd(const void* q, const void* k, const void* v, const void* seg, void* out,
-                      void* lse, int B, int S, int Hq, int Hkv, int D, float scale, int f32,
-                      void* stream) {
+                      void* lse, int B, int S, int Hq, int Hkv, int D, float scale, int cluster,
+                      int f32, void* stream) {
   const Args a{q, k, v, seg, nullptr, nullptr, nullptr, out, nullptr, lse,
-               B, S, Hq, Hkv, D, scale, 1};
+               B, S, Hq, Hkv, D, scale, cluster};
   return dispatch(kFwd, a, f32, stream);
 }
 
 // dout [B, S, Hq, D], lse [B, Hq, S] f32 (the forward's), di [B, S, Hq] f32
-// (rowsum(o * dout)); writes dk, dv [B, S, Hkv, D] in the inputs' dtype.
-// bf16 at 256 < D <= 1024 is refused (the wrapper passes f32 copies there).
-// cluster: ns min(Hq / Hkv, 8 / ns), ns = ceil(D / 128) for f32 above D =
-// 128, else 1; above D = 1024, 1 (dkv_plan). A cluster the card cannot hold
-// launches nothing and returns the error.
+// (rowsum(o * dout)); writes dk, dv [B, S, Hkv, D] in the inputs' dtype
+// (bf16 at 256 < D <= 1024 refused, as the forward's). cluster: ns
+// min(Hq / Hkv, 8 / ns), ns = ceil(D / 128) for f32 above D = 128, else 1;
+// above D = 1024, 1 (dkv_plan). A cluster the card cannot hold launches
+// nothing and returns the error.
 int bd_train_attn_dkv(const void* q, const void* k, const void* v, const void* seg,
                       const void* dout, const void* lse, const void* di, void* dk, void* dv,
                       int B, int S, int Hq, int Hkv, int D, float scale, int cluster, int f32,

@@ -31,22 +31,24 @@ Pallas. The route by dtype and D:
   split into tf32 hi and lo, three products: `tf32x3_matmul` is its plain
   emulation, `train_attn_bwd_tf32x3_emulated` and
   `train_attn_fwd_tf32x3_emulated` the kernels', which only the tests use).
-- f32 above D = 128: the same kernels on clusters whose ns = ceil(D /
-  SPLIT_COLS) CTAs split D's columns, each taking the score products over
-  its SPLIT_COLS columns and summing the ns partials in rank order (the
-  emulations sum such chunks in that order): the forward in pairs (ns = 2,
-  D <= 256) that push their partials into each other; dkv and dq in splits
-  of 2 to MAX_CLUSTER CTAs (D <= SPLIT_MAX_HEAD_DIM = 1024) that pull them.
-- bf16 dkv and dq at 256 < D <= 1024: the f32 splits, on f32 copies of q,
-  k, v and dout that `TrainAttention.backward` makes once, the gradients
-  rounded to bf16 once. A bf16 value is exact in f32 and in tf32 (8
-  significand bits against 11), so the products lose nothing: dkv and dq
-  compute in f32 on the bf16 inputs and round once, as the plain version
-  does and as the CUDA-core kernels there did before.
+- f32 at 128 < D <= SPLIT_MAX_HEAD_DIM = 1024: the same three kernels on
+  splits, clusters of ns = ceil(D / SPLIT_COLS) CTAs (2 to MAX_CLUSTER)
+  that split D's columns, each taking the score products over its
+  SPLIT_COLS columns, leaving its partials in its own shared memory and
+  pulling the ns partials in rank order (the emulations sum such chunks in
+  that order).
+- bf16 at 256 < D <= 1024: the f32 splits, on f32 copies (`_kernel_inputs`)
+  of q, k and v that `train_attn_fwd` makes, and of q, k, v and dout that
+  `TrainAttention.backward` makes once for dkv and dq; the output and the
+  gradients rounded to bf16 once, the lse f32. A bf16 value is exact in f32
+  and in tf32 (8 significand bits against 11), so the products lose
+  nothing: the kernels compute in f32 on the bf16 inputs and round once,
+  as the plain version does and as the CUDA-core kernels there did before.
 - The CUDA-core kernels (one warp a row, the CTAs splitting D's output
   columns into slices of WIDE_COLS, each slice recomputing the scores):
-  the forward above D = 256, dkv and dq above 1024, both dtypes. No model
-  of either package has such a head dim.
+  all three above D = 1024, both dtypes (routing by shape: a split would
+  pass the portable cluster of 8). No model of either package has such a
+  head dim.
 
 `train_attn_bwd_dq_plain` is dq alone in plain PyTorch from the kernel's
 own inputs (lse, di), what the dq kernel is held to on the card.
@@ -75,7 +77,7 @@ from .quant_matmul import MAX_CLUSTER
 MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)  # flash_attention.py: DEFAULT_MASK_VALUE
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 KERNEL_HEAD_STEP = 16  # the kernels take D a multiple of this; other D is padded to one
-MAX_HEAD_DIM = 256  # above: the forward on CUDA cores, bf16 dkv and dq widened to f32
+MAX_HEAD_DIM = 256  # above: bf16 widened to f32 for the splits
 WIDE_COLS = 256  # the CUDA-core kernels: output columns a CTA (above, slices)
 # above: a 64 x D f32 accumulator a warpgroup does not fit beside its score
 # tiles, so the wide kernel splits D between the warpgroups and walks twice
@@ -83,10 +85,10 @@ DKV_WGMMA_MAX_HEAD_DIM = 128
 DKV_KEY_TILE = 64     # the dkv kernels on the tensor cores: key rows a CTA
 DKV_QUERY_TILE = 64   # ... query rows a ring stage (bf16)
 DKV_TF32_QUERY_TILE = 32  # ... and of the 3xTF32 kernel (f32 tiles: twice bf16's, plus lo planes)
-SPLIT_COLS = 128  # f32 above D = 128: D's columns each CTA of a split (a pair at ns = 2) owns
-SPLIT_MAX_HEAD_DIM = SPLIT_COLS * MAX_CLUSTER  # above: dkv and dq on CUDA cores, both dtypes
+SPLIT_COLS = 128  # f32 above D = 128: D's columns each CTA of a split owns
+SPLIT_MAX_HEAD_DIM = SPLIT_COLS * MAX_CLUSTER  # above: the three on CUDA cores, both dtypes
 F32_ROWS = 8          # the CUDA-core kernels: rows (one a warp) a CTA
-FWD_TF32_QUERY_TILE = 64  # the f32 forward at D <= 128: query rows a CTA ...
+FWD_TF32_QUERY_TILE = 64  # the f32 forward: query rows a CTA ...
 FWD_TF32_KEY_STAGE = 32   # ... and key rows a ring stage
 DQ_QUERY_TILE = 64        # the dq kernels on the tensor cores: query rows a CTA ...
 DQ_TF32_KEY_STAGE = 32    # ... and key rows a ring stage of the 3xTF32 kernels
@@ -94,21 +96,22 @@ DQ_TF32_KEY_STAGE = 32    # ... and key rows a ring stage of the 3xTF32 kernels
 
 def split_ctas(d: int) -> int:
     """CTAs of a cluster that split D's columns, SPLIT_COLS each, on the f32
-    tensor-core kernels: 1 up to SPLIT_COLS, a pair up to 256, then up to
-    MAX_CLUSTER (csrc/train_attention.cu: split_ctas)."""
+    tensor-core kernels: 1 up to SPLIT_COLS, then 2 up to MAX_CLUSTER
+    (csrc/train_attention.cu: split_ctas)."""
     return 1 if d <= SPLIT_COLS else -(-d // SPLIT_COLS)
 
 
 def _takes_tf32(d: int, dtype) -> bool:
-    """dkv and dq on the 3xTF32 kernels: f32 up to SPLIT_MAX_HEAD_DIM, and
-    bf16 above MAX_HEAD_DIM (on f32 copies, `widened`)."""
+    """The forward, dkv and dq on the 3xTF32 kernels: f32 up to
+    SPLIT_MAX_HEAD_DIM, and bf16 above MAX_HEAD_DIM (on f32 copies,
+    `widened`)."""
     return d <= SPLIT_MAX_HEAD_DIM and (dtype == torch.float32 or d > MAX_HEAD_DIM)
 
 
 def widened(dtype, d: int) -> bool:
-    """bf16 dkv and dq at MAX_HEAD_DIM < D <= SPLIT_MAX_HEAD_DIM: the f32
-    split kernels on f32 copies of their inputs, the gradients rounded to
-    bf16 once."""
+    """bf16 at MAX_HEAD_DIM < D <= SPLIT_MAX_HEAD_DIM: the f32 split
+    kernels (forward, dkv, dq) on f32 copies of their inputs, the output and
+    the gradients rounded to bf16 once."""
     return dtype == torch.bfloat16 and MAX_HEAD_DIM < d <= SPLIT_MAX_HEAD_DIM
 
 
@@ -263,11 +266,12 @@ class FwdPlan:
     warpgroup and a producer warp, grid (Hq, B, query tiles); "tf32x3"
     streams key stages of FWD_TF32_KEY_STAGE rows through `stages` ring
     stages in `smem` bytes of shared memory, `ctas_per_sm` CTAs an SM.
-    "tf32x3_pair" (f32, 128 < D <= 256: `train_attn_fwd_tf32_pair_kernel`):
-    the same on clusters of `cluster` = 2 CTAs along x, each owning
-    SPLIT_COLS of D's columns, grid (2 Hq, B, query tiles). "cores_wide"
-    (D > 256): `train_attn_fwd_cores_kernel`, one warp a query row,
-    F32_ROWS a CTA, grid (row blocks, Hq, B x column slices)."""
+    "tf32x3_split" (f32 at 128 < D <= 1024, widened bf16 above 256:
+    `train_attn_fwd_tf32_split_kernel`): the same on clusters of `cluster`
+    = ns = split_ctas(D) CTAs along x, each owning SPLIT_COLS of D's
+    columns, grid (ns Hq, B, query tiles). "cores_wide" (above D = 1024):
+    `train_attn_fwd_cores_kernel`, one warp a query row, F32_ROWS a CTA,
+    grid (row blocks, Hq, B x column slices)."""
 
     kernel: str
     grid: tuple[int, int, int]
@@ -283,13 +287,14 @@ class FwdPlan:
 
 def fwd_tf32_smem(d: int) -> tuple[int, int, int]:
     """(stages, shared memory bytes, CTAs an SM) of `train_attn_fwd_tf32_kernel`
-    at head dim d <= 128, and of the pair's CTA above (DT = SPLIT_COLS), as
-    csrc/train_attention.cu's FwdTf32 lays it out: the raw Q tile (64 x DT
-    f32), a stage's K and V as hi and lo planes (4 x 32 x DT f32), the p
-    slot's hi and lo planes (2 x 64 x 32 f32, where a pair's partial lands),
-    the rows' factors (64 f32), the keys' segment ids and the stage's one,
-    the mbarriers (full, empty, q; a pair's xready and xfree), and 1024 bytes
-    of alignment; DT = 64 or 128."""
+    at head dim d <= 128, and of a split's CTA above (DT = SPLIT_COLS, any
+    ns), as csrc/train_attention.cu's FwdTf32 lays it out: the raw Q tile
+    (64 x DT f32), a stage's K and V as hi and lo planes (4 x 32 x DT f32),
+    the p slot's hi and lo planes (2 x 64 x 32 f32; a split's CTA leaves its
+    partial scores in the hi one), the rows' factors (64 f32), the keys'
+    segment ids and the stage's one, the mbarriers (full, empty, q; a
+    split's xready and xfree), and 1024 bytes of alignment; DT = 64 or
+    128."""
     dt, ts = (64 if d <= 64 else SPLIT_COLS), FWD_TF32_KEY_STAGE
     stages, ctas = 2, (2 if dt <= 64 else 1)
     tile, plane, slot = 64 * dt * 4, ts * dt * 4, 64 * ts * 4
@@ -304,14 +309,14 @@ def fwd_plan(b: int, s: int, hq: int, hkv: int, d: int, dtype=torch.bfloat16) ->
     grid (query tiles launched longest first on the tensor cores). Cached:
     the wrapper records it on every launch, and a training step launches the
     forward once a layer."""
-    if d > MAX_HEAD_DIM:
+    if d > SPLIT_MAX_HEAD_DIM:
         return FwdPlan("cores_wide", (-(-s // F32_ROWS), hq, b * -(-d // WIDE_COLS)))
-    grid = (hq, b, -(-s // FWD_TF32_QUERY_TILE))
-    if dtype == torch.float32 and d > SPLIT_COLS:
-        return FwdPlan("tf32x3_pair", (2 * hq, b, grid[2]), *fwd_tf32_smem(d), cluster=2)
-    if dtype == torch.float32:
-        return FwdPlan("tf32x3", grid, *fwd_tf32_smem(d))
-    return FwdPlan("wgmma", grid)
+    tiles = -(-s // FWD_TF32_QUERY_TILE)
+    if _takes_tf32(d, dtype):
+        ns = split_ctas(d)
+        return FwdPlan("tf32x3" if ns == 1 else "tf32x3_split", (ns * hq, b, tiles),
+                       *fwd_tf32_smem(d), cluster=ns)
+    return FwdPlan("wgmma", (hq, b, tiles))
 
 
 def _allowed(s: int, attn_mask: Optional[torch.Tensor], device) -> torch.Tensor:
@@ -404,11 +409,11 @@ def _scores_tf32x3(a, b, mm):
 def train_attn_fwd_tf32x3_emulated(q, k, v, seg, passes: int = 3, *, scale=None):
     """(o [B, S, Hq, D], lse [B, Hq, S]) of the forward with both products
     taken by `tf32x3_matmul`, as `train_attn_fwd_tf32_kernel` takes them: s
-    = q k^T (q and k split; above D = SPLIT_COLS in the pair's two halves,
-    summed), the softmax in f32 over the allowed keys, o = p v / l (p and v
-    split). f32 results; seg as train_attn_bwd_dq_plain's. The kernel's
-    online softmax rescales its sum once a key stage: the same function,
-    summed in another order."""
+    = q k^T (q and k split; above D = SPLIT_COLS in a split's ceil(D /
+    SPLIT_COLS) chunks, summed in rank order), the softmax in f32 over the
+    allowed keys, o = p v / l (p and v split). f32 results; seg as
+    train_attn_bwd_dq_plain's. The kernel's online softmax rescales its sum
+    once a key stage: the same function, summed in another order."""
     b, s, hq, d = q.shape
     hkv = k.shape[2]
     rep = hq // hkv
@@ -457,9 +462,8 @@ def train_attn_bwd_tf32x3_emulated(q, k, v, seg, dout, lse, di, passes: int = 3,
 def _launcher(name: str):
     fn = getattr(_build.load("train_attention"), name)
     n_ptr = {"bd_train_attn_fwd": 6, "bd_train_attn_dkv": 9, "bd_train_attn_dq": 8}[name]
-    n_tail = 1 if name == "bd_train_attn_fwd" else 2  # (the backward's cluster,) f32
     fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 5
-                   + [ctypes.c_float] + [ctypes.c_int] * n_tail + [ctypes.c_void_p])
+                   + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p])  # cluster, f32
     fn.restype = ctypes.c_int
     return fn
 
@@ -489,32 +493,36 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _kernel_inputs(q, *rest):
+    """q and the kernel's other inputs (the forward's k, v; dkv's and dq's
+    k, v, dout) as the kernels take them: f32 copies where `widened` (bf16
+    at MAX_HEAD_DIM < D <= SPLIT_MAX_HEAD_DIM, the f32 splits' route), else
+    the tensors themselves."""
+    if widened(q.dtype, q.shape[3]):
+        return tuple(t.to(torch.float32) for t in (q, *rest))
+    return (q, *rest)
+
+
 def train_attn_fwd(q, k, v, seg, scale=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Forward kernel: (o [B, S, Hq, D] in q's dtype, lse [B, Hq, S] f32), on
     the kernel of `fwd_plan` (the plan of the last launch stays in
     `train_attn_fwd.plan`). `scale`: 1/sqrt(D) unless given (the real D's
-    for a padded call)."""
+    for a padded call). bf16 where `widened`: the f32 split on f32 copies,
+    o rounded to bf16 once."""
+    dtype = q.dtype
+    plan = fwd_plan(*_dims(q, k), dtype=dtype)
+    q, k, v = _kernel_inputs(q, k, v)
     out = torch.empty_like(q)
     lse = torch.empty((q.shape[0], q.shape[2], q.shape[1]), dtype=torch.float32, device=q.device)
-    dims = _dims(q, k)
-    train_attn_fwd.plan = fwd_plan(*dims, dtype=q.dtype)
     err = _launcher("bd_train_attn_fwd")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(seg), out.data_ptr(), lse.data_ptr(),
-        *dims, _scale(dims[4], scale), int(q.dtype == torch.float32),
+        *_dims(q, k), _scale(q.shape[3], scale), plan.cluster, int(q.dtype == torch.float32),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(err, "bd_train_attn_fwd")
     train_attn_fwd.launches += 1
-    return out, lse
-
-
-def _kernel_inputs(q, k, v, dout):
-    """q, k, v and dout as the dkv and dq kernels take them: f32 copies where
-    `widened` (bf16 at MAX_HEAD_DIM < D <= SPLIT_MAX_HEAD_DIM, the f32 split
-    kernels' route), else the tensors themselves."""
-    if widened(q.dtype, q.shape[3]):
-        return tuple(t.to(torch.float32) for t in (q, k, v, dout))
-    return q, k, v, dout
+    train_attn_fwd.plan = plan
+    return out.to(dtype), lse
 
 
 def train_attn_bwd_dkv(q, k, v, seg, dout, lse, di,

@@ -1,6 +1,6 @@
-"""Where the f32 backward's exchange time goes above D = 128: B8's 3xTF32
-dkv and dq against copies of themselves with a part of the exchange taken
-out, on the card.
+"""Where the f32 splits' exchange time goes above D = 128: B8's 3xTF32
+forward, dkv and dq against copies of themselves with a part of the
+exchange taken out, on the card.
 
     python -m bitdistiller_tpu_torch.scripts.train_attention_ablation
 
@@ -64,6 +64,9 @@ def main() -> int:
     built = build({f"train_attention_{name}": text for name, text in srcs.items()})
     libs = {name: built[f"train_attention_{name}"] for name in srcs}
     for lib in libs.values():
+        lib.bd_train_attn_fwd.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+                                          + [ctypes.c_float] + [ctypes.c_int] * 2
+                                          + [ctypes.c_void_p])
         lib.bd_train_attn_dkv.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
                                           + [ctypes.c_float] + [ctypes.c_int] * 2
                                           + [ctypes.c_void_p])
@@ -79,22 +82,25 @@ def main() -> int:
         k, v = (torch.randn((b, s, hkv, d), device="cuda", generator=gen) for _ in "kv")
         out, lse = ta.train_attn_fwd(q, k, v, None)
         di = (out * do).sum(-1).contiguous()
-        dk, dv, dq = torch.empty_like(k), torch.empty_like(v), torch.empty_like(q)
+        dk, dv, dq, o, lse_o = (torch.empty_like(t) for t in (k, v, q, q, lse))
         dims = (b, s, hq, hkv, d, d ** -0.5)
         ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), None, do.data_ptr(), lse.data_ptr(),
                di.data_ptr())
+        fc = ta.fwd_plan(b, s, hq, hkv, d, torch.float32).cluster
         kc = ta.dkv_plan(b, s, hq, hkv, d, torch.float32).cluster
         qc = ta.dq_plan(b, s, hq, hkv, d, torch.float32).cluster
         ms = {}
         for name, lib in libs.items():
             if d <= 128 and name != "kernel":
                 continue  # no exchange at D <= 128
+            fwd = lambda i: lib.bd_train_attn_fwd(*ins[:4], o.data_ptr(), lse_o.data_ptr(),
+                                                  *dims, fc, 1, stream)
             dkv = lambda i: lib.bd_train_attn_dkv(*ins, dk.data_ptr(), dv.data_ptr(), *dims, kc,
                                                   1, stream)
             dqf = lambda i: lib.bd_train_attn_dq(*ins, dq.data_ptr(), *dims, qc, 1, stream)
-            _build.check(dkv(0), f"{name} dkv")
-            _build.check(dqf(0), f"{name} dq")
-            ms[name] = {"dkv": cuda_ms(dkv, 10), "dq": cuda_ms(dqf, 10)}
+            for kind, fn in (("fwd", fwd), ("dkv", dkv), ("dq", dqf)):
+                _build.check(fn(0), f"{name} {kind}")
+            ms[name] = {"fwd": cuda_ms(fwd, 10), "dkv": cuda_ms(dkv, 10), "dq": cuda_ms(dqf, 10)}
         print(json.dumps(dict(shape=[b, s, hq, hkv, d], card=card, ms=ms)), flush=True)
     return 0
 

@@ -3,10 +3,10 @@
     python -m bitdistiller_tpu_torch.scripts.train_attention_times [B S Hq Hkv D dtype]
 
 Defaults to Gemma-2B's heads in f32 (B=2, S=1024, Hq=8, Hkv=1, D=256: the
-forward on the 3xTF32 CTA pairs, dkv and dq on the 3xTF32 splits of 2
-CTAs). Prints one JSON line: the shape, the forward's plan, each kernel's
-CUDA-event times (ms a call, the median of 5 runs of 10 calls, then each
-run's own), and the card's name and power limit. Run it from two checkouts
+forward, dkv and dq on the 3xTF32 splits of 2 CTAs). Prints one JSON line:
+the shape, the forward's plan, each kernel's CUDA-event times (ms a call,
+the median of 5 runs of 10 calls, then each run's own), and the card's
+name and power limit. Run it from two checkouts
 in one session, in the order A, B, B, A, to compare two versions of
 csrc/train_attention.cu on one card.
 """

@@ -32,9 +32,9 @@ at any GQA rep and head dim (Falcon-7B's 71 heads over 1, rep 3, 5, 7, D =
 at Falcon-7B's widths through the Engine, each through its kernel. Beside
 the build, scripts/kernel_sass.py reads what ptxas made of
 csrc/train_attention.cu; the `sass` phase prints it and fails unless every
-B8 tensor-core kernel (bf16, and the 3xTF32 forward, dkv and dq, alone, the
-forward on CTA pairs, dkv and dq on splits above D = 128) issues HGMMA,
-holds no HMMA (mma.sync) and spills nothing.
+B8 tensor-core kernel (bf16, and the 3xTF32 forward, dkv and dq, alone and
+on the splits above D = 128) issues HGMMA, holds no HMMA (mma.sync) and
+spills nothing.
 Phases print one line each; any failure exits non-zero before the last
 line. The second-to-last line is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
@@ -1007,7 +1007,8 @@ def _attn_row(gen, b, hq, hkv, t, d, kv):
     """One C6 attention case on the table's long skewed starts: the kernel
     against its plain version (two calls equal), its time through the raw
     launcher on layers 0 and 1 in turn (as `time_attention`; `wrapper_ms`
-    the entry point), the plain version's, SDPA's (bf16 cache) and the byte
+    the entry point), the plain version's, SDPA's (on the bf16 cache; an
+    int8 cache dequantized to bf16 first, outside the timing) and the byte
     bound."""
     starts = TABLE_STARTS[:b]
     q, ck, cv, kn, vn, st, ks, vs = attn_inputs(gen, b, hq, hkv, t, d, kv, starts)
@@ -1032,12 +1033,13 @@ def _attn_row(gen, b, hq, hkv, t, d, kv):
     wrapper = cuda_ms(run, 50)
     plain = cuda_ms(lambda i: da.decode_attention_plain(q, ck, cv, 1, kn, vn, st, k_scale=ks,
                                                         v_scale=vs), 3, reps=3)
-    lib = None
-    if kv == "bf16":
-        mask = (torch.arange(t, device=DEV)[None, :] < st[:, None])[:, None, None, :]
-        qs = q.transpose(1, 2)
-        lib = cuda_ms(lambda i: torch.nn.functional.scaled_dot_product_attention(
-            qs, ck[1], cv[1], attn_mask=mask, enable_gqa=True), 20)
+    kl, vl = ck[1], cv[1]
+    if kv == "int8":  # SDPA reads the cache dequantized to bf16 beforehand (not timed)
+        kl, vl = ((c[1].float() * sc[1][..., None]).bfloat16() for c, sc in ((ck, ks), (cv, vs)))
+    mask = (torch.arange(t, device=DEV)[None, :] < st[:, None])[:, None, None, :]
+    qs = q.transpose(1, 2)
+    lib = cuda_ms(lambda i: torch.nn.functional.scaled_dot_product_attention(
+        qs, kl, vl, attn_mask=mask, enable_gqa=True), 20)
     rows, elt = sum(starts), (1 if kv == "int8" else 2)
     row_bytes = d * elt + (4 if kv == "int8" else 0)  # + its f32 scale
     nbytes = 2 * rows * hkv * row_bytes + 4 * b * hq * d + 4 * b * hkv * d
@@ -1226,10 +1228,6 @@ def c6_phase(gen, bw, rec):
                                                                     di, sc), 5),
                        fwd_bound_ms=2 * unit / peak * 1e3, dkv_bound_ms=4 * unit / peak * 1e3,
                        dq_bound_ms=3 * unit / peak * 1e3)
-            row["device_ms"] = {kind: device_ms(fn, 5) for kind, fn in (
-                ("fwd", lambda i: ta.train_attn_fwd(qp, kp, vp, None, sc)),
-                ("dkv", lambda i: ta.train_attn_bwd_dkv(qp, kp, vp, None, dop, lse, di, sc)),
-                ("dq", lambda i: ta.train_attn_bwd_dq(qp, kp, vp, None, dop, lse, di, sc)))}
             # SDPA on the same padded inputs, the real D's scale and the timed calls'
             # mask (causal, no segments): its forward, and fwd+bwd less fwd
             qt, kt, vt = (t.transpose(1, 2) for t in (qp, kp, vp))
@@ -1240,6 +1238,14 @@ def c6_phase(gen, bw, rec):
                 a, bb, c = (t.detach().requires_grad_(True) for t in (qt, kt, vt))
                 sdpa(a, bb, c).backward(dop.transpose(1, 2))
 
+            # by device time too: events of these short calls move with the host
+            row["device_ms"] = dev = {kind: device_ms(fn, 5) for kind, fn in (
+                ("fwd", lambda i: ta.train_attn_fwd(qp, kp, vp, None, sc)),
+                ("dkv", lambda i: ta.train_attn_bwd_dkv(qp, kp, vp, None, dop, lse, di, sc)),
+                ("dq", lambda i: ta.train_attn_bwd_dq(qp, kp, vp, None, dop, lse, di, sc)),
+                ("sdpa_fwd", lambda i: sdpa(qt, kt, vt)), ("sdpa_fwd_bwd", lib_fb))}
+            dev["sdpa_bwd"] = (None if None in (dev["sdpa_fwd"], dev["sdpa_fwd_bwd"])
+                               else dev["sdpa_fwd_bwd"] - dev["sdpa_fwd"])
             row["sdpa_fwd_ms"] = cuda_ms(lambda i: sdpa(qt, kt, vt), 5)
             row["sdpa_fwd_bwd_ms"] = cuda_ms(lib_fb, 5)
             row["sdpa_bwd_ms"] = row["sdpa_fwd_bwd_ms"] - row["sdpa_fwd_ms"]
@@ -1287,13 +1293,16 @@ TA_CASES = {  # name: (B, S, Hq, Hkv, D, padded row length or None, dtype)
     # Gemma-2B's attention widths (8 query heads over 1 kv head, head_dim 256) at
     # the train phase's 2 x 1024 micro-batch: the wide dkv on clusters of 8
     "d256_mqa": (2, 1024, 8, 1, 256, 900, torch.bfloat16),
-    # the same in f32: the forward on 3xTF32 CTA pairs splitting D, dkv and dq
-    # on 3xTF32 splits of 2 CTAs
+    # the same in f32: the forward, dkv and dq on 3xTF32 splits of 2 CTAs
     "d256_f32": (2, 1024, 8, 1, 256, 900, torch.float32),
-    # D = 512 in f32 (no preset has it): dkv and dq on 3xTF32 splits of 4 CTAs
-    # (dkv clusters of 8 at rep 4), the forward on the CUDA cores
+    # D = 512 in f32 (no preset has it): the three on 3xTF32 splits of 4 CTAs
+    # (dkv clusters of 8 at rep 4)
     "d512_f32": (1, 1024, 8, 2, 512, 900, torch.float32),
+    # D = 1024, short: the splits of 8 CTAs, the portable cluster's edge
+    "d1024_f32": (1, 256, 4, 4, 1024, 200, torch.float32),
 }
+F32_TIMED = ("f32", "tinyllama_f32", "llama2_7b_f32", "d256_f32", "d512_f32", "d1024_f32")
+SPLIT_TIMED = ("d256_f32", "d512_f32", "d1024_f32")  # the f32 cases on the splits
 
 
 def _ta_inputs(gen, b, s, hq, hkv, d, pad, dtype):
@@ -1339,10 +1348,9 @@ def train_attention_phase(gen, record):
     train_attn_bwd_dq_plain and against autograd's dq of the plain version,
     on the kernel forward's lse and di; then its times at TinyLlama's, 7B's
     and the two D = 256 cases' shapes, and in f32 at the f32 case's, the
-    two models' and Gemma-2B's heads (`d256_f32`: the forward on the 3xTF32
-    CTA pairs, dkv and dq on the 3xTF32 splits of 2 CTAs) and at D = 512
-    (`d512_f32`: dkv and dq on the splits of 4 CTAs, the forward on the CUDA
-    cores):
+    two models' and Gemma-2B's heads (`d256_f32`: the forward, dkv and dq on
+    the 3xTF32 splits of 2 CTAs), at D = 512 (`d512_f32`: the splits of 4
+    CTAs) and at D = 1024 (`d1024_f32`, a short S: the splits of 8):
     the forward, dkv and dq kernels one by one through their wrappers, the
     plain version's forward and forward+backward, and SDPA
     (scaled_dot_product_attention(is_causal=True, enable_gqa=True), the
@@ -1385,12 +1393,12 @@ def train_attention_phase(gen, record):
         worst[name] = max(errs.values())
         del q, k, v, do, got, want, out, lse, di, dq
     times = {}
-    for name in ("tinyllama", "llama2_7b", "d256", "d256_mqa", "f32", "tinyllama_f32",
-                 "llama2_7b_f32", "d256_f32", "d512_f32"):
+    for name in ("tinyllama", "llama2_7b", "d256", "d256_mqa") + F32_TIMED:
         b, s, hq, hkv, d, pad, dtype = TA_CASES[name]
         f32 = dtype == torch.float32
         peak = PEAK_TF32X3_FLOPS if f32 else PEAK_BF16_FLOPS
         plan, qplan = ta.dkv_plan(b, s, hq, hkv, d, dtype), ta.dq_plan(b, s, hq, hkv, d, dtype)
+        fplan = ta.fwd_plan(b, s, hq, hkv, d, dtype)
         q, k, v, do, mask = _ta_inputs(gen, b, s, hq, hkv, d, None, dtype)
         seg = None
         out, lse = ta.train_attn_fwd(q, k, v, seg)
@@ -1433,7 +1441,8 @@ def train_attention_phase(gen, record):
             fwd_bound_ms=2 * unit / peak * 1e3, dkv_bound_ms=4 * unit / peak * 1e3,
             dq_bound_ms=3 * unit / peak * 1e3,
             dkv_plan=dict(kernel=plan.kernel, cluster=plan.cluster, ctas=plan.ctas),
-            dq_plan=dict(kernel=qplan.kernel, cluster=qplan.cluster, ctas=qplan.ctas))
+            dq_plan=dict(kernel=qplan.kernel, cluster=qplan.cluster, ctas=qplan.ctas),
+            fwd_plan=dict(kernel=fplan.kernel, cluster=fplan.cluster, ctas=fplan.ctas))
         if f32:  # beside the 3xTF32 bounds: the same operations on the CUDA cores
             times[name].update(
                 {f"{kind}_cores_bound_ms": n * unit / PEAK_F32_FLOPS * 1e3
@@ -1678,7 +1687,7 @@ def serve_trained_phase(master, cfg, rec):
 TF32_KERNELS = ("train_attn_fwd_tf32_kernel<64>", "train_attn_fwd_tf32_kernel<128>",
                 "train_attn_dkv_tf32_kernel<64>", "train_attn_dkv_tf32_kernel<128>",
                 "train_attn_dq_tf32_kernel<64>", "train_attn_dq_tf32_kernel<128>",
-                "train_attn_fwd_tf32_pair_kernel", "train_attn_dkv_tf32_split_kernel",
+                "train_attn_fwd_tf32_split_kernel", "train_attn_dkv_tf32_split_kernel",
                 "train_attn_dq_tf32_split_kernel")
 
 
@@ -1951,13 +1960,13 @@ def main() -> int:
                "above D=128 by train_attn_dkv_wide_kernel; f32: B=1, S=300, Hq=8, Hkv=2, "
                "D=64, and tinyllama_f32, llama2_7b_f32 at the two models' shapes in f32, "
                "forward, dkv and dq by the 3xTF32 kernels; d256_f32: d256_mqa in f32, the "
-               "forward by the 3xTF32 CTA pairs, dkv and dq by the 3xTF32 splits of 2 "
-               "CTAs; d512_f32: B=1, S=1024, Hq=8, Hkv=2, D=512, dkv and dq by the 3xTF32 "
-               "splits of 4 CTAs, the forward on the CUDA cores; c6: D=72, 80, 300, 320 "
-               "padded to a multiple of 16, above D=256 the forward on the CUDA cores on "
-               "256-column slices and dkv and dq by the 3xTF32 splits of 3 CTAs (bf16 on f32 "
-               "copies), and D=1040 (B=1, S=100, Hq=8, Hkv=4) with dkv and dq on the CUDA "
-               "cores too; their library_ms is SDPA and plain_ms the plain version on "
+               "forward, dkv and dq by the 3xTF32 splits of 2 CTAs; d512_f32: B=1, S=1024, "
+               "Hq=8, Hkv=2, D=512, the three by the 3xTF32 splits of 4 CTAs; d1024_f32: "
+               "B=1, S=256, Hq=Hkv=4, D=1024, the splits of 8; c6: D=72, 80, 300, 320 "
+               "padded to a multiple of 16, above D=256 the forward, dkv and dq by the 3xTF32 "
+               "splits of 3 CTAs (bf16 on f32 copies), and D=1040 (B=1, S=100, Hq=8, Hkv=4) "
+               "with the three on the CUDA cores (256-column slices); their library_ms is "
+               "SDPA and plain_ms the plain version on "
                "the same padded inputs at the real D's scale, causal); max_abs_err is the "
                "worst relative error over the forward, the three gradients and dq alone of the "
                "checked cases; device_ms and library_device_ms: the kernel's and SDPA's "
@@ -1967,7 +1976,7 @@ def main() -> int:
     for kind, name, line, plain, lib, cu in (
             ("fwd", "train_attn_fwd", ":758 (_flash_attention_kernel :331)", "plain_fwd_ms",
              "sdpa_fwd_ms", ("train_attn_fwd_kernel", "train_attn_fwd_tf32_kernel",
-                             "train_attn_fwd_tf32_pair_kernel")),
+                             "train_attn_fwd_tf32_split_kernel")),
             ("dkv", "train_attn_bwd_dkv", ":1121 (_flash_attention_dkv_kernel :796)",
              "plain_bwd_ms", "sdpa_bwd_ms", ("train_attn_dkv_ws_kernel",
                                               "train_attn_dkv_wide_kernel",
@@ -1987,23 +1996,22 @@ def main() -> int:
                if kind != "fwd" else ""),
             llama2_7b=b8(kind, t7, plain, lib), d256=b8(kind, ta_times["d256"], plain, lib),
             d256_mqa=b8(kind, tm, plain, lib),
-            **{c: b8(kind, ta_times[c], plain, lib)
-               for c in ("f32", "tinyllama_f32", "llama2_7b_f32", "d256_f32", "d512_f32")},
+            **{c: b8(kind, ta_times[c], plain, lib) for c in F32_TIMED},
             c6={c: dict({key: r[key] for key in (f"{kind}_ms", f"{kind}_bound_ms", "dkv_plan",
                                                  "dq_plan", "fwd_plan", "rel_err", "launches")},
                         device_ms=r["device_ms"][kind],
                         library_ms=r["sdpa_fwd_ms" if kind == "fwd" else "sdpa_bwd_ms"],
+                        library_device_ms=r["device_ms"]["sdpa_fwd" if kind == "fwd"
+                                                         else "sdpa_bwd"],
                         plain_ms=r["plain_fwd_ms" if kind == "fwd" else "plain_bwd_ms"])
                 for c, r in summary["c6"]["train_attention"].items()},
             sass={k: r for k, r in b8_sass.items() if k.startswith(cu)},
             **({"plan": tl["dkv_plan"], "llama2_7b_plan": t7["dkv_plan"],
                 "d256_plan": ta_times["d256"]["dkv_plan"], "d256_mqa_plan": tm["dkv_plan"],
                 "d256_kernel": "train_attn_dkv_wide_kernel",
-                **{f"{c}_plan": ta_times[c]["dkv_plan"]
-                   for c in ("f32", "tinyllama_f32", "llama2_7b_f32", "d256_f32", "d512_f32")}}
-               if kind == "dkv" else {f"{c}_plan": ta_times[c]["dq_plan"]
-                                      for c in ("d256_f32", "d512_f32")} if kind == "dq"
-               else {})))
+                **{f"{c}_plan": ta_times[c]["dkv_plan"] for c in F32_TIMED}}
+               if kind == "dkv" else {f"{c}_plan": ta_times[c][f"{kind}_plan"]
+                                      for c in SPLIT_TIMED})))
     summary["kernels"] = kernels
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(summary, indent=1))

@@ -10,12 +10,12 @@ hidden 320 with 4 heads over 2 of D = 80 (FFN 704). A prefill and two decode
 steps against an f32 cache (the decode attention at rep 7 and D = 80; the
 JAX side through its Pallas decode kernel in interpret mode).
 
-(ii) B8 at a head dim that is not a multiple of 16 (72, and 300 above the
-tensor-core kernels): `flash_train_attention` pads q, k, v to a multiple of
-16 and runs the plain version at the real D's scale (the card's route, with
-the plain version for the kernels), against the JAX package's
-`flash_train_attention` (which pads D to 128 and scales by the real D) in
-Pallas interpret mode: values and the three gradients.
+(ii) B8 at a head dim that is not a multiple of 16 (72, and 300 on the
+splits of 3 CTAs), and at D = 512 (the splits of 4): `flash_train_attention`
+pads q, k, v to a multiple of 16 and runs the plain version at the real D's
+scale (the card's route, with the plain version for the kernels), against
+the JAX package's `flash_train_attention` (which pads D to 128 and scales
+by the real D) in Pallas interpret mode: values and the three gradients.
 
 (iii) Dispatch: rep 3, 7 and 71, D = 80 and 320, K = 4544 at g32 and g64,
 and B8 at D = 72 and 300 each choose a kernel entry, never a plain version,
@@ -158,7 +158,8 @@ def _padded_plain(q, k, v, attn_mask):
 @pytest.mark.parametrize("entry", ["wrapper", "composed"])
 @pytest.mark.parametrize("s,hq,hkv,d,padded", [
     (128, 4, 2, 72, True),   # GQA rep 2, padded to 80
-    (96, 2, 1, 300, False),  # rep 2, padded to 304 (the wide kernels' route on the card)
+    (96, 2, 1, 300, False),  # rep 2, padded to 304 (the splits of 3 on the card)
+    (64, 2, 1, 512, False),  # rep 2, D = 512 (the splits of 4 on the card)
 ])
 def test_b8_padded_head_dim_matches_jax(s, hq, hkv, d, padded, entry):
     case = _b8_case(s, hq, hkv, d, padded)
@@ -276,12 +277,12 @@ def test_b8_padded_head_dim_takes_the_kernels_at_the_real_scale(calls, d, dp, dt
         n = n_ptr[name]
         assert args[n:n + 5] == (1, 40, 4, 2, dp)  # B, S, Hq, Hkv and the padded D
         assert args[n + 5] == pytest.approx(1 / math.sqrt(d))  # the real D's scale
-        # bf16 dkv and dq above D = 256 take the f32 split kernels on f32 copies
-        widened = name != "bd_train_attn_fwd" and ta.widened(dtype, dp)
-        assert args[-2] == int(dtype == torch.float32 or widened)
-    want = "cores_wide" if dp > ta.MAX_HEAD_DIM else ("tf32x3" if dtype == torch.float32
-                                                      else "wgmma")
+        # bf16 above D = 256 takes the f32 split kernels on f32 copies
+        assert args[-2] == int(dtype == torch.float32 or ta.widened(dtype, dp))
+    want = "tf32x3_split" if dp > ta.MAX_HEAD_DIM else ("tf32x3" if dtype == torch.float32
+                                                        else "wgmma")
     assert ta.train_attn_fwd.plan.kernel == want
+    assert calls[0][1][6 + 6] == ta.fwd_plan(1, 40, 4, 2, dp, dtype).cluster
     assert calls[1][1][9 + 6] == ta.dkv_plan(1, 40, 4, 2, dp, dtype).cluster
 
 

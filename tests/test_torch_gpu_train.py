@@ -15,17 +15,18 @@ kernel's lse and di (D = 64, 80, 128, 256; rep 1, 8, 71; S = 64, 129, 1000;
 padded, and D = 192 and 320), and its two calls must give the same bits.
 B8 in f32: dkv and dq at D <= 128 on the 3xTF32 kernels (D = 32, 64, 128;
 rep 1, 4, 8; S = 75 and 1000, padded; two calls at D = 64 give the same
-bits); at 128 < D <= 256 the forward on the 3xTF32 CTA pairs, dkv and dq
-on the 3xTF32 splits of 2 CTAs (D = 144, 192, 256; rep 1, 2, 8; S = 129
-and 1000, padded; two calls at D = 256 give the same bits over the pair
-alone, clusters of 8 and a head split that C does not divide); at 256 < D
-<= 1024 dkv and dq on the splits of ceil(D / 128) CTAs, bf16 on f32
-copies (D = 272, 320, 384, 512,
-1024, both dtypes, rep 2 and 8, a padded tail and a ragged S, two calls
-bit-equal), and the f32 dq alone at D = 144 to 512. Above D = 1024 (D =
-1040, both dtypes) the CUDA-core forward, dkv and dq. The plans' clusters
-against the C dispatch rule: the raw launchers take each plan's cluster
-and refuse any other, at every D the tests take.
+bits); at 128 < D <= 256 the forward, dkv and dq on the 3xTF32 splits of
+2 CTAs (D = 144, 192, 256; rep 1, 2, 8; S = 129 and 1000, padded; two
+calls at D = 256 give the same bits over the split alone, clusters of 8
+and a head split that C does not divide); at 256 < D <= 1024 the three on
+the splits of ceil(D / 128) CTAs, bf16 on f32 copies (D = 272, 320, 384,
+512, 1024, both dtypes, rep 2 and 8, a padded tail and a ragged S, two
+calls bit-equal; the f32 forward alone at D = 320, 512 and 1024 with its
+lse; the three through the splits only at D = 320, 512 and 1024), and the
+f32 dq alone at D = 144 to 512. Above D = 1024 (D = 1040, both dtypes)
+the CUDA-core forward, dkv and dq. The plans' clusters against the C
+dispatch rule: the raw launchers take each plan's cluster and refuse any
+other, at every D the tests take.
 
 Tolerances: B8 in bf16, outputs and gradients within 2e-2 of max|plain| per
 tensor (p and ds enter their products rounded to bf16, the plain version
@@ -123,7 +124,7 @@ def test_train_attention_f32_matches_plain(gen, d):
     q, k, v, do, mask = _attention_case(gen, 2, 75, 4, 2, d, torch.float32, pad_to=60)
     got = _fwd_bwd(ta.flash_train_attention, q, k, v, do, mask)
     want = _fwd_bwd(ta.flash_train_attention_plain, q, k, v, do, mask)
-    # dkv on 3xTF32 up to D = 128, on the 3xTF32 CTA pairs above
+    # dkv on 3xTF32 up to D = 128, on the 3xTF32 splits above
     assert ta.train_attn_bwd_dkv.plan.kernel == ("tf32x3" if d <= 128 else "tf32x3_split")
     assert _rel(got[0], want[0], mask) < 1e-4
     assert _rel(got[1], want[1], mask) < 1e-4
@@ -165,11 +166,11 @@ def test_train_attention_f32_is_deterministic(gen):
 @pytest.mark.parametrize("rep", [1, 2, 8])
 @pytest.mark.parametrize("d", [144, 192, 256])
 def test_train_attention_f32_pair_matches_plain(gen, d, rep, s):
-    """The f32 forward at 128 < D <= 256 on the 3xTF32 CTA pairs (clusters of
-    2), dkv and dq on the 3xTF32 splits of 2 CTAs (clusters of 2 min(rep, 4)
-    and of 2): the output and the three gradients; rep 1 over two kv heads
-    and two batches (batch 0 padded), rep 2 and 8 over one kv head; D = 144
-    leaves the second CTA's columns mostly zeros."""
+    """The f32 forward, dkv and dq at 128 < D <= 256 on the 3xTF32 splits of
+    2 CTAs (the forward's and dq's clusters of 2, dkv's of 2 min(rep, 4)):
+    the output and the three gradients; rep 1 over two kv heads and two
+    batches (batch 0 padded), rep 2 and 8 over one kv head; D = 144 leaves
+    the second CTA's columns mostly zeros."""
     b, hkv = (2, 2) if rep == 1 else (1, 1)
     q, k, v, do, mask = _attention_case(gen, b, s, rep * hkv, hkv, d, torch.float32,
                                         pad_to=s - s // 4)
@@ -179,7 +180,7 @@ def test_train_attention_f32_pair_matches_plain(gen, d, rep, s):
     assert (ta.train_attn_fwd.launches, ta.train_attn_bwd_dkv.launches,
             ta.train_attn_bwd_dq.launches) == tuple(n + 1 for n in launches)
     fplan, plan = ta.train_attn_fwd.plan, ta.train_attn_bwd_dkv.plan
-    assert (fplan.kernel, fplan.cluster, fplan.grid) == ("tf32x3_pair", 2,
+    assert (fplan.kernel, fplan.cluster, fplan.grid) == ("tf32x3_split", 2,
                                                          (2 * rep * hkv, b, -(-s // 64)))
     assert (plan.kernel, plan.cluster) == ("tf32x3_split", 2 * min(rep, 4))
     qplan = ta.train_attn_bwd_dq.plan
@@ -194,11 +195,12 @@ def test_train_attention_f32_pair_matches_plain(gen, d, rep, s):
 
 @pytest.mark.parametrize("hq,hkv", [(2, 2), (8, 1), (12, 1)])
 def test_train_attention_f32_pair_is_deterministic(gen, hq, hkv):
-    """The pairs at D = 256: the pair alone (rep 1), clusters of 8 over rep
-    8 (two heads a head rank) and rep 12 (C = 4 of 12: three); bit for
-    bit, forward and the three gradients."""
+    """The splits of 2 at D = 256: the split alone (rep 1), dkv clusters of
+    8 over rep 8 (two heads a head rank) and rep 12 (C = 4 of 12: three);
+    bit for bit, forward and the three gradients."""
     q, k, v, do, mask = _attention_case(gen, 1, 300, hq, hkv, 256, torch.float32, pad_to=280)
     a = _fwd_bwd(ta.flash_train_attention, q, k, v, do, mask)
+    assert (ta.train_attn_fwd.plan.kernel, ta.train_attn_fwd.plan.cluster) == ("tf32x3_split", 2)
     plan = ta.train_attn_bwd_dkv.plan
     assert (plan.kernel, plan.cluster) == ("tf32x3_split", 2 * min(hq // hkv, 4))
     c = _fwd_bwd(ta.flash_train_attention, q, k, v, do, mask)
@@ -282,12 +284,12 @@ def test_train_attention_f32_dq_kernel_alone_matches_plain(gen, d, rep, s):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", [272, 320, 384, 512, 1024])
 def test_train_attention_split_matches_plain(gen, d, dtype, hq, hkv):
-    """dkv and dq at 256 < D <= 1024 on the 3xTF32 splits of ns = ceil(D /
-    128) CTAs (dkv clusters of ns min(rep, 8 // ns), dq clusters of ns; bf16
-    on f32 copies, rounded once), the forward on the CUDA cores: the output
-    and the three gradients at S = 300 (ragged) with a padded tail (segment
-    ids), rep 2 and 8; D = 272 leaves the third CTA 16 real columns; two
-    calls bit-equal."""
+    """The forward, dkv and dq at 256 < D <= 1024 on the 3xTF32 splits of
+    ns = ceil(D / 128) CTAs (dkv clusters of ns min(rep, 8 // ns), the
+    forward's and dq's clusters of ns; bf16 on f32 copies, rounded once):
+    the output and the three gradients at S = 300 (ragged) with a padded
+    tail (segment ids), rep 2 and 8; D = 272 leaves the third CTA 16 real
+    columns; two calls bit-equal."""
     b, s = 2, 300
     q, k, v, do, mask = _attention_case(gen, b, s, hq, hkv, d, dtype, pad_to=260)
     launches = (ta.train_attn_fwd.launches, ta.train_attn_bwd_dkv.launches,
@@ -300,7 +302,43 @@ def test_train_attention_split_matches_plain(gen, d, dtype, hq, hkv):
     plan, qplan = ta.train_attn_bwd_dkv.plan, ta.train_attn_bwd_dq.plan
     assert (plan.kernel, plan.cluster, plan.columns) == (kernel, ns * min(rep, 8 // ns), ns)
     assert (qplan.kernel, qplan.cluster, qplan.grid) == (kernel, ns, (ns * hq, b, 5))
-    assert ta.train_attn_fwd.plan.kernel == "cores_wide"
+    fplan = ta.train_attn_fwd.plan
+    assert (fplan.kernel, fplan.cluster, fplan.grid) == (kernel, ns, (ns * hq, b, 5))
+    want = _fwd_bwd(ta.flash_train_attention_plain, q, k, v, do, mask)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    assert all(g.dtype == dtype and g.shape == w.shape for g, w in zip(got, want))
+    assert _rel(got[0], want[0], mask) < tol
+    assert _rel(got[1], want[1], mask) < tol
+    assert _rel(got[2], want[2]) < tol
+    assert _rel(got[3], want[3]) < tol
+    again = _fwd_bwd(ta.flash_train_attention, q, k, v, do, mask)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.parametrize("d,dtype,s", [
+    (320, torch.bfloat16, 600), (320, torch.float32, 600), (512, torch.float32, 300),
+    (1024, torch.float32, 100)])
+def test_train_attention_splits_only_forward_and_backward(gen, d, dtype, s):
+    """The forward and backward through the splits alone: at D = 320 (ns =
+    3, both dtypes, bf16 on f32 copies), 512 (ns = 4) and 1024 (ns = 8, the
+    portable cluster's edge, a short S) every plan is "tf32x3_split" and
+    each kernel is launched once with its cluster of ns >= 2, which the C
+    dispatch refuses to a CUDA-core kernel (those take a cluster of 1 only):
+    no `*_cores_kernel` runs. The output and the three gradients within the
+    B8 tolerances of the plain version (padded tail, rep 4); two calls
+    bit-equal."""
+    b, hq, hkv = 1, 8, 2
+    q, k, v, do, mask = _attention_case(gen, b, s, hq, hkv, d, dtype, pad_to=s - s // 4)
+    launches = (ta.train_attn_fwd.launches, ta.train_attn_bwd_dkv.launches,
+                ta.train_attn_bwd_dq.launches)
+    got = _fwd_bwd(ta.flash_train_attention, q, k, v, do, mask)
+    assert (ta.train_attn_fwd.launches, ta.train_attn_bwd_dkv.launches,
+            ta.train_attn_bwd_dq.launches) == tuple(n + 1 for n in launches)
+    ns = -(-d // 128)
+    fplan, kplan = ta.train_attn_fwd.plan, ta.train_attn_bwd_dkv.plan
+    qplan = ta.train_attn_bwd_dq.plan
+    assert {fplan.kernel, kplan.kernel, qplan.kernel} == {"tf32x3_split"}
+    assert (fplan.cluster, qplan.cluster, kplan.columns) == (ns, ns, ns) and kplan.cluster >= ns
     want = _fwd_bwd(ta.flash_train_attention_plain, q, k, v, do, mask)
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     assert all(g.dtype == dtype and g.shape == w.shape for g, w in zip(got, want))
@@ -341,25 +379,29 @@ def test_train_attention_above_1024_matches_plain(gen, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", [16, 64, 128, 144, 256, 272, 320, 384, 512, 1024, 1040])
 def test_train_attention_plans_match_the_dispatch_rule(gen, d, dtype):
-    """The raw dkv and dq launchers at every D the tests take: the plan's
-    cluster launches (0), one more or one less is refused before any launch
-    (csrc/train_attention.cu: dispatch); bf16 at 256 < D <= 1024 is refused
-    whatever the cluster (the wrapper passes f32 copies there)."""
+    """The raw forward, dkv and dq launchers at every D the tests take: the
+    plan's cluster launches (0), one more or one less is refused before any
+    launch (csrc/train_attention.cu: dispatch); bf16 at 256 < D <= 1024 is
+    refused whatever the cluster (the wrapper passes f32 copies there)."""
     b, s, hq, hkv = 1, 100, 8, 2
     q, k, v, do, _ = _attention_case(gen, b, s, hq, hkv, d, dtype)
     lse = torch.zeros((b, hq, s), device="cuda")
     di = torch.zeros((b, s, hq), device="cuda")
     dk, dv, dq = torch.empty_like(k), torch.empty_like(v), torch.empty_like(q)
+    out, lse_out = torch.empty_like(q), torch.empty((b, hq, s), device="cuda")
     f32, sc = int(dtype == torch.float32), d ** -0.5
     stream = torch.cuda.current_stream().cuda_stream
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), None, do.data_ptr(), lse.data_ptr(),
             di.data_ptr())
     launch = {
+        "fwd": lambda c: ta._launcher("bd_train_attn_fwd")(
+            *ptrs[:4], out.data_ptr(), lse_out.data_ptr(), b, s, hq, hkv, d, sc, c, f32, stream),
         "dkv": lambda c: ta._launcher("bd_train_attn_dkv")(
             *ptrs, dk.data_ptr(), dv.data_ptr(), b, s, hq, hkv, d, sc, c, f32, stream),
         "dq": lambda c: ta._launcher("bd_train_attn_dq")(
             *ptrs, dq.data_ptr(), b, s, hq, hkv, d, sc, c, f32, stream)}
-    plans = {"dkv": ta.dkv_plan(b, s, hq, hkv, d, dtype), "dq": ta.dq_plan(b, s, hq, hkv, d, dtype)}
+    plans = {"fwd": ta.fwd_plan(b, s, hq, hkv, d, dtype),
+             "dkv": ta.dkv_plan(b, s, hq, hkv, d, dtype), "dq": ta.dq_plan(b, s, hq, hkv, d, dtype)}
     for kind, plan in plans.items():
         for c in (plan.cluster - 1, plan.cluster + 1):
             assert launch[kind](c) != 0, (kind, c)
@@ -529,19 +571,23 @@ def test_decode_attention_kernel_at_d256_and_f32_q(gen, hq, hkv, d, qdtype, kv):
     (1, 200, 4, 2, 16, 150),      # D = 16, padded
     (2, 129, 8, 1, 48, 100),      # D = 48, MQA rep 8, padded
     (1, 333, 4, 4, 128, 300),     # D = 128, padded
-    (2, 1024, 8, 1, 256, 900),    # Gemma-2B's heads in f32: the CTA pairs
-    (1, 333, 4, 2, 144, 300),     # D = 144, padded: the pairs, the second CTA mostly zeros
+    (2, 1024, 8, 1, 256, 900),    # Gemma-2B's heads in f32: the splits of 2
+    (1, 333, 4, 2, 144, 300),     # D = 144, padded: the splits of 2, the second CTA mostly zeros
+    (1, 600, 8, 2, 320, 500),     # C6's D = 320: the splits of 3
+    (1, 1024, 8, 2, 512, 900),    # d512_f32: the splits of 4
+    (1, 200, 4, 4, 1024, 150),    # D = 1024: the splits of 8, the portable cluster's edge
 ])
 def test_train_attention_f32_forward_kernel_matches_plain(gen, b, s, hq, hkv, d, pad_to):
-    """The f32 forward on the 3xTF32 kernel (on CTA pairs above D = 128): o
-    and lse against the plain version (lse from the plain scores), and two
-    calls bit for bit."""
+    """The f32 forward on the 3xTF32 kernel (on splits of ceil(D / 128) CTAs
+    above D = 128): o and lse against the plain version (lse from the plain
+    scores), and two calls bit for bit."""
     q, k, v, _, mask = _attention_case(gen, b, s, hq, hkv, d, torch.float32, pad_to)
     seg = None if mask is None else mask.contiguous()
     before = ta.train_attn_fwd.launches
     out, lse = ta.train_attn_fwd(q, k, v, seg)
     assert ta.train_attn_fwd.launches == before + 1
-    assert ta.train_attn_fwd.plan.kernel == ("tf32x3" if d <= 128 else "tf32x3_pair")
+    assert ta.train_attn_fwd.plan.kernel == ("tf32x3" if d <= 128 else "tf32x3_split")
+    assert ta.train_attn_fwd.plan.cluster == ta.split_ctas(d)
     want = ta.flash_train_attention_plain(q, k, v, mask)
     assert _rel(out, want, mask) < 1e-4
     qg = q.reshape(b, s, hkv, hq // hkv, d)
@@ -558,9 +604,9 @@ def test_train_attention_f32_forward_kernel_matches_plain(gen, b, s, hq, hkv, d,
 @pytest.mark.parametrize("d", [72, 80, 300, 320])
 def test_train_attention_any_head_dim_matches_plain(gen, d, dtype):
     """C6: D not a multiple of 16 (72, 300) padded by the wrapper at the real
-    D's scale; above D = 256 (300, 320) the forward on the CUDA-core kernel
-    on column slices, dkv and dq on the 3xTF32 splits of 3 CTAs (bf16 on f32
-    copies); forward and the three gradients, each kernel launched once."""
+    D's scale; above D = 256 (300, 320) the forward, dkv and dq on the
+    3xTF32 splits of 3 CTAs (bf16 on f32 copies); forward and the three
+    gradients, each kernel launched once."""
     q, k, v, do, mask = _attention_case(gen, 1, 300, 8, 2, d, dtype, pad_to=250)
     launches = (ta.train_attn_fwd.launches, ta.train_attn_bwd_dkv.launches,
                 ta.train_attn_bwd_dq.launches)
@@ -569,6 +615,7 @@ def test_train_attention_any_head_dim_matches_plain(gen, d, dtype):
             ta.train_attn_bwd_dq.launches) == tuple(n + 1 for n in launches)
     dp = ta.padded_head_dim(d)
     assert ta.train_attn_bwd_dkv.plan == ta.dkv_plan(1, 300, 8, 2, dp, dtype)
+    assert ta.train_attn_fwd.plan == ta.fwd_plan(1, 300, 8, 2, dp, dtype)
     want = _fwd_bwd(ta.flash_train_attention_plain, q, k, v, do, mask)
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     assert all(g.shape == w.shape for g, w in zip(got, want))

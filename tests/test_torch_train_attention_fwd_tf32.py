@@ -1,15 +1,17 @@
 """B8's f32 forward on the CPU: the arithmetic of
 `train_attn_fwd_tf32_kernel` (both products, s = q k^T and o = p v, in
-3xTF32: `tf32x3_matmul`; above D = 128 s as the CTA pair takes it, two
-128-column halves summed), emulated in plain PyTorch by
-`train_attn_fwd_tf32x3_emulated`, against the port's plain f32 forward and
-the JAX package's f32 flash forward (the stock Pallas TPU flash kernel
-under pltpu.force_tpu_interpret_mode(), as tests/test_torch_train_attention.py
-runs it). D = 64, 128, 144 and 256, rep 1 and 8, padded, a ragged S. Then
-the dispatch rule (`fwd_plan`: f32 at D <= 128 on the kernel, at 128 < D
-<= 256 on its CTA pairs, above 256 on the CUDA cores on column slices;
-bf16 on the wgmma kernel) and the launch plan's CTAs and shared memory,
-which the wrapper hands the CUDA launch (a recording stub here, as
+3xTF32: `tf32x3_matmul`; above D = 128 s as a split of ceil(D / 128) CTAs
+takes it, 128-column chunks summed in rank order), emulated in plain
+PyTorch by `train_attn_fwd_tf32x3_emulated`, against the port's plain f32
+forward and the JAX package's f32 flash forward (the stock Pallas TPU flash
+kernel under pltpu.force_tpu_interpret_mode(), as
+tests/test_torch_train_attention.py runs it). D = 64, 128, 144, 256, 320
+and 512, rep 1, 4 and 8, padded, a ragged S. Then the dispatch rule
+(`fwd_plan`: f32 at D <= 128 on the kernel, at 128 < D <= 1024 on its
+splits of ceil(D / 128) CTAs, bf16 on the wgmma kernel up to 256 and on
+the f32 splits above, both above 1024 on the CUDA cores on column slices)
+and the launch plan's CTAs, clusters and shared memory, which the wrapper
+hands the CUDA launch (a recording stub here, as
 tests/test_torch_train_attention_plan.py does for dkv).
 
 Tolerance: 1e-4 of max|plain| per tensor, the bar the kernel is held to on
@@ -36,10 +38,12 @@ CASES = [  # b, s, hq, hkv, d
     (1, 130, 8, 1, 64),   # MQA, rep 8
     (2, 100, 2, 2, 128),  # rep 1, D = 128
     (1, 100, 8, 1, 128),  # rep 8, D = 128
-    (2, 100, 2, 2, 144),  # the CTA pair: rep 1, the second half mostly zero columns
+    (2, 100, 2, 2, 144),  # a split of 2: rep 1, the second chunk mostly zero columns
     (1, 100, 8, 1, 144),  # ... rep 8
     (2, 100, 2, 2, 256),  # ... rep 1, D = 256
     (1, 100, 8, 1, 256),  # ... rep 8 (Gemma-2B's heads)
+    (1, 100, 8, 2, 320),  # a split of 3 (C6's D = 320), rep 4
+    (1, 70, 4, 1, 512),   # a split of 4, rep 4
 ]
 TOL = 1e-4
 
@@ -104,36 +108,40 @@ def test_emulation_takes_the_real_head_dims_scale():
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [16, 48, 64, 80, 128, 144, 256, 320])
+@pytest.mark.parametrize("d", [16, 48, 64, 80, 128, 144, 256, 320, 512, 1024, 1040])
 def test_forward_dispatch_rule(d, dtype):
     plan = ta.fwd_plan(2, 300, 8, 2, d, dtype)
-    if d > ta.MAX_HEAD_DIM:
+    ns = -(-d // 128)
+    if d > ta.SPLIT_MAX_HEAD_DIM:
         want = "cores_wide"
-    elif dtype == torch.bfloat16:
+    elif dtype == torch.bfloat16 and d <= ta.MAX_HEAD_DIM:
         want = "wgmma"
-    else:
-        want = "tf32x3" if d <= 128 else "tf32x3_pair"
+    else:  # f32, and bf16 above 256 on f32 copies
+        want = "tf32x3" if d <= 128 else "tf32x3_split"
     assert plan.kernel == want
-    assert plan.cluster == (2 if want == "tf32x3_pair" else 1)
+    assert plan.cluster == (ns if want == "tf32x3_split" else 1)
     if want in ("wgmma", "tf32x3"):  # a CTA a (query head, batch, 64-row query tile)
         assert plan.grid == (8, 2, 5)
-    elif want == "tf32x3_pair":  # ... and a pair of them, on clusters of 2 along x
-        assert plan.grid == (16, 2, 5)
+    elif want == "tf32x3_split":  # ... and ns of them, on clusters of ns along x
+        assert plan.grid == (8 * ns, 2, 5) and 2 <= ns <= ta.MAX_CLUSTER
     else:  # a warp a query row, 8 a CTA, and D's output columns in slices of 256
         assert plan.grid == (-(-300 // ta.F32_ROWS), 8, 2 * -(-d // ta.WIDE_COLS))
+    assert ta.widened(dtype, d) == (dtype == torch.bfloat16 and want == "tf32x3_split")
 
 
 @pytest.mark.parametrize("d,smem,ctas", [(16, 99888, 2), (64, 99888, 2), (80, 181808, 1),
-                                         (128, 181808, 1), (144, 181824, 1), (256, 181824, 1)])
+                                         (128, 181808, 1), (144, 181824, 1), (256, 181824, 1),
+                                         (320, 181824, 1), (512, 181824, 1), (1024, 181824, 1)])
 def test_tf32_forward_launch_plan(d, smem, ctas):
     """Q (64 x DT f32), two stages of K and V as hi and lo planes, the p
-    slot's planes, the rows' factors, segment ids and mbarriers (a pair's
-    two more): two CTAs an SM at DT = 64, one at 128 and for each CTA of a
-    pair (DT = 128 too), within the SM's 228 KB (1 KB reserved a CTA)."""
+    slot's planes, the rows' factors, segment ids and mbarriers (a split's
+    two more, at any ns: its partial scores lie in the p hi slot): two CTAs
+    an SM at DT = 64, one at 128 and for each CTA of a split (DT = 128 too),
+    within the SM's 228 KB (1 KB reserved a CTA)."""
     plan = ta.fwd_plan(2, 1024, 32, 4, d, torch.float32)
     assert (plan.stages, plan.smem, plan.ctas_per_sm) == (2, smem, ctas)
-    pairs = 2 if d > 128 else 1
-    assert plan.grid == (32 * pairs, 2, 16) and plan.ctas == 1024 * pairs
+    ns = ta.split_ctas(d)
+    assert plan.cluster == ns and plan.grid == (32 * ns, 2, 16) and plan.ctas == 1024 * ns
     assert ctas * (plan.smem + 1024) <= 233472 < (ctas + 1) * (plan.smem + 1024)
     assert plan.smem <= 232448  # a block's limit
 
@@ -142,8 +150,7 @@ class _Stream:
     cuda_stream = 0
 
 
-@pytest.mark.parametrize("d", [64, 128, 144, 256])
-def test_wrapper_launches_the_plans_kernel(monkeypatch, d):
+def _stub(monkeypatch):
     log = []
 
     def stub(name):
@@ -155,13 +162,40 @@ def test_wrapper_launches_the_plans_kernel(monkeypatch, d):
     monkeypatch.setattr(_device, "on_card", lambda t: True)
     monkeypatch.setattr(torch.cuda, "current_stream", lambda *a, **k: _Stream())
     monkeypatch.setattr(ta, "_launcher", stub)
+    return log
+
+
+@pytest.mark.parametrize("d", [64, 128, 144, 256, 320, 512, 1024])
+def test_wrapper_launches_the_plans_kernel(monkeypatch, d):
+    """f32: the plan's kernel, its cluster (ns = 2, 3, 4, 8 at D = 256,
+    320, 512, 1024; 1 at D <= 128) and the f32 flag go to the launch."""
+    log = _stub(monkeypatch)
     q = torch.zeros((1, 70, 4, d))
     before = ta.train_attn_fwd.launches
     out, lse = ta.train_attn_fwd(q, q[:, :, :2], q[:, :, :2], None)
     assert ta.train_attn_fwd.launches == before + 1
     assert ta.train_attn_fwd.plan == ta.fwd_plan(1, 70, 4, 2, d, torch.float32)
-    assert ta.train_attn_fwd.plan.kernel == ("tf32x3" if d <= 128 else "tf32x3_pair")
-    name, args = log[-1]
+    assert ta.train_attn_fwd.plan.kernel == ("tf32x3" if d <= 128 else "tf32x3_split")
+    (name, args), = log
     assert name == "bd_train_attn_fwd" and args[6:11] == (1, 70, 4, 2, d) and args[-2] == 1
     assert args[11] == pytest.approx(1 / math.sqrt(d))
+    assert args[12] == ta.split_ctas(d) == ta.train_attn_fwd.plan.cluster
     assert out.shape == q.shape and lse.shape == (1, 4, 70)
+
+
+def test_bf16_forward_above_256_takes_the_split_on_f32_copies(monkeypatch):
+    """bf16 at D = 320: the kernel gets f32 copies of q, k and v (not the
+    bf16 tensors), the f32 flag and the split's cluster of 3; o comes back
+    in bf16, the lse in f32."""
+    log = _stub(monkeypatch)
+    q = torch.zeros((1, 70, 4, 320), dtype=torch.bfloat16)
+    k, v = torch.zeros((2, 1, 70, 2, 320), dtype=torch.bfloat16)
+    out, lse = ta.train_attn_fwd(q, k, v, None)
+    (name, args), = log
+    assert name == "bd_train_attn_fwd" and args[6:11] == (1, 70, 4, 2, 320)
+    assert args[12:14] == (3, 1)  # the plan's cluster, f32
+    assert not {args[0], args[1], args[2]} & {q.data_ptr(), k.data_ptr(), v.data_ptr()}
+    assert ta.train_attn_fwd.plan == ta.fwd_plan(1, 70, 4, 2, 320, torch.bfloat16)
+    assert ta.train_attn_fwd.plan.kernel == "tf32x3_split"
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    assert lse.dtype == torch.float32 and lse.shape == (1, 4, 70)

@@ -166,27 +166,28 @@ def test_pair_ctas_at_gemma_2b_heads_in_f32():
     """d256_f32 (B 2, S 1024, 8 query heads over 1, D 256): dkv on 256 CTAs
     in clusters of 8 (four head ranks of two heads, each a pair), as many
     as the D = 128 kernel's clusters of 8 give; the forward on 512 CTAs in
-    pairs."""
+    splits of 2."""
     dkv = ta.dkv_plan(2, 1024, 8, 1, 256, torch.float32)
     assert (dkv.kernel, dkv.cluster, dkv.grid, dkv.ctas, dkv.head_ranks) == (
         "tf32x3_split", 8, (8, 16, 2), 256, 4)
     assert dkv.ctas == ta.dkv_plan(2, 1024, 8, 1, 128, torch.float32).ctas
     assert len(ta.dkv_walk(1024, 8, 4, 0, 0, 32)) == 2 * 32  # two heads, 32 query stages
     fwd = ta.fwd_plan(2, 1024, 8, 1, 256, torch.float32)
-    assert (fwd.kernel, fwd.cluster, fwd.grid, fwd.ctas) == ("tf32x3_pair", 2, (16, 2, 16), 512)
+    assert (fwd.kernel, fwd.cluster, fwd.grid, fwd.ctas) == ("tf32x3_split", 2, (16, 2, 16), 512)
 
 
-SPLITS = [  # d, ns: the split of D's columns into ns CTAs of 128 (a pair at ns = 2)
+SPLITS = [  # d, ns: the split of D's columns into ns CTAs of 128
     (144, 2), (256, 2), (272, 3), (320, 3), (512, 4), (1024, 8)]
 
 
 @pytest.mark.parametrize("rep", [1, 2, 3, 8])
 @pytest.mark.parametrize("d,ns", SPLITS)
 def test_split_plans_by_head_dim(d, ns, rep):
-    """f32 above D = 128 (bf16 above 256, widened to f32): dkv and dq on the
-    3xTF32 kernels split over ns = ceil(D / 128) CTAs; dkv clusters of ns
-    min(rep, 8 // ns) (head ranks times column ranks, within the portable 8),
-    dq clusters of ns along x over a grid of ns Hq."""
+    """f32 above D = 128 (bf16 above 256, widened to f32): the forward, dkv
+    and dq on the 3xTF32 kernels split over ns = ceil(D / 128) CTAs; dkv
+    clusters of ns min(rep, 8 // ns) (head ranks times column ranks, within
+    the portable 8), the forward's and dq's clusters of ns along x over a
+    grid of ns Hq."""
     b, s, hkv = 2, 300, 2
     hq = rep * hkv
     kernel = "tf32x3_split"
@@ -200,6 +201,9 @@ def test_split_plans_by_head_dim(d, ns, rep):
         dq = ta.dq_plan(b, s, hq, hkv, d, dtype)
         assert (dq.kernel, dq.cluster, dq.grid) == (kernel, ns, (ns * hq, b, _ceil(s, 64)))
         assert dq.smem == ta.dq_tf32_smem(d)
+        fwd = ta.fwd_plan(b, s, hq, hkv, d, dtype)
+        assert (fwd.kernel, fwd.cluster, fwd.grid) == (kernel, ns, (ns * hq, b, _ceil(s, 64)))
+        assert (fwd.stages, fwd.smem, fwd.ctas_per_sm) == ta.fwd_tf32_smem(d)
     assert ta.widened(torch.bfloat16, d) == (d > 256)
 
 
@@ -264,10 +268,11 @@ def test_dq_wrapper_hands_the_kernel_the_plans_cluster(monkeypatch, hq, hkv, d, 
 
 
 def test_bf16_above_256_reaches_the_split_kernels_with_f32_inputs(monkeypatch):
-    """bf16 at D = 320 through the autograd Function: the forward on the
-    bf16 CUDA-core kernel; dkv and dq launched with the f32 flag on the same
-    f32 copies of q, k, v and dout (made once in the backward, not the bf16
-    tensors), on the split plans; the gradients come back in bf16."""
+    """bf16 at D = 320 through the autograd Function: the forward launched
+    with the f32 flag on f32 copies of q, k and v, on its split plan (a
+    cluster of 3); dkv and dq with the f32 flag on the same f32 copies of q,
+    k, v and dout (made once in the backward), on the split plans; none on
+    the bf16 tensors; the output and the gradients come back in bf16."""
     log = _stub(monkeypatch)
     b, s, hq, hkv, d = 1, 100, 8, 2, 320
     q = torch.zeros((b, s, hq, d), dtype=torch.bfloat16, requires_grad=True)
@@ -277,11 +282,13 @@ def test_bf16_above_256_reaches_the_split_kernels_with_f32_inputs(monkeypatch):
     out.backward(torch.zeros_like(out))
     (fname, fargs), (kname, kargs), (qname, qargs) = log
     assert (fname, kname, qname) == ("bd_train_attn_fwd", "bd_train_attn_dkv", "bd_train_attn_dq")
-    assert fargs[-2] == 0 and ta.train_attn_fwd.plan.kernel == "cores_wide"
+    assert fargs[-3:-1] == (3, 1) and ta.train_attn_fwd.plan.kernel == "tf32x3_split"
     assert kargs[-3:-1] == (6, 1) and qargs[-3:-1] == (3, 1)  # the plans' clusters, f32
     assert kargs[:3] == qargs[:3] and kargs[4] == qargs[4]  # one copy of q, k, v, dout
-    assert kargs[0] != fargs[0] and kargs[1] != fargs[1]  # not the bf16 tensors
+    bf16 = {q.data_ptr(), k.data_ptr(), v.data_ptr()}
+    assert not bf16 & {*fargs[:3], *kargs[:3]}  # not the bf16 tensors
     assert ta.train_attn_bwd_dkv.plan.kernel == ta.train_attn_bwd_dq.plan.kernel == "tf32x3_split"
+    assert out.dtype == torch.bfloat16
     for t in (q, k, v):
         assert t.grad.dtype == torch.bfloat16 and t.grad.shape == t.shape
 

@@ -6,7 +6,7 @@ products as the kernels' splits take them: ceil(D / 128) chunks of 128
 columns, each in 3xTF32, summed in rank order), against the JAX package's
 f32 flash gradients, run as tests/test_torch_train_attention.py runs them
 (the stock Pallas TPU flash kernel under pltpu.force_tpu_interpret_mode()).
-D = 64, 128, 144 and 256 (a pair), 272, 320 (splits of 3) and 512 (of 4),
+D = 64, 128, 144 and 256 (splits of 2), 272, 320 (of 3) and 512 (of 4),
 rep 1, 2, 4 and 8, padded, a ragged S.
 
 Tolerance: 1e-4 of max|JAX| per gradient, the bar the kernels are held to
@@ -33,7 +33,7 @@ CASES = [  # b, s, hq, hkv, d
     (1, 130, 8, 1, 64),   # MQA, rep 8
     (2, 100, 2, 2, 128),  # rep 1, D = 128
     (1, 100, 8, 1, 128),  # rep 8, D = 128
-    (2, 100, 2, 2, 144),  # the CTA pair: rep 1, the second half mostly zero columns
+    (2, 100, 2, 2, 144),  # a split of 2: rep 1, the second chunk mostly zero columns
     (1, 100, 8, 1, 144),  # ... rep 8
     (2, 100, 2, 2, 256),  # ... rep 1, D = 256
     (1, 100, 8, 1, 256),  # ... rep 8 (Gemma-2B's heads)
