@@ -1,4 +1,4 @@
-from .config import LLAMA2_7B, TINY_TEST, TINYLLAMA_1B, ModelConfig
+from .config import FALCON_7B, LLAMA2_7B, MPT_7B, TINY_TEST, TINYLLAMA_1B, ModelConfig
 from .llama import KVCache, forward, init_params, quantize_kv
 from .quantized import (
     load_packed_checkpoint,
@@ -9,7 +9,9 @@ from .quantized import (
 )
 
 __all__ = [
+    "FALCON_7B",
     "LLAMA2_7B",
+    "MPT_7B",
     "TINY_TEST",
     "TINYLLAMA_1B",
     "KVCache",

@@ -20,40 +20,51 @@ import torch
 from .._device import resolve_device, torch_dtype
 from ..quant.packing import PackedLinear, make_scale_combo, quantize_pack_linear
 from .config import ModelConfig
+from .llama import LAYER_LINEARS
 
 _PACKED_FIELDS = ("qweight", "scales", "szeros", "bias", "__meta")
 
 
-def _pack_stacked(w: torch.Tensor, bits: int, group_size: int) -> PackedLinear:
-    """Quantize+pack a stacked [L, K, N] dense weight, layer by layer."""
+def _pack_stacked(w: torch.Tensor, bits: int, group_size: int, bias=None) -> PackedLinear:
+    """Quantize+pack a stacked [L, K, N] dense weight, layer by layer; a
+    bias [L, N] rides along unchanged."""
     L, k, n = w.shape
     layers = [quantize_pack_linear(w[i].to(torch.float32), bits, group_size) for i in range(L)]
     stack = lambda name: torch.stack([getattr(p, name) for p in layers])
     return PackedLinear(
         qweight=stack("qweight"), scales=stack("scales"), szeros=stack("szeros"),
-        bias=None, bits=bits, group_size=layers[0].group_size,
+        bias=bias, bits=bits, group_size=layers[0].group_size,
         in_features=k, out_features=n, combo=stack("combo"),
     )
 
 
-_PACKED_GROUPS = {"qkv": ("q", "k", "v"), "o": ("o",), "gate_up": ("gate", "up"),
-                  "down": ("down",)}
+_FUSED = (("qkv", ("q", "k", "v")), ("gate_up", ("gate", "up")))
 
 
 def pack_model(params: dict, cfg: ModelConfig, bits: int, group_size: int = 128) -> dict:
-    """Quantize+pack the layer linears of a dense Llama param dict ([L, K, N]
-    leaves, no biases) into stacked PackedLinears, concatenating q/k/v into
-    "qkv" and gate/up into "gate_up" along N: groups run along K, so the
-    statistics are those of the unfused layout. Same words as the JAX
-    package's `pack_model` with fuse=True."""
+    """Quantize+pack the layer linears of a dense param dict ([L, K, N]
+    leaves) into stacked PackedLinears, as the JAX package's `pack_model`
+    with fuse=True: q/k/v become "qkv" and gate/up "gate_up", concatenated
+    along N, where every part is present and none has a bias (groups run
+    along K, so the statistics are those of the unfused layout); every
+    other linear is packed alone with its bias (Qwen2's q/k/v, a plain
+    MLP's up and down). Same words as the JAX package's."""
     layers = params["layers"]
-    if any(isinstance(leaf, dict) and "b" in leaf for leaf in layers.values()):
-        raise NotImplementedError("packing linears with biases is not ported yet")
-    out_layers = {k: v for k, v in layers.items()
-                  if not any(k in parts for parts in _PACKED_GROUPS.values())}
-    for fused, parts in _PACKED_GROUPS.items():
+    out_layers = dict(layers)
+    todo = [name for name in LAYER_LINEARS if name in layers]
+    for fused, parts in _FUSED:
+        if not all(p in layers for p in parts) or any(layers[p].get("b") is not None
+                                                      for p in parts):
+            continue
         w = torch.cat([layers[p]["w"] for p in parts], dim=-1)
         out_layers[fused] = _pack_stacked(w, bits, group_size)
+        del w
+        for p in parts:
+            del out_layers[p]
+            todo.remove(p)
+    for name in todo:
+        leaf = layers[name]
+        out_layers[name] = _pack_stacked(leaf["w"], bits, group_size, leaf.get("b"))
     return dict(params, layers=out_layers)
 
 
@@ -64,7 +75,8 @@ def random_packed_params(
     """Random packed model at full size, built on the device without ever
     materialising fp weights (for kernel and serving runs where the weight
     values do not matter). Scales 0.01 and szeros 0.01 * 2^(bits-1), as the
-    JAX package's version."""
+    JAX package's version; like it, the Llama layout only (RMS norms, fused
+    unbiased linears, gated MLP), with the q/k norms under `qk_norm`."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     d, dh, L = cfg.hidden_size, cfg.actual_head_dim, cfg.num_layers
@@ -79,6 +91,9 @@ def random_packed_params(
         "input_norm": torch.ones((L, d), dtype=dtype, device=dev),
         "post_attn_norm": torch.ones((L, d), dtype=dtype, device=dev),
     }
+    if cfg.qk_norm:
+        layers["q_norm"] = torch.ones((L, dh), dtype=dtype, device=dev)
+        layers["k_norm"] = torch.ones((L, dh), dtype=dtype, device=dev)
     for name, (k_dim, n_dim) in shapes.items():
         qweight = torch.randint(
             -(2**31), 2**31 - 1, (L, k_dim // pack, n_dim), dtype=torch.int32,

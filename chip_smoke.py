@@ -28,8 +28,16 @@ the Engine on B1/B2/B3). Between c1 and train_attention, `c6` runs the shapes
 the JAX package computes and earlier slices refused: the decode attention
 at any GQA rep and head dim (Falcon-7B's 71 heads over 1, rep 3, 5, 7, D =
 72, 80, 96, 320), the packed matmuls and fused MLP at Falcon-7B's K = 4544
-(64 mod 128) at g64 and g32, B8 at D = 72, 80, 300, 320, 1040, and a 2-layer model
-at Falcon-7B's widths through the Engine, each through its kernel. Beside
+(64 mod 128) at g64 and g32, and B8 at D = 72, 80, 300, 320, 1040, each
+through its kernel. Last, after serve_trained, `families` serves the
+model families through the port's entry points (init_params, pack_model,
+Engine; random weights from seed 0, biases and norms moved off zero and
+one): Falcon-7B whole (32 layers, int2-g64, A16 then A8, timed),
+and MPT-7B, Qwen3-8B, Qwen2-7B (A16 and A8), Phi-3-mini-4k (prompts past
+its window of 2047) and Gemma-3-4B at full width and reduced depth, each
+from the HF config dict stated in FAMILIES, with every launch count exact
+(B1 every prefill matmul, B2 or B4 every decode matmul, B3 the decode
+attention exactly where the JAX package's flash_ok holds). Beside
 the build, scripts/kernel_sass.py reads what ptxas made of
 csrc/train_attention.cu; the `sass` phase prints it and fails unless every
 B8 tensor-core kernel (bf16, and the 3xTF32 forward, dkv and dq, alone and
@@ -77,8 +85,15 @@ Tolerances (kernel vs plain version on the same inputs):
     at D = 256 and with f32 q within ATTN_TOL;
   * C6: the packed matmuls exact on integers (A16, A8 on pair-layout and
     repacked words), the fused MLP within MLP_TOL, the decode attention
-    within ATTN_TOL (two calls equal), B8 as below, the 2-layer model's
-    logits within LOGIT_TOL;
+    within ATTN_TOL (two calls equal), B8 as below;
+  * families: in one decode step of each run, every packed linear against
+    its plain version on the same input within MATMUL_TOL (as above), and
+    the step's logits against the plain path within LOGIT_TOL (as the 7B
+    step's; under A8 within the larger of LOGIT_TOL and A8_SPREADS times
+    the plain A8 path's own spread for a one-ulp move of its input:
+    per-token int8 grids move with a row's maximum); Falcon-7B's prefill
+    then cached decode of one request against the plain cache-less forward
+    within LOGIT_TOL;
   * B8 in bf16: the output and each of dq, dk, dv within 2e-2 of the
     plain version's max (p and ds enter their products rounded to bf16, the
     plain version keeps f32; pad rows compared under the mask); in f32 within
@@ -108,9 +123,13 @@ import torch
 
 from bitdistiller_tpu_torch.experimental import flash_decode as fd1
 from bitdistiller_tpu_torch.experimental import fused_mlp as fm
+from bitdistiller_tpu_torch.models import llama as llama_mod
 from bitdistiller_tpu_torch.models import (
+    FALCON_7B,
     LLAMA2_7B,
     TINYLLAMA_1B,
+    KVCache,
+    ModelConfig,
     forward,
     init_params,
     pack_model,
@@ -153,6 +172,8 @@ MLP_TOL = 1e-2
 ATTN_TOL = 2e-2
 PROBE_TOL = 1e-6
 LOGIT_TOL = 5e-2
+A8_SPREADS = 2  # A8 logits: within this many of the plain A8 path's one-ulp spreads
+NOISE = 0.1  # the families' biases and norms, moved off zero and one
 # decode kernels up to 32 rows (1, 2 and 4 token tiles, 17 ragged); 200 ragged
 # against both prefill tiles
 CHECK_M = (1, 8, 16, 17, 32, 33, 200, 256, 4096)
@@ -662,21 +683,22 @@ def probe_phase(record):
 
 
 def packed_weights(cfg) -> int:
-    """Weights of the packed projections (qkv, o, gate, up, down), all layers."""
-    d, dh = cfg.hidden_size, cfg.actual_head_dim
-    per_layer = (d * cfg.num_heads * dh + 2 * d * cfg.num_kv_heads * dh
-                 + cfg.num_heads * dh * d + 3 * d * cfg.intermediate_size)
-    return per_layer * cfg.num_layers
+    """Weights of the packed projections (q, k, v, o, the gate where the MLP
+    is gated, up, down), all layers."""
+    d, ffn = cfg.hidden_size, cfg.intermediate_size
+    mlp = (3 if cfg.mlp_style == "gated" else 2) * d * ffn
+    return (2 * d * cfg.q_size + 2 * d * cfg.kv_size + mlp) * cfg.num_layers
 
 
-def step_bytes(cfg, bits, rows_per_slot, group_bytes: int = 4) -> float:
+def step_bytes(cfg, bits, rows_per_slot, group_bytes: int = 4, group: int = GROUP) -> float:
     """HBM bytes one decode step must read: packed weights, the group
     statistics (a 4-byte combo word a group column for A16, f32 scale and
-    szero, 8 bytes, for A8), lm_head, and the valid KV rows (bench.py's
-    model_bytes_per_step with the KV term counted per slot)."""
+    szero, 8 bytes, for A8), the lm_head (or the tied embedding) and the
+    valid KV rows (bench.py's model_bytes_per_step with the KV term counted
+    per slot)."""
     n_w = packed_weights(cfg)
     kv = cfg.num_layers * sum(rows_per_slot) * cfg.num_kv_heads * cfg.actual_head_dim * 2 * 2
-    return n_w * bits / 8 + n_w / 128 * group_bytes + cfg.hidden_size * cfg.vocab_size * 2 + kv
+    return n_w * bits / 8 + n_w / group * group_bytes + cfg.hidden_size * cfg.vocab_size * 2 + kv
 
 
 def device_busy_ms(step, n: int):
@@ -1000,7 +1022,6 @@ C6_TA = {  # name: (B, S, Hq, Hkv, D, padded row length or None)
     "d300": (1, 600, 8, 2, 300, 500), "d320": (1, 600, 8, 2, 320, 500),
     "d1040": (1, 100, 8, 4, 1040, 80),  # past the splits: all three on the CUDA cores
 }
-C6_LAYERS = 2  # the whole-model check's depth (full width)
 
 
 def _attn_row(gen, b, hq, hkv, t, d, kv):
@@ -1073,54 +1094,6 @@ def _mm_case(gen, k, n, group, m, a8):
     return ok, launches
 
 
-def _c6_model(out):
-    """A Llama-family model at Falcon-7B's widths (hidden 4544, 71 heads over
-    1 kv head, FFN 18176; C6_LAYERS layers: full width, reduced depth),
-    int2-g64, random weights from seed 0, through the Engine with 8 slots:
-    every prefill and decode matmul at K = 4544 (a half last step) and the
-    decode attention at rep 71 through the kernels (counts reset just
-    before, read just after), then one decode step's logits from the kernels
-    against the plain path, within LOGIT_TOL."""
-    cfg = dataclasses.replace(LLAMA2_7B, hidden_size=FALCON["hidden"],
-                              intermediate_size=FALCON["ffn"], num_heads=FALCON["heads"],
-                              num_kv_heads=FALCON["kv_heads"], num_layers=C6_LAYERS)
-    params = random_packed_params(cfg, bits=BITS, group_size=64, seed=0, device=DEV)
-    eng = Engine(params, cfg, max_slots=8, max_len=1024, eos_token_id=None,
-                 sampling=SamplingParams(temperature=0.0), device=DEV)
-    rng = np.random.default_rng(0)
-    reqs = [Request(prompt_tokens=rng.integers(3, cfg.vocab_size, n).tolist(), max_new_tokens=16)
-            for n in REQ_LENS[:8]]
-    torch.cuda.synchronize()
-    reset_counts()
-    eng.run(reqs)
-    torch.cuda.synchronize()
-    counts = read_counts()
-    L = cfg.num_layers
-    if not all(r.finished and len(r.output_tokens) == 16 for r in reqs):
-        raise AssertionError("C6 model: not every request finished with 16 tokens")
-    steps = eng.decode_steps
-    if (counts["flash_decode"] < steps * L or counts["qmm_decode"] < steps * L * 4
-            or counts["qmm_prefill"] < 4 * L * eng.prefills or eng.prefills < 1):
-        raise AssertionError(f"C6 model: decode/prefill did not run through the kernels: {counts}")
-    pos = torch.as_tensor(np.minimum(eng.lengths, 1000), dtype=torch.int32, device=DEV)
-    tok = torch.randint(3, cfg.vocab_size, (8, 1), device=DEV)
-    ref_params = dict(params, layers=dict(params["layers"]))
-    for name, leaf in params["layers"].items():
-        if isinstance(leaf, PackedLinear):
-            s, sz = scales_from_combo(leaf.combo)
-            ref_params["layers"][name] = dataclasses.replace(leaf, scales=s, szeros=sz)
-    with torch.inference_mode():
-        lk, _ = forward(params, cfg, tok, cache=eng.cache, cache_pos=pos)
-        lp, _ = forward(ref_params, cfg, tok, cache=eng.cache, cache_pos=pos, use_kernels=False)
-    err, ref = (lk - lp).abs().max().item(), lp.abs().max().item()
-    out.update(layers=L, depth_of=32, prefills=eng.prefills, decode_steps=steps,
-               launches=counts, logit_max_abs_err=err, logit_max=ref,
-               argmax_agreement=(lk.argmax(-1) == lp.argmax(-1)).float().mean().item())
-    if not torch.isfinite(lk).all() or not err <= LOGIT_TOL * ref:  # NaN fails too
-        raise AssertionError(f"C6 model: logits disagree with the plain path ({err} of {ref})")
-    del eng, params, ref_params
-
-
 def c6_phase(gen, bw, rec):
     """The shapes C6 repaired, each through its kernel (launch counters) and
     against its plain version on the card, with times beside the bounds:
@@ -1131,7 +1104,8 @@ def c6_phase(gen, bw, rec):
     the control), exact on integers; B5 at K = 4544, FFN = 18176; B8 at D =
     72, 80, 300, 320 and 1040 (the CUDA-core dkv and dq), bf16 and f32,
     forward and the three gradients (timed beside SDPA and the plain
-    version); then the whole model (`_c6_model`)."""
+    version). The whole model at Falcon-7B's widths is the families phase's
+    Falcon-7B."""
     rec["attention"] = {}
     for name, *case in C6_ATTN:
         ok, row = _attn_row(gen, *case)
@@ -1266,14 +1240,348 @@ def c6_phase(gen, bw, rec):
             if launched != [1, 1, 1] or not all(e <= tol for e in errs.values()):
                 raise AssertionError(f"C6 train attention {name} {dtype}: {row}")
             del q, kk, v, do, got, want, qp, kp, vp, dop, out, lse, di, qt, kt, vt
-    rec["model"] = {}
-    _c6_model(rec["model"])
-    mo = rec["model"]
-    say(f"c6 model at Falcon-7B's widths, {mo['layers']} of 32 layers, int2-g64: "
-        f"{mo['prefills']} prefills, {mo['decode_steps']} decode steps, launches "
-        f"{ {k: v for k, v in mo['launches'].items() if v} }; one step's logits vs plain "
-        f"{mo['logit_max_abs_err']:.4g} of {mo['logit_max']:.4g}, argmax agreement "
-        f"{mo['argmax_agreement']:.3f}")
+
+
+# ---- families (A2): every ModelConfig flag through the port's packed serving path ----
+
+FAMILY_NEW = 16  # new tokens a request
+FALCON_GROUP = 64  # g128 does not divide Falcon-7B's 4544
+# One HF config.json dict a family, with the widths of the model's public config.json,
+# parsed by the port's from_hf_config; cut to `layers` (depth only) and served at
+# int2-g128 through the Engine, 8 requests of 16 new tokens.
+FAMILIES = {  # name: (dict, source, layers kept, KV cache rows, prompt lengths, A8 too)
+    # ALiBi and LayerNorm, a plain GELU MLP: the decode attention through
+    # cached_attention (JAX's flash_ok excludes ALiBi), matmuls through B1/B2
+    "mpt7b": (dict(model_type="mpt", vocab_size=50432, d_model=4096, n_layers=32, n_heads=32,
+                   expansion_ratio=4, max_seq_len=2048, attn_config={"alibi": True}),
+              "huggingface.co/mosaicml/mpt-7b", 2, 1024, REQ_LENS[:8], False),
+    # q/k norms, GQA rep 4 at D = 128 (B3's own instance), untied 151936 rows
+    "qwen3_8b": (dict(model_type="qwen3", vocab_size=151936, hidden_size=4096,
+                      intermediate_size=12288, num_hidden_layers=36, num_attention_heads=32,
+                      num_key_value_heads=8, head_dim=128, rope_theta=1000000.0,
+                      max_position_embeddings=40960, rms_norm_eps=1e-6, attention_bias=False,
+                      tie_word_embeddings=False),
+                 "huggingface.co/Qwen/Qwen3-8B", 2, 1024, REQ_LENS[:8], False),
+    # q/k/v biases: packed alone with their biases (B1, B2, B4's epilogue under
+    # A8); GQA rep 7 (B3's general route); untied 152064 rows
+    "qwen2_7b": (dict(model_type="qwen2", vocab_size=152064, hidden_size=3584,
+                      intermediate_size=18944, num_hidden_layers=28, num_attention_heads=28,
+                      num_key_value_heads=4, rope_theta=1000000.0,
+                      max_position_embeddings=131072, rms_norm_eps=1e-6,
+                      use_sliding_window=False, sliding_window=131072,
+                      tie_word_embeddings=False),
+                 "huggingface.co/Qwen/Qwen2-7B", 2, 1024, REQ_LENS[:8], True),
+    # a uniform window of 2047 that two prompts and the decode run past: B3's
+    # window route (rep 1, D = 96: the general route)
+    "phi3_mini_4k": (dict(model_type="phi3", vocab_size=32064, hidden_size=3072,
+                          intermediate_size=8192, num_hidden_layers=32, num_attention_heads=32,
+                          num_key_value_heads=32, max_position_embeddings=4096,
+                          original_max_position_embeddings=4096, rope_theta=10000.0,
+                          rms_norm_eps=1e-5, sliding_window=2047, tie_word_embeddings=False),
+                     "huggingface.co/microsoft/Phi-3-mini-4k-instruct", 2, 4096,
+                     [2100, 3000] + REQ_LENS[:6], False),
+    # one whole period of the pattern (5 sliding layers with the local theta,
+    # 1 global with linear rope scaling x8): per-layer sliding sends the decode
+    # attention through cached_attention; sandwich and q/k norms, the unit norm
+    # offset, the sqrt(2560) embedding multiplier, gelu_tanh, tied 262208 rows
+    "gemma3_4b": (dict(model_type="gemma3_text", vocab_size=262208, hidden_size=2560,
+                       intermediate_size=10240, num_hidden_layers=34, num_attention_heads=8,
+                       num_key_value_heads=4, head_dim=256, rms_norm_eps=1e-6,
+                       rope_theta=1000000.0, rope_local_base_freq=10000.0,
+                       rope_scaling={"rope_type": "linear", "factor": 8.0}, sliding_window=1024,
+                       sliding_window_pattern=6, max_position_embeddings=131072,
+                       query_pre_attn_scalar=256, hidden_activation="gelu_pytorch_tanh",
+                       # from_hf_config reads only `hidden_act` (ROADMAP C4: a config
+                       # with the published key alone parses to silu), so it is stated too
+                       hidden_act="gelu_pytorch_tanh"),
+                  "huggingface.co/google/gemma-3-4b-it (text_config)", 6, 1024, REQ_LENS[:8],
+                  False),
+}
+
+
+def family_config(name):
+    """The port's from_hf_config on the family's dict, cut to its depth."""
+    hf, _, layers = FAMILIES[name][:3]
+    cfg = ModelConfig.from_hf_config(hf)
+    return dataclasses.replace(cfg, num_layers=layers, sliding_layers=(
+        cfg.sliding_layers[:layers] if cfg.sliding_layers else None))
+
+
+def plain_reference(params, a8: bool):
+    """The tree the plain path reads: under A16 the scales the kernels decode
+    from the combo words; under A8 the f32 scales both read."""
+    if a8:
+        return params
+    ref = dict(params, layers=dict(params["layers"]))
+    for name, leaf in params["layers"].items():
+        if isinstance(leaf, PackedLinear):
+            s, sz = scales_from_combo(leaf.combo)
+            ref["layers"][name] = dataclasses.replace(leaf, scales=s, szeros=sz)
+    return ref
+
+
+def step_with_linear_checks(params, ref_params, cfg, tok, cache, pos):
+    """One decode step through the kernels, each packed linear of it also
+    run through its plain version (on `ref_params`' leaf) on the same input:
+    (logits, the worst max|kernel - plain| / max|plain| over the linears,
+    the linears checked)."""
+    refs = {id(leaf): ref_params["layers"][name] for name, leaf in params["layers"].items()}
+    errs = []
+    real = llama_mod.linear
+
+    def checked(leaf, x, li=None, *, use_kernels=True, quantizer=None):
+        out = real(leaf, x, li, use_kernels=use_kernels, quantizer=quantizer)
+        if isinstance(leaf, PackedLinear):
+            want = real(refs[id(leaf)], x, li, use_kernels=False).float()
+            err = (out.float() - want).abs().max().item() / want.abs().max().item()
+            errs.append(err if err == err else math.inf)  # NaN fails
+        return out
+
+    llama_mod.linear = checked
+    try:
+        logits, _ = forward(params, cfg, tok, cache=cache, cache_pos=pos)
+    finally:
+        llama_mod.linear = real
+    return logits, max(errs, default=math.inf), len(errs)
+
+
+def moved_off_unit(dense):
+    """Every bias off zero and every norm off one (a LayerNorm's bias off
+    zero) by N(0, NOISE^2) from seed 1, in place, as the CPU tests'
+    parameters: a kernel that dropped a bias, or added it in the wrong
+    column or at the wrong scale, then fails the per-linear check."""
+    gen = torch.Generator(device=DEV).manual_seed(1)
+
+    def move(t):
+        t.add_((NOISE * torch.randn(t.shape, generator=gen, device=DEV)).to(t.dtype))
+
+    with torch.no_grad():
+        for tree in (dense, dense["layers"]):
+            for name, leaf in tree.items():
+                if name.endswith("norm"):
+                    for t in leaf.values() if isinstance(leaf, dict) else (leaf,):
+                        move(t)
+                elif isinstance(leaf, dict) and "b" in leaf:
+                    move(leaf["b"])
+    return dense
+
+
+def ulp_spread(ref_params, cfg, tok, cache, pos, logits):
+    """The plain path against itself with its input moved by one bf16 ulp:
+    the step's tokens' embedding rows one ulp larger in magnitude. Returns
+    max|moved - logits| / max|logits|."""
+    embed = ref_params["embed"].clone()
+    rows = embed[tok[:, 0]]
+    bits = {2: torch.int16, 4: torch.int32}[rows.element_size()]
+    embed[tok[:, 0]] = (rows.view(bits) + 1).view(rows.dtype)
+    moved, _ = forward(dict(ref_params, embed=embed), cfg, tok, cache=cache, cache_pos=pos,
+                       use_kernels=False)
+    return (moved - logits).abs().max().item() / logits.abs().max().item()
+
+
+def serve_family(params, cfg, tag, rows, lens, a8, card, out, group, timed=False):
+    """8 requests through the Engine (A8: the switch set for this call only;
+    the Engine repacks), every packed matmul through B1 (prefill) and B2
+    (decode), or B4 under A8, and the decode attention through B3 exactly
+    where the JAX package's flash_ok holds, as the launch counts (reset just
+    before, read just after) show. Then one decode step through the kernels:
+    each packed linear of it against its plain version on the same input
+    within MATMUL_TOL, and the step's logits against the plain path within
+    LOGIT_TOL relative to max|logit|. Under A8 the tolerance is the larger
+    of LOGIT_TOL and A8_SPREADS times the plain A8 path's own spread when
+    its input moves by one bf16 ulp (`ulp_spread`): per-token int8 codes
+    follow each row's maximum, so a rounding anywhere upstream moves whole
+    rows of codes, and the kernel's rounding is such a move. With `timed`,
+    the steady step's ms, idle share and byte bound."""
+    saved = os.environ.get(qm.A8_ENV)
+    os.environ[qm.A8_ENV] = "1" if a8 else "0"
+    try:
+        eng = Engine(params, cfg, max_slots=8, max_len=rows, eos_token_id=None,
+                     sampling=SamplingParams(temperature=0.0), device=DEV)
+        rng = np.random.default_rng(0)
+        reqs = [Request(prompt_tokens=rng.integers(3, cfg.vocab_size, n).tolist(),
+                        max_new_tokens=FAMILY_NEW) for n in lens]
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.time()
+        eng.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = read_counts()
+    finally:
+        if saved is None:
+            os.environ.pop(qm.A8_ENV, None)
+        else:
+            os.environ[qm.A8_ENV] = saved
+    params = eng.params
+    L, steps, prefills = cfg.num_layers, eng.decode_steps, eng.prefills
+    n_lin = sum(isinstance(leaf, PackedLinear) for leaf in params["layers"].values())
+    if not all(r.finished and len(r.output_tokens) == FAMILY_NEW for r in reqs):
+        raise AssertionError(f"{tag}: not every request finished with {FAMILY_NEW} tokens")
+    want = dict(qmm_decode=0, qmm_prefill=0, qmm_a8=0, qmm_a8_prefill=0)
+    if a8:
+        want.update(qmm_a8=n_lin * L * (steps + prefills), qmm_a8_prefill=n_lin * L * prefills)
+    else:
+        want.update(qmm_decode=n_lin * L * steps, qmm_prefill=n_lin * L * prefills)
+    flash_ok = not cfg.alibi and not (cfg.sliding_layers and cfg.sliding_window)
+    want["flash_decode"] = steps * L if flash_ok else 0
+    got = {k: counts[k] for k in want}
+    if got != want or prefills < 1 or steps < FAMILY_NEW - 1:
+        raise AssertionError(f"{tag}: launches {got}, want {want} ({n_lin} packed linears a "
+                             f"layer, {L} layers, {prefills} prefills, {steps} decode steps)")
+    pos = torch.as_tensor(np.minimum(eng.lengths, rows - 20), dtype=torch.int32, device=DEV)
+    tok = torch.randint(3, cfg.vocab_size, (8, 1), device=DEV)
+    ref_params = plain_reference(params, a8)
+    with torch.inference_mode():
+        lk, lin_err, n_checked = step_with_linear_checks(params, ref_params, cfg, tok, eng.cache,
+                                                         pos)
+        lp, _ = forward(ref_params, cfg, tok, cache=eng.cache, cache_pos=pos, use_kernels=False)
+        spread = ulp_spread(ref_params, cfg, tok, eng.cache, pos, lp) if a8 else None
+        a16 = None
+        if a8:  # the plain path at A16: A8's own quantization error, for the record
+            l16, _ = forward(plain_reference(params, False), cfg, tok, cache=eng.cache,
+                             cache_pos=pos, use_kernels=False)
+            a16 = (l16 - lp).abs().max().item()
+    err, ref = (lk - lp).abs().max().item(), lp.abs().max().item()
+    tol = LOGIT_TOL if spread is None else max(LOGIT_TOL, A8_SPREADS * spread)
+    out.update(layers=L, packed_linears=n_lin, prefills=prefills, decode_steps=steps,
+               launches={k: v for k, v in counts.items() if v}, wall_s=wall,
+               logit_max_abs_err=err, logit_max=ref, linear_max_rel_err=lin_err,
+               logit_tol=tol, ulp_spread=spread, plain_a8_vs_a16_max_abs=a16,
+               argmax_agreement=(lk.argmax(-1) == lp.argmax(-1)).float().mean().item())
+    if (not torch.isfinite(lk).all() or n_checked != n_lin * L
+            or not lin_err <= MATMUL_TOL):
+        raise AssertionError(f"{tag}: a packed linear of the decode step disagrees with its "
+                             f"plain version on the same input ({lin_err} relative, "
+                             f"{n_checked} of {n_lin * L} linears checked)")
+    if not err <= tol * ref:
+        raise AssertionError(f"{tag}: one step's logits disagree with the plain path "
+                             f"({err} of {ref}, tol {tol} relative; one-ulp spread {spread})")
+    say(f"{tag}: {len(reqs)} requests (prompts {lens}), {L} layers, {n_lin} packed linears a "
+        f"layer, {prefills} prefills, {steps} decode steps, launches {out['launches']}; one "
+        f"step's packed linears vs plain on their inputs {lin_err:.3g} relative (tol "
+        f"{MATMUL_TOL}); its logits vs the plain path {err:.4g} of {ref:.4g} (tol {tol:.4g} "
+        "relative" + ("" if spread is None else
+                      f"; the plain A8 path moved by one input ulp {spread:.4g} relative, "
+                      f"against plain A16 {a16:.4g}") + ")")
+    if timed:
+        def step(i):
+            forward(params, cfg, tok, cache=eng.cache, cache_pos=pos + i)
+
+        with torch.inference_mode():
+            ms = cuda_ms(step, 8, reps=3)
+            busy = device_busy_ms(step, 4)
+        nbytes = step_bytes(cfg, BITS, [int(p) + 4 for p in pos.tolist()],
+                            group_bytes=8 if a8 else 4, group=group)
+        idle = None if busy is None else 1 - busy["busy_ms"] / ms
+        out.update(decode_ms_per_step=ms, step_bytes=nbytes,
+                   step_bound_ms=nbytes / PEAK_BYTES_PER_S * 1e3, idle_share=idle,
+                   busy_ms=None if busy is None else busy["busy_ms"],
+                   top=None if busy is None else busy["top"])
+        say(f"{tag} decode: {ms:.3f} ms/step at batch 8, idle share "
+            f"{'not measured' if idle is None else f'{idle:.3f}'}, {nbytes / 1e9:.3f} GB/step -> "
+            f"bound {nbytes / PEAK_BYTES_PER_S * 1e3:.3f} ms at 3.35 TB/s ({card})"
+            + ("" if busy is None else f"; device busy {busy['busy_ms']:.3f} ms, top: "
+               + ", ".join(f"{k} {v:.3f}" for k, v in busy["top"][:5])))
+    return eng
+
+
+def falcon_prefill_decode_check(params, cfg, out):
+    """One request through the cache with the kernels (its 64-token prompt
+    prefilled into a 1-slot cache, then one decode step: B1, B2, B3) against
+    the plain cache-less forward over the same 65 tokens. Tolerance
+    LOGIT_TOL relative to max|logit|, as the decode step's: the same bf16
+    rounding of every matmul output in another order, compounded over 32
+    layers, plus the decode attention's bf16 probabilities; the bf16 cache
+    holds the same bf16 k/v the cache-less path attends to."""
+    toks = torch.as_tensor(np.random.default_rng(1).integers(3, cfg.vocab_size, 65),
+                           device=DEV)[None]
+    with torch.inference_mode():
+        cache = KVCache.init(cfg, 1, 128, device=DEV)
+        reset_counts()
+        forward(params, cfg, toks[:, :64], cache=cache, cache_pos=0)
+        lk, _ = forward(params, cfg, toks[:, 64:], cache=cache, cache_pos=64)
+        counts = read_counts()
+        lp, _ = forward(plain_reference(params, False), cfg, toks, use_kernels=False)
+    lk, lp = lk[0, -1], lp[0, -1]
+    err, ref = (lk - lp).abs().max().item(), lp.abs().max().item()
+    out.update(logit_max_abs_err=err, logit_max=ref, launches={k: v for k, v in counts.items()
+                                                                if v})
+    if (counts["qmm_prefill"] < cfg.num_layers or counts["flash_decode"] != cfg.num_layers
+            or not torch.isfinite(lk).all() or not err <= LOGIT_TOL * ref):
+        raise AssertionError(f"Falcon-7B prefill then cached decode vs the plain cache-less "
+                             f"forward: {err} of {ref}, launches {counts}")
+    say(f"falcon7b prefill (64 tokens) then cached decode vs plain cache-less forward: "
+        f"{err:.4g} of {ref:.4g} (tol {LOGIT_TOL} relative); launches {out['launches']}")
+
+
+def families_phase(card, rec):
+    """(a) Falcon-7B whole (FALCON_7B, 32 layers, full width), int2-g64:
+    init_params then pack_model on the card (LayerNorm dicts, a plain MLP:
+    qkv, o, up, down), served A16 then A8 with the launch counts, one
+    step's logits and the decode timing; and one request's prefill and
+    cached decode against the plain cache-less forward. (b) MPT-7B,
+    Qwen3-8B, Qwen2-7B (A16 and A8), Phi-3-mini-4k and Gemma-3-4B at full
+    width and reduced depth, int2-g128, each through the Engine with its
+    launch counts and one step's logits. Random weights from seed 0, the
+    biases and norms then moved off zero and one (`moved_off_unit`)."""
+    cfg = FALCON_7B
+    dense = moved_off_unit(init_params(cfg, seed=0, device=DEV))
+    t0 = time.time()
+    params = pack_model(dense, cfg, BITS, FALCON_GROUP)
+    torch.cuda.synchronize()
+    pack_s = time.time() - t0
+    del dense
+    torch.cuda.empty_cache()
+    rec["falcon7b"] = fal = dict(pack_s=pack_s, layers=sorted(
+        k for k, v in params["layers"].items() if isinstance(v, PackedLinear)))
+    say(f"falcon7b: FALCON_7B, {cfg.num_layers} layers, packed int2-g{FALCON_GROUP} on the card "
+        f"in {pack_s:.1f} s; packed linears {fal['layers']}")
+    for a8 in (False, True):
+        tag = "A8" if a8 else "A16"
+        fal[tag] = {}
+        eng = serve_family(params, cfg, f"falcon7b {tag}", 1024, REQ_LENS[:8], a8, card,
+                           fal[tag], FALCON_GROUP, timed=True)
+        del eng
+    fal["prefill_decode"] = {}
+    falcon_prefill_decode_check(params, cfg, fal["prefill_decode"])
+    del params
+    torch.cuda.empty_cache()
+    for name, (hf, source, layers, rows, lens, with_a8) in FAMILIES.items():
+        cfg = family_config(name)
+        dense = moved_off_unit(init_params(cfg, seed=0, device=DEV))
+        params = pack_model(dense, cfg, BITS, GROUP)
+        del dense
+        rec[name] = fam = dict(source=source, layers=layers, cache_rows=rows, prompts=lens)
+        for a8 in (False, True) if with_a8 else (False,):
+            tag = "A8" if a8 else "A16"
+            fam[tag] = {}
+            eng = serve_family(params, cfg, f"{name} {tag} ({source}, {layers} of "
+                                            f"{hf.get('num_hidden_layers', hf.get('n_layers'))} "
+                                            f"layers)", rows, lens, a8, card, fam[tag], GROUP)
+            if name == "phi3_mini_4k":
+                # the window bites: slots run past 2047 rows, and the plain path
+                # without the window gives other logits
+                pos = torch.as_tensor(np.minimum(eng.lengths, rows - 20), dtype=torch.int32,
+                                      device=DEV)
+                tok = torch.randint(3, cfg.vocab_size, (8, 1), device=DEV)
+                nowin = dataclasses.replace(cfg, sliding_window=None)
+                ref = plain_reference(eng.params, a8)
+                with torch.inference_mode():
+                    lw, _ = forward(ref, cfg, tok, cache=eng.cache, cache_pos=pos,
+                                    use_kernels=False)
+                    ln, _ = forward(ref, nowin, tok, cache=eng.cache, cache_pos=pos,
+                                    use_kernels=False)
+                fam["window_moves_logits"] = (lw - ln).abs().max().item()
+                if int(pos.max()) <= cfg.sliding_window or not fam["window_moves_logits"] > 0:
+                    raise AssertionError(f"phi3: the window did not bite ({pos.tolist()}, "
+                                         f"{fam['window_moves_logits']})")
+                say(f"phi3_mini_4k: slots at {pos.tolist()} past the window of "
+                    f"{cfg.sliding_window}; the window moves the logits by "
+                    f"{fam['window_moves_logits']:.4g}")
+            del eng
+        del params
+        torch.cuda.empty_cache()
 
 
 # ---- B8: the training flash attention --------------------------------------------
@@ -1873,17 +2181,37 @@ def main() -> int:
         serve_trained_phase(master, tcfg, summary["serve_trained"])
         del master
 
+    # last, so that the earlier phases run in the same process state with or
+    # without it (run before training, its 13 GB Falcon-7B build slowed the KD cycle)
+    with Phase("families"):
+        summary["families"] = {}
+        families_phase(card, summary["families"])
+
     dec, pre, pre4k = totals_entry(dec, bw), totals_entry(pre, bw), totals_entry(pre4k, bw)
     a8_dec = totals_entry(a8_dec, bw, PEAK_INT8_OPS)
     a8_pre = totals_entry(a8_pre, bw, PEAK_INT8_OPS)
     a8_pre4k = totals_entry(a8_pre4k, bw, PEAK_INT8_OPS)
     times = lambda t: {k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
     c6 = summary["c6"]
-    c6_model = c6["model"]["launches"]  # this slice's own path: the Falcon-width model
+    fams = summary["families"]
+    fal = fams["falcon7b"]
+    # C6's path: Falcon-7B whole, int2-g64 (A16 for B1-B3, A8 for B4)
+    c6_model = dict(fal["A16"]["launches"], **{k: v for k, v in fal["A8"]["launches"].items()
+                                               if k.startswith("qmm_a8")})
 
     def c6_mm(kind):  # Falcon-7B's projections at K = 4544 (down: the control), g64
         return dict({r["shape"]: times(r) for r in c6["matmul_times"] if r["kernel"] == kind},
-                    path_launches=c6_model[kind])
+                    path_launches=c6_model.get(kind, 0))
+
+    def family_block(kind):  # the families phase's launches of one kernel, each run
+        out = {f"{name} {tag}": run["launches"].get(kind, 0) for name, fam in fams.items()
+               for tag, run in fam.items() if tag in ("A16", "A8")}
+        if kind in ("qmm_decode", "qmm_a8", "flash_decode"):
+            for tag in ("A16", "A8"):
+                run = fal[tag]
+                out[f"falcon7b {tag} step"] = {k: run[k] for k in (
+                    "decode_ms_per_step", "idle_share", "step_bound_ms", "step_bytes")}
+        return out
 
     kernels = [
         kernel_entry("qmm_decode", "quant_matmul.cu", "bitdistiller_tpu/ops/quant_matmul.py:152",
@@ -1892,13 +2220,14 @@ def main() -> int:
                      "kernel on clusters; max_abs_err relative to max|plain|; launches from the "
                      "A16 engine run",
                      bound_measured_bw_ms=dec["bound_measured_bw_ms"], g64=times(dec64),
-                     c6=c6_mm("qmm_decode")),
+                     c6=c6_mm("qmm_decode"), families=family_block("qmm_decode")),
         kernel_entry("qmm_prefill", "quant_matmul.cu", "bitdistiller_tpu/ops/quant_matmul.py:107",
                      counts["qmm_prefill"], mm_rel, pre,
                      "the same four, M=256 (x group sums + wgmma kernel; m4096: the engine's "
                      "first prefill shape); launches from the A16 engine run",
                      bound_measured_bw_ms=pre["bound_measured_bw_ms"], m4096=times(pre4k),
-                     g64=times(pre64), c6=c6_mm("qmm_prefill")),
+                     g64=times(pre64), c6=c6_mm("qmm_prefill"),
+                     families=family_block("qmm_prefill")),
         kernel_entry("flash_decode", "decode_attention.cu",
                      "bitdistiller_tpu/ops/decode_attention.py:106", counts["flash_decode"],
                      at_err["stacked"], att,
@@ -1907,7 +2236,8 @@ def main() -> int:
                      "2130 rows); launches from the A16 engine run",
                      bound_measured_bw_ms=att["bound_measured_bw_ms"], path=times(att_path),
                      c6=dict({name: times(r) for name, r in c6["attention"].items()},
-                             path_launches=c6_model["flash_decode"])),
+                             path_launches=c6_model["flash_decode"]),
+                     families=family_block("flash_decode")),
         kernel_entry("qmm_a8", "quant_matmul_a8.cu", "bitdistiller_tpu/ops/quant_matmul.py:721",
                      counts_a8["qmm_a8"], a8_rel, a8_dec,
                      "one layer's four A8 matmuls (quantization included), M=8, int2-g128 "
@@ -1917,7 +2247,7 @@ def main() -> int:
                      bound_measured_bw_ms=a8_dec["bound_measured_bw_ms"],
                      m256=times(a8_pre), m4096=times(a8_pre4k),
                      prefill_launches=counts_a8["qmm_a8_prefill"], g64=times(a8_64),
-                     c6=c6_mm("qmm_a8")),
+                     c6=c6_mm("qmm_a8"), families=family_block("qmm_a8")),
         kernel_entry("fused_mlp", "fused_mlp.cu", "bitdistiller_tpu/experimental/fused_mlp.py:57",
                      mlp["launches"], mlp["max_abs_err"], mlp,
                      "7B MLP (K=4096, FFN=11008, D=4096), M=8, int2-g128, silu, two launches "

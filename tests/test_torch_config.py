@@ -14,9 +14,10 @@ def test_model_config_fields_equal():
     assert tf == jf
 
 
-@pytest.mark.parametrize("name", ["TINY_TEST", "TINYLLAMA_1B", "LLAMA2_7B"])
+@pytest.mark.parametrize("name", ["TINY_TEST", "TINYLLAMA_1B", "LLAMA2_7B", "FALCON_7B",
+                                  "MPT_7B"])
 def test_presets_field_equal(name):
     j = getattr(jax_config, name)
     t = getattr(torch_config, name)
     assert dataclasses.asdict(t) == dataclasses.asdict(j)
-    assert t.actual_head_dim == j.actual_head_dim
+    assert (t.actual_head_dim, t.q_size, t.kv_size) == (j.actual_head_dim, j.q_size, j.kv_size)

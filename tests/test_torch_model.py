@@ -206,8 +206,3 @@ def test_pack_model_bit_equal(dense, packed):
         jl, tl = packed["layers"][name], tpacked["layers"][name]
         for f in ("qweight", "scales", "szeros", "combo"):
             np.testing.assert_array_equal(getattr(tl, f).numpy(), np.asarray(getattr(jl, f)))
-
-
-def test_unsupported_family_flags_raise():
-    with pytest.raises(NotImplementedError, match="qk_norm"):
-        tllama.check_supported(dataclasses.replace(TCFG, qk_norm=True))
