@@ -114,67 +114,97 @@ def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return codes.to(torch.int8), scale
 
 
+def param_table(cfg: ModelConfig) -> dict[tuple, tuple[tuple, object]]:
+    """Every leaf of the dense param tree for the config, with its shape and
+    how `init_params` fills it: {path: (shape, fill)}, fill "ones", "zeros"
+    or the scale of a normal draw. The leaves are the JAX package's
+    `init_params`'s (stacked [L, K, N] linears, unfused q/k/v and gate/up,
+    biases zero, norms one: a tensor for RMSNorm, a {"w", "b"} dict for
+    LayerNorm), in the order of the tree `init_params` returns."""
+    d, dh, ffn, L = cfg.hidden_size, cfg.actual_head_dim, cfg.intermediate_size, cfg.num_layers
+    table: dict[tuple, tuple[tuple, object]] = {("embed",): ((cfg.vocab_size, d), 0.02)}
+
+    def norm(path, *shape):
+        if cfg.norm_type == "layernorm":
+            table[path + ("w",)] = (shape, "ones")
+            table[path + ("b",)] = (shape, "zeros")
+        else:
+            table[path] = (shape, "ones")
+
+    def lin(name, k_dim, n_dim, bias):
+        table[("layers", name, "w")] = ((L, k_dim, n_dim), 1.0 / float(k_dim) ** 0.5)
+        if bias:
+            table[("layers", name, "b")] = ((L, n_dim), "zeros")
+
+    norm(("final_norm",), d)
+    norm(("layers", "input_norm"), L, d)
+    if not cfg.parallel_block:
+        norm(("layers", "post_attn_norm"), L, d)
+    if cfg.parallel_mlp_norm:
+        norm(("layers", "mlp_norm"), L, d)
+    if cfg.sandwich_norm:
+        norm(("layers", "pre_ffn_norm"), L, d)
+        norm(("layers", "post_ffn_norm"), L, d)
+    if cfg.qk_norm:
+        table[("layers", "q_norm")] = ((L, dh), "ones")
+        table[("layers", "k_norm")] = ((L, dh), "ones")
+    lin("q", d, cfg.q_size, cfg.attention_bias)
+    lin("k", d, cfg.kv_size, cfg.attention_bias)
+    lin("v", d, cfg.kv_size, cfg.attention_bias)
+    lin("o", cfg.q_size, d, cfg.attention_out_bias)
+    if cfg.mlp_style == "gated":
+        lin("gate", d, ffn, cfg.mlp_bias)
+    lin("up", d, ffn, cfg.mlp_bias)
+    lin("down", ffn, d, cfg.mlp_bias)
+    if not cfg.tie_word_embeddings:
+        table[("lm_head", "w")] = ((d, cfg.vocab_size), 1.0 / float(d) ** 0.5)
+    if cfg.learned_pos_embeddings:
+        table[("pos_embed",)] = ((cfg.max_position_embeddings + cfg.pos_embedding_offset, d), 0.02)
+    if cfg.embedding_norm:
+        table[("embed_norm", "w")] = ((d,), "ones")
+        table[("embed_norm", "b")] = ((d,), "zeros")
+    return table
+
+
+def param_shapes(cfg: ModelConfig) -> dict[tuple, tuple]:
+    """{leaf path: shape} of the dense param tree, nothing allocated."""
+    return {path: shape for path, (shape, _) in param_table(cfg).items()}
+
+
 def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.bfloat16, device="cuda") -> dict:
-    """Random dense params in the JAX package's layout, with every leaf its
-    `init_params` makes for the config (stacked [L, K, N] linears, unfused
-    q/k/v and gate/up, biases zero, norms one: a tensor for RMSNorm, a
-    {"w", "b"} dict for LayerNorm): normal * 1/sqrt(K), the embeddings *
-    0.02, drawn in f32 on the device from a torch.Generator seeded with
-    `seed` (other numbers than the JAX package's jax.random)."""
+    """Random dense params filling `param_table(cfg)`: normal * 1/sqrt(K)
+    for the linears, * 0.02 for the embeddings, drawn in f32 on the device
+    from a torch.Generator seeded with `seed` (other numbers than the JAX
+    package's jax.random), the layers' linears first (a layer at a time: no
+    full-size f32 copy), then the embedding, the lm_head and the positions."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    d, dh, ffn, L = cfg.hidden_size, cfg.actual_head_dim, cfg.intermediate_size, cfg.num_layers
+    table = param_table(cfg)
 
     def normal(shape, scale):
         return (torch.randn(shape, generator=gen, dtype=torch.float32, device=dev)
                 * scale).to(dtype)
 
-    def lin(k_dim, n_dim, bias):  # [L, K, N], a layer at a time: no full-size f32 copy
-        w = torch.empty((L, k_dim, n_dim), dtype=dtype, device=dev)
-        for i in range(L):
-            w[i] = normal((k_dim, n_dim), 1.0 / float(k_dim) ** 0.5)
-        if bias:
-            return {"w": w, "b": torch.zeros((L, n_dim), dtype=dtype, device=dev)}
-        return {"w": w}
+    def fill(shape, how):
+        if how == "ones":
+            return torch.ones(shape, dtype=dtype, device=dev)
+        if how == "zeros":
+            return torch.zeros(shape, dtype=dtype, device=dev)
+        if len(shape) == 3:  # a stacked linear [L, K, N]
+            w = torch.empty(shape, dtype=dtype, device=dev)
+            for i in range(shape[0]):
+                w[i] = normal(shape[1:], how)
+            return w
+        return normal(shape, how)
 
-    def norm(*shape):
-        ones = torch.ones(shape, dtype=dtype, device=dev)
-        if cfg.norm_type == "layernorm":
-            return {"w": ones, "b": torch.zeros(shape, dtype=dtype, device=dev)}
-        return ones
-
-    layers = {"input_norm": norm(L, d)}
-    if not cfg.parallel_block:
-        layers["post_attn_norm"] = norm(L, d)
-    if cfg.parallel_mlp_norm:
-        layers["mlp_norm"] = norm(L, d)
-    if cfg.sandwich_norm:
-        layers["pre_ffn_norm"] = norm(L, d)
-        layers["post_ffn_norm"] = norm(L, d)
-    if cfg.qk_norm:
-        layers["q_norm"] = torch.ones((L, dh), dtype=dtype, device=dev)
-        layers["k_norm"] = torch.ones((L, dh), dtype=dtype, device=dev)
-    layers["q"] = lin(d, cfg.q_size, cfg.attention_bias)
-    layers["k"] = lin(d, cfg.kv_size, cfg.attention_bias)
-    layers["v"] = lin(d, cfg.kv_size, cfg.attention_bias)
-    layers["o"] = lin(cfg.q_size, d, cfg.attention_out_bias)
-    if cfg.mlp_style == "gated":
-        layers["gate"] = lin(d, ffn, cfg.mlp_bias)
-    layers["up"] = lin(d, ffn, cfg.mlp_bias)
-    layers["down"] = lin(ffn, d, cfg.mlp_bias)
-    params = {
-        "embed": normal((cfg.vocab_size, d), 0.02),
-        "final_norm": norm(d),
-        "layers": layers,
-    }
-    if not cfg.tie_word_embeddings:
-        params["lm_head"] = {"w": normal((d, cfg.vocab_size), 1.0 / float(d) ** 0.5)}
-    if cfg.learned_pos_embeddings:
-        params["pos_embed"] = normal((cfg.max_position_embeddings + cfg.pos_embedding_offset, d),
-                                     0.02)
-    if cfg.embedding_norm:
-        params["embed_norm"] = {"w": torch.ones((d,), dtype=dtype, device=dev),
-                                "b": torch.zeros((d,), dtype=dtype, device=dev)}
+    leaves = {path: fill(*table[path]) for path in table if path[0] == "layers"}
+    leaves.update({path: fill(*table[path]) for path in table if path[0] != "layers"})
+    params: dict = {}
+    for path in table:
+        node = params
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = leaves[path]
     return params
 
 

@@ -3,28 +3,26 @@ JAX package's `train/memory.py:kd_train_memory_estimate`, plain
 arithmetic): teacher + student latents + f32 master/Adam moments +
 transients, each divided by the mesh axes its sharding spans (the port
 runs one device: dp = tp = 1 unless a caller asks otherwise). The
-parameter count is taken from the config's shapes, with nothing allocated.
+parameter count sums the shape table that `init_params` fills
+(`models/llama.py:param_table`), with nothing allocated.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from ..models.config import ModelConfig
+from ..models.llama import param_shapes
 from .trainer import TrainConfig, latent_dtype
 
 GiB = 1024**3
 
 
 def param_count(cfg: ModelConfig) -> int:
-    """Parameters of the dense Llama tree (`models/llama.py:init_params`)."""
-    d, dh, ffn, L = cfg.hidden_size, cfg.actual_head_dim, cfg.intermediate_size, cfg.num_layers
-    per_layer = (2 * d + d * cfg.num_heads * dh + 2 * d * cfg.num_kv_heads * dh
-                 + cfg.num_heads * dh * d + 3 * d * ffn)
-    n = L * per_layer + cfg.vocab_size * d + d
-    if not cfg.tie_word_embeddings:
-        n += d * cfg.vocab_size
-    return n
+    """Parameters of the dense tree `init_params(cfg)` makes, every family."""
+    return sum(math.prod(shape) for shape in param_shapes(cfg).values())
 
 
 def kd_train_memory_estimate(cfg: ModelConfig, tc: TrainConfig, *, dp: int = 1, tp: int = 1,

@@ -1,16 +1,18 @@
 """End-to-end KD-QAT training runner (PyTorch port of the JAX package's
 `train/pipeline.py:run_training`, single device).
 
-Flow: injected model (params, cfg) -> clip cache on the student -> teacher
-(a frozen copy in the compute dtype) -> CAKLD beta -> the KD train loop with
-gradient accumulation (stepwise or one fused call a cycle) -> periodic
-checkpoints and eval. Checkpoints are the port's own format: one
-`torch.save` of a flat dict of tensors (the params, the optimizer state's
-leaves and scalars, keyed by their paths) plus the step, under
-`{output_dir}/step_{micro_step}`. Not ported yet (ROADMAP): the HF
-checkpoint load and save (A5; without an injected model `run_training`
-raises), the orbax cross-format restore, multi-host. The run's summary
-carries the final state, whose `master_params` a caller packs.
+Flow: the model (an HF checkpoint dir loaded in f32 through
+`models/hf_import.py`, or an injected (params, cfg)) -> clip cache on the
+student -> teacher (a frozen copy in the compute dtype) -> CAKLD beta -> the
+KD train loop with gradient accumulation (stepwise or one fused call a
+cycle) -> periodic checkpoints and eval -> the final consolidated save of
+the f32 master in HF layout into `output_dir` (`save_hf_checkpoint`).
+Checkpoints are the port's own format: one `torch.save` of a flat dict of
+tensors (the params, the optimizer state's leaves and scalars, keyed by
+their paths) plus the step, under `{output_dir}/step_{micro_step}`. Not
+ported yet (ROADMAP A7): the orbax cross-format restore, multi-host. The
+run's summary carries the final state, whose `master_params` a caller
+packs.
 
 Cadence (inherited fault C4, kept as the JAX package has it): logging,
 saving and eval count micro-steps, and in the fused mode they are checked
@@ -26,6 +28,7 @@ import time
 import torch
 
 from .._device import resolve_device, torch_dtype
+from ..models.hf_import import load_hf_checkpoint, save_hf_checkpoint
 from ..quant.autoclip import apply_clip_cache, load_clip_cache
 from .data import Collator, SupervisedDataset, data_loader
 from .losses import kd_loss
@@ -37,6 +40,7 @@ from .trainer import (
     make_fused_train_step,
     make_quantizer,
     make_train_step,
+    master_params,
     to_device,
     tree_items,
     tree_map,
@@ -143,19 +147,26 @@ def evaluate(state, cfg, tc, teacher, eval_ds, collator, batch_size, beta, devic
 
 def run_training(args, *, tokenizer=None, model=None) -> dict:
     """args: the JAX package's CLI `train` namespace (the fields it reads),
-    plus `device` (default "cuda"). tokenizer and model=(params, cfg) are
-    injected. Returns {"final_loss", "steps", "state", "beta"}."""
-    if model is None:
-        raise NotImplementedError(
-            "run_training needs model=(params, cfg): the HF checkpoint load is not ported "
-            "yet (ROADMAP A5)")
-    if tokenizer is None:
-        raise NotImplementedError("run_training needs an injected tokenizer")
+    plus `device` (default "cuda"). The model loads from
+    `args.model_name_or_path` in f32 unless model=(params, cfg) is given;
+    the tokenizer through `transformers.AutoTokenizer` (imported only then)
+    unless given. Returns {"final_loss", "steps", "state", "beta",
+    "train_config"}."""
     if (getattr(args, "tp", None) or 1) > 1 or (getattr(args, "dp", None) or 1) > 1:
         raise NotImplementedError("the port trains on one device (dp = tp = 1)")
     device = resolve_device(getattr(args, "device", "cuda"))
-    params, cfg = model
-    params = tree_map(lambda x: x.to(device), params)
+    if tokenizer is None:
+        from transformers import AutoTokenizer
+
+        tokenizer = AutoTokenizer.from_pretrained(args.model_name_or_path, use_fast=True)
+        if tokenizer.pad_token is None:
+            tokenizer.pad_token = tokenizer.eos_token
+    if model is None:
+        params, cfg = load_hf_checkpoint(args.model_name_or_path, dtype=torch.float32,
+                                         device=device)
+    else:
+        params, cfg = model
+        params = tree_map(lambda x: x.to(device), params)
     student_src = params
     if args.clip:
         # the clip cache shapes the student only; the teacher stays unclipped
@@ -190,6 +201,9 @@ def run_training(args, *, tokenizer=None, model=None) -> dict:
         cdt = torch_dtype(cfg.dtype)  # the teacher rides in the compute dtype
         teacher = tree_map(lambda x: x.to(cdt) if x.is_floating_point() else x, params)
     state = init_train_state(student_src, tc)
+    # the loaded tree is freed here unless the teacher shares its tensors
+    # (compute dtype f32) or the caller holds it (an injected model)
+    del params, student_src
 
     start_step = 0
     if args.resume:
@@ -264,5 +278,10 @@ def run_training(args, *, tokenizer=None, model=None) -> dict:
                     logger.info("eval loss %.4f", ev)
     finally:
         metrics_f.close()
+    # the final consolidated save, from the f32 master when the optimizer
+    # keeps one (bf16 latents)
+    final = tree_map(lambda x: x.to(torch.float32), master_params(state))
+    save_hf_checkpoint(final, cfg, args.output_dir)
+    logger.info("saved final model to %s", args.output_dir)
     return {"final_loss": logs[-1] if logs else None, "steps": micro_step, "state": state,
             "beta": float(beta), "train_config": tc}

@@ -22,9 +22,13 @@ with 16 heads and at Gemma-2B's 8 query heads over 1 kv head, and f32, and
 their times beside SDPA's at TinyLlama's, 7B's, both D = 256 and the f32
 case's shapes, with the dkv plan), `train` (run_training at the full width and depth of
 TinyLlama-1.1B: int2-asym STE at g64, CAKLD, 2 x 1024 tokens a micro-step,
-grad_accum 2, two optimizer cycles, student and teacher through B8) and
-`serve_trained` (the trained student packed at int2-g64 and served through
-the Engine on B1/B2/B3). Between c1 and train_attention, `c6` runs the shapes
+grad_accum 2, two optimizer cycles, student and teacher through B8; the
+random bf16 model written to disk with save_hf_checkpoint, and loaded,
+trained and saved by run_training itself, its losses bit-equal to a run
+handed the same tree) and `serve_trained` (the final save reloaded
+bit-equal to the master, packed at int2-g64 and served through the Engine
+on B1/B2/B3, then exported to GPTQ with every code, scale and zero point
+held; the checkpoint I/O seconds beside the card's name and power limit). Between c1 and train_attention, `c6` runs the shapes
 the JAX package computes and earlier slices refused: the decode attention
 at any GQA rep and head dim (Falcon-7B's 71 heads over 1, rep 3, 5, 7, D =
 72, 80, 96, 320), the packed matmuls and fused MLP at Falcon-7B's K = 4544
@@ -123,7 +127,9 @@ import torch
 
 from bitdistiller_tpu_torch.experimental import flash_decode as fd1
 from bitdistiller_tpu_torch.experimental import fused_mlp as fm
+from bitdistiller_tpu_torch.models import gptq_export as gx
 from bitdistiller_tpu_torch.models import llama as llama_mod
+from bitdistiller_tpu_torch.models import safetensors_io
 from bitdistiller_tpu_torch.models import (
     FALCON_7B,
     LLAMA2_7B,
@@ -135,6 +141,7 @@ from bitdistiller_tpu_torch.models import (
     pack_model,
     random_packed_params,
 )
+from bitdistiller_tpu_torch.models.hf_import import load_hf_checkpoint, save_hf_checkpoint
 from bitdistiller_tpu_torch.ops import _build
 from bitdistiller_tpu_torch.ops import decode_attention as da
 from bitdistiller_tpu_torch.ops import quant_matmul as qm
@@ -144,9 +151,11 @@ from bitdistiller_tpu_torch.quant.packing import (
     dequantize_linear,
     make_scale_combo,
     scales_from_combo,
+    unpack_codes,
 )
 from bitdistiller_tpu_torch.scripts import bw_probe
 from bitdistiller_tpu_torch.serve import Engine, Request, SamplingParams
+from bitdistiller_tpu_torch.train import pipeline
 from bitdistiller_tpu_torch.train import trainer as tr
 from bitdistiller_tpu_torch.train.pipeline import run_training
 
@@ -1868,17 +1877,74 @@ def first_step_check(params, cfg, data, rec):
     return busy
 
 
+class CheckpointTimes:
+    """Host seconds of the HF load and the final save that run_training makes
+    itself: the pipeline module's two references, wrapped for one run (each
+    call ends on a synchronised device)."""
+
+    def __init__(self):
+        self.s: dict = {}
+
+    def _timed(self, name, fn):
+        def call(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            self.s[name] = time.time() - t0
+            return out
+        return call
+
+    def __enter__(self):
+        self.saved = (pipeline.load_hf_checkpoint, pipeline.save_hf_checkpoint)
+        pipeline.load_hf_checkpoint = self._timed("load_f32_s", self.saved[0])
+        pipeline.save_hf_checkpoint = self._timed("final_save_f32_s", self.saved[1])
+        return self
+
+    def __exit__(self, *exc):
+        pipeline.load_hf_checkpoint, pipeline.save_hf_checkpoint = self.saved
+        return False
+
+
+def dir_bytes(path: Path) -> int:
+    return sum(f.stat().st_size for f in path.iterdir() if f.suffix == ".safetensors")
+
+
+def train_run(args, model=None) -> dict:
+    """One run_training (peak memory reset before it); its summary, wall
+    seconds, peak memory and metrics.jsonl, with each micro-step's and each
+    cycle's ms. A micro-step's loss is read back before the next starts, so
+    its seconds_per_step ends on a synchronised step."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    summary = run_training(args, tokenizer=ByteTok(), model=model)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    metrics = [json.loads(line) for line in open(Path(args.output_dir) / "metrics.jsonl")]
+    ends = [m["step"] * m["seconds_per_step"] for m in metrics]  # since the loop began
+    micro_ms = [(b - a) * 1e3 for a, b in zip([0.0] + ends, ends)]
+    return dict(summary=summary, wall_s=wall, peak=torch.cuda.max_memory_allocated(),
+                losses=[m["loss"] for m in metrics],
+                grad_norms=[m["grad_norm"] for m in metrics], micro_step_ms=micro_ms,
+                cycle_ms=[sum(micro_ms[:2]), sum(micro_ms[2:4])])
+
+
 def train_phase(rec):
     """run_training at the full width and depth of TinyLlama-1.1B (random
-    bf16 weights from seed 0): int2-asym STE at g64, CAKLD with beta from
-    estimate_cakld_beta, micro-batch 2 x 1024, grad_accum 2, two optimizer
-    cycles, student and teacher through B8 (BITDISTILLER_TRAIN_FLASH=1 and
-    teacher_flash, for this phase only), remat "full". The counts are reset
-    just before run_training and read just after. Each cycle's wall time
-    comes from the run's own metrics.jsonl (a micro-step's loss is read back
-    before the next starts, so its seconds_per_step ends on a synchronised
-    step); the second cycle, past the first launches, gives ms a cycle and
-    tokens/s. Returns the final state and the config."""
+    bf16 weights from seed 0), from a checkpoint on disk: int2-asym STE at
+    g64, CAKLD with beta from estimate_cakld_beta, micro-batch 2 x 1024,
+    grad_accum 2, two optimizer cycles, student and teacher through B8
+    (BITDISTILLER_TRAIN_FLASH=1 and teacher_flash, for this phase only),
+    remat "full". First the tree is handed to run_training as earlier slices
+    did (injected: the parent's path); then it is written with
+    save_hf_checkpoint (bf16), dropped, and run_training loads it itself (in
+    f32: exact upcasts of the same bf16 values), trains and writes its final
+    f32 save: the main path, its counts reset just before and read just
+    after. Its losses and gradient norms must equal the injected run's bit
+    for bit. The second cycle, past the first launches, gives ms a cycle and
+    tokens/s. Returns the final master, the config and the temp dir that
+    holds the final save (serve_trained reads it, then removes the dir)."""
     cfg = TINYLLAMA_1B
     params = init_params(cfg, seed=0, dtype=torch.bfloat16, device=DEV)
     tmp = Path(tempfile.mkdtemp(prefix="bd_train_"))
@@ -1888,107 +1954,195 @@ def train_phase(rec):
         write_teacher_jsonl(data)
         busy = first_step_check(params, cfg, data, rec)
         os.environ["BITDISTILLER_TRAIN_FLASH"] = "1"
+        ref = train_run(train_args(data, tmp / "injected"), model=(params, cfg))
+        del ref["summary"]
+        shutil.rmtree(tmp / "injected")
+        torch.cuda.empty_cache()
         torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        reset_counts()
         t0 = time.time()
-        summary = run_training(train_args(data, tmp / "out"), tokenizer=ByteTok(),
-                               model=(params, cfg))
-        torch.cuda.synchronize()
-        wall = time.time() - t0
+        save_hf_checkpoint(params, cfg, str(tmp / "init"), dtype=torch.bfloat16)
+        save_s = time.time() - t0
+        init_bytes = dir_bytes(tmp / "init")
+        del params
+        torch.cuda.empty_cache()
+        reset_counts()
+        with CheckpointTimes() as io:
+            run = train_run(train_args(data, tmp / "out", model_name_or_path=str(tmp / "init")))
         counts = read_counts()
-        peak = torch.cuda.max_memory_allocated()
-        metrics = [json.loads(line) for line in open(tmp / "out" / "metrics.jsonl")]
+        shutil.rmtree(tmp / "init")
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
     finally:
         if saved is None:
             os.environ.pop("BITDISTILLER_TRAIN_FLASH", None)
         else:
             os.environ["BITDISTILLER_TRAIN_FLASH"] = saved
-        shutil.rmtree(tmp, ignore_errors=True)
-    losses = [m["loss"] for m in metrics]
-    if len(losses) != 4 or not all(math.isfinite(x) for x in losses) or summary["steps"] != 4:
-        raise AssertionError(f"training: {summary['steps']} micro-steps, losses {losses}")
+    summary, losses, micro_ms, cycle_ms = (run["summary"], run["losses"], run["micro_step_ms"],
+                                           run["cycle_ms"])
     need = ("train_attn_fwd", "train_attn_bwd_dkv", "train_attn_bwd_dq")
-    if not all(counts[k] > 0 for k in need):
-        raise AssertionError(f"training did not run through B8's kernels: {counts}")
-    ends = [m["step"] * m["seconds_per_step"] for m in metrics]  # since the loop began
-    micro_ms = [(b - a) * 1e3 for a, b in zip([0.0] + ends, ends)]
-    cycle_ms = [micro_ms[0] + micro_ms[1], micro_ms[2] + micro_ms[3]]
     tokens = 2 * 2 * 1024  # a cycle: grad_accum 2 x micro-batch 2 x 1024 positions
     rec.update(config="TINYLLAMA_1B", layers=cfg.num_layers, micro_batch=[2, 1024],
                grad_accum=2, cycles=2, beta=summary["beta"], losses=losses,
-               grad_norms=[m["grad_norm"] for m in metrics], launches=counts, wall_s=wall,
+               grad_norms=run["grad_norms"], launches=counts, wall_s=run["wall_s"],
                micro_step_ms=micro_ms, cycle_ms=cycle_ms,
-               tokens_per_s=tokens / cycle_ms[1] * 1e3, max_memory_allocated=peak,
-               profile=busy)
-    say(f"train TinyLlama-1.1B ({cfg.num_layers} layers, int2-asym g64 STE, CAKLD beta "
-        f"{summary['beta']:.4f}): losses {[round(x, 4) for x in losses]}, launches "
-        f"{ {k: counts[k] for k in need} }, run {wall:.1f} s; micro-steps "
-        f"{[round(x, 1) for x in micro_ms]} ms, cycles {[round(x, 1) for x in cycle_ms]} ms; "
-        f"the second cycle (2 x 2 x 1024 positions) -> {tokens / cycle_ms[1] * 1e3:.0f} "
-        f"tokens/s; peak memory {peak / 2**30:.2f} GiB")
-    if busy is not None:
-        say(f"profiler train: B8 {busy['b8_ms']:.2f} ms in one flash micro-step: "
-            + ", ".join(f"{k} {v:.2f} ms" for k, v in busy["b8"].items()))
-        say(f"profiler train: device busy {busy['busy_ms']:.1f} ms in one flash micro-step "
-            f"(forward and backward, no optimizer; the run's second cycle took "
-            f"{micro_ms[2]:.1f} + {micro_ms[3]:.1f} ms); top: "
-            + ", ".join(f"{k} {v:.2f} ms" for k, v in busy["top"]))
+               tokens_per_s=tokens / cycle_ms[1] * 1e3, max_memory_allocated=run["peak"],
+               profile=busy, injected={k: ref[k] for k in ref},
+               checkpoint_io=dict(save_bf16_s=save_s, save_bf16_bytes=init_bytes, **io.s,
+                                  final_save_bytes=dir_bytes(tmp / "out")))
+    try:
+        if len(losses) != 4 or not all(math.isfinite(x) for x in losses) or summary["steps"] != 4:
+            raise AssertionError(f"training: {summary['steps']} micro-steps, losses {losses}")
+        if not all(counts[k] > 0 for k in need):
+            raise AssertionError(f"training did not run through B8's kernels: {counts}")
+        say(f"train TinyLlama-1.1B from its checkpoint ({cfg.num_layers} layers, int2-asym g64 "
+            f"STE, CAKLD beta {summary['beta']:.4f}): launches "
+            f"{ {k: counts[k] for k in need} }, run {run['wall_s']:.1f} s; micro-steps "
+            f"{[round(x, 1) for x in micro_ms]} ms, cycles {[round(x, 1) for x in cycle_ms]} ms; "
+            f"the second cycle (2 x 2 x 1024 positions) -> {tokens / cycle_ms[1] * 1e3:.0f} "
+            f"tokens/s; peak memory {run['peak'] / 2**30:.2f} GiB")
+        for name, key in (("losses", "losses"), ("grad norms", "grad_norms"),
+                          ("micro-step ms", "micro_step_ms"), ("cycle ms", "cycle_ms")):
+            say(f"train {name}: from the checkpoint {run[key]!r} | injected tree (the parent's "
+                f"path) {ref[key]!r}")
+        say(f"train peak memory: from the checkpoint {run['peak'] / 2**30:.3f} GiB | injected "
+            f"tree {ref['peak'] / 2**30:.3f} GiB; run {run['wall_s']:.2f} s | {ref['wall_s']:.2f} s")
+        if losses != ref["losses"] or run["grad_norms"] != ref["grad_norms"]:
+            raise AssertionError("training from the checkpoint is not bit-equal to the injected "
+                                 "tree's run")
+        say("train from the checkpoint: the 4 losses and grad norms bit-equal to the injected "
+            "tree's")
+        if busy is not None:
+            say(f"profiler train: B8 {busy['b8_ms']:.2f} ms in one flash micro-step: "
+                + ", ".join(f"{k} {v:.2f} ms" for k, v in busy["b8"].items()))
+            say(f"profiler train: device busy {busy['busy_ms']:.1f} ms in one flash micro-step "
+                f"(forward and backward, no optimizer; the run's second cycle took "
+                f"{micro_ms[2]:.1f} + {micro_ms[3]:.1f} ms); top: "
+                + ", ".join(f"{k} {v:.2f} ms" for k, v in busy["top"]))
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
     master = tr.master_params(summary["state"])
-    del params, summary
-    return master, cfg
+    del summary, run
+    return master, cfg, tmp
 
 
-def serve_trained_phase(master, cfg, rec):
-    """pack_model the trained student's f32 master at int2-g64, serve 4
-    prompts through the Engine on the kernels (counts reset before, read
-    after: the g64 prefill and decode go through B1 and B2), then hold one
-    decode step's logits against use_kernels=False on the same cache."""
-    packed = pack_model(master, cfg, bits=2, group_size=64)
-    packed = {k: (v.to(torch.bfloat16) if isinstance(v, torch.Tensor) else v)
-              for k, v in packed.items()}
-    packed["layers"] = {k: (v.to(torch.bfloat16) if isinstance(v, torch.Tensor) else v)
-                        for k, v in packed["layers"].items()}
-    if "lm_head" in packed:
-        packed["lm_head"] = {"w": packed["lm_head"]["w"].to(torch.bfloat16)}
-    del master
-    torch.cuda.empty_cache()
-    eng = Engine(packed, cfg, max_slots=4, max_len=512, eos_token_id=None,
-                 sampling=SamplingParams(temperature=0.0), device=DEV)
-    rng = np.random.default_rng(1)
-    reqs = [Request(prompt_tokens=rng.integers(3, 253, n).tolist(), max_new_tokens=16)
-            for n in (40, 120, 64, 200)]
-    torch.cuda.synchronize()
-    reset_counts()
-    t0 = time.time()
-    done = eng.run(reqs)
-    torch.cuda.synchronize()
-    wall = time.time() - t0
-    counts = read_counts()
-    if len(done) != 4 or not all(r.finished and len(r.output_tokens) == 16 for r in reqs):
-        raise AssertionError("serve_trained: not every request finished with 16 tokens")
-    if counts["qmm_decode"] < 1 or counts["qmm_prefill"] < 1 or counts["flash_decode"] < 1:
-        raise AssertionError(f"serve_trained: g64 decode/prefill not through the kernels: {counts}")
-    pos = torch.as_tensor(np.minimum(eng.lengths, 480), dtype=torch.int32, device=DEV)
-    tok = torch.randint(3, 253, (4, 1), device=DEV)
-    ref = dict(packed, layers=dict(packed["layers"]))
-    for name, leaf in packed["layers"].items():
-        if isinstance(leaf, PackedLinear):
-            s, sz = scales_from_combo(leaf.combo)
-            ref["layers"][name] = dataclasses.replace(leaf, scales=s, szeros=sz)
-    with torch.inference_mode():
-        lk, _ = forward(packed, cfg, tok, cache=eng.cache, cache_pos=pos + 4)
-        lp, _ = forward(ref, cfg, tok, cache=eng.cache, cache_pos=pos + 4, use_kernels=False)
-    err = (lk - lp).abs().max().item()
-    scale = lp.abs().max().item()
-    rec.update(requests=4, group_size=64, launches=counts, wall_s=wall,
-               logit_max_abs_err=err, logit_max=scale)
-    say(f"serve_trained: 4 requests on the packed int2-g64 student, launches "
-        f"{ {k: v for k, v in counts.items() if v} }, {wall:.2f} s; decode step vs plain "
-        f"max|dlogit| {err:.4g} of {scale:.4g} (tol {LOGIT_TOL} relative)")
-    if not (torch.isfinite(lk).all() and err <= LOGIT_TOL * scale):
-        raise AssertionError("serve_trained: decode logits disagree with the plain path")
-    del eng, packed, ref
+def check_gptq_export(packed, cfg, path: Path) -> int:
+    """The GPTQ export of the packed student, read back with the port's
+    reader: every linear's GPTQ codes equal `unpack_codes` of its pair-layout
+    words (the fused qkv and gate_up split along N), every scale the leaf's
+    cast to f16, every zero point szeros / scales. Returns the tensors held."""
+    out = safetensors_io.read(str(path / "model.safetensors"))
+    hq, hkv, dh, ffn = cfg.num_heads, cfg.num_kv_heads, cfg.actual_head_dim, cfg.intermediate_size
+    parts = {"qkv": [("self_attn.q_proj", hq * dh), ("self_attn.k_proj", hkv * dh),
+                     ("self_attn.v_proj", hkv * dh)],
+             "gate_up": [("mlp.gate_proj", ffn), ("mlp.up_proj", ffn)],
+             "o": [("self_attn.o_proj", cfg.hidden_size)],
+             "down": [("mlp.down_proj", cfg.hidden_size)]}
+    held = 0
+    for leaf_name, cuts in parts.items():
+        leaf = packed["layers"][leaf_name]
+        for li in range(cfg.num_layers):
+            codes = unpack_codes(leaf.qweight[li], leaf.bits, leaf.group_size)
+            start = 0
+            for hf_name, width in cuts:
+                key = f"model.layers.{li}.{hf_name}"
+                cols = slice(start, start + width)
+                got = gx.unpack_gptq_qweight(out[key + ".qweight"].to(DEV), leaf.bits)
+                zeros = gx.unpack_gptq_qweight(out[key + ".qzeros"].to(DEV).T.contiguous(),
+                                               leaf.bits).T
+                s, sz = leaf.scales[li][:, cols], leaf.szeros[li][:, cols]
+                if not (torch.equal(got, codes[:, cols])
+                        and torch.equal(out[key + ".scales"].to(DEV), s.to(torch.float16))
+                        and torch.equal(zeros, torch.round(sz / s).to(torch.int32))):
+                    raise AssertionError(f"GPTQ export: {key} does not hold the packed codes, "
+                                         f"scales and zeros")
+                held += 3
+                start += width
+    return held
+
+
+def serve_trained_phase(master, cfg, tmp: Path, rec):
+    """Reload the checkpoint that run_training saved (f32) and hold it bit-equal,
+    leaf for leaf, against the run's master; pack_model it at int2-g64, serve
+    4 prompts through the Engine on the kernels (counts reset before, read
+    after: the g64 prefill and decode go through B1 and B2, the attention
+    through B3), hold one decode step's logits against use_kernels=False on
+    the same cache, then export the packed student to GPTQ and hold the
+    export's codes and scales against the packed leaves. Removes `tmp`."""
+    try:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        loaded, lcfg = load_hf_checkpoint(str(tmp / "out"), dtype=torch.float32, device=DEV)
+        torch.cuda.synchronize()
+        reload_s = time.time() - t0
+        got, want = dict(tr.tree_items(loaded)), dict(tr.tree_items(master))
+        if dataclasses.asdict(lcfg) != dataclasses.asdict(cfg) or sorted(got) != sorted(want):
+            raise AssertionError("serve_trained: the saved checkpoint's tree or config differs")
+        differ = [p for p in want if not torch.equal(got[p], want[p])]
+        if differ:
+            raise AssertionError(f"serve_trained: the reloaded master differs at {differ[:4]}")
+        say(f"serve_trained: the final save reloads bit-equal to the master ({len(want)} leaves, "
+            f"{sum(t.numel() for t in want.values())} f32 values) in {reload_s:.2f} s")
+        del master, got, want
+        packed = pack_model(loaded, cfg, bits=2, group_size=64)
+        del loaded
+        packed = {k: (v.to(torch.bfloat16) if isinstance(v, torch.Tensor) else v)
+                  for k, v in packed.items()}
+        packed["layers"] = {k: (v.to(torch.bfloat16) if isinstance(v, torch.Tensor) else v)
+                            for k, v in packed["layers"].items()}
+        if "lm_head" in packed:
+            packed["lm_head"] = {"w": packed["lm_head"]["w"].to(torch.bfloat16)}
+        torch.cuda.empty_cache()
+        eng = Engine(packed, cfg, max_slots=4, max_len=512, eos_token_id=None,
+                     sampling=SamplingParams(temperature=0.0), device=DEV)
+        rng = np.random.default_rng(1)
+        reqs = [Request(prompt_tokens=rng.integers(3, 253, n).tolist(), max_new_tokens=16)
+                for n in (40, 120, 64, 200)]
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.time()
+        done = eng.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = read_counts()
+        if len(done) != 4 or not all(r.finished and len(r.output_tokens) == 16 for r in reqs):
+            raise AssertionError("serve_trained: not every request finished with 16 tokens")
+        if counts["qmm_decode"] < 1 or counts["qmm_prefill"] < 1 or counts["flash_decode"] < 1:
+            raise AssertionError(f"serve_trained: g64 decode/prefill not through the kernels: "
+                                 f"{counts}")
+        pos = torch.as_tensor(np.minimum(eng.lengths, 480), dtype=torch.int32, device=DEV)
+        tok = torch.randint(3, 253, (4, 1), device=DEV)
+        ref = dict(packed, layers=dict(packed["layers"]))
+        for name, leaf in packed["layers"].items():
+            if isinstance(leaf, PackedLinear):
+                s, sz = scales_from_combo(leaf.combo)
+                ref["layers"][name] = dataclasses.replace(leaf, scales=s, szeros=sz)
+        with torch.inference_mode():
+            lk, _ = forward(packed, cfg, tok, cache=eng.cache, cache_pos=pos + 4)
+            lp, _ = forward(ref, cfg, tok, cache=eng.cache, cache_pos=pos + 4, use_kernels=False)
+        err = (lk - lp).abs().max().item()
+        scale = lp.abs().max().item()
+        say(f"serve_trained: 4 requests on the packed int2-g64 student, launches "
+            f"{ {k: v for k, v in counts.items() if v} }, {wall:.2f} s; decode step vs plain "
+            f"max|dlogit| {err:.4g} of {scale:.4g} (tol {LOGIT_TOL} relative)")
+        if not (torch.isfinite(lk).all() and err <= LOGIT_TOL * scale):
+            raise AssertionError("serve_trained: decode logits disagree with the plain path")
+        del eng, ref
+        torch.cuda.synchronize()
+        t0 = time.time()
+        gx.export_gptq(packed, cfg, str(tmp / "gptq"))
+        export_s = time.time() - t0
+        held = check_gptq_export(packed, cfg, tmp / "gptq")
+        rec.update(requests=4, group_size=64, launches=counts, wall_s=wall,
+                   logit_max_abs_err=err, logit_max=scale, reload_f32_s=reload_s,
+                   gptq_export_s=export_s, gptq_bytes=dir_bytes(tmp / "gptq"), gptq_held=held)
+        say(f"serve_trained: GPTQ export of the packed student in {export_s:.2f} s "
+            f"({dir_bytes(tmp / 'gptq') / 1e9:.3f} GB); {held} code, scale and zero tensors "
+            f"held exactly against the packed leaves")
+        del packed
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     return counts
 
 
@@ -2174,12 +2328,19 @@ def main() -> int:
 
     with Phase("train"):
         summary["train"] = {}
-        master, tcfg = train_phase(summary["train"])
+        master, tcfg, saved_dir = train_phase(summary["train"])
 
     with Phase("serve_trained"):
         summary["serve_trained"] = {}
-        serve_trained_phase(master, tcfg, summary["serve_trained"])
+        serve_trained_phase(master, tcfg, saved_dir, summary["serve_trained"])
         del master
+        io = dict(summary["train"]["checkpoint_io"], reload_f32_s=summary["serve_trained"][
+            "reload_f32_s"], gptq_export_s=summary["serve_trained"]["gptq_export_s"])
+        say(f"checkpoint I/O, TinyLlama-1.1B (host seconds on the card's machine; {card}): bf16 "
+            f"save {io['save_bf16_s']:.3f} s ({io['save_bf16_bytes'] / 1e9:.3f} GB), f32 load "
+            f"{io['load_f32_s']:.3f} s, final f32 save {io['final_save_f32_s']:.3f} s "
+            f"({io['final_save_bytes'] / 1e9:.3f} GB), reload {io['reload_f32_s']:.3f} s, GPTQ "
+            f"export {io['gptq_export_s']:.3f} s")
 
     # last, so that the earlier phases run in the same process state with or
     # without it (run before training, its 13 GB Falcon-7B build slowed the KD cycle)

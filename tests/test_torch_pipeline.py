@@ -4,7 +4,11 @@ fake tokenizer: the same per-step losses and grad norms (metrics.jsonl,
 logging every micro-step), stepwise and fused. Save, restore and resume
 reproduce an uninterrupted run. The pinned C4 cadence: logging, saving and
 eval count micro-steps, and a fused run checks them only when a cycle
-completes (both packages log at micro-steps 2, 4, ...).
+completes (both packages log at micro-steps 2, 4, ...). Both write the same
+final HF save (names, shapes, dtypes, config.json; values within the losses'
+tolerance). Without an injected model the port loads the HF dir itself, to
+the same losses bit for bit, and its final save reloads as the f32 master
+bit for bit.
 
 Tolerance: losses within 1e-4 relative and grad norms within 1e-3 (f32 in
 both; Adam amplifies last-bit gradient differences near eps,
@@ -24,12 +28,17 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
+from safetensors.numpy import load_file
 
 from bitdistiller_tpu.models import TINY_TEST as JT
 from bitdistiller_tpu.models import init_params as jinit
 from bitdistiller_tpu.train.pipeline import run_training as jax_run
+from bitdistiller_tpu_torch.models import safetensors_io
+from bitdistiller_tpu_torch.models.hf_import import load_hf_checkpoint, save_hf_checkpoint
 from bitdistiller_tpu_torch.models.quantized import params_from_numpy
 from bitdistiller_tpu_torch.train.pipeline import run_training
+from bitdistiller_tpu_torch.train.trainer import master_params, tree_items
 from torch_port_util import to_numpy_tree, torch_cfg
 
 JCFG = dataclasses.replace(JT, dtype="float32")
@@ -90,6 +99,17 @@ def test_run_training_matches_jax(setup, fused):
     np.testing.assert_allclose([m["grad_norm"] for m in tm], [m["grad_norm"] for m in jm],
                                rtol=1e-3)
     assert summary["steps"] == 11 and summary["state"].step == (5 if fused else 11)
+    # the final consolidated save: the JAX save's names, shapes, dtypes and
+    # config.json, its values within the losses' tolerance (same weights,
+    # trained apart by the last-bit gradient differences above)
+    assert (tout / "config.json").read_bytes() == (jout / "config.json").read_bytes()
+    want = load_file(str(jout / "model.safetensors"))
+    got = safetensors_io.read(str(tout / "model.safetensors"))
+    assert sorted(got) == sorted(want)
+    for name, w in want.items():
+        assert got[name].dtype == torch.float32 and w.dtype == np.float32, name
+        assert tuple(got[name].shape) == w.shape, name
+        np.testing.assert_allclose(got[name].numpy(), w, rtol=1e-4, atol=1e-4, err_msg=name)
 
 
 def test_save_restore_resume_reproduces_the_run(setup):
@@ -106,7 +126,40 @@ def test_save_restore_resume_reproduces_the_run(setup):
     assert [m["grad_norm"] for m in rm] == [m["grad_norm"] for m in fm[4:]]
 
 
-def test_run_training_without_a_model_names_a5(setup):
-    _, data, d = setup
-    with pytest.raises(NotImplementedError, match="A5"):
-        run_training(_args(data, d / "none"), tokenizer=FakeTok())
+def _hf_dir(params, path):
+    """The JAX params (TINY_TEST, f32) as an HF checkpoint dir, written by the
+    port's save; (the dir, the config its config.json gives)."""
+    tp = params_from_numpy(to_numpy_tree(params), "cpu")
+    save_hf_checkpoint(tp, torch_cfg(JCFG), str(path))
+    return str(path), load_hf_checkpoint(str(path), device="cpu")[1]
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_run_training_loads_the_model_dir_itself(setup, fused):
+    """model=None loads args.model_name_or_path in f32: the same losses and
+    grad norms, bit for bit, as the run handed the same tree and config."""
+    params, data, d = setup
+    src, cfg = _hf_dir(params, d / f"hf_src_{fused}")
+    loaded = d / f"loaded_{fused}"
+    injected = d / f"injected_{fused}"
+    run_training(_args(data, loaded, model_name_or_path=src, fused_accum=fused),
+                 tokenizer=FakeTok())
+    run_training(_args(data, injected, fused_accum=fused), tokenizer=FakeTok(),
+                 model=(params_from_numpy(to_numpy_tree(params), "cpu"), cfg))
+    lm, im = _metrics(loaded), _metrics(injected)
+    assert len(lm) == (5 if fused else 11)
+    assert [(m["loss"], m["grad_norm"]) for m in lm] == [(m["loss"], m["grad_norm"]) for m in im]
+
+
+def test_final_save_round_trips_the_master(setup):
+    """The final HF save holds the f32 master bit for bit, bf16 latents
+    included (the master is the optimizer's f32 copy)."""
+    params, data, d = setup
+    out = d / "final_bf16"
+    summary = _port(params, _args(data, out, param_dtype="bfloat16"))
+    master = dict(tree_items(master_params(summary["state"])))
+    back = dict(tree_items(load_hf_checkpoint(str(out), cfg=torch_cfg(JCFG),
+                                              dtype=torch.float32, device="cpu")[0]))
+    assert sorted(back) == sorted(master)
+    for path, t in master.items():
+        assert t.dtype == torch.float32 and torch.equal(back[path], t), path
