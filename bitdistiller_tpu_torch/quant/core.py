@@ -83,6 +83,15 @@ def _to_groups(w: torch.Tensor, group_size: int) -> tuple[torch.Tensor, tuple[in
 # ---------------------------------------------------------------------------
 
 
+def per_level(span: torch.Tensor, max_int: int) -> torch.Tensor:
+    """span / max_int, an IEEE division on every device: PyTorch's CUDA
+    kernel turns a division by a Python scalar into a product by its f32
+    reciprocal, which rounds the scale of about one group in six a bit away
+    from the CPU's (and a weight on a rounding boundary a step away), so the
+    divisor is a 0-d tensor on span's device."""
+    return span / torch.full((), max_int, dtype=span.dtype, device=span.device)
+
+
 class GroupQuantParams(NamedTuple):
     """Per-group affine parameters. Shapes are (rows, n_groups)."""
 
@@ -99,7 +108,7 @@ def asym_quant_params(wg: torch.Tensor, n_bit: int, *, clip_max=None,
         min_val = wg.amin(dim=-1)
     else:
         max_val, min_val = clip_max, clip_min
-    scales = torch.clamp(max_val - min_val, min=1e-5) / max_int
+    scales = per_level(torch.clamp(max_val - min_val, min=1e-5), max_int)
     zeros = torch.clamp(-torch.round(min_val / scales), 0, max_int)  # half to even
     return GroupQuantParams(scales=scales, zeros=zeros)
 
@@ -136,7 +145,7 @@ def fake_quant_int_kaxis(w: torch.Tensor, n_bit: int, group_size: int = 128, *,
     max_int = 2**n_bit - 1
     max_val = stats.amax(dim=-2)
     min_val = stats.amin(dim=-2)
-    scales = torch.clamp(max_val - min_val, min=1e-5) / max_int
+    scales = per_level(torch.clamp(max_val - min_val, min=1e-5), max_int)
     zeros = torch.clamp(-torch.round(min_val / scales), 0, max_int)
     s = scales.unsqueeze(-2)
     z = zeros.unsqueeze(-2)

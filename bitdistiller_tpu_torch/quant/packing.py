@@ -29,6 +29,8 @@ from typing import Optional
 
 import torch
 
+from .core import per_level
+
 _U32 = 1 << 32
 
 
@@ -141,7 +143,7 @@ def quantize_pack_linear(
     max_int = 2**bits - 1
     max_val = wg.amax(dim=1)
     min_val = wg.amin(dim=1)
-    scales = torch.clamp(max_val - min_val, min=1e-5) / max_int
+    scales = per_level(torch.clamp(max_val - min_val, min=1e-5), max_int)
     zeros = torch.clamp(-torch.round(min_val / scales), 0, max_int)
     q = torch.clamp(
         torch.round(wg / scales[:, None, :]) + zeros[:, None, :], 0, max_int

@@ -20,10 +20,16 @@ and with f32 q, each through its kernel; g64 times beside g128's),
 TinyLlama's and 7B's shapes, padded and ragged, MQA with 71 heads, D = 256
 with 16 heads and at Gemma-2B's 8 query heads over 1 kv head, and f32, and
 their times beside SDPA's at TinyLlama's, 7B's, both D = 256 and the f32
-case's shapes, with the dkv plan), `train` (run_training at the full width and depth of
-TinyLlama-1.1B: int2-asym STE at g64, CAKLD, 2 x 1024 tokens a micro-step,
-grad_accum 2, two optimizer cycles, student and teacher through B8; the
-random bf16 model written to disk with save_hf_checkpoint, and loaded,
+case's shapes, with the dkv plan), `train` (the three stages of the method at the
+full width and depth of TinyLlama-1.1B, from one checkpoint on disk: the
+random bf16 model written with save_hf_checkpoint; stage 1, run_autoclip on
+it over 128 x 1024 calibration tokens cut from the wikitext fixture's text
+(int2 g64, 512 sampled rows), its capture and search timed apart, the cache
+saved; stage 2, run_teacher_generation on it through the dense engine (B3
+on every decode step, no packed matmul), 10 prompts of 720 new tokens;
+stage 3, run_training on the clip cache and the generated data: int2-asym
+STE at g64, CAKLD, 2 x 1024 tokens a micro-step, grad_accum 2, two
+optimizer cycles, student and teacher through B8, the checkpoint loaded,
 trained and saved by run_training itself, its losses bit-equal to a run
 handed the same tree) and `serve_trained` (the final save reloaded
 bit-equal to the master, packed at int2-g64 and served through the Engine
@@ -105,7 +111,21 @@ Tolerances (kernel vs plain version on the same inputs):
   * the first KD micro-step of TinyLlama through B8 against the same step
     with the plain attention: loss within 2e-2 and gradient norm within 5e-2
     relative (22 bf16 layers; bf16 probabilities in B8, f32 in the plain
-    softmax); every training loss finite.
+    softmax); every training loss finite;
+  * AutoClip (stage 1): the search on the card against the same function on
+    the CPU, both f32, on layer 0's sampled inputs of v (K 2048, N 256) and
+    of the first 256 columns of down (K 5632): at least 99% of the (column,
+    group) clips equal, and where one differs its objective within 1e-4
+    relative of the other's (near-ties summed in another order); every
+    chosen clip of every searched linear of layers 0 and 21 no worse than
+    shrink (1, 1), on the grid, both objectives recomputed on the card,
+    within 1e-6 relative; the cache reloads equal, and its clamp of the
+    loaded tree equals the clipped tree exactly;
+  * teacher generation (stage 2): 10 lines in prompt order, each prompt
+    templated and each completion non-empty; B3's launches a positive
+    multiple of the 22 layers and no packed matmul (the dense tree); the
+    training micro-batches 2 x 1024; one decode step of the dense model
+    through the kernels against use_kernels=False within LOGIT_TOL.
 """
 
 from __future__ import annotations
@@ -125,6 +145,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from bitdistiller_tpu_torch.data.calib import get_calib_dataset
 from bitdistiller_tpu_torch.experimental import flash_decode as fd1
 from bitdistiller_tpu_torch.experimental import fused_mlp as fm
 from bitdistiller_tpu_torch.models import gptq_export as gx
@@ -141,11 +162,14 @@ from bitdistiller_tpu_torch.models import (
     pack_model,
     random_packed_params,
 )
+from bitdistiller_tpu_torch.generation import datasets as gen_datasets
+from bitdistiller_tpu_torch.generation.teacher import run_teacher_generation
 from bitdistiller_tpu_torch.models.hf_import import load_hf_checkpoint, save_hf_checkpoint
 from bitdistiller_tpu_torch.ops import _build
 from bitdistiller_tpu_torch.ops import decode_attention as da
 from bitdistiller_tpu_torch.ops import quant_matmul as qm
 from bitdistiller_tpu_torch.ops import train_attention as ta
+from bitdistiller_tpu_torch.quant import autoclip
 from bitdistiller_tpu_torch.quant.packing import (
     PackedLinear,
     dequantize_linear,
@@ -157,6 +181,7 @@ from bitdistiller_tpu_torch.scripts import bw_probe
 from bitdistiller_tpu_torch.serve import Engine, Request, SamplingParams
 from bitdistiller_tpu_torch.train import pipeline
 from bitdistiller_tpu_torch.train import trainer as tr
+from bitdistiller_tpu_torch.train.data import Collator, SupervisedDataset, data_loader
 from bitdistiller_tpu_torch.train.pipeline import run_training
 
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (data sheet)
@@ -1831,8 +1856,6 @@ def first_step_check(params, cfg, data, rec):
     attention (flash off), from the same latents; no optimizer state is made.
     Then one flash micro-step (forward and backward, no optimizer) under
     torch.profiler: where its device time goes."""
-    from bitdistiller_tpu_torch.train.data import Collator, SupervisedDataset, data_loader
-
     ds = SupervisedDataset.from_jsonl(str(data), ByteTok.eos_token, None, "train", 0)
     batch = tr.to_device(next(data_loader(ds, Collator(ByteTok(), 1024), 2, shuffle=True,
                                           seed=0)), DEV)
@@ -1930,19 +1953,269 @@ def train_run(args, model=None) -> dict:
                 cycle_ms=[sum(micro_ms[:2]), sum(micro_ms[2:4])])
 
 
-def train_phase(rec):
-    """run_training at the full width and depth of TinyLlama-1.1B (random
-    bf16 weights from seed 0), from a checkpoint on disk: int2-asym STE at
-    g64, CAKLD with beta from estimate_cakld_beta, micro-batch 2 x 1024,
+# ---- stages 1 and 2 of the method: AutoClip and teacher generation --------------
+
+CALIB_FIXTURE = (Path(__file__).resolve().parent / "fixtures"
+                 / "wikitext__wikitext-2-raw-v1__test.jsonl")
+CALIB_BLOCKS, CALIB_BLOCK = 128, 1024
+CLIP_TOKENS = 512  # n_sample_token
+# the search on the card against the same function on the CPU (f32, other
+# summation orders): clips equal in at least this share, and where one
+# differs its objective within CLIP_OBJ_TOL relative of the other's
+CLIP_SAME_SHARE = 0.99
+CLIP_OBJ_TOL = 1e-4
+# the invariant: the chosen clip's objective <= shrink (1, 1)'s, both
+# recomputed on the card, within this relative slack
+CLIP_INVARIANT_TOL = 1e-6
+# generation: every prompt is at least 304 tokens, so 720 new tokens put every
+# training row (prompt, completion, "</s>") past 1024: micro-batches 2 x 1024
+GEN_NEW_TOKENS = 720
+
+
+class AutoclipTimes:
+    """Host seconds of run_autoclip's capture and search calls (each ends on
+    a synchronised device), and the (weight, sampled input, clips) of every
+    search of the layers in `keep`: autoclip's two module references,
+    wrapped for one run."""
+
+    def __init__(self, cfg, keep):
+        self.s = {"capture_s": 0.0, "search_s": 0.0}
+        self.targets = autoclip.clip_linears(cfg)
+        self.keep = keep
+        self.calls = 0
+        self.kept: dict = {}
+
+    def _timed(self, key, fn, record=False):
+        def call(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            self.s[key] += time.time() - t0
+            if record:  # run_autoclip searches the targets in order, layer by layer
+                li, i = divmod(self.calls, len(self.targets))
+                if li in self.keep:
+                    self.kept[(li, self.targets[i])] = (args[0], args[1], out)
+                self.calls += 1
+            return out
+        return call
+
+    def __enter__(self):
+        self.saved = (autoclip.capture_block_inputs, autoclip.search_layer_clip)
+        autoclip.capture_block_inputs = self._timed("capture_s", self.saved[0])
+        autoclip.search_layer_clip = self._timed("search_s", self.saved[1], record=True)
+        return self
+
+    def __exit__(self, *exc):
+        autoclip.capture_block_inputs, autoclip.search_layer_clip = self.saved
+        return False
+
+
+def clip_objective(w_kn, feat, mx, mn, n_bit, group_size):
+    """[N, K/G] f32 on the tensors' device: the search's objective, the mean
+    over the sampled rows of (x_g . w_g - x_g . q_g)^2, q_g the group clamped
+    to [mn, mx] and fake quantized at int n_bit."""
+    k, n = w_kn.shape
+    ng = k // group_size
+    w = w_kn.float().t().reshape(n, ng, group_size).transpose(0, 1)  # [ng, N, G]
+    mx = torch.as_tensor(mx).to(w.device).t()[..., None]
+    mn = torch.as_tensor(mn).to(w.device).t()[..., None]
+    q = autoclip._quantize_for_search(torch.clamp(w, mn, mx), "int", n_bit, group_size)
+    f = feat.float().reshape(-1, ng, group_size).transpose(0, 1)  # [ng, T, G]
+    org = torch.bmm(f, w.transpose(1, 2))
+    out = torch.bmm(f, q.transpose(1, 2))
+    return (out - org).square().mean(dim=1).t()  # [N, ng]
+
+
+def autoclip_stage(ckpt: Path, tmp: Path, card: str, rec: dict) -> Path:
+    """Stage 1 on the checkpoint: load it in bf16, cut 128 blocks of 1024
+    tokens from the wikitext fixture's text rows (ByteTok), run_autoclip at
+    int2 g64 on 512 sampled rows, save the cache. Checks: layer 0's v and
+    the first 256 columns of its down searched on the CPU in f32 against the
+    card (CLIP_SAME_SHARE, CLIP_OBJ_TOL); every chosen clip of layers 0 and
+    21 no worse than shrink (1, 1) (CLIP_INVARIANT_TOL); the cache reloads
+    equal and its clamp of the loaded tree equals the clipped tree.
+    Returns the cache's path."""
+    params, cfg = load_hf_checkpoint(str(ckpt), dtype=torch.bfloat16, device=DEV)
+    with open(CALIB_FIXTURE) as f:
+        (tmp / "calib.txt").write_text("".join(json.loads(x)["text"] for x in f if x.strip()))
+    blocks = get_calib_dataset("text", ByteTok(), n_samples=CALIB_BLOCKS, block_size=CALIB_BLOCK,
+                               data_path=str(tmp / "calib.txt"))
+    calib = np.concatenate(blocks)
+    if calib.shape != (CALIB_BLOCKS, CALIB_BLOCK):
+        raise AssertionError(f"autoclip: calibration blocks {calib.shape}")
+    last = cfg.num_layers - 1
+    torch.cuda.synchronize()
+    t0 = time.time()
+    with AutoclipTimes(cfg, keep=(0, last)) as times:
+        res = autoclip.run_autoclip(params, cfg, calib, quant_type="int", n_bit=2,
+                                    group_size=64, n_sample_token=CLIP_TOKENS)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    clip_path = tmp / "clip.npz"
+    autoclip.save_clip_cache(str(clip_path), res["clip"])
+    kept = times.kept
+
+    # the card's search against the CPU's, f32, on the same inputs
+    vs_cpu = {}
+    for name, cols in (("v", None), ("down", 256)):
+        w, feat, (bmax, bmin) = kept[(0, name)]
+        w = w[:, :cols] if cols else w
+        card_max, card_min = bmax[:cols], bmin[:cols]
+        cpu_max, cpu_min = autoclip.search_layer_clip(w.float().cpu(), feat.float().cpu(),
+                                                      quant_type="int", n_bit=2, group_size=64)
+        same = torch.eq(card_max.cpu(), cpu_max) & torch.eq(card_min.cpu(), cpu_min)
+        o_card = clip_objective(w, feat, card_max, card_min, 2, 64).cpu()
+        o_cpu = clip_objective(w, feat, cpu_max.to(DEV), cpu_min.to(DEV), 2, 64).cpu()
+        rel = ((o_card - o_cpu).abs() / o_cpu.abs().clamp(min=1e-30))[~same]
+        worst = rel.max().item() if rel.numel() else 0.0
+        vs_cpu[name] = dict(shape=list(w.shape), same_share=same.float().mean().item(),
+                            differ=int((~same).sum()), worst_objective_rel=worst)
+        if same.float().mean().item() < CLIP_SAME_SHARE or worst > CLIP_OBJ_TOL:
+            raise AssertionError(f"autoclip: layer 0's {name} on the card disagrees with the "
+                                 f"CPU search: {vs_cpu[name]}")
+    # the invariant: no chosen clip worse than the unclipped grid point
+    worst_inv, checked = 0.0, 0
+    for (li, name), (w, feat, (bmax, bmin)) in kept.items():
+        wg = w.float().t().reshape(w.shape[1], -1, 64)
+        chosen = clip_objective(w, feat, bmax, bmin, 2, 64)
+        plain = clip_objective(w, feat, wg.amax(-1), wg.amin(-1), 2, 64)
+        excess = ((chosen - plain) / plain.abs().clamp(min=1e-30)).max().item()
+        worst_inv, checked = max(worst_inv, excess), checked + chosen.numel()
+        if excess > CLIP_INVARIANT_TOL:
+            raise AssertionError(f"autoclip: layer {li} {name}: a chosen clip is worse than "
+                                 f"shrink (1, 1) by {excess:.3g} relative")
+    # the cache: reloads equal; its clamp of the loaded tree is the clipped tree
+    loaded = autoclip.load_clip_cache(str(clip_path))
+    clipped = autoclip.apply_clip_cache(params, loaded)
+    groups = shrunk = 0
+    for li, layer in res["clip"].items():
+        for name, (mx, mn) in layer.items():
+            if not (np.array_equal(loaded[li][name][0], mx)
+                    and np.array_equal(loaded[li][name][1], mn)):
+                raise AssertionError(f"autoclip: the cache of layer {li} {name} reloads unequal")
+            w = params["layers"][name]["w"][li]
+            wg = w.float().t().reshape(w.shape[1], -1, 64)
+            groups += mx.size
+            shrunk += int(((torch.as_tensor(mx, device=DEV) != wg.amax(-1))
+                           | (torch.as_tensor(mn, device=DEV) != wg.amin(-1))).sum())
+    for name in times.targets:
+        if not torch.equal(clipped["layers"][name]["w"], res["params"]["layers"][name]["w"]):
+            raise AssertionError(f"autoclip: apply_clip_cache of the loaded tree differs at {name}")
+    s = times.s
+    rec.update(blocks=list(calib.shape), n_sample_token=CLIP_TOKENS, group_size=64, bits=2,
+               wall_s=wall, capture_s=s["capture_s"], search_s=s["search_s"],
+               s_per_layer=wall / cfg.num_layers, groups=groups, groups_shrunk=shrunk,
+               vs_cpu=vs_cpu, invariant_worst_rel=worst_inv, invariant_checked=checked,
+               cache_bytes=clip_path.stat().st_size)
+    say(f"autoclip TinyLlama-1.1B from its checkpoint ({card}): {CALIB_BLOCKS} x {CALIB_BLOCK} "
+        f"calibration tokens, int2 g64, {CLIP_TOKENS} sampled rows; run {wall:.2f} s (capture "
+        f"{s['capture_s']:.2f} s, search {s['search_s']:.2f} s, {wall / cfg.num_layers:.3f} s a "
+        f"layer); {shrunk} of {groups} groups clipped at a shrink other than 1")
+    say(f"autoclip checks: card vs CPU search, v {vs_cpu['v']['same_share']:.4f} equal (worst "
+        f"objective {vs_cpu['v']['worst_objective_rel']:.3g}), down[:, :256] "
+        f"{vs_cpu['down']['same_share']:.4f} (worst {vs_cpu['down']['worst_objective_rel']:.3g}) "
+        f"(>= {CLIP_SAME_SHARE}, tol {CLIP_OBJ_TOL}); layers 0 and {last}: {checked} chosen "
+        f"clips no worse than shrink (1, 1) (worst {worst_inv:.3g}, tol {CLIP_INVARIANT_TOL}); "
+        f"the cache reloads equal and clamps the loaded tree to the clipped one")
+    del params, res, clipped, kept, times
+    torch.cuda.empty_cache()
+    return clip_path
+
+
+def generation_stage(ckpt: Path, prompts: Path, tmp: Path, card: str, rec: dict,
+                     params) -> Path:
+    """Stage 2 on the checkpoint: run_teacher_generation (bf16, the dense
+    engine, 8 slots, 2048 rows, temperature 0.7, top_p 1.0, 720 new tokens)
+    on the prompts of the [[p, r]] file, its counts reset before and read
+    after. Checks: 10 lines in prompt order, each prompt templated and each
+    completion non-empty; B3 on every decode step (a positive multiple of the
+    22 layers), no packed matmul; one decode step of the dense model through
+    the kernels against use_kernels=False within LOGIT_TOL (`params`: the
+    tree the checkpoint holds). Returns the generated file."""
+    args = types.SimpleNamespace(
+        base_model=str(ckpt), dataset_name="json", data_path=str(prompts),
+        out_path=str(tmp / "generated.jsonl"), max_sample=5000, max_new_tokens=GEN_NEW_TOKENS,
+        temperature=0.7, top_p=1.0, max_batch=8, max_seq_len=2048, seed=0, device=DEV)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.time()
+    out = Path(run_teacher_generation(args, tokenizer=ByteTok()))
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = read_counts()
+    lines = [json.loads(x) for x in out.read_text().splitlines()]
+    want = [json.loads(x)[0][0] for x in prompts.read_text().splitlines() if x.strip()]
+    style = gen_datasets.PROMPT_STYLES[gen_datasets.style_for_dataset("json")]
+    if [x[0][0] for x in lines] != [style.format(instruction=p) for p in want]:
+        raise AssertionError("generation: the prompts are not the templated prompts in order")
+    if len(lines) != 10 or not all(x[0][1] for x in lines):
+        raise AssertionError(f"generation: {len(lines)} lines, or an empty completion")
+    layers = TINYLLAMA_1B.num_layers
+    packed = {k: v for k, v in counts.items() if k.startswith("qmm") and v}
+    if counts["flash_decode"] <= 0 or counts["flash_decode"] % layers or packed:
+        raise AssertionError(f"generation: B3 not on every decode step, or a packed matmul: "
+                             f"{counts}")
+    tokens = sum(len(x[0][1]) for x in lines)  # ByteTok: a character a token
+    # the training rows (prompt, completion, "</s>") and their micro-batches
+    ds = SupervisedDataset.from_jsonl(str(out), ByteTok.eos_token, None, "train", 0)
+    rows = [len(ByteTok().encode(s + t)) for s, t in zip(ds.sources, ds.targets)]
+    shapes = {tuple(b["input_ids"].shape) for b in data_loader(ds, Collator(ByteTok(), 1024), 2)}
+    if shapes != {(2, 1024)}:
+        raise AssertionError(f"generation: the micro-batches are {shapes}, not 2 x 1024")
+    step = dense_step_check(params)
+    rec.update(lines=len(lines), new_tokens=GEN_NEW_TOKENS, tokens=tokens, wall_s=wall,
+               tokens_per_s=tokens / wall, launches=counts, row_tokens=rows, decode_check=step)
+    say(f"generation TinyLlama-1.1B from its checkpoint ({card}): 10 prompts, 8 slots, "
+        f"temperature 0.7; {tokens} tokens in {wall:.2f} s -> {tokens / wall:.1f} tokens/s; B3 "
+        f"{counts['flash_decode']} launches ({counts['flash_decode'] // layers} decode steps), "
+        f"no packed matmul; training rows {min(rows)}-{max(rows)} tokens, micro-batches 2 x 1024")
+    say(f"generation decode step, dense bf16, kernels vs plain: max|dlogit| {step['err']:.4g} of "
+        f"{step['max']:.4g} (tol {LOGIT_TOL} relative)")
+    return out
+
+
+def dense_step_check(params) -> dict:
+    """One decode step of the dense bf16 TinyLlama on an engine's cache
+    after 4 requests, through B3 against use_kernels=False on the same
+    cache."""
+    cfg = TINYLLAMA_1B
+    eng = Engine(params, cfg, max_slots=4, max_len=512, eos_token_id=None,
+                 sampling=SamplingParams(temperature=0.0), device=DEV)
+    rng = np.random.default_rng(2)
+    eng.run([Request(prompt_tokens=rng.integers(3, 253, n).tolist(), max_new_tokens=8)
+             for n in (40, 120, 64, 200)])
+    pos = torch.as_tensor(eng.lengths, dtype=torch.int32, device=DEV)
+    tok = torch.randint(3, 253, (4, 1), device=DEV)
+    with torch.inference_mode():
+        lk, _ = forward(params, cfg, tok, cache=eng.cache, cache_pos=pos + 4)
+        lp, _ = forward(params, cfg, tok, cache=eng.cache, cache_pos=pos + 4, use_kernels=False)
+    err, top = (lk - lp).abs().max().item(), lp.abs().max().item()
+    if not (torch.isfinite(lk).all() and err <= LOGIT_TOL * top):
+        raise AssertionError(f"generation: the dense decode step disagrees with the plain path "
+                             f"({err} of {top})")
+    del eng
+    torch.cuda.empty_cache()
+    return dict(err=err, max=top)
+
+
+def train_phase(card, rec):
+    """The three stages of the method at the full width and depth of
+    TinyLlama-1.1B (random bf16 weights from seed 0), from one checkpoint on
+    disk: the tree is written with save_hf_checkpoint (bf16) first; stage 1,
+    AutoClip on it (`autoclip_stage`); stage 2, teacher generation on it
+    (`generation_stage`), whose file is the training data; stage 3,
+    run_training with the clip cache and that data: int2-asym STE at g64,
+    CAKLD with beta from estimate_cakld_beta, micro-batch 2 x 1024,
     grad_accum 2, two optimizer cycles, student and teacher through B8
     (BITDISTILLER_TRAIN_FLASH=1 and teacher_flash, for this phase only),
-    remat "full". First the tree is handed to run_training as earlier slices
-    did (injected: the parent's path); then it is written with
-    save_hf_checkpoint (bf16), dropped, and run_training loads it itself (in
-    f32: exact upcasts of the same bf16 values), trains and writes its final
-    f32 save: the main path, its counts reset just before and read just
-    after. Its losses and gradient norms must equal the injected run's bit
-    for bit. The second cycle, past the first launches, gives ms a cycle and
+    remat "full". The first micro-step is held against the plain attention;
+    then the tree is handed to run_training (injected: the path earlier
+    slices took), and run_training loads the checkpoint itself (in f32:
+    exact upcasts of the same bf16 values), trains and writes its final f32
+    save: the main path, its counts reset just before and read just after.
+    Its losses and gradient norms must equal the injected run's bit for bit.
+    The second cycle, past the first launches, gives ms a cycle and
     tokens/s. Returns the final master, the config and the temp dir that
     holds the final save (serve_trained reads it, then removes the dir)."""
     cfg = TINYLLAMA_1B
@@ -1950,24 +2223,27 @@ def train_phase(rec):
     tmp = Path(tempfile.mkdtemp(prefix="bd_train_"))
     saved = os.environ.get("BITDISTILLER_TRAIN_FLASH")
     try:
-        data = tmp / "teacher.jsonl"
-        write_teacher_jsonl(data)
-        busy = first_step_check(params, cfg, data, rec)
-        os.environ["BITDISTILLER_TRAIN_FLASH"] = "1"
-        ref = train_run(train_args(data, tmp / "injected"), model=(params, cfg))
-        del ref["summary"]
-        shutil.rmtree(tmp / "injected")
-        torch.cuda.empty_cache()
+        prompts = tmp / "teacher.jsonl"
+        write_teacher_jsonl(prompts)
         torch.cuda.synchronize()
         t0 = time.time()
         save_hf_checkpoint(params, cfg, str(tmp / "init"), dtype=torch.bfloat16)
         save_s = time.time() - t0
         init_bytes = dir_bytes(tmp / "init")
+        rec.update(autoclip={}, generation={})
+        clip = str(autoclip_stage(tmp / "init", tmp, card, rec["autoclip"]))
+        data = generation_stage(tmp / "init", prompts, tmp, card, rec["generation"], params)
+        busy = first_step_check(params, cfg, data, rec)
+        os.environ["BITDISTILLER_TRAIN_FLASH"] = "1"
+        ref = train_run(train_args(data, tmp / "injected", clip=clip), model=(params, cfg))
+        del ref["summary"]
+        shutil.rmtree(tmp / "injected")
         del params
         torch.cuda.empty_cache()
         reset_counts()
         with CheckpointTimes() as io:
-            run = train_run(train_args(data, tmp / "out", model_name_or_path=str(tmp / "init")))
+            run = train_run(train_args(data, tmp / "out", clip=clip,
+                                       model_name_or_path=str(tmp / "init")))
         counts = read_counts()
         shutil.rmtree(tmp / "init")
     except BaseException:
@@ -1996,7 +2272,8 @@ def train_phase(rec):
         if not all(counts[k] > 0 for k in need):
             raise AssertionError(f"training did not run through B8's kernels: {counts}")
         say(f"train TinyLlama-1.1B from its checkpoint ({cfg.num_layers} layers, int2-asym g64 "
-            f"STE, CAKLD beta {summary['beta']:.4f}): launches "
+            f"STE, the clip cache, the generated data, CAKLD beta {summary['beta']:.4f}; {card}): "
+            f"launches "
             f"{ {k: counts[k] for k in need} }, run {run['wall_s']:.1f} s; micro-steps "
             f"{[round(x, 1) for x in micro_ms]} ms, cycles {[round(x, 1) for x in cycle_ms]} ms; "
             f"the second cycle (2 x 2 x 1024 positions) -> {tokens / cycle_ms[1] * 1e3:.0f} "
@@ -2328,7 +2605,7 @@ def main() -> int:
 
     with Phase("train"):
         summary["train"] = {}
-        master, tcfg, saved_dir = train_phase(summary["train"])
+        master, tcfg, saved_dir = train_phase(card, summary["train"])
 
     with Phase("serve_trained"):
         summary["serve_trained"] = {}
@@ -2394,8 +2671,11 @@ def main() -> int:
                      at_err["stacked"], att,
                      "B=8, Hq=Hkv=32, T=2048, D=128, bf16 cache, rows split over clusters; the "
                      "table's long skewed starts (8083 rows; path: the steady decode step's "
-                     "2130 rows); launches from the A16 engine run",
+                     "2130 rows); launches from the A16 engine run; teacher_generation_launches "
+                     "from stage 2 of the train phase (dense bf16 TinyLlama-1.1B)",
                      bound_measured_bw_ms=att["bound_measured_bw_ms"], path=times(att_path),
+                     teacher_generation_launches=summary["train"]["generation"]["launches"][
+                         "flash_decode"],
                      c6=dict({name: times(r) for name, r in c6["attention"].items()},
                              path_launches=c6_model["flash_decode"]),
                      families=family_block("flash_decode")),

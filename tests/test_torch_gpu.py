@@ -467,3 +467,27 @@ def test_decode_attention_general_route_matches_plain(gen, b, hq, hkv, d, window
     assert got.dtype == qdtype
     assert (got.float() - want.float()).abs().max().item() <= 2e-2
     assert torch.equal(got, da.flash_decode_stacked(q, ck, cv, 1, kn, vn, start, **kw))
+
+
+@pytest.mark.parametrize("bits", [2, 3, 4])
+def test_int_quantizers_give_the_cpu_bytes(gen, bits):
+    """The int fake quantizers and the packer divide the group range by
+    2^bits - 1 as the CPU does (a true division: PyTorch's CUDA division by a
+    Python scalar is a product by the f32 reciprocal), so every scale, code
+    and dequantized weight on the card is the CPU's, bf16 weights too."""
+    from bitdistiller_tpu_torch.quant import core
+    from bitdistiller_tpu_torch.quant.packing import quantize_pack_linear
+
+    for dtype in (torch.float32, torch.bfloat16):
+        w = (torch.randn((256, 192), device="cuda", generator=gen) * 0.05).to(dtype)
+        wc = w.cpu()
+        for ste in (False, True):
+            assert torch.equal(core.fake_quant_int(w, bits, 64, ste=ste).cpu(),
+                               core.fake_quant_int(wc, bits, 64, ste=ste))
+            assert torch.equal(core.fake_quant_int_kaxis(w, bits, 64, ste=ste).cpu(),
+                               core.fake_quant_int_kaxis(wc, bits, 64, ste=ste))
+        if bits == 3:  # the packer takes 2 and 4 bits
+            continue
+        got, want = quantize_pack_linear(w, bits, 64), quantize_pack_linear(wc, bits, 64)
+        for name in ("qweight", "scales", "szeros"):
+            assert torch.equal(getattr(got, name).cpu(), getattr(want, name))
