@@ -34,7 +34,19 @@ trained and saved by run_training itself, its losses bit-equal to a run
 handed the same tree) and `serve_trained` (the final save reloaded
 bit-equal to the master, packed at int2-g64 and served through the Engine
 on B1/B2/B3, then exported to GPTQ with every code, scale and zero point
-held; the checkpoint I/O seconds beside the card's name and power limit). Between c1 and train_attention, `c6` runs the shapes
+held; the checkpoint I/O seconds beside the card's name and power limit),
+`eval` (stage 4 on the trained TinyLlama-1.1B: the perplexity over all 139
+blocks of 2048 byte tokens of the wikitext fixture's test text, batch 8, of
+the teacher checkpoint, of RTN int2-g64 of it and of the student under the
+CLI's PTQ quantizer, and of the packed int2-g64 student at A16 through B1 and
+at A8 through B4, every prefill matmul counted; the packed runs' first two
+blocks against the plain path; run_tasks on ARC-Challenge and MMLU abstract
+algebra, GreedyUntilFn on 8 GSM8K docs through the Engine (B1, B2, B3), the
+CLI's `ppl --dtype float32` in a child process under the training flash
+(B8's forward only) and the f32 config's perplexity through B8's 3xTF32
+forward) and `method` (the port's scripts/method_demo.py at the JAX script's
+defaults: the RTN -> AutoClip -> CAKLD QAT table for int2 and nf3 at g64,
+with the packed int2 row at A16 and W2A8, gated on its shape). Between c1 and train_attention, `c6` runs the shapes
 the JAX package computes and earlier slices refused: the decode attention
 at any GQA rep and head dim (Falcon-7B's 71 heads over 1, rep 3, 5, 7, D =
 72, 80, 96, 320), the packed matmuls and fused MLP at Falcon-7B's K = 4544
@@ -125,7 +137,18 @@ Tolerances (kernel vs plain version on the same inputs):
     templated and each completion non-empty; B3's launches a positive
     multiple of the 22 layers and no packed matmul (the dense tree); the
     training micro-batches 2 x 1024; one decode step of the dense model
-    through the kernels against use_kernels=False within LOGIT_TOL.
+    through the kernels against use_kernels=False within LOGIT_TOL;
+  * eval (stage 4): the packed perplexities through B1 / B4 against
+    use_kernels=False on the first 2 blocks: summed NLL within 1e-3
+    relative (bf16 matmul outputs rounded after sums in another order); the
+    tasks' per-pair log-likelihood sums within 1e-2 relative of the plain
+    path (greedy flags and acc not held: a bf16 argmax tie flips them); the
+    CLI's f32-loaded `ppl` under B8's bf16 forward within 2e-3 relative of the
+    same perplexity without the flash; the f32 config's under the 3xTF32
+    forward within 1e-4 relative of the plain f32 attention;
+  * method (A13): int2 RTN > +AutoClip > +QAT, nf3 QAT < RTN, the packed row
+    within 0.5% of the QAT row (one int2 grid) and the W2A8 row within 2% of
+    the packed row.
 """
 
 from __future__ import annotations
@@ -1820,6 +1843,9 @@ class ByteTok:
     def decode(self, ids, **kw):
         return "".join(chr((i - 3) % 26 + 97) for i in ids)
 
+    def __call__(self, s, **kw):  # an HF tokenizer's call: .input_ids
+        return types.SimpleNamespace(input_ids=self.encode(s))
+
 
 def write_teacher_jsonl(path: Path, n: int = 10, seed: int = 0) -> None:
     """n synthetic [[prompt, reply]] lines, from a seed: all but one longer
@@ -1955,8 +1981,8 @@ def train_run(args, model=None) -> dict:
 
 # ---- stages 1 and 2 of the method: AutoClip and teacher generation --------------
 
-CALIB_FIXTURE = (Path(__file__).resolve().parent / "fixtures"
-                 / "wikitext__wikitext-2-raw-v1__test.jsonl")
+FIXTURES = Path(__file__).resolve().parent / "fixtures"
+CALIB_FIXTURE = FIXTURES / "wikitext__wikitext-2-raw-v1__test.jsonl"
 CALIB_BLOCKS, CALIB_BLOCK = 128, 1024
 CLIP_TOKENS = 512  # n_sample_token
 # the search on the card against the same function on the CPU (f32, other
@@ -2217,7 +2243,9 @@ def train_phase(card, rec):
     Its losses and gradient norms must equal the injected run's bit for bit.
     The second cycle, past the first launches, gives ms a cycle and
     tokens/s. Returns the final master, the config and the temp dir that
-    holds the final save (serve_trained reads it, then removes the dir)."""
+    holds the bf16 checkpoint ("init", the teacher) and the final save
+    ("out", the student): serve_trained reads the save, the eval phase both,
+    and the eval phase removes the dir."""
     cfg = TINYLLAMA_1B
     params = init_params(cfg, seed=0, dtype=torch.bfloat16, device=DEV)
     tmp = Path(tempfile.mkdtemp(prefix="bd_train_"))
@@ -2245,7 +2273,6 @@ def train_phase(card, rec):
             run = train_run(train_args(data, tmp / "out", clip=clip,
                                        model_name_or_path=str(tmp / "init")))
         counts = read_counts()
-        shutil.rmtree(tmp / "init")
     except BaseException:
         shutil.rmtree(tmp, ignore_errors=True)
         raise
@@ -2339,6 +2366,18 @@ def check_gptq_export(packed, cfg, path: Path) -> int:
     return held
 
 
+def plain_packed(packed: dict) -> dict:
+    """The packed tree with each PackedLinear's scales and zeros taken back
+    from its combo words, as the kernels read them: the tree the plain path
+    (use_kernels=False) runs on."""
+    ref = dict(packed, layers=dict(packed["layers"]))
+    for name, leaf in packed["layers"].items():
+        if isinstance(leaf, PackedLinear):
+            s, sz = scales_from_combo(leaf.combo)
+            ref["layers"][name] = dataclasses.replace(leaf, scales=s, szeros=sz)
+    return ref
+
+
 def serve_trained_phase(master, cfg, tmp: Path, rec):
     """Reload the checkpoint that run_training saved (f32) and hold it bit-equal,
     leaf for leaf, against the run's master; pack_model it at int2-g64, serve
@@ -2346,7 +2385,9 @@ def serve_trained_phase(master, cfg, tmp: Path, rec):
     after: the g64 prefill and decode go through B1 and B2, the attention
     through B3), hold one decode step's logits against use_kernels=False on
     the same cache, then export the packed student to GPTQ and hold the
-    export's codes and scales against the packed leaves. Removes `tmp`."""
+    export's codes and scales against the packed leaves. Returns the reloaded
+    f32 master and its packed bf16 tree for the eval phase, which removes
+    `tmp` (removed here only on a failure)."""
     try:
         torch.cuda.synchronize()
         t0 = time.time()
@@ -2363,7 +2404,6 @@ def serve_trained_phase(master, cfg, tmp: Path, rec):
             f"{sum(t.numel() for t in want.values())} f32 values) in {reload_s:.2f} s")
         del master, got, want
         packed = pack_model(loaded, cfg, bits=2, group_size=64)
-        del loaded
         packed = {k: (v.to(torch.bfloat16) if isinstance(v, torch.Tensor) else v)
                   for k, v in packed.items()}
         packed["layers"] = {k: (v.to(torch.bfloat16) if isinstance(v, torch.Tensor) else v)
@@ -2390,11 +2430,7 @@ def serve_trained_phase(master, cfg, tmp: Path, rec):
                                  f"{counts}")
         pos = torch.as_tensor(np.minimum(eng.lengths, 480), dtype=torch.int32, device=DEV)
         tok = torch.randint(3, 253, (4, 1), device=DEV)
-        ref = dict(packed, layers=dict(packed["layers"]))
-        for name, leaf in packed["layers"].items():
-            if isinstance(leaf, PackedLinear):
-                s, sz = scales_from_combo(leaf.combo)
-                ref["layers"][name] = dataclasses.replace(leaf, scales=s, szeros=sz)
+        ref = plain_packed(packed)
         with torch.inference_mode():
             lk, _ = forward(packed, cfg, tok, cache=eng.cache, cache_pos=pos + 4)
             lp, _ = forward(ref, cfg, tok, cache=eng.cache, cache_pos=pos + 4, use_kernels=False)
@@ -2417,9 +2453,333 @@ def serve_trained_phase(master, cfg, tmp: Path, rec):
         say(f"serve_trained: GPTQ export of the packed student in {export_s:.2f} s "
             f"({dir_bytes(tmp / 'gptq') / 1e9:.3f} GB); {held} code, scale and zero tensors "
             f"held exactly against the packed leaves")
-        del packed
-    finally:
+        shutil.rmtree(tmp / "gptq")
+    except BaseException:
         shutil.rmtree(tmp, ignore_errors=True)
+        raise
+    return loaded, packed
+
+
+# ---- stage 4, evaluation: the trained student scored --------------------------
+
+EVAL_SEQ, EVAL_BATCH = 2048, 8
+# the packed perplexities through the kernels against use_kernels=False on the
+# first EVAL_CHECK_BLOCKS blocks: the summed NLL within this relative gap
+# (every packed matmul's bf16 output rounded after sums in another order; one
+# decode step's logits agree within LOGIT_TOL of their max, and a block's NLL
+# averages 2047 tokens' log-probabilities)
+EVAL_CHECK_BLOCKS = 2
+EVAL_NLL_TOL = 1e-3
+# the tasks' per-pair log-likelihood sums through the kernels against the plain
+# path, relative (the same reason); greedy flags and acc are not held (a bf16
+# argmax tie flips them)
+EVAL_LL_TOL = 1e-2
+# the CLI's `ppl` under B8 (bf16 forward kernel: the CLI computes in the
+# config's bf16, ROADMAP C4) against the in-process plain attention: p enters
+# P.V in bf16 in the kernel and in f32 in the plain version
+CLI_PPL_TOL = 2e-3
+# the f32 config's perplexity under B8's 3xTF32 forward against the plain f32
+# attention: f32 sums in another order
+F32_PPL_TOL = 1e-4
+GEN_DOCS, GEN_NEW, GEN_SHOTS = 8, 64, 2  # 5-shot prompts are 2417-2636 byte tokens
+
+
+class Recording:
+    """A pairs scorer that keeps every pair it scored and its result."""
+
+    def __init__(self, fn):
+        self.fn, self.pairs, self.results = fn, [], []
+
+    def __call__(self, pairs):
+        out = self.fn(pairs)
+        self.pairs += list(pairs)
+        self.results += out
+        return out
+
+
+def eval_run(name, fn, blocks, out: dict) -> float:
+    """One perplexity over `blocks`, its launch counts reset just before and
+    read just after; host seconds around a synchronised device."""
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.time()
+    ppl = fn()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = {k: v for k, v in read_counts().items() if v}
+    toks = blocks.shape[0] * blocks.shape[1]
+    out[name] = dict(ppl=ppl, s=wall, tokens=toks, tokens_per_s=toks / wall, launches=counts)
+    if not math.isfinite(ppl):
+        raise AssertionError(f"eval {name}: perplexity {ppl}")
+    return ppl
+
+
+def nll_gap(params, ref, cfg, blocks, out: dict, name: str) -> float:
+    """Summed NLL of the first blocks through the kernels against the plain
+    path (use_kernels=False on `ref`), relative."""
+    from bitdistiller_tpu_torch.eval.ppl import make_nll_fn
+
+    tokens = torch.as_tensor(blocks[:EVAL_CHECK_BLOCKS], dtype=torch.int64, device=DEV)
+    k = make_nll_fn(cfg)(params, tokens).sum().item()
+    p = make_nll_fn(cfg, use_kernels=False)(ref, tokens).sum().item()
+    gap = abs(k - p) / abs(p)
+    out[name].update(check_nll_kernels=k, check_nll_plain=p, check_rel_gap=gap)
+    say(f"eval {name}: NLL of the first {EVAL_CHECK_BLOCKS} blocks through the kernels {k:.6f}"
+        f" vs plain {p:.6f}, relative gap {gap:.3g} (tol {EVAL_NLL_TOL})")
+    if not gap <= EVAL_NLL_TOL:
+        raise AssertionError(f"eval {name}: the kernels' NLL disagrees with the plain path")
+    return gap
+
+
+def cli_ppl(model: Path, tokens: Path, extra_env: dict) -> tuple[float, dict]:
+    """`python -m bitdistiller_tpu_torch.cli ppl` (run as __main__ through
+    runpy in a child process, which then prints its launch counts as JSON)."""
+    prog = ("import json, runpy, sys\n"
+            "sys.argv = ['bitdistiller_tpu_torch.cli'] + sys.argv[1:]\n"
+            "runpy.run_module('bitdistiller_tpu_torch.cli', run_name='__main__', "
+            "alter_sys=True)\n"
+            "from bitdistiller_tpu_torch.ops import train_attention as ta\n"
+            "from bitdistiller_tpu_torch.ops import quant_matmul as qm\n"
+            "print(json.dumps({'train_attn_fwd': ta.train_attn_fwd.launches, "
+            "'train_attn_bwd_dkv': ta.train_attn_bwd_dkv.launches, "
+            "'train_attn_bwd_dq': ta.train_attn_bwd_dq.launches, "
+            "'qmm_prefill': qm.qmm_prefill.launches}))\n")
+    argv = ["ppl", "--model_path", str(model), "--tokens_file", str(tokens), "--dtype",
+            "float32", "--batch_size", str(EVAL_BATCH), "--seqlen", str(EVAL_SEQ),
+            "--device", "cuda"]
+    run = subprocess.run([sys.executable, "-c", prog] + argv, cwd=OUT_DIR.parent,
+                         capture_output=True, text=True, env=dict(os.environ, **extra_env),
+                         timeout=600)
+    if run.returncode:
+        raise RuntimeError(f"cli ppl exited {run.returncode}:\n{run.stderr[-3000:]}")
+    lines = run.stdout.strip().splitlines()
+    ppl = float([ln for ln in lines if ln.startswith("ppl:")][-1].split()[1])
+    return ppl, json.loads(lines[-1])
+
+
+def eval_phase(loaded, packed, cfg, tmp: Path, card: str, rec: dict) -> dict:
+    """Stage 4 on TinyLlama-1.1B (22 layers): the teacher (the bf16 checkpoint
+    the train phase wrote), RTN int2-g64 of it (the CLI's PTQ quantizer), the
+    trained student under the same quantizer (the reloaded f32 master in
+    bf16), the packed int2-g64 student at A16 (B1) and at A8 (B4), each a
+    perplexity over all 139 blocks of 2048 byte tokens of the wikitext
+    fixture's test text at batch 8; the packed runs' first 2 blocks held
+    against the plain path. Then run_tasks on the packed student (ARC-Challenge,
+    MMLU abstract algebra, their per-pair sums held against the plain path),
+    GreedyUntilFn on 8 GSM8K docs through the Engine (B1, B2, B3), the CLI's
+    `ppl --dtype float32` under the training flash (B8's forward) against the
+    same perplexity in process without it, and the f32 config's perplexity
+    through B8's 3xTF32 forward against the plain f32 attention. Removes `tmp`.
+    Returns the launch counts of each run."""
+    from bitdistiller_tpu_torch.cli import _ptq_quantizer
+    from bitdistiller_tpu_torch.eval import tasks as T
+    from bitdistiller_tpu_torch.eval.ppl import load_wikitext2_test, perplexity, prepare_blocks
+
+    saved = {k: os.environ.get(k) for k in ("BITDISTILLER_DATA_DIR", qm.A8_ENV,
+                                            "BITDISTILLER_TRAIN_FLASH")}
+    os.environ["BITDISTILLER_DATA_DIR"] = str(FIXTURES)
+    os.environ.pop("BITDISTILLER_TRAIN_FLASH", None)
+    try:
+        tokens = load_wikitext2_test(ByteTok())
+        blocks = prepare_blocks(tokens, EVAL_SEQ)
+        if blocks.shape != (139, EVAL_SEQ):
+            raise AssertionError(f"eval: {len(tokens)} tokens -> blocks {blocks.shape}, not "
+                                 f"139 x {EVAL_SEQ}")
+        rtn = _ptq_quantizer(types.SimpleNamespace(quant_type="int", w_bit=2, q_group_size=64))
+        ppl = lambda params, q=None, c=cfg, b=blocks: perplexity(
+            params, c, b, quantizer=q, batch_size=EVAL_BATCH, device=DEV)
+        runs: dict = {}
+        teacher, _ = load_hf_checkpoint(str(tmp / "init"), dtype=torch.bfloat16, device=DEV)
+        eval_run("teacher", lambda: ppl(teacher), blocks, runs)
+        eval_run("teacher_rtn_int2_g64", lambda: ppl(teacher, rtn), blocks, runs)
+        del teacher
+        student = tr.tree_map(lambda x: x.to(torch.bfloat16), loaded)
+        eval_run("student_rtn_int2_g64", lambda: ppl(student, rtn), blocks, runs)
+        del student
+        ref = plain_packed(packed)
+        eval_run("packed_a16", lambda: ppl(packed), blocks, runs)
+        nll_gap(packed, ref, cfg, blocks, runs, "packed_a16")
+        os.environ[qm.A8_ENV] = "1"
+        try:
+            packed_a8 = qm.maybe_repack_a8(packed)
+            eval_run("packed_a8", lambda: ppl(packed_a8), blocks, runs)
+            # the plain A8 version reads the same scales as the A8 kernel
+            nll_gap(packed_a8, packed_a8, cfg, blocks, runs, "packed_a8")
+        finally:
+            os.environ.pop(qm.A8_ENV, None)
+        del packed_a8
+        torch.cuda.empty_cache()
+        fwd = -(-blocks.shape[0] // EVAL_BATCH)  # 17 batches of 8 and the remainder of 3
+        want = fwd * cfg.num_layers * 4
+        a16, a8 = runs["packed_a16"]["launches"], runs["packed_a8"]["launches"]
+        if (a16.get("qmm_prefill") != want or a16.get("qmm_a8") or a16.get("qmm_decode")
+                or a8.get("qmm_a8_prefill") != want or a8.get("qmm_a8") != want
+                or a8.get("qmm_prefill") or a8.get("qmm_decode")):
+            raise AssertionError(f"eval: the packed perplexities did not run every matmul "
+                                 f"through B1 / B4 ({want} each): {a16} / {a8}")
+        say(f"eval TinyLlama-1.1B ({cfg.num_layers} layers, {blocks.shape[0]} blocks of "
+            f"{EVAL_SEQ} byte tokens of the wikitext fixture, batch {EVAL_BATCH}; {card}): "
+            + "; ".join(f"{name} ppl {r['ppl']:.4f} in {r['s']:.2f} s "
+                        f"({r['tokens_per_s']:.0f} tokens/s)" for name, r in runs.items()))
+        say(f"eval launches: A16 perplexity {a16}, A8 perplexity {a8} (predicted {want} each: "
+            f"{fwd} forwards x {cfg.num_layers} layers x 4 packed linears)")
+
+        # the task harness on the packed student, every pair held against the plain path
+        t0 = time.time()
+        reset_counts()
+        fn = Recording(T.LogLikelihoodFn(packed, cfg, ByteTok(), batch_size=EVAL_BATCH,
+                                         device=DEV))
+        task_res = T.run_tasks(fn, ["arc_challenge", "hendrycksTest-abstract_algebra"])
+        torch.cuda.synchronize()
+        task_s = time.time() - t0
+        task_counts = {k: v for k, v in read_counts().items() if v}
+        plain = T.LogLikelihoodFn(ref, cfg, ByteTok(), batch_size=EVAL_BATCH, device=DEV,
+                                  use_kernels=False)(fn.pairs)
+        errs = [abs(a[0] - b[0]) / abs(b[0]) for a, b in zip(fn.results, plain)]
+        worst = max(errs)
+        runs["tasks"] = dict(results=task_res, s=task_s, pairs=len(fn.pairs), launches=task_counts,
+                             ll_worst_rel_err=worst,
+                             greedy_flags_differ=sum(a[1] != b[1] for a, b in zip(fn.results, plain)))
+        say(f"eval tasks on the packed student: "
+            + "; ".join(f"{k} acc {v['acc']:.3f} acc_norm {v.get('acc_norm', float('nan')):.3f} "
+                        f"n {v['n']}" for k, v in task_res.items() if isinstance(v, dict))
+            + f"; {len(fn.pairs)} pairs in {task_s:.2f} s, launches {task_counts}; per-pair "
+            f"log-likelihood sums vs plain: worst relative {worst:.3g} (tol {EVAL_LL_TOL})")
+        if not (worst <= EVAL_LL_TOL and task_counts.get("qmm_prefill", 0) > 0):
+            raise AssertionError("eval tasks: the kernels' log-likelihoods disagree with the "
+                                 "plain path, or no pair went through B1")
+
+        # greedy generation through the engine on the packed student
+        docs = T._gsm8k_gen_docs(n_fewshot=GEN_SHOTS)[:GEN_DOCS]
+        eng = Engine(packed, cfg, max_slots=EVAL_BATCH, max_len=EVAL_SEQ,
+                     sampling=SamplingParams(temperature=0.0),
+                     eos_token_id=ByteTok.eos_token_id, device=DEV)
+        gen_fn = T.GreedyUntilFn(eng, ByteTok(), max_new_tokens=GEN_NEW)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.time()
+        gen_res = T.evaluate_gen_task(gen_fn, docs, match=T.GEN_TASKS["gsm8k"][2])
+        torch.cuda.synchronize()
+        gen_s = time.time() - t0
+        gen_counts = {k: v for k, v in read_counts().items() if v}
+        runs["gsm8k_greedy"] = dict(result=gen_res, s=gen_s, docs=GEN_DOCS, shots=GEN_SHOTS,
+                                    new_tokens=GEN_NEW, decode_steps=eng.decode_steps,
+                                    prefills=eng.prefills, launches=gen_counts)
+        say(f"eval GreedyUntilFn: {GEN_DOCS} GSM8K docs ({GEN_SHOTS}-shot; the 5-shot prompts "
+            f"pass the 2048-row cache in byte tokens), {GEN_NEW} new tokens, exact match "
+            f"{gen_res['exact_match']:.3f}, {gen_s:.2f} s, {eng.decode_steps} decode steps, "
+            f"{eng.prefills} prefills, launches {gen_counts}")
+        if not all(gen_counts.get(k, 0) > 0 for k in ("qmm_prefill", "qmm_decode", "flash_decode")):
+            raise AssertionError(f"eval GreedyUntilFn: not through B1, B2 and B3: {gen_counts}")
+        del eng, gen_fn, ref
+        torch.cuda.empty_cache()
+
+        # the CLI's f32 ppl under the training flash, and the f32 config's forward
+        head = blocks[:EVAL_BATCH]
+        np.save(tmp / "tokens.npy", head.reshape(-1))
+        t0 = time.time()
+        cli_val, cli_counts = cli_ppl(tmp / "out", tmp / "tokens.npy",
+                                      {"BITDISTILLER_TRAIN_FLASH": "1"})
+        cli_s = time.time() - t0
+        ref_val = perplexity(loaded, cfg, head, batch_size=EVAL_BATCH, device=DEV)
+        cli_gap = abs(cli_val - ref_val) / ref_val
+        runs["cli_ppl_float32_flash"] = dict(ppl=cli_val, in_process_plain=ref_val,
+                                             rel_gap=cli_gap, s=cli_s, launches=cli_counts)
+        say(f"eval cli ppl --dtype float32 (BITDISTILLER_TRAIN_FLASH=1, {EVAL_BATCH} blocks, a "
+            f"child process, {cli_s:.1f} s): ppl {cli_val:.4f} vs in process without the flash "
+            f"{ref_val:.4f} (relative {cli_gap:.3g}, tol {CLI_PPL_TOL}); launches {cli_counts}")
+        if not (cli_gap <= CLI_PPL_TOL and cli_counts["train_attn_fwd"] == cfg.num_layers
+                and not cli_counts["train_attn_bwd_dkv"] and not cli_counts["train_attn_bwd_dq"]):
+            raise AssertionError("eval cli ppl: off the plain path, or not B8's forward alone")
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        plain32 = perplexity(loaded, cfg32, head, batch_size=EVAL_BATCH, device=DEV)
+        os.environ["BITDISTILLER_TRAIN_FLASH"] = "1"
+        try:
+            eval_run("f32_config_flash", lambda: perplexity(
+                loaded, cfg32, head, batch_size=EVAL_BATCH, device=DEV), head, runs)
+        finally:
+            os.environ.pop("BITDISTILLER_TRAIN_FLASH", None)
+        r32 = runs["f32_config_flash"]
+        f32_gap = abs(r32["ppl"] - plain32) / plain32
+        r32.update(plain=plain32, rel_gap=f32_gap)
+        say(f"eval f32 config (B8's 3xTF32 forward, {EVAL_BATCH} blocks): ppl {r32['ppl']:.6f} "
+            f"vs plain f32 attention {plain32:.6f} (relative {f32_gap:.3g}, tol {F32_PPL_TOL}) in "
+            f"{r32['s']:.2f} s; launches {r32['launches']}")
+        l32 = r32["launches"]
+        if not (f32_gap <= F32_PPL_TOL and l32.get("train_attn_fwd") == cfg.num_layers
+                and not l32.get("train_attn_bwd_dkv") and not l32.get("train_attn_bwd_dq")):
+            raise AssertionError("eval f32 config: off the plain path, or not B8's forward alone")
+        rec.update(runs)
+        return runs
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ---- A13, the method check: the port's method_demo at the JAX script's defaults
+
+# RESULTS.md:42-43 (the JAX script on the TPU; shown beside, never as the port's)
+JAX_METHOD = {"teacher": 4.244,
+              "int2-g64": dict(rtn=317.034, clip=79.078, qat=13.806, packed=13.810),
+              "nf3-g64": dict(qat=4.782)}
+PACKED_TOL = 5e-3  # the packed row within 0.5% of the QAT row (one int2 grid)
+A8_ROW_TOL = 2e-2  # the W2A8 row within 2% of the packed row
+
+
+def method_phase(card: str, rec: dict) -> dict:
+    """The port's method_demo at the JAX script's defaults (Markov corpus,
+    1500 teacher steps at batch 32, 256 x 128 generated tokens, 400 QAT steps
+    at batch 16 a quant type, g64, 192 held-out blocks of 256), its launch
+    counts reset before and read after; gates on the table's shape."""
+    from bitdistiller_tpu_torch.scripts import method_demo
+
+    args = method_demo.build_parser().parse_args(
+        ["--device", DEV, "--out", str(OUT_DIR / "method_demo.md")])
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.time()
+    res = method_demo.run(args, log=lambda s: None)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = {k: v for k, v in read_counts().items() if v}
+    OUT_DIR.mkdir(exist_ok=True)
+    method_demo.replace_section(args.out, res["header"], "\n".join(res["lines"]))
+    rows = {r["label"]: r for r in res["rows"]}
+    i2, n3 = rows["int2-g64"], rows["nf3-g64"]
+    share = {k: method_demo.recovered(r, res["teacher"]) for k, r in rows.items()}
+    rec.update(teacher=res["teacher"], rows=res["rows"], seconds=res["seconds"], wall_s=wall,
+               launches=counts, recovered=share, teacher_steps=res["teacher_steps"],
+               qat_steps=res["qat_steps"], n_params=res["n_params"])
+    for line in res["lines"]:
+        if line.startswith("|") or line.startswith("Teacher"):
+            say(f"method {line}")
+    j = JAX_METHOD
+    say(f"method beside RESULTS.md:42-43 (the JAX script, not the port): teacher {j['teacher']}; "
+        f"int2-g64 RTN {j['int2-g64']['rtn']} +AutoClip {j['int2-g64']['clip']} +QAT "
+        f"{j['int2-g64']['qat']} packed {j['int2-g64']['packed']} (97% recovered); nf3-g64 QAT "
+        f"{j['nf3-g64']['qat']} (81%). The port: recovered "
+        + ", ".join(f"{k} {v:.0%}" for k, v in share.items()))
+    say(f"method seconds ({card}): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in res["seconds"].items())
+        + f"; total {wall:.1f} s; launches {counts}")
+    gates = {
+        "int2: RTN > +AutoClip > +QAT": i2["rtn"] > i2["clip"] > i2["qat"],
+        "nf3: QAT < RTN": n3["qat"] < n3["rtn"],
+        f"packed within {PACKED_TOL:.1%} of QAT": abs(i2["packed"] - i2["qat"]) <= PACKED_TOL * i2["qat"],
+        f"W2A8 within {A8_ROW_TOL:.0%} of packed":
+            abs(i2["packed_a8"] - i2["packed"]) <= A8_ROW_TOL * i2["packed"],
+    }
+    rec["gates"] = gates
+    say("method gates: " + ", ".join(f"{k}: {'pass' if v else 'FAIL'}" for k, v in gates.items()))
+    if not all(gates.values()):
+        raise AssertionError(f"method: a gate failed: {gates}")
+    if not all(counts.get(k, 0) > 0 for k in ("qmm_prefill", "qmm_a8_prefill", "flash_decode")):
+        raise AssertionError(f"method: the packed rows or the generation missed their kernels: "
+                             f"{counts}")
     return counts
 
 
@@ -2609,7 +2969,7 @@ def main() -> int:
 
     with Phase("serve_trained"):
         summary["serve_trained"] = {}
-        serve_trained_phase(master, tcfg, saved_dir, summary["serve_trained"])
+        loaded, packed = serve_trained_phase(master, tcfg, saved_dir, summary["serve_trained"])
         del master
         io = dict(summary["train"]["checkpoint_io"], reload_f32_s=summary["serve_trained"][
             "reload_f32_s"], gptq_export_s=summary["serve_trained"]["gptq_export_s"])
@@ -2618,6 +2978,17 @@ def main() -> int:
             f"{io['load_f32_s']:.3f} s, final f32 save {io['final_save_f32_s']:.3f} s "
             f"({io['final_save_bytes'] / 1e9:.3f} GB), reload {io['reload_f32_s']:.3f} s, GPTQ "
             f"export {io['gptq_export_s']:.3f} s")
+
+    with Phase("eval"):
+        summary["eval"] = {}
+        eval_runs = eval_phase(loaded, packed, tcfg, saved_dir, card, summary["eval"])
+        del loaded, packed
+        torch.cuda.empty_cache()
+
+    with Phase("method"):
+        summary["method"] = {}
+        method_counts = method_phase(card, summary["method"])
+        torch.cuda.empty_cache()
 
     # last, so that the earlier phases run in the same process state with or
     # without it (run before training, its 13 GB Falcon-7B build slowed the KD cycle)
@@ -2641,6 +3012,13 @@ def main() -> int:
         return dict({r["shape"]: times(r) for r in c6["matmul_times"] if r["kernel"] == kind},
                     path_launches=c6_model.get(kind, 0))
 
+    def eval_block(*kinds):  # the eval phase's launches of one kernel (and its prefill count), each run
+        return {name: {k: run["launches"].get(k, 0) for k in kinds} if len(kinds) > 1
+                else run["launches"].get(kinds[0], 0) for name, run in eval_runs.items()}
+
+    def method_block(*kinds):  # A13's launches (the method phase's whole run)
+        return {k: method_counts.get(k, 0) for k in kinds}
+
     def family_block(kind):  # the families phase's launches of one kernel, each run
         out = {f"{name} {tag}": run["launches"].get(kind, 0) for name, fam in fams.items()
                for tag, run in fam.items() if tag in ("A16", "A8")}
@@ -2658,14 +3036,16 @@ def main() -> int:
                      "kernel on clusters; max_abs_err relative to max|plain|; launches from the "
                      "A16 engine run",
                      bound_measured_bw_ms=dec["bound_measured_bw_ms"], g64=times(dec64),
-                     c6=c6_mm("qmm_decode"), families=family_block("qmm_decode")),
+                     c6=c6_mm("qmm_decode"), families=family_block("qmm_decode"),
+                     eval=eval_block("qmm_decode"), method=method_block("qmm_decode")),
         kernel_entry("qmm_prefill", "quant_matmul.cu", "bitdistiller_tpu/ops/quant_matmul.py:107",
                      counts["qmm_prefill"], mm_rel, pre,
                      "the same four, M=256 (x group sums + wgmma kernel; m4096: the engine's "
                      "first prefill shape); launches from the A16 engine run",
                      bound_measured_bw_ms=pre["bound_measured_bw_ms"], m4096=times(pre4k),
                      g64=times(pre64), c6=c6_mm("qmm_prefill"),
-                     families=family_block("qmm_prefill")),
+                     families=family_block("qmm_prefill"), eval=eval_block("qmm_prefill"),
+                     method=method_block("qmm_prefill")),
         kernel_entry("flash_decode", "decode_attention.cu",
                      "bitdistiller_tpu/ops/decode_attention.py:106", counts["flash_decode"],
                      at_err["stacked"], att,
@@ -2678,7 +3058,8 @@ def main() -> int:
                          "flash_decode"],
                      c6=dict({name: times(r) for name, r in c6["attention"].items()},
                              path_launches=c6_model["flash_decode"]),
-                     families=family_block("flash_decode")),
+                     families=family_block("flash_decode"), eval=eval_block("flash_decode"),
+                     method=method_block("flash_decode")),
         kernel_entry("qmm_a8", "quant_matmul_a8.cu", "bitdistiller_tpu/ops/quant_matmul.py:721",
                      counts_a8["qmm_a8"], a8_rel, a8_dec,
                      "one layer's four A8 matmuls (quantization included), M=8, int2-g128 "
@@ -2688,7 +3069,9 @@ def main() -> int:
                      bound_measured_bw_ms=a8_dec["bound_measured_bw_ms"],
                      m256=times(a8_pre), m4096=times(a8_pre4k),
                      prefill_launches=counts_a8["qmm_a8_prefill"], g64=times(a8_64),
-                     c6=c6_mm("qmm_a8"), families=family_block("qmm_a8")),
+                     c6=c6_mm("qmm_a8"), families=family_block("qmm_a8"),
+                     eval=eval_block("qmm_a8", "qmm_a8_prefill"),
+                     method=method_block("qmm_a8", "qmm_a8_prefill")),
         kernel_entry("fused_mlp", "fused_mlp.cu", "bitdistiller_tpu/experimental/fused_mlp.py:57",
                      mlp["launches"], mlp["max_abs_err"], mlp,
                      "7B MLP (K=4096, FFN=11008, D=4096), M=8, int2-g128, silu, two launches "
@@ -2765,6 +3148,7 @@ def main() -> int:
             **b8(kind, tl, plain, lib), work=b8_work
             + ("; plain_ms and library_ms are the whole backward (dq, dk, dv together)"
                if kind != "fwd" else ""),
+            eval=eval_block(name),
             llama2_7b=b8(kind, t7, plain, lib), d256=b8(kind, ta_times["d256"], plain, lib),
             d256_mqa=b8(kind, tm, plain, lib),
             **{c: b8(kind, ta_times[c], plain, lib) for c in F32_TIMED},

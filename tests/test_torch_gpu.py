@@ -491,3 +491,35 @@ def test_int_quantizers_give_the_cpu_bytes(gen, bits):
         got, want = quantize_pack_linear(w, bits, 64), quantize_pack_linear(wc, bits, 64)
         for name in ("qweight", "scales", "szeros"):
             assert torch.equal(getattr(got, name).cpu(), getattr(want, name))
+
+
+@pytest.mark.parametrize("a8", [False, True])
+def test_packed_perplexity_through_the_kernels_matches_plain(gen, a8, monkeypatch):
+    """The eval's perplexity of a small packed tree on the card: every packed
+    matmul of every block through B1 (A16) or B4's prefill kernel (A8),
+    counted, and the summed NLL within 1e-2 relative of use_kernels=False on
+    the same tree (bf16 outputs rounded after sums in another order)."""
+    import numpy as np
+
+    from bitdistiller_tpu_torch.eval.ppl import make_nll_fn, perplexity
+
+    cfg = dataclasses.replace(TINY_TEST, num_heads=4, num_kv_heads=2)
+    params = random_packed_params(cfg, bits=2, group_size=64, device="cuda")
+    ref = dict(params, layers=dict(params["layers"]))
+    for name, leaf in params["layers"].items():
+        if isinstance(leaf, PackedLinear):
+            s, sz = scales_from_combo(leaf.combo)
+            ref["layers"][name] = dataclasses.replace(leaf, scales=s, szeros=sz)
+    if a8:
+        monkeypatch.setenv(qm.A8_ENV, "1")
+        params = ref = qm.maybe_repack_a8(ref)
+    blocks = np.random.default_rng(0).integers(0, cfg.vocab_size, (5, 128))
+    counter, attr = (qm.qmm_a8, "prefill_launches") if a8 else (qm.qmm_prefill, "launches")
+    before = getattr(counter, attr)
+    ppl = perplexity(params, cfg, blocks, batch_size=2, device="cuda")
+    assert getattr(counter, attr) - before == 3 * cfg.num_layers * 4
+    assert np.isfinite(ppl)
+    tokens = torch.as_tensor(blocks, device="cuda")
+    k = make_nll_fn(cfg)(params, tokens).sum().item()
+    p = make_nll_fn(cfg, use_kernels=False)(ref, tokens).sum().item()
+    assert abs(k - p) <= 1e-2 * abs(p)

@@ -1,8 +1,9 @@
 """The port stands alone: importing every module of bitdistiller_tpu_torch and
 chip_smoke.py loads neither jax nor the JAX package, the HF checkpoint path
 runs with jax, the JAX package, safetensors, ml_dtypes and transformers all
-blocked, and so do AutoClip (its calibration blocks, search and cache) and
-teacher generation with `datasets` blocked too."""
+blocked, and so do AutoClip (its calibration blocks, search and cache),
+teacher generation, the CLI's `ppl --tokens_file`, the eval modules and the
+method check with `datasets` blocked too."""
 
 import os
 import re
@@ -27,7 +28,9 @@ assert len(names) >= 12, names
 for new in ("experimental.fused_mlp", "experimental.flash_decode", "scripts.bw_probe",
             "ops.train_attention", "quant.core", "quant.autoclip", "train.losses",
             "train.trainer", "train.data", "train.memory", "train.pipeline",
-            "data.offline", "data.calib", "generation.datasets", "generation.teacher"):
+            "data.offline", "data.calib", "generation.datasets", "generation.teacher",
+            "eval", "eval.ppl", "eval.tasks", "eval.gsm8k", "eval.humaneval", "eval.reasoning",
+            "cli", "scripts.method_demo"):
     assert "bitdistiller_tpu_torch." + new in names, names
 assert not bad, bad
 """
@@ -200,7 +203,8 @@ def test_no_module_imports_them_but_the_lazy_tokenizer():
     """A grep of every import line in the port and chip_smoke.py: the only
     ones of jax, the JAX package, safetensors, ml_dtypes, transformers or
     datasets are the tokenizer imports of run_training and
-    run_teacher_generation, made only when no tokenizer is given, and the
+    run_teacher_generation, made only when no tokenizer is given, the CLI's
+    `_load_tokenizer`, made only by the subcommands that tokenize, and the
     offline redirect's `datasets`, made only inside `load_dataset`."""
     pattern = re.compile(r"^\s*(from|import)\s+(jax|jaxlib|bitdistiller_tpu|safetensors|"
                          r"ml_dtypes|transformers|datasets)\b")
@@ -209,9 +213,86 @@ def test_no_module_imports_them_but_the_lazy_tokenizer():
         for line in path.read_text().splitlines():
             if pattern.match(line):
                 found.append((path.relative_to(ROOT).as_posix(), line.strip()))
-    assert found == [("bitdistiller_tpu_torch/data/offline.py", "import datasets"),
+    assert found == [("bitdistiller_tpu_torch/cli.py", "from transformers import AutoTokenizer"),
+                     ("bitdistiller_tpu_torch/data/offline.py", "import datasets"),
                      ("bitdistiller_tpu_torch/data/offline.py", "import datasets"),
                      ("bitdistiller_tpu_torch/generation/teacher.py",
                       "from transformers import AutoTokenizer"),
                      ("bitdistiller_tpu_torch/train/pipeline.py",
                       "from transformers import AutoTokenizer")], found
+
+
+# Stage 4 and the method check with the same modules blocked: the CLI's
+# `ppl --tokens_file` (no tokenizer), a perplexity, the task harness on a
+# byte tokenizer, the generative scoring and a few steps of method_demo; the
+# CLI's tokenizing subcommands reach for transformers and raise.
+_EVAL_BLOCKED = """
+import importlib.abc, io, json, contextlib, sys, tempfile, types
+from pathlib import Path
+
+BLOCK = {"jax", "jaxlib", "bitdistiller_tpu", "safetensors", "ml_dtypes", "transformers",
+         "datasets"}
+
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path, target=None):
+        if name.split(".")[0] in BLOCK:
+            raise ImportError(name + " is blocked")
+        return None
+
+
+sys.meta_path.insert(0, Block())
+import numpy as np
+import torch
+torch.set_num_threads(1)  # tiny shapes; the suite runs several workers
+from bitdistiller_tpu_torch import cli
+from bitdistiller_tpu_torch.eval import (LogLikelihoodFn, MCDoc, evaluate_task, grade,
+                                         perplexity, postprocess_completion, prepare_blocks)
+from bitdistiller_tpu_torch.models import TINY_TEST, init_params
+from bitdistiller_tpu_torch.models.hf_import import save_hf_checkpoint
+from bitdistiller_tpu_torch.scripts import method_demo
+
+
+class Tok:
+    def encode(self, s):
+        return [(ord(c) % 250) + 3 for c in s]
+
+
+d = Path(tempfile.mkdtemp())
+params = init_params(TINY_TEST, seed=0, device="cpu")
+save_hf_checkpoint(params, TINY_TEST, str(d / "m"))
+np.save(d / "t.npy", np.arange(256, dtype=np.int32) % 200)
+out = io.StringIO()
+with contextlib.redirect_stdout(out), contextlib.redirect_stderr(io.StringIO()):
+    cli.main(["ppl", "--model_path", str(d / "m"), "--tokens_file", str(d / "t.npy"),
+              "--seqlen", "64", "--device", "cpu"])
+assert out.getvalue().strip().startswith("ppl: "), out.getvalue()
+try:
+    cli.main(["ppl", "--model_path", str(d / "m"), "--seqlen", "64", "--device", "cpu"])
+    raise SystemExit("ppl without --tokens_file did not import transformers")
+except ImportError as e:
+    assert "transformers is blocked" in str(e), e
+ppl = perplexity(params, TINY_TEST, prepare_blocks(np.arange(128) % 200, 32), device="cpu")
+fn = LogLikelihoodFn(params, TINY_TEST, Tok(), max_len=64, device="cpu")
+res = evaluate_task(fn, [MCDoc("the sky is", [" blue", " green"], 0)])
+assert res["n"] == 1 and np.isfinite(ppl)
+assert grade(["#### 3"], ["#### 3"])["accuracy"] == 1.0
+assert postprocess_completion("```python\\nx = 1\\n```") == "x = 1\\n"
+with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(io.StringIO()):
+    method_demo.main(["--device", "cpu", "--layers", "1", "--teacher-steps", "2",
+                      "--qat-steps", "1", "--gen-samples", "2", "--gen-tokens", "2",
+                      "--eval-blocks", "2", "--batch", "2", "--qat-batch", "2",
+                      "--out", str(d / "demo.md")])
+assert "| int2-g64 |" in (d / "demo.md").read_text()
+bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCK)
+assert not bad, bad
+print("ok")
+"""
+
+
+def test_eval_cli_and_method_demo_run_with_those_modules_blocked():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    res = subprocess.run([sys.executable, "-c", _EVAL_BLOCKED], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0 and res.stdout.strip().endswith("ok"), res.stdout + res.stderr
