@@ -1,20 +1,23 @@
-"""The port's CLI, evaluation subcommands (the JAX package's `cli.py` for
-`ppl`, `eval`, `gsm8k`, `humaneval` and `reasoning`: the same flags and the
-same printed output):
+"""The port's CLI (the JAX package's `cli.py` for the subcommands below:
+the same flags and the same printed output, plus `--device`):
 
     python -m bitdistiller_tpu_torch.cli <subcommand> [--device cuda|cpu] ...
 
 Subcommands:
   ppl       — WikiText-2 perplexity eval (`--tokens_file` needs no tokenizer)
+  pack      — quantize + pack a checkpoint for serving
+  chat      — interactive packed-model chat
+  serve     — JSON-over-HTTP online serving (continuous batching)
   eval      — MMLU/ARC/HellaSwag/PIQA/Winogrande/BoolQ loglikelihood tasks
   gsm8k     — generative GSM8K accuracy
   humaneval — generative HumanEval pass@1
   reasoning — AIME/MATH-500/GPQA-style generative evals
 
 `--device` (default `cuda`) chooses where the model runs; without a card the
-default raises. The method-stage subcommands (autoclip, generate, train,
-pack, export_gptq, mix_data) and serve, chat and bench are not registered
-here (ROADMAP A12, A3, A1).
+default raises. The tokenizer comes from the checkpoint through
+`transformers` (except `ppl --tokens_file` and `pack`). The method-stage
+subcommands (autoclip, generate, train, export_gptq, mix_data) and bench are
+not registered here (ROADMAP A12, A1).
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+import time
 
 
 def _load_model(path: str, dtype_str: str = "bfloat16", device="cuda"):
@@ -75,6 +79,103 @@ def cmd_ppl(args):
     print(f"\nppl: {ppl:.4f}")
 
 
+def _cache_dtype(name: str):
+    import torch
+
+    return torch.int8 if name == "int8" else torch.bfloat16
+
+
+def cmd_pack(args):
+    from .models.quantized import pack_model, save_packed_checkpoint
+
+    params, cfg = _load_model(args.model_path, device=args.device)
+    packed = pack_model(params, cfg, bits=args.w_bit, group_size=args.q_group_size)
+    save_packed_checkpoint(args.output, packed, cfg, bits=args.w_bit, group_size=args.q_group_size)
+    print(f"packed checkpoint saved to {args.output}")
+
+
+def cmd_serve(args):
+    from .serve import Engine, SamplingParams
+    from .serve.server import ServingFrontend
+
+    tok = _load_tokenizer(args.model_path)
+    if args.load_quant:
+        from .models.quantized import load_packed_checkpoint
+
+        params, cfg = load_packed_checkpoint(args.load_quant, device=args.device)
+    else:
+        params, cfg = _load_model(args.model_path, device=args.device)
+    eng = Engine(
+        params, cfg,
+        max_slots=args.max_batch_size,
+        max_len=args.max_seq_len,
+        sampling=SamplingParams(temperature=args.temperature, top_p=args.top_p),
+        eos_token_id=tok.eos_token_id,
+        cache_dtype=_cache_dtype(args.kv_dtype),
+        decode_horizon=args.decode_horizon,
+        prompt_cache_size=args.prompt_cache_size,
+        prompt_cache_bytes=(int(args.prompt_cache_gb * (1 << 30))
+                            if args.prompt_cache_gb else None),
+        spec_decode=args.spec_decode,
+        spec_ngram=args.spec_ngram,
+        device=args.device,
+    )
+    if args.warmup:
+        print("warming the engine...", flush=True)
+        eng.warmup(verbose=print)
+    front = ServingFrontend(eng, tok, host=args.host, port=args.port,
+                            template=args.template)
+    import signal
+
+    # graceful drain: in-flight requests finish, then the engine loop exits
+    signal.signal(signal.SIGTERM, lambda *_: front.shutdown())
+    signal.signal(signal.SIGINT, lambda *_: front.shutdown())
+    print(f"serving on http://{front.address[0]}:{front.address[1]} "
+          f"({args.max_batch_size} slots, max_len {args.max_seq_len})", flush=True)
+    front.serve_forever()
+
+
+def cmd_chat(args):
+    from .models.quantized import load_packed_checkpoint
+    from .serve import Engine, Request, SamplingParams
+    from .utils.prompts import render_prompt
+
+    params, cfg = load_packed_checkpoint(args.load_quant, device=args.device)
+    tok = _load_tokenizer(args.model_path)
+    eng = Engine(
+        params,
+        cfg,
+        max_slots=args.max_batch_size,
+        max_len=args.max_seq_len,
+        sampling=SamplingParams(
+            temperature=args.temperature, top_p=args.top_p, top_k=args.top_k,
+            repetition_penalty=args.repetition_penalty,
+        ),
+        eos_token_id=tok.eos_token_id,
+        cache_dtype=_cache_dtype(args.kv_dtype),
+        spec_decode=args.spec_decode,
+        device=args.device,
+    )
+    print("chat ready (ctrl-d to exit)")
+    while True:
+        try:
+            user = input("USER: ")
+        except EOFError:
+            break
+        ids = tok.encode(render_prompt(args.template, user))
+
+        def stream(t):
+            print(tok.decode([t]), end="", flush=True)
+
+        print("ASSISTANT: ", end="", flush=True)
+        t0 = time.time()
+        req = Request(prompt_tokens=ids, max_new_tokens=args.max_new_tokens, stream=stream)
+        eng.run([req])
+        dt = time.time() - t0
+        n = max(len(req.output_tokens), 1)
+        print(f"\n[{n} tokens, {dt/n*1e3:.1f} ms/token]")
+
+
 def _engine_for_eval(args):
     from .serve import Engine, SamplingParams
 
@@ -90,6 +191,8 @@ def _engine_for_eval(args):
         sampling=SamplingParams(temperature=args.temperature),
         eos_token_id=tok.eos_token_id,
         decode_horizon=16,
+        # math/code generations are repetitive: n-gram drafting pays there
+        spec_decode=args.spec_decode,
         device=args.device,
     )
     return eng, tok
@@ -131,7 +234,8 @@ def cmd_eval(args):
         eng = Engine(
             params, cfg, max_slots=min(args.batch_size, 8),
             max_len=2048, sampling=SamplingParams(temperature=0.0),
-            eos_token_id=getattr(tok, "eos_token_id", None), device=args.device,
+            eos_token_id=getattr(tok, "eos_token_id", None),
+            spec_decode=args.spec_decode, device=args.device,
         )
         gen_fn = GreedyUntilFn(eng, tok, max_new_tokens=args.max_new_tokens)
         results.update(run_gen_tasks(gen_fn, gen_names, limit=args.limit))
@@ -172,6 +276,13 @@ def _device_flag(p):
                    "card) or cpu (the plain PyTorch path)")
 
 
+def _spec_flag(p):
+    p.add_argument("--spec_decode", action="store_true",
+                   help="n-gram speculative decoding: draft from each slot's own "
+                   "history, verify k+1 tokens a forward (exact sampling; wins on "
+                   "repetitive text such as math and code)")
+
+
 def build_parser():
     p = argparse.ArgumentParser(prog="bitdistiller_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -190,6 +301,63 @@ def build_parser():
     _device_flag(pp)
     pp.set_defaults(fn=cmd_ppl)
 
+    pk = sub.add_parser("pack", help="quantize+pack for serving")
+    pk.add_argument("--model_path", required=True)
+    pk.add_argument("--w_bit", type=int, default=2)
+    pk.add_argument("--q_group_size", type=int, default=128)
+    pk.add_argument("--output", required=True)
+    pk.add_argument("--device", default="cuda",
+                    help="where the weights are loaded and packed: cuda (the "
+                    "default; PyTorch's packer on the card) or cpu (the C++ host "
+                    "packer)")
+    pk.set_defaults(fn=cmd_pack)
+
+    sv = sub.add_parser("serve", help="JSON-over-HTTP online serving")
+    sv.add_argument("--model_path", required=True, help="tokenizer source / HF dir")
+    sv.add_argument("--load_quant", default=None, help="packed checkpoint dir")
+    sv.add_argument("--host", default="127.0.0.1")
+    sv.add_argument("--port", type=int, default=8000)
+    sv.add_argument("--max_batch_size", "--max_slots", dest="max_batch_size",
+                    type=int, default=8)
+    sv.add_argument("--max_seq_len", type=int, default=2048)
+    sv.add_argument("--temperature", type=float, default=0.7)
+    sv.add_argument("--top_p", type=float, default=0.95)
+    sv.add_argument("--decode_horizon", type=int, default=16)
+    sv.add_argument("--kv_dtype", choices=["bf16", "int8"], default="bf16")
+    sv.add_argument("--template", default="raw",
+                    help="prompt template for /v1/chat/completions")
+    sv.add_argument("--warmup", action="store_true",
+                    help="run every admission size, horizon and cache bucket once "
+                    "before accepting traffic")
+    _spec_flag(sv)
+    sv.add_argument("--spec_ngram", type=int, default=2,
+                    help="context gram length for the draft lookup")
+    sv.add_argument("--prompt_cache_gb", type=float, default=0.0,
+                    help="device-memory budget of the prompt cache (LRU eviction "
+                    "past it); 0 = entry-count cap only")
+    sv.add_argument("--prompt_cache_size", type=int, default=0,
+                    help="LRU entries of prompt-prefill KV kept on the device; "
+                    "requests with cache_prompt=true skip prefill on repeat")
+    _device_flag(sv)
+    sv.set_defaults(fn=cmd_serve)
+
+    ch = sub.add_parser("chat", help="interactive chat on a packed model")
+    ch.add_argument("--model_path", required=True, help="tokenizer source")
+    ch.add_argument("--load_quant", required=True, help="packed checkpoint dir")
+    ch.add_argument("--template", default="llama2")
+    ch.add_argument("--max_seq_len", type=int, default=2048)
+    ch.add_argument("--max_batch_size", type=int, default=1)
+    ch.add_argument("--max_new_tokens", type=int, default=512)
+    ch.add_argument("--temperature", type=float, default=0.7)
+    ch.add_argument("--top_p", type=float, default=0.95)
+    ch.add_argument("--top_k", type=int, default=0)
+    ch.add_argument("--repetition_penalty", type=float, default=1.0)
+    _spec_flag(ch)
+    ch.add_argument("--kv_dtype", choices=["bf16", "int8"], default="bf16",
+                    help="int8 = quantized KV cache (halves decode KV traffic)")
+    _device_flag(ch)
+    ch.set_defaults(fn=cmd_chat)
+
     ev = sub.add_parser("eval", help="task accuracy eval (mmlu/arc/hellaswag/...)")
     ev.add_argument("--model_path", required=True)
     ev.add_argument("--tasks", default="arc_challenge,winogrande,hellaswag,piqa",
@@ -203,6 +371,7 @@ def build_parser():
                     help="MMLU few-shot exemplars (llm_eval.py parity)")
     ev.add_argument("--max_new_tokens", type=int, default=256,
                     help="generative (greedy_until) tasks: generation budget")
+    _spec_flag(ev)
     _device_flag(ev)
     ev.set_defaults(fn=cmd_eval)
 
@@ -214,6 +383,7 @@ def build_parser():
     gs.add_argument("--max_new_tokens", type=int, default=512)
     gs.add_argument("--max_batch", type=int, default=8)
     gs.add_argument("--limit", type=int, default=None)
+    _spec_flag(gs)
     _device_flag(gs)
     gs.set_defaults(fn=cmd_gsm8k)
 
@@ -225,6 +395,7 @@ def build_parser():
     he.add_argument("--max_new_tokens", type=int, default=512)
     he.add_argument("--max_batch", type=int, default=8)
     he.add_argument("--limit", type=int, default=None)
+    _spec_flag(he)
     _device_flag(he)
     he.set_defaults(fn=cmd_humaneval)
 
@@ -238,6 +409,7 @@ def build_parser():
     rs.add_argument("--max_batch", type=int, default=8)
     rs.add_argument("--n_samples", type=int, default=1, help="majority-vote ensembling")
     rs.add_argument("--limit", type=int, default=None)
+    _spec_flag(rs)
     _device_flag(rs)
     rs.set_defaults(fn=cmd_reasoning)
     return p

@@ -5,6 +5,7 @@ from .quantized import (
     pack_model,
     params_from_numpy,
     random_packed_params,
+    save_packed_checkpoint,
     train_state_from_numpy,
 )
 
@@ -23,5 +24,6 @@ __all__ = [
     "params_from_numpy",
     "quantize_kv",
     "random_packed_params",
+    "save_packed_checkpoint",
     "train_state_from_numpy",
 ]

@@ -3,21 +3,25 @@ package's `models/quantized.py`).
 
 Every decoder linear becomes a stacked `PackedLinear` (int32 pair-layout
 codes, group scales/zeros and their combo words); embeddings, norms and the
-lm_head stay dense. `load_packed_checkpoint` reads the JAX package's
-artifact (`packed.npz` + `quant_config.json`) byte for byte, and
-`params_from_numpy` takes a JAX param tree (dense or packed) handed over as
-numpy arrays, and `train_state_from_numpy` a JAX TrainState.
+lm_head stay dense. `save_packed_checkpoint` writes the packed artifact
+(`packed.npz`, the JAX package's keys and arrays, + `quant_config.json`,
+which holds every ModelConfig field, so that every family reloads as
+itself); `load_packed_checkpoint` reads it and the JAX package's own files
+(15 config fields, the rest at their defaults). `params_from_numpy` takes a
+JAX param tree (dense or packed) handed over as numpy arrays, and
+`train_state_from_numpy` a JAX TrainState.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 
 import numpy as np
 import torch
 
-from .._device import resolve_device, torch_dtype
+from .._device import on_card, resolve_device, torch_dtype
 from ..quant.packing import PackedLinear, make_scale_combo, quantize_pack_linear
 from .config import ModelConfig
 from .llama import LAYER_LINEARS
@@ -25,11 +29,30 @@ from .llama import LAYER_LINEARS
 _PACKED_FIELDS = ("qweight", "scales", "szeros", "bias", "__meta")
 
 
-def _pack_stacked(w: torch.Tensor, bits: int, group_size: int, bias=None) -> PackedLinear:
-    """Quantize+pack a stacked [L, K, N] dense weight, layer by layer; a
-    bias [L, N] rides along unchanged."""
+def _pack_native(w: torch.Tensor, bits: int, group_size: int) -> PackedLinear:
+    """One [K, N] layer through the C++ host packer (quant/native.py); the
+    arrays come back on w's device."""
+    from ..quant.native import quantize_pack_native
+
+    k = w.shape[0]
+    qw, s, sz = (torch.from_numpy(a).to(w.device) for a in quantize_pack_native(
+        w.to(torch.float32).cpu().numpy(), bits, group_size))
+    return PackedLinear(qweight=qw, scales=s, szeros=sz, bias=None, bits=bits,
+                        group_size=group_size if group_size > 0 else k, in_features=k,
+                        out_features=w.shape[1], combo=make_scale_combo(s, sz))
+
+
+def _pack_stacked(w: torch.Tensor, bits: int, group_size: int, bias=None,
+                  native: bool = False) -> PackedLinear:
+    """Quantize+pack a stacked [L, K, N] dense weight, layer by layer
+    (through the C++ packer where `native`); a bias [L, N] rides along
+    unchanged."""
     L, k, n = w.shape
-    layers = [quantize_pack_linear(w[i].to(torch.float32), bits, group_size) for i in range(L)]
+    if native:
+        layers = [_pack_native(w[i], bits, group_size) for i in range(L)]
+    else:
+        layers = [quantize_pack_linear(w[i].to(torch.float32), bits, group_size)
+                  for i in range(L)]
     stack = lambda name: torch.stack([getattr(p, name) for p in layers])
     return PackedLinear(
         qweight=stack("qweight"), scales=stack("scales"), szeros=stack("szeros"),
@@ -48,8 +71,14 @@ def pack_model(params: dict, cfg: ModelConfig, bits: int, group_size: int = 128)
     along N, where every part is present and none has a bias (groups run
     along K, so the statistics are those of the unfused layout); every
     other linear is packed alone with its bias (Qwen2's q/k/v, a plain
-    MLP's up and down). Same words as the JAX package's."""
+    MLP's up and down). Same words as the JAX package's.
+
+    Weights on the CPU go through the C++ host packer (quant/native.py:
+    bit-equal, every core, several times PyTorch's CPU packer at 7B
+    widths), weights on the card through PyTorch's packer. A host packer
+    that fails to build raises."""
     layers = params["layers"]
+    native = not any(on_card(layers[name]["w"]) for name in LAYER_LINEARS if name in layers)
     out_layers = dict(layers)
     todo = [name for name in LAYER_LINEARS if name in layers]
     for fused, parts in _FUSED:
@@ -57,14 +86,14 @@ def pack_model(params: dict, cfg: ModelConfig, bits: int, group_size: int = 128)
                                                       for p in parts):
             continue
         w = torch.cat([layers[p]["w"] for p in parts], dim=-1)
-        out_layers[fused] = _pack_stacked(w, bits, group_size)
+        out_layers[fused] = _pack_stacked(w, bits, group_size, native=native)
         del w
         for p in parts:
             del out_layers[p]
             todo.remove(p)
     for name in todo:
         leaf = layers[name]
-        out_layers[name] = _pack_stacked(leaf["w"], bits, group_size, leaf.get("b"))
+        out_layers[name] = _pack_stacked(leaf["w"], bits, group_size, leaf.get("b"), native)
     return dict(params, layers=out_layers)
 
 
@@ -161,14 +190,67 @@ def params_from_numpy(tree, device="cuda"):
     return _tensor(np.asarray(tree), dev)
 
 
+def _host_array(t: torch.Tensor) -> np.ndarray:
+    """A leaf as the JAX package's file stores it: integers as they are,
+    floats (bf16 included) as float32."""
+    t = t.detach().cpu()
+    if t.is_floating_point():
+        t = t.to(torch.float32)
+    return t.numpy()
+
+
+def save_packed_checkpoint(path, packed_params: dict, cfg: ModelConfig, *, bits: int,
+                           group_size: int) -> None:
+    """Write a packed tree + its config to a directory: `packed.npz` with the
+    JAX package's keys and arrays ("a/b/c" paths; a PackedLinear as
+    qweight, scales, szeros, its bias and `__meta` [bits, group, K, N];
+    floats as float32) and `quant_config.json` with bits, group_size and
+    EVERY ModelConfig field (the JAX package writes 15 of them, which drops
+    the family flags; its loader reads this file too). A tree repacked for
+    the A8 kernel is refused: the file holds pair-layout words."""
+    os.makedirs(path, exist_ok=True)
+    flat = {}
+
+    def put(prefix, leaf):
+        if isinstance(leaf, PackedLinear):
+            if leaf.a8_order:
+                raise ValueError(f"{prefix}: A8-ordered words; save the pair-layout tree")
+            flat[f"{prefix}/qweight"] = _host_array(leaf.qweight)
+            flat[f"{prefix}/scales"] = _host_array(leaf.scales)
+            flat[f"{prefix}/szeros"] = _host_array(leaf.szeros)
+            if leaf.bias is not None:
+                flat[f"{prefix}/bias"] = _host_array(leaf.bias)
+            flat[f"{prefix}/__meta"] = np.asarray(
+                [leaf.bits, leaf.group_size, leaf.in_features, leaf.out_features])
+        elif isinstance(leaf, dict):
+            for k, v in leaf.items():
+                put(f"{prefix}/{k}", v)
+        else:
+            flat[prefix] = _host_array(leaf)
+
+    for k, v in packed_params.items():
+        put(k, v)
+    np.savez(os.path.join(path, "packed.npz"), **flat)
+    meta = {"bits": bits, "group_size": group_size, "config": dataclasses.asdict(cfg)}
+    with open(os.path.join(path, "quant_config.json"), "w") as f:
+        json.dump(meta, f, indent=2)
+
+
+def _config_from_json(fields: dict) -> ModelConfig:
+    """A ModelConfig from quant_config.json's "config": JSON lists back to
+    the tuples the config holds (sliding_layers, the longrope tables);
+    absent fields at their defaults."""
+    return ModelConfig(**{k: tuple(v) if isinstance(v, list) else v for k, v in fields.items()})
+
+
 def load_packed_checkpoint(path, device="cuda"):
-    """Read a packed checkpoint directory written by the JAX package's
-    `save_packed_checkpoint` -> (params, cfg). Float leaves take the config's
+    """Read a packed checkpoint directory (the port's `save_packed_checkpoint`
+    or the JAX package's) -> (params, cfg). Float leaves take the config's
     dtype; packed codes and scales are read as stored."""
     dev = resolve_device(device)
     with open(os.path.join(path, "quant_config.json")) as f:
         meta = json.load(f)
-    cfg = ModelConfig(**meta["config"])
+    cfg = _config_from_json(meta["config"])
     dtype = torch_dtype(cfg.dtype)
     tree: dict = {}
     packed: dict = {}

@@ -18,10 +18,14 @@ The table goes to `--out` (default chiprun_out/method_demo.md; its section
 rewritten, the rest of the file kept) and to stdout, followed by one JSON
 line of the rows. The corpus is the JAX script's array for array; the
 weights, the batches' order aside, come from torch generators, so the
-numbers land near the JAX script's, not on them. Not ported: the
-speculative-decoding bench (`--spec-bench`, `--spec-only`) and the teacher
-pickle (`--teacher-ckpt`), which wait for the engine's n-gram drafting
-(ROADMAP A3).
+numbers land near the JAX script's, not on them.
+
+`--spec-bench` also runs n-gram speculative decoding on held-out prompts
+through the packed int2 teacher (seven engine variants: plain, fixed
+(n-gram, k) points and the adaptive policy, greedy) and writes its section
+to `--out` too; `--spec-only` stops after it. `--teacher-ckpt PATH` loads
+the teacher from a pickle of float32 numpy leaves if PATH exists, else
+trains it and saves it there.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ import argparse
 import glob
 import json
 import os
+import pickle
 import sys
 import sysconfig
 import time
@@ -44,6 +49,7 @@ from ..ops.quant_matmul import A8_ENV, maybe_repack_a8
 from ..quant.autoclip import run_autoclip
 from ..quant.core import fake_quant_int_kaxis, fake_quant_nf3_kaxis
 from ..serve import Engine, SamplingParams
+from ..serve.engine import SPEC_STEP_COST
 from ..train.trainer import (
     TrainConfig,
     estimate_cakld_beta,
@@ -185,6 +191,111 @@ def kd_qat(cfg, student_init, teacher, gen_pairs, quant_type, gsize, steps, bs, 
     return master_params(state)
 
 
+SPEC_VARIANTS = (  # (name, Engine keywords; None: the plain engine)
+    ("plain", None),
+    ("ng2k4", dict(spec_decode=True, spec_adaptive_k=False, spec_ngram=2, spec_k=4)),
+    ("ng3k4", dict(spec_decode=True, spec_adaptive_k=False, spec_ngram=3, spec_k=4)),
+    ("ng3k7", dict(spec_decode=True, spec_adaptive_k=False, spec_ngram=3, spec_k=7)),
+    ("ng3k11", dict(spec_decode=True, spec_adaptive_k=False, spec_ngram=3, spec_k=11)),
+    ("adaptive", dict(spec_decode=True, spec_ngram=2, spec_k=4)),
+    ("adapt+bko", dict(spec_decode=True, spec_ngram=2, spec_k=4, spec_ngram_backoff=True)),
+)
+
+
+def spec_bench(params, cfg, eval_blocks, log, device="cuda") -> dict:
+    """Greedy generation on held-out prompts (the first 64 tokens of 16
+    eval blocks): the plain engine against n-gram speculative decoding,
+    each variant once untimed and once timed (the engine's acceptance
+    counters cover the timed pass). Returns {variant: {tok_s, outs, accept,
+    k, rounds, the cache length reached, and the timed pass's decode steps
+    and verify forwards by k}} and "prompts"; greedy agreement with plain
+    is reported, not asserted (a bf16 argmax near a tie can flip between
+    S = k + 1 and S = 1 forwards)."""
+    prompts = [list(map(int, b[:64])) for b in eval_blocks[:16]]
+    max_new = min(256, SEQ - 64 - 2)  # fits the engine's max_len
+    res: dict = {}
+    for mode, kw in SPEC_VARIANTS:
+        eng = Engine(params, cfg, max_slots=16, max_len=SEQ,
+                     sampling=SamplingParams(temperature=0.0), eos_token_id=None,
+                     decode_horizon=16, device=device, **(kw or {}))
+        eng.generate(prompts, max_new_tokens=max_new)
+        eng.spec_tokens = eng.spec_rounds = 0
+        steps0, forwards0 = eng.decode_steps, dict(eng.spec_forwards)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t0 = time.time()
+        outs = eng.generate(prompts, max_new_tokens=max_new)
+        dt = time.time() - t0
+        toks = sum(len(o) for o in outs)
+        acc = eng.spec_tokens / max(eng.spec_rounds, 1)
+        k = None if kw is None else eng._spec_k_last
+        res[mode] = {"tok_s": toks / dt, "outs": outs, "accept": acc, "k": k,
+                     "rounds": eng.spec_rounds, "decode_steps": eng.decode_steps - steps0,
+                     "cache_len": eng._cache_len(),
+                     "spec_forwards": {kk: n - forwards0.get(kk, 0)
+                                       for kk, n in eng.spec_forwards.items()}}
+        log(f"  {mode}: {toks / dt:.0f} tok/s"
+            + (f", {acc:.2f}/{k + 1} tokens per verify round (k ends at {k})" if kw else ""))
+    for mode, kw in SPEC_VARIANTS[1:]:
+        same = sum(a == b for a, b in zip(res[mode]["outs"], res["plain"]["outs"]))
+        res[mode]["agree"] = same
+        log(f"  {mode} greedy agreement: {same}/{len(prompts)} sequences")
+    res["prompts"] = prompts
+    return res
+
+
+def spec_section(res: dict, model_desc: str, device_name: str) -> tuple[str, list]:
+    """The spec bench's markdown section: (header, lines)."""
+    header = "## Speculative decoding on held-out text (the port)"
+    lines = [
+        header,
+        "",
+        f"n-gram drafting over held-out prompts through {model_desc}, greedy, on "
+        f"{device_name}: the `Engine(spec_decode=True)` serving path, acceptance from the",
+        "engine's spec_tokens / spec_rounds over the timed pass. `est x` is the",
+        f"acceptance over a verify cost of (1 + {SPEC_STEP_COST} k) plain steps, the engine's",
+        "SPEC_STEP_COST model; `tok/s` is this run's host clock.",
+        "",
+        "| engine | spec_k | accepted/round (of k+1) | est x | tok/s | agrees with plain |",
+        "|---|---|---|---|---|---|",
+    ]
+    n = len(res["prompts"])
+    for mode, _ in SPEC_VARIANTS:
+        r = res[mode]
+        if mode == "plain":
+            lines.append(f"| plain | — | — | 1.00x | {r['tok_s']:.0f} | — |")
+        else:
+            est = r["accept"] / (1 + SPEC_STEP_COST * r["k"])
+            lines.append(f"| {mode} | {r['k']} | {r['accept']:.2f}/{r['k'] + 1} | {est:.2f}x "
+                         f"| {r['tok_s']:.0f} | {r['agree']}/{n} |")
+    lines.append("")
+    return header, lines
+
+
+def load_teacher(path: str, device) -> dict:
+    """A teacher pickled by this script (or the JAX script): nested dicts of
+    float32 numpy leaves, taken as bf16 on `device`."""
+    with open(path, "rb") as f:
+        host = pickle.load(f)
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        return torch.from_numpy(np.asarray(node, np.float32)).to(device, torch.bfloat16)
+
+    return walk(host)
+
+
+def save_teacher(params: dict, path: str) -> None:
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        return node.detach().to(torch.float32).cpu().numpy()
+
+    with open(path, "wb") as f:
+        pickle.dump(walk(params), f)
+
+
 def replace_section(path: str, header: str, section: str):
     """Idempotently (re)write one `## ...` section of a markdown file,
     preserving everything else (missing file/section -> append)."""
@@ -231,21 +342,23 @@ def build_parser():
     ap.add_argument("--out", default=DEFAULT_OUT)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--spec-bench", action="store_true",
-                    help="not ported: waits for n-gram speculative decoding (ROADMAP A3)")
+                    help="also measure n-gram speculative decoding on held-out prompts "
+                    "through the packed int2 teacher")
     ap.add_argument("--spec-only", action="store_true",
-                    help="not ported: waits for n-gram speculative decoding (ROADMAP A3)")
+                    help="train the teacher, run the spec bench, skip the quantization "
+                    "pipeline")
     ap.add_argument("--teacher-ckpt", default=None,
-                    help="not ported: the teacher pickle serves the spec bench (ROADMAP A3)")
+                    help="pickle path: load the teacher from it if present, else train "
+                    "and save it there")
     return ap
 
 
 def run(args, log=lambda s: print(s, file=sys.stderr, flush=True)) -> dict:
     """The pipeline for the parsed `args`: {"teacher": ppl, "rows": [...],
-    "seconds": {stage: s}, "lines": the table's markdown lines, ...}."""
+    "seconds": {stage: s}, "lines": the table's markdown lines, "spec": the
+    spec bench's results (with its "lines" and the packed "params") or
+    None, ...}. With --spec-only the rows and lines are empty."""
     global SEQ
-    if args.spec_bench or args.spec_only or args.teacher_ckpt:
-        raise SystemExit("--spec-bench, --spec-only and --teacher-ckpt wait for the "
-                         "engine's n-gram speculative decoding (ROADMAP A3)")
     if os.path.basename(os.path.normpath(args.out)) == RESERVED_OUT:
         raise SystemExit(f"--out {args.out}: the port's demo never writes {RESERVED_OUT}")
     device = resolve_device(args.device)
@@ -287,9 +400,16 @@ def run(args, log=lambda s: print(s, file=sys.stderr, flush=True)) -> dict:
     calib_blocks = train_blocks[:16]
     lap("corpus")
 
-    log(f"training teacher ({args.teacher_steps} steps)...")
-    teacher = train_teacher(cfg, train_blocks, args.teacher_steps, args.batch, log,
-                            lr=1e-3 if args.corpus == "source" else 3e-3, device=device)
+    if args.teacher_ckpt and os.path.exists(args.teacher_ckpt):
+        log(f"loading teacher from {args.teacher_ckpt}...")
+        teacher = load_teacher(args.teacher_ckpt, device)
+    else:
+        log(f"training teacher ({args.teacher_steps} steps)...")
+        teacher = train_teacher(cfg, train_blocks, args.teacher_steps, args.batch, log,
+                                lr=1e-3 if args.corpus == "source" else 3e-3, device=device)
+        if args.teacher_ckpt:
+            save_teacher(teacher, args.teacher_ckpt)
+            log(f"teacher saved to {args.teacher_ckpt}")
     lap("teacher")
     n_params = sum(x.numel() for x in tree_leaves(teacher))
 
@@ -301,6 +421,23 @@ def run(args, log=lambda s: print(s, file=sys.stderr, flush=True)) -> dict:
 
     teacher_ppl = ppl(teacher)
     log(f"teacher ppl {teacher_ppl:.4f} ({n_params/1e6:.1f}M params)")
+
+    spec = None
+    if args.spec_bench or args.spec_only:
+        # the PACKED teacher (int2 RTN, fused qkv/gate_up): the serving artifact
+        log("spec-decode bench on held-out prompts (packed model)...")
+        spec_params = pack_model(teacher, cfg, bits=2, group_size=G)
+        spec = spec_bench(spec_params, cfg, eval_blocks, log, device=device)
+        lap("spec")
+        dev_name = (torch.cuda.get_device_name(device) if device.type == "cuda"
+                    else "the CPU")
+        spec["header"], spec["lines"] = spec_section(
+            spec, f"the int2-g{G} packed {n_params / 1e6:.1f}M decoder", dev_name)
+        spec["params"] = spec_params
+        if args.spec_only:
+            return dict(teacher=teacher_ppl, rows=[], seconds=seconds, lines=[], header=None,
+                        n_params=n_params, group_size=G, teacher_steps=args.teacher_steps,
+                        qat_steps=args.qat_steps, spec=spec, cfg=cfg)
 
     prompts = train_blocks[np.random.default_rng(3).integers(0, len(train_blocks),
                                                              args.gen_samples)][:, :32]
@@ -388,7 +525,7 @@ def run(args, log=lambda s: print(s, file=sys.stderr, flush=True)) -> dict:
     lines.append("")
     return dict(teacher=teacher_ppl, rows=rows, seconds=seconds, lines=lines, header=header,
                 n_params=n_params, group_size=G, teacher_steps=args.teacher_steps,
-                qat_steps=args.qat_steps)
+                qat_steps=args.qat_steps, spec=spec, cfg=cfg)
 
 
 def main(argv=None):
@@ -396,12 +533,21 @@ def main(argv=None):
     result = run(args)
     out_dir = os.path.dirname(os.path.abspath(args.out))
     os.makedirs(out_dir, exist_ok=True)
-    # section-preserving write: the other corpus's section survives
-    replace_section(args.out, result["header"], "\n".join(result["lines"]))
+    # section-preserving writes: the other sections of the file survive
+    spec = result["spec"]
+    if spec is not None:
+        replace_section(args.out, spec["header"], "\n".join(spec["lines"]))
+        print("\n".join(spec["lines"]))
+    if result["header"] is not None:
+        replace_section(args.out, result["header"], "\n".join(result["lines"]))
+        print("\n".join(result["lines"]))
     print(f"wrote {args.out}", file=sys.stderr, flush=True)
-    print("\n".join(result["lines"]))
-    print(json.dumps({"teacher": result["teacher"], "rows": result["rows"],
-                      "seconds": result["seconds"]}))
+    summary = {"teacher": result["teacher"], "rows": result["rows"],
+               "seconds": result["seconds"]}
+    if spec is not None:
+        summary["spec"] = {m: {k: spec[m][k] for k in ("tok_s", "accept", "k")}
+                           for m, _ in SPEC_VARIANTS}
+    print(json.dumps(summary))
 
 
 if __name__ == "__main__":

@@ -1,0 +1,85 @@
+"""Serving capacity planning: how many engine slots fit one card's memory for
+a packed model at a context length and KV dtype (PyTorch port of the JAX
+package's `serve/capacity.py`).
+
+Analytic, nothing allocated: exact for the KV cache (the bytes of
+`KVCache.init`), component-modeled for the packed weights (codes, one combo
+word a group column, everything else bf16). The shapes come from the port's
+own table of the dense tree (`models.llama.param_table`).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from ..models.config import ModelConfig
+from ..models.llama import LAYER_LINEARS, param_table
+from .engine import CACHE_BUCKET_FACTOR
+
+GiB = 1024**3
+
+
+def packed_model_bytes(cfg: ModelConfig, *, bits: int = 2, group_size: int = 128) -> int:
+    """Bytes of a pack_model() tree: the stacked [L, K, N] linear weights as
+    `bits`-wide codes plus one int32 combo word (bf16 scale and szero) a
+    group column; every other leaf (embeddings, norms, lm_head, biases)
+    bf16."""
+    total = 0
+    linear_names = set(LAYER_LINEARS) | {"qkv", "gate_up"}
+    for path, (shape, _) in param_table(cfg).items():
+        n = math.prod(shape)
+        if (len(path) >= 2 and path[-1] == "w" and path[-2] in linear_names
+                and len(shape) == 3):
+            total += n * bits // 8  # packed codes
+            total += n // group_size * 4  # combo words
+        else:
+            total += n * 2  # bf16
+    return total
+
+
+def kv_bytes_per_slot(cfg: ModelConfig, max_len: int, kv_dtype=torch.bfloat16) -> int:
+    """Exact bytes of one slot of KVCache.init: k and v planes, plus the f32
+    per-token scale planes [L, B, H, T] of an int8 cache."""
+    per = 2 * cfg.num_layers * cfg.num_kv_heads * max_len  # k + v rows
+    itemsize = torch.empty((), dtype=kv_dtype).element_size()
+    total = per * cfg.actual_head_dim * itemsize
+    if kv_dtype == torch.int8:
+        total += per * 4
+    return total
+
+
+def serve_capacity(cfg: ModelConfig, *, bits: int = 2, group_size: int = 128,
+                   max_len: int = 2048, kv_dtype=torch.bfloat16, tp: int = 1,
+                   hbm_bytes: Optional[int] = None, reserve_frac: float = 0.10,
+                   grow_cache: bool = True, prompt_cache_bytes: int = 0) -> dict:
+    """Max engine slots for one card (or a tp group: weights and KV heads
+    divide by tp). `hbm_bytes` defaults to the current CUDA device's
+    memory; without a card the caller passes it. `reserve_frac` holds
+    memory back for activations and transients.
+
+    grow_cache (the engine default) sizes the peak for the worst growth
+    step: old and new caches coexist during the copy, so the last growth to
+    max_len peaks at (1 + 1/CACHE_BUCKET_FACTOR) of the full cache. Capacity-critical
+    deployments pass grow_cache=False (Engine(grow_cache=False)) and plan
+    against the flat full-size cache. Engine(prompt_cache_bytes=...) holds
+    device buffers on top of the slots: they come out of the budget."""
+    if hbm_bytes is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device is available; pass hbm_bytes to plan "
+                               "for a card from the CPU")
+        hbm_bytes = torch.cuda.get_device_properties(torch.cuda.current_device()).total_memory
+    weights = packed_model_bytes(cfg, bits=bits, group_size=group_size) // tp
+    per_slot = kv_bytes_per_slot(cfg, max_len, kv_dtype) // tp
+    if grow_cache:
+        per_slot = per_slot + per_slot // CACHE_BUCKET_FACTOR  # growth peak
+    budget = int(hbm_bytes * (1 - reserve_frac)) - weights - int(prompt_cache_bytes)
+    slots = max(budget // per_slot, 0)
+    return {
+        "weights_bytes": weights,
+        "kv_bytes_per_slot": per_slot,
+        "budget_bytes": budget,
+        "max_slots": int(slots),
+    }

@@ -1,47 +1,93 @@
 """Serving engine: batched prefill and slot-based continuous batching
-(PyTorch port of the core of the JAX package's `serve/engine.py`).
+(PyTorch port of the JAX package's `serve/engine.py`).
 
   * prompts are padded to power-of-two length buckets and prefilled
     together with the cache-less forward, which returns each layer's KV;
+    identical prompts in one admission group share one prefill row;
   * that KV is transposed to the cache's head-major layout and written into
     the admitted slots; the first token is sampled from the prompt logits;
   * one decode step advances ALL slots a token, each at its own position,
     and a horizon of `decode_horizon` steps ends in one host sync;
-  * requests finish on EOS, a stop id, their token budget or the cache
-    length.
+  * requests finish on EOS, a stop id, a `stop_check`, their token budget or
+    the cache length; `stream` sees every token and `on_finish` the request.
+
+Options, as in the JAX package's engine:
+  * `grow_cache` (default on): the KV cache starts at the smallest length
+    bucket and is re-allocated at the next bucket (zeros, then a copy of the
+    old planes, int8 scale planes too) before a prefill or a decode horizon
+    would write past it, so a decode step reads a cache sized to the live
+    contexts;
+  * `prompt_cache_size` / `prompt_cache_bytes`: a request with
+    `cache_prompt=True` stores its prompt's prefill rows and last logits
+    (LRU by entries and by bytes); a later identical prompt skips prefill,
+    and a prompt extending a stored one prefills only its tail against a
+    one-row cache holding the stored rows;
+  * `spec_decode`: n-gram speculative decoding. Each verify round drafts k
+    tokens from the slot's own history (the last earlier occurrence of its
+    trailing n-gram), runs one forward of S = k + 1 against the cache and
+    keeps the longest sampled == draft prefix plus the next sampled token;
+    k adapts over SPEC_K_LADDER from the acceptance EMA, and the plain
+    step takes over where acceptance does not pay for the verify.
+
+A horizon's tokens go to pinned host memory without blocking, and the host
+waits on a CUDA event recorded after the copy. The JAX engine's
+`pipeline_rounds` (round k + 1 dispatched before round k is read) is not
+ported: on an H100 its gain stayed inside the host clock's spread.
 
 With BITDISTILLER_QMM_A8=1 the engine serves W{2,4}A8: its weights are
 repacked once at construction and every packed matmul quantizes its
-activations to int8. The KV cache is allocated once at `max_len`. Speculative decoding, the
-prompt cache, cache growth, pipelined rounds and sharding are not ported.
+activations to int8. Sharding is not ported.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
-from typing import Iterable, Optional
+import time
+from typing import Callable, Iterable, Optional
 
 import numpy as np
 import torch
 
-from .._device import resolve_device
+from .._device import on_card, resolve_device
 from ..models import llama
 from ..models.config import ModelConfig
 from ..models.llama import KVCache, quantize_kv
 from ..ops.quant_matmul import maybe_repack_a8
 from .sampling import SamplingParams, sample_tokens, sample_tokens_batched
 
+# fixed policy, as the JAX engine's defaults: the speculative history window
+# (tokens a slot drafts from), the draft lengths the adaptive k chooses
+# among (plus spec_k), a verify's cost in plain steps a drafted token, and
+# the growth factor between cache buckets
+SPEC_HISTORY = 512
+SPEC_K_LADDER = (4, 7, 11)
+SPEC_STEP_COST = 0.09
+CACHE_BUCKET_FACTOR = 2
+
 
 @dataclasses.dataclass
 class Request:
     prompt_tokens: list
     max_new_tokens: int = 256
+    stream: Optional[Callable[[int], None]] = None  # called with every emitted token
     sampling: Optional[SamplingParams] = None  # per-request override
     stop_token_ids: tuple = ()  # stop ids beyond the engine's eos
+    # called once when the request finishes (the HTTP frontend wakes its handler)
+    on_finish: Optional[Callable[["Request"], None]] = None
+    # called with the output so far after each emitted token; True finishes
+    # the request with "stop" (multi-token stop strings)
+    stop_check: Optional[Callable[[list], bool]] = None
+    # store this prompt's prefill rows in the prompt cache (needs
+    # Engine(prompt_cache_size > 0) or prompt_cache_bytes)
+    cache_prompt: bool = False
     # filled by the engine:
     output_tokens: list = dataclasses.field(default_factory=list)
     finished: bool = False
     finish_reason: str = ""
+    prefill_time: float = 0.0
+    decode_tokens: int = 0
+    decode_time: float = 0.0
 
 
 def _buckets(max_len: int, lo: int = 64, factor: int = 2):
@@ -60,6 +106,49 @@ def _pow2_at_least(n: int) -> int:
     return p
 
 
+def grow_kv_cache(cache: KVCache, new_len: int) -> KVCache:
+    """A cache of `new_len` rows holding `cache`'s rows at the front and
+    zeros after them (the T axis of [L, B, H, T, D] and of the int8 scale
+    planes [L, B, H, T])."""
+
+    def one(buf):
+        if buf is None:
+            return None
+        shape = list(buf.shape)
+        old, shape[3] = shape[3], new_len
+        out = torch.zeros(shape, dtype=buf.dtype, device=buf.device)
+        out[:, :, :, :old] = buf
+        return out
+
+    return KVCache(k=one(cache.k), v=one(cache.v), k_scale=one(cache.k_scale),
+                   v_scale=one(cache.v_scale))
+
+
+class _Fetch:
+    """Device tensors on their way to the host. On the card each is copied
+    into pinned host memory without blocking and an event is recorded after
+    the copies: `wait` blocks on that event, so work queued after the copy
+    (the horizon dispatched after an admission's first tokens) is on the
+    card before the host blocks. On the CPU the tensors are read as they
+    are."""
+
+    def __init__(self, tensors):
+        self.event = None
+        if tensors and on_card(tensors[0]):
+            self.host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors]
+            for h, t in zip(self.host, tensors):
+                h.copy_(t, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+        else:
+            self.host = list(tensors)
+
+    def wait(self) -> list:
+        if self.event is not None:
+            self.event.synchronize()
+        return [h.numpy() for h in self.host]
+
+
 class Engine:
     def __init__(
         self,
@@ -74,6 +163,14 @@ class Engine:
         rep_window: int = 128,
         seed: int = 0,
         decode_horizon: int = 8,
+        grow_cache: bool = True,
+        prompt_cache_size: int = 0,
+        prompt_cache_bytes: Optional[int] = None,
+        spec_decode: bool = False,
+        spec_k: int = 4,
+        spec_ngram: int = 2,
+        spec_adaptive_k: bool = True,
+        spec_ngram_backoff: bool = False,
         device="cuda",
     ):
         self.device = resolve_device(device)
@@ -87,11 +184,50 @@ class Engine:
         self.eos = eos_token_id
         self.horizon = max(decode_horizon, 1)
         self.buckets = _buckets(max_len)
+        # finer ladder for tail-only prefills (a chat turn is often short)
+        self.tail_buckets = _buckets(max_len, lo=16)
+        self.grow_cache = grow_cache
+        self.cache_buckets = _buckets(max_len, factor=CACHE_BUCKET_FACTOR)
         dev = self.device
-        self.cache = KVCache.init(cfg, max_slots, max_len, cache_dtype, device=dev)
+        first_len = self.cache_buckets[0] if grow_cache else max_len
+        self.cache = KVCache.init(cfg, max_slots, first_len, cache_dtype, device=dev)
         self.generator = torch.Generator(device=dev).manual_seed(seed)
+
+        # prompt cache: tuple(prompt) -> (KV [L, 1, Pb, H, D] in the prefill
+        # layout and dtype, last logits [V], prompt length). A byte budget
+        # alone also enables it, with an entry cap that keeps admission's
+        # prefix scan short.
+        if prompt_cache_bytes is not None and prompt_cache_size == 0:
+            prompt_cache_size = 512
+        self.prompt_cache_size = prompt_cache_size
+        self.prompt_cache_bytes = prompt_cache_bytes
+        self._prompt_cache: collections.OrderedDict = collections.OrderedDict()
+        self.prompt_cache_hits = 0
+        self.prompt_cache_prefix_hits = 0
+        self.prompt_cache_misses = 0
+
+        # n-gram speculative decoding; acceptance below spec_min_accept
+        # tokens a verify cell dispatches the plain step, with a one-round
+        # probe every spec_retry_every rounds
+        self.spec_decode = spec_decode
+        self.spec_k = spec_k
+        self.spec_ngram = spec_ngram
+        self.spec_ngram_backoff = spec_ngram_backoff
+        self.spec_min_accept = 1.3
+        self.spec_retry_every = 16
+        self._spec_ema: Optional[float] = None
+        self._spec_last_rate = 0.0  # the last horizon's measured acceptance
+        self._spec_off_rounds = 0
+        self.spec_adaptive_k = spec_adaptive_k
+        self.spec_k_ladder = tuple(sorted(set(SPEC_K_LADDER + (spec_k,))))
+        self._spec_k_cur = spec_k  # the current adaptive choice
+        self._spec_k_last = spec_k  # the k the last EMA update was measured at
+        self.spec_rounds = 0  # (round, active-slot) verify cells fetched
+        self.spec_tokens = 0  # tokens those cells produced (<= k + 1 each)
+
         # device-side slot state: advanced by decode without host syncs
         self.prev_tokens = torch.full((max_slots, rep_window), -1, dtype=torch.int32, device=dev)
+        self.history = torch.full((max_slots, SPEC_HISTORY), -2, dtype=torch.int32, device=dev)
         self.cur_tokens = torch.zeros(max_slots, dtype=torch.int32, device=dev)
         self._lengths_dev = torch.zeros(max_slots, dtype=torch.int32, device=dev)
         self._active_dev = torch.zeros(max_slots, dtype=torch.bool, device=dev)
@@ -100,14 +236,22 @@ class Engine:
         self._top_ps = torch.full((max_slots,), sampling.top_p, dtype=torch.float32, device=dev)
         self._rep_pens = torch.full((max_slots,), sampling.repetition_penalty,
                                     dtype=torch.float32, device=dev)
-        # host-side slot state
+        # host-side slot state; _len_ub upper-bounds every active slot's cache
+        # position (a verify round counts k + 1 rows), so a dispatch knows
+        # without a sync when the cache must grow
         self.slot_req: list[Optional[Request]] = [None] * max_slots
         self.lengths = np.zeros(max_slots, np.int32)
+        self._len_ub = np.zeros(max_slots, np.int64)
         self.active = np.zeros(max_slots, bool)
         self._slot_custom = np.zeros(max_slots, bool)
         self._active_dirty = True
-        self.decode_steps = 0  # decode forwards run (each advances every slot)
-        self.prefills = 0  # batched prefill forwards run
+        # what ran, for the launch counts a caller predicts
+        self.decode_steps = 0  # plain decode forwards (each advances every slot)
+        self.decode_steps_at: collections.Counter = collections.Counter()  # by cache length
+        self.spec_forwards: collections.Counter = collections.Counter()  # verify forwards by k
+        self.prefills = 0  # batched prefill forwards
+        self.prefix_extends: list = []  # tail bucket of each tail-only prefill forward
+        self.growths: list = []  # (old, new) cache lengths of each growth copy
 
     # -- device pieces ------------------------------------------------------
 
@@ -122,8 +266,9 @@ class Engine:
     @torch.inference_mode()
     def _insert(self, kv: KVCache, slots: list, rows: list) -> None:
         """Write prefill rows [0, S) into the slots' cache planes, transposed
-        to head-major [L, H, S, D]. Rows past a prompt's length hold padding
-        and stay masked by the slot's position (t < cache_pos)."""
+        to head-major [L, H, S, D] (quantized for an int8 cache). Rows past a
+        prompt's length hold padding and stay masked by the slot's position
+        (t < cache_pos)."""
         nk = kv.k.permute(0, 1, 3, 2, 4)  # [L, nb, H, S, D]
         nv = kv.v.permute(0, 1, 3, 2, 4)
         s = nk.shape[3]
@@ -144,6 +289,7 @@ class Engine:
         the device. Inactive slots decode masked junk into their own rows."""
         max_pos = self.max_len - 1
         self.decode_steps += steps
+        self.decode_steps_at[self._cache_len()] += steps
         tokens, pos = self.cur_tokens, self._lengths_dev.clone()
         out = []
         for _ in range(steps):
@@ -167,6 +313,83 @@ class Engine:
         self._lengths_dev = self._lengths_dev + steps * self._active_dev.to(torch.int32)
         return torch.stack(out)
 
+    @staticmethod
+    def ngram_draft(hist: torch.Tensor, k: int, ngram: int) -> torch.Tensor:
+        """Draft k tokens a row: the tokens that followed the LAST earlier
+        occurrence of the trailing `ngram`-gram in the right-aligned history
+        window (-1 where there is none or the context is filler: a -1 draft
+        never equals a sampled token)."""
+        b, hw = hist.shape
+        ctx = hist[:, hw - ngram:]  # [B, ngram]
+        m = torch.ones((b, hw - ngram), dtype=torch.bool, device=hist.device)
+        for i in range(ngram):  # gram starts o in [0, hw - ngram)
+            m = m & (hist[:, i:i + hw - ngram] == ctx[:, i:i + 1])
+        starts = torch.arange(hw - ngram, device=hist.device)
+        ostar = torch.where(m, starts[None, :], -1).amax(dim=1)  # [B]
+        have_ctx = ctx.amin(dim=1) >= 0
+        idx = torch.clamp(ostar[:, None] + ngram + torch.arange(k, device=hist.device)[None, :],
+                          0, hw - 1)
+        d = hist.gather(1, idx)  # [B, k]
+        ok = (ostar >= 0) & have_ctx
+        return torch.where(ok[:, None] & (d >= 0), d, -1)
+
+    @staticmethod
+    def ngram_draft_backoff(hist: torch.Tensor, k: int, hi: int, lo: int) -> torch.Tensor:
+        """Rows whose trailing `hi`-gram has an earlier match take that
+        draft; the others fall back to the `lo`-gram draft."""
+        dh = Engine.ngram_draft(hist, k, hi)
+        dl = Engine.ngram_draft(hist, k, lo)
+        return torch.where(dh[:, :1] >= 0, dh, dl)
+
+    @staticmethod
+    def _var_append(buf: torch.Tensor, toks: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+        """Append the first n[b] of toks[b] to the right-aligned window
+        buf[b] (a per-row shift through a gather)."""
+        w = buf.shape[1]
+        ext = torch.cat([buf, toks.to(buf.dtype)], dim=1)  # [B, W + K]
+        idx = n.to(torch.int64)[:, None] + torch.arange(w, device=buf.device)[None, :]
+        return ext.gather(1, idx)
+
+    @torch.inference_mode()
+    def _spec_decode(self, steps: int, k: int):
+        """`steps` verify rounds: draft k tokens from each slot's history,
+        verify them in one S = k + 1 forward, accept the longest sampled ==
+        draft prefix plus the next sampled token. Returns tokens [steps, B,
+        k + 1] and the valid counts [steps, B] on the device."""
+        max_pos = self.max_len - 1
+        self.spec_forwards[k] += steps
+        cur, pos = self.cur_tokens, self._lengths_dev
+        prev, hist, active = self.prev_tokens, self.history, self._active_dev
+        toks, counts = [], []
+        for _ in range(steps):
+            if self.spec_ngram_backoff:
+                draft = self.ngram_draft_backoff(hist, k, self.spec_ngram + 1, self.spec_ngram)
+            else:
+                draft = self.ngram_draft(hist, k, self.spec_ngram)
+            tokens_in = torch.cat([cur[:, None], draft], dim=1)
+            # the forward reads cache rows < pos and the fresh S tokens
+            # causally; -1 drafts run as 0 and are never accepted
+            logits, _ = llama.forward(self.params, self.cfg, torch.clamp(tokens_in, min=0),
+                                      cache=self.cache, cache_pos=pos)
+            b, s, v = logits.shape
+            # all k + 1 positions share the round-start penalty window (exact
+            # at repetition_penalty 1.0, which _spec_active requires)
+            sampled = sample_tokens(logits.reshape(b * s, v), self.sampling,
+                                    prev.repeat_interleave(s, dim=0),
+                                    generator=self.generator).reshape(b, s)
+            good = (sampled[:, :k] == draft).to(torch.int32)
+            acc = torch.cumprod(good, dim=1).sum(dim=1)  # [B] in [0, k]
+            n_new = torch.where(active, acc + 1, 0).to(torch.int32)
+            cur = torch.where(active, sampled.gather(1, acc[:, None])[:, 0], 0)
+            pos = torch.clamp(pos + n_new, max=max_pos)
+            prev = self._var_append(prev, sampled, n_new)
+            hist = self._var_append(hist, sampled, n_new)
+            toks.append(sampled)
+            counts.append(n_new)
+        self.cur_tokens, self._lengths_dev = cur, pos
+        self.prev_tokens, self.history = prev, hist
+        return torch.stack(toks), torch.stack(counts)
+
     # -- host scheduling ----------------------------------------------------
 
     def _free_slot(self) -> Optional[int]:
@@ -175,27 +398,136 @@ class Engine:
                 return i
         return None
 
+    @staticmethod
+    def _entry_bytes(entry) -> int:
+        kv, last = entry[0], entry[1]
+        return kv.k.nbytes + kv.v.nbytes + last.nbytes
+
+    def _prompt_cache_put(self, key, entry) -> None:
+        """Insert, then evict least recently used entries past the entry
+        cap and past the byte budget."""
+        self._prompt_cache[key] = entry
+        self._prompt_cache.move_to_end(key)
+        while len(self._prompt_cache) > self.prompt_cache_size:
+            self._prompt_cache.popitem(last=False)
+        if self.prompt_cache_bytes is None:
+            return
+        total = sum(self._entry_bytes(e) for e in self._prompt_cache.values())
+        while total > self.prompt_cache_bytes and self._prompt_cache:
+            _, ev = self._prompt_cache.popitem(last=False)
+            total -= self._entry_bytes(ev)
+
+    @staticmethod
+    def _slice_entry(kv: KVCache, last_logits: torch.Tensor, row: int, pb: int):
+        """One prefill row cut to its own length bucket, as a prompt cache
+        entry's (KV [L, 1, pb, H, D], last logits [V])."""
+        return (KVCache(k=kv.k[:, row:row + 1, :pb].clone(), v=kv.v[:, row:row + 1, :pb].clone()),
+                last_logits[row].clone())
+
+    @torch.inference_mode()
+    def _extend_prefix(self, ekv: KVCache, pfx_len: int, tail: list):
+        """Tail-only prefill of a prompt whose first `pfx_len` tokens are
+        cached: a one-row temporary cache holds the stored rows, one forward
+        runs the tail (padded to its tail bucket) against it, and the
+        combined rows come back in the prefill layout with the tail's last
+        logits: the form of an exact-hit entry."""
+        tail_len = len(tail)
+        tb = next(b for b in self.tail_buckets if b >= tail_len)
+        # the temporary cache covers the prefix plus the PADDED tail: the
+        # forward's write of S rows starts at min(pos, T - S), so a shorter
+        # cache would move the tail's rows over the prefix
+        tc_len = next((b for b in self.buckets if b >= pfx_len + tb), self.max_len)
+        self.prefix_extends.append(tb)
+        L, _, pb, h, d = ekv.k.shape
+        dev = ekv.k.device
+        temp = KVCache(k=torch.zeros((L, 1, h, tc_len, d), dtype=ekv.k.dtype, device=dev),
+                       v=torch.zeros((L, 1, h, tc_len, d), dtype=ekv.v.dtype, device=dev))
+        temp.k[:, :, :, :pb] = ekv.k.permute(0, 1, 3, 2, 4)
+        temp.v[:, :, :, :pb] = ekv.v.permute(0, 1, 3, 2, 4)
+        padded = torch.zeros((1, tb), dtype=torch.int64)
+        padded[0, :tail_len] = torch.as_tensor(tail, dtype=torch.int64)
+        logits, _ = llama.forward(self.params, self.cfg, padded.to(dev), cache=temp,
+                                  cache_pos=torch.full((1,), pfx_len, dtype=torch.int32,
+                                                       device=dev))
+        kv = KVCache(k=temp.k.permute(0, 1, 3, 2, 4), v=temp.v.permute(0, 1, 3, 2, 4))
+        return kv, logits[0, tail_len - 1], pfx_len + tail_len
+
+    def _lookup(self, reqs: list, keys: list) -> dict:
+        """Prompt cache hits of an admission group: {request index: (KV,
+        last logits, length)}, exact hits and longest proper prefixes (the
+        latter extended by a tail-only prefill)."""
+        hits: dict = {}
+        # longest first: the first prefix match is the longest
+        cands = sorted(self._prompt_cache, key=len, reverse=True)
+        for i, k in enumerate(keys):
+            e = self._prompt_cache.get(k)
+            if e is not None:
+                self._prompt_cache.move_to_end(k)
+                hits[i] = e
+                continue
+            best = next((ck for ck in cands if len(ck) < len(k) and k[:len(ck)] == ck), None)
+            if best is None:
+                continue
+            ekv, _, pl = self._prompt_cache[best]
+            tb = next(b for b in self.tail_buckets if b >= len(k) - pl)
+            if pl + tb > self.max_len:
+                continue  # the padded tail would not fit: full prefill
+            self._prompt_cache.move_to_end(best)
+            hits[i] = self._extend_prefix(ekv, pl, list(k[pl:]))
+            self.prompt_cache_prefix_hits += 1
+            if reqs[i].cache_prompt:
+                self._prompt_cache_put(k, hits[i])
+        self.prompt_cache_hits += len(hits)
+        self.prompt_cache_misses += len(keys) - len(hits)
+        return hits
+
     @torch.inference_mode()
     def _admit_group(self, reqs: list, slots: list) -> torch.Tensor:
-        """Prefill several requests in one batched call, insert each into its
-        slot and sample its first token (on the device; returned unsynced)."""
+        """Prefill the group's missing unique prompts in one batched call,
+        insert every request's rows into its slot (prompt cache hits from
+        their stored rows) and sample its first token (on the device;
+        returned unsynced)."""
+        t0 = time.time()
         dev = self.device
         n = len(reqs)
         # truncate from the left so the cache never overflows
         plens = [min(len(r.prompt_tokens), self.max_len - 1) for r in reqs]
-        bucket = next(b for b in self.buckets if b >= max(plens))
-        nb = min(_pow2_at_least(n), self.max_slots)  # bounded set of batch shapes
-        padded = np.zeros((nb, bucket), np.int64)
-        last_idx = np.zeros(nb, np.int64)
-        for row, (r, pl) in enumerate(zip(reqs, plens)):
-            padded[row, :pl] = r.prompt_tokens[-pl:]
-            last_idx[row] = pl - 1
-        last, kv = self._prefill(torch.from_numpy(padded).to(dev), torch.from_numpy(last_idx).to(dev))
-        self._insert(kv, slots, range(n))
-        del kv
+        keys = [tuple(r.prompt_tokens[-pl:]) for r, pl in zip(reqs, plens)]
+        hits = self._lookup(reqs, keys) if self.prompt_cache_size else {}
+
+        # one prefill row per UNIQUE missing prompt
+        uniq: dict = {}
+        row_of: dict = {}
+        for i, k in enumerate(keys):
+            if i not in hits:
+                row_of[i] = uniq.setdefault(k, len(uniq))
+        miss_last = None
+        if uniq:
+            bucket = next(b for b in self.buckets if b >= max(len(k) for k in uniq))
+            nb = min(_pow2_at_least(len(uniq)), self.max_slots)  # bounded batch shapes
+            padded = np.zeros((nb, bucket), np.int64)
+            last_idx = np.zeros(nb, np.int64)
+            for k, row in uniq.items():
+                padded[row, :len(k)] = k
+                last_idx[row] = len(k) - 1
+            miss_last, kv = self._prefill(torch.from_numpy(padded).to(dev),
+                                          torch.from_numpy(last_idx).to(dev))
+            self._ensure_cache(bucket)  # the prefill rows must fit the buffer
+            self._insert(kv, [slots[i] for i in row_of], list(row_of.values()))
+            if self.prompt_cache_size:
+                for i in row_of:
+                    if reqs[i].cache_prompt and keys[i] not in self._prompt_cache:
+                        pb = next(b for b in self.buckets if b >= plens[i])
+                        self._prompt_cache_put(
+                            keys[i], self._slice_entry(kv, miss_last, row_of[i], pb) + (plens[i],))
+            del kv
+        for i, (ekv, _, _) in hits.items():
+            self._ensure_cache(ekv.k.shape[2])
+            self._insert(ekv, [slots[i]], [0])
+        last_logits = torch.stack([hits[i][1] if i in hits else miss_last[row_of[i]]
+                                   for i in range(n)])
 
         slot_t = torch.as_tensor(slots, dtype=torch.int64, device=dev)
-        last_logits = last[:n]
         eff = [r.sampling or self.sampling for r in reqs]
         self.prev_tokens[slot_t] = -1
         self._temps[slot_t] = torch.as_tensor([s.temperature for s in eff], dtype=torch.float32, device=dev)
@@ -218,9 +550,20 @@ class Engine:
         self.cur_tokens[slot_t] = firsts
         self._lengths_dev[slot_t] = torch.as_tensor(plens, dtype=torch.int32, device=dev)
         self._active_dev[slot_t] = True
+        # the speculative history: prompt tail ++ first token, right-aligned
+        hw = self.history.shape[1]
+        hist_rows = np.full((n, hw), -2, np.int32)
+        for i, (r, pl) in enumerate(zip(reqs, plens)):
+            tail = r.prompt_tokens[-min(pl, hw):]
+            hist_rows[i, -len(tail):] = tail
+        self.history[slot_t] = torch.cat(
+            [torch.from_numpy(hist_rows[:, 1:]).to(dev), firsts[:, None].to(torch.int32)], dim=1)
+        dt = time.time() - t0
         for req, slot, plen in zip(reqs, slots, plens):
+            req.prefill_time = dt
             self.slot_req[slot] = req
             self.lengths[slot] = plen
+            self._len_ub[slot] = plen
             self.active[slot] = True
         return firsts
 
@@ -230,25 +573,146 @@ class Engine:
         self.active[slot] = False
         self._active_dirty = True
         self.slot_req[slot] = None
+        # back to the uniform-sampling path once no active slot is custom
         self._slot_custom[slot] = False
+        if req.on_finish is not None:
+            req.on_finish(req)
 
     def _emit(self, slot: int, token: int, cache_len: Optional[int] = None) -> None:
-        """cache_len: cache rows used when THIS token was produced."""
+        """cache_len: cache rows used when THIS token was produced (the
+        horizon loops pass it a token at a time, so that plain and
+        speculative engines truncate alike near max_len)."""
         req = self.slot_req[slot]
         req.output_tokens.append(token)
+        if req.stream:
+            req.stream(token)
         stopped = (self.eos is not None and token == self.eos) or token in req.stop_token_ids
+        if not stopped and req.stop_check is not None:
+            stopped = bool(req.stop_check(req.output_tokens))
         done = stopped or len(req.output_tokens) >= req.max_new_tokens
         if (self.lengths[slot] if cache_len is None else cache_len) + 1 >= self.max_len:
             done = True
         if done:
             self._finish(slot, req, "stop" if stopped else "length")
 
-    def run(self, requests: Iterable[Request]) -> list[Request]:
+    def _cache_len(self) -> int:
+        return self.cache.k.shape[3]
+
+    def _ensure_cache(self, needed: int) -> None:
+        """Grow the KV cache to the smallest bucket covering `needed`
+        positions (never shrinks; nothing unless grow_cache)."""
+        needed = min(needed, self.max_len)
+        old = self._cache_len()
+        if not self.grow_cache or needed <= old:
+            return
+        new_len = next((b for b in self.cache_buckets if b >= needed), self.max_len)
+        self.cache = grow_kv_cache(self.cache, new_len)
+        self.growths.append((old, new_len))
+
+    def _spec_active(self) -> tuple:
+        """(spec, probe) for one round, decided once a round. Custom per-slot
+        sampling and a non-unit engine repetition penalty take the plain
+        step (the verify samples every position with the engine's params and
+        the round-start penalty window); so does acceptance under
+        spec_min_accept, with a one-round probe every spec_retry_every
+        rounds."""
+        if (not self.spec_decode or bool(self._slot_custom.any())
+                or self.sampling.repetition_penalty != 1.0):
+            return False, False
+        if self._spec_ema is not None and self._spec_ema < self.spec_min_accept:
+            self._spec_off_rounds += 1
+            return self._spec_off_rounds % self.spec_retry_every == 0, True
+        return True, False
+
+    @staticmethod
+    def _invert_geometric(e: float, k: int) -> float:
+        """Solve E_k(p) = p (1 - p^k) / (1 - p) = e for the per-position
+        acceptance probability p (monotonic in p; bisection)."""
+        if e <= 0.0:
+            return 0.0
+        if e >= k - 1e-6:
+            return 1.0
+        lo, hi = 0.0, 1.0 - 1e-9
+        for _ in range(40):
+            mid = (lo + hi) / 2
+            if mid * (1 - mid ** k) / (1 - mid) < e:
+                lo = mid
+            else:
+                hi = mid
+        return (lo + hi) / 2
+
+    def _current_spec_k(self) -> int:
+        """Adaptive draft length: invert the acceptance EMA (measured at the
+        last dispatched k) through the geometric model, then take the ladder
+        k maximizing expected tokens per verify cost (E_k(p) + 1) / (1 +
+        SPEC_STEP_COST k), with 3% hysteresis."""
+        if not self.spec_adaptive_k or self._spec_ema is None:
+            return self._spec_k_cur
+        p = self._invert_geometric(max(self._spec_ema - 1.0, 0.0), max(self._spec_k_last, 1))
+
+        def value(k):
+            e_k = k if p >= 1.0 else p * (1 - p ** k) / (1 - p)
+            return (e_k + 1.0) / (1.0 + SPEC_STEP_COST * k)
+
+        best = max(self.spec_k_ladder, key=value)
+        if value(best) > value(self._spec_k_cur) * 1.03:
+            self._spec_k_cur = best
+        return self._spec_k_cur
+
+    def _dispatch_decode(self, steps: int, spec: Optional[bool] = None,
+                         spec_k: Optional[int] = None):
+        """Dispatch one decode horizon and start its tokens' copy to the
+        host; returns (fetch, speculative). Plain: tokens [steps, B];
+        speculative: tokens [steps, B, k + 1] and counts [steps, B]. The
+        cache grows first to cover every active slot's upper bound."""
+        if self._spec_active()[0] if spec is None else spec:
+            k = self._current_spec_k() if spec_k is None else spec_k
+            self._spec_k_last = k
+            if self.active.any():
+                self._ensure_cache(int(self._len_ub[self.active].max()) + steps * (k + 1))
+            toks, counts = self._spec_decode(steps, k)
+            self._len_ub += steps * (k + 1) * self.active
+            return _Fetch([toks, counts]), True
+        if self.active.any():
+            self._ensure_cache(int(self._len_ub[self.active].max()) + steps)
+        toks = self._decode(steps, custom=bool(self._slot_custom.any()))
+        self._len_ub += steps * self.active
+        return _Fetch([toks]), False
+
+    def _end_full_slots(self, skip: set, done: list) -> None:
+        """A slot without room for one more token ends ("length"); newly
+        admitted slots are skipped (their first token is still pending)."""
+        for i in range(self.max_slots):
+            if self.active[i] and i not in skip and self.lengths[i] + 1 >= self.max_len:
+                req = self.slot_req[i]
+                self._finish(i, req, "length")
+                done.append(req)
+
+    def run(
+        self,
+        requests: Iterable[Request],
+        *,
+        feeder: Optional[Callable[[bool], list]] = None,
+        stop: Optional[Callable[[], bool]] = None,
+    ) -> list[Request]:
         """Continuous-batching loop until every request finishes: admit into
-        free slots, decode a horizon for all active slots, sync once, emit."""
+        free slots, dispatch a horizon for the active slots, read its tokens
+        once, emit.
+
+        `feeder(idle)` is polled at every admission round for requests that
+        arrive during the run (the HTTP frontend); it returns at once when
+        idle is False and may block briefly when idle is True. With a feeder
+        the loop ends when no work remains and `stop()` is True."""
         queue = list(requests)
         done: list[Request] = []
-        while queue or self.active.any():
+        pending = len(queue)
+        while pending or (feeder is not None and not (stop() if stop else False)):
+            if feeder is not None:
+                new = feeder(not self.active.any() and not queue)
+                queue.extend(new)
+                pending += len(new)
+                if not queue and not self.active.any():
+                    continue  # idle poll (the feeder blocks)
             admit_reqs, admit_slots = [], []
             while queue:
                 slot = self._free_slot()
@@ -257,64 +721,155 @@ class Engine:
                 admit_reqs.append(queue.pop(0))
                 admit_slots.append(slot)
                 self.active[slot] = True  # reserve while gathering
-            firsts_dev = None
+            firsts = None
             if admit_reqs:
                 for s in admit_slots:
-                    self.active[s] = False
-                firsts_dev = self._admit_group(admit_reqs, admit_slots)
-            pending_first = set(admit_slots)
-            # a slot without room for one more token ends (newly admitted
-            # slots are skipped: their first token is still pending)
-            for i in range(self.max_slots):
-                if (self.active[i] and i not in pending_first
-                        and self.lengths[i] + 1 >= self.max_len):
-                    req = self.slot_req[i]
-                    self._finish(i, req, "length")
-                    done.append(req)
+                    self.active[s] = False  # _admit_group re-activates
+                firsts = _Fetch([self._admit_group(admit_reqs, admit_slots)])
             if not self.active.any():
                 continue
-            # horizon: bounded by the LARGEST remaining budget (overshoot past
-            # a smaller one is dropped at emit) and the cache headroom;
-            # power-of-two only, as in the JAX engine
-            rems = [
-                self.slot_req[i].max_new_tokens - len(self.slot_req[i].output_tokens)
-                - (1 if i in pending_first else 0)
-                for i in range(self.max_slots) if self.active[i]
-            ]
+            pending_first = set(admit_slots)
+            before = len(done)
+            self._end_full_slots(pending_first, done)
+            pending -= len(done) - before
+            if not self.active.any():
+                continue
+            # the horizon: bounded by the LARGEST remaining budget (overshoot
+            # past a smaller one is dropped at emit) and the cache headroom;
+            # powers of two
+            max_rem = max(self.slot_req[i].max_new_tokens - len(self.slot_req[i].output_tokens)
+                          - (1 if i in pending_first else 0)
+                          for i in range(self.max_slots) if self.active[i])
             headroom = self.max_len - 1 - int(
-                max(self.lengths[i] for i in range(self.max_slots) if self.active[i])
-            )
+                max(self.lengths[i] for i in range(self.max_slots) if self.active[i]))
             steps = self.horizon
-            while steps > 1 and (steps > max(max(rems), 1) or steps > headroom):
+            spec_now, spec_probe = self._spec_active()
+            spec_k_now = self._current_spec_k() if spec_now else None
+            # a verify writes k + 1 rows even at steps 1: without that
+            # headroom its write would clamp over attended rows
+            if spec_now and headroom < spec_k_now + 1:
+                spec_now = False
+            tpr = (spec_k_now + 1) if spec_now else 1
+            # at high acceptance a budget completes in max_rem / rate rounds:
+            # bound the horizon by that estimate (the last horizon's rate
+            # bounds a cold EMA from below)
+            budget_rounds = max_rem
+            est = max(self._spec_ema or 0.0, self._spec_last_rate)
+            if spec_now and est > 1.0:
+                budget_rounds = int(-(-max_rem // est))
+            while steps > 1 and (steps > max(budget_rounds, 1) or steps * tpr > headroom):
                 steps //= 2
+            if spec_now and spec_probe:
+                steps = 1  # a cheap probe: one verify round
             dispatch_active = self.active.copy()
-            if self._active_dirty:
+            if self._active_dirty:  # upload only when a slot changed
                 self._active_dev = torch.as_tensor(dispatch_active, device=self.device)
                 self._active_dirty = False
-            toks = self._decode(steps, custom=bool(self._slot_custom.any()))
-            # THE host sync of this round: first tokens + horizon tokens
-            if firsts_dev is not None:
-                firsts_np = firsts_dev.cpu().numpy()
-            toks_np = toks.cpu().numpy()
+            t0 = time.time()
+            fetch, spec = self._dispatch_decode(steps, spec=spec_now, spec_k=spec_k_now)
+            firsts_np = firsts.wait()[0] if firsts is not None else None
+            got = fetch.wait()
+            toks_np, counts_np = (got[0], got[1]) if spec else (got[0], None)
+            dt = time.time() - t0
+            if counts_np is not None:
+                cells = int((counts_np > 0).sum())
+                self.spec_rounds += cells
+                self.spec_tokens += int(counts_np.sum())
+                if cells:
+                    rate = float(counts_np.sum()) / cells
+                    self._spec_ema = (rate if self._spec_ema is None
+                                      else 0.7 * self._spec_ema + 0.3 * rate)
+                    self._spec_last_rate = rate
             if admit_reqs:
                 for t_val, slot in zip(firsts_np, admit_slots):
                     self._emit(slot, int(t_val))
-                done.extend(r for r in admit_reqs if r.finished)
+                for req in admit_reqs:
+                    if req.finished:
+                        done.append(req)
+                        pending -= 1
             for i in range(self.max_slots):
                 if not dispatch_active[i]:
                     continue
                 req = self.slot_req[i]
                 if req is None or req.finished:
-                    continue  # finished by its first token: horizon is overshoot
+                    continue  # finished by its first token: the horizon is overshoot
+                emitted = 0
                 start_len = int(self.lengths[i])
-                self.lengths[i] += steps
-                for h in range(steps):
-                    self._emit(i, int(toks_np[h, i]), start_len + h + 1)
-                    if req.finished:
-                        break
+                if counts_np is None:  # plain: one token a round
+                    self.lengths[i] += steps
+                    n_round = steps
+                    for h in range(steps):
+                        emitted += 1
+                        self._emit(i, int(toks_np[h, i]), start_len + h + 1)
+                        if req.finished:
+                            break
+                else:  # speculative: counts_np[h, i] tokens a round
+                    self.lengths[i] += int(counts_np[:, i].sum())
+                    n_round = max(int(counts_np[:, i].sum()), 1)
+                    for h in range(steps):
+                        for j in range(int(counts_np[h, i])):
+                            emitted += 1
+                            self._emit(i, int(toks_np[h, i, j]), start_len + emitted)
+                            if req.finished:
+                                break
+                        if req.finished:
+                            break
+                req.decode_tokens += emitted
+                req.decode_time += dt * emitted / n_round
                 if req.finished:
                     done.append(req)
+                    pending -= 1
         return done
+
+    def warmup(self, prompt_len: int = 64, verbose=None) -> None:
+        """Run the engine's shapes once before live traffic: every admission
+        group size (powers of two, distinct prompts so the dedup keeps every
+        row), the full and tail horizons, each k of the adaptive ladder and,
+        with grow_cache, one trajectory through every cache bucket. On the
+        card that builds the kernels' lazily made tables and plans and warms
+        the allocator. EOS and the speculative fallback are suspended for
+        the walk, and the counters are restored after it."""
+        t0 = time.time()
+        plen = min(prompt_len, self.max_len // 2)
+        saved = (self.eos, self.spec_min_accept, self._spec_ema, self._spec_last_rate,
+                 self._spec_off_rounds, self.spec_rounds, self.spec_tokens,
+                 self._spec_k_cur, self._spec_k_last, self.prompt_cache_hits,
+                 self.prompt_cache_prefix_hits, self.prompt_cache_misses)
+        self.eos = None
+        self.spec_min_accept = -1.0  # keep the verify path running
+        try:
+            def prompts(n):  # distinct a slot: the dedup keeps n prefill rows
+                return [list(range(3 + j, 3 + j + plen)) for j in range(n)]
+
+            sizes = []
+            nbs = self.max_slots
+            while nbs >= 1:
+                sizes.append(nbs)
+                nbs //= 2
+            for nbs in sizes:
+                self.generate(prompts(nbs), max_new_tokens=self.horizon + 1)
+            self.generate(prompts(1), max_new_tokens=max(self.horizon - 1, 1))
+            if self.spec_decode and self.spec_adaptive_k:
+                for k in self.spec_k_ladder:
+                    self._spec_k_cur = k
+                    self.spec_adaptive_k = False
+                    try:
+                        self.generate(prompts(self.max_slots), max_new_tokens=self.horizon + 1)
+                        self.generate(prompts(1), max_new_tokens=2)
+                    finally:
+                        self.spec_adaptive_k = True
+            if self.grow_cache and self.max_len > self._cache_len():
+                # one full-length trajectory grows through every bucket
+                self.generate(prompts(1), max_new_tokens=self.max_len - plen - 2)
+                for nbs in sizes:
+                    self.generate(prompts(nbs), max_new_tokens=1)
+        finally:
+            (self.eos, self.spec_min_accept, self._spec_ema, self._spec_last_rate,
+             self._spec_off_rounds, self.spec_rounds, self.spec_tokens,
+             self._spec_k_cur, self._spec_k_last, self.prompt_cache_hits,
+             self.prompt_cache_prefix_hits, self.prompt_cache_misses) = saved
+        if verbose:
+            verbose(f"engine warmup done in {time.time() - t0:.1f}s")
 
     def generate(self, prompts: list, max_new_tokens: int = 256) -> list:
         reqs = [Request(prompt_tokens=p, max_new_tokens=max_new_tokens) for p in prompts]

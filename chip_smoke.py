@@ -161,6 +161,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import types
 from pathlib import Path
@@ -182,8 +183,10 @@ from bitdistiller_tpu_torch.models import (
     ModelConfig,
     forward,
     init_params,
+    load_packed_checkpoint,
     pack_model,
     random_packed_params,
+    save_packed_checkpoint,
 )
 from bitdistiller_tpu_torch.generation import datasets as gen_datasets
 from bitdistiller_tpu_torch.generation.teacher import run_teacher_generation
@@ -200,8 +203,11 @@ from bitdistiller_tpu_torch.quant.packing import (
     scales_from_combo,
     unpack_codes,
 )
-from bitdistiller_tpu_torch.scripts import bw_probe
+from bitdistiller_tpu_torch.scripts import bw_probe, loadtest
 from bitdistiller_tpu_torch.serve import Engine, Request, SamplingParams
+from bitdistiller_tpu_torch.serve.capacity import serve_capacity
+from bitdistiller_tpu_torch.serve.engine import grow_kv_cache
+from bitdistiller_tpu_torch.serve.server import ServingFrontend
 from bitdistiller_tpu_torch.train import pipeline
 from bitdistiller_tpu_torch.train import trainer as tr
 from bitdistiller_tpu_torch.train.data import Collator, SupervisedDataset, data_loader
@@ -241,8 +247,13 @@ TABLE_STARTS = [2047, 1900, 1536, 1024, 700, 512, 300, 64]  # long, skewed: 8083
 PATH_STARTS = [n + 32 for n in REQ_LENS[-8:]]  # the steady decode step's slots: 2130 rows
 
 
+LOG = OUT_DIR / "chip_smoke.log"  # main() keeps every line here (a call returns only the tail)
+_log_lines: list = []
+
+
 def say(msg: str) -> None:
     print(msg, flush=True)
+    _log_lines.append(msg)
 
 
 class Phase:
@@ -321,15 +332,15 @@ def plain_matmul(x, p: PackedLinear, li: int):
     return qm.quant_matmul_plain(x, lay.qweight, lay.scales, lay.szeros, lay.bits, lay.group_size)
 
 
-def check_matmuls(gen, record):
+def check_matmuls(gen, record, ms=CHECK_M, bits_list=(2, 4)):
     """B1/B2 on layer 1 of a stack: int2 and int4, the four 7B shapes, M in
-    CHECK_M; at M = 8 on bf16 x a second call must give the same bytes."""
+    `ms`; at M = 8 on bf16 x a second call must give the same bytes."""
     worst = 0.0
-    for bits in (2, 4):
+    for bits in bits_list:
         for name, (k, n) in SHAPES.items():
             for integer in (True, False):
                 p = rand_stacked(gen, 2, k, n, bits, integer)
-                for m in CHECK_M:
+                for m in ms:
                     if integer:
                         x = torch.randint(-3, 4, (m, k), device=DEV, generator=gen).bfloat16()
                     else:
@@ -851,7 +862,7 @@ def end_to_end(bw, out, a16_counts=None):
     os.environ[qm.A8_ENV] = "1" if a8 else "0"
     try:
         eng = Engine(params, cfg, max_slots=8, max_len=2048, eos_token_id=None,
-                     sampling=SamplingParams(temperature=0.0), device=DEV)
+                     sampling=SamplingParams(temperature=0.0), grow_cache=False, device=DEV)
         rng = np.random.default_rng(0)
         reqs = [Request(prompt_tokens=rng.integers(3, cfg.vocab_size, n).tolist(),
                         max_new_tokens=32) for n in REQ_LENS]
@@ -1454,7 +1465,7 @@ def serve_family(params, cfg, tag, rows, lens, a8, card, out, group, timed=False
     os.environ[qm.A8_ENV] = "1" if a8 else "0"
     try:
         eng = Engine(params, cfg, max_slots=8, max_len=rows, eos_token_id=None,
-                     sampling=SamplingParams(temperature=0.0), device=DEV)
+                     sampling=SamplingParams(temperature=0.0), grow_cache=False, device=DEV)
         rng = np.random.default_rng(0)
         reqs = [Request(prompt_tokens=rng.integers(3, cfg.vocab_size, n).tolist(),
                         max_new_tokens=FAMILY_NEW) for n in lens]
@@ -2207,7 +2218,7 @@ def dense_step_check(params) -> dict:
     cache."""
     cfg = TINYLLAMA_1B
     eng = Engine(params, cfg, max_slots=4, max_len=512, eos_token_id=None,
-                 sampling=SamplingParams(temperature=0.0), device=DEV)
+                 sampling=SamplingParams(temperature=0.0), grow_cache=False, device=DEV)
     rng = np.random.default_rng(2)
     eng.run([Request(prompt_tokens=rng.integers(3, 253, n).tolist(), max_new_tokens=8)
              for n in (40, 120, 64, 200)])
@@ -2412,7 +2423,7 @@ def serve_trained_phase(master, cfg, tmp: Path, rec):
             packed["lm_head"] = {"w": packed["lm_head"]["w"].to(torch.bfloat16)}
         torch.cuda.empty_cache()
         eng = Engine(packed, cfg, max_slots=4, max_len=512, eos_token_id=None,
-                     sampling=SamplingParams(temperature=0.0), device=DEV)
+                     sampling=SamplingParams(temperature=0.0), grow_cache=False, device=DEV)
         rng = np.random.default_rng(1)
         reqs = [Request(prompt_tokens=rng.integers(3, 253, n).tolist(), max_new_tokens=16)
                 for n in (40, 120, 64, 200)]
@@ -2454,10 +2465,85 @@ def serve_trained_phase(master, cfg, tmp: Path, rec):
             f"({dir_bytes(tmp / 'gptq') / 1e9:.3f} GB); {held} code, scale and zero tensors "
             f"held exactly against the packed leaves")
         shutil.rmtree(tmp / "gptq")
+        rec["packed_checkpoint"] = packed_checkpoint_check(packed, cfg, tmp, reqs)
     except BaseException:
         shutil.rmtree(tmp, ignore_errors=True)
         raise
     return loaded, packed
+
+
+def packed_leaves(tree) -> dict:
+    """{path: tensor} of a packed tree, a PackedLinear's arrays and meta by field."""
+    out = {}
+    for path, leaf in tr.tree_items(tree):
+        if isinstance(leaf, PackedLinear):
+            for f in ("qweight", "scales", "szeros", "bias", "combo"):
+                if getattr(leaf, f) is not None:
+                    out[path + (f,)] = getattr(leaf, f)
+            out[path + ("meta",)] = torch.tensor([leaf.bits, leaf.group_size, leaf.in_features,
+                                                  leaf.out_features, leaf.a8_order])
+        else:
+            out[path] = leaf
+    return out
+
+
+def packed_checkpoint_check(packed, cfg, tmp: Path, reqs) -> dict:
+    """The packed student through save_packed_checkpoint and
+    load_packed_checkpoint: every leaf bit-equal and the config equal; the
+    reloaded tree served gives the in-process tree's tokens; the CLI's
+    `pack` in a child process, from the HF save, writes the packed.npz of
+    the same pack in this process (the checkpoint loaded in bf16, as the CLI
+    loads it, packed on the card)."""
+    torch.cuda.synchronize()
+    t0 = time.time()
+    save_packed_checkpoint(tmp / "packed", packed, cfg, bits=2, group_size=64)
+    save_s = time.time() - t0
+    t0 = time.time()
+    reloaded, rcfg = load_packed_checkpoint(tmp / "packed", device=DEV)
+    torch.cuda.synchronize()
+    load_s = time.time() - t0
+    got, want = packed_leaves(reloaded), packed_leaves(packed)
+    differ = [p for p in want if p not in got or got[p].dtype != want[p].dtype
+              or not torch.equal(got[p].cpu(), want[p].cpu())]
+    if rcfg != cfg or sorted(got) != sorted(want) or differ:
+        raise AssertionError(f"serve_trained: the packed checkpoint does not reload bit-equal "
+                             f"({differ[:4]})")
+    eng = Engine(reloaded, cfg, max_slots=4, max_len=512, eos_token_id=None,
+                 sampling=SamplingParams(temperature=0.0), grow_cache=False, device=DEV)
+    again = [Request(prompt_tokens=r.prompt_tokens, max_new_tokens=16) for r in reqs]
+    eng.run(again)
+    if [r.output_tokens for r in again] != [r.output_tokens for r in reqs]:
+        raise AssertionError("serve_trained: the reloaded packed tree serves other tokens")
+    del eng, reloaded
+    env = dict(os.environ, PYTHONPATH=str(OUT_DIR.parent))
+    t0 = time.time()
+    res = subprocess.run([sys.executable, "-m", "bitdistiller_tpu_torch.cli", "pack",
+                          "--model_path", str(tmp / "out"), "--w_bit", "2", "--q_group_size",
+                          "64", "--output", str(tmp / "cli_packed"), "--device", DEV],
+                         cwd=OUT_DIR.parent, env=env, capture_output=True, text=True, timeout=600)
+    cli_s = time.time() - t0
+    if res.returncode:
+        raise AssertionError(f"serve_trained: cli pack exited {res.returncode}:\n{res.stderr[-2000:]}")
+    bf16, _ = load_hf_checkpoint(str(tmp / "out"), dtype=torch.bfloat16, device=DEV)
+    save_packed_checkpoint(tmp / "inproc_packed", pack_model(bf16, cfg, bits=2, group_size=64),
+                           cfg, bits=2, group_size=64)
+    del bf16
+    with np.load(tmp / "cli_packed" / "packed.npz") as a, \
+            np.load(tmp / "inproc_packed" / "packed.npz") as b:
+        keys = sorted(a.files)
+        same = keys == sorted(b.files) and all(
+            a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]) for k in keys)
+    if not same:
+        raise AssertionError("serve_trained: the CLI's packed.npz differs from the in-process one")
+    nbytes = (tmp / "packed" / "packed.npz").stat().st_size
+    for d in ("packed", "cli_packed", "inproc_packed"):
+        shutil.rmtree(tmp / d)
+    say(f"serve_trained: packed checkpoint saved in {save_s:.2f} s ({nbytes / 1e9:.3f} GB), "
+        f"reloaded bit-equal ({len(want)} arrays) in {load_s:.2f} s, served the same 4 x 16 "
+        f"tokens; `cli pack` in a child process ({cli_s:.1f} s) wrote the in-process "
+        f"packed.npz ({len(keys)} arrays equal)")
+    return dict(save_s=save_s, load_s=load_s, bytes=nbytes, arrays=len(want), cli_pack_s=cli_s,
+                npz_arrays=len(keys))
 
 
 # ---- stage 4, evaluation: the trained student scored --------------------------
@@ -2653,7 +2739,7 @@ def eval_phase(loaded, packed, cfg, tmp: Path, card: str, rec: dict) -> dict:
         docs = T._gsm8k_gen_docs(n_fewshot=GEN_SHOTS)[:GEN_DOCS]
         eng = Engine(packed, cfg, max_slots=EVAL_BATCH, max_len=EVAL_SEQ,
                      sampling=SamplingParams(temperature=0.0),
-                     eos_token_id=ByteTok.eos_token_id, device=DEV)
+                     eos_token_id=ByteTok.eos_token_id, grow_cache=False, device=DEV)
         gen_fn = T.GreedyUntilFn(eng, ByteTok(), max_new_tokens=GEN_NEW)
         torch.cuda.synchronize()
         reset_counts()
@@ -2738,7 +2824,7 @@ def method_phase(card: str, rec: dict) -> dict:
     from bitdistiller_tpu_torch.scripts import method_demo
 
     args = method_demo.build_parser().parse_args(
-        ["--device", DEV, "--out", str(OUT_DIR / "method_demo.md")])
+        ["--device", DEV, "--out", str(OUT_DIR / "method_demo.md"), "--spec-bench"])
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.time()
@@ -2754,6 +2840,7 @@ def method_phase(card: str, rec: dict) -> dict:
     rec.update(teacher=res["teacher"], rows=res["rows"], seconds=res["seconds"], wall_s=wall,
                launches=counts, recovered=share, teacher_steps=res["teacher_steps"],
                qat_steps=res["qat_steps"], n_params=res["n_params"])
+    rec["spec"] = method_spec_check(res["spec"], res["cfg"], args.out, card)
     for line in res["lines"]:
         if line.startswith("|") or line.startswith("Teacher"):
             say(f"method {line}")
@@ -2781,6 +2868,466 @@ def method_phase(card: str, rec: dict) -> dict:
         raise AssertionError(f"method: the packed rows or the generation missed their kernels: "
                              f"{counts}")
     return counts
+
+
+# ---- A3: the rest of the serving engine on the full-width Llama-2-7B -----------
+
+SERVE_SLOTS, SERVE_LEN, SERVE_NEW = 8, 2048, 256
+SPEC_LADDER = (4, 7, 11)
+VERIFY_M = tuple(SERVE_SLOTS * (k + 1) for k in SPEC_LADDER)  # a verify forward's rows
+PREFIX_LEN = 512
+PREFIX_TAILS = (16, 23, 30, 37, 44, 51, 58, 64)  # tail buckets 16, 32, 32, 64 x 5
+PREFIX_NEW = 16
+HTTP_REQUESTS, HTTP_CONCURRENCY, HTTP_NEW = 32, 16, 64
+WARMUP_LEN = 512  # the warmup walk's engine (a 2048 walk is about a minute of host-paced steps)
+CAPACITY_TOL = 1e-2  # serve_capacity's weights within 1% of the packed tree's bytes
+
+
+def kv_copy(cache: KVCache) -> KVCache:
+    return KVCache(*(None if t is None else t.clone()
+                     for t in (cache.k, cache.v, cache.k_scale, cache.v_scale)))
+
+
+def prefilled_cache(params, cfg, prompts, t: int):
+    """A bf16 cache of t rows holding each prompt but its last token (one
+    slot a prompt), the prompts' last tokens and their positions: the state
+    from which one decode step predicts the token after each prompt."""
+    s = max(len(p) for p in prompts) - 1
+    toks = torch.zeros((len(prompts), s), dtype=torch.int64, device=DEV)
+    for i, p in enumerate(prompts):
+        toks[i, :len(p) - 1] = torch.as_tensor(p[:-1], device=DEV)
+    cache = KVCache.init(cfg, len(prompts), t, torch.bfloat16, device=DEV)
+    with torch.inference_mode():
+        _, kv = forward(params, cfg, toks, return_kv=True)
+    cache.k[:, :, :, :s] = kv.k.permute(0, 1, 3, 2, 4)
+    cache.v[:, :, :, :s] = kv.v.permute(0, 1, 3, 2, 4)
+    last = torch.as_tensor([p[-1] for p in prompts], device=DEV)
+    pos = torch.as_tensor([len(p) - 1 for p in prompts], dtype=torch.int32, device=DEV)
+    return cache, last, pos
+
+
+def _rows(n: int) -> int:
+    return -(-n // 64) * 64
+
+
+def delta_verify(params, cfg, prompts, conts, k: int) -> float:
+    """The tie rule's delta at draft length k: the largest |logit| difference
+    between one S = k + 1 verify forward (B (k + 1) rows: B1 above 32) and
+    the k + 1 S = 1 steps (B2, B3) on the same tokens from the same cache."""
+    cache, last, pos = prefilled_cache(params, cfg, prompts,
+                                       _rows(max(map(len, prompts)) + k + 1))
+    toks = torch.cat([last[:, None], torch.as_tensor([c[:k] for c in conts], device=DEV)], 1)
+    with torch.inference_mode():
+        lv, _ = forward(params, cfg, toks, cache=kv_copy(cache), cache_pos=pos)
+        ls = torch.cat([forward(params, cfg, toks[:, j:j + 1], cache=cache, cache_pos=pos + j)[0]
+                        for j in range(k + 1)], dim=1)
+    return (lv - ls).abs().max().item()
+
+
+def delta_len(params, cfg, prompts, t_small: int, t_big: int) -> float:
+    """The largest |logit| difference of one decode step (B3) against a
+    cache of t_small rows and one of t_big holding the same rows."""
+    small, last, pos = prefilled_cache(params, cfg, prompts, t_small)
+    big = grow_kv_cache(small, t_big)
+    with torch.inference_mode():
+        a, _ = forward(params, cfg, last[:, None], cache=small, cache_pos=pos)
+        b, _ = forward(params, cfg, last[:, None], cache=big, cache_pos=pos)
+    return (a - b).abs().max().item()
+
+
+def forced_margins(params, cfg, prompts, streams) -> tuple[list, int]:
+    """Each stream fed back through S = 1 decode steps (B2, B3) after its
+    prompt, all streams in one batch: at every position the top logit
+    minus the logit of the stream's own token (0 where the stream took the
+    argmax). Returns the margins [stream][position] and the cache length."""
+    n = len(streams[0])
+    if any(len(st) != n for st in streams):
+        raise AssertionError("forced_margins: streams of unequal length")
+    t = _rows(max(len(p) for p in prompts) + n)
+    cache, cur, pos = prefilled_cache(params, cfg, prompts, t)
+    toks = torch.as_tensor(streams, device=DEV)
+    out = []
+    with torch.inference_mode():
+        for j in range(n):
+            lg, _ = forward(params, cfg, cur[:, None], cache=cache, cache_pos=pos + j)
+            lg = lg[:, 0].float()
+            out.append(lg.amax(dim=1) - lg.gather(1, toks[:, j:j + 1])[:, 0])
+            cur = toks[:, j]
+    return torch.stack(out, dim=1).tolist(), t
+
+
+def tie_rule(params, cfg, prompts, ref, got, delta: float, what: str, lens=()) -> dict:
+    """Greedy streams of two runs whose kernels saw different M (or T): an
+    equal stream passes. A stream that diverges is fed back through S = 1
+    decode steps after its prompt (forced_margins), and EVERY one of its
+    tokens, those after its first divergence too, must lie within 2 delta
+    of that step's top logit (a bf16 argmax near a tie). delta grows by
+    delta_len between the check's cache length and each of `lens`, the
+    cache lengths the two runs reached. Raises on a token above 2 delta."""
+    idx = [i for i, (r, g) in enumerate(zip(ref, got)) if r != g]
+    divs = []
+    if idx:
+        sub = [prompts[i] for i in idx]
+        margins, t = forced_margins(params, cfg, sub, [got[i] for i in idx])
+        for tl in sorted(set(lens) - {t}):
+            delta = max(delta, delta_len(params, cfg, sub, min(t, tl), max(t, tl)))
+        for i, m in zip(idx, margins):
+            j = next((j for j, (a, b) in enumerate(zip(ref[i], got[i])) if a != b),
+                     min(len(ref[i]), len(got[i])))
+            off = [x for x in m if x > 0]
+            divs.append(dict(stream=i, pos=j, off_argmax=len(off), worst=max(m),
+                             ok=max(m) <= 2 * delta))
+    say(f"{what}: {len(ref) - len(idx)}/{len(ref)} streams equal; delta {delta:.4g}; "
+        "divergences (first position, tokens off the forced argmax, worst margin): "
+        + (", ".join(f"stream {d['stream']} at {d['pos']}, {d['off_argmax']} off, "
+                     f"{d['worst']:.4g}" for d in divs) or "none"))
+    bad = [d for d in divs if not d["ok"]]
+    if bad:
+        raise AssertionError(f"{what}: greedy tokens above 2 delta = {2 * delta:.4g}: {bad}")
+    return dict(equal=len(ref) - len(idx), streams=len(ref), delta=delta, divergences=divs)
+
+
+def engine_snapshot(eng) -> dict:
+    return dict(prefills=eng.prefills, decode_steps=eng.decode_steps,
+                spec=dict(eng.spec_forwards), extends=len(eng.prefix_extends))
+
+
+def predicted_launches(eng, since: dict) -> dict:
+    """B1, B2 and B3 launches of what the engine ran since `since`: four
+    packed matmuls a layer a forward, on B1 above 32 rows (a prefill, a
+    verify of max_slots (k + 1) rows, a tail prefill of its tail bucket) and
+    on B2 at or below; B3 once a layer a plain decode step (a verify and a
+    tail prefill go through cached_attention, as under JAX's flash_ok)."""
+    rows = [(eng.max_slots * (k + 1), n - since["spec"].get(k, 0))
+            for k, n in eng.spec_forwards.items()]
+    rows += [(tb, 1) for tb in eng.prefix_extends[since["extends"]:]]
+    rows += [(eng.max_slots, eng.decode_steps - since["decode_steps"])]
+    big = sum(n for m, n in rows if m > qm.DECODE_MAX_M) + eng.prefills - since["prefills"]
+    small = sum(n for m, n in rows if m <= qm.DECODE_MAX_M)
+    L = eng.cfg.num_layers
+    return dict(qmm_prefill=4 * L * big, qmm_decode=4 * L * small,
+                flash_decode=L * (eng.decode_steps - since["decode_steps"]))
+
+
+def drive(eng, prompts, new: int, what: str, **req_kw) -> dict:
+    """Requests through eng.run with the launch counts reset just before and
+    read just after; every request must finish with `new` tokens and the
+    counts must be the ones predicted from what the engine ran."""
+    reqs = [Request(prompt_tokens=list(p), max_new_tokens=new, **req_kw) for p in prompts]
+    since = engine_snapshot(eng)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.time()
+    done = eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = read_counts()
+    if len(done) != len(reqs) or not all(r.finished and len(r.output_tokens) == new for r in reqs):
+        raise AssertionError(f"{what}: not every request finished with {new} tokens")
+    want = predicted_launches(eng, since)
+    got = {k: counts[k] for k in want}
+    if got != want or any(v for k, v in counts.items() if k not in want):
+        raise AssertionError(f"{what}: launches {counts}, predicted {want}")
+    steps = eng.decode_steps - since["decode_steps"]
+    verify = {k: n - since["spec"].get(k, 0) for k, n in eng.spec_forwards.items()}
+    return dict(outs=[r.output_tokens for r in reqs], wall_s=wall, launches=got,
+                decode_steps=steps, verify_forwards=verify, cache_len=eng._cache_len(),
+                ms_per_token=wall * 1e3 / (new * len(reqs)))
+
+
+def serve_phase(gen, bw, card, rec) -> dict:
+    """A3 on a random packed int2-g128 Llama-2-7B (seed 0, 32 layers, 8
+    slots, max_len 2048, bf16 cache, A16, greedy): B1 held and timed at the
+    verify shapes; growth against a static cache; n-gram speculation on
+    random and periodic prompts against the plain engine; the prompt cache's
+    tail-only prefills; the HTTP frontend under mixed load; warmup;
+    capacity. Launch counts are exact against what each run
+    ran; greedy streams held by the tie rule. Returns the kernel times at
+    the verify shapes."""
+    cfg = CFG
+    L = cfg.num_layers
+    rec["verify_checks"], rec["verify_times"] = [], []
+    worst = check_matmuls(gen, rec["verify_checks"], ms=VERIFY_M, bits_list=(BITS,))
+    verify_t = {m: totals_entry(time_matmuls(gen, m, bw, rec["verify_times"]), bw)
+                for m in VERIFY_M}
+    for m, t in verify_t.items():
+        say(f"serve: B1 at the verify's M={m} (one layer's four int2-g128 matmuls; {card}): "
+            f"{t['ms']:.4f} ms, plain {t['plain_ms']:.3f}, torch.matmul {t['library_ms']:.4f}, "
+            f"bound {t['bound_ms']:.4f} ({t['bound_by']}); held against the plain version "
+            f"(worst relative error {worst:.3g})")
+    params = random_packed_params(cfg, bits=BITS, group_size=GROUP, seed=0, device=DEV)
+
+    def engine(**kw):
+        return Engine(params, cfg, max_slots=SERVE_SLOTS, max_len=kw.pop("max_len", SERVE_LEN),
+                      eos_token_id=None, sampling=SamplingParams(temperature=0.0), device=DEV,
+                      **kw)
+
+    rng = np.random.default_rng(19)
+    rand = [rng.integers(3, cfg.vocab_size, 64).tolist() for _ in range(SERVE_SLOTS)]
+    periodic = [rng.integers(3, cfg.vocab_size, 16).tolist() * 16 for _ in range(SERVE_SLOTS)]
+
+    # growth: the same requests on a growing and a static cache
+    grown_eng = engine()
+    grown = drive(grown_eng, rand, SERVE_NEW, "serve growth")
+    static_eng = engine(grow_cache=False)
+    static = drive(static_eng, rand, SERVE_NEW, "serve static")
+    live_slot_bytes = sum(t.nbytes for t in (static_eng.cache.k, static_eng.cache.v)) // SERVE_SLOTS
+    del static_eng
+    copies = []
+    for old, new in grown_eng.growths:
+        c = KVCache.init(cfg, SERVE_SLOTS, old, torch.bfloat16, device=DEV)
+        ms = cuda_ms(lambda i: grow_kv_cache(c, new), 2, reps=3)
+        nbytes = 2 * (c.k.nbytes + c.k.nbytes * new // old)  # read the old k, v; write the new
+        copies.append(dict(old=old, new=new, ms=ms, bound_ms=nbytes / PEAK_BYTES_PER_S * 1e3))
+        del c
+    by_bucket = {t: L * n for t, n in sorted(grown_eng.decode_steps_at.items())}
+    say(f"serve growth ({card}): copies " + ", ".join(
+        f"{c['old']}->{c['new']} {c['ms']:.3f} ms (bound {c['bound_ms']:.3f})" for c in copies)
+        + f"; B3 launches by cache length {by_bucket}; "
+        f"{grown['wall_s'] * 1e3 / grown['decode_steps']:.3f} ms a step grown, "
+        f"{static['wall_s'] * 1e3 / static['decode_steps']:.3f} static (host clock, "
+        f"{SERVE_SLOTS} x {SERVE_NEW} tokens)")
+    deltas = {k: delta_verify(params, cfg, rand, grown["outs"], k) for k in SPEC_LADDER}
+    deltas["T"] = delta_len(params, cfg, rand, 512, SERVE_LEN)
+    delta = max(deltas.values())
+    say(f"serve tie rule: delta by k {deltas} -> {delta:.4g}")
+    rec["growth"] = dict(grown={k: v for k, v in grown.items() if k != "outs"},
+                         static={k: v for k, v in static.items() if k != "outs"},
+                         copies=copies, b3_by_cache_len=by_bucket, deltas=deltas,
+                         ties=tie_rule(params, cfg, rand, static["outs"], grown["outs"], delta,
+                                       "serve grown vs static",
+                                       (static["cache_len"], grown["cache_len"])))
+
+    # speculation, adaptive over the ladder, against the plain engine
+    rec["spec"] = {}
+    plain_outs = {}
+    for name, prompts, plain in (("random", rand, grown), ("periodic", periodic, None)):
+        if plain is None:
+            plain = drive(engine(), prompts, SERVE_NEW, f"serve plain {name}")
+        eng = engine(spec_decode=True, spec_k=SPEC_LADDER[0])
+        if eng.spec_k_ladder != SPEC_LADDER:
+            raise AssertionError(f"serve spec: the engine's ladder {eng.spec_k_ladder}")
+        sp = drive(eng, prompts, SERVE_NEW, f"serve spec {name}")
+        acc = eng.spec_tokens / max(eng.spec_rounds, 1)
+        rec["spec"][name] = dict(
+            spec={k: v for k, v in sp.items() if k != "outs"},
+            plain={k: v for k, v in plain.items() if k != "outs"}, accept=acc,
+            k=eng._spec_k_last, rounds=eng.spec_rounds,
+            ties=tie_rule(params, cfg, prompts, plain["outs"], sp["outs"], delta,
+                          f"serve spec {name} vs plain", (plain["cache_len"], sp["cache_len"])))
+        distinct = len({tuple(o) for o in plain["outs"]})
+        rec["spec"][name]["distinct_plain_streams"] = distinct
+        say(f"serve spec {name} ({card}): the plain streams {distinct} distinct of "
+            f"{len(prompts)}, {len({t for o in plain['outs'] for t in o})} distinct tokens; "
+            f"acceptance {acc:.3f} tokens a verify cell, k ends "
+            f"at {eng._spec_k_last}, verify forwards by k {sp['verify_forwards']}, plain steps "
+            f"{sp['decode_steps']}; launches {sp['launches']} (predicted: 4 x {L} a forward, B1 "
+            f"at M = 8(k+1) > 32); {sp['ms_per_token']:.3f} ms a generated token, plain "
+            f"{plain['ms_per_token']:.3f}")
+        plain_outs[name] = plain["outs"]
+        del eng
+    rec["spec"]["same_plain_streams"] = plain_outs["random"] == plain_outs["periodic"]
+    say(f"serve spec: the plain streams of the random and the periodic prompts are "
+        f"{'the same' if rec['spec']['same_plain_streams'] else 'different'}")
+
+    # the prompt cache: one stored 512-token prefix, then 8 requests extending it
+    eng = engine(prompt_cache_size=4)
+    prefix = rng.integers(3, cfg.vocab_size, PREFIX_LEN).tolist()
+    tails = [rng.integers(3, cfg.vocab_size, n).tolist() for n in PREFIX_TAILS]
+    drive(eng, [prefix], PREFIX_NEW, "serve prefix store", cache_prompt=True)
+    prompts = [prefix + t for t in tails]
+    hit = drive(eng, prompts, PREFIX_NEW, "serve prefix hits")
+    if eng.prompt_cache_prefix_hits != len(tails) or hit["launches"]["qmm_prefill"] != 4 * L * sum(
+            tb > qm.DECODE_MAX_M for tb in eng.prefix_extends):
+        raise AssertionError(f"serve prefix: {eng.prompt_cache_prefix_hits} prefix hits of "
+                             f"{len(tails)}, tail buckets {eng.prefix_extends}")
+    full = drive(engine(), prompts, PREFIX_NEW, "serve prefix full prefill")
+    entry = eng._prompt_cache[tuple(prefix)]
+    tail_ms = {len(t): cuda_ms(lambda i, t=t: eng._extend_prefix(entry[0], PREFIX_LEN, t), 3)
+               for t in (tails[0], tails[-1])}
+    one = torch.zeros((1, 1024), dtype=torch.int64, device=DEV)  # the prompt in its bucket
+    one[0, :len(prompts[-1])] = torch.as_tensor(prompts[-1], device=DEV)
+    last_idx = torch.as_tensor([len(prompts[-1]) - 1], device=DEV)
+    full_ms = cuda_ms(lambda i: eng._prefill(one, last_idx), 3)
+    rec["prefix"] = dict(hits=eng.prompt_cache_prefix_hits, tail_buckets=eng.prefix_extends[:8],
+                         launches=hit["launches"], tail_prefill_ms=tail_ms,
+                         full_prefill_ms=full_ms, wall_s=hit["wall_s"], full_wall_s=full["wall_s"],
+                         ties=tie_rule(params, cfg, prompts, full["outs"], hit["outs"], delta,
+                                       "serve prefix extension vs full prefill",
+                                       (full["cache_len"], hit["cache_len"])))
+    say(f"serve prefix ({card}): {eng.prompt_cache_prefix_hits}/{len(tails)} prefix hits, tail "
+        f"buckets {eng.prefix_extends[:8]}, launches {hit['launches']}; tail prefill "
+        + ", ".join(f"{n} tokens {ms:.3f} ms" for n, ms in tail_ms.items())
+        + f" beside a full {len(prompts[-1])}-token prefill {full_ms:.3f} ms (bucket 1024)")
+    del eng, entry
+
+    rec["http"] = http_load(engine(), card)
+    rec["warmup"] = warmup_run(engine(max_len=WARMUP_LEN), rand[0], card)
+    rec["capacity"] = capacity_check(params, live_slot_bytes, card)
+    del params
+    torch.cuda.empty_cache()
+    return verify_t
+
+
+HTTP_TEXT = "the quick brown fox jumps over the lazy dog while the cat sleeps by the warm fire "
+
+
+def http_load(eng, card) -> dict:
+    """An in-process ServingFrontend on port 0 with the byte tokenizer: the
+    engine loop in this thread, the port's run_load in another, 32 requests
+    at concurrency 16 mixing /generate (JSON and SSE), /v1/completions,
+    /v1/chat/completions with a multi-token stop string, /health and
+    /metrics. Every request must succeed."""
+    front = ServingFrontend(eng, ByteTok(), port=0)
+    host, port = front.address
+    url = f"http://{host}:{port}"
+    jobs = []
+    for i in range(HTTP_REQUESTS):
+        text = HTTP_TEXT[i % 17:] + HTTP_TEXT[:i % 17]
+        kind = i % 8
+        if kind in (0, 1, 2):
+            jobs.append(("/generate", {"prompt": text, "max_new_tokens": HTTP_NEW,
+                                       "temperature": 0.0, "stream": kind == 2}))
+        elif kind in (3, 4):
+            jobs.append(("/v1/completions", {"prompt": text, "max_tokens": HTTP_NEW}))
+        elif kind == 5:
+            jobs.append(("/v1/chat/completions", {
+                "messages": [{"role": "user", "content": text}], "max_tokens": HTTP_NEW,
+                "stop": "xyz"}))
+        else:
+            jobs.append(("/health" if kind == 6 else "/metrics", None))
+    out = {}
+
+    def client():
+        try:
+            out["summary"] = loadtest.run_load([url + p for p, _ in jobs], [b for _, b in jobs],
+                                               HTTP_CONCURRENCY, timeout=300)
+        finally:
+            front.shutdown()
+
+    t = threading.Thread(target=client)
+    reset_counts()
+    t0 = time.time()
+    t.start()
+    front.serve_forever()  # the engine loop, here; returns once the client is done
+    t.join(timeout=300)
+    wall = time.time() - t0
+    counts = {k: v for k, v in read_counts().items() if v}
+    summary = out.get("summary")
+    if t.is_alive() or summary is None or summary["errors"] or summary["ok"] != len(jobs):
+        raise AssertionError(f"serve http: {summary}")
+    say(f"serve http ({card}): {len(jobs)} requests at concurrency {HTTP_CONCURRENCY} "
+        f"(/generate JSON and SSE, /v1/completions, /v1/chat/completions with a stop string, "
+        f"/health, /metrics): {len(jobs) / wall:.2f} requests/s, latency p50 "
+        f"{summary['latency_p50_s']} s p99 {summary['latency_p99_s']} s, "
+        f"{summary['throughput_tok_s']} tokens/s; launches {counts}")
+    return dict(summary, wall_s=wall, requests_per_s=len(jobs) / wall, launches=counts)
+
+
+def warmup_run(eng, prompt, card) -> dict:
+    """Engine.warmup on an engine of WARMUP_LEN rows, then the first live
+    request's launches and wall time."""
+    torch.cuda.synchronize()
+    t0 = time.time()
+    eng.warmup()
+    torch.cuda.synchronize()
+    warm_s = time.time() - t0
+    if eng._cache_len() != WARMUP_LEN or eng.active.any():
+        raise AssertionError("serve warmup did not walk every cache bucket")
+    first = drive(eng, [prompt], 32, "serve first request after warmup")
+    say(f"serve warmup ({card}): {warm_s:.2f} s (buckets {eng.cache_buckets}); first live "
+        f"request {first['wall_s'] * 1e3:.1f} ms, launches {first['launches']}")
+    return dict(seconds=warm_s, first={k: v for k, v in first.items() if k != "outs"})
+
+
+def packed_bytes(tree) -> tuple[int, int]:
+    """(bytes the kernels read: codes, combo words and every dense leaf;
+    the whole tree, the f32 scales and zeros too)."""
+    read = whole = 0
+    for _, leaf in tr.tree_items(tree):
+        if isinstance(leaf, PackedLinear):
+            read += leaf.qweight.nbytes + leaf.combo.nbytes
+            whole += leaf.qweight.nbytes + leaf.combo.nbytes + leaf.scales.nbytes + leaf.szeros.nbytes
+        else:
+            read += leaf.nbytes
+            whole += leaf.nbytes
+    return read, whole
+
+
+def capacity_check(params, live_slot_bytes: int, card) -> dict:
+    """serve_capacity for Llama-2-7B int2-g128 at 2048 against the card's
+    memory, bf16 and int8 caches: kv_bytes_per_slot equal to a live cache's
+    bytes (the static engine's bf16 cache; a one-slot int8 cache), the
+    weights within 1% of the packed tree's."""
+    read, whole = packed_bytes(params)
+    out = {}
+    for name, dtype in (("bf16", torch.bfloat16), ("int8", torch.int8)):
+        cap = serve_capacity(CFG, bits=BITS, group_size=GROUP, max_len=SERVE_LEN, kv_dtype=dtype,
+                             grow_cache=False)
+        grown = serve_capacity(CFG, bits=BITS, group_size=GROUP, max_len=SERVE_LEN,
+                               kv_dtype=dtype)
+        live = live_slot_bytes
+        if dtype == torch.int8:
+            c = KVCache.init(CFG, 1, SERVE_LEN, dtype, device=DEV)
+            live = c.k.nbytes + c.v.nbytes + c.k_scale.nbytes + c.v_scale.nbytes
+            del c
+        if cap["kv_bytes_per_slot"] != live or abs(cap["weights_bytes"] - read) > CAPACITY_TOL * read:
+            raise AssertionError(f"serve capacity {name}: {cap} against a live slot of {live} "
+                                 f"bytes and a packed tree of {read}")
+        out[name] = dict(cap, live_slot_bytes=live, grow_max_slots=grown["max_slots"])
+        say(f"serve capacity {name} ({card}, {torch.cuda.get_device_properties(0).total_memory} "
+            f"bytes): {cap['max_slots']} slots at {SERVE_LEN} (static cache), "
+            f"{grown['max_slots']} growing; kv a slot {cap['kv_bytes_per_slot']} = the live "
+            f"cache's {live}; weights {cap['weights_bytes']} vs the packed tree's {read} "
+            f"({(cap['weights_bytes'] - read) / read:+.4%}; with the f32 scales and zeros "
+            f"{whole})")
+    return out
+
+
+def method_spec_check(spec: dict, cfg, out: str, card: str) -> dict:
+    """The method script's spec bench (seven engine variants on the packed
+    int2 teacher, 16 held-out prompts, greedy): each variant's acceptance, k
+    and greedy agreement with plain, every token of every divergent stream
+    held by the tie rule (delta over the ladder's k at the bench's 16 slots
+    and over the cache lengths the engines reached). The bench's engines
+    fall back to the plain step once acceptance is under the floor, so one
+    more run verifies every round (no fallback) and reports the acceptance
+    the drafts reach on the teacher."""
+    from bitdistiller_tpu_torch.scripts import method_demo
+
+    params, prompts = spec["params"], spec["prompts"]
+    plain = spec["plain"]
+    ref = plain["outs"]
+    delta = max(delta_verify(params, cfg, prompts, ref, k) for k in SPEC_LADDER)
+    method_demo.replace_section(out, spec["header"], "\n".join(spec["lines"]))
+    for line in spec["lines"]:
+        if line.startswith("|"):
+            say(f"method spec {line}")
+    rows = {}
+    for mode, _ in method_demo.SPEC_VARIANTS:
+        r = spec[mode]
+        rows[mode] = {k: r[k] for k in ("tok_s", "accept", "k", "rounds", "spec_forwards",
+                                        "decode_steps", "cache_len")}
+        if mode != "plain":
+            rows[mode]["agree"] = r["agree"]
+            rows[mode]["ties"] = tie_rule(params, cfg, prompts, ref, r["outs"], delta,
+                                          f"method spec {mode} vs plain ({card})",
+                                          (plain["cache_len"], r["cache_len"]))
+    eng = Engine(params, cfg, max_slots=len(prompts), max_len=method_demo.SEQ,
+                 sampling=SamplingParams(temperature=0.0), eos_token_id=None,
+                 decode_horizon=16, device=DEV, spec_decode=True, spec_k=SPEC_LADDER[0])
+    eng.spec_min_accept = -1.0  # no fallback: every round verifies
+    outs = eng.generate(prompts, max_new_tokens=len(ref[0]))
+    forced = dict(accept=eng.spec_tokens / max(eng.spec_rounds, 1), rounds=eng.spec_rounds,
+                  k=eng._spec_k_last, spec_forwards=dict(eng.spec_forwards),
+                  decode_steps=eng.decode_steps, cache_len=eng._cache_len())
+    say(f"method spec, every round verified ({card}): acceptance {forced['accept']:.3f} "
+        f"tokens a verify cell over {forced['rounds']} cells, k ends at {forced['k']}, "
+        f"verify forwards by k {forced['spec_forwards']}, plain steps {forced['decode_steps']}")
+    forced["ties"] = tie_rule(params, cfg, prompts, ref, outs, delta,
+                              f"method spec every round verified vs plain ({card})",
+                              (plain["cache_len"], forced["cache_len"]))
+    return dict(delta=delta, rows=rows, forced_verify=forced)
 
 
 TF32_KERNELS = ("train_attn_fwd_tf32_kernel<64>", "train_attn_fwd_tf32_kernel<128>",
@@ -2827,6 +3374,15 @@ def totals_entry(t, bw, peak_ops=PEAK_BF16_FLOPS):
 
 
 def main() -> int:
+    try:
+        return run()
+    finally:
+        if _log_lines:
+            OUT_DIR.mkdir(exist_ok=True)
+            LOG.write_text("\n".join(_log_lines) + "\n")
+
+
+def run() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
@@ -2990,6 +3546,10 @@ def main() -> int:
         method_counts = method_phase(card, summary["method"])
         torch.cuda.empty_cache()
 
+    with Phase("serve"):
+        summary["serve"] = {}
+        verify_t = serve_phase(gen, bw, card, summary["serve"])
+
     # last, so that the earlier phases run in the same process state with or
     # without it (run before training, its 13 GB Falcon-7B build slowed the KD cycle)
     with Phase("families"):
@@ -3019,6 +3579,16 @@ def main() -> int:
     def method_block(*kinds):  # A13's launches (the method phase's whole run)
         return {k: method_counts.get(k, 0) for k in kinds}
 
+    sv = summary["serve"]
+
+    def serve_block(kind):  # the serve phase's launches of one kernel, each run
+        runs = {"grown": sv["growth"]["grown"], "static": sv["growth"]["static"],
+                **{f"spec {n}": sv["spec"][n]["spec"] for n in ("random", "periodic")},
+                "plain periodic": sv["spec"]["periodic"]["plain"],
+                "prefix hits": sv["prefix"],
+                "http": sv["http"], "first after warmup": sv["warmup"]["first"]}
+        return {name: run["launches"].get(kind, 0) for name, run in runs.items()}
+
     def family_block(kind):  # the families phase's launches of one kernel, each run
         out = {f"{name} {tag}": run["launches"].get(kind, 0) for name, fam in fams.items()
                for tag, run in fam.items() if tag in ("A16", "A8")}
@@ -3037,15 +3607,20 @@ def main() -> int:
                      "A16 engine run",
                      bound_measured_bw_ms=dec["bound_measured_bw_ms"], g64=times(dec64),
                      c6=c6_mm("qmm_decode"), families=family_block("qmm_decode"),
-                     eval=eval_block("qmm_decode"), method=method_block("qmm_decode")),
+                     eval=eval_block("qmm_decode"), method=method_block("qmm_decode"),
+                     serve=serve_block("qmm_decode")),
         kernel_entry("qmm_prefill", "quant_matmul.cu", "bitdistiller_tpu/ops/quant_matmul.py:107",
                      counts["qmm_prefill"], mm_rel, pre,
                      "the same four, M=256 (x group sums + wgmma kernel; m4096: the engine's "
-                     "first prefill shape); launches from the A16 engine run",
+                     "first prefill shape; m40, m64, m96: the speculative verify's 8(k+1) rows "
+                     "at k = 4, 7, 11); launches from the A16 engine run; serve: the serve "
+                     "phase's runs",
                      bound_measured_bw_ms=pre["bound_measured_bw_ms"], m4096=times(pre4k),
                      g64=times(pre64), c6=c6_mm("qmm_prefill"),
                      families=family_block("qmm_prefill"), eval=eval_block("qmm_prefill"),
-                     method=method_block("qmm_prefill")),
+                     method=method_block("qmm_prefill"),
+                     **{f"m{m}": times(t) for m, t in verify_t.items()},
+                     serve=serve_block("qmm_prefill")),
         kernel_entry("flash_decode", "decode_attention.cu",
                      "bitdistiller_tpu/ops/decode_attention.py:106", counts["flash_decode"],
                      at_err["stacked"], att,
@@ -3059,7 +3634,9 @@ def main() -> int:
                      c6=dict({name: times(r) for name, r in c6["attention"].items()},
                              path_launches=c6_model["flash_decode"]),
                      families=family_block("flash_decode"), eval=eval_block("flash_decode"),
-                     method=method_block("flash_decode")),
+                     method=method_block("flash_decode"),
+                     serve=dict(serve_block("flash_decode"),
+                                grown_by_cache_len=sv["growth"]["b3_by_cache_len"])),
         kernel_entry("qmm_a8", "quant_matmul_a8.cu", "bitdistiller_tpu/ops/quant_matmul.py:721",
                      counts_a8["qmm_a8"], a8_rel, a8_dec,
                      "one layer's four A8 matmuls (quantization included), M=8, int2-g128 "

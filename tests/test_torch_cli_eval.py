@@ -176,15 +176,16 @@ def _flags(parser: argparse.ArgumentParser) -> dict:
 
 
 def test_parser_holds_jax_eval_flags_and_only_the_eval_subcommands():
-    """The same flags as JAX's for the five subcommands, plus --device
-    (default cuda) and less --spec_decode (ROADMAP A3); no other
-    subcommand."""
+    """The same flags as JAX's for the five eval subcommands, plus --device
+    (default cuda) and, on `eval`, --spec_decode (JAX's has it on gsm8k,
+    humaneval and reasoning only); the other subcommands are the serving
+    ones (tests/test_torch_cli_serve.py holds their flags)."""
     got, want = _flags(tcli.build_parser()), _flags(jcli.build_parser())
-    assert set(got) == EVAL_SUBCOMMANDS
+    assert set(got) == EVAL_SUBCOMMANDS | {"pack", "serve", "chat"}
     device = (("--device",), "device", "cuda", None, ())
+    spec = (("--spec_decode",), "spec_decode", False, None, ())
     for name in EVAL_SUBCOMMANDS:
-        jax_flags = {f for f in want[name] if f[1] != "spec_decode"}
-        assert got[name] == jax_flags | {device}, name
+        assert got[name] == want[name] | {device} | ({spec} if name == "eval" else set()), name
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="checks the no-card default")

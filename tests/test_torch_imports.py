@@ -2,8 +2,11 @@
 chip_smoke.py loads neither jax nor the JAX package, the HF checkpoint path
 runs with jax, the JAX package, safetensors, ml_dtypes and transformers all
 blocked, and so do AutoClip (its calibration blocks, search and cache),
-teacher generation, the CLI's `ppl --tokens_file`, the eval modules and the
-method check with `datasets` blocked too."""
+teacher generation, the CLI's `ppl --tokens_file`, the eval modules, the
+method check and the serving path (the engine's speculation, prompt cache
+and growth, the HTTP frontend under the load tester, the packed
+checkpoint, the CLI's `pack` and the capacity planner) with `datasets`
+blocked too."""
 
 import os
 import re
@@ -30,7 +33,8 @@ for new in ("experimental.fused_mlp", "experimental.flash_decode", "scripts.bw_p
             "train.trainer", "train.data", "train.memory", "train.pipeline",
             "data.offline", "data.calib", "generation.datasets", "generation.teacher",
             "eval", "eval.ppl", "eval.tasks", "eval.gsm8k", "eval.humaneval", "eval.reasoning",
-            "cli", "scripts.method_demo"):
+            "cli", "scripts.method_demo", "serve.capacity", "serve.server", "utils",
+            "utils.prompts", "scripts.loadtest", "quant.native", "scripts.pack_timing"):
     assert "bitdistiller_tpu_torch." + new in names, names
 assert not bad, bad
 """
@@ -294,5 +298,90 @@ def test_eval_cli_and_method_demo_run_with_those_modules_blocked():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = str(ROOT)
     res = subprocess.run([sys.executable, "-c", _EVAL_BLOCKED], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0 and res.stdout.strip().endswith("ok"), res.stdout + res.stderr
+
+
+# The serving path with the same modules blocked: the engine's options, the
+# HTTP frontend under the port's load tester, the packed checkpoint both
+# ways, the CLI's `pack` (the native packer) and the capacity planner.
+_SERVE_BLOCKED = """
+import contextlib, importlib.abc, io, json, sys, tempfile, threading
+from pathlib import Path
+
+BLOCK = {"jax", "jaxlib", "bitdistiller_tpu", "safetensors", "ml_dtypes", "transformers",
+         "datasets"}
+
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path, target=None):
+        if name.split(".")[0] in BLOCK:
+            raise ImportError(name + " is blocked")
+        return None
+
+
+sys.meta_path.insert(0, Block())
+import torch
+torch.set_num_threads(1)
+from bitdistiller_tpu_torch import cli
+from bitdistiller_tpu_torch.models import (TINY_TEST, init_params, load_packed_checkpoint,
+                                           pack_model, save_packed_checkpoint)
+from bitdistiller_tpu_torch.models.hf_import import save_hf_checkpoint
+from bitdistiller_tpu_torch.scripts.loadtest import run_load
+from bitdistiller_tpu_torch.serve import Engine, Request, SamplingParams
+from bitdistiller_tpu_torch.serve.capacity import serve_capacity
+from bitdistiller_tpu_torch.serve.server import ServingFrontend
+
+
+class Tok:
+    def encode(self, s):
+        return [(ord(c) % 250) + 3 for c in s]
+
+    def decode(self, ids, **kw):
+        return "".join(chr((i - 3) % 26 + 97) for i in ids)
+
+
+d = Path(tempfile.mkdtemp())
+dense = init_params(TINY_TEST, seed=0, device="cpu")
+save_hf_checkpoint(dense, TINY_TEST, str(d / "m"))
+with contextlib.redirect_stdout(io.StringIO()):
+    cli.main(["pack", "--model_path", str(d / "m"), "--output", str(d / "p"), "--device", "cpu"])
+params, cfg = load_packed_checkpoint(str(d / "p"), device="cpu")
+save_packed_checkpoint(str(d / "p2"), params, cfg, bits=2, group_size=128)
+eng = Engine(params, cfg, max_slots=2, max_len=128, eos_token_id=None, device="cpu",
+             sampling=SamplingParams(temperature=0.0), spec_decode=True, prompt_cache_size=2)
+r = Request(prompt_tokens=[5, 6, 7] * 4, max_new_tokens=12, cache_prompt=True)
+eng.run([r])
+assert len(r.output_tokens) == 12 and eng.growths == [] and eng._cache_len() == 64
+front = ServingFrontend(Engine(params, cfg, max_slots=2, max_len=64, eos_token_id=None,
+                               device="cpu"), Tok(), port=0)
+host, port = front.address
+box = {}
+
+
+def client():
+    try:
+        box["s"] = run_load([f"http://{host}:{port}/generate", f"http://{host}:{port}/health"],
+                            [{"prompt": "hi", "max_new_tokens": 3}, None], 2, timeout=30)
+    finally:
+        front.shutdown()
+
+
+t = threading.Thread(target=client)
+t.start()
+front.serve_forever()
+t.join(timeout=30)
+assert box["s"]["ok"] == 2, box
+assert serve_capacity(cfg, hbm_bytes=1 << 30)["max_slots"] > 0
+bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCK)
+assert not bad, bad
+print("ok")
+"""
+
+
+def test_serving_path_runs_with_those_modules_blocked():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    res = subprocess.run([sys.executable, "-c", _SERVE_BLOCKED], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0 and res.stdout.strip().endswith("ok"), res.stdout + res.stderr

@@ -114,9 +114,61 @@ def test_out_never_names_results_md(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [["--spec-bench"], ["--spec-only"], ["--teacher-ckpt", "t.pkl"]])
-def test_the_spec_bench_waits_for_a3(flag):
-    with pytest.raises(SystemExit, match="ROADMAP A3"):
-        tmd.main(["--device", "cpu"] + flag)
+def test_the_spec_bench_waits_for_a3(flag, tmp_path, capsys, monkeypatch):
+    """The spec-bench flags, which waited for the engine's n-gram drafting
+    (ROADMAP A3), run now.
+    --spec-only: the seven variants on the packed teacher, their section in
+    --out, no quantization rows. --spec-bench: the bench, then the whole
+    pipeline (the bench's results stubbed here: --spec-only runs it).
+    --teacher-ckpt: trains and pickles float32 numpy leaves, then a second
+    run loads them instead of training."""
+    out = tmp_path / "demo.md"
+    argv = TINY + ["--out", str(out), "--eval-blocks", "4"]
+    if flag[0] == "--spec-only":
+        # three of the seven variants, 4 slots for the 4 prompts: CPU time
+        monkeypatch.setattr(tmd, "SPEC_VARIANTS", tmd.SPEC_VARIANTS[:2] + tmd.SPEC_VARIANTS[5:6])
+        engine = tmd.Engine
+        monkeypatch.setattr(tmd, "Engine", lambda *a, **k: engine(*a, **dict(k, max_slots=4)))
+        tmd.main(argv + flag)
+        res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        assert res["rows"] == [] and set(res["spec"]) == {m for m, _ in tmd.SPEC_VARIANTS}
+        assert all(r["accept"] >= 1.0 for m, r in res["spec"].items() if m != "plain")
+        text = out.read_text()
+        assert text.startswith("## Speculative decoding on held-out text (the port)")
+        assert "| adaptive |" in text and "Synthetic language" not in text
+        return
+    calls = []
+
+    def stub(params, cfg, blocks, log, device="cuda"):
+        calls.append(len(blocks))
+        res = {m: {"tok_s": 1.0, "outs": [], "accept": 2.0, "k": 4, "agree": 0}
+               for m, _ in tmd.SPEC_VARIANTS}
+        return dict(res, prompts=[])
+
+    monkeypatch.setattr(tmd, "spec_bench", stub)
+    if flag[0] == "--spec-bench":
+        tmd.main(argv + flag)
+        res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        assert calls == [4] and {r["label"] for r in res["rows"]} == {"int2-g64", "nf3-g64"}
+        assert "## Speculative decoding" in out.read_text()
+        return
+    ckpt = tmp_path / flag[1]
+    tmd.main(argv + ["--spec-only", "--teacher-ckpt", str(ckpt)])
+    first = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    import pickle
+
+    with open(ckpt, "rb") as f:
+        host = pickle.load(f)
+    assert host["embed"].dtype == np.float32 and isinstance(host["layers"]["q"]["w"], np.ndarray)
+    # loaded as bf16, as the JAX script loads it
+    loaded = tmd.load_teacher(str(ckpt), torch.device("cpu"))
+    assert loaded["embed"].dtype == torch.bfloat16
+    assert torch.equal(loaded["embed"], torch.from_numpy(host["embed"]).bfloat16())
+    monkeypatch.setattr(tmd, "train_teacher", lambda *a, **k: pytest.fail("retrained"))
+    tmd.main(argv + ["--spec-only", "--teacher-ckpt", str(ckpt)])
+    second = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert len(calls) == 2
+    np.testing.assert_allclose(second["teacher"], first["teacher"], rtol=1e-3)
 
 
 def test_source_corpus_raises_on_an_empty_root(tmp_path):
