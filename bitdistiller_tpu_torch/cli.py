@@ -4,6 +4,11 @@ the same flags and the same printed output, plus `--device`):
     python -m bitdistiller_tpu_torch.cli <subcommand> [--device cuda|cpu] ...
 
 Subcommands:
+  autoclip  — stage 1: clip-range search, saves a .npz clip cache
+  generate  — stage 2: teacher self-generation to JSONL
+  train     — stage 3: CAKLD KD-QAT (one process, or several with ZeRO 0/2/3)
+  export_gptq — export to the GPTQ packed format
+  mix_data  — merge+shuffle teacher JSONL sets
   ppl       — WikiText-2 perplexity eval (`--tokens_file` needs no tokenizer)
   pack      — quantize + pack a checkpoint for serving
   chat      — interactive packed-model chat
@@ -15,15 +20,19 @@ Subcommands:
 
 `--device` (default `cuda`) chooses where the model runs; without a card the
 default raises. The tokenizer comes from the checkpoint through
-`transformers` (except `ppl --tokens_file` and `pack`). The method-stage
-subcommands (autoclip, generate, train, export_gptq, mix_data) and bench are
-not registered here (ROADMAP A12, A1).
+`transformers` (except `ppl --tokens_file`, `pack`, `export_gptq` and
+`mix_data`), by `_load_tokenizer`, the one place it is loaded. A run over
+several processes passes `--coordinator_address host:port --num_processes
+N --process_id R` to each (`train`, `generate`), or runs under torchrun,
+whose variables are read when those flags are absent. `bench` is not
+registered: it waits for the port's benchmark (ROADMAP A1).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 
@@ -55,6 +64,59 @@ def _ptq_quantizer(args):
     name = args.quant_type if args.quant_type != "int" else f"int{args.w_bit}"
     q = make_fake_quantizer(name, args.q_group_size)
     return lambda w: q(w.T).T
+
+
+def cmd_autoclip(args):
+    import numpy as np
+
+    from .data.calib import get_calib_dataset
+    from .quant.autoclip import run_autoclip, save_clip_cache
+
+    params, cfg = _load_model(args.model_path, device=args.device)
+    tok = _load_tokenizer(args.model_path)
+    blocks = get_calib_dataset(
+        args.calib_dataset, tok, n_samples=args.n_samples, block_size=args.seqlen,
+        data_path=args.calib_path,
+    )
+    result = run_autoclip(
+        params, cfg, np.concatenate(blocks, axis=0), quant_type=args.quant_type,
+        n_bit=args.w_bit, group_size=args.q_group_size,
+        progress=lambda s: print(f"  autoclip {s}", file=sys.stderr),
+    )
+    os.makedirs(os.path.dirname(os.path.abspath(args.dump_clip)), exist_ok=True)
+    save_clip_cache(args.dump_clip, result["clip"])
+    print(f"clip cache saved to {args.dump_clip}")
+
+
+def cmd_train(args):
+    """Returns run_training's summary (the process's exit ignores it)."""
+    from .train.pipeline import run_training
+
+    tok = _load_tokenizer(args.model_name_or_path)
+    if getattr(tok, "pad_token", None) is None:
+        tok.pad_token = tok.eos_token
+    return run_training(args, tokenizer=tok)
+
+
+def cmd_generate(args):
+    from .generation.teacher import run_teacher_generation
+
+    return run_teacher_generation(args, tokenizer=_load_tokenizer(args.base_model))
+
+
+def cmd_export_gptq(args):
+    from .models.gptq_export import export_gptq
+
+    params, cfg = _load_model(args.model_path, "float32", args.device)
+    export_gptq(params, cfg, args.output, bits=args.w_bit, group_size=args.q_group_size)
+    print(f"GPTQ-format checkpoint saved to {args.output}")
+
+
+def cmd_mix_data(args):
+    from .generation.datasets import mix_data
+
+    n = mix_data(args.path_a, args.path_b, args.out)
+    print(f"wrote {n} lines to {args.out}")
 
 
 def cmd_ppl(args):
@@ -287,6 +349,106 @@ def build_parser():
     p = argparse.ArgumentParser(prog="bitdistiller_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
 
+    ac = sub.add_parser("autoclip", help="asymmetric clip search (stage 1)")
+    ac.add_argument("--model_path", required=True)
+    ac.add_argument("--w_bit", type=int, default=2)
+    ac.add_argument("--q_group_size", type=int, default=128)
+    ac.add_argument("--quant_type", choices=["int", "nf3"], default="int")
+    ac.add_argument("--dump_clip", required=True)
+    ac.add_argument("--calib_dataset", default="pile")
+    ac.add_argument("--calib_path", default=None, help="local JSONL for generic loaders")
+    ac.add_argument("--n_samples", type=int, default=128)
+    ac.add_argument("--seqlen", type=int, default=1024)
+    _device_flag(ac)
+    ac.set_defaults(fn=cmd_autoclip)
+
+    tr = sub.add_parser("train", help="KD-QAT training (stage 3)")
+    tr.add_argument("--model_name_or_path", required=True)
+    tr.add_argument("--data_path", required=True)
+    tr.add_argument("--output_dir", required=True)
+    tr.add_argument("--bits", type=int, default=2)
+    tr.add_argument("--q_group_size", type=int, default=128)
+    tr.add_argument("--quant_type", default="int2-asym")
+    tr.add_argument("--clip", default=None)
+    tr.add_argument("--train_kd", action="store_true", default=True)
+    tr.add_argument("--kd_loss_type", default="cakld")
+    tr.add_argument("--cakld_steps", type=int, default=10)
+    tr.add_argument("--learning_rate", type=float, default=8e-6)
+    tr.add_argument("--num_train_epochs", type=int, default=1)
+    tr.add_argument("--per_device_train_batch_size", type=int, default=2)
+    tr.add_argument("--gradient_accumulation_steps", type=int, default=8)
+    tr.add_argument("--model_max_length", type=int, default=2048)
+    tr.add_argument("--max_train_samples", type=int, default=None)
+    tr.add_argument("--lr_scheduler_type", default="constant")
+    tr.add_argument("--warmup_ratio", type=float, default=0.0)
+    tr.add_argument("--save_steps", type=int, default=400)
+    tr.add_argument("--eval_steps", type=int, default=200)
+    tr.add_argument("--logging_steps", type=int, default=1)
+    tr.add_argument("--seed", type=int, default=42)
+    tr.add_argument("--dp", type=int, default=None,
+                    help="data-parallel size (the number of processes)")
+    tr.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel size (1: tensor parallelism is not ported yet)")
+    tr.add_argument("--zero_stage", type=int, default=2, choices=[0, 2, 3],
+                    help="0: replicated optimizer state; 2: the f32 master, Adam's moments "
+                    "and the accumulators split over the ranks; 3: the latents too")
+    tr.add_argument("--remat_policy", default="full",
+                    choices=["full", "save_quantized", "save_dots"],
+                    help="gradient-checkpoint policy: save_quantized keeps the fake-quantized "
+                    "weights live across the backward; save_dots also keeps every "
+                    "projection and MLP output")
+    tr.add_argument("--param_dtype", default="bfloat16", choices=["bfloat16", "float32"],
+                    help="student latent dtype; bfloat16 keeps f32 master weights in the "
+                    "optimizer")
+    tr.add_argument("--fused_accum", action="store_true",
+                    help="quantize once an accumulation cycle: each optimizer cycle is one "
+                    "call over its micro-batches (same averaged gradient, one clip, one "
+                    "Adam step)")
+    tr.add_argument("--coordinator_address", default=None,
+                    help="host:port of rank 0's store for a multi-process run (absent: one "
+                    "process, or torchrun's variables)")
+    tr.add_argument("--num_processes", type=int, default=None)
+    tr.add_argument("--process_id", type=int, default=None)
+    tr.add_argument("--eval_on_start", action="store_true",
+                    help="run an eval pass before step 1")
+    tr.add_argument("--resume", action="store_true")
+    _device_flag(tr)
+    tr.set_defaults(fn=cmd_train)
+
+    gq = sub.add_parser("export_gptq",
+                        help="export to GPTQ packed format (AutoGPTQ interop)")
+    gq.add_argument("--model_path", required=True)
+    gq.add_argument("--w_bit", type=int, default=2)
+    gq.add_argument("--q_group_size", type=int, default=128)
+    gq.add_argument("--output", required=True)
+    _device_flag(gq)
+    gq.set_defaults(fn=cmd_export_gptq)
+
+    gen = sub.add_parser("generate", help="teacher data self-generation (stage 2)")
+    gen.add_argument("--base_model", required=True)
+    gen.add_argument("--dataset_name", default="alpaca")
+    gen.add_argument("--data_path", default=None, help="local JSON for prompts")
+    gen.add_argument("--out_path", required=True)
+    gen.add_argument("--max_sample", type=int, default=5000)
+    gen.add_argument("--max_new_tokens", type=int, default=1024)
+    gen.add_argument("--temperature", type=float, default=0.7)
+    gen.add_argument("--top_p", type=float, default=1.0)
+    gen.add_argument("--max_batch", type=int, default=8)
+    gen.add_argument("--max_seq_len", type=int, default=2048)
+    gen.add_argument("--seed", type=int, default=42)
+    gen.add_argument("--coordinator_address", default=None,
+                     help="host:port of rank 0's store for multi-process generation")
+    gen.add_argument("--num_processes", type=int, default=None)
+    gen.add_argument("--process_id", type=int, default=None)
+    _device_flag(gen)
+    gen.set_defaults(fn=cmd_generate)
+
+    mx = sub.add_parser("mix_data", help="merge+shuffle two teacher JSONL files")
+    mx.add_argument("path_a")
+    mx.add_argument("path_b")
+    mx.add_argument("--out", required=True)
+    mx.set_defaults(fn=cmd_mix_data)
+
     pp = sub.add_parser("ppl", help="WikiText-2 perplexity")
     pp.add_argument("--model_path", "--model", dest="model_path", required=True)
     pp.add_argument("--quant_type", choices=["int", "nf3", None], default=None)
@@ -416,8 +578,10 @@ def build_parser():
 
 
 def main(argv=None):
+    """Run a subcommand; returns what it returns (`train`: the run's
+    summary, `generate`: the file written), for callers in process."""
     args = build_parser().parse_args(argv)
-    args.fn(args)
+    return args.fn(args)
 
 
 if __name__ == "__main__":

@@ -3,9 +3,11 @@
 on a prompt dataset through the port's continuous-batching `Engine`, and
 write one `[[prompt, completion]]` JSON line a prompt, in prompt order.
 
-One process only: the JAX package's multi-host sharding (a shard of the
-prompts and a file per process) waits for ROADMAP A11, and the multi-host
-arguments raise rather than being ignored.
+Several processes (`coordinator_address`, `num_processes`, `process_id`,
+or torchrun's variables) split the prompts as the JAX package does: rank r
+of n takes `prompts[r::n]`, samples with seed + r and writes its own file,
+`{base}_T{temperature}_N{max_sample}_S{seed}_{r}{ext}` (the reference's
+shard names); one process writes `out_path` itself.
 """
 
 from __future__ import annotations
@@ -13,27 +15,36 @@ from __future__ import annotations
 import json
 import os
 
+import torch.distributed as dist
+
 from .._device import resolve_device
+from ..parallel.distributed import (get_rank, get_world_size, init_distributed, local_device,
+                                    shutdown_distributed)
 from ..serve import Engine, Request, SamplingParams
 from .datasets import PROMPT_STYLES, get_gen_prompts, style_for_dataset
-
-_MULTI_HOST_ARGS = ("coordinator_address", "num_processes", "process_id")
 
 
 def run_teacher_generation(args, *, tokenizer=None, model=None) -> str:
     """Generate with `args` (the JAX package's `generate` CLI namespace:
     base_model, dataset_name, data_path, out_path, max_sample,
-    max_new_tokens, temperature, top_p, max_batch, max_seq_len, seed; plus
-    `device`, default "cuda"). The model is the HF checkpoint at
-    `args.base_model`, loaded in bf16, unless `model=(params, cfg)` is
-    given; the tokenizer is `transformers.AutoTokenizer`'s unless given.
-    Returns the path written."""
-    for name in _MULTI_HOST_ARGS:
-        if getattr(args, name, None) is not None:
-            raise NotImplementedError(
-                f"{name} is set: multi-host teacher generation is not ported (ROADMAP A11); "
-                "the port generates in one process")
+    max_new_tokens, temperature, top_p, max_batch, max_seq_len, seed,
+    coordinator_address, num_processes, process_id; plus `device`, default
+    "cuda"). The model is the HF checkpoint at `args.base_model`, loaded in
+    bf16, unless `model=(params, cfg)` is given; the tokenizer is
+    `transformers.AutoTokenizer`'s unless given. Returns the path written."""
     device = resolve_device(getattr(args, "device", "cuda"))
+    fresh = not dist.is_initialized()
+    joined = init_distributed(getattr(args, "coordinator_address", None),
+                              getattr(args, "num_processes", None),
+                              getattr(args, "process_id", None), device=device)
+    try:
+        return _generate(args, local_device(device), tokenizer, model)
+    finally:
+        if fresh and joined:
+            shutdown_distributed()
+
+
+def _generate(args, device, tokenizer, model) -> str:
     if tokenizer is None:
         from transformers import AutoTokenizer
 
@@ -50,6 +61,9 @@ def run_teacher_generation(args, *, tokenizer=None, model=None) -> str:
         args.dataset_name, args.max_sample, args.seed, getattr(args, "data_path", None)
     )
     style = PROMPT_STYLES[style_for_dataset(args.dataset_name)]
+    # shard the prompts over the ranks (DistributedSampler's interleave)
+    n_proc, rank = get_world_size(), get_rank()
+    prompts = prompts[rank::n_proc]
 
     eng = Engine(
         params,
@@ -58,7 +72,7 @@ def run_teacher_generation(args, *, tokenizer=None, model=None) -> str:
         max_len=args.max_seq_len,
         sampling=SamplingParams(temperature=args.temperature, top_p=args.top_p),
         eos_token_id=tok.eos_token_id,
-        seed=args.seed,  # rank 0 of 1: the JAX package's seed + rank
+        seed=args.seed + rank,
         decode_horizon=16,  # batch generation: throughput over EOS latency
         device=device,
     )
@@ -73,7 +87,9 @@ def run_teacher_generation(args, *, tokenizer=None, model=None) -> str:
     for r in eng.run(reqs):
         results[order[id(r)]] = tok.decode(r.output_tokens, skip_special_tokens=True)
 
-    out_path = args.out_path  # one process: the JAX package's single-process name
+    base, ext = os.path.splitext(args.out_path)
+    out_path = (f"{base}_T{args.temperature}_N{args.max_sample}_S{args.seed}_{rank}{ext or '.json'}"
+                if n_proc > 1 else args.out_path)
     os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
     with open(out_path, "w") as f:
         for prompt, completion in zip(templated, results):

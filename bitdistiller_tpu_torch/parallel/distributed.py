@@ -1,0 +1,118 @@
+"""Multi-process bring-up (PyTorch port of the JAX package's
+`parallel/distributed.py`): join a process group, one device a rank, the
+dp "mesh", and each rank's contiguous shard of a list.
+
+One process a rank, as torchrun and DeepSpeed launch them. The backend
+follows the device the caller asked for: NCCL for a CUDA device, gloo for
+the CPU. Rank r runs on `cuda:{local_rank}`. Where JAX assembles a global
+dp-sharded array from every host's rows (`global_batch_from_host`), each
+rank here feeds its own rows to its own step; the gradients are averaged
+over the ranks (`parallel/zero.py`), so the step is that of the global
+batch, the concatenation of the ranks' rows in rank order.
+"""
+
+from __future__ import annotations
+
+import datetime
+import logging
+import os
+from typing import Optional
+
+import torch
+import torch.distributed as dist
+
+from .mesh import Mesh, make_mesh
+
+logger = logging.getLogger(__name__)
+
+_TORCHRUN_VARS = ("RANK", "WORLD_SIZE", "MASTER_ADDR")
+TIMEOUT_S = 600  # the rendezvous and every collective
+
+
+def backend_for(device) -> str:
+    """NCCL for a CUDA device, gloo for the CPU."""
+    return "nccl" if torch.device(device).type == "cuda" else "gloo"
+
+
+def init_distributed(coordinator_address: Optional[str] = None,
+                     num_processes: Optional[int] = None,
+                     process_id: Optional[int] = None, *, device="cuda") -> bool:
+    """Join a multi-process run; returns True when the process is in a
+    group after the call.
+
+    With every argument None this is a no-op, unless torchrun's RANK,
+    WORLD_SIZE and MASTER_ADDR are set: then the group comes from them (the
+    counterpart of JAX's auto-detection). Otherwise `coordinator_address`
+    ("host:port" of rank 0's store), `num_processes` and `process_id` give
+    the rendezvous. A process already in a group stays in it."""
+    if dist.is_initialized():
+        return True
+    explicit = (coordinator_address, num_processes, process_id)
+    from_env = all(v is None for v in explicit)
+    if from_env and not all(v in os.environ for v in _TORCHRUN_VARS):
+        return False
+    if not from_env and None in explicit:
+        raise ValueError("coordinator_address, num_processes and process_id go together")
+    backend = backend_for(device)
+    timeout = datetime.timedelta(seconds=TIMEOUT_S)
+    if from_env:
+        dist.init_process_group(backend, init_method="env://", timeout=timeout)
+    else:
+        addr = coordinator_address if "://" in coordinator_address else f"tcp://{coordinator_address}"
+        dist.init_process_group(backend, init_method=addr, world_size=num_processes,
+                                rank=process_id, timeout=timeout)
+    if backend == "nccl":
+        torch.cuda.set_device(local_device(device))
+    logger.info("distributed init: rank %d/%d over %s", dist.get_rank(), dist.get_world_size(),
+                backend)
+    return True
+
+
+def shutdown_distributed() -> None:
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def get_rank() -> int:
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def get_world_size() -> int:
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def local_rank() -> int:
+    """torchrun's LOCAL_RANK, else the rank modulo the cards on this host."""
+    if "LOCAL_RANK" in os.environ:
+        return int(os.environ["LOCAL_RANK"])
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 1
+    return get_rank() % max(n, 1)
+
+
+def local_device(device) -> torch.device:
+    """The rank's own device: `cuda:{local_rank}` for a CUDA device, else
+    the device itself."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dist.is_initialized():
+        return torch.device("cuda", local_rank())
+    return dev
+
+
+def make_hybrid_mesh(tp: int = 1, dp: Optional[int] = None) -> Mesh:
+    """The (dp, tp) mesh: dp is the world size. Tensor parallelism is not
+    ported (it waits for the TP slice), so tp > 1 raises."""
+    return make_mesh(dp=dp, tp=tp)
+
+
+def host_shard(seq, process_id: Optional[int] = None, process_count: Optional[int] = None):
+    """This rank's contiguous shard of a list (the DistributedSampler
+    analogue). Every shard has the same length: the global remainder is
+    dropped, so no rank sees a shorter last batch."""
+    p = get_rank() if process_id is None else process_id
+    n = get_world_size() if process_count is None else process_count
+    if n == 1:
+        return seq
+    per = len(seq) // n
+    if per == 0:
+        raise ValueError(f"cannot shard {len(seq)} items over {n} hosts")
+    return seq[p * per: (p + 1) * per]

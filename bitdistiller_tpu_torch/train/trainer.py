@@ -16,6 +16,10 @@ consumed, as the JAX step donates it).
 `state.step` counts what the JAX package counts: micro-steps in
 `make_train_step`, optimizer cycles in `make_fused_train_step` (inherited
 fault C4, kept and pinned by tests/test_torch_trainer.py).
+
+Data parallelism: `init_train_state(..., group=, zero_stage=)` places the
+state over a process group (`parallel/zero.py`, ZeRO 0/2/3) and the steps
+then average the gradients over the ranks, each rank feeding its own rows.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ from typing import Any, Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .._device import torch_dtype
 from ..models import llama
@@ -173,22 +178,30 @@ def _zeros_like(tree, dtype=None) -> dict:
     return tree_map(lambda x: torch.zeros_like(x, dtype=dtype or x.dtype), tree)
 
 
+def _leaf_norm(items) -> torch.Tensor:
+    return global_norm([g for _, g in items])
+
+
 class ClipAdamW:
     """optax.chain(clip_by_global_norm(max_norm), adamw(schedule, b1, b2,
-    eps, weight_decay))."""
+    eps, weight_decay)). `norm` maps [(path, grad)] to the global norm the
+    clip decides on (under ZeRO, the whole gradient's over the ranks)."""
 
-    def __init__(self, tc: TrainConfig):
+    def __init__(self, tc: TrainConfig, norm=None):
         self.tc = tc
         self.schedule = make_schedule(tc)
+        self.norm = norm or _leaf_norm
 
     def init(self, params) -> AdamWState:
         return AdamWState(0, _zeros_like(params), _zeros_like(params), 0)
 
-    def update(self, grads: dict, state: AdamWState, params: dict):
+    def update(self, grads: dict, state: AdamWState, params: dict, g_norm=None):
+        """`g_norm`: these grads' global norm, where the caller has it."""
         tc = self.tc
         b1, b2 = tc.adam_b1, tc.adam_b2
         items = tree_items(grads)
-        g_norm = global_norm([g for _, g in items])
+        if g_norm is None:
+            g_norm = self.norm(items)
         clip = not bool(g_norm < tc.max_grad_norm)
         count = state.count + 1
         bc1 = 1 - np.float32(b1) ** np.float32(count)
@@ -234,9 +247,9 @@ class WithF32Master:
         master = _f32_like(params)
         return MasterWeightsState(master, self.inner.init(master))
 
-    def update(self, grads, state: MasterWeightsState, params=None):
+    def update(self, grads, state: MasterWeightsState, params=None, g_norm=None):
         g32 = tree_map(lambda g: g.to(torch.float32), grads)
-        upd, inner = self.inner.update(g32, state.inner, state.master)
+        upd, inner = self.inner.update(g32, state.inner, state.master, g_norm)
         for path, u in tree_items(upd):
             _set(state.master, path, _get(state.master, path) + u)
         return None, MasterWeightsState(state.master, inner)
@@ -253,7 +266,8 @@ class WithF32MasterAccum:
         master = _f32_like(params)
         return MasterAccumState(master, _zeros_like(master), 0, self.inner.init(master))
 
-    def update(self, grads, state: MasterAccumState, params=None):
+    def update(self, grads, state: MasterAccumState, params=None, g_norm=None):
+        # g_norm (the micro-step's) is not the norm of the mean the inner update sees
         for path, g in tree_items(grads):
             _set(state.acc, path, _get(state.acc, path) + g.to(torch.float32))
         count = state.count + 1
@@ -277,7 +291,8 @@ class MultiSteps:
     def init(self, params) -> MultiStepsState:
         return MultiStepsState(0, 0, self.inner.init(params), _zeros_like(params))
 
-    def update(self, grads, state: MultiStepsState, params=None):
+    def update(self, grads, state: MultiStepsState, params=None, g_norm=None):
+        # g_norm (the micro-step's) is not the norm of the mean the inner update sees
         n = state.mini_step
         acc = tree_map(lambda g, a: a + (g - a) / (n + 1), grads, state.acc_grads)
         if n != self.k - 1:
@@ -287,9 +302,9 @@ class MultiSteps:
         return upd, MultiStepsState(0, state.gradient_step + 1, inner, _zeros_like(acc))
 
 
-def make_optimizer(tc: TrainConfig):
+def make_optimizer(tc: TrainConfig, norm=None):
     """The JAX package's make_optimizer: the same wrappers, chosen alike."""
-    opt = ClipAdamW(tc)
+    opt = ClipAdamW(tc, norm)
     latent_is_f32 = latent_dtype(tc) == torch.float32
     if tc.fused_accum:
         return opt if latent_is_f32 else WithF32Master(opt)
@@ -310,25 +325,42 @@ def make_quantizer(tc: TrainConfig):
 
 @dataclasses.dataclass
 class TrainState:
-    params: dict  # student latent weights
+    params: dict  # student latent weights (this rank's parts under ZeRO-3)
     opt_state: Any
     step: int
+    zero: Any = None  # parallel.zero.ZeroPlan under a process group
 
 
-def init_train_state(params, tc: TrainConfig) -> TrainState:
+def init_train_state(params, tc: TrainConfig, *, group=None, zero_stage: int = 0) -> TrainState:
     """Latents in tc.param_dtype (fresh tensors: the step updates the state in
-    place, so it never aliases the caller's tree) and the optimizer state."""
+    place, so it never aliases the caller's tree) and the optimizer state.
+
+    With a process group, the state is placed over its ranks at
+    `zero_stage` (JAX `trainer.py:263-280`): 0 replicates it; 2 splits the
+    f32 master, Adam's moments and the accumulators; 3 splits the latents
+    too. Integer counters are replicated."""
     dt = latent_dtype(tc)
     latent = tree_map(lambda x: x.detach().to(dt).clone() if x.is_floating_point() else x,
                       params)
-    return TrainState(params=latent, opt_state=make_optimizer(tc).init(latent), step=0)
+    if group is None:
+        return TrainState(params=latent, opt_state=make_optimizer(tc).init(latent), step=0)
+    from ..parallel.zero import ZeroPlan
+
+    opt = make_optimizer(tc)
+    plan = ZeroPlan(latent, zero_stage, opt, group)
+    opt_state = opt.init(plan.shard_tree(latent, "opt"))
+    return TrainState(params=plan.shard_tree(latent, "params"), opt_state=opt_state, step=0,
+                      zero=plan)
 
 
 def master_params(state: TrainState) -> dict:
-    """The f32 master copy when the optimizer keeps one, else the params."""
+    """The f32 master copy when the optimizer keeps one, else the params;
+    whole (gathered from every rank, a collective) under ZeRO."""
+    z = state.zero
     if isinstance(state.opt_state, (MasterWeightsState, MasterAccumState)):
-        return state.opt_state.master
-    return state.params
+        m = state.opt_state.master
+        return m if z is None else z.gather_tree(m, "opt")
+    return state.params if z is None else z.gather_tree(state.params, "params")
 
 
 def _student_remat(tc: TrainConfig, quantizer):
@@ -386,17 +418,53 @@ def _with_grad(params) -> dict:
                     params)
 
 
-def _new_params(state_params, opt_state, updates) -> dict:
+def _new_params(state_params, opt_state, updates, opt_params=None, zero=None) -> dict:
     """The latents after an update: master.to(latent dtype) for the master
     wrappers (only on a cycle boundary for the accumulating one), else
-    params + updates."""
-    if isinstance(opt_state, MasterAccumState):
-        if opt_state.count != 0:
-            return state_params
-        return tree_map(lambda m, p: m.to(p.dtype), opt_state.master, state_params)
-    if isinstance(opt_state, MasterWeightsState):
-        return tree_map(lambda m, p: m.to(p.dtype), opt_state.master, state_params)
-    return tree_map(lambda p, u: (p + u).to(p.dtype), state_params, updates)
+    params + updates (`opt_params`: the latents as the optimizer saw them,
+    by default the state's). Under ZeRO these are made on this rank's parts
+    and placed back."""
+    if isinstance(opt_state, MasterAccumState) and opt_state.count != 0:
+        return state_params
+    if opt_params is None:
+        opt_params = state_params
+    if isinstance(opt_state, (MasterAccumState, MasterWeightsState)):
+        new = tree_map(lambda m, p: m.to(p.dtype), opt_state.master, opt_params)
+    else:
+        new = tree_map(lambda p, u: (p + u).to(p.dtype), opt_params, updates)
+    return new if zero is None else zero.latents_from(new)
+
+
+def _dp_inputs(state: TrainState):
+    """(whole latents for the forward, the latents as the optimizer sees
+    them): under ZeRO-3 a gather of the latents; the optimizer's view is
+    this rank's own parts or views of the whole leaves, never a copy (the
+    master wrappers read only its dtype)."""
+    z = state.zero
+    if z is None:
+        return state.params, state.params
+    full = z.gather_tree(state.params, "params")
+    if isinstance(state.opt_state, (MasterWeightsState, MasterAccumState)):
+        return full, state.params
+    return full, z.opt_parts(full, state.params)
+
+
+def _update(tc, opts: dict, state: TrainState, grads, opt_params):
+    """One optimizer update: (the new latents, the optimizer state, the
+    global gradient norm). The norm is computed once, for the metrics and
+    the clip (where the clip sees these grads); under ZeRO it is the norm
+    over the ranks, and `opts` holds the optimizer of each placement, built
+    at its first step."""
+    z = state.zero
+    if z is None:
+        gnorm = global_norm(tree_leaves(grads))
+    else:
+        gnorm = z.global_norm(tree_items(grads))
+        if z not in opts:
+            opts[z] = make_optimizer(tc, z.global_norm)
+    updates, new_opt = opts[z].update(grads, state.opt_state, opt_params, g_norm=gnorm)
+    new_params = _new_params(state.params, new_opt, updates, opt_params, z)
+    return new_params, new_opt, gnorm
 
 
 def make_train_step(cfg: ModelConfig, tc: TrainConfig, teacher_params=None) -> Callable:
@@ -404,20 +472,24 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, teacher_params=None) -> C
     batch: dict of [B, S] tensors (input_ids, labels, attention_mask). With
     no teacher the step trains with plain CE on the labels."""
     quantizer = make_quantizer(tc) if tc.quant_type else None
-    opt = make_optimizer(tc)
+    opts = {None: make_optimizer(tc)}
     student_remat = _student_remat(tc, quantizer)
 
     def train_step(state: TrainState, batch, beta, teacher=None):
         t = teacher if teacher is not None else teacher_params
-        params = _with_grad(state.params)
+        full, opt_params = _dp_inputs(state)
+        z = state.zero
+        params = _with_grad(full)
         loss = _kd_or_ce_loss(cfg, tc, params, batch, beta, t, quantizer=quantizer,
                               student_remat=student_remat)
         grads = _grads(loss, params)
-        updates, new_opt = opt.update(grads, state.opt_state, state.params)
-        new_params = _new_params(state.params, new_opt, updates)
-        gnorm = global_norm(tree_leaves(grads))
-        return (TrainState(params=new_params, opt_state=new_opt, step=state.step + 1),
-                {"loss": loss.detach(), "grad_norm": gnorm})
+        loss = loss.detach()
+        del params, full
+        if z is not None:
+            grads, loss = z.reduce_grads(grads), z.mean(loss)
+        new_params, new_opt, gnorm = _update(tc, opts, state, grads, opt_params)
+        return (TrainState(params=new_params, opt_state=new_opt, step=state.step + 1, zero=z),
+                {"loss": loss, "grad_norm": gnorm})
 
     return train_step
 
@@ -430,7 +502,7 @@ def make_fused_train_step(cfg: ModelConfig, tc: TrainConfig, teacher_params=None
     AdamW + the master sweep once. `batches` is a list of micro-batches."""
     assert tc.fused_accum, "make_fused_train_step requires tc.fused_accum"
     quantizer = make_quantizer(tc) if tc.quant_type else None
-    opt = make_optimizer(tc)
+    opts = {None: make_optimizer(tc)}
     k = tc.grad_accum
     fused_remat = (tc.remat_policy if tc.gradient_checkpointing
                    and tc.remat_policy in ("save_dots", "save_qkvo")
@@ -438,7 +510,9 @@ def make_fused_train_step(cfg: ModelConfig, tc: TrainConfig, teacher_params=None
 
     def cycle_step(state: TrainState, batches, beta, teacher=None):
         t = teacher if teacher is not None else teacher_params
-        params = _with_grad(state.params)
+        full, opt_params = _dp_inputs(state)
+        z = state.zero
+        params = _with_grad(full)
         qparams = params if quantizer is None else llama.quantize_layer_weights(params, quantizer)
         q_items = tree_items(qparams)
         qleaf = _with_grad(qparams)
@@ -464,11 +538,12 @@ def make_fused_train_step(cfg: ModelConfig, tc: TrainConfig, teacher_params=None
             _set(grads, path, mean_q[path])
         for (path, _), g in zip(outs, back):
             _set(grads, path, g)
-        updates, new_opt = opt.update(grads, state.opt_state, state.params)
-        new_params = _new_params(state.params, new_opt, updates)
-        gnorm = global_norm(tree_leaves(grads))
+        del params, full, qparams, qleaf, acc, mean_q, back
         losses = torch.stack(losses)
-        return (TrainState(params=new_params, opt_state=new_opt, step=state.step + 1),
+        if z is not None:  # one reduction a cycle: the mean of the ranks' cycle gradients
+            grads, losses = z.reduce_grads(grads), z.mean(losses)
+        new_params, new_opt, gnorm = _update(tc, opts, state, grads, opt_params)
+        return (TrainState(params=new_params, opt_state=new_opt, step=state.step + 1, zero=z),
                 {"loss": losses.mean(), "grad_norm": gnorm, "micro_losses": losses})
 
     return cycle_step
@@ -487,11 +562,18 @@ def make_cakld_beta_fn(cfg: ModelConfig) -> Callable:
     return batch_mean_prob
 
 
-def estimate_cakld_beta(teacher_params, cfg, batches, fn=None) -> torch.Tensor:
-    """The mean of the teacher's mean max-prob over `batches`."""
+def estimate_cakld_beta(teacher_params, cfg, batches, fn=None, group=None) -> torch.Tensor:
+    """The mean of the teacher's mean max-prob over `batches`; with a
+    process group, over every rank's batches (each rank the same count: the
+    mean of the ranks' means, an all-reduce)."""
     fn = fn or make_cakld_beta_fn(cfg)
     total, n = 0.0, 0
     for batch in batches:
         total = total + fn(teacher_params, batch)
         n += 1
-    return total / max(n, 1)
+    beta = total / max(n, 1)
+    if group is not None:
+        beta = torch.as_tensor(beta, dtype=torch.float32).clone()
+        dist.all_reduce(beta, group=group)
+        beta = beta / dist.get_world_size(group)
+    return beta

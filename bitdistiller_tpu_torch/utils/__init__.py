@@ -1,1 +1,2 @@
-"""Host-side helpers of the port (prompt templates)."""
+"""Host-side helpers of the port: prompt templates, numerics debugging
+(`debug`) and profiling (`profiling`)."""

@@ -31,10 +31,15 @@ stage 3, run_training on the clip cache and the generated data: int2-asym
 STE at g64, CAKLD, 2 x 1024 tokens a micro-step, grad_accum 2, two
 optimizer cycles, student and teacher through B8, the checkpoint loaded,
 trained and saved by run_training itself, its losses bit-equal to a run
-handed the same tree) and `serve_trained` (the final save reloaded
+handed the same tree; the three stages go through the CLI
+in process, `cli train` in a process group of one rank over NCCL at ZeRO
+2, and its step-2 checkpoint resumes through `cli train --resume
+--fused_accum --zero_stage 3` under BITDISTILLER_DEBUG=1) and
+`serve_trained` (the final save reloaded
 bit-equal to the master, packed at int2-g64 and served through the Engine
 on B1/B2/B3, then exported to GPTQ with every code, scale and zero point
-held; the checkpoint I/O seconds beside the card's name and power limit),
+held, and again by `cli export_gptq` from the save; the checkpoint I/O
+seconds beside the card's name and power limit),
 `eval` (stage 4 on the trained TinyLlama-1.1B: the perplexity over all 139
 blocks of 2048 byte tokens of the wikitext fixture's test text, batch 8, of
 the teacher checkpoint, of RTN int2-g64 of it and of the student under the
@@ -134,10 +139,20 @@ Tolerances (kernel vs plain version on the same inputs):
     within 1e-6 relative; the cache reloads equal, and its clamp of the
     loaded tree equals the clipped tree exactly;
   * teacher generation (stage 2): 10 lines in prompt order, each prompt
-    templated and each completion non-empty; B3's launches a positive
-    multiple of the 22 layers and no packed matmul (the dense tree); the
+    templated and each completion non-empty; B3's launches exactly 22 times
+    the engine's decode steps and no other kernel (the dense tree); the
     training micro-batches 2 x 1024; one decode step of the dense model
     through the kernels against use_kernels=False within LOGIT_TOL;
+  * stage 3 through the CLI: `cli train` at world size 1 (NCCL,
+    ZeRO 2) bit-equal to the injected single-device run (losses and
+    gradient norms), B8's launches exactly 22 x (2 CAKLD batches + 3 x
+    the micro-steps) forwards and 22 x the micro-steps dkv and dq; the
+    fused ZeRO-3 resume's cycle-2 loss within RESUME_LOSS_TOL relative of
+    the uninterrupted run's mean over the same micro-steps, and its final
+    master's update within RESUME_MASTER_TOL of the uninterrupted run's;
+    `cli mix_data` keeps every line; `cli export_gptq`'s codes, zero points
+    and scales equal to the direct export's, its other tensors within a
+    bf16 rounding (2^-7 relative past 2^-24);
   * eval (stage 4): the packed perplexities through B1 / B4 against
     use_kernels=False on the first 2 blocks: summed NLL within 1e-3
     relative (bf16 matmul outputs rounded after sums in another order); the
@@ -169,6 +184,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from bitdistiller_tpu_torch import cli as port_cli
 from bitdistiller_tpu_torch.data.calib import get_calib_dataset
 from bitdistiller_tpu_torch.experimental import flash_decode as fd1
 from bitdistiller_tpu_torch.experimental import fused_mlp as fm
@@ -189,7 +205,7 @@ from bitdistiller_tpu_torch.models import (
     save_packed_checkpoint,
 )
 from bitdistiller_tpu_torch.generation import datasets as gen_datasets
-from bitdistiller_tpu_torch.generation.teacher import run_teacher_generation
+from bitdistiller_tpu_torch.generation import teacher as teacher_mod
 from bitdistiller_tpu_torch.models.hf_import import load_hf_checkpoint, save_hf_checkpoint
 from bitdistiller_tpu_torch.ops import _build
 from bitdistiller_tpu_torch.ops import decode_attention as da
@@ -212,6 +228,7 @@ from bitdistiller_tpu_torch.train import pipeline
 from bitdistiller_tpu_torch.train import trainer as tr
 from bitdistiller_tpu_torch.train.data import Collator, SupervisedDataset, data_loader
 from bitdistiller_tpu_torch.train.pipeline import run_training
+from bitdistiller_tpu_torch.utils.profiling import StepTimer
 
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (data sheet)
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores (data sheet)
@@ -1838,6 +1855,19 @@ TRAIN_GNORM_TOL = 2e-3
 # layer, which B8's backward kernels move directly: about 10x the largest
 # reading, 1.8e-3 (the last layer's k).
 TRAIN_ATTN_GRAD_TOL = 2e-2
+# the resumed cycle (fused: the weights quantized once a cycle) against the
+# uninterrupted stepwise run's mean loss of the same two micro-batches, from
+# the same latents: the same forwards up to the fused route's remat. Read:
+# 4.8e-8 relative on an H100 80GB HBM3 at 700 W, in every call.
+RESUME_LOSS_TOL = 5e-7
+# The resumed run's final master against the uninterrupted run's, by the
+# update both made from the step-2 master m2: ||m - m_ref|| / ||m_ref - m2||
+# over the whole tree. Both cycles take the mean gradient of the same two
+# micro-batches (the fused one rounds it to bf16 at the quantized weights)
+# and make one Adam step from the restored moments. A rank's part of the
+# master left unmoved reads about 0.7 here, an update of half the size 0.5.
+# Read: 0.00251 on an H100 80GB HBM3 at 700 W.
+RESUME_MASTER_TOL = 0.01
 
 
 class ByteTok:
@@ -1938,9 +1968,9 @@ def first_step_check(params, cfg, data, rec):
 
 
 class CheckpointTimes:
-    """Host seconds of the HF load and the final save that run_training makes
-    itself: the pipeline module's two references, wrapped for one run (each
-    call ends on a synchronised device)."""
+    """Host seconds of the rendezvous, the HF load and the final save that
+    run_training makes itself: the pipeline module's three references,
+    wrapped for one run (each call ends on a synchronised device)."""
 
     def __init__(self):
         self.s: dict = {}
@@ -1956,13 +1986,59 @@ class CheckpointTimes:
         return call
 
     def __enter__(self):
-        self.saved = (pipeline.load_hf_checkpoint, pipeline.save_hf_checkpoint)
+        self.saved = (pipeline.load_hf_checkpoint, pipeline.save_hf_checkpoint,
+                      pipeline.init_distributed, pipeline.save_checkpoint)
         pipeline.load_hf_checkpoint = self._timed("load_f32_s", self.saved[0])
         pipeline.save_hf_checkpoint = self._timed("final_save_f32_s", self.saved[1])
+        pipeline.init_distributed = self._timed("nccl_init_s", self.saved[2])
+        self.saves: list = []  # (micro-step, host seconds) of each train-state checkpoint
+        save = self._timed("checkpoint_s", self.saved[3])
+
+        def save_checkpoint(ckpt_dir, step, state):
+            out = save(ckpt_dir, step, state)
+            self.saves.append((step, self.s["checkpoint_s"]))
+            return out
+
+        pipeline.save_checkpoint = save_checkpoint
         return self
 
     def __exit__(self, *exc):
-        pipeline.load_hf_checkpoint, pipeline.save_hf_checkpoint = self.saved
+        (pipeline.load_hf_checkpoint, pipeline.save_hf_checkpoint,
+         pipeline.init_distributed, pipeline.save_checkpoint) = self.saved
+        return False
+
+
+class CycleTimes:
+    """Each fused cycle of one run timed by the port's StepTimer (host clock,
+    ended by a synchronize) beside CUDA events around the same call: the
+    pipeline's make_fused_train_step, wrapped for one run."""
+
+    def __enter__(self):
+        self.saved, self.timer, self.events_ms = pipeline.make_fused_train_step, StepTimer(), []
+
+        def make(*a, **kw):
+            step = self.saved(*a, **kw)
+
+            def timed(*args):
+                start, end = (torch.cuda.Event(enable_timing=True),
+                              torch.cuda.Event(enable_timing=True))
+                holder = []
+                with self.timer.step(holder):
+                    start.record()
+                    out = step(*args)
+                    end.record()
+                    holder.append(out[1]["loss"])
+                end.synchronize()
+                self.events_ms.append(start.elapsed_time(end))
+                return out
+
+            return timed
+
+        pipeline.make_fused_train_step = make
+        return self
+
+    def __exit__(self, *exc):
+        pipeline.make_fused_train_step = self.saved
         return False
 
 
@@ -1970,24 +2046,65 @@ def dir_bytes(path: Path) -> int:
     return sum(f.stat().st_size for f in path.iterdir() if f.suffix == ".safetensors")
 
 
-def train_run(args, model=None) -> dict:
-    """One run_training (peak memory reset before it); its summary, wall
+def train_run(args=None, model=None, argv=None, saves=()) -> dict:
+    """One run_training, injected (`args`, `model`) or through `cli train`
+    in process (`argv`), peak memory reset before it; its summary, wall
     seconds, peak memory and metrics.jsonl, with each micro-step's and each
     cycle's ms. A micro-step's loss is read back before the next starts, so
-    its seconds_per_step ends on a synchronised step."""
+    its seconds_per_step ends on a synchronised step. `saves`: the (step,
+    seconds) of the run's checkpoint writes (a list filled as it runs),
+    taken out of the micro-step whose interval holds them."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
-    summary = run_training(args, tokenizer=ByteTok(), model=model)
+    if argv is None:
+        summary, out_dir = run_training(args, tokenizer=ByteTok(), model=model), args.output_dir
+    else:
+        summary, out_dir = port_cli.main(argv), argv[argv.index("--output_dir") + 1]
     torch.cuda.synchronize()
     wall = time.time() - t0
-    metrics = [json.loads(line) for line in open(Path(args.output_dir) / "metrics.jsonl")]
+    metrics = [json.loads(line) for line in open(Path(out_dir) / "metrics.jsonl")]
     ends = [m["step"] * m["seconds_per_step"] for m in metrics]  # since the loop began
     micro_ms = [(b - a) * 1e3 for a, b in zip([0.0] + ends, ends)]
+    for step, sec in saves:  # written after micro-step `step`, before the next ends
+        if step < len(micro_ms):
+            micro_ms[step] -= sec * 1e3
     return dict(summary=summary, wall_s=wall, peak=torch.cuda.max_memory_allocated(),
                 losses=[m["loss"] for m in metrics],
                 grad_norms=[m["grad_norm"] for m in metrics], micro_step_ms=micro_ms,
                 cycle_ms=[sum(micro_ms[:2]), sum(micro_ms[2:4])])
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def cli_train_argv(data, out, clip, model, *extra) -> list:
+    """`cli train` flags for train_args's run (teacher_flash: the CLI has no
+    flag; BITDISTILLER_TRAIN_FLASH=1 routes the teacher as teacher_flash
+    does), joining a process group of one rank over NCCL."""
+    return ["train", "--model_name_or_path", str(model), "--data_path", str(data),
+            "--output_dir", str(out), "--bits", "2", "--q_group_size", "64", "--quant_type",
+            "int2-asym", "--clip", str(clip), "--kd_loss_type", "cakld", "--cakld_steps", "2",
+            "--learning_rate", "8e-6", "--num_train_epochs", "1",
+            "--per_device_train_batch_size", "2", "--gradient_accumulation_steps", "2",
+            "--model_max_length", "1024", "--lr_scheduler_type", "constant", "--warmup_ratio",
+            "0.0", "--eval_steps", "0", "--logging_steps", "1", "--seed", "0", "--tp", "1",
+            "--param_dtype", "bfloat16", "--remat_policy", "full", "--coordinator_address",
+            f"127.0.0.1:{free_port()}", "--num_processes", "1", "--process_id", "0",
+            "--device", DEV, *extra]
+
+
+def predicted_b8(layers: int, cakld_steps: int, micro_steps: int) -> dict:
+    """B8's launches in a KD run with remat "full": the teacher's forward a
+    layer a CAKLD batch; a micro-step's student and teacher forwards and the
+    student's recompute in the backward; its dkv and dq once a layer."""
+    return dict(train_attn_fwd=layers * (cakld_steps + 3 * micro_steps),
+                train_attn_bwd_dkv=layers * micro_steps, train_attn_bwd_dq=layers * micro_steps)
 
 
 # ---- stages 1 and 2 of the method: AutoClip and teacher generation --------------
@@ -2065,33 +2182,40 @@ def clip_objective(w_kn, feat, mx, mn, n_bit, group_size):
 
 
 def autoclip_stage(ckpt: Path, tmp: Path, card: str, rec: dict) -> Path:
-    """Stage 1 on the checkpoint: load it in bf16, cut 128 blocks of 1024
-    tokens from the wikitext fixture's text rows (ByteTok), run_autoclip at
-    int2 g64 on 512 sampled rows, save the cache. Checks: layer 0's v and
-    the first 256 columns of its down searched on the CPU in f32 against the
-    card (CLIP_SAME_SHARE, CLIP_OBJ_TOL); every chosen clip of layers 0 and
-    21 no worse than shrink (1, 1) (CLIP_INVARIANT_TOL); the cache reloads
-    equal and its clamp of the loaded tree equals the clipped tree.
-    Returns the cache's path."""
-    params, cfg = load_hf_checkpoint(str(ckpt), dtype=torch.bfloat16, device=DEV)
+    """Stage 1 through `cli autoclip` (in process; the byte tokenizer through
+    the CLI's `_load_tokenizer`): the CLI loads the checkpoint in bf16, cuts
+    128 blocks of 1024 tokens from the wikitext fixture's text rows, runs
+    run_autoclip at int2 g64 on 512 sampled rows and saves the cache.
+    Checks: the blocks' shape; layer 0's v and the first 256 columns of its
+    down searched on the CPU in f32 against the card (CLIP_SAME_SHARE,
+    CLIP_OBJ_TOL); every chosen clip of layers 0 and 21 no worse than
+    shrink (1, 1) (CLIP_INVARIANT_TOL); the cache holds those layers'
+    searches bit for bit, and its clamp of the loaded tree (apply_clip_cache)
+    equals each group clamped to its range. Returns the cache's path."""
+    cfg = TINYLLAMA_1B
     with open(CALIB_FIXTURE) as f:
         (tmp / "calib.txt").write_text("".join(json.loads(x)["text"] for x in f if x.strip()))
-    blocks = get_calib_dataset("text", ByteTok(), n_samples=CALIB_BLOCKS, block_size=CALIB_BLOCK,
-                               data_path=str(tmp / "calib.txt"))
-    calib = np.concatenate(blocks)
+    calib = np.concatenate(get_calib_dataset("text", ByteTok(), n_samples=CALIB_BLOCKS,
+                                             block_size=CALIB_BLOCK,
+                                             data_path=str(tmp / "calib.txt")))
     if calib.shape != (CALIB_BLOCKS, CALIB_BLOCK):
         raise AssertionError(f"autoclip: calibration blocks {calib.shape}")
     last = cfg.num_layers - 1
+    clip_path = tmp / "clip.npz"
     torch.cuda.synchronize()
     t0 = time.time()
     with AutoclipTimes(cfg, keep=(0, last)) as times:
-        res = autoclip.run_autoclip(params, cfg, calib, quant_type="int", n_bit=2,
-                                    group_size=64, n_sample_token=CLIP_TOKENS)
+        port_cli.main(["autoclip", "--model_path", str(ckpt), "--w_bit", "2", "--q_group_size",
+                       "64", "--quant_type", "int", "--dump_clip", str(clip_path),
+                       "--calib_dataset", "text", "--calib_path", str(tmp / "calib.txt"),
+                       "--n_samples", str(CALIB_BLOCKS), "--seqlen", str(CALIB_BLOCK),
+                       "--device", DEV])
     torch.cuda.synchronize()
     wall = time.time() - t0
-    clip_path = tmp / "clip.npz"
-    autoclip.save_clip_cache(str(clip_path), res["clip"])
     kept = times.kept
+    if times.calls != len(times.targets) * cfg.num_layers:
+        raise AssertionError(f"autoclip: {times.calls} searches, not one a linear a layer")
+    params, _ = load_hf_checkpoint(str(ckpt), dtype=torch.bfloat16, device=DEV)
 
     # the card's search against the CPU's, f32, on the same inputs
     vs_cpu = {}
@@ -2122,65 +2246,100 @@ def autoclip_stage(ckpt: Path, tmp: Path, card: str, rec: dict) -> Path:
         if excess > CLIP_INVARIANT_TOL:
             raise AssertionError(f"autoclip: layer {li} {name}: a chosen clip is worse than "
                                  f"shrink (1, 1) by {excess:.3g} relative")
-    # the cache: reloads equal; its clamp of the loaded tree is the clipped tree
+    # the cache: holds the searches; its clamp of the loaded tree is each
+    # group clamped to its range
     loaded = autoclip.load_clip_cache(str(clip_path))
     clipped = autoclip.apply_clip_cache(params, loaded)
+    for (li, name), (w, _, (bmax, bmin)) in kept.items():
+        mx, mn = loaded[li][name]
+        if not (np.array_equal(mx, bmax.cpu().numpy()) and np.array_equal(mn, bmin.cpu().numpy())):
+            raise AssertionError(f"autoclip: the cache of layer {li} {name} is not its search's")
+        k, n = w.shape
+        wg = w.float().t().reshape(n, k // 64, 64)
+        want = torch.clamp(wg, torch.as_tensor(mn, device=DEV)[..., None],
+                           torch.as_tensor(mx, device=DEV)[..., None])
+        if not torch.equal(clipped["layers"][name]["w"][li], want.reshape(n, k).t().to(w.dtype)):
+            raise AssertionError(f"autoclip: apply_clip_cache of layer {li} {name} is not the "
+                                 f"groups clamped to their ranges")
     groups = shrunk = 0
-    for li, layer in res["clip"].items():
+    for li, layer in loaded.items():
         for name, (mx, mn) in layer.items():
-            if not (np.array_equal(loaded[li][name][0], mx)
-                    and np.array_equal(loaded[li][name][1], mn)):
-                raise AssertionError(f"autoclip: the cache of layer {li} {name} reloads unequal")
             w = params["layers"][name]["w"][li]
             wg = w.float().t().reshape(w.shape[1], -1, 64)
             groups += mx.size
             shrunk += int(((torch.as_tensor(mx, device=DEV) != wg.amax(-1))
                            | (torch.as_tensor(mn, device=DEV) != wg.amin(-1))).sum())
-    for name in times.targets:
-        if not torch.equal(clipped["layers"][name]["w"], res["params"]["layers"][name]["w"]):
-            raise AssertionError(f"autoclip: apply_clip_cache of the loaded tree differs at {name}")
     s = times.s
     rec.update(blocks=list(calib.shape), n_sample_token=CLIP_TOKENS, group_size=64, bits=2,
                wall_s=wall, capture_s=s["capture_s"], search_s=s["search_s"],
                s_per_layer=wall / cfg.num_layers, groups=groups, groups_shrunk=shrunk,
                vs_cpu=vs_cpu, invariant_worst_rel=worst_inv, invariant_checked=checked,
-               cache_bytes=clip_path.stat().st_size)
-    say(f"autoclip TinyLlama-1.1B from its checkpoint ({card}): {CALIB_BLOCKS} x {CALIB_BLOCK} "
-        f"calibration tokens, int2 g64, {CLIP_TOKENS} sampled rows; run {wall:.2f} s (capture "
-        f"{s['capture_s']:.2f} s, search {s['search_s']:.2f} s, {wall / cfg.num_layers:.3f} s a "
-        f"layer); {shrunk} of {groups} groups clipped at a shrink other than 1")
+               cache_bytes=clip_path.stat().st_size, through="cli autoclip")
+    say(f"autoclip TinyLlama-1.1B through `cli autoclip` from its checkpoint ({card}): "
+        f"{CALIB_BLOCKS} x {CALIB_BLOCK} calibration tokens, int2 g64, {CLIP_TOKENS} sampled "
+        f"rows; run {wall:.2f} s (the CLI's load included; capture {s['capture_s']:.2f} s, search "
+        f"{s['search_s']:.2f} s, {wall / cfg.num_layers:.3f} s a layer); {shrunk} of {groups} "
+        f"groups clipped at a shrink other than 1")
     say(f"autoclip checks: card vs CPU search, v {vs_cpu['v']['same_share']:.4f} equal (worst "
         f"objective {vs_cpu['v']['worst_objective_rel']:.3g}), down[:, :256] "
         f"{vs_cpu['down']['same_share']:.4f} (worst {vs_cpu['down']['worst_objective_rel']:.3g}) "
         f"(>= {CLIP_SAME_SHARE}, tol {CLIP_OBJ_TOL}); layers 0 and {last}: {checked} chosen "
         f"clips no worse than shrink (1, 1) (worst {worst_inv:.3g}, tol {CLIP_INVARIANT_TOL}); "
-        f"the cache reloads equal and clamps the loaded tree to the clipped one")
-    del params, res, clipped, kept, times
+        f"the cache holds their searches and clamps the loaded tree group by group")
+    del params, clipped, kept, times
     torch.cuda.empty_cache()
     return clip_path
 
 
+class EngineCapture:
+    """The Engines the teacher-generation module builds while inside (the
+    module's reference, wrapped for one run)."""
+
+    def __enter__(self):
+        self.engines, self.saved = [], teacher_mod.Engine
+
+        def build(*a, **kw):
+            self.engines.append(self.saved(*a, **kw))
+            return self.engines[-1]
+
+        teacher_mod.Engine = build
+        return self
+
+    def __exit__(self, *exc):
+        teacher_mod.Engine = self.saved
+        return False
+
+
 def generation_stage(ckpt: Path, prompts: Path, tmp: Path, card: str, rec: dict,
                      params) -> Path:
-    """Stage 2 on the checkpoint: run_teacher_generation (bf16, the dense
-    engine, 8 slots, 2048 rows, temperature 0.7, top_p 1.0, 720 new tokens)
-    on the prompts of the [[p, r]] file, its counts reset before and read
-    after. Checks: 10 lines in prompt order, each prompt templated and each
-    completion non-empty; B3 on every decode step (a positive multiple of the
-    22 layers), no packed matmul; one decode step of the dense model through
-    the kernels against use_kernels=False within LOGIT_TOL (`params`: the
-    tree the checkpoint holds). Returns the generated file."""
-    args = types.SimpleNamespace(
-        base_model=str(ckpt), dataset_name="json", data_path=str(prompts),
-        out_path=str(tmp / "generated.jsonl"), max_sample=5000, max_new_tokens=GEN_NEW_TOKENS,
-        temperature=0.7, top_p=1.0, max_batch=8, max_seq_len=2048, seed=0, device=DEV)
+    """Stage 2 through `cli generate` (in process): the CLI's
+    run_teacher_generation (bf16, the dense engine, 8 slots, 2048 rows,
+    temperature 0.7, top_p 1.0, 720 new tokens) on the prompts of the
+    [[p, r]] file, its counts reset before and read after. Checks: 10 lines
+    in prompt order, each prompt templated and each completion non-empty;
+    B3's launches exactly 22 layers times the engine's decode steps, no
+    packed matmul, no other kernel; one decode step of the dense model
+    through the kernels against use_kernels=False within LOGIT_TOL
+    (`params`: the tree the checkpoint holds). Returns the generated file."""
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.time()
-    out = Path(run_teacher_generation(args, tokenizer=ByteTok()))
+    with EngineCapture() as cap:
+        out = Path(port_cli.main([
+            "generate", "--base_model", str(ckpt), "--dataset_name", "json", "--data_path",
+            str(prompts), "--out_path", str(tmp / "generated.jsonl"), "--max_sample", "5000",
+            "--max_new_tokens", str(GEN_NEW_TOKENS), "--temperature", "0.7", "--top_p", "1.0",
+            "--max_batch", "8", "--max_seq_len", "2048", "--seed", "0", "--device", DEV]))
     torch.cuda.synchronize()
     wall = time.time() - t0
     counts = read_counts()
+    if len(cap.engines) != 1:
+        raise AssertionError(f"generation: {len(cap.engines)} engines")
+    steps = cap.engines[0].decode_steps
+    want_b3 = TINYLLAMA_1B.num_layers * steps
+    if counts["flash_decode"] != want_b3 or any(v for k, v in counts.items() if k != "flash_decode"):
+        raise AssertionError(f"generation: launches {counts}, predicted B3 {want_b3} "
+                             f"({steps} decode steps x 22 layers) and nothing else")
     lines = [json.loads(x) for x in out.read_text().splitlines()]
     want = [json.loads(x)[0][0] for x in prompts.read_text().splitlines() if x.strip()]
     style = gen_datasets.PROMPT_STYLES[gen_datasets.style_for_dataset("json")]
@@ -2189,10 +2348,6 @@ def generation_stage(ckpt: Path, prompts: Path, tmp: Path, card: str, rec: dict,
     if len(lines) != 10 or not all(x[0][1] for x in lines):
         raise AssertionError(f"generation: {len(lines)} lines, or an empty completion")
     layers = TINYLLAMA_1B.num_layers
-    packed = {k: v for k, v in counts.items() if k.startswith("qmm") and v}
-    if counts["flash_decode"] <= 0 or counts["flash_decode"] % layers or packed:
-        raise AssertionError(f"generation: B3 not on every decode step, or a packed matmul: "
-                             f"{counts}")
     tokens = sum(len(x[0][1]) for x in lines)  # ByteTok: a character a token
     # the training rows (prompt, completion, "</s>") and their micro-batches
     ds = SupervisedDataset.from_jsonl(str(out), ByteTok.eos_token, None, "train", 0)
@@ -2202,11 +2357,13 @@ def generation_stage(ckpt: Path, prompts: Path, tmp: Path, card: str, rec: dict,
         raise AssertionError(f"generation: the micro-batches are {shapes}, not 2 x 1024")
     step = dense_step_check(params)
     rec.update(lines=len(lines), new_tokens=GEN_NEW_TOKENS, tokens=tokens, wall_s=wall,
-               tokens_per_s=tokens / wall, launches=counts, row_tokens=rows, decode_check=step)
-    say(f"generation TinyLlama-1.1B from its checkpoint ({card}): 10 prompts, 8 slots, "
-        f"temperature 0.7; {tokens} tokens in {wall:.2f} s -> {tokens / wall:.1f} tokens/s; B3 "
-        f"{counts['flash_decode']} launches ({counts['flash_decode'] // layers} decode steps), "
-        f"no packed matmul; training rows {min(rows)}-{max(rows)} tokens, micro-batches 2 x 1024")
+               tokens_per_s=tokens / wall, launches=counts, decode_steps=steps,
+               predicted_b3=want_b3, row_tokens=rows, decode_check=step, through="cli generate")
+    say(f"generation TinyLlama-1.1B through `cli generate` from its checkpoint ({card}): 10 "
+        f"prompts, 8 slots, temperature 0.7; {tokens} tokens in {wall:.2f} s -> "
+        f"{tokens / wall:.1f} tokens/s; B3 {counts['flash_decode']} launches = {layers} layers x "
+        f"{steps} decode steps, as predicted, no other kernel; training rows "
+        f"{min(rows)}-{max(rows)} tokens, micro-batches 2 x 1024")
     say(f"generation decode step, dense bf16, kernels vs plain: max|dlogit| {step['err']:.4g} of "
         f"{step['max']:.4g} (tol {LOGIT_TOL} relative)")
     return out
@@ -2246,13 +2403,22 @@ def train_phase(card, rec):
     CAKLD with beta from estimate_cakld_beta, micro-batch 2 x 1024,
     grad_accum 2, two optimizer cycles, student and teacher through B8
     (BITDISTILLER_TRAIN_FLASH=1 and teacher_flash, for this phase only),
-    remat "full". The first micro-step is held against the plain attention;
-    then the tree is handed to run_training (injected: the path earlier
-    slices took), and run_training loads the checkpoint itself (in f32:
-    exact upcasts of the same bf16 values), trains and writes its final f32
-    save: the main path, its counts reset just before and read just after.
-    Its losses and gradient norms must equal the injected run's bit for bit.
-    The second cycle, past the first launches, gives ms a cycle and
+    remat "full". Stages 1 and 2 go through `cli autoclip` and `cli
+    generate`, and `cli mix_data` merges the generated file with the
+    prompts. The first micro-step is held against the plain attention; then
+    the tree is handed to run_training (injected, one device, no process
+    group), and `cli train` loads the checkpoint itself (in f32: exact
+    upcasts of the same bf16 values) in a process group of one rank over
+    NCCL at ZeRO 2, saves the full state every 2 micro-steps, trains and
+    writes its final f32 save: the main path, its counts reset just before
+    and read just after. Its losses and gradient norms must equal the
+    injected run's bit for bit, and B8's launches the count predicted from
+    the run. Then `cli train --resume --fused_accum --zero_stage 3` under
+    BITDISTILLER_DEBUG=1 (the checked step) from a copy of the step-2
+    checkpoint trains cycle 2 in the fused format: its loss within
+    RESUME_LOSS_TOL of the uninterrupted run's, its B8 launches as
+    predicted, the cycle timed by StepTimer beside CUDA events. The second
+    cycle of the first run, past the first launches, gives ms a cycle and
     tokens/s. Returns the final master, the config and the temp dir that
     holds the bf16 checkpoint ("init", the teacher) and the final save
     ("out", the student): serve_trained reads the save, the eval phase both,
@@ -2261,6 +2427,8 @@ def train_phase(card, rec):
     params = init_params(cfg, seed=0, dtype=torch.bfloat16, device=DEV)
     tmp = Path(tempfile.mkdtemp(prefix="bd_train_"))
     saved = os.environ.get("BITDISTILLER_TRAIN_FLASH")
+    saved_tok = port_cli._load_tokenizer
+    port_cli._load_tokenizer = lambda path: ByteTok()  # the card has no transformers
     try:
         prompts = tmp / "teacher.jsonl"
         write_teacher_jsonl(prompts)
@@ -2269,9 +2437,10 @@ def train_phase(card, rec):
         save_hf_checkpoint(params, cfg, str(tmp / "init"), dtype=torch.bfloat16)
         save_s = time.time() - t0
         init_bytes = dir_bytes(tmp / "init")
-        rec.update(autoclip={}, generation={})
+        rec.update(autoclip={}, generation={}, disk_free_bytes=shutil.disk_usage(tmp).free)
         clip = str(autoclip_stage(tmp / "init", tmp, card, rec["autoclip"]))
         data = generation_stage(tmp / "init", prompts, tmp, card, rec["generation"], params)
+        rec["mix_data"] = mix_data_check(data, prompts, tmp)
         busy = first_step_check(params, cfg, data, rec)
         os.environ["BITDISTILLER_TRAIN_FLASH"] = "1"
         ref = train_run(train_args(data, tmp / "injected", clip=clip), model=(params, cfg))
@@ -2281,13 +2450,35 @@ def train_phase(card, rec):
         torch.cuda.empty_cache()
         reset_counts()
         with CheckpointTimes() as io:
-            run = train_run(train_args(data, tmp / "out", clip=clip,
-                                       model_name_or_path=str(tmp / "init")))
+            run = train_run(argv=cli_train_argv(data, tmp / "out", clip, tmp / "init",
+                                                "--zero_stage", "2", "--save_steps", "2"),
+                            saves=io.saves)
         counts = read_counts()
+        del run["summary"]["state"]  # 19.8 GB on the card; the summary keeps the master
+        # the resume run starts from a copy (a hard link) of the step-2 checkpoint
+        (tmp / "resume" / "step_2").mkdir(parents=True)
+        os.link(tmp / "out" / "step_2" / "state.pt", tmp / "resume" / "step_2" / "state.pt")
+        ckpt_bytes = (tmp / "out" / "step_2" / "state.pt").stat().st_size
+        for step in ("step_2", "step_4"):
+            shutil.rmtree(tmp / "out" / step)
+        torch.cuda.empty_cache()
+        os.environ["BITDISTILLER_DEBUG"] = "1"
+        reset_counts()
+        with CheckpointTimes() as rio, CycleTimes() as cycles:
+            resumed = train_run(argv=cli_train_argv(
+                data, tmp / "resume", clip, tmp / "init", "--zero_stage", "3", "--save_steps",
+                "0", "--resume", "--fused_accum"))
+        resume_counts = read_counts()
+        del resumed["summary"]["state"]
+        master_gap = update_gap(resumed["summary"].pop("master"), run["summary"]["master"],
+                                tmp / "resume" / "step_2" / "state.pt")
+        shutil.rmtree(tmp / "resume")
     except BaseException:
         shutil.rmtree(tmp, ignore_errors=True)
         raise
     finally:
+        port_cli._load_tokenizer = saved_tok
+        os.environ.pop("BITDISTILLER_DEBUG", None)
         if saved is None:
             os.environ.pop("BITDISTILLER_TRAIN_FLASH", None)
         else:
@@ -2295,21 +2486,36 @@ def train_phase(card, rec):
     summary, losses, micro_ms, cycle_ms = (run["summary"], run["losses"], run["micro_step_ms"],
                                            run["cycle_ms"])
     need = ("train_attn_fwd", "train_attn_bwd_dkv", "train_attn_bwd_dq")
+    want_b8 = predicted_b8(cfg.num_layers, 2, 4)
+    want_b8_resume = predicted_b8(cfg.num_layers, 2, 2)
+    resume_loss = resumed["losses"][-1] if resumed["losses"] else float("nan")
+    uninterrupted = (losses[2] + losses[3]) / 2 if len(losses) == 4 else float("nan")
+    resume_gap = abs(resume_loss - uninterrupted) / abs(uninterrupted)
     tokens = 2 * 2 * 1024  # a cycle: grad_accum 2 x micro-batch 2 x 1024 positions
     rec.update(config="TINYLLAMA_1B", layers=cfg.num_layers, micro_batch=[2, 1024],
                grad_accum=2, cycles=2, beta=summary["beta"], losses=losses,
                grad_norms=run["grad_norms"], launches=counts, wall_s=run["wall_s"],
                micro_step_ms=micro_ms, cycle_ms=cycle_ms,
                tokens_per_s=tokens / cycle_ms[1] * 1e3, max_memory_allocated=run["peak"],
-               profile=busy, injected={k: ref[k] for k in ref},
+               profile=busy, injected={k: ref[k] for k in ref}, through="cli train",
+               zero_stage=2, world_size=1, predicted_launches=want_b8,
                checkpoint_io=dict(save_bf16_s=save_s, save_bf16_bytes=init_bytes, **io.s,
-                                  final_save_bytes=dir_bytes(tmp / "out")))
+                                  final_save_bytes=dir_bytes(tmp / "out"),
+                                  train_state_bytes=ckpt_bytes, train_state_saves=io.saves),
+               resume=dict(loss=resume_loss, uninterrupted=uninterrupted, rel_gap=resume_gap,
+                           tol=RESUME_LOSS_TOL, master_update_gap=master_gap,
+                           master_tol=RESUME_MASTER_TOL, launches=resume_counts,
+                           predicted_launches=want_b8_resume, wall_s=resumed["wall_s"],
+                           max_memory_allocated=resumed["peak"], steps=resumed["summary"]["steps"],
+                           cycle_step_timer_ms=cycles.timer.mean_ms,
+                           cycle_events_ms=cycles.events_ms, io=rio.s))
     try:
         if len(losses) != 4 or not all(math.isfinite(x) for x in losses) or summary["steps"] != 4:
             raise AssertionError(f"training: {summary['steps']} micro-steps, losses {losses}")
-        if not all(counts[k] > 0 for k in need):
-            raise AssertionError(f"training did not run through B8's kernels: {counts}")
-        say(f"train TinyLlama-1.1B from its checkpoint ({cfg.num_layers} layers, int2-asym g64 "
+        if {k: counts[k] for k in need} != want_b8:
+            raise AssertionError(f"cli train's B8 launches {counts}, predicted {want_b8}")
+        say(f"train TinyLlama-1.1B through `cli train` from its checkpoint ({cfg.num_layers} "
+            f"layers, int2-asym g64 "
             f"STE, the clip cache, the generated data, CAKLD beta {summary['beta']:.4f}; {card}): "
             f"launches "
             f"{ {k: counts[k] for k in need} }, run {run['wall_s']:.1f} s; micro-steps "
@@ -2318,15 +2524,40 @@ def train_phase(card, rec):
             f"tokens/s; peak memory {run['peak'] / 2**30:.2f} GiB")
         for name, key in (("losses", "losses"), ("grad norms", "grad_norms"),
                           ("micro-step ms", "micro_step_ms"), ("cycle ms", "cycle_ms")):
-            say(f"train {name}: from the checkpoint {run[key]!r} | injected tree (the parent's "
-                f"path) {ref[key]!r}")
-        say(f"train peak memory: from the checkpoint {run['peak'] / 2**30:.3f} GiB | injected "
-            f"tree {ref['peak'] / 2**30:.3f} GiB; run {run['wall_s']:.2f} s | {ref['wall_s']:.2f} s")
+            say(f"train {name}: cli train from the checkpoint {run[key]!r} | injected tree "
+                f"{ref[key]!r}")
+        say(f"train run: cli train {run['wall_s']:.2f} s | injected tree {ref['wall_s']:.2f} s")
         if losses != ref["losses"] or run["grad_norms"] != ref["grad_norms"]:
-            raise AssertionError("training from the checkpoint is not bit-equal to the injected "
-                                 "tree's run")
-        say("train from the checkpoint: the 4 losses and grad norms bit-equal to the injected "
-            "tree's")
+            raise AssertionError("cli train (NCCL, world size 1, ZeRO 2) is not bit-equal to the "
+                                 "injected tree's run")
+        say(f"train through `cli train` (NCCL at world size 1, ZeRO 2, rendezvous "
+            f"{io.s['nccl_init_s']:.3f} s): the 4 losses and grad norms bit-equal to the injected "
+            f"single-device run; B8 launches as predicted {want_b8}; the train state's "
+            f"checkpoints {ckpt_bytes / 1e9:.2f} GB each, written in "
+            f"{[round(sec, 2) for _, sec in io.saves]} s (taken out of the micro-step ms)")
+        say(f"train resume (cli train --resume --fused_accum --zero_stage 3, BITDISTILLER_DEBUG=1, "
+            f"from the stepwise ZeRO-2 step-2 checkpoint): cycle 2 loss {resume_loss!r} vs the "
+            f"uninterrupted run's {uninterrupted!r} (relative gap {resume_gap:.3g}, tol "
+            f"{RESUME_LOSS_TOL}); the final master's update {master_gap:.4g} from the "
+            f"uninterrupted run's (||m - m_ref|| / ||m_ref - m2||, tol {RESUME_MASTER_TOL}); B8 "
+            f"launches {({k: resume_counts[k] for k in need})} (predicted "
+            f"{want_b8_resume}); the cycle {cycles.timer.mean_ms:.1f} ms (StepTimer) vs "
+            f"{cycles.events_ms} ms (CUDA events); run {resumed['wall_s']:.1f} s, rendezvous "
+            f"{rio.s['nccl_init_s']:.3f} s")
+        say(f"train peak memory ({card}): injected tree {ref['peak'] / 2**30:.3f} GiB | cli train "
+            f"ZeRO 2 {run['peak'] / 2**30:.3f} GiB | resume fused ZeRO 3 checked "
+            f"{resumed['peak'] / 2**30:.3f} GiB (the first run's f32 master held beside it)")
+        if resumed["summary"]["steps"] != 4 or len(resumed["losses"]) != 1:
+            raise AssertionError(f"resume: {resumed['summary']['steps']} micro-steps, losses "
+                                 f"{resumed['losses']}")
+        if not resume_gap <= RESUME_LOSS_TOL:
+            raise AssertionError(f"resume: cycle 2's loss {resume_loss} vs {uninterrupted}")
+        if not master_gap <= RESUME_MASTER_TOL:
+            raise AssertionError(f"resume: the final master's update lies {master_gap} from the "
+                                 f"uninterrupted run's")
+        if {k: resume_counts[k] for k in need} != want_b8_resume:
+            raise AssertionError(f"resume: B8 launches {resume_counts}, predicted "
+                                 f"{want_b8_resume}")
         if busy is not None:
             say(f"profiler train: B8 {busy['b8_ms']:.2f} ms in one flash micro-step: "
                 + ", ".join(f"{k} {v:.2f} ms" for k, v in busy["b8"].items()))
@@ -2337,9 +2568,85 @@ def train_phase(card, rec):
     except BaseException:
         shutil.rmtree(tmp, ignore_errors=True)
         raise
-    master = tr.master_params(summary["state"])
+    master = summary["master"]
     del summary, run
     return master, cfg, tmp
+
+
+def update_gap(master: dict, ref: dict, ckpt: Path) -> float:
+    """||master - ref|| / ||ref - m2|| over the whole f32 tree, m2 the
+    master the checkpoint at `ckpt` holds (read leaf by leaf from the
+    memory-mapped file)."""
+    flat = torch.load(ckpt, map_location="cpu", mmap=True)
+    num = den = 0.0
+    for path, want in tr.tree_items(ref):
+        got = tr._get(master, path)
+        start = flat["opt_state/master/" + "/".join(path)].to(DEV)
+        num += float(((got - want).double() ** 2).sum())
+        den += float(((want - start).double() ** 2).sum())
+    del flat
+    return math.sqrt(num / den)
+
+
+def mix_data_check(generated: Path, prompts: Path, tmp: Path) -> dict:
+    """`cli mix_data` of the generated file and the smoke's prompts file:
+    as many lines as the two hold, every line kept."""
+    out = tmp / "mixed.jsonl"
+    port_cli.main(["mix_data", str(generated), str(prompts), "--out", str(out)])
+    src = [x for p in (generated, prompts) for x in p.read_text().splitlines() if x.strip()]
+    got = out.read_text().splitlines()
+    if sorted(got) != sorted(src):
+        raise AssertionError(f"cli mix_data: {len(got)} lines, not the {len(src)} of its inputs")
+    say(f"cli mix_data: the generated file and the prompts file merged into {len(got)} lines, "
+        f"every line kept")
+    out.unlink()
+    return dict(lines=len(got), sources=len(src))
+
+
+GPTQ_KEYS = (".qweight", ".qzeros", ".scales", ".g_idx")
+# the direct export's packed tree carries bf16 norms, embedding and lm_head
+# (f16 of a bf16 copy), the CLI's dense export f16 of the f32 save: a bf16
+# rounding apart (2^-8 of the value) plus one f16 rounding, whose step
+# below f16's smallest normal (6.1e-5) is 2^-24
+GPTQ_AUX_RTOL, GPTQ_AUX_ATOL = 2 ** -7, 2 ** -24
+
+
+def compare_exports(direct: Path, cli: Path) -> dict:
+    """The CLI's GPTQ export against the direct one: the same files, the
+    JSON files byte-equal, the same tensors (names, shapes, dtypes), every
+    code, zero point and scale equal, the other tensors within
+    GPTQ_AUX_RTOL relative plus GPTQ_AUX_ATOL."""
+    names = sorted(p.name for p in direct.iterdir())
+    if names != sorted(p.name for p in cli.iterdir()):
+        raise AssertionError(f"cli export_gptq wrote other files than the direct export: {names}")
+    for name in names:
+        if name.endswith(".json") and (cli / name).read_bytes() != (direct / name).read_bytes():
+            raise AssertionError(f"cli export_gptq: {name} differs from the direct export's")
+    a = safetensors_io.read(str(direct / "model.safetensors"))
+    b = safetensors_io.read(str(cli / "model.safetensors"))
+    if sorted(a) != sorted(b):
+        raise AssertionError("cli export_gptq: other tensor names than the direct export")
+    exact = aux = 0
+    worst = 0.0
+    for k in a:
+        x, y = a[k], b[k]
+        if x.dtype != y.dtype or x.shape != y.shape:
+            raise AssertionError(f"cli export_gptq: {k} is {y.dtype} {tuple(y.shape)}, the direct "
+                                 f"export's {x.dtype} {tuple(x.shape)}")
+        if k.endswith(GPTQ_KEYS):
+            if not torch.equal(x, y):
+                raise AssertionError(f"cli export_gptq: {k} differs from the direct export's")
+            exact += 1
+        else:
+            x, y = x.float(), y.float()
+            over = ((x - y).abs() - GPTQ_AUX_ATOL).clamp(min=0) / y.abs().clamp(min=1e-30)
+            gap = over.max().item()
+            worst = max(worst, gap)
+            if gap > GPTQ_AUX_RTOL:
+                raise AssertionError(f"cli export_gptq: {k} off the direct export's by {gap:.3g} "
+                                     f"relative past {GPTQ_AUX_ATOL:.3g}")
+            aux += 1
+    return dict(files=names, exact=exact, aux=aux, aux_worst_rel=worst)
 
 
 def check_gptq_export(packed, cfg, path: Path) -> int:
@@ -2455,16 +2762,31 @@ def serve_trained_phase(master, cfg, tmp: Path, rec):
         del eng, ref
         torch.cuda.synchronize()
         t0 = time.time()
-        gx.export_gptq(packed, cfg, str(tmp / "gptq"))
+        gx.export_gptq(packed, cfg, str(tmp / "gptq"), bits=2, group_size=64)
         export_s = time.time() - t0
         held = check_gptq_export(packed, cfg, tmp / "gptq")
+        torch.cuda.synchronize()
+        t0 = time.time()
+        port_cli.main(["export_gptq", "--model_path", str(tmp / "out"), "--w_bit", "2",
+                       "--q_group_size", "64", "--output", str(tmp / "gptq_cli"), "--device", DEV])
+        torch.cuda.synchronize()
+        cli_export_s = time.time() - t0
+        cli_held = check_gptq_export(packed, cfg, tmp / "gptq_cli")
+        same = compare_exports(tmp / "gptq", tmp / "gptq_cli")
         rec.update(requests=4, group_size=64, launches=counts, wall_s=wall,
                    logit_max_abs_err=err, logit_max=scale, reload_f32_s=reload_s,
-                   gptq_export_s=export_s, gptq_bytes=dir_bytes(tmp / "gptq"), gptq_held=held)
+                   gptq_export_s=export_s, gptq_bytes=dir_bytes(tmp / "gptq"), gptq_held=held,
+                   cli_export_gptq=dict(s=cli_export_s, held=cli_held, **same))
         say(f"serve_trained: GPTQ export of the packed student in {export_s:.2f} s "
             f"({dir_bytes(tmp / 'gptq') / 1e9:.3f} GB); {held} code, scale and zero tensors "
             f"held exactly against the packed leaves")
+        say(f"serve_trained: `cli export_gptq` of the final save in {cli_export_s:.2f} s (its f32 "
+            f"load included): the same {len(same['files'])} files, {cli_held} code, scale and "
+            f"zero tensors held exactly against the packed leaves, {same['exact']} GPTQ tensors "
+            f"equal to the direct export's, {same['aux']} others within {GPTQ_AUX_RTOL:.3g} "
+            f"relative past {GPTQ_AUX_ATOL:.3g} (worst {same['aux_worst_rel']:.3g})")
         shutil.rmtree(tmp / "gptq")
+        shutil.rmtree(tmp / "gptq_cli")
         rec["packed_checkpoint"] = packed_checkpoint_check(packed, cfg, tmp, reqs)
     except BaseException:
         shutil.rmtree(tmp, ignore_errors=True)

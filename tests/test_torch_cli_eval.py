@@ -179,9 +179,12 @@ def test_parser_holds_jax_eval_flags_and_only_the_eval_subcommands():
     """The same flags as JAX's for the five eval subcommands, plus --device
     (default cuda) and, on `eval`, --spec_decode (JAX's has it on gsm8k,
     humaneval and reasoning only); the other subcommands are the serving
-    ones (tests/test_torch_cli_serve.py holds their flags)."""
+    ones (tests/test_torch_cli_serve.py holds their flags) and the method's
+    stages (tests/test_torch_cli_method.py); JAX's `bench` alone is absent."""
     got, want = _flags(tcli.build_parser()), _flags(jcli.build_parser())
-    assert set(got) == EVAL_SUBCOMMANDS | {"pack", "serve", "chat"}
+    assert set(got) == EVAL_SUBCOMMANDS | {"pack", "serve", "chat", "autoclip", "generate",
+                                           "train", "export_gptq", "mix_data"}
+    assert set(want) - set(got) == {"bench"}
     device = (("--device",), "device", "cuda", None, ())
     spec = (("--spec_decode",), "spec_decode", False, None, ())
     for name in EVAL_SUBCOMMANDS:

@@ -34,7 +34,9 @@ for new in ("experimental.fused_mlp", "experimental.flash_decode", "scripts.bw_p
             "data.offline", "data.calib", "generation.datasets", "generation.teacher",
             "eval", "eval.ppl", "eval.tasks", "eval.gsm8k", "eval.humaneval", "eval.reasoning",
             "cli", "scripts.method_demo", "serve.capacity", "serve.server", "utils",
-            "utils.prompts", "scripts.loadtest", "quant.native", "scripts.pack_timing"):
+            "utils.prompts", "scripts.loadtest", "quant.native", "scripts.pack_timing",
+            "parallel", "parallel.distributed", "parallel.mesh", "parallel.zero",
+            "utils.debug", "utils.profiling"):
     assert "bitdistiller_tpu_torch." + new in names, names
 assert not bad, bad
 """
