@@ -388,7 +388,8 @@ def build_parser():
     tr.add_argument("--dp", type=int, default=None,
                     help="data-parallel size (the number of processes)")
     tr.add_argument("--tp", type=int, default=1,
-                    help="tensor-parallel size (1: tensor parallelism is not ported yet)")
+                    help="tensor-parallel size: each rank holds 1/tp of every layer "
+                    "(Megatron's split); the ranks are dp x tp, tp innermost")
     tr.add_argument("--zero_stage", type=int, default=2, choices=[0, 2, 3],
                     help="0: replicated optimizer state; 2: the f32 master, Adam's moments "
                     "and the accumulators split over the ranks; 3: the latents too")

@@ -52,6 +52,10 @@ from torch.utils.checkpoint import (
 
 from .._device import resolve_device, torch_dtype
 from ..ops.decode_attention import decode_attention_plain, flash_decode_stacked
+from ..parallel.mesh import ROW_PARALLEL
+from ..parallel.tensor import (copy_to_tp, gather_from_tp, reduce_from_tp, tp_config,
+                               vocab_parallel_embed)
+from ..quant.packing import PackedLinear
 from .config import ModelConfig
 from .layers import (
     activation,
@@ -367,8 +371,27 @@ def _save_matmuls(mlp_width):
     return policy
 
 
-def _layer(cfg, lp, norms, li, h, cos, sin, attend, act, quantizer, remat, use_kernels):
-    """Layer li, rematerialized by `remat` (False: not at all)."""
+def _tp_linear(lin, li, mesh, row_bias):
+    """`lin` on one tp rank's slice: a column-parallel linear's input goes
+    through `copy_to_tp` (its gradient summed over tp), a row-parallel
+    linear's partial output through `reduce_from_tp` (summed in f32, rounded
+    once), and its bias (held apart in `row_bias`) is added once, after the
+    sum."""
+
+    def tp_lin(name, x):
+        if name not in ROW_PARALLEL:
+            return lin(name, copy_to_tp(x, mesh))
+        out = reduce_from_tp(lin(name, x), mesh)
+        b = row_bias.get(name)
+        return out if b is None else out + b[li].to(out.dtype)
+
+    return tp_lin
+
+
+def _layer(cfg, lp, norms, li, h, cos, sin, attend, act, quantizer, remat, use_kernels,
+           tp=None):
+    """Layer li, rematerialized by `remat` (False: not at all). `tp`: (mesh,
+    the row-parallel biases) on a tp rank's slice."""
     if remat not in (False, None) and remat not in REMAT_POLICIES:
         raise ValueError(f"unknown remat policy {remat!r}; expected one of {REMAT_POLICIES}")
     weights = {}
@@ -387,6 +410,8 @@ def _layer(cfg, lp, norms, li, h, cos, sin, attend, act, quantizer, remat, use_k
                 return out if b is None else out + b[li].to(out.dtype)
             return linear(lp[name], x, li, use_kernels=use_kernels, quantizer=quantizer)
 
+        if tp is not None:
+            lin = _tp_linear(lin, li, *tp)
         return _block(cfg, lp, norms, li, h, cos, sin, attend, lin, act)
 
     if remat in (False, None):
@@ -423,6 +448,7 @@ def forward(
     attn_mask: Optional[torch.Tensor] = None,  # [B, S] padding mask (1 = real)
     remat=False,
     use_train_flash: Optional[bool] = None,
+    mesh=None,
 ):
     """Returns (logits [B, S, V], cache | prompt KV | None).
 
@@ -438,12 +464,41 @@ def forward(
     attention replaces the causal attention where `train_flash_enabled` and
     the JAX package's rule allow (no ALiBi, no window). `attn_len` is
     dropped, as the JAX package drops it, at or above the cache length or
-    where the decode kernel is not taken."""
+    where the decode kernel is not taken.
+
+    `mesh` with tp > 1: `params` (and `cache`) are this rank's tp slice
+    (`parallel.mesh.shard_params` / `shard_packed_model` by their specs:
+    hq / tp and hkv / tp heads, intermediate / tp of the MLP, vocab / tp
+    rows of the embedding and the lm_head), and the forward issues
+    Megatron's collectives over the mesh's tp group (`parallel/tensor.py`):
+    column-parallel q, k, v, gate, up; row-parallel o and down, summed in
+    f32, their bias added once after the sum; the vocab-parallel embedding
+    and lm_head, whose logits are gathered whole on every rank. A fused
+    `qkv` or `gate_up` leaf raises there."""
     b, s = tokens.shape
     dev = tokens.device
     cdt = torch_dtype(cfg.dtype)
+    tp = 1 if mesh is None else mesh.tp
+    n_heads = cfg.num_heads
+    lp = params["layers"]
+    tp_args = None
+    if tp > 1:
+        for fused in ("qkv", "gate_up"):
+            if fused in lp:
+                raise ValueError(f"the fused leaf {fused!r} cannot be split over tp = {tp} "
+                                 f"without mixing its parts: pack with pack_model(..., "
+                                 f"fuse=False)")
+        cfg = tp_config(cfg, tp)
+        lp, row_bias = dict(lp), {}
+        for name in ROW_PARALLEL:
+            lp[name], row_bias[name] = _without_bias(lp[name])
+        for name in ("q_norm", "k_norm"):  # applied to this rank's heads only
+            if name in lp:
+                lp[name] = copy_to_tp(lp[name], mesh)
+        tp_args = (mesh, row_bias)
     dh, L = cfg.actual_head_dim, cfg.num_layers
-    h = params["embed"][tokens].to(cdt)
+    h = (params["embed"][tokens] if tp == 1
+         else vocab_parallel_embed(params["embed"], tokens, mesh)).to(cdt)
     if cfg.embedding_multiplier != 1.0:  # the multiplier rounded to the compute dtype first
         h = h * torch.tensor(cfg.embedding_multiplier, dtype=cdt).item()
 
@@ -482,7 +537,10 @@ def forward(
         if cache is not None:
             t = cache.k.shape[3]
             k_pos = torch.cat([torch.arange(t, device=dev).expand(b, t), q_pos], dim=-1)
-        attn_bias = alibi_bias(alibi_slopes(cfg.num_heads), q_pos, k_pos)
+        slopes = alibi_slopes(n_heads)
+        if tp > 1:  # this rank's heads
+            slopes = slopes.narrow(0, mesh.tp_rank * cfg.num_heads, cfg.num_heads)
+        attn_bias = alibi_bias(slopes, q_pos, k_pos)
 
     # the decode attention kernel where the JAX package's flash_ok holds
     flash_ok = (cache is not None and s == 1 and not cfg.alibi and kv_valid is None
@@ -498,7 +556,6 @@ def forward(
             masks[w] = (_cache_mask(cache, start, positions, s, kv_valid, w) if cache is not None
                         else _causal_mask(b, s, dev, attn_mask, w))
 
-    lp = params["layers"]
     norms = _layer_norms(cfg, lp)
     act = activation(cfg.hidden_act)
     fresh_k, fresh_v = [], []
@@ -535,7 +592,7 @@ def forward(
             else:
                 attend = inner
         h = _layer(cfg, lp, norms, li, h, c, sn, attend, act, quantizer, remat,
-                   use_kernels)
+                   use_kernels, tp_args)
 
     out_cache = None
     if cache is not None:
@@ -545,11 +602,22 @@ def forward(
         out_cache = KVCache(k=torch.stack(fresh_k), v=torch.stack(fresh_v))
 
     h = apply_norm(params["final_norm"], h, cfg.rms_norm_eps, cfg.norm_offset)
+    if tp > 1:
+        h = copy_to_tp(h, mesh)
     if cfg.tie_word_embeddings or "lm_head" not in params:
         logits = h @ params["embed"].t().to(h.dtype)
     else:
         logits = linear(params["lm_head"], h)
+    if tp > 1:
+        logits = gather_from_tp(logits, mesh)
     return logits.to(logits_dtype), out_cache
+
+
+def _without_bias(leaf):
+    """(the linear leaf without its bias, the bias or None)."""
+    if isinstance(leaf, PackedLinear):
+        return dataclasses.replace(leaf, bias=None), leaf.bias
+    return {k: v for k, v in leaf.items() if k != "b"}, leaf.get("b")
 
 
 def fake_quant_weights(params: dict, quantizer) -> dict:

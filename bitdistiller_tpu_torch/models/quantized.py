@@ -64,14 +64,17 @@ def _pack_stacked(w: torch.Tensor, bits: int, group_size: int, bias=None,
 _FUSED = (("qkv", ("q", "k", "v")), ("gate_up", ("gate", "up")))
 
 
-def pack_model(params: dict, cfg: ModelConfig, bits: int, group_size: int = 128) -> dict:
+def pack_model(params: dict, cfg: ModelConfig, bits: int, group_size: int = 128,
+               fuse: bool = True) -> dict:
     """Quantize+pack the layer linears of a dense param dict ([L, K, N]
-    leaves) into stacked PackedLinears, as the JAX package's `pack_model`
-    with fuse=True: q/k/v become "qkv" and gate/up "gate_up", concatenated
+    leaves) into stacked PackedLinears, as the JAX package's `pack_model`:
+    with `fuse`, q/k/v become "qkv" and gate/up "gate_up", concatenated
     along N, where every part is present and none has a bias (groups run
     along K, so the statistics are those of the unfused layout); every
-    other linear is packed alone with its bias (Qwen2's q/k/v, a plain
-    MLP's up and down). Same words as the JAX package's.
+    other linear, and every linear with fuse=False (the layout a tp split
+    needs: `parallel.mesh.shard_packed_model`), is packed alone with its
+    bias (Qwen2's q/k/v, a plain MLP's up and down). Same words as the JAX
+    package's.
 
     Weights on the CPU go through the C++ host packer (quant/native.py:
     bit-equal, every core, several times PyTorch's CPU packer at 7B
@@ -81,7 +84,7 @@ def pack_model(params: dict, cfg: ModelConfig, bits: int, group_size: int = 128)
     native = not any(on_card(layers[name]["w"]) for name in LAYER_LINEARS if name in layers)
     out_layers = dict(layers)
     todo = [name for name in LAYER_LINEARS if name in layers]
-    for fused, parts in _FUSED:
+    for fused, parts in _FUSED if fuse else ():
         if not all(p in layers for p in parts) or any(layers[p].get("b") is not None
                                                       for p in parts):
             continue
@@ -99,22 +102,25 @@ def pack_model(params: dict, cfg: ModelConfig, bits: int, group_size: int = 128)
 
 def random_packed_params(
     cfg: ModelConfig, bits: int = 2, group_size: int = 128, dtype=torch.bfloat16,
-    seed: int = 0, device="cuda",
+    seed: int = 0, device="cuda", fuse: bool = True,
 ) -> dict:
     """Random packed model at full size, built on the device without ever
     materialising fp weights (for kernel and serving runs where the weight
     values do not matter). Scales 0.01 and szeros 0.01 * 2^(bits-1), as the
-    JAX package's version; like it, the Llama layout only (RMS norms, fused
-    unbiased linears, gated MLP), with the q/k norms under `qk_norm`."""
+    JAX package's version; like it, the Llama layout only (RMS norms,
+    unbiased linears, fused unless `fuse` is False, gated MLP), with the q/k
+    norms under `qk_norm`."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     d, dh, L = cfg.hidden_size, cfg.actual_head_dim, cfg.num_layers
-    shapes = {  # the fused layout
-        "qkv": (d, (cfg.num_heads + 2 * cfg.num_kv_heads) * dh),
-        "o": (cfg.num_heads * dh, d),
-        "gate_up": (d, 2 * cfg.intermediate_size),
-        "down": (cfg.intermediate_size, d),
-    }
+    ffn = cfg.intermediate_size
+    if fuse:
+        shapes = {"qkv": (d, (cfg.num_heads + 2 * cfg.num_kv_heads) * dh),
+                  "o": (cfg.num_heads * dh, d), "gate_up": (d, 2 * ffn), "down": (ffn, d)}
+    else:
+        shapes = {"q": (d, cfg.num_heads * dh), "k": (d, cfg.num_kv_heads * dh),
+                  "v": (d, cfg.num_kv_heads * dh), "o": (cfg.num_heads * dh, d),
+                  "gate": (d, ffn), "up": (d, ffn), "down": (ffn, d)}
     pack = 32 // bits
     layers = {
         "input_norm": torch.ones((L, d), dtype=dtype, device=dev),

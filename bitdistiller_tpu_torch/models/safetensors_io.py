@@ -115,3 +115,4 @@ def write(path: str, tensors: dict[str, torch.Tensor], metadata: dict | None = N
             if t.numel():
                 host = t.to("cpu").contiguous().reshape(-1)
                 f.write(memoryview(host.view(torch.uint8).numpy()))
+                del host  # before the next copy: one tensor on the host at a time

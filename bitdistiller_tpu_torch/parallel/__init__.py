@@ -1,5 +1,5 @@
-"""Data parallelism of the port (the dp half of the JAX package's
-`parallel`): process groups and per-rank data (`distributed`), the dp spec
-table and ZeRO's split rule (`mesh`), and the ZeRO placement of the train
-state with its explicit collectives (`zero`). Tensor parallelism (the
-Megatron specs, ring matmuls, GPipe) is not ported yet."""
+"""Data and tensor parallelism of the port (the JAX package's `parallel`
+but its ring matmuls and GPipe): process groups and per-rank data
+(`distributed`), the (dp, tp) mesh, the spec tables and each rank's slice
+of a tree (`mesh`), Megatron's explicit tp collectives (`tensor`), and the
+ZeRO placement of the train state over dp (`zero`)."""

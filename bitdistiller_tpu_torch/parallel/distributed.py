@@ -36,7 +36,8 @@ def backend_for(device) -> str:
 
 def init_distributed(coordinator_address: Optional[str] = None,
                      num_processes: Optional[int] = None,
-                     process_id: Optional[int] = None, *, device="cuda") -> bool:
+                     process_id: Optional[int] = None, *, device="cuda",
+                     backend: Optional[str] = None) -> bool:
     """Join a multi-process run; returns True when the process is in a
     group after the call.
 
@@ -44,7 +45,9 @@ def init_distributed(coordinator_address: Optional[str] = None,
     WORLD_SIZE and MASTER_ADDR are set: then the group comes from them (the
     counterpart of JAX's auto-detection). Otherwise `coordinator_address`
     ("host:port" of rank 0's store), `num_processes` and `process_id` give
-    the rendezvous. A process already in a group stays in it."""
+    the rendezvous. A process already in a group stays in it. `backend`
+    overrides the device's (gloo over CUDA tensors: two ranks on one card,
+    which NCCL refuses)."""
     if dist.is_initialized():
         return True
     explicit = (coordinator_address, num_processes, process_id)
@@ -53,7 +56,7 @@ def init_distributed(coordinator_address: Optional[str] = None,
         return False
     if not from_env and None in explicit:
         raise ValueError("coordinator_address, num_processes and process_id go together")
-    backend = backend_for(device)
+    backend = backend or backend_for(device)
     timeout = datetime.timedelta(seconds=TIMEOUT_S)
     if from_env:
         dist.init_process_group(backend, init_method="env://", timeout=timeout)
@@ -98,9 +101,33 @@ def local_device(device) -> torch.device:
     return dev
 
 
+def local_world_size() -> int:
+    """The ranks on this host: torchrun's LOCAL_WORLD_SIZE, else one a card
+    (at most the world), else, on the CPU, the whole world (every rank a
+    process of this host)."""
+    if "LOCAL_WORLD_SIZE" in os.environ:
+        return int(os.environ["LOCAL_WORLD_SIZE"])
+    n = get_world_size()
+    if dist.is_initialized() and dist.get_backend() == "nccl":
+        return min(torch.cuda.device_count(), n)
+    return n
+
+
 def make_hybrid_mesh(tp: int = 1, dp: Optional[int] = None) -> Mesh:
-    """The (dp, tp) mesh: dp is the world size. Tensor parallelism is not
-    ported (it waits for the TP slice), so tp > 1 raises."""
+    """The (dp, tp) mesh of the process group (`mesh.make_mesh`), tp groups
+    kept inside a host so that their collectives stay on its links (NVLink
+    for the cards of one node), as JAX keeps them on ICI: dp * tp must be
+    the world size and, with more than one rank, tp must divide the ranks
+    of one host."""
+    n = get_world_size()
+    if dp is None:
+        dp = n // tp
+    if dp * tp != n:
+        raise ValueError(f"dp({dp}) * tp({tp}) != device count ({n})")
+    local = local_world_size()
+    if n > 1 and (tp > local or local % tp):
+        raise ValueError(f"tp={tp} must divide the per-host device count {local} so tensor "
+                         f"collectives stay inside a host")
     return make_mesh(dp=dp, tp=tp)
 
 

@@ -1,17 +1,20 @@
-"""The dp half of the JAX package's `parallel/mesh.py`: the (dp, tp) mesh of
-a process group, the partition-spec table of a param tree, and ZeRO's rule
-for the dim each leaf is split along.
+"""The JAX package's `parallel/mesh.py` for a process group: the (dp, tp)
+mesh of the ranks, the partition-spec tables of a param tree, a packed tree
+and the KV cache, ZeRO's rule for the dim each leaf is split along, and the
+placement of a tree by its specs.
 
-Nothing here is executed under tensor parallelism: the specs keep JAX's
-"tp" entries (a spec is a tuple of None, "dp" and "tp", one entry a dim)
-because ZeRO's rule reads them. A "tp" dim is taken, even at tp = 1, so
-ZeRO never splits it. `zero.py` places the train state by these tables.
+A spec is a tuple of None, "dp" and "tp", one entry a dim, equal to JAX's
+entry for entry. In the port "sharding" means one thing: each rank keeps
+only its slice of each leaf, cut by the spec's "tp" and "dp" entries
+(`shard_params`, `shard_packed_model`); GSPMD's collectives become the
+explicit ones of `tensor.py` (the tp forward) and `zero.py` (ZeRO over dp).
+A "tp" dim is taken even at tp = 1, so ZeRO never splits it.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 import torch.distributed as dist
@@ -21,7 +24,7 @@ import torch.distributed as dist
 # row-parallel (shard K) o, down. fsdp_axis="dp" puts dp on the other
 # matrix dim (ZeRO-3).
 _COL = ("q", "k", "v", "gate", "up")
-_ROW = ("o", "down")
+ROW_PARALLEL = ("o", "down")
 _COL_FUSED = ("qkv", "gate_up")
 
 
@@ -37,25 +40,46 @@ class P(tuple):
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """The (dp, tp) mesh of the process group: dp ranks, each one device."""
+    """The (dp, tp) mesh of the process group, one device a rank, tp
+    innermost as JAX's `reshape(dp, tp)`: rank = dp_rank * tp + tp_rank.
+    `dp_group` holds the ranks of this rank's tp index (ZeRO's collectives
+    run over it), `tp_group` those of its dp index (the tp forward's); both
+    None outside a process group."""
 
     dp: int
     tp: int = 1
+    dp_rank: int = 0
+    tp_rank: int = 0
+    dp_group: Any = None
+    tp_group: Any = None
 
 
 def make_mesh(dp: Optional[int] = None, tp: int = 1) -> Mesh:
-    """dp is the world size (1 outside a process group). tp > 1 raises:
-    tensor parallelism waits for the TP slice."""
-    if tp > 1:
-        raise NotImplementedError(
-            "tensor parallelism (tp > 1) is not ported yet: it comes with the TP slice "
-            "(the Megatron specs, ring matmuls and GPipe); the port runs dp only")
+    """The mesh of the world (one device outside a process group): dp * tp
+    must be the world size (dp defaults to world // tp). At tp > 1 every
+    rank creates every dp and tp group (`dist.new_group`) in the same
+    order; at tp = 1 the dp group is the world."""
     n = dist.get_world_size() if dist.is_initialized() else 1
     if dp is None:
         dp = n // tp
     if dp * tp != n:
         raise ValueError(f"dp({dp}) * tp({tp}) != device count ({n})")
-    return Mesh(dp=dp, tp=tp)
+    if not dist.is_initialized():
+        return Mesh(dp=1)
+    dp_rank, tp_rank = divmod(dist.get_rank(), tp)
+    if tp == 1:
+        return Mesh(dp=dp, tp=1, dp_rank=dp_rank, dp_group=dist.group.WORLD)
+    dp_group = tp_group = None
+    for t in range(tp):  # every rank makes every group, in this order
+        g = dist.new_group([d * tp + t for d in range(dp)])
+        if t == tp_rank:
+            dp_group = g
+    for d in range(dp):
+        g = dist.new_group([d * tp + t for t in range(tp)])
+        if d == dp_rank:
+            tp_group = g
+    return Mesh(dp=dp, tp=tp, dp_rank=dp_rank, tp_rank=tp_rank, dp_group=dp_group,
+                tp_group=tp_group)
 
 
 def _rep(leaf) -> P:
@@ -84,7 +108,7 @@ def param_specs_from_params(params: dict, fsdp_axis: Optional[str] = None) -> di
 
     layers: dict = {}
     for name, leaf in params["layers"].items():
-        if name in _COL or name in _ROW or name in _COL_FUSED:
+        if name in _COL or name in ROW_PARALLEL or name in _COL_FUSED:
             layers[name] = linear_spec(name, leaf)
         else:
             layers[name] = _map(_rep, leaf)
@@ -148,3 +172,119 @@ def dp_dim(spec: P) -> Optional[int]:
 
 def batch_spec() -> P:
     return P("dp")
+
+
+def tp_dim(spec: P) -> Optional[int]:
+    """The dim a spec splits over tp, or None (whole on every tp rank)."""
+    return spec.index("tp") if "tp" in spec else None
+
+
+def _meta_tree(shapes: dict) -> dict:
+    tree: dict = {}
+    for path, shape in shapes.items():
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = torch.empty(shape, device="meta")
+    return tree
+
+
+def param_specs(cfg, fsdp_axis: Optional[str] = None) -> dict:
+    """The spec tree of `init_params(cfg)`'s tree, read off the port's
+    shape table (`models.llama.param_shapes`) as JAX reads it off an
+    abstract init: nothing is allocated."""
+    from ..models.llama import param_shapes
+
+    return param_specs_from_params(_meta_tree(param_shapes(cfg)), fsdp_axis)
+
+
+def packed_param_specs(cfg) -> dict:
+    """The specs of an unfused packed tree (`pack_model(..., fuse=False)`),
+    JAX's table: each PackedLinear's qweight, scales, szeros (and combo)
+    split along N (column-parallel) or their packed K rows (row-parallel)
+    by one spec a linear, set for every name of the two lists."""
+    specs = param_specs(cfg)
+    for name in _COL:
+        specs["layers"][name] = P(None, None, "tp")
+    for name in ROW_PARALLEL:
+        specs["layers"][name] = P(None, "tp", None)
+    return specs
+
+
+def kv_cache_specs(quantized: bool = False):
+    """The KV cache [L, B, Hkv, T, D]: batch over dp, kv heads over tp; the
+    int8 cache's scales [L, B, Hkv, T] alike."""
+    from ..models.llama import KVCache
+
+    kv = P(None, "dp", "tp", None, None)
+    if quantized:
+        s = P(None, "dp", "tp", None)
+        return KVCache(k=kv, v=kv, k_scale=s, v_scale=s)
+    return KVCache(k=kv, v=kv)
+
+
+def take(x: torch.Tensor, spec: P, mesh: Mesh) -> torch.Tensor:
+    """This rank's slice of a whole leaf by its spec (a fresh contiguous
+    tensor; the leaf itself where the spec splits nothing on this mesh)."""
+    out = x
+    for d, e in enumerate(spec):
+        size, rank = {"tp": (mesh.tp, mesh.tp_rank), "dp": (mesh.dp, mesh.dp_rank)}.get(
+            e, (1, 0))
+        if size == 1:
+            continue
+        n = x.shape[d]
+        if n % size:
+            raise ValueError(f"dim {d} of {tuple(x.shape)} does not divide over {e} = {size}")
+        out = out.narrow(d, rank * (n // size), n // size)
+    return x if out is x else out.clone(memory_format=torch.contiguous_format)
+
+
+def shard_params(params: dict, mesh: Mesh, specs: dict) -> dict:
+    """Each leaf of the tree cut to this rank's slice by the spec tree (None
+    leaves stay None)."""
+    if isinstance(params, dict):
+        return {k: shard_params(v, mesh, specs[k]) for k, v in params.items()}
+    return None if params is None else take(params, specs, mesh)
+
+
+def shard_packed_model(params: dict, mesh: Mesh, cfg) -> dict:
+    """This rank's slice of an unfused packed tree (`pack_model(...,
+    fuse=False)`) by `packed_param_specs`: each PackedLinear's arrays cut
+    together along N (column-parallel, its bias too) or along the packed K
+    rows (row-parallel, the bias whole), its in/out features set to the
+    slice's. A fused leaf, A8-ordered words, or a row-parallel slice whose
+    quantization groups would straddle a shard edge raise."""
+    from ..quant.packing import PackedLinear
+    from .tensor import tp_config
+
+    tp_config(cfg, mesh.tp)
+    specs = packed_param_specs(cfg)
+    out = dict(params)
+    for key in params:
+        if key != "layers":
+            out[key] = shard_params(params[key], mesh, specs[key])
+    layers = {}
+    for name, leaf in params["layers"].items():
+        spec = specs["layers"].get(name)
+        if not isinstance(leaf, PackedLinear):
+            layers[name] = shard_params(leaf, mesh, spec)
+            continue
+        if name in _COL_FUSED and mesh.tp > 1:
+            raise ValueError(f"the fused leaf {name!r} cannot be split over tp = {mesh.tp} "
+                             f"without mixing its parts: pack with pack_model(..., fuse=False)")
+        if leaf.a8_order:
+            raise ValueError(f"{name}: A8-ordered words are not sharded; repack after sharding")
+        col = spec[2] == "tp"
+        if not col and (leaf.in_features // mesh.tp) % leaf.group_size:
+            raise ValueError(f"{name}: K = {leaf.in_features} over tp = {mesh.tp} leaves "
+                             f"{leaf.in_features // mesh.tp} rows, not whole groups of "
+                             f"{leaf.group_size}: a group would straddle a shard edge")
+        cut = lambda a, s=spec: None if a is None else take(a, s, mesh)
+        layers[name] = dataclasses.replace(
+            leaf, qweight=cut(leaf.qweight), scales=cut(leaf.scales), szeros=cut(leaf.szeros),
+            combo=cut(leaf.combo),
+            bias=cut(leaf.bias, P(None, "tp") if col else P(None, None)),
+            in_features=leaf.in_features if col else leaf.in_features // mesh.tp,
+            out_features=leaf.out_features // mesh.tp if col else leaf.out_features)
+    out["layers"] = layers
+    return out

@@ -18,7 +18,14 @@ gradient hooks and the optimizer the port already has):
 Gradients are averaged in f32 (every optimizer wrapper takes f32 gradients).
 The clip's global norm sums every leaf's squares over the ranks before the
 decision (a leaf whole on every rank counts once), so every rank clips
-alike. Integer counters are replicated. Under ZeRO-3 the forward gathers
+alike.
+
+Under tensor parallelism (a mesh with tp > 1) the plan places each rank's
+tp slice (`mesh.shard_params`): ZeRO's reduce-scatter, all-reduce and
+all-gather run over the mesh's dp group only, on top of that slice; the
+global norm sums over the whole world, a leaf whole across tp (a norm, a
+row-parallel bias) counted once; `gather_tp` reassembles whole leaves (the
+final save's master). Integer counters are replicated. Under ZeRO-3 the forward gathers
 the whole latent tree once a step (a micro-step, or a cycle in the fused
 step) and drops it after the backward: between steps a rank holds 1/dp of
 the latents, during a step all of them. At world size 1 every collective
@@ -33,7 +40,7 @@ import torch
 import torch.distributed as dist
 
 from ..train.trainer import _get, _set, tree_items
-from .mesh import dp_dim, opt_state_specs, param_specs_from_params
+from .mesh import dp_dim, opt_state_specs, param_specs_from_params, tp_dim
 
 # the names torch 2.13 gives the two collectives (older releases: *_tensor)
 _all_gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
@@ -52,22 +59,37 @@ def _param_shaped(node):
     return None
 
 
-class ZeroPlan:
-    """The split of one param tree's leaves over `group` at a ZeRO stage:
-    `pdims[path]` for the latents, `odims[path]` for the optimizer state's
-    param-shaped leaves (None: whole on every rank), read off the spec
-    trees of the params and of `opt`'s state (`mesh.opt_state_specs`)."""
+def _gather(x: torch.Tensor, dim: int, group, world: int) -> torch.Tensor:
+    """The whole leaf from every rank's part along dim, in rank order."""
+    front = x.movedim(dim, 0).contiguous()
+    out = torch.empty((world * front.shape[0],) + tuple(front.shape[1:]),
+                      dtype=x.dtype, device=x.device)
+    _all_gather(out, front, group=group)
+    return out.movedim(0, dim).contiguous()
 
-    def __init__(self, params: dict, stage: int, opt, group=None):
+
+class ZeroPlan:
+    """The split of one param tree's leaves over `group` (the dp ranks) at
+    a ZeRO stage: `pdims[path]` for the latents, `odims[path]` for the
+    optimizer state's param-shaped leaves (None: whole on every rank), read
+    off the spec trees of the params and of `opt`'s state
+    (`mesh.opt_state_specs`); `tdims[path]` the dim a leaf is split along
+    over tp (`mesh`: its tp group and rank; `params` is then this rank's tp
+    slice)."""
+
+    def __init__(self, params: dict, stage: int, opt, group=None, mesh=None):
         if stage not in (0, 2, 3):
             raise ValueError(f"zero_stage must be 0, 2 or 3, not {stage}")
-        self.stage, self.group = stage, group
+        self.stage, self.group, self.mesh = stage, group, mesh
         self.world = dist.get_world_size(group)
         self.rank = dist.get_rank(group)
+        self.tp = 1 if mesh is None else mesh.tp
+        self.tp_rank = 0 if mesh is None else mesh.tp_rank
         specs = param_specs_from_params(params, "dp" if stage >= 3 else None)
         ospecs = _param_shaped(opt_state_specs(opt, params, specs, self.world, stage))
         self.pdims: dict = {}
         self.odims: dict = {}
+        self.tdims = {path: tp_dim(_get(specs, path)) for path, _ in tree_items(params)}
         for path, leaf in tree_items(params):
             shape = tuple(leaf.shape)
             pd = dp_dim(_get(specs, path)) if stage >= 3 else None
@@ -94,14 +116,8 @@ class ZeroPlan:
         return self.view(x, dim).clone(memory_format=torch.contiguous_format)
 
     def gather(self, x: torch.Tensor, dim: Optional[int]) -> torch.Tensor:
-        """The whole leaf from every rank's part along dim, in rank order."""
-        if dim is None:
-            return x
-        front = x.movedim(dim, 0).contiguous()
-        out = torch.empty((self.world * front.shape[0],) + tuple(front.shape[1:]),
-                          dtype=x.dtype, device=x.device)
-        _all_gather(out, front, group=self.group)
-        return out.movedim(0, dim).contiguous()
+        """The whole leaf over dp from every rank's part along dim."""
+        return x if dim is None else _gather(x, dim, self.group, self.world)
 
     def reduce_mean(self, g: torch.Tensor, dim: Optional[int]) -> torch.Tensor:
         """The mean over the ranks of g in f32: this rank's part along dim
@@ -170,18 +186,27 @@ class ZeroPlan:
     def shard_tree(self, tree: dict, which: str) -> dict:
         return self._map(self.shard, tree, self.dims(which))
 
+    def gather_tp(self, tree: dict) -> dict:
+        """Whole leaves from the tp ranks' slices (a tree whole over dp)."""
+        if self.tp == 1:
+            return tree
+        return self._map(lambda x, d: x if d is None else _gather(
+            x, d, self.mesh.tp_group, self.tp), tree, self.tdims)
+
     def global_norm(self, items) -> torch.Tensor:
         """optax's global norm of the whole gradient from the ranks' parts:
-        each leaf's f32 sum of squares (a whole leaf counted on rank 0
-        only), summed over the ranks, then over the leaves in order."""
+        each leaf's f32 sum of squares (a leaf whole over dp counted on dp
+        rank 0 only, one whole over tp on tp rank 0 only), summed over every
+        rank, then over the leaves in order."""
         sq = []
         for path, g in items:
             s = torch.sum(g.to(torch.float32) ** 2)
-            if self.odims[path] is None and self.rank != 0:
+            if ((self.odims[path] is None and self.rank != 0)
+                    or (self.tdims[path] is None and self.tp_rank != 0)):
                 s = torch.zeros_like(s)
             sq.append(s)
         sq = torch.stack(sq)
-        dist.all_reduce(sq, group=self.group)
+        dist.all_reduce(sq, group=self.group if self.tp == 1 else None)
         total = None
         for s in sq:
             total = s if total is None else total + s

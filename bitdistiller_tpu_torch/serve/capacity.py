@@ -6,6 +6,8 @@ Analytic, nothing allocated: exact for the KV cache (the bytes of
 `KVCache.init`), component-modeled for the packed weights (codes, one combo
 word a group column, everything else bf16). The shapes come from the port's
 own table of the dense tree (`models.llama.param_table`).
+`tp_decode_scaling` projects a tp-split decode step's efficiency from a
+measured one-card step and the link figures.
 """
 
 from __future__ import annotations
@@ -83,3 +85,29 @@ def serve_capacity(cfg: ModelConfig, *, bits: int = 2, group_size: int = 128,
         "budget_bytes": budget,
         "max_slots": int(slots),
     }
+
+
+# NVIDIA's H100 SXM data sheet: 900 GB/s of NVLink a card, both directions
+# together, 450 GB/s each way (a data-sheet figure, not a measurement).
+H100_NVLINK_BW = 450e9
+
+
+def tp_decode_scaling(cfg: ModelConfig, *, t_step_s: float, batch: int, tp: int,
+                      link_latency_s: float, link_bw: float = H100_NVLINK_BW) -> dict:
+    """Projected decode-step scaling efficiency of a tp-split engine (the
+    JAX package's `serve/capacity.py:tp_decode_scaling`, the same formula):
+    two all-reduces a layer of the [B, hidden] bf16 activations (after o
+    and down; a ring moves 2 (tp - 1) / tp of them) and one all-gather of
+    the [B, vocab / tp] logits, each paying `link_latency_s` (no data sheet
+    gives a collective's latency: the caller states it); everything else
+    divides by tp. efficiency = t_1 / (tp (t_1 / tp + t_comm)). `t_step_s`
+    must be a measured one-card step."""
+    if tp == 1:
+        return {"tp": 1, "t_step_s": t_step_s, "t_comm_s": 0.0, "efficiency": 1.0}
+    ar_bytes = batch * cfg.hidden_size * 2
+    t_ar = 2 * cfg.num_layers * (2 * (tp - 1) / tp * ar_bytes / link_bw + link_latency_s)
+    t_ag = (tp - 1) / tp * batch * cfg.vocab_size * 2 / link_bw + link_latency_s
+    t_comm = t_ar + t_ag
+    t_local = t_step_s / tp
+    return {"tp": tp, "t_step_s": t_local + t_comm, "t_comm_s": t_comm,
+            "efficiency": t_step_s / (tp * (t_local + t_comm))}

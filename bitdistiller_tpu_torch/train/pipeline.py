@@ -1,26 +1,30 @@
 """End-to-end KD-QAT training runner (PyTorch port of the JAX package's
 `train/pipeline.py:run_training`).
 
-Flow: join the process group the args name (none: one process) -> the
+Flow: join the process group the args name (none: one process) and lay
+its ranks out as the (dp, tp) mesh (`make_hybrid_mesh`, `args.tp`) -> the
 model (an HF checkpoint dir loaded in f32 through `models/hf_import.py`, or
 an injected (params, cfg)) -> clip cache on the student -> teacher (a
-frozen copy in the compute dtype, whole on every rank) -> CAKLD beta (the
-mean over every rank's batches) -> the KD train loop with gradient
-accumulation (stepwise or one fused call a cycle), each rank on its
-`host_shard` of the train set, the state placed by ZeRO (`zero_stage`,
-`parallel/zero.py`) -> periodic checkpoints and a replicated eval -> the
-final consolidated save of the f32 master in HF layout into `output_dir`
-(`save_hf_checkpoint`), by rank 0 while the others wait at a barrier.
+frozen copy in the compute dtype, each rank's tp slice) -> CAKLD beta (the
+mean over every dp rank's batches) -> the KD train loop with gradient
+accumulation (stepwise or one fused call a cycle), each dp group on its
+`host_shard` of the train set (its tp ranks read the same rows), the state
+placed by tp and ZeRO (`zero_stage`, `parallel/zero.py`) -> periodic
+checkpoints and a replicated eval -> the final consolidated save of the f32
+master in HF layout into `output_dir` (`save_hf_checkpoint`, the master
+gathered whole), by rank 0 while the others wait at a barrier.
 
-Checkpoints are the port's own format: one `torch.save` of a flat dict of
-tensors (the params, the optimizer state's leaves and scalars, keyed by
-their paths) plus the step, under `{output_dir}/step_{micro_step}`. Under
-ZeRO they are gathered whole and written by rank 0, so a checkpoint written
-at one dp and stage resumes at any other. A checkpoint of another optimizer
-format resumes across it (`_migrate`: stepwise and fused cycles, with bf16
-or f32 latents). The JAX package's orbax checkpoints, and its legacy optax
-format, have no port counterpart and are not read. The run's summary
-carries the final state, whose `master_params` a caller packs.
+Checkpoints are the port's own format, under
+`{output_dir}/step_{micro_step}`: each rank writes the slices it holds
+(`rank{r}.safetensors`) and rank 0 a `manifest.json` of every leaf's shape,
+split dims and parts (`save_checkpoint`); nothing is gathered. A restore
+reads, by memory map, the parts that its own placement needs, so a
+checkpoint written at one dp, tp and ZeRO stage resumes at any other. A
+checkpoint of another optimizer format resumes across it (`_migrate`:
+stepwise and fused cycles, with bf16 or f32 latents). The JAX package's
+orbax checkpoints, and its legacy optax format, have no port counterpart
+and are not read. The run's summary carries the final state, whose
+`master_params` a caller packs.
 
 Cadence (inherited fault C4, kept as the JAX package has it): logging,
 saving and eval count micro-steps, and in the fused mode they are checked
@@ -37,9 +41,12 @@ import torch
 import torch.distributed as dist
 
 from .._device import resolve_device, torch_dtype
+from ..models import safetensors_io
 from ..models.hf_import import load_hf_checkpoint, save_hf_checkpoint
 from ..parallel.distributed import (host_shard, init_distributed, local_device,
                                     make_hybrid_mesh, shutdown_distributed)
+from ..parallel.mesh import param_specs_from_params, shard_params
+from ..parallel.tensor import tp_config
 from ..quant.autoclip import apply_clip_cache, load_clip_cache
 from ..utils.debug import checked, enabled as debug_enabled
 from .data import Collator, SupervisedDataset, data_loader
@@ -69,45 +76,104 @@ def _is_state_tuple(node) -> bool:
     return isinstance(node, tuple) and hasattr(node, "_fields")
 
 
-def _flatten_state(state: TrainState, keep: bool = True) -> dict:
-    """A flat {path: tensor or int} dict of the whole train state, each leaf
-    whole (gathered leaf by leaf under ZeRO, a collective on every rank);
-    keep=False gathers without keeping the host copies."""
-    z = state.zero
-    flat: dict = {"step": state.step}
+def _walk(state: TrainState):
+    """(key, value, which) for every leaf of the train state: tensors of the
+    params ("params") and of the optimizer state's param-shaped trees
+    ("opt"), ints (which None). Keys are the leaves' paths."""
+    yield "step", state.step, None
 
-    def put(prefix, node, which):
+    def walk(prefix, node, which):
         if _is_state_tuple(node):
             for field in node._fields:
-                put(f"{prefix}/{field}", getattr(node, field), which)
+                yield from walk(f"{prefix}/{field}", getattr(node, field), which)
         elif isinstance(node, dict):
-            dims = None if z is None else z.dims(which)
             for path, leaf in tree_items(node):
-                whole = leaf if dims is None else z.gather(leaf, dims[path])
-                if keep:
-                    flat[prefix + "/" + "/".join(path)] = whole.detach().cpu()
+                yield prefix + "/" + "/".join(path), (path, leaf), which
         else:
-            flat[prefix] = node
+            yield prefix, node, None
 
-    put("params", state.params, "params")
-    put("opt_state", state.opt_state, "opt")
-    return flat
+    yield from walk("params", state.params, "params")
+    yield from walk("opt_state", state.opt_state, "opt")
+
+
+def _placement(z, path, which, shape) -> tuple:
+    """(dp dim, tp dim, the whole leaf's shape, this rank's offset) of a
+    leaf held as `shape` on this rank under the plan `z` (None: one
+    process, the leaf whole)."""
+    if z is None:
+        return None, None, list(shape), [0] * len(shape)
+    ddim, tdim = z.dims(which)[path], z.tdims[path]
+    whole, offset = list(shape), [0] * len(shape)
+    for d, n, r in ((ddim, z.world, z.rank), (tdim, z.tp, z.tp_rank)):
+        if d is not None:
+            whole[d], offset[d] = shape[d] * n, shape[d] * r
+    return ddim, tdim, whole, offset
+
+
+def _parts(ddim, tdim, whole, dp: int, tp: int) -> list:
+    """Every part of a leaf in a checkpoint written on a (dp, tp) mesh:
+    one a distinct slice, each written by the lowest rank that holds it
+    (a leaf whole over dp by dp rank 0, one whole over tp by tp rank 0)."""
+    out = []
+    for i in range(dp if ddim is not None else 1):
+        for j in range(tp if tdim is not None else 1):
+            shape, offset = list(whole), [0] * len(whole)
+            for d, n, r in ((ddim, dp, i), (tdim, tp, j)):
+                if d is not None:
+                    shape[d] //= n
+                    offset[d] = shape[d] * r
+            out.append({"file": f"rank{i * tp + j}.safetensors", "offset": offset,
+                        "shape": shape})
+    return out
 
 
 def _rank0() -> bool:
     return not dist.is_initialized() or dist.get_rank() == 0
 
 
+MANIFEST = "manifest.json"
+
+
 def save_checkpoint(ckpt_dir: str, step: int, state: TrainState) -> str:
-    """The FULL train state (params, optimizer moments and master, step),
-    written by rank 0; every rank takes part in the gathers and waits.
-    Rank 0 holds the whole state in host memory while it writes: 18 bytes
-    a parameter in KD with bf16 latents (about 121 GB for a 7B model)."""
+    """The FULL train state (params, optimizer moments and master, step)
+    under `{ckpt_dir}/step_{step}`, each rank writing only the slices it
+    holds, with no collective but the closing barrier: `rank{r}.safetensors`
+    (a file of the port's safetensors writer, one leaf on the host at a
+    time) holds rank r's ZeRO part of its tp slice of each leaf, and a leaf
+    whole on several ranks is written by the lowest of them. Rank 0 also
+    writes `manifest.json`: the step, dp, tp, ZeRO stage and optimizer
+    format, the ints, and for each leaf its whole shape, dtype, the dims
+    split over dp and tp, and each part's file, offset and shape."""
     path = os.path.abspath(os.path.join(ckpt_dir, f"step_{step}"))
-    flat = _flatten_state(state, keep=_rank0())
+    os.makedirs(path, exist_ok=True)
+    z = state.zero
+    dp, tp = (1, 1) if z is None else (z.world, z.tp)
+    mine: dict = {}
+    leaves: dict = {}
+    scalars: dict = {}
+    for key, value, which in _walk(state):
+        if which is None:
+            scalars[key] = value
+            continue
+        p, leaf = value
+        ddim, tdim, whole, _ = _placement(z, p, which, tuple(leaf.shape))
+        if z is None or ((ddim is not None or z.rank == 0)
+                         and (tdim is not None or z.tp_rank == 0)):
+            mine[key] = leaf
+        leaves[key] = {"shape": whole, "dtype": str(leaf.dtype).removeprefix("torch."),
+                       "dp_dim": ddim, "tp_dim": tdim,
+                       "parts": _parts(ddim, tdim, whole, dp, tp)}
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    safetensors_io.write(os.path.join(path, f"rank{rank}.safetensors"), mine)
     if _rank0():
-        os.makedirs(path, exist_ok=True)
-        torch.save(flat, os.path.join(path, "state.pt"))
+        manifest = {"step": step, "dp": dp, "tp": tp,
+                    "zero_stage": None if z is None else z.stage,
+                    "optimizer": type(state.opt_state).__name__, "scalars": scalars,
+                    "leaves": leaves}
+        tmp = os.path.join(path, MANIFEST + ".tmp")
+        with open(tmp, "w") as f:
+            json.dump(manifest, f)
+        os.replace(tmp, os.path.join(path, MANIFEST))
     if dist.is_initialized():
         dist.barrier()
     return path
@@ -155,32 +221,100 @@ def _migrate(flat: dict, opt_state, path: str) -> dict:
     return out
 
 
+def _read_flat(path: str) -> dict:
+    """{key: an int, or the leaf's manifest entry (its "key" added)} of a
+    checkpoint; a checkpoint of the single-file format (`state.pt`, each
+    leaf whole) reads too, its tensors memory-mapped."""
+    mpath = os.path.join(path, MANIFEST)
+    if not os.path.exists(mpath):
+        old = torch.load(os.path.join(path, "state.pt"), map_location="cpu", mmap=True)
+        return {k: {"key": k, "shape": list(v.shape), "tensor": v}
+                if isinstance(v, torch.Tensor) else v for k, v in old.items()}
+    with open(mpath) as f:
+        manifest = json.load(f)
+    flat = dict(manifest["scalars"])
+    flat.update({k: dict(e, key=k) for k, e in manifest["leaves"].items()})
+    return flat
+
+
+class _Parts:
+    """The part files of one checkpoint, each memory-mapped at its first use."""
+
+    def __init__(self, path: str):
+        self.path, self.files = path, {}
+
+    def fill(self, dst: torch.Tensor, entry: dict, offset: list) -> None:
+        """Copy into dst, the box at `offset` of the whole leaf, the overlap
+        of every part that meets it (each part read only there)."""
+        if len(entry["shape"]) != dst.ndim or any(
+                o + n > w for o, n, w in zip(offset, dst.shape, entry["shape"])):
+            raise ValueError(f"{self.path}: {entry['key']} is {entry['shape']} in the "
+                             f"checkpoint; this placement needs {list(dst.shape)} at {offset}")
+        parts = ([(entry["tensor"], [0] * dst.ndim)] if "tensor" in entry
+                 else [(p, p["offset"]) for p in entry["parts"]])
+        for part, at in parts:
+            box = []
+            for d in range(dst.ndim):
+                n = part["shape"][d] if isinstance(part, dict) else part.shape[d]
+                lo, hi = max(offset[d], at[d]), min(offset[d] + dst.shape[d], at[d] + n)
+                if lo >= hi:
+                    break
+                box.append((lo, hi))
+            else:
+                src = part if not isinstance(part, dict) else self._tensor(part["file"],
+                                                                          entry["key"])
+                d_view, s_view = dst, src
+                for d, (lo, hi) in enumerate(box):
+                    d_view = d_view.narrow(d, lo - offset[d], hi - lo)
+                    s_view = s_view.narrow(d, lo - at[d], hi - lo)
+                d_view.copy_(s_view)
+
+    def _tensor(self, name: str, key: str) -> torch.Tensor:
+        if name not in self.files:
+            self.files[name] = safetensors_io.read(os.path.join(self.path, name))
+        return self.files[name][key]
+
+
+def read_checkpoint_leaf(path: str, key: str) -> torch.Tensor:
+    """One whole leaf of a checkpoint (its path joined by "/", e.g.
+    "opt_state/master/embed"), assembled on the host from its parts."""
+    entry = _read_flat(path)[key]
+    if "tensor" in entry:
+        return entry["tensor"]
+    out = torch.empty(entry["shape"], dtype=getattr(torch, entry["dtype"]))
+    _Parts(path).fill(out, entry, [0] * out.ndim)
+    return out
+
+
 def restore_checkpoint(path: str, state: TrainState) -> TrainState:
     """Load a checkpoint into a state of the same structure, in place: each
-    leaf is copied into the template's tensor (its dtype and device kept;
-    no second copy of the state on the device). The file is memory-mapped,
-    so under ZeRO each rank reads only its part of the whole leaves it
-    holds. Another optimizer format migrates."""
-    flat = _migrate(torch.load(os.path.join(path, "state.pt"), map_location="cpu", mmap=True),
-                    state.opt_state, path)
+    leaf's slice that this rank's placement holds (its dp and tp parts under
+    the template's ZeRO plan) is copied into the template's tensor from the
+    memory-mapped part files that hold it (its dtype and device kept; no
+    second copy of the state on the device, and no rank reads more than its
+    slices). The checkpoint may have been written at any dp, tp and ZeRO
+    stage; another optimizer format migrates."""
+    flat = _migrate(_read_flat(path), state.opt_state, path)
     z = state.zero
+    parts = _Parts(path)
 
     def take(prefix, node, which):
         if _is_state_tuple(node):
             return type(node)(*(take(f"{prefix}/{f}", getattr(node, f), which)
                                 for f in node._fields))
         if isinstance(node, dict):
-            dims = None if z is None else z.dims(which)
             out: dict = {}
             for p, leaf in tree_items(node):
                 val = flat[prefix + "/" + "/".join(p)]
                 d = out
                 for k in p[:-1]:
                     d = d.setdefault(k, {})
+                dst = leaf.detach()
                 if val is _ZEROS:
-                    d[p[-1]] = leaf.detach().zero_()
+                    dst.zero_()
                 else:
-                    d[p[-1]] = leaf.detach().copy_(val if dims is None else z.view(val, dims[p]))
+                    parts.fill(dst, val, _placement(z, p, which, tuple(dst.shape))[3])
+                d[p[-1]] = dst
             return out
         return flat[prefix]
 
@@ -205,8 +339,9 @@ def latest_checkpoint(ckpt_dir: str):
     return os.path.join(ckpt_dir, f"step_{s}"), s
 
 
-def make_eval_step(cfg, tc: TrainConfig, teacher):
-    """The eval loss on the training quantization grid."""
+def make_eval_step(cfg, tc: TrainConfig, teacher, mesh=None):
+    """The eval loss on the training quantization grid (`mesh`: the params
+    and the teacher are tp slices)."""
     from ..models import llama
 
     quantizer = make_quantizer(tc)
@@ -214,9 +349,9 @@ def make_eval_step(cfg, tc: TrainConfig, teacher):
     @torch.no_grad()
     def eval_step(params, batch, beta):
         s_logits, _ = llama.forward(params, cfg, batch["input_ids"], quantizer=quantizer,
-                                    attn_mask=batch["attention_mask"])
+                                    attn_mask=batch["attention_mask"], mesh=mesh)
         t_logits, _ = llama.forward(teacher, cfg, batch["input_ids"],
-                                    attn_mask=batch["attention_mask"])
+                                    attn_mask=batch["attention_mask"], mesh=mesh)
         return kd_loss(tc.kd_loss_type, batch["labels"], s_logits, t_logits, beta=beta)
 
     return eval_step
@@ -226,7 +361,8 @@ def evaluate(state, cfg, tc, teacher, eval_ds, collator, batch_size, beta, devic
              eval_step=None) -> float:
     """Mean eval loss over rows (batches of `batch_size`, the last one short)."""
     if eval_step is None:
-        eval_step = make_eval_step(cfg, tc, teacher)
+        eval_step = make_eval_step(cfg, tc, teacher,
+                                   None if state.zero is None else state.zero.mesh)
     params = state.params if state.zero is None else state.zero.gather_tree(state.params, "params")
     total, n_rows = 0.0, 0
     for b in data_loader(eval_ds, collator, batch_size, shuffle=False, drop_last=False):
@@ -244,8 +380,9 @@ def run_training(args, *, tokenizer=None, model=None) -> dict:
     unless given. With `coordinator_address`, `num_processes` and
     `process_id` (or torchrun's variables) the process joins a group of
     that many ranks (NCCL on the card, gloo on the CPU), each on its own
-    device, and leaves it at the end; `zero_stage` (default 2, as the CLI)
-    places the state. Returns {"final_loss", "steps", "state", "master",
+    device, and leaves it at the end; `tp` (default 1) splits every layer
+    over that many ranks of a dp group, and `zero_stage` (default 2, as the
+    CLI) places the state over dp. Returns {"final_loss", "steps", "state", "master",
     "beta", "train_config"}: "master" the whole f32 master (the final
     save's tree); "state" as placed, whose ZeRO collectives end with the
     group."""
@@ -263,7 +400,7 @@ def run_training(args, *, tokenizer=None, model=None) -> dict:
 
 def _run(args, device, tokenizer, model) -> dict:
     mesh = make_hybrid_mesh(tp=getattr(args, "tp", None) or 1, dp=getattr(args, "dp", None))
-    group = dist.group.WORLD if dist.is_initialized() else None
+    group = mesh.dp_group
     if tokenizer is None:
         from transformers import AutoTokenizer
 
@@ -276,6 +413,7 @@ def _run(args, device, tokenizer, model) -> dict:
     else:
         params, cfg = model
         params = tree_map(lambda x: x.to(device), params)
+    tp_config(cfg, mesh.tp)  # whole heads, MLP columns and vocab rows a tp rank
     student_src = params
     if args.clip:
         # the clip cache shapes the student only; the teacher stays unclipped
@@ -287,9 +425,10 @@ def _run(args, device, tokenizer, model) -> dict:
     eval_ds = SupervisedDataset.from_jsonl(args.data_path, tok.eos_token,
                                            args.max_train_samples, "eval", args.seed)
     if mesh.dp > 1:
-        # each rank feeds its own contiguous, equal slice; eval stays replicated
-        train_ds = SupervisedDataset(sources=host_shard(train_ds.sources),
-                                     targets=host_shard(train_ds.targets))
+        # each dp group feeds its own contiguous, equal slice; eval stays replicated
+        train_ds = SupervisedDataset(
+            sources=host_shard(train_ds.sources, mesh.dp_rank, mesh.dp),
+            targets=host_shard(train_ds.targets, mesh.dp_rank, mesh.dp))
     collator = Collator(tok, model_max_length=args.model_max_length)
 
     steps_per_epoch = max(len(train_ds) // args.per_device_train_batch_size, 1)
@@ -313,8 +452,10 @@ def _run(args, device, tokenizer, model) -> dict:
     if tc.train_kd:
         cdt = torch_dtype(cfg.dtype)  # the teacher rides in the compute dtype
         teacher = tree_map(lambda x: x.to(cdt) if x.is_floating_point() else x, params)
+        if mesh.tp > 1:
+            teacher = shard_params(teacher, mesh, param_specs_from_params(teacher))
     state = init_train_state(student_src, tc, group=group,
-                             zero_stage=getattr(args, "zero_stage", 2))
+                             zero_stage=getattr(args, "zero_stage", 2), mesh=mesh)
     # the loaded tree is freed here unless the teacher shares its tensors
     # (compute dtype f32) or the caller holds it (an injected model)
     del params, student_src
@@ -335,7 +476,7 @@ def _run(args, device, tokenizer, model) -> dict:
             if i >= tc.cakld_steps:
                 break
             batches.append(to_device(b, device))
-        beta = estimate_cakld_beta(teacher, cfg, batches, group=group)
+        beta = estimate_cakld_beta(teacher, cfg, batches, group=group, mesh=mesh)
         logger.info("CAKLD beta = %.4f", float(beta))
 
     step_fn = make_fused_train_step(cfg, tc) if tc.fused_accum else make_train_step(cfg, tc)
@@ -352,7 +493,7 @@ def _run(args, device, tokenizer, model) -> dict:
     try:
         if (getattr(args, "eval_on_start", False) and len(eval_ds) and teacher is not None
                 and start_step == 0):
-            eval_step_fn = make_eval_step(cfg, tc, teacher)
+            eval_step_fn = make_eval_step(cfg, tc, teacher, mesh)
             ev = evaluate(state, cfg, tc, teacher, eval_ds, collator,
                           args.per_device_train_batch_size, beta, device, eval_step_fn)
             logger.info("eval loss (step 0) %.4f", ev)
@@ -392,7 +533,7 @@ def _run(args, device, tokenizer, model) -> dict:
                 if (args.eval_steps and micro_step % args.eval_steps == 0 and len(eval_ds)
                         and teacher is not None):
                     if eval_step_fn is None:
-                        eval_step_fn = make_eval_step(cfg, tc, teacher)
+                        eval_step_fn = make_eval_step(cfg, tc, teacher, mesh)
                     ev = evaluate(state, cfg, tc, teacher, eval_ds, collator,
                                   args.per_device_train_batch_size, beta, device, eval_step_fn)
                     logger.info("eval loss %.4f", ev)

@@ -20,6 +20,11 @@ fault C4, kept and pinned by tests/test_torch_trainer.py).
 Data parallelism: `init_train_state(..., group=, zero_stage=)` places the
 state over a process group (`parallel/zero.py`, ZeRO 0/2/3) and the steps
 then average the gradients over the ranks, each rank feeding its own rows.
+Tensor parallelism: with `mesh=` (tp > 1) each rank holds its tp slice of
+the latents and the optimizer state, ZeRO runs over the mesh's dp group,
+and the forwards (student and teacher, the teacher handed over as the same
+slice) issue the tp collectives (`models/llama.py:forward(mesh=)`); the tp
+ranks of a dp group feed the same rows.
 """
 
 from __future__ import annotations
@@ -331,15 +336,25 @@ class TrainState:
     zero: Any = None  # parallel.zero.ZeroPlan under a process group
 
 
-def init_train_state(params, tc: TrainConfig, *, group=None, zero_stage: int = 0) -> TrainState:
+def init_train_state(params, tc: TrainConfig, *, group=None, zero_stage: int = 0,
+                     mesh=None) -> TrainState:
     """Latents in tc.param_dtype (fresh tensors: the step updates the state in
     place, so it never aliases the caller's tree) and the optimizer state.
 
     With a process group, the state is placed over its ranks at
     `zero_stage` (JAX `trainer.py:263-280`): 0 replicates it; 2 splits the
     f32 master, Adam's moments and the accumulators; 3 splits the latents
-    too. Integer counters are replicated."""
+    too. Integer counters are replicated. With a mesh, ZeRO runs over its
+    dp group (`group` is ignored), and at tp > 1 `params` (the whole tree)
+    is cut to this rank's tp slice first."""
     dt = latent_dtype(tc)
+    if mesh is not None:
+        group = mesh.dp_group
+    if mesh is not None and mesh.tp > 1:
+        from ..parallel.mesh import param_specs_from_params, shard_params
+
+        check_tp_groups(params, tc, mesh.tp)
+        params = shard_params(params, mesh, param_specs_from_params(params))
     latent = tree_map(lambda x: x.detach().to(dt).clone() if x.is_floating_point() else x,
                       params)
     if group is None:
@@ -347,7 +362,7 @@ def init_train_state(params, tc: TrainConfig, *, group=None, zero_stage: int = 0
     from ..parallel.zero import ZeroPlan
 
     opt = make_optimizer(tc)
-    plan = ZeroPlan(latent, zero_stage, opt, group)
+    plan = ZeroPlan(latent, zero_stage, opt, group, mesh)
     opt_state = opt.init(plan.shard_tree(latent, "opt"))
     return TrainState(params=plan.shard_tree(latent, "params"), opt_state=opt_state, step=0,
                       zero=plan)
@@ -355,12 +370,31 @@ def init_train_state(params, tc: TrainConfig, *, group=None, zero_stage: int = 0
 
 def master_params(state: TrainState) -> dict:
     """The f32 master copy when the optimizer keeps one, else the params;
-    whole (gathered from every rank, a collective) under ZeRO."""
+    whole (gathered from every rank, a collective) under ZeRO and tp."""
     z = state.zero
     if isinstance(state.opt_state, (MasterWeightsState, MasterAccumState)):
         m = state.opt_state.master
-        return m if z is None else z.gather_tree(m, "opt")
-    return state.params if z is None else z.gather_tree(state.params, "params")
+        return m if z is None else z.gather_tp(z.gather_tree(m, "opt"))
+    return state.params if z is None else z.gather_tp(z.gather_tree(state.params, "params"))
+
+
+def check_tp_groups(params: dict, tc: TrainConfig, tp: int) -> None:
+    """A row-parallel weight's quantization groups must not straddle a
+    shard edge: K / tp must be whole groups (and per-channel groups, which
+    span K, cannot split)."""
+    from ..parallel.mesh import ROW_PARALLEL
+
+    if tp == 1 or not tc.quant_type:
+        return
+    for name in ROW_PARALLEL:
+        leaf = params["layers"].get(name)
+        if leaf is None:
+            continue
+        k = leaf["w"].shape[-2]
+        if tc.q_group_size <= 0 or (k // tp) % tc.q_group_size:
+            raise ValueError(f"{name}: K = {k} over tp = {tp} leaves {k // tp} rows, not whole "
+                             f"quantization groups of {tc.q_group_size}: a group would "
+                             f"straddle a shard edge")
 
 
 def _student_remat(tc: TrainConfig, quantizer):
@@ -377,17 +411,17 @@ def to_device(batch: dict, device) -> dict:
 
 
 def _kd_or_ce_loss(cfg, tc: TrainConfig, params, batch, beta, teacher_params, *,
-                   quantizer, student_remat):
+                   quantizer, student_remat, mesh=None):
     """Per-micro-batch KD (CAKLD etc.) or plain-CE loss."""
     student_logits, _ = llama.forward(
         params, cfg, batch["input_ids"], quantizer=quantizer,
-        attn_mask=batch.get("attention_mask"), remat=student_remat,
+        attn_mask=batch.get("attention_mask"), remat=student_remat, mesh=mesh,
     )
     if teacher_params is not None and tc.train_kd:
         with torch.no_grad():
             teacher_logits, _ = llama.forward(
                 teacher_params, cfg, batch["input_ids"], attn_mask=batch.get("attention_mask"),
-                use_train_flash=tc.teacher_flash,
+                use_train_flash=tc.teacher_flash, mesh=mesh,
             )
         return tc.kd_loss_scale * kd_loss(
             tc.kd_loss_type, batch["labels"], student_logits, teacher_logits,
@@ -449,6 +483,10 @@ def _dp_inputs(state: TrainState):
     return full, z.opt_parts(full, state.params)
 
 
+def _mesh(zero):
+    return None if zero is None else zero.mesh
+
+
 def _update(tc, opts: dict, state: TrainState, grads, opt_params):
     """One optimizer update: (the new latents, the optimizer state, the
     global gradient norm). The norm is computed once, for the metrics and
@@ -481,7 +519,7 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, teacher_params=None) -> C
         z = state.zero
         params = _with_grad(full)
         loss = _kd_or_ce_loss(cfg, tc, params, batch, beta, t, quantizer=quantizer,
-                              student_remat=student_remat)
+                              student_remat=student_remat, mesh=_mesh(z))
         grads = _grads(loss, params)
         loss = loss.detach()
         del params, full
@@ -520,7 +558,7 @@ def make_fused_train_step(cfg: ModelConfig, tc: TrainConfig, teacher_params=None
         losses = []
         for batch in batches:
             loss = _kd_or_ce_loss(cfg, tc, qleaf, batch, beta, t, quantizer=None,
-                                  student_remat=fused_remat)
+                                  student_remat=fused_remat, mesh=_mesh(z))
             g = _grads(loss, qleaf)
             for path, _ in q_items:
                 acc[path] += _get(g, path).to(torch.float32)
@@ -549,24 +587,27 @@ def make_fused_train_step(cfg: ModelConfig, tc: TrainConfig, teacher_params=None
     return cycle_step
 
 
-def make_cakld_beta_fn(cfg: ModelConfig) -> Callable:
-    """Per-batch mean max-prob of the teacher (the CAKLD coefficient's terms)."""
+def make_cakld_beta_fn(cfg: ModelConfig, mesh=None) -> Callable:
+    """Per-batch mean max-prob of the teacher (the CAKLD coefficient's terms;
+    `mesh`: the teacher is a tp slice)."""
 
     @torch.no_grad()
     def batch_mean_prob(teacher_params, batch):
         logits, _ = llama.forward(teacher_params, cfg, batch["input_ids"],
-                                  attn_mask=batch.get("attention_mask"))
+                                  attn_mask=batch.get("attention_mask"), mesh=mesh)
         prob = torch.softmax(logits.to(torch.float32), dim=-1)
         return torch.amax(prob, dim=-1).mean()
 
     return batch_mean_prob
 
 
-def estimate_cakld_beta(teacher_params, cfg, batches, fn=None, group=None) -> torch.Tensor:
+def estimate_cakld_beta(teacher_params, cfg, batches, fn=None, group=None,
+                        mesh=None) -> torch.Tensor:
     """The mean of the teacher's mean max-prob over `batches`; with a
-    process group, over every rank's batches (each rank the same count: the
-    mean of the ranks' means, an all-reduce)."""
-    fn = fn or make_cakld_beta_fn(cfg)
+    process group (the dp ranks), over every rank's batches (each rank the
+    same count: the mean of the ranks' means, an all-reduce). `mesh`: the
+    teacher is a tp slice, and the tp ranks of a dp group agree already."""
+    fn = fn or make_cakld_beta_fn(cfg, mesh)
     total, n = 0.0, 0
     for batch in batches:
         total = total + fn(teacher_params, batch)

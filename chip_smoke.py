@@ -65,6 +65,16 @@ its window of 2047) and Gemma-3-4B at full width and reduced depth, each
 from the HF config dict stated in FAMILIES, with every launch count exact
 (B1 every prefill matmul, B2 or B4 every decode matmul, B3 the decode
 attention exactly where the JAX package's flash_ok holds). Beside
+Before families, `tp` runs tensor parallelism (tp_phase): B1, B2 and B3
+at the shapes a tp = 2 rank gives them (the 7B's and TinyLlama's unfused
+slices: K = 2048, 5504 and 2816 among them; 16 / 16 and 16 / 2 heads),
+checked and timed in this process, then two ranks on the one card joined
+over gloo (NCCL refuses two ranks on one device): the dry run's steps
+(scripts/dryrun_multichip.py), the packed 7B decode at tp = 2 and
+run_training at tp = 2 (TinyLlama's width, 2 layers, through B8 at 16 / 2
+heads, a checkpoint in each rank's parts), against tp = 1 runs here. The
+train phase's checkpoints are C9's layout: each rank's parts and a
+manifest, the write timed with the process's resident memory sampled. Beside
 the build, scripts/kernel_sass.py reads what ptxas made of
 csrc/train_attention.cu; the `sass` phase prints it and fails unless every
 B8 tensor-core kernel (bf16, and the 3xTF32 forward, dkv and dq, alone and
@@ -163,7 +173,15 @@ Tolerances (kernel vs plain version on the same inputs):
     forward within 1e-4 relative of the plain f32 attention;
   * method (A13): int2 RTN > +AutoClip > +QAT, nf3 QAT < RTN, the packed row
     within 0.5% of the QAT row (one int2 grid) and the W2A8 row within 2% of
-    the packed row.
+    the packed row;
+  * tp: the shard shapes as the packed matmuls and the decode attention
+    above (integer inputs exact, bf16 within MATMUL_TOL, ATTN_TOL, two
+    calls equal); every rank's B1 / B2 / B3 launches of the tp decode and
+    B8's of the tp run_training exactly as predicted; the tp = 2 decode's
+    logits within LOGIT_TOL of the largest from tp = 1's on the same
+    weights and tokens; the tp = 2 training losses within TP_LOSS_TOL
+    relative of tp = 1's; the tp = 2 checkpoint restored at tp = 1 in one
+    process equal bit for bit to the ranks' final master.
 """
 
 from __future__ import annotations
@@ -208,6 +226,10 @@ from bitdistiller_tpu_torch.generation import datasets as gen_datasets
 from bitdistiller_tpu_torch.generation import teacher as teacher_mod
 from bitdistiller_tpu_torch.models.hf_import import load_hf_checkpoint, save_hf_checkpoint
 from bitdistiller_tpu_torch.ops import _build
+from bitdistiller_tpu_torch.parallel.distributed import (init_distributed, make_hybrid_mesh,
+                                                         shutdown_distributed)
+from bitdistiller_tpu_torch.parallel.mesh import shard_packed_model
+from bitdistiller_tpu_torch.parallel.tensor import tp_config
 from bitdistiller_tpu_torch.ops import decode_attention as da
 from bitdistiller_tpu_torch.ops import quant_matmul as qm
 from bitdistiller_tpu_torch.ops import train_attention as ta
@@ -220,6 +242,7 @@ from bitdistiller_tpu_torch.quant.packing import (
     unpack_codes,
 )
 from bitdistiller_tpu_torch.scripts import bw_probe, loadtest
+from bitdistiller_tpu_torch.scripts.dryrun_multichip import dryrun as tp_dryrun
 from bitdistiller_tpu_torch.serve import Engine, Request, SamplingParams
 from bitdistiller_tpu_torch.serve.capacity import serve_capacity
 from bitdistiller_tpu_torch.serve.engine import grow_kv_cache
@@ -349,12 +372,13 @@ def plain_matmul(x, p: PackedLinear, li: int):
     return qm.quant_matmul_plain(x, lay.qweight, lay.scales, lay.szeros, lay.bits, lay.group_size)
 
 
-def check_matmuls(gen, record, ms=CHECK_M, bits_list=(2, 4)):
-    """B1/B2 on layer 1 of a stack: int2 and int4, the four 7B shapes, M in
-    `ms`; at M = 8 on bf16 x a second call must give the same bytes."""
+def check_matmuls(gen, record, ms=CHECK_M, bits_list=(2, 4), shapes=SHAPES):
+    """B1/B2 on layer 1 of a stack: int2 and int4, the four 7B shapes (or
+    `shapes`), M in `ms`; at M = 8 on bf16 x a second call must give the
+    same bytes."""
     worst = 0.0
     for bits in bits_list:
-        for name, (k, n) in SHAPES.items():
+        for name, (k, n) in shapes.items():
             for integer in (True, False):
                 p = rand_stacked(gen, 2, k, n, bits, integer)
                 for m in ms:
@@ -548,16 +572,17 @@ def time_matmuls(gen, m, bw, detail, group=GROUP, shapes=SHAPES):
     return tot
 
 
-def time_attention(gen, bw, detail, per_layer: bool, starts=TABLE_STARTS):
+def time_attention(gen, bw, detail, per_layer: bool, starts=TABLE_STARTS, heads=(32, 32, 128)):
     """B3 on layer i % 2 of a stacked cache, or (per_layer) B6, the per-layer
     entry, on two separate [B, Hkv, T, D] caches: the same work and the same
-    kernel, 7B heads, batch 8, T = 2048, the slots at `starts` (the table's
-    long skewed work, or the steady decode step's lengths). `ms` is the raw
+    kernel, 7B heads (or `heads`: Hq, Hkv, D), batch 8, T = 2048, the slots
+    at `starts` (the table's long skewed work, or the steady decode step's
+    lengths). `ms` is the raw
     launcher on `attention_plan`'s clusters (as for the matmuls),
     `wrapper_ms` the entry point; the library yardstick is SDPA over the same
     layer's cache with a row mask (it reads all T rows and does not fold the
     fresh token)."""
-    b, hq, hkv, t, d = 8, 32, 32, 2048, 128
+    (hq, hkv, d), b, t = heads, 8, 2048
     q, ck, cv, kn, vn, st, _, _ = attn_inputs(gen, b, hq, hkv, t, d, "bf16", starts, layers=2)
     if per_layer:
         caches = [(ck[i].clone(), cv[i].clone()) for i in range(2)]
@@ -581,7 +606,7 @@ def time_attention(gen, bw, detail, per_layer: bool, starts=TABLE_STARTS):
     mask = (torch.arange(t, device=DEV)[None, :] < st[:, None])[:, None, None, :]
     qs = q.transpose(1, 2)
     lib = cuda_ms(lambda i: torch.nn.functional.scaled_dot_product_attention(
-        qs, *caches[i % 2], attn_mask=mask), 20)
+        qs, *caches[i % 2], attn_mask=mask, enable_gqa=hq != hkv), 20)
     rows = sum(starts)
     nbytes = 2 * rows * hkv * d * 2 + 2 * b * hq * d * 2 + 2 * b * hkv * d * 2
     bnd, by = bound_ms(nbytes, 4.0 * rows * hq * d)
@@ -1675,6 +1700,7 @@ TRAIN_ATTN_TOL = 2e-2  # bf16: p and ds enter their products in bf16, the plain 
 TRAIN_ATTN_TOL_F32 = 1e-4
 TA_CASES = {  # name: (B, S, Hq, Hkv, D, padded row length or None, dtype)
     "tinyllama": (2, 1024, 32, 4, 64, 900, torch.bfloat16),
+    "tinyllama_tp2": (2, 1024, 16, 2, 64, 900, torch.bfloat16),  # a tp = 2 rank's heads
     "llama2_7b": (1, 2048, 32, 32, 128, None, torch.bfloat16),
     "ragged": (2, 1000, 8, 2, 64, 700, torch.bfloat16),
     "f32": (1, 300, 8, 2, 64, 250, torch.float32),
@@ -1786,7 +1812,7 @@ def train_attention_phase(gen, record):
         worst[name] = max(errs.values())
         del q, k, v, do, got, want, out, lse, di, dq
     times = {}
-    for name in ("tinyllama", "llama2_7b", "d256", "d256_mqa") + F32_TIMED:
+    for name in ("tinyllama", "tinyllama_tp2", "llama2_7b", "d256", "d256_mqa") + F32_TIMED:
         b, s, hq, hkv, d, pad, dtype = TA_CASES[name]
         f32 = dtype == torch.float32
         peak = PEAK_TF32X3_FLOPS if f32 else PEAK_BF16_FLOPS
@@ -1992,11 +2018,14 @@ class CheckpointTimes:
         pipeline.save_hf_checkpoint = self._timed("final_save_f32_s", self.saved[1])
         pipeline.init_distributed = self._timed("nccl_init_s", self.saved[2])
         self.saves: list = []  # (micro-step, host seconds) of each train-state checkpoint
+        self.host_rise: list = []  # the resident memory's rise during each
         save = self._timed("checkpoint_s", self.saved[3])
 
         def save_checkpoint(ckpt_dir, step, state):
-            out = save(ckpt_dir, step, state)
+            with RssRise() as rss:
+                out = save(ckpt_dir, step, state)
             self.saves.append((step, self.s["checkpoint_s"]))
+            self.host_rise.append(rss.rise)
             return out
 
         pipeline.save_checkpoint = save_checkpoint
@@ -2455,10 +2484,12 @@ def train_phase(card, rec):
                             saves=io.saves)
         counts = read_counts()
         del run["summary"]["state"]  # 19.8 GB on the card; the summary keeps the master
-        # the resume run starts from a copy (a hard link) of the step-2 checkpoint
+        # the resume run starts from a copy (hard links) of the step-2 checkpoint
         (tmp / "resume" / "step_2").mkdir(parents=True)
-        os.link(tmp / "out" / "step_2" / "state.pt", tmp / "resume" / "step_2" / "state.pt")
-        ckpt_bytes = (tmp / "out" / "step_2" / "state.pt").stat().st_size
+        for f in (tmp / "out" / "step_2").iterdir():
+            os.link(f, tmp / "resume" / "step_2" / f.name)
+        ckpt_bytes = sum(f.stat().st_size for f in (tmp / "out" / "step_2").iterdir())
+        largest_leaf = largest_part(tmp / "out" / "step_2")
         for step in ("step_2", "step_4"):
             shutil.rmtree(tmp / "out" / step)
         torch.cuda.empty_cache()
@@ -2471,7 +2502,7 @@ def train_phase(card, rec):
         resume_counts = read_counts()
         del resumed["summary"]["state"]
         master_gap = update_gap(resumed["summary"].pop("master"), run["summary"]["master"],
-                                tmp / "resume" / "step_2" / "state.pt")
+                                tmp / "resume" / "step_2")
         shutil.rmtree(tmp / "resume")
     except BaseException:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -2501,7 +2532,9 @@ def train_phase(card, rec):
                zero_stage=2, world_size=1, predicted_launches=want_b8,
                checkpoint_io=dict(save_bf16_s=save_s, save_bf16_bytes=init_bytes, **io.s,
                                   final_save_bytes=dir_bytes(tmp / "out"),
-                                  train_state_bytes=ckpt_bytes, train_state_saves=io.saves),
+                                  train_state_bytes=ckpt_bytes, train_state_saves=io.saves,
+                                  save_host_rise_bytes=io.host_rise,
+                                  largest_leaf_bytes=largest_leaf),
                resume=dict(loss=resume_loss, uninterrupted=uninterrupted, rel_gap=resume_gap,
                            tol=RESUME_LOSS_TOL, master_update_gap=master_gap,
                            master_tol=RESUME_MASTER_TOL, launches=resume_counts,
@@ -2535,6 +2568,12 @@ def train_phase(card, rec):
             f"single-device run; B8 launches as predicted {want_b8}; the train state's "
             f"checkpoints {ckpt_bytes / 1e9:.2f} GB each, written in "
             f"{[round(sec, 2) for _, sec in io.saves]} s (taken out of the micro-step ms)")
+        say(f"train checkpoint (C9 format: rank{{r}}.safetensors + manifest.json, each rank "
+            f"its own parts; {card}): {ckpt_bytes / 1e9:.3f} GB a checkpoint, written in "
+            f"{[round(sec, 2) for _, sec in io.saves]} s; this process's resident memory rose "
+            f"{[round(x / 1e9, 3) for x in io.host_rise]} GB during each write (the writer "
+            f"copies one leaf to the host at a time; the largest leaf "
+            f"{largest_leaf / 1e9:.3f} GB)")
         say(f"train resume (cli train --resume --fused_accum --zero_stage 3, BITDISTILLER_DEBUG=1, "
             f"from the stepwise ZeRO-2 step-2 checkpoint): cycle 2 loss {resume_loss!r} vs the "
             f"uninterrupted run's {uninterrupted!r} (relative gap {resume_gap:.3g}, tol "
@@ -2575,17 +2614,54 @@ def train_phase(card, rec):
 
 def update_gap(master: dict, ref: dict, ckpt: Path) -> float:
     """||master - ref|| / ||ref - m2|| over the whole f32 tree, m2 the
-    master the checkpoint at `ckpt` holds (read leaf by leaf from the
-    memory-mapped file)."""
-    flat = torch.load(ckpt, map_location="cpu", mmap=True)
+    master the checkpoint dir `ckpt` holds (read leaf by leaf from its
+    memory-mapped parts)."""
     num = den = 0.0
     for path, want in tr.tree_items(ref):
         got = tr._get(master, path)
-        start = flat["opt_state/master/" + "/".join(path)].to(DEV)
+        start = pipeline.read_checkpoint_leaf(str(ckpt),
+                                              "opt_state/master/" + "/".join(path)).to(DEV)
         num += float(((got - want).double() ** 2).sum())
         den += float(((want - start).double() ** 2).sum())
-    del flat
     return math.sqrt(num / den)
+
+
+def largest_part(ckpt: Path) -> int:
+    """The bytes of the largest tensor in a checkpoint's part files: the
+    largest host copy its writer makes (it copies one tensor at a time)."""
+    most = 0
+    for f in ckpt.glob("rank*.safetensors"):
+        header, _ = safetensors_io.read_header(str(f))
+        most = max([most] + [e["data_offsets"][1] - e["data_offsets"][0]
+                             for k, e in header.items() if k != "__metadata__"])
+    return most
+
+
+def _rss() -> int:
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
+class RssRise:
+    """The largest rise of this process's resident memory over its level at
+    entry, sampled every 5 ms from /proc/self/statm while the block runs."""
+
+    def __enter__(self):
+        self.base = self.peak = _rss()
+        self.stop = threading.Event()
+        self.thread = threading.Thread(target=self._sample, daemon=True)
+        self.thread.start()
+        return self
+
+    def _sample(self):
+        while not self.stop.wait(0.005):
+            self.peak = max(self.peak, _rss())
+
+    def __exit__(self, *exc):
+        self.stop.set()
+        self.thread.join()
+        self.rise = max(self.peak, _rss()) - self.base
+        return False
 
 
 def mix_data_check(generated: Path, prompts: Path, tmp: Path) -> dict:
@@ -3659,6 +3735,287 @@ TF32_KERNELS = ("train_attn_fwd_tf32_kernel<64>", "train_attn_fwd_tf32_kernel<12
                 "train_attn_dq_tf32_split_kernel")
 
 
+# ---- tensor parallelism (TP-a): tp = 2 on two ranks of the one card ------------
+
+TP_TRAIN_CFG = dataclasses.replace(TINYLLAMA_1B, num_layers=2)  # full width, depth cut
+TP_DECODE_CFG = dataclasses.replace(LLAMA2_7B, num_layers=2)
+TP_PROMPT = (8, 64)  # 8 slots of 64 prompt tokens: a prefill of 512 rows through B1
+TP_STEPS = 8
+TP_CACHE = 128
+# The tp = 2 runs against the one-process runs on the same weights and inputs,
+# both through the kernels: bf16 activations, where the row-parallel o and
+# down sum two bf16 partial products in f32 and one process rounds one
+# product. Logits as the whole decode step's (LOGIT_TOL); the training
+# losses within tests/test_torch_dp_train.py's bf16 bound.
+TP_LOSS_TOL = 2e-3
+TP_TIMEOUT_S = 300
+
+
+def tp_shard_shapes(cfg, tp: int = 2) -> dict:
+    """{linear: (K, N)} of one tp rank's slice of the unfused layer linears:
+    q, k, v, gate, up column-parallel (N / tp), o and down row-parallel
+    (K / tp)."""
+    local, d, dh = tp_config(cfg, tp), cfg.hidden_size, cfg.actual_head_dim
+    q, kv, ffn = local.num_heads * dh, local.num_kv_heads * dh, local.intermediate_size
+    return {"q": (d, q), "k": (d, kv), "v": (d, kv), "o": (q, d), "gate": (d, ffn),
+            "up": (d, ffn), "down": (ffn, d)}
+
+
+def tp_predicted(layers: int) -> dict:
+    """B1, B2 and B3 launches of `tp_decode` on unfused layers: the
+    prefill's 7 matmuls a layer through B1, every step's 7 through B2 and
+    its attention through B3."""
+    return dict(qmm_prefill=7 * layers, qmm_decode=7 * layers * TP_STEPS,
+                flash_decode=layers * TP_STEPS)
+
+
+def tp_decode(params, cfg, mesh, dev, forced=None):
+    """TP_PROMPT random prompts (seed 1) prefilled into a TP_CACHE-row bf16
+    cache, then TP_STEPS greedy decode steps (or the `forced` tokens), on
+    `mesh`'s tp slice (None: one process), the launch counts reset just
+    before and read just after. Returns (the last position's logits of the
+    prefill and of each step, [TP_STEPS + 1, B, V] f32 on the host; the
+    tokens fed; the counts; each step's host ms)."""
+    local = cfg if mesh is None else tp_config(cfg, mesh.tp)
+    b, s = TP_PROMPT
+    gen = torch.Generator(device=dev).manual_seed(1)
+    prompts = torch.randint(3, cfg.vocab_size, (b, s), generator=gen, device=dev)
+    cache = KVCache.init(local, b, TP_CACHE, device=dev)
+    logits_out, toks, step_ms = [], [], []
+    with torch.inference_mode():
+        reset_counts()
+        logits, _ = forward(params, cfg, prompts, cache=cache, cache_pos=0, mesh=mesh)
+        last = logits[:, -1]
+        for i in range(TP_STEPS):
+            logits_out.append(last.float().cpu())
+            tok = last.argmax(-1) if forced is None else forced[i].to(dev)
+            toks.append(tok.cpu())
+            pos = torch.full((b,), s + i, dtype=torch.int32, device=dev)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            logits, _ = forward(params, cfg, tok[:, None], cache=cache, cache_pos=pos, mesh=mesh)
+            torch.cuda.synchronize()
+            step_ms.append((time.time() - t0) * 1e3)
+            last = logits[:, 0]
+        logits_out.append(last.float().cpu())
+        counts = read_counts()
+    return torch.stack(logits_out), torch.stack(toks), counts, step_ms
+
+
+def tp_rank(rank: int, world: int, port: int, tmp: Path) -> None:
+    """One of the tp phase's two ranks, both on the one card, joined over
+    gloo (NCCL refuses two ranks on one device; gloo stages each collective
+    through the host): the dry run's steps (`scripts/dryrun_multichip.py`),
+    the packed 7B decode (`tp_decode`) on the rank's tp slice of
+    TP_DECODE_CFG, and run_training of TP_TRAIN_CFG at tp = 2 through B8,
+    each with its launch counts. Writes tmp/rank{r}.pt (rank 0 also its
+    final master and train config)."""
+    dev = torch.device(DEV, 0)
+    torch.cuda.set_device(dev)
+    init_distributed(f"127.0.0.1:{port}", world, rank, device=DEV, backend="gloo")
+    out: dict = {}
+    try:
+        reset_counts()
+        t0 = time.time()
+        out["dryrun"] = tp_dryrun(dev)
+        out["dryrun_s"] = time.time() - t0
+        out["dryrun_launches"] = read_counts()
+        mesh = make_hybrid_mesh(tp=2)
+        cfg = TP_DECODE_CFG
+        whole = random_packed_params(cfg, bits=BITS, group_size=GROUP, seed=0, device=dev,
+                                     fuse=False)
+        shard = shard_packed_model(whole, mesh, cfg)
+        del whole
+        out["decode"] = tp_decode(shard, cfg, mesh, dev)
+        del shard
+        torch.cuda.empty_cache()
+        os.environ["BITDISTILLER_TRAIN_FLASH"] = "1"
+        params = init_params(TP_TRAIN_CFG, seed=0, dtype=torch.bfloat16, device=dev)
+        reset_counts()
+        t0 = time.time()
+        summary = run_training(train_args(tmp / "teacher.jsonl", tmp / "tp2", tp=2,
+                                          save_steps=4), tokenizer=ByteTok(),
+                               model=(params, TP_TRAIN_CFG))
+        out["train"] = dict(launches=read_counts(), wall_s=time.time() - t0,
+                            steps=summary["steps"], beta=summary["beta"],
+                            final_loss=summary["final_loss"])
+        if rank == 0:
+            torch.save({"master": tr.tree_map(lambda x: x.cpu(), summary["master"]),
+                        "train_config": summary["train_config"]}, tmp / "tp2_master.pt")
+    finally:
+        shutdown_distributed()
+    torch.save(out, tmp / f"rank{rank}.pt")
+
+
+def tp_spawn(tmp: Path) -> list:
+    """The two ranks of `tp_rank`, each a fresh process; every one left is
+    killed at TP_TIMEOUT_S."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.start_processes(tp_rank, args=(2, free_port(), tmp), nprocs=2, join=False,
+                             start_method="spawn")
+    deadline = time.time() + TP_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=1):
+            if time.time() > deadline:
+                raise TimeoutError(f"tp ranks: not done in {TP_TIMEOUT_S} s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+    return [torch.load(tmp / f"rank{r}.pt", weights_only=False) for r in range(2)]
+
+
+def tp_check_attention(gen, record, heads) -> float:
+    """B3 at a tp rank's heads (Hq, Hkv, D) on bf16 and int8 caches of 2048
+    rows against the plain version (ATTN_TOL), two calls equal."""
+    hq, hkv, d = heads
+    worst = 0.0
+    for kv in ("bf16", "int8"):
+        q, ck, cv, kn, vn, st, ks, vs = attn_inputs(gen, 8, hq, hkv, 2048, d, kv,
+                                                    mixed_starts(8, 2047))
+        got = da.flash_decode_stacked(q, ck, cv, 1, kn, vn, st, k_scale=ks, v_scale=vs)
+        again = da.flash_decode_stacked(q, ck, cv, 1, kn, vn, st, k_scale=ks, v_scale=vs)
+        want = da.decode_attention_plain(q, ck, cv, 1, kn, vn, st, k_scale=ks, v_scale=vs)
+        err = (got.float() - want.float()).abs().max().item()
+        record.append(dict(kv=kv, heads=heads, max_abs_err=err, ok=err <= ATTN_TOL))
+        if not err <= ATTN_TOL or not torch.equal(got, again):
+            raise AssertionError(f"tp decode attention {heads} {kv}: max|err|={err}")
+        worst = max(worst, err)
+    return worst
+
+
+def tp_phase(gen, bw, card, rec) -> dict:
+    """Tensor parallelism on the card (TP-a). First, in this process, B1,
+    B2 and B3 at the shapes a tp = 2 rank gives them: the packed matmuls of
+    Llama-2-7B's and TinyLlama's unfused slices (q, k, v, gate, up at N / 2,
+    o and down at K / 2: 2048 and 5504 for the 7B, 2816 for TinyLlama's
+    down) against the plain version (integer inputs exact, bf16 within
+    MATMUL_TOL) at M = 8 (B2) and 512 (B1), and timed; B3 at 16 / 16 heads
+    (the 7B) and 16 / 2 (TinyLlama), bf16 and int8 caches, checked and
+    timed. (B8 at TinyLlama's 16 / 2 heads is `train_attention`'s
+    `tinyllama_tp2` case.) Then two ranks on the one card over gloo
+    (`tp_rank`): the dry run, the packed 7B decode at tp = 2 (2 layers,
+    full width) and run_training at tp = 2 (TinyLlama, 2 layers, B8,
+    a checkpoint in the C9 format at micro-step 4), each rank's launch
+    counts predicted exactly; against them, in this process, the same
+    decode at tp = 1 on the same weights fed the ranks' tokens (logits
+    within LOGIT_TOL of the largest), run_training at tp = 1 (losses within
+    TP_LOSS_TOL relative), and the tp = 2 checkpoint restored at tp = 1, in
+    one process, equal bit for bit to the ranks' final master."""
+    out: dict = {"checks": [], "matmul_times": [], "attention_times": []}
+    shapes7, shapes_tl = tp_shard_shapes(LLAMA2_7B), tp_shard_shapes(TINYLLAMA_1B)
+    out["matmul_rel_err"] = max(
+        check_matmuls(gen, out["checks"], ms=(8, 512), bits_list=(BITS,), shapes=shapes7),
+        check_matmuls(gen, out["checks"], ms=(8,), bits_list=(BITS,), shapes=shapes_tl))
+    out["attention_err"] = max(tp_check_attention(gen, out["checks"], (16, 16, 128)),
+                               tp_check_attention(gen, out["checks"], (16, 2, 64)))
+    out["b2_7b"] = time_matmuls(gen, 8, bw, out["matmul_times"], shapes=shapes7)
+    out["b1_7b"] = time_matmuls(gen, 512, bw, out["matmul_times"], shapes=shapes7)
+    out["b2_tinyllama"] = time_matmuls(gen, 8, bw, out["matmul_times"], shapes=shapes_tl)
+    out["b3_7b"] = time_attention(gen, bw, out["attention_times"], per_layer=False,
+                                  heads=(16, 16, 128))
+    out["b3_tinyllama"] = time_attention(gen, bw, out["attention_times"], per_layer=False,
+                                         heads=(16, 2, 64))
+    torch.cuda.empty_cache()
+    tmp = Path(tempfile.mkdtemp(prefix="bd_tp_"))
+    saved_flash = os.environ.get("BITDISTILLER_TRAIN_FLASH")
+    try:
+        write_teacher_jsonl(tmp / "teacher.jsonl")
+        t0 = time.time()
+        ranks = tp_spawn(tmp)
+        out["ranks_s"] = time.time() - t0
+        cfg = TP_DECODE_CFG
+        whole = random_packed_params(cfg, bits=BITS, group_size=GROUP, seed=0, device=DEV,
+                                     fuse=False)
+        ref_logits, _, ref_counts, ref_ms = tp_decode(whole, cfg, None, torch.device(DEV),
+                                                      forced=ranks[0]["decode"][1])
+        del whole
+        os.environ["BITDISTILLER_TRAIN_FLASH"] = "1"
+        params = init_params(TP_TRAIN_CFG, seed=0, dtype=torch.bfloat16, device=DEV)
+        reset_counts()
+        one = train_run(train_args(tmp / "teacher.jsonl", tmp / "tp1"), model=(params, TP_TRAIN_CFG))
+        one_counts = read_counts()
+        tp2_losses = [json.loads(x)["loss"] for x in open(tmp / "tp2" / "metrics.jsonl")]
+        saved = torch.load(tmp / "tp2_master.pt", weights_only=False)
+        state = tr.init_train_state(params, saved["train_config"])
+        state = pipeline.restore_checkpoint(str(tmp / "tp2" / "step_4"), state)
+        restored = tr.master_params(state)
+        restore_equal = all(torch.equal(x.cpu(), tr._get(saved["master"], p))
+                            for p, x in tr.tree_items(restored))
+        with open(tmp / "tp2" / "step_4" / pipeline.MANIFEST) as f:
+            manifest = json.load(f)
+        del state, restored, params, saved
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        if saved_flash is None:
+            os.environ.pop("BITDISTILLER_TRAIN_FLASH", None)
+        else:
+            os.environ["BITDISTILLER_TRAIN_FLASH"] = saved_flash
+    want_dec = tp_predicted(cfg.num_layers)
+    want_b8 = predicted_b8(TP_TRAIN_CFG.num_layers, 2, ranks[0]["train"]["steps"])
+    b8 = ("train_attn_fwd", "train_attn_bwd_dkv", "train_attn_bwd_dq")
+    scale = ref_logits.abs().max().item()
+    logit_err = max((r["decode"][0] - ref_logits).abs().max().item() for r in ranks)
+    loss_gap = max(abs(a - b) / abs(b) for a, b in zip(tp2_losses, one["losses"]))
+    out.update(
+        route="two ranks on one card over gloo (CUDA tensors staged through the host)",
+        ranks=[{k: r[k] for k in ("dryrun", "dryrun_s", "dryrun_launches", "train")}
+               for r in ranks],
+        decode=dict(launches=[r["decode"][2] for r in ranks], predicted=want_dec,
+                    reference_launches=ref_counts, step_ms=[r["decode"][3] for r in ranks],
+                    reference_step_ms=ref_ms, logit_err=logit_err, logit_scale=scale),
+        train=dict(losses=tp2_losses, reference_losses=one["losses"], loss_gap=loss_gap,
+                   tol=TP_LOSS_TOL, predicted_b8=want_b8, reference_launches=one_counts,
+                   reference_wall_s=one["wall_s"]),
+        checkpoint=dict(restored_at_tp1_equal=restore_equal, dp=manifest["dp"],
+                        tp=manifest["tp"]))
+    rec.update(out)
+    for r in ranks:
+        got = {k: r["decode"][2][k] for k in want_dec}
+        if got != want_dec:
+            raise AssertionError(f"tp decode launches {r['decode'][2]}, predicted {want_dec}")
+        if {k: r["train"]["launches"][k] for k in b8} != want_b8:
+            raise AssertionError(f"tp train B8 launches {r['train']['launches']}, "
+                                 f"predicted {want_b8}")
+        if not (r["dryrun_launches"]["qmm_decode"] and r["dryrun_launches"]["flash_decode"]):
+            raise AssertionError(f"tp dry run: no B2 / B3 launch {r['dryrun_launches']}")
+    if {k: ref_counts[k] for k in want_dec} != want_dec:
+        raise AssertionError(f"tp = 1 decode launches {ref_counts}, predicted {want_dec}")
+    if not logit_err <= LOGIT_TOL * scale:
+        raise AssertionError(f"tp = 2 decode logits {logit_err} from tp = 1's (max {scale})")
+    if len(tp2_losses) != len(one["losses"]) or not loss_gap <= TP_LOSS_TOL:
+        raise AssertionError(f"tp = 2 losses {tp2_losses} vs tp = 1 {one['losses']}")
+    if not restore_equal or (manifest["dp"], manifest["tp"]) != (1, 2):
+        raise AssertionError("the tp = 2 checkpoint did not restore at tp = 1 to its master")
+    d0 = ranks[0]["decode"]
+    say(f"tp ({card}; {out['route']}, {out['ranks_s']:.1f} s for both ranks' runs): the dry "
+        f"run's steps ({ranks[0]['dryrun_s']:.1f} s: ZeRO 2 / 3 steps, the fused cycle, the "
+        f"packed decode over bf16 and int8 caches, run_training) with B2 / B3 launches "
+        f"{ {k: v for k, v in ranks[0]['dryrun_launches'].items() if v} }")
+    say(f"tp decode, Llama-2-7B 2 layers int2-g128 unfused at tp = 2: launches a rank "
+        f"{ {k: d0[2][k] for k in want_dec} } (predicted {want_dec}); logits {logit_err:.4g} "
+        f"from tp = 1's on the same weights and tokens (max {scale:.4g}, tol {LOGIT_TOL}); a "
+        f"step {np.median(d0[3]):.2f} ms at tp = 2 over gloo, {np.median(ref_ms):.2f} ms at "
+        f"tp = 1 (host clock, median of {TP_STEPS})")
+    say(f"tp train, TinyLlama 2 layers at tp = 2 (B8 at 16 / 2 heads a rank): losses "
+        f"{tp2_losses} vs tp = 1 {one['losses']} (worst relative gap {loss_gap:.3g}, tol "
+        f"{TP_LOSS_TOL}); B8 launches a rank "
+        f"{ {k: ranks[0]['train']['launches'][k] for k in b8} } (predicted {want_b8}); "
+        f"{ranks[0]['train']['wall_s']:.1f} s at tp = 2, {one['wall_s']:.1f} s at tp = 1; "
+        f"its step-4 checkpoint (dp 1, tp 2) restored in one process equals its final master")
+    for name, t in (("B2 7B", out["b2_7b"]), ("B1 7B M=512", out["b1_7b"]),
+                    ("B2 TinyLlama", out["b2_tinyllama"])):
+        tt = totals_entry(t, bw)
+        say(f"tp shard shapes {name}: the 7 linears {tt['ms']:.4f} ms (bound {tt['bound_ms']:.4f} "
+            f"{tt['bound_by']}, plain {tt['plain_ms']:.3f}, torch.matmul {tt['library_ms']:.4f})")
+    for name, t in (("7B 16/16 heads", out["b3_7b"]), ("TinyLlama 16/2 heads",
+                                                        out["b3_tinyllama"])):
+        say(f"tp shard shapes B3 {name}: {t['ms']:.4f} ms (bound {t['bound_ms']:.4f}, plain "
+            f"{t['plain_ms']:.3f}, SDPA {t['library_ms']:.4f})")
+    return out
+
+
 def sass_phase(rc: int, out: str, err: str) -> dict:
     """What ptxas made of B8's tensor-core kernels, bf16 and the f32
     3xTF32 ones (scripts/kernel_sass.py's rows: registers, spill bytes,
@@ -3872,6 +4229,11 @@ def run() -> int:
         summary["serve"] = {}
         verify_t = serve_phase(gen, bw, card, summary["serve"])
 
+    with Phase("tp"):
+        summary["tp"] = {}
+        tp_out = tp_phase(gen, bw, card, summary["tp"])
+        torch.cuda.empty_cache()
+
     # last, so that the earlier phases run in the same process state with or
     # without it (run before training, its 13 GB Falcon-7B build slowed the KD cycle)
     with Phase("families"):
@@ -3902,6 +4264,17 @@ def run() -> int:
         return {k: method_counts.get(k, 0) for k in kinds}
 
     sv = summary["serve"]
+    tp_runs = tp_out["ranks"]
+
+    def tp_block(*kinds):  # the tp phase's launches of kernels, each rank: decode, dry run
+        return {f"rank{r}": {k: {"decode": tp_out["decode"]["launches"][r].get(k, 0),
+                                 "dryrun": run["dryrun_launches"].get(k, 0)} for k in kinds}
+                for r, run in enumerate(tp_runs)}
+
+    def tp_rows(kernel):  # one rank's shard shapes, one row a linear
+        return [{k: row[k] for k in ("shape", "m", "k", "n", "ms", "plain_ms", "library_ms",
+                                     "bound_ms", "bound_by")}
+                for row in tp_out["matmul_times"] if row["kernel"] == kernel]
 
     def serve_block(kind):  # the serve phase's launches of one kernel, each run
         runs = {"grown": sv["growth"]["grown"], "static": sv["growth"]["static"],
@@ -3930,7 +4303,12 @@ def run() -> int:
                      bound_measured_bw_ms=dec["bound_measured_bw_ms"], g64=times(dec64),
                      c6=c6_mm("qmm_decode"), families=family_block("qmm_decode"),
                      eval=eval_block("qmm_decode"), method=method_block("qmm_decode"),
-                     serve=serve_block("qmm_decode")),
+                     serve=serve_block("qmm_decode"),
+                     tp=dict(llama2_7b_m8=times(totals_entry(tp_out["b2_7b"], bw)),
+                             tinyllama_m8=times(totals_entry(tp_out["b2_tinyllama"], bw)),
+                             shapes=tp_rows("qmm_decode"), launches=tp_block("qmm_decode"),
+                             predicted=tp_out["decode"]["predicted"]["qmm_decode"],
+                             max_abs_err=tp_out["matmul_rel_err"])),
         kernel_entry("qmm_prefill", "quant_matmul.cu", "bitdistiller_tpu/ops/quant_matmul.py:107",
                      counts["qmm_prefill"], mm_rel, pre,
                      "the same four, M=256 (x group sums + wgmma kernel; m4096: the engine's "
@@ -3942,7 +4320,10 @@ def run() -> int:
                      families=family_block("qmm_prefill"), eval=eval_block("qmm_prefill"),
                      method=method_block("qmm_prefill"),
                      **{f"m{m}": times(t) for m, t in verify_t.items()},
-                     serve=serve_block("qmm_prefill")),
+                     serve=serve_block("qmm_prefill"),
+                     tp=dict(llama2_7b_m512=times(totals_entry(tp_out["b1_7b"], bw)),
+                             shapes=tp_rows("qmm_prefill"), launches=tp_block("qmm_prefill"),
+                             predicted=tp_out["decode"]["predicted"]["qmm_prefill"])),
         kernel_entry("flash_decode", "decode_attention.cu",
                      "bitdistiller_tpu/ops/decode_attention.py:106", counts["flash_decode"],
                      at_err["stacked"], att,
@@ -3958,7 +4339,12 @@ def run() -> int:
                      families=family_block("flash_decode"), eval=eval_block("flash_decode"),
                      method=method_block("flash_decode"),
                      serve=dict(serve_block("flash_decode"),
-                                grown_by_cache_len=sv["growth"]["b3_by_cache_len"])),
+                                grown_by_cache_len=sv["growth"]["b3_by_cache_len"]),
+                     tp=dict(llama2_7b_16_16=times(tp_out["b3_7b"]),
+                             tinyllama_16_2=times(tp_out["b3_tinyllama"]),
+                             launches=tp_block("flash_decode"),
+                             predicted=tp_out["decode"]["predicted"]["flash_decode"],
+                             max_abs_err=tp_out["attention_err"])),
         kernel_entry("qmm_a8", "quant_matmul_a8.cu", "bitdistiller_tpu/ops/quant_matmul.py:721",
                      counts_a8["qmm_a8"], a8_rel, a8_dec,
                      "one layer's four A8 matmuls (quantization included), M=8, int2-g128 "
@@ -4049,6 +4435,9 @@ def run() -> int:
                if kind != "fwd" else ""),
             eval=eval_block(name),
             llama2_7b=b8(kind, t7, plain, lib), d256=b8(kind, ta_times["d256"], plain, lib),
+            tinyllama_tp2=dict(b8(kind, ta_times["tinyllama_tp2"], plain, lib),
+                               launches=[run["train"]["launches"][name] for run in tp_runs],
+                               predicted=tp_out["train"]["predicted_b8"][name]),
             d256_mqa=b8(kind, tm, plain, lib),
             **{c: b8(kind, ta_times[c], plain, lib) for c in F32_TIMED},
             c6={c: dict({key: r[key] for key in (f"{kind}_ms", f"{kind}_bound_ms", "dkv_plan",

@@ -1,7 +1,7 @@
 """The port's dp half of `parallel/` against the JAX package's: the spec
 table and ZeRO's split dim on every leaf of every tiny family tree and
 the 7B presets (exactly), the JAX `test_zero_extend_spec_rules` table,
-`host_shard` with its remainder and error, tp > 1 refused, the process
+`host_shard` with its remainder and error, tp > 1 refused in one process, the process
 group's rendezvous (explicit arguments, partial ones, torchrun's
 variables), and 2-rank teacher generation writing JAX's per-rank files
 with the prompts split `[rank::2]` (greedy: the files byte-equal to JAX's
@@ -151,16 +151,20 @@ def test_host_shard_equals_jax(n, count):
 
 
 def test_tp_is_refused():
-    with pytest.raises(NotImplementedError, match="TP slice"):
+    """tp > 1 needs a process group of dp * tp ranks: in one process (one
+    device) the mesh, the hybrid mesh and run_training refuse it, as JAX's
+    make_mesh refuses a device count it cannot split (tp = 2 itself runs in
+    tests/test_torch_tp_*.py)."""
+    with pytest.raises(ValueError, match="device count"):
         tdist.make_hybrid_mesh(tp=2)
-    with pytest.raises(NotImplementedError, match="TP slice"):
+    with pytest.raises(ValueError, match="device count"):
         tmesh.make_mesh(tp=2)
     with pytest.raises(ValueError, match="device count"):
         tmesh.make_mesh(dp=2)  # no process group: one device
     mesh = tdist.make_hybrid_mesh()
     assert (mesh.dp, mesh.tp) == (1, 1)
     args = types.SimpleNamespace(tp=2, dp=None, device="cpu")
-    with pytest.raises(NotImplementedError, match="TP slice"):
+    with pytest.raises(ValueError, match="device count"):
         pipeline.run_training(args, tokenizer=ByteTok(), model=({}, None))
 
 

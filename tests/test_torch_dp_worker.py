@@ -16,6 +16,7 @@ import numpy as np
 import torch
 import torch.multiprocessing as mp
 
+from bitdistiller_tpu_torch.parallel.mesh import make_mesh, param_specs_from_params, shard_params
 from bitdistiller_tpu_torch.train import pipeline
 from bitdistiller_tpu_torch.train import trainer as ttr
 
@@ -49,13 +50,20 @@ def state_bytes(state) -> int:
 
 
 def train(params, cfg, tc, batches, *, rank=0, world=1, group=None, stage=0, beta=0.3,
-          resume=None, save=None, save_step=0):
+          resume=None, save=None, save_step=0, mesh=None, keep_state=False):
     """Steps over the global `batches` (one a micro-step; grad_accum of them
     a fused cycle): losses, grad norms, the bytes of the state after every
     step, the clip's norms as this rank saw them, and the whole f32 master
     at the end. `resume`: a checkpoint dir restored first; `save`: the dir a
-    checkpoint of the end state goes to, as step `save_step`."""
-    state = ttr.init_train_state(params, tc, group=group, zero_stage=stage)
+    checkpoint of the end state goes to, as step `save_step`. `mesh`: a
+    (dp, tp) mesh; the ranks of a dp group take its rows, the teacher is
+    each rank's tp slice. `keep_state`: the end state too, as "state"."""
+    teacher = params if tc.train_kd else None
+    if mesh is not None:
+        rank, world = mesh.dp_rank, mesh.dp
+        if teacher is not None and mesh.tp > 1:
+            teacher = shard_params(params, mesh, param_specs_from_params(params))
+    state = ttr.init_train_state(params, tc, group=group, zero_stage=stage, mesh=mesh)
     if resume:
         state = pipeline.restore_checkpoint(resume, state)
     clip_norms = []
@@ -70,7 +78,6 @@ def train(params, cfg, tc, batches, *, rank=0, world=1, group=None, stage=0, bet
         state.zero.global_norm = recording
     fused = tc.fused_accum
     step = ttr.make_fused_train_step(cfg, tc) if fused else ttr.make_train_step(cfg, tc)
-    teacher = params if tc.train_kd else None
     local = [rows(b, rank, world) for b in batches]
     groups = ([local[i:i + tc.grad_accum] for i in range(0, len(local), tc.grad_accum)]
               if fused else local)
@@ -86,13 +93,16 @@ def train(params, cfg, tc, batches, *, rank=0, world=1, group=None, stage=0, bet
     out["step"] = state.step
     if save:
         pipeline.save_checkpoint(save, save_step, state)
+    if keep_state:
+        out["state"] = state
     return out
 
 
 def _job_train(rank, world, group, job):
+    mesh = make_mesh(tp=job["tp"]) if "tp" in job else None
     return train(job["params"], job["cfg"], job["tc"], job["batches"], rank=rank, world=world,
                  group=group, stage=job["stage"], resume=job.get("resume"),
-                 save=job.get("save"), save_step=job.get("save_step", 0))
+                 save=job.get("save"), save_step=job.get("save_step", 0), mesh=mesh)
 
 
 def _job_beta(rank, world, group, job):
@@ -131,7 +141,15 @@ def _job_generate(rank, world, port, job):
     return run_teacher_generation(args, tokenizer=ByteTok(), model=(job["params"], job["cfg"]))
 
 
-JOBS = {"train": _job_train, "beta": _job_beta, "many": _job_many}
+def _job_call(rank, world, group, job):
+    """`job["target"]` ("module:function"), called as fn(rank, world, job)."""
+    import importlib
+
+    module, name = job["target"].split(":")
+    return getattr(importlib.import_module(module), name)(rank, world, job)
+
+
+JOBS = {"train": _job_train, "beta": _job_beta, "many": _job_many, "call": _job_call}
 
 
 def _run(rank, world, port, job_path, out_dir):
@@ -145,6 +163,8 @@ def _run(rank, world, port, job_path, out_dir):
     try:
         if job["kind"] == "generate":
             out = _job_generate(rank, world, port, job)
+        elif job.get("joins"):  # the job joins the group itself, at job["port"]
+            out = JOBS[job["kind"]](rank, world, None, dict(job, port=port))
         else:
             init_distributed(f"127.0.0.1:{port}", world, rank, device="cpu")
             out = JOBS[job["kind"]](rank, world, dist.group.WORLD, job)
