@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import functools
 import math
+import os
 from typing import Optional
 
 import numpy as np
@@ -62,6 +63,38 @@ def linear(leaf, x: torch.Tensor, li: Optional[int] = None, *,
     if b is not None:
         out = out + (b if li is None else b[li]).to(out.dtype)
     return out
+
+
+RING_TP_ENV = "BITDISTILLER_RING_TP"  # the JAX package's switch; the port adds none
+
+
+def ring_tp_size(mesh) -> int:
+    """The tp size at which the row-parallel packed linears take the ring
+    (`ring_linear`): BITDISTILLER_RING_TP=1 and a mesh with tp > 1; 0
+    otherwise (JAX's `_ring_tp_size`, with the mesh passed instead of
+    ambient)."""
+    if os.environ.get(RING_TP_ENV) != "1" or mesh is None or mesh.tp < 2:
+        return 0
+    return mesh.tp
+
+
+def ring_ok(leaf, tp: int) -> bool:
+    """JAX's conditions for the ring: an unbiased PackedLinear (each rank's
+    partial would carry the bias) whose N splits over tp."""
+    return isinstance(leaf, PackedLinear) and leaf.bias is None and leaf.out_features % tp == 0
+
+
+def ring_linear(p: PackedLinear, x: torch.Tensor, li: Optional[int], mesh, *,
+                use_kernels: bool = True) -> torch.Tensor:
+    """Row-parallel packed matmul of a rank's K slice with the tp all-reduce
+    folded into a ring of chunk matmuls (`parallel/overlap.py`): each hop
+    is issued before the next N-chunk's matmul, instead of one all-reduce
+    after the whole product. The switch BITDISTILLER_RING_TP=1 turns it on
+    for o and down of a tp-split packed model (`ring_tp_size`), where
+    `ring_ok` holds."""
+    from ..parallel.overlap import ring_all_reduce_matmul
+
+    return ring_all_reduce_matmul(x, p, mesh, li, use_kernels=use_kernels)
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:

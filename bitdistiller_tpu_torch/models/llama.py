@@ -68,6 +68,9 @@ from .layers import (
     flash_train_attention,
     layer_norm,
     linear,
+    ring_linear,
+    ring_ok,
+    ring_tp_size,
     rms_norm,
     rope_cos_sin,
     rope_tables,
@@ -371,18 +374,22 @@ def _save_matmuls(mlp_width):
     return policy
 
 
-def _tp_linear(lin, li, mesh, row_bias):
+def _tp_linear(lin, lp, li, mesh, row_bias, ring, use_kernels):
     """`lin` on one tp rank's slice: a column-parallel linear's input goes
     through `copy_to_tp` (its gradient summed over tp), a row-parallel
     linear's partial output through `reduce_from_tp` (summed in f32, rounded
     once), and its bias (held apart in `row_bias`) is added once, after the
-    sum."""
+    sum. With `ring` (BITDISTILLER_RING_TP=1), an unbiased packed
+    row-parallel linear whose N splits over tp takes the ring of chunk
+    matmuls instead (`layers.ring_linear`)."""
 
     def tp_lin(name, x):
         if name not in ROW_PARALLEL:
             return lin(name, copy_to_tp(x, mesh))
-        out = reduce_from_tp(lin(name, x), mesh)
         b = row_bias.get(name)
+        if ring and b is None and ring_ok(lp[name], mesh.tp):
+            return ring_linear(lp[name], x, li, mesh, use_kernels=use_kernels)
+        out = reduce_from_tp(lin(name, x), mesh)
         return out if b is None else out + b[li].to(out.dtype)
 
     return tp_lin
@@ -391,7 +398,7 @@ def _tp_linear(lin, li, mesh, row_bias):
 def _layer(cfg, lp, norms, li, h, cos, sin, attend, act, quantizer, remat, use_kernels,
            tp=None):
     """Layer li, rematerialized by `remat` (False: not at all). `tp`: (mesh,
-    the row-parallel biases) on a tp rank's slice."""
+    the row-parallel biases, ring) on a tp rank's slice."""
     if remat not in (False, None) and remat not in REMAT_POLICIES:
         raise ValueError(f"unknown remat policy {remat!r}; expected one of {REMAT_POLICIES}")
     weights = {}
@@ -411,7 +418,7 @@ def _layer(cfg, lp, norms, li, h, cos, sin, attend, act, quantizer, remat, use_k
             return linear(lp[name], x, li, use_kernels=use_kernels, quantizer=quantizer)
 
         if tp is not None:
-            lin = _tp_linear(lin, li, *tp)
+            lin = _tp_linear(lin, lp, li, *tp, use_kernels)
         return _block(cfg, lp, norms, li, h, cos, sin, attend, lin, act)
 
     if remat in (False, None):
@@ -474,12 +481,11 @@ def forward(
     column-parallel q, k, v, gate, up; row-parallel o and down, summed in
     f32, their bias added once after the sum; the vocab-parallel embedding
     and lm_head, whose logits are gathered whole on every rank. A fused
-    `qkv` or `gate_up` leaf raises there."""
-    b, s = tokens.shape
-    dev = tokens.device
-    cdt = torch_dtype(cfg.dtype)
+    `qkv` or `gate_up` leaf raises there. With BITDISTILLER_RING_TP=1 a
+    packed o or down whose N splits over tp (and with no bias) sums through
+    the ring of chunk matmuls (`parallel/overlap.py`) instead of one
+    all-reduce."""
     tp = 1 if mesh is None else mesh.tp
-    n_heads = cfg.num_heads
     lp = params["layers"]
     tp_args = None
     if tp > 1:
@@ -495,9 +501,30 @@ def forward(
         for name in ("q_norm", "k_norm"):  # applied to this rank's heads only
             if name in lp:
                 lp[name] = copy_to_tp(lp[name], mesh)
-        tp_args = (mesh, row_bias)
-    dh, L = cfg.actual_head_dim, cfg.num_layers
-    h = (params["embed"][tokens] if tp == 1
+        tp_args = (mesh, row_bias, ring_tp_size(mesh) > 1)
+    h, positions, start = _embed(params, cfg, tokens, cache_pos, mesh)
+    h, fresh_k, fresh_v = _stack(
+        cfg, lp, h, positions, start, range(cfg.num_layers), cache=cache, kv_valid=kv_valid,
+        attn_len=attn_len, return_kv=return_kv, use_kernels=use_kernels, quantizer=quantizer,
+        attn_mask=attn_mask, remat=remat, use_train_flash=use_train_flash, tp_args=tp_args)
+    out_cache = None
+    if cache is not None:
+        _write_back(cache, torch.stack(fresh_k), torch.stack(fresh_v), start, tokens.shape[1])
+        out_cache = cache
+    elif return_kv:
+        out_cache = KVCache(k=torch.stack(fresh_k), v=torch.stack(fresh_v))
+    return _head(params, cfg, h, mesh, logits_dtype), out_cache
+
+
+def _embed(params: dict, cfg: ModelConfig, tokens: torch.Tensor, cache_pos, mesh):
+    """The decoder's input: (h [B, S, d] in the compute dtype, positions [1
+    or B, S], each slot's start [B] int32), the embedding vocab-parallel on
+    a tp slice, with the multiplier, the embedding norm and the learned
+    positions."""
+    b, s = tokens.shape
+    dev = tokens.device
+    cdt = torch_dtype(cfg.dtype)
+    h = (params["embed"][tokens] if mesh is None or mesh.tp == 1
          else vocab_parallel_embed(params["embed"], tokens, mesh)).to(cdt)
     if cfg.embedding_multiplier != 1.0:  # the multiplier rounded to the compute dtype first
         h = h * torch.tensor(cfg.embedding_multiplier, dtype=cdt).item()
@@ -515,6 +542,24 @@ def forward(
         table = params["pos_embed"]
         idx = torch.clamp(positions + cfg.pos_embedding_offset, 0, table.shape[0] - 1)
         h = h + table[idx].to(cdt)
+    return h, positions, start
+
+
+def _stack(cfg: ModelConfig, lp: dict, h, positions, start, layers: range, *, cache=None,
+           kv_valid=None, attn_len=None, return_kv=False, use_kernels=True, quantizer=None,
+           attn_mask=None, remat=False, use_train_flash=None, tp_args=None):
+    """The decoder layers `layers` (global indices; `lp` holds exactly
+    those, stacked from layer layers.start) on h [B, S, d], each through
+    `_layer`, with what depends on the flags but not on the layer decided
+    once: rope tables, windows, masks, ALiBi, the attention route. `cfg` is
+    the rank's (tp_config'd) config; `tp_args` (mesh, row-parallel biases,
+    ring) on a tp slice. Returns (h, each layer's fresh k, fresh v: the
+    attended ones with a cache or `return_kv`, else empty)."""
+    b, s = h.shape[:2]
+    dev = h.device
+    cdt = torch_dtype(cfg.dtype)
+    dh, L = cfg.actual_head_dim, cfg.num_layers
+    mesh = None if tp_args is None else tp_args[0]
 
     # per-layer choices, made once: the global (scaled) rope and, for the
     # sliding layers of a per-layer pattern, the local theta and the window
@@ -537,9 +582,11 @@ def forward(
         if cache is not None:
             t = cache.k.shape[3]
             k_pos = torch.cat([torch.arange(t, device=dev).expand(b, t), q_pos], dim=-1)
-        slopes = alibi_slopes(n_heads)
-        if tp > 1:  # this rank's heads
-            slopes = slopes.narrow(0, mesh.tp_rank * cfg.num_heads, cfg.num_heads)
+        if mesh is None:
+            slopes = alibi_slopes(cfg.num_heads)
+        else:  # this rank's heads of the whole model's slopes
+            slopes = alibi_slopes(cfg.num_heads * mesh.tp).narrow(
+                0, mesh.tp_rank * cfg.num_heads, cfg.num_heads)
         attn_bias = alibi_bias(slopes, q_pos, k_pos)
 
     # the decode attention kernel where the JAX package's flash_ok holds
@@ -552,16 +599,17 @@ def forward(
                    and cfg.sliding_window is None and not per_layer_sliding)
     masks = {}  # window -> mask, built once a forward
     if not (flash_ok or train_flash):
-        for w in set(windows):
+        for w in {windows[g] for g in layers}:
             masks[w] = (_cache_mask(cache, start, positions, s, kv_valid, w) if cache is not None
                         else _causal_mask(b, s, dev, attn_mask, w))
 
     norms = _layer_norms(cfg, lp)
     act = activation(cfg.hidden_act)
     fresh_k, fresh_v = [], []
-    for li in range(L):
-        window = windows[li]
-        c, sn = (cos_l, sin_l) if local[li] else (cos, sin)
+    for g in layers:
+        li = g - layers.start
+        window = windows[g]
+        c, sn = (cos_l, sin_l) if local[g] else (cos, sin)
         if cache is not None:
             def attend(q, k, v, li=li, mask=masks[window] if masks else None):
                 # int8 cache: fresh k/v stay in the compute dtype here and are
@@ -593,14 +641,13 @@ def forward(
                 attend = inner
         h = _layer(cfg, lp, norms, li, h, c, sn, attend, act, quantizer, remat,
                    use_kernels, tp_args)
+    return h, fresh_k, fresh_v
 
-    out_cache = None
-    if cache is not None:
-        _write_back(cache, torch.stack(fresh_k), torch.stack(fresh_v), start, s)
-        out_cache = cache
-    elif return_kv:
-        out_cache = KVCache(k=torch.stack(fresh_k), v=torch.stack(fresh_v))
 
+def _head(params: dict, cfg: ModelConfig, h, mesh, logits_dtype):
+    """The final norm and the lm_head (the tied embedding where there is
+    none); on a tp slice vocab-parallel, the logits gathered whole."""
+    tp = 1 if mesh is None else mesh.tp
     h = apply_norm(params["final_norm"], h, cfg.rms_norm_eps, cfg.norm_offset)
     if tp > 1:
         h = copy_to_tp(h, mesh)
@@ -610,7 +657,7 @@ def forward(
         logits = linear(params["lm_head"], h)
     if tp > 1:
         logits = gather_from_tp(logits, mesh)
-    return logits.to(logits_dtype), out_cache
+    return logits.to(logits_dtype)
 
 
 def _without_bias(leaf):

@@ -131,6 +131,54 @@ def make_hybrid_mesh(tp: int = 1, dp: Optional[int] = None) -> Mesh:
     return make_mesh(dp=dp, tp=tp)
 
 
+def host_staged(t: torch.Tensor, group=None) -> bool:
+    """True where a point-to-point transfer of `t` over `group` goes through
+    host memory: a CUDA tensor over gloo, whose TCP pairs read and write the
+    tensor's memory from the host (a send of a CUDA tensor aborts the
+    process: "writev: Bad address"). NCCL sends the CUDA tensor itself."""
+    return t.is_cuda and dist.get_backend(group) == "gloo"
+
+
+def p2p_transport(t: torch.Tensor, group=None) -> str:
+    """How `isend` / `irecv` move `t` over `group`: "host" (staged) or
+    "device"."""
+    return "host" if host_staged(t, group) else "device"
+
+
+class _Transfer:
+    """A started point-to-point transfer: `wait()` blocks until it is done
+    and, for a receive staged through the host, copies into the target."""
+
+    def __init__(self, work, staged: Optional[torch.Tensor] = None,
+                 target: Optional[torch.Tensor] = None):
+        self.work, self.staged, self.target = work, staged, target
+
+    def wait(self) -> None:
+        self.work.wait()
+        if self.target is not None:
+            self.target.copy_(self.staged)
+
+
+def isend(t: torch.Tensor, dst: int, group=None) -> _Transfer:
+    """Start sending `t` to global rank `dst` (through a host copy where
+    `host_staged`; the copy is taken before this returns, so `t` may be
+    written at once)."""
+    if host_staged(t, group):
+        host = t.to("cpu", copy=True)
+        return _Transfer(dist.isend(host, dst, group=group), staged=host)
+    t = t.contiguous()
+    return _Transfer(dist.isend(t, dst, group=group), staged=t)
+
+
+def irecv(t: torch.Tensor, src: int, group=None) -> _Transfer:
+    """Start receiving into the contiguous `t` from global rank `src`; `t`
+    holds the data after `wait()`."""
+    if host_staged(t, group):
+        host = torch.empty(t.shape, dtype=t.dtype)
+        return _Transfer(dist.irecv(host, src, group=group), staged=host, target=t)
+    return _Transfer(dist.irecv(t, src, group=group))
+
+
 def host_shard(seq, process_id: Optional[int] = None, process_count: Optional[int] = None):
     """This rank's contiguous shard of a list (the DistributedSampler
     analogue). Every shard has the same length: the global remainder is

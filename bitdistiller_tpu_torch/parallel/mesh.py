@@ -44,7 +44,8 @@ class Mesh:
     innermost as JAX's `reshape(dp, tp)`: rank = dp_rank * tp + tp_rank.
     `dp_group` holds the ranks of this rank's tp index (ZeRO's collectives
     run over it), `tp_group` those of its dp index (the tp forward's); both
-    None outside a process group."""
+    None outside a process group. `ring_cache` keeps the ring matmuls'
+    weight chunks (`overlap.ring_chunks`)."""
 
     dp: int
     tp: int = 1
@@ -52,6 +53,7 @@ class Mesh:
     tp_rank: int = 0
     dp_group: Any = None
     tp_group: Any = None
+    ring_cache: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
 
 
 def make_mesh(dp: Optional[int] = None, tp: int = 1) -> Mesh:

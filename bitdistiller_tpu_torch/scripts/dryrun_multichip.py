@@ -1,7 +1,6 @@
 """Multi-rank dry run of the port (the counterpart of the JAX package's
-`__graft_entry__.py:dryrun_multichip` but its pipeline-parallel part, which
-waits for GPipe): on the tiny shapes, over a (dp, tp) mesh of `world`
-ranks, tp = 2 when the world is even,
+`__graft_entry__.py:dryrun_multichip`): on the tiny shapes, over a (dp, tp)
+mesh of `world` ranks, tp = 2 when the world is even,
 
 - one KD-QAT step at ZeRO 2 (the optimizer state split over dp, checked
   before and after the step), one at ZeRO 3 (the latents split too), and
@@ -10,7 +9,10 @@ ranks, tp = 2 when the world is even,
   tp slice) over a bf16 cache, again with the bucketed `attn_len`, and over
   an int8 cache;
 - `run_training` over the group;
-- the 7B memory estimate at ZeRO 3, dp = 8, against one H100's 80 GB.
+- the 7B memory estimate at ZeRO 3, dp = 8, against one H100's 80 GB;
+- GPipe: `pipeline_forward` of 4 x 16 tokens at n_micro = 2 over pp = the
+  largest of 4, 2, 1 dividing both the world and the layers, against the
+  one-process forward (rtol and atol 2e-4, in f32).
 
 Usage (one process a rank, spawned here):
 
@@ -25,6 +27,7 @@ rank prints its lines; rank 0's summary goes to `--out` as JSON.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -164,7 +167,7 @@ def dryrun(device) -> dict:
             kd_loss_type="cakld", cakld_steps=1, learning_rate=1e-4, num_train_epochs=1,
             per_device_train_batch_size=2, gradient_accumulation_steps=1, model_max_length=32,
             max_train_samples=None, lr_scheduler_type="constant", warmup_ratio=0.0,
-            save_steps=0, eval_steps=0, logging_steps=4, seed=0, dp=None, tp=tp, zero_stage=2,
+            save_steps=0, eval_steps=0, logging_steps=1, seed=0, dp=None, tp=tp, zero_stage=2,
             resume=False, eval_on_start=False, device=str(device))
         summary = run_training(args, tokenizer=_Tok(), model=(teacher, cfg))
     if not summary["steps"] or not math.isfinite(summary["final_loss"]):
@@ -181,6 +184,28 @@ def dryrun(device) -> dict:
     print(f"{tag}: 7B estimate (zero3, dp=8, bs1): {format_estimate(est)}", flush=True)
     if est["total"] >= 80e9:
         raise AssertionError(f"7B at ZeRO 3, dp = 8: {est['total'] / GiB:.2f} GiB a rank")
+
+    # pipeline parallelism: the GPipe forward over a pp group of the first
+    # ranks (the layer stacks cut along L) reproduces the one-process forward.
+    # In f32: a microbatch has half the rows, and cuBLAS may sum another
+    # number of rows in another order, which bf16 rounding would turn into
+    # whole-ulp differences
+    from ..parallel.pipeline import make_pp_mesh, pipeline_forward, shard_params_pp
+
+    pcfg = dataclasses.replace(cfg, dtype="float32")
+    pp = max(g for g in (4, 2, 1) if world % g == 0 and cfg.num_layers % g == 0)
+    pp_mesh = make_pp_mesh(pp)
+    toks = torch.as_tensor(np.random.default_rng(5).integers(0, cfg.vocab_size, (4, 16)),
+                           device=device)
+    with torch.no_grad():
+        got = pipeline_forward(shard_params_pp(teacher, pp_mesh), pcfg, toks, pp_mesh,
+                               n_micro=2)
+        want, _ = llama.forward(teacher, pcfg, toks)
+    gap = float(((got - want).abs() - 2e-4 * want.abs()).max())
+    out.update(pp=pp, pp_gap=gap)
+    if not gap <= 2e-4:
+        raise AssertionError(f"pp={pp} pipelined forward: |got - want| - 2e-4 |want| = {gap}")
+    print(f"{tag}: pp={pp} pipelined forward matches dense ok", flush=True)
     return out
 
 

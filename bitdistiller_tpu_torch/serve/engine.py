@@ -35,8 +35,34 @@ waits on a CUDA event recorded after the copy. The JAX engine's
 ported: on an H100 its gain stayed inside the host clock's spread.
 
 With BITDISTILLER_QMM_A8=1 the engine serves W{2,4}A8: its weights are
-repacked once at construction and every packed matmul quantizes its
-activations to int8. Sharding is not ported.
+repacked once at construction (after sharding: a rank repacks its own
+slice) and every packed matmul quantizes its activations to int8.
+
+Over a (dp, tp) mesh (`mesh=`, `parallel.mesh.make_mesh`) the engine is
+one program that every rank of the group runs, as the JAX engine runs
+over a sharded mesh. `params` is the rank's slice (`shard_packed_model`
+of an unfused packed tree, or `shard_params` of a dense one); the KV cache
+is its slice by `kv_cache_specs`: slots over dp (dp rank d holds slots [d
+max_slots / dp, (d + 1) max_slots / dp)), kv heads over tp. Every rank
+runs the same host loop over the same requests, so every host decision
+(admission, growth, the speculative EMA and k, finishing) is taken from
+data that is the same on every rank:
+  * an admission group is prefilled on every rank (each tp group runs it
+    whole, as JAX's prefill runs replicated over dp), and each rank
+    inserts only its own slots' rows; prompt-cache entries are held alike
+    on every dp rank, at the rank's kv heads;
+  * decode and the speculative verify forward only the rank's slots; the
+    tokens are sampled on tp rank 0 and broadcast over the tp group, and a
+    horizon's tokens (and verify counts) are gathered over dp once, for
+    its one host read (JAX's `_replicated`); the first tokens of an
+    admission group are sampled on global rank 0 and broadcast;
+  * growth grows the rank's slice;
+  * what comes from outside the loop is taken on global rank 0 and
+    broadcast each round: the feeder's new requests and `stop()` (the
+    other ranks' feeder and stop are not called), and the verdicts of
+    `Request.stop_check` (the other ranks receive a request's data, not
+    its callbacks: `serve.server.follow` runs such a rank).
+At `mesh=None`, or dp = tp = 1, nothing of this runs.
 """
 
 from __future__ import annotations
@@ -48,12 +74,14 @@ from typing import Callable, Iterable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .._device import on_card, resolve_device
 from ..models import llama
 from ..models.config import ModelConfig
 from ..models.llama import KVCache, quantize_kv
 from ..ops.quant_matmul import maybe_repack_a8
+from ..parallel.tensor import tp_config
 from .sampling import SamplingParams, sample_tokens, sample_tokens_batched
 
 # fixed policy, as the JAX engine's defaults: the speculative history window
@@ -88,6 +116,27 @@ class Request:
     prefill_time: float = 0.0
     decode_tokens: int = 0
     decode_time: float = 0.0
+
+
+_WIRE = ("prompt_tokens", "max_new_tokens", "sampling", "stop_token_ids", "cache_prompt")
+
+
+def _wire(req: Request) -> dict:
+    """A request's data as global rank 0 broadcasts it to a mesh's other
+    ranks: no callback crosses (`stop_check` only as a flag; its verdicts
+    follow each round)."""
+    return dict({k: getattr(req, k) for k in _WIRE}, stop_check=req.stop_check is not None)
+
+
+def _rank0_verdict(output_tokens: list) -> bool:
+    raise AssertionError("a mesh rank other than 0 reads rank 0's stop_check verdicts")
+
+
+def _unwire(data: dict) -> Request:
+    req = Request(**{k: data[k] for k in _WIRE})
+    if data["stop_check"]:
+        req.stop_check = _rank0_verdict
+    return req
 
 
 def _buckets(max_len: int, lo: int = 64, factor: int = 2):
@@ -172,8 +221,21 @@ class Engine:
         spec_adaptive_k: bool = True,
         spec_ngram_backoff: bool = False,
         device="cuda",
+        mesh=None,
     ):
         self.device = resolve_device(device)
+        # the rank's slots [slot0, slot0 + local_slots) of a mesh's dp split
+        self.mesh = mesh if mesh is not None and (mesh.dp > 1 or mesh.tp > 1) else None
+        local = max_slots
+        cache_cfg = cfg
+        if self.mesh is not None:
+            if max_slots % mesh.dp:
+                raise ValueError(f"max_slots = {max_slots} is not a multiple of dp = {mesh.dp}: "
+                                 f"each dp rank holds max_slots / dp slots")
+            local = max_slots // mesh.dp
+            cache_cfg = tp_config(cfg, mesh.tp)
+        self.local_slots = local
+        self.slot0 = 0 if self.mesh is None else mesh.dp_rank * local
         # BITDISTILLER_QMM_A8=1: every packed leaf is repacked once into the
         # A8 kernel's byte order (as the JAX engine does at load)
         self.params = maybe_repack_a8(params)
@@ -190,7 +252,7 @@ class Engine:
         self.cache_buckets = _buckets(max_len, factor=CACHE_BUCKET_FACTOR)
         dev = self.device
         first_len = self.cache_buckets[0] if grow_cache else max_len
-        self.cache = KVCache.init(cfg, max_slots, first_len, cache_dtype, device=dev)
+        self.cache = KVCache.init(cache_cfg, local, first_len, cache_dtype, device=dev)
         self.generator = torch.Generator(device=dev).manual_seed(seed)
 
         # prompt cache: tuple(prompt) -> (KV [L, 1, Pb, H, D] in the prefill
@@ -225,16 +287,17 @@ class Engine:
         self.spec_rounds = 0  # (round, active-slot) verify cells fetched
         self.spec_tokens = 0  # tokens those cells produced (<= k + 1 each)
 
-        # device-side slot state: advanced by decode without host syncs
-        self.prev_tokens = torch.full((max_slots, rep_window), -1, dtype=torch.int32, device=dev)
-        self.history = torch.full((max_slots, SPEC_HISTORY), -2, dtype=torch.int32, device=dev)
-        self.cur_tokens = torch.zeros(max_slots, dtype=torch.int32, device=dev)
-        self._lengths_dev = torch.zeros(max_slots, dtype=torch.int32, device=dev)
-        self._active_dev = torch.zeros(max_slots, dtype=torch.bool, device=dev)
-        self._temps = torch.full((max_slots,), sampling.temperature, dtype=torch.float32, device=dev)
-        self._top_ks = torch.full((max_slots,), sampling.top_k, dtype=torch.int32, device=dev)
-        self._top_ps = torch.full((max_slots,), sampling.top_p, dtype=torch.float32, device=dev)
-        self._rep_pens = torch.full((max_slots,), sampling.repetition_penalty,
+        # device-side slot state of the rank's slots: advanced by decode
+        # without host syncs
+        self.prev_tokens = torch.full((local, rep_window), -1, dtype=torch.int32, device=dev)
+        self.history = torch.full((local, SPEC_HISTORY), -2, dtype=torch.int32, device=dev)
+        self.cur_tokens = torch.zeros(local, dtype=torch.int32, device=dev)
+        self._lengths_dev = torch.zeros(local, dtype=torch.int32, device=dev)
+        self._active_dev = torch.zeros(local, dtype=torch.bool, device=dev)
+        self._temps = torch.full((local,), sampling.temperature, dtype=torch.float32, device=dev)
+        self._top_ks = torch.full((local,), sampling.top_k, dtype=torch.int32, device=dev)
+        self._top_ps = torch.full((local,), sampling.top_p, dtype=torch.float32, device=dev)
+        self._rep_pens = torch.full((local,), sampling.repetition_penalty,
                                     dtype=torch.float32, device=dev)
         # host-side slot state; _len_ub upper-bounds every active slot's cache
         # position (a verify round counts k + 1 rows), so a dispatch knows
@@ -252,6 +315,43 @@ class Engine:
         self.prefills = 0  # batched prefill forwards
         self.prefix_extends: list = []  # tail bucket of each tail-only prefill forward
         self.growths: list = []  # (old, new) cache lengths of each growth copy
+        # a mesh's stop_check verdicts: rank 0's firings this round ({slot:
+        # output length}); the other ranks' copy of them
+        self._stops_fired: dict = {}
+        self._stop_at: Optional[dict] = None
+
+    # -- the mesh's slots and broadcasts ---------------------------------------
+
+    def _lead(self) -> bool:
+        """True on the rank that takes outside decisions: global rank 0, or
+        the only one."""
+        return self.mesh is None or dist.get_rank() == 0
+
+    def _mine(self, slot: int) -> bool:
+        return self.slot0 <= slot < self.slot0 + self.local_slots
+
+    def _taken_once(self, sample, shape, over_tp: bool) -> torch.Tensor:
+        """`sample()` (int32 tokens) taken on one rank and broadcast: tp rank
+        0 over the tp group (`over_tp`: every tp rank feeds the same tokens
+        on), else global rank 0 to every rank."""
+        m = self.mesh
+        if m is None or (over_tp and m.tp == 1):
+            return sample()
+        src, group = (m.dp_rank * m.tp, m.tp_group) if over_tp else (0, None)
+        out = (sample().contiguous() if dist.get_rank() == src
+               else torch.empty(shape, dtype=torch.int32, device=self.device))
+        dist.broadcast(out, src=src, group=group)
+        return out
+
+    def _all_slots(self, t: torch.Tensor) -> torch.Tensor:
+        """A horizon's [steps, local slots, ...] tensor gathered over dp into
+        [steps, max_slots, ...] (slot order = dp rank order)."""
+        if self.mesh is None or self.mesh.dp == 1:
+            return t
+        t = t.contiguous()
+        parts = [torch.empty_like(t) for _ in range(self.mesh.dp)]
+        dist.all_gather(parts, t, group=self.mesh.dp_group)
+        return torch.cat(parts, dim=1)
 
     # -- device pieces ------------------------------------------------------
 
@@ -259,16 +359,17 @@ class Engine:
     def _prefill(self, tokens: torch.Tensor, last_idx: torch.Tensor):
         """[nb, S] prompts -> last-position logits [nb, V], KV [L, nb, S, H, D]."""
         self.prefills += 1
-        logits, kv = llama.forward(self.params, self.cfg, tokens, return_kv=True)
+        logits, kv = llama.forward(self.params, self.cfg, tokens, return_kv=True,
+                                   mesh=self.mesh)
         last = logits[torch.arange(tokens.shape[0], device=tokens.device), last_idx]
         return last, kv
 
     @torch.inference_mode()
     def _insert(self, kv: KVCache, slots: list, rows: list) -> None:
         """Write prefill rows [0, S) into the slots' cache planes, transposed
-        to head-major [L, H, S, D] (quantized for an int8 cache). Rows past a
-        prompt's length hold padding and stay masked by the slot's position
-        (t < cache_pos)."""
+        to head-major [L, H, S, D] (quantized for an int8 cache); on a mesh
+        only the rank's own slots. Rows past a prompt's length hold padding
+        and stay masked by the slot's position (t < cache_pos)."""
         nk = kv.k.permute(0, 1, 3, 2, 4)  # [L, nb, H, S, D]
         nv = kv.v.permute(0, 1, 3, 2, 4)
         s = nk.shape[3]
@@ -277,6 +378,9 @@ class Engine:
             nk, ks = quantize_kv(nk)
             nv, vs = quantize_kv(nv)
         for slot, row in zip(slots, rows):
+            if not self._mine(slot):
+                continue
+            slot -= self.slot0
             self.cache.k[:, slot, :, :s] = nk[:, row].to(self.cache.k.dtype)
             self.cache.v[:, slot, :, :s] = nv[:, row].to(self.cache.v.dtype)
             if ks is not None:
@@ -285,8 +389,9 @@ class Engine:
 
     @torch.inference_mode()
     def _decode(self, steps: int, custom: bool) -> torch.Tensor:
-        """`steps` decode steps for every slot; returns tokens [steps, B] on
-        the device. Inactive slots decode masked junk into their own rows."""
+        """`steps` decode steps for every slot of the rank; returns tokens
+        [steps, local slots] on the device. Inactive slots decode masked junk
+        into their own rows."""
         max_pos = self.max_len - 1
         self.decode_steps += steps
         self.decode_steps_at[self._cache_len()] += steps
@@ -295,15 +400,17 @@ class Engine:
         for _ in range(steps):
             logits, _ = llama.forward(
                 self.params, self.cfg, tokens[:, None], cache=self.cache, cache_pos=pos,
+                mesh=self.mesh,
             )
             if custom:
-                nxt = sample_tokens_batched(
+                sample = lambda: sample_tokens_batched(
                     logits[:, 0], self._temps, self._top_ks, self._top_ps,
                     self._rep_pens, self.prev_tokens, generator=self.generator,
                 )
             else:
-                nxt = sample_tokens(logits[:, 0], self.sampling, self.prev_tokens,
-                                    generator=self.generator)
+                sample = lambda: sample_tokens(logits[:, 0], self.sampling, self.prev_tokens,
+                                               generator=self.generator)
+            nxt = self._taken_once(sample, (self.local_slots,), over_tp=True)
             nxt = torch.where(self._active_dev, nxt, 0)
             self.prev_tokens = torch.cat([self.prev_tokens[:, 1:], nxt[:, None]], dim=1)
             pos = torch.clamp(pos + 1, max=max_pos)
@@ -355,7 +462,8 @@ class Engine:
         """`steps` verify rounds: draft k tokens from each slot's history,
         verify them in one S = k + 1 forward, accept the longest sampled ==
         draft prefix plus the next sampled token. Returns tokens [steps, B,
-        k + 1] and the valid counts [steps, B] on the device."""
+        k + 1] and the valid counts [steps, B] on the device (B: the rank's
+        slots)."""
         max_pos = self.max_len - 1
         self.spec_forwards[k] += steps
         cur, pos = self.cur_tokens, self._lengths_dev
@@ -370,13 +478,15 @@ class Engine:
             # the forward reads cache rows < pos and the fresh S tokens
             # causally; -1 drafts run as 0 and are never accepted
             logits, _ = llama.forward(self.params, self.cfg, torch.clamp(tokens_in, min=0),
-                                      cache=self.cache, cache_pos=pos)
+                                      cache=self.cache, cache_pos=pos, mesh=self.mesh)
             b, s, v = logits.shape
             # all k + 1 positions share the round-start penalty window (exact
             # at repetition_penalty 1.0, which _spec_active requires)
-            sampled = sample_tokens(logits.reshape(b * s, v), self.sampling,
-                                    prev.repeat_interleave(s, dim=0),
-                                    generator=self.generator).reshape(b, s)
+            sampled = self._taken_once(
+                lambda: sample_tokens(logits.reshape(b * s, v), self.sampling,
+                                      prev.repeat_interleave(s, dim=0),
+                                      generator=self.generator).reshape(b, s), (b, s),
+                over_tp=True)
             good = (sampled[:, :k] == draft).to(torch.int32)
             acc = torch.cumprod(good, dim=1).sum(dim=1)  # [B] in [0, k]
             n_new = torch.where(active, acc + 1, 0).to(torch.int32)
@@ -448,7 +558,7 @@ class Engine:
         padded[0, :tail_len] = torch.as_tensor(tail, dtype=torch.int64)
         logits, _ = llama.forward(self.params, self.cfg, padded.to(dev), cache=temp,
                                   cache_pos=torch.full((1,), pfx_len, dtype=torch.int32,
-                                                       device=dev))
+                                                       device=dev), mesh=self.mesh)
         kv = KVCache(k=temp.k.permute(0, 1, 3, 2, 4), v=temp.v.permute(0, 1, 3, 2, 4))
         return kv, logits[0, tail_len - 1], pfx_len + tail_len
 
@@ -527,37 +637,48 @@ class Engine:
         last_logits = torch.stack([hits[i][1] if i in hits else miss_last[row_of[i]]
                                    for i in range(n)])
 
-        slot_t = torch.as_tensor(slots, dtype=torch.int64, device=dev)
         eff = [r.sampling or self.sampling for r in reqs]
-        self.prev_tokens[slot_t] = -1
-        self._temps[slot_t] = torch.as_tensor([s.temperature for s in eff], dtype=torch.float32, device=dev)
-        self._top_ks[slot_t] = torch.as_tensor([s.top_k for s in eff], dtype=torch.int32, device=dev)
-        self._top_ps[slot_t] = torch.as_tensor([s.top_p for s in eff], dtype=torch.float32, device=dev)
-        self._rep_pens[slot_t] = torch.as_tensor(
-            [s.repetition_penalty for s in eff], dtype=torch.float32, device=dev)
+        g_temps = torch.as_tensor([s.temperature for s in eff], dtype=torch.float32, device=dev)
+        g_top_ks = torch.as_tensor([s.top_k for s in eff], dtype=torch.int32, device=dev)
+        g_top_ps = torch.as_tensor([s.top_p for s in eff], dtype=torch.float32, device=dev)
+        g_rep_pens = torch.as_tensor([s.repetition_penalty for s in eff], dtype=torch.float32,
+                                     device=dev)
         for r, slot in zip(reqs, slots):
             self._slot_custom[slot] = r.sampling is not None
+        # a new slot's penalty window is empty
+        fresh = torch.full((n, self.prev_tokens.shape[1]), -1, dtype=torch.int32, device=dev)
         if any(r.sampling is not None for r in reqs):
-            firsts = sample_tokens_batched(
-                last_logits, self._temps[slot_t], self._top_ks[slot_t], self._top_ps[slot_t],
-                self._rep_pens[slot_t], self.prev_tokens[slot_t], generator=self.generator,
-            )
+            sample = lambda: sample_tokens_batched(last_logits, g_temps, g_top_ks, g_top_ps,
+                                                   g_rep_pens, fresh, generator=self.generator)
         else:
-            firsts = sample_tokens(last_logits, self.sampling, self.prev_tokens[slot_t],
-                                   generator=self.generator)
-        # the first token joins the window so decode's penalty sees it
-        self.prev_tokens[slot_t, -1] = firsts
-        self.cur_tokens[slot_t] = firsts
-        self._lengths_dev[slot_t] = torch.as_tensor(plens, dtype=torch.int32, device=dev)
-        self._active_dev[slot_t] = True
+            sample = lambda: sample_tokens(last_logits, self.sampling, fresh,
+                                           generator=self.generator)
+        firsts = self._taken_once(sample, (n,), over_tp=False)
         # the speculative history: prompt tail ++ first token, right-aligned
         hw = self.history.shape[1]
         hist_rows = np.full((n, hw), -2, np.int32)
         for i, (r, pl) in enumerate(zip(reqs, plens)):
             tail = r.prompt_tokens[-min(pl, hw):]
             hist_rows[i, -len(tail):] = tail
-        self.history[slot_t] = torch.cat(
-            [torch.from_numpy(hist_rows[:, 1:]).to(dev), firsts[:, None].to(torch.int32)], dim=1)
+        mine = [i for i, slot in enumerate(slots) if self._mine(slot)]
+        if mine:  # the rank's own slots take their rows of the group's state
+            sel = torch.as_tensor(mine, dtype=torch.int64, device=dev)
+            slot_t = torch.as_tensor([slots[i] - self.slot0 for i in mine], dtype=torch.int64,
+                                     device=dev)
+            self._temps[slot_t] = g_temps[sel]
+            self._top_ks[slot_t] = g_top_ks[sel]
+            self._top_ps[slot_t] = g_top_ps[sel]
+            self._rep_pens[slot_t] = g_rep_pens[sel]
+            # the first token joins the window so decode's penalty sees it
+            self.prev_tokens[slot_t] = fresh[sel]
+            self.prev_tokens[slot_t, -1] = firsts[sel]
+            self.cur_tokens[slot_t] = firsts[sel]
+            self._lengths_dev[slot_t] = torch.as_tensor([plens[i] for i in mine],
+                                                        dtype=torch.int32, device=dev)
+            self._active_dev[slot_t] = True
+            self.history[slot_t] = torch.cat(
+                [torch.from_numpy(hist_rows[mine, 1:]).to(dev),
+                 firsts[sel, None].to(torch.int32)], dim=1)
         dt = time.time() - t0
         for req, slot, plen in zip(reqs, slots, plens):
             req.prefill_time = dt
@@ -588,7 +709,12 @@ class Engine:
             req.stream(token)
         stopped = (self.eos is not None and token == self.eos) or token in req.stop_token_ids
         if not stopped and req.stop_check is not None:
-            stopped = bool(req.stop_check(req.output_tokens))
+            if self._stop_at is not None:  # rank 0's verdict, on another rank of a mesh
+                stopped = self._stop_at.get(slot) == len(req.output_tokens)
+            else:
+                stopped = bool(req.stop_check(req.output_tokens))
+                if stopped and self.mesh is not None:
+                    self._stops_fired[slot] = len(req.output_tokens)
         done = stopped or len(req.output_tokens) >= req.max_new_tokens
         if (self.lengths[slot] if cache_len is None else cache_len) + 1 >= self.max_len:
             done = True
@@ -663,8 +789,9 @@ class Engine:
                          spec_k: Optional[int] = None):
         """Dispatch one decode horizon and start its tokens' copy to the
         host; returns (fetch, speculative). Plain: tokens [steps, B];
-        speculative: tokens [steps, B, k + 1] and counts [steps, B]. The
-        cache grows first to cover every active slot's upper bound."""
+        speculative: tokens [steps, B, k + 1] and counts [steps, B] (B: every
+        slot, gathered over a mesh's dp). The cache grows first to cover
+        every active slot's upper bound."""
         if self._spec_active()[0] if spec is None else spec:
             k = self._current_spec_k() if spec_k is None else spec_k
             self._spec_k_last = k
@@ -672,12 +799,12 @@ class Engine:
                 self._ensure_cache(int(self._len_ub[self.active].max()) + steps * (k + 1))
             toks, counts = self._spec_decode(steps, k)
             self._len_ub += steps * (k + 1) * self.active
-            return _Fetch([toks, counts]), True
+            return _Fetch([self._all_slots(toks), self._all_slots(counts)]), True
         if self.active.any():
             self._ensure_cache(int(self._len_ub[self.active].max()) + steps)
         toks = self._decode(steps, custom=bool(self._slot_custom.any()))
         self._len_ub += steps * self.active
-        return _Fetch([toks]), False
+        return _Fetch([self._all_slots(toks)]), False
 
     def _end_full_slots(self, skip: set, done: list) -> None:
         """A slot without room for one more token ends ("length"); newly
@@ -702,13 +829,19 @@ class Engine:
         `feeder(idle)` is polled at every admission round for requests that
         arrive during the run (the HTTP frontend); it returns at once when
         idle is False and may block briefly when idle is True. With a feeder
-        the loop ends when no work remains and `stop()` is True."""
+        the loop ends when no work remains and `stop()` is True. On a mesh
+        every rank passes the same `requests`; `feeder` and `stop` are called
+        on global rank 0 alone and what they return reaches every rank (the
+        other ranks pass a feeder only to keep their loop polling)."""
         queue = list(requests)
         done: list[Request] = []
         pending = len(queue)
-        while pending or (feeder is not None and not (stop() if stop else False)):
+        while pending or feeder is not None:
             if feeder is not None:
-                new = feeder(not self.active.any() and not queue)
+                halt, new = self._poll(feeder, stop, pending,
+                                       not self.active.any() and not queue)
+                if halt:
+                    break
                 queue.extend(new)
                 pending += len(new)
                 if not queue and not self.active.any():
@@ -763,7 +896,8 @@ class Engine:
                 steps = 1  # a cheap probe: one verify round
             dispatch_active = self.active.copy()
             if self._active_dirty:  # upload only when a slot changed
-                self._active_dev = torch.as_tensor(dispatch_active, device=self.device)
+                self._active_dev = torch.as_tensor(
+                    dispatch_active[self.slot0:self.slot0 + self.local_slots], device=self.device)
                 self._active_dirty = False
             t0 = time.time()
             fetch, spec = self._dispatch_decode(steps, spec=spec_now, spec_k=spec_k_now)
@@ -780,6 +914,15 @@ class Engine:
                     self._spec_ema = (rate if self._spec_ema is None
                                       else 0.7 * self._spec_ema + 0.3 * rate)
                     self._spec_last_rate = rate
+            # a mesh's stop_check verdicts: taken on rank 0 as it emits, the
+            # other ranks receive them before they emit
+            stop_sync = self.mesh is not None and any(
+                self.slot_req[i] is not None and self.slot_req[i].stop_check is not None
+                for i in range(self.max_slots) if dispatch_active[i])
+            if stop_sync and not self._lead():
+                box = [None]
+                dist.broadcast_object_list(box, src=0)
+                self._stop_at = box[0]
             if admit_reqs:
                 for t_val, slot in zip(firsts_np, admit_slots):
                     self._emit(slot, int(t_val))
@@ -819,7 +962,28 @@ class Engine:
                 if req.finished:
                     done.append(req)
                     pending -= 1
+            if stop_sync and self._lead():
+                dist.broadcast_object_list([self._stops_fired], src=0)
+            self._stops_fired, self._stop_at = {}, None
         return done
+
+    def _poll(self, feeder, stop, pending: int, idle: bool) -> tuple:
+        """(halt, new requests) of one admission round: `stop()` (once
+        nothing is pending; True ends the loop) and `feeder(idle)`, taken on
+        global rank 0 and, on a mesh, broadcast to every rank, which builds
+        the requests from their data: the same requests in the same round,
+        in the same order, on every rank."""
+        halt, new = False, []
+        if self._lead():
+            halt = not pending and stop is not None and bool(stop())
+            new = [] if halt else list(feeder(idle))
+        if self.mesh is None:
+            return halt, new
+        box = [(halt, [_wire(r) for r in new])] if self._lead() else [None]
+        dist.broadcast_object_list(box, src=0)
+        if not self._lead():
+            halt, new = box[0][0], [_unwire(w) for w in box[0][1]]
+        return halt, new
 
     def warmup(self, prompt_len: int = 64, verbose=None) -> None:
         """Run the engine's shapes once before live traffic: every admission

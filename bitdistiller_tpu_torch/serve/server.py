@@ -22,6 +22,11 @@ API:
        (max_tokens, messages rendered through the template's multi-turn
        form, `stop` strings, usage accounting, SSE chunks ending in
        [DONE]).
+
+A sharded engine (`Engine(..., mesh=)` over a (dp, tp) group) is served
+by global rank 0 alone: rank 0 runs the frontend, every other rank runs
+`follow(engine)`, whose loop takes the requests and the stop that rank 0
+broadcasts each round.
 """
 
 from __future__ import annotations
@@ -327,3 +332,13 @@ class ServingFrontend:
 
     def shutdown(self):
         self._stop.set()
+
+
+def follow(engine: Engine) -> list:
+    """The engine loop of a rank other than global rank 0 of a sharded
+    engine (`Engine(..., mesh=)`, every rank of the group running it): rank
+    0 runs the `ServingFrontend`, and this loop serves the requests and the
+    stop that rank 0 broadcasts each round (this rank's feeder is never
+    called), until rank 0's frontend shuts down. Returns the requests it
+    served, as rank 0 answered them."""
+    return engine.run([], feeder=lambda idle: [], stop=lambda: False)

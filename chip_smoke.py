@@ -68,11 +68,16 @@ attention exactly where the JAX package's flash_ok holds). Beside
 Before families, `tp` runs tensor parallelism (tp_phase): B1, B2 and B3
 at the shapes a tp = 2 rank gives them (the 7B's and TinyLlama's unfused
 slices: K = 2048, 5504 and 2816 among them; 16 / 16 and 16 / 2 heads),
-checked and timed in this process, then two ranks on the one card joined
-over gloo (NCCL refuses two ranks on one device): the dry run's steps
-(scripts/dryrun_multichip.py), the packed 7B decode at tp = 2 and
-run_training at tp = 2 (TinyLlama's width, 2 layers, through B8 at 16 / 2
-heads, a checkpoint in each rank's parts), against tp = 1 runs here. The
+and B4 at the 7B rank's 7 linears, B1 and B2 at the ring's chunks (o and
+down at K / 2 x N / 2), checked and timed in this process, then two ranks
+on the one card joined over gloo (NCCL refuses two ranks on one device;
+a point-to-point hop goes through host memory): the dry run's steps
+(scripts/dryrun_multichip.py, GPipe's part included), the packed 7B
+decode at tp = 2, again through the ring (BITDISTILLER_RING_TP=1) and
+under A8, the Engine over the tp group serving 8 requests (A16, then A8),
+GPipe at pp = 2, and run_training at tp = 2 (TinyLlama's width, 2 layers,
+through B8 at 16 / 2 heads, a checkpoint in each rank's parts), against
+tp = 1 runs here. The
 train phase's checkpoints are C9's layout: each rank's parts and a
 manifest, the write timed with the process's resident memory sampled. Beside
 the build, scripts/kernel_sass.py reads what ptxas made of
@@ -179,9 +184,14 @@ Tolerances (kernel vs plain version on the same inputs):
     calls equal); every rank's B1 / B2 / B3 launches of the tp decode and
     B8's of the tp run_training exactly as predicted; the tp = 2 decode's
     logits within LOGIT_TOL of the largest from tp = 1's on the same
-    weights and tokens; the tp = 2 training losses within TP_LOSS_TOL
-    relative of tp = 1's; the tp = 2 checkpoint restored at tp = 1 in one
-    process equal bit for bit to the ranks' final master.
+    weights and tokens, and so the A8 decode's and the ring's (against the
+    default tp path); the engine's greedy streams equal on both ranks and,
+    up to the tie rule, to the one-process engine's, A16 and A8, its B1 /
+    B2 / B3 / B4 launches exactly as predicted; GPipe's logits within
+    LOGIT_TOL of one process's, its B1 launches as predicted; the tp = 2
+    training losses within TP_LOSS_TOL relative of tp = 1's; the tp = 2
+    checkpoint restored at tp = 1 in one process equal bit for bit to the
+    ranks' final master.
 """
 
 from __future__ import annotations
@@ -227,8 +237,10 @@ from bitdistiller_tpu_torch.generation import teacher as teacher_mod
 from bitdistiller_tpu_torch.models.hf_import import load_hf_checkpoint, save_hf_checkpoint
 from bitdistiller_tpu_torch.ops import _build
 from bitdistiller_tpu_torch.parallel.distributed import (init_distributed, make_hybrid_mesh,
-                                                         shutdown_distributed)
+                                                         p2p_transport, shutdown_distributed)
 from bitdistiller_tpu_torch.parallel.mesh import shard_packed_model
+from bitdistiller_tpu_torch.parallel.pipeline import (make_pp_mesh, pipeline_forward,
+                                                      shard_params_pp)
 from bitdistiller_tpu_torch.parallel.tensor import tp_config
 from bitdistiller_tpu_torch.ops import decode_attention as da
 from bitdistiller_tpu_torch.ops import quant_matmul as qm
@@ -478,18 +490,19 @@ def check_attention(gen, record):
     return worst
 
 
-def check_a8(gen, record):
-    """B4 on layer 1 of a stack: int2 and int4, the four 7B shapes, M in
-    CHECK_M, pair-layout words (x permuted per call) and repacked ones;
-    at M = 8 on bf16 x a second call must give the same bytes."""
+def check_a8(gen, record, ms=CHECK_M, bits_list=(2, 4), shapes=SHAPES):
+    """B4 on layer 1 of a stack: int2 and int4, the four 7B shapes (or
+    `shapes`), M in `ms`, pair-layout words (x permuted per call) and
+    repacked ones; at M = 8 on bf16 x a second call must give the same
+    bytes."""
     worst = 0.0
-    for bits in (2, 4):
-        for name, (k, n) in SHAPES.items():
+    for bits in bits_list:
+        for name, (k, n) in shapes.items():
             for integer in (True, False):
                 pair = rand_stacked(gen, 2, k, n, bits, integer)
                 for w in (pair, qm.repack_linear_a8(pair)):
                     lay = w.layer(1)
-                    for m in CHECK_M:
+                    for m in ms:
                         if integer:  # one 127 a row: the per-token scale is 1
                             x = torch.randint(-3, 4, (m, k), device=DEV, generator=gen).float()
                             x[:, 0] = 127.0
@@ -3270,7 +3283,10 @@ def method_phase(card: str, rec: dict) -> dict:
 
 # ---- A3: the rest of the serving engine on the full-width Llama-2-7B -----------
 
-SERVE_SLOTS, SERVE_LEN, SERVE_NEW = 8, 2048, 256
+# 128 new tokens a stream (a depth cut that holds the smoke under 1000 s): the
+# growth still crosses two buckets (64 -> 128 -> 256) and speculation runs
+# tens of verify rounds; longer streams add decode depth, not paths
+SERVE_SLOTS, SERVE_LEN, SERVE_NEW = 8, 2048, 128
 SPEC_LADDER = (4, 7, 11)
 VERIFY_M = tuple(SERVE_SLOTS * (k + 1) for k in SPEC_LADDER)  # a verify forward's rows
 PREFIX_LEN = 512
@@ -3749,6 +3765,15 @@ TP_CACHE = 128
 # losses within tests/test_torch_dp_train.py's bf16 bound.
 TP_LOSS_TOL = 2e-3
 TP_TIMEOUT_S = 300
+# the engine over the tp group (A11b): 8 prompts of 64 tokens, 32 new each,
+# greedy, bf16 cache (the engine's first bucket, 64 rows, grown to 128)
+TP_SERVE = (8, 64, 32)
+TP_SERVE_LEN = 256
+TP_HORIZON = 8  # the engine's default decode_horizon
+# the ring's chunk matmuls of a 7B tp = 2 rank: o and down, K / 2 x N / 2
+TP_RING_CHUNKS = {"o_chunk": (2048, 2048), "down_chunk": (5504, 2048)}
+TP_PP_TOKENS = (4, 128)  # GPipe at pp = 2: 4 x 128 tokens, n_micro = 2
+TP_PP_MICRO = 2
 
 
 def tp_shard_shapes(cfg, tp: int = 2) -> dict:
@@ -3767,6 +3792,96 @@ def tp_predicted(layers: int) -> dict:
     its attention through B3."""
     return dict(qmm_prefill=7 * layers, qmm_decode=7 * layers * TP_STEPS,
                 flash_decode=layers * TP_STEPS)
+
+
+def tp_engine_steps(new: int, horizon: int = TP_HORIZON) -> int:
+    """Decode steps of one admission group of requests of `new` tokens each:
+    the first token comes from the prefill; each horizon is the engine's
+    decode_horizon, halved while it exceeds the tokens left
+    (serve/engine.py:run)."""
+    steps, left = 0, new - 1
+    while left > 0:
+        s = horizon
+        while s > 1 and s > left:
+            s //= 2
+        steps, left = steps + s, left - s
+    return steps
+
+
+def tp_engine_predicted(layers: int, a8: bool) -> dict:
+    """Launches of `tp_engine` on unfused layers, from the code: one prefill
+    of 8 x 64 rows (7 matmuls a layer through B1, or B4's prefill kernels
+    under A8), then tp_engine_steps decode steps (7 through B2 or B4, the
+    attention through B3)."""
+    steps = tp_engine_steps(TP_SERVE[2])
+    if a8:
+        return dict(qmm_a8=7 * layers * (1 + steps), qmm_a8_prefill=7 * layers, qmm_prefill=0,
+                    qmm_decode=0, flash_decode=layers * steps)
+    return dict(qmm_prefill=7 * layers, qmm_decode=7 * layers * steps, qmm_a8=0,
+                flash_decode=layers * steps)
+
+
+def tp_ring_predicted(layers: int, tp: int = 2) -> dict:
+    """`tp_decode`'s launches under BITDISTILLER_RING_TP=1: q, k, v, gate,
+    up once a layer, o and down as tp chunk matmuls each."""
+    per = 5 + 2 * tp
+    return dict(qmm_prefill=per * layers, qmm_decode=per * layers * TP_STEPS,
+                flash_decode=layers * TP_STEPS)
+
+
+def tp_a8_predicted(layers: int) -> dict:
+    """`tp_decode`'s launches under BITDISTILLER_QMM_A8=1: every matmul through B4."""
+    return dict(qmm_a8=7 * layers * (1 + TP_STEPS), qmm_a8_prefill=7 * layers,
+                flash_decode=layers * TP_STEPS)
+
+
+def tp_engine(params, cfg, mesh, dev) -> dict:
+    """TP_SERVE's requests (random prompts, seed 2) through `Engine(...,
+    mesh=mesh)` (None: one process), greedy, a bf16 cache growing from its
+    first bucket; the launch counts reset just before the run and read just
+    after. Returns the streams, the counts, what the engine ran and the host
+    seconds."""
+    n, plen, new = TP_SERVE
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(3, cfg.vocab_size, plen).tolist() for _ in range(n)]
+    eng = Engine(params, cfg, max_slots=n, max_len=TP_SERVE_LEN, eos_token_id=None,
+                 sampling=SamplingParams(temperature=0.0), device=dev, mesh=mesh)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.time()
+    outs = eng.generate(prompts, new)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    return dict(prompts=prompts, outs=outs, launches=read_counts(), wall_s=wall,
+                decode_steps=eng.decode_steps, prefills=eng.prefills,
+                growths=list(eng.growths), cache_len=eng._cache_len(),
+                cache_shape=list(eng.cache.k.shape))
+
+
+def tp_pipeline(whole, cfg, dev) -> dict:
+    """GPipe at pp = 2 over the group's two ranks (one layer a stage):
+    `pipeline_forward` of TP_PP_TOKENS random tokens (seed 3) at n_micro =
+    TP_PP_MICRO on the whole packed tree cut by `shard_params_pp`, the
+    launch counts reset just before and read just after; then, in this
+    process, the one-process forward on the whole tree: its largest logit
+    and the pipeline's largest gap from it."""
+    pp_mesh = make_pp_mesh(2)
+    local = shard_params_pp(whole, pp_mesh)
+    b, s = TP_PP_TOKENS
+    toks = torch.randint(3, cfg.vocab_size, (b, s), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(3))
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.time()
+        got = pipeline_forward(local, cfg, toks, pp_mesh, n_micro=TP_PP_MICRO)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = read_counts()
+        want, _ = forward(whole, cfg, toks)
+    return dict(launches=counts, wall_s=wall, err=(got - want).abs().max().item(),
+                scale=want.abs().max().item(), shape=list(got.shape),
+                transport=p2p_transport(want, pp_mesh.group))
 
 
 def tp_decode(params, cfg, mesh, dev, forced=None):
@@ -3805,11 +3920,15 @@ def tp_decode(params, cfg, mesh, dev, forced=None):
 def tp_rank(rank: int, world: int, port: int, tmp: Path) -> None:
     """One of the tp phase's two ranks, both on the one card, joined over
     gloo (NCCL refuses two ranks on one device; gloo stages each collective
-    through the host): the dry run's steps (`scripts/dryrun_multichip.py`),
+    through the host, and each point-to-point hop through host memory): the
+    dry run's steps (`scripts/dryrun_multichip.py`, GPipe's part included),
     the packed 7B decode (`tp_decode`) on the rank's tp slice of
-    TP_DECODE_CFG, and run_training of TP_TRAIN_CFG at tp = 2 through B8,
-    each with its launch counts. Writes tmp/rank{r}.pt (rank 0 also its
-    final master and train config)."""
+    TP_DECODE_CFG, again under BITDISTILLER_RING_TP=1 (o and down through
+    the ring) and under BITDISTILLER_QMM_A8=1, the engine over the tp group
+    (`tp_engine`, A16 then A8), GPipe at pp = 2 (`tp_pipeline`), and
+    run_training of TP_TRAIN_CFG at tp = 2 through B8, each with its launch
+    counts. Writes tmp/rank{r}.pt (rank 0 also its final master and train
+    config)."""
     dev = torch.device(DEV, 0)
     torch.cuda.set_device(dev)
     init_distributed(f"127.0.0.1:{port}", world, rank, device=DEV, backend="gloo")
@@ -3825,9 +3944,25 @@ def tp_rank(rank: int, world: int, port: int, tmp: Path) -> None:
         whole = random_packed_params(cfg, bits=BITS, group_size=GROUP, seed=0, device=dev,
                                      fuse=False)
         shard = shard_packed_model(whole, mesh, cfg)
-        del whole
         out["decode"] = tp_decode(shard, cfg, mesh, dev)
-        del shard
+        forced = out["decode"][1]
+        os.environ["BITDISTILLER_RING_TP"] = "1"
+        try:
+            out["ring"] = tp_decode(shard, cfg, mesh, dev, forced=forced)
+        finally:
+            os.environ.pop("BITDISTILLER_RING_TP")
+        out["ring_leaves"] = len(mesh.ring_cache)
+        out["transport"] = p2p_transport(forced.to(dev), mesh.tp_group)
+        out["engine"] = tp_engine(shard, cfg, mesh, dev)
+        os.environ[qm.A8_ENV] = "1"
+        try:
+            out["engine_a8"] = tp_engine(shard, cfg, mesh, dev)
+            out["decode_a8"] = tp_decode(qm.maybe_repack_a8(shard), cfg, mesh, dev,
+                                         forced=forced)
+        finally:
+            os.environ.pop(qm.A8_ENV)
+        out["pipeline"] = tp_pipeline(whole, cfg, dev)
+        del shard, whole
         torch.cuda.empty_cache()
         os.environ["BITDISTILLER_TRAIN_FLASH"] = "1"
         params = init_params(TP_TRAIN_CFG, seed=0, dtype=torch.bfloat16, device=dev)
@@ -3903,11 +4038,15 @@ def tp_phase(gen, bw, card, rec) -> dict:
     within LOGIT_TOL of the largest), run_training at tp = 1 (losses within
     TP_LOSS_TOL relative), and the tp = 2 checkpoint restored at tp = 1, in
     one process, equal bit for bit to the ranks' final master."""
-    out: dict = {"checks": [], "matmul_times": [], "attention_times": []}
+    out: dict = {"checks": [], "matmul_times": [], "attention_times": [], "a8_times": []}
     shapes7, shapes_tl = tp_shard_shapes(LLAMA2_7B), tp_shard_shapes(TINYLLAMA_1B)
     out["matmul_rel_err"] = max(
         check_matmuls(gen, out["checks"], ms=(8, 512), bits_list=(BITS,), shapes=shapes7),
         check_matmuls(gen, out["checks"], ms=(8,), bits_list=(BITS,), shapes=shapes_tl))
+    out["ring_rel_err"] = check_matmuls(gen, out["checks"], ms=(8, 512), bits_list=(BITS,),
+                                        shapes=TP_RING_CHUNKS)
+    out["a8_rel_err"] = check_a8(gen, out["checks"], ms=(8, 512), bits_list=(BITS,),
+                                 shapes=shapes7)
     out["attention_err"] = max(tp_check_attention(gen, out["checks"], (16, 16, 128)),
                                tp_check_attention(gen, out["checks"], (16, 2, 64)))
     out["b2_7b"] = time_matmuls(gen, 8, bw, out["matmul_times"], shapes=shapes7)
@@ -3917,6 +4056,10 @@ def tp_phase(gen, bw, card, rec) -> dict:
                                   heads=(16, 16, 128))
     out["b3_tinyllama"] = time_attention(gen, bw, out["attention_times"], per_layer=False,
                                          heads=(16, 2, 64))
+    out["b2_ring"] = time_matmuls(gen, 8, bw, out["matmul_times"], shapes=TP_RING_CHUNKS)
+    out["b1_ring"] = time_matmuls(gen, 512, bw, out["matmul_times"], shapes=TP_RING_CHUNKS)
+    out["b4_7b_m8"] = time_a8(gen, 8, out["a8_times"], shapes=shapes7)
+    out["b4_7b_m512"] = time_a8(gen, 512, out["a8_times"], shapes=shapes7)
     torch.cuda.empty_cache()
     tmp = Path(tempfile.mkdtemp(prefix="bd_tp_"))
     saved_flash = os.environ.get("BITDISTILLER_TRAIN_FLASH")
@@ -3928,8 +4071,26 @@ def tp_phase(gen, bw, card, rec) -> dict:
         cfg = TP_DECODE_CFG
         whole = random_packed_params(cfg, bits=BITS, group_size=GROUP, seed=0, device=DEV,
                                      fuse=False)
+        forced = ranks[0]["decode"][1]
         ref_logits, _, ref_counts, ref_ms = tp_decode(whole, cfg, None, torch.device(DEV),
-                                                      forced=ranks[0]["decode"][1])
+                                                      forced=forced)
+        ref_engine = tp_engine(whole, cfg, None, torch.device(DEV))
+        os.environ[qm.A8_ENV] = "1"
+        try:
+            whole_a8 = qm.maybe_repack_a8(whole)
+            ref_a8 = tp_decode(whole_a8, cfg, None, torch.device(DEV), forced=forced)
+            ref_engine_a8 = tp_engine(whole, cfg, None, torch.device(DEV))
+            a8_err = max((r["decode_a8"][0] - ref_a8[0]).abs().max().item() for r in ranks)
+            a8_scale = ref_a8[0].abs().max().item()
+            ties_a8 = tie_rule(whole_a8, cfg, ref_engine_a8["prompts"], ref_engine_a8["outs"],
+                               ranks[0]["engine_a8"]["outs"], a8_err,
+                               "tp engine A8: tp = 2 vs one process")
+            del whole_a8
+        finally:
+            os.environ.pop(qm.A8_ENV)
+        a16_err = max((r["decode"][0] - ref_logits).abs().max().item() for r in ranks)
+        ties = tie_rule(whole, cfg, ref_engine["prompts"], ref_engine["outs"],
+                        ranks[0]["engine"]["outs"], a16_err, "tp engine A16: tp = 2 vs one process")
         del whole
         os.environ["BITDISTILLER_TRAIN_FLASH"] = "1"
         params = init_params(TP_TRAIN_CFG, seed=0, dtype=torch.bfloat16, device=DEV)
@@ -3970,6 +4131,31 @@ def tp_phase(gen, bw, card, rec) -> dict:
                    reference_wall_s=one["wall_s"]),
         checkpoint=dict(restored_at_tp1_equal=restore_equal, dp=manifest["dp"],
                         tp=manifest["tp"]))
+    L = cfg.num_layers
+    want_ring, want_a8 = tp_ring_predicted(L), tp_a8_predicted(L)
+    want_eng = {False: tp_engine_predicted(L, False), True: tp_engine_predicted(L, True)}
+    want_pp = dict(qmm_prefill=7 * (L // 2) * TP_PP_MICRO, qmm_decode=0, flash_decode=0)
+    ring_err = max((r["ring"][0] - r["decode"][0]).abs().max().item() for r in ranks)
+    engines = {}
+    for a8, key, ref, tie in ((False, "engine", ref_engine, ties), (True, "engine_a8",
+                                                                     ref_engine_a8, ties_a8)):
+        engines[key] = dict(
+            launches=[r[key]["launches"] for r in ranks], predicted=want_eng[a8],
+            reference_launches=ref["launches"], decode_steps=[r[key]["decode_steps"] for r in ranks],
+            predicted_steps=tp_engine_steps(TP_SERVE[2]), growths=ranks[0][key]["growths"],
+            cache_shape=ranks[0][key]["cache_shape"], wall_s=[r[key]["wall_s"] for r in ranks],
+            reference_wall_s=ref["wall_s"], ranks_equal=ranks[0][key]["outs"] == ranks[1][key]["outs"],
+            equal_to_one_process=ranks[0][key]["outs"] == ref["outs"], ties=tie)
+    out.update(
+        transport=ranks[0]["transport"],
+        ring=dict(launches=[r["ring"][2] for r in ranks], predicted=want_ring,
+                  logit_err=ring_err, logit_scale=scale, leaves=[r["ring_leaves"] for r in ranks],
+                  step_ms=[r["ring"][3] for r in ranks]),
+        decode_a8=dict(launches=[r["decode_a8"][2] for r in ranks], predicted=want_a8,
+                       reference_launches=ref_a8[2], logit_err=a8_err, logit_scale=a8_scale,
+                       step_ms=[r["decode_a8"][3] for r in ranks], reference_step_ms=ref_a8[3]),
+        pipeline=dict(ranks=[r["pipeline"] for r in ranks], predicted=want_pp, tol=LOGIT_TOL),
+        **engines)
     rec.update(out)
     for r in ranks:
         got = {k: r["decode"][2][k] for k in want_dec}
@@ -3988,6 +4174,36 @@ def tp_phase(gen, bw, card, rec) -> dict:
         raise AssertionError(f"tp = 2 losses {tp2_losses} vs tp = 1 {one['losses']}")
     if not restore_equal or (manifest["dp"], manifest["tp"]) != (1, 2):
         raise AssertionError("the tp = 2 checkpoint did not restore at tp = 1 to its master")
+    pick = lambda counts, want: {k: counts[k] for k in want}
+    for r in ranks:
+        if pick(r["ring"][2], want_ring) != want_ring or r["ring_leaves"] != 2:
+            raise AssertionError(f"ring launches {r['ring'][2]}, predicted {want_ring}; "
+                                 f"{r['ring_leaves']} leaves cut into chunks (o and down: 2)")
+        if pick(r["decode_a8"][2], want_a8) != want_a8:
+            raise AssertionError(f"tp A8 decode launches {r['decode_a8'][2]}, predicted {want_a8}")
+        for a8, key in ((False, "engine"), (True, "engine_a8")):
+            e = r[key]
+            if pick(e["launches"], want_eng[a8]) != want_eng[a8] or (
+                    e["decode_steps"], e["prefills"]) != (tp_engine_steps(TP_SERVE[2]), 1):
+                raise AssertionError(f"tp {key} launches {e['launches']} ({e['decode_steps']} "
+                                     f"steps), predicted {want_eng[a8]}")
+        pl = r["pipeline"]
+        if pick(pl["launches"], want_pp) != want_pp:
+            raise AssertionError(f"GPipe launches {pl['launches']}, predicted {want_pp}")
+        if not pl["err"] <= LOGIT_TOL * pl["scale"]:
+            raise AssertionError(f"GPipe logits {pl['err']} from one process's (max {pl['scale']})")
+    for a8, key, ref in ((False, "engine", ref_engine), (True, "engine_a8", ref_engine_a8)):
+        if pick(ref["launches"], want_eng[a8]) != want_eng[a8]:
+            raise AssertionError(f"one-process {key} launches {ref['launches']}, predicted "
+                                 f"{want_eng[a8]}")
+        if not engines[key]["ranks_equal"]:
+            raise AssertionError(f"tp {key}: the two ranks' streams differ")
+    if pick(ref_a8[2], want_a8) != want_a8:
+        raise AssertionError(f"tp = 1 A8 decode launches {ref_a8[2]}, predicted {want_a8}")
+    if not ring_err <= LOGIT_TOL * scale:
+        raise AssertionError(f"ring logits {ring_err} from the default tp path's (max {scale})")
+    if not a8_err <= LOGIT_TOL * a8_scale:
+        raise AssertionError(f"tp = 2 A8 decode logits {a8_err} from tp = 1's (max {a8_scale})")
     d0 = ranks[0]["decode"]
     say(f"tp ({card}; {out['route']}, {out['ranks_s']:.1f} s for both ranks' runs): the dry "
         f"run's steps ({ranks[0]['dryrun_s']:.1f} s: ZeRO 2 / 3 steps, the fused cycle, the "
@@ -4013,6 +4229,40 @@ def tp_phase(gen, bw, card, rec) -> dict:
                                                         out["b3_tinyllama"])):
         say(f"tp shard shapes B3 {name}: {t['ms']:.4f} ms (bound {t['bound_ms']:.4f}, plain "
             f"{t['plain_ms']:.3f}, SDPA {t['library_ms']:.4f})")
+    for name, t, peak in (("B2 ring chunks (o, down) M=8", out["b2_ring"], PEAK_BF16_FLOPS),
+                          ("B1 ring chunks (o, down) M=512", out["b1_ring"], PEAK_BF16_FLOPS),
+                          ("B4 7B M=8", out["b4_7b_m8"], PEAK_INT8_OPS),
+                          ("B4 7B M=512", out["b4_7b_m512"], PEAK_INT8_OPS)):
+        tt = totals_entry(t, bw, peak)
+        say(f"tp shard shapes {name}: {tt['ms']:.4f} ms (bound {tt['bound_ms']:.4f} "
+            f"{tt['bound_by']}, plain {tt['plain_ms']:.3f}, torch.matmul {tt['library_ms']:.4f})")
+    say(f"tp checks ({card}): B4 at a 7B tp rank's 7 linears, M = 8 and 512, pair-layout and "
+        f"repacked words (integer inputs exact, bf16 worst relative {out['a8_rel_err']:.3g}); "
+        f"B1 / B2 at the ring's chunks {TP_RING_CHUNKS} (worst relative "
+        f"{out['ring_rel_err']:.3g})")
+    rg = out["ring"]
+    say(f"tp ring (BITDISTILLER_RING_TP=1; point-to-point transport: {out['transport']}): logits "
+        f"{ring_err:.4g} from the default tp path's (max {scale:.4g}, tol {LOGIT_TOL}); launches "
+        f"a rank { {k: rg['launches'][0][k] for k in want_ring} } (predicted {want_ring}); a step "
+        f"{np.median(rg['step_ms'][0]):.2f} ms (host clock, median of {TP_STEPS})")
+    say(f"tp decode A8 at tp = 2: logits {a8_err:.4g} from tp = 1's (max {a8_scale:.4g}); "
+        f"launches a rank { {k: out['decode_a8']['launches'][0][k] for k in want_a8} } "
+        f"(predicted {want_a8})")
+    for key in ("engine", "engine_a8"):
+        e = out[key]
+        say(f"tp {key} (Llama-2-7B 2 layers at tp = 2, {TP_SERVE[0]} x {TP_SERVE[1]}-token "
+            f"prompts, {TP_SERVE[2]} new, greedy; {card}): ranks' streams equal "
+            f"{e['ranks_equal']}, equal to one process {e['equal_to_one_process']} (tie rule: "
+            f"{e['ties']['equal']}/{e['ties']['streams']} equal, delta {e['ties']['delta']:.4g}); "
+            f"launches a rank { {k: e['launches'][0][k] for k in e['predicted']} } (predicted "
+            f"{e['predicted']}, {e['decode_steps'][0]} decode steps); growths {e['growths']}, "
+            f"cache {e['cache_shape']}; {e['wall_s'][0]:.2f} s at tp = 2, "
+            f"{e['reference_wall_s']:.2f} s in one process (host clock)")
+    p0 = out["pipeline"]["ranks"][0]
+    say(f"tp GPipe at pp = 2 ({TP_PP_TOKENS[0]} x {TP_PP_TOKENS[1]} tokens, n_micro "
+        f"{TP_PP_MICRO}, transport {p0['transport']}): logits {p0['err']:.4g} from one process's "
+        f"(max {p0['scale']:.4g}, tol {LOGIT_TOL}); launches a rank "
+        f"{ {k: p0['launches'][k] for k in want_pp} } (predicted {want_pp}); {p0['wall_s']:.3f} s")
     return out
 
 
@@ -4266,15 +4516,20 @@ def run() -> int:
     sv = summary["serve"]
     tp_runs = tp_out["ranks"]
 
-    def tp_block(*kinds):  # the tp phase's launches of kernels, each rank: decode, dry run
-        return {f"rank{r}": {k: {"decode": tp_out["decode"]["launches"][r].get(k, 0),
-                                 "dryrun": run["dryrun_launches"].get(k, 0)} for k in kinds}
-                for r, run in enumerate(tp_runs)}
+    def tp_block(*kinds):  # the tp phase's launches of kernels, each rank and run
+        runs = {"decode": tp_out["decode"], "ring": tp_out["ring"],
+                "decode_a8": tp_out["decode_a8"], "engine": tp_out["engine"],
+                "engine_a8": tp_out["engine_a8"],
+                "pipeline": {"launches": [p["launches"] for p in tp_out["pipeline"]["ranks"]]}}
+        return {f"rank{r}": {k: dict({name: run["launches"][r].get(k, 0)
+                                      for name, run in runs.items()},
+                                     dryrun=dry["dryrun_launches"].get(k, 0)) for k in kinds}
+                for r, dry in enumerate(tp_runs)}
 
-    def tp_rows(kernel):  # one rank's shard shapes, one row a linear
+    def tp_rows(kernel):  # one rank's shard shapes (and the ring's chunks), one row a linear
         return [{k: row[k] for k in ("shape", "m", "k", "n", "ms", "plain_ms", "library_ms",
                                      "bound_ms", "bound_by")}
-                for row in tp_out["matmul_times"] if row["kernel"] == kernel]
+                for row in tp_out["matmul_times"] + tp_out["a8_times"] if row["kernel"] == kernel]
 
     def serve_block(kind):  # the serve phase's launches of one kernel, each run
         runs = {"grown": sv["growth"]["grown"], "static": sv["growth"]["static"],
@@ -4306,9 +4561,13 @@ def run() -> int:
                      serve=serve_block("qmm_decode"),
                      tp=dict(llama2_7b_m8=times(totals_entry(tp_out["b2_7b"], bw)),
                              tinyllama_m8=times(totals_entry(tp_out["b2_tinyllama"], bw)),
+                             ring_chunks_m8=times(totals_entry(tp_out["b2_ring"], bw)),
                              shapes=tp_rows("qmm_decode"), launches=tp_block("qmm_decode"),
-                             predicted=tp_out["decode"]["predicted"]["qmm_decode"],
-                             max_abs_err=tp_out["matmul_rel_err"])),
+                             predicted=dict(decode=tp_out["decode"]["predicted"]["qmm_decode"],
+                                            ring=tp_out["ring"]["predicted"]["qmm_decode"],
+                                            engine=tp_out["engine"]["predicted"]["qmm_decode"]),
+                             max_abs_err=max(tp_out["matmul_rel_err"],
+                                             tp_out["ring_rel_err"]))),
         kernel_entry("qmm_prefill", "quant_matmul.cu", "bitdistiller_tpu/ops/quant_matmul.py:107",
                      counts["qmm_prefill"], mm_rel, pre,
                      "the same four, M=256 (x group sums + wgmma kernel; m4096: the engine's "
@@ -4322,8 +4581,13 @@ def run() -> int:
                      **{f"m{m}": times(t) for m, t in verify_t.items()},
                      serve=serve_block("qmm_prefill"),
                      tp=dict(llama2_7b_m512=times(totals_entry(tp_out["b1_7b"], bw)),
+                             ring_chunks_m512=times(totals_entry(tp_out["b1_ring"], bw)),
                              shapes=tp_rows("qmm_prefill"), launches=tp_block("qmm_prefill"),
-                             predicted=tp_out["decode"]["predicted"]["qmm_prefill"])),
+                             predicted=dict(
+                                 decode=tp_out["decode"]["predicted"]["qmm_prefill"],
+                                 ring=tp_out["ring"]["predicted"]["qmm_prefill"],
+                                 engine=tp_out["engine"]["predicted"]["qmm_prefill"],
+                                 pipeline=tp_out["pipeline"]["predicted"]["qmm_prefill"]))),
         kernel_entry("flash_decode", "decode_attention.cu",
                      "bitdistiller_tpu/ops/decode_attention.py:106", counts["flash_decode"],
                      at_err["stacked"], att,
@@ -4343,7 +4607,9 @@ def run() -> int:
                      tp=dict(llama2_7b_16_16=times(tp_out["b3_7b"]),
                              tinyllama_16_2=times(tp_out["b3_tinyllama"]),
                              launches=tp_block("flash_decode"),
-                             predicted=tp_out["decode"]["predicted"]["flash_decode"],
+                             predicted=dict(
+                                 decode=tp_out["decode"]["predicted"]["flash_decode"],
+                                 engine=tp_out["engine"]["predicted"]["flash_decode"]),
                              max_abs_err=tp_out["attention_err"])),
         kernel_entry("qmm_a8", "quant_matmul_a8.cu", "bitdistiller_tpu/ops/quant_matmul.py:721",
                      counts_a8["qmm_a8"], a8_rel, a8_dec,
@@ -4356,7 +4622,16 @@ def run() -> int:
                      prefill_launches=counts_a8["qmm_a8_prefill"], g64=times(a8_64),
                      c6=c6_mm("qmm_a8"), families=family_block("qmm_a8"),
                      eval=eval_block("qmm_a8", "qmm_a8_prefill"),
-                     method=method_block("qmm_a8", "qmm_a8_prefill")),
+                     method=method_block("qmm_a8", "qmm_a8_prefill"),
+                     tp=dict(llama2_7b_m8=times(totals_entry(tp_out["b4_7b_m8"], bw,
+                                                             PEAK_INT8_OPS)),
+                             llama2_7b_m512=times(totals_entry(tp_out["b4_7b_m512"], bw,
+                                                               PEAK_INT8_OPS)),
+                             shapes=tp_rows("qmm_a8"),
+                             launches=tp_block("qmm_a8", "qmm_a8_prefill"),
+                             predicted=dict(decode=tp_out["decode_a8"]["predicted"],
+                                            engine=tp_out["engine_a8"]["predicted"]),
+                             max_abs_err=tp_out["a8_rel_err"])),
         kernel_entry("fused_mlp", "fused_mlp.cu", "bitdistiller_tpu/experimental/fused_mlp.py:57",
                      mlp["launches"], mlp["max_abs_err"], mlp,
                      "7B MLP (K=4096, FFN=11008, D=4096), M=8, int2-g128, silu, two launches "

@@ -6,8 +6,9 @@ teacher generation, the CLI's `ppl --tokens_file`, the eval modules, the
 method check and the serving path (the engine's speculation, prompt cache
 and growth, the HTTP frontend under the load tester, the packed
 checkpoint, the CLI's `pack` and the capacity planner) with `datasets`
-blocked too. The tensor-parallel modules (`parallel.tensor`,
-`scripts.dryrun_multichip`) are among those imported."""
+blocked too. The tensor- and pipeline-parallel modules (`parallel.tensor`,
+`parallel.overlap`, `parallel.pipeline`, `scripts.dryrun_multichip`) are
+among those imported."""
 
 import os
 import re
@@ -37,7 +38,8 @@ for new in ("experimental.fused_mlp", "experimental.flash_decode", "scripts.bw_p
             "cli", "scripts.method_demo", "serve.capacity", "serve.server", "utils",
             "utils.prompts", "scripts.loadtest", "quant.native", "scripts.pack_timing",
             "parallel", "parallel.distributed", "parallel.mesh", "parallel.zero",
-            "parallel.tensor", "scripts.dryrun_multichip",
+            "parallel.tensor", "scripts.dryrun_multichip", "parallel.overlap",
+            "parallel.pipeline",
             "utils.debug", "utils.profiling"):
     assert "bitdistiller_tpu_torch." + new in names, names
 assert not bad, bad

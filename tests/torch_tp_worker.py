@@ -147,3 +147,180 @@ def dryrun_job(rank, world, job):
     init_distributed(f"127.0.0.1:{job['port']}", world, rank, device="cpu")
     return dryrun(torch.device("cpu"))
 
+
+
+# ---- tensor-parallel serving (tests/test_torch_tp_engine.py) ---------------
+
+class IdTok:
+    """Tokens as space-separated ids (the JAX package's sharded HTTP test's)."""
+
+    def encode(self, s):
+        return [int(t) for t in s.split()]
+
+    def decode(self, ids, **kw):
+        return " ".join(str(i) for i in ids)
+
+
+def _http_generate(eng, prompts, new):
+    """Rank 0: the frontend over the sharded engine, the prompts sent
+    concurrently (each joins the running loop through the feeder); every
+    other rank follows rank 0's loop. Each rank returns the streams it
+    served, in the prompts' order (rank 0: the responses' tokens)."""
+    import json
+    import threading
+    import urllib.request
+
+    from bitdistiller_tpu_torch.serve.server import ServingFrontend, follow
+
+    if dist.get_rank() != 0:
+        served = {tuple(r.prompt_tokens): r.output_tokens for r in follow(eng)}
+        return [served[tuple(p)] for p in prompts]
+    front = ServingFrontend(eng, IdTok(), port=0)
+    loop = threading.Thread(target=front.serve_forever)
+    loop.start()
+    results = {}
+    try:
+        host, port = front.address
+
+        def hit(i, prompt):
+            body = json.dumps({"prompt": " ".join(map(str, prompt)), "max_new_tokens": new,
+                               "temperature": 0.0}).encode()
+            req = urllib.request.Request(f"http://{host}:{port}/generate", body,
+                                         {"Content-Type": "application/json"})
+            results[i] = json.load(urllib.request.urlopen(req, timeout=60))["tokens"]
+
+        clients = [threading.Thread(target=hit, args=(i, p)) for i, p in enumerate(prompts)]
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join(timeout=60)
+    finally:
+        front.shutdown()
+        loop.join(timeout=60)
+    assert not loop.is_alive()
+    return [results[i] for i in range(len(prompts))]
+
+
+def engine_job(rank, world, job):
+    """The sharded engine's cases on this rank of a (dp, tp) mesh (dp =
+    world / tp): each returns its streams (every rank returns them all) and
+    what the rank holds."""
+    from bitdistiller_tpu_torch.serve import Engine, Request, SamplingParams
+
+    mesh = make_mesh(tp=job["tp"])
+    cfg = job["cfg"]
+    local = shard_packed_model(job["packed"], mesh, cfg)
+
+    def eng(cache=torch.float32, max_len=32, temperature=0.0, **kw):
+        return Engine(local, cfg, max_slots=4, max_len=max_len,
+                      sampling=SamplingParams(temperature=temperature), eos_token_id=None,
+                      cache_dtype=cache, device="cpu", mesh=mesh, **kw)
+
+    out = {"mesh": (mesh.dp, mesh.tp, mesh.dp_rank, mesh.tp_rank)}
+    e = eng()
+    out["f32"] = e.generate(job["prompts"], 6)
+    out["f32_cache_shape"] = tuple(e.cache.k.shape)
+    e = eng(torch.int8)
+    out["int8"] = e.generate(job["prompts"], 6)
+    out["int8_scale_shape"] = tuple(e.cache.k_scale.shape)
+    out["http"] = _http_generate(eng(), job["prompts"][:2], 6)
+
+    e = eng(prompt_cache_size=1)
+    r1 = Request(prompt_tokens=job["cached_prompt"], max_new_tokens=6, cache_prompt=True)
+    e.run([r1])
+    r2 = Request(prompt_tokens=job["cached_prompt"], max_new_tokens=6)
+    e.run([r2])
+    out["prompt_cache"] = (r1.output_tokens, r2.output_tokens, e.prompt_cache_hits)
+
+    out["spec"] = {}
+    for spec in (False, True):
+        e = eng(spec_decode=spec, spec_k=3)
+        out["spec"][spec] = e.generate(job["spec_prompts"], 10)
+    out["spec_rounds"] = e.spec_rounds
+
+    e = eng(torch.bfloat16, max_len=128)
+    out["growth"] = e.generate(job["prompts5"], 24)
+    out["growths"] = list(e.growths)
+    out["sampled"] = eng(torch.bfloat16, max_len=128, temperature=0.8).generate(
+        job["prompts5"], 24)
+
+    # stop_check on every rank, but rank 0's verdicts rule: the other ranks'
+    # own check would never fire
+    stop_tok = job["stop_token"]
+    check = ((lambda toks: stop_tok in toks) if rank == 0 else (lambda toks: False))
+    reqs = [Request(prompt_tokens=p, max_new_tokens=24, stop_check=check)
+            for p in job["prompts5"]]
+    eng(max_len=128).run(reqs)
+    out["stop_check"] = [(r.output_tokens, r.finish_reason) for r in reqs]
+
+    try:
+        Engine(local, cfg, max_slots=3, max_len=32, device="cpu", mesh=mesh)
+        out["uneven_slots"] = None
+    except ValueError as err:
+        out["uneven_slots"] = str(err)
+    return out
+
+
+# ---- the ring matmuls (tests/test_torch_overlap.py) ------------------------
+
+def overlap_job(rank, world, job):
+    """The ring at tp = world on the job's matmuls, and the whole packed
+    model at dp 2 x tp 2 with BITDISTILLER_RING_TP off and on (prefill S = 4
+    into a cache, then a decode step S = 1, on the dp rank's rows)."""
+    import os
+
+    from bitdistiller_tpu_torch.parallel.overlap import (make_row_parallel_fn,
+                                                         reduce_scatter_matmul)
+
+    mesh = make_mesh(tp=world)
+    out = {"dense": make_row_parallel_fn(job["dense_w"], mesh)(job["dense_x"]),
+           "packed": make_row_parallel_fn(job["packed_w"], mesh, packed_bits=2,
+                                          group_size=128)(job["packed_x"])}
+    kl = job["rs_w"].shape[0] // world
+    cut = slice(rank * kl, (rank + 1) * kl)
+    out["chunk"] = reduce_scatter_matmul(job["rs_x"][:, cut], job["rs_w"][cut], mesh)
+
+    mesh = make_mesh(dp=world // 2, tp=2)
+    cfg = job["cfg"]
+    local = shard_packed_model(job["model"], mesh, cfg)
+    b = job["tokens"].shape[0] // mesh.dp
+    toks = job["tokens"][mesh.dp_rank * b:(mesh.dp_rank + 1) * b]
+    lcfg = tp_config(cfg, mesh.tp)
+    for ring in ("0", "1"):
+        os.environ["BITDISTILLER_RING_TP"] = ring
+        cache = KVCache.init(lcfg, b, 16, dtype=torch.float32, device="cpu")
+        with torch.no_grad():
+            pre, _ = llama.forward(local, cfg, toks, cache=cache, cache_pos=0, mesh=mesh)
+            step, _ = llama.forward(local, cfg, toks[:, -1:], cache=cache,
+                                    cache_pos=torch.full((b,), 4, dtype=torch.int32), mesh=mesh)
+        out[f"model_ring{ring}"] = (pre, step)
+    os.environ.pop("BITDISTILLER_RING_TP")
+    out["ring_leaves"] = len(mesh.ring_cache)  # o and down, cut once
+    return out
+
+
+# ---- GPipe (tests/test_torch_pp.py) ----------------------------------------
+
+def pp_job(rank, world, job):
+    """pipeline_forward at each (pp, n_micro) of the job over the first pp
+    of the world's ranks (every rank receives the logits), the fake-quant
+    student at pp = 4, and a packed tree at pp = 2."""
+    from bitdistiller_tpu_torch.parallel.pipeline import (make_pp_mesh, pipeline_forward,
+                                                          shard_params_pp)
+    from bitdistiller_tpu_torch.quant.core import make_fake_quantizer
+
+    cfg, params, tokens = job["cfg"], job["params"], job["tokens"]
+    out = {}
+    with torch.no_grad():
+        for pp, n_micro in job["cases"]:
+            mesh = make_pp_mesh(pp)
+            out[(pp, n_micro)] = pipeline_forward(shard_params_pp(params, mesh), cfg, tokens,
+                                                  mesh, n_micro=n_micro)
+        q = make_fake_quantizer("int2", 32)
+        mesh = make_pp_mesh(4)
+        out["fake_quant"] = pipeline_forward(shard_params_pp(params, mesh), cfg, tokens, mesh,
+                                             n_micro=2, quantizer=lambda w: q(w.t()).t())
+        mesh = make_pp_mesh(2)
+        out["packed"] = pipeline_forward(shard_params_pp(job["packed"], mesh), cfg, tokens,
+                                         mesh, n_micro=2)
+    return out
