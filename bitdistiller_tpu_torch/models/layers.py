@@ -145,6 +145,15 @@ def alibi_slopes(n_heads: int) -> torch.Tensor:
     return torch.tensor(pow2_slopes(closest) + extra, dtype=torch.float32)
 
 
+@functools.lru_cache(maxsize=16)
+def alibi_slopes_on(n_heads: int, device: torch.device) -> torch.Tensor:
+    """`alibi_slopes` on `device`, made once a device (a normal tensor, also
+    when first asked for in inference mode): a decode step then copies
+    nothing from the host, which a captured CUDA graph could not."""
+    with torch.inference_mode(False):
+        return alibi_slopes(n_heads).to(device)
+
+
 def alibi_bias(slopes: torch.Tensor, q_pos: torch.Tensor, k_pos: torch.Tensor) -> torch.Tensor:
     """[B, H, S, T] additive bias -slope_h * max(q_pos - k_pos, 0) for query
     positions q_pos [B, S] and key positions k_pos [B, T] (future keys are

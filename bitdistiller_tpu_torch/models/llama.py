@@ -60,7 +60,7 @@ from .config import ModelConfig
 from .layers import (
     activation,
     alibi_bias,
-    alibi_slopes,
+    alibi_slopes_on,
     apply_norm,
     apply_rope,
     cached_attention,
@@ -583,9 +583,9 @@ def _stack(cfg: ModelConfig, lp: dict, h, positions, start, layers: range, *, ca
             t = cache.k.shape[3]
             k_pos = torch.cat([torch.arange(t, device=dev).expand(b, t), q_pos], dim=-1)
         if mesh is None:
-            slopes = alibi_slopes(cfg.num_heads)
+            slopes = alibi_slopes_on(cfg.num_heads, dev)
         else:  # this rank's heads of the whole model's slopes
-            slopes = alibi_slopes(cfg.num_heads * mesh.tp).narrow(
+            slopes = alibi_slopes_on(cfg.num_heads * mesh.tp, dev).narrow(
                 0, mesh.tp_rank * cfg.num_heads, cfg.num_heads)
         attn_bias = alibi_bias(slopes, q_pos, k_pos)
 

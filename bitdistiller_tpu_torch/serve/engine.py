@@ -29,6 +29,22 @@ Options, as in the JAX package's engine:
     k adapts over SPEC_K_LADDER from the acceptance EMA, and the plain
     step takes over where acceptance does not pay for the verify.
 
+Decode and verify horizons, the JAX engine's jitted, cache-donating
+`_decode` and `_spec`: the slot state lives in buffers allocated once and
+updated only in place (`cur_tokens`, the slots' lengths and active mask,
+`prev_tokens`, `history`, the per-slot sampling tensors, a horizon's output
+rows), and one plain decode step or one verify round at draft length k is a
+function of those buffers (`_plain_step`, `_verify_step`). Its route:
+  * graphs, the default on the card at mesh=None: each step runs from a
+    captured CUDA graph (`_GraphTable`, keyed by (cache length, "uniform" |
+    "custom" | "verify", k)). A key's first use runs the step eagerly and
+    captures it right after; every later use replays it, and a horizon of
+    n steps is n replays. Growth drops the graphs of the cache it replaced;
+    `warmup()` walks the keys before traffic. The kernels' launch counters
+    advance on every replay by what the capture counted;
+  * eager, on the CPU and under a mesh (whose collectives cannot be
+    captured), or anywhere with graphs=False (the eager twin the card's
+    checks compare with). graphs=True on the CPU or under a mesh raises.
 A horizon's tokens go to pinned host memory without blocking, and the host
 waits on a CUDA event recorded after the copy. The JAX engine's
 `pipeline_rounds` (round k + 1 dispatched before round k is read) is not
@@ -69,6 +85,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 import time
 from typing import Callable, Iterable, Optional
 
@@ -80,7 +97,8 @@ from .._device import on_card, resolve_device
 from ..models import llama
 from ..models.config import ModelConfig
 from ..models.llama import KVCache, quantize_kv
-from ..ops.quant_matmul import maybe_repack_a8
+from ..ops.decode_attention import flash_decode_stacked
+from ..ops.quant_matmul import maybe_repack_a8, qmm_a8, qmm_decode, qmm_prefill
 from ..parallel.tensor import tp_config
 from .sampling import SamplingParams, sample_tokens, sample_tokens_batched
 
@@ -92,6 +110,12 @@ SPEC_HISTORY = 512
 SPEC_K_LADDER = (4, 7, 11)
 SPEC_STEP_COST = 0.09
 CACHE_BUCKET_FACTOR = 2
+
+# the launch counters of the wrappers a step can reach: a replay calls no
+# wrapper, so the graph table adds what each graph's capture counted
+LAUNCH_COUNTERS = ((qmm_decode, "launches"), (qmm_prefill, "launches"), (qmm_a8, "launches"),
+                   (qmm_a8, "prefill_launches"), (flash_decode_stacked, "launches"),
+                   (flash_decode_stacked, "plain_calls"))
 
 
 @dataclasses.dataclass
@@ -198,6 +222,68 @@ class _Fetch:
         return [h.numpy() for h in self.host]
 
 
+class _GraphTable:
+    """Captured step graphs by key, (cache length, mode...). A key's first
+    use runs the step eagerly, so that what the kernels make at first use
+    (kmap tables, the TMA encoder, cluster checks, cuBLAS workspaces) exists
+    before the capture, and then captures it; every later use replays the
+    graph. A capture launches nothing, so the launch counters are set back
+    after it, and each replay adds the deltas the capture recorded.
+    `new_graph()` and `capture(graph, body)` are torch.cuda's on the card
+    (`_cuda_capture`)."""
+
+    def __init__(self, new_graph, capture, counters=LAUNCH_COUNTERS):
+        self.new_graph, self.capture, self.counters = new_graph, capture, counters
+        self.graphs: dict = {}  # key -> (graph, counter deltas)
+        self.captured: list = []  # every key captured, in order
+        self.capture_s = 0.0
+        self.replays = 0
+
+    def run(self, key, body) -> None:
+        entry = self.graphs.get(key)
+        if entry is not None:
+            graph, deltas = entry
+            graph.replay()
+            self.replays += 1
+            for (obj, attr), d in zip(self.counters, deltas):
+                if d:
+                    setattr(obj, attr, getattr(obj, attr) + d)
+            return
+        body()
+        before = [getattr(obj, attr) for obj, attr in self.counters]
+        graph = self.new_graph()
+        t0 = time.perf_counter()
+        self.capture(graph, body)
+        self.capture_s += time.perf_counter() - t0
+        deltas = tuple(getattr(obj, attr) - b for (obj, attr), b in zip(self.counters, before))
+        for (obj, attr), b in zip(self.counters, before):
+            setattr(obj, attr, b)
+        self.graphs[key] = (graph, deltas)
+        self.captured.append(key)
+
+    def drop(self, cache_len: int) -> None:
+        """Forget the graphs of a cache that growth replaced."""
+        for key in [k for k in self.graphs if k[0] == cache_len]:
+            del self.graphs[key]
+
+
+def _cuda_capture(generator: torch.Generator):
+    """capture(graph, body) on the card: every graph of an engine in one
+    memory pool (`capture.pool`; the graphs replay one at a time and each
+    leaves its results in the engine's buffers), with the engine's
+    generator registered, so that a replay draws what the eager step would
+    at the same generator state."""
+    pool = torch.cuda.graph_pool_handle()
+
+    def capture(graph, body):
+        graph.register_generator_state(generator)
+        with torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local"):
+            body()
+
+    capture.pool = pool
+    return capture
+
+
 class Engine:
     def __init__(
         self,
@@ -222,10 +308,18 @@ class Engine:
         spec_ngram_backoff: bool = False,
         device="cuda",
         mesh=None,
+        graphs: Optional[bool] = None,
     ):
         self.device = resolve_device(device)
         # the rank's slots [slot0, slot0 + local_slots) of a mesh's dp split
         self.mesh = mesh if mesh is not None and (mesh.dp > 1 or mesh.tp > 1) else None
+        if graphs and self.mesh is not None:
+            raise ValueError("graphs=True under a mesh: its collectives cannot be captured, "
+                             "and the engine runs its steps eagerly there")
+        if graphs and self.device.type != "cuda":
+            raise ValueError(f"graphs=True on {self.device}: CUDA graphs need the card")
+        if graphs is None:
+            graphs = self.device.type == "cuda" and self.mesh is None
         local = max_slots
         cache_cfg = cfg
         if self.mesh is not None:
@@ -254,6 +348,10 @@ class Engine:
         first_len = self.cache_buckets[0] if grow_cache else max_len
         self.cache = KVCache.init(cache_cfg, local, first_len, cache_dtype, device=dev)
         self.generator = torch.Generator(device=dev).manual_seed(seed)
+        # the step's route: "graphs" (replayed from `_graphs`) or "eager"
+        self.route = "graphs" if graphs else "eager"
+        self._graphs = (_GraphTable(torch.cuda.CUDAGraph, _cuda_capture(self.generator))
+                        if graphs else None)
 
         # prompt cache: tuple(prompt) -> (KV [L, 1, Pb, H, D] in the prefill
         # layout and dtype, last logits [V], prompt length). A byte budget
@@ -288,7 +386,8 @@ class Engine:
         self.spec_tokens = 0  # tokens those cells produced (<= k + 1 each)
 
         # device-side slot state of the rank's slots: advanced by decode
-        # without host syncs
+        # without host syncs, allocated once and written only in place (a
+        # captured step reads and writes these addresses)
         self.prev_tokens = torch.full((local, rep_window), -1, dtype=torch.int32, device=dev)
         self.history = torch.full((local, SPEC_HISTORY), -2, dtype=torch.int32, device=dev)
         self.cur_tokens = torch.zeros(local, dtype=torch.int32, device=dev)
@@ -299,6 +398,13 @@ class Engine:
         self._top_ps = torch.full((local,), sampling.top_p, dtype=torch.float32, device=dev)
         self._rep_pens = torch.full((local,), sampling.repetition_penalty,
                                     dtype=torch.float32, device=dev)
+        # a horizon: the positions its plain steps are at, its step index and
+        # its output rows (row h: step h's tokens; a verify's per k, with the
+        # counts)
+        self._pos = torch.zeros(local, dtype=torch.int32, device=dev)
+        self._hz_step = torch.zeros(1, dtype=torch.int64, device=dev)
+        self._hz_tokens = torch.zeros((self.horizon, local), dtype=torch.int32, device=dev)
+        self._hz_verify: dict = {}  # k -> (tokens [H, B, k + 1], counts [H, B])
         # host-side slot state; _len_ub upper-bounds every active slot's cache
         # position (a verify round counts k + 1 rows), so a dispatch knows
         # without a sync when the cache must grow
@@ -387,38 +493,56 @@ class Engine:
                 self.cache.k_scale[:, slot, :, :s] = ks[:, row]
                 self.cache.v_scale[:, slot, :, :s] = vs[:, row]
 
+    def _step(self, key: tuple, body) -> None:
+        """One step on the engine's route: `body()` eagerly, or the graph of
+        (cache length,) + key."""
+        if self._graphs is None:
+            body()
+        else:
+            self._graphs.run((self._cache_len(),) + key, body)
+
+    def _check_steps(self, steps: int) -> None:
+        if not 1 <= steps <= self.horizon:
+            raise ValueError(f"a horizon of {steps} steps: the engine's output rows hold "
+                             f"1 to decode_horizon = {self.horizon}")
+
+    def _plain_step(self, custom: bool) -> None:
+        """One decode step of every slot of the rank, on the engine's
+        buffers: the token in `cur_tokens` at `_pos`, the sampled token
+        (0 for an inactive slot) into `cur_tokens`, `prev_tokens` and the
+        horizon's row `_hz_step`. Inactive slots decode masked junk into
+        their own rows."""
+        logits, _ = llama.forward(self.params, self.cfg, self.cur_tokens[:, None],
+                                  cache=self.cache, cache_pos=self._pos, mesh=self.mesh)
+        if custom:
+            sample = lambda: sample_tokens_batched(
+                logits[:, 0], self._temps, self._top_ks, self._top_ps, self._rep_pens,
+                self.prev_tokens, generator=self.generator)
+        else:
+            sample = lambda: sample_tokens(logits[:, 0], self.sampling, self.prev_tokens,
+                                           generator=self.generator)
+        nxt = torch.where(self._active_dev,
+                          self._taken_once(sample, (self.local_slots,), over_tp=True), 0)
+        self.prev_tokens.copy_(torch.cat([self.prev_tokens[:, 1:], nxt[:, None]], dim=1))
+        self._pos.copy_(torch.clamp(self._pos + 1, max=self.max_len - 1))
+        self._lengths_dev.add_(self._active_dev.to(torch.int32))
+        self.cur_tokens.copy_(nxt)
+        self._hz_tokens.index_copy_(0, self._hz_step, nxt[None])
+        self._hz_step.add_(1)
+
     @torch.inference_mode()
     def _decode(self, steps: int, custom: bool) -> torch.Tensor:
         """`steps` decode steps for every slot of the rank; returns tokens
-        [steps, local slots] on the device. Inactive slots decode masked junk
-        into their own rows."""
-        max_pos = self.max_len - 1
+        [steps, local slots] on the device (the horizon's output rows)."""
+        self._check_steps(steps)
         self.decode_steps += steps
         self.decode_steps_at[self._cache_len()] += steps
-        tokens, pos = self.cur_tokens, self._lengths_dev.clone()
-        out = []
+        self._pos.copy_(self._lengths_dev)
+        self._hz_step.zero_()
+        body = functools.partial(self._plain_step, custom)
         for _ in range(steps):
-            logits, _ = llama.forward(
-                self.params, self.cfg, tokens[:, None], cache=self.cache, cache_pos=pos,
-                mesh=self.mesh,
-            )
-            if custom:
-                sample = lambda: sample_tokens_batched(
-                    logits[:, 0], self._temps, self._top_ks, self._top_ps,
-                    self._rep_pens, self.prev_tokens, generator=self.generator,
-                )
-            else:
-                sample = lambda: sample_tokens(logits[:, 0], self.sampling, self.prev_tokens,
-                                               generator=self.generator)
-            nxt = self._taken_once(sample, (self.local_slots,), over_tp=True)
-            nxt = torch.where(self._active_dev, nxt, 0)
-            self.prev_tokens = torch.cat([self.prev_tokens[:, 1:], nxt[:, None]], dim=1)
-            pos = torch.clamp(pos + 1, max=max_pos)
-            tokens = nxt
-            out.append(nxt)
-        self.cur_tokens = tokens
-        self._lengths_dev = self._lengths_dev + steps * self._active_dev.to(torch.int32)
-        return torch.stack(out)
+            self._step(("custom" if custom else "uniform",), body)
+        return self._hz_tokens[:steps]
 
     @staticmethod
     def ngram_draft(hist: torch.Tensor, k: int, ngram: int) -> torch.Tensor:
@@ -457,48 +581,65 @@ class Engine:
         idx = n.to(torch.int64)[:, None] + torch.arange(w, device=buf.device)[None, :]
         return ext.gather(1, idx)
 
+    def _verify_step(self, k: int, toks: torch.Tensor, counts: torch.Tensor) -> None:
+        """One verify round on the engine's buffers: draft k tokens from each
+        slot's `history`, verify them in one S = k + 1 forward at the slots'
+        lengths, accept the longest sampled == draft prefix plus the next
+        sampled token; the sampled tokens and the counts into the horizon's
+        row `_hz_step` of `toks` [H, B, k + 1] and `counts` [H, B]."""
+        max_pos = self.max_len - 1
+        prev, hist, active = self.prev_tokens, self.history, self._active_dev
+        if self.spec_ngram_backoff:
+            draft = self.ngram_draft_backoff(hist, k, self.spec_ngram + 1, self.spec_ngram)
+        else:
+            draft = self.ngram_draft(hist, k, self.spec_ngram)
+        tokens_in = torch.cat([self.cur_tokens[:, None], draft], dim=1)
+        # the forward reads cache rows < the length and the fresh S tokens
+        # causally; -1 drafts run as 0 and are never accepted
+        logits, _ = llama.forward(self.params, self.cfg, torch.clamp(tokens_in, min=0),
+                                  cache=self.cache, cache_pos=self._lengths_dev, mesh=self.mesh)
+        b, s, v = logits.shape
+        # all k + 1 positions share the round-start penalty window (exact at
+        # repetition_penalty 1.0, which _spec_active requires)
+        sampled = self._taken_once(
+            lambda: sample_tokens(logits.reshape(b * s, v), self.sampling,
+                                  prev[:, None].expand(b, s, prev.shape[1]).reshape(b * s, -1),
+                                  generator=self.generator).reshape(b, s), (b, s),
+            over_tp=True)
+        good = (sampled[:, :k] == draft).to(torch.int32)
+        acc = torch.cumprod(good, dim=1).sum(dim=1)  # [B] in [0, k]
+        n_new = torch.where(active, acc + 1, 0).to(torch.int32)
+        cur = torch.where(active, sampled.gather(1, acc[:, None])[:, 0], 0)
+        pos = torch.clamp(self._lengths_dev + n_new, max=max_pos)
+        new_prev = self._var_append(prev, sampled, n_new)
+        new_hist = self._var_append(hist, sampled, n_new)
+        self.cur_tokens.copy_(cur)
+        self._lengths_dev.copy_(pos)
+        self.prev_tokens.copy_(new_prev)
+        self.history.copy_(new_hist)
+        toks.index_copy_(0, self._hz_step, sampled[None])
+        counts.index_copy_(0, self._hz_step, n_new[None])
+        self._hz_step.add_(1)
+
     @torch.inference_mode()
     def _spec_decode(self, steps: int, k: int):
-        """`steps` verify rounds: draft k tokens from each slot's history,
-        verify them in one S = k + 1 forward, accept the longest sampled ==
-        draft prefix plus the next sampled token. Returns tokens [steps, B,
+        """`steps` verify rounds at draft length k. Returns tokens [steps, B,
         k + 1] and the valid counts [steps, B] on the device (B: the rank's
-        slots)."""
-        max_pos = self.max_len - 1
+        slots; the horizon's output rows of k)."""
+        self._check_steps(steps)
         self.spec_forwards[k] += steps
-        cur, pos = self.cur_tokens, self._lengths_dev
-        prev, hist, active = self.prev_tokens, self.history, self._active_dev
-        toks, counts = [], []
+        if k not in self._hz_verify:
+            self._hz_verify[k] = (
+                torch.zeros((self.horizon, self.local_slots, k + 1), dtype=torch.int32,
+                            device=self.device),
+                torch.zeros((self.horizon, self.local_slots), dtype=torch.int32,
+                            device=self.device))
+        toks, counts = self._hz_verify[k]
+        self._hz_step.zero_()
+        body = functools.partial(self._verify_step, k, toks, counts)
         for _ in range(steps):
-            if self.spec_ngram_backoff:
-                draft = self.ngram_draft_backoff(hist, k, self.spec_ngram + 1, self.spec_ngram)
-            else:
-                draft = self.ngram_draft(hist, k, self.spec_ngram)
-            tokens_in = torch.cat([cur[:, None], draft], dim=1)
-            # the forward reads cache rows < pos and the fresh S tokens
-            # causally; -1 drafts run as 0 and are never accepted
-            logits, _ = llama.forward(self.params, self.cfg, torch.clamp(tokens_in, min=0),
-                                      cache=self.cache, cache_pos=pos, mesh=self.mesh)
-            b, s, v = logits.shape
-            # all k + 1 positions share the round-start penalty window (exact
-            # at repetition_penalty 1.0, which _spec_active requires)
-            sampled = self._taken_once(
-                lambda: sample_tokens(logits.reshape(b * s, v), self.sampling,
-                                      prev.repeat_interleave(s, dim=0),
-                                      generator=self.generator).reshape(b, s), (b, s),
-                over_tp=True)
-            good = (sampled[:, :k] == draft).to(torch.int32)
-            acc = torch.cumprod(good, dim=1).sum(dim=1)  # [B] in [0, k]
-            n_new = torch.where(active, acc + 1, 0).to(torch.int32)
-            cur = torch.where(active, sampled.gather(1, acc[:, None])[:, 0], 0)
-            pos = torch.clamp(pos + n_new, max=max_pos)
-            prev = self._var_append(prev, sampled, n_new)
-            hist = self._var_append(hist, sampled, n_new)
-            toks.append(sampled)
-            counts.append(n_new)
-        self.cur_tokens, self._lengths_dev = cur, pos
-        self.prev_tokens, self.history = prev, hist
-        return torch.stack(toks), torch.stack(counts)
+            self._step(("verify", k), body)
+        return toks[:steps], counts[:steps]
 
     # -- host scheduling ----------------------------------------------------
 
@@ -734,6 +875,8 @@ class Engine:
         new_len = next((b for b in self.cache_buckets if b >= needed), self.max_len)
         self.cache = grow_kv_cache(self.cache, new_len)
         self.growths.append((old, new_len))
+        if self._graphs is not None:
+            self._graphs.drop(old)
 
     def _spec_active(self) -> tuple:
         """(spec, probe) for one round, decided once a round. Custom per-slot
@@ -896,8 +1039,8 @@ class Engine:
                 steps = 1  # a cheap probe: one verify round
             dispatch_active = self.active.copy()
             if self._active_dirty:  # upload only when a slot changed
-                self._active_dev = torch.as_tensor(
-                    dispatch_active[self.slot0:self.slot0 + self.local_slots], device=self.device)
+                self._active_dev.copy_(torch.from_numpy(
+                    dispatch_active[self.slot0:self.slot0 + self.local_slots]))
                 self._active_dirty = False
             t0 = time.time()
             fetch, spec = self._dispatch_decode(steps, spec=spec_now, spec_k=spec_k_now)
@@ -990,9 +1133,11 @@ class Engine:
         group size (powers of two, distinct prompts so the dedup keeps every
         row), the full and tail horizons, each k of the adaptive ladder and,
         with grow_cache, one trajectory through every cache bucket. On the
-        card that builds the kernels' lazily made tables and plans and warms
-        the allocator. EOS and the speculative fallback are suspended for
-        the walk, and the counters are restored after it."""
+        card that builds the kernels' lazily made tables and plans, warms
+        the allocator and, on the graph route, captures every kind of step
+        (plain uniform and custom, each k's verify) at the last bucket. EOS
+        and the speculative fallback are suspended for the walk, and the
+        counters are restored after it."""
         t0 = time.time()
         plen = min(prompt_len, self.max_len // 2)
         saved = (self.eos, self.spec_min_accept, self._spec_ema, self._spec_last_rate,
@@ -1027,6 +1172,14 @@ class Engine:
                 self.generate(prompts(1), max_new_tokens=self.max_len - plen - 2)
                 for nbs in sizes:
                     self.generate(prompts(nbs), max_new_tokens=1)
+            if self._graphs is not None:
+                # growth dropped the smaller buckets' graphs (the cache never
+                # shrinks): one step of each kind over the idle slots captures
+                # it at the bucket traffic reads
+                for custom in (False, True):
+                    self._decode(1, custom)
+                for k in self.spec_k_ladder if self.spec_decode else ():
+                    self._spec_decode(1, k)
         finally:
             (self.eos, self.spec_min_accept, self._spec_ema, self._spec_last_rate,
              self._spec_off_rounds, self.spec_rounds, self.spec_tokens,

@@ -85,6 +85,16 @@ csrc/train_attention.cu; the `sass` phase prints it and fails unless every
 B8 tensor-core kernel (bf16, and the 3xTF32 forward, dkv and dq, alone and
 on the splits above D = 128) issues HGMMA, holds no HMMA (mma.sync) and
 spills nothing.
+Every Engine at mesh=None takes the engine's default route on the card: its
+decode steps and verify rounds replay captured CUDA graphs (the port's
+jitted horizons); each phase prints the routes its engines took and fails
+if one at mesh=None ran eagerly without asking (graphs=False: the eager
+twins). The end-to-end runs (A16 and A8), one speculative and one sampled
+serve run each have an eager twin on the same requests, whose tokens and
+launch counts must be equal bit for bit; the 7B's decode horizon is timed
+replayed and eager in turns, and a profiler trace of a replayed horizon
+must name B2 (B4 under A8) and B3. Warmup prints its captures, their
+seconds and the graphs' memory pool at each of the 7B's six buckets.
 Phases print one line each; any failure exits non-zero before the last
 line. The second-to-last line is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
@@ -196,6 +206,7 @@ Tolerances (kernel vs plain version on the same inputs):
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import math
@@ -300,6 +311,7 @@ PATH_STARTS = [n + 32 for n in REQ_LENS[-8:]]  # the steady decode step's slots:
 
 
 LOG = OUT_DIR / "chip_smoke.log"  # main() keeps every line here (a call returns only the tail)
+CARD = "not read"  # nvidia-smi's name and power limit, read in the card phase
 _log_lines: list = []
 
 
@@ -308,17 +320,47 @@ def say(msg: str) -> None:
     _log_lines.append(msg)
 
 
+_ROUTES: list = []  # (phase, route, why) of every Engine built in this process
+
+
+def record_routes() -> None:
+    """Wrap Engine.__init__ so that every engine a phase builds (inside the
+    port's modules too: teacher generation, eval, the method script) leaves
+    its route and why: "mesh", "twin" (graphs=False) or "default"."""
+    init = Engine.__init__
+
+    def recorded(self, *a, **kw):
+        init(self, *a, **kw)
+        why = ("mesh" if self.mesh is not None else "twin" if kw.get("graphs") is False
+               else "default")
+        _ROUTES.append((Phase.current, self.route, why))
+
+    Engine.__init__ = recorded
+
+
 class Phase:
+    current = ""
+
     def __init__(self, name: str):
         self.name = name
 
     def __enter__(self):
         self.t0 = time.time()
+        Phase.current = self.name
+        self.routes_at = len(_ROUTES)
         return self
 
     def __exit__(self, typ, exc, tb):
         if typ is None:
             torch.cuda.synchronize()
+            routes = _ROUTES[self.routes_at:]
+            if routes:
+                tally = collections.Counter(f"{route} ({why})" for _, route, why in routes)
+                say(f"[{self.name}] engine routes: "
+                    + ", ".join(f"{k} x{n}" for k, n in sorted(tally.items())))
+                if any(why == "default" and route != "graphs" for _, route, why in routes):
+                    raise AssertionError(f"[{self.name}] an engine at mesh=None did not take the "
+                                         f"graph route: {routes}")
             say(f"[{self.name}] ok in {time.time() - self.t0:.1f} s")
         else:
             say(f"[{self.name}] FAILED: {typ.__name__}: {exc}")
@@ -834,16 +876,18 @@ def device_busy_ms(step, n: int):
         for i in range(n):
             step(i)
         torch.cuda.synchronize()
-    per = {}
+    per, names = {}, set()
     for e in prof.key_averages():
         t = getattr(e, "self_device_time_total", 0.0)
         if e.device_type == torch.autograd.DeviceType.CUDA and t > 0:  # kernels, not ops
             per[e.key[:48]] = per.get(e.key[:48], 0.0) + t / 1e3 / n
+            names.add(e.key)
     if not per:
         return None
     top = sorted(per.items(), key=lambda kv: -kv[1])[:8]
     b8 = {k: v for k, v in per.items() if "train_attn" in k}  # B8's kernels, ms a step
-    return dict(busy_ms=sum(per.values()), top=top, b8=b8, b8_ms=sum(b8.values()))
+    return dict(busy_ms=sum(per.values()), top=top, b8=b8, b8_ms=sum(b8.values()),
+                kernels=sorted(names))
 
 
 COUNTERS = {  # name: (wrapper, its counter)
@@ -900,6 +944,51 @@ def time_prefill(params, cfg, tag, a8, out):
     del logits, kv
 
 
+HZ_STEPS, HZ_TURNS = 8, 4  # the engine's default horizon; turns a route
+
+
+def decode_turns(engines: dict, tag: str, a8: bool) -> dict:
+    """The engine's own decode horizon (8 steps of every slot, greedy, from
+    each engine's state after its run) on each route, host clock around a
+    synchronize, in turns (graphs, eager, graphs, ...; HZ_TURNS a route),
+    then one horizon of each profiled: device busy and idle share a step,
+    and the kernels the replayed horizon ran, which must name B2 (B4 and
+    its quantize pass under A8) and B3."""
+    need = (("quantize_rows_kernel", "qmm_a8_decode_kernel") if a8
+            else ("qmm_decode_stream_kernel",)) + ("fd_kernel",)
+    out = {route: dict(ms=[]) for route in engines}
+    for eng in engines.values():
+        eng._decode(HZ_STEPS, custom=False)  # each key's graph exists after the run already
+    for _ in range(HZ_TURNS):
+        for route, eng in engines.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng._decode(HZ_STEPS, custom=False)
+            torch.cuda.synchronize()
+            out[route]["ms"].append((time.perf_counter() - t0) * 1e3 / HZ_STEPS)
+    for route, eng in engines.items():
+        r = out[route]
+        r["step_ms"] = float(np.median(r["ms"]))
+        busy = device_busy_ms(lambda i, eng=eng: eng._decode(HZ_STEPS, custom=False), 1)
+        r["busy_ms"] = None if busy is None else busy["busy_ms"] / HZ_STEPS
+        r["idle_share"] = None if busy is None else 1 - r["busy_ms"] / r["step_ms"]
+        r["kernels"] = [] if busy is None else busy["kernels"]
+    missing = [k for k in need if not any(k in name for name in out["graphs"]["kernels"])]
+    g, e = out["graphs"], out["eager"]
+    say(f"decode horizon {tag} (8 slots, {HZ_STEPS} steps, {HZ_TURNS} turns a route, host clock; "
+        f"{CARD}): replayed {g['step_ms']:.3f} ms a step (turns "
+        + " / ".join(f"{x:.3f}" for x in g["ms"]) + f"), eager {e['step_ms']:.3f} (turns "
+        + " / ".join(f"{x:.3f}" for x in e["ms"]) + "); device busy "
+        + (f"{g['busy_ms']:.3f} / {e['busy_ms']:.3f} ms a step, idle share "
+           f"{g['idle_share']:.3f} replayed, {e['idle_share']:.3f} eager"
+           if g["busy_ms"] is not None and e["busy_ms"] is not None else "not measured")
+        + f"; the replayed trace names {[k for k in need if k not in missing]}")
+    if missing:
+        raise AssertionError(f"decode horizon {tag}: the trace of a replayed horizon lacks "
+                             f"{missing}: {out['graphs']['kernels']}")
+    return out
+
+
 def end_to_end(bw, out, a16_counts=None):
     """12 requests through the port's Engine on a random packed int2-g128
     7B (32 layers), then the steady decode step, its device idle share and
@@ -919,8 +1008,8 @@ def end_to_end(bw, out, a16_counts=None):
         eng = Engine(params, cfg, max_slots=8, max_len=2048, eos_token_id=None,
                      sampling=SamplingParams(temperature=0.0), grow_cache=False, device=DEV)
         rng = np.random.default_rng(0)
-        reqs = [Request(prompt_tokens=rng.integers(3, cfg.vocab_size, n).tolist(),
-                        max_new_tokens=32) for n in REQ_LENS]
+        prompts = [rng.integers(3, cfg.vocab_size, n).tolist() for n in REQ_LENS]
+        reqs = [Request(prompt_tokens=p, max_new_tokens=32) for p in prompts]
         torch.cuda.synchronize()
         reset_counts()
         t0 = time.time()
@@ -928,6 +1017,17 @@ def end_to_end(bw, out, a16_counts=None):
         torch.cuda.synchronize()
         wall = time.time() - t0
         counts = read_counts()
+        # the eager twin: the same requests through graphs=False
+        twin = Engine(eng.params, cfg, max_slots=8, max_len=2048, eos_token_id=None,
+                      sampling=SamplingParams(temperature=0.0), grow_cache=False, device=DEV,
+                      graphs=False)
+        twin_reqs = [Request(prompt_tokens=p, max_new_tokens=32) for p in prompts]
+        reset_counts()
+        t0 = time.time()
+        twin.run(twin_reqs)
+        torch.cuda.synchronize()
+        twin_wall = time.time() - t0
+        twin_counts = read_counts()
     finally:
         if saved is None:
             os.environ.pop(qm.A8_ENV, None)
@@ -959,6 +1059,20 @@ def end_to_end(bw, out, a16_counts=None):
         f"launches { {k: v for k, v in counts.items() if v} }, "
         f"wall {wall:.2f} s, "
         f"{sum(len(r.output_tokens) for r in reqs) / wall:.1f} generated tok/s end to end")
+    twin_same = [r.output_tokens for r in reqs] == [r.output_tokens for r in twin_reqs]
+    say(f"engine {tag} routes: {eng.route} ({len(eng._graphs.captured)} graphs captured in "
+        f"{eng._graphs.capture_s:.2f} s, {eng._graphs.replays} replays) beside its eager twin "
+        f"({twin.route}): tokens {'bit-equal' if twin_same else 'DIFFERENT'}, launches "
+        f"{'equal' if twin_counts == counts else f'DIFFERENT {twin_counts}'}; wall {wall:.2f} s "
+        f"replayed, {twin_wall:.2f} s eager")
+    if not twin_same or twin_counts != counts or eng.route != "graphs" or not eng._graphs.replays:
+        raise AssertionError(f"engine {tag}: the replayed run and its eager twin differ")
+    out["twin"] = dict(route=eng.route, graphs=len(eng._graphs.captured),
+                       capture_s=eng._graphs.capture_s, replays=eng._graphs.replays,
+                       wall_s=wall, twin_wall_s=twin_wall, tokens_equal=twin_same,
+                       launches_equal=twin_counts == counts)
+    out["horizon"] = decode_turns({"graphs": eng, "eager": twin}, tag, a8)
+    del twin
 
     # steady decode: all 8 slots at their final lengths, 8 timed steps
     pos = torch.as_tensor(np.minimum(eng.lengths, 2047 - 17), dtype=torch.int32, device=DEV)
@@ -3293,7 +3407,10 @@ PREFIX_LEN = 512
 PREFIX_TAILS = (16, 23, 30, 37, 44, 51, 58, 64)  # tail buckets 16, 32, 32, 64 x 5
 PREFIX_NEW = 16
 HTTP_REQUESTS, HTTP_CONCURRENCY, HTTP_NEW = 32, 16, 64
-WARMUP_LEN = 512  # the warmup walk's engine (a 2048 walk is about a minute of host-paced steps)
+# the warmup walks: the plain engine through the 7B's six buckets (to 2048 rows:
+# a replayed walk, where an eager one was about a minute of host-paced
+# steps), and a speculative one through four (its ladder's verify graphs)
+WARMUP_LEN, WARMUP_SPEC_LEN = 2048, 512
 CAPACITY_TOL = 1e-2  # serve_capacity's weights within 1% of the packed tree's bytes
 
 
@@ -3473,7 +3590,8 @@ def serve_phase(gen, bw, card, rec) -> dict:
 
     def engine(**kw):
         return Engine(params, cfg, max_slots=SERVE_SLOTS, max_len=kw.pop("max_len", SERVE_LEN),
-                      eos_token_id=None, sampling=SamplingParams(temperature=0.0), device=DEV,
+                      eos_token_id=None,
+                      sampling=kw.pop("sampling", SamplingParams(temperature=0.0)), device=DEV,
                       **kw)
 
     rng = np.random.default_rng(19)
@@ -3539,7 +3657,16 @@ def serve_phase(gen, bw, card, rec) -> dict:
             f"at M = 8(k+1) > 32); {sp['ms_per_token']:.3f} ms a generated token, plain "
             f"{plain['ms_per_token']:.3f}")
         plain_outs[name] = plain["outs"]
+        if name == "random":  # the replayed verify rounds beside their eager twin's
+            rec["spec"]["twin"] = twin_check(
+                sp, engine(spec_decode=True, spec_k=SPEC_LADDER[0], graphs=False), prompts,
+                f"serve spec {name}", card)
         del eng
+    # sampled streams: the replayed steps draw what the eager twin draws at one seed
+    sampled = dict(sampling=SamplingParams(temperature=0.8, top_p=0.9), seed=11)
+    sp = drive(engine(**sampled), rand, SERVE_NEW, "serve sampled")
+    rec["sampled"] = twin_check(sp, engine(graphs=False, **sampled), rand, "serve sampled",
+                                card)
     rec["spec"]["same_plain_streams"] = plain_outs["random"] == plain_outs["periodic"]
     say(f"serve spec: the plain streams of the random and the periodic prompts are "
         f"{'the same' if rec['spec']['same_plain_streams'] else 'different'}")
@@ -3577,6 +3704,8 @@ def serve_phase(gen, bw, card, rec) -> dict:
 
     rec["http"] = http_load(engine(), card)
     rec["warmup"] = warmup_run(engine(max_len=WARMUP_LEN), rand[0], card)
+    rec["warmup_spec"] = warmup_run(engine(max_len=WARMUP_SPEC_LEN, spec_decode=True), rand[0],
+                                    card)
     rec["capacity"] = capacity_check(params, live_slot_bytes, card)
     del params
     torch.cuda.empty_cache()
@@ -3638,20 +3767,63 @@ def http_load(eng, card) -> dict:
     return dict(summary, wall_s=wall, requests_per_s=len(jobs) / wall, launches=counts)
 
 
+def twin_check(run: dict, twin, prompts, what: str, card: str) -> dict:
+    """`run` (a drive of a replaying engine) beside the same requests through
+    its eager twin: tokens and launch counts must be equal bit for bit."""
+    other = drive(twin, prompts, SERVE_NEW, f"{what} eager twin")
+    same = other["outs"] == run["outs"]
+    say(f"{what} replayed vs its eager twin ({card}): tokens "
+        f"{'bit-equal' if same else 'DIFFERENT'}, launches "
+        f"{'equal' if other['launches'] == run['launches'] else 'DIFFERENT'}; "
+        f"{run['ms_per_token']:.3f} ms a generated token replayed, "
+        f"{other['ms_per_token']:.3f} eager")
+    if not same or other["launches"] != run["launches"]:
+        raise AssertionError(f"{what}: the replayed run and its eager twin differ")
+    return dict(ms_per_token=run["ms_per_token"], twin_ms_per_token=other["ms_per_token"],
+                tokens_equal=same, wall_s=run["wall_s"], twin_wall_s=other["wall_s"])
+
+
+def pool_bytes(pool) -> int:
+    """Bytes the caching allocator holds in one graph memory pool."""
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg["segment_pool_id"]) == tuple(pool))
+
+
 def warmup_run(eng, prompt, card) -> dict:
-    """Engine.warmup on an engine of WARMUP_LEN rows, then the first live
-    request's launches and wall time."""
+    """Engine.warmup, with the graphs' memory pool read after each capture
+    (by the cache length it was captured at), then the first live request's
+    launches and wall time: it must capture nothing."""
+    table, pools = eng._graphs, {}
+    capture = table.capture
+
+    def measured(graph, body):
+        capture(graph, body)
+        pools[eng._cache_len()] = pool_bytes(capture.pool)
+
+    table.capture = measured
     torch.cuda.synchronize()
     t0 = time.time()
     eng.warmup()
     torch.cuda.synchronize()
     warm_s = time.time() - t0
-    if eng._cache_len() != WARMUP_LEN or eng.active.any():
+    table.capture = capture
+    if eng._cache_len() != eng.max_len or eng.active.any():
         raise AssertionError("serve warmup did not walk every cache bucket")
+    captured = list(table.captured)
     first = drive(eng, [prompt], 32, "serve first request after warmup")
-    say(f"serve warmup ({card}): {warm_s:.2f} s (buckets {eng.cache_buckets}); first live "
-        f"request {first['wall_s'] * 1e3:.1f} ms, launches {first['launches']}")
-    return dict(seconds=warm_s, first={k: v for k, v in first.items() if k != "outs"})
+    say(f"serve warmup ({card}): {warm_s:.2f} s (buckets {eng.cache_buckets}"
+        f"{', speculative' if eng.spec_decode else ''}); {len(captured)} graphs captured in "
+        f"{table.capture_s:.2f} s, {len(table.graphs)} kept at {eng.max_len} rows "
+        f"({sorted(k[1:] for k in table.graphs)}); the graphs' pool by cache length "
+        + ", ".join(f"{t}: {b / 2**20:.1f} MiB" for t, b in sorted(pools.items()))
+        + f"; first live request {first['wall_s'] * 1e3:.1f} ms, launches "
+        f"{first['launches']}, {len(table.captured) - len(captured)} captures")
+    if table.captured != captured:
+        raise AssertionError(f"serve warmup: the first live request captured "
+                             f"{table.captured[len(captured):]}")
+    return dict(seconds=warm_s, graphs=len(captured), capture_s=table.capture_s,
+                kept=[list(k) for k in table.graphs], pool_bytes=pools,
+                first={k: v for k, v in first.items() if k != "outs"})
 
 
 def packed_bytes(tree) -> tuple[int, int]:
@@ -3852,7 +4024,7 @@ def tp_engine(params, cfg, mesh, dev) -> dict:
     outs = eng.generate(prompts, new)
     torch.cuda.synchronize()
     wall = time.time() - t0
-    return dict(prompts=prompts, outs=outs, launches=read_counts(), wall_s=wall,
+    return dict(prompts=prompts, outs=outs, launches=read_counts(), wall_s=wall, route=eng.route,
                 decode_steps=eng.decode_steps, prefills=eng.prefills,
                 growths=list(eng.growths), cache_len=eng._cache_len(),
                 cache_shape=list(eng.cache.k.shape))
@@ -4091,6 +4263,11 @@ def tp_phase(gen, bw, card, rec) -> dict:
         a16_err = max((r["decode"][0] - ref_logits).abs().max().item() for r in ranks)
         ties = tie_rule(whole, cfg, ref_engine["prompts"], ref_engine["outs"],
                         ranks[0]["engine"]["outs"], a16_err, "tp engine A16: tp = 2 vs one process")
+        routes = [r[k]["route"] for r in ranks for k in ("engine", "engine_a8")]
+        say(f"tp engine routes: the ranks' {routes} (under a mesh: eager), one process "
+            f"{ref_engine['route']} / {ref_engine_a8['route']}")
+        if set(routes) != {"eager"} or {ref_engine["route"], ref_engine_a8["route"]} != {"graphs"}:
+            raise AssertionError(f"tp engine: routes {routes}, one process {ref_engine['route']}")
         del whole
         os.environ["BITDISTILLER_TRAIN_FLASH"] = "1"
         params = init_params(TP_TRAIN_CFG, seed=0, dtype=torch.bfloat16, device=DEV)
@@ -4312,9 +4489,11 @@ def main() -> int:
 
 
 def run() -> int:
+    global CARD
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
+    record_routes()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device=DEV).manual_seed(0)
@@ -4340,6 +4519,7 @@ def run() -> int:
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
             capture_output=True, text=True, check=True,
         ).stdout.strip().splitlines()[0]
+        CARD = card
         say(card)
         n = 1 << 30
         src = torch.empty(n, dtype=torch.uint8, device=DEV)

@@ -103,6 +103,48 @@ def test_tiny_engine_runs_through_kernels(gen):
     assert (lk - lp).abs().max().item() <= 5e-2 * lp.abs().max().item()
 
 
+@pytest.mark.parametrize("mode", ["greedy", "spec", "sampled", "custom"])
+def test_replayed_steps_equal_eager_ones(gen, mode):
+    """The engine's default route on the card replays captured step graphs:
+    its tokens and launch counts equal its eager twin's (graphs=False) on
+    the same requests at the same seed, through growth (64 -> 128 -> 256
+    rows): greedy, speculative at every k of the ladder, sampled, and with
+    per-request sampling (the custom step)."""
+    from bitdistiller_tpu_torch.serve import Request
+    from bitdistiller_tpu_torch.serve import engine as engine_mod
+
+    cfg = dataclasses.replace(TINY_TEST, num_heads=4, num_kv_heads=2)
+    params = random_packed_params(cfg, bits=2, group_size=128, device="cuda")
+    sampled = mode in ("sampled", "custom")
+    prompts = [[1, 2, 3] * 4, [4, 5], [7] * 20, list(range(3, 100)), [9, 8, 9, 8]]
+
+    def run(graphs):
+        eng = Engine(params, cfg, max_slots=4, max_len=256, eos_token_id=None, seed=3,
+                     sampling=SamplingParams(temperature=0.8 if sampled else 0.0, top_p=0.9),
+                     spec_decode=mode == "spec", spec_adaptive_k=False, device="cuda",
+                     graphs=graphs)
+        before = [getattr(o, a) for o, a in engine_mod.LAUNCH_COUNTERS]
+        outs = []
+        for k in (engine_mod.SPEC_K_LADDER if mode == "spec" else (None,)):
+            if k is not None:
+                eng._spec_k_cur, eng.spec_min_accept = k, -1.0
+            reqs = [Request(prompt_tokens=p, max_new_tokens=40 if i != 3 else 70,
+                            sampling=(SamplingParams(temperature=0.5, top_k=20)
+                                      if mode == "custom" and i % 2 else None))
+                    for i, p in enumerate(prompts)]
+            eng.run(reqs)
+            outs.append([r.output_tokens for r in reqs])
+        counts = [getattr(o, a) - b for (o, a), b in zip(engine_mod.LAUNCH_COUNTERS, before)]
+        return eng, outs, counts
+
+    replayed, outs, counts = run(None)
+    twin, twin_outs, twin_counts = run(False)
+    assert (replayed.route, twin.route) == ("graphs", "eager")
+    assert outs == twin_outs and counts == twin_counts
+    assert replayed.growths == twin.growths == [(64, 128), (128, 256)]
+    assert replayed._graphs.replays > 0
+
+
 def _packed(gen, k, n, bits, layers=None, integer=True):
     lead = () if layers is None else (layers,)
     qw = torch.randint(-(2**31), 2**31 - 1, lead + (k * bits // 32, n), dtype=torch.int32,
