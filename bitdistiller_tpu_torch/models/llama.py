@@ -43,6 +43,7 @@ import functools
 import os
 from typing import Optional
 
+import numpy as np
 import torch
 from torch.utils.checkpoint import (
     CheckpointPolicy,
@@ -112,11 +113,19 @@ class KVCache:
         )
 
 
+# 1/127 rounded to f32: the JAX package's `amax / 127.0` compiles (XLA folds
+# the division by a constant) to a product with this constant, and its
+# engine quantizes the cache only inside compiled code (C10)
+_INV_127 = float(np.float32(1.0 / 127.0))
+
+
 def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Symmetric int8 per-token quantization along the trailing head_dim:
-    x [..., T, D] -> (codes int8 [..., T, D], scale f32 [..., T])."""
+    x [..., T, D] -> (codes int8 [..., T, D], scale f32 [..., T]). The scale
+    is the f32 product amax * f32(1/127), as the JAX package's compiled
+    program rounds it; the codes divide by it."""
     xf = x.to(torch.float32)
-    scale = torch.clamp(xf.abs().amax(dim=-1), min=1e-8) / 127.0
+    scale = torch.clamp(xf.abs().amax(dim=-1), min=1e-8) * _INV_127
     codes = torch.round(xf / scale[..., None])
     return codes.to(torch.int8), scale
 
@@ -449,6 +458,7 @@ def forward(
     kv_valid: Optional[torch.Tensor] = None,  # [B, T] bool: cache rows a slot may read
     attn_len: Optional[int] = None,  # the decode kernel reads only cache[:attn_len]
     return_kv: bool = False,
+    kv_out: Optional[KVCache] = None,
     logits_dtype=torch.float32,
     use_kernels: bool = True,
     quantizer=None,
@@ -471,7 +481,9 @@ def forward(
     attention replaces the causal attention where `train_flash_enabled` and
     the JAX package's rule allow (no ALiBi, no window). `attn_len` is
     dropped, as the JAX package drops it, at or above the cache length or
-    where the decode kernel is not taken.
+    where the decode kernel is not taken. `kv_out` (with `return_kv`): each
+    layer's fresh k and v are written into its layer of kv_out's [L, B, S,
+    Hkv, D] buffers as the layer runs, and kv_out is returned as the KV.
 
     `mesh` with tp > 1: `params` (and `cache`) are this rank's tp slice
     (`parallel.mesh.shard_params` / `shard_packed_model` by their specs:
@@ -506,13 +518,15 @@ def forward(
     h, fresh_k, fresh_v = _stack(
         cfg, lp, h, positions, start, range(cfg.num_layers), cache=cache, kv_valid=kv_valid,
         attn_len=attn_len, return_kv=return_kv, use_kernels=use_kernels, quantizer=quantizer,
-        attn_mask=attn_mask, remat=remat, use_train_flash=use_train_flash, tp_args=tp_args)
+        attn_mask=attn_mask, remat=remat, use_train_flash=use_train_flash, tp_args=tp_args,
+        kv_out=kv_out)
     out_cache = None
     if cache is not None:
         _write_back(cache, torch.stack(fresh_k), torch.stack(fresh_v), start, tokens.shape[1])
         out_cache = cache
     elif return_kv:
-        out_cache = KVCache(k=torch.stack(fresh_k), v=torch.stack(fresh_v))
+        out_cache = (kv_out if kv_out is not None
+                     else KVCache(k=torch.stack(fresh_k), v=torch.stack(fresh_v)))
     return _head(params, cfg, h, mesh, logits_dtype), out_cache
 
 
@@ -547,14 +561,15 @@ def _embed(params: dict, cfg: ModelConfig, tokens: torch.Tensor, cache_pos, mesh
 
 def _stack(cfg: ModelConfig, lp: dict, h, positions, start, layers: range, *, cache=None,
            kv_valid=None, attn_len=None, return_kv=False, use_kernels=True, quantizer=None,
-           attn_mask=None, remat=False, use_train_flash=None, tp_args=None):
+           attn_mask=None, remat=False, use_train_flash=None, tp_args=None, kv_out=None):
     """The decoder layers `layers` (global indices; `lp` holds exactly
     those, stacked from layer layers.start) on h [B, S, d], each through
     `_layer`, with what depends on the flags but not on the layer decided
     once: rope tables, windows, masks, ALiBi, the attention route. `cfg` is
     the rank's (tp_config'd) config; `tp_args` (mesh, row-parallel biases,
     ring) on a tp slice. Returns (h, each layer's fresh k, fresh v: the
-    attended ones with a cache or `return_kv`, else empty)."""
+    attended ones with a cache or `return_kv`, else empty; with `kv_out`
+    they go into its layers instead)."""
     b, s = h.shape[:2]
     dev = h.device
     cdt = torch_dtype(cfg.dtype)
@@ -632,7 +647,12 @@ def _stack(cfg: ModelConfig, lp: dict, h, positions, start, layers: range, *, ca
                 inner = functools.partial(flash_train_attention, attn_mask=attn_mask)
             else:
                 inner = functools.partial(causal_attention, mask=masks[window], bias=attn_bias)
-            if return_kv:
+            if return_kv and kv_out is not None:
+                def attend(q, k, v, inner=inner, li=li):
+                    kv_out.k[li].copy_(k)
+                    kv_out.v[li].copy_(v)
+                    return inner(q, k, v)
+            elif return_kv:
                 def attend(q, k, v, inner=inner):
                     fresh_k.append(k)
                     fresh_v.append(v)

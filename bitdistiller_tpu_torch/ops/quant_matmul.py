@@ -36,6 +36,14 @@ call and `qmm_a8.prefill_launches` the A8 calls above DECODE_MAX_M rows.
 
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
 launches a kernel or raises. There is no fallback from one to the other.
+
+`BITDISTILLER_QMM_MATERIALIZE_M=<M>` (the JAX package's experiment switch;
+the port adds none) sends a call of at least M rows of a pair-layout leaf
+through `quant_matmul_materialize`: the layer dequantized to bf16 once and
+one `torch.matmul`, on the CPU and on the card alike, as JAX computes it
+outside any Pallas kernel. It is there for parity with the JAX package: on
+an H100 it is slower than B1's prefill (PERF.md). The switch is read once
+(`materialize_min_m`).
 """
 
 from __future__ import annotations
@@ -50,7 +58,7 @@ import numpy as np
 import torch
 
 from .. import _device
-from ..quant.packing import _U32, PackedLinear, _to_int32, unpack_codes
+from ..quant.packing import _U32, PackedLinear, _to_int32, dequantize_linear, unpack_codes
 from . import _build
 
 DECODE_MAX_M = 32  # rows up to which the decode kernel runs; above, the prefill kernel
@@ -281,15 +289,54 @@ qmm_decode.launches = 0
 qmm_prefill.launches = 0
 
 
+MATERIALIZE_ENV = "BITDISTILLER_QMM_MATERIALIZE_M"  # the JAX package's switch
+
+
+@functools.cache
+def materialize_min_m() -> int:
+    """The JAX package's reading of its switch: unset or "" is 0 (off). Read
+    once, at the first packed matmul of the process
+    (`materialize_min_m.cache_clear()` reads it again). On the engine's
+    graph route the switch takes effect at capture only: a captured piece
+    replays the path it took then."""
+    return int(os.environ.get(MATERIALIZE_ENV, "0") or 0)
+
+
+def quant_matmul_materialize(x: torch.Tensor, p: PackedLinear,
+                             li: Optional[int] = None) -> torch.Tensor:
+    """The JAX package's `quant_matmul_materialize`: the whole weight (layer
+    `li` of a stacked leaf) dequantized to bf16 once, then one matmul in x's
+    dtype (an f32 x multiplies the bf16-rounded weight in f32, as JAX's
+    promotion does), the bias after it."""
+    layer = p if li is None else p.layer(li)
+    xf = x.reshape(-1, p.in_features)
+    w = dequantize_linear(layer).to(torch.bfloat16)
+    out = torch.matmul(xf, w.to(xf.dtype))
+    if layer.bias is not None:
+        out = out + layer.bias.to(out.dtype)
+    return out.reshape(*x.shape[:-1], p.out_features)
+
+
 def quant_matmul(x: torch.Tensor, p: PackedLinear, li: Optional[int] = None) -> torch.Tensor:
     """x [..., K] -> [..., N]. `li` selects layer li of a stacked PackedLinear
     (read in place through views). The JAX package's dispatch, with "Pallas"
-    read as "CUDA tensor": A8-ordered words always go to the A8 matmul; with
-    BITDISTILLER_QMM_A8 on, a pair-layout int2/int4 leaf on the card does too
-    (through a per-call permutation of x); everything else is A16."""
+    read as "CUDA tensor": A8-ordered words always go to the A8 matmul; then
+    a call of at least BITDISTILLER_QMM_MATERIALIZE_M rows (when set) to
+    `quant_matmul_materialize`; with BITDISTILLER_QMM_A8 on, a pair-layout
+    int2/int4 leaf on the card to the A8 matmul (through a per-call
+    permutation of x); everything else is A16. JAX also turns its stacked
+    TPU kernel off whenever the materialize switch is set (its block specs
+    would not fit VMEM beside it); the port does not mirror that: its
+    kernels read layer `li` of a stacked leaf in place at every M, so a
+    call below the threshold runs as it would without the switch."""
     k, n = p.in_features, p.out_features
     xf = x.reshape(-1, k).contiguous()
-    if p.a8_order or (_device.on_card(xf) and p.bits in A8_BITS and a8_enabled()):
+    if p.a8_order:
+        return quant_matmul_a8(x, p, li)
+    mm = materialize_min_m()
+    if mm and xf.shape[0] >= mm:
+        return quant_matmul_materialize(x, p, li)
+    if _device.on_card(xf) and p.bits in A8_BITS and a8_enabled():
         return quant_matmul_a8(x, p, li)
     if _device.on_card(xf):
         # index only what the kernel reads: this runs 4 times a layer a step

@@ -19,7 +19,7 @@ import torch
 
 from ..models.config import ModelConfig
 from ..models.llama import LAYER_LINEARS, param_table
-from .engine import CACHE_BUCKET_FACTOR
+from .engine import CACHE_BUCKET_FACTOR, graph_rows_bytes
 
 GiB = 1024**3
 
@@ -56,7 +56,8 @@ def kv_bytes_per_slot(cfg: ModelConfig, max_len: int, kv_dtype=torch.bfloat16) -
 def serve_capacity(cfg: ModelConfig, *, bits: int = 2, group_size: int = 128,
                    max_len: int = 2048, kv_dtype=torch.bfloat16, tp: int = 1,
                    hbm_bytes: Optional[int] = None, reserve_frac: float = 0.10,
-                   grow_cache: bool = True, prompt_cache_bytes: int = 0) -> dict:
+                   grow_cache: bool = True, prompt_cache_bytes: int = 0,
+                   graphs: bool = True) -> dict:
     """Max engine slots for one card (or a tp group: weights and KV heads
     divide by tp). `hbm_bytes` defaults to the current CUDA device's
     memory; without a card the caller passes it. `reserve_frac` holds
@@ -67,7 +68,12 @@ def serve_capacity(cfg: ModelConfig, *, bits: int = 2, group_size: int = 128,
     max_len peaks at (1 + 1/CACHE_BUCKET_FACTOR) of the full cache. Capacity-critical
     deployments pass grow_cache=False (Engine(grow_cache=False)) and plan
     against the flat full-size cache. Engine(prompt_cache_bytes=...) holds
-    device buffers on top of the slots: they come out of the budget."""
+    device buffers on top of the slots: they come out of the budget. So do,
+    with `graphs` at tp = 1 (the engine's graph route, its default on one
+    card), the rows a captured prefill writes (`engine.graph_rows_bytes`);
+    a mesh engine runs eagerly and holds none. The graphs' pool (a
+    captured piece's transients and last logits) is left to
+    `reserve_frac`, as the eager route's transients are."""
     if hbm_bytes is None:
         if not torch.cuda.is_available():
             raise RuntimeError("no CUDA device is available; pass hbm_bytes to plan "
@@ -77,10 +83,12 @@ def serve_capacity(cfg: ModelConfig, *, bits: int = 2, group_size: int = 128,
     per_slot = kv_bytes_per_slot(cfg, max_len, kv_dtype) // tp
     if grow_cache:
         per_slot = per_slot + per_slot // CACHE_BUCKET_FACTOR  # growth peak
-    budget = int(hbm_bytes * (1 - reserve_frac)) - weights - int(prompt_cache_bytes)
+    rows = graph_rows_bytes(cfg) if graphs and tp == 1 else 0
+    budget = int(hbm_bytes * (1 - reserve_frac)) - weights - int(prompt_cache_bytes) - rows
     slots = max(budget // per_slot, 0)
     return {
         "weights_bytes": weights,
+        "graph_rows_bytes": rows,
         "kv_bytes_per_slot": per_slot,
         "budget_bytes": budget,
         "max_slots": int(slots),

@@ -45,6 +45,27 @@ function of those buffers (`_plain_step`, `_verify_step`). Its route:
   * eager, on the CPU and under a mesh (whose collectives cannot be
     captured), or anywhere with graphs=False (the eager twin the card's
     checks compare with). graphs=True on the CPU or under a mesh raises.
+Admission, the JAX engine's jitted `_prefill`, `_insert` (cache donated) and
+`_admit_commit` (slot state donated) and its memoized tail prefill: each
+piece is a function of fixed buffers too, into which the host stages what
+varies (the padded prompt rows and last indices, the slots and prefill rows
+to insert, the group's logits, sampling vectors, lengths and history rows; a
+stored prompt's rows and its tail), on the same route and in the same table
+as the steps, keyed by ("prefill", bucket, nb), (cache length, "insert",
+source, ns), ("commit", group size, custom) and ("extend", entry bucket,
+tail bucket, temporary cache length) (`piece(key)` names a key's kind).
+Group sizes pad to powers of two as JAX's do: a padded commit row carries
+the out-of-range slot index and writes nothing, a padded insert row repeats
+the last real one. Growth stays host logic between prefill and insert and
+drops the insert graphs of the cache it replaced. A captured prefill writes
+its rows, and a captured tail prefill keeps its temporary cache, in one
+pair of engine-owned buffers of GRAPH_ROWS rows that every such key views
+(JAX's donation frees the same memory after each call): what a key keeps in
+the graphs' pool is its last logits. The rows are inserted and sliced, and
+the logits copied out, before anything else replays. A prefill of more than
+GRAPH_ROWS rows (group x bucket), and its insert, run eagerly on either
+route: their launch overhead is a few per cent of their device time, and a
+graph would pin their rows.
 A horizon's tokens go to pinned host memory without blocking, and the host
 waits on a CUDA event recorded after the copy. The JAX engine's
 `pipeline_rounds` (round k + 1 dispatched before round k is read) is not
@@ -93,7 +114,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from .._device import on_card, resolve_device
+from .._device import on_card, resolve_device, torch_dtype
 from ..models import llama
 from ..models.config import ModelConfig
 from ..models.llama import KVCache, quantize_kv
@@ -110,6 +131,14 @@ SPEC_HISTORY = 512
 SPEC_K_LADDER = (4, 7, 11)
 SPEC_STEP_COST = 0.09
 CACHE_BUCKET_FACTOR = 2
+
+# the most prefill rows (group x bucket; a tail prefill's temporary cache
+# length) an admission piece runs from a graph with: the engine-owned row
+# buffers hold that many (`graph_rows_bytes`)
+GRAPH_ROWS = 2048
+# the kinds of graph key `piece` reads: the steps', the admission's pieces'
+STEP_PIECES = ("uniform", "custom", "verify")
+ADMISSION_PIECES = ("prefill", "insert", "commit", "extend")
 
 # the launch counters of the wrappers a step can reach: a replay calls no
 # wrapper, so the graph table adds what each graph's capture counted
@@ -197,6 +226,21 @@ def grow_kv_cache(cache: KVCache, new_len: int) -> KVCache:
                    v_scale=one(cache.v_scale))
 
 
+def piece(key: tuple) -> str:
+    """A graph key's kind: one of STEP_PIECES or ADMISSION_PIECES."""
+    return key[0] if isinstance(key[0], str) else key[1]
+
+
+def graph_rows_bytes(cfg: ModelConfig, tp: int = 1) -> int:
+    """Bytes of the engine-owned rows a captured prefill writes (k and v,
+    GRAPH_ROWS rows of every layer at the rank's kv heads, in the model's
+    dtype): what the graph route holds beyond the cache, the weights and the
+    graphs' pool."""
+    itemsize = torch.empty((), dtype=torch_dtype(cfg.dtype)).element_size()
+    return (2 * cfg.num_layers * GRAPH_ROWS * (cfg.num_kv_heads // tp) * cfg.actual_head_dim
+            * itemsize)
+
+
 class _Fetch:
     """Device tensors on their way to the host. On the card each is copied
     into pinned host memory without blocking and an event is recorded after
@@ -223,43 +267,58 @@ class _Fetch:
 
 
 class _GraphTable:
-    """Captured step graphs by key, (cache length, mode...). A key's first
-    use runs the step eagerly, so that what the kernels make at first use
-    (kmap tables, the TMA encoder, cluster checks, cuBLAS workspaces) exists
-    before the capture, and then captures it; every later use replays the
-    graph. A capture launches nothing, so the launch counters are set back
-    after it, and each replay adds the deltas the capture recorded.
-    `new_graph()` and `capture(graph, body)` are torch.cuda's on the card
-    (`_cuda_capture`)."""
+    """Captured graphs by key, (cache length, mode...) or (piece, shape...).
+    A key's first use runs the body eagerly, so that what the kernels make
+    at first use (kmap tables, the TMA encoder, cluster checks, cuBLAS
+    workspaces) exists before the capture, and then captures it; every
+    later use replays the graph. A body either writes the engine's buffers
+    (returns None) or returns a tuple of tensors: the captured ones are the
+    graph's outputs, which every replay rewrites in place and `run` returns
+    (at the first use, holding the eager run's values). A capture launches
+    nothing, so the launch counters are set back after it, and each replay
+    adds the deltas the capture recorded. `new_graph()` and
+    `capture(graph, body)` (which returns the body's outputs) are
+    torch.cuda's on the card (`_cuda_capture`)."""
 
     def __init__(self, new_graph, capture, counters=LAUNCH_COUNTERS):
         self.new_graph, self.capture, self.counters = new_graph, capture, counters
-        self.graphs: dict = {}  # key -> (graph, counter deltas)
+        self.graphs: dict = {}  # key -> (graph, counter deltas, outputs)
         self.captured: list = []  # every key captured, in order
         self.capture_s = 0.0
         self.replays = 0
+        self.replayed: collections.Counter = collections.Counter()  # replays by key
 
-    def run(self, key, body) -> None:
+    def run(self, key, body):
         entry = self.graphs.get(key)
         if entry is not None:
-            graph, deltas = entry
+            graph, deltas, outs = entry
             graph.replay()
             self.replays += 1
+            self.replayed[key] += 1
             for (obj, attr), d in zip(self.counters, deltas):
                 if d:
                     setattr(obj, attr, getattr(obj, attr) + d)
-            return
-        body()
+            return outs
+        first = body()
         before = [getattr(obj, attr) for obj, attr in self.counters]
         graph = self.new_graph()
         t0 = time.perf_counter()
-        self.capture(graph, body)
+        outs = self.capture(graph, body)
         self.capture_s += time.perf_counter() - t0
         deltas = tuple(getattr(obj, attr) - b for (obj, attr), b in zip(self.counters, before))
         for (obj, attr), b in zip(self.counters, before):
             setattr(obj, attr, b)
-        self.graphs[key] = (graph, deltas)
+        if outs is not None:  # later uses read the graph's outputs: give them the eager values
+            for dst, src in zip(outs, first):
+                dst.copy_(src)
+        self.graphs[key] = (graph, deltas, outs)
         self.captured.append(key)
+        return outs
+
+    def count(self, pieces) -> tuple:
+        """(keys captured, replays) of the keys whose kind is in `pieces`."""
+        return (sum(piece(k) in pieces for k in self.captured),
+                sum(n for k, n in self.replayed.items() if piece(k) in pieces))
 
     def drop(self, cache_len: int) -> None:
         """Forget the graphs of a cache that growth replaced."""
@@ -269,8 +328,8 @@ class _GraphTable:
 
 def _cuda_capture(generator: torch.Generator):
     """capture(graph, body) on the card: every graph of an engine in one
-    memory pool (`capture.pool`; the graphs replay one at a time and each
-    leaves its results in the engine's buffers), with the engine's
+    memory pool (`capture.pool`; the graphs replay one at a time, and what
+    one returns is read before another replays), with the engine's
     generator registered, so that a replay draws what the eager step would
     at the same generator state."""
     pool = torch.cuda.graph_pool_handle()
@@ -278,10 +337,18 @@ def _cuda_capture(generator: torch.Generator):
     def capture(graph, body):
         graph.register_generator_state(generator)
         with torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local"):
-            body()
+            return body()
 
     capture.pool = pool
     return capture
+
+
+def _set_rows(buf: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor) -> None:
+    """buf[idx[i]] = vals[i] in place; an index of len(buf) writes nothing
+    (JAX's scatter with mode="drop", through a spare row)."""
+    ext = torch.cat([buf, buf[:1]])
+    ext.index_copy_(0, idx, vals.to(buf.dtype))
+    buf.copy_(ext[:-1])
 
 
 class Engine:
@@ -346,12 +413,21 @@ class Engine:
         self.cache_buckets = _buckets(max_len, factor=CACHE_BUCKET_FACTOR)
         dev = self.device
         first_len = self.cache_buckets[0] if grow_cache else max_len
+        self.cache_cfg = cache_cfg  # the rank's: its kv heads
         self.cache = KVCache.init(cache_cfg, local, first_len, cache_dtype, device=dev)
         self.generator = torch.Generator(device=dev).manual_seed(seed)
-        # the step's route: "graphs" (replayed from `_graphs`) or "eager"
+        # the steps' and the admission's route: "graphs" (replayed from
+        # `_graphs`) or "eager"
         self.route = "graphs" if graphs else "eager"
         self._graphs = (_GraphTable(torch.cuda.CUDAGraph, _cuda_capture(self.generator))
                         if graphs else None)
+        self._staged: dict = {}  # (name, shape, dtype) -> an admission's fixed input buffer
+        # a captured prefill's rows, a captured tail prefill's temporary
+        # cache: (k, v) flat, GRAPH_ROWS rows, made at the first such piece
+        self._rows: Optional[tuple] = None
+        # the prefill's start on the device: a Python 0 would be copied from
+        # the host inside the captured forward
+        self._zero_pos = torch.zeros((), dtype=torch.int64, device=dev)
 
         # prompt cache: tuple(prompt) -> (KV [L, 1, Pb, H, D] in the prefill
         # layout and dtype, last logits [V], prompt length). A byte budget
@@ -461,45 +537,120 @@ class Engine:
 
     # -- device pieces ------------------------------------------------------
 
-    @torch.inference_mode()
-    def _prefill(self, tokens: torch.Tensor, last_idx: torch.Tensor):
-        """[nb, S] prompts -> last-position logits [nb, V], KV [L, nb, S, H, D]."""
-        self.prefills += 1
-        logits, kv = llama.forward(self.params, self.cfg, tokens, return_kv=True,
-                                   mesh=self.mesh)
-        last = logits[torch.arange(tokens.shape[0], device=tokens.device), last_idx]
-        return last, kv
+    def _buf(self, name: str, shape: tuple, dtype) -> torch.Tensor:
+        """An admission's input buffer, allocated once by (name, shape,
+        dtype): the host stages into it, and a captured piece reads its
+        address."""
+        key = (name, tuple(shape), dtype)
+        buf = self._staged.get(key)
+        if buf is None:
+            buf = self._staged[key] = torch.zeros(shape, dtype=dtype, device=self.device)
+        return buf
+
+    def _run(self, key: tuple, body):
+        """One step or admission piece on the engine's route: `body()`
+        eagerly, or the graph of `key`."""
+        if self._graphs is None:
+            return body()
+        return self._graphs.run(key, body)
+
+    def _step(self, key: tuple, body) -> None:
+        """One decode step: the graph of (cache length,) + key."""
+        self._run((self._cache_len(),) + key, body)
+
+    def _row_views(self, rows: int, shape: tuple) -> Optional[tuple]:
+        """(k, v) views of `shape` over the first `rows` of the engine-owned
+        row buffers, or None where the piece runs eagerly: on the eager
+        route, and past GRAPH_ROWS rows."""
+        if self._graphs is None or rows > GRAPH_ROWS:
+            return None
+        if self._rows is None:
+            cfg = self.cache_cfg
+            n = GRAPH_ROWS * cfg.num_layers * cfg.num_kv_heads * cfg.actual_head_dim
+            self._rows = tuple(torch.zeros(n, dtype=torch_dtype(cfg.dtype), device=self.device)
+                               for _ in range(2))
+        n = int(np.prod(shape))
+        return tuple(b[:n].view(shape) for b in self._rows)
+
+    def _stage_kv(self, kv: KVCache) -> KVCache:
+        """A stored prompt's rows [L, 1, P, H, D] copied into the fixed
+        buffer of their shape, which a hit's insert and a tail prefill read."""
+        k = self._buf("stage_k", kv.k.shape, kv.k.dtype)
+        v = self._buf("stage_v", kv.v.shape, kv.v.dtype)
+        k.copy_(kv.k)
+        v.copy_(kv.v)
+        return KVCache(k=k, v=v)
 
     @torch.inference_mode()
-    def _insert(self, kv: KVCache, slots: list, rows: list) -> None:
+    def _prefill(self, padded: np.ndarray, last_idx: np.ndarray):
+        """[nb, S] prompts -> (last-position logits [nb, V], KV [L, nb, S, H,
+        D], the insert's source: None where the KV is not at a fixed
+        address). The rows are staged into the (S, nb) buffers; on the graph
+        route, up to GRAPH_ROWS rows, the key's graph writes the KV into the
+        engine-owned rows and returns the logits, read before another piece
+        replays."""
+        nb, s = padded.shape
+        tokens = self._buf("prefill_tokens", (nb, s), torch.int64)
+        last = self._buf("prefill_last", (nb,), torch.int64)
+        tokens.copy_(torch.from_numpy(padded))
+        last.copy_(torch.from_numpy(last_idx))
+        self.prefills += 1
+        cfg = self.cache_cfg
+        out = self._row_views(nb * s, (cfg.num_layers, nb, s, cfg.num_kv_heads,
+                                       cfg.actual_head_dim))
+        if out is None:
+            logits, k, v = self._prefill_body(tokens, last, None)
+            return logits, KVCache(k=k, v=v), None
+        kv = KVCache(k=out[0], v=out[1])
+        (logits,) = self._run(("prefill", s, nb),
+                              lambda: self._prefill_body(tokens, last, kv)[:1])
+        return logits, kv, ("prefill", s, nb)
+
+    def _prefill_body(self, tokens: torch.Tensor, last_idx: torch.Tensor, kv_out) -> tuple:
+        logits, kv = llama.forward(self.params, self.cfg, tokens, cache_pos=self._zero_pos,
+                                   return_kv=True, kv_out=kv_out, mesh=self.mesh)
+        v = logits.shape[-1]
+        last = logits.gather(1, last_idx[:, None, None].expand(-1, 1, v))[:, 0]
+        return last, kv.k, kv.v
+
+    @torch.inference_mode()
+    def _insert(self, kv: KVCache, source: Optional[tuple], slots: list, rows: list) -> None:
         """Write prefill rows [0, S) into the slots' cache planes, transposed
         to head-major [L, H, S, D] (quantized for an int8 cache); on a mesh
         only the rank's own slots. Rows past a prompt's length hold padding
-        and stay masked by the slot's position (t < cache_pos)."""
+        and stay masked by the slot's position (t < cache_pos). `source`
+        names kv's fixed buffer (a prefill key's rows, or the staging of a
+        stored prompt) in the piece's key: (cache length, "insert") + source
+        + (ns,), the (slot, row) pairs padded to ns, a power of two, by
+        repeating the last pair (the same bytes to the same rows again,
+        which leaves the cache as if the padding wrote nothing); None (kv at
+        no fixed address) runs it eagerly."""
+        pairs = [(slot - self.slot0, row) for slot, row in zip(slots, rows) if self._mine(slot)]
+        if not pairs:
+            return
+        ns = min(_pow2_at_least(len(pairs)), self.local_slots)
+        pairs += [pairs[-1]] * (ns - len(pairs))
+        idx = self._buf("insert_rows", (2, ns), torch.int64)
+        idx.copy_(torch.as_tensor(pairs, dtype=torch.int64).T)
+        body = functools.partial(self._insert_body, kv, idx)
+        if source is None:
+            body()
+        else:
+            self._run((self._cache_len(), "insert") + source + (ns,), body)
+
+    def _insert_body(self, kv: KVCache, idx: torch.Tensor) -> None:
+        slots, rows = idx[0], idx[1]
         nk = kv.k.permute(0, 1, 3, 2, 4)  # [L, nb, H, S, D]
         nv = kv.v.permute(0, 1, 3, 2, 4)
         s = nk.shape[3]
-        ks = vs = None
-        if self.cache.quantized:
+        c = self.cache
+        if c.quantized:
             nk, ks = quantize_kv(nk)
             nv, vs = quantize_kv(nv)
-        for slot, row in zip(slots, rows):
-            if not self._mine(slot):
-                continue
-            slot -= self.slot0
-            self.cache.k[:, slot, :, :s] = nk[:, row].to(self.cache.k.dtype)
-            self.cache.v[:, slot, :, :s] = nv[:, row].to(self.cache.v.dtype)
-            if ks is not None:
-                self.cache.k_scale[:, slot, :, :s] = ks[:, row]
-                self.cache.v_scale[:, slot, :, :s] = vs[:, row]
-
-    def _step(self, key: tuple, body) -> None:
-        """One step on the engine's route: `body()` eagerly, or the graph of
-        (cache length,) + key."""
-        if self._graphs is None:
-            body()
-        else:
-            self._graphs.run((self._cache_len(),) + key, body)
+            c.k_scale[:, :, :, :s].index_copy_(1, slots, ks.index_select(1, rows))
+            c.v_scale[:, :, :, :s].index_copy_(1, slots, vs.index_select(1, rows))
+        c.k[:, :, :, :s].index_copy_(1, slots, nk.index_select(1, rows).to(c.k.dtype))
+        c.v[:, :, :, :s].index_copy_(1, slots, nv.index_select(1, rows).to(c.v.dtype))
 
     def _check_steps(self, steps: int) -> None:
         if not 1 <= steps <= self.horizon:
@@ -671,7 +822,11 @@ class Engine:
     @staticmethod
     def _slice_entry(kv: KVCache, last_logits: torch.Tensor, row: int, pb: int):
         """One prefill row cut to its own length bucket, as a prompt cache
-        entry's (KV [L, 1, pb, H, D], last logits [V])."""
+        entry's (KV [L, 1, pb, H, D], last logits [V]). It stays eager on
+        every route: the slice is the copy that takes the row out of the
+        prefill's rows (on the graph route the engine-owned ones, which the
+        next prefill overwrites), which a captured slice would have to
+        repeat."""
         return (KVCache(k=kv.k[:, row:row + 1, :pb].clone(), v=kv.v[:, row:row + 1, :pb].clone()),
                 last_logits[row].clone())
 
@@ -681,7 +836,12 @@ class Engine:
         cached: a one-row temporary cache holds the stored rows, one forward
         runs the tail (padded to its tail bucket) against it, and the
         combined rows come back in the prefill layout with the tail's last
-        logits: the form of an exact-hit entry."""
+        logits: the form of an exact-hit entry. The stored rows, the tail,
+        its start and its last index are staged into fixed buffers; the
+        piece's key is (entry bucket, tail bucket, temporary cache length),
+        as JAX memoizes its jit. On the graph route (a temporary cache of up
+        to GRAPH_ROWS rows) that cache is the engine-owned rows, and the
+        results are copied out of them and of the graph's pool at once."""
         tail_len = len(tail)
         tb = next(b for b in self.tail_buckets if b >= tail_len)
         # the temporary cache covers the prefix plus the PADDED tail: the
@@ -689,19 +849,40 @@ class Engine:
         # cache would move the tail's rows over the prefix
         tc_len = next((b for b in self.buckets if b >= pfx_len + tb), self.max_len)
         self.prefix_extends.append(tb)
-        L, _, pb, h, d = ekv.k.shape
-        dev = ekv.k.device
-        temp = KVCache(k=torch.zeros((L, 1, h, tc_len, d), dtype=ekv.k.dtype, device=dev),
-                       v=torch.zeros((L, 1, h, tc_len, d), dtype=ekv.v.dtype, device=dev))
-        temp.k[:, :, :, :pb] = ekv.k.permute(0, 1, 3, 2, 4)
-        temp.v[:, :, :, :pb] = ekv.v.permute(0, 1, 3, 2, 4)
+        stage = self._stage_kv(ekv)
+        tokens = self._buf("extend_tail", (1, tb), torch.int64)
+        start = self._buf("extend_start", (1,), torch.int32)
+        last = self._buf("extend_last", (1,), torch.int64)
         padded = torch.zeros((1, tb), dtype=torch.int64)
         padded[0, :tail_len] = torch.as_tensor(tail, dtype=torch.int64)
-        logits, _ = llama.forward(self.params, self.cfg, padded.to(dev), cache=temp,
-                                  cache_pos=torch.full((1,), pfx_len, dtype=torch.int32,
-                                                       device=dev), mesh=self.mesh)
-        kv = KVCache(k=temp.k.permute(0, 1, 3, 2, 4), v=temp.v.permute(0, 1, 3, 2, 4))
-        return kv, logits[0, tail_len - 1], pfx_len + tail_len
+        tokens.copy_(padded)
+        start.fill_(pfx_len)
+        last.fill_(tail_len - 1)
+        L, _, pb, h, d = ekv.k.shape
+        shape = (L, 1, h, tc_len, d)
+        temp = self._row_views(tc_len, shape)
+        if temp is None:
+            temp = tuple(torch.empty(shape, dtype=ekv.k.dtype, device=ekv.k.device)
+                         for _ in range(2))
+            (logits,) = self._extend_body(stage, tokens, start, last, temp)
+        else:
+            (logits,) = self._run(("extend", pb, tb, tc_len), functools.partial(
+                self._extend_body, stage, tokens, start, last, temp))
+        k, v = (t.permute(0, 1, 3, 2, 4).clone() for t in temp)
+        return (KVCache(k=k, v=v), logits.clone(), pfx_len + tail_len)
+
+    def _extend_body(self, ekv: KVCache, tokens, start, last_idx, temp: tuple) -> tuple:
+        """The tail's forward over the temporary cache `temp` (k, v [L, 1,
+        H, T, D]), zeroed and then holding the stored rows; returns the
+        tail's last logits (1-tuple)."""
+        pb = ekv.k.shape[2]
+        cache = KVCache(k=temp[0], v=temp[1])
+        for t, rows in zip(temp, (ekv.k, ekv.v)):
+            t.zero_()
+            t[:, :, :, :pb] = rows.permute(0, 1, 3, 2, 4)
+        logits, _ = llama.forward(self.params, self.cfg, tokens, cache=cache, cache_pos=start,
+                                  mesh=self.mesh)
+        return (logits[0].index_select(0, last_idx)[0],)
 
     def _lookup(self, reqs: list, keys: list) -> dict:
         """Prompt cache hits of an admission group: {request index: (KV,
@@ -739,7 +920,6 @@ class Engine:
         their stored rows) and sample its first token (on the device;
         returned unsynced)."""
         t0 = time.time()
-        dev = self.device
         n = len(reqs)
         # truncate from the left so the cache never overflows
         plens = [min(len(r.prompt_tokens), self.max_len - 1) for r in reqs]
@@ -761,10 +941,10 @@ class Engine:
             for k, row in uniq.items():
                 padded[row, :len(k)] = k
                 last_idx[row] = len(k) - 1
-            miss_last, kv = self._prefill(torch.from_numpy(padded).to(dev),
-                                          torch.from_numpy(last_idx).to(dev))
+            miss_last, kv, source = self._prefill(padded, last_idx)
+            miss_last = miss_last.clone()  # out of the graph pool before another replay
             self._ensure_cache(bucket)  # the prefill rows must fit the buffer
-            self._insert(kv, [slots[i] for i in row_of], list(row_of.values()))
+            self._insert(kv, source, [slots[i] for i in row_of], list(row_of.values()))
             if self.prompt_cache_size:
                 for i in row_of:
                     if reqs[i].cache_prompt and keys[i] not in self._prompt_cache:
@@ -774,52 +954,13 @@ class Engine:
             del kv
         for i, (ekv, _, _) in hits.items():
             self._ensure_cache(ekv.k.shape[2])
-            self._insert(ekv, [slots[i]], [0])
+            self._insert(self._stage_kv(ekv), ("stage",) + tuple(ekv.k.shape[1:3]), [slots[i]],
+                         [0])
         last_logits = torch.stack([hits[i][1] if i in hits else miss_last[row_of[i]]
                                    for i in range(n)])
-
-        eff = [r.sampling or self.sampling for r in reqs]
-        g_temps = torch.as_tensor([s.temperature for s in eff], dtype=torch.float32, device=dev)
-        g_top_ks = torch.as_tensor([s.top_k for s in eff], dtype=torch.int32, device=dev)
-        g_top_ps = torch.as_tensor([s.top_p for s in eff], dtype=torch.float32, device=dev)
-        g_rep_pens = torch.as_tensor([s.repetition_penalty for s in eff], dtype=torch.float32,
-                                     device=dev)
         for r, slot in zip(reqs, slots):
             self._slot_custom[slot] = r.sampling is not None
-        # a new slot's penalty window is empty
-        fresh = torch.full((n, self.prev_tokens.shape[1]), -1, dtype=torch.int32, device=dev)
-        if any(r.sampling is not None for r in reqs):
-            sample = lambda: sample_tokens_batched(last_logits, g_temps, g_top_ks, g_top_ps,
-                                                   g_rep_pens, fresh, generator=self.generator)
-        else:
-            sample = lambda: sample_tokens(last_logits, self.sampling, fresh,
-                                           generator=self.generator)
-        firsts = self._taken_once(sample, (n,), over_tp=False)
-        # the speculative history: prompt tail ++ first token, right-aligned
-        hw = self.history.shape[1]
-        hist_rows = np.full((n, hw), -2, np.int32)
-        for i, (r, pl) in enumerate(zip(reqs, plens)):
-            tail = r.prompt_tokens[-min(pl, hw):]
-            hist_rows[i, -len(tail):] = tail
-        mine = [i for i, slot in enumerate(slots) if self._mine(slot)]
-        if mine:  # the rank's own slots take their rows of the group's state
-            sel = torch.as_tensor(mine, dtype=torch.int64, device=dev)
-            slot_t = torch.as_tensor([slots[i] - self.slot0 for i in mine], dtype=torch.int64,
-                                     device=dev)
-            self._temps[slot_t] = g_temps[sel]
-            self._top_ks[slot_t] = g_top_ks[sel]
-            self._top_ps[slot_t] = g_top_ps[sel]
-            self._rep_pens[slot_t] = g_rep_pens[sel]
-            # the first token joins the window so decode's penalty sees it
-            self.prev_tokens[slot_t] = fresh[sel]
-            self.prev_tokens[slot_t, -1] = firsts[sel]
-            self.cur_tokens[slot_t] = firsts[sel]
-            self._lengths_dev[slot_t] = torch.as_tensor([plens[i] for i in mine],
-                                                        dtype=torch.int32, device=dev)
-            self._active_dev[slot_t] = True
-            self.history[slot_t] = torch.cat(
-                [torch.from_numpy(hist_rows[mine, 1:]).to(dev),
-                 firsts[sel, None].to(torch.int32)], dim=1)
+        firsts = self._commit(last_logits, reqs, slots, plens)
         dt = time.time() - t0
         for req, slot, plen in zip(reqs, slots, plens):
             req.prefill_time = dt
@@ -828,6 +969,74 @@ class Engine:
             self._len_ub[slot] = plen
             self.active[slot] = True
         return firsts
+
+    def _commit(self, last_logits: torch.Tensor, reqs: list, slots: list, plens: list):
+        """Every per-slot write of an admission group and its first tokens,
+        in one piece (JAX's `_admit_commit`), keyed by (group size padded to
+        a power of two, custom sampling): the group's logits, sampling
+        vectors, lengths and history rows (prompt tail, right-aligned) are
+        staged into the key's buffers, padded rows repeating the last row
+        with JAX's out-of-range slot index, which writes nothing (so do
+        another rank's slots on a mesh). Every row is sampled, the padded
+        ones too, so the generator draws alike on both routes. Returns the
+        group's first tokens [n] on the device (the key's output buffer)."""
+        n = len(reqs)
+        npad = _pow2_at_least(n)
+        hw = self.history.shape[1]
+        eff = [r.sampling or self.sampling for r in reqs]
+        custom = any(r.sampling is not None for r in reqs)
+        # int64 columns: slot (local index; local_slots writes nothing), top_k,
+        # length, then the history row
+        ints = np.full((npad, 3 + hw), -2, np.int64)
+        floats = np.zeros((npad, 3), np.float32)  # temperature, top_p, repetition penalty
+        for i in range(npad):
+            j = min(i, n - 1)
+            s, r, pl = eff[j], reqs[j], plens[j]
+            mine = i < n and self._mine(slots[i])
+            ints[i, :3] = (slots[i] - self.slot0 if mine else self.local_slots, s.top_k, pl)
+            tail = r.prompt_tokens[-min(pl, hw):]
+            ints[i, 3 + hw - len(tail):] = tail
+            floats[i] = (s.temperature, s.top_p, s.repetition_penalty)
+        logits = self._buf("commit_logits", (npad, last_logits.shape[1]), last_logits.dtype)
+        ints_t = self._buf("commit_ints", ints.shape, torch.int64)
+        floats_t = self._buf("commit_floats", floats.shape, torch.float32)
+        firsts = self._buf("commit_firsts", (npad,), torch.int32)
+        logits[:n].copy_(last_logits)
+        logits[n:].copy_(last_logits[-1:].expand(npad - n, -1))
+        ints_t.copy_(torch.from_numpy(ints))
+        floats_t.copy_(torch.from_numpy(floats))
+        self._run(("commit", npad, custom),
+                        functools.partial(self._commit_body, logits, ints_t, floats_t, firsts,
+                                          custom))
+        return firsts[:n]
+
+    def _commit_body(self, logits, ints, floats, firsts, custom: bool) -> None:
+        npad = logits.shape[0]
+        slot = ints[:, 0]
+        top_ks, plens = ints[:, 1].to(torch.int32), ints[:, 2].to(torch.int32)
+        hist = ints[:, 3:].to(torch.int32)
+        temps, top_ps, rep_pens = floats[:, 0], floats[:, 1], floats[:, 2]
+        # a new slot's penalty window is empty
+        fresh = torch.full((npad, self.prev_tokens.shape[1]), -1, dtype=torch.int32,
+                           device=logits.device)
+        if custom:
+            sample = lambda: sample_tokens_batched(logits, temps, top_ks, top_ps, rep_pens, fresh,
+                                                   generator=self.generator)
+        else:
+            sample = lambda: sample_tokens(logits, self.sampling, fresh, generator=self.generator)
+        first = self._taken_once(sample, (npad,), over_tp=False)
+        firsts.copy_(first)
+        _set_rows(self._temps, slot, temps)
+        _set_rows(self._top_ks, slot, top_ks)
+        _set_rows(self._top_ps, slot, top_ps)
+        _set_rows(self._rep_pens, slot, rep_pens)
+        # the first token joins the window so decode's penalty sees it
+        _set_rows(self.prev_tokens, slot, torch.cat([fresh[:, 1:], first[:, None]], dim=1))
+        _set_rows(self.cur_tokens, slot, first)
+        _set_rows(self._lengths_dev, slot, plens)
+        _set_rows(self._active_dev, slot, torch.ones_like(first, dtype=torch.bool))
+        # the speculative history: prompt tail ++ first token, right-aligned
+        _set_rows(self.history, slot, torch.cat([hist[:, 1:], first[:, None]], dim=1))
 
     def _finish(self, slot: int, req: Request, reason: str) -> None:
         req.finished = True
@@ -1135,7 +1344,10 @@ class Engine:
         with grow_cache, one trajectory through every cache bucket. On the
         card that builds the kernels' lazily made tables and plans, warms
         the allocator and, on the graph route, captures every kind of step
-        (plain uniform and custom, each k's verify) at the last bucket. EOS
+        (plain uniform and custom, each k's verify) at the last bucket, and
+        the admission pieces of each group size at the prompt length's
+        bucket: prefill, commit (uniform and custom) and, at the first and
+        the last cache bucket, insert. EOS
         and the speculative fallback are suspended for the walk, and the
         counters are restored after it."""
         t0 = time.time()
@@ -1180,6 +1392,10 @@ class Engine:
                     self._decode(1, custom)
                 for k in self.spec_k_ladder if self.spec_decode else ():
                     self._spec_decode(1, k)
+                # the commit of a group with per-request sampling, each size
+                for nbs in sizes:
+                    self.run([Request(prompt_tokens=p, max_new_tokens=1, sampling=self.sampling)
+                              for p in prompts(nbs)])
         finally:
             (self.eos, self.spec_min_accept, self._spec_ema, self._spec_last_rate,
              self._spec_off_rounds, self.spec_rounds, self.spec_tokens,

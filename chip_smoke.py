@@ -268,7 +268,8 @@ from bitdistiller_tpu_torch.scripts import bw_probe, loadtest
 from bitdistiller_tpu_torch.scripts.dryrun_multichip import dryrun as tp_dryrun
 from bitdistiller_tpu_torch.serve import Engine, Request, SamplingParams
 from bitdistiller_tpu_torch.serve.capacity import serve_capacity
-from bitdistiller_tpu_torch.serve.engine import grow_kv_cache
+from bitdistiller_tpu_torch.serve.engine import (ADMISSION_PIECES, GRAPH_ROWS, STEP_PIECES,
+                                                 graph_rows_bytes, grow_kv_cache, piece)
 from bitdistiller_tpu_torch.serve.server import ServingFrontend
 from bitdistiller_tpu_torch.train import pipeline
 from bitdistiller_tpu_torch.train import trainer as tr
@@ -326,14 +327,16 @@ _ROUTES: list = []  # (phase, route, why) of every Engine built in this process
 def record_routes() -> None:
     """Wrap Engine.__init__ so that every engine a phase builds (inside the
     port's modules too: teacher generation, eval, the method script) leaves
-    its route and why: "mesh", "twin" (graphs=False) or "default"."""
+    its route, its admission's route ("graphs" when its prefill, insert,
+    commit and tail prefill replay, else "eager") and why: "mesh", "twin"
+    (graphs=False) or "default"."""
     init = Engine.__init__
 
     def recorded(self, *a, **kw):
         init(self, *a, **kw)
         why = ("mesh" if self.mesh is not None else "twin" if kw.get("graphs") is False
                else "default")
-        _ROUTES.append((Phase.current, self.route, why))
+        _ROUTES.append((Phase.current, f"{self.route}, admission {self.route}", why))
 
     Engine.__init__ = recorded
 
@@ -358,7 +361,8 @@ class Phase:
                 tally = collections.Counter(f"{route} ({why})" for _, route, why in routes)
                 say(f"[{self.name}] engine routes: "
                     + ", ".join(f"{k} x{n}" for k, n in sorted(tally.items())))
-                if any(why == "default" and route != "graphs" for _, route, why in routes):
+                if any(why == "default" and route != "graphs, admission graphs"
+                       for _, route, why in routes):
                     raise AssertionError(f"[{self.name}] an engine at mesh=None did not take the "
                                          f"graph route: {routes}")
             say(f"[{self.name}] ok in {time.time() - self.t0:.1f} s")
@@ -944,6 +948,58 @@ def time_prefill(params, cfg, tag, a8, out):
     del logits, kv
 
 
+MATERIALIZE_M = 256  # A15's switch for the check: every matmul of an 8 x 512 prefill crosses it
+MATERIALIZE_TOL = LOGIT_TOL  # last logits, relative to the largest: bf16 weights either way
+MATERIALIZE_TURNS = 3
+
+
+def materialize_check(params, cfg, out):
+    """A15 on the 7B: one 8 x 512 prefill with BITDISTILLER_QMM_MATERIALIZE_M
+    = 256 (every packed matmul dequantizes its layer to bf16 once and runs
+    torch.matmul; no B1 launch, counts reset just before and read just
+    after), its last logits held against the default path's (B1) within
+    MATERIALIZE_TOL of the largest, and both timed in turns (`route_turns`:
+    host clock around a synchronize, then device busy)."""
+    b, s = 8, 512
+    g = torch.Generator(device=DEV).manual_seed(15)
+    tokens = torch.randint(3, cfg.vocab_size, (b, s), device=DEV, generator=g)
+    saved = os.environ.get(qm.MATERIALIZE_ENV)
+
+    def prefill(materialize):
+        os.environ[qm.MATERIALIZE_ENV] = str(MATERIALIZE_M) if materialize else ""
+        qm.materialize_min_m.cache_clear()  # the switch is read once until cleared
+        try:
+            with torch.inference_mode():
+                logits, _ = forward(params, cfg, tokens, return_kv=True)
+            return logits[:, -1].float()
+        finally:
+            if saved is None:
+                os.environ.pop(qm.MATERIALIZE_ENV, None)
+            else:
+                os.environ[qm.MATERIALIZE_ENV] = saved
+            qm.materialize_min_m.cache_clear()
+
+    ref = prefill(False)
+    torch.cuda.synchronize()
+    reset_counts()
+    got = prefill(True)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in read_counts().items() if v}
+    t = route_turns({"materialized": lambda: prefill(True), "B1": lambda: prefill(False)},
+                    MATERIALIZE_TURNS)
+    err = (got - ref).abs().max().item()
+    top = ref.abs().max().item()
+    agree = (got.argmax(-1) == ref.argmax(-1)).float().mean().item()
+    out["materialize"] = dict(switch=MATERIALIZE_M, launches=counts, max_abs_err=err, logit_max=top,
+                              argmax_agreement=agree, turns=t, tol=MATERIALIZE_TOL)
+    say(f"materialize A15 ({CARD}): 8 x 512 prefill with BITDISTILLER_QMM_MATERIALIZE_M="
+        f"{MATERIALIZE_M}: launches {counts}; last logits vs B1's max|d| {err:.4g} of {top:.4g} "
+        f"(tol {MATERIALIZE_TOL} relative), argmax agreement {agree:.3f}; "
+        + turns_text(t, ("materialized", "B1")))
+    if counts.get("qmm_prefill") or counts.get("qmm_a8") or not err <= MATERIALIZE_TOL * top:
+        raise AssertionError("materialize A15: a B1 launch under the switch, or logits off B1's")
+
+
 HZ_STEPS, HZ_TURNS = 8, 4  # the engine's default horizon; turns a route
 
 
@@ -1060,15 +1116,20 @@ def end_to_end(bw, out, a16_counts=None):
         f"wall {wall:.2f} s, "
         f"{sum(len(r.output_tokens) for r in reqs) / wall:.1f} generated tok/s end to end")
     twin_same = [r.output_tokens for r in reqs] == [r.output_tokens for r in twin_reqs]
-    say(f"engine {tag} routes: {eng.route} ({len(eng._graphs.captured)} graphs captured in "
-        f"{eng._graphs.capture_s:.2f} s, {eng._graphs.replays} replays) beside its eager twin "
-        f"({twin.route}): tokens {'bit-equal' if twin_same else 'DIFFERENT'}, launches "
+    table = eng._graphs
+    steps_n, steps_r = table.count(STEP_PIECES)
+    adm_n, adm_r = table.count(ADMISSION_PIECES)
+    kinds = sorted({piece(k) for k in table.captured if piece(k) in ADMISSION_PIECES})
+    say(f"engine {tag} routes: {eng.route} ({steps_n} step graphs captured, {steps_r} "
+        f"replays), admission graphs ({adm_n} pieces of {kinds} captured, {adm_r} replays; "
+        f"{table.capture_s:.2f} s of capture in all) beside its eager twin ({twin.route}): tokens "
+        f"{'bit-equal' if twin_same else 'DIFFERENT'}, launches "
         f"{'equal' if twin_counts == counts else f'DIFFERENT {twin_counts}'}; wall {wall:.2f} s "
         f"replayed, {twin_wall:.2f} s eager")
-    if not twin_same or twin_counts != counts or eng.route != "graphs" or not eng._graphs.replays:
+    if not twin_same or twin_counts != counts or eng.route != "graphs" or not steps_r:
         raise AssertionError(f"engine {tag}: the replayed run and its eager twin differ")
-    out["twin"] = dict(route=eng.route, graphs=len(eng._graphs.captured),
-                       capture_s=eng._graphs.capture_s, replays=eng._graphs.replays,
+    out["twin"] = dict(route=eng.route, graphs=steps_n, capture_s=table.capture_s,
+                       replays=steps_r, admission_pieces=adm_n, admission_replays=adm_r,
                        wall_s=wall, twin_wall_s=twin_wall, tokens_equal=twin_same,
                        launches_equal=twin_counts == counts)
     out["horizon"] = decode_turns({"graphs": eng, "eager": twin}, tag, a8)
@@ -1125,6 +1186,8 @@ def end_to_end(bw, out, a16_counts=None):
     if not err <= LOGIT_TOL * ref:  # NaN fails too
         raise AssertionError("decode step logits disagree with the plain path")
     time_prefill(params, cfg, tag, a8, out)
+    if not a8:
+        materialize_check(params, cfg, out)
     out.update(
         requests=len(reqs), decode_steps=steps, launches=counts, wall_s=wall,
         decode_ms_per_step=ms_step, decode_tok_per_s=8 / ms_step * 1e3,
@@ -3684,23 +3747,32 @@ def serve_phase(gen, bw, card, rec) -> dict:
                              f"{len(tails)}, tail buckets {eng.prefix_extends}")
     full = drive(engine(), prompts, PREFIX_NEW, "serve prefix full prefill")
     entry = eng._prompt_cache[tuple(prefix)]
-    tail_ms = {len(t): cuda_ms(lambda i, t=t: eng._extend_prefix(entry[0], PREFIX_LEN, t), 3)
-               for t in (tails[0], tails[-1])}
-    one = torch.zeros((1, 1024), dtype=torch.int64, device=DEV)  # the prompt in its bucket
-    one[0, :len(prompts[-1])] = torch.as_tensor(prompts[-1], device=DEV)
-    last_idx = torch.as_tensor([len(prompts[-1]) - 1], device=DEV)
-    full_ms = cuda_ms(lambda i: eng._prefill(one, last_idx), 3)
+    twin = engine(prompt_cache_size=4, graphs=False)
+    one = np.zeros((1, 1024), np.int64)  # the prompt in its bucket
+    one[0, :len(prompts[-1])] = prompts[-1]
+    last_idx = np.asarray([len(prompts[-1]) - 1], np.int64)
+    tail_t = {len(t): route_turns({r: (lambda e=e, t=t: e._extend_prefix(entry[0], PREFIX_LEN, t))
+                                   for r, e in (("replayed", eng), ("eager", twin))})
+              for t in (tails[0], tails[-1])}
+    full_t = route_turns({r: (lambda e=e: e._prefill(one, last_idx))
+                          for r, e in (("replayed", eng), ("eager", twin))})
+    tail_ms = {n: t["replayed"]["median_ms"] for n, t in tail_t.items()}
+    full_ms = full_t["replayed"]["median_ms"]
     rec["prefix"] = dict(hits=eng.prompt_cache_prefix_hits, tail_buckets=eng.prefix_extends[:8],
                          launches=hit["launches"], tail_prefill_ms=tail_ms,
-                         full_prefill_ms=full_ms, wall_s=hit["wall_s"], full_wall_s=full["wall_s"],
+                         full_prefill_ms=full_ms, tail_turns=tail_t, full_turns=full_t,
+                         wall_s=hit["wall_s"], full_wall_s=full["wall_s"],
                          ties=tie_rule(params, cfg, prompts, full["outs"], hit["outs"], delta,
                                        "serve prefix extension vs full prefill",
                                        (full["cache_len"], hit["cache_len"])))
     say(f"serve prefix ({card}): {eng.prompt_cache_prefix_hits}/{len(tails)} prefix hits, tail "
         f"buckets {eng.prefix_extends[:8]}, launches {hit['launches']}; tail prefill "
-        + ", ".join(f"{n} tokens {ms:.3f} ms" for n, ms in tail_ms.items())
-        + f" beside a full {len(prompts[-1])}-token prefill {full_ms:.3f} ms (bucket 1024)")
-    del eng, entry
+        + ", ".join(f"{n} tokens {turns_text(t)}" for n, t in tail_t.items())
+        + f" beside a full {len(prompts[-1])}-token prefill (bucket 1024) {turns_text(full_t)}")
+    del eng, twin, entry
+
+    rec["admission"] = admission_times(params, cfg, rng, card)
+    rec["same_key"] = same_key_check(params, cfg, rng, card)
 
     rec["http"] = http_load(engine(), card)
     rec["warmup"] = warmup_run(engine(max_len=WARMUP_LEN), rand[0], card)
@@ -3710,6 +3782,194 @@ def serve_phase(gen, bw, card, rec) -> dict:
     del params
     torch.cuda.empty_cache()
     return verify_t
+
+
+ADMIT_TURNS = 4  # turns a route of each admission timing
+ADMIT_GROUPS = ((8, 64), (1, 512))  # (prompts, tokens) of the timed admissions
+# the graphs' pool after admissions at every bucket and group: about one
+# 2048-row prefill's transients (its plain attention's f32 scores), which
+# every captured piece reuses; a pool holding each key's rows would pass 20 GiB
+ADMIT_POOL_LIMIT = 4 * 2**30
+
+
+def route_turns(calls: dict, turns: int = ADMIT_TURNS) -> dict:
+    """Each route's call (route -> fn) once, then timed on the host clock
+    around a synchronize in turns (replayed, eager, replayed, ...), then one
+    call of each profiled: the median ms, device busy and idle share a
+    call."""
+    for fn in calls.values():
+        fn()
+    ms = {route: [] for route in calls}
+    for _ in range(turns):
+        for route, fn in calls.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ms[route].append((time.perf_counter() - t0) * 1e3)
+    out = {}
+    for route, fn in calls.items():
+        med = float(np.median(ms[route]))
+        busy = device_busy_ms(lambda i, fn=fn: fn(), 1)
+        out[route] = dict(ms=ms[route], median_ms=med,
+                          busy_ms=None if busy is None else busy["busy_ms"],
+                          idle_share=None if busy is None else 1 - busy["busy_ms"] / med)
+    return out
+
+
+def turns_text(t: dict, routes=("replayed", "eager")) -> str:
+    def one(r):
+        busy = ("busy not measured" if r["busy_ms"] is None
+                else f"busy {r['busy_ms']:.3f}, idle share {r['idle_share']:.3f}")
+        return (f"{r['median_ms']:.3f} ms (turns " + " / ".join(f"{x:.3f}" for x in r["ms"])
+                + f"; {busy})")
+
+    return ", ".join(f"{route} {one(t[route])}" for route in routes)
+
+
+def admit_once(eng, prompts) -> list:
+    """One admission group of `prompts` into slots 0.. (prefill, insert,
+    commit), its first tokens read on the host as `run` reads them; the
+    slots are freed after."""
+    reqs = [Request(prompt_tokens=list(p), max_new_tokens=1) for p in prompts]
+    slots = list(range(len(prompts)))
+    firsts = eng._admit_group(reqs, slots).cpu().tolist()
+    for slot in slots:
+        eng.active[slot] = False
+        eng.slot_req[slot] = None
+    eng._active_dirty = True
+    return firsts
+
+
+def admission_times(params, cfg, rng, card) -> dict:
+    """A3h on the 7B (8 slots, a 2048-row static cache): an admission of 8
+    prompts of 64 tokens and one of a 512-token prompt, replayed against
+    the eager twin in turns, their first tokens equal; then one admission
+    at every prompt bucket and group size (a prompt of the bucket's length
+    a slot), first tokens equal to the twin's, with the graphs' pool read
+    after each bucket: the pool must stay within ADMIT_POOL_LIMIT, since
+    every captured prefill writes the engine-owned rows and keeps only its
+    last logits, and a prefill past GRAPH_ROWS rows runs eagerly."""
+    eng = Engine(params, cfg, max_slots=SERVE_SLOTS, max_len=SERVE_LEN, eos_token_id=None,
+                 sampling=SamplingParams(temperature=0.0), grow_cache=False, device=DEV)
+    twin = Engine(params, cfg, max_slots=SERVE_SLOTS, max_len=SERVE_LEN, eos_token_id=None,
+                  sampling=SamplingParams(temperature=0.0), grow_cache=False, device=DEV,
+                  graphs=False)
+    out = {}
+    for n, length in ADMIT_GROUPS:
+        prompts = [rng.integers(3, cfg.vocab_size, length).tolist() for _ in range(n)]
+        firsts = {r: admit_once(e, prompts) for r, e in (("replayed", eng), ("eager", twin))}
+        if firsts["replayed"] != firsts["eager"]:
+            raise AssertionError(f"admission {n} x {length}: first tokens {firsts}")
+        t = route_turns({r: (lambda e=e: admit_once(e, prompts))
+                         for r, e in (("replayed", eng), ("eager", twin))})
+        out[f"{n}x{length}"] = t
+        say(f"admission {n} x {length} (7B, prefill + insert + commit + the first tokens' read; "
+            f"{card}): {turns_text(t)}")
+    table = eng._graphs
+    pool = table.capture.pool
+    out["timed_pool_bytes"] = pool_bytes(pool)
+    sizes = [nb for nb in (1, 2, 4, 8) if nb <= SERVE_SLOTS]
+    by_bucket, eager_prefills, peaks = {}, [], {}
+    for bucket in eng.buckets:
+        for nb in sizes:
+            prompts = [rng.integers(3, cfg.vocab_size, bucket).tolist() for _ in range(nb)]
+            firsts = []
+            for route, e in (("replayed", eng), ("eager", twin)):
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                firsts.append(admit_once(e, prompts))
+                torch.cuda.synchronize()
+                # the admission's transient beyond what was held before it
+                # (a capture's allocations come from the graphs' pool)
+                peaks[f"{route} {nb}x{bucket}"] = torch.cuda.max_memory_allocated() - base
+            if firsts[0] != firsts[1]:
+                raise AssertionError(f"admission {nb} x {bucket}: first tokens {firsts}")
+            if ("prefill", bucket, nb) not in table.graphs:
+                eager_prefills.append((nb, bucket))
+        by_bucket[bucket] = pool_bytes(pool)
+    rows = sum(t.nbytes for t in eng._rows)
+    adm_n, adm_r = table.count(ADMISSION_PIECES)
+    out.update(pieces=[list(k) for k in table.captured], capture_s=table.capture_s,
+               pool_bytes_by_bucket=by_bucket, pool_bytes=by_bucket[eng.buckets[-1]],
+               eager_prefills=eager_prefills, rows_bytes=rows,
+               graph_rows_bytes=graph_rows_bytes(cfg), admission_pieces=adm_n,
+               admission_replays=adm_r, peak_transient_bytes=peaks)
+    say(f"admission sweep ({card}): every bucket {eng.buckets} x groups {sizes}, first tokens "
+        f"equal to the eager twin's; {adm_n} admission pieces captured ({adm_r} replays, "
+        f"{table.capture_s:.2f} s of capture), prefills past GRAPH_ROWS = {GRAPH_ROWS} rows "
+        f"eager {eager_prefills}; the graphs' pool after the timed admissions "
+        f"{out['timed_pool_bytes'] / 2**20:.1f} MiB, after each bucket "
+        + ", ".join(f"{b}: {v / 2**20:.1f}" for b, v in by_bucket.items())
+        + f" MiB; the engine-owned prefill rows {rows / 2**20:.1f} MiB (capacity counts "
+        f"{graph_rows_bytes(cfg) / 2**20:.1f}); an admission's peak transient, on the graph "
+        f"route (a key's first use: its eager run and its capture) / the eager twin, by "
+        f"bucket (the largest group): "
+        + ", ".join(f"{b}: {peaks[f'replayed {sizes[-1]}x{b}'] / 2**30:.2f} / "
+                    f"{peaks[f'eager {sizes[-1]}x{b}'] / 2**30:.2f} GiB" for b in eng.buckets))
+    if (out["pool_bytes"] > ADMIT_POOL_LIMIT or rows != graph_rows_bytes(cfg)
+            or any(nb * b <= GRAPH_ROWS for nb, b in eager_prefills)):
+        raise AssertionError(f"admission sweep: pool {out['pool_bytes']} bytes (limit "
+                             f"{ADMIT_POOL_LIMIT}), rows {rows}, eager {eager_prefills}")
+    del eng, twin
+    torch.cuda.empty_cache()
+    return out
+
+
+def same_key_check(params, cfg, rng, card) -> dict:
+    """Two admissions at one key into other slots with other prompts, each
+    equal to the eager twin, A16 and then A8 (BITDISTILLER_QMM_A8=1 for that
+    run only, the weights repacked once: the replayed prefills run B4 over
+    the CUtensorMaps encoded at capture): on a 2-slot 7B engine, W alone
+    takes slot 0 (the group-of-1 pieces captured), X and Y share a group, Y
+    finishes and Z takes slot 1 (replayed), then U takes slot 0 (replayed
+    again); tokens and launch counts of every stream against
+    graphs=False."""
+    runs = [[(64, 4)], [(64, 24), (64, 2), (64, 8)], [(64, 8)]]
+    runs = [[(rng.integers(3, cfg.vocab_size, n).tolist(), new) for n, new in run] for run in runs]
+    out = {}
+    for tag in ("A16", "A8"):
+        saved = os.environ.get(qm.A8_ENV)
+        os.environ[qm.A8_ENV] = "1" if tag == "A8" else "0"
+        try:
+            weights = qm.maybe_repack_a8(params)
+            got = {}
+            for route, graphs in (("replayed", None), ("eager", False)):
+                eng = Engine(weights, cfg, max_slots=2, max_len=512, eos_token_id=None,
+                             sampling=SamplingParams(temperature=0.0), grow_cache=False,
+                             device=DEV, graphs=graphs)
+                torch.cuda.synchronize()
+                reset_counts()
+                outs = []
+                for run in runs:
+                    reqs = [Request(prompt_tokens=p, max_new_tokens=new) for p, new in run]
+                    eng.run(reqs)
+                    outs.append([r.output_tokens for r in reqs])
+                torch.cuda.synchronize()
+                got[route] = (outs, read_counts(), eng)
+        finally:
+            if saved is None:
+                os.environ.pop(qm.A8_ENV, None)
+            else:
+                os.environ[qm.A8_ENV] = saved
+        outs, counts, eng = got["replayed"]
+        table = eng._graphs
+        ones = [k for k in table.captured if k in (("prefill", 64, 1), ("commit", 1, False))]
+        replays = sum(table.replayed[k] for k in ones)
+        same = outs == got["eager"][0] and counts == got["eager"][1]
+        a8_ok = (counts["qmm_a8_prefill"] > 0) == (tag == "A8")
+        say(f"serve same-key admissions {tag} ({card}): the group-of-1 pieces {ones} captured "
+            f"once and replayed into slot 1, then slot 0, with other prompts ({replays} "
+            f"replays of them; B4 prefill launches {counts['qmm_a8_prefill']}): tokens and "
+            f"launches {'equal to' if same else 'DIFFERENT from'} the eager twin's")
+        if not same or len(ones) != 2 or replays < 4 or not a8_ok:
+            raise AssertionError(f"serve same-key admissions {tag}: {outs} vs "
+                                 f"{got['eager'][0]}, {counts} vs {got['eager'][1]}")
+        out[tag] = dict(tokens_equal=same, replays=replays, launches=counts,
+                        captured=[list(k) for k in table.captured])
+        del got, eng, weights
+    return out
 
 
 HTTP_TEXT = "the quick brown fox jumps over the lazy dog while the cat sleeps by the warm fire "
@@ -3791,14 +4051,16 @@ def pool_bytes(pool) -> int:
 
 def warmup_run(eng, prompt, card) -> dict:
     """Engine.warmup, with the graphs' memory pool read after each capture
-    (by the cache length it was captured at), then the first live request's
+    (decode steps by the cache length they were captured at, admission
+    pieces by key: the pool's growth each), then the first live request's
     launches and wall time: it must capture nothing."""
-    table, pools = eng._graphs, {}
-    capture = table.capture
+    table = eng._graphs
+    capture, pools = table.capture, []
 
     def measured(graph, body):
-        capture(graph, body)
-        pools[eng._cache_len()] = pool_bytes(capture.pool)
+        outs = capture(graph, body)
+        pools.append(pool_bytes(capture.pool))
+        return outs
 
     table.capture = measured
     torch.cuda.synchronize()
@@ -3810,19 +4072,31 @@ def warmup_run(eng, prompt, card) -> dict:
     if eng._cache_len() != eng.max_len or eng.active.any():
         raise AssertionError("serve warmup did not walk every cache bucket")
     captured = list(table.captured)
+    growth, prev = {}, 0
+    for k, b in zip(captured, pools):
+        growth[k] = b - prev
+        prev = b
+    by_key = {str(k): b for k, b in growth.items() if piece(k) in ADMISSION_PIECES}
+    steps_by_len = {k[0]: b for k, b in zip(captured, pools) if piece(k) in STEP_PIECES}
+    steps = [k for k in captured if piece(k) in STEP_PIECES]
+    kept = list(table.graphs)
     first = drive(eng, [prompt], 32, "serve first request after warmup")
     say(f"serve warmup ({card}): {warm_s:.2f} s (buckets {eng.cache_buckets}"
-        f"{', speculative' if eng.spec_decode else ''}); {len(captured)} graphs captured in "
-        f"{table.capture_s:.2f} s, {len(table.graphs)} kept at {eng.max_len} rows "
-        f"({sorted(k[1:] for k in table.graphs)}); the graphs' pool by cache length "
-        + ", ".join(f"{t}: {b / 2**20:.1f} MiB" for t, b in sorted(pools.items()))
-        + f"; first live request {first['wall_s'] * 1e3:.1f} ms, launches "
-        f"{first['launches']}, {len(table.captured) - len(captured)} captures")
+        f"{', speculative' if eng.spec_decode else ''}); {len(steps)} step graphs "
+        f"and {len(captured) - len(steps)} admission pieces captured in "
+        f"{table.capture_s:.2f} s, {len(kept)} kept "
+        f"({sorted(map(str, kept))}); the graphs' pool by cache length after the steps "
+        + ", ".join(f"{t}: {b / 2**20:.1f} MiB" for t, b in sorted(steps_by_len.items()))
+        + f", {prev / 2**20:.1f} MiB in all; its growth by admission piece "
+        + ", ".join(f"{k}: {b / 2**20:.1f} MiB" for k, b in by_key.items())
+        + f"; first live request {first['wall_s'] * 1e3:.1f} ms, launches {first['launches']}, "
+        f"{len(table.captured) - len(captured)} captures")
     if table.captured != captured:
         raise AssertionError(f"serve warmup: the first live request captured "
                              f"{table.captured[len(captured):]}")
-    return dict(seconds=warm_s, graphs=len(captured), capture_s=table.capture_s,
-                kept=[list(k) for k in table.graphs], pool_bytes=pools,
+    return dict(seconds=warm_s, graphs=len(steps), admission_pieces=len(captured) - len(steps),
+                capture_s=table.capture_s, kept=[list(k) for k in kept],
+                pool_bytes=steps_by_len, pool_growth_by_key=by_key, pool_bytes_total=prev,
                 first={k: v for k, v in first.items() if k != "outs"})
 
 
@@ -4024,7 +4298,8 @@ def tp_engine(params, cfg, mesh, dev) -> dict:
     outs = eng.generate(prompts, new)
     torch.cuda.synchronize()
     wall = time.time() - t0
-    return dict(prompts=prompts, outs=outs, launches=read_counts(), wall_s=wall, route=eng.route,
+    route = f"{eng.route}, admission {eng.route}"
+    return dict(prompts=prompts, outs=outs, launches=read_counts(), wall_s=wall, route=route,
                 decode_steps=eng.decode_steps, prefills=eng.prefills,
                 growths=list(eng.growths), cache_len=eng._cache_len(),
                 cache_shape=list(eng.cache.k.shape))
@@ -4266,7 +4541,8 @@ def tp_phase(gen, bw, card, rec) -> dict:
         routes = [r[k]["route"] for r in ranks for k in ("engine", "engine_a8")]
         say(f"tp engine routes: the ranks' {routes} (under a mesh: eager), one process "
             f"{ref_engine['route']} / {ref_engine_a8['route']}")
-        if set(routes) != {"eager"} or {ref_engine["route"], ref_engine_a8["route"]} != {"graphs"}:
+        if (set(routes) != {"eager, admission eager"}
+                or {ref_engine["route"], ref_engine_a8["route"]} != {"graphs, admission graphs"}):
             raise AssertionError(f"tp engine: routes {routes}, one process {ref_engine['route']}")
         del whole
         os.environ["BITDISTILLER_TRAIN_FLASH"] = "1"

@@ -51,10 +51,30 @@ def test_capacity_equals_jax(name):
     for grow in (True, False):
         for jd, td in KV.values():
             kw = dict(bits=2, group_size=g, max_len=2048, hbm_bytes=80 * GiB, grow_cache=grow)
-            assert tcap.serve_capacity(tc, kv_dtype=td, **kw) == jcap.serve_capacity(
-                jc, kv_dtype=jd, **kw)
+            assert _eager(tcap.serve_capacity(tc, kv_dtype=td, graphs=False, **kw)) == (
+                jcap.serve_capacity(jc, kv_dtype=jd, **kw))
     kw = dict(group_size=g, hbm_bytes=16 * GiB, tp=2, prompt_cache_bytes=GiB)
-    assert tcap.serve_capacity(tc, **kw) == jcap.serve_capacity(jc, **kw)
+    assert _eager(tcap.serve_capacity(tc, **kw)) == jcap.serve_capacity(jc, **kw)
+
+
+def _eager(cap: dict) -> dict:
+    """The plan without the graph route's rows, which JAX's has no key for
+    (none under graphs=False or tp > 1)."""
+    cap = dict(cap)
+    assert cap.pop("graph_rows_bytes") == 0
+    return cap
+
+
+def test_graph_route_counts_its_prefill_rows():
+    """The graph route's engine-owned prefill rows come out of the budget:
+    on the 7B, k and v of 2048 rows of 32 layers at 32 bf16 heads of 128,
+    1 GiB exactly."""
+    cfg = torch_cfg(PRESETS["LLAMA2_7B"])
+    on = tcap.serve_capacity(cfg, hbm_bytes=80 * GiB)
+    off = tcap.serve_capacity(cfg, hbm_bytes=80 * GiB, graphs=False)
+    assert on["graph_rows_bytes"] == GiB
+    assert off["budget_bytes"] - on["budget_bytes"] == GiB
+    assert on["max_slots"] <= off["max_slots"]
 
 
 @pytest.mark.parametrize("kv", sorted(KV))

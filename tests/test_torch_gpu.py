@@ -145,6 +145,78 @@ def test_replayed_steps_equal_eager_ones(gen, mode):
     assert replayed._graphs.replays > 0
 
 
+@pytest.mark.parametrize("cache,a8", [("bf16", False), ("int8", False), ("bf16", True)],
+                         ids=["bf16", "int8", "bf16-a8"])
+def test_replayed_admission_equals_eager(gen, cache, a8, monkeypatch):
+    """The admission pieces replayed on the card (prefill, insert, commit,
+    a prompt's stored rows and a tail prefill): tokens and launch counts
+    equal the eager twin's; the same keys replay into other slots with
+    other prompts (a group of 1 into slot 1, then into slot 0), and exact
+    and prefix prompt-cache hits replay their inserts and tail prefills.
+    Under BITDISTILLER_QMM_A8=1 the replayed prefills run B4 (its
+    CUtensorMaps encoded at capture over the fixed buffers)."""
+    from bitdistiller_tpu_torch.serve import Request
+    from bitdistiller_tpu_torch.serve import engine as engine_mod
+
+    monkeypatch.setenv(qm.A8_ENV, "1" if a8 else "0")
+
+    cfg = dataclasses.replace(TINY_TEST, num_heads=4, num_kv_heads=2)
+    params = random_packed_params(cfg, bits=2, group_size=128, device="cuda")
+    g = torch.Generator().manual_seed(5)
+    rand = lambda n: torch.randint(3, cfg.vocab_size, (n,), generator=g).tolist()
+    pfx = rand(40)
+    runs = [[(rand(30), 3, False)], [(rand(30), 30, False), (rand(12), 2, False),
+                                      (rand(9), 6, False)],
+            [(rand(20), 5, False)], [(pfx, 3, True)],
+            [(pfx, 4, False), (pfx + rand(10), 5, True)],
+            [(pfx + rand(12), 4, False), (pfx + rand(25), 3, False), (rand(70), 4, False)]]
+
+    def run(graphs):
+        eng = Engine(params, cfg, max_slots=2, max_len=256, eos_token_id=None, seed=3,
+                     sampling=SamplingParams(temperature=0.0), prompt_cache_size=4,
+                     cache_dtype=getattr(torch, "bfloat16" if cache == "bf16" else "int8"),
+                     device="cuda", graphs=graphs)
+        before = [getattr(o, a) for o, a in engine_mod.LAUNCH_COUNTERS]
+        outs = []
+        for run_ in runs:
+            reqs = [Request(prompt_tokens=p, max_new_tokens=n, cache_prompt=c) for p, n, c in run_]
+            eng.run(reqs)
+            outs.append([r.output_tokens for r in reqs])
+        counts = [getattr(o, a) - b for (o, a), b in zip(engine_mod.LAUNCH_COUNTERS, before)]
+        return eng, outs, counts
+
+    replayed, outs, counts = run(None)
+    twin, twin_outs, twin_counts = run(False)
+    assert outs == twin_outs and counts == twin_counts
+    a8_prefills = counts[engine_mod.LAUNCH_COUNTERS.index((qm.qmm_a8, "prefill_launches"))]
+    assert (a8_prefills > 0) == a8
+    table = replayed._graphs
+    assert table.count(engine_mod.ADMISSION_PIECES)[1] >= 6
+    assert ("prefill", 64, 1) in table.graphs
+    assert any(k[0] == "extend" for k in table.captured)
+    assert replayed.prompt_cache_prefix_hits == twin.prompt_cache_prefix_hits == 3
+
+
+def test_materialize_switch_on_the_card(gen, monkeypatch, request):
+    """BITDISTILLER_QMM_MATERIALIZE_M: at and above M rows the packed matmul
+    runs as a bf16 dequantization and torch.matmul (no B1 launch), within
+    bf16 rounding of B1; below it B1 runs."""
+    qm.materialize_min_m.cache_clear()
+    request.addfinalizer(qm.materialize_min_m.cache_clear)
+    k, n = 1024, 512
+    p = _packed(gen, k, n, 2, integer=False)
+    x = torch.randn((300, k), device="cuda", generator=gen).bfloat16()
+    ref = qm.quant_matmul(x, p).float()
+    monkeypatch.setenv(qm.MATERIALIZE_ENV, "256")
+    qm.materialize_min_m.cache_clear()
+    before = qm.qmm_prefill.launches
+    got = qm.quant_matmul(x, p).float()
+    assert qm.qmm_prefill.launches == before
+    assert (got - ref).abs().max().item() <= 2e-2 * ref.abs().max().item()
+    qm.quant_matmul(x[:200], p)
+    assert qm.qmm_prefill.launches == before + 1
+
+
 def _packed(gen, k, n, bits, layers=None, integer=True):
     lead = () if layers is None else (layers,)
     qw = torch.randint(-(2**31), 2**31 - 1, lead + (k * bits // 32, n), dtype=torch.int32,

@@ -214,8 +214,9 @@ def test_no_module_imports_them_but_the_lazy_tokenizer():
     ones of jax, the JAX package, safetensors, ml_dtypes, transformers or
     datasets are the tokenizer imports of run_training and
     run_teacher_generation, made only when no tokenizer is given, the CLI's
-    `_load_tokenizer`, made only by the subcommands that tokenize, and the
-    offline redirect's `datasets`, made only inside `load_dataset`."""
+    `_load_tokenizer`, made only by the subcommands that tokenize, the
+    offline redirect's `datasets`, made only inside `load_dataset`, and
+    `scripts/prepare_datasets.py`'s, made only by its `export`."""
     pattern = re.compile(r"^\s*(from|import)\s+(jax|jaxlib|bitdistiller_tpu|safetensors|"
                          r"ml_dtypes|transformers|datasets)\b")
     found = []
@@ -228,6 +229,8 @@ def test_no_module_imports_them_but_the_lazy_tokenizer():
                      ("bitdistiller_tpu_torch/data/offline.py", "import datasets"),
                      ("bitdistiller_tpu_torch/generation/teacher.py",
                       "from transformers import AutoTokenizer"),
+                     ("bitdistiller_tpu_torch/scripts/prepare_datasets.py",
+                      "from datasets import load_dataset"),
                      ("bitdistiller_tpu_torch/train/pipeline.py",
                       "from transformers import AutoTokenizer")], found
 
