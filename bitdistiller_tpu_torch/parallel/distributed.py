@@ -9,14 +9,30 @@ dp-sharded array from every host's rows (`global_batch_from_host`), each
 rank here feeds its own rows to its own step; the gradients are averaged
 over the ranks (`parallel/zero.py`), so the step is that of the global
 batch, the concatenation of the ranks' rows in rank order.
+
+Every collective and point-to-point operation that the serving engine's
+pieces reach goes through one hook, `boundary`: it issues the operation,
+unless a segmented capture (`segmented`) is recording on this thread.
+Then it ends the current CUDA graph segment, records the operation (a
+closure handed the tensors it reads and writes as views that do not keep
+them allocated, so that the graphs' pool reuses them as it reuses a
+graph's transients), and begins the next segment; a replay runs the
+segments in order with the operations, eager, between them. A collective
+reached while the current stream captures, other than through the hook,
+raises `CaptureError`. A ring hop's send and receive are one operation
+(`exchange`, whose `wait` is another, or `sendrecv`, which waits too),
+so that the ring has a kernel between any two operations.
 """
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import logging
 import os
-from typing import Optional
+import threading
+import time
+from typing import Callable, Optional
 
 import torch
 import torch.distributed as dist
@@ -145,38 +161,264 @@ def p2p_transport(t: torch.Tensor, group=None) -> str:
     return "host" if host_staged(t, group) else "device"
 
 
-class _Transfer:
-    """A started point-to-point transfer: `wait()` blocks until it is done
-    and, for a receive staged through the host, copies into the target."""
+class CaptureError(RuntimeError):
+    """A collective reached inside a CUDA graph capture other than through
+    `boundary` under `segmented`: it cannot be captured (gloo stages it
+    through the host and waits there), so it is refused by name."""
 
-    def __init__(self, work, staged: Optional[torch.Tensor] = None,
-                 target: Optional[torch.Tensor] = None):
-        self.work, self.staged, self.target = work, staged, target
+
+# the torch.distributed calls a segmented capture refuses on its thread
+_GUARDED = ("all_reduce", "all_gather", "all_gather_into_tensor", "all_gather_object",
+            "broadcast", "broadcast_object_list", "reduce", "reduce_scatter",
+            "reduce_scatter_tensor", "all_to_all", "all_to_all_single", "gather", "scatter",
+            "send", "recv", "isend", "irecv", "batch_isend_irecv", "barrier")
+
+# calls and host seconds of the operations `boundary` issued: eagerly, and
+# by a replay between its segments (`Boundary.run(replayed=True)`)
+BOUNDARY_STATS = {"eager_calls": 0, "eager_s": 0.0, "replayed_calls": 0, "replayed_s": 0.0}
+
+_local = threading.local()  # .record: the recording `boundary` hands its operations to
+
+
+class Boundary:
+    """One collective or point-to-point operation as `boundary` saw it: its
+    kind, its group (None: the world), the tensors it reads and those it
+    writes, and `issue(reads, writes)`, which performs it on exactly those
+    tensors and refers to no device tensor of its own, so that a recording
+    can hand it views that do not keep their memory allocated (`unowned`)."""
+
+    __slots__ = ("kind", "issue", "group", "reads", "writes")
+
+    def __init__(self, kind: str, issue: Callable, group, reads: tuple, writes: tuple):
+        self.kind, self.issue, self.group, self.reads, self.writes = (kind, issue, group, reads,
+                                                                      writes)
+
+    def run(self, replayed: bool = False):
+        t0 = time.perf_counter()
+        out = self.issue(self.reads, self.writes)
+        how = "replayed" if replayed else "eager"
+        BOUNDARY_STATS[how + "_calls"] += 1
+        BOUNDARY_STATS[how + "_s"] += time.perf_counter() - t0
+        return out
+
+
+def _stream_capturing() -> bool:
+    return torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()
+
+
+def boundary(kind: str, issue: Callable, group=None, reads=(), writes=()):
+    """Issue one collective or point-to-point operation (`issue(reads,
+    writes)`, over `group`) and return what it returns; under `segmented`,
+    record it instead and return None. Outside a segmented capture, a
+    stream that is capturing refuses it."""
+    op = Boundary(kind, issue, group, tuple(reads), tuple(writes))
+    record = getattr(_local, "record", None)
+    if record is not None:
+        record(op)
+        return None
+    if _stream_capturing():
+        raise CaptureError(f"{kind} reached inside a CUDA graph capture that is not split at "
+                           f"its collectives (parallel.distributed.segmented)")
+    return op.run()
+
+
+@contextlib.contextmanager
+def recording(record: Callable):
+    """`boundary` on this thread hands its operations to `record(op)`
+    instead of issuing them."""
+    prev = getattr(_local, "record", None)
+    _local.record = record
+    try:
+        yield
+    finally:
+        _local.record = prev
+
+
+class _Memory:
+    """A CUDA tensor's bytes as `__cuda_array_interface__`, holding no
+    reference to the tensor."""
+
+    def __init__(self, t: torch.Tensor):
+        s = t.untyped_storage()
+        self.__cuda_array_interface__ = {"shape": (s.nbytes(),), "typestr": "|u1",
+                                         "data": (s.data_ptr(), False), "version": 2}
+
+
+def unowned(t: torch.Tensor) -> torch.Tensor:
+    """`t`'s elements through a tensor that does not keep their memory
+    allocated (`t` itself off the card, or where it holds no bytes). A
+    recorded operation holds these, as a CUDA graph holds the addresses of
+    its transients: what the body drops goes back to the graphs' pool for
+    the next key's capture, and a replay finds its own values there because
+    a key's segments and operations replay back to back."""
+    if not t.is_cuda or t.untyped_storage().nbytes() == 0:
+        return t
+    raw = torch.as_tensor(_Memory(t), device=t.device)
+    return raw.view(t.dtype).as_strided(t.shape, t.stride(), t.storage_offset())
+
+
+def _refusing(name: str, fn: Callable):
+    def call(*args, **kwargs):
+        if getattr(_local, "record", None) is not None:
+            raise CaptureError(f"torch.distributed.{name} inside a segmented CUDA graph "
+                               f"capture: an operation there goes through "
+                               f"parallel.distributed.boundary")
+        return fn(*args, **kwargs)
+    return call
+
+
+_GUARD_LOCK = threading.Lock()
+_GUARD: dict = {"depth": 0, "saved": {}}
+
+
+@contextlib.contextmanager
+def _refusing_collectives():
+    """While a segmented capture records, the torch.distributed calls of
+    _GUARDED raise on a recording thread and go through on any other."""
+    with _GUARD_LOCK:
+        if _GUARD["depth"] == 0:
+            _GUARD["saved"] = {n: getattr(dist, n) for n in _GUARDED if hasattr(dist, n)}
+            for name, fn in _GUARD["saved"].items():
+                setattr(dist, name, _refusing(name, fn))
+        _GUARD["depth"] += 1
+    try:
+        yield
+    finally:
+        with _GUARD_LOCK:
+            _GUARD["depth"] -= 1
+            if _GUARD["depth"] == 0:
+                for name, fn in _GUARD["saved"].items():
+                    setattr(dist, name, fn)
+
+
+def segmented(body: Callable, begin: Callable, end: Callable,
+              on_record: Optional[Callable] = None) -> tuple:
+    """Record `body()` as segments split at its operations, issuing none:
+    `begin()` opens a segment and returns it, `end(seg)` closes it; each
+    `boundary` the body reaches closes the open segment, is recorded on
+    `unowned` views of its tensors and opens the next, and a direct
+    torch.distributed call on this thread raises `CaptureError`.
+    `on_record(op)` sees each operation on the body's own tensors: a hook
+    for the CPU tests' stand-in, which checks and replays it there.
+    Returns ([("graph", seg) | ("op", Boundary), ...], body's result): a
+    segment before the first operation, between any two, and after the
+    last. A body that raises leaves no segment open."""
+    steps: list = []
+    open_seg = [begin()]
+
+    def record(op: Boundary) -> None:
+        seg, open_seg[0] = open_seg[0], None
+        end(seg)
+        steps.append(("graph", seg))
+        if on_record is not None:
+            on_record(op)
+        views: dict = {}
+        for t in op.reads + op.writes:
+            if id(t) not in views:
+                views[id(t)] = unowned(t)
+        steps.append(("op", Boundary(op.kind, op.issue, op.group,
+                                     tuple(views[id(t)] for t in op.reads),
+                                     tuple(views[id(t)] for t in op.writes))))
+        open_seg[0] = begin()
+
+    try:
+        with recording(record), _refusing_collectives():
+            out = body()
+    except BaseException:
+        if open_seg[0] is not None:
+            with contextlib.suppress(Exception):
+                end(open_seg[0])
+        raise
+    end(open_seg[0])
+    steps.append(("graph", open_seg[0]))
+    return steps, out
+
+
+class _Hop:
+    """One send or receive of a transfer: its peer (a global rank), its
+    host buffer where it goes through the host (else None), and its work
+    once started."""
+
+    __slots__ = ("send", "peer", "staged", "work")
+
+    def __init__(self, send: bool, t: torch.Tensor, peer: int, group):
+        self.send, self.peer, self.work = send, peer, None
+        self.staged = torch.empty(t.shape, dtype=t.dtype) if host_staged(t, group) else None
+
+    def start(self, t: torch.Tensor, group) -> None:
+        if self.send and self.staged is not None:
+            self.staged.copy_(t)  # taken as the send is issued: `t` may be written after
+        wire = t if self.staged is None else self.staged
+        self.work = (dist.isend if self.send else dist.irecv)(wire, self.peer, group=group)
+
+    def finish(self, t: torch.Tensor) -> None:
+        self.work.wait()
+        if not self.send and self.staged is not None:
+            t.copy_(self.staged)
+
+
+class _Transfer:
+    """Started sends and receives (the sends first). `wait()`, an operation
+    of its own through `boundary`, blocks until all are done; each receive's
+    tensor then holds its data."""
+
+    def __init__(self, group, hops: tuple, sent: tuple, received: tuple):
+        self.group, self.hops, self.sent, self.received = group, hops, sent, received
 
     def wait(self) -> None:
-        self.work.wait()
-        if self.target is not None:
-            self.target.copy_(self.staged)
+        hops = self.hops
+
+        def issue(reads, writes):
+            for h, t in zip(hops, reads + writes):
+                h.finish(t)
+
+        boundary("wait", issue, self.group, reads=self.sent, writes=self.received)
+
+
+def _transfer(kind: str, group, sends: tuple, recvs: tuple, wait: bool = False):
+    """Start the sends ((tensor, dst), ...) and then the receives ((tensor,
+    src), ...) as one operation `kind`; with `wait` also finish them within
+    it and return None, else return the `_Transfer` whose `wait()` does."""
+    hops = tuple([_Hop(True, t, dst, group) for t, dst in sends]
+                 + [_Hop(False, t, src, group) for t, src in recvs])
+    sent = tuple(t if h.staged is not None else t.contiguous() for h, (t, _) in zip(hops, sends))
+    received = tuple(t for t, _ in recvs)
+
+    def issue(reads, writes):
+        for h, t in zip(hops, reads + writes):
+            h.start(t, group)
+        if wait:
+            for h, t in zip(hops, reads + writes):
+                h.finish(t)
+
+    boundary(kind, issue, group, reads=sent, writes=received)
+    return None if wait else _Transfer(group, hops, sent, received)
 
 
 def isend(t: torch.Tensor, dst: int, group=None) -> _Transfer:
     """Start sending `t` to global rank `dst` (through a host copy where
-    `host_staged`; the copy is taken before this returns, so `t` may be
-    written at once)."""
-    if host_staged(t, group):
-        host = t.to("cpu", copy=True)
-        return _Transfer(dist.isend(host, dst, group=group), staged=host)
-    t = t.contiguous()
-    return _Transfer(dist.isend(t, dst, group=group), staged=t)
+    `host_staged`, taken as the send is issued, so that `t` may be written
+    after that)."""
+    return _transfer("isend", group, ((t, dst),), ())
 
 
 def irecv(t: torch.Tensor, src: int, group=None) -> _Transfer:
     """Start receiving into the contiguous `t` from global rank `src`; `t`
     holds the data after `wait()`."""
-    if host_staged(t, group):
-        host = torch.empty(t.shape, dtype=t.dtype)
-        return _Transfer(dist.irecv(host, src, group=group), staged=host, target=t)
-    return _Transfer(dist.irecv(t, src, group=group))
+    return _transfer("irecv", group, (), ((t, src),))
+
+
+def exchange(send: torch.Tensor, dst: int, recv: torch.Tensor, src: int,
+             group=None) -> _Transfer:
+    """One hop of a ring as one operation: `isend(send, dst)` and then
+    `irecv(recv, src)`; `wait()` (one more) finishes both."""
+    return _transfer("exchange", group, ((send, dst),), ((recv, src),))
+
+
+def sendrecv(send: torch.Tensor, dst: int, recv: torch.Tensor, src: int, group=None) -> None:
+    """`exchange(...)` and its `wait()` as one operation, for a hop that
+    nothing overlaps: `recv` holds the data when it returns."""
+    _transfer("sendrecv", group, ((send, dst),), ((recv, src),), wait=True)
 
 
 def host_shard(seq, process_id: Optional[int] = None, process_count: Optional[int] = None):

@@ -6,7 +6,14 @@ which serializes behind the matmul. Here the all-reduce becomes a ring of
 N-chunks interleaved with the chunk matmuls: each hop's send and receive
 are issued before the next chunk's matmul, so that on NCCL the two
 overlap (JAX's `lax.ppermute` hops). Over gloo a CUDA tensor's hop goes
-through host memory (`distributed.isend`), and nothing overlaps.
+through host memory (`distributed.isend`), and nothing overlaps. A hop
+is an operation of `distributed.boundary`, which a segmented CUDA graph
+capture records between two segments: a reduce-scatter hop two (its send
+and receive, `distributed.exchange`, then their wait, with the chunk's
+matmul between), an all-gather hop one (`distributed.sendrecv`, with the
+received chunk's copy between two hops), so that a kernel runs between
+any two operations and a ring matmul has 3 (tp - 1). The receive buffers
+are allocated before their hop, inside a segment.
 
 - `reduce_scatter_matmul`: x_local [M, K/tp] @ w_local [K/tp, N] -> this
   rank's chunk [M, N/tp] of the sum over the ranks, accumulated around the
@@ -30,7 +37,7 @@ from typing import Optional
 import torch
 
 from ..quant.packing import PackedLinear
-from .distributed import irecv, isend
+from .distributed import exchange, sendrecv
 from .mesh import Mesh
 
 
@@ -103,14 +110,13 @@ def _reduce_scatter(x2, w_local, mesh: Mesh, li, use_kernels) -> torch.Tensor:
         hop = None
         if acc is not None:  # the hop goes out before this step's matmul
             buf = torch.empty(acc.shape, dtype=acc.dtype, device=acc.device)
-            hop = (isend(acc, nxt, mesh.tp_group), irecv(buf, prv, mesh.tp_group))
+            hop = exchange(acc, nxt, buf, prv, mesh.tp_group)
         part = _chunk_matmul(x2, chunks[(idx + tp - 1 - step) % tp], li,
                              use_kernels).to(torch.float32)
         if hop is None:
             acc = part
         else:
-            for h in hop:
-                h.wait()
+            hop.wait()
             acc = buf + part
     return acc
 
@@ -143,9 +149,7 @@ def ring_all_reduce_matmul(x_local, w_local, mesh: Mesh, li: Optional[int] = Non
         if step == tp - 1:
             break
         nbuf = torch.empty(buf.shape, dtype=buf.dtype, device=buf.device)
-        hop = (isend(buf, nxt, mesh.tp_group), irecv(nbuf, prv, mesh.tp_group))
-        for h in hop:
-            h.wait()
+        sendrecv(buf, nxt, nbuf, prv, mesh.tp_group)
         buf, src = nbuf, (src - 1) % tp
     return out.reshape(*x_local.shape[:-1], nc * tp)
 

@@ -14,8 +14,13 @@ Functions over a mesh's tp group:
 
 Sums run in f32 and round once to the input's dtype, as a single
 device's f32 accumulation would. At tp = 1 (or without a mesh) each is the
-identity and issues no collective. `tp_config` is the config of one tp
-rank's slice, and the check that a config splits over tp at all.
+identity and issues no collective. Each collective goes through
+`distributed.boundary`, so that a segmented CUDA graph capture records it
+between two segments; the buffers it writes (the f32 sum, the gathered
+parts) are allocated before it, in the segment that ends there, and handed
+to the operation as arguments, never held by its closure.
+`tp_config` is the config of one tp rank's slice, and the check that a
+config splits over tp at all.
 """
 
 from __future__ import annotations
@@ -25,6 +30,8 @@ import dataclasses
 import torch
 import torch.distributed as dist
 
+from .distributed import boundary
+
 
 def _tp(mesh) -> int:
     return 1 if mesh is None else mesh.tp
@@ -32,7 +39,8 @@ def _tp(mesh) -> int:
 
 def _sum(x: torch.Tensor, group) -> torch.Tensor:
     y = x.to(torch.float32, memory_format=torch.contiguous_format, copy=True)
-    dist.all_reduce(y, group=group)
+    boundary("all_reduce", lambda r, w: dist.all_reduce(w[0], group=group), group, reads=(y,),
+             writes=(y,))
     return y.to(x.dtype)
 
 
@@ -62,7 +70,9 @@ class _GatherFromTP(torch.autograd.Function):
     def forward(ctx, x, group, size, rank):
         ctx.rank, ctx.n = rank, x.shape[-1]
         parts = [torch.empty_like(x, memory_format=torch.contiguous_format) for _ in range(size)]
-        dist.all_gather(parts, x.contiguous(), group=group)
+        x = x.contiguous()
+        boundary("all_gather", lambda r, w: dist.all_gather(list(w), r[0], group=group), group,
+                 reads=(x,), writes=tuple(parts))
         return torch.cat(parts, dim=-1)
 
     @staticmethod

@@ -69,11 +69,13 @@ def serve_capacity(cfg: ModelConfig, *, bits: int = 2, group_size: int = 128,
     deployments pass grow_cache=False (Engine(grow_cache=False)) and plan
     against the flat full-size cache. Engine(prompt_cache_bytes=...) holds
     device buffers on top of the slots: they come out of the budget. So do,
-    with `graphs` at tp = 1 (the engine's graph route, its default on one
-    card), the rows a captured prefill writes (`engine.graph_rows_bytes`);
-    a mesh engine runs eagerly and holds none. The graphs' pool (a
-    captured piece's transients and last logits) is left to
-    `reserve_frac`, as the eager route's transients are."""
+    with `graphs` (the engine's graph route, its default on the card with
+    or without a mesh), the rows a captured prefill writes at the rank's
+    kv heads (`engine.graph_rows_bytes(cfg, tp)`). The graphs' pool (a
+    captured piece's transients and last logits, which every key reuses;
+    under a mesh the buffers of the operations between segments are such
+    transients too) is left to `reserve_frac`, as the eager route's
+    transients are."""
     if hbm_bytes is None:
         if not torch.cuda.is_available():
             raise RuntimeError("no CUDA device is available; pass hbm_bytes to plan "
@@ -83,7 +85,7 @@ def serve_capacity(cfg: ModelConfig, *, bits: int = 2, group_size: int = 128,
     per_slot = kv_bytes_per_slot(cfg, max_len, kv_dtype) // tp
     if grow_cache:
         per_slot = per_slot + per_slot // CACHE_BUCKET_FACTOR  # growth peak
-    rows = graph_rows_bytes(cfg) if graphs and tp == 1 else 0
+    rows = graph_rows_bytes(cfg, tp) if graphs else 0
     budget = int(hbm_bytes * (1 - reserve_frac)) - weights - int(prompt_cache_bytes) - rows
     slots = max(budget // per_slot, 0)
     return {

@@ -35,16 +35,24 @@ updated only in place (`cur_tokens`, the slots' lengths and active mask,
 `prev_tokens`, `history`, the per-slot sampling tensors, a horizon's output
 rows), and one plain decode step or one verify round at draft length k is a
 function of those buffers (`_plain_step`, `_verify_step`). Its route:
-  * graphs, the default on the card at mesh=None: each step runs from a
-    captured CUDA graph (`_GraphTable`, keyed by (cache length, "uniform" |
-    "custom" | "verify", k)). A key's first use runs the step eagerly and
-    captures it right after; every later use replays it, and a horizon of
-    n steps is n replays. Growth drops the graphs of the cache it replaced;
-    `warmup()` walks the keys before traffic. The kernels' launch counters
-    advance on every replay by what the capture counted;
-  * eager, on the CPU and under a mesh (whose collectives cannot be
-    captured), or anywhere with graphs=False (the eager twin the card's
-    checks compare with). graphs=True on the CPU or under a mesh raises.
+  * graphs, the default on the card, with or without a mesh: each step
+    runs from CUDA graphs captured for its key (`_GraphTable`, keyed by
+    (cache length, "uniform" | "custom" | "verify", k)). A key's first use
+    runs the step eagerly (its collectives issued) and captures it right
+    after; every later use replays it, and a horizon of n steps is n
+    replays. Under a mesh a key's capture is a chain (`_Chain`): the piece
+    is split at each collective and point-to-point operation
+    (`parallel.distributed.boundary`) into segments, one CUDA graph each,
+    and a replay runs graph, operation, graph, ..., the operations eager
+    between them (gloo's cannot be captured: they stage through the host;
+    `distributed.segmented`); an operation's buffers stay the pool's
+    transients, reused by other keys (`distributed.unowned`). At mesh=None
+    a chain is one graph. Growth
+    drops the graphs of the cache it replaced; `warmup()` walks the keys
+    before traffic. The kernels' launch counters advance on every replay
+    by what the capture counted;
+  * eager, on the CPU, or anywhere with graphs=False (the eager twin the
+    card's checks compare with). graphs=True on the CPU raises.
 Admission, the JAX engine's jitted `_prefill`, `_insert` (cache donated) and
 `_admit_commit` (slot state donated) and its memoized tail prefill: each
 piece is a function of fixed buffers too, into which the host stages what
@@ -83,22 +91,34 @@ is its slice by `kv_cache_specs`: slots over dp (dp rank d holds slots [d
 max_slots / dp, (d + 1) max_slots / dp)), kv heads over tp. Every rank
 runs the same host loop over the same requests, so every host decision
 (admission, growth, the speculative EMA and k, finishing) is taken from
-data that is the same on every rank:
+data that is the same on every rank, and every rank meets the same graph
+keys in the same order (a first use runs eagerly on every rank together;
+a capture issues no operation):
   * an admission group is prefilled on every rank (each tp group runs it
     whole, as JAX's prefill runs replicated over dp), and each rank
     inserts only its own slots' rows; prompt-cache entries are held alike
     on every dp rank, at the rank's kv heads;
   * decode and the speculative verify forward only the rank's slots; the
-    tokens are sampled on tp rank 0 and broadcast over the tp group, and a
+    tokens are sampled on tp rank 0 and broadcast over the tp group (the
+    other tp ranks receive into a buffer of the step's own), and a
     horizon's tokens (and verify counts) are gathered over dp once, for
-    its one host read (JAX's `_replicated`); the first tokens of an
-    admission group are sampled on global rank 0 and broadcast;
+    its one host read (JAX's `_replicated`), eagerly after the horizon's
+    replays; the first tokens of an admission group are sampled on global
+    rank 0 and broadcast, inside the commit piece;
   * growth grows the rank's slice;
   * what comes from outside the loop is taken on global rank 0 and
-    broadcast each round: the feeder's new requests and `stop()` (the
-    other ranks' feeder and stop are not called), and the verdicts of
-    `Request.stop_check` (the other ranks receive a request's data, not
-    its callbacks: `serve.server.follow` runs such a rank).
+    broadcast each round, outside every piece: the feeder's new requests
+    and `stop()` (the other ranks' feeder and stop are not called), and the
+    verdicts of `Request.stop_check` (the other ranks receive a request's
+    data, not its callbacks: `serve.server.follow` runs such a rank).
+A Llama piece at tp > 1 has 2L + 3 operations (the vocab-parallel
+embedding's all-reduce, o's and down's in each of L layers, the logits'
+all-gather, the token broadcast) in a step or verify round, 2L + 2 in a
+prefill or tail prefill, one in a commit (the first tokens' broadcast, at
+dp > 1 too) and none in an insert: a chain has one segment more. Under
+BITDISTILLER_RING_TP=1 each ring matmul replaces an all-reduce by 3 (tp -
+1) operations (`parallel/overlap.py`). A kernel runs between any two
+operations, so that no segment is empty.
 At `mesh=None`, or dp = tp = 1, nothing of this runs.
 """
 
@@ -120,6 +140,7 @@ from ..models.config import ModelConfig
 from ..models.llama import KVCache, quantize_kv
 from ..ops.decode_attention import flash_decode_stacked
 from ..ops.quant_matmul import maybe_repack_a8, qmm_a8, qmm_decode, qmm_prefill
+from ..parallel.distributed import boundary, segmented
 from ..parallel.tensor import tp_config
 from .sampling import SamplingParams, sample_tokens, sample_tokens_batched
 
@@ -267,7 +288,8 @@ class _Fetch:
 
 
 class _GraphTable:
-    """Captured graphs by key, (cache length, mode...) or (piece, shape...).
+    """Captured graphs (on the card a `_Chain` each) by key, (cache length,
+    mode...) or (piece, shape...).
     A key's first use runs the body eagerly, so that what the kernels make
     at first use (kmap tables, the TMA encoder, cluster checks, cuBLAS
     workspaces) exists before the capture, and then captures it; every
@@ -277,14 +299,17 @@ class _GraphTable:
     (at the first use, holding the eager run's values). A capture launches
     nothing, so the launch counters are set back after it, and each replay
     adds the deltas the capture recorded. `new_graph()` and
-    `capture(graph, body)` (which returns the body's outputs) are
-    torch.cuda's on the card (`_cuda_capture`)."""
+    `capture(graph, body)` (which returns the body's outputs) are `_Chain`
+    and `_cuda_capture`'s on the card. `replay_s`: the host seconds of the
+    replays (under a mesh the operations between segments included:
+    `distributed.BOUNDARY_STATS` counts those)."""
 
     def __init__(self, new_graph, capture, counters=LAUNCH_COUNTERS):
         self.new_graph, self.capture, self.counters = new_graph, capture, counters
         self.graphs: dict = {}  # key -> (graph, counter deltas, outputs)
         self.captured: list = []  # every key captured, in order
         self.capture_s = 0.0
+        self.replay_s = 0.0
         self.replays = 0
         self.replayed: collections.Counter = collections.Counter()  # replays by key
 
@@ -292,7 +317,9 @@ class _GraphTable:
         entry = self.graphs.get(key)
         if entry is not None:
             graph, deltas, outs = entry
+            t0 = time.perf_counter()
             graph.replay()
+            self.replay_s += time.perf_counter() - t0
             self.replays += 1
             self.replayed[key] += 1
             for (obj, attr), d in zip(self.counters, deltas):
@@ -325,19 +352,65 @@ class _GraphTable:
         for key in [k for k in self.graphs if k[0] == cache_len]:
             del self.graphs[key]
 
+    def segments(self) -> dict:
+        """{key: segments} of the chains held."""
+        return {k: g.segments for k, (g, _, _) in self.graphs.items()}
+
+
+class _Chain:
+    """One key's capture: its segments, one graph each, split at the
+    piece's collective and point-to-point operations, and those operations
+    (`distributed.Boundary`) between them, in order. `replay()` runs them
+    in that order on the current stream, the operations eagerly. A piece
+    without an operation (every piece at mesh=None) is one segment."""
+
+    def __init__(self):
+        self.steps: list = []  # ("graph", segment) | ("op", Boundary)
+
+    @property
+    def segments(self) -> int:
+        return sum(kind == "graph" for kind, _ in self.steps)
+
+    def replay(self) -> None:
+        for kind, x in self.steps:
+            if kind == "graph":
+                x.replay()
+            else:
+                x.run(replayed=True)
+
+
+_CAPTURE_STREAM: list = []  # the one side stream every capture runs on
+
 
 def _cuda_capture(generator: torch.Generator):
-    """capture(graph, body) on the card: every graph of an engine in one
-    memory pool (`capture.pool`; the graphs replay one at a time, and what
-    one returns is read before another replays), with the engine's
-    generator registered, so that a replay draws what the eager step would
-    at the same generator state."""
+    """capture(chain, body) on the card: the body recorded into `chain` by
+    `distributed.segmented`, each segment a CUDA graph captured on one side
+    stream in the engine's one memory pool (`capture.pool`; a key's segments
+    replay back to back, and what a piece returns is read before another
+    piece replays), with the engine's generator registered in each, so that
+    a replay draws what the eager piece would at the same generator state.
+    The device is synchronized and the cache emptied once a key, not once a
+    segment; an operation's tensors come from the pool, allocated by the
+    segment before it, and its chain holds them as `distributed.unowned`
+    views, so that the pool reuses them for every other key as it reuses a
+    graph's transients (holding them would keep 2L + 1 f32 buffers of a
+    prefill's rows x hidden for each key)."""
     pool = torch.cuda.graph_pool_handle()
 
-    def capture(graph, body):
+    def begin():
+        graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(generator)
-        with torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local"):
-            return body()
+        graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+        return graph
+
+    def capture(chain, body):
+        if not _CAPTURE_STREAM:
+            _CAPTURE_STREAM.append(torch.cuda.Stream())
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        with torch.cuda.stream(_CAPTURE_STREAM[0]):
+            chain.steps, outs = segmented(body, begin, lambda graph: graph.capture_end())
+        return outs
 
     capture.pool = pool
     return capture
@@ -380,13 +453,10 @@ class Engine:
         self.device = resolve_device(device)
         # the rank's slots [slot0, slot0 + local_slots) of a mesh's dp split
         self.mesh = mesh if mesh is not None and (mesh.dp > 1 or mesh.tp > 1) else None
-        if graphs and self.mesh is not None:
-            raise ValueError("graphs=True under a mesh: its collectives cannot be captured, "
-                             "and the engine runs its steps eagerly there")
         if graphs and self.device.type != "cuda":
             raise ValueError(f"graphs=True on {self.device}: CUDA graphs need the card")
         if graphs is None:
-            graphs = self.device.type == "cuda" and self.mesh is None
+            graphs = self.device.type == "cuda"
         local = max_slots
         cache_cfg = cfg
         if self.mesh is not None:
@@ -419,8 +489,7 @@ class Engine:
         # the steps' and the admission's route: "graphs" (replayed from
         # `_graphs`) or "eager"
         self.route = "graphs" if graphs else "eager"
-        self._graphs = (_GraphTable(torch.cuda.CUDAGraph, _cuda_capture(self.generator))
-                        if graphs else None)
+        self._graphs = _GraphTable(_Chain, _cuda_capture(self.generator)) if graphs else None
         self._staged: dict = {}  # (name, shape, dtype) -> an admission's fixed input buffer
         # a captured prefill's rows, a captured tail prefill's temporary
         # cache: (k, v) flat, GRAPH_ROWS rows, made at the first such piece
@@ -522,7 +591,8 @@ class Engine:
         src, group = (m.dp_rank * m.tp, m.tp_group) if over_tp else (0, None)
         out = (sample().contiguous() if dist.get_rank() == src
                else torch.empty(shape, dtype=torch.int32, device=self.device))
-        dist.broadcast(out, src=src, group=group)
+        boundary("broadcast", lambda r, w: dist.broadcast(w[0], src=src, group=group), group,
+                 reads=(out,), writes=(out,))
         return out
 
     def _all_slots(self, t: torch.Tensor) -> torch.Tensor:
@@ -621,14 +691,17 @@ class Engine:
         and stay masked by the slot's position (t < cache_pos). `source`
         names kv's fixed buffer (a prefill key's rows, or the staging of a
         stored prompt) in the piece's key: (cache length, "insert") + source
-        + (ns,), the (slot, row) pairs padded to ns, a power of two, by
-        repeating the last pair (the same bytes to the same rows again,
-        which leaves the cache as if the padding wrote nothing); None (kv at
-        no fixed address) runs it eagerly."""
+        + (ns,), the (slot, row) pairs padded to ns by repeating the last pair
+        (the same bytes to the same rows again, which leaves the cache as if
+        the padding wrote nothing): the group's size padded to a power of
+        two, at most the rank's slots, so that on a mesh's dp ranks the key
+        follows the group, not how many of its slots are the rank's (as
+        JAX's insert has the group's shape). None (kv at no fixed address)
+        runs it eagerly."""
         pairs = [(slot - self.slot0, row) for slot, row in zip(slots, rows) if self._mine(slot)]
         if not pairs:
             return
-        ns = min(_pow2_at_least(len(pairs)), self.local_slots)
+        ns = min(_pow2_at_least(len(slots)), self.local_slots)
         pairs += [pairs[-1]] * (ns - len(pairs))
         idx = self._buf("insert_rows", (2, ns), torch.int64)
         idx.copy_(torch.as_tensor(pairs, dtype=torch.int64).T)

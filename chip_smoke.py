@@ -74,10 +74,14 @@ on the one card joined over gloo (NCCL refuses two ranks on one device;
 a point-to-point hop goes through host memory): the dry run's steps
 (scripts/dryrun_multichip.py, GPipe's part included), the packed 7B
 decode at tp = 2, again through the ring (BITDISTILLER_RING_TP=1) and
-under A8, the Engine over the tp group serving 8 requests (A16, then A8),
-GPipe at pp = 2, and run_training at tp = 2 (TinyLlama's width, 2 layers,
+under A8, the Engine over the tp group serving 8 requests (A16, A8,
+speculative, the ring, and dp = 2 x tp = 1 on the same ranks), each on
+the graph route, its pieces replayed as chains of graphs split at each
+collective (A3i), beside its eager twin, and after a warmup, GPipe at
+pp = 2, and run_training at tp = 2 (TinyLlama's width, 2 layers,
 through B8 at 16 / 2 heads, a checkpoint in each rank's parts), against
-tp = 1 runs here. The
+tp = 1 runs here; in a process of its own, a probe of whole-graph NCCL
+capture on one rank (a finding, no route's). The
 train phase's checkpoints are C9's layout: each rank's parts and a
 manifest, the write timed with the process's resident memory sampled. Beside
 the build, scripts/kernel_sass.py reads what ptxas made of
@@ -85,11 +89,11 @@ csrc/train_attention.cu; the `sass` phase prints it and fails unless every
 B8 tensor-core kernel (bf16, and the 3xTF32 forward, dkv and dq, alone and
 on the splits above D = 128) issues HGMMA, holds no HMMA (mma.sync) and
 spills nothing.
-Every Engine at mesh=None takes the engine's default route on the card: its
-decode steps and verify rounds replay captured CUDA graphs (the port's
-jitted horizons); each phase prints the routes its engines took and fails
-if one at mesh=None ran eagerly without asking (graphs=False: the eager
-twins). The end-to-end runs (A16 and A8), one speculative and one sampled
+Every Engine takes the engine's default route on the card: its decode
+steps, verify rounds and admission pieces replay captured CUDA graphs (the
+port's jitted horizons; under a mesh chains split at each collective);
+each phase prints the routes its engines took and fails if one ran
+eagerly without asking (graphs=False: the eager twins). The end-to-end runs (A16 and A8), one speculative and one sampled
 serve run each have an eager twin on the same requests, whose tokens and
 launch counts must be equal bit for bit; the 7B's decode horizon is timed
 replayed and eager in turns, and a profiler trace of a replayed horizon
@@ -197,7 +201,10 @@ Tolerances (kernel vs plain version on the same inputs):
     weights and tokens, and so the A8 decode's and the ring's (against the
     default tp path); the engine's greedy streams equal on both ranks and,
     up to the tie rule, to the one-process engine's, A16 and A8, its B1 /
-    B2 / B3 / B4 launches exactly as predicted; GPipe's logits within
+    B2 / B3 / B4 launches exactly as predicted; on both ranks every tp
+    engine run on "graphs, admission graphs", its tokens and launch counts
+    equal to its eager twin's and as predicted, each key's segments as
+    `tp_segments` predicts, no key captured after warmup; GPipe's logits within
     LOGIT_TOL of one process's, its B1 launches as predicted; the tp = 2
     training losses within TP_LOSS_TOL relative of tp = 1's; the tp = 2
     checkpoint restored at tp = 1 in one process equal bit for bit to the
@@ -218,6 +225,7 @@ import tempfile
 import threading
 import time
 import types
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -247,9 +255,10 @@ from bitdistiller_tpu_torch.generation import datasets as gen_datasets
 from bitdistiller_tpu_torch.generation import teacher as teacher_mod
 from bitdistiller_tpu_torch.models.hf_import import load_hf_checkpoint, save_hf_checkpoint
 from bitdistiller_tpu_torch.ops import _build
-from bitdistiller_tpu_torch.parallel.distributed import (init_distributed, make_hybrid_mesh,
-                                                         p2p_transport, shutdown_distributed)
-from bitdistiller_tpu_torch.parallel.mesh import shard_packed_model
+from bitdistiller_tpu_torch.parallel.distributed import (BOUNDARY_STATS, init_distributed,
+                                                         make_hybrid_mesh, p2p_transport,
+                                                         shutdown_distributed)
+from bitdistiller_tpu_torch.parallel.mesh import make_mesh, shard_packed_model
 from bitdistiller_tpu_torch.parallel.pipeline import (make_pp_mesh, pipeline_forward,
                                                       shard_params_pp)
 from bitdistiller_tpu_torch.parallel.tensor import tp_config
@@ -328,13 +337,13 @@ def record_routes() -> None:
     """Wrap Engine.__init__ so that every engine a phase builds (inside the
     port's modules too: teacher generation, eval, the method script) leaves
     its route, its admission's route ("graphs" when its prefill, insert,
-    commit and tail prefill replay, else "eager") and why: "mesh", "twin"
-    (graphs=False) or "default"."""
+    commit and tail prefill replay, else "eager") and why: "twin"
+    (graphs=False), "mesh" or "default"."""
     init = Engine.__init__
 
     def recorded(self, *a, **kw):
         init(self, *a, **kw)
-        why = ("mesh" if self.mesh is not None else "twin" if kw.get("graphs") is False
+        why = ("twin" if kw.get("graphs") is False else "mesh" if self.mesh is not None
                else "default")
         _ROUTES.append((Phase.current, f"{self.route}, admission {self.route}", why))
 
@@ -361,10 +370,10 @@ class Phase:
                 tally = collections.Counter(f"{route} ({why})" for _, route, why in routes)
                 say(f"[{self.name}] engine routes: "
                     + ", ".join(f"{k} x{n}" for k, n in sorted(tally.items())))
-                if any(why == "default" and route != "graphs, admission graphs"
+                if any(why != "twin" and route != "graphs, admission graphs"
                        for _, route, why in routes):
-                    raise AssertionError(f"[{self.name}] an engine at mesh=None did not take the "
-                                         f"graph route: {routes}")
+                    raise AssertionError(f"[{self.name}] an engine did not take the graph "
+                                         f"route unasked: {routes}")
             say(f"[{self.name}] ok in {time.time() - self.t0:.1f} s")
         else:
             say(f"[{self.name}] FAILED: {typ.__name__}: {exc}")
@@ -4218,8 +4227,20 @@ TP_SERVE_LEN = 256
 TP_HORIZON = 8  # the engine's default decode_horizon
 # the ring's chunk matmuls of a 7B tp = 2 rank: o and down, K / 2 x N / 2
 TP_RING_CHUNKS = {"o_chunk": (2048, 2048), "down_chunk": (5504, 2048)}
+# the engine's graph route under the mesh (A3i): the speculative tp engine's
+# fixed draft length (every round verifies), the warmed engine's cache and
+# its live requests' new tokens, and the NCCL capture probe's time limit
+TP_SPEC_K = 4
+TP_WARM_LEN = 128
+TP_WARM_NEW = 8
+TP_PROBE_TIMEOUT_S = 180
 TP_PP_TOKENS = (4, 128)  # GPipe at pp = 2: 4 x 128 tokens, n_micro = 2
 TP_PP_MICRO = 2
+# the graphs' pool of a mesh engine after an admission at every prompt bucket
+# from 256 and group size up to GRAPH_ROWS rows: the 7B's widths, its depth cut
+# to 8 layers (gloo moves each prefill's 2L + 1 f32 sums through the host)
+TP_POOL_CFG = dataclasses.replace(LLAMA2_7B, num_layers=8)
+TP_POOL_MIN_BUCKET = 256
 
 
 def tp_shard_shapes(cfg, tp: int = 2) -> dict:
@@ -4281,28 +4302,234 @@ def tp_a8_predicted(layers: int) -> dict:
                 flash_decode=layers * TP_STEPS)
 
 
-def tp_engine(params, cfg, mesh, dev) -> dict:
+def tp_engine(params, cfg, mesh, dev, graphs=None, spec=False) -> dict:
     """TP_SERVE's requests (random prompts, seed 2) through `Engine(...,
     mesh=mesh)` (None: one process), greedy, a bf16 cache growing from its
-    first bucket; the launch counts reset just before the run and read just
-    after. Returns the streams, the counts, what the engine ran and the host
-    seconds."""
+    first bucket, on the engine's default route (`graphs=False`: its eager
+    twin); `spec`: n-gram speculation at TP_SPEC_K with every round
+    verifying. The launch counts reset just before the run and read just
+    after. Returns the streams, the counts, what the engine ran, the host
+    seconds and how they divide (`host_split`), and on the graph route the
+    segments by key, the graphs held and the capture seconds."""
     n, plen, new = TP_SERVE
     rng = np.random.default_rng(2)
     prompts = [rng.integers(3, cfg.vocab_size, plen).tolist() for _ in range(n)]
+    kw = dict(spec_decode=True, spec_k=TP_SPEC_K, spec_adaptive_k=False) if spec else {}
     eng = Engine(params, cfg, max_slots=n, max_len=TP_SERVE_LEN, eos_token_id=None,
-                 sampling=SamplingParams(temperature=0.0), device=dev, mesh=mesh)
+                 sampling=SamplingParams(temperature=0.0), device=dev, mesh=mesh, graphs=graphs,
+                 **kw)
+    if spec:
+        eng.spec_min_accept = -1.0  # every round verifies: the verify keys replay
     torch.cuda.synchronize()
     reset_counts()
+    stats = dict(BOUNDARY_STATS)
     t0 = time.time()
-    outs = eng.generate(prompts, new)
-    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:  # torch warns at an empty capture
+        warnings.simplefilter("always")
+        outs = eng.generate(prompts, new)
+        torch.cuda.synchronize()
     wall = time.time() - t0
     route = f"{eng.route}, admission {eng.route}"
-    return dict(prompts=prompts, outs=outs, launches=read_counts(), wall_s=wall, route=route,
-                decode_steps=eng.decode_steps, prefills=eng.prefills,
-                growths=list(eng.growths), cache_len=eng._cache_len(),
-                cache_shape=list(eng.cache.k.shape))
+    out = dict(prompts=prompts, outs=outs, launches=read_counts(), wall_s=wall, route=route,
+               decode_steps=eng.decode_steps, prefills=eng.prefills,
+               verify_forwards=dict(eng.spec_forwards), growths=list(eng.growths),
+               cache_len=eng._cache_len(), cache_shape=list(eng.cache.k.shape),
+               host_split=tp_host_split(eng, wall, stats),
+               empty_graphs=sum("CUDA Graph is empty" in str(w.message) for w in seen))
+    if eng._graphs is not None:
+        segs = eng._graphs.segments()
+        out.update(segments={repr(k): v for k, v in segs.items()},
+                   pieces={repr(k): piece(k) for k in segs}, graphs=sum(segs.values()),
+                   capture_s=eng._graphs.capture_s, replays=eng._graphs.replays)
+    return out
+
+
+def tp_host_split(eng, wall: float, before: dict) -> dict:
+    """How a run's host seconds divide: the replays of the segments, the
+    boundary operations (issued between segments by a replay, or eagerly:
+    the eager route's, and a key's first use), and the rest (captures, the
+    eager route's launches, the host loop)."""
+    ops = {k: BOUNDARY_STATS[k] - before[k] for k in before}
+    replay_s = eng._graphs.replay_s if eng._graphs is not None else 0.0
+    segments_s = replay_s - ops["replayed_s"]
+    boundary_s = ops["replayed_s"] + ops["eager_s"]
+    return dict(total_s=wall, segments_s=segments_s, boundary_s=boundary_s,
+                rest_s=wall - segments_s - boundary_s,
+                boundary_calls=ops["replayed_calls"] + ops["eager_calls"])
+
+
+def tp_admission_pool(mesh, dev) -> dict:
+    """The graphs' pool of an engine over the mesh (TP_POOL_CFG's tp slice,
+    8 slots, a static 2048-row cache) after one admission at every prompt
+    bucket from TP_POOL_MIN_BUCKET and every group size up to GRAPH_ROWS
+    rows (each key's first use eager, then captured), read after each
+    bucket; then every group again, replayed with the other keys' captures
+    in the same pool, its first tokens equal to its first use's and nothing
+    captured. An operation between segments holds its buffers as views the
+    pool reuses, so the pool stays near one prefill's transients; held
+    buffers would pin each prefill key's 2L + 1 f32 sums of rows x hidden
+    (`pinned_sums_bytes`)."""
+    cfg = TP_POOL_CFG
+    whole = random_packed_params(cfg, bits=BITS, group_size=GROUP, seed=5, device=dev,
+                                 fuse=False)
+    shard = shard_packed_model(whole, mesh, cfg)
+    del whole
+    eng = Engine(shard, cfg, max_slots=8, max_len=2048, eos_token_id=None,
+                 sampling=SamplingParams(temperature=0.0), grow_cache=False, device=dev,
+                 mesh=mesh)
+    table = eng._graphs
+    rng = np.random.default_rng(6)
+    groups = [(b, nb) for b in eng.buckets if b >= TP_POOL_MIN_BUCKET for nb in (1, 2, 4, 8)
+              if nb * b <= GRAPH_ROWS]
+    prompts = {g: [rng.integers(3, cfg.vocab_size, g[0]).tolist() for _ in range(g[1])]
+               for g in groups}
+    firsts, by_bucket = {}, {}
+    t0 = time.time()
+    for g in groups:
+        firsts[g] = eng.generate(prompts[g], 1)
+        torch.cuda.synchronize()
+        by_bucket[g[0]] = pool_bytes(table.capture.pool)
+    first_s, captured = time.time() - t0, len(table.captured)
+    t0 = time.time()
+    again = {g: eng.generate(prompts[g], 1) for g in groups}
+    torch.cuda.synchronize()
+    out = dict(groups=groups, pool_bytes_by_bucket=by_bucket,
+               pool_bytes=pool_bytes(table.capture.pool), captured=captured,
+               after=len(table.captured), prefill_keys=sum(("prefill", b, nb) in table.graphs
+                                                           for b, nb in groups),
+               replays_equal=again == firsts, first_s=first_s, replay_s=time.time() - t0,
+               capture_s=table.capture_s, rows_bytes=sum(t.nbytes for t in eng._rows or ()),
+               graph_rows_bytes=graph_rows_bytes(cfg, mesh.tp), firsts=list(firsts.values()),
+               pinned_sums_bytes=sum((2 * cfg.num_layers + 1) * b * nb * cfg.hidden_size * 4
+                                     for b, nb in groups))
+    del eng, shard
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_segments(kind: str, layers: int, tp: int, ring: bool = False) -> int:
+    """Segments of one key of the Llama engine over a mesh, from the code
+    (serve/engine.py): a step or verify round reaches the embedding's
+    all-reduce, o's and down's in each layer (under the ring, 3 (tp - 1)
+    hops' operations each, parallel/overlap.py), the logits' all-gather and the tokens'
+    broadcast over tp; a prefill or tail prefill all but the broadcast; a
+    commit the first tokens' broadcast from global rank 0; an insert none.
+    A chain has one segment more than its operations."""
+    if kind == "insert":
+        return 1
+    if kind == "commit":
+        return 2
+    if tp == 1:
+        return 1
+    per = 3 * (tp - 1) if ring else 1
+    return 3 + 2 * layers * per + (kind in STEP_PIECES)
+
+
+def tp_engine_warm(params, cfg, mesh, dev) -> dict:
+    """`warmup()` of an engine over the mesh (max_len TP_WARM_LEN, prompt
+    length TP_SERVE[1]), then live requests: TP_SERVE[0] - 1 random
+    prompts and one with a per-request (greedy) sampling override, one
+    admission group, TP_WARM_NEW new tokens each. Returns the keys
+    captured by the warmup and after it, the graphs, the capture seconds."""
+    n, plen, _ = TP_SERVE
+    eng = Engine(params, cfg, max_slots=n, max_len=TP_WARM_LEN, eos_token_id=None,
+                 sampling=SamplingParams(temperature=0.0), device=dev, mesh=mesh)
+    t0 = time.time()
+    eng.warmup(prompt_len=plen)
+    torch.cuda.synchronize()
+    warm_s = time.time() - t0
+    table = eng._graphs
+    captured, capture_s = len(table.captured), table.capture_s
+    segs = table.segments()
+    rng = np.random.default_rng(4)
+    reqs = [Request(prompt_tokens=rng.integers(3, cfg.vocab_size, plen).tolist(),
+                    max_new_tokens=TP_WARM_NEW) for _ in range(n - 1)]
+    reqs.append(Request(prompt_tokens=rng.integers(3, cfg.vocab_size, plen).tolist(),
+                        max_new_tokens=TP_WARM_NEW, sampling=SamplingParams(temperature=0.0)))
+    t0 = time.time()
+    eng.run(reqs)
+    torch.cuda.synchronize()
+    return dict(route=f"{eng.route}, admission {eng.route}", warm_s=warm_s, captured=captured,
+                after=len(table.captured), capture_s=capture_s, graphs=sum(segs.values()),
+                kinds=sorted({piece(k) for k in segs}), live_s=time.time() - t0,
+                pool_bytes=torch.cuda.memory_stats().get("reserved_bytes.all.current", 0),
+                outs=[r.output_tokens for r in reqs])
+
+
+def nccl_probe(rank: int, port: int, tmp: Path) -> None:
+    """A finding for whole-step capture (A3j), no route's: on an NCCL group
+    of one rank, all_reduce, all_gather and broadcast of CUDA tensors run
+    eagerly, then captured in one CUDA graph and replayed on new inputs;
+    writes tmp/nccl_probe.pt with whether each replay gave the eager
+    values, or the error that stopped it."""
+    import torch.distributed as dist
+
+    out: dict = {"captured": False}
+    try:
+        torch.cuda.set_device(0)
+        dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1,
+                                rank=0)
+        out["nccl"] = ".".join(map(str, torch.cuda.nccl.version()))
+        x = torch.arange(4096, dtype=torch.float32, device="cuda")
+        parts = [torch.empty_like(x)]
+        b = torch.empty_like(x)
+
+        def ops():
+            y = x * 3.0
+            dist.all_reduce(y)
+            dist.all_gather(parts, y + 1.0)
+            b.copy_(y - 1.0)
+            dist.broadcast(b, src=0)
+            return y
+
+        want = ops().clone(), parts[0].clone(), b.clone()  # eager, also NCCL's warm-up
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            y = ops()
+        out["captured"] = True
+        x.copy_(torch.arange(4096, dtype=torch.float32, device="cuda").flip(0))
+        want_new = ops().clone(), parts[0].clone(), b.clone()
+        x.copy_(torch.arange(4096, dtype=torch.float32, device="cuda"))
+        graph.replay()
+        torch.cuda.synchronize()
+        got = y, parts[0], b
+        out["replay_equal"] = {name: bool(torch.equal(g, w)) for name, g, w in
+                               zip(("all_reduce", "all_gather", "broadcast"), got, want)}
+        x.copy_(torch.arange(4096, dtype=torch.float32, device="cuda").flip(0))
+        graph.replay()
+        torch.cuda.synchronize()
+        out["replay_follows_inputs"] = all(torch.equal(g, w) for g, w in
+                                           zip((y, parts[0], b), want_new))
+    except Exception as err:  # the finding: what stopped the capture or the replay
+        out["error"] = f"{type(err).__name__}: {err}"[:400]
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    torch.save(out, tmp / "nccl_probe.pt")
+
+
+def tp_nccl_probe(tmp: Path) -> dict:
+    """`nccl_probe` in a process of its own, killed at TP_PROBE_TIMEOUT_S."""
+    import torch.multiprocessing as mp
+
+    t0 = time.time()
+    ctx = mp.start_processes(nccl_probe, args=(free_port(), tmp), nprocs=1, join=False,
+                             start_method="spawn")
+    deadline = time.time() + TP_PROBE_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=1):
+            if time.time() > deadline:
+                return dict(error=f"not done in {TP_PROBE_TIMEOUT_S} s", captured=False)
+    except Exception as err:
+        return dict(error=f"the probe's process failed: {err}"[:400], captured=False)
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+    out = torch.load(tmp / "nccl_probe.pt", weights_only=False)
+    out["wall_s"] = time.time() - t0
+    return out
 
 
 def tp_pipeline(whole, cfg, dev) -> dict:
@@ -4372,10 +4599,14 @@ def tp_rank(rank: int, world: int, port: int, tmp: Path) -> None:
     the packed 7B decode (`tp_decode`) on the rank's tp slice of
     TP_DECODE_CFG, again under BITDISTILLER_RING_TP=1 (o and down through
     the ring) and under BITDISTILLER_QMM_A8=1, the engine over the tp group
-    (`tp_engine`, A16 then A8), GPipe at pp = 2 (`tp_pipeline`), and
-    run_training of TP_TRAIN_CFG at tp = 2 through B8, each with its launch
-    counts. Writes tmp/rank{r}.pt (rank 0 also its final master and train
-    config)."""
+    (`tp_engine`, A16 then A8, speculative, and under the ring), each on its
+    default route (graphs) and beside it its eager twin (graphs=False), the
+    engine after its warmup (`tp_engine_warm`), the graphs' pool after an
+    admission at every bucket and group (`tp_admission_pool`), the engine over the same
+    ranks as dp = 2, tp = 1 (both routes), GPipe at pp = 2
+    (`tp_pipeline`), and run_training of TP_TRAIN_CFG at tp = 2 through
+    B8, each with its launch counts. Writes tmp/rank{r}.pt (rank 0 also its
+    final master and train config)."""
     dev = torch.device(DEV, 0)
     torch.cuda.set_device(dev)
     init_distributed(f"127.0.0.1:{port}", world, rank, device=DEV, backend="gloo")
@@ -4400,14 +4631,28 @@ def tp_rank(rank: int, world: int, port: int, tmp: Path) -> None:
             os.environ.pop("BITDISTILLER_RING_TP")
         out["ring_leaves"] = len(mesh.ring_cache)
         out["transport"] = p2p_transport(forced.to(dev), mesh.tp_group)
-        out["engine"] = tp_engine(shard, cfg, mesh, dev)
+        for graphs, tag in ((None, ""), (False, "_eager")):
+            out["engine" + tag] = tp_engine(shard, cfg, mesh, dev, graphs=graphs)
+            out["engine_spec" + tag] = tp_engine(shard, cfg, mesh, dev, graphs=graphs, spec=True)
+        os.environ["BITDISTILLER_RING_TP"] = "1"
+        try:
+            for graphs, tag in ((None, ""), (False, "_eager")):
+                out["engine_ring" + tag] = tp_engine(shard, cfg, mesh, dev, graphs=graphs)
+        finally:
+            os.environ.pop("BITDISTILLER_RING_TP")
+        out["engine_warm"] = tp_engine_warm(shard, cfg, mesh, dev)
+        out["engine_pool"] = tp_admission_pool(mesh, dev)
         os.environ[qm.A8_ENV] = "1"
         try:
-            out["engine_a8"] = tp_engine(shard, cfg, mesh, dev)
+            for graphs, tag in ((None, ""), (False, "_eager")):
+                out["engine_a8" + tag] = tp_engine(shard, cfg, mesh, dev, graphs=graphs)
             out["decode_a8"] = tp_decode(qm.maybe_repack_a8(shard), cfg, mesh, dev,
                                          forced=forced)
         finally:
             os.environ.pop(qm.A8_ENV)
+        dp_mesh = make_mesh(dp=2, tp=1)  # the same two ranks, each slot a dp rank's own
+        for graphs, tag in ((None, ""), (False, "_eager")):
+            out["engine_dp" + tag] = tp_engine(whole, cfg, dp_mesh, dev, graphs=graphs)
         out["pipeline"] = tp_pipeline(whole, cfg, dev)
         del shard, whole
         torch.cuda.empty_cache()
@@ -4539,11 +4784,12 @@ def tp_phase(gen, bw, card, rec) -> dict:
         ties = tie_rule(whole, cfg, ref_engine["prompts"], ref_engine["outs"],
                         ranks[0]["engine"]["outs"], a16_err, "tp engine A16: tp = 2 vs one process")
         routes = [r[k]["route"] for r in ranks for k in ("engine", "engine_a8")]
-        say(f"tp engine routes: the ranks' {routes} (under a mesh: eager), one process "
-            f"{ref_engine['route']} / {ref_engine_a8['route']}")
-        if (set(routes) != {"eager, admission eager"}
+        say(f"tp engine routes: the ranks' {routes} (under a mesh: graphs by default), one "
+            f"process {ref_engine['route']} / {ref_engine_a8['route']}")
+        if (set(routes) != {"graphs, admission graphs"}
                 or {ref_engine["route"], ref_engine_a8["route"]} != {"graphs, admission graphs"}):
             raise AssertionError(f"tp engine: routes {routes}, one process {ref_engine['route']}")
+        probe = tp_nccl_probe(tmp)
         del whole
         os.environ["BITDISTILLER_TRAIN_FLASH"] = "1"
         params = init_params(TP_TRAIN_CFG, seed=0, dtype=torch.bfloat16, device=DEV)
@@ -4608,7 +4854,8 @@ def tp_phase(gen, bw, card, rec) -> dict:
                        reference_launches=ref_a8[2], logit_err=a8_err, logit_scale=a8_scale,
                        step_ms=[r["decode_a8"][3] for r in ranks], reference_step_ms=ref_a8[3]),
         pipeline=dict(ranks=[r["pipeline"] for r in ranks], predicted=want_pp, tol=LOGIT_TOL),
-        **engines)
+        nccl_probe=probe, **engines)
+    out["graph_route"] = tp_graph_route(ranks, L, card)
     rec.update(out)
     for r in ranks:
         got = {k: r["decode"][2][k] for k in want_dec}
@@ -4711,12 +4958,137 @@ def tp_phase(gen, bw, card, rec) -> dict:
             f"{e['predicted']}, {e['decode_steps'][0]} decode steps); growths {e['growths']}, "
             f"cache {e['cache_shape']}; {e['wall_s'][0]:.2f} s at tp = 2, "
             f"{e['reference_wall_s']:.2f} s in one process (host clock)")
+    if probe.get("error"):
+        finding = f"failed: {probe['error']}"
+    else:
+        finding = (f"replays equal to the eager values {probe['replay_equal']}, a replay "
+                   f"follows new inputs {probe['replay_follows_inputs']}")
+    say(f"tp NCCL capture probe (A3j's question, no route depends on it; {card}): all_reduce, "
+        f"all_gather and broadcast on an NCCL group of one rank (NCCL "
+        f"{probe.get('nccl', '?')}) captured in one CUDA graph: captured {probe['captured']}, "
+        f"{finding}")
     p0 = out["pipeline"]["ranks"][0]
     say(f"tp GPipe at pp = 2 ({TP_PP_TOKENS[0]} x {TP_PP_TOKENS[1]} tokens, n_micro "
         f"{TP_PP_MICRO}, transport {p0['transport']}): logits {p0['err']:.4g} from one process's "
         f"(max {p0['scale']:.4g}, tol {LOGIT_TOL}); launches a rank "
         f"{ {k: p0['launches'][k] for k in want_pp} } (predicted {want_pp}); {p0['wall_s']:.3f} s")
     return out
+
+
+def tp_graph_route(ranks, layers: int, card: str) -> dict:
+    """The engine's graph route over the mesh (A3i) on both ranks: each run
+    (A16, speculative, the ring, A8, dp = 2 x tp = 1) on the route
+    "graphs, admission graphs" beside its eager twin on the same ranks:
+    the same tokens bit for bit, launch counts equal and equal to the ones
+    predicted from what the engine ran, every key's segments as
+    `tp_segments` predicts, the ranks' streams equal; and the warmed
+    engine's live requests capturing nothing. Prints each run's host
+    seconds split into segment replays, boundary operations and the rest,
+    on both routes."""
+    steps = tp_engine_steps(TP_SERVE[2])
+    L = layers
+    predicted = {"engine": tp_engine_predicted(L, False), "engine_a8": tp_engine_predicted(L, True),
+                 "engine_dp": tp_engine_predicted(L, False),
+                 "engine_ring": dict(qmm_prefill=9 * L, qmm_decode=9 * L * steps, qmm_a8=0,
+                                     flash_decode=L * steps)}
+    meshes = {"engine": 2, "engine_spec": 2, "engine_ring": 2, "engine_a8": 2, "engine_dp": 1}
+    runs = {}
+    for key, tp in meshes.items():
+        graph, eager = [r[key] for r in ranks], [r[key + "_eager"] for r in ranks]
+        g0 = graph[0]
+        if key == "engine_spec":
+            verify = sum(g0["verify_forwards"].values())
+            want = dict(qmm_prefill=7 * L * (g0["prefills"] + verify),
+                        qmm_decode=7 * L * g0["decode_steps"], qmm_a8=0,
+                        flash_decode=L * g0["decode_steps"])
+        else:
+            want = predicted[key]
+        for r, (g, e) in enumerate(zip(graph, eager)):
+            what = f"tp graph route {key}, rank {r}"
+            if (g["route"], e["route"]) != ("graphs, admission graphs", "eager, admission eager"):
+                raise AssertionError(f"{what}: routes {g['route']} / {e['route']}")
+            if g["outs"] != e["outs"] or g["outs"] != graph[0]["outs"]:
+                raise AssertionError(f"{what}: tokens differ from the eager twin's or rank 0's")
+            if g["launches"] != e["launches"] or {k: g["launches"][k] for k in want} != want:
+                raise AssertionError(f"{what}: launches {g['launches']}, eager {e['launches']}, "
+                                     f"predicted {want}")
+            if (g["decode_steps"], g["verify_forwards"]) != (e["decode_steps"],
+                                                              e["verify_forwards"]):
+                raise AssertionError(f"{what}: ran other steps than its eager twin")
+            bad = {k: n for k, n in g["segments"].items()
+                   if n != tp_segments(g["pieces"][k], L, tp, key == "engine_ring")}
+            if bad or (key == "engine_spec" and "verify" not in g["pieces"].values()):
+                raise AssertionError(f"{what}: segments {bad} not as predicted ({g['segments']})")
+            if g["empty_graphs"]:
+                raise AssertionError(f"{what}: {g['empty_graphs']} segments captured no work")
+        runs[key] = dict(launches=[g["launches"] for g in graph],
+                         eager_launches=[e["launches"] for e in eager], predicted=want,
+                         segments=g0["segments"], graphs=[g["graphs"] for g in graph],
+                         capture_s=[g["capture_s"] for g in graph],
+                         host_split=[g["host_split"] for g in graph],
+                         eager_host_split=[e["host_split"] for e in eager],
+                         wall_s=[g["wall_s"] for g in graph],
+                         eager_wall_s=[e["wall_s"] for e in eager],
+                         decode_steps=g0["decode_steps"], verify_forwards=g0["verify_forwards"])
+        by_kind = collections.defaultdict(set)
+        for k, n in g0["segments"].items():
+            by_kind[g0["pieces"][k]].add(n)
+        hs, he = g0["host_split"], eager[0]["host_split"]
+        where = "dp = 2, tp = 1" if tp == 1 else "tp = 2"
+        say(f"tp graph route {key} (Llama-2-7B 2 layers, {where}, two ranks over gloo; {card}): "
+            f"tokens equal to the eager twin's on both ranks, "
+            f"launches equal and as predicted {want}; segments by kind "
+            f"{ {k: sorted(v) for k, v in sorted(by_kind.items())} }, {g0['graphs']} graphs, none "
+            f"empty, "
+            f"capture {g0['capture_s']:.2f} s; rank 0 host s: graphs {hs['total_s']:.3f} = "
+            f"segment replays {hs['segments_s']:.3f} + boundary ops {hs['boundary_s']:.3f} "
+            f"({hs['boundary_calls']} calls) + rest {hs['rest_s']:.3f}; eager {he['total_s']:.3f} "
+            f"= boundary ops {he['boundary_s']:.3f} ({he['boundary_calls']} calls) + rest "
+            f"{he['rest_s']:.3f}")
+    warm = [r["engine_warm"] for r in ranks]
+    for r, w in enumerate(warm):
+        if w["after"] != w["captured"] or w["route"] != "graphs, admission graphs":
+            raise AssertionError(f"tp warmup, rank {r}: {w['after'] - w['captured']} keys "
+                                 f"captured by live requests after warmup ({w['route']})")
+        if w["outs"] != warm[0]["outs"]:
+            raise AssertionError("tp warmup: the ranks' live streams differ")
+    w0 = warm[0]
+    say(f"tp warmup over the mesh (tp = 2, max_len {TP_WARM_LEN}, prompts of {TP_SERVE[1]}; "
+        f"{card}): {w0['warm_s']:.1f} s, {w0['captured']} keys captured ({w0['kinds']}), "
+        f"{w0['graphs']} graphs, capture {w0['capture_s']:.2f} s, reserved "
+        f"{w0['pool_bytes'] / 2**20:.0f} MiB; {TP_SERVE[0]} live requests after it (one with a "
+        f"per-request override) captured {w0['after'] - w0['captured']} keys in "
+        f"{w0['live_s']:.2f} s")
+    pools = [r["engine_pool"] for r in ranks]
+    for r, p in enumerate(pools):
+        what = f"tp admission pool, rank {r}"
+        if not p["replays_equal"] or p["after"] != p["captured"] or p["firsts"] != pools[0][
+                "firsts"]:
+            raise AssertionError(f"{what}: replays equal {p['replays_equal']}, "
+                                 f"{p['after'] - p['captured']} keys captured by the replays, "
+                                 f"or the ranks' first tokens differ")
+        if (p["prefill_keys"] != len(p["groups"]) or p["pool_bytes"] > ADMIT_POOL_LIMIT
+                or p["pool_bytes"] * 2 > p["pinned_sums_bytes"]
+                or p["rows_bytes"] != p["graph_rows_bytes"]):
+            raise AssertionError(f"{what}: {p['prefill_keys']} prefill keys of "
+                                 f"{len(p['groups'])}, pool {p['pool_bytes']} bytes (limit "
+                                 f"{ADMIT_POOL_LIMIT}, half the pinned sums "
+                                 f"{p['pinned_sums_bytes'] // 2}), rows {p['rows_bytes']} "
+                                 f"(capacity counts {p['graph_rows_bytes']})")
+    p0 = pools[0]
+    say(f"tp admission pool over the mesh (Llama-2-7B widths, {TP_POOL_CFG.num_layers} layers, "
+        f"tp = 2, 8 slots, a static 2048-row cache; {card}): {len(p0['groups'])} admissions "
+        f"{[f'{nb}x{b}' for b, nb in p0['groups']]}, each key's first use eager and captured "
+        f"({p0['captured']} keys, capture {p0['capture_s']:.2f} s, {p0['first_s']:.1f} s), "
+        f"then replayed ({p0['replay_s']:.1f} s): first tokens equal to the first uses' on "
+        f"both ranks, nothing captured; the graphs' pool after each bucket "
+        + ", ".join(f"{b}: {v / 2**20:.1f}" for b, v in p0["pool_bytes_by_bucket"].items())
+        + f" MiB, after the replays {p0['pool_bytes'] / 2**20:.1f} MiB (rank 1 "
+        f"{pools[1]['pool_bytes'] / 2**20:.1f}); holding the operations' buffers would pin "
+        f"the f32 sums alone, {p0['pinned_sums_bytes'] / 2**20:.1f} MiB; engine-owned rows "
+        f"{p0['rows_bytes'] / 2**20:.1f} MiB (capacity counts "
+        f"{p0['graph_rows_bytes'] / 2**20:.1f})")
+    return dict(runs=runs, warm=warm, pool=pools)
 
 
 def sass_phase(rc: int, out: str, err: str) -> dict:
@@ -4977,6 +5349,9 @@ def run() -> int:
                 "decode_a8": tp_out["decode_a8"], "engine": tp_out["engine"],
                 "engine_a8": tp_out["engine_a8"],
                 "pipeline": {"launches": [p["launches"] for p in tp_out["pipeline"]["ranks"]]}}
+        for key, run in tp_out["graph_route"]["runs"].items():  # A3i's runs, by route
+            runs.setdefault(key, {"launches": run["launches"]})
+            runs[key + "_eager"] = {"launches": run["eager_launches"]}
         return {f"rank{r}": {k: dict({name: run["launches"][r].get(k, 0)
                                       for name, run in runs.items()},
                                      dryrun=dry["dryrun_launches"].get(k, 0)) for k in kinds}

@@ -15,6 +15,7 @@ import bitdistiller_tpu.models.config as jconfig
 from bitdistiller_tpu.serve import capacity as jcap
 from bitdistiller_tpu_torch.models import KVCache, init_params, pack_model
 from bitdistiller_tpu_torch.serve import capacity as tcap
+from bitdistiller_tpu_torch.serve import engine as engine_mod
 from chip_smoke import FAMILIES
 from torch_port_util import torch_cfg
 
@@ -54,12 +55,12 @@ def test_capacity_equals_jax(name):
             assert _eager(tcap.serve_capacity(tc, kv_dtype=td, graphs=False, **kw)) == (
                 jcap.serve_capacity(jc, kv_dtype=jd, **kw))
     kw = dict(group_size=g, hbm_bytes=16 * GiB, tp=2, prompt_cache_bytes=GiB)
-    assert _eager(tcap.serve_capacity(tc, **kw)) == jcap.serve_capacity(jc, **kw)
+    assert _eager(tcap.serve_capacity(tc, graphs=False, **kw)) == jcap.serve_capacity(jc, **kw)
 
 
 def _eager(cap: dict) -> dict:
     """The plan without the graph route's rows, which JAX's has no key for
-    (none under graphs=False or tp > 1)."""
+    (none under graphs=False)."""
     cap = dict(cap)
     assert cap.pop("graph_rows_bytes") == 0
     return cap
@@ -75,6 +76,21 @@ def test_graph_route_counts_its_prefill_rows():
     assert on["graph_rows_bytes"] == GiB
     assert off["budget_bytes"] - on["budget_bytes"] == GiB
     assert on["max_slots"] <= off["max_slots"]
+
+
+def test_graph_route_counts_a_tp_rank_prefill_rows():
+    """Under a mesh the engine takes the graph route too: at tp = 2 a 7B
+    rank's prefill rows hold its 16 kv heads, half a GiB, out of its
+    budget; the rest of the plan is the eager one's."""
+    cfg = torch_cfg(PRESETS["LLAMA2_7B"])
+    kw = dict(hbm_bytes=80 * GiB, tp=2)
+    on = tcap.serve_capacity(cfg, **kw)
+    off = tcap.serve_capacity(cfg, graphs=False, **kw)
+    assert on["graph_rows_bytes"] == engine_mod.graph_rows_bytes(cfg, 2) == GiB // 2
+    assert off["budget_bytes"] - on["budget_bytes"] == GiB // 2
+    assert on["max_slots"] <= off["max_slots"]
+    for key in ("weights_bytes", "kv_bytes_per_slot"):
+        assert on[key] == off[key]
 
 
 @pytest.mark.parametrize("kv", sorted(KV))

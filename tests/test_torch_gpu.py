@@ -145,6 +145,58 @@ def test_replayed_steps_equal_eager_ones(gen, mode):
     assert replayed._graphs.replays > 0
 
 
+def test_replayed_mesh_steps_equal_eager_ones(gen):
+    """The engine over a tp = 2 mesh of two gloo ranks on the one card
+    replays its pieces as chains of graphs split at each operation (A3i):
+    on both ranks, without and with the ring, its tokens (greedy,
+    speculative, sampled, a stored prompt's hit and tail prefill) and
+    launch counts equal its eager twin's, every key has the segments worked
+    out from the code, none of which captured no work, and the ranks'
+    streams are equal."""
+    from test_torch_dp_worker import spawn
+    from torch_tp_worker import predicted_segments
+
+    from bitdistiller_tpu_torch.serve import engine as engine_mod
+
+    cfg = dataclasses.replace(TINY_TEST, num_heads=4, num_kv_heads=2)
+    prompts = [[1, 2, 3] * 4, [4, 5], [7] * 20, list(range(3, 40))]
+    ranks = spawn({"kind": "call", "target": "torch_tp_worker:card_engine_job", "cfg": cfg,
+                   "prompts": prompts}, world=2)
+    for out in ranks:
+        for ring in ("0", "1"):
+            replayed, twin = out[ring, "graphs"], out[ring, "eager"]
+            assert replayed["streams"] == twin["streams"] == ranks[0][ring, "graphs"]["streams"]
+            assert replayed["counts"] == twin["counts"] and any(twin["counts"])
+            assert replayed["prefix_hits"] == twin["prefix_hits"] == 1
+            assert replayed["empty"] == 0
+            kinds = {engine_mod.piece(k) for k in replayed["segments"]}
+            assert {"prefill", "insert", "commit", "extend", "uniform", "verify"} == kinds
+            for key, n in replayed["segments"].items():
+                assert n == predicted_segments(engine_mod.piece(key), cfg.num_layers, 2,
+                                               ring == "1"), key
+
+
+def test_unowned_views_the_memory_and_holds_none(gen):
+    """`distributed.unowned` reads and writes the tensor's elements (a
+    strided bf16 view too), and the memory is freed once the tensor is
+    dropped, although the view lives on."""
+    from bitdistiller_tpu_torch.parallel.distributed import unowned
+
+    base = torch.randn(64, 96, device="cuda", dtype=torch.bfloat16, generator=gen)
+    t = base[8:40, 16:80]
+    view = unowned(t)
+    assert view.shape == t.shape and view.stride() == t.stride() and torch.equal(view, t)
+    view.add_(1)
+    assert torch.equal(view, t) and torch.equal(base[8:40, 16:80], t)
+    del base, t
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    big = torch.empty(1 << 24, device="cuda")
+    view = unowned(big)
+    del big
+    assert torch.cuda.memory_allocated() == before and view.numel() == 1 << 24
+
+
 @pytest.mark.parametrize("cache,a8", [("bf16", False), ("int8", False), ("bf16", True)],
                          ids=["bf16", "int8", "bf16-a8"])
 def test_replayed_admission_equals_eager(gen, cache, a8, monkeypatch):

@@ -14,8 +14,22 @@ token (f32, int8 and bf16 caches), as JAX's own sharded test demands;
 sampled at temperature 0.8 from a seed, every rank's streams equal each
 other's. `stop_check` verdicts are rank 0's on every rank. A max_slots
 that dp does not divide is refused. The A8 engine's repack of a rank's
-slice is the slice of a whole-leaf repack."""
+slice is the slice of a whole-leaf repack.
 
+Each case also runs on the graph route, in the same spawn, with the
+segmented stand-in of tests/torch_tp_worker.py (`segmented_stand_in`: the
+engine's table and chains, a capture through `distributed.segmented` that
+issues no operation, a replay that runs the body segment by segment with
+each recorded operation issued between two and checked against the live
+call): its streams equal JAX's unsharded ones and the eager route's on
+every rank, token for token, and its launch counters move as the eager
+route's. Each key has the segments worked out from the code
+(`predicted_segments`: 2L + 4 a step at tp = 2, 2L + 3 a prefill, 2 a
+commit, 1 an insert; one a step at dp = 2, tp = 1; the ring's 3 (tp - 1)
+operations a matmul), growth drops the rank's keys of the cache it
+replaced, and after `warmup()` live traffic captures nothing."""
+
+import concurrent.futures
 import dataclasses
 
 import jax
@@ -33,8 +47,10 @@ from bitdistiller_tpu_torch.ops.quant_matmul import quant_matmul_a8, repack_line
 from bitdistiller_tpu_torch.parallel.mesh import (Mesh, packed_param_specs, shard_packed_model,
                                                   take)
 from bitdistiller_tpu_torch.serve import Engine, Request, SamplingParams
+from bitdistiller_tpu_torch.serve import engine as engine_mod
 from test_torch_dp_worker import spawn
 from torch_port_util import to_numpy_tree, torch_cfg
+from torch_tp_worker import predicted_segments
 
 JCFG = dataclasses.replace(TINY_TEST, dtype="float32")
 TCFG = torch_cfg(JCFG)
@@ -53,13 +69,23 @@ def jpacked():
     return pack_model(params, JCFG, bits=4, group_size=64, fuse=False)
 
 
+class _Worlds(dict):
+    """Each mesh's ranks' results, waited for at first use: the worlds run
+    at once, beside the JAX engines that `want` builds meanwhile."""
+
+    def __getitem__(self, name):
+        return super().__getitem__(name).result()
+
+
 @pytest.fixture(scope="module")
 def ranks(jpacked):
     packed = params_from_numpy(to_numpy_tree(jpacked), "cpu")
     job = {"kind": "call", "target": "torch_tp_worker:engine_job", "cfg": TCFG,
            "packed": packed, "prompts": PROMPTS, "prompts5": PROMPTS5,
            "spec_prompts": SPEC_PROMPTS, "cached_prompt": CACHED, "stop_token": STOP_TOKEN}
-    return {name: spawn(dict(job, tp=tp), world=world) for name, (world, tp) in MESHES.items()}
+    with concurrent.futures.ThreadPoolExecutor(len(MESHES)) as pool:
+        yield _Worlds({name: pool.submit(spawn, dict(job, tp=tp), world=world)
+                       for name, (world, tp) in MESHES.items()})
 
 
 def _jax(jpacked, dtype=jnp.float32, max_len=32):
@@ -74,10 +100,14 @@ def want(jpacked):
     jeng = _jax(jpacked)
     r = JaxRequest(prompt_tokens=CACHED, max_new_tokens=6)
     jeng.run([r])
+    warm = [JaxRequest(prompt_tokens=p, max_new_tokens=12) for p in SPEC_PROMPTS]
+    warm.append(JaxRequest(prompt_tokens=[3, 4], max_new_tokens=9))
+    _jax(jpacked, max_len=64).run(warm)
     return {"f32": jeng.generate(PROMPTS, 6), "http": jeng.generate(PROMPTS[:2], 6),
             "cached": r.output_tokens, "spec": jeng.generate(SPEC_PROMPTS, 10),
             "int8": _jax(jpacked, jnp.int8).generate(PROMPTS, 6),
-            "growth": _jax(jpacked, jnp.bfloat16, max_len=128).generate(PROMPTS5, 24)}
+            "growth": _jax(jpacked, jnp.bfloat16, max_len=128).generate(PROMPTS5, 24),
+            "warm": [w.output_tokens for w in warm]}
 
 
 @pytest.mark.parametrize("mesh", sorted(MESHES))
@@ -139,6 +169,106 @@ def test_stop_check_verdicts_are_rank0s(ranks, want, jpacked, mesh):
     assert any(reason == "stop" for _, reason in expected)
     for out in ranks[mesh]:
         assert out["stop_check"] == expected
+
+
+@pytest.mark.parametrize("mesh", sorted(MESHES))
+@pytest.mark.parametrize("case", ["f32", "int8", "http", "growth"])
+def test_graph_route_streams_equal_jax_and_eager(ranks, want, mesh, case):
+    """The graph route (the segmented stand-in) gives JAX's unsharded greedy
+    streams and the eager route's, token for token, on every rank."""
+    for out in ranks[mesh]:
+        assert out["graphs"][case] == out[case] == want[case], out["mesh"]
+
+
+@pytest.mark.parametrize("mesh", sorted(MESHES))
+def test_graph_route_prompt_cache_spec_and_sampled(ranks, want, mesh):
+    """A prompt-cache hit, a stored prompt's tail prefill, speculative
+    decoding and sampled streams on the graph route: equal to the eager
+    route's on every rank (sampled: the generator draws alike)."""
+    sampled = [out["graphs"]["sampled"] for out in ranks[mesh]]
+    assert all(s == sampled[0] for s in sampled)
+    for out in ranks[mesh]:
+        g = out["graphs"]
+        r1, r2, hits = g["prompt_cache"]
+        assert hits == 1 and r1 == r2 == want["cached"]
+        assert g["prompt_extend"] == out["prompt_extend"] and g["prompt_extend"][1] == 1
+        assert g["spec"][True] == g["spec"][False] == want["spec"]
+        assert g["spec_rounds"] == out["spec_rounds"] > 0
+        assert g["sampled"] == out["sampled"]
+
+
+@pytest.mark.parametrize("mesh", sorted(MESHES))
+def test_graph_route_launch_counters_equal_eager(ranks, mesh):
+    """Every launch counter moves on the graph route as on the eager route
+    over the same cases: a capture's calls are set back, a replay adds its
+    key's."""
+    for out in ranks[mesh]:
+        assert out["graphs"]["counters"] == out["counters"]
+        assert any(out["counters"])
+
+
+@pytest.mark.parametrize("mesh", sorted(MESHES))
+def test_graph_route_segments_by_key(ranks, mesh):
+    """Every key the engines hold has the segments worked out from the
+    code, each piece's kind among them, and every kind replayed."""
+    _, tp = MESHES[mesh]
+    L = JCFG.num_layers
+    for out in ranks[mesh]:
+        kinds, replays = set(), 0
+        for name, t in out["graphs"]["tables"].items():
+            for key, n in t["segments"].items():
+                assert n == predicted_segments(engine_mod.piece(key), L, tp), (name, key, n)
+                kinds.add(engine_mod.piece(key))
+            replays += t["replays"]
+        assert kinds == {"prefill", "insert", "commit", "extend", "uniform", "verify"}
+        assert replays > 0
+        for key, n in out["warmup"]["segments"].items():
+            assert n == predicted_segments(engine_mod.piece(key), L, tp), key
+
+
+@pytest.mark.parametrize("mesh", sorted(MESHES))
+def test_graph_route_growth_drops_the_rank_keys(ranks, mesh):
+    """Growth (64 -> 128 rows) drops the step and insert chains of the
+    cache it replaced on every rank; prefill and commit chains stay."""
+    for out in ranks[mesh]:
+        t = out["graphs"]["tables"]["growth"]
+        old = [k for k in t["captured"] if k[0] == 64]
+        assert {engine_mod.piece(k) for k in old} >= {"uniform"}
+        assert not set(old) & set(t["segments"])
+        assert {k[0] for k in t["segments"] if not isinstance(k[0], str)} == {128}
+        assert {"prefill", "commit"} <= {engine_mod.piece(k) for k in t["segments"]}
+
+
+@pytest.mark.parametrize("mesh", sorted(MESHES))
+def test_graph_route_warmup_captures_every_kind(ranks, want, mesh):
+    """warmup() over the mesh captures every kind of key, the custom step
+    and each k's verify included; live requests after it (speculative and
+    a per-request greedy override) capture nothing and give JAX's
+    unsharded streams."""
+    for out in ranks[mesh]:
+        w = out["warmup"]
+        assert w["after"] == w["captured"] > 0
+        kinds = {engine_mod.piece(k) for k in w["segments"]}
+        assert kinds == {"prefill", "insert", "commit", "uniform", "custom", "verify"}
+        assert {k[2] for k in w["segments"] if engine_mod.piece(k) == "verify"} == set(
+            engine_mod.SPEC_K_LADDER)
+        assert w["streams"] == want["warm"]
+
+
+def test_graph_route_ring_and_dp_only(ranks):
+    """Under BITDISTILLER_RING_TP=1 (tp = 2) the chains hold the ring's
+    operations and the streams equal the eager ring's; over the same two
+    ranks as dp = 2, tp = 1 a step is one segment, and the streams equal
+    the eager route's and JAX's."""
+    L = JCFG.num_layers
+    for out in ranks["tp2"]:
+        assert out["ring"]["graphs"] == out["ring"]["eager"]
+        for key, n in out["ring_segments"].items():
+            assert n == predicted_segments(engine_mod.piece(key), L, 2, ring=True), key
+        assert out["dp_only"]["graphs"] == out["dp_only"]["eager"]
+        for key, n in out["dp_only_segments"].items():
+            assert n == predicted_segments(engine_mod.piece(key), L, 1), key
+    assert ranks["tp2"][0]["dp_only"]["eager"] == ranks["tp2"][0]["f32"]
 
 
 def test_max_slots_not_a_multiple_of_dp_is_refused(ranks):
